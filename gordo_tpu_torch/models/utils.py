@@ -1,0 +1,110 @@
+"""
+Request and response frames without pandas.
+
+:class:`Frame` is a decoded request frame (values, tag columns, time
+index). :class:`RawFrame` is the port's counterpart of the JAX package's
+``RawFrame`` (``gordo_tpu/models/utils.py``): named column groups over one
+index, whose :meth:`RawFrame.to_dict` emits exactly the layout of
+``dataframe_to_dict`` (``gordo_tpu/server/utils.py``) applied to the
+assembled response frame: ``start``/``end`` time columns, then one
+``{top: {sub: {index_key: value}}}`` block per group.
+"""
+
+import math
+import re
+from datetime import datetime, timedelta
+from typing import List, Optional, Sequence
+
+import numpy as np
+
+
+class Frame:
+    """A 2-D float block with tag columns and a row index (datetimes, or
+    integers for unlabelled rows)."""
+
+    __slots__ = ("values", "columns", "index")
+
+    def __init__(self, values: np.ndarray, columns: Sequence[str], index: Sequence):
+        self.values = np.asarray(values, np.float64)
+        self.columns = list(columns)
+        self.index = list(index)
+        if self.values.shape != (len(self.index), len(self.columns)):
+            raise ValueError(
+                f"values of shape {self.values.shape} for {len(self.index)} rows "
+                f"and {len(self.columns)} columns"
+            )
+
+
+def _is_time_index(index) -> bool:
+    return bool(index) and all(isinstance(ts, datetime) for ts in index)
+
+
+def timestamp_columns(index, frequency: Optional[timedelta]):
+    """('start', 'end') isoformat column values for a response frame."""
+    if not _is_time_index(index):
+        return [None] * len(index), [None] * len(index)
+    start = [ts.isoformat() for ts in index]
+    if frequency is None:
+        return start, [None] * len(index)
+    return start, [(ts + frequency).isoformat() for ts in index]
+
+
+_TICKS = {
+    "D": timedelta(days=1), "H": timedelta(hours=1), "h": timedelta(hours=1),
+    "T": timedelta(minutes=1), "min": timedelta(minutes=1),
+    "S": timedelta(seconds=1), "s": timedelta(seconds=1),
+    "L": timedelta(milliseconds=1), "ms": timedelta(milliseconds=1),
+    "U": timedelta(microseconds=1), "us": timedelta(microseconds=1),
+}
+
+
+def parse_resolution(resolution: str) -> timedelta:
+    """A fixed-length pandas offset alias ("10min", "10T", "1H", "30s") as
+    a timedelta."""
+    match = re.fullmatch(r"\s*(\d*)\s*([A-Za-z]+)\s*", str(resolution))
+    if not match or match.group(2) not in _TICKS:
+        raise ValueError(f"Unsupported resolution {resolution!r}")
+    return int(match.group(1) or 1) * _TICKS[match.group(2)]
+
+
+def _json_value(x):
+    return x if isinstance(x, float) and math.isfinite(x) else None
+
+
+class RawFrame:
+    """Named column groups over one shared index: ``groups`` is a list of
+    ``(top_name, sub_names, values)`` with values shaped
+    ``(n_rows, len(sub_names))``; scalar groups use ``sub_names ("",)``."""
+
+    __slots__ = ("groups", "index", "frequency")
+
+    def __init__(self, groups, index, frequency: Optional[timedelta] = None):
+        self.groups = groups
+        self.index = list(index)
+        self.frequency = frequency
+
+    def top_levels(self) -> List[str]:
+        return [top for top, _, _ in self.groups]
+
+    def drop_top_level(self, names) -> "RawFrame":
+        dropped = set(names)
+        return RawFrame(
+            [g for g in self.groups if g[0] not in dropped], self.index, self.frequency
+        )
+
+    def to_dict(self) -> dict:
+        """The ``dataframe_to_dict`` layout. Index keys are ``str(timestamp)``
+        (as pandas renders a DatetimeIndex) or the integer row labels;
+        non-finite values become ``None`` (JSON null)."""
+        if _is_time_index(self.index):
+            keys = [str(ts) for ts in self.index]
+        else:
+            keys = list(self.index)
+        start, end = timestamp_columns(self.index, self.frequency)
+        out = {"start": {"": dict(zip(keys, start))}, "end": {"": dict(zip(keys, end))}}
+        for top, subs, values in self.groups:
+            block = out.setdefault(top, {})
+            columns = np.asarray(values, np.float64).T.tolist()
+            for sub, column in zip(subs, columns):
+                block[sub] = dict(zip(keys, map(_json_value, column)))
+        return out

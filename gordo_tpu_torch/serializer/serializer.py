@@ -1,0 +1,146 @@
+"""
+The port's artifact: one directory per model holding
+
+- ``model.json``: the estimator class, the spec, the input scaler, the
+  detector's fields and thresholds, and the tags;
+- ``params.npz``: the parameters, keyed ``"{layer}/{name}"``;
+- ``metadata.json``: the build metadata the server returns and reads the
+  dataset's resolution from.
+
+Every file is written atomically (a unique temp file, then a rename), as
+``gordo_tpu/serializer/serializer.py`` writes its artifact.
+"""
+
+import io
+import json
+import os
+import tempfile
+from typing import Any, Dict, List, Optional
+
+import numpy as np
+
+from ..models.anomaly.diff import DiffBasedAnomalyDetector
+from ..models.models import ESTIMATORS
+from ..models.scaler import MinMaxScaler, Pipeline
+from ..models.spec import spec_from_dict, spec_to_dict
+
+FORMAT = "gordo_tpu_torch/1"
+
+
+def _atomic_write(final: str, data: bytes) -> None:
+    fd, tmp = tempfile.mkstemp(
+        dir=os.path.dirname(final), prefix=os.path.basename(final) + ".tmp-"
+    )
+    umask = os.umask(0)
+    os.umask(umask)
+    os.fchmod(fd, 0o666 & ~umask)
+    try:
+        with os.fdopen(fd, "wb") as f:
+            f.write(data)
+        os.replace(tmp, final)
+    except BaseException:
+        try:
+            os.unlink(tmp)
+        except OSError:
+            pass
+        raise
+
+
+def _scaler_dict(scaler: MinMaxScaler) -> Dict[str, List[float]]:
+    return {"min_": scaler.min_.tolist(), "scale_": scaler.scale_.tolist()}
+
+
+def dump(detector: DiffBasedAnomalyDetector, dest_dir: str, tags: List[str],
+         target_tags: Optional[List[str]] = None, metadata: Optional[dict] = None):
+    """Write ``detector`` (a DiffBasedAnomalyDetector over
+    ``Pipeline[MinMaxScaler, estimator]``) into ``dest_dir``."""
+    os.makedirs(dest_dir, exist_ok=True)
+    (_, input_scaler), (_, estimator) = detector.base_estimator.steps
+    model = {
+        "format": FORMAT,
+        "estimator": type(estimator).__name__,
+        "kind": estimator.kind,
+        "kwargs": estimator.kwargs,
+        "spec": spec_to_dict(estimator.spec_),
+        "input_scaler": _scaler_dict(input_scaler),
+        "detector": {
+            "scaler": _scaler_dict(detector.scaler),
+            "require_thresholds": detector.require_thresholds,
+            "window": detector.window,
+            "smoothing_method": detector.smoothing_method,
+            "feature_thresholds": (
+                None if detector.feature_thresholds_ is None
+                else detector.feature_thresholds_.tolist()
+            ),
+            "aggregate_threshold": detector.aggregate_threshold_,
+        },
+        "tags": list(tags),
+        "target_tags": list(target_tags if target_tags is not None else tags),
+    }
+    arrays = {
+        f"{i}/{name}": np.asarray(value, np.float32)
+        for i, layer in enumerate(estimator.module_.params_numpy())
+        for name, value in layer.items()
+    }
+    buf = io.BytesIO()
+    np.savez(buf, **arrays)
+    _atomic_write(os.path.join(dest_dir, "params.npz"), buf.getvalue())
+    _atomic_write(
+        os.path.join(dest_dir, "model.json"), json.dumps(model, indent=1).encode()
+    )
+    if metadata is not None:
+        _atomic_write(
+            os.path.join(dest_dir, "metadata.json"),
+            json.dumps(metadata, default=str).encode(),
+        )
+
+
+def load_params(path: str, n_layers: int) -> List[Dict[str, np.ndarray]]:
+    params: List[Dict[str, np.ndarray]] = [{} for _ in range(n_layers)]
+    with np.load(path) as npz:
+        for key in npz.files:
+            layer, name = key.split("/", 1)
+            params[int(layer)][name] = npz[key]
+    return params
+
+
+def load(source_dir: str, device=None) -> DiffBasedAnomalyDetector:
+    """Read an artifact written by :func:`dump`, with the model's
+    parameters placed on ``device`` (``cuda`` unless ``"cpu"``)."""
+    with open(os.path.join(source_dir, "model.json")) as f:
+        model = json.load(f)
+    if model.get("format") != FORMAT:
+        raise ValueError(f"{source_dir} is not a {FORMAT} artifact")
+    spec = spec_from_dict(model["spec"])
+    estimator = ESTIMATORS[model["estimator"]](model["kind"], **model["kwargs"])
+    estimator.load_params(
+        spec, load_params(os.path.join(source_dir, "params.npz"), len(spec.layers)),
+        device,
+    )
+    det = model["detector"]
+    return DiffBasedAnomalyDetector(
+        base_estimator=Pipeline([
+            ("scaler", MinMaxScaler(**model["input_scaler"])),
+            ("estimator", estimator),
+        ]),
+        scaler=MinMaxScaler(**det["scaler"]),
+        require_thresholds=det["require_thresholds"],
+        window=det["window"],
+        smoothing_method=det["smoothing_method"],
+        feature_thresholds=det["feature_thresholds"],
+        aggregate_threshold=det["aggregate_threshold"],
+    )
+
+
+def load_model_json(source_dir: str) -> Dict[str, Any]:
+    with open(os.path.join(source_dir, "model.json")) as f:
+        return json.load(f)
+
+
+def load_metadata(source_dir: str) -> dict:
+    """``metadata.json`` of an artifact, or ``{}`` when it has none."""
+    path = os.path.join(source_dir, "metadata.json")
+    if not os.path.exists(path):
+        return {}
+    with open(path) as f:
+        return json.load(f)

@@ -1,0 +1,165 @@
+"""
+The port's model server: a standard-library ``ThreadingHTTPServer`` with
+
+- ``GET  /healthcheck``
+- ``POST /gordo/v0/<project>/<name>/anomaly/prediction``
+- ``GET  /gordo/v0/<project>/<name>/metadata``
+
+Every artifact under ``MODEL_COLLECTION_DIR`` (one directory per model,
+serializer/serializer.py) is loaded once at start, with its parameters on
+the card (``device="cpu"`` serves from the CPU). Requests to one model run
+one at a time. The revision is the collection directory's name, as in the
+JAX package's server.
+
+Run it with ``python -m gordo_tpu_torch.server.server --port 5555``.
+"""
+
+import argparse
+import json
+import logging
+import os
+import re
+import threading
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from typing import Dict
+from urllib.parse import parse_qs, urlsplit
+
+from .. import __version__, resolve_device
+from ..models.utils import parse_resolution
+from ..serializer import load, load_metadata, load_model_json
+from .views import anomaly_prediction_core
+
+logger = logging.getLogger(__name__)
+
+_MODEL_ROUTE = re.compile(r"^/gordo/v0/([^/]+)/([^/]+)/(anomaly/prediction|metadata)$")
+
+
+class ModelEntry:
+    """One served model: the detector on the device, its tags, its
+    resolution and its metadata."""
+
+    def __init__(self, directory: str, device):
+        spec = load_model_json(directory)
+        self.detector = load(directory, device)
+        self.tags = spec["tags"]
+        self.target_tags = spec["target_tags"]
+        self.metadata = load_metadata(directory)
+        dataset = self.metadata.get("dataset") or {}
+        self.frequency = parse_resolution(dataset.get("resolution", "10min"))
+        self.lock = threading.Lock()
+
+
+def load_collection(collection_dir: str, device) -> Dict[str, ModelEntry]:
+    models = {}
+    for name in sorted(os.listdir(collection_dir)):
+        directory = os.path.join(collection_dir, name)
+        if os.path.exists(os.path.join(directory, "model.json")):
+            models[name] = ModelEntry(directory, device)
+    return models
+
+
+class GordoServer(ThreadingHTTPServer):
+    daemon_threads = True
+
+    def __init__(self, address, collection_dir: str, device):
+        self.collection_dir = collection_dir
+        self.revision = os.path.basename(os.path.normpath(collection_dir))
+        self.models = load_collection(collection_dir, device)
+        super().__init__(address, _Handler)
+
+
+class _Handler(BaseHTTPRequestHandler):
+    server: GordoServer
+
+    def log_message(self, format, *args):
+        logger.debug("%s - %s", self.address_string(), format % args)
+
+    def _send(self, status: int, body) -> None:
+        if isinstance(body, dict):
+            body = dict(body, revision=self.server.revision)
+            data = json.dumps(body, allow_nan=False).encode()
+        else:
+            data = body
+        self.send_response(status)
+        self.send_header("Content-Type", "application/json")
+        self.send_header("Content-Length", str(len(data)))
+        if self.server.revision:
+            self.send_header("revision", self.server.revision)
+        self.end_headers()
+        self.wfile.write(data)
+
+    def _route(self, method: str):
+        url = urlsplit(self.path)
+        if url.path == "/healthcheck" and method == "GET":
+            return self._send(200, b"")
+        match = _MODEL_ROUTE.match(url.path)
+        if not match:
+            return self._send(404, {"message": f"No route {method} {url.path}"})
+        _, name, action = match.groups()
+        entry = self.server.models.get(name)
+        if entry is None:
+            return self._send(404, {"message": f"No such model found: '{name}'"})
+        if action == "metadata" and method == "GET":
+            return self._send(200, {
+                "gordo-server-version": __version__,
+                "metadata": entry.metadata,
+                "env": {"MODEL_COLLECTION_DIR": self.server.collection_dir},
+            })
+        if action == "anomaly/prediction" and method == "POST":
+            length = int(self.headers.get("Content-Length") or 0)
+            try:
+                payload = json.loads(self.rfile.read(length) or b"null")
+            except ValueError:
+                payload = None
+            all_columns = "all_columns" in parse_qs(url.query, keep_blank_values=True)
+            with entry.lock:
+                status, body = anomaly_prediction_core(
+                    entry.detector, payload, entry.tags, entry.target_tags,
+                    entry.frequency, all_columns,
+                )
+            return self._send(status, body)
+        return self._send(405, {"message": f"{method} not allowed on {url.path}"})
+
+    def _handle(self, method: str) -> None:
+        try:
+            self._route(method)
+        except Exception as exc:  # noqa: BLE001 -- the server keeps serving
+            logger.exception("request %s %s failed", method, self.path)
+            self._send(500, {"error": f"{type(exc).__name__}: {exc}"})
+
+    def do_GET(self):
+        self._handle("GET")
+
+    def do_POST(self):
+        self._handle("POST")
+
+
+def make_server(host: str, port: int, device=None, collection_dir: str = None
+                ) -> GordoServer:
+    """A bound server with every model of the collection loaded on
+    ``device`` (``cuda`` unless ``"cpu"``); ``port`` 0 picks a free one
+    (``server.server_address`` has it)."""
+    collection_dir = collection_dir or os.environ.get("MODEL_COLLECTION_DIR")
+    if not collection_dir:
+        raise ValueError("MODEL_COLLECTION_DIR is not set")
+    return GordoServer((host, port), collection_dir, resolve_device(device))
+
+
+def run_server(host: str = "0.0.0.0", port: int = 5555, device=None,
+               collection_dir: str = None) -> None:
+    """Serve until interrupted."""
+    server = make_server(host, port, device, collection_dir)
+    try:
+        server.serve_forever()
+    finally:
+        server.server_close()
+
+
+if __name__ == "__main__":
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--host", default="0.0.0.0")
+    parser.add_argument("--port", type=int, default=5555)
+    parser.add_argument("--device", default=None, help="cuda (default) or cpu")
+    args = parser.parse_args()
+    logging.basicConfig(level=logging.INFO)
+    run_server(args.host, args.port, args.device)
