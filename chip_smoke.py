@@ -5,19 +5,29 @@ Drive the PyTorch/CUDA port (gordo_tpu_torch) on one NVIDIA GPU.
 
 1. Device: the card's name and power limit, CUDA version; TF32 is turned
    off for matmuls and cuDNN, so every reference below is float32.
-2. Build: every kernel of ``gordo_tpu_torch/ops/csrc`` with nvcc.
-3. Kernel phase: each kernel against its plain PyTorch version on the card
-   at the main path's shapes (and a ragged, small-head shape), with the
-   times of the kernel, the plain version and the PyTorch library call
-   that computes the same function (timed here only as a yardstick).
-4. Main path: a ``transformer-ae-512`` artifact (TransformerAutoEncoder,
+2. Build: every kernel of ``gordo_tpu_torch/ops/csrc`` with nvcc, the
+   sources compiled in parallel.
+3. Kernel phases: the forward kernel, then the dQ and dK/dV kernels, each
+   against its plain PyTorch version on the card at the main paths'
+   shapes (and ragged, small-head and large-head shapes), with the times
+   of the kernel, the plain version, the bound, and the PyTorch library
+   call that computes the same function (timed here only as a yardstick).
+   The backward kernels must also give bit-identical results twice.
+4. Serving path: a ``transformer-ae-512`` artifact (TransformerAutoEncoder,
    lookback 512, d_model 256, 4 heads, ff 512, 2 blocks, 8 tags; weights
    from a seed) is served by the port's HTTP server on the card, and three
    anomaly requests (1,535, 700 and 1,535 rows) are checked: status, blocks,
    row counts, finite values, one kernel launch per Transformer block per
    request, and the first answer's model output against the same model with
    the plain attention.
-5. A ``kernels`` JSON line, then the last line
+5. Training path: one step's gradients and the first 20 step losses of the
+   model against the same parameters with the plain attention; then a
+   ``DiffBasedAnomalyDetector`` over ``Pipeline[MinMaxScaler,
+   TransformerAutoEncoder]`` at the same width is cross-validated (3 folds)
+   and fitted on 6,144 rows (Adam, MSE, batch 32), with two dQ and two
+   dK/dV launches per step; its losses, held-out error and thresholds are
+   checked, and the trained artifact answers one request through the server.
+6. A ``kernels`` JSON line, then the last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
 Any failure raises, so the exit code is not 0 and no result line is
@@ -51,6 +61,12 @@ FP32_FLOP_PER_S = 67e12
 TOL_OUT_REL = 1e-4  # kernel vs plain, float32, sums in another order
 TOL_LSE_ABS = 1e-4
 TOL_MODEL_REL = 1e-4  # served model output vs the same model with plain attention
+BACKWARD_SHAPES = [((128, 512, 64), True), ((128, 512, 64), False), ((16, 144, 16), True),
+                   ((6, 77, 32), False), ((4, 200, 128), True), ((1, 1, 64), True)]
+TOL_GRAD_REL = 1e-4  # backward kernels vs plain, and one step's parameter gradients
+TOL_LOSS_REL = 1e-3  # 20 step losses, flash vs plain attention
+BATCH = 32
+LOSS_STEPS = 20
 
 
 def _card() -> str:
@@ -74,12 +90,15 @@ def _time_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def _flash_bound_ms(bh: int, t: int, dh: int, causal: bool):
-    """(bound_ms, bound_by): q/k/v/out read or written once plus lse, and
-    4*dh FLOP per visible (query, key) pair."""
-    n_bytes = 4 * (4 * bh * t * dh + bh * t)
+def _flash_bound_ms(bh: int, t: int, dh: int, causal: bool, n_tensors: int = 4,
+                    flop_per_pair: int = 4):
+    """(bound_ms, bound_by): ``n_tensors`` (bh, t, dh) float32 tensors read
+    or written once plus lse, and ``flop_per_pair * dh`` FLOP per visible
+    (query, key) pair. The forward moves q/k/v/out (4) at 4*dh; dQ moves
+    q/k/v/o/dO/dQ (6) at 6*dh; dK/dV q/k/v/o/dO/dK/dV (7) at 8*dh."""
+    n_bytes = 4 * (n_tensors * bh * t * dh + bh * t)
     pairs = t * (t + 1) // 2 if causal else t * t
-    flops = 4 * dh * bh * pairs
+    flops = flop_per_pair * dh * bh * pairs
     by_bytes, by_ops = n_bytes / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S
     return 1e3 * max(by_bytes, by_ops), "bytes" if by_bytes > by_ops else "operations"
 
@@ -134,6 +153,77 @@ def kernel_phase(card: str) -> dict:
     }
 
 
+def backward_kernel_phase(card: str) -> list:
+    """The dQ and dK/dV kernels vs the plain backward at each shape, and run
+    twice for bit-identical results; times at the training shape. Returns
+    the two kernels' entries of the ``kernels`` line."""
+    import torch
+    import torch.nn.functional as F
+
+    from gordo_tpu_torch.ops import flash_attention as fa
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    worst = {"dq": 0.0, "dk": 0.0, "dv": 0.0}
+    worst_rel = dict(worst)
+    for shape, causal in BACKWARD_SHAPES:
+        q, k, v, do = (torch.randn(shape, device="cuda", generator=g) for _ in range(4))
+        o, lse = fa.flash_attention_forward(q, k, v, causal)
+        runs = [(fa.launch_dq(q, k, v, o, lse, do, causal),
+                 *fa.launch_dkv(q, k, v, o, lse, do, causal)) for _ in range(2)]
+        torch.cuda.synchronize()
+        refs = fa.flash_attention_backward_plain(q, k, v, o, lse, do, causal)
+        errs = []
+        for name, got, again, ref in zip(("dq", "dk", "dv"), *runs, refs):
+            abs_err = (got - ref).abs().max().item()
+            # relative to the largest entry, and absolute below 1 (the inputs
+            # are standard normal): at T = 1, dq and dk are exactly 0
+            rel = abs_err / max(ref.abs().max().item(), 1.0)
+            errs.append(f"{name} {rel:.3e}")
+            if not rel <= TOL_GRAD_REL:
+                raise AssertionError(f"{name} kernel disagrees with plain at {shape}: {rel}")
+            if not torch.equal(got, again):
+                raise AssertionError(f"{name} differs between two launches at {shape}")
+            worst[name] = max(worst[name], abs_err)
+            worst_rel[name] = max(worst_rel[name], rel)
+        print(f"flash backward {shape} causal={causal}: max rel err {', '.join(errs)}; "
+              f"bit-identical on a second launch", flush=True)
+        del runs, refs, q, k, v, do, o, lse
+
+    shape = BACKWARD_SHAPES[0][0]
+    q, k, v, do = (torch.randn(shape, device="cuda", generator=g) for _ in range(4))
+    o, lse = fa.flash_attention_forward(q, k, v, True)
+    dq_ms = _time_ms(lambda: fa.launch_dq(q, k, v, o, lse, do, True), 50)
+    dkv_ms = _time_ms(lambda: fa.launch_dkv(q, k, v, o, lse, do, True), 50)
+    plain_ms = _time_ms(lambda: fa.flash_attention_backward_plain(q, k, v, o, lse, do, True), 10)
+    qr, kr, vr = (x.clone().requires_grad_() for x in (q, k, v))
+    out = F.scaled_dot_product_attention(qr, kr, vr, is_causal=True)
+    library_ms = _time_ms(
+        lambda: torch.autograd.grad(out, (qr, kr, vr), do, retain_graph=True), 20
+    )
+    dq_bound = _flash_bound_ms(*shape, causal=True, n_tensors=6, flop_per_pair=6)
+    dkv_bound = _flash_bound_ms(*shape, causal=True, n_tensors=7, flop_per_pair=8)
+    print(f"flash backward {shape} causal on {card}: dQ kernel {dq_ms:.4f} ms (bound "
+          f"{dq_bound[0]:.4f}, {dq_bound[1]}), dK/dV kernel {dkv_ms:.4f} ms (bound "
+          f"{dkv_bound[0]:.4f}, {dkv_bound[1]}), both {dq_ms + dkv_ms:.4f} ms; plain "
+          f"backward {plain_ms:.4f} ms; scaled_dot_product_attention backward "
+          f"{library_ms:.4f} ms (dq, dk, dv together)", flush=True)
+    common = {"route": "cuda", "source": "gordo_tpu_torch/ops/csrc/flash_attention_bwd.cu",
+              "launches": None, "plain_ms": plain_ms, "library_ms": library_ms,
+              "plain_and_library_compute": "dq, dk and dv together",
+              "shape": list(shape), "causal": True}
+    return [
+        {"name": "flash_attention_backward_dq",
+         "replaces": "gordo_tpu/ops/pallas_kernels/flash_attention.py:89",
+         "max_abs_err": worst["dq"], "max_rel_err": worst_rel["dq"], "ms": dq_ms,
+         "bound_ms": dq_bound[0], "bound_by": dq_bound[1], **common},
+        {"name": "flash_attention_backward_dkv",
+         "replaces": "gordo_tpu/ops/pallas_kernels/flash_attention.py:127",
+         "max_abs_err": max(worst["dk"], worst["dv"]),
+         "max_rel_err": max(worst_rel["dk"], worst_rel["dv"]), "ms": dkv_ms,
+         "bound_ms": dkv_bound[0], "bound_by": dkv_bound[1], **common},
+    ]
+
+
 def _series(n_rows: int, offset: int, rng) -> np.ndarray:
     """Eight sine tags with noise, rows ``offset .. offset + n_rows``."""
     t = np.arange(offset, offset + n_rows)[:, None]
@@ -184,11 +274,18 @@ def _payload(values: np.ndarray, start: datetime) -> dict:
     return {"X": frame, "y": frame}
 
 
-def main_path(card: str, spec, layers, scaler, collection: Path, device: str = "cuda"):
-    """Serve three anomaly requests through the port's server on the card
-    and check them. Returns the kernel launches the requests made."""
-    import torch
+def _with_attention(spec, impl: str):
+    from gordo_tpu_torch.models.spec import TransformerBlock
 
+    return dataclasses.replace(spec, layers=tuple(
+        dataclasses.replace(layer, attention_impl=impl)
+        if isinstance(layer, TransformerBlock) else layer for layer in spec.layers))
+
+
+def main_path(card: str, spec, layers, scaler, collection: Path, device: str = "cuda",
+              name: str = "transformer-ae-512", request_rows=REQUEST_ROWS):
+    """Serve anomaly requests to model ``name`` through the port's server on
+    the card and check them. Returns the kernel launches the requests made."""
     from gordo_tpu_torch.models.models import TransformerAutoEncoder
     from gordo_tpu_torch.models.spec import TransformerBlock
     from gordo_tpu_torch.ops import flash_attention as fa
@@ -198,7 +295,7 @@ def main_path(card: str, spec, layers, scaler, collection: Path, device: str = "
     thread = threading.Thread(target=server.serve_forever, daemon=True)
     thread.start()
     url = (f"http://127.0.0.1:{server.server_address[1]}"
-           "/gordo/v0/smoke/transformer-ae-512/anomaly/prediction")
+           f"/gordo/v0/smoke/{name}/anomaly/prediction")
     rng = np.random.RandomState(SEED + 1)
     start = datetime(2020, 1, 1, tzinfo=timezone.utc)
     expected = {"start", "end", "model-input", "model-output", "tag-anomaly-scaled",
@@ -206,8 +303,8 @@ def main_path(card: str, spec, layers, scaler, collection: Path, device: str = "
                 "anomaly-confidence", "total-anomaly-confidence"}
     first = None
     try:
-        fa.LAUNCHES = 0
-        for i, n_rows in enumerate(REQUEST_ROWS):
+        fa.LAUNCHES = fa.DQ_LAUNCHES = fa.DKV_LAUNCHES = 0
+        for i, n_rows in enumerate(request_rows):
             values = _series(n_rows, 8192 + 2000 * i, rng)
             before = fa.LAUNCHES
             req = urllib.request.Request(
@@ -239,16 +336,16 @@ def main_path(card: str, spec, layers, scaler, collection: Path, device: str = "
             if first is None:
                 first = (values, data["model-output"])
         launches = fa.LAUNCHES
+        if fa.DQ_LAUNCHES or fa.DKV_LAUNCHES:
+            raise AssertionError("serving launched a backward kernel")
     finally:
         server.shutdown()
         server.server_close()
         thread.join(timeout=60)
 
     # the first answer's model output against the same model with plain attention
-    plain_spec = dataclasses.replace(spec, layers=tuple(
-        dataclasses.replace(layer, attention_impl="xla")
-        if isinstance(layer, TransformerBlock) else layer for layer in spec.layers))
-    plain = TransformerAutoEncoder(**CONFIG).load_params(plain_spec, layers, device)
+    plain = TransformerAutoEncoder(**CONFIG).load_params(
+        _with_attention(spec, "xla"), layers, device)
     before = fa.LAUNCHES
     ref = plain.predict(scaler.transform(first[0]))
     if fa.LAUNCHES != before:
@@ -258,6 +355,141 @@ def main_path(card: str, spec, layers, scaler, collection: Path, device: str = "
     print(f"served model-output vs plain attention: max rel err {err:.3e}", flush=True)
     if not err <= TOL_MODEL_REL:
         raise AssertionError("served model output disagrees with the plain model")
+    return launches
+
+
+def gradient_and_loss_checks(card: str, rows: np.ndarray, spec) -> None:
+    """One step's parameter gradients and the first LOSS_STEPS step losses
+    of the model with the flash kernels against the same parameters with the
+    plain attention (PyTorch's own autograd), on the same batches."""
+    import torch
+
+    from gordo_tpu_torch.models.scaler import MinMaxScaler
+    from gordo_tpu_torch.ops import train
+    from gordo_tpu_torch.ops.nn import TransformerModel, init_model_params
+    from gordo_tpu_torch.ops.predict import n_train_samples
+
+    params = init_model_params(spec, torch.Generator().manual_seed(SEED))
+    models = [TransformerModel(s, params, torch.device("cuda"))
+              for s in (spec, _with_attention(spec, "xla"))]
+    X = torch.as_tensor(MinMaxScaler().fit(rows).transform(rows), dtype=torch.float32,
+                        device="cuda")
+    order = torch.randperm(n_train_samples(spec, len(rows)),
+                           generator=torch.Generator().manual_seed(SEED))
+    xb, yb = train._gather_batch(spec, X, X, order[:BATCH].cuda())
+    wb = torch.ones(BATCH, device="cuda")
+    grads = [dict(zip((n for n, _ in m.named_parameters()), torch.autograd.grad(
+        train._loss_terms(spec, m, xb, yb, wb), list(m.parameters())))) for m in models]
+    worst, worst_bk = 0.0, 0.0
+    for name, ref in grads[1].items():
+        err = (grads[0][name] - ref).abs().max().item()
+        if name.endswith(".bk"):
+            # the true gradient is exactly 0 (a per-query shift of the
+            # scores): held by absolute error against the block's scale
+            layer = name.rsplit(".", 1)[0]
+            scale = max(g.abs().max().item() for n, g in grads[1].items()
+                        if n.rsplit(".", 1)[0] == layer)
+            worst_bk = max(worst_bk, err / scale)
+        else:
+            worst = max(worst, err / ref.abs().max().item())
+    print(f"one step's gradients, flash vs plain attention: max rel err {worst:.3e} "
+          f"(bk: abs err {worst_bk:.3e} of the block's largest gradient)", flush=True)
+    if not (worst <= TOL_GRAD_REL and worst_bk <= TOL_GRAD_REL):
+        raise AssertionError("parameter gradients through the flash kernels disagree")
+
+    curves = []
+    for model in models:
+        optimizer = train.make_optimizer(spec.optimizer, model.parameters())
+        _, losses = train.run_epoch(model, optimizer, X, X, order[:LOSS_STEPS * BATCH], BATCH)
+        curves.append(losses.cpu().numpy())
+    rel = float(np.max(np.abs(curves[0] - curves[1]) / np.abs(curves[1])))
+    print(f"{LOSS_STEPS} step losses, flash vs plain attention: {curves[0][0]:.5f} -> "
+          f"{curves[0][-1]:.5f}, max rel diff {rel:.3e} on {card}", flush=True)
+    if not rel <= TOL_LOSS_REL:
+        raise AssertionError("the loss curve through the flash kernels disagrees")
+
+
+def training_path(card: str, collection: Path) -> dict:
+    """Cross-validate and fit a transformer-ae-512 detector on the card
+    through the port's entry points, check it and serve the trained
+    artifact. Returns the kernels' launches in the training run."""
+    import torch
+
+    from gordo_tpu_torch import serializer
+    from gordo_tpu_torch.models.anomaly.diff import DiffBasedAnomalyDetector, TimeSeriesSplit
+    from gordo_tpu_torch.models.models import TransformerAutoEncoder
+    from gordo_tpu_torch.models.scaler import MinMaxScaler, Pipeline
+    from gordo_tpu_torch.models.spec import TransformerBlock
+    from gordo_tpu_torch.ops import flash_attention as fa
+    from gordo_tpu_torch.ops.nn import init_model_params
+    from gordo_tpu_torch.ops.predict import n_train_samples
+
+    rng = np.random.RandomState(SEED)
+    rows = np.concatenate([_series(4096, 0, rng), _series(2048, 4096, rng)])
+    spec = TransformerAutoEncoder(**CONFIG).build_spec(len(TAGS), len(TAGS))
+    gradient_and_loss_checks(card, rows, spec)
+
+    np.random.seed(SEED)
+    detector = DiffBasedAnomalyDetector(Pipeline([
+        ("scaler", MinMaxScaler()),
+        ("estimator", TransformerAutoEncoder(**CONFIG, epochs=1, batch_size=BATCH)),
+    ]))
+    steps = [math.ceil(n_train_samples(spec, len(train_idx)) / BATCH)
+             for train_idx, _ in TimeSeriesSplit(3).split(rows)]
+    steps.append(math.ceil(n_train_samples(spec, len(rows)) / BATCH))
+    torch.cuda.synchronize()
+    fa.LAUNCHES = fa.DQ_LAUNCHES = fa.DKV_LAUNCHES = 0
+    t0 = time.perf_counter()
+    cv = detector.cross_validate(X=rows, y=rows)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    detector.fit(rows, rows)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    launches = {"forward": fa.LAUNCHES, "dq": fa.DQ_LAUNCHES, "dkv": fa.DKV_LAUNCHES}
+    n_blocks = sum(isinstance(layer, TransformerBlock) for layer in spec.layers)
+    print(f"training on {card}: cross_validate {t1 - t0:.2f} s ({steps[:3]} steps), fit "
+          f"{t2 - t1:.2f} s ({steps[3]} steps, {1e3 * (t2 - t1) / steps[3]:.2f} ms per "
+          f"step); launches {launches}", flush=True)
+    if not launches["dq"] == launches["dkv"] == n_blocks * sum(steps):
+        raise AssertionError(f"expected {n_blocks * sum(steps)} dQ and dK/dV launches, "
+                             f"got {launches}")
+
+    estimator = detector.base_estimator.steps[-1][1]
+    histories = [m.base_estimator.steps[-1][1].history for m in cv["estimator"]]
+    losses = [x for h in histories + [estimator.history] for x in h["loss"]]
+    print(f"epoch losses (folds, then fit): {losses}; fold scores {cv['test_score'].tolist()}",
+          flush=True)
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError("a training loss is not finite")
+
+    # held-out rows past the training span: trained vs the seeded initial weights
+    held_out = _series(2048, 6144, np.random.RandomState(SEED + 3))
+    input_scaler = detector.base_estimator.steps[0][1]
+    seeded = TransformerAutoEncoder(**CONFIG).load_params(
+        spec, init_model_params(spec, torch.Generator().manual_seed(SEED)), "cuda")
+    truth = detector.scaler.transform(held_out[spec.lookback_window - 1:])
+    mse = {name: float(np.mean(np.square(detector.scaler.transform(pred) - truth)))
+           for name, pred in (
+               ("trained", detector.base_estimator.predict(held_out)),
+               ("seeded", seeded.predict(input_scaler.transform(held_out))))}
+    print(f"held-out scaled MSE: trained {mse['trained']:.6f}, seeded initial weights "
+          f"{mse['seeded']:.6f}", flush=True)
+    if not mse["trained"] < mse["seeded"]:
+        raise AssertionError("training did not lower the held-out error")
+    thresholds = [*detector.feature_thresholds_, detector.aggregate_threshold_]
+    print(f"thresholds: feature {detector.feature_thresholds_.tolist()}, aggregate "
+          f"{detector.aggregate_threshold_}", flush=True)
+    if not all(math.isfinite(x) for x in thresholds):
+        raise AssertionError("a threshold is not finite")
+
+    name = "transformer-ae-512-trained"
+    metadata = {"name": name, "model": CONFIG,
+                "dataset": {"tags": TAGS, "resolution": "10min"}}
+    serializer.dump(detector, str(collection / name), tags=TAGS, metadata=metadata)
+    layers = estimator.module_.params_numpy()
+    launches["serving"] = main_path(card, spec, layers, input_scaler, collection,
+                                    name=name, request_rows=(1535,))
     return launches
 
 
@@ -290,19 +522,29 @@ def main() -> int:
             if "entry function" in line or "registers" in line or "spill" in line:
                 print(f"  {stem}: {line.strip()}")
 
-    entry = kernel_phase(card)
+    forward = kernel_phase(card)
+    dq, dkv = backward_kernel_phase(card)
     torch.cuda.empty_cache()
 
-    collection = REPO / "build" / "chip_smoke" / "1"
-    shutil.rmtree(collection, ignore_errors=True)
-    collection.mkdir(parents=True)
-    spec, layers, scaler = write_artifact(collection)
-    entry["launches"] = main_path(card, spec, layers, scaler, collection)
-    if entry["launches"] < 1:
-        raise AssertionError("the main path launched no flash kernel")
+    collections = [REPO / "build" / "chip_smoke" / rev for rev in ("1", "2")]
+    for collection in collections:
+        shutil.rmtree(collection, ignore_errors=True)
+        collection.mkdir(parents=True)
+    spec, layers, scaler = write_artifact(collections[0])
+    serving = main_path(card, spec, layers, scaler, collections[0])
+    torch.cuda.empty_cache()
+    training = training_path(card, collections[1])
+
+    forward["launches"] = serving + training["forward"] + training["serving"]
+    forward["launches_by_path"] = {"serving": serving, "training": training["forward"],
+                                   "serving_trained": training["serving"]}
+    dq["launches"], dkv["launches"] = training["dq"], training["dkv"]
+    for entry in (forward, dq, dkv):
+        if entry["launches"] < 1:
+            raise AssertionError(f"the main paths launched no {entry['name']} kernel")
 
     print(card)
-    print(json.dumps({"kernels": [entry]}))
+    print(json.dumps({"kernels": [forward, dq, dkv]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

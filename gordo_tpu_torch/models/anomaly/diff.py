@@ -1,24 +1,65 @@
 """
-Diff-based anomaly scoring in numpy: the port's counterpart of
-``DiffBasedAnomalyDetector.anomaly_raw`` in
-``gordo_tpu/models/anomaly/diff.py``.
+Diff-based anomaly detection in numpy: the port's counterpart of
+``DiffBasedAnomalyDetector`` in ``gordo_tpu/models/anomaly/diff.py``.
 
 The detector wraps a base estimator (a pipeline ending in a windowed
 Transformer) and scores anomalies as the scaled and unscaled difference
 between the model output and the target, with optional smoothing and,
-when thresholds are present, confidence columns. The thresholds are data
-read from the artifact; computing them (cross-validation) comes with the
-training slice.
+when thresholds are present, confidence columns. ``fit`` trains the base
+estimator and fits the scaler on y; ``cross_validate`` trains a fresh copy
+per ``TimeSeriesSplit`` fold and sets the thresholds from the folds'
+rolling error statistics, the last fold's being the final ones.
 """
 
+import time
 from datetime import timedelta
-from typing import Optional
+from typing import Dict, Optional
 
 import numpy as np
 from numpy.lib.stride_tricks import sliding_window_view
 
 from .. import utils as model_utils
+from ..base import clone
 from ..scaler import MinMaxScaler, pipeline_predict
+
+
+class TimeSeriesSplit:
+    """``sklearn.model_selection.TimeSeriesSplit`` (no gap, no maximum
+    train size): fold i trains on every row before its test span, and the
+    ``n_splits`` test spans of ``n // (n_splits + 1)`` rows end the data."""
+
+    def __init__(self, n_splits: int = 3):
+        self.n_splits = n_splits
+
+    def split(self, X, y=None):
+        n = len(X)
+        test_size = n // (self.n_splits + 1)
+        if self.n_splits + 1 > n or test_size < 1:
+            raise ValueError(
+                f"Cannot have number of folds={self.n_splits + 1} greater than "
+                f"the number of samples={n}."
+            )
+        indices = np.arange(n)
+        for start in range(n - self.n_splits * test_size, n, test_size):
+            yield indices[:start], indices[start:start + test_size]
+
+
+def shuffled_order(n: int) -> np.ndarray:
+    """The row order of ``sklearn.utils.shuffle(..., random_state=0)``."""
+    order = np.arange(n)
+    np.random.RandomState(0).shuffle(order)
+    return order
+
+
+def _rolling_floor_peak(values: np.ndarray, window: int):
+    """Max over the span of the rolling minimum, as pandas'
+    ``rolling(window).min().max()``: a spike-tolerant ceiling for 'normal'
+    error. A scalar for a 1-D metric, one value per column for a 2-D one;
+    NaN where the span is shorter than the window."""
+    if len(values) < window:
+        return np.full(values.shape[1:], np.nan) if values.ndim > 1 else float("nan")
+    peak = np.nanmax(_rolling(values, window, np.min), axis=0)
+    return float(peak) if values.ndim == 1 else peak
 
 
 def _rolling(values: np.ndarray, window: int, reduce) -> np.ndarray:
@@ -44,20 +85,32 @@ def _ewm_mean(values: np.ndarray, span: float) -> np.ndarray:
     return out
 
 
+def _by_column(per_fold: Dict[str, np.ndarray]) -> Dict[int, Dict[str, float]]:
+    """``{fold: per-column values}`` as ``{column: {fold: value}}``, the
+    layout of ``DataFrame.from_dict(per_fold, orient="index").to_dict()``."""
+    columns: Dict[int, Dict[str, float]] = {}
+    for label, values in per_fold.items():
+        for col, value in enumerate(np.asarray(values).tolist()):
+            columns.setdefault(col, {})[label] = value
+    return columns
+
+
 class DiffBasedAnomalyDetector:
     def __init__(
         self,
         base_estimator,
-        scaler: MinMaxScaler,
+        scaler: Optional[MinMaxScaler] = None,
         require_thresholds: bool = True,
+        shuffle: bool = False,
         window: Optional[int] = None,
         smoothing_method: Optional[str] = None,
         feature_thresholds: Optional[np.ndarray] = None,
         aggregate_threshold: Optional[float] = None,
     ):
         self.base_estimator = base_estimator
-        self.scaler = scaler
+        self.scaler = scaler if scaler is not None else MinMaxScaler()
         self.require_thresholds = require_thresholds
+        self.shuffle = shuffle
         self.window = window
         self.smoothing_method = smoothing_method
         if self.window is not None and self.smoothing_method is None:
@@ -69,6 +122,125 @@ class DiffBasedAnomalyDetector:
         self.aggregate_threshold_ = (
             None if aggregate_threshold is None else float(aggregate_threshold)
         )
+        # set by cross_validate (or read back from an artifact)
+        self.smooth_feature_thresholds_: Optional[np.ndarray] = None
+        self.smooth_aggregate_threshold_: Optional[float] = None
+        self.feature_thresholds_per_fold_: Optional[Dict[str, np.ndarray]] = None
+        self.aggregate_thresholds_per_fold_: Optional[Dict[str, float]] = None
+        self.smooth_feature_thresholds_per_fold_: Optional[Dict[str, np.ndarray]] = None
+        self.smooth_aggregate_thresholds_per_fold_: Optional[Dict[str, float]] = None
+
+    def get_params(self, deep=False) -> dict:
+        params = {
+            "base_estimator": self.base_estimator,
+            "scaler": self.scaler,
+            "require_thresholds": self.require_thresholds,
+            "shuffle": self.shuffle,
+        }
+        if self.window is not None:
+            params["window"] = self.window
+            params["smoothing_method"] = self.smoothing_method
+        return params
+
+    def fit(self, X, y) -> "DiffBasedAnomalyDetector":
+        """Train the base estimator (on rows shuffled as
+        ``sklearn.utils.shuffle(random_state=0)`` orders them when
+        ``shuffle``), then fit the scaler on y for the error scaling."""
+        X, y = np.asarray(X, np.float64), np.asarray(y, np.float64)
+        if self.shuffle:
+            order = shuffled_order(len(X))
+            self.base_estimator.fit(X[order], y[order])
+        else:
+            self.base_estimator.fit(X, y)
+        self.scaler.fit(y)
+        return self
+
+    def score(self, X, y) -> float:
+        return self.base_estimator.score(X, y)
+
+    def cross_validate(self, *, X, y, cv=None) -> dict:
+        """Train an unfitted copy of this detector on each fold of ``cv``
+        (``TimeSeriesSplit(n_splits=3)`` by default) and score it on the
+        fold's test span; set the thresholds from each fold's errors there:
+        the max of their ``rolling(6)`` minimum and, when smoothing is set,
+        of their ``rolling(window)`` minimum. The last fold's are the final
+        thresholds. Returns ``estimator``, ``fit_time``, ``score_time`` and
+        ``test_score``, one entry per fold, as sklearn's
+        ``cross_validate`` does."""
+        X, y = np.asarray(X, np.float64), np.asarray(y, np.float64)
+        splitter = cv if cv is not None else TimeSeriesSplit(n_splits=3)
+        out = {"estimator": [], "fit_time": [], "score_time": [], "test_score": []}
+        agg, tag, smooth_agg, smooth_tag = {}, {}, {}, {}
+        for fold, (train_idx, test_idx) in enumerate(splitter.split(X, y)):
+            model = clone(self)
+            started = time.perf_counter()
+            model.fit(X[train_idx], y[train_idx])
+            fitted = time.perf_counter()
+            out["test_score"].append(model.score(X[test_idx], y[test_idx]))
+            out["score_time"].append(time.perf_counter() - fitted)
+            out["fit_time"].append(fitted - started)
+            out["estimator"].append(model)
+
+            pred = np.asarray(model.predict(X[test_idx]), np.float64)
+            truth = y[test_idx[-len(pred):]]  # windowed models emit fewer rows
+            scaled = model.scaler.transform(pred) - model.scaler.transform(truth)
+            point_mse = np.square(scaled).mean(axis=1)
+            abs_err = np.abs(truth - pred)
+            label = f"fold-{fold}"
+            agg[label] = _rolling_floor_peak(point_mse, 6)
+            tag[label] = _rolling_floor_peak(abs_err, 6)
+            if self.window is not None:
+                smooth_agg[label] = _rolling_floor_peak(point_mse, self.window)
+                smooth_tag[label] = _rolling_floor_peak(abs_err, self.window)
+
+        self.aggregate_thresholds_per_fold_ = agg
+        self.feature_thresholds_per_fold_ = tag
+        self.smooth_aggregate_thresholds_per_fold_ = smooth_agg
+        self.smooth_feature_thresholds_per_fold_ = smooth_tag
+        last = f"fold-{len(out['estimator']) - 1}"
+        self.aggregate_threshold_ = agg.get(last)
+        self.feature_thresholds_ = tag.get(last)
+        self.smooth_aggregate_threshold_ = smooth_agg.get(last)
+        self.smooth_feature_thresholds_ = smooth_tag.get(last)
+        for key in ("fit_time", "score_time", "test_score"):
+            out[key] = np.asarray(out[key])
+        return out
+
+    def predict(self, X) -> np.ndarray:
+        return pipeline_predict(self.base_estimator, np.asarray(X, np.float64))
+
+    def get_metadata(self) -> dict:
+        """The thresholds, per fold and final, and the smoothing settings,
+        with the JAX detector's keys; then the base estimator's metadata
+        where it has any, else its description."""
+        metadata = {}
+        for key, value, as_json in (
+            ("feature-thresholds", self.feature_thresholds_, np.ndarray.tolist),
+            ("aggregate-threshold", self.aggregate_threshold_, float),
+            ("feature-thresholds-per-fold", self.feature_thresholds_per_fold_, _by_column),
+            ("aggregate-thresholds-per-fold", self.aggregate_thresholds_per_fold_, dict),
+            ("window", self.window, None),
+            ("smoothing-method", self.smoothing_method, None),
+            ("smooth-feature-thresholds", self.smooth_feature_thresholds_, np.ndarray.tolist),
+            ("smooth-aggregate-threshold", self.smooth_aggregate_threshold_, float),
+            ("smooth-feature-thresholds-per-fold", self.smooth_feature_thresholds_per_fold_,
+             _by_column),
+            ("smooth-aggregate-thresholds-per-fold",
+             self.smooth_aggregate_thresholds_per_fold_, dict),
+        ):
+            if as_json is None:  # always reported, None included
+                metadata[key] = value
+            elif value is not None:
+                metadata[key] = as_json(value)
+        if hasattr(self.base_estimator, "get_metadata"):
+            metadata.update(self.base_estimator.get_metadata())
+        else:
+            metadata.update({
+                "scaler": str(self.scaler),
+                "base_estimator": str(self.base_estimator),
+                "shuffle": self.shuffle,
+            })
+        return metadata
 
     def _smoothing(self, metric: np.ndarray) -> np.ndarray:
         if self.smoothing_method == "smm":

@@ -4,18 +4,22 @@ Windowed Transformer estimators: the port's counterparts of
 ``gordo_tpu/models/models.py``.
 
 An estimator holds its spec and a :class:`~gordo_tpu_torch.ops.nn.TransformerModel`
-whose parameters stay on the device; ``predict`` takes and returns numpy.
-Training comes with the training slice: ``fit`` raises.
+whose parameters stay on the device; ``fit`` trains it there
+(ops/train.py), ``predict`` takes and returns numpy. The device is
+``cuda`` unless the estimator is made with ``device="cpu"``.
 """
 
 import dataclasses
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import numpy as np
+import torch
 
 from .. import resolve_device
-from ..ops.nn import TransformerModel
+from ..ops.nn import TransformerModel, init_model_params
 from ..ops.predict import predict_fn
+from ..ops.train import fit_arrays
+from .base import explained_variance_score
 from .factories import FACTORIES
 from .spec import ModelSpec
 
@@ -23,10 +27,8 @@ _PARALLEL_KWARGS = (
     "tensor_parallel", "pipeline_parallel", "expert_parallel", "data_parallel"
 )
 # estimator kwargs that are fit arguments or spec-level knobs, never factory kwargs
-_NON_FACTORY_KWARGS = (
-    "batch_size", "epochs", "verbose", "callbacks", "validation_split", "shuffle",
-    "compute_dtype", "remat", *_PARALLEL_KWARGS,
-)
+_FIT_KWARGS = ("batch_size", "epochs", "verbose", "callbacks", "validation_split", "shuffle")
+_NON_FACTORY_KWARGS = (*_FIT_KWARGS, "compute_dtype", "remat", *_PARALLEL_KWARGS)
 
 
 class WindowedSequenceEstimator:
@@ -36,7 +38,7 @@ class WindowedSequenceEstimator:
     lookahead = 0
 
     def __init__(self, kind: str = "transformer_model", lookback_window: int = 144,
-                 **kwargs):
+                 device=None, **kwargs):
         if kind not in FACTORIES:
             raise ValueError(
                 f"kind: {kind} is not an available model for type: {self.factory_type}!"
@@ -47,7 +49,12 @@ class WindowedSequenceEstimator:
                 f"got {lookback_window}"
             )
         self.kind = kind
+        self.device = device
         self.kwargs: Dict[str, Any] = {"lookback_window": int(lookback_window), **kwargs}
+        self.history: Optional[Dict[str, Any]] = None
+
+    def get_params(self, deep=False) -> Dict[str, Any]:
+        return {"kind": self.kind, "device": self.device, **self.kwargs}
 
     @property
     def lookback_window(self) -> int:
@@ -78,23 +85,72 @@ class WindowedSequenceEstimator:
     def load_params(self, spec: ModelSpec, params, device=None):
         """Place ``params`` (JAX package layout) for ``spec`` on ``device``
         (``cuda`` unless ``"cpu"`` is named)."""
+        self.device = device
         self.spec_ = spec
         self.module_ = TransformerModel(spec, params, resolve_device(device))
         self._predict = predict_fn(self.module_)
         return self
 
     def fit(self, X, y, **kwargs):
-        raise NotImplementedError(
-            "training is not ported yet: see the training item of ROADMAP.md queue A"
+        """Train from fresh parameters on (X, y): the seed is drawn from the
+        global numpy RNG, as the JAX estimator draws it, and seeds both the
+        initialisation and the per-epoch shuffles."""
+        X, y = _as_2d(X), _as_2d(y)
+        spec = self.build_spec(X.shape[1], y.shape[1])
+        fit_args = {k: v for k, v in self.kwargs.items() if k in _FIT_KWARGS}
+        fit_args.update({k: v for k, v in kwargs.items() if k in _FIT_KWARGS})
+        callbacks = fit_args.get("callbacks") or []
+        if any(isinstance(cb, (dict, str)) for cb in callbacks):
+            raise NotImplementedError(
+                "callbacks from a definition are not ported yet: see the "
+                "'Training, the rest of the build path' item of ROADMAP.md queue A"
+            )
+        batch_size = int(fit_args.get("batch_size", 32))
+        seed = int(np.random.randint(0, 2**31 - 1))
+        generator = torch.Generator().manual_seed(seed)
+        self.load_params(spec, init_model_params(spec, generator), self.device)
+        result = fit_arrays(
+            self.module_, X, y,
+            epochs=int(fit_args.get("epochs", 1)),
+            batch_size=batch_size,
+            shuffle=bool(fit_args.get("shuffle", True)),
+            validation_split=float(fit_args.get("validation_split", 0.0) or 0.0),
+            generator=generator,
+            callbacks=callbacks,
         )
+        self.history = dict(result.history)
+        self.history["params"] = {
+            "epochs": result.epochs_trained,
+            "batch_size": batch_size,
+            "metrics": list(result.history.keys()),
+        }
+        return self
 
     def predict(self, X) -> np.ndarray:
         if not hasattr(self, "module_"):
             raise AttributeError(f"This {type(self).__name__} has no parameters yet")
-        X = np.asarray(X, np.float32)
-        if X.ndim == 1:
-            X = X.reshape(-1, 1)
-        return self._predict(X)
+        return self._predict(_as_2d(X))
+
+    def score(self, X, y) -> float:
+        """Explained variance of the output against the last rows of y."""
+        out = self.predict(X)
+        return explained_variance_score(_as_2d(y)[-len(out):], out)
+
+    def get_metadata(self) -> Dict[str, Any]:
+        """The training history, and the forecast steps (the lookahead), as
+        the JAX estimator reports them."""
+        metadata = {"history": dict(self.history)} if self.history is not None else {}
+        metadata["forecast_steps"] = self.lookahead
+        return metadata
+
+    def __repr__(self) -> str:
+        args = ", ".join(f"{k}={v!r}" for k, v in self.get_params().items())
+        return f"{type(self).__name__}({args})"
+
+
+def _as_2d(data) -> np.ndarray:
+    arr = np.asarray(data, np.float32)
+    return arr.reshape(-1, 1) if arr.ndim == 1 else arr
 
 
 class TransformerAutoEncoder(WindowedSequenceEstimator):

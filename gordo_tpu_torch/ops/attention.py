@@ -2,13 +2,17 @@
 Multi-head scaled-dot-product attention with a dispatcher: the port's
 counterpart of ``gordo_tpu/ops/attention.py``.
 
-- ``impl="auto"`` or ``"flash"``: the flash kernel (ops/flash_attention.py).
-  On the card it takes every self-attention shape the kernel supports and
-  raises for anything else; on the CPU its plain twin runs. The JAX
-  package's shape gate ``_flash_ok`` encodes Mosaic/VMEM limits of the TPU
-  and has no counterpart here.
+- ``impl="auto"``: the flash kernels (ops/flash_attention.py, forward and
+  backward through one ``torch.autograd.Function``) for every shape
+  :func:`_flash_ok` accepts, decided before any launch; every other shape
+  takes the plain path, as the JAX dispatcher sends the shapes its kernel
+  cannot take to XLA. The JAX package's own gate encodes Mosaic/VMEM limits
+  of the TPU; this one encodes what the CUDA kernels take.
+- ``impl="flash"``, named explicitly: the flash kernels for every shape; on
+  the card an unsupported shape raises. On the CPU their plain twins run.
 - ``impl="xla"``, named explicitly in a spec: the plain PyTorch path,
-  :func:`dot_product_attention_plain`, as the JAX package runs XLA.
+  :func:`dot_product_attention_plain`, as the JAX package runs XLA, with
+  PyTorch's own autograd.
 - ``impl="ring"``: not ported yet.
 
 Unlike the JAX dispatcher, no environment variable overrides the choice.
@@ -16,7 +20,7 @@ Unlike the JAX dispatcher, no environment variable overrides the choice.
 
 import torch
 
-from .flash_attention import flash_attention
+from .flash_attention import SUPPORTED_HEAD_DIMS, flash_attention
 
 NEG_INF = -1e30
 
@@ -54,9 +58,22 @@ def dot_product_attention_plain(q, k, v, causal: bool = False) -> torch.Tensor:
     return torch.matmul(weights, v)
 
 
+def _flash_ok(q: torch.Tensor, k: torch.Tensor) -> bool:
+    """Whether the flash kernels take these shapes: self-attention (equal
+    query and key lengths), float32, and a head dim the kernels are built
+    for."""
+    return (
+        k.shape[-2] == q.shape[-2]
+        and q.dtype == k.dtype == torch.float32
+        and q.shape[-1] in SUPPORTED_HEAD_DIMS
+    )
+
+
 def dot_product_attention(q, k, v, causal: bool = False, impl: str = "auto"):
     """Dispatching attention over (..., T, Dh) tensors."""
-    if impl in ("auto", "flash"):
+    if impl == "auto":
+        impl = "flash" if _flash_ok(q, k) else "xla"
+    if impl == "flash":
         return flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), causal)
     if impl == "xla":
         return dot_product_attention_plain(q, k, v, causal)

@@ -1,17 +1,21 @@
 """
-Flash attention forward: the wrapper of the hand-written CUDA kernel
-``csrc/flash_attention.cu`` and its plain PyTorch twin.
+Flash attention, forward and backward: the wrappers of the hand-written
+CUDA kernels ``csrc/flash_attention.cu`` (forward) and
+``csrc/flash_attention_bwd.cu`` (dQ and dK/dV), their plain PyTorch twins,
+and the ``torch.autograd.Function`` that joins them.
 
-The kernel replaces ``_flash_kernel`` / ``_flash_forward`` of
-``gordo_tpu/ops/pallas_kernels/flash_attention.py``: blockwise online-softmax
-self-attention, scale 1/sqrt(dh), optional causal mask, returning the
-output and the per-row logsumexp (stored here as (BH, T), without the TPU's
-128-lane replication). On this card it is bound by float32 FMA throughput;
-the source note says what its design does about that.
+The kernels replace the three Pallas kernels of
+``gordo_tpu/ops/pallas_kernels/flash_attention.py``: ``_flash_kernel``
+(blockwise online-softmax self-attention, scale 1/sqrt(dh), optional
+causal mask, returning the output and the per-row logsumexp, stored here as
+(BH, T) without the TPU's 128-lane replication), ``_flash_dq_kernel`` and
+``_flash_dkv_kernel`` (the backward, recomputing P = exp(S - lse)). On
+this card all three are bound by float32 FMA throughput; the source notes
+say what their design does about that.
 
-Dispatch is by where the tensors lie: CPU tensors take
-:func:`flash_attention_forward_plain`, CUDA tensors launch the kernel or
-raise. There is no fallback from one to the other.
+Dispatch is by where the tensors lie: CPU tensors take the plain twins,
+CUDA tensors launch the kernels or raise. There is no fallback from one to
+the other.
 """
 
 import ctypes
@@ -25,21 +29,29 @@ from . import _build
 NEG_INF = -1e30
 SUPPORTED_HEAD_DIMS = (16, 32, 64, 128)
 
-# kernel launches made by flash_attention_forward on CUDA tensors
+# kernel launches made on CUDA tensors: the forward (LAUNCHES), and the
+# backward's dQ and dK/dV kernels
 LAUNCHES = 0
+DQ_LAUNCHES = 0
+DKV_LAUNCHES = 0
 _launches_lock = threading.Lock()
+
+
+def _scores(q, k, causal: bool):
+    """S = q k^T * scale in float32, scale = 1/sqrt(dh) as the kernels take
+    it; NEG_INF past the diagonal if causal."""
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * (1.0 / q.shape[-1] ** 0.5)
+    if causal:
+        t_q, t_k = s.shape[-2:]
+        mask = torch.ones(t_q, t_k, dtype=torch.bool, device=s.device).tril()
+        s = s.masked_fill(~mask, NEG_INF)
+    return s
 
 
 def flash_attention_forward_plain(q, k, v, causal: bool = False):
     """The kernel's function in plain PyTorch. q, k, v: (..., T, Dh).
     Returns ``(out, lse)`` with lse shaped (..., T), float32."""
-    dh = q.shape[-1]
-    scale = 1.0 / dh**0.5
-    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
-    if causal:
-        t_q, t_k = s.shape[-2:]
-        mask = torch.ones(t_q, t_k, dtype=torch.bool, device=s.device).tril()
-        s = s.masked_fill(~mask, NEG_INF)
+    s = _scores(q, k, causal)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     denom = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
@@ -48,19 +60,34 @@ def flash_attention_forward_plain(q, k, v, causal: bool = False):
     return out.to(q.dtype), lse
 
 
-def _check(q, k, v) -> None:
-    t, dh = q.shape[-2:]
-    for name, x in (("k", k), ("v", v)):
+def flash_attention_backward_plain(q, k, v, o, lse, do, causal: bool = False):
+    """The backward kernels' function in plain PyTorch, with their own
+    arithmetic: P = exp(S - lse), D = rowsum(dO * O), dS = P * (dO V^T - D).
+    q, k, v, o, do: (..., T, Dh); lse: (..., T). Returns ``(dq, dk, dv)``."""
+    scale = 1.0 / q.shape[-1] ** 0.5
+    p = torch.exp(_scores(q, k, causal) - lse.unsqueeze(-1))
+    dv = torch.matmul(p.transpose(-1, -2), do)
+    delta = (do * o).sum(dim=-1, keepdim=True)
+    ds = p * (torch.matmul(do, v.transpose(-1, -2)) - delta)
+    dq = torch.matmul(ds, k) * scale
+    dk = torch.matmul(ds.transpose(-1, -2), q) * scale
+    return dq, dk, dv
+
+
+def _check(*tensors, names="qkv") -> None:
+    q = tensors[0]
+    t = q.shape[-2]
+    for name, x in zip(names[1:], tensors[1:]):
         if x.shape != q.shape:
             # the key loop and causal mask assume start-aligned
             # self-attention, as the TPU kernel does
             raise ValueError(
-                f"flash_attention needs q, k, v of one shape, got q "
+                f"flash_attention needs {', '.join(names)} of one shape, got q "
                 f"{tuple(q.shape)} and {name} {tuple(x.shape)}"
             )
         if x.device != q.device:
             raise ValueError(f"q and {name} lie on {q.device} and {x.device}")
-    for name, x in (("q", q), ("k", k), ("v", v)):
+    for name, x in zip(names, tensors):
         if x.dtype != torch.float32:
             raise TypeError(f"flash_attention takes float32, got {name} {x.dtype}")
         if not x.is_contiguous():
@@ -69,10 +96,9 @@ def _check(q, k, v) -> None:
         raise ValueError("flash_attention needs T >= 1")
 
 
-@functools.lru_cache(maxsize=None)
-def _kernel():
-    fn = _build.load_library("flash_attention").gordo_flash_attention_forward_f32
-    fn.argtypes = [ctypes.c_void_p] * 5 + [
+def _c_function(stem: str, symbol: str, n_pointers: int):
+    fn = getattr(_build.load_library(stem), symbol)
+    fn.argtypes = [ctypes.c_void_p] * n_pointers + [
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
         ctypes.c_void_p,
     ]
@@ -80,32 +106,79 @@ def _kernel():
     return fn
 
 
+@functools.lru_cache(maxsize=None)
+def _kernel():
+    return _c_function("flash_attention", "gordo_flash_attention_forward_f32", 5)
+
+
+@functools.lru_cache(maxsize=None)
+def _dq_kernel():
+    return _c_function("flash_attention_bwd", "gordo_flash_attention_backward_dq_f32", 7)
+
+
+@functools.lru_cache(maxsize=None)
+def _dkv_kernel():
+    return _c_function("flash_attention_bwd", "gordo_flash_attention_backward_dkv_f32", 8)
+
+
+def _call(kernel, label: str, tensors, bh: int, t: int, dh: int, causal: bool) -> None:
+    """Launch a C kernel on (bh, t, dh) CUDA tensors on the current stream,
+    raising if the launch failed."""
+    if dh not in SUPPORTED_HEAD_DIMS:
+        raise ValueError(
+            f"the flash kernels support head dims {SUPPORTED_HEAD_DIMS}, got {dh}"
+        )
+    for x in tensors:
+        if x.data_ptr() % 16:
+            raise ValueError(f"{label}: an input is not 16-byte aligned")
+    device = tensors[0].device
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = kernel(*(x.data_ptr() for x in tensors), bh, t, dh, 1.0 / dh**0.5,
+                    int(causal), stream)
+    if rc != 0:
+        raise RuntimeError(f"{label} kernel launch failed: CUDA error {rc}")
+
+
 def _launch(q, k, v, causal: bool):
     global LAUNCHES
     bh, t, dh = q.shape
-    if dh not in SUPPORTED_HEAD_DIMS:
-        raise ValueError(
-            f"the flash kernel supports head dims {SUPPORTED_HEAD_DIMS}, got {dh}"
-        )
-    for name, x in (("q", q), ("k", k), ("v", v)):
-        if x.data_ptr() % 16:
-            raise ValueError(f"{name} is not 16-byte aligned")
     out = torch.empty_like(q)
     lse = torch.empty((bh, t), dtype=torch.float32, device=q.device)
     if bh == 0:
         return out, lse
-    kernel = _kernel()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = kernel(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            lse.data_ptr(), bh, t, dh, 1.0 / dh**0.5, int(causal), stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"flash attention kernel launch failed: CUDA error {rc}")
+    _call(_kernel(), "flash attention", (q, k, v, out, lse), bh, t, dh, causal)
     with _launches_lock:
         LAUNCHES += 1
     return out, lse
+
+
+def launch_dq(q, k, v, o, lse, do, causal: bool):
+    """dQ by the CUDA kernel: (bh, t, dh) tensors and lse (bh, t)."""
+    global DQ_LAUNCHES
+    bh, t, dh = q.shape
+    dq = torch.empty_like(q)
+    if bh == 0:
+        return dq
+    _call(_dq_kernel(), "flash attention dQ", (q, k, v, o, lse, do, dq), bh, t, dh,
+          causal)
+    with _launches_lock:
+        DQ_LAUNCHES += 1
+    return dq
+
+
+def launch_dkv(q, k, v, o, lse, do, causal: bool):
+    """(dK, dV) by the CUDA kernel: (bh, t, dh) tensors and lse (bh, t)."""
+    global DKV_LAUNCHES
+    bh, t, dh = q.shape
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    if bh == 0:
+        return dk, dv
+    _call(_dkv_kernel(), "flash attention dK/dV", (q, k, v, o, lse, do, dk, dv), bh,
+          t, dh, causal)
+    with _launches_lock:
+        DKV_LAUNCHES += 1
+    return dk, dv
 
 
 def flash_attention_forward(q, k, v, causal: bool = False):
@@ -124,6 +197,53 @@ def flash_attention_forward(q, k, v, causal: bool = False):
     return out.reshape(*lead, t, dh), lse.reshape(*lead, t)
 
 
+def flash_attention_backward(q, k, v, o, lse, do, causal: bool = False):
+    """Gradients ``(dq, dk, dv)`` of flash attention over (..., T, Dh)
+    float32 tensors, from the forward's output ``o`` and logsumexp ``lse``
+    (..., T) and the output's gradient ``do``. On CUDA tensors the dQ
+    kernel, then the dK/dV kernel, on the current stream."""
+    _check(q, k, v, o, do, names=("q", "k", "v", "o", "do"))
+    lead = q.shape[:-2]
+    t, dh = q.shape[-2:]
+    if lse.shape != lead + (t,) or lse.dtype != torch.float32 or lse.device != q.device:
+        raise ValueError(
+            f"lse must be float32 of shape {tuple(lead) + (t,)} on {q.device}, got "
+            f"{lse.dtype} {tuple(lse.shape)} on {lse.device}"
+        )
+    flat = [x.reshape(-1, t, dh) for x in (q, k, v, o)]
+    lse_f, do_f = lse.contiguous().reshape(-1, t), do.reshape(-1, t, dh)
+    if q.device.type == "cpu":
+        dq, dk, dv = flash_attention_backward_plain(*flat, lse_f, do_f, causal)
+    elif q.device.type == "cuda":
+        dq = launch_dq(*flat, lse_f, do_f, causal)
+        dk, dv = launch_dkv(*flat, lse_f, do_f, causal)
+    else:
+        raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device}")
+    return tuple(g.reshape(*lead, t, dh) for g in (dq, dk, dv))
+
+
+class FlashAttention(torch.autograd.Function):
+    """Flash attention with its backward: the forward kernel, then the dQ
+    and dK/dV kernels, the counterpart of the JAX package's
+    ``jax.custom_vjp`` around ``_flash_forward`` / ``_flash_backward``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool):
+        out, lse = flash_attention_forward(q, k, v, causal)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal = causal
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_backward(
+            q, k, v, out, lse, dout.contiguous(), ctx.causal
+        )
+        return dq, dk, dv, None
+
+
 def flash_attention(q, k, v, causal: bool = False):
-    """Flash attention output only (see :func:`flash_attention_forward`)."""
-    return flash_attention_forward(q, k, v, causal)[0]
+    """Flash attention output, differentiable through the backward kernels
+    (see :func:`flash_attention_forward`)."""
+    return FlashAttention.apply(q, k, v, causal)

@@ -197,7 +197,8 @@ def _apply_pool(layer: PoolLayer, x):
 class TransformerModel(nn.Module):
     """A spec of Dense / PositionalEncoding / TransformerBlock / PoolLayer
     layers with its parameters resident on ``device``; ``forward`` is the
-    counterpart of ``apply_model``'s output (float32)."""
+    counterpart of ``apply_model``'s output (float32). The parameters are
+    trainable (ops/train.py); serving runs under ``torch.inference_mode``."""
 
     def __init__(self, spec: ModelSpec, params, device: torch.device):
         super().__init__()
@@ -216,8 +217,9 @@ class TransformerModel(nn.Module):
         self.spec = spec
         self.layer_params = nn.ModuleList(
             nn.ParameterDict({
+                # a copy: training updates it in place, never the caller's array
                 name: nn.Parameter(
-                    torch.as_tensor(value, dtype=torch.float32), requires_grad=False
+                    torch.as_tensor(value, dtype=torch.float32).detach().clone()
                 )
                 for name, value in p.items()
             })

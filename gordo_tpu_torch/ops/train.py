@@ -1,0 +1,224 @@
+"""
+The training loop: the port's counterpart of ``make_optimizer``,
+``_loss_terms``, ``_gather_batch``, ``make_epoch_fn``, ``evaluate_loss`` and
+``fit_arrays`` in ``gordo_tpu/ops/train.py``.
+
+X and y go to the model's device once per fit. Each step gathers its
+(batch, lookback, features) windows on the device from the flat series:
+window i covers rows [i, i + lookback) and its target is row
+i + lookback - 1 + lookahead. An epoch runs in a fixed number of
+equal-sized steps: the sample order is padded to whole batches with
+zero-weighted repeats of sample 0, as the JAX package pads its index
+stream, so the last short batch's loss and gradient are means over its
+live samples only and every step hands the attention kernels one shape.
+The per-step losses stay on the device until the epoch ends.
+
+The fleet trainer (``make_masked_epoch_fn``, ``make_scanned_fit``) is not
+ported yet: see the 'Training, the rest of the build path' item of
+ROADMAP.md queue A.
+"""
+
+import math
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..models.spec import DenseLayer, ModelSpec, OptimizerSpec
+from .predict import n_train_samples
+
+EVAL_BATCH = 2048
+NOT_PORTED_OPTIMIZERS = ("rmsprop", "adagrad", "nadam", "adamax", "adamw")
+
+
+def make_optimizer(spec: OptimizerSpec, params) -> torch.optim.Optimizer:
+    """A torch optimizer over ``params`` from a Keras-style optimizer spec,
+    with the JAX package's defaults. ``torch.optim.Adam`` applies the same
+    update as ``optax.adam``: lr * m_hat / (sqrt(v_hat) + eps)."""
+    kwargs = spec.as_dict()
+    lr = kwargs.pop("learning_rate", kwargs.pop("lr", None))
+    name = spec.name.lower()
+    if name == "adam":
+        return torch.optim.Adam(
+            params,
+            lr=1e-3 if lr is None else lr,
+            betas=(kwargs.get("beta_1", 0.9), kwargs.get("beta_2", 0.999)),
+            eps=kwargs.get("epsilon", 1e-7),
+        )
+    if name == "sgd":
+        return torch.optim.SGD(
+            params,
+            lr=1e-2 if lr is None else lr,
+            momentum=kwargs.get("momentum", 0.0) or 0.0,
+            nesterov=kwargs.get("nesterov", False),
+        )
+    if name in NOT_PORTED_OPTIMIZERS:
+        raise NotImplementedError(
+            f"optimizer {spec.name!r} is not ported yet: see the 'Training, "
+            f"the rest of the build path' item of ROADMAP.md queue A"
+        )
+    raise ValueError(f"Unknown optimizer {spec.name!r}")
+
+
+def _loss_terms(spec: ModelSpec, model: torch.nn.Module, xb, yb, wb) -> torch.Tensor:
+    """The loss of a batch: the per-sample loss averaged over the live
+    samples (weight 1; padding has weight 0)."""
+    out = model(xb)
+    if spec.loss in ("mse", "mean_squared_error"):
+        per_sample = torch.mean((out - yb) ** 2, dim=-1)
+    elif spec.loss in ("mae", "mean_absolute_error"):
+        per_sample = torch.mean(torch.abs(out - yb), dim=-1)
+    else:
+        raise ValueError(f"Unknown loss {spec.loss!r}")
+    return torch.sum(per_sample * wb) / torch.clamp(torch.sum(wb), min=1.0)
+
+
+def _gather_batch(spec: ModelSpec, X: torch.Tensor, y: torch.Tensor, idx: torch.Tensor):
+    """A minibatch by sample (window-start) indices, gathered on the device."""
+    if spec.lookback_window <= 1 and spec.lookahead == 0:
+        return X[idx], y[idx]
+    window = torch.arange(spec.lookback_window, device=X.device)
+    xb = X[idx[:, None] + window[None, :]]  # (B, L, D)
+    yb = y[idx + spec.lookback_window - 1 + spec.lookahead]
+    return xb, yb
+
+
+def _padded_stream(order: torch.Tensor, batch_size: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The order padded with zero-weighted repeats of sample 0 to whole
+    batches, and its weights."""
+    n = len(order)
+    n_pad = max(math.ceil(n / batch_size), 1) * batch_size
+    idx = torch.zeros(n_pad, dtype=torch.long, device=order.device)
+    idx[:n] = order
+    weights = torch.zeros(n_pad, dtype=torch.float32, device=order.device)
+    weights[:n] = 1.0
+    return idx, weights
+
+
+def run_epoch(model: torch.nn.Module, optimizer: torch.optim.Optimizer, X: torch.Tensor,
+              y: torch.Tensor, order: torch.Tensor, batch_size: int
+              ) -> Tuple[float, torch.Tensor]:
+    """One epoch of minibatch steps over the samples in ``order`` (window
+    starts, on X's device), taken in that order. Returns the epoch loss
+    (step losses weighted by live samples, as the JAX epoch returns it)
+    and the step losses, each computed before its step's update."""
+    spec = model.spec
+    idx_stream, w_stream = _padded_stream(order.to(X.device), batch_size)
+    step_losses, step_weights = [], []
+    for start in range(0, len(idx_stream), batch_size):
+        idx = idx_stream[start:start + batch_size]
+        wb = w_stream[start:start + batch_size]
+        xb, yb = _gather_batch(spec, X, y, idx)
+        optimizer.zero_grad(set_to_none=True)
+        loss = _loss_terms(spec, model, xb, yb, wb)
+        loss.backward()
+        optimizer.step()
+        step_losses.append(loss.detach())
+        step_weights.append(wb.sum())
+    losses, weights = torch.stack(step_losses), torch.stack(step_weights)
+    epoch_loss = (losses * weights).sum() / torch.clamp(weights.sum(), min=1.0)
+    return float(epoch_loss), losses
+
+
+def evaluate_loss(model: torch.nn.Module, X: torch.Tensor, y: torch.Tensor,
+                  batch_size: int = EVAL_BATCH) -> float:
+    """The loss over every sample of (X, y), in batches of ``batch_size``,
+    without gradients."""
+    spec = model.spec
+    n = n_train_samples(spec, len(X))
+    loss_sum = torch.zeros((), device=X.device)
+    with torch.no_grad():
+        for start in range(0, n, batch_size):
+            idx = torch.arange(start, min(start + batch_size, n), device=X.device)
+            xb, yb = _gather_batch(spec, X, y, idx)
+            wb = torch.ones(len(idx), device=X.device)
+            loss_sum += _loss_terms(spec, model, xb, yb, wb) * len(idx)
+    return float(loss_sum / max(n, 1))
+
+
+@dataclass
+class TrainResult:
+    history: Dict[str, List[float]] = field(default_factory=dict)
+    epochs_trained: int = 0
+
+
+def fit_arrays(
+    model: torch.nn.Module,
+    X: np.ndarray,
+    y: np.ndarray,
+    *,
+    epochs: int = 1,
+    batch_size: int = 32,
+    shuffle: bool = True,
+    validation_split: float = 0.0,
+    generator: Optional[torch.Generator] = None,
+    callbacks: Optional[List] = None,
+) -> TrainResult:
+    """Train ``model`` (a TransformerModel, in place) on (X, y): a host loop
+    over epochs with a Keras-style ``validation_split`` (the last rows are
+    held out) and EarlyStopping-style callbacks. Each shuffled epoch's order
+    is ``torch.randperm`` on ``generator`` (a CPU generator)."""
+    spec: ModelSpec = model.spec
+    for layer in spec.layers:
+        if isinstance(layer, DenseLayer) and layer.l1_activity > 0.0:
+            raise NotImplementedError(
+                "the l1 activity penalty is not ported yet: see the feedforward "
+                "autoencoder item of ROADMAP.md queue A"
+            )
+    device = next(model.parameters()).device
+    X = torch.as_tensor(np.asarray(X, np.float32), device=device)
+    y = torch.as_tensor(np.asarray(y, np.float32), device=device)
+    generator = generator if generator is not None else torch.Generator().manual_seed(0)
+    callbacks = callbacks or []
+
+    n_rows = len(X)
+    X_val = y_val = None
+    if validation_split and 0.0 < validation_split < 1.0:
+        split = max(int(n_rows * (1.0 - validation_split)), 1)
+        X, X_val = X[:split], X[split:]
+        y, y_val = y[:split], y[split:]
+
+    n_samples = n_train_samples(spec, len(X))
+    if n_samples <= 0:
+        raise ValueError(
+            f"Not enough rows ({len(X)}) for lookback_window="
+            f"{spec.lookback_window} lookahead={spec.lookahead}"
+        )
+    batch_size = min(batch_size, n_samples)
+    optimizer = make_optimizer(spec.optimizer, model.parameters())
+    n_val = 0 if X_val is None else n_train_samples(spec, len(X_val))
+
+    history: Dict[str, List[float]] = {"loss": []}
+    if X_val is not None:
+        history["val_loss"] = []
+    for cb in callbacks:
+        if hasattr(cb, "on_train_begin"):
+            cb.on_train_begin()
+
+    epochs_trained = 0
+    for epoch in range(epochs):
+        if shuffle:
+            order = torch.randperm(n_samples, generator=generator)
+        else:
+            order = torch.arange(n_samples)
+        loss, _ = run_epoch(model, optimizer, X, y, order, batch_size)
+        logs = {"loss": loss}
+        if n_val > 0:
+            logs["val_loss"] = evaluate_loss(model, X_val, y_val)
+        for key, value in logs.items():
+            history.setdefault(key, []).append(value)
+        epochs_trained = epoch + 1
+        stop = False
+        for cb in callbacks:
+            if hasattr(cb, "on_epoch_end") and cb.on_epoch_end(epoch, logs, model):
+                stop = True
+        if stop:
+            break
+
+    for cb in callbacks:
+        if hasattr(cb, "on_train_end"):
+            restored = cb.on_train_end(model)
+            if restored is not None:
+                model.load_state_dict(restored)
+    return TrainResult(history=history, epochs_trained=epochs_trained)

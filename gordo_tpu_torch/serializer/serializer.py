@@ -2,10 +2,13 @@
 The port's artifact: one directory per model holding
 
 - ``model.json``: the estimator class, the spec, the input scaler, the
-  detector's fields and thresholds, and the tags;
+  training history, the detector's fields and thresholds (final and per
+  cross-validation fold), and the tags;
 - ``params.npz``: the parameters, keyed ``"{layer}/{name}"``;
 - ``metadata.json``: the build metadata the server returns and reads the
-  dataset's resolution from.
+  dataset's resolution from, with the model's own metadata (thresholds
+  per fold, training history: the JAX ``ModelBuilder``'s ``model_meta``) under
+  ``"model_meta"``.
 
 Every file is written atomically (a unique temp file, then a rename), as
 ``gordo_tpu/serializer/serializer.py`` writes its artifact.
@@ -50,6 +53,28 @@ def _scaler_dict(scaler: MinMaxScaler) -> Dict[str, List[float]]:
     return {"min_": scaler.min_.tolist(), "scale_": scaler.scale_.tolist()}
 
 
+def _listed(value):
+    """Arrays (also inside a per-fold dict) as lists; None stays None."""
+    if isinstance(value, dict):
+        return {key: _listed(v) for key, v in value.items()}
+    return value.tolist() if isinstance(value, np.ndarray) else value
+
+
+def _arrays(value):
+    """Inverse of :func:`_listed` for threshold values."""
+    if isinstance(value, dict):
+        return {key: _arrays(v) for key, v in value.items()}
+    return np.asarray(value, np.float64) if isinstance(value, list) else value
+
+
+# detector attributes computed by cross_validate, stored as they are
+_CV_ATTRIBUTES = (
+    "smooth_feature_thresholds_", "smooth_aggregate_threshold_",
+    "feature_thresholds_per_fold_", "aggregate_thresholds_per_fold_",
+    "smooth_feature_thresholds_per_fold_", "smooth_aggregate_thresholds_per_fold_",
+)
+
+
 def dump(detector: DiffBasedAnomalyDetector, dest_dir: str, tags: List[str],
          target_tags: Optional[List[str]] = None, metadata: Optional[dict] = None):
     """Write ``detector`` (a DiffBasedAnomalyDetector over
@@ -73,7 +98,10 @@ def dump(detector: DiffBasedAnomalyDetector, dest_dir: str, tags: List[str],
                 else detector.feature_thresholds_.tolist()
             ),
             "aggregate_threshold": detector.aggregate_threshold_,
+            "shuffle": detector.shuffle,
+            **{name: _listed(getattr(detector, name)) for name in _CV_ATTRIBUTES},
         },
+        "history": estimator.history,
         "tags": list(tags),
         "target_tags": list(target_tags if target_tags is not None else tags),
     }
@@ -88,11 +116,11 @@ def dump(detector: DiffBasedAnomalyDetector, dest_dir: str, tags: List[str],
     _atomic_write(
         os.path.join(dest_dir, "model.json"), json.dumps(model, indent=1).encode()
     )
-    if metadata is not None:
-        _atomic_write(
-            os.path.join(dest_dir, "metadata.json"),
-            json.dumps(metadata, default=str).encode(),
-        )
+    model_meta = {**detector.get_metadata(), **estimator.get_metadata()}
+    _atomic_write(
+        os.path.join(dest_dir, "metadata.json"),
+        json.dumps({**(metadata or {}), "model_meta": model_meta}, default=str).encode(),
+    )
 
 
 def load_params(path: str, n_layers: int) -> List[Dict[str, np.ndarray]]:
@@ -117,19 +145,24 @@ def load(source_dir: str, device=None) -> DiffBasedAnomalyDetector:
         spec, load_params(os.path.join(source_dir, "params.npz"), len(spec.layers)),
         device,
     )
+    estimator.history = model.get("history")
     det = model["detector"]
-    return DiffBasedAnomalyDetector(
+    detector = DiffBasedAnomalyDetector(
         base_estimator=Pipeline([
             ("scaler", MinMaxScaler(**model["input_scaler"])),
             ("estimator", estimator),
         ]),
         scaler=MinMaxScaler(**det["scaler"]),
         require_thresholds=det["require_thresholds"],
+        shuffle=det.get("shuffle", False),
         window=det["window"],
         smoothing_method=det["smoothing_method"],
         feature_thresholds=det["feature_thresholds"],
         aggregate_threshold=det["aggregate_threshold"],
     )
+    for name in _CV_ATTRIBUTES:
+        setattr(detector, name, _arrays(det.get(name)))
+    return detector
 
 
 def load_model_json(source_dir: str) -> Dict[str, Any]:
