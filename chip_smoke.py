@@ -12,7 +12,11 @@ Drive the PyTorch/CUDA port (gordo_tpu_torch) on one NVIDIA GPU.
    shapes (and ragged, small-head and large-head shapes), with the times
    of the kernel, the plain version, the bound, and the PyTorch library
    call that computes the same function (timed here only as a yardstick).
-   The backward kernels must also give bit-identical results twice.
+   The forward is timed at the serving shape and at the training shape.
+   The backward kernels must also give bit-identical results twice. The
+   build's registers and spills (``-Xptxas -v``), each tensor-core
+   kernel's shared memory and blocks per SM, and the HMMA instructions in
+   its SASS (``cuobjdump``, where the toolkit has it) are printed.
 4. Serving path: a ``transformer-ae-512`` artifact (TransformerAutoEncoder,
    lookback 512, d_model 256, 4 heads, ff 512, 2 blocks, 8 tags; weights
    from a seed) is served by the port's HTTP server on the card, and three
@@ -54,14 +58,18 @@ TAGS = [f"tag-{i}" for i in range(8)]
 CONFIG = dict(kind="transformer_model", lookback_window=512, d_model=256, num_heads=4,
               ff_dim=512, num_blocks=2, causal=True, pool="last", attention="auto")
 REQUEST_ROWS = (1535, 700, 1535)
-# H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s and float32
-# FLOP/s on the CUDA cores (the kernel does not use the tensor cores)
+# H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s, float32 FLOP/s
+# on the CUDA cores, and TF32 FLOP/s on the tensor cores. The forward and
+# dK/dV kernels do float32-accurate products in 3xTF32 (three TF32 products
+# each), so their least time is set at a third of the TF32 rate.
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+TF32X3_FLOP_PER_S = 495e12 / 3
 TOL_OUT_REL = 1e-4  # kernel vs plain, float32, sums in another order
 TOL_LSE_ABS = 1e-4
 TOL_MODEL_REL = 1e-4  # served model output vs the same model with plain attention
-BACKWARD_SHAPES = [((128, 512, 64), True), ((128, 512, 64), False), ((16, 144, 16), True),
+TRAIN_SHAPE = (128, 512, 64)  # one training step's attention: batch 32 x 4 heads
+BACKWARD_SHAPES = [(TRAIN_SHAPE, True), (TRAIN_SHAPE, False), ((16, 144, 16), True),
                    ((6, 77, 32), False), ((4, 200, 128), True), ((1, 1, 64), True)]
 TOL_GRAD_REL = 1e-4  # backward kernels vs plain, and one step's parameter gradients
 TOL_LOSS_REL = 1e-3  # 20 step losses, flash vs plain attention
@@ -91,16 +99,72 @@ def _time_ms(fn, iters: int) -> float:
 
 
 def _flash_bound_ms(bh: int, t: int, dh: int, causal: bool, n_tensors: int = 4,
-                    flop_per_pair: int = 4):
-    """(bound_ms, bound_by): ``n_tensors`` (bh, t, dh) float32 tensors read
-    or written once plus lse, and ``flop_per_pair * dh`` FLOP per visible
-    (query, key) pair. The forward moves q/k/v/out (4) at 4*dh; dQ moves
-    q/k/v/o/dO/dQ (6) at 6*dh; dK/dV q/k/v/o/dO/dK/dV (7) at 8*dh."""
+                    flop_per_pair: int = 4) -> dict:
+    """The least time of the work: ``n_tensors`` (bh, t, dh) float32 tensors
+    read or written once plus lse, and ``flop_per_pair * dh`` FLOP per
+    visible (query, key) pair. The forward moves q/k/v/out (4) at 4*dh; dQ
+    moves q/k/v/o/dO/dQ (6) at 6*dh; dK/dV q/k/v/o/dO/dK/dV (7) at 8*dh.
+    ``bound_ms``/``bound_by`` take the operations at the 3xTF32 rate;
+    ``fp32_core_bound_ms`` at the CUDA cores' float32 rate."""
     n_bytes = 4 * (n_tensors * bh * t * dh + bh * t)
     pairs = t * (t + 1) // 2 if causal else t * t
     flops = flop_per_pair * dh * bh * pairs
-    by_bytes, by_ops = n_bytes / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S
-    return 1e3 * max(by_bytes, by_ops), "bytes" if by_bytes > by_ops else "operations"
+    by_bytes, by_ops = n_bytes / HBM_BYTES_PER_S, flops / TF32X3_FLOP_PER_S
+    return {"bound_ms": 1e3 * max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes > by_ops else "operations",
+            "fp32_core_bound_ms": 1e3 * max(by_bytes, flops / FP32_FLOP_PER_S)}
+
+
+def _occupancy() -> dict:
+    """Per tensor-core kernel and head dim: its dynamic shared memory and
+    the blocks of it that one SM holds (``cudaOccupancy...``)."""
+    import ctypes
+
+    from gordo_tpu_torch.ops import _build
+
+    report = {}
+    for name, stem, symbol in (
+        ("flash_attention_forward", "flash_attention",
+         "gordo_flash_attention_forward_f32_occupancy"),
+        ("flash_attention_backward_dkv", "flash_attention_bwd",
+         "gordo_flash_attention_backward_dkv_f32_occupancy"),
+    ):
+        fn = getattr(_build.load_library(stem), symbol)
+        fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        for dh in (16, 32, 64, 128):
+            smem, blocks = ctypes.c_int(), ctypes.c_int()
+            rc = fn(dh, ctypes.byref(smem), ctypes.byref(blocks))
+            if rc != 0:
+                raise RuntimeError(f"{symbol}({dh}) failed: CUDA error {rc}")
+            report.setdefault(name, {})[dh] = {"smem_bytes": smem.value,
+                                               "blocks_per_sm": blocks.value}
+            print(f"  {name} dh {dh}: {smem.value} B shared memory, "
+                  f"{blocks.value} blocks per SM", flush=True)
+    return report
+
+
+def _sass_hmma(libs: dict) -> dict:
+    """HMMA instructions per kernel in the built libraries' SASS, where the
+    toolkit has ``cuobjdump``; empty without it."""
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(cuobjdump).exists():
+        print("  cuobjdump not found: SASS not inspected", flush=True)
+        return {}
+    counts = {}
+    for path in libs.values():
+        sass = subprocess.run([cuobjdump, "-sass", str(path)], capture_output=True,
+                              text=True, check=True, timeout=120).stdout
+        function = None
+        for line in sass.splitlines():
+            if "Function :" in line:
+                function = line.split("Function :")[1].strip()
+                counts.setdefault(function, 0)
+            elif "HMMA" in line and function:
+                counts[function] += 1
+    for function, n in sorted(counts.items()):
+        print(f"  SASS {function}: {n} HMMA", flush=True)
+    return counts
 
 
 def kernel_phase(card: str) -> dict:
@@ -132,24 +196,30 @@ def kernel_phase(card: str) -> dict:
                  (("out_rel", out_rel), ("out_abs", out_abs), ("lse_abs", lse_abs))}
         del out, lse, ref_out, ref_lse
 
-    q, k, v = (torch.randn(main_shape, device="cuda", generator=g) for _ in range(3))
-    ms = _time_ms(lambda: fa.flash_attention_forward(q, k, v, True), 20)
-    plain_ms = _time_ms(lambda: fa.flash_attention_forward_plain(q, k, v, True), 5)
-    library_ms = _time_ms(
-        lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True), 20
-    )
-    bound_ms, bound_by = _flash_bound_ms(*main_shape, causal=True)
-    print(f"flash_attention {main_shape} causal on {card}: kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms, scaled_dot_product_attention {library_ms:.4f} ms, "
-          f"bound {bound_ms:.4f} ms ({bound_by})", flush=True)
+    timed = {}
+    for shape, iters in ((main_shape, 20), (TRAIN_SHAPE, 100)):
+        q, k, v = (torch.randn(shape, device="cuda", generator=g) for _ in range(3))
+        ms = _time_ms(lambda: fa.flash_attention_forward(q, k, v, True), iters)
+        plain_ms = _time_ms(lambda: fa.flash_attention_forward_plain(q, k, v, True),
+                            max(iters // 4, 5))
+        library_ms = _time_ms(
+            lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True), iters
+        )
+        bound = _flash_bound_ms(*shape, causal=True)
+        print(f"flash_attention {shape} causal on {card}: kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, scaled_dot_product_attention {library_ms:.4f} ms, "
+              f"bound {bound['bound_ms']:.4f} ms ({bound['bound_by']}, 3xTF32), "
+              f"{bound['fp32_core_bound_ms']:.4f} ms on the CUDA cores", flush=True)
+        timed[shape] = {"ms": ms, "plain_ms": plain_ms, **bound, "library_ms": library_ms,
+                        "shape": list(shape), "causal": True}
+        del q, k, v
     return {
         "name": "flash_attention_forward", "route": "cuda",
         "source": "gordo_tpu_torch/ops/csrc/flash_attention.cu",
         "replaces": "gordo_tpu/ops/pallas_kernels/flash_attention.py:41",
         "launches": None, "max_abs_err": worst["out_abs"],
         "out_max_rel_err": worst["out_rel"], "lse_max_abs_err": worst["lse_abs"],
-        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": library_ms, "shape": list(main_shape), "causal": True,
+        **timed[main_shape], "training_shape": timed[TRAIN_SHAPE],
     }
 
 
@@ -203,10 +273,12 @@ def backward_kernel_phase(card: str) -> list:
     dq_bound = _flash_bound_ms(*shape, causal=True, n_tensors=6, flop_per_pair=6)
     dkv_bound = _flash_bound_ms(*shape, causal=True, n_tensors=7, flop_per_pair=8)
     print(f"flash backward {shape} causal on {card}: dQ kernel {dq_ms:.4f} ms (bound "
-          f"{dq_bound[0]:.4f}, {dq_bound[1]}), dK/dV kernel {dkv_ms:.4f} ms (bound "
-          f"{dkv_bound[0]:.4f}, {dkv_bound[1]}), both {dq_ms + dkv_ms:.4f} ms; plain "
-          f"backward {plain_ms:.4f} ms; scaled_dot_product_attention backward "
-          f"{library_ms:.4f} ms (dq, dk, dv together)", flush=True)
+          f"{dq_bound['bound_ms']:.4f} 3xTF32, {dq_bound['fp32_core_bound_ms']:.4f} CUDA "
+          f"cores), dK/dV kernel {dkv_ms:.4f} ms (bound {dkv_bound['bound_ms']:.4f} "
+          f"3xTF32, {dkv_bound['fp32_core_bound_ms']:.4f} CUDA cores), both "
+          f"{dq_ms + dkv_ms:.4f} ms; plain backward {plain_ms:.4f} ms; "
+          f"scaled_dot_product_attention backward {library_ms:.4f} ms (dq, dk, dv "
+          f"together)", flush=True)
     common = {"route": "cuda", "source": "gordo_tpu_torch/ops/csrc/flash_attention_bwd.cu",
               "launches": None, "plain_ms": plain_ms, "library_ms": library_ms,
               "plain_and_library_compute": "dq, dk and dv together",
@@ -215,12 +287,12 @@ def backward_kernel_phase(card: str) -> list:
         {"name": "flash_attention_backward_dq",
          "replaces": "gordo_tpu/ops/pallas_kernels/flash_attention.py:89",
          "max_abs_err": worst["dq"], "max_rel_err": worst_rel["dq"], "ms": dq_ms,
-         "bound_ms": dq_bound[0], "bound_by": dq_bound[1], **common},
+         **dq_bound, **common},
         {"name": "flash_attention_backward_dkv",
          "replaces": "gordo_tpu/ops/pallas_kernels/flash_attention.py:127",
          "max_abs_err": max(worst["dk"], worst["dv"]),
          "max_rel_err": max(worst_rel["dk"], worst_rel["dv"]), "ms": dkv_ms,
-         "bound_ms": dkv_bound[0], "bound_by": dkv_bound[1], **common},
+         **dkv_bound, **common},
     ]
 
 
@@ -521,9 +593,18 @@ def main() -> int:
         for line in log.splitlines():
             if "entry function" in line or "registers" in line or "spill" in line:
                 print(f"  {stem}: {line.strip()}")
+    occupancy = _occupancy()
+    hmma = _sass_hmma(libs)
 
     forward = kernel_phase(card)
     dq, dkv = backward_kernel_phase(card)
+    for entry in (forward, dkv):
+        entry["occupancy_by_head_dim"] = occupancy[entry["name"]]
+    for entry, kernel in ((forward, "flash_forward_f32"), (dq, "flash_bwd_dq_f32"),
+                          (dkv, "flash_bwd_dkv_f32")):
+        entry["sass_hmma"] = sum(n for f, n in hmma.items() if kernel in f) if hmma else None
+    if hmma and not (forward["sass_hmma"] and dkv["sass_hmma"]):
+        raise AssertionError("the tensor-core kernels' SASS holds no HMMA instruction")
     torch.cuda.empty_cache()
 
     collections = [REPO / "build" / "chip_smoke" / rev for rev in ("1", "2")]

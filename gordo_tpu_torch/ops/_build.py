@@ -5,8 +5,9 @@ Every ``csrc/*.cu`` compiles with ``nvcc`` for ``sm_90a`` into its own
 shared library with a plain C interface, loaded with ``ctypes``. The
 sources are compiled together (one ``nvcc`` process each, all started at
 once) at first use, into ``build/gordo_tpu_torch/<hash>/`` beside the
-package, where ``<hash>`` covers the sources and the flags: a changed
-source builds anew, an unchanged one is loaded as built. A failed build
+package, where ``<hash>`` covers the sources, the headers they include
+(``csrc/*.cuh``) and the flags: a changed source or header builds anew, an
+unchanged tree is loaded as built. A failed build
 raises with the compiler's output.
 """
 
@@ -46,8 +47,10 @@ def nvcc_path() -> str:
 
 
 def _build_dir() -> Path:
+    """The build directory: a hash of the flags and of every source and
+    header in ``csrc`` (``*.cu`` and the ``*.cuh`` they include)."""
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sorted(CSRC.glob("*.cu")):
+    for src in sorted([*CSRC.glob("*.cu"), *CSRC.glob("*.cuh")]):
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     return BUILD_ROOT / digest.hexdigest()[:16]

@@ -18,31 +18,52 @@
 // dh 64, causal) dQ does 6*dh FLOP and dK/dV 8*dh FLOP for each of the
 // 16.8 M visible (query, key) pairs (6.5e9 and 8.6e9 FLOP), against
 // ~0.1 GB of q/k/v/o/dO/lse in and gradients out: ~60-70 FLOP per byte,
-// far above the fp32 ridge, so both are bound by float32 FMA throughput
-// on the CUDA cores (67 TFLOP/s published): 0.096 ms and 0.128 ms. The
-// tensor cores are not used: their float32 path is TF32, which keeps
-// ~3 decimal digits and would not hold the float32 reference.
+// so both are bound by arithmetic: 0.096 ms and 0.128 ms as float32 FMAs
+// on the CUDA cores (67 TFLOP/s published), 0.039 ms and 0.052 ms in
+// 3xTF32 on the tensor cores (165 TFLOP/s, mma_tf32x3.cuh).
 //
-// What the design does about it (right and simple first; wgmma/TMA later):
-// - one thread per row, as in the forward, would not fit: a dQ row needs
-//   q, dO and its accumulator, a dK/dV row k, v and two accumulators. So
-//   a block of 256 threads stages 64-row tiles in shared memory and
+// dQ, on the CUDA cores (right and simple first):
+// - a block of 256 threads stages 64-row tiles in shared memory and
 //   computes the 64x64 S and dP tiles together, each thread a 4x4
 //   sub-tile, reading float4s from rows padded by 4 floats (no bank
 //   conflicts; one operand is a broadcast within each quarter warp);
-// - P and dS go to shared memory, and each thread then accumulates a
-//   4-row slice of dQ (or of dK and dV) in registers, an outer product per
-//   key (or query) that reuses each shared-memory load for 4 FMAs or more;
-// - under causal masking the dQ key loop stops at the diagonal tile and
-//   the dK/dV query loop starts there; the tiles with the most work are
-//   scheduled first;
-// - the ragged tail (T not a multiple of 64) is zero-filled and masked, so
-//   any T >= 1 works; dh is 16, 32, 64 or 128 (a template parameter).
-// Shared memory is 4 tiles of 64 x (dh + 4) floats plus two 64 x 68 score
-// tiles: 38-152 KB, above 48 KB only through the dynamic-size attribute.
+// - dS goes to shared memory, and each thread then accumulates a 4-row
+//   slice of dQ in registers, an outer product per key that reuses each
+//   shared-memory load for 4 FMAs or more;
+// - under causal masking the key loop stops at the diagonal tile, and the
+//   query tiles with the most work are scheduled first.
+//
+// dK/dV, on the tensor cores in 3xTF32 mma.sync:
+// - one block of 4 warps per (bh, 64-row key tile); each warp owns 16 key
+//   rows. K and V are loaded once; Q, dO and lse tiles of 32 query rows (8
+//   at dh 128, where more would not fit the registers) are double-buffered
+//   with cp.async, and O's tile goes through one buffer into D;
+// - it computes on the transposed problem, so that no product needs a
+//   transpose in registers: S^T = K Q^T * scale, masked, P^T =
+//   exp(S^T - lse); dV += P^T dO; dP^T = V dO^T; dS^T = P^T * (dP^T - D),
+//   with D = rowsum(dO * O) recomputed per query tile as the TPU kernel
+//   does; dK += dS^T Q * scale. P^T and dS^T feed the next product straight
+//   from their accumulator fragments (mma_tf32x3.cuh), every shared-memory
+//   row is padded to dh + 4 floats and every fragment load is conflict-free;
+//   each product's terms go into a fresh accumulator that is added in
+//   float32 (mma_3xtf32_sum): two k-steps of S^T and dP^T at a time, one
+//   query tile of dV and dK;
+// - at dh 64, the training shape, two blocks share an SM (77 KB of shared
+//   memory each), and the kernel asks the register allocator for that
+//   (flash_bwd_dkv_f32_dh64): it then keeps more products in flight;
+// - under causal masking the query loop starts at the diagonal tile, a warp
+//   whose keys all lie past a query tile skips it, and the key tiles with
+//   the most work are scheduled first.
+// The ragged tail (T not a multiple of the tile) is zero-filled and masked,
+// so any T >= 1 works; dh is 16, 32, 64 or 128 (a template parameter).
+// Shared memory: dQ 4 tiles of 64 x (dh + 4) floats plus two 64 x 68
+// score tiles, 38-152 KB; dK/dV 23 / 41 / 77 / 87 KB at dh 16 / 32 / 64 / 128.
+// Above 48 KB only through the dynamic-size attribute.
 
 #include <cuda_runtime.h>
 #include <limits.h>
+
+#include "mma_tf32x3.cuh"
 
 namespace {
 
@@ -265,102 +286,253 @@ flash_bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
   store_rows<DH, CPT>(dq + base, acc, q0 + 4 * ty, tx * CPT, t, scale);
 }
 
-template <int DH>
-__global__ void __launch_bounds__(THREADS)
-flash_bwd_dkv_f32(const float* __restrict__ q, const float* __restrict__ k,
-                  const float* __restrict__ v, const float* __restrict__ o,
-                  const float* __restrict__ lse, const float* __restrict__ dout,
-                  float* __restrict__ dk, float* __restrict__ dv, int t,
-                  int n_tiles, float scale, int causal) {
-  constexpr int LD = DH + PAD;
-  constexpr int CPT = DH / 16;  // dK / dV columns per thread
-  extern __shared__ float4 smem4[];
-  float* ks = reinterpret_cast<float*>(smem4);  // [TILE][LD]
-  float* vs = ks + TILE * LD;                   // [TILE][LD]
-  float* qs = vs + TILE * LD;                   // [TILE][LD]
-  float* dos = qs + TILE * LD;                  // [TILE][LD]
-  float* ps = dos + TILE * LD;                  // P: [query][key], LDP
-  float* dss = ps + TILE * LDP;                 // dS: [query][key], LDP
-  float* lse_s = dss + TILE * LDP;              // [TILE]
-  float* d_s = lse_s + TILE;                    // [TILE]
+// --- dK/dV on the tensor cores (3xTF32 mma.sync, mma_tf32x3.cuh) ---
 
+constexpr int DKV_KEYS = 64;  // key rows per block, 16 per warp
+constexpr int DKV_THREADS = 128;
+
+template <int DH>
+struct Dkv {
+  // query rows per double-buffered tile: 8 at dh 128 keeps the
+  // accumulators in registers
+  static constexpr int BQ = DH == 128 ? 8 : 32;
+  static constexpr int LD = DH + 4;  // shared-memory row stride
+  static constexpr int KV = 0;       // K, then V: [DKV_KEYS][LD] each
+  static constexpr int Q = 2 * DKV_KEYS * LD;  // [stage][Q, dO][BQ][LD]
+  static constexpr int O = Q + 4 * BQ * LD;    // [BQ][LD]
+  static constexpr int LSE = O + BQ * LD;      // [stage][BQ]
+  static constexpr int D = LSE + 2 * BQ;       // [BQ]
+  static constexpr int SMEM_FLOATS = D + BQ;
+};
+
+// issue the loads of query tile q0: Q and dO into `stage`, O, and lse
+template <int DH>
+__device__ __forceinline__ void load_query_tile(float* smem, int stage,
+                                                const float* q, const float* dout,
+                                                const float* o, const float* lse,
+                                                int q0, int t) {
+  using C = Dkv<DH>;
+  constexpr int BQ = C::BQ;
+  float* qs = smem + C::Q + stage * 2 * BQ * C::LD;
+  gordo_mma::load_tile_async<BQ, DH, DKV_THREADS>(qs, q, q0, t);
+  gordo_mma::load_tile_async<BQ, DH, DKV_THREADS>(qs + BQ * C::LD, dout, q0, t);
+  gordo_mma::load_tile_async<BQ, DH, DKV_THREADS>(smem + C::O, o, q0, t);
+  if (threadIdx.x < BQ) {
+    const int row = q0 + static_cast<int>(threadIdx.x);
+    gordo_mma::cp_async4(smem + C::LSE + stage * BQ + threadIdx.x,
+                         lse + (row < t ? row : 0), row < t);
+  }
+  gordo_mma::cp_async_commit();
+}
+
+// acc (16 rows x BQ columns) += A (16 rows of `a_rows`, [row][DH]) times
+// B^T (BQ rows of `b_rows`, [col][DH]): S^T = K Q^T and dP^T = V dO^T,
+// two k-steps per fresh sum
+template <int DH>
+__device__ __forceinline__ void product_nt(float (&acc)[Dkv<DH>::BQ / 8][4],
+                                           const float* a_rows, const float* b_rows,
+                                           int g, int tq) {
+  using namespace gordo_mma;
+  constexpr int LD = Dkv<DH>::LD;
+#pragma unroll 2
+  for (int kk = 0; kk < DH / 8; kk += 2) {
+    const FragA a[2] = {load_a(a_rows + 8 * kk, LD, g, tq),
+                        load_a(a_rows + 8 * kk + 8, LD, g, tq)};
+#pragma unroll
+    for (int n = 0; n < Dkv<DH>::BQ / 8; ++n) {
+      const FragB b[2] = {load_b_nk(b_rows + 8 * n * LD + 8 * kk, LD, g, tq),
+                          load_b_nk(b_rows + 8 * n * LD + 8 * kk + 8, LD, g, tq)};
+      mma_3xtf32_sum<2>(acc[n], a, b);
+    }
+  }
+}
+
+// acc (16 rows x DH) += X (16 rows x BQ, accumulator fragments `x`) times
+// the BQ rows of `rows` ([row][DH]): dV += P^T dO and dK += dS^T Q
+template <int DH>
+__device__ __forceinline__ void product_nn(float (&acc)[DH / 8][4],
+                                           const float (&x)[Dkv<DH>::BQ / 8][4],
+                                           const float* rows, int g, int tq) {
+  using namespace gordo_mma;
+  constexpr int LD = Dkv<DH>::LD;
+  constexpr int NT = Dkv<DH>::BQ / 8;
+  FragA a[NT];
+#pragma unroll
+  for (int n = 0; n < NT; ++n) a[n] = acc_to_a(x[n]);
+#pragma unroll
+  for (int m = 0; m < DH / 8; ++m) {
+    FragB b[NT];
+#pragma unroll
+    for (int n = 0; n < NT; ++n) b[n] = load_b_kn_paired(rows + 8 * n * LD + 8 * m, LD, g, tq);
+    mma_3xtf32_sum<NT>(acc[m], a, b);
+  }
+}
+
+template <int DH>
+__device__ __forceinline__ void dkv_body(const float* __restrict__ q,
+                                         const float* __restrict__ k,
+                                         const float* __restrict__ v,
+                                         const float* __restrict__ o,
+                                         const float* __restrict__ lse,
+                                         const float* __restrict__ dout,
+                                         float* __restrict__ dk, float* __restrict__ dv,
+                                         int t, int n_tiles, float scale, int causal) {
+  using namespace gordo_mma;
+  using C = Dkv<DH>;
+  constexpr int LD = C::LD;
+  constexpr int BQ = C::BQ;
+  constexpr int NT = BQ / 8;      // 8-query column groups
+  constexpr int OT = DH / 8;      // 8-column groups of dK and dV
+  constexpr int TPR = DKV_THREADS / BQ;  // threads per row computing D
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+
+  const int warp = threadIdx.x / 32;
+  const int g = (threadIdx.x % 32) / 4;
+  const int tq = threadIdx.x % 4;
   // under causal masking the first key tiles see the most queries: first
   const int tile = static_cast<int>(blockIdx.x % n_tiles);
   const size_t bh = blockIdx.x / n_tiles;
-  const int k0 = tile * TILE;
+  const int k0 = tile * DKV_KEYS;
+  const int w0 = k0 + 16 * warp;  // the warp's first key row
   const size_t base = bh * static_cast<size_t>(t) * DH;
-  const int ty = threadIdx.x / 16;
-  const int tx = threadIdx.x % 16;
+  const float* qb = q + base;
+  const float* gb = dout + base;
+  const float* ob = o + base;
+  const float* lb = lse + bh * t;
 
-  load_tile<DH>(ks, k + base, k0, t);
-  load_tile<DH>(vs, v + base, k0, t);
+  const int n_q_tiles = (t + BQ - 1) / BQ;
+  const int first = causal ? k0 / BQ : 0;  // the diagonal tile
+  load_tile_async<DKV_KEYS, DH, DKV_THREADS>(smem + C::KV, k + base, k0, t);
+  load_tile_async<DKV_KEYS, DH, DKV_THREADS>(smem + C::KV + DKV_KEYS * LD, v + base,
+                                             k0, t);
+  load_query_tile<DH>(smem, 0, qb, gb, ob, lb, first * BQ, t);
+  const float* kw = smem + C::KV + 16 * warp * LD;
+  const float* vw = kw + DKV_KEYS * LD;
+  float* d_s = smem + C::D;
 
-  // score sub-tile: query rows tx + 16i, key rows 4ty + j of the tile
-  const int rq[4] = {tx, tx + 16, tx + 32, tx + 48};
-  const int rk[4] = {4 * ty, 4 * ty + 1, 4 * ty + 2, 4 * ty + 3};
-  // dK / dV slices: key rows 4ty + j, columns tx * CPT ...
-  float dk_acc[4][CPT], dv_acc[4][CPT];
+  float dk_acc[OT][4], dv_acc[OT][4];
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
+  for (int n = 0; n < OT; ++n) {
 #pragma unroll
-    for (int c = 0; c < CPT; ++c) {
-      dk_acc[j][c] = 0.f;
-      dv_acc[j][c] = 0.f;
-    }
+    for (int e = 0; e < 4; ++e) dk_acc[n][e] = dv_acc[n][e] = 0.f;
   }
 
-  for (int qt = causal ? tile : 0; qt < n_tiles; ++qt) {
-    const int q0 = qt * TILE;
-    __syncthreads();  // k/v are written; the last tile is consumed
-    load_tile<DH>(qs, q + base, q0, t);
-    load_tile<DH>(dos, dout + base, q0, t);
-    load_row_stats<DH>(lse_s, d_s, lse + bh * t, o + base, dout + base, q0, t);
+  for (int qt = first; qt < n_q_tiles; ++qt) {
+    const int stage = (qt - first) & 1;
+    const int q0 = qt * BQ;
+    const float* qs = smem + C::Q + stage * 2 * BQ * LD;
+    const float* dos = qs + BQ * LD;
+    const float* lse_s = smem + C::LSE + stage * BQ;
+    cp_async_wait<0>();
+    // tile qt has landed; every warp is done with tile qt - 1 (D, the
+    // other stage)
     __syncthreads();
-
-    float s[4][4], dp[4][4];
-    tile_dots<DH>(qs, ks, rq, rk, s);
-    tile_dots<DH>(dos, vs, rq, rk, dp);
+    {  // D = rowsum(dO * O), TPR threads per row; rows past t are zero
+      const int r = threadIdx.x / TPR;
+      const int part = threadIdx.x % TPR;
+      const float* orow = smem + C::O + r * LD;
+      const float* grow = dos + r * LD;
+      float d = 0.f;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int query = q0 + rq[i];
-      float p[4], ds[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int key = k0 + rk[j];
-        const bool live = query < t && key < t && (!causal || key <= query);
-        p[j] = live ? expf(s[i][j] * scale - lse_s[rq[i]]) : 0.f;
-        ds[j] = p[j] * (dp[i][j] - d_s[rq[i]]);
+      for (int c = 4 * part; c < DH; c += 4 * TPR) {
+        const float4 a = *reinterpret_cast<const float4*>(orow + c);
+        const float4 b = *reinterpret_cast<const float4*>(grow + c);
+        d = fmaf(a.x, b.x, d);
+        d = fmaf(a.y, b.y, d);
+        d = fmaf(a.z, b.z, d);
+        d = fmaf(a.w, b.w, d);
       }
-      *reinterpret_cast<float4*>(ps + rq[i] * LDP + 4 * ty) =
-          make_float4(p[0], p[1], p[2], p[3]);
-      *reinterpret_cast<float4*>(dss + rq[i] * LDP + 4 * ty) =
-          make_float4(ds[0], ds[1], ds[2], ds[3]);
+#pragma unroll
+      for (int lane = 1; lane < TPR; lane *= 2) d += __shfl_xor_sync(0xffffffffu, d, lane);
+      if (part == 0) d_s[r] = d;
     }
-    __syncthreads();
+    __syncthreads();  // D is written and the O buffer is free
+    if (qt + 1 < n_q_tiles) {
+      load_query_tile<DH>(smem, stage ^ 1, qb, gb, ob, lb, q0 + BQ, t);
+    }
+    if (causal && q0 + BQ - 1 < w0) continue;  // warp-uniform: all masked
 
-    // dV += P^T dO and dK += dS^T Q over this tile's queries
-#pragma unroll 2
-    for (int r = 0; r < TILE; ++r) {
-      const float4 pw = *reinterpret_cast<const float4*>(ps + r * LDP + 4 * ty);
-      const float4 sw = *reinterpret_cast<const float4*>(dss + r * LDP + 4 * ty);
-      float gr[CPT], qr[CPT];
-      load_vec<CPT>(dos + r * LD + tx * CPT, gr);
-      load_vec<CPT>(qs + r * LD + tx * CPT, qr);
+    // S^T = K Q^T (keys x queries), then P^T = exp(S^T * scale - lse), 0
+    // where masked
+    float p[NT][4];
 #pragma unroll
-      for (int c = 0; c < CPT; ++c) {
-        dv_acc[0][c] = fmaf(pw.x, gr[c], dv_acc[0][c]);
-        dv_acc[1][c] = fmaf(pw.y, gr[c], dv_acc[1][c]);
-        dv_acc[2][c] = fmaf(pw.z, gr[c], dv_acc[2][c]);
-        dv_acc[3][c] = fmaf(pw.w, gr[c], dv_acc[3][c]);
-        dk_acc[0][c] = fmaf(sw.x, qr[c], dk_acc[0][c]);
-        dk_acc[1][c] = fmaf(sw.y, qr[c], dk_acc[1][c]);
-        dk_acc[2][c] = fmaf(sw.z, qr[c], dk_acc[2][c]);
-        dk_acc[3][c] = fmaf(sw.w, qr[c], dk_acc[3][c]);
+    for (int n = 0; n < NT; ++n) p[n][0] = p[n][1] = p[n][2] = p[n][3] = 0.f;
+    product_nt<DH>(p, kw, qs, g, tq);
+    const bool mask = q0 + BQ > t || (causal && w0 + 15 > q0);
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = 8 * n + 2 * tq + (e & 1);
+        float x = expf(p[n][e] * scale - lse_s[col]);
+        if (mask) {
+          const int query = q0 + col;
+          const int key = w0 + g + (e < 2 ? 0 : 8);
+          if (!(query < t && (!causal || key <= query))) x = 0.f;
+        }
+        p[n][e] = x;
       }
+    }
+    product_nn<DH>(dv_acc, p, dos, g, tq);  // dV += P^T dO
+    // dP^T = V dO^T, then dS^T = P^T * (dP^T - D)
+    float ds[NT][4];
+#pragma unroll
+    for (int n = 0; n < NT; ++n) ds[n][0] = ds[n][1] = ds[n][2] = ds[n][3] = 0.f;
+    product_nt<DH>(ds, vw, dos, g, tq);
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        ds[n][e] = p[n][e] * (ds[n][e] - d_s[8 * n + 2 * tq + (e & 1)]);
+      }
+    }
+    product_nn<DH>(dk_acc, ds, qs, g, tq);  // dK += dS^T Q (times scale below)
+  }
+
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int key = w0 + g + 8 * half;
+    if (key >= t) continue;
+    float* dkr = dk + base + static_cast<size_t>(key) * DH + 2 * tq;
+    float* dvr = dv + base + static_cast<size_t>(key) * DH + 2 * tq;
+#pragma unroll
+    for (int m = 0; m < OT; ++m) {
+      *reinterpret_cast<float2*>(dkr + 8 * m) =
+          make_float2(dk_acc[m][2 * half] * scale, dk_acc[m][2 * half + 1] * scale);
+      *reinterpret_cast<float2*>(dvr + 8 * m) =
+          make_float2(dv_acc[m][2 * half], dv_acc[m][2 * half + 1]);
     }
   }
-  store_rows<DH, CPT>(dk + base, dk_acc, k0 + 4 * ty, tx * CPT, t, scale);
-  store_rows<DH, CPT>(dv + base, dv_acc, k0 + 4 * ty, tx * CPT, t, 1.f);
+}
+
+#define DKV_PARAMS                                                             \
+  const float *__restrict__ q, const float *__restrict__ k,                   \
+      const float *__restrict__ v, const float *__restrict__ o,               \
+      const float *__restrict__ lse, const float *__restrict__ dout,          \
+      float *__restrict__ dk, float *__restrict__ dv, int t, int n_tiles,     \
+      float scale, int causal
+
+template <int DH>
+__global__ void __launch_bounds__(DKV_THREADS) flash_bwd_dkv_f32(DKV_PARAMS) {
+  dkv_body<DH>(q, k, v, o, lse, dout, dk, dv, t, n_tiles, scale, causal);
+}
+
+// dh 64, the training shape, with two resident blocks per SM asked of the
+// register allocator (the hint makes the other head dims' code worse)
+__global__ void __launch_bounds__(DKV_THREADS, 2) flash_bwd_dkv_f32_dh64(DKV_PARAMS) {
+  dkv_body<64>(q, k, v, o, lse, dout, dk, dv, t, n_tiles, scale, causal);
+}
+
+#undef DKV_PARAMS
+
+template <int DH>
+constexpr auto dkv_kernel() {
+  if constexpr (DH == 64) {
+    return flash_bwd_dkv_f32_dh64;
+  } else {
+    return flash_bwd_dkv_f32<DH>;
+  }
 }
 
 template <typename Kernel>
@@ -398,15 +570,28 @@ cudaError_t launch_dkv(const float* q, const float* k, const float* v,
                        const float* o, const float* lse, const float* dout,
                        float* dk, float* dv, int bh, int t, float scale,
                        int causal, cudaStream_t stream) {
-  const int smem = smem_floats<DH>() * static_cast<int>(sizeof(float));
+  const int smem = Dkv<DH>::SMEM_FLOATS * static_cast<int>(sizeof(float));
   unsigned n_blocks;
   int n_tiles;
   const cudaError_t err =
-      prepare(flash_bwd_dkv_f32<DH>, bh, t, smem, &n_blocks, &n_tiles);
+      prepare(dkv_kernel<DH>(), bh, t, smem, &n_blocks, &n_tiles);
   if (err != cudaSuccess) return err;
-  flash_bwd_dkv_f32<DH><<<n_blocks, THREADS, smem, stream>>>(
+  const auto kernel = dkv_kernel<DH>();
+  kernel<<<n_blocks, DKV_THREADS, smem, stream>>>(
       q, k, v, o, lse, dout, dk, dv, t, n_tiles, scale, causal);
   return cudaGetLastError();
+}
+
+template <int DH>
+cudaError_t dkv_occupancy(int* smem, int* blocks_per_sm) {
+  *smem = Dkv<DH>::SMEM_FLOATS * static_cast<int>(sizeof(float));
+  if (*smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        dkv_kernel<DH>(), cudaFuncAttributeMaxDynamicSharedMemorySize, *smem);
+    if (err != cudaSuccess) return err;
+  }
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks_per_sm, dkv_kernel<DH>(), DKV_THREADS, *smem);
 }
 
 }  // namespace
@@ -462,4 +647,17 @@ extern "C" int gordo_flash_attention_backward_dkv_f32(
     default: err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);
+}
+
+// The dK/dV kernel's dynamic shared memory (bytes) and resident blocks per
+// SM at head dim `dh`, for reports. Returns the CUDA error code.
+extern "C" int gordo_flash_attention_backward_dkv_f32_occupancy(int dh, int* smem_bytes,
+                                                               int* blocks_per_sm) {
+  switch (dh) {
+    case 16: return static_cast<int>(dkv_occupancy<16>(smem_bytes, blocks_per_sm));
+    case 32: return static_cast<int>(dkv_occupancy<32>(smem_bytes, blocks_per_sm));
+    case 64: return static_cast<int>(dkv_occupancy<64>(smem_bytes, blocks_per_sm));
+    case 128: return static_cast<int>(dkv_occupancy<128>(smem_bytes, blocks_per_sm));
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

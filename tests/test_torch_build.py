@@ -1,0 +1,39 @@
+"""
+The build directory of the port's CUDA kernels (gordo_tpu_torch/ops/_build.py)
+changes with every source and header it compiles, so an edited header never
+loads a library built from the old one. Runs on the CPU: nothing is compiled.
+"""
+
+import shutil
+
+import pytest
+
+from gordo_tpu_torch.ops import _build
+
+
+@pytest.fixture
+def csrc(tmp_path, monkeypatch):
+    copy = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, copy)
+    monkeypatch.setattr(_build, "CSRC", copy)
+    return copy
+
+
+def test_the_sources_include_a_header():
+    assert sorted(p.name for p in _build.CSRC.glob("*.cuh")) == ["mma_tf32x3.cuh"]
+
+
+@pytest.mark.parametrize("name", ["mma_tf32x3.cuh", "flash_attention.cu",
+                                  "flash_attention_bwd.cu"])
+def test_build_dir_changes_with_each_source_and_header(csrc, name):
+    before = _build._build_dir()
+    assert _build._build_dir() == before  # stable while nothing changes
+    path = csrc / name
+    path.write_bytes(path.read_bytes() + b"\n// edited\n")
+    assert _build._build_dir() != before
+
+
+def test_build_dir_ignores_other_files(csrc):
+    before = _build._build_dir()
+    (csrc / "notes.txt").write_text("not a source")
+    assert _build._build_dir() == before

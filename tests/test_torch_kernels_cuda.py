@@ -102,3 +102,55 @@ def test_auto_sends_unsupported_head_dims_to_the_plain_path(cuda_device):
     torch.testing.assert_close(out, dot_product_attention_plain(q, k, v, True))
     with pytest.raises(ValueError, match="head dims"):
         dot_product_attention(q, k, v, True, impl="flash")
+
+
+def _rel(got, ref):
+    # relative to the largest entry, and absolute below 1 (standard normal
+    # inputs): at T = 1, dq and dk are exactly 0
+    return ((got - ref).abs().max() / max(ref.abs().max().item(), 1.0)).item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("t", [1, 63, 65, 200])
+@pytest.mark.parametrize("dh", [64, 128])
+def test_forward_kernel_at_ragged_lengths(cuda_device, dh, t, causal):
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    q, k, v = (torch.randn((2, 3, t, dh), device=cuda_device, generator=g) for _ in range(3))
+    out, lse = fa.flash_attention_forward(q, k, v, causal)
+    torch.cuda.synchronize()
+    ref_out, ref_lse = fa.flash_attention_forward_plain(q, k, v, causal)
+    assert ((out - ref_out).abs().max() / ref_out.abs().max()).item() <= 1e-4
+    assert (lse - ref_lse).abs().max().item() <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("t", [1, 63, 65, 200])
+@pytest.mark.parametrize("dh", [64, 128])
+def test_dkv_kernel_at_ragged_lengths(cuda_device, dh, t, causal):
+    g = torch.Generator(device=cuda_device).manual_seed(4)
+    q, k, v, do = (torch.randn((6, t, dh), device=cuda_device, generator=g) for _ in range(4))
+    o, lse = fa.flash_attention_forward(q, k, v, causal)
+    before = fa.DKV_LAUNCHES
+    dk, dv = fa.launch_dkv(q, k, v, o, lse, do, causal)
+    dk2, dv2 = fa.launch_dkv(q, k, v, o, lse, do, causal)
+    torch.cuda.synchronize()
+    assert fa.DKV_LAUNCHES == before + 2
+    _, ref_dk, ref_dv = fa.flash_attention_backward_plain(q, k, v, o, lse, do, causal)
+    assert _rel(dk, ref_dk) <= 1e-4
+    assert _rel(dv, ref_dv) <= 1e-4
+    assert torch.equal(dk, dk2) and torch.equal(dv, dv2)
+
+
+@pytest.mark.cuda
+def test_dkv_kernel_is_bit_identical_on_rerun(cuda_device):
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    q, k, v, do = (torch.randn((128, 512, 64), device=cuda_device, generator=g)
+                   for _ in range(4))
+    o, lse = fa.flash_attention_forward(q, k, v, True)
+    first = fa.launch_dkv(q, k, v, o, lse, do, True)
+    for _ in range(3):
+        again = fa.launch_dkv(q, k, v, o, lse, do, True)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
