@@ -13,10 +13,13 @@ Drive the PyTorch/CUDA port (gordo_tpu_torch) on one NVIDIA GPU.
    of the kernel, the plain version, the bound, and the PyTorch library
    call that computes the same function (timed here only as a yardstick).
    The forward is timed at the serving shape and at the training shape.
-   The backward kernels must also give bit-identical results twice. The
-   build's registers and spills (``-Xptxas -v``), each tensor-core
-   kernel's shared memory and blocks per SM, and the HMMA instructions in
-   its SASS (``cuobjdump``, where the toolkit has it) are printed.
+   The backward kernels must also give bit-identical results twice, and at
+   the training shape each is read against a float64 plain backward beside
+   plain float32's own error: dQ's may be at most F64_ERR_FACTOR times
+   plain float32's. The build's registers and spills (``-Xptxas -v``),
+   each kernel's shared memory and blocks per SM, and the HMMA
+   instructions in its SASS (``cuobjdump``, where the toolkit has it; each
+   kernel must have some) are printed.
 4. Serving path: a ``transformer-ae-512`` artifact (TransformerAutoEncoder,
    lookback 512, d_model 256, 4 heads, ff 512, 2 blocks, 8 tags; weights
    from a seed) is served by the port's HTTP server on the card, and three
@@ -59,8 +62,8 @@ CONFIG = dict(kind="transformer_model", lookback_window=512, d_model=256, num_he
               ff_dim=512, num_blocks=2, causal=True, pool="last", attention="auto")
 REQUEST_ROWS = (1535, 700, 1535)
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s, float32 FLOP/s
-# on the CUDA cores, and TF32 FLOP/s on the tensor cores. The forward and
-# dK/dV kernels do float32-accurate products in 3xTF32 (three TF32 products
+# on the CUDA cores, and TF32 FLOP/s on the tensor cores. The three
+# kernels do float32-accurate products in 3xTF32 (three TF32 products
 # each), so their least time is set at a third of the TF32 rate.
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
@@ -73,6 +76,9 @@ BACKWARD_SHAPES = [(TRAIN_SHAPE, True), (TRAIN_SHAPE, False), ((16, 144, 16), Tr
                    ((6, 77, 32), False), ((4, 200, 128), True), ((1, 1, 64), True)]
 TOL_GRAD_REL = 1e-4  # backward kernels vs plain, and one step's parameter gradients
 TOL_LOSS_REL = 1e-3  # 20 step losses, flash vs plain attention
+# dQ against a float64 plain backward: within this factor of plain float32's
+# own error against it (3xTF32 keeps ~22 of float32's 24 bits)
+F64_ERR_FACTOR = 4.0
 BATCH = 32
 LOSS_STEPS = 20
 
@@ -126,6 +132,8 @@ def _occupancy() -> dict:
     for name, stem, symbol in (
         ("flash_attention_forward", "flash_attention",
          "gordo_flash_attention_forward_f32_occupancy"),
+        ("flash_attention_backward_dq", "flash_attention_bwd",
+         "gordo_flash_attention_backward_dq_f32_occupancy"),
         ("flash_attention_backward_dkv", "flash_attention_bwd",
          "gordo_flash_attention_backward_dkv_f32_occupancy"),
     ):
@@ -223,6 +231,24 @@ def kernel_phase(card: str) -> dict:
     }
 
 
+def float64_errors(inputs, causal: bool, grads) -> dict:
+    """``grads`` (dq, dk, dv, or the first of them) against the plain
+    backward in float64 of the same ``inputs`` (q, k, v, o, lse, dO), beside
+    the plain float32 backward's own error: ``{"dq": (grad's, plain's),
+    ...}``, each the largest error relative to the largest entry, absolute
+    below 1."""
+    from gordo_tpu_torch.ops import flash_attention as fa
+
+    ref64 = fa.flash_attention_backward_plain(*(x.double() for x in inputs), causal)
+    plain32 = fa.flash_attention_backward_plain(*inputs, causal)
+    errors = {}
+    for name, got, plain, ref in zip(("dq", "dk", "dv"), grads, plain32, ref64):
+        scale = max(ref.abs().max().item(), 1.0)
+        errors[name] = ((got.double() - ref).abs().max().item() / scale,
+                        (plain.double() - ref).abs().max().item() / scale)
+    return errors
+
+
 def backward_kernel_phase(card: str) -> list:
     """The dQ and dK/dV kernels vs the plain backward at each shape, and run
     twice for bit-identical results; times at the training shape. Returns
@@ -270,6 +296,14 @@ def backward_kernel_phase(card: str) -> list:
     library_ms = _time_ms(
         lambda: torch.autograd.grad(out, (qr, kr, vr), do, retain_graph=True), 20
     )
+    f64 = float64_errors((q, k, v, o, lse, do), True, (
+        fa.launch_dq(q, k, v, o, lse, do, True), *fa.launch_dkv(q, k, v, o, lse, do, True)))
+    print(f"flash backward {shape} causal against a float64 plain backward: max rel err "
+          + ", ".join(f"{n} kernel {k:.3e} (plain float32 {p:.3e})" for n, (k, p) in f64.items()),
+          flush=True)
+    if not f64["dq"][0] <= F64_ERR_FACTOR * f64["dq"][1]:
+        raise AssertionError(f"dq kernel's error against float64 {f64['dq'][0]:.3e} is above "
+                             f"{F64_ERR_FACTOR}x plain float32's {f64['dq'][1]:.3e}")
     dq_bound = _flash_bound_ms(*shape, causal=True, n_tensors=6, flop_per_pair=6)
     dkv_bound = _flash_bound_ms(*shape, causal=True, n_tensors=7, flop_per_pair=8)
     print(f"flash backward {shape} causal on {card}: dQ kernel {dq_ms:.4f} ms (bound "
@@ -287,11 +321,14 @@ def backward_kernel_phase(card: str) -> list:
         {"name": "flash_attention_backward_dq",
          "replaces": "gordo_tpu/ops/pallas_kernels/flash_attention.py:89",
          "max_abs_err": worst["dq"], "max_rel_err": worst_rel["dq"], "ms": dq_ms,
+         "f64_max_rel_err": f64["dq"][0], "plain_f32_f64_max_rel_err": f64["dq"][1],
          **dq_bound, **common},
         {"name": "flash_attention_backward_dkv",
          "replaces": "gordo_tpu/ops/pallas_kernels/flash_attention.py:127",
          "max_abs_err": max(worst["dk"], worst["dv"]),
          "max_rel_err": max(worst_rel["dk"], worst_rel["dv"]), "ms": dkv_ms,
+         "f64_max_rel_err": max(f64["dk"][0], f64["dv"][0]),
+         "plain_f32_f64_max_rel_err": max(f64["dk"][1], f64["dv"][1]),
          **dkv_bound, **common},
     ]
 
@@ -430,10 +467,13 @@ def main_path(card: str, spec, layers, scaler, collection: Path, device: str = "
     return launches
 
 
-def gradient_and_loss_checks(card: str, rows: np.ndarray, spec) -> None:
+def gradient_and_loss_errors(card: str, rows: np.ndarray, spec) -> dict:
     """One step's parameter gradients and the first LOSS_STEPS step losses
     of the model with the flash kernels against the same parameters with the
-    plain attention (PyTorch's own autograd), on the same batches."""
+    plain attention (PyTorch's own autograd), on the same batches. Returns
+    the largest relative gradient error (``grad``; ``grad_bk``: the ``bk``
+    gradients, absolute against their block's largest) and loss difference
+    (``loss``)."""
     import torch
 
     from gordo_tpu_torch.models.scaler import MinMaxScaler
@@ -466,8 +506,6 @@ def gradient_and_loss_checks(card: str, rows: np.ndarray, spec) -> None:
             worst = max(worst, err / ref.abs().max().item())
     print(f"one step's gradients, flash vs plain attention: max rel err {worst:.3e} "
           f"(bk: abs err {worst_bk:.3e} of the block's largest gradient)", flush=True)
-    if not (worst <= TOL_GRAD_REL and worst_bk <= TOL_GRAD_REL):
-        raise AssertionError("parameter gradients through the flash kernels disagree")
 
     curves = []
     for model in models:
@@ -477,7 +515,15 @@ def gradient_and_loss_checks(card: str, rows: np.ndarray, spec) -> None:
     rel = float(np.max(np.abs(curves[0] - curves[1]) / np.abs(curves[1])))
     print(f"{LOSS_STEPS} step losses, flash vs plain attention: {curves[0][0]:.5f} -> "
           f"{curves[0][-1]:.5f}, max rel diff {rel:.3e} on {card}", flush=True)
-    if not rel <= TOL_LOSS_REL:
+    return {"grad": worst, "grad_bk": worst_bk, "loss": rel}
+
+
+def gradient_and_loss_checks(card: str, rows: np.ndarray, spec) -> None:
+    """:func:`gradient_and_loss_errors` held to TOL_GRAD_REL and TOL_LOSS_REL."""
+    errors = gradient_and_loss_errors(card, rows, spec)
+    if not (errors["grad"] <= TOL_GRAD_REL and errors["grad_bk"] <= TOL_GRAD_REL):
+        raise AssertionError("parameter gradients through the flash kernels disagree")
+    if not errors["loss"] <= TOL_LOSS_REL:
         raise AssertionError("the loss curve through the flash kernels disagrees")
 
 
@@ -598,12 +644,12 @@ def main() -> int:
 
     forward = kernel_phase(card)
     dq, dkv = backward_kernel_phase(card)
-    for entry in (forward, dkv):
+    for entry in (forward, dq, dkv):
         entry["occupancy_by_head_dim"] = occupancy[entry["name"]]
     for entry, kernel in ((forward, "flash_forward_f32"), (dq, "flash_bwd_dq_f32"),
                           (dkv, "flash_bwd_dkv_f32")):
         entry["sass_hmma"] = sum(n for f, n in hmma.items() if kernel in f) if hmma else None
-    if hmma and not (forward["sass_hmma"] and dkv["sass_hmma"]):
+    if hmma and not (forward["sass_hmma"] and dq["sass_hmma"] and dkv["sass_hmma"]):
         raise AssertionError("the tensor-core kernels' SASS holds no HMMA instruction")
     torch.cuda.empty_cache()
 

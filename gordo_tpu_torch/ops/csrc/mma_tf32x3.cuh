@@ -1,6 +1,8 @@
 // Float32-accurate tensor-core products for NVIDIA Hopper (sm_90a):
 // 3xTF32 `mma.sync` fragments and `cp.async` tile loads, shared by the
-// flash-attention kernels of this directory.
+// flash-attention kernels of this directory: the forward
+// (flash_attention.cu), dQ and dK/dV (flash_attention_bwd.cu). Every
+// product of the three runs on the tensor cores through this header.
 //
 // 3xTF32 (CUTLASS's OpMultiplyAddFastF32): each float32 operand x is split
 // into big = tf32(x), rounded to nearest with ties away from zero, and
@@ -33,18 +35,19 @@
 // group turns an accumulator fragment (c0, c1, c2, c3) into the A fragment
 // (c0, c2, c1, c3) of the next product, with no data movement, provided the
 // B operand is read with the same permutation: b0 from row 2t and b1 from
-// row 2t + 1 (`load_b_kn_paired`). This is how P (or P^T, dS^T) goes from
-// the score product into P V (or P^T dO, dS^T Q).
+// row 2t + 1 (`load_b_kn_paired`). This is how P goes from the score
+// product into P V (forward), dS into dS K (dQ), and P^T and dS^T into
+// P^T dO and dS^T Q (dK/dV).
 //
 // Shared-memory rows are padded to DH + 4 floats (DH a multiple of 16):
 // the A loads and the "col" B loads (thread reads row g, column t) and the
 // paired B loads (row 2t, column g) then fall on 32 distinct banks.
 //
 // Why mma.sync and not wgmma yet: TF32 wgmma takes both operands K-major
-// only. V in P V, and dO in P^T dO, are N-major in their natural layout and
-// would need a transposing pass through shared memory; mma.sync fragments
-// are loaded by hand in any layout. wgmma and TMA come with the bf16
-// kernels.
+// only. V in P V, K in dS K, and dO and Q in P^T dO and dS^T Q, are
+// N-major in their natural layout and would need a transposing pass
+// through shared memory; mma.sync fragments are loaded by hand in any
+// layout. wgmma and TMA come with the bf16 kernels.
 
 #pragma once
 

@@ -10,8 +10,9 @@ The kernels replace the three Pallas kernels of
 causal mask, returning the output and the per-row logsumexp, stored here as
 (BH, T) without the TPU's 128-lane replication), ``_flash_dq_kernel`` and
 ``_flash_dkv_kernel`` (the backward, recomputing P = exp(S - lse)). On
-this card all three are bound by float32 FMA throughput; the source notes
-say what their design does about that.
+this card all three are bound by arithmetic and run their products on the
+tensor cores in 3xTF32, float32-accurate (``csrc/mma_tf32x3.cuh``); the
+source notes say what each design does about that.
 
 Dispatch is by where the tensors lie: CPU tensors take the plain twins,
 CUDA tensors launch the kernels or raise. There is no fallback from one to
@@ -38,9 +39,11 @@ _launches_lock = threading.Lock()
 
 
 def _scores(q, k, causal: bool):
-    """S = q k^T * scale in float32, scale = 1/sqrt(dh) as the kernels take
-    it; NEG_INF past the diagonal if causal."""
-    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * (1.0 / q.shape[-1] ** 0.5)
+    """S = q k^T * scale in float32 (float64 for float64 inputs, a
+    reference for the kernels' rounding), scale = 1/sqrt(dh) as the kernels
+    take it; NEG_INF past the diagonal if causal."""
+    dtype = torch.promote_types(q.dtype, torch.float32)
+    s = torch.matmul(q.to(dtype), k.to(dtype).transpose(-1, -2)) * (1.0 / q.shape[-1] ** 0.5)
     if causal:
         t_q, t_k = s.shape[-2:]
         mask = torch.ones(t_q, t_k, dtype=torch.bool, device=s.device).tril()

@@ -154,3 +154,34 @@ def test_dkv_kernel_is_bit_identical_on_rerun(cuda_device):
         again = fa.launch_dkv(q, k, v, o, lse, do, True)
         torch.cuda.synchronize()
         assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("t", [1, 63, 65, 200])
+@pytest.mark.parametrize("dh", [16, 32, 64, 128])
+def test_dq_kernel_at_ragged_lengths(cuda_device, dh, t, causal):
+    g = torch.Generator(device=cuda_device).manual_seed(6)
+    q, k, v, do = (torch.randn((6, t, dh), device=cuda_device, generator=g) for _ in range(4))
+    o, lse = fa.flash_attention_forward(q, k, v, causal)
+    before = fa.DQ_LAUNCHES
+    dq = fa.launch_dq(q, k, v, o, lse, do, causal)
+    dq2 = fa.launch_dq(q, k, v, o, lse, do, causal)
+    torch.cuda.synchronize()
+    assert fa.DQ_LAUNCHES == before + 2
+    ref_dq = fa.flash_attention_backward_plain(q, k, v, o, lse, do, causal)[0]
+    assert _rel(dq, ref_dq) <= 1e-4
+    assert torch.equal(dq, dq2)
+
+
+@pytest.mark.cuda
+def test_dq_kernel_is_bit_identical_on_rerun(cuda_device):
+    g = torch.Generator(device=cuda_device).manual_seed(7)
+    q, k, v, do = (torch.randn((128, 512, 64), device=cuda_device, generator=g)
+                   for _ in range(4))
+    o, lse = fa.flash_attention_forward(q, k, v, True)
+    first = fa.launch_dq(q, k, v, o, lse, do, True)
+    for _ in range(3):
+        again = fa.launch_dq(q, k, v, o, lse, do, True)
+        torch.cuda.synchronize()
+        assert torch.equal(first, again)
