@@ -27,13 +27,19 @@ Drive the PyTorch/CUDA port (gordo_tpu_torch) on one NVIDIA GPU.
    row counts, finite values, one kernel launch per Transformer block per
    request, and the first answer's model output against the same model with
    the plain attention.
-5. Training path: one step's gradients and the first 20 step losses of the
-   model against the same parameters with the plain attention; then a
-   ``DiffBasedAnomalyDetector`` over ``Pipeline[MinMaxScaler,
-   TransformerAutoEncoder]`` at the same width is cross-validated (3 folds)
-   and fitted on 6,144 rows (Adam, MSE, batch 32), with two dQ and two
-   dK/dV launches per step; its losses, held-out error and thresholds are
-   checked, and the trained artifact answers one request through the server.
+5. Build path: one step's gradients and the first 20 step losses of the
+   model against the same parameters with the plain attention; then the
+   ``transformer-ae-512`` machine is built from its config
+   (``BUILD_CONFIG``: RandomDataset, 6,144 rows, a ``DiffBasedAnomalyDetector``
+   over ``Pipeline[MinMaxScaler, TransformerAutoEncoder]``, Adam, MSE, batch
+   32) by ``ModelBuilder`` on the card: 3-fold CV with the default scorers
+   and a fit, 420 steps, two dQ and two dK/dV launches per step. Its phase
+   seconds, ms per step, CV scores, losses, held-out error (against the
+   seeded initial weights) and thresholds are printed and checked; a second
+   build must come from the register's cache and launch nothing; the CLI
+   (``python -m gordo_tpu_torch build``) builds it once more in a
+   subprocess; the built artifact answers one request and its metadata
+   request through the server.
 6. A ``kernels`` JSON line, then the last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
@@ -44,6 +50,7 @@ printed. Without CUDA, or outside a checkout, it exits 2 at once.
 import dataclasses
 import json
 import math
+import os
 import shutil
 import subprocess
 import sys
@@ -81,6 +88,21 @@ TOL_LOSS_REL = 1e-3  # 20 step losses, flash vs plain attention
 F64_ERR_FACTOR = 4.0
 BATCH = 32
 LOSS_STEPS = 20
+# the transformer-ae-512 machine: 6,144 ten-minute RandomDataset rows, the
+# model written with the JAX package's paths, the default CV and metrics
+BUILD_CONFIG = {
+    "name": "transformer-ae-512",
+    "dataset": {"type": "RandomDataset", "train_start_date": "2020-01-01T00:00:00+00:00",
+                "train_end_date": "2020-02-12T16:00:00+00:00", "tags": TAGS,
+                "resolution": "10min"},
+    "model": {"gordo_tpu.models.anomaly.diff.DiffBasedAnomalyDetector": {
+        "base_estimator": {"sklearn.pipeline.Pipeline": {"steps": [
+            "sklearn.preprocessing.MinMaxScaler",
+            {"gordo_tpu.models.models.TransformerAutoEncoder": {
+                **CONFIG, "epochs": 1, "batch_size": BATCH}},
+        ]}}}},
+    "evaluation": {"cv_mode": "full_build", "seed": 0},
+}
 
 
 def _card() -> str:
@@ -527,16 +549,86 @@ def gradient_and_loss_checks(card: str, rows: np.ndarray, spec) -> None:
         raise AssertionError("the loss curve through the flash kernels disagrees")
 
 
-def training_path(card: str, collection: Path) -> dict:
-    """Cross-validate and fit a transformer-ae-512 detector on the card
-    through the port's entry points, check it and serve the trained
-    artifact. Returns the kernels' launches in the training run."""
+def _provider_continuation(n_train: int, n_rows: int, rng) -> np.ndarray:
+    """Rows ``n_train .. n_train + n_rows`` of each tag's RandomDataProvider
+    signal: its three sines and its offset continued past the training
+    span, with fresh noise of the same scale (the provider's own draws, in
+    its order; gordo_tpu_torch/dataset/data_provider.py)."""
+    from gordo_tpu_torch.dataset import RandomDataProvider, SensorTag
+
+    provider = RandomDataProvider()
+    t = np.arange(n_train, n_train + n_rows, dtype=np.float64)
+    columns = []
+    for tag in TAGS:
+        draws = np.random.RandomState(provider._tag_seed(SensorTag(tag)))
+        freqs, amps, phases = (draws.uniform(low, high, size=3)
+                               for low, high in ((0.001, 0.05), (0.5, 2.0), (0, 2 * np.pi)))
+        draws.normal(0, 0.1, size=n_train)
+        offset = draws.uniform(-10, 10)
+        base = sum(a * np.sin(2 * np.pi * f * t + p) for f, a, p in zip(freqs, amps, phases))
+        columns.append(base + rng.normal(0, 0.1, size=n_rows) + offset)
+    return np.stack(columns, axis=1)
+
+
+def _get_json(url: str) -> dict:
+    with urllib.request.urlopen(url, timeout=300) as resp:
+        return json.loads(resp.read())
+
+
+def served_metadata(collection: Path, name: str, device: str = "cuda") -> dict:
+    """``GET …/metadata`` of model ``name`` from the port's server on the card."""
+    from gordo_tpu_torch.server.server import make_server
+
+    server = make_server("127.0.0.1", 0, device=device, collection_dir=str(collection))
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        return _get_json(f"http://127.0.0.1:{server.server_address[1]}"
+                         f"/gordo/v0/smoke/{name}/metadata")
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=60)
+
+
+def cli_build(collection: Path, register: Path) -> None:
+    """``python -m gordo_tpu_torch build`` on the card, the machine config in
+    ``MACHINE``; it must exit 0 and print every CV score line."""
+    started = time.perf_counter()
+    result = subprocess.run(
+        [sys.executable, "-m", "gordo_tpu_torch", "--log-level", "WARNING", "build",
+         "--model-register-dir", str(register), "--print-cv-scores"],
+        cwd=REPO, capture_output=True, text=True, timeout=600,
+        env={**os.environ, "PYTHONPATH": str(REPO), "MACHINE": json.dumps(BUILD_CONFIG),
+             "OUTPUT_DIR": str(collection / "transformer-ae-512-cli")},
+    )
+    lines = [line for line in result.stdout.splitlines() if "_fold-" in line]
+    print(f"python -m gordo_tpu_torch build: exit {result.returncode} in "
+          f"{time.perf_counter() - started:.1f} s, {len(lines)} score lines, first "
+          f"{lines[:1]}", flush=True)
+    if result.returncode != 0:
+        print(result.stderr[-4000:], file=sys.stderr)
+        raise AssertionError(f"the build CLI exited {result.returncode}")
+    # 4 metrics x (8 tags + the aggregate) x (mean, std, max, min, 3 folds)
+    expected = 4 * (len(TAGS) + 1) * 7
+    if len(lines) != expected or not all(
+            math.isfinite(float(line.rsplit("=", 1)[1])) for line in lines):
+        raise AssertionError(f"expected {expected} finite score lines, got {len(lines)}")
+
+
+def build_path(card: str, root: Path) -> dict:
+    """Build the transformer-ae-512 machine from its config on the card
+    through ``ModelBuilder`` (3-fold CV and a fit over 6,144 RandomDataset
+    rows, 420 steps), check it, build it again from the register's cache,
+    build it once more through the CLI, and serve the built artifact.
+    Returns the kernels' launches in the build and in the served request."""
     import torch
 
-    from gordo_tpu_torch import serializer
-    from gordo_tpu_torch.models.anomaly.diff import DiffBasedAnomalyDetector, TimeSeriesSplit
+    from gordo_tpu_torch.builder import ModelBuilder
+    from gordo_tpu_torch.machine import Machine
+    from gordo_tpu_torch.models import models as port_models
+    from gordo_tpu_torch.models.anomaly.diff import TimeSeriesSplit
     from gordo_tpu_torch.models.models import TransformerAutoEncoder
-    from gordo_tpu_torch.models.scaler import MinMaxScaler, Pipeline
     from gordo_tpu_torch.models.spec import TransformerBlock
     from gordo_tpu_torch.ops import flash_attention as fa
     from gordo_tpu_torch.ops.nn import init_model_params
@@ -546,68 +638,109 @@ def training_path(card: str, collection: Path) -> dict:
     rows = np.concatenate([_series(4096, 0, rng), _series(2048, 4096, rng)])
     spec = TransformerAutoEncoder(**CONFIG).build_spec(len(TAGS), len(TAGS))
     gradient_and_loss_checks(card, rows, spec)
-
-    np.random.seed(SEED)
-    detector = DiffBasedAnomalyDetector(Pipeline([
-        ("scaler", MinMaxScaler()),
-        ("estimator", TransformerAutoEncoder(**CONFIG, epochs=1, batch_size=BATCH)),
-    ]))
+    n_rows = len(rows)  # the config's dataset: 6,144 ten-minute rows
     steps = [math.ceil(n_train_samples(spec, len(train_idx)) / BATCH)
              for train_idx, _ in TimeSeriesSplit(3).split(rows)]
-    steps.append(math.ceil(n_train_samples(spec, len(rows)) / BATCH))
+    steps.append(math.ceil(n_train_samples(spec, n_rows) / BATCH))
+    n_blocks = sum(isinstance(layer, TransformerBlock) for layer in spec.layers)
+
+    # each fit's epoch losses, read where the estimators call the training loop
+    losses = []
+    fit_arrays = port_models.fit_arrays
+
+    def recording_fit(*args, **kwargs):
+        result = fit_arrays(*args, **kwargs)
+        losses.append(result.history["loss"])
+        return result
+
+    output, register = root / "transformer-ae-512-built", root.parent / "register"
+    shutil.rmtree(register, ignore_errors=True)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     fa.LAUNCHES = fa.DQ_LAUNCHES = fa.DKV_LAUNCHES = 0
-    t0 = time.perf_counter()
-    cv = detector.cross_validate(X=rows, y=rows)
-    torch.cuda.synchronize()
-    t1 = time.perf_counter()
-    detector.fit(rows, rows)
-    torch.cuda.synchronize()
-    t2 = time.perf_counter()
+    port_models.fit_arrays = recording_fit
+    try:
+        t0 = time.perf_counter()
+        model, machine = ModelBuilder(Machine.from_config(BUILD_CONFIG, "chip-smoke"), "cuda").build(
+            output, register)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    finally:
+        port_models.fit_arrays = fit_arrays
     launches = {"forward": fa.LAUNCHES, "dq": fa.DQ_LAUNCHES, "dkv": fa.DKV_LAUNCHES}
-    n_blocks = sum(isinstance(layer, TransformerBlock) for layer in spec.layers)
-    print(f"training on {card}: cross_validate {t1 - t0:.2f} s ({steps[:3]} steps), fit "
-          f"{t2 - t1:.2f} s ({steps[3]} steps, {1e3 * (t2 - t1) / steps[3]:.2f} ms per "
-          f"step); launches {launches}", flush=True)
+    built = machine.metadata.build_metadata
+    phases = built.phases
+    scores = built.model.cross_validation.scores
+    print(f"build on {card}: {seconds:.2f} s in all; phases (s) {phases}; CV "
+          f"{steps[:3]} steps, fit {steps[3]} steps, "
+          f"{1e3 * phases['fit'] / steps[3]:.2f} ms per fit step; launches {launches}; "
+          f"model_offset {built.model.model_offset}; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    for metric in ("explained-variance-score", "r2-score", "mean-squared-error",
+                   "mean-absolute-error"):
+        print(f"  CV {metric}: {scores[metric]}", flush=True)
     if not launches["dq"] == launches["dkv"] == n_blocks * sum(steps):
         raise AssertionError(f"expected {n_blocks * sum(steps)} dQ and dK/dV launches, "
                              f"got {launches}")
-
-    estimator = detector.base_estimator.steps[-1][1]
-    histories = [m.base_estimator.steps[-1][1].history for m in cv["estimator"]]
-    losses = [x for h in histories + [estimator.history] for x in h["loss"]]
-    print(f"epoch losses (folds, then fit): {losses}; fold scores {cv['test_score'].tolist()}",
-          flush=True)
-    if not all(math.isfinite(x) for x in losses):
+    if not launches["forward"] >= launches["dq"]:
+        raise AssertionError(f"fewer forward launches than training steps: {launches}")
+    if built.model.model_offset != spec.lookback_window - 1:
+        raise AssertionError(f"model_offset {built.model.model_offset}")
+    print(f"epoch losses (folds, then fit): {losses}", flush=True)
+    if len(losses) != 4 or not all(math.isfinite(x) for h in losses for x in h):
         raise AssertionError("a training loss is not finite")
+    if not all(math.isfinite(v) for s in scores.values() for v in s.values()):
+        raise AssertionError("a CV score is not finite")
 
     # held-out rows past the training span: trained vs the seeded initial weights
-    held_out = _series(2048, 6144, np.random.RandomState(SEED + 3))
-    input_scaler = detector.base_estimator.steps[0][1]
+    held_out = _provider_continuation(n_rows, 2048, np.random.RandomState(SEED + 3))
+    input_scaler = model.base_estimator.steps[0][1]
     seeded = TransformerAutoEncoder(**CONFIG).load_params(
         spec, init_model_params(spec, torch.Generator().manual_seed(SEED)), "cuda")
-    truth = detector.scaler.transform(held_out[spec.lookback_window - 1:])
-    mse = {name: float(np.mean(np.square(detector.scaler.transform(pred) - truth)))
+    truth = model.scaler.transform(held_out[spec.lookback_window - 1:])
+    mse = {name: float(np.mean(np.square(model.scaler.transform(pred) - truth)))
            for name, pred in (
-               ("trained", detector.base_estimator.predict(held_out)),
+               ("trained", model.base_estimator.predict(held_out)),
                ("seeded", seeded.predict(input_scaler.transform(held_out))))}
     print(f"held-out scaled MSE: trained {mse['trained']:.6f}, seeded initial weights "
           f"{mse['seeded']:.6f}", flush=True)
     if not mse["trained"] < mse["seeded"]:
         raise AssertionError("training did not lower the held-out error")
-    thresholds = [*detector.feature_thresholds_, detector.aggregate_threshold_]
-    print(f"thresholds: feature {detector.feature_thresholds_.tolist()}, aggregate "
-          f"{detector.aggregate_threshold_}", flush=True)
+    thresholds = [*model.feature_thresholds_, model.aggregate_threshold_]
+    print(f"thresholds: feature {model.feature_thresholds_.tolist()}, aggregate "
+          f"{model.aggregate_threshold_}", flush=True)
     if not all(math.isfinite(x) for x in thresholds):
         raise AssertionError("a threshold is not finite")
 
-    name = "transformer-ae-512-trained"
-    metadata = {"name": name, "model": CONFIG,
-                "dataset": {"tags": TAGS, "resolution": "10min"}}
-    serializer.dump(detector, str(collection / name), tags=TAGS, metadata=metadata)
-    layers = estimator.module_.params_numpy()
-    launches["serving"] = main_path(card, spec, layers, input_scaler, collection,
-                                    name=name, request_rows=(1535,))
+    # the same machine again: a cache hit, which trains and launches nothing
+    written = (output / "params.npz").stat().st_mtime_ns
+    fa.LAUNCHES = fa.DQ_LAUNCHES = fa.DKV_LAUNCHES = 0
+    t0 = time.perf_counter()
+    _, cached = ModelBuilder(Machine.from_config(BUILD_CONFIG, "chip-smoke"), "cuda").build(
+        output, register)
+    again = (fa.LAUNCHES, fa.DQ_LAUNCHES, fa.DKV_LAUNCHES)
+    print(f"second build: {time.perf_counter() - t0:.2f} s, user metadata "
+          f"{cached.metadata.user_defined}, launches {again}", flush=True)
+    if cached.metadata.user_defined.get("build-metadata") != {"from_cache": True} or any(again):
+        raise AssertionError("the second build did not come from the cache")
+    if (output / "params.npz").stat().st_mtime_ns != written:
+        raise AssertionError("the cache hit was saved onto itself")
+
+    torch.cuda.empty_cache()
+    cli_build(root, register)
+
+    layers = model.base_estimator.steps[-1][1].module_.params_numpy()
+    launches["serving"] = main_path(card, spec, layers, input_scaler, root,
+                                    name=output.name, request_rows=(1535,))
+    body = served_metadata(root, output.name)
+    served = body["metadata"]["metadata"]["build_metadata"]["model"]
+    print(f"GET {output.name}/metadata: build_metadata.model keys {sorted(served)}", flush=True)
+    if not (served.get("model_offset") == spec.lookback_window - 1
+            and served["cross_validation"].get("scores")
+            and served["cross_validation"].get("splits")
+            and served.get("model_meta", {}).get("aggregate-threshold") is not None):
+        raise AssertionError("the served metadata lacks the build's model metadata")
     return launches
 
 
@@ -660,12 +793,14 @@ def main() -> int:
     spec, layers, scaler = write_artifact(collections[0])
     serving = main_path(card, spec, layers, scaler, collections[0])
     torch.cuda.empty_cache()
-    training = training_path(card, collections[1])
+    build = build_path(card, collections[1])
 
-    forward["launches"] = serving + training["forward"] + training["serving"]
-    forward["launches_by_path"] = {"serving": serving, "training": training["forward"],
-                                   "serving_trained": training["serving"]}
-    dq["launches"], dkv["launches"] = training["dq"], training["dkv"]
+    forward["launches"] = serving + build["forward"] + build["serving"]
+    forward["launches_by_path"] = {"serving": serving, "build": build["forward"],
+                                   "serving_built": build["serving"]}
+    for entry, key in ((dq, "dq"), (dkv, "dkv")):
+        entry["launches"] = build[key]
+        entry["launches_by_path"] = {"build": build[key]}
     for entry in (forward, dq, dkv):
         if entry["launches"] < 1:
             raise AssertionError(f"the main paths launched no {entry['name']} kernel")

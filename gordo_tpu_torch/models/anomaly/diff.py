@@ -7,7 +7,8 @@ Transformer) and scores anomalies as the scaled and unscaled difference
 between the model output and the target, with optional smoothing and,
 when thresholds are present, confidence columns. ``fit`` trains the base
 estimator and fits the scaler on y; ``cross_validate`` trains a fresh copy
-per ``TimeSeriesSplit`` fold and sets the thresholds from the folds'
+per ``TimeSeriesSplit`` fold, scores it (with the builder's per-tag
+scorers when it is given them) and sets the thresholds from the folds'
 rolling error statistics, the last fold's being the final ones.
 """
 
@@ -49,6 +50,36 @@ def shuffled_order(n: int) -> np.ndarray:
     order = np.arange(n)
     np.random.RandomState(0).shuffle(order)
     return order
+
+
+def cross_validate(estimator, X, y, cv=None, scoring=None) -> dict:
+    """sklearn's ``cross_validate(..., return_estimator=True)``: an unfitted
+    copy of ``estimator`` trained on each fold of ``cv``
+    (``TimeSeriesSplit(3)`` by default) and scored on the fold's test span.
+    Returns ``estimator``, ``fit_time``, ``score_time`` and ``test_score``
+    (the estimator's own ``score``), one entry per fold, and for each
+    ``name: metric`` of ``scoring``, ``test_{name}``: ``metric(y_test,
+    prediction)`` over one prediction per fold."""
+    X, y = np.asarray(X, np.float64), np.asarray(y, np.float64)
+    splitter = cv if cv is not None else TimeSeriesSplit(n_splits=3)
+    scoring = scoring or {}
+    out = {"estimator": [], "fit_time": [], "score_time": [], "test_score": [],
+           **{f"test_{name}": [] for name in scoring}}
+    for train_idx, test_idx in splitter.split(X, y):
+        model = clone(estimator)
+        started = time.perf_counter()
+        model.fit(X[train_idx], y[train_idx])
+        fitted = time.perf_counter()
+        out["test_score"].append(model.score(X[test_idx], y[test_idx]))
+        if scoring:
+            pred = model.predict(X[test_idx])
+            for name, metric in scoring.items():
+                out[f"test_{name}"].append(metric(y[test_idx], pred))
+        out["score_time"].append(time.perf_counter() - fitted)
+        out["fit_time"].append(fitted - started)
+        out["estimator"].append(model)
+    return {key: value if key == "estimator" else np.asarray(value)
+            for key, value in out.items()}
 
 
 def _rolling_floor_peak(values: np.ndarray, window: int):
@@ -131,16 +162,23 @@ class DiffBasedAnomalyDetector:
         self.smooth_aggregate_thresholds_per_fold_: Optional[Dict[str, float]] = None
 
     def get_params(self, deep=False) -> dict:
+        """The JAX detector's parameters (``require_thresholds`` is not one)."""
         params = {
             "base_estimator": self.base_estimator,
             "scaler": self.scaler,
-            "require_thresholds": self.require_thresholds,
             "shuffle": self.shuffle,
         }
         if self.window is not None:
             params["window"] = self.window
             params["smoothing_method"] = self.smoothing_method
         return params
+
+    @classmethod
+    def from_definition(cls, definition: dict, device=None) -> "DiffBasedAnomalyDetector":
+        """The detector of a definition's arguments, its estimators on ``device``."""
+        from ...serializer.from_definition import load_params_from_definition
+
+        return cls(**load_params_from_definition(definition, device))
 
     def fit(self, X, y) -> "DiffBasedAnomalyDetector":
         """Train the base estimator (on rows shuffled as
@@ -158,29 +196,17 @@ class DiffBasedAnomalyDetector:
     def score(self, X, y) -> float:
         return self.base_estimator.score(X, y)
 
-    def cross_validate(self, *, X, y, cv=None) -> dict:
-        """Train an unfitted copy of this detector on each fold of ``cv``
-        (``TimeSeriesSplit(n_splits=3)`` by default) and score it on the
-        fold's test span; set the thresholds from each fold's errors there:
-        the max of their ``rolling(6)`` minimum and, when smoothing is set,
-        of their ``rolling(window)`` minimum. The last fold's are the final
-        thresholds. Returns ``estimator``, ``fit_time``, ``score_time`` and
-        ``test_score``, one entry per fold, as sklearn's
-        ``cross_validate`` does."""
+    def cross_validate(self, *, X, y, cv=None, scoring=None) -> dict:
+        """:func:`cross_validate` of this detector (``TimeSeriesSplit(3)`` by
+        default), which also sets the thresholds from each fold model's
+        errors on its test span: the max of their ``rolling(6)`` minimum
+        and, when smoothing is set, of their ``rolling(window)`` minimum.
+        The last fold's are the final thresholds."""
         X, y = np.asarray(X, np.float64), np.asarray(y, np.float64)
         splitter = cv if cv is not None else TimeSeriesSplit(n_splits=3)
-        out = {"estimator": [], "fit_time": [], "score_time": [], "test_score": []}
+        out = cross_validate(self, X, y, cv=splitter, scoring=scoring)
         agg, tag, smooth_agg, smooth_tag = {}, {}, {}, {}
-        for fold, (train_idx, test_idx) in enumerate(splitter.split(X, y)):
-            model = clone(self)
-            started = time.perf_counter()
-            model.fit(X[train_idx], y[train_idx])
-            fitted = time.perf_counter()
-            out["test_score"].append(model.score(X[test_idx], y[test_idx]))
-            out["score_time"].append(time.perf_counter() - fitted)
-            out["fit_time"].append(fitted - started)
-            out["estimator"].append(model)
-
+        for fold, (model, (_, test_idx)) in enumerate(zip(out["estimator"], splitter.split(X, y))):
             pred = np.asarray(model.predict(X[test_idx]), np.float64)
             truth = y[test_idx[-len(pred):]]  # windowed models emit fewer rows
             scaled = model.scaler.transform(pred) - model.scaler.transform(truth)
@@ -202,8 +228,6 @@ class DiffBasedAnomalyDetector:
         self.feature_thresholds_ = tag.get(last)
         self.smooth_aggregate_threshold_ = smooth_agg.get(last)
         self.smooth_feature_thresholds_ = smooth_tag.get(last)
-        for key in ("fit_time", "score_time", "test_score"):
-            out[key] = np.asarray(out[key])
         return out
 
     def predict(self, X) -> np.ndarray:

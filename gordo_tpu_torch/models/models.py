@@ -38,7 +38,7 @@ class WindowedSequenceEstimator:
     lookahead = 0
 
     def __init__(self, kind: str = "transformer_model", lookback_window: int = 144,
-                 device=None, **kwargs):
+                 device=None, batch_size: int = 32, **kwargs):
         if kind not in FACTORIES:
             raise ValueError(
                 f"kind: {kind} is not an available model for type: {self.factory_type}!"
@@ -50,11 +50,25 @@ class WindowedSequenceEstimator:
             )
         self.kind = kind
         self.device = device
-        self.kwargs: Dict[str, Any] = {"lookback_window": int(lookback_window), **kwargs}
+        self.kwargs: Dict[str, Any] = {
+            "lookback_window": int(lookback_window), "batch_size": int(batch_size), **kwargs
+        }
         self.history: Optional[Dict[str, Any]] = None
 
     def get_params(self, deep=False) -> Dict[str, Any]:
         return {"kind": self.kind, "device": self.device, **self.kwargs}
+
+    @classmethod
+    def from_definition(cls, definition: dict, device=None):
+        """The estimator of a definition's arguments, on ``device``.
+        Callbacks stay definitions until ``fit`` builds them."""
+        definition = dict(definition)
+        return cls(definition.pop("kind"), device=device, **definition)
+
+    def into_definition(self) -> dict:
+        """The definition's arguments: the kind and every keyword argument
+        (the device is where the estimator runs, not what it is)."""
+        return {**self.kwargs, "kind": self.kind}
 
     @property
     def lookback_window(self) -> int:
@@ -101,10 +115,9 @@ class WindowedSequenceEstimator:
         fit_args.update({k: v for k, v in kwargs.items() if k in _FIT_KWARGS})
         callbacks = fit_args.get("callbacks") or []
         if any(isinstance(cb, (dict, str)) for cb in callbacks):
-            raise NotImplementedError(
-                "callbacks from a definition are not ported yet: see the "
-                "'Training, the rest of the build path' item of ROADMAP.md queue A"
-            )
+            from ..serializer.from_definition import build_callbacks
+
+            callbacks = build_callbacks(callbacks)
         batch_size = int(fit_args.get("batch_size", 32))
         seed = int(np.random.randint(0, 2**31 - 1))
         generator = torch.Generator().manual_seed(seed)

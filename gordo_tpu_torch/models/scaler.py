@@ -4,7 +4,7 @@ A min-max scaler and a minimal pipeline, in numpy.
 ``MinMaxScaler.transform`` is ``X * scale_ + min_``, the formula the JAX
 package's serve path applies to a fitted sklearn MinMaxScaler
 (``gordo_tpu/models/utils.py`` ``fast_transform``); ``fit`` computes
-``scale_`` and ``min_`` as sklearn does for the range (0, 1).
+``scale_`` and ``min_`` as sklearn does.
 ``Pipeline.fit`` fits each transform step on X and transforms X through
 it, then fits the last step on the transformed X and the raw y, as the
 sklearn pipeline of the JAX package does; ``pipeline_predict`` walks a
@@ -17,12 +17,21 @@ import numpy as np
 
 
 class MinMaxScaler:
-    def __init__(self, min_=None, scale_=None):
+    """sklearn's ``MinMaxScaler``: ``transform`` maps each column's fitted
+    range onto ``feature_range`` (clipped to it if ``clip``); ``copy`` is
+    accepted for sklearn's signature (the port never scales in place)."""
+
+    def __init__(self, min_=None, scale_=None, *, feature_range=(0, 1), copy=True,
+                 clip=False):
         self.min_ = None if min_ is None else np.asarray(min_, np.float64)
         self.scale_ = None if scale_ is None else np.asarray(scale_, np.float64)
+        self.feature_range = tuple(feature_range)
+        self.copy = copy
+        self.clip = clip
 
     def get_params(self, deep=False) -> dict:
-        return {}  # fitted state only: a clone is unfitted
+        # constructor settings only: a clone is unfitted
+        return {"clip": self.clip, "copy": self.copy, "feature_range": self.feature_range}
 
     def __repr__(self) -> str:
         return "MinMaxScaler()"
@@ -33,24 +42,33 @@ class MinMaxScaler:
         data_range = np.nanmax(X, axis=0) - data_min
         # a constant column scales by 1, as sklearn's _handle_zeros_in_scale
         data_range[data_range < 10 * np.finfo(np.float64).eps] = 1.0
-        self.scale_ = 1.0 / data_range
-        self.min_ = -data_min * self.scale_
+        low, high = self.feature_range
+        self.scale_ = (high - low) / data_range
+        self.min_ = low - data_min * self.scale_
         return self
 
     def transform(self, X) -> np.ndarray:
         if self.scale_ is None:
             raise AttributeError("MinMaxScaler is not fitted")
-        return np.asarray(X, np.float64) * self.scale_ + self.min_
+        out = np.asarray(X, np.float64) * self.scale_ + self.min_
+        return np.clip(out, *self.feature_range) if self.clip else out
 
 
 class Pipeline:
-    """Transform steps followed by one estimator: ``[(name, step), ...]``."""
+    """Transform steps followed by one estimator: ``[(name, step), ...]``.
+    ``memory``, ``verbose`` and ``transform_input`` are sklearn's
+    constructor settings, kept for its definitions; the port caches nothing."""
 
-    def __init__(self, steps: List[Tuple[str, object]]):
+    def __init__(self, steps: List[Tuple[str, object]], memory=None, verbose=False,
+                 transform_input=None):
         self.steps = list(steps)
+        self.memory = memory
+        self.verbose = verbose
+        self.transform_input = transform_input
 
     def get_params(self, deep=False) -> dict:
-        return {"steps": self.steps}
+        return {"memory": self.memory, "steps": self.steps,
+                "transform_input": self.transform_input, "verbose": self.verbose}
 
     def __repr__(self) -> str:
         return f"Pipeline(steps={self.steps!r})"

@@ -10,24 +10,28 @@ assembled response frame: ``start``/``end`` time columns, then one
 ``{top: {sub: {index_key: value}}}`` block per group.
 """
 
+import functools
 import math
 import re
-from datetime import datetime, timedelta
+from datetime import datetime, timedelta, tzinfo
 from typing import List, Optional, Sequence
 
 import numpy as np
 
 
 class Frame:
-    """A 2-D float block with tag columns and a row index (datetimes, or
-    integers for unlabelled rows)."""
+    """A 2-D float block with tag columns and a row index: datetimes, or
+    integers for unlabelled rows, or a datetime64[ns] array in UTC read in
+    the time zone ``tz`` (a dataset's frames)."""
 
-    __slots__ = ("values", "columns", "index")
+    __slots__ = ("values", "columns", "index", "tz")
 
-    def __init__(self, values: np.ndarray, columns: Sequence[str], index: Sequence):
+    def __init__(self, values: np.ndarray, columns: Sequence[str], index: Sequence,
+                 tz: Optional[tzinfo] = None):
         self.values = np.asarray(values, np.float64)
         self.columns = list(columns)
-        self.index = list(index)
+        self.index = index if isinstance(index, np.ndarray) else list(index)
+        self.tz = tz
         if self.values.shape != (len(self.index), len(self.columns)):
             raise ValueError(
                 f"values of shape {self.values.shape} for {len(self.index)} rows "
@@ -65,6 +69,16 @@ def parse_resolution(resolution: str) -> timedelta:
     if not match or match.group(2) not in _TICKS:
         raise ValueError(f"Unsupported resolution {resolution!r}")
     return int(match.group(1) or 1) * _TICKS[match.group(2)]
+
+
+def index_label(frame: Frame, row: int) -> str:
+    """Row ``row``'s time as ``str(pd.Timestamp)`` renders it, in the
+    frame's time zone: ``"2020-01-01 00:00:00+00:00"``."""
+    ts = frame.index[row]
+    if isinstance(ts, np.datetime64):
+        us = int(ts.astype("datetime64[us]").astype(np.int64))
+        ts = datetime.fromtimestamp(us // 1_000_000, frame.tz).replace(microsecond=us % 1_000_000)
+    return str(ts)
 
 
 def _json_value(x):
@@ -108,3 +122,18 @@ class RawFrame:
             for sub, column in zip(subs, columns):
                 block[sub] = dict(zip(keys, map(_json_value, column)))
         return out
+
+
+def metric_wrapper(metric, scaler=None):
+    """``metric`` made to take a model output shorter than y (a windowed
+    model's: it is held against the last rows of y), with y and the output
+    first scaled by ``scaler`` where one is given."""
+
+    @functools.wraps(metric)
+    def _wrapper(y_true, y_pred):
+        if scaler:
+            y_true = scaler.transform(y_true)
+            y_pred = scaler.transform(y_pred)
+        return metric(y_true[-len(y_pred):], y_pred)
+
+    return _wrapper

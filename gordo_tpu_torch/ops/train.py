@@ -29,35 +29,144 @@ from ..models.spec import DenseLayer, ModelSpec, OptimizerSpec
 from .predict import n_train_samples
 
 EVAL_BATCH = 2048
-NOT_PORTED_OPTIMIZERS = ("rmsprop", "adagrad", "nadam", "adamax", "adamw")
+
+
+class _OptaxRule(torch.optim.Optimizer):
+    """One of optax's update rules as a torch optimizer: ``_init`` makes a
+    parameter's state, ``_update`` returns its update (already scaled by
+    -learning_rate), which is added to the parameter."""
+
+    def __init__(self, params, **defaults):
+        super().__init__(params, defaults)
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        loss = None
+        if closure is not None:
+            with torch.enable_grad():
+                loss = closure()
+        for group in self.param_groups:
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                state = self.state[p]
+                if not state:
+                    state["step"] = 0
+                    self._init(state, p, group)
+                state["step"] += 1
+                p.add_(self._update(state, p, p.grad, group))
+        return loss
+
+
+def _bias_corrected(moment: torch.Tensor, decay: float, count: int) -> torch.Tensor:
+    """moment / (1 - decay**count), the correction in float32 as optax has it."""
+    return moment / (1 - np.float32(decay) ** np.float32(count))
+
+
+class OptaxRMSprop(_OptaxRule):
+    """``optax.rmsprop``: nu = decay nu + (1 - decay) g^2 from 0, update
+    -lr g / sqrt(nu + eps) (eps inside the root), then a momentum trace
+    t = u + momentum t."""
+
+    def _init(self, state, p, group):
+        state["nu"] = torch.zeros_like(p)
+        state["trace"] = torch.zeros_like(p)
+
+    def _update(self, state, p, g, group):
+        decay = group["decay"]
+        state["nu"].mul_(decay).add_((1.0 - decay) * g * g)
+        u = -group["lr"] * g * torch.rsqrt(state["nu"] + group["eps"])
+        state["trace"] = u + group["momentum"] * state["trace"]
+        return state["trace"]
+
+
+class OptaxAdagrad(_OptaxRule):
+    """``optax.adagrad``: a sum of squares from 0.1, update
+    -lr g / sqrt(sum + eps)."""
+
+    def _init(self, state, p, group):
+        state["sum_of_squares"] = torch.full_like(p, group["initial_accumulator_value"])
+
+    def _update(self, state, p, g, group):
+        sums = state["sum_of_squares"].add_(g * g)
+        scale = torch.where(sums > 0, torch.rsqrt(sums + group["eps"]), torch.zeros_like(sums))
+        return -group["lr"] * scale * g
+
+
+class OptaxAdam(_OptaxRule):
+    """``optax.adam`` with ``nesterov`` (``optax.nadam``: the Nesterov step,
+    no momentum-decay schedule) and an optional decoupled weight decay
+    added to the update before the learning rate (``optax.adamw``)."""
+
+    def _init(self, state, p, group):
+        state["mu"] = torch.zeros_like(p)
+        state["nu"] = torch.zeros_like(p)
+
+    def _update(self, state, p, g, group):
+        b1, b2, count = group["b1"], group["b2"], state["step"]
+        mu = state["mu"].mul_(b1).add_((1.0 - b1) * g)
+        nu = state["nu"].mul_(b2).add_((1.0 - b2) * g * g)
+        if group["nesterov"]:
+            mu_hat = (b1 * _bias_corrected(mu, b1, count + 1)
+                      + (1.0 - b1) * _bias_corrected(g, b1, count))
+        else:
+            mu_hat = _bias_corrected(mu, b1, count)
+        u = mu_hat / (torch.sqrt(_bias_corrected(nu, b2, count)) + group["eps"])
+        if group["weight_decay"]:
+            u = u + group["weight_decay"] * p
+        return -group["lr"] * u
+
+
+class OptaxAdamax(_OptaxRule):
+    """``optax.adamax``: nu = max(|g| + eps, b2 nu) (eps outside the max),
+    update -lr mu_hat / nu."""
+
+    def _init(self, state, p, group):
+        state["mu"] = torch.zeros_like(p)
+        state["nu"] = torch.zeros_like(p)
+
+    def _update(self, state, p, g, group):
+        b1 = group["b1"]
+        mu = state["mu"].mul_(b1).add_((1.0 - b1) * g)
+        state["nu"] = torch.maximum(g.abs() + group["eps"], group["b2"] * state["nu"])
+        return -group["lr"] * _bias_corrected(mu, b1, state["step"]) / state["nu"]
 
 
 def make_optimizer(spec: OptimizerSpec, params) -> torch.optim.Optimizer:
     """A torch optimizer over ``params`` from a Keras-style optimizer spec,
-    with the JAX package's defaults. ``torch.optim.Adam`` applies the same
-    update as ``optax.adam``: lr * m_hat / (sqrt(v_hat) + eps)."""
+    with the JAX package's arguments and optax's update rules.
+    ``torch.optim.Adam`` and ``torch.optim.SGD`` apply the same updates as
+    ``optax.adam`` and ``optax.sgd``; the others are written out above,
+    where torch's own differ (RMSprop's eps, Adagrad's initial sum, NAdam's
+    schedule, Adamax's eps, AdamW's default decay)."""
     kwargs = spec.as_dict()
     lr = kwargs.pop("learning_rate", kwargs.pop("lr", None))
     name = spec.name.lower()
+    if lr is None:
+        lr = 1e-2 if name == "sgd" else 1e-3
     if name == "adam":
         return torch.optim.Adam(
-            params,
-            lr=1e-3 if lr is None else lr,
+            params, lr=lr,
             betas=(kwargs.get("beta_1", 0.9), kwargs.get("beta_2", 0.999)),
             eps=kwargs.get("epsilon", 1e-7),
         )
     if name == "sgd":
         return torch.optim.SGD(
-            params,
-            lr=1e-2 if lr is None else lr,
+            params, lr=lr,
             momentum=kwargs.get("momentum", 0.0) or 0.0,
             nesterov=kwargs.get("nesterov", False),
         )
-    if name in NOT_PORTED_OPTIMIZERS:
-        raise NotImplementedError(
-            f"optimizer {spec.name!r} is not ported yet: see the 'Training, "
-            f"the rest of the build path' item of ROADMAP.md queue A"
-        )
+    if name == "rmsprop":
+        return OptaxRMSprop(params, lr=lr, decay=kwargs.get("rho", 0.9),
+                            eps=kwargs.get("epsilon", 1e-7),
+                            momentum=kwargs.get("momentum", 0.0) or 0.0)
+    if name == "adagrad":
+        return OptaxAdagrad(params, lr=lr, initial_accumulator_value=0.1, eps=1e-7)
+    if name in ("nadam", "adamw"):
+        return OptaxAdam(params, lr=lr, b1=0.9, b2=0.999, eps=1e-8, nesterov=name == "nadam",
+                         weight_decay=1e-4 if name == "adamw" else 0.0)
+    if name == "adamax":
+        return OptaxAdamax(params, lr=lr, b1=0.9, b2=0.999, eps=1e-8)
     raise ValueError(f"Unknown optimizer {spec.name!r}")
 
 

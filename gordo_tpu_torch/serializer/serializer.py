@@ -5,15 +5,17 @@ The port's artifact: one directory per model holding
   training history, the detector's fields and thresholds (final and per
   cross-validation fold), and the tags;
 - ``params.npz``: the parameters, keyed ``"{layer}/{name}"``;
-- ``metadata.json``: the build metadata the server returns and reads the
-  dataset's resolution from, with the model's own metadata (thresholds
-  per fold, training history: the JAX ``ModelBuilder``'s ``model_meta``) under
-  ``"model_meta"``.
+- ``metadata.json``: the build metadata (a machine's ``to_dict``) that the
+  server returns and reads the dataset's resolution from, with the model's
+  own metadata (thresholds per fold, training history) at
+  ``metadata.build_metadata.model.model_meta``, where the JAX
+  ``ModelBuilder`` puts it.
 
 Every file is written atomically (a unique temp file, then a rename), as
 ``gordo_tpu/serializer/serializer.py`` writes its artifact.
 """
 
+import copy
 import io
 import json
 import os
@@ -23,6 +25,7 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 
 from ..models.anomaly.diff import DiffBasedAnomalyDetector
+from ..models.base import extract_metadata
 from ..models.models import ESTIMATORS
 from ..models.scaler import MinMaxScaler, Pipeline
 from ..models.spec import spec_from_dict, spec_to_dict
@@ -49,8 +52,9 @@ def _atomic_write(final: str, data: bytes) -> None:
         raise
 
 
-def _scaler_dict(scaler: MinMaxScaler) -> Dict[str, List[float]]:
-    return {"min_": scaler.min_.tolist(), "scale_": scaler.scale_.tolist()}
+def _scaler_dict(scaler: MinMaxScaler) -> Dict[str, Any]:
+    return {"min_": scaler.min_.tolist(), "scale_": scaler.scale_.tolist(),
+            "feature_range": list(scaler.feature_range), "clip": scaler.clip}
 
 
 def _listed(value):
@@ -79,6 +83,11 @@ def dump(detector: DiffBasedAnomalyDetector, dest_dir: str, tags: List[str],
          target_tags: Optional[List[str]] = None, metadata: Optional[dict] = None):
     """Write ``detector`` (a DiffBasedAnomalyDetector over
     ``Pipeline[MinMaxScaler, estimator]``) into ``dest_dir``."""
+    if not isinstance(detector, DiffBasedAnomalyDetector):
+        raise TypeError(
+            f"the port's artifact holds a DiffBasedAnomalyDetector over "
+            f"Pipeline[MinMaxScaler, estimator], not a {type(detector).__name__}"
+        )
     os.makedirs(dest_dir, exist_ok=True)
     (_, input_scaler), (_, estimator) = detector.base_estimator.steps
     model = {
@@ -116,10 +125,11 @@ def dump(detector: DiffBasedAnomalyDetector, dest_dir: str, tags: List[str],
     _atomic_write(
         os.path.join(dest_dir, "model.json"), json.dumps(model, indent=1).encode()
     )
-    model_meta = {**detector.get_metadata(), **estimator.get_metadata()}
+    metadata = copy.deepcopy(metadata or {})
+    build = metadata.setdefault("metadata", {}).setdefault("build_metadata", {})
+    build.setdefault("model", {})["model_meta"] = extract_metadata(detector)
     _atomic_write(
-        os.path.join(dest_dir, "metadata.json"),
-        json.dumps({**(metadata or {}), "model_meta": model_meta}, default=str).encode(),
+        os.path.join(dest_dir, "metadata.json"), json.dumps(metadata, default=str).encode()
     )
 
 

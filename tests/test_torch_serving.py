@@ -273,4 +273,4 @@ print(len(names))
         env={**os.environ, "PYTHONPATH": REPO},
     )
     assert result.returncode == 0, result.stderr
-    assert int(result.stdout.split()[-1]) >= 20
+    assert int(result.stdout.split()[-1]) >= 45

@@ -164,8 +164,12 @@ def test_optimizers():
     assert adam.defaults["betas"] == (0.9, 0.999)
     sgd = train.make_optimizer(OptimizerSpec.create("SGD", {"momentum": 0.5}), params)
     assert isinstance(sgd, torch.optim.SGD) and sgd.defaults["momentum"] == 0.5
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        train.make_optimizer(OptimizerSpec.create("RMSprop"), params)
+    # the other five follow optax's update rules (tests/test_torch_definition.py)
+    rmsprop = train.make_optimizer(OptimizerSpec.create("RMSprop"), params)
+    assert isinstance(rmsprop, train.OptaxRMSprop) and rmsprop.defaults["eps"] == 1e-7
+    adamw = train.make_optimizer(OptimizerSpec.create("AdamW"), params)
+    assert adamw.defaults["weight_decay"] == 1e-4 and not adamw.defaults["nesterov"]
+    assert train.make_optimizer(OptimizerSpec.create("Nadam"), params).defaults["nesterov"]
     with pytest.raises(ValueError):
         train.make_optimizer(OptimizerSpec.create("Bogus"), params)
 
@@ -341,7 +345,8 @@ def test_trained_slice_end_to_end_on_the_cpu(tmp_path):
         assert _structure(answers["trained"]) == _structure(answers["seeded"])
         assert all(math.isfinite(x) for x in answers["trained"]["total-anomaly-scaled"][""].values())
         with urllib.request.urlopen(f"{url}/trained/metadata", timeout=60) as resp:
-            meta = json.loads(resp.read())["metadata"]["model_meta"]
+            meta = json.loads(resp.read())["metadata"]["metadata"]["build_metadata"][
+                "model"]["model_meta"]
     finally:
         server.shutdown()
         server.server_close()
