@@ -40,7 +40,18 @@ Drive the PyTorch/CUDA port (gordo_tpu_torch) on one NVIDIA GPU.
    (``python -m gordo_tpu_torch build``) builds it once more in a
    subprocess; the built artifact answers one request and its metadata
    request through the server.
-6. A ``kernels`` JSON line, then the last line
+6. bf16: the bf16 forward, dQ and dK/dV kernels against their plain twins
+   on bf16 inputs at the same shapes (every element within one bf16 ulp of
+   the twin's, at most 1% of them different at all, lse within 1e-5
+   relative, bit-identical backward reruns), timed beside their bounds at
+   the bf16 rate and ``scaled_dot_product_attention`` on the same bf16
+   inputs; then ``transformer-ae-512-bf16`` (``BUILD_CONFIG`` with
+   ``compute_dtype: bfloat16``) is built by ``ModelBuilder`` on the card and
+   checked as above, its training and predicts going through the bf16
+   kernels alone, and the built artifact answers a 1,535-row request whose
+   model output is held against the same bf16 model with plain attention.
+7. A ``kernels`` JSON line (six entries: three float32, three bf16), then
+   the last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
 Any failure raises, so the exit code is not 0 and no result line is
@@ -75,6 +86,9 @@ REQUEST_ROWS = (1535, 700, 1535)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 TF32X3_FLOP_PER_S = 495e12 / 3
+# the kernels' operations at their dtype's tensor-core rate: 3xTF32 for the
+# float32 kernels, the dense bf16 rate for the bf16 kernels
+PEAK_FLOP_PER_S = {"float32": TF32X3_FLOP_PER_S, "bfloat16": 989e12}
 TOL_OUT_REL = 1e-4  # kernel vs plain, float32, sums in another order
 TOL_LSE_ABS = 1e-4
 TOL_MODEL_REL = 1e-4  # served model output vs the same model with plain attention
@@ -88,21 +102,45 @@ TOL_LOSS_REL = 1e-3  # 20 step losses, flash vs plain attention
 F64_ERR_FACTOR = 4.0
 BATCH = 32
 LOSS_STEPS = 20
-# the transformer-ae-512 machine: 6,144 ten-minute RandomDataset rows, the
-# model written with the JAX package's paths, the default CV and metrics
-BUILD_CONFIG = {
-    "name": "transformer-ae-512",
-    "dataset": {"type": "RandomDataset", "train_start_date": "2020-01-01T00:00:00+00:00",
-                "train_end_date": "2020-02-12T16:00:00+00:00", "tags": TAGS,
-                "resolution": "10min"},
-    "model": {"gordo_tpu.models.anomaly.diff.DiffBasedAnomalyDetector": {
-        "base_estimator": {"sklearn.pipeline.Pipeline": {"steps": [
-            "sklearn.preprocessing.MinMaxScaler",
-            {"gordo_tpu.models.models.TransformerAutoEncoder": {
-                **CONFIG, "epochs": 1, "batch_size": BATCH}},
-        ]}}}},
-    "evaluation": {"cv_mode": "full_build", "seed": 0},
-}
+SERVE_SHAPE = (1024 * 4, 512, 64)  # 1,024 windows x 4 heads of the main path
+# bf16 kernels vs their twins: each element within one bf16 ulp
+# (|a - b| <= 2^-7 max(|a|, |b|) + 1e-6), at most 1% of the elements
+# different at all, lse within 1e-5 relative (absolute below 1); gradient
+# elements that are exactly 0 in float64 are rounding noise (_bf16_gate)
+BF16_ULP = 2.0 ** -7
+TOL_BF16_SHARE = 0.01
+TOL_BF16_LSE_REL = 1e-5
+# the served bf16 model vs the same model with plain attention: the JAX
+# package's own bf16 tolerance (tests/gordo_tpu/test_attention_models.py)
+TOL_BF16_MODEL_REL = 2e-2
+# FLOP per visible (query, key) pair, per dh: float32 (3xTF32 counted once)
+# and bf16, where P and dS go through three bf16 products
+# (gordo_tpu_torch/ops/csrc/mma_bf16.cuh)
+FLOP_PER_PAIR = {"float32": {"forward": 4, "dq": 6, "dkv": 8},
+                 "bfloat16": {"forward": 8, "dq": 10, "dkv": 16}}
+def build_config(name: str, **estimator) -> dict:
+    """A transformer-ae-512 machine: 6,144 ten-minute RandomDataset rows, the
+    model written with the JAX package's paths (``estimator`` added to the
+    TransformerAutoEncoder's arguments), the default CV and metrics."""
+    return {
+        "name": name,
+        "dataset": {"type": "RandomDataset", "train_start_date": "2020-01-01T00:00:00+00:00",
+                    "train_end_date": "2020-02-12T16:00:00+00:00", "tags": TAGS,
+                    "resolution": "10min"},
+        "model": {"gordo_tpu.models.anomaly.diff.DiffBasedAnomalyDetector": {
+            "base_estimator": {"sklearn.pipeline.Pipeline": {"steps": [
+                "sklearn.preprocessing.MinMaxScaler",
+                {"gordo_tpu.models.models.TransformerAutoEncoder": {
+                    **CONFIG, "epochs": 1, "batch_size": BATCH, **estimator}},
+            ]}}}},
+        "evaluation": {"cv_mode": "full_build", "seed": 0},
+    }
+
+
+BUILD_CONFIG = build_config("transformer-ae-512")
+# every width the same, at the JAX package's TPU compute dtype for windowed
+# fleets (bench.py)
+BUILD_CONFIG_BF16 = build_config("transformer-ae-512-bf16", compute_dtype="bfloat16")
 
 
 def _card() -> str:
@@ -126,21 +164,50 @@ def _time_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def _sdpa_ms(q, k, v, iters: int, do=None) -> dict:
+    """``scaled_dot_product_attention`` (causal) on the same (BH, T, dh)
+    inputs, its forward or, with ``do``, its backward through autograd:
+    given as one (1, BH, T, dh) batch, where PyTorch may pick its fused
+    kernels (``library_ms``), and as the (BH, T, dh) tensors themselves
+    (``library_3d_ms``, which takes its unfused path)."""
+    import torch
+    import torch.nn.functional as F
+
+    times = {}
+    for key, view in (("library_ms", lambda x: x.unsqueeze(0)),
+                      ("library_3d_ms", lambda x: x)):
+        if do is None:
+            qv, kv, vv = (view(x) for x in (q, k, v))
+            times[key] = _time_ms(
+                lambda: F.scaled_dot_product_attention(qv, kv, vv, is_causal=True), iters)
+        else:
+            leaves = [view(x).clone().requires_grad_() for x in (q, k, v)]
+            out = F.scaled_dot_product_attention(*leaves, is_causal=True)
+            grad = view(do)
+            times[key] = _time_ms(
+                lambda: torch.autograd.grad(out, leaves, grad, retain_graph=True), iters)
+    return times
+
+
 def _flash_bound_ms(bh: int, t: int, dh: int, causal: bool, n_tensors: int = 4,
-                    flop_per_pair: int = 4) -> dict:
-    """The least time of the work: ``n_tensors`` (bh, t, dh) float32 tensors
-    read or written once plus lse, and ``flop_per_pair * dh`` FLOP per
-    visible (query, key) pair. The forward moves q/k/v/out (4) at 4*dh; dQ
-    moves q/k/v/o/dO/dQ (6) at 6*dh; dK/dV q/k/v/o/dO/dK/dV (7) at 8*dh.
-    ``bound_ms``/``bound_by`` take the operations at the 3xTF32 rate;
-    ``fp32_core_bound_ms`` at the CUDA cores' float32 rate."""
-    n_bytes = 4 * (n_tensors * bh * t * dh + bh * t)
+                    flop_per_pair: int = 4, bytes_per_element: int = 4,
+                    dtype: str = "float32") -> dict:
+    """The least time of the work: ``n_tensors`` (bh, t, dh) tensors of
+    ``bytes_per_element`` read or written once plus the float32 lse, and
+    ``flop_per_pair * dh`` FLOP per visible (query, key) pair at the
+    tensor-core rate of ``dtype`` (PEAK_FLOP_PER_S). The forward moves
+    q/k/v/out (4), dQ q/k/v/o/dO/dQ (6), dK/dV q/k/v/o/dO/dK/dV (7); the
+    FLOP per pair are FLOP_PER_PAIR's. For float32, ``fp32_core_bound_ms``
+    takes the operations at the CUDA cores' float32 rate."""
+    n_bytes = bytes_per_element * n_tensors * bh * t * dh + 4 * bh * t
     pairs = t * (t + 1) // 2 if causal else t * t
     flops = flop_per_pair * dh * bh * pairs
-    by_bytes, by_ops = n_bytes / HBM_BYTES_PER_S, flops / TF32X3_FLOP_PER_S
-    return {"bound_ms": 1e3 * max(by_bytes, by_ops),
-            "bound_by": "bytes" if by_bytes > by_ops else "operations",
-            "fp32_core_bound_ms": 1e3 * max(by_bytes, flops / FP32_FLOP_PER_S)}
+    by_bytes, by_ops = n_bytes / HBM_BYTES_PER_S, flops / PEAK_FLOP_PER_S[dtype]
+    bound = {"bound_ms": 1e3 * max(by_bytes, by_ops),
+             "bound_by": "bytes" if by_bytes > by_ops else "operations"}
+    if dtype == "float32":
+        bound["fp32_core_bound_ms"] = 1e3 * max(by_bytes, flops / FP32_FLOP_PER_S)
+    return bound
 
 
 def _occupancy() -> dict:
@@ -158,6 +225,12 @@ def _occupancy() -> dict:
          "gordo_flash_attention_backward_dq_f32_occupancy"),
         ("flash_attention_backward_dkv", "flash_attention_bwd",
          "gordo_flash_attention_backward_dkv_f32_occupancy"),
+        ("flash_attention_forward_bf16", "flash_attention_bf16",
+         "gordo_flash_attention_forward_bf16_occupancy"),
+        ("flash_attention_backward_dq_bf16", "flash_attention_bwd_bf16",
+         "gordo_flash_attention_backward_dq_bf16_occupancy"),
+        ("flash_attention_backward_dkv_bf16", "flash_attention_bwd_bf16",
+         "gordo_flash_attention_backward_dkv_bf16_occupancy"),
     ):
         fn = getattr(_build.load_library(stem), symbol)
         fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
@@ -201,12 +274,11 @@ def kernel_phase(card: str) -> dict:
     """Flash kernel vs its plain version at each shape; times at the main
     path's shape. Returns the kernel's entry of the ``kernels`` line."""
     import torch
-    import torch.nn.functional as F
 
     from gordo_tpu_torch.ops import flash_attention as fa
 
     g = torch.Generator(device="cuda").manual_seed(SEED)
-    main_shape = (1024 * 4, 512, 64)  # 1,024 windows x 4 heads of the main path
+    main_shape = SERVE_SHAPE
     shapes = [((2, 4, 512, 64), True), ((2, 4, 512, 64), False),
               (main_shape, True), ((4, 4, 144, 16), True)]
     worst = dict(out_rel=0.0, out_abs=0.0, lse_abs=0.0)
@@ -232,22 +304,21 @@ def kernel_phase(card: str) -> dict:
         ms = _time_ms(lambda: fa.flash_attention_forward(q, k, v, True), iters)
         plain_ms = _time_ms(lambda: fa.flash_attention_forward_plain(q, k, v, True),
                             max(iters // 4, 5))
-        library_ms = _time_ms(
-            lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True), iters
-        )
+        library = _sdpa_ms(q, k, v, iters)
         bound = _flash_bound_ms(*shape, causal=True)
         print(f"flash_attention {shape} causal on {card}: kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms, scaled_dot_product_attention {library_ms:.4f} ms, "
+              f"{plain_ms:.4f} ms, scaled_dot_product_attention {library['library_ms']:.4f} "
+              f"ms ({library['library_3d_ms']:.4f} given 3-D tensors), "
               f"bound {bound['bound_ms']:.4f} ms ({bound['bound_by']}, 3xTF32), "
               f"{bound['fp32_core_bound_ms']:.4f} ms on the CUDA cores", flush=True)
-        timed[shape] = {"ms": ms, "plain_ms": plain_ms, **bound, "library_ms": library_ms,
+        timed[shape] = {"ms": ms, "plain_ms": plain_ms, **bound, **library,
                         "shape": list(shape), "causal": True}
         del q, k, v
     return {
         "name": "flash_attention_forward", "route": "cuda",
         "source": "gordo_tpu_torch/ops/csrc/flash_attention.cu",
         "replaces": "gordo_tpu/ops/pallas_kernels/flash_attention.py:41",
-        "launches": None, "max_abs_err": worst["out_abs"],
+        "dtype": "float32", "launches": None, "max_abs_err": worst["out_abs"],
         "out_max_rel_err": worst["out_rel"], "lse_max_abs_err": worst["lse_abs"],
         **timed[main_shape], "training_shape": timed[TRAIN_SHAPE],
     }
@@ -276,7 +347,6 @@ def backward_kernel_phase(card: str) -> list:
     twice for bit-identical results; times at the training shape. Returns
     the two kernels' entries of the ``kernels`` line."""
     import torch
-    import torch.nn.functional as F
 
     from gordo_tpu_torch.ops import flash_attention as fa
 
@@ -313,11 +383,7 @@ def backward_kernel_phase(card: str) -> list:
     dq_ms = _time_ms(lambda: fa.launch_dq(q, k, v, o, lse, do, True), 50)
     dkv_ms = _time_ms(lambda: fa.launch_dkv(q, k, v, o, lse, do, True), 50)
     plain_ms = _time_ms(lambda: fa.flash_attention_backward_plain(q, k, v, o, lse, do, True), 10)
-    qr, kr, vr = (x.clone().requires_grad_() for x in (q, k, v))
-    out = F.scaled_dot_product_attention(qr, kr, vr, is_causal=True)
-    library_ms = _time_ms(
-        lambda: torch.autograd.grad(out, (qr, kr, vr), do, retain_graph=True), 20
-    )
+    library = _sdpa_ms(q, k, v, 20, do=do)
     f64 = float64_errors((q, k, v, o, lse, do), True, (
         fa.launch_dq(q, k, v, o, lse, do, True), *fa.launch_dkv(q, k, v, o, lse, do, True)))
     print(f"flash backward {shape} causal against a float64 plain backward: max rel err "
@@ -326,17 +392,20 @@ def backward_kernel_phase(card: str) -> list:
     if not f64["dq"][0] <= F64_ERR_FACTOR * f64["dq"][1]:
         raise AssertionError(f"dq kernel's error against float64 {f64['dq'][0]:.3e} is above "
                              f"{F64_ERR_FACTOR}x plain float32's {f64['dq'][1]:.3e}")
-    dq_bound = _flash_bound_ms(*shape, causal=True, n_tensors=6, flop_per_pair=6)
-    dkv_bound = _flash_bound_ms(*shape, causal=True, n_tensors=7, flop_per_pair=8)
+    dq_bound = _flash_bound_ms(*shape, causal=True, n_tensors=6,
+                               flop_per_pair=FLOP_PER_PAIR["float32"]["dq"])
+    dkv_bound = _flash_bound_ms(*shape, causal=True, n_tensors=7,
+                                flop_per_pair=FLOP_PER_PAIR["float32"]["dkv"])
     print(f"flash backward {shape} causal on {card}: dQ kernel {dq_ms:.4f} ms (bound "
           f"{dq_bound['bound_ms']:.4f} 3xTF32, {dq_bound['fp32_core_bound_ms']:.4f} CUDA "
           f"cores), dK/dV kernel {dkv_ms:.4f} ms (bound {dkv_bound['bound_ms']:.4f} "
           f"3xTF32, {dkv_bound['fp32_core_bound_ms']:.4f} CUDA cores), both "
           f"{dq_ms + dkv_ms:.4f} ms; plain backward {plain_ms:.4f} ms; "
-          f"scaled_dot_product_attention backward {library_ms:.4f} ms (dq, dk, dv "
-          f"together)", flush=True)
+          f"scaled_dot_product_attention backward {library['library_ms']:.4f} ms "
+          f"({library['library_3d_ms']:.4f} given 3-D tensors; dq, dk, dv together)",
+          flush=True)
     common = {"route": "cuda", "source": "gordo_tpu_torch/ops/csrc/flash_attention_bwd.cu",
-              "launches": None, "plain_ms": plain_ms, "library_ms": library_ms,
+              "dtype": "float32", "launches": None, "plain_ms": plain_ms, **library,
               "plain_and_library_compute": "dq, dk and dv together",
               "shape": list(shape), "causal": True}
     return [
@@ -355,6 +424,150 @@ def backward_kernel_phase(card: str) -> list:
     ]
 
 
+def _bf16_gate(got, ref, exact=None) -> tuple:
+    """(every element within one bf16 ulp of the twin's, the share of
+    elements that differ at all, the largest absolute difference). With
+    ``exact`` (the float64 plain result), elements that are exactly 0 there
+    (dQ of a query that sees one key, dQ and dK at T = 1: dP - D cancels
+    exactly) are float32 rounding noise in the kernel and in the twin
+    alike: they are held to |x| <= 1e-6 instead, and left out of the
+    share."""
+    import torch
+
+    a, b = got.float(), ref.float()
+    diff = (a - b).abs()
+    ok = diff <= BF16_ULP * torch.maximum(a.abs(), b.abs()) + 1e-6
+    differs = a != b
+    if exact is not None:
+        zero = exact == 0
+        ok = torch.where(zero, a.abs() <= 1e-6, ok)
+        differs = differs & ~zero
+    return bool(ok.all()), differs.float().mean().item(), diff.max().item()
+
+
+def bf16_kernel_phase(card: str) -> list:
+    """The bf16 forward, dQ and dK/dV kernels against their plain twins on
+    bf16 inputs at each shape (the backward also run twice for
+    bit-identical results); times at the serving and training shapes.
+    Returns the three kernels' entries of the ``kernels`` line."""
+    import torch
+
+    from gordo_tpu_torch.ops import flash_attention as fa
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 4)
+
+    def bf16_randn(shape, n):
+        return [torch.randn(shape, device="cuda", generator=g).bfloat16() for _ in range(n)]
+
+    def check(label, got, ref, exact=None):
+        within, share, max_abs = _bf16_gate(got, ref, exact)
+        if not (within and share <= TOL_BF16_SHARE):
+            raise AssertionError(f"bf16 {label}: within one ulp {within}, share that "
+                                 f"differs {share:.3e}")
+        return share, max_abs
+
+    worst = {name: [0.0, 0.0] for name in ("out", "dq", "dk", "dv")}  # share, max abs
+    lse_worst = 0.0
+    shapes = [((2, 4, 512, 64), True), ((2, 4, 512, 64), False), (SERVE_SHAPE, True),
+              ((4, 4, 144, 16), True), ((3, 2, 77, 32), False), ((2, 2, 200, 128), True),
+              ((1, 1, 1, 64), True)]
+    for shape, causal in shapes:
+        q, k, v = bf16_randn(shape, 3)
+        out, lse = fa.flash_attention_forward(q, k, v, causal)
+        torch.cuda.synchronize()
+        ref_out, ref_lse = fa.flash_attention_forward_plain(q, k, v, causal)
+        share, max_abs = check(f"out {shape}", out, ref_out)
+        lse_rel = ((lse - ref_lse).abs() / ref_lse.abs().clamp_min(1.0)).max().item()
+        print(f"bf16 flash_attention {shape} causal={causal}: out within one ulp, share "
+              f"that differs {share:.3e}, max abs {max_abs:.3e}; lse max rel err "
+              f"{lse_rel:.3e}", flush=True)
+        if not lse_rel <= TOL_BF16_LSE_REL:
+            raise AssertionError(f"bf16 lse disagrees with plain at {shape}: {lse_rel}")
+        worst["out"] = [max(a, b) for a, b in zip(worst["out"], (share, max_abs))]
+        lse_worst = max(lse_worst, lse_rel)
+        del q, k, v, out, lse, ref_out, ref_lse
+    for shape, causal in BACKWARD_SHAPES:
+        q, k, v, do = bf16_randn(shape, 4)
+        o, lse = fa.flash_attention_forward(q, k, v, causal)
+        runs = [(fa.launch_dq(q, k, v, o, lse, do, causal),
+                 *fa.launch_dkv(q, k, v, o, lse, do, causal)) for _ in range(2)]
+        torch.cuda.synchronize()
+        refs = fa.flash_attention_backward_plain(q, k, v, o, lse, do, causal)
+        exact = fa.flash_attention_backward_plain(*(x.double() for x in (q, k, v, o, lse, do)),
+                                                  causal)
+        report = []
+        for name, got, again, ref, ref64 in zip(("dq", "dk", "dv"), *runs, refs, exact):
+            share, max_abs = check(f"{name} {shape}", got, ref, ref64)
+            if not torch.equal(got, again):
+                raise AssertionError(f"bf16 {name} differs between two launches at {shape}")
+            worst[name] = [max(a, b) for a, b in zip(worst[name], (share, max_abs))]
+            report.append(f"{name} {share:.3e}")
+        print(f"bf16 flash backward {shape} causal={causal}: within one ulp, share that "
+              f"differs {', '.join(report)}; bit-identical on a second launch", flush=True)
+        del runs, refs, exact, q, k, v, do, o, lse
+
+    entries = {}
+    for shape, iters in ((SERVE_SHAPE, 20), (TRAIN_SHAPE, 100)):
+        q, k, v = bf16_randn(shape, 3)
+        ms = _time_ms(lambda: fa.flash_attention_forward(q, k, v, True), iters)
+        plain_ms = _time_ms(lambda: fa.flash_attention_forward_plain(q, k, v, True),
+                            max(iters // 4, 5))
+        library = _sdpa_ms(q, k, v, iters)
+        bound = _flash_bound_ms(*shape, causal=True, bytes_per_element=2, dtype="bfloat16",
+                                flop_per_pair=FLOP_PER_PAIR["bfloat16"]["forward"])
+        print(f"bf16 flash_attention {shape} causal on {card}: kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, scaled_dot_product_attention {library['library_ms']:.4f} "
+              f"ms ({library['library_3d_ms']:.4f} given 3-D tensors), bound "
+              f"{bound['bound_ms']:.4f} ms ({bound['bound_by']})", flush=True)
+        entries[shape] = {"ms": ms, "plain_ms": plain_ms, **bound, **library,
+                          "shape": list(shape), "causal": True}
+        del q, k, v
+    forward = {
+        "name": "flash_attention_forward_bf16", "route": "cuda",
+        "source": "gordo_tpu_torch/ops/csrc/flash_attention_bf16.cu",
+        "replaces": "gordo_tpu/ops/pallas_kernels/flash_attention.py:41",
+        "dtype": "bfloat16", "launches": None, "max_abs_err": worst["out"][1],
+        "share_differing": worst["out"][0], "lse_max_rel_err": lse_worst,
+        **entries[SERVE_SHAPE], "training_shape": entries[TRAIN_SHAPE],
+    }
+
+    shape = TRAIN_SHAPE
+    q, k, v, do = bf16_randn(shape, 4)
+    o, lse = fa.flash_attention_forward(q, k, v, True)
+    dq_ms = _time_ms(lambda: fa.launch_dq(q, k, v, o, lse, do, True), 50)
+    dkv_ms = _time_ms(lambda: fa.launch_dkv(q, k, v, o, lse, do, True), 50)
+    plain_ms = _time_ms(
+        lambda: fa.flash_attention_backward_plain(q, k, v, o, lse, do, True), 10)
+    library = _sdpa_ms(q, k, v, 20, do=do)
+    bounds = {name: _flash_bound_ms(*shape, causal=True, n_tensors=n, bytes_per_element=2,
+                                    flop_per_pair=FLOP_PER_PAIR["bfloat16"][name],
+                                    dtype="bfloat16")
+              for name, n in (("dq", 6), ("dkv", 7))}
+    print(f"bf16 flash backward {shape} causal on {card}: dQ kernel {dq_ms:.4f} ms (bound "
+          f"{bounds['dq']['bound_ms']:.4f}, {bounds['dq']['bound_by']}), dK/dV kernel "
+          f"{dkv_ms:.4f} ms (bound {bounds['dkv']['bound_ms']:.4f}, "
+          f"{bounds['dkv']['bound_by']}), both {dq_ms + dkv_ms:.4f} ms; plain backward "
+          f"{plain_ms:.4f} ms; scaled_dot_product_attention backward "
+          f"{library['library_ms']:.4f} ms ({library['library_3d_ms']:.4f} given 3-D "
+          f"tensors; dq, dk, dv together)", flush=True)
+    common = {"route": "cuda", "source": "gordo_tpu_torch/ops/csrc/flash_attention_bwd_bf16.cu",
+              "dtype": "bfloat16", "launches": None, "plain_ms": plain_ms, **library,
+              "plain_and_library_compute": "dq, dk and dv together",
+              "shape": list(shape), "causal": True}
+    return [
+        forward,
+        {"name": "flash_attention_backward_dq_bf16",
+         "replaces": "gordo_tpu/ops/pallas_kernels/flash_attention.py:89",
+         "max_abs_err": worst["dq"][1], "share_differing": worst["dq"][0], "ms": dq_ms,
+         **bounds["dq"], **common},
+        {"name": "flash_attention_backward_dkv_bf16",
+         "replaces": "gordo_tpu/ops/pallas_kernels/flash_attention.py:127",
+         "max_abs_err": max(worst["dk"][1], worst["dv"][1]),
+         "share_differing": max(worst["dk"][0], worst["dv"][0]), "ms": dkv_ms,
+         **bounds["dkv"], **common},
+    ]
+
+
 def _series(n_rows: int, offset: int, rng) -> np.ndarray:
     """Eight sine tags with noise, rows ``offset .. offset + n_rows``."""
     t = np.arange(offset, offset + n_rows)[:, None]
@@ -362,10 +575,11 @@ def _series(n_rows: int, offset: int, rng) -> np.ndarray:
     return np.sin(2 * np.pi * t / period) + 0.05 * rng.randn(n_rows, len(TAGS))
 
 
-def write_artifact(collection: Path, device: str = "cuda"):
+def write_artifact(collection: Path, device: str = "cuda", **estimator):
     """The transformer-ae-512 artifact: seeded weights, scalers fitted on a
     training span, thresholds from a held-out span (the JAX package's
-    rule: the max over the span of the rolling(6) minimum of the error)."""
+    rule: the max over the span of the rolling(6) minimum of the error);
+    ``estimator`` adds to the estimator's arguments."""
     import torch
 
     from gordo_tpu_torch import serializer
@@ -377,14 +591,14 @@ def write_artifact(collection: Path, device: str = "cuda"):
 
     rng = np.random.RandomState(SEED)
     train, held_out = _series(4096, 0, rng), _series(2048, 4096, rng)
-    estimator = TransformerAutoEncoder(**CONFIG)
+    estimator = TransformerAutoEncoder(**CONFIG, **estimator)
     spec = estimator.build_spec(len(TAGS), len(TAGS))
     params = init_model_params(spec, torch.Generator().manual_seed(SEED))
     scaler = MinMaxScaler().fit(train)
     layers = [{k: v.numpy() for k, v in p.items()} for p in params]
     detector = detector_from_arrays(
         spec, layers, scaler.min_, scaler.scale_, scaler.min_, scaler.scale_,
-        estimator_kwargs={k: v for k, v in CONFIG.items() if k != "kind"}, device=device,
+        estimator_kwargs=estimator.kwargs, device=device,
     )
     pred = detector.base_estimator.predict(held_out)
     truth = held_out[-len(pred):]
@@ -413,15 +627,40 @@ def _with_attention(spec, impl: str):
         if isinstance(layer, TransformerBlock) else layer for layer in spec.layers))
 
 
+# the wrappers' launch counters: the forward, dQ and dK/dV kernels of each dtype
+COUNTERS = {"float32": ("LAUNCHES", "DQ_LAUNCHES", "DKV_LAUNCHES"),
+            "bfloat16": ("BF16_LAUNCHES", "BF16_DQ_LAUNCHES", "BF16_DKV_LAUNCHES")}
+
+
+def _reset_launches() -> None:
+    from gordo_tpu_torch.ops import flash_attention as fa
+
+    for names in COUNTERS.values():
+        for name in names:
+            setattr(fa, name, 0)
+
+
+def _launches(dtype: str) -> dict:
+    """``{"forward": n, "dq": n, "dkv": n}``: the launches of ``dtype``'s
+    kernels since the counters were last reset."""
+    from gordo_tpu_torch.ops import flash_attention as fa
+
+    return {key: getattr(fa, name) for key, name in zip(("forward", "dq", "dkv"),
+                                                         COUNTERS[dtype])}
+
+
 def main_path(card: str, spec, layers, scaler, collection: Path, device: str = "cuda",
               name: str = "transformer-ae-512", request_rows=REQUEST_ROWS):
     """Serve anomaly requests to model ``name`` through the port's server on
-    the card and check them. Returns the kernel launches the requests made."""
+    the card and check them: each request launches the forward kernel of
+    the spec's compute dtype once per Transformer block, and nothing else.
+    Returns the forward launches the requests made."""
     from gordo_tpu_torch.models.models import TransformerAutoEncoder
     from gordo_tpu_torch.models.spec import TransformerBlock
-    from gordo_tpu_torch.ops import flash_attention as fa
     from gordo_tpu_torch.server.server import make_server
 
+    dtype = spec.compute_dtype
+    other = next(d for d in COUNTERS if d != dtype)
     server = make_server("127.0.0.1", 0, device=device, collection_dir=str(collection))
     thread = threading.Thread(target=server.serve_forever, daemon=True)
     thread.start()
@@ -434,10 +673,10 @@ def main_path(card: str, spec, layers, scaler, collection: Path, device: str = "
                 "anomaly-confidence", "total-anomaly-confidence"}
     first = None
     try:
-        fa.LAUNCHES = fa.DQ_LAUNCHES = fa.DKV_LAUNCHES = 0
+        _reset_launches()
         for i, n_rows in enumerate(request_rows):
             values = _series(n_rows, 8192 + 2000 * i, rng)
-            before = fa.LAUNCHES
+            before = _launches(dtype)["forward"]
             req = urllib.request.Request(
                 url, data=json.dumps(_payload(values, start)).encode(),
                 headers={"Content-Type": "application/json"},
@@ -458,17 +697,18 @@ def main_path(card: str, spec, layers, scaler, collection: Path, device: str = "
                         isinstance(x, float) and math.isfinite(x) for x in column.values()
                     ):
                         raise AssertionError(f"{top}/{sub} has non-finite values")
-            launched = fa.LAUNCHES - before
+            launched = _launches(dtype)["forward"] - before
             print(f"request {i}: {n_rows} rows -> {n_out} windows, status {status}, "
-                  f"{latency_ms:.1f} ms on {card}, flash launches {launched}", flush=True)
+                  f"{latency_ms:.1f} ms on {card}, {dtype} flash launches {launched}",
+                  flush=True)
             n_blocks = sum(isinstance(layer, TransformerBlock) for layer in spec.layers)
             if launched != n_blocks:
                 raise AssertionError(f"{launched} flash launches, expected {n_blocks}")
             if first is None:
                 first = (values, data["model-output"])
-        launches = fa.LAUNCHES
-        if fa.DQ_LAUNCHES or fa.DKV_LAUNCHES:
-            raise AssertionError("serving launched a backward kernel")
+        launches = _launches(dtype)
+        if launches["dq"] or launches["dkv"] or any(_launches(other).values()):
+            raise AssertionError("serving launched a backward kernel or another dtype's")
     finally:
         server.shutdown()
         server.server_close()
@@ -477,16 +717,18 @@ def main_path(card: str, spec, layers, scaler, collection: Path, device: str = "
     # the first answer's model output against the same model with plain attention
     plain = TransformerAutoEncoder(**CONFIG).load_params(
         _with_attention(spec, "xla"), layers, device)
-    before = fa.LAUNCHES
+    before = _launches(dtype)["forward"]
     ref = plain.predict(scaler.transform(first[0]))
-    if fa.LAUNCHES != before:
+    if _launches(dtype)["forward"] != before:
         raise AssertionError("the plain reference launched the kernel")
     served = np.array([list(first[1][tag].values()) for tag in TAGS]).T
     err = np.abs(served - ref).max() / np.abs(ref).max()
-    print(f"served model-output vs plain attention: max rel err {err:.3e}", flush=True)
-    if not err <= TOL_MODEL_REL:
+    tol = TOL_BF16_MODEL_REL if dtype == "bfloat16" else TOL_MODEL_REL
+    print(f"served model-output vs plain attention ({dtype}): max rel err {err:.3e}",
+          flush=True)
+    if not err <= tol:
         raise AssertionError("served model output disagrees with the plain model")
-    return launches
+    return launches["forward"]
 
 
 def gradient_and_loss_errors(card: str, rows: np.ndarray, spec) -> dict:
@@ -616,12 +858,13 @@ def cli_build(collection: Path, register: Path) -> None:
         raise AssertionError(f"expected {expected} finite score lines, got {len(lines)}")
 
 
-def build_path(card: str, root: Path) -> dict:
-    """Build the transformer-ae-512 machine from its config on the card
-    through ``ModelBuilder`` (3-fold CV and a fit over 6,144 RandomDataset
-    rows, 420 steps), check it, build it again from the register's cache,
-    build it once more through the CLI, and serve the built artifact.
-    Returns the kernels' launches in the build and in the served request."""
+def build_and_check(card: str, config: dict, spec, output: Path, register: Path):
+    """Build ``config``'s machine through ``ModelBuilder`` on the card (3-fold
+    CV and a fit over the config's 6,144 RandomDataset rows, 420 steps) and
+    check it: two dQ and two dK/dV launches of the spec's compute dtype per
+    step and none of the other dtype's, finite losses, CV scores and
+    thresholds, ``model_offset``, and a held-out scaled error below the
+    seeded initial weights'. Returns ``(model, launches)``."""
     import torch
 
     from gordo_tpu_torch.builder import ModelBuilder
@@ -630,17 +873,16 @@ def build_path(card: str, root: Path) -> dict:
     from gordo_tpu_torch.models.anomaly.diff import TimeSeriesSplit
     from gordo_tpu_torch.models.models import TransformerAutoEncoder
     from gordo_tpu_torch.models.spec import TransformerBlock
-    from gordo_tpu_torch.ops import flash_attention as fa
     from gordo_tpu_torch.ops.nn import init_model_params
     from gordo_tpu_torch.ops.predict import n_train_samples
 
-    rng = np.random.RandomState(SEED)
-    rows = np.concatenate([_series(4096, 0, rng), _series(2048, 4096, rng)])
-    spec = TransformerAutoEncoder(**CONFIG).build_spec(len(TAGS), len(TAGS))
-    gradient_and_loss_checks(card, rows, spec)
-    n_rows = len(rows)  # the config's dataset: 6,144 ten-minute rows
+    dtype = spec.compute_dtype
+    other = next(d for d in COUNTERS if d != dtype)
+    dataset = config["dataset"]  # 6,144 ten-minute rows
+    n_rows = (datetime.fromisoformat(dataset["train_end_date"])
+              - datetime.fromisoformat(dataset["train_start_date"])) // timedelta(minutes=10)
     steps = [math.ceil(n_train_samples(spec, len(train_idx)) / BATCH)
-             for train_idx, _ in TimeSeriesSplit(3).split(rows)]
+             for train_idx, _ in TimeSeriesSplit(3).split(np.zeros(n_rows))]
     steps.append(math.ceil(n_train_samples(spec, n_rows) / BATCH))
     n_blocks = sum(isinstance(layer, TransformerBlock) for layer in spec.layers)
 
@@ -653,29 +895,28 @@ def build_path(card: str, root: Path) -> dict:
         losses.append(result.history["loss"])
         return result
 
-    output, register = root / "transformer-ae-512-built", root.parent / "register"
     shutil.rmtree(register, ignore_errors=True)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
-    fa.LAUNCHES = fa.DQ_LAUNCHES = fa.DKV_LAUNCHES = 0
+    _reset_launches()
     port_models.fit_arrays = recording_fit
     try:
         t0 = time.perf_counter()
-        model, machine = ModelBuilder(Machine.from_config(BUILD_CONFIG, "chip-smoke"), "cuda").build(
+        model, machine = ModelBuilder(Machine.from_config(config, "chip-smoke"), "cuda").build(
             output, register)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
     finally:
         port_models.fit_arrays = fit_arrays
-    launches = {"forward": fa.LAUNCHES, "dq": fa.DQ_LAUNCHES, "dkv": fa.DKV_LAUNCHES}
+    launches = _launches(dtype)
     built = machine.metadata.build_metadata
     phases = built.phases
     scores = built.model.cross_validation.scores
-    print(f"build on {card}: {seconds:.2f} s in all; phases (s) {phases}; CV "
-          f"{steps[:3]} steps, fit {steps[3]} steps, "
-          f"{1e3 * phases['fit'] / steps[3]:.2f} ms per fit step; launches {launches}; "
-          f"model_offset {built.model.model_offset}; peak device memory "
+    print(f"build of {config['name']} ({dtype}) on {card}: {seconds:.2f} s in all; phases "
+          f"(s) {phases}; CV {steps[:3]} steps, fit {steps[3]} steps, "
+          f"{1e3 * phases['fit'] / steps[3]:.2f} ms per fit step; {dtype} launches "
+          f"{launches}; model_offset {built.model.model_offset}; peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
     for metric in ("explained-variance-score", "r2-score", "mean-squared-error",
                    "mean-absolute-error"):
@@ -685,6 +926,9 @@ def build_path(card: str, root: Path) -> dict:
                              f"got {launches}")
     if not launches["forward"] >= launches["dq"]:
         raise AssertionError(f"fewer forward launches than training steps: {launches}")
+    if any(_launches(other).values()):
+        raise AssertionError(f"the {dtype} build launched {other} kernels: "
+                             f"{_launches(other)}")
     if built.model.model_offset != spec.lookback_window - 1:
         raise AssertionError(f"model_offset {built.model.model_offset}")
     print(f"epoch losses (folds, then fit): {losses}", flush=True)
@@ -712,14 +956,35 @@ def build_path(card: str, root: Path) -> dict:
           f"{model.aggregate_threshold_}", flush=True)
     if not all(math.isfinite(x) for x in thresholds):
         raise AssertionError("a threshold is not finite")
+    return model, launches
+
+
+def build_path(card: str, root: Path) -> dict:
+    """Build the transformer-ae-512 machine from its config on the card
+    (:func:`build_and_check`), build it again from the register's cache,
+    build it once more through the CLI, and serve the built artifact.
+    Returns the kernels' launches in the build and in the served request."""
+    import torch
+
+    from gordo_tpu_torch.machine import Machine
+    from gordo_tpu_torch.builder import ModelBuilder
+    from gordo_tpu_torch.models.models import TransformerAutoEncoder
+
+    rng = np.random.RandomState(SEED)
+    rows = np.concatenate([_series(4096, 0, rng), _series(2048, 4096, rng)])
+    spec = TransformerAutoEncoder(**CONFIG).build_spec(len(TAGS), len(TAGS))
+    gradient_and_loss_checks(card, rows, spec)
+    output, register = root / "transformer-ae-512-built", root.parent / "register"
+    model, launches = build_and_check(card, BUILD_CONFIG, spec, output, register)
+    input_scaler = model.base_estimator.steps[0][1]
 
     # the same machine again: a cache hit, which trains and launches nothing
     written = (output / "params.npz").stat().st_mtime_ns
-    fa.LAUNCHES = fa.DQ_LAUNCHES = fa.DKV_LAUNCHES = 0
+    _reset_launches()
     t0 = time.perf_counter()
     _, cached = ModelBuilder(Machine.from_config(BUILD_CONFIG, "chip-smoke"), "cuda").build(
         output, register)
-    again = (fa.LAUNCHES, fa.DQ_LAUNCHES, fa.DKV_LAUNCHES)
+    again = tuple(n for dtype in COUNTERS for n in _launches(dtype).values())
     print(f"second build: {time.perf_counter() - t0:.2f} s, user metadata "
           f"{cached.metadata.user_defined}, launches {again}", flush=True)
     if cached.metadata.user_defined.get("build-metadata") != {"from_cache": True} or any(again):
@@ -741,6 +1006,25 @@ def build_path(card: str, root: Path) -> dict:
             and served["cross_validation"].get("splits")
             and served.get("model_meta", {}).get("aggregate-threshold") is not None):
         raise AssertionError("the served metadata lacks the build's model metadata")
+    return launches
+
+
+def bf16_build_path(card: str, root: Path) -> dict:
+    """Build transformer-ae-512-bf16 from its config on the card
+    (:func:`build_and_check`) and serve the built artifact: one 1,535-row
+    request, its model output against the same bf16 model with plain
+    attention. Returns the bf16 kernels' launches in the build and in the
+    served request."""
+    from gordo_tpu_torch.models.models import TransformerAutoEncoder
+
+    spec = TransformerAutoEncoder(**CONFIG, compute_dtype="bfloat16").build_spec(
+        len(TAGS), len(TAGS))
+    output = root / "transformer-ae-512-bf16-built"
+    model, launches = build_and_check(card, BUILD_CONFIG_BF16, spec, output,
+                                      root.parent / "register-bf16")
+    layers = model.base_estimator.steps[-1][1].module_.params_numpy()
+    launches["serving"] = main_path(card, spec, layers, model.base_estimator.steps[0][1],
+                                    root, name=output.name, request_rows=(1535,))
     return launches
 
 
@@ -777,16 +1061,18 @@ def main() -> int:
 
     forward = kernel_phase(card)
     dq, dkv = backward_kernel_phase(card)
-    for entry in (forward, dq, dkv):
+    bf16_forward, bf16_dq, bf16_dkv = bf16_kernel_phase(card)
+    entries = [forward, dq, dkv, bf16_forward, bf16_dq, bf16_dkv]
+    for entry, kernel in zip(entries, ("flash_forward_f32", "flash_bwd_dq_f32",
+                                       "flash_bwd_dkv_f32", "flash_forward_bf16",
+                                       "flash_bwd_dq_bf16", "flash_bwd_dkv_bf16")):
         entry["occupancy_by_head_dim"] = occupancy[entry["name"]]
-    for entry, kernel in ((forward, "flash_forward_f32"), (dq, "flash_bwd_dq_f32"),
-                          (dkv, "flash_bwd_dkv_f32")):
         entry["sass_hmma"] = sum(n for f, n in hmma.items() if kernel in f) if hmma else None
-    if hmma and not (forward["sass_hmma"] and dq["sass_hmma"] and dkv["sass_hmma"]):
-        raise AssertionError("the tensor-core kernels' SASS holds no HMMA instruction")
+    if hmma and not all(entry["sass_hmma"] for entry in entries):
+        raise AssertionError("a tensor-core kernel's SASS holds no HMMA instruction")
     torch.cuda.empty_cache()
 
-    collections = [REPO / "build" / "chip_smoke" / rev for rev in ("1", "2")]
+    collections = [REPO / "build" / "chip_smoke" / rev for rev in ("1", "2", "3")]
     for collection in collections:
         shutil.rmtree(collection, ignore_errors=True)
         collection.mkdir(parents=True)
@@ -794,19 +1080,25 @@ def main() -> int:
     serving = main_path(card, spec, layers, scaler, collections[0])
     torch.cuda.empty_cache()
     build = build_path(card, collections[1])
+    torch.cuda.empty_cache()
+    bf16_build = bf16_build_path(card, collections[2])
 
     forward["launches"] = serving + build["forward"] + build["serving"]
     forward["launches_by_path"] = {"serving": serving, "build": build["forward"],
                                    "serving_built": build["serving"]}
-    for entry, key in ((dq, "dq"), (dkv, "dkv")):
-        entry["launches"] = build[key]
-        entry["launches_by_path"] = {"build": build[key]}
-    for entry in (forward, dq, dkv):
+    bf16_forward["launches"] = bf16_build["forward"] + bf16_build["serving"]
+    bf16_forward["launches_by_path"] = {"build": bf16_build["forward"],
+                                        "serving_built": bf16_build["serving"]}
+    for entry, key, launches in ((dq, "dq", build), (dkv, "dkv", build),
+                                 (bf16_dq, "dq", bf16_build), (bf16_dkv, "dkv", bf16_build)):
+        entry["launches"] = launches[key]
+        entry["launches_by_path"] = {"build": launches[key]}
+    for entry in entries:
         if entry["launches"] < 1:
             raise AssertionError(f"the main paths launched no {entry['name']} kernel")
 
     print(card)
-    print(json.dumps({"kernels": [forward, dq, dkv]}))
+    print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -21,6 +21,7 @@ from numpy.lib.stride_tricks import sliding_window_view
 
 from .. import utils as model_utils
 from ..base import clone
+from ..pretty import EstimatorRepr
 from ..scaler import MinMaxScaler, pipeline_predict
 
 
@@ -126,7 +127,7 @@ def _by_column(per_fold: Dict[str, np.ndarray]) -> Dict[int, Dict[str, float]]:
     return columns
 
 
-class DiffBasedAnomalyDetector:
+class DiffBasedAnomalyDetector(EstimatorRepr):
     def __init__(
         self,
         base_estimator,

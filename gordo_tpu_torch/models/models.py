@@ -21,6 +21,7 @@ from ..ops.predict import predict_fn
 from ..ops.train import fit_arrays
 from .base import explained_variance_score
 from .factories import FACTORIES
+from .pretty import EstimatorRepr
 from .spec import ModelSpec
 
 _PARALLEL_KWARGS = (
@@ -31,8 +32,10 @@ _FIT_KWARGS = ("batch_size", "epochs", "verbose", "callbacks", "validation_split
 _NON_FACTORY_KWARGS = (*_FIT_KWARGS, "compute_dtype", "remat", *_PARALLEL_KWARGS)
 
 
-class WindowedSequenceEstimator:
-    """Many-to-one windowed estimator over a registered factory ``kind``."""
+class WindowedSequenceEstimator(EstimatorRepr):
+    """Many-to-one windowed estimator over a registered factory ``kind``.
+    Its repr is the JAX estimator's: the device is where it runs, not one
+    of its parameters."""
 
     factory_type = ""
     lookahead = 0
@@ -57,6 +60,14 @@ class WindowedSequenceEstimator:
 
     def get_params(self, deep=False) -> Dict[str, Any]:
         return {"kind": self.kind, "device": self.device, **self.kwargs}
+
+    def repr_params(self) -> Dict[str, Any]:
+        return {"kind": self.kind, **self.kwargs}
+
+    def repr_defaults(self) -> Dict[str, Any]:
+        # the JAX estimator's __init__(kind, lookback_window=144,
+        # batch_size=32, **kwargs): its kind has no default
+        return {"lookback_window": 144, "batch_size": 32}
 
     @classmethod
     def from_definition(cls, definition: dict, device=None):
@@ -155,10 +166,6 @@ class WindowedSequenceEstimator:
         metadata = {"history": dict(self.history)} if self.history is not None else {}
         metadata["forecast_steps"] = self.lookahead
         return metadata
-
-    def __repr__(self) -> str:
-        args = ", ".join(f"{k}={v!r}" for k, v in self.get_params().items())
-        return f"{type(self).__name__}({args})"
 
 
 def _as_2d(data) -> np.ndarray:

@@ -15,26 +15,27 @@ from typing import List, Tuple
 
 import numpy as np
 
+from .pretty import EstimatorRepr
 
-class MinMaxScaler:
+
+class MinMaxScaler(EstimatorRepr):
     """sklearn's ``MinMaxScaler``: ``transform`` maps each column's fitted
     range onto ``feature_range`` (clipped to it if ``clip``); ``copy`` is
-    accepted for sklearn's signature (the port never scales in place)."""
+    accepted for sklearn's signature (the port never scales in place).
+    ``feature_range`` is kept as it was given, as sklearn keeps it, so the
+    repr shows it as sklearn's does."""
 
     def __init__(self, min_=None, scale_=None, *, feature_range=(0, 1), copy=True,
                  clip=False):
         self.min_ = None if min_ is None else np.asarray(min_, np.float64)
         self.scale_ = None if scale_ is None else np.asarray(scale_, np.float64)
-        self.feature_range = tuple(feature_range)
+        self.feature_range = feature_range
         self.copy = copy
         self.clip = clip
 
     def get_params(self, deep=False) -> dict:
         # constructor settings only: a clone is unfitted
         return {"clip": self.clip, "copy": self.copy, "feature_range": self.feature_range}
-
-    def __repr__(self) -> str:
-        return "MinMaxScaler()"
 
     def fit(self, X) -> "MinMaxScaler":
         X = np.asarray(X, np.float64)
@@ -54,7 +55,7 @@ class MinMaxScaler:
         return np.clip(out, *self.feature_range) if self.clip else out
 
 
-class Pipeline:
+class Pipeline(EstimatorRepr):
     """Transform steps followed by one estimator: ``[(name, step), ...]``.
     ``memory``, ``verbose`` and ``transform_input`` are sklearn's
     constructor settings, kept for its definitions; the port caches nothing."""
@@ -69,9 +70,6 @@ class Pipeline:
     def get_params(self, deep=False) -> dict:
         return {"memory": self.memory, "steps": self.steps,
                 "transform_input": self.transform_input, "verbose": self.verbose}
-
-    def __repr__(self) -> str:
-        return f"Pipeline(steps={self.steps!r})"
 
     def fit(self, X, y) -> "Pipeline":
         self.steps[-1][1].fit(_through_transforms(self.steps, X, fit=True), y)

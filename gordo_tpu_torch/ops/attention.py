@@ -13,20 +13,23 @@ counterpart of ``gordo_tpu/ops/attention.py``.
 - ``impl="xla"``, named explicitly in a spec: the plain PyTorch path,
   :func:`dot_product_attention_plain`, as the JAX package runs XLA, with
   PyTorch's own autograd.
-- ``impl="ring"``: not ported yet.
+- ``impl="ring"``: on one device the plain path, as the JAX package's
+  ``ring_attention`` runs plain attention on one device, so ring-configured
+  models serve on a single card unchanged. Sequence parallelism over more
+  than one device is not ported yet.
 
 Unlike the JAX dispatcher, no environment variable overrides the choice.
 """
 
 import torch
 
-from .flash_attention import SUPPORTED_HEAD_DIMS, flash_attention
+from .flash_attention import DTYPES as FLASH_DTYPES, SUPPORTED_HEAD_DIMS, flash_attention
 
 NEG_INF = -1e30
 
 RING_NOT_PORTED = (
-    "ring attention is not ported yet: see the ring attention / parallel "
-    "axes item of ROADMAP.md queue A"
+    "ring attention over more than one device is not ported yet: see the "
+    "ring attention / parallel axes item of ROADMAP.md queue A"
 )
 
 
@@ -60,13 +63,21 @@ def dot_product_attention_plain(q, k, v, causal: bool = False) -> torch.Tensor:
 
 def _flash_ok(q: torch.Tensor, k: torch.Tensor) -> bool:
     """Whether the flash kernels take these shapes: self-attention (equal
-    query and key lengths), float32, and a head dim the kernels are built
-    for."""
+    query and key lengths), q and k of one dtype the kernels are built for
+    (float32 or bfloat16), and a head dim they are built for."""
     return (
         k.shape[-2] == q.shape[-2]
-        and q.dtype == k.dtype == torch.float32
+        and q.dtype == k.dtype
+        and q.dtype in FLASH_DTYPES
         and q.shape[-1] in SUPPORTED_HEAD_DIMS
     )
+
+
+def _world_size() -> int:
+    """The devices a ring would span: the process group's size, 1 without
+    one."""
+    dist = torch.distributed
+    return dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
 
 
 def dot_product_attention(q, k, v, causal: bool = False, impl: str = "auto"):
@@ -78,7 +89,9 @@ def dot_product_attention(q, k, v, causal: bool = False, impl: str = "auto"):
     if impl == "xla":
         return dot_product_attention_plain(q, k, v, causal)
     if impl == "ring":
-        raise NotImplementedError(RING_NOT_PORTED)
+        if _world_size() > 1:
+            raise NotImplementedError(RING_NOT_PORTED)
+        return dot_product_attention_plain(q, k, v, causal)
     raise ValueError(f"Unknown attention impl {impl!r}")
 
 

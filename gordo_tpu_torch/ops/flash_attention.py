@@ -1,18 +1,23 @@
 """
 Flash attention, forward and backward: the wrappers of the hand-written
-CUDA kernels ``csrc/flash_attention.cu`` (forward) and
-``csrc/flash_attention_bwd.cu`` (dQ and dK/dV), their plain PyTorch twins,
-and the ``torch.autograd.Function`` that joins them.
+CUDA kernels, their plain PyTorch twins, and the ``torch.autograd.Function``
+that joins them. Each kernel has a float32 and a bf16 build:
+``csrc/flash_attention.cu`` and ``csrc/flash_attention_bf16.cu`` (forward),
+``csrc/flash_attention_bwd.cu`` and ``csrc/flash_attention_bwd_bf16.cu``
+(dQ and dK/dV).
 
 The kernels replace the three Pallas kernels of
 ``gordo_tpu/ops/pallas_kernels/flash_attention.py``: ``_flash_kernel``
 (blockwise online-softmax self-attention, scale 1/sqrt(dh), optional
 causal mask, returning the output and the per-row logsumexp, stored here as
 (BH, T) without the TPU's 128-lane replication), ``_flash_dq_kernel`` and
-``_flash_dkv_kernel`` (the backward, recomputing P = exp(S - lse)). On
-this card all three are bound by arithmetic and run their products on the
-tensor cores in 3xTF32, float32-accurate (``csrc/mma_tf32x3.cuh``); the
-source notes say what each design does about that.
+``_flash_dkv_kernel`` (the backward, recomputing P = exp(S - lse)). Like
+the Pallas kernels, all of them take float32 or bf16 inputs, compute in
+float32 and write out, dq, dk and dv in the input dtype; lse is float32.
+The float32 kernels run their products on the tensor cores in 3xTF32
+(``csrc/mma_tf32x3.cuh``), the bf16 kernels in bf16 with float32 sums
+(``csrc/mma_bf16.cuh``); the source notes say what bounds each and what
+its design does about that.
 
 Dispatch is by where the tensors lie: CPU tensors take the plain twins,
 CUDA tensors launch the kernels or raise. There is no fallback from one to
@@ -29,12 +34,16 @@ from . import _build
 
 NEG_INF = -1e30
 SUPPORTED_HEAD_DIMS = (16, 32, 64, 128)
+DTYPES = (torch.float32, torch.bfloat16)
 
-# kernel launches made on CUDA tensors: the forward (LAUNCHES), and the
-# backward's dQ and dK/dV kernels
+# kernel launches made on CUDA tensors: the float32 forward (LAUNCHES) and
+# the float32 backward's dQ and dK/dV kernels; then the same for bf16
 LAUNCHES = 0
 DQ_LAUNCHES = 0
 DKV_LAUNCHES = 0
+BF16_LAUNCHES = 0
+BF16_DQ_LAUNCHES = 0
+BF16_DKV_LAUNCHES = 0
 _launches_lock = threading.Lock()
 
 
@@ -53,12 +62,13 @@ def _scores(q, k, causal: bool):
 
 def flash_attention_forward_plain(q, k, v, causal: bool = False):
     """The kernel's function in plain PyTorch. q, k, v: (..., T, Dh).
-    Returns ``(out, lse)`` with lse shaped (..., T), float32."""
+    Computes in float32 (float64 for float64 inputs) and returns
+    ``(out, lse)``: out in the input dtype, lse shaped (..., T) in float32."""
     s = _scores(q, k, causal)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     denom = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
-    out = torch.matmul(p, v.float()) / denom
+    out = torch.matmul(p, v.to(s.dtype)) / denom
     lse = (m + torch.log(denom)).squeeze(-1)
     return out.to(q.dtype), lse
 
@@ -66,15 +76,19 @@ def flash_attention_forward_plain(q, k, v, causal: bool = False):
 def flash_attention_backward_plain(q, k, v, o, lse, do, causal: bool = False):
     """The backward kernels' function in plain PyTorch, with their own
     arithmetic: P = exp(S - lse), D = rowsum(dO * O), dS = P * (dO V^T - D).
-    q, k, v, o, do: (..., T, Dh); lse: (..., T). Returns ``(dq, dk, dv)``."""
+    q, k, v, o, do: (..., T, Dh); lse: (..., T). Every input is taken to
+    float32 (float64 for float64 inputs), D from the stored ``o`` as the
+    kernels read it; returns ``(dq, dk, dv)`` in the input dtype."""
+    dtype = torch.promote_types(q.dtype, torch.float32)
+    qf, kf, vf, of, dof = (x.to(dtype) for x in (q, k, v, o, do))
     scale = 1.0 / q.shape[-1] ** 0.5
-    p = torch.exp(_scores(q, k, causal) - lse.unsqueeze(-1))
-    dv = torch.matmul(p.transpose(-1, -2), do)
-    delta = (do * o).sum(dim=-1, keepdim=True)
-    ds = p * (torch.matmul(do, v.transpose(-1, -2)) - delta)
-    dq = torch.matmul(ds, k) * scale
-    dk = torch.matmul(ds.transpose(-1, -2), q) * scale
-    return dq, dk, dv
+    p = torch.exp(_scores(qf, kf, causal) - lse.to(dtype).unsqueeze(-1))
+    dv = torch.matmul(p.transpose(-1, -2), dof)
+    delta = (dof * of).sum(dim=-1, keepdim=True)
+    ds = p * (torch.matmul(dof, vf.transpose(-1, -2)) - delta)
+    dq = torch.matmul(ds, kf) * scale
+    dk = torch.matmul(ds.transpose(-1, -2), qf) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def _check(*tensors, names="qkv") -> None:
@@ -90,9 +104,14 @@ def _check(*tensors, names="qkv") -> None:
             )
         if x.device != q.device:
             raise ValueError(f"q and {name} lie on {q.device} and {x.device}")
+    if q.dtype not in DTYPES:
+        raise TypeError(f"flash_attention takes float32 or bfloat16, got q {q.dtype}")
     for name, x in zip(names, tensors):
-        if x.dtype != torch.float32:
-            raise TypeError(f"flash_attention takes float32, got {name} {x.dtype}")
+        if x.dtype != q.dtype:
+            raise TypeError(
+                f"flash_attention needs {', '.join(names)} of one dtype, got q "
+                f"{q.dtype} and {name} {x.dtype}"
+            )
         if not x.is_contiguous():
             raise ValueError(f"flash_attention needs contiguous inputs; {name} is not")
     if t < 1:
@@ -124,6 +143,28 @@ def _dkv_kernel():
     return _c_function("flash_attention_bwd", "gordo_flash_attention_backward_dkv_f32", 8)
 
 
+@functools.lru_cache(maxsize=None)
+def _bf16_kernel():
+    return _c_function("flash_attention_bf16", "gordo_flash_attention_forward_bf16", 5)
+
+
+@functools.lru_cache(maxsize=None)
+def _bf16_dq_kernel():
+    return _c_function("flash_attention_bwd_bf16",
+                       "gordo_flash_attention_backward_dq_bf16", 7)
+
+
+@functools.lru_cache(maxsize=None)
+def _bf16_dkv_kernel():
+    return _c_function("flash_attention_bwd_bf16",
+                       "gordo_flash_attention_backward_dkv_bf16", 8)
+
+
+def _count(name: str) -> None:
+    with _launches_lock:
+        globals()[name] += 1
+
+
 def _call(kernel, label: str, tensors, bh: int, t: int, dh: int, causal: bool) -> None:
     """Launch a C kernel on (bh, t, dh) CUDA tensors on the current stream,
     raising if the launch failed."""
@@ -144,49 +185,53 @@ def _call(kernel, label: str, tensors, bh: int, t: int, dh: int, causal: bool) -
 
 
 def _launch(q, k, v, causal: bool):
-    global LAUNCHES
     bh, t, dh = q.shape
     out = torch.empty_like(q)
     lse = torch.empty((bh, t), dtype=torch.float32, device=q.device)
     if bh == 0:
         return out, lse
-    _call(_kernel(), "flash attention", (q, k, v, out, lse), bh, t, dh, causal)
-    with _launches_lock:
-        LAUNCHES += 1
+    bf16 = q.dtype == torch.bfloat16
+    _call(_bf16_kernel() if bf16 else _kernel(),
+          "bf16 flash attention" if bf16 else "flash attention",
+          (q, k, v, out, lse), bh, t, dh, causal)
+    _count("BF16_LAUNCHES" if bf16 else "LAUNCHES")
     return out, lse
 
 
 def launch_dq(q, k, v, o, lse, do, causal: bool):
-    """dQ by the CUDA kernel: (bh, t, dh) tensors and lse (bh, t)."""
-    global DQ_LAUNCHES
+    """dQ by the CUDA kernel of the inputs' dtype: (bh, t, dh) tensors and
+    lse (bh, t)."""
     bh, t, dh = q.shape
     dq = torch.empty_like(q)
     if bh == 0:
         return dq
-    _call(_dq_kernel(), "flash attention dQ", (q, k, v, o, lse, do, dq), bh, t, dh,
-          causal)
-    with _launches_lock:
-        DQ_LAUNCHES += 1
+    bf16 = q.dtype == torch.bfloat16
+    _call(_bf16_dq_kernel() if bf16 else _dq_kernel(),
+          "bf16 flash attention dQ" if bf16 else "flash attention dQ",
+          (q, k, v, o, lse, do, dq), bh, t, dh, causal)
+    _count("BF16_DQ_LAUNCHES" if bf16 else "DQ_LAUNCHES")
     return dq
 
 
 def launch_dkv(q, k, v, o, lse, do, causal: bool):
-    """(dK, dV) by the CUDA kernel: (bh, t, dh) tensors and lse (bh, t)."""
-    global DKV_LAUNCHES
+    """(dK, dV) by the CUDA kernel of the inputs' dtype: (bh, t, dh) tensors
+    and lse (bh, t)."""
     bh, t, dh = q.shape
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     if bh == 0:
         return dk, dv
-    _call(_dkv_kernel(), "flash attention dK/dV", (q, k, v, o, lse, do, dk, dv), bh,
-          t, dh, causal)
-    with _launches_lock:
-        DKV_LAUNCHES += 1
+    bf16 = q.dtype == torch.bfloat16
+    _call(_bf16_dkv_kernel() if bf16 else _dkv_kernel(),
+          "bf16 flash attention dK/dV" if bf16 else "flash attention dK/dV",
+          (q, k, v, o, lse, do, dk, dv), bh, t, dh, causal)
+    _count("BF16_DKV_LAUNCHES" if bf16 else "DKV_LAUNCHES")
     return dk, dv
 
 
 def flash_attention_forward(q, k, v, causal: bool = False):
-    """Flash attention over (..., T, Dh) float32 tensors of one shape.
-    Returns ``(out, lse)``: out (..., T, Dh) and lse (..., T) float32."""
+    """Flash attention over (..., T, Dh) tensors of one shape and one dtype,
+    float32 or bfloat16. Returns ``(out, lse)``: out (..., T, Dh) in that
+    dtype and lse (..., T) float32."""
     _check(q, k, v)
     lead = q.shape[:-2]
     t, dh = q.shape[-2:]
@@ -202,9 +247,10 @@ def flash_attention_forward(q, k, v, causal: bool = False):
 
 def flash_attention_backward(q, k, v, o, lse, do, causal: bool = False):
     """Gradients ``(dq, dk, dv)`` of flash attention over (..., T, Dh)
-    float32 tensors, from the forward's output ``o`` and logsumexp ``lse``
-    (..., T) and the output's gradient ``do``. On CUDA tensors the dQ
-    kernel, then the dK/dV kernel, on the current stream."""
+    tensors of one dtype (float32 or bfloat16), from the forward's output
+    ``o`` and float32 logsumexp ``lse`` (..., T) and the output's gradient
+    ``do``. On CUDA tensors the dQ kernel, then the dK/dV kernel, on the
+    current stream."""
     _check(q, k, v, o, do, names=("q", "k", "v", "o", "do"))
     lead = q.shape[:-2]
     t, dh = q.shape[-2:]

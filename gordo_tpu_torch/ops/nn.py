@@ -1,7 +1,8 @@
 """
 Layer init/apply in PyTorch: the port's counterpart of
 ``gordo_tpu/ops/nn.py`` for the layers of the Transformer family (Dense,
-positional encoding, pre-LN Transformer block, pooling) in float32.
+positional encoding, pre-LN Transformer block, pooling), at the spec's
+``compute_dtype``: float32 or bfloat16.
 
 Parameters use the JAX package's layout: one dict per layer, keyed as
 there (``kernel``/``bias`` for Dense; ``ln1_scale``, ``wq`` ... ``b_ff2``
@@ -47,6 +48,9 @@ ACTIVATIONS = {
     "exponential": torch.exp,
     "hard_sigmoid": lambda x: F.relu6(x + 3.0) / 6.0,
 }
+
+# the compute dtypes the port runs; the parameters stay float32 at rest
+COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 # layers the port cannot run yet, with the ROADMAP.md queue A item they wait for
 NOT_PORTED = {
@@ -198,15 +202,23 @@ class TransformerModel(nn.Module):
     """A spec of Dense / PositionalEncoding / TransformerBlock / PoolLayer
     layers with its parameters resident on ``device``; ``forward`` is the
     counterpart of ``apply_model``'s output (float32). The parameters are
-    trainable (ops/train.py); serving runs under ``torch.inference_mode``."""
+    float32 and trainable (ops/train.py); serving runs under
+    ``torch.inference_mode``.
+
+    Under ``compute_dtype: bfloat16`` each forward casts the input and every
+    parameter to bf16, as ``apply_model`` does, so every layer, the
+    attention kernels included, runs in bf16; autograd takes the gradients
+    back through the casts to the float32 parameters, as the JAX package's
+    gradient of its cast does. The output is cast to float32."""
 
     def __init__(self, spec: ModelSpec, params, device: torch.device):
         super().__init__()
-        if spec.compute_dtype != "float32":
+        if spec.compute_dtype not in COMPUTE_DTYPES:
             raise NotImplementedError(
                 f"compute_dtype {spec.compute_dtype!r} is not ported yet: see "
-                f"the bf16 item of ROADMAP.md queue A"
+                f"the float16 item of ROADMAP.md queue A"
             )
+        self.compute_dtype = COMPUTE_DTYPES[spec.compute_dtype]
         for layer in spec.layers:
             if type(layer) in NOT_PORTED:
                 raise _not_ported(layer)
@@ -228,8 +240,11 @@ class TransformerModel(nn.Module):
         self.to(device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        out = x.float()
+        dtype = self.compute_dtype
+        out = x.to(dtype)
         for layer, p in zip(self.spec.layers, self.layer_params):
+            if dtype != torch.float32:
+                p = {name: value.to(dtype) for name, value in p.items()}
             if isinstance(layer, DenseLayer):
                 out = _apply_dense(layer, p, out)
             elif isinstance(layer, PositionalEncoding):
@@ -240,7 +255,7 @@ class TransformerModel(nn.Module):
                 out = _apply_pool(layer, out)
             else:
                 raise TypeError(f"Unknown layer spec: {layer!r}")
-        return out
+        return out.float()
 
     def params_numpy(self):
         """The parameters in the JAX package's layout, as numpy arrays."""

@@ -151,10 +151,11 @@ def make_optimizer(spec: OptimizerSpec, params) -> torch.optim.Optimizer:
             eps=kwargs.get("epsilon", 1e-7),
         )
     if name == "sgd":
+        # without momentum optax trains plain SGD whatever `nesterov` says
+        momentum = kwargs.get("momentum", 0.0) or 0.0
         return torch.optim.SGD(
-            params, lr=lr,
-            momentum=kwargs.get("momentum", 0.0) or 0.0,
-            nesterov=kwargs.get("nesterov", False),
+            params, lr=lr, momentum=momentum,
+            nesterov=bool(kwargs.get("nesterov", False)) and momentum > 0,
         )
     if name == "rmsprop":
         return OptaxRMSprop(params, lr=lr, decay=kwargs.get("rho", 0.9),

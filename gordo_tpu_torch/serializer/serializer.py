@@ -57,6 +57,12 @@ def _scaler_dict(scaler: MinMaxScaler) -> Dict[str, Any]:
             "feature_range": list(scaler.feature_range), "clip": scaler.clip}
 
 
+def _scaler(fields: Dict[str, Any]) -> MinMaxScaler:
+    """Inverse of :func:`_scaler_dict`; JSON keeps no tuples, and the
+    default ``feature_range`` is one."""
+    return MinMaxScaler(**dict(fields, feature_range=tuple(fields["feature_range"])))
+
+
 def _listed(value):
     """Arrays (also inside a per-fold dict) as lists; None stays None."""
     if isinstance(value, dict):
@@ -159,10 +165,10 @@ def load(source_dir: str, device=None) -> DiffBasedAnomalyDetector:
     det = model["detector"]
     detector = DiffBasedAnomalyDetector(
         base_estimator=Pipeline([
-            ("scaler", MinMaxScaler(**model["input_scaler"])),
+            ("scaler", _scaler(model["input_scaler"])),
             ("estimator", estimator),
         ]),
-        scaler=MinMaxScaler(**det["scaler"]),
+        scaler=_scaler(det["scaler"]),
         require_thresholds=det["require_thresholds"],
         shuffle=det.get("shuffle", False),
         window=det["window"],

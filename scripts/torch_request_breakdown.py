@@ -2,9 +2,10 @@
 Where one anomaly request of the PyTorch/CUDA port spends its time, on
 one NVIDIA GPU.
 
-    python3 scripts/torch_request_breakdown.py      # from the repo root
+    python3 scripts/torch_request_breakdown.py [float32|bfloat16]   # from the repo root
 
-Writes the ``transformer-ae-512`` artifact of ``chip_smoke.py``, loads it
+Writes the ``transformer-ae-512`` artifact of ``chip_smoke.py`` at the given
+compute dtype (float32 unless named), loads it
 as the port's server does, and times the stages of a 1,535-row anomaly
 request in-process (no HTTP): JSON parse, frame decode, ``anomaly_raw``
 (the model predict and the scores around it), the model predict alone
@@ -30,7 +31,7 @@ REPS = 5
 def _kernel_group(name: str) -> str:
     if "flash_forward" in name:
         return "flash_attention"
-    if "gemm" in name.lower() or "cutlass" in name.lower():
+    if any(key in name.lower() for key in ("gemm", "cutlass", "nvjet")):
         return "matmul"
     if "memcpy" in name.lower() or "memset" in name.lower():
         return "copy"
@@ -79,9 +80,10 @@ def main() -> int:
     print(card, flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    collection = REPO / "build" / "request_breakdown" / "1"
+    dtype = sys.argv[1] if len(sys.argv) > 1 else "float32"
+    collection = REPO / "build" / "request_breakdown" / dtype
     collection.mkdir(parents=True, exist_ok=True)
-    chip_smoke.write_artifact(collection)
+    chip_smoke.write_artifact(collection, compute_dtype=dtype)
     entry = ModelEntry(str(collection / "transformer-ae-512"), "cuda")
     detector = entry.detector
     values = chip_smoke._series(1535, 8192, np.random.RandomState(1))
@@ -108,7 +110,7 @@ def main() -> int:
             stages[key].append(1e3 * dt)
     result = {f"{k}_ms": statistics.median(v[1:]) for k, v in stages.items()}
 
-    result.update(profiled_predict(detector, X.values), card=card)
+    result.update(profiled_predict(detector, X.values), compute_dtype=dtype, card=card)
     print(json.dumps(result))
     return 0
 

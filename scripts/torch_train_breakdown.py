@@ -2,10 +2,12 @@
 Where one training step of the PyTorch/CUDA port spends its time, on one
 NVIDIA GPU.
 
-    python3 scripts/torch_train_breakdown.py      # from the repo root
+    python3 scripts/torch_train_breakdown.py [float32|bfloat16]   # from the repo root
 
 Builds ``chip_smoke.py``'s ``transformer-ae-512`` model (seeded weights,
-attention through the flash kernels) and its 6,144 training rows, runs
+attention through the flash kernels) at the given compute dtype (float32
+unless named; bfloat16 is ``transformer-ae-512-bf16``) and its 6,144
+training rows, runs
 warm-up steps of ``ops/train.py``'s epoch function (Adam, MSE, batch 32),
 then times STEPS steps on the host clock (ending in a synchronise) and runs
 STEPS more under ``torch.profiler`` to split the device time by kernel
@@ -30,6 +32,7 @@ def _kernel_group(name: str) -> str:
     for key, group in (("flash_forward", "flash_forward"), ("flash_bwd_dq", "flash_dq"),
                        ("flash_bwd_dkv", "flash_dkv"), ("multi_tensor", "optimizer"),
                        ("adam", "optimizer"), ("gemm", "matmul"), ("cutlass", "matmul"),
+                       ("nvjet", "matmul"),
                        ("memcpy", "copy"), ("memset", "copy")):
         if key in lower:
             return group
@@ -57,7 +60,8 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     rng = np.random.RandomState(chip_smoke.SEED)
     rows = np.concatenate([chip_smoke._series(4096, 0, rng), chip_smoke._series(2048, 4096, rng)])
-    spec = TransformerAutoEncoder(**chip_smoke.CONFIG).build_spec(8, 8)
+    dtype = sys.argv[1] if len(sys.argv) > 1 else "float32"
+    spec = TransformerAutoEncoder(**chip_smoke.CONFIG, compute_dtype=dtype).build_spec(8, 8)
     model = TransformerModel(
         spec, init_model_params(spec, torch.Generator().manual_seed(chip_smoke.SEED)),
         torch.device("cuda"))
@@ -97,7 +101,8 @@ def main() -> int:
     per_step = {k: v / STEPS for k, v in sorted(device_ms.items(), key=lambda kv: -kv[1])}
     busy = sum(per_step.values())
     result = {
-        "config": "transformer-ae-512", "batch": batch, "steps": STEPS,
+        "config": "transformer-ae-512", "compute_dtype": dtype, "batch": batch,
+        "steps": STEPS,
         "step_ms": step_ms, "profiled_step_ms": profiled_ms,
         "device_ms_per_step_by_kernel": per_step or "not measured (no device events)",
         # the profiler slows the host, not the kernels: the device's share of

@@ -98,7 +98,7 @@ def test_definitions_build_the_port_objects_on_the_given_device():
     forecast = serializer.from_definition(DEFINITIONS["forecast"])
     assert isinstance(forecast.steps[1][1], TransformerForecast)
     assert forecast.steps[1][1].device is None  # cuda, resolved when it runs
-    assert forecast.steps[0][1].feature_range == (-1, 1)
+    assert tuple(forecast.steps[0][1].feature_range) == (-1, 1)
 
 
 @pytest.mark.parametrize("path", ["subprocess.Popen", "gordo_tpu.models.models.LSTMAutoEncoder",
@@ -125,7 +125,7 @@ def test_callbacks_given_as_definitions_train():
 
 
 OPTIMIZERS = [("Adam", {}), ("Adam", {"learning_rate": 0.01, "beta_1": 0.8}),
-              ("SGD", {}), ("SGD", {"momentum": 0.9, "nesterov": True}),
+              ("SGD", {}), ("SGD", {"momentum": 0.9, "nesterov": True}), ("SGD", {"nesterov": True}),
               ("RMSprop", {}), ("RMSprop", {"rho": 0.8, "momentum": 0.5}),
               ("Adagrad", {}), ("Nadam", {}), ("Adamax", {"lr": 0.01}), ("AdamW", {})]
 
@@ -230,3 +230,32 @@ def test_disk_registry(tmp_path):
     assert disk_registry.get_value(tmp_path, "a/b") == "/else/where"
     assert disk_registry.delete_value(tmp_path, "a/b")
     assert not disk_registry.delete_value(tmp_path, "a/b")
+
+
+# a long estimator repr: sklearn wraps it at 80 columns under the name's
+# parenthesis, and elides the middle past 700 non-blank characters
+LONG = {**SMALL, "activation": "gelu", "compute_dtype": "bfloat16", "pool": "mean",
+        "optimizer": "SGD", "optimizer_kwargs": {"learning_rate": 0.01, "momentum": 0.5},
+        "dropout": 0.0, "max_wavelength": 10000.0}
+LONGEST = {**LONG, "optimizer_kwargs": {f"k{i}": float(i) for i in range(60)}}
+
+
+@pytest.mark.parametrize("name", sorted(DEFINITIONS) + ["long", "longest", "scaler-range"])
+def test_estimator_strings_match_sklearn_reprs(name):
+    """The strings the detector writes as ``model_meta``'s ``scaler`` and
+    ``base_estimator`` (and any estimator's repr) equal sklearn's
+    changed-only, wrapped repr of the JAX package's objects."""
+    definition = {
+        "long": {"sklearn.pipeline.Pipeline": {"steps": [
+            "sklearn.preprocessing.MinMaxScaler",
+            {"gordo_tpu.models.models.TransformerAutoEncoder": LONG}]}},
+        "longest": {"gordo_tpu.models.models.TransformerAutoEncoder": LONGEST},
+        "scaler-range": {"sklearn.preprocessing.MinMaxScaler": {
+            "feature_range": (-1, 1), "clip": True}},
+    }.get(name) or DEFINITIONS[name]
+    ours = serializer.from_definition(definition, device="cpu")
+    theirs = jax_serializer.from_definition(definition)
+    assert repr(ours) == repr(theirs)
+    for attribute in ("scaler", "base_estimator"):
+        if hasattr(theirs, attribute):
+            assert str(getattr(ours, attribute)) == str(getattr(theirs, attribute))

@@ -111,11 +111,22 @@ def test_wrapper_refuses_other_devices():
         fa.flash_attention_forward(q, q, q)
 
 
-def test_dispatcher_routes_and_refuses_ring():
-    q, k, v = (torch.from_numpy(x) for x in _qkv((1, 2, 24, 16), seed=3))
+def test_dispatcher_routes_and_refuses_ring(monkeypatch):
+    """Ring attention on one device is plain attention, as the JAX
+    package's ``ring_attention`` runs ``dot_product_attention_xla`` on one
+    device; over more devices it is refused until it is ported."""
+    from gordo_tpu_torch.ops import attention
+
+    qkv = _qkv((1, 2, 24, 16), seed=3)
+    q, k, v = (torch.from_numpy(x) for x in qkv)
     plain = dot_product_attention(q, k, v, True, impl="xla")
     flash = dot_product_attention(q, k, v, True, impl="auto")
     torch.testing.assert_close(flash, plain, **TOL)
+    ring = dot_product_attention(q, k, v, True, impl="ring")
+    torch.testing.assert_close(ring, plain, rtol=0, atol=0)
+    xla = dot_product_attention_xla(*(jnp.asarray(x) for x in qkv), causal=True)
+    np.testing.assert_allclose(ring.numpy(), np.asarray(xla), **TOL)
+    monkeypatch.setattr(attention, "_world_size", lambda: 2)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         dot_product_attention(q, k, v, impl="ring")
     with pytest.raises(ValueError):

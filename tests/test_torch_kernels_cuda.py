@@ -185,3 +185,94 @@ def test_dq_kernel_is_bit_identical_on_rerun(cuda_device):
         again = fa.launch_dq(q, k, v, o, lse, do, True)
         torch.cuda.synchronize()
         assert torch.equal(first, again)
+
+
+# --- bf16 ---
+
+BF16_ULP = 2.0 ** -7  # one bf16 ulp, relative to the value
+TOL_BF16_SHARE = 0.01  # share of outputs that may differ from the twin at all
+TOL_BF16_LSE_REL = 1e-5  # relative, absolute below 1
+
+
+def _assert_bf16_close(got, ref, name, exact=None):
+    """Every element within one bf16 ulp of the twin's (absolute 1e-6 near
+    0), and at most 1% of them different at all: the kernels compute in
+    float32 as the twins do and round only the output. Gradient elements
+    that are exactly 0 in float64 (``exact``: dQ of a query that sees one
+    key, dQ and dK at T = 1) are float32 rounding noise in both: they are
+    held to |x| <= 1e-6 and left out of the share."""
+    a, b = got.float(), ref.float()
+    ok = (a - b).abs() <= BF16_ULP * torch.maximum(a.abs(), b.abs()) + 1e-6
+    differs = a != b
+    if exact is not None:
+        zero = exact == 0
+        ok = torch.where(zero, a.abs() <= 1e-6, ok)
+        differs = differs & ~zero
+    assert bool(ok.all()), name
+    assert differs.float().mean().item() <= TOL_BF16_SHARE, name
+
+
+def _exact_backward(q, k, v, o, lse, do, causal):
+    return fa.flash_attention_backward_plain(*(x.double() for x in (q, k, v, o, lse, do)),
+                                             causal)
+
+
+def _bf16_inputs(shape, seed, n, device):
+    g = torch.Generator(device=device).manual_seed(seed)
+    return [torch.randn(shape, device=device, generator=g).bfloat16() for _ in range(n)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape, causal", [((2, 4, 512, 64), True), ((2, 4, 512, 64), False)]
+                         + BACKWARD_SHAPES)
+def test_bf16_kernels_match_plain_on_the_card(cuda_device, shape, causal):
+    q, k, v, do = _bf16_inputs(shape, 8, 4, cuda_device)
+    before = (fa.BF16_LAUNCHES, fa.BF16_DQ_LAUNCHES, fa.BF16_DKV_LAUNCHES)
+    out, lse = fa.flash_attention_forward(q, k, v, causal)
+    grads = fa.flash_attention_backward(q, k, v, out, lse, do, causal)
+    again = fa.flash_attention_backward(q, k, v, out, lse, do, causal)
+    torch.cuda.synchronize()
+    assert (fa.BF16_LAUNCHES, fa.BF16_DQ_LAUNCHES, fa.BF16_DKV_LAUNCHES) == (
+        before[0] + 1, before[1] + 2, before[2] + 2)
+    assert out.dtype == torch.bfloat16 and lse.dtype == torch.float32
+    ref_out, ref_lse = fa.flash_attention_forward_plain(q, k, v, causal)
+    _assert_bf16_close(out, ref_out, "out")
+    assert ((lse - ref_lse).abs() <= TOL_BF16_LSE_REL * ref_lse.abs().clamp_min(1.0)).all()
+    refs = fa.flash_attention_backward_plain(q, k, v, out, lse, do, causal)
+    exact = _exact_backward(q, k, v, out, lse, do, causal)
+    for name, grad, rerun, ref, ref64 in zip(("dq", "dk", "dv"), grads, again, refs, exact):
+        assert grad.dtype == torch.bfloat16
+        _assert_bf16_close(grad, ref, name, ref64)
+        assert torch.equal(grad, rerun), name  # no atomics: bit-identical reruns
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("t", [1, 63, 65, 200])
+@pytest.mark.parametrize("dh", [16, 32, 64, 128])
+def test_bf16_kernels_at_ragged_lengths(cuda_device, dh, t, causal):
+    q, k, v, do = _bf16_inputs((6, t, dh), 9, 4, cuda_device)
+    out, lse = fa.flash_attention_forward(q, k, v, causal)
+    grads = fa.flash_attention_backward(q, k, v, out, lse, do, causal)
+    torch.cuda.synchronize()
+    _assert_bf16_close(out, fa.flash_attention_forward_plain(q, k, v, causal)[0], "out")
+    refs = fa.flash_attention_backward_plain(q, k, v, out, lse, do, causal)
+    exact = _exact_backward(q, k, v, out, lse, do, causal)
+    for name, grad, ref, ref64 in zip(("dq", "dk", "dv"), grads, refs, exact):
+        _assert_bf16_close(grad, ref, name, ref64)
+
+
+@pytest.mark.cuda
+def test_bf16_autograd_goes_through_the_bf16_kernels(cuda_device):
+    from gordo_tpu_torch.ops.attention import dot_product_attention
+
+    q, k, v = (x.requires_grad_() for x in _bf16_inputs((2, 4, 144, 16), 10, 3, cuda_device))
+    before = (fa.LAUNCHES, fa.DQ_LAUNCHES, fa.DKV_LAUNCHES,
+              fa.BF16_LAUNCHES, fa.BF16_DQ_LAUNCHES, fa.BF16_DKV_LAUNCHES)
+    out = dot_product_attention(q, k, v, True, impl="auto")
+    grads = torch.autograd.grad(out.float().square().sum(), (q, k, v))
+    torch.cuda.synchronize()
+    after = (fa.LAUNCHES, fa.DQ_LAUNCHES, fa.DKV_LAUNCHES,
+             fa.BF16_LAUNCHES, fa.BF16_DQ_LAUNCHES, fa.BF16_DKV_LAUNCHES)
+    assert [b - a for a, b in zip(before, after)] == [0, 0, 0, 1, 1, 1]
+    assert all(g.dtype == torch.bfloat16 and torch.isfinite(g).all() for g in grads)

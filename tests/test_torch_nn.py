@@ -153,6 +153,7 @@ def test_unported_layers_and_dtypes_raise():
         nn.init_model_params(lstm)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         nn.TransformerModel(lstm, [{}], torch.device("cpu"))
-    bf16 = dataclasses.replace(transformer_model(**SMALL), compute_dtype="bfloat16")
-    with pytest.raises(NotImplementedError, match="bf16"):
-        nn.TransformerModel(bf16, nn.init_model_params(bf16), torch.device("cpu"))
+    # bfloat16 is ported (tests/test_torch_bf16.py); float16 is not
+    fp16 = dataclasses.replace(transformer_model(**SMALL), compute_dtype="float16")
+    with pytest.raises(NotImplementedError, match="float16 item of ROADMAP"):
+        nn.TransformerModel(fp16, nn.init_model_params(fp16), torch.device("cpu"))

@@ -11,6 +11,7 @@ import json
 import math
 import os
 import pickle
+import shutil
 import subprocess
 import sys
 import threading
@@ -186,6 +187,108 @@ def test_port_server_errors_and_routes(port_url):
     with urllib.request.urlopen(f"{port_url}/gordo/v0/proj/{NAME}/metadata") as resp:
         meta = json.loads(resp.read())
     assert meta["metadata"]["name"] == NAME and meta["revision"] == "111"
+
+
+def _get(url: str, headers=None) -> tuple:
+    req = urllib.request.Request(url, headers=headers or {})
+    try:
+        with urllib.request.urlopen(req, timeout=60) as resp:
+            return resp.status, json.loads(resp.read()), resp.headers.get("revision")
+    except urllib.error.HTTPError as err:
+        return err.code, json.loads(err.read()), err.headers.get("revision")
+
+
+def _sibling_revision(collections, revision: str, model_meta=None):
+    """Copy both collections to a sibling revision directory. With
+    ``model_meta``, both get the JAX artifact's metadata.json with it merged
+    into the build metadata, so that both servers read the same file."""
+    siblings = [os.path.join(os.path.dirname(c), revision) for c in collections]
+    for current, sibling in zip(collections, siblings):
+        shutil.rmtree(sibling, ignore_errors=True)
+        shutil.copytree(current, sibling)
+    if model_meta is not None:
+        with open(os.path.join(collections[0], NAME, "metadata.json")) as f:
+            metadata = json.load(f)
+        metadata["metadata"]["build_metadata"]["model"]["model_meta"].update(model_meta)
+        for sibling in siblings:
+            with open(os.path.join(sibling, NAME, "metadata.json"), "w") as f:
+                json.dump(metadata, f)  # NaN as the port's serializer writes it
+    return siblings
+
+
+def _jax_get(collection: str, path: str, headers=None) -> tuple:
+    resp = build_app({"MODEL_COLLECTION_DIR": collection}).test_client().get(
+        path, headers=headers or {})
+    return resp.status_code, resp.get_json(), resp.headers.get("revision")
+
+
+def test_metadata_with_nan_thresholds_is_answered_like_jax(collections, port_url,
+                                                          monkeypatch):
+    """NaN in the metadata (smooth thresholds of a fold shorter than the
+    window) is answered 200 with null, as the JAX server's ``json_body``
+    writes it (simplejson's ``ignore_nan``). The port's serializer writes
+    NaN into metadata.json; the JAX package's simplejson neither writes
+    nor reads NaN, so its server reads the file here as Python's json
+    does, which hands the NaN to its encoder."""
+    from gordo_tpu.server import utils as jax_server_utils
+
+    def load_metadata(directory):
+        with open(os.path.join(directory, "metadata.json")) as f:
+            return json.load(f)
+
+    monkeypatch.setattr(jax_server_utils.serializer, "load_metadata", load_metadata)
+    nan = float("nan")
+    _sibling_revision(collections, "333", {"smooth-aggregate-threshold": nan,
+                                           "smooth-feature-thresholds": [nan, 1.0, nan, 2.0]})
+    path = f"/gordo/v0/proj/{NAME}/metadata?revision=333"
+    status, theirs, _ = _jax_get(collections[0], path)
+    mine_status, ours, revision = _get(port_url + path)
+    assert status == mine_status == 200 and revision == "333"
+    meta = ours["metadata"]["metadata"]["build_metadata"]["model"]["model_meta"]
+    assert meta["smooth-aggregate-threshold"] is None
+    assert meta["smooth-feature-thresholds"] == [None, 1.0, None, 2.0]
+    assert ours["metadata"] == theirs["metadata"]
+    assert ours["revision"] == theirs["revision"] == "333"
+
+
+@pytest.mark.parametrize("how", ["query", "header"])
+def test_revisions_are_served_or_gone_like_jax(collections, port_url, how):
+    # revision 222 holds one metadata file in both trees, marked as its own
+    _sibling_revision(collections, "222", {"revision-marker": "222"})
+    for revision, expected in (("222", 200), ("111", 200), ("nope", 410), ("..", 410)):
+        path = f"/gordo/v0/proj/{NAME}/metadata"
+        if how == "query":
+            path, headers = f"{path}?revision={revision}", None
+        else:
+            headers = {"revision": revision}
+        theirs = _jax_get(collections[0], path, headers)
+        ours = _get(port_url + path, headers)
+        assert ours[0] == theirs[0] == expected, (revision, ours, theirs)
+        assert ours[2] == theirs[2] == revision  # the revision header
+        if expected == 410:
+            assert ours[1] == theirs[1] == {"error": f"Revision '{revision}' not found."}
+        else:
+            assert ours[1]["revision"] == theirs[1]["revision"] == revision
+            meta = ours[1]["metadata"]["metadata"]["build_metadata"]["model"]["model_meta"]
+            assert ("revision-marker" in meta) == (revision == "222")
+            if revision == "222":
+                assert ours[1]["metadata"] == theirs[1]["metadata"]
+    # a prediction from the pinned revision
+    path = f"/gordo/v0/proj/{NAME}/anomaly/prediction?revision=222"
+    status, body = _post(port_url + path, _payload())
+    assert status == 200 and body["revision"] == "222"
+
+
+def test_unhandled_error_is_answered_like_jax(collections, port_url):
+    """Fewer rows than the lookback window: the predict raises on both
+    sides, and both answer the generic 500 without a revision key."""
+    path = f"/gordo/v0/proj/{NAME}/anomaly/prediction"
+    payload = _payload(10)
+    jax_resp = build_app({"MODEL_COLLECTION_DIR": collections[0]}).test_client().post(
+        path, json=payload)
+    status, body = _post(port_url + path, payload)
+    assert status == jax_resp.status_code == 500
+    assert body == jax_resp.get_json() == {"error": "Internal server error"}
 
 
 def test_artifact_round_trip_keeps_predictions(collections, tmp_path):
