@@ -17,9 +17,13 @@ Drive the PyTorch/CUDA port (gordo_tpu_torch) on one NVIDIA GPU.
    the training shape each is read against a float64 plain backward beside
    plain float32's own error: dQ's may be at most F64_ERR_FACTOR times
    plain float32's. The build's registers and spills (``-Xptxas -v``),
-   each kernel's shared memory and blocks per SM, and the HMMA
-   instructions in its SASS (``cuobjdump``, where the toolkit has it; each
-   kernel must have some) are printed.
+   each kernel's shared memory and blocks per SM, and the tensor-core
+   instructions in its SASS (``cuobjdump``, where the toolkit has it) are
+   printed: the bf16 forward and dK/dV kernels, built on ``wgmma``, must
+   hold HGMMA, the four ``mma.sync`` kernels HMMA. Each timed entry gets
+   its achieved TFLOP/s and the share of its bound it reaches; the two
+   ``wgmma`` kernels' host time of encoding their TMA tensor maps is
+   printed beside their registers.
 4. Serving path: a ``transformer-ae-512`` artifact (TransformerAutoEncoder,
    lookback 512, d_model 256, 4 heads, ff 512, 2 blocks, 8 tags; weights
    from a seed) is served by the port's HTTP server on the card, and three
@@ -115,7 +119,7 @@ TOL_BF16_LSE_REL = 1e-5
 TOL_BF16_MODEL_REL = 2e-2
 # FLOP per visible (query, key) pair, per dh: float32 (3xTF32 counted once)
 # and bf16, where P and dS go through three bf16 products
-# (gordo_tpu_torch/ops/csrc/mma_bf16.cuh)
+# (gordo_tpu_torch/ops/csrc/mma_bf16.cuh, wgmma_bf16.cuh)
 FLOP_PER_PAIR = {"float32": {"forward": 4, "dq": 6, "dkv": 8},
                  "bfloat16": {"forward": 8, "dq": 10, "dkv": 16}}
 def build_config(name: str, **estimator) -> dict:
@@ -204,10 +208,19 @@ def _flash_bound_ms(bh: int, t: int, dh: int, causal: bool, n_tensors: int = 4,
     flops = flop_per_pair * dh * bh * pairs
     by_bytes, by_ops = n_bytes / HBM_BYTES_PER_S, flops / PEAK_FLOP_PER_S[dtype]
     bound = {"bound_ms": 1e3 * max(by_bytes, by_ops),
-             "bound_by": "bytes" if by_bytes > by_ops else "operations"}
+             "bound_by": "bytes" if by_bytes > by_ops else "operations",
+             "flop": flops, "bytes": n_bytes}
     if dtype == "float32":
         bound["fp32_core_bound_ms"] = 1e3 * max(by_bytes, flops / FP32_FLOP_PER_S)
     return bound
+
+
+def _rates(timed: dict) -> dict:
+    """The achieved rate of a timed entry (``ms`` beside ``_flash_bound_ms``'s
+    ``flop`` and ``bound_ms``): TFLOP/s, and the share of the bound it
+    reaches."""
+    return {"achieved_tflop_s": timed["flop"] / (timed["ms"] * 1e9),
+            "bound_share": timed["bound_ms"] / timed["ms"]}
 
 
 def _occupancy() -> dict:
@@ -247,9 +260,11 @@ def _occupancy() -> dict:
     return report
 
 
-def _sass_hmma(libs: dict) -> dict:
-    """HMMA instructions per kernel in the built libraries' SASS, where the
-    toolkit has ``cuobjdump``; empty without it."""
+def _sass_mma(libs: dict) -> dict:
+    """Tensor-core instructions per kernel in the built libraries' SASS:
+    ``{function: {"HMMA": n, "HGMMA": n}}`` (``mma.sync`` compiles to HMMA,
+    ``wgmma`` to HGMMA), where the toolkit has ``cuobjdump``; empty without
+    it."""
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not Path(cuobjdump).exists():
         print("  cuobjdump not found: SASS not inspected", flush=True)
@@ -262,12 +277,79 @@ def _sass_hmma(libs: dict) -> dict:
         for line in sass.splitlines():
             if "Function :" in line:
                 function = line.split("Function :")[1].strip()
-                counts.setdefault(function, 0)
-            elif "HMMA" in line and function:
-                counts[function] += 1
+                counts.setdefault(function, {"HMMA": 0, "HGMMA": 0})
+            elif function:
+                for op in ("HGMMA", "HMMA"):
+                    if op in line:
+                        counts[function][op] += 1
     for function, n in sorted(counts.items()):
-        print(f"  SASS {function}: {n} HMMA", flush=True)
+        print(f"  SASS {function}: {n['HMMA']} HMMA, {n['HGMMA']} HGMMA", flush=True)
     return counts
+
+
+# the wgmma kernels: their C symbol prefix, the source stem, and the
+# __global__ name in the build log
+WGMMA_KERNELS = {
+    "flash_attention_forward_bf16": ("gordo_flash_attention_forward_bf16", "flash_attention_bf16",
+                                     "flash_forward_bf16"),
+    "flash_attention_backward_dkv_bf16": ("gordo_flash_attention_backward_dkv_bf16",
+                                          "flash_attention_bwd_bf16", "flash_bwd_dkv_bf16"),
+}
+
+
+def _ptxas(stem: str, kernel: str) -> dict:
+    """``{dh: (registers, spill store bytes)}`` of ``kernel``'s instantiations
+    from the ``-Xptxas -v`` output of this build of ``stem`` (empty when
+    the library was loaded as built)."""
+    from gordo_tpu_torch.ops import _build
+
+    report, dh = {}, None
+    for line in _build.BUILD_LOGS.get(stem, "").splitlines():
+        if "Compiling entry function" in line:
+            dh = None
+            if kernel in line:
+                dh = int(line.split(kernel + "ILi", 1)[1].split("E", 1)[0])
+                report[dh] = [None, 0]
+        elif dh is not None and "spill stores" in line:
+            report[dh][1] = int(line.split("bytes spill stores")[0].split(",")[-1])
+        elif dh is not None and "Used" in line and "registers" in line:
+            report[dh][0] = int(line.split("Used")[1].split("registers")[0])
+    return {dh: tuple(v) for dh, v in report.items()}
+
+
+def wgmma_report(occupancy: dict) -> dict:
+    """Per wgmma kernel and head dim: registers a thread as built (before
+    setmaxnreg moves them to the consumers), spilled bytes, dynamic shared
+    memory, blocks per SM, and the host microseconds of encoding the
+    kernel's TMA tensor maps at the training shape (mean of 1,000)."""
+    import ctypes
+
+    import torch
+
+    from gordo_tpu_torch.ops import _build
+
+    base = torch.empty(TRAIN_SHAPE[0] * TRAIN_SHAPE[1] * 128, dtype=torch.bfloat16,
+                       device="cuda")
+    report = {}
+    for name, (symbol, stem, kernel) in WGMMA_KERNELS.items():
+        fn = getattr(_build.load_library(stem), symbol + "_encode_us")
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        built = _ptxas(stem, kernel)
+        for dh in (16, 32, 64, 128):
+            us = ctypes.c_float()
+            rc = fn(base.data_ptr(), TRAIN_SHAPE[0], TRAIN_SHAPE[1], dh, 1000, ctypes.byref(us))
+            if rc != 0:
+                raise RuntimeError(f"{symbol}_encode_us({dh}) failed: CUDA error {rc}")
+            registers, spilled = built.get(dh, (None, None))
+            entry = {"registers": registers, "spill_store_bytes": spilled,
+                     **occupancy[name][dh], "tensor_map_encode_us": us.value}
+            report.setdefault(name, {})[dh] = entry
+            print(f"  {name} dh {dh}: {registers} registers built ({spilled} B spilled), "
+                  f"{entry['smem_bytes']} B shared memory, {entry['blocks_per_sm']} blocks per "
+                  f"SM, tensor maps encoded in {us.value:.2f} us a launch", flush=True)
+    return report
 
 
 def kernel_phase(card: str) -> dict:
@@ -313,6 +395,7 @@ def kernel_phase(card: str) -> dict:
               f"{bound['fp32_core_bound_ms']:.4f} ms on the CUDA cores", flush=True)
         timed[shape] = {"ms": ms, "plain_ms": plain_ms, **bound, **library,
                         "shape": list(shape), "causal": True}
+        timed[shape].update(_rates(timed[shape]))
         del q, k, v
     return {
         "name": "flash_attention_forward", "route": "cuda",
@@ -408,7 +491,7 @@ def backward_kernel_phase(card: str) -> list:
               "dtype": "float32", "launches": None, "plain_ms": plain_ms, **library,
               "plain_and_library_compute": "dq, dk and dv together",
               "shape": list(shape), "causal": True}
-    return [
+    entries = [
         {"name": "flash_attention_backward_dq",
          "replaces": "gordo_tpu/ops/pallas_kernels/flash_attention.py:89",
          "max_abs_err": worst["dq"], "max_rel_err": worst_rel["dq"], "ms": dq_ms,
@@ -422,6 +505,9 @@ def backward_kernel_phase(card: str) -> list:
          "plain_f32_f64_max_rel_err": max(f64["dk"][1], f64["dv"][1]),
          **dkv_bound, **common},
     ]
+    for entry in entries:
+        entry.update(_rates(entry))
+    return entries
 
 
 def _bf16_gate(got, ref, exact=None) -> tuple:
@@ -521,6 +607,7 @@ def bf16_kernel_phase(card: str) -> list:
               f"{bound['bound_ms']:.4f} ms ({bound['bound_by']})", flush=True)
         entries[shape] = {"ms": ms, "plain_ms": plain_ms, **bound, **library,
                           "shape": list(shape), "causal": True}
+        entries[shape].update(_rates(entries[shape]))
         del q, k, v
     forward = {
         "name": "flash_attention_forward_bf16", "route": "cuda",
@@ -554,8 +641,7 @@ def bf16_kernel_phase(card: str) -> list:
               "dtype": "bfloat16", "launches": None, "plain_ms": plain_ms, **library,
               "plain_and_library_compute": "dq, dk and dv together",
               "shape": list(shape), "causal": True}
-    return [
-        forward,
+    backward = [
         {"name": "flash_attention_backward_dq_bf16",
          "replaces": "gordo_tpu/ops/pallas_kernels/flash_attention.py:89",
          "max_abs_err": worst["dq"][1], "share_differing": worst["dq"][0], "ms": dq_ms,
@@ -566,6 +652,9 @@ def bf16_kernel_phase(card: str) -> list:
          "share_differing": max(worst["dk"][0], worst["dv"][0]), "ms": dkv_ms,
          **bounds["dkv"], **common},
     ]
+    for entry in backward:
+        entry.update(_rates(entry))
+    return [forward, *backward]
 
 
 def _series(n_rows: int, offset: int, rng) -> np.ndarray:
@@ -871,9 +960,7 @@ def build_and_check(card: str, config: dict, spec, output: Path, register: Path)
     from gordo_tpu_torch.machine import Machine
     from gordo_tpu_torch.models import models as port_models
     from gordo_tpu_torch.models.anomaly.diff import TimeSeriesSplit
-    from gordo_tpu_torch.models.models import TransformerAutoEncoder
     from gordo_tpu_torch.models.spec import TransformerBlock
-    from gordo_tpu_torch.ops.nn import init_model_params
     from gordo_tpu_torch.ops.predict import n_train_samples
 
     dtype = spec.compute_dtype
@@ -937,16 +1024,7 @@ def build_and_check(card: str, config: dict, spec, output: Path, register: Path)
     if not all(math.isfinite(v) for s in scores.values() for v in s.values()):
         raise AssertionError("a CV score is not finite")
 
-    # held-out rows past the training span: trained vs the seeded initial weights
-    held_out = _provider_continuation(n_rows, 2048, np.random.RandomState(SEED + 3))
-    input_scaler = model.base_estimator.steps[0][1]
-    seeded = TransformerAutoEncoder(**CONFIG).load_params(
-        spec, init_model_params(spec, torch.Generator().manual_seed(SEED)), "cuda")
-    truth = model.scaler.transform(held_out[spec.lookback_window - 1:])
-    mse = {name: float(np.mean(np.square(model.scaler.transform(pred) - truth)))
-           for name, pred in (
-               ("trained", model.base_estimator.predict(held_out)),
-               ("seeded", seeded.predict(input_scaler.transform(held_out))))}
+    mse = held_out_mse(model, spec, n_rows)
     print(f"held-out scaled MSE: trained {mse['trained']:.6f}, seeded initial weights "
           f"{mse['seeded']:.6f}", flush=True)
     if not mse["trained"] < mse["seeded"]:
@@ -957,6 +1035,26 @@ def build_and_check(card: str, config: dict, spec, output: Path, register: Path)
     if not all(math.isfinite(x) for x in thresholds):
         raise AssertionError("a threshold is not finite")
     return model, launches
+
+
+def held_out_mse(model, spec, n_rows: int) -> dict:
+    """The scaled MSE of a built detector (``trained``) and of the same
+    model with the seeded initial weights (``seeded``) on 2,048 rows of the
+    provider's signal past the ``n_rows`` of the training span."""
+    import torch
+
+    from gordo_tpu_torch.models.models import TransformerAutoEncoder
+    from gordo_tpu_torch.ops.nn import init_model_params
+
+    held_out = _provider_continuation(n_rows, 2048, np.random.RandomState(SEED + 3))
+    input_scaler = model.base_estimator.steps[0][1]
+    seeded = TransformerAutoEncoder(**CONFIG).load_params(
+        spec, init_model_params(spec, torch.Generator().manual_seed(SEED)), "cuda")
+    truth = model.scaler.transform(held_out[spec.lookback_window - 1:])
+    return {name: float(np.mean(np.square(model.scaler.transform(pred) - truth)))
+            for name, pred in (
+                ("trained", model.base_estimator.predict(held_out)),
+                ("seeded", seeded.predict(input_scaler.transform(held_out))))}
 
 
 def build_path(card: str, root: Path) -> dict:
@@ -1057,19 +1155,28 @@ def main() -> int:
             if "entry function" in line or "registers" in line or "spill" in line:
                 print(f"  {stem}: {line.strip()}")
     occupancy = _occupancy()
-    hmma = _sass_hmma(libs)
+    mma = _sass_mma(libs)
+    wgmma = wgmma_report(occupancy)
 
     forward = kernel_phase(card)
     dq, dkv = backward_kernel_phase(card)
     bf16_forward, bf16_dq, bf16_dkv = bf16_kernel_phase(card)
     entries = [forward, dq, dkv, bf16_forward, bf16_dq, bf16_dkv]
-    for entry, kernel in zip(entries, ("flash_forward_f32", "flash_bwd_dq_f32",
-                                       "flash_bwd_dkv_f32", "flash_forward_bf16",
-                                       "flash_bwd_dq_bf16", "flash_bwd_dkv_bf16")):
+    # each kernel's __global__ name and the tensor-core instruction its SASS
+    # must hold: HGMMA (wgmma) for the two redesigned bf16 kernels, HMMA
+    # (mma.sync) for the others
+    for entry, kernel, op in zip(entries, (
+            "flash_forward_f32", "flash_bwd_dq_f32", "flash_bwd_dkv_f32",
+            "flash_forward_bf16", "flash_bwd_dq_bf16", "flash_bwd_dkv_bf16"),
+            ("HMMA", "HMMA", "HMMA", "HGMMA", "HMMA", "HGMMA")):
         entry["occupancy_by_head_dim"] = occupancy[entry["name"]]
-        entry["sass_hmma"] = sum(n for f, n in hmma.items() if kernel in f) if hmma else None
-    if hmma and not all(entry["sass_hmma"] for entry in entries):
-        raise AssertionError("a tensor-core kernel's SASS holds no HMMA instruction")
+        if entry["name"] in wgmma:
+            entry["wgmma_by_head_dim"] = wgmma[entry["name"]]
+        for key in ("HMMA", "HGMMA"):
+            entry[f"sass_{key.lower()}"] = (sum(n[key] for f, n in mma.items() if kernel in f)
+                                            if mma else None)
+        if mma and not entry[f"sass_{op.lower()}"]:
+            raise AssertionError(f"{kernel}'s SASS holds no {op} instruction")
     torch.cuda.empty_cache()
 
     collections = [REPO / "build" / "chip_smoke" / rev for rev in ("1", "2", "3")]

@@ -10,55 +10,75 @@
 //   tile, loop over key tiles up to the diagonal, recompute
 //   P = exp(S - lse), D = rowsum(dO * O), dS = P * (dP - D) with
 //   dP = dO V^T, and accumulate dQ += dS K * scale;
-// - flash_bwd_dkv_bf16 replaces `_flash_dkv_kernel`: for each 64-row key
+// - flash_bwd_dkv_bf16 replaces `_flash_dkv_kernel`: for each 128-row key
 //   tile, loop over query tiles from the diagonal on, and accumulate
 //   dV += P^T dO and dK += dS^T Q * scale.
 // As the TPU kernels do, they compute in float32 and write dq, dk and dv in
-// bf16; D is taken from the stored bf16 O. Products of two bf16 operands
-// (S, dP and their transposes) are one bf16 mma each; P and dS, float32,
-// are split into three bf16 operands (mma_bf16.cuh). Each output element
-// is written by exactly one block, with no atomics, so two runs give
-// bit-identical results.
+// bf16; D is taken from the stored bf16 O, recomputed per query tile.
+// Products of two bf16 operands (S, dP and their transposes) are exact
+// products with float32 sums; P and dS, float32, are split into three bf16
+// operands that hold all their bits. Each output element is written by
+// exactly one thread, with no atomics, so two runs give bit-identical
+// results.
 //
 // What bounds them on this card: at the training shape (BH 128, T 512,
 // dh 64, causal) dQ moves q/k/v/o/dO/dQ at 2 bytes and lse at 4 (50.6 MB,
-// 15.1 us at 3.35 TB/s) and does 10*dh FLOP per visible (query, key) pair
+// 15.1 us at 3.35 TB/s) and does 10 dh FLOP per visible (query, key) pair
 // (S and dP once, dS K for each of dS's three parts: 1.1e10 FLOP, 10.9 us
 // at 989 TFLOP/s of bf16); dK/dV moves 7 tensors (59.0 MB, 17.6 us) and
-// does 16*dh FLOP per pair (S^T and dP^T once, P^T dO and dS^T Q three
-// times: 1.7e10 FLOP, 17.4 us). Both are bound by bytes, and at these
-// sizes a launch costs about as much. The design is the float32 kernels'
-// (flash_attention_bwd.cu) with bf16 fragments, kept simple:
-// - one block of 4 warps per (bh, 64-row tile), each warp one m16 strip of
-//   16 rows; the other side's rows come in tiles double-buffered with
-//   cp.async (tile j + 1 loads while tile j computes), rows at or past T
-//   zero-filled; every operand fragment is loaded from shared memory with
-//   ldmatrix, transposed where the product needs it, so P, dS and their
-//   transposes never leave registers;
-// - under causal masking the tile loop ends (dQ) or starts (dK/dV) at the
-//   diagonal, a warp whose rows all lie on the masked side of a tile skips
-//   it, only tiles that cross the diagonal or T are masked, and the blocks
-//   with the most work are scheduled first. Any T >= 1 works; dh is 16,
-//   32, 64 or 128 (a template parameter).
-// dQ: Q and dO of the block's 64 rows are loaded once; each thread reads
-// the lse and computes D of its two rows from global memory while they
-// land; K and V tiles of 32 key rows are double-buffered.
-// dK/dV: K and V are loaded once; Q, dO and lse tiles of 32 query rows (16
-// at dh 128, where more would not fit the registers) are double-buffered,
-// and O's tile goes through one buffer into D, recomputed per query tile
-// as the TPU kernel does.
+// does 16 dh FLOP per pair (S^T and dP^T once, P^T dO and dS^T Q three
+// times: 1.7e10 FLOP, 17.4 us). Both are bound by bytes and products
+// alike, and at these sizes a launch costs about as much.
+//
+// dQ (mma_bf16.cuh; the design of the float32 kernels in
+// flash_attention_bwd.cu with bf16 fragments): one block of 4 warps per
+// (bh, 64-row query tile), each warp an m16 strip of mma.sync; Q and dO of
+// the block's rows are loaded once, K and V tiles of 32 key rows are
+// double-buffered with cp.async, rows at or past T zero-filled; each
+// thread reads the lse and computes D of its two rows from global memory
+// while they land; every operand fragment is loaded with ldmatrix
+// (transposed where the product needs it), so P and dS never leave
+// registers; S and dP sum each 16-deep step in a fresh accumulator.
+//
+// dK/dV (wgmma_bf16.cuh), the same design as the bf16 forward
+// (flash_attention_bf16.cu): wgmma, the only path to the tensor cores' full
+// rate, and TMA, which moves tiles without the compute threads:
+// - one producer warpgroup (one thread issues TMA loads; setmaxnreg gives
+//   its registers to the consumers) and two consumer warpgroups of 64 key
+//   rows each that share every Q/dO/O tile; K and V are loaded once;
+// - Q, dO and O tiles of 64 query rows (32 at dh 128) come through a ring
+//   of two stages with full and empty mbarriers, from the diagonal on,
+//   through 3-D tensor maps (dh, T, BH) that zero-fill rows at or past T
+//   of each head;
+// - S^T = K Q^T and dP^T = V dO^T are SS products (all four operands
+//   K-major, as stored); while they run the consumers compute D from the
+//   shared O and dO tiles and read the lse;
+// - P^T and dS^T stay in registers: split in three by truncation, they are
+//   the A operands of the RS products dV += P^T dO and dK += dS^T Q, with
+//   dO and Q as MN-major B operands, so nothing is transposed in memory;
+// - S^T and dP^T each sum a tile's k16 steps in one chain; dV sums over the
+//   whole query loop in its own accumulator, dK a query tile at a time in a
+//   fresh one added in float32: the fastest choices on the card, each held
+//   to the gates, beside their alternatives in
+//   scripts/torch_bf16_variants.py;
+// - the tiles that see the most queries are scheduled first, and only the
+//   tiles that cross the diagonal or T are masked.
+// Any T >= 1 works; dh is 16, 32, 64 or 128 (a template parameter).
 
 #include <cuda_runtime.h>
 #include <limits.h>
 
+#include <chrono>
+
 #include "mma_bf16.cuh"
+#include "wgmma_bf16.cuh"
 
 namespace {
 
 using namespace gordo_bf16;
 
-constexpr int TILE = 64;      // a block's query rows (dQ) or key rows (dK/dV)
-constexpr int THREADS = 128;  // 4 warps, 16 rows each
+constexpr int TILE = 64;      // a dQ block's query rows
+constexpr int THREADS = 128;  // dQ: 4 warps, 16 rows each
 
 // --- dQ ---
 
@@ -200,172 +220,277 @@ flash_bwd_dq_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-// --- dK/dV ---
+// --- dK/dV: warp-specialised, TMA-fed, wgmma (wgmma_bf16.cuh) ---
+
+namespace dkv {
+
+using namespace gordo_wgmma;
+
+constexpr int BLOCK_N = 128;  // key rows of a block, 64 per consumer
+constexpr int CONSUMERS = 2;  // consumer warpgroups
+using R = Regs<CONSUMERS>;
+constexpr int THREADS = R::THREADS;
+constexpr float LOG2E = 1.4426950408889634f;
 
 template <int DH>
 struct Dkv {
-  // query rows per double-buffered tile: 16 at dh 128 keeps the
+  using T = Tile<DH>;
+  // query rows of a Q/dO/O tile: 32 at dh 128 keeps the consumers'
   // accumulators in registers
-  static constexpr int BQ = DH == 128 ? 16 : 32;
-  static constexpr int LD = DH + 8;          // shared-memory row stride
-  static constexpr int KV = 0;               // K, then V: [TILE][LD] each
-  static constexpr int Q = 2 * TILE * LD;    // [stage][Q, dO][BQ][LD]
-  static constexpr int O = Q + 4 * BQ * LD;  // [BQ][LD]
-  // float32 after the bf16 tiles (a multiple of 16 bytes): lse [stage][BQ],
-  // then D [BQ]
-  static constexpr int FLOATS = (O + BQ * LD) * static_cast<int>(sizeof(bf16)) / 4;
-  static constexpr int LSE = FLOATS;
-  static constexpr int D = LSE + 2 * BQ;
-  static constexpr int SMEM_BYTES = (D + BQ) * 4;
+  static constexpr int BQ = DH == 128 ? 32 : 64;
+  static constexpr int STAGES = 2;
+  static constexpr int KV_BYTES = BLOCK_N * DH * 2;  // K or V
+  static constexpr int Q_BYTES = BQ * DH * 2;        // one of Q, dO, O
+  // byte offsets from the 1024-aligned base of shared memory
+  static constexpr int K = 0;
+  static constexpr int V = K + KV_BYTES;
+  static constexpr int Q = V + KV_BYTES;              // [STAGES][Q, dO, O]
+  // float [CONSUMERS][2][D, lse * log2(e)][BQ]: each consumer's copy of
+  // the tile's D and lse, double-buffered
+  static constexpr int D = Q + STAGES * 3 * Q_BYTES;
+  static constexpr int BARS = D + CONSUMERS * 2 * 2 * BQ * 4;
+  // kv_full, full[STAGES], empty[STAGES]; 1024 bytes of alignment slack
+  static constexpr int SMEM_BYTES = BARS + 8 * (1 + 2 * STAGES) + 1024;
 };
 
-// issue the loads of query tile q0: Q and dO into `stage`, O, and lse
+// One block per (bh, 128-row key tile), the tiles that see the most
+// queries under causal masking first. The producer loads K and V once,
+// then Q, dO and O tiles of BQ rows from the diagonal on through a ring of
+// two stages; each consumer warpgroup runs, per query tile, S^T = K Q^T and
+// dP^T = V dO^T (SS), computes D = rowsum(dO O) of the tile from shared
+// memory while they run, then P^T = exp(S^T scale - lse) and
+// dS^T = P^T (dP^T - D) in registers, and dV += P^T dO, dK += dS^T Q (RS,
+// three parts each, dO and Q MN-major). dK and dV of a key are written by
+// exactly one thread, with no atomics.
 template <int DH>
-__device__ __forceinline__ void load_query_tile(bf16* smem, int stage, const bf16* q,
-                                                const bf16* dout, const bf16* o,
-                                                const float* lse, int q0, int t) {
-  using C = Dkv<DH>;
-  constexpr int BQ = C::BQ;
-  bf16* qs = smem + C::Q + stage * 2 * BQ * C::LD;
-  load_tile_async<BQ, DH, THREADS>(qs, q, q0, t);
-  load_tile_async<BQ, DH, THREADS>(qs + BQ * C::LD, dout, q0, t);
-  load_tile_async<BQ, DH, THREADS>(smem + C::O, o, q0, t);
-  if (threadIdx.x < BQ) {
-    const int row = q0 + static_cast<int>(threadIdx.x);
-    float* fs = reinterpret_cast<float*>(smem);
-    cp_async4(fs + C::LSE + stage * BQ + threadIdx.x, lse + (row < t ? row : 0), row < t);
-  }
-  cp_async_commit();
-}
-
-template <int DH>
-__global__ void __launch_bounds__(THREADS)
-flash_bwd_dkv_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                   const bf16* __restrict__ v, const bf16* __restrict__ o,
-                   const float* __restrict__ lse, const bf16* __restrict__ dout,
-                   bf16* __restrict__ dk, bf16* __restrict__ dv, int t, int n_tiles,
+__global__ void __launch_bounds__(THREADS, 1)
+flash_bwd_dkv_bf16(const __grid_constant__ CUtensorMap q_map,
+                   const __grid_constant__ CUtensorMap k_map,
+                   const __grid_constant__ CUtensorMap v_map,
+                   const __grid_constant__ CUtensorMap o_map,
+                   const __grid_constant__ CUtensorMap do_map, const float* __restrict__ lse,
+                   bf16* __restrict__ dk, bf16* __restrict__ dv, int t, int bh_count,
                    float scale, int causal) {
   using C = Dkv<DH>;
-  constexpr int LD = C::LD;
+  using L = typename C::T;
   constexpr int BQ = C::BQ;
-  constexpr int NT = BQ / 8;         // 8-query column groups
-  constexpr int OT = DH / 8;         // 8-column groups of dK and dV
-  constexpr int TPR = THREADS / BQ;  // threads per row computing D
-  extern __shared__ float4 smem4[];
-  bf16* smem = reinterpret_cast<bf16*>(smem4);
-  float* fs = reinterpret_cast<float*>(smem4);
-
-  const int lane = threadIdx.x % 32;
-  const int warp = threadIdx.x / 32;
-  const int g = lane / 4;
-  const int tq = lane % 4;
-  // under causal masking the first key tiles see the most queries: first
-  const int tile = static_cast<int>(blockIdx.x % n_tiles);
-  const size_t bh = blockIdx.x / n_tiles;
-  const int k0 = tile * TILE;
-  const int w0 = k0 + 16 * warp;  // the warp's first key row
-  const size_t base = bh * static_cast<size_t>(t) * DH;
-  const bf16* qb = q + base;
-  const bf16* gb = dout + base;
-  const bf16* ob = o + base;
-  const float* lb = lse + bh * t;
-
+  constexpr int STAGES = C::STAGES;
+  constexpr int NC = BQ / 16;  // k-chunks of P^T and dS^T
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(smem + C::BARS);
+  uint64_t* full = kv_full + 1;
+  uint64_t* empty = full + STAGES;
+  const int tile = static_cast<int>(blockIdx.x) / bh_count;
+  const int bh = static_cast<int>(blockIdx.x) - tile * bh_count;
+  const int k0 = tile * BLOCK_N;
   const int n_q_tiles = (t + BQ - 1) / BQ;
-  const int first = causal ? k0 / BQ : 0;  // the diagonal tile
-  load_tile_async<TILE, DH, THREADS>(smem + C::KV, k + base, k0, t);
-  load_tile_async<TILE, DH, THREADS>(smem + C::KV + TILE * LD, v + base, k0, t);
-  load_query_tile<DH>(smem, 0, qb, gb, ob, lb, first * BQ, t);
-  const bf16* kw = smem + C::KV + 16 * warp * LD;
-  const bf16* vw = kw + TILE * LD;
-  float* d_s = fs + C::D;
+  const int first = causal ? k0 / BQ : 0;  // the first query tile that sees a key
 
-  float dk_acc[OT][4], dv_acc[OT][4];
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 4 * CONSUMERS);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == CONSUMERS) {
+    // producer: one thread issues every load
+    setmaxnreg_dec<R::PRODUCER>();
+    if (threadIdx.x != 128 * CONSUMERS) return;
+    mbar_arrive_expect_tx(kv_full, 2 * C::KV_BYTES);
 #pragma unroll
-  for (int n = 0; n < OT; ++n) {
+    for (int p = 0; p < L::PANELS; ++p) {
+      const int off = p * BLOCK_N * L::RB;
+      tma_load_3d(smem + C::K + off, &k_map, kv_full, p * L::COLS, k0, bh);
+      tma_load_3d(smem + C::V + off, &v_map, kv_full, p * L::COLS, k0, bh);
+    }
+    Ring<STAGES> ring;
+    for (int qt = first; qt < n_q_tiles; ++qt, ring.advance()) {
+      const int s = ring.stage;
+      mbar_wait(&empty[s], ring.phase ^ 1);
+      mbar_arrive_expect_tx(&full[s], 3 * C::Q_BYTES);
+      uint8_t* stage = smem + C::Q + s * 3 * C::Q_BYTES;
 #pragma unroll
-    for (int e = 0; e < 4; ++e) dk_acc[n][e] = dv_acc[n][e] = 0.f;
+      for (int p = 0; p < L::PANELS; ++p) {
+        const int off = p * BQ * L::RB;
+        tma_load_3d(stage + off, &q_map, &full[s], p * L::COLS, qt * BQ, bh);
+        tma_load_3d(stage + C::Q_BYTES + off, &do_map, &full[s], p * L::COLS, qt * BQ, bh);
+        tma_load_3d(stage + 2 * C::Q_BYTES + off, &o_map, &full[s], p * L::COLS, qt * BQ, bh);
+      }
+    }
+    return;
   }
 
-  for (int qt = first; qt < n_q_tiles; ++qt) {
-    const int stage = (qt - first) & 1;
-    const int q0 = qt * BQ;
-    const bf16* qs = smem + C::Q + stage * 2 * BQ * LD;
-    const bf16* dos = qs + BQ * LD;
-    const float* lse_s = fs + C::LSE + stage * BQ;
-    cp_async_wait<0>();
-    // tile qt has landed; every warp is done with tile qt - 1 (D, the
-    // other stage)
-    __syncthreads();
-    {  // D = rowsum(dO * O), TPR threads per row; rows past t are zero
-      const int r = threadIdx.x / TPR;
-      const int part = threadIdx.x % TPR;
-      const uint4* orow = reinterpret_cast<const uint4*>(smem + C::O + r * LD);
-      const uint4* grow = reinterpret_cast<const uint4*>(dos + r * LD);
-      float d = 0.f;
-#pragma unroll
-      for (int c = part; c < DH / 8; c += TPR) d = dot8(orow[c], grow[c], d);
-#pragma unroll
-      for (int step = 1; step < TPR; step *= 2) d += __shfl_xor_sync(0xffffffffu, d, step);
-      if (part == 0) d_s[r] = d;
-    }
-    __syncthreads();  // D is written and the O buffer is free
-    if (qt + 1 < n_q_tiles) {
-      load_query_tile<DH>(smem, stage ^ 1, qb, gb, ob, lb, q0 + BQ, t);
-    }
-    if (causal && q0 + BQ - 1 < w0) continue;  // warp-uniform: all masked
+  // consumers: warpgroup wg owns key rows k0 + 64 wg .. k0 + 64 wg + 63
+  setmaxnreg_inc<R::CONSUMER>();
+  const int tid = threadIdx.x % 128;
+  const int warp = tid / 32;
+  const int g = (tid % 32) / 4;
+  const int tq = tid % 4;
+  const int kw0 = k0 + 64 * wg;
+  const int key0 = kw0 + 16 * warp + g;  // this thread's key rows: key0, key0 + 8
+  const float scale_log2 = scale * LOG2E;
+  const float* lse_h = lse + static_cast<size_t>(bh) * t;
+  float* d_s = reinterpret_cast<float*>(smem + C::D) + wg * 4 * BQ;
+  const uint32_t k_tile = smem_u32(smem + C::K);
+  const uint32_t v_tile = smem_u32(smem + C::V);
+  const auto ka = [&](int kk) { return L::k_major(k_tile, BLOCK_N, 64 * wg, kk); };
+  const auto va = [&](int kk) { return L::k_major(v_tile, BLOCK_N, 64 * wg, kk); };
 
-    // S^T = K Q^T (keys x queries), then P^T = exp(S^T * scale - lse), 0
-    // where masked
-    float p[NT][4];
+  float dka[DH / 2], dva[DH / 2];
 #pragma unroll
-    for (int n = 0; n < NT; ++n) p[n][0] = p[n][1] = p[n][2] = p[n][3] = 0.f;
-    product_nt<DH, LD>(p, kw, qs, lane);
-    const bool mask = q0 + BQ > t || (causal && w0 + 15 > q0);
+  for (int i = 0; i < DH / 2; ++i) dka[i] = dva[i] = 0.f;
+  mbar_wait(kv_full, 0);
+
+  Ring<STAGES> ring;
+  for (int qt = first, done = 0; qt < n_q_tiles; ++qt, ring.advance()) {
+    const int s = ring.stage;
+    const int q0 = qt * BQ;
+    mbar_wait(&full[s], ring.phase);
+    // warpgroup-uniform: keys past T, or every query before the keys
+    if (kw0 < t && !(causal && q0 + BQ - 1 < kw0)) {
+      const uint8_t* stage = smem + C::Q + s * 3 * C::Q_BYTES;
+      const uint32_t q_tile = smem_u32(stage);
+      const uint32_t do_tile = q_tile + C::Q_BYTES;
+      const auto qb = [&](int kk) { return L::k_major(q_tile, BQ, 0, kk); };
+      const auto gb = [&](int kk) { return L::k_major(do_tile, BQ, 0, kk); };
+      float sa[BQ / 2], dp[BQ / 2];  // S^T and dP^T, 64 keys x BQ queries
+      fence_regs(sa);
+      fence_regs(dp);
+      wgmma_fence();
 #pragma unroll
-    for (int n = 0; n < NT; ++n) {
+      for (int kk = 0; kk < DH / 16; ++kk) Wgmma<BQ>::ss(sa, ka(kk), qb(kk), kk > 0);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = 8 * n + 2 * tq + (e & 1);
-        float x = expf(p[n][e] * scale - lse_s[col]);
-        if (mask) {
-          const int query = q0 + col;
-          const int key = w0 + g + (e < 2 ? 0 : 8);
-          if (!(query < t && (!causal || key <= query))) x = 0.f;
+      for (int kk = 0; kk < DH / 16; ++kk) Wgmma<BQ>::ss(dp, va(kk), gb(kk), kk > 0);
+      wgmma_commit();
+      // while they run: D of the tile's queries from the shared O and dO
+      // tiles, TPR threads a row, and their lse
+      float* d_tile = d_s + (done & 1) * 2 * BQ;  // D, then lse * log2(e)
+      {
+        constexpr int TPR = 128 / BQ;
+        const int r = tid / TPR;
+        float d = 0.f;
+#pragma unroll
+        for (int ch = tid % TPR; ch < DH / 8; ch += TPR) {
+          const uint32_t at = L::offset(BQ, r, 8 * ch);
+          d = dot8(*reinterpret_cast<const uint4*>(stage + 2 * C::Q_BYTES + at),
+                   *reinterpret_cast<const uint4*>(stage + C::Q_BYTES + at), d);
         }
-        p[n][e] = x;
+#pragma unroll
+        for (int step = 1; step < TPR; step *= 2) d += __shfl_xor_sync(0xffffffffu, d, step);
+        if (tid % TPR == 0) d_tile[r] = d;
+        if (tid < BQ) d_tile[BQ + tid] = q0 + tid < t ? lse_h[q0 + tid] * LOG2E : 0.f;
       }
-    }
-    product_nn<DH, LD>(dv_acc, p, dos, lane);  // dV += P^T dO
-    // dP^T = V dO^T, then dS^T = P^T * (dP^T - D)
-    float ds[NT][4];
+      named_barrier(1 + wg, 128);  // D and lse of the tile are written
+      wgmma_wait<0>();
+      fence_regs(sa);
+      fence_regs(dp);
+
+      // P^T = exp(S^T scale - lse), 0 where masked; dS^T = P^T (dP^T - D)
+      const bool mask = q0 + BQ > t || (causal && kw0 + 63 > q0);
 #pragma unroll
-    for (int n = 0; n < NT; ++n) ds[n][0] = ds[n][1] = ds[n][2] = ds[n][3] = 0.f;
-    product_nt<DH, LD>(ds, vw, dos, lane);
-#pragma unroll
-    for (int n = 0; n < NT; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        ds[n][e] = p[n][e] * (ds[n][e] - d_s[8 * n + 2 * tq + (e & 1)]);
+      for (int i = 0; i < BQ / 2; ++i) {
+        const int col = 8 * (i / 4) + 2 * tq + (i & 1);
+        float p = exp2_approx(fmaf(sa[i], scale_log2, -d_tile[BQ + col]));
+        if (mask) {
+          const int key = key0 + ((i & 2) ? 8 : 0);
+          if (!(q0 + col < t && (!causal || key <= q0 + col))) p = 0.f;
+        }
+        sa[i] = p;
+        dp[i] = p * (dp[i] - d_tile[col]);
       }
+      const auto gmn = [&](int c) { return L::mn_major(do_tile, BQ, c); };
+      const auto qmn = [&](int c) { return L::mn_major(q_tile, BQ, c); };
+      // dV += P^T dO, in dV's own accumulator
+      uint32_t pa[NC][3][4];
+      split_to_a<NC>(sa, pa);
+      fence_regs(dva);
+      wgmma_fence();
+      rs_product<DH, NC>(dva, pa, gmn, true);
+      wgmma_commit();
+      // dK += dS^T Q (times scale below), in a fresh accumulator added in
+      // float32, once dV's product has read P^T's parts: the consumers'
+      // registers hold one split operand at a time
+      wgmma_wait<0>();
+      fence_regs(dva);
+      fence_split(pa);
+      uint32_t da[NC][3][4];
+      split_to_a<NC>(dp, da);
+      {
+        float f[DH / 2];
+        rs_fresh<DH, NC>(f, da, qmn);
+#pragma unroll
+        for (int i = 0; i < DH / 2; ++i) dka[i] += f[i];
+      }
+      fence_split(da);
+      ++done;
     }
-    product_nn<DH, LD>(dk_acc, ds, qs, lane);  // dK += dS^T Q (times scale below)
+    mbar_arrive_warp(&empty[s]);
   }
 
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
-    const int key = w0 + g + 8 * half;
+    const int key = key0 + 8 * half;
     if (key >= t) continue;
-    bf16* dkr = dk + base + static_cast<size_t>(key) * DH + 2 * tq;
-    bf16* dvr = dv + base + static_cast<size_t>(key) * DH + 2 * tq;
+    const size_t row = (static_cast<size_t>(bh) * t + key) * DH + 2 * tq;
 #pragma unroll
-    for (int m = 0; m < OT; ++m) {
-      *reinterpret_cast<__nv_bfloat162*>(dkr + 8 * m) =
-          to_bf16x2(dk_acc[m][2 * half] * scale, dk_acc[m][2 * half + 1] * scale);
-      *reinterpret_cast<__nv_bfloat162*>(dvr + 8 * m) =
-          to_bf16x2(dv_acc[m][2 * half], dv_acc[m][2 * half + 1]);
+    for (int n = 0; n < DH / 8; ++n) {
+      const int i = 4 * n + 2 * half;
+      *reinterpret_cast<__nv_bfloat162*>(dk + row + 8 * n) =
+          __floats2bfloat162_rn(dka[i] * scale, dka[i + 1] * scale);
+      *reinterpret_cast<__nv_bfloat162*>(dv + row + 8 * n) =
+          __floats2bfloat162_rn(dva[i], dva[i + 1]);
     }
   }
 }
+
+// the five tensor maps of q, k, v, o, dO
+template <int DH>
+cudaError_t encode(CUtensorMap (&maps)[5], const bf16* q, const bf16* k, const bf16* v,
+                   const bf16* o, const bf16* dout, int bh, int t) {
+  constexpr int BQ = Dkv<DH>::BQ;
+  cudaError_t err = encode_rows(&maps[0], q, bh, t, DH, BQ);
+  if (err == cudaSuccess) err = encode_rows(&maps[1], k, bh, t, DH, BLOCK_N);
+  if (err == cudaSuccess) err = encode_rows(&maps[2], v, bh, t, DH, BLOCK_N);
+  if (err == cudaSuccess) err = encode_rows(&maps[3], o, bh, t, DH, BQ);
+  if (err == cudaSuccess) err = encode_rows(&maps[4], dout, bh, t, DH, BQ);
+  return err;
+}
+
+template <int DH>
+cudaError_t launch(const bf16* q, const bf16* k, const bf16* v, const bf16* o,
+                   const float* lse, const bf16* dout, bf16* dk, bf16* dv, int bh, int t,
+                   float scale, int causal, cudaStream_t stream) {
+  const long long n_blocks = static_cast<long long>(bh) * ((t + BLOCK_N - 1) / BLOCK_N);
+  if (n_blocks > INT_MAX) return cudaErrorInvalidConfiguration;
+  constexpr int smem = Dkv<DH>::SMEM_BYTES;
+  CUtensorMap maps[5];
+  int sms;
+  cudaError_t err = encode<DH>(maps, q, k, v, o, dout, bh, t);
+  if (err == cudaSuccess) err = prepare_kernel<flash_bwd_dkv_bf16<DH>>(smem, R::LAUNCH, &sms);
+  if (err != cudaSuccess) return err;
+  flash_bwd_dkv_bf16<DH><<<static_cast<unsigned>(n_blocks), THREADS, smem, stream>>>(
+      maps[0], maps[1], maps[2], maps[3], maps[4], lse, dk, dv, t, bh, scale, causal);
+  return cudaGetLastError();
+}
+
+template <int DH>
+cudaError_t occupancy(int* smem, int* blocks_per_sm) {
+  *smem = Dkv<DH>::SMEM_BYTES;
+  int sms;
+  const cudaError_t err = prepare_kernel<flash_bwd_dkv_bf16<DH>>(*smem, R::LAUNCH, &sms);
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, flash_bwd_dkv_bf16<DH>,
+                                                       THREADS, *smem);
+}
+
+}  // namespace dkv
 
 // let `kernel` take `smem` bytes of dynamic shared memory: above 48 KB
 // only through the attribute
@@ -400,21 +525,6 @@ cudaError_t launch_dq(const bf16* q, const bf16* k, const bf16* v, const bf16* o
   return cudaGetLastError();
 }
 
-template <int DH>
-cudaError_t launch_dkv(const bf16* q, const bf16* k, const bf16* v, const bf16* o,
-                       const float* lse, const bf16* dout, bf16* dk, bf16* dv, int bh,
-                       int t, float scale, int causal, cudaStream_t stream) {
-  const int smem = Dkv<DH>::SMEM_BYTES;
-  unsigned n_blocks;
-  int n_tiles;
-  const cudaError_t err =
-      prepare(flash_bwd_dkv_bf16<DH>, bh, t, smem, &n_blocks, &n_tiles);
-  if (err != cudaSuccess) return err;
-  flash_bwd_dkv_bf16<DH><<<n_blocks, THREADS, smem, stream>>>(
-      q, k, v, o, lse, dout, dk, dv, t, n_tiles, scale, causal);
-  return cudaGetLastError();
-}
-
 // `kernel`'s dynamic shared memory (`bytes`) and its resident blocks per SM
 template <typename Kernel>
 cudaError_t occupancy(Kernel kernel, int bytes, int* smem, int* blocks_per_sm) {
@@ -428,11 +538,6 @@ cudaError_t occupancy(Kernel kernel, int bytes, int* smem, int* blocks_per_sm) {
 template <int DH>
 cudaError_t dq_occupancy(int* smem, int* blocks_per_sm) {
   return occupancy(flash_bwd_dq_bf16<DH>, Dq<DH>::SMEM_BYTES, smem, blocks_per_sm);
-}
-
-template <int DH>
-cudaError_t dkv_occupancy(int* smem, int* blocks_per_sm) {
-  return occupancy(flash_bwd_dkv_bf16<DH>, Dkv<DH>::SMEM_BYTES, smem, blocks_per_sm);
 }
 
 }  // namespace
@@ -481,10 +586,10 @@ extern "C" int gordo_flash_attention_backward_dkv_bf16(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   switch (dh) {
-    case 16: err = launch_dkv<16>(qb, kb, vb, ob, lf, gb, dkb, dvb, bh, t, scale, causal, s); break;
-    case 32: err = launch_dkv<32>(qb, kb, vb, ob, lf, gb, dkb, dvb, bh, t, scale, causal, s); break;
-    case 64: err = launch_dkv<64>(qb, kb, vb, ob, lf, gb, dkb, dvb, bh, t, scale, causal, s); break;
-    case 128: err = launch_dkv<128>(qb, kb, vb, ob, lf, gb, dkb, dvb, bh, t, scale, causal, s); break;
+    case 16: err = dkv::launch<16>(qb, kb, vb, ob, lf, gb, dkb, dvb, bh, t, scale, causal, s); break;
+    case 32: err = dkv::launch<32>(qb, kb, vb, ob, lf, gb, dkb, dvb, bh, t, scale, causal, s); break;
+    case 64: err = dkv::launch<64>(qb, kb, vb, ob, lf, gb, dkb, dvb, bh, t, scale, causal, s); break;
+    case 128: err = dkv::launch<128>(qb, kb, vb, ob, lf, gb, dkb, dvb, bh, t, scale, causal, s); break;
     default: err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);
@@ -507,10 +612,35 @@ extern "C" int gordo_flash_attention_backward_dq_bf16_occupancy(int dh, int* sme
 extern "C" int gordo_flash_attention_backward_dkv_bf16_occupancy(int dh, int* smem_bytes,
                                                                 int* blocks_per_sm) {
   switch (dh) {
-    case 16: return static_cast<int>(dkv_occupancy<16>(smem_bytes, blocks_per_sm));
-    case 32: return static_cast<int>(dkv_occupancy<32>(smem_bytes, blocks_per_sm));
-    case 64: return static_cast<int>(dkv_occupancy<64>(smem_bytes, blocks_per_sm));
-    case 128: return static_cast<int>(dkv_occupancy<128>(smem_bytes, blocks_per_sm));
+    case 16: return static_cast<int>(dkv::occupancy<16>(smem_bytes, blocks_per_sm));
+    case 32: return static_cast<int>(dkv::occupancy<32>(smem_bytes, blocks_per_sm));
+    case 64: return static_cast<int>(dkv::occupancy<64>(smem_bytes, blocks_per_sm));
+    case 128: return static_cast<int>(dkv::occupancy<128>(smem_bytes, blocks_per_sm));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// The host time of encoding the dK/dV kernel's five tensor maps at
+// (bh, t, dh), the mean over `reps` encodings, in microseconds, for reports;
+// the maps point at `base` and are not used. Returns the CUDA error code.
+extern "C" int gordo_flash_attention_backward_dkv_bf16_encode_us(const void* base, int bh, int t,
+                                                                int dh, int reps, float* us) {
+  if (reps <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const bf16* p = static_cast<const bf16*>(base);
+  CUtensorMap maps[5];
+  const auto start = std::chrono::steady_clock::now();
+  for (int i = 0; i < reps; ++i) {
+    cudaError_t err;
+    switch (dh) {
+      case 16: err = dkv::encode<16>(maps, p, p, p, p, p, bh, t); break;
+      case 32: err = dkv::encode<32>(maps, p, p, p, p, p, bh, t); break;
+      case 64: err = dkv::encode<64>(maps, p, p, p, p, p, bh, t); break;
+      case 128: err = dkv::encode<128>(maps, p, p, p, p, p, bh, t); break;
+      default: err = cudaErrorInvalidValue;
+    }
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const std::chrono::duration<double, std::micro> spent = std::chrono::steady_clock::now() - start;
+  *us = static_cast<float>(spent.count() / reps);
+  return 0;
 }

@@ -1,29 +1,52 @@
 """
-The bf16 flash-attention kernels against variants of their shared header
-``gordo_tpu_torch/ops/csrc/mma_bf16.cuh``, on one NVIDIA GPU.
+The bf16 flash-attention kernels against variants of their sources, on one
+NVIDIA GPU.
 
     python3 scripts/torch_bf16_variants.py [VARIANT ...]   # from the repo root
 
-A variant is the header with a few text replacements (``VARIANTS``): P and
-dS in two bf16 parts (hi + mid) or in one (hi) instead of three, or S and
-dP summed in one running accumulator instead of a fresh one per 16-deep
-step. Each variant's copy of the kernel sources is compiled into
+A variant is the kernels' sources (``gordo_tpu_torch/ops/csrc``) with a
+few text replacements (``VARIANTS``: each names its file). Two kinds:
+
+- accumulation choices, held to the gates: how deep each product's wgmma
+  chain runs in one accumulator before it is added in float32, the
+  alternatives to the sources' choices: in the forward
+  (``flash_attention_bf16.cu``) P V a tile at a time instead of over the
+  whole loop; in dK/dV (``flash_attention_bwd_bf16.cu``) S^T and dP^T one
+  k16 step at a time instead of a tile, P^T dO a tile at a time instead of
+  the whole loop, dS^T Q the whole loop instead of a tile; and, for the dQ
+  kernel (``mma_bf16.cuh``), P and dS in two bf16 parts or one instead of
+  three, or S and dP summed in one running accumulator instead of a fresh
+  one per 16-deep step;
+- the forward's layout and softmax: two consumer warpgroups (128-row work
+  tiles) instead of three at dh 64; 128-key K/V tiles; a ring of K/V
+  stages 4 or 5 deep instead of 3; O rescaled whenever a row's max grows
+  instead of only when it grows by more than 2^8;
+- diagnostic cuts (``DIAGNOSTIC``), timed only, their results wrong by
+  design: a part of the work taken out to see what it costs, or every
+  head reading head 0's K and V (which then stay in L2).
+
+Each variant's copy of the bf16 sources is compiled into
 ``build/bf16_variants/<name>/`` with the port's nvcc flags, all at once;
 its forward, dQ and dK/dV then take the place of the wrappers' kernels.
-For the source's kernels and each variant, over SEEDS inputs at the
-training shape (BH 128 x T 512 x dh 64, causal): the elements of out, dq,
-dk and dv outside ``chip_smoke.py``'s one-ulp gate against the plain twin
-(elements exactly 0 in float64 held to |x| <= 1e-6), the share that differ
-from the twin at all, the largest error against the float64 plain result
-relative to its largest entry (the twin's own beside it), and the times at
-the training and serving shapes in turns with the source's kernels
-(source, variant, variant, source). Prints the card's name and power limit,
-a line per variant and one JSON line.
+For the source's kernels and each accumulation variant, over SEEDS inputs
+at the training shape (BH 128 x T 512 x dh 64, causal): the elements of
+out, dq, dk and dv outside ``chip_smoke.py``'s one-ulp gate against the
+plain twin (elements exactly 0 in float64 held to |x| <= 1e-6), the share
+that differ from the twin at all, the largest error against the float64
+plain result relative to its largest entry (the twin's own beside it).
+For every variant, the times at the serving and training shapes, and of
+the forward at the serving shape's size with dh 128 (BH 2,048 x T 512),
+in ROUNDS alternating turns with the source's kernels (source, variant,
+source, variant, ...; CALLS calls a turn), each side's median turn, or the
+error of a variant that cannot launch there. Prints the
+card's name and power limit, each variant's ptxas warnings and spills, a
+line per variant and one JSON line.
 """
 
 import ctypes
 import json
 import shutil
+import statistics
 import subprocess
 import sys
 from concurrent.futures import ThreadPoolExecutor
@@ -33,7 +56,11 @@ REPO = Path(__file__).resolve().parents[1]
 CSRC = REPO / "gordo_tpu_torch" / "ops" / "csrc"
 OUT = REPO / "build" / "bf16_variants"
 SEEDS = 4
+ROUNDS = 5  # timed turns of each side
+CALLS = 50  # calls a turn
 SOURCES = ("flash_attention_bf16", "flash_attention_bwd_bf16")
+FWD = "flash_attention_bf16.cu"
+BWD = "flash_attention_bwd_bf16.cu"
 
 _LO = """      mma(p0, a[i].lo, b[0]);
       mma(p1, a[i].lo, b[1]);
@@ -41,11 +68,92 @@ _LO = """      mma(p0, a[i].lo, b[0]);
 _MID = """      mma(p0, a[i].mid, b[0]);
       mma(p1, a[i].mid, b[1]);
 """
-# name -> [(text of mma_bf16.cuh, its replacement)]; each text must occur once
+# name -> [(file in csrc, its text, the replacement)]; each text must occur once
 VARIANTS = {
-    "two_parts": [(_LO, "")],
-    "one_part": [(_LO + _MID, "")],
-    "running_sum": [("""      float f0[4] = {0.f, 0.f, 0.f, 0.f}, f1[4] = {0.f, 0.f, 0.f, 0.f};
+    "fwd_pv_tile": [(FWD, """    int pending = 0;                      // the stage of the pending tile
+""", """    int pending = 0;                      // the stage of the pending tile
+    float f[DH / 2];                      // P V of the pending tile
+"""), (FWD, """      if (__any_sync(0xffffffffu, corr0 != 1.f || corr1 != 1.f)) {
+#pragma unroll
+        for (int i = 0; i < DH / 2; i += 4) {
+          o[i] *= corr0;
+          o[i + 1] *= corr0;
+          o[i + 2] *= corr1;
+          o[i + 3] *= corr1;
+        }
+      }
+      fence_regs(o);
+      wgmma_fence();
+      rs_product<DH, NC>(o, a, v_desc, true);
+""", """      fence_regs(f);
+      wgmma_fence();
+      rs_product<DH, NC>(f, a, v_desc, false);
+"""), (FWD, """      fence_regs(o);
+      fence_split(a);
+""", """      fence_regs(f);
+#pragma unroll
+      for (int i = 0; i < DH / 2; i += 4) {
+        o[i] = fmaf(o[i], corr0, f[i]);
+        o[i + 1] = fmaf(o[i + 1], corr0, f[i + 1]);
+        o[i + 2] = fmaf(o[i + 2], corr1, f[i + 2]);
+        o[i + 3] = fmaf(o[i + 3], corr1, f[i + 3]);
+      }
+      fence_split(a);
+""")],
+    "dkv_st_step": [(BWD, """      fence_regs(sa);
+      fence_regs(dp);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < DH / 16; ++kk) Wgmma<BQ>::ss(sa, ka(kk), qb(kk), kk > 0);
+#pragma unroll
+      for (int kk = 0; kk < DH / 16; ++kk) Wgmma<BQ>::ss(dp, va(kk), gb(kk), kk > 0);
+      wgmma_commit();
+""", """#pragma unroll
+      for (int kk = 0; kk < DH / 16; ++kk) {
+        float fs[BQ / 2], fd[BQ / 2];
+        fence_regs(fs);
+        fence_regs(fd);
+        wgmma_fence();
+        Wgmma<BQ>::ss(fs, ka(kk), qb(kk), 0);
+        Wgmma<BQ>::ss(fd, va(kk), gb(kk), 0);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(fs);
+        fence_regs(fd);
+#pragma unroll
+        for (int i = 0; i < BQ / 2; ++i) {
+          sa[i] = kk == 0 ? fs[i] : sa[i] + fs[i];
+          dp[i] = kk == 0 ? fd[i] : dp[i] + fd[i];
+        }
+      }
+""")],
+    "dkv_dv_tile": [(BWD, """      fence_regs(dva);
+      wgmma_fence();
+      rs_product<DH, NC>(dva, pa, gmn, true);
+      wgmma_commit();
+""", """      {
+        float f[DH / 2];
+        rs_fresh<DH, NC>(f, pa, gmn);
+#pragma unroll
+        for (int i = 0; i < DH / 2; ++i) dva[i] += f[i];
+      }
+""")],
+    "dkv_dk_loop": [(BWD, """      {
+        float f[DH / 2];
+        rs_fresh<DH, NC>(f, da, qmn);
+#pragma unroll
+        for (int i = 0; i < DH / 2; ++i) dka[i] += f[i];
+      }
+""", """      fence_regs(dka);
+      wgmma_fence();
+      rs_product<DH, NC>(dka, da, qmn, true);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dka);
+""")],
+    "dq_two_parts": [("mma_bf16.cuh", _LO, "")],
+    "dq_one_part": [("mma_bf16.cuh", _LO + _MID, "")],
+    "dq_running_sum": [("mma_bf16.cuh", """      float f0[4] = {0.f, 0.f, 0.f, 0.f}, f1[4] = {0.f, 0.f, 0.f, 0.f};
       mma(f0, a, b[0]);
       mma(f1, a, b[1]);
 #pragma unroll
@@ -54,33 +162,69 @@ VARIANTS = {
         acc[2 * j + 1][e] += f1[e];
       }""", """      mma(acc[2 * j], a, b[0]);
       mma(acc[2 * j + 1], a, b[1]);""")],
+    # the forward's layout: two consumer warpgroups (128-row work tiles)
+    # instead of three at dh 64; 128-key tiles; a deeper ring of K/V stages
+    "fwd_2wg": [(FWD, "static constexpr int CONSUMERS = DH == 128 ? 2 : 3;",
+                 "static constexpr int CONSUMERS = 2;")],
+    "fwd_bn128": [(FWD, "static constexpr int BN = 64;", "static constexpr int BN = 128;")],
+    "fwd_stages4": [(FWD, "  static constexpr int STAGES = 3;", "  static constexpr int STAGES = 4;")],
+    "fwd_stages5": [(FWD, "  static constexpr int STAGES = 3;", "  static constexpr int STAGES = 5;")],
+    # the softmax: O and l rescaled whenever a row's max grows at all
+    "fwd_rescale_every_growth": [(FWD, "constexpr float RESCALE = 8.f;",
+                                  "constexpr float RESCALE = 0.f;")],
+    # a warp barrier before the wait for P V, against ptxas hoisting the wait
+    # above the softmax's exponentials
+    "fwd_syncwarp": [(FWD, """      softmax(kt);
+      wgmma_wait<0>();
+""", """      softmax(kt);
+      __syncwarp();
+      wgmma_wait<0>();
+""")],
+    # diagnostic cuts
+    "fwd_kv_head0": [(FWD, "&k_map, &full[s], p * L::COLS, kt * BN, bh);",
+                      "&k_map, &full[s], p * L::COLS, kt * BN, 0);"),
+                     (FWD, "&v_map, &full[s], p * L::COLS, kt * BN, bh);",
+                      "&v_map, &full[s], p * L::COLS, kt * BN, 0);")],
+    "no_split": [("wgmma_bf16.cuh", """  hi = pack_high(x0, x1);
+  const float r0 = x0 - truncate_bf16(x0), r1 = x1 - truncate_bf16(x1);
+  mid = pack_high(r0, r1);
+  lo = pack_high(r0 - truncate_bf16(r0), r1 - truncate_bf16(r1));""",
+                  "  hi = mid = lo = pack_high(x0, x1);")],
+    "fwd_no_pv": [(FWD, "      rs_product<DH, NC>(o, a, v_desc, true);\n", "")],
+    "fwd_no_s": [(FWD, """        Wgmma<BN>::ss(sc, L::k_major(q_tile, BLOCK_M, 64 * wg, kk),
+                      L::k_major(k_tile, BN, 0, kk), kk > 0);
+""", "")],
 }
+DIAGNOSTIC = {"no_split", "fwd_no_pv", "fwd_no_s", "fwd_kv_head0"}
 
 
-def _build(name: str, patches) -> dict:
-    """Compile the bf16 sources with the patched header; returns
-    ``{source stem: library path}``."""
+def _build(name: str, patches, csrc: Path = CSRC) -> dict:
+    """Compile the bf16 sources of ``csrc`` with the patches applied;
+    returns ``{source stem: library path}``."""
     from gordo_tpu_torch.ops import _build
 
     out = OUT / name
     shutil.rmtree(out, ignore_errors=True)
     out.mkdir(parents=True)
-    for path in CSRC.glob("*.cuh"):
+    for path in [*csrc.glob("*.cuh"), *(csrc / f"{stem}.cu" for stem in SOURCES)]:
         (out / path.name).write_text(path.read_text())
-    header = (out / "mma_bf16.cuh").read_text()
-    for old, new in patches:
-        if header.count(old) != 1:
-            raise ValueError(f"{name}: a patch does not apply to mma_bf16.cuh")
-        header = header.replace(old, new)
-    (out / "mma_bf16.cuh").write_text(header)
+    for file, old, new in patches:
+        text = (out / file).read_text()
+        if text.count(old) != 1:
+            raise ValueError(f"{name}: a patch does not apply to {file}")
+        (out / file).write_text(text.replace(old, new))
     libs = {}
     for stem in SOURCES:
-        (out / f"{stem}.cu").write_text((CSRC / f"{stem}.cu").read_text())
         libs[stem] = out / f"lib{stem}.so"
         proc = subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", str(libs[stem]),
                                str(out / f"{stem}.cu")], capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(f"{name}: nvcc failed on {stem}.cu\n{proc.stdout}{proc.stderr}")
+        for line in (proc.stdout + proc.stderr).splitlines():
+            if "Performance Loss" in line or ("spill stores" in line
+                                              and not line.strip().startswith("0 bytes")
+                                              and " 0 bytes spill stores" not in line):
+                print(f"{name} {stem}: {line.strip()[:160]}", flush=True)
     return libs
 
 
@@ -151,6 +295,9 @@ def main(names) -> int:
         cases.append((q, k, v, do))
     report = {}
     for name in names:
+        report[name] = {}
+        if name in DIAGNOSTIC:
+            continue
         _use(kernels[name])
         stats = {key: [0, 0.0, 0.0, 0.0] for key in ("out", "dq", "dk", "dv")}
         for q, k, v, do in cases:
@@ -175,10 +322,14 @@ def main(names) -> int:
 
     serve = [torch.randn(chip_smoke.SERVE_SHAPE, device="cuda", generator=g).bfloat16()
              for _ in range(3)]
+    bh, t, dh = chip_smoke.SERVE_SHAPE
+    wide = [torch.randn((bh * dh // 128, t, 128), device="cuda", generator=g).bfloat16()
+            for _ in range(3)]
     q, k, v, do = cases[0]
     out, lse = fa.flash_attention_forward(q, k, v, True)
     timers = {
         "forward_serving": lambda: fa.flash_attention_forward(*serve, True),
+        "forward_dh128": lambda: fa.flash_attention_forward(*wide, True),
         "forward": lambda: fa.flash_attention_forward(q, k, v, True),
         "dq": lambda: fa.launch_dq(q, k, v, out, lse, do, True),
         "dkv": lambda: fa.launch_dkv(q, k, v, out, lse, do, True),
@@ -186,17 +337,21 @@ def main(names) -> int:
     for name in names[1:]:
         times = {}
         for key, fn in timers.items():
-            iters = 20 if key == "forward_serving" else 100
-            turns = []
-            for turn in ("source", name, name, "source"):
-                _use(kernels[turn])
-                turns.append(chip_smoke._time_ms(fn, iters))
-            times[key] = {"source_ms": (turns[0] + turns[3]) / 2,
-                          "variant_ms": (turns[1] + turns[2]) / 2}
+            turns = {"source": [], "variant": []}
+            try:
+                for _ in range(ROUNDS):
+                    for side, turn in (("source", "source"), ("variant", name)):
+                        _use(kernels[turn])
+                        turns[side].append(chip_smoke._time_ms(fn, CALLS))
+            except RuntimeError as exc:  # a variant that cannot launch at this shape
+                times[key] = {"error": str(exc)}
+                continue
+            times[key] = {"source_ms": statistics.median(turns["source"]),
+                          "variant_ms": statistics.median(turns["variant"]), "turns": turns}
         report[name]["times"] = times
         print(f"{name} on {card}: " + ", ".join(
-            f"{key} {t['variant_ms']:.4f} ms (source {t['source_ms']:.4f})"
-            for key, t in times.items()), flush=True)
+            f"{key} {t['variant_ms']:.4f} ms (source {t['source_ms']:.4f})" if "error" not in t
+            else f"{key} {t['error']}" for key, t in times.items()), flush=True)
     print(json.dumps({"card": card, "shape": list(chip_smoke.TRAIN_SHAPE), "seeds": SEEDS,
                       "variants": report}))
     return 0

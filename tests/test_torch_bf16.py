@@ -13,9 +13,11 @@
   servers (the same blocks, model outputs within the bf16 tolerance);
 - what the wrappers and the model refuse (float16, mixed dtypes);
 - the bf16 kernels' arithmetic, emulated: P (or dS) split into three bf16
-  parts is float32-accurate, and fewer parts are not (the CUDA kernels
-  themselves are held against the twins in tests/test_torch_kernels_cuda.py
-  and chip_smoke.py).
+  parts is float32-accurate, and fewer parts are not; and the wgmma
+  kernels' order of summation (truncated float32 sums, chains as deep as
+  built, P split by truncation) keeps the forward and dV within one bf16
+  ulp (the CUDA kernels themselves are held against the twins in
+  tests/test_torch_kernels_cuda.py and chip_smoke.py).
 
 Inputs come from numpy seeds; the JAX package's parameters go to the port
 as numpy.
@@ -372,3 +374,104 @@ def test_three_part_split_of_p_is_float32_accurate():
     assert gates[3][0] == 0 and gates[3][1] <= 1e-3, gates
     assert gates[2][0] > 0, gates
     assert gates[1][1] > 0.25, gates
+
+
+def _truncated_f32(x: torch.Tensor) -> torch.Tensor:
+    """float64 values rounded to float32 toward zero, as the tensor core
+    rounds its float32 sums."""
+    y = x.float()
+    return torch.where(y.double().abs() > x.abs(), torch.nextafter(y, torch.zeros_like(y)), y)
+
+
+def _bf16_truncation(x: torch.Tensor) -> torch.Tensor:
+    """float32 x with its low 16 bits cleared: bf16, exact in float32."""
+    return (x.view(torch.int32) & -65536).view(torch.float32)
+
+
+def _three_truncated_parts(x: torch.Tensor) -> list:
+    """float32 x as the wgmma kernels split it (csrc/wgmma_bf16.cuh,
+    ``split3``), in the order they are issued: lo, mid, hi, each a bf16
+    truncation and exact in float32."""
+    hi = _bf16_truncation(x)
+    mid = _bf16_truncation(x - hi)
+    lo = _bf16_truncation(x - hi - mid)
+    assert torch.equal(hi + mid + lo, x)  # nothing is lost
+    return [lo, mid, hi]
+
+
+def _wgmma_chain(acc: torch.Tensor, products) -> torch.Tensor:
+    """acc (float32) plus each (a, b) product in turn, a k16 step of one
+    wgmma chain: products of bf16 values are exact, and every step's sum is
+    truncated to float32."""
+    for a, b in products:
+        acc = _truncated_f32(acc.double() + a.double() @ b.double())
+    return acc
+
+
+def _emulated_forward(q, k, v, bn=64, rescale=8.0):
+    """The bf16 forward's arithmetic (csrc/flash_attention_bf16.cu), causal:
+    per 64-key tile, S as one chain over dh; the online softmax in log2
+    units, its max moving only where a row of a 16-row group grows by more
+    than ``rescale``; O *= the rescale, then O += P V as one chain over the
+    whole loop, P in three truncated parts, lo parts first."""
+    bh, t, dh = q.shape
+    scale_log2 = torch.tensor((1.0 / dh**0.5) * np.log2(np.e), dtype=torch.float32)
+    rows = torch.arange(t)
+    m = torch.full((bh, t), fa.NEG_INF, dtype=torch.float32)
+    l = torch.zeros((bh, t), dtype=torch.float32)
+    o = torch.zeros((bh, t, dh), dtype=torch.float32)
+    for k0 in range(0, t, bn):
+        keys = slice(k0, k0 + bn)
+        s = _wgmma_chain(torch.zeros((bh, t, bn)), [
+            (q[..., c:c + 16], k[:, keys, c:c + 16].transpose(-1, -2)) for c in range(0, dh, 16)])
+        visible = (rows[k0:k0 + bn] <= rows[:, None])[None]
+        s = torch.where(visible, s, fa.NEG_INF)
+        mx = s.amax(-1) * scale_log2
+        grow = (mx > m + rescale).view(bh, t // 16, 16).any(-1, keepdim=True)
+        grow = grow.expand(bh, t // 16, 16).reshape(bh, t)
+        m_new = torch.where(grow, torch.maximum(m, mx), m)
+        c = torch.where(grow, torch.exp2(m - m_new), torch.ones_like(m))
+        m = m_new
+        p = torch.exp2((s.double() * scale_log2.double() - m.double()[..., None]).float())
+        p = torch.where(visible, p, 0.0)
+        l = l * c + p.sum(-1)
+        o = _wgmma_chain(o * c[..., None], [
+            (part[..., j:j + 16], v[:, k0 + j:k0 + j + 16])
+            for part in _three_truncated_parts(p) for j in range(0, bn, 16)])
+    return o * (1.0 / l)[..., None]
+
+
+def _emulated_dv(p, do, bq=64):
+    """dK/dV's dV += P^T dO (csrc/flash_attention_bwd_bf16.cu): one chain over
+    every query tile of the loop, P^T in three truncated parts, lo first."""
+    bh, t, dh = do.shape
+    dv = torch.zeros((bh, t, dh), dtype=torch.float32)
+    pt = p.transpose(-1, -2).contiguous()
+    for q0 in range(0, t, bq):
+        parts = _three_truncated_parts(pt[..., q0:q0 + bq].contiguous())
+        dv = _wgmma_chain(dv, [(part[..., j:j + 16], do[:, q0 + j:q0 + j + 16])
+                               for part in parts for j in range(0, bq, 16)])
+    return dv
+
+
+@pytest.mark.parametrize("product", ["forward", "dv"])
+def test_wgmma_accumulation_order_is_float32_accurate(product):
+    """The order the wgmma kernels sum in, emulated at a small size beside
+    the split emulation above: truncated float32 sums, the chains as deep as
+    built (S a tile, P V and P^T dO the whole loop), P in three truncated
+    parts. Against the float64 result, both rounded to bf16, it passes
+    chip_smoke.py's gate: no element more than one ulp off, and at most
+    0.1% of them different at all."""
+    rng = np.random.RandomState(1)
+    bh, t, dh = 4, 512, 64
+    q, k, v, do = (torch.from_numpy(rng.randn(bh, t, dh)).bfloat16().float() for _ in range(4))
+    s = (q.double() @ k.double().transpose(-1, -2)) / dh**0.5
+    s = s.masked_fill(~torch.ones(t, t, dtype=torch.bool).tril(), fa.NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    if product == "forward":
+        got, exact = _emulated_forward(q, k, v), p @ v.double()
+    else:
+        p32 = p.float()
+        got, exact = _emulated_dv(p32, do), p32.double().transpose(-1, -2) @ do.double()
+    outside, share = _chip_gate(got.to(torch.bfloat16), exact.to(torch.bfloat16))
+    assert outside == 0 and share <= 1e-3, (outside, share)
