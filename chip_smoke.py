@@ -19,9 +19,9 @@ Drive the PyTorch/CUDA port (gordo_tpu_torch) on one NVIDIA GPU.
    plain float32's. The build's registers and spills (``-Xptxas -v``),
    each kernel's shared memory and blocks per SM, and the tensor-core
    instructions in its SASS (``cuobjdump``, where the toolkit has it) are
-   printed: the bf16 forward and dK/dV kernels, built on ``wgmma``, must
-   hold HGMMA, the four ``mma.sync`` kernels HMMA. Each timed entry gets
-   its achieved TFLOP/s and the share of its bound it reaches; the two
+   printed: the three bf16 kernels, built on ``wgmma``, must hold HGMMA and
+   no HMMA, the three float32 ``mma.sync`` kernels HMMA. Each timed entry
+   gets its achieved TFLOP/s and the share of its bound it reaches; the
    ``wgmma`` kernels' host time of encoding their TMA tensor maps is
    printed beside their registers.
 4. Serving path: a ``transformer-ae-512`` artifact (TransformerAutoEncoder,
@@ -47,7 +47,8 @@ Drive the PyTorch/CUDA port (gordo_tpu_torch) on one NVIDIA GPU.
 6. bf16: the bf16 forward, dQ and dK/dV kernels against their plain twins
    on bf16 inputs at the same shapes (every element within one bf16 ulp of
    the twin's, at most 1% of them different at all, lse within 1e-5
-   relative, bit-identical backward reruns), timed beside their bounds at
+   relative, bit-identical backward reruns; dQ also within that gate of the
+   float64 result rounded to bf16), timed beside their bounds at
    the bf16 rate and ``scaled_dot_product_attention`` on the same bf16
    inputs; then ``transformer-ae-512-bf16`` (``BUILD_CONFIG`` with
    ``compute_dtype: bfloat16``) is built by ``ModelBuilder`` on the card and
@@ -119,7 +120,7 @@ TOL_BF16_LSE_REL = 1e-5
 TOL_BF16_MODEL_REL = 2e-2
 # FLOP per visible (query, key) pair, per dh: float32 (3xTF32 counted once)
 # and bf16, where P and dS go through three bf16 products
-# (gordo_tpu_torch/ops/csrc/mma_bf16.cuh, wgmma_bf16.cuh)
+# (gordo_tpu_torch/ops/csrc/wgmma_bf16.cuh)
 FLOP_PER_PAIR = {"float32": {"forward": 4, "dq": 6, "dkv": 8},
                  "bfloat16": {"forward": 8, "dq": 10, "dkv": 16}}
 def build_config(name: str, **estimator) -> dict:
@@ -292,6 +293,8 @@ def _sass_mma(libs: dict) -> dict:
 WGMMA_KERNELS = {
     "flash_attention_forward_bf16": ("gordo_flash_attention_forward_bf16", "flash_attention_bf16",
                                      "flash_forward_bf16"),
+    "flash_attention_backward_dq_bf16": ("gordo_flash_attention_backward_dq_bf16",
+                                         "flash_attention_bwd_bf16", "flash_bwd_dq_bf16"),
     "flash_attention_backward_dkv_bf16": ("gordo_flash_attention_backward_dkv_bf16",
                                           "flash_attention_bwd_bf16", "flash_bwd_dkv_bf16"),
 }
@@ -554,6 +557,7 @@ def bf16_kernel_phase(card: str) -> list:
 
     worst = {name: [0.0, 0.0] for name in ("out", "dq", "dk", "dv")}  # share, max abs
     lse_worst = 0.0
+    dq_f64_share = 0.0
     shapes = [((2, 4, 512, 64), True), ((2, 4, 512, 64), False), (SERVE_SHAPE, True),
               ((4, 4, 144, 16), True), ((3, 2, 77, 32), False), ((2, 2, 200, 128), True),
               ((1, 1, 1, 64), True)]
@@ -588,6 +592,11 @@ def bf16_kernel_phase(card: str) -> list:
                 raise AssertionError(f"bf16 {name} differs between two launches at {shape}")
             worst[name] = [max(a, b) for a, b in zip(worst[name], (share, max_abs))]
             report.append(f"{name} {share:.3e}")
+        # dQ against the float64 result itself, rounded to bf16
+        share, _ = check(f"dq {shape} against float64", runs[0][0], exact[0].bfloat16(),
+                         exact[0])
+        dq_f64_share = max(dq_f64_share, share)
+        report.append(f"dq against float64 {share:.3e}")
         print(f"bf16 flash backward {shape} causal={causal}: within one ulp, share that "
               f"differs {', '.join(report)}; bit-identical on a second launch", flush=True)
         del runs, refs, exact, q, k, v, do, o, lse
@@ -644,8 +653,8 @@ def bf16_kernel_phase(card: str) -> list:
     backward = [
         {"name": "flash_attention_backward_dq_bf16",
          "replaces": "gordo_tpu/ops/pallas_kernels/flash_attention.py:89",
-         "max_abs_err": worst["dq"][1], "share_differing": worst["dq"][0], "ms": dq_ms,
-         **bounds["dq"], **common},
+         "max_abs_err": worst["dq"][1], "share_differing": worst["dq"][0],
+         "f64_share_differing": dq_f64_share, "ms": dq_ms, **bounds["dq"], **common},
         {"name": "flash_attention_backward_dkv_bf16",
          "replaces": "gordo_tpu/ops/pallas_kernels/flash_attention.py:127",
          "max_abs_err": max(worst["dk"][1], worst["dv"][1]),
@@ -1163,12 +1172,12 @@ def main() -> int:
     bf16_forward, bf16_dq, bf16_dkv = bf16_kernel_phase(card)
     entries = [forward, dq, dkv, bf16_forward, bf16_dq, bf16_dkv]
     # each kernel's __global__ name and the tensor-core instruction its SASS
-    # must hold: HGMMA (wgmma) for the two redesigned bf16 kernels, HMMA
-    # (mma.sync) for the others
+    # must hold: HGMMA (wgmma) and no HMMA for the three bf16 kernels, HMMA
+    # (mma.sync) for the float32 ones
     for entry, kernel, op in zip(entries, (
             "flash_forward_f32", "flash_bwd_dq_f32", "flash_bwd_dkv_f32",
             "flash_forward_bf16", "flash_bwd_dq_bf16", "flash_bwd_dkv_bf16"),
-            ("HMMA", "HMMA", "HMMA", "HGMMA", "HMMA", "HGMMA")):
+            ("HMMA", "HMMA", "HMMA", "HGMMA", "HGMMA", "HGMMA")):
         entry["occupancy_by_head_dim"] = occupancy[entry["name"]]
         if entry["name"] in wgmma:
             entry["wgmma_by_head_dim"] = wgmma[entry["name"]]
@@ -1177,6 +1186,8 @@ def main() -> int:
                                             if mma else None)
         if mma and not entry[f"sass_{op.lower()}"]:
             raise AssertionError(f"{kernel}'s SASS holds no {op} instruction")
+        if mma and op == "HGMMA" and entry["sass_hmma"]:
+            raise AssertionError(f"{kernel}'s SASS holds HMMA beside its HGMMA")
     torch.cuda.empty_cache()
 
     collections = [REPO / "build" / "chip_smoke" / rev for rev in ("1", "2", "3")]

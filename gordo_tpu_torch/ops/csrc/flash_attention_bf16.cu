@@ -66,10 +66,8 @@
 namespace {
 
 using namespace gordo_wgmma;
-using bf16 = __nv_bfloat16;
 
 constexpr float NEG_INF = -1e30f;  // the mask value of the reference
-constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 // the growth of a row's max (log2 units) that rescales O and l (a rescale
 // on every growth was ~3% slower on the card, PERF.md section 6)
@@ -97,24 +95,6 @@ struct Fwd {
   // alignment slack
   static constexpr int SMEM_BYTES = BARS + 8 * (4 + 2 * STAGES) + 1024;
 };
-
-// the key tiles that rows [0, row_end) see
-__device__ __forceinline__ int key_tiles(int row_end, int t, int bn, int causal) {
-  const int all = (t + bn - 1) / bn;
-  return causal ? min(all, (row_end + bn - 1) / bn) : all;
-}
-
-// Work item w of bh * n_q_tiles: head w / n_q_tiles, so that the query
-// tiles of a head run at once on neighbouring SMs; within a head the tiles
-// rotate by the round the head falls in, so that each SM, taking every
-// grid-th item, cycles through light and heavy causal tiles.
-__device__ __forceinline__ void schedule(int w, int n_q_tiles, int grid, int* bh, int* qt) {
-  const int h = w / n_q_tiles;
-  const int slot = w - h * n_q_tiles;
-  const long long round = static_cast<long long>(h) * n_q_tiles / grid;
-  *bh = h;
-  *qt = n_q_tiles - 1 - static_cast<int>((slot + round) % n_q_tiles);
-}
 
 template <int DH>
 __global__ void __launch_bounds__(Fwd<DH>::THREADS, 1)

@@ -7,19 +7,18 @@
 // dO (as the JAX package sends them under `compute_dtype: bfloat16`); lse
 // is float32, from the forward:
 // - flash_bwd_dq_bf16 replaces `_flash_dq_kernel`: for each 64-row query
-//   tile, loop over key tiles up to the diagonal, recompute
+//   slice, loop over key tiles up to the diagonal, recompute
 //   P = exp(S - lse), D = rowsum(dO * O), dS = P * (dP - D) with
 //   dP = dO V^T, and accumulate dQ += dS K * scale;
 // - flash_bwd_dkv_bf16 replaces `_flash_dkv_kernel`: for each 128-row key
 //   tile, loop over query tiles from the diagonal on, and accumulate
 //   dV += P^T dO and dK += dS^T Q * scale.
 // As the TPU kernels do, they compute in float32 and write dq, dk and dv in
-// bf16; D is taken from the stored bf16 O, recomputed per query tile.
-// Products of two bf16 operands (S, dP and their transposes) are exact
-// products with float32 sums; P and dS, float32, are split into three bf16
-// operands that hold all their bits. Each output element is written by
-// exactly one thread, with no atomics, so two runs give bit-identical
-// results.
+// bf16; D is taken from the stored bf16 O. Products of two bf16 operands
+// (S, dP and their transposes) are exact products with float32 sums; P and
+// dS, float32, are split into three bf16 operands that hold all their bits
+// (wgmma_bf16.cuh). Each output element is written by exactly one thread,
+// with no atomics, so two runs give bit-identical results.
 //
 // What bounds them on this card: at the training shape (BH 128, T 512,
 // dh 64, causal) dQ moves q/k/v/o/dO/dQ at 2 bytes and lse at 4 (50.6 MB,
@@ -28,31 +27,51 @@
 // at 989 TFLOP/s of bf16); dK/dV moves 7 tensors (59.0 MB, 17.6 us) and
 // does 16 dh FLOP per pair (S^T and dP^T once, P^T dO and dS^T Q three
 // times: 1.7e10 FLOP, 17.4 us). Both are bound by bytes and products
-// alike, and at these sizes a launch costs about as much.
+// alike, and at these sizes a launch costs about as much. Beside the
+// products, each score costs an exponential and the split of dS about
+// eleven integer and float instructions.
 //
-// dQ (mma_bf16.cuh; the design of the float32 kernels in
-// flash_attention_bwd.cu with bf16 fragments): one block of 4 warps per
-// (bh, 64-row query tile), each warp an m16 strip of mma.sync; Q and dO of
-// the block's rows are loaded once, K and V tiles of 32 key rows are
-// double-buffered with cp.async, rows at or past T zero-filled; each
-// thread reads the lse and computes D of its two rows from global memory
-// while they land; every operand fragment is loaded with ldmatrix
-// (transposed where the product needs it), so P and dS never leave
-// registers; S and dP sum each 16-deep step in a fresh accumulator.
+// Both run on wgmma, the only path to the tensor cores' full rate, fed by
+// TMA, which moves tiles without the compute threads, in warp-specialised
+// blocks (wgmma_bf16.cuh): one producer warpgroup (one thread issues TMA
+// loads; setmaxnreg gives its registers to the consumers) and two consumer
+// warpgroups of 64 rows each that share every tile the producer loads,
+// through rings of stages with full and empty mbarriers and 3-D tensor
+// maps (dh, T, BH) that zero-fill rows at or past T of each head. Only the
+// tiles that cross the diagonal or T are masked.
 //
-// dK/dV (wgmma_bf16.cuh), the same design as the bf16 forward
-// (flash_attention_bf16.cu): wgmma, the only path to the tensor cores' full
-// rate, and TMA, which moves tiles without the compute threads:
-// - one producer warpgroup (one thread issues TMA loads; setmaxnreg gives
-//   its registers to the consumers) and two consumer warpgroups of 64 key
-//   rows each that share every Q/dO/O tile; K and V are loaded once;
-// - Q, dO and O tiles of 64 query rows (32 at dh 128) come through a ring
-//   of two stages with full and empty mbarriers, from the diagonal on,
-//   through 3-D tensor maps (dh, T, BH) that zero-fill rows at or past T
-//   of each head;
-// - S^T = K Q^T and dP^T = V dO^T are SS products (all four operands
-//   K-major, as stored); while they run the consumers compute D from the
-//   shared O and dO tiles and read the lse;
+// dQ, on the design of the bf16 forward (flash_attention_bf16.cu):
+// - one persistent block per SM walks over the (bh, 128-row query tile)
+//   work in the forward's order; Q and dO of the tile are loaded once, into
+//   one of two buffers, so the next work's load runs under this one;
+// - K and V tiles of 64 keys come through a ring of three stages; a
+//   warpgroup skips the key tiles past its diagonal;
+// - D = rowsum(dO O) is the diagonal of dO O^T, an SS product over the
+//   work's O, which comes through the ring as one more stage: summed on
+//   the tensor cores as dP is, D cancels dP exactly where the float64
+//   result does (a query that sees one key, whose O is that key's V; D
+//   from float32 fmas left such dQ elements up to 1.9e-6 off 0, outside
+//   the gate's 1e-6);
+// - S = Q K^T and dP = dO V^T are SS products (all four operands K-major,
+//   as stored), each summing a tile's k16 steps in one chain; while the
+//   first run, each thread reads the lse of its two rows;
+// - dS stays in registers: split in three by truncation, it is the A
+//   operand of the RS product dQ += dS K, with the same K tile as the
+//   MN-major B operand (two descriptors of one tile, nothing transposed),
+//   summed over the whole key loop in dQ's own accumulator;
+// - the loop is software-pipelined: S and dP of key tile j are issued with
+//   dS K of tile j - 1 behind them, and tile j's dS is computed while that
+//   product is on the tensor cores.
+// The chain depths, the D product, the ring's depth and the schedule were
+// held to the gates and timed on the card against their alternatives,
+// which are patches in scripts/torch_bf16_variants.py (PERF.md section 6).
+//
+// dK/dV, the same design with the roles of queries and keys exchanged:
+// - one block per 128-row key tile; K and V are loaded once, and Q, dO and
+//   O tiles of 64 query rows (32 at dh 128) come through a ring of two
+//   stages, from the diagonal on;
+// - S^T = K Q^T and dP^T = V dO^T are SS products; while they run the
+//   consumers compute D from the shared O and dO tiles and read the lse;
 // - P^T and dS^T stay in registers: split in three by truncation, they are
 //   the A operands of the RS products dV += P^T dO and dK += dS^T Q, with
 //   dO and Q as MN-major B operands, so nothing is transposed in memory;
@@ -61,8 +80,7 @@
 //   fresh one added in float32: the fastest choices on the card, each held
 //   to the gates, beside their alternatives in
 //   scripts/torch_bf16_variants.py;
-// - the tiles that see the most queries are scheduled first, and only the
-//   tiles that cross the diagonal or T are masked.
+// - the tiles that see the most queries are scheduled first.
 // Any T >= 1 works; dh is 16, 32, 64 or 128 (a template parameter).
 
 #include <cuda_runtime.h>
@@ -70,167 +88,376 @@
 
 #include <chrono>
 
-#include "mma_bf16.cuh"
 #include "wgmma_bf16.cuh"
 
 namespace {
 
-using namespace gordo_bf16;
+using namespace gordo_wgmma;
 
-constexpr int TILE = 64;      // a dQ block's query rows
-constexpr int THREADS = 128;  // dQ: 4 warps, 16 rows each
+// --- dQ: persistent, warp-specialised, TMA-fed, wgmma (wgmma_bf16.cuh) ---
 
-// --- dQ ---
+namespace dq {
+
+// consumer warpgroups, 64 query rows each: a work's O takes one stage of
+// the K/V ring, one consumer's rows in each of its two slots
+constexpr int CONSUMERS = 2;
+using R = Regs<CONSUMERS>;
+constexpr int THREADS = R::THREADS;
+constexpr int BLOCK_M = 64 * CONSUMERS;  // query rows of a work tile
+constexpr int BN = 64;                   // key rows of a K/V tile
 
 template <int DH>
 struct Dq {
-  static constexpr int BK = 32;             // key rows per K/V tile
-  static constexpr int LD = DH + 8;         // shared-memory row stride
-  static constexpr int Q = 0;               // Q, then dO: [TILE][LD] each
-  static constexpr int KV = 2 * TILE * LD;  // [stage][K, V][BK][LD]
-  static constexpr int SMEM_BYTES = (KV + 4 * BK * LD) * static_cast<int>(sizeof(bf16));
+  using T = Tile<DH>;
+  static constexpr int STAGES = 3;
+  static constexpr int Q_BYTES = BLOCK_M * DH * 2;  // Q or dO of a work tile
+  static constexpr int KV_BYTES = BN * DH * 2;      // one K or V tile
+  // byte offsets from the 1024-aligned base of shared memory
+  static constexpr int Q = 0;                      // [2][Q, dO]: two works'
+  static constexpr int K = Q + 4 * Q_BYTES;        // [STAGES]
+  static constexpr int V = K + STAGES * KV_BYTES;  // [STAGES]
+  static constexpr int BARS = V + STAGES * KV_BYTES;
+  // q_full[2], q_empty[2], full[STAGES], empty[STAGES]; 1024 bytes of
+  // alignment slack
+  static constexpr int SMEM_BYTES = BARS + 8 * (4 + 2 * STAGES) + 1024;
 };
 
-// this thread's part of rowsum(dO * O) of `row` (0 at or past t), in
-// float32: 16-byte chunks tq, tq + 4, ...; the four threads of a quad hold
-// one row's parts
+// The producer loads each work's Q and dO once, then, through the ring,
+// its O (rows 0..63 in a stage's K slot, 64..127 in its V slot) and its
+// K/V tiles up to the diagonal. Consumer warpgroup wg owns query rows
+// 64 wg .. 64 wg + 63 of a work tile: it takes D = rowsum(dO O) of its
+// rows from the diagonal of dO O^T (SS, summed as dP is, so that dP - D
+// is exactly 0 where it is in float64: a query that sees one key, whose O
+// is that key's V); then per key tile it runs S = Q K^T and
+// dP = dO V^T (SS), P = exp(S scale - lse) and dS = P (dP - D) in
+// registers, and dQ += dS K (RS, three parts, K MN-major). dQ of a query
+// is written by exactly one thread, with no atomics.
 template <int DH>
-__device__ __forceinline__ float row_dot_part(const bf16* o, const bf16* dout, int row,
-                                              int t, int tq) {
-  float d = 0.f;
-  if (row < t) {
-    const uint4* o8 = reinterpret_cast<const uint4*>(o + static_cast<size_t>(row) * DH);
-    const uint4* g8 = reinterpret_cast<const uint4*>(dout + static_cast<size_t>(row) * DH);
-#pragma unroll
-    for (int c = tq; c < DH / 8; c += 4) d = dot8(o8[c], g8[c], d);
-  }
-  return d;
-}
-
-// the sum over the four threads of a quad, the same bits in each
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
-
-template <int DH>
-__global__ void __launch_bounds__(THREADS)
-flash_bwd_dq_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                  const bf16* __restrict__ v, const bf16* __restrict__ o,
-                  const float* __restrict__ lse, const bf16* __restrict__ dout,
-                  bf16* __restrict__ dq, int t, int n_tiles, float scale, int causal) {
+__global__ void __launch_bounds__(THREADS, 1)
+flash_bwd_dq_bf16(const __grid_constant__ CUtensorMap q_map,
+                  const __grid_constant__ CUtensorMap k_map,
+                  const __grid_constant__ CUtensorMap v_map,
+                  const __grid_constant__ CUtensorMap o_map,
+                  const __grid_constant__ CUtensorMap do_map, const float* __restrict__ lse,
+                  bf16* __restrict__ dq, int t, int bh_count, int n_q_tiles, float scale,
+                  int causal) {
   using C = Dq<DH>;
-  constexpr int LD = C::LD;
-  constexpr int BK = C::BK;
-  constexpr int NT = BK / 8;  // 8-key column groups of S, dP and dS
-  constexpr int OT = DH / 8;  // 8-column groups of dQ
-  extern __shared__ float4 smem4[];
-  bf16* smem = reinterpret_cast<bf16*>(smem4);
+  using L = typename C::T;
+  constexpr int STAGES = C::STAGES;
+  constexpr int NC = BN / 16;  // k-chunks of dS
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + C::BARS);  // [2]
+  uint64_t* q_empty = q_full + 2;                                   // [2]
+  uint64_t* full = q_full + 4;
+  uint64_t* empty = full + STAGES;
+  const int n_work = bh_count * n_q_tiles;
 
-  const int lane = threadIdx.x % 32;
-  const int warp = threadIdx.x / 32;
-  const int g = lane / 4;
-  const int tq = lane % 4;
-  // heaviest causal tiles (the last query rows) go first
-  const int tile = n_tiles - 1 - static_cast<int>(blockIdx.x % n_tiles);
-  const size_t bh = blockIdx.x / n_tiles;
-  const int q0 = tile * TILE;
-  const int w0 = q0 + 16 * warp;  // the warp's first query row
-  const size_t base = bh * static_cast<size_t>(t) * DH;
-  const bf16* kb = k + base;
-  const bf16* vb = v + base;
-
-  int n_k_tiles = (t + BK - 1) / BK;
-  if (causal) n_k_tiles = min(n_k_tiles, (q0 + TILE + BK - 1) / BK);
-
-  load_tile_async<TILE, DH, THREADS>(smem + C::Q, q + base, q0, t);
-  load_tile_async<TILE, DH, THREADS>(smem + C::Q + TILE * LD, dout + base, q0, t);
-  load_tile_async<BK, DH, THREADS>(smem + C::KV, kb, 0, t);
-  load_tile_async<BK, DH, THREADS>(smem + C::KV + BK * LD, vb, 0, t);
-  cp_async_commit();
-  // while the tiles land: lse and D of the thread's rows w0 + g + 8 h, h
-  // the accumulator fragment's half
-  float lse_r[2], d_r[2];
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int row = w0 + g + 8 * h;
-    lse_r[h] = row < t ? lse[bh * t + row] : 0.f;
-    d_r[h] = quad_sum(row_dot_part<DH>(o + base, dout + base, row, t, tq));
+  if (threadIdx.x == 0) {
+    for (int b = 0; b < 2; ++b) {
+      mbar_init(&q_full[b], 1);
+      mbar_init(&q_empty[b], 4 * CONSUMERS);
+    }
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 4 * CONSUMERS);
+    }
+    fence_barrier_init();
   }
-  const bf16* qw = smem + C::Q + 16 * warp * LD;
-  const bf16* gw = qw + TILE * LD;  // the warp's dO rows
+  __syncthreads();
 
-  float acc[OT][4];
+  // warp-uniform, as the compiler can see
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  if (wg == CONSUMERS) {
+    // producer: one thread issues every load; work j's Q and dO go to
+    // buffer j % 2
+    setmaxnreg_dec<R::PRODUCER>();
+    if (threadIdx.x != 128 * CONSUMERS) return;
+    Ring<STAGES> ring;
+    for (int w = blockIdx.x, j = 0; w < n_work; w += gridDim.x, ++j) {
+      int bh, qt;
+      schedule(w, n_q_tiles, gridDim.x, &bh, &qt);
+      const int q0 = qt * BLOCK_M;
+      const int n_kt = key_tiles(q0 + BLOCK_M, t, BN, causal);
+      const int b = j & 1;
+      uint8_t* q_tile = smem + C::Q + b * 2 * C::Q_BYTES;
+      mbar_wait(&q_empty[b], ((j >> 1) & 1) ^ 1);
+      mbar_arrive_expect_tx(&q_full[b], 2 * C::Q_BYTES);
 #pragma unroll
-  for (int m = 0; m < OT; ++m) acc[m][0] = acc[m][1] = acc[m][2] = acc[m][3] = 0.f;
-
-  for (int kt = 0; kt < n_k_tiles; ++kt) {
-    const int stage = kt & 1;
-    cp_async_wait<0>();
-    // tile kt has landed, and every warp is done with the other stage
-    __syncthreads();
-    if (kt + 1 < n_k_tiles) {
-      bf16* next = smem + C::KV + (stage ^ 1) * 2 * BK * LD;
-      load_tile_async<BK, DH, THREADS>(next, kb, (kt + 1) * BK, t);
-      load_tile_async<BK, DH, THREADS>(next + BK * LD, vb, (kt + 1) * BK, t);
-      cp_async_commit();
-    }
-    const bf16* ks = smem + C::KV + stage * 2 * BK * LD;
-    const bf16* vs = ks + BK * LD;
-    const int k0 = kt * BK;
-    if (causal && w0 + 15 < k0) continue;  // warp-uniform: all masked
-
-    // S = Q K^T and dP = dO V^T
-    float s[NT][4], ds[NT][4];
+      for (int p = 0; p < L::PANELS; ++p) {
+        const int off = p * BLOCK_M * L::RB;
+        tma_load_3d(q_tile + off, &q_map, &q_full[b], p * L::COLS, q0, bh);
+        tma_load_3d(q_tile + C::Q_BYTES + off, &do_map, &q_full[b], p * L::COLS, q0, bh);
+      }
+      {  // O of the work's rows, one consumer's 64 rows in each slot of a stage
+        const int s = ring.stage;
+        mbar_wait(&empty[s], ring.phase ^ 1);
+        mbar_arrive_expect_tx(&full[s], 2 * C::KV_BYTES);
 #pragma unroll
-    for (int n = 0; n < NT; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = ds[n][e] = 0.f;
-    }
-    product_nt<DH, LD>(s, qw, ks, lane);
-    product_nt<DH, LD>(ds, gw, vs, lane);
-    // P = exp(S * scale - lse), 0 where masked; dS = P * (dP - D)
-    const bool mask = k0 + BK > t || (causal && k0 + BK - 1 > w0);
-#pragma unroll
-    for (int n = 0; n < NT; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int h = e / 2;
-        float p = expf(s[n][e] * scale - lse_r[h]);
-        if (mask) {
-          const int key = k0 + 8 * n + 2 * tq + (e & 1);
-          if (!(key < t && (!causal || key <= w0 + g + 8 * h))) p = 0.f;
+        for (int p = 0; p < L::PANELS; ++p) {
+          const int off = s * C::KV_BYTES + p * BN * L::RB;
+          tma_load_3d(smem + C::K + off, &o_map, &full[s], p * L::COLS, q0, bh);
+          tma_load_3d(smem + C::V + off, &o_map, &full[s], p * L::COLS, q0 + BN, bh);
         }
-        ds[n][e] = p * (ds[n][e] - d_r[h]);
+        ring.advance();
+      }
+      for (int kt = 0; kt < n_kt; ++kt, ring.advance()) {
+        const int s = ring.stage;
+        mbar_wait(&empty[s], ring.phase ^ 1);
+        mbar_arrive_expect_tx(&full[s], 2 * C::KV_BYTES);
+#pragma unroll
+        for (int p = 0; p < L::PANELS; ++p) {
+          const int off = s * C::KV_BYTES + p * BN * L::RB;
+          tma_load_3d(smem + C::K + off, &k_map, &full[s], p * L::COLS, kt * BN, bh);
+          tma_load_3d(smem + C::V + off, &v_map, &full[s], p * L::COLS, kt * BN, bh);
+        }
       }
     }
-    product_nn<DH, LD>(acc, ds, ks, lane);  // dQ += dS K (times scale below)
+    return;
   }
 
+  // consumers. The loop is software-pipelined: at key tile kt a warpgroup
+  // issues S and dP of tile kt and, behind them, dS K of tile kt - 1,
+  // computes tile kt's dS while that product is on the tensor cores, and
+  // splits it once the product has read the last tile's.
+  setmaxnreg_inc<R::CONSUMER>();
+  const int tid = threadIdx.x % 128;
+  const int warp = tid / 32;
+  const int g = (tid % 32) / 4;
+  const int tq = tid % 4;
+  const float scale_log2 = scale * LOG2E;
+  const uint32_t k_slot = smem_u32(smem + C::K);
+  const uint32_t v_slot = smem_u32(smem + C::V);
+  Ring<STAGES> ring;
+  for (int w = blockIdx.x, j = 0; w < n_work; w += gridDim.x, ++j) {
+    int bh, qt;
+    schedule(w, n_q_tiles, gridDim.x, &bh, &qt);
+    const int q0 = qt * BLOCK_M;
+    const int w0 = q0 + 64 * wg;  // the warpgroup's first query row
+    const int n_kt = key_tiles(q0 + BLOCK_M, t, BN, causal);
+    const int mine = w0 < t ? key_tiles(w0 + 64, t, BN, causal) : 0;
+    const int row0 = w0 + 16 * warp + g;
+    const int row1 = row0 + 8;
+    const int b = j & 1;
+    const uint32_t q_tile = smem_u32(smem + C::Q + b * 2 * C::Q_BYTES);
+    const uint32_t do_tile = q_tile + C::Q_BYTES;
+    const size_t base = static_cast<size_t>(bh) * t;
+
+    float acc[DH / 2];  // dQ of the warpgroup's rows (times scale below)
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int row = w0 + g + 8 * h;
-    if (row >= t) continue;
-    bf16* dst = dq + base + static_cast<size_t>(row) * DH + 2 * tq;
+    for (int i = 0; i < DH / 2; ++i) acc[i] = 0.f;
+    float sc[BN / 2];       // S, then P, of the current tile (64 x BN)
+    float dp[BN / 2];       // dP, then dS
+    uint32_t a[NC][3][4];   // dS of the pending tile, split
+    int pending = 0;        // the stage of the pending tile
+    float lse0 = 0.f, lse1 = 0.f;  // lse * log2(e) of rows row0, row1
+    float d0 = 0.f, d1 = 0.f;      // their D
+    mbar_wait(&q_full[b], (j >> 1) & 1);
+    if (mine == 0) mbar_arrive_warp(&q_empty[b]);
+    {  // D from the work's O, in the first stage it takes
+      const int s = ring.stage;
+      mbar_wait(&full[s], ring.phase);
+      if (mine > 0) {
+        const uint32_t o_tile = (wg == 0 ? k_slot : v_slot) + s * C::KV_BYTES;
+        fence_regs(dp);
+        wgmma_fence();
 #pragma unroll
-    for (int m = 0; m < OT; ++m) {
-      *reinterpret_cast<__nv_bfloat162*>(dst + 8 * m) =
-          to_bf16x2(acc[m][2 * h] * scale, acc[m][2 * h + 1] * scale);
+        for (int kk = 0; kk < DH / 16; ++kk) {
+          Wgmma<BN>::ss(dp, L::k_major(do_tile, BLOCK_M, 64 * wg, kk),
+                        L::k_major(o_tile, BN, 0, kk), kk > 0);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(dp);
+        // (r, r), r = 16 warp + g + 8 h, is column g of column group
+        // 2 warp + h, held by lane 4 g + g / 2 of the quad
+        float diag0 = 0.f, diag1 = 0.f;
+#pragma unroll
+        for (int w4 = 0; w4 < 4; ++w4) {
+          if (w4 == warp) {
+            diag0 = (g & 1) ? dp[8 * w4 + 1] : dp[8 * w4];
+            diag1 = (g & 1) ? dp[8 * w4 + 7] : dp[8 * w4 + 6];
+          }
+        }
+        d0 = __shfl_sync(0xffffffffu, diag0, 4 * g + g / 2);
+        d1 = __shfl_sync(0xffffffffu, diag1, 4 * g + g / 2);
+      }
+      mbar_arrive_warp(&empty[s]);
+      ring.advance();
+    }
+
+    // S = Q K^T and dP = dO V^T of the tile in stage s: issued, not waited for
+    const auto issue_sdp = [&](int s) {
+      const uint32_t k_tile = k_slot + s * C::KV_BYTES;
+      const uint32_t v_tile = v_slot + s * C::KV_BYTES;
+      fence_regs(sc);
+      fence_regs(dp);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < DH / 16; ++kk) {
+        Wgmma<BN>::ss(sc, L::k_major(q_tile, BLOCK_M, 64 * wg, kk),
+                      L::k_major(k_tile, BN, 0, kk), kk > 0);
+      }
+#pragma unroll
+      for (int kk = 0; kk < DH / 16; ++kk) {
+        Wgmma<BN>::ss(dp, L::k_major(do_tile, BLOCK_M, 64 * wg, kk),
+                      L::k_major(v_tile, BN, 0, kk), kk > 0);
+      }
+      wgmma_commit();
+    };
+    // dQ += dS K of the pending tile, summed in dQ's own accumulator:
+    // issued, not waited for
+    const auto issue_dq = [&]() {
+      const uint32_t k_tile = k_slot + pending * C::KV_BYTES;
+      const auto k_desc = [&](int c) { return L::mn_major(k_tile, BN, c); };
+      fence_regs(acc);
+      wgmma_fence();
+      rs_product<DH, NC>(acc, a, k_desc, true);
+      wgmma_commit();
+    };
+    // after its wait: free the pending tile's dS and stage
+    const auto retire_dq = [&]() {
+      fence_regs(acc);
+      fence_split(a);
+      mbar_arrive_warp(&empty[pending]);
+    };
+    // P = exp(S scale - lse) of key tile kt, 0 where masked, in sc
+    const auto probabilities = [&](int kt) {
+      const int k0 = kt * BN;
+      const bool mask = k0 + BN > t || (causal && k0 + BN - 1 > w0);
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) {
+        const bool second = (i & 2) != 0;  // row1's element
+        float p = exp2_approx(fmaf(sc[i], scale_log2, second ? -lse1 : -lse0));
+        if (mask) {
+          const int key = k0 + 8 * (i / 4) + 2 * tq + (i & 1);
+          if (!(key < t && (!causal || key <= (second ? row1 : row0)))) p = 0.f;
+        }
+        sc[i] = p;
+      }
+    };
+    // dS = P (dP - D), in dp
+    const auto score_grads = [&]() {
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) dp[i] = sc[i] * (dp[i] - ((i & 2) ? d1 : d0));
+    };
+    // one key tile kt (>= 1): S and dP of kt and dS K of the pending tile
+    // on the tensor cores, kt's dS meanwhile, then its split
+    int kt = 0;
+    const auto step = [&]() {
+      const int s = ring.stage;
+      mbar_wait(&full[s], ring.phase);
+      issue_sdp(s);
+      issue_dq();
+      wgmma_wait<1>();
+      fence_regs(sc);
+      fence_regs(dp);
+      if (kt == mine - 1) mbar_arrive_warp(&q_empty[b]);  // the last read of Q and dO
+      probabilities(kt);
+      score_grads();
+      wgmma_wait<0>();
+      retire_dq();
+      split_to_a<NC>(dp, a);
+      pending = s;
+      ++kt;
+      ring.advance();
+    };
+
+    if (mine > 0) {  // warpgroup-uniform; every step waits for all it issues
+      pending = ring.stage;
+      mbar_wait(&full[pending], ring.phase);
+      issue_sdp(pending);
+      // while S and dP run: the lse of the thread's rows
+      lse0 = row0 < t ? lse[base + row0] * LOG2E : 0.f;
+      lse1 = row1 < t ? lse[base + row1] * LOG2E : 0.f;
+      wgmma_wait<0>();
+      fence_regs(sc);
+      fence_regs(dp);
+      if (mine == 1) mbar_arrive_warp(&q_empty[b]);
+      probabilities(0);
+      score_grads();
+      split_to_a<NC>(dp, a);
+      kt = 1;
+      ring.advance();
+      while (kt < mine) step();
+      issue_dq();  // the last pending product
+      wgmma_wait<0>();
+      retire_dq();
+    }
+    for (; kt < n_kt; ++kt, ring.advance()) {  // tiles past this warpgroup's diagonal
+      const int s = ring.stage;
+      mbar_wait(&full[s], ring.phase);
+      mbar_arrive_warp(&empty[s]);
+    }
+
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int row = half ? row1 : row0;
+      if (row >= t) continue;
+      bf16* dst = dq + (base + row) * DH + 2 * tq;
+#pragma unroll
+      for (int n = 0; n < DH / 8; ++n) {
+        const int i = 4 * n + 2 * half;
+        *reinterpret_cast<__nv_bfloat162*>(dst + 8 * n) =
+            __floats2bfloat162_rn(acc[i] * scale, acc[i + 1] * scale);
+      }
     }
   }
 }
+
+// the five tensor maps of q, k, v, o, dO (o in K/V tile boxes)
+template <int DH>
+cudaError_t encode(CUtensorMap (&maps)[5], const bf16* q, const bf16* k, const bf16* v,
+                   const bf16* o, const bf16* dout, int bh, int t) {
+  cudaError_t err = encode_rows(&maps[0], q, bh, t, DH, BLOCK_M);
+  if (err == cudaSuccess) err = encode_rows(&maps[1], k, bh, t, DH, BN);
+  if (err == cudaSuccess) err = encode_rows(&maps[2], v, bh, t, DH, BN);
+  if (err == cudaSuccess) err = encode_rows(&maps[3], o, bh, t, DH, BN);
+  if (err == cudaSuccess) err = encode_rows(&maps[4], dout, bh, t, DH, BLOCK_M);
+  return err;
+}
+
+// one block per SM (or per work tile, if fewer)
+template <int DH>
+cudaError_t launch(const bf16* q, const bf16* k, const bf16* v, const bf16* o,
+                   const float* lse, const bf16* dout, bf16* dq, int bh, int t, float scale,
+                   int causal, cudaStream_t stream) {
+  const int n_q_tiles = (t + BLOCK_M - 1) / BLOCK_M;
+  const long long n_work = static_cast<long long>(bh) * n_q_tiles;
+  if (n_work > INT_MAX) return cudaErrorInvalidConfiguration;
+  constexpr int smem = Dq<DH>::SMEM_BYTES;
+  CUtensorMap maps[5];
+  int sms;
+  cudaError_t err = encode<DH>(maps, q, k, v, o, dout, bh, t);
+  if (err == cudaSuccess) err = prepare_kernel<flash_bwd_dq_bf16<DH>>(smem, R::LAUNCH, &sms);
+  if (err != cudaSuccess) return err;
+  const unsigned grid = static_cast<unsigned>(n_work < sms ? n_work : sms);
+  flash_bwd_dq_bf16<DH><<<grid, THREADS, smem, stream>>>(
+      maps[0], maps[1], maps[2], maps[3], maps[4], lse, dq, t, bh, n_q_tiles, scale, causal);
+  return cudaGetLastError();
+}
+
+template <int DH>
+cudaError_t occupancy(int* smem, int* blocks_per_sm) {
+  *smem = Dq<DH>::SMEM_BYTES;
+  int sms;
+  const cudaError_t err = prepare_kernel<flash_bwd_dq_bf16<DH>>(*smem, R::LAUNCH, &sms);
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, flash_bwd_dq_bf16<DH>,
+                                                       THREADS, *smem);
+}
+
+}  // namespace dq
 
 // --- dK/dV: warp-specialised, TMA-fed, wgmma (wgmma_bf16.cuh) ---
 
 namespace dkv {
 
-using namespace gordo_wgmma;
-
 constexpr int BLOCK_N = 128;  // key rows of a block, 64 per consumer
 constexpr int CONSUMERS = 2;  // consumer warpgroups
 using R = Regs<CONSUMERS>;
 constexpr int THREADS = R::THREADS;
-constexpr float LOG2E = 1.4426950408889634f;
 
 template <int DH>
 struct Dkv {
@@ -492,54 +719,6 @@ cudaError_t occupancy(int* smem, int* blocks_per_sm) {
 
 }  // namespace dkv
 
-// let `kernel` take `smem` bytes of dynamic shared memory: above 48 KB
-// only through the attribute
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, int smem) {
-  if (smem <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-}
-
-// one block per (bh, 64-row tile)
-template <typename Kernel>
-cudaError_t prepare(Kernel kernel, int bh, int t, int smem, unsigned* n_blocks,
-                    int* n_tiles) {
-  *n_tiles = (t + TILE - 1) / TILE;
-  const long long blocks = static_cast<long long>(bh) * *n_tiles;
-  if (blocks > INT_MAX) return cudaErrorInvalidConfiguration;
-  *n_blocks = static_cast<unsigned>(blocks);
-  return allow_smem(kernel, smem);
-}
-
-template <int DH>
-cudaError_t launch_dq(const bf16* q, const bf16* k, const bf16* v, const bf16* o,
-                      const float* lse, const bf16* dout, bf16* dq, int bh, int t,
-                      float scale, int causal, cudaStream_t stream) {
-  const int smem = Dq<DH>::SMEM_BYTES;
-  unsigned n_blocks;
-  int n_tiles;
-  const cudaError_t err = prepare(flash_bwd_dq_bf16<DH>, bh, t, smem, &n_blocks, &n_tiles);
-  if (err != cudaSuccess) return err;
-  flash_bwd_dq_bf16<DH><<<n_blocks, THREADS, smem, stream>>>(
-      q, k, v, o, lse, dout, dq, t, n_tiles, scale, causal);
-  return cudaGetLastError();
-}
-
-// `kernel`'s dynamic shared memory (`bytes`) and its resident blocks per SM
-template <typename Kernel>
-cudaError_t occupancy(Kernel kernel, int bytes, int* smem, int* blocks_per_sm) {
-  *smem = bytes;
-  const cudaError_t err = allow_smem(kernel, bytes);
-  if (err != cudaSuccess) return err;
-  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, kernel, THREADS,
-                                                       bytes);
-}
-
-template <int DH>
-cudaError_t dq_occupancy(int* smem, int* blocks_per_sm) {
-  return occupancy(flash_bwd_dq_bf16<DH>, Dq<DH>::SMEM_BYTES, smem, blocks_per_sm);
-}
-
 }  // namespace
 
 // q, k, v, o, dout, dq: (bh, t, dh) contiguous bf16, 16-byte aligned; lse:
@@ -560,10 +739,10 @@ extern "C" int gordo_flash_attention_backward_dq_bf16(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   switch (dh) {
-    case 16: err = launch_dq<16>(qb, kb, vb, ob, lf, gb, dqb, bh, t, scale, causal, s); break;
-    case 32: err = launch_dq<32>(qb, kb, vb, ob, lf, gb, dqb, bh, t, scale, causal, s); break;
-    case 64: err = launch_dq<64>(qb, kb, vb, ob, lf, gb, dqb, bh, t, scale, causal, s); break;
-    case 128: err = launch_dq<128>(qb, kb, vb, ob, lf, gb, dqb, bh, t, scale, causal, s); break;
+    case 16: err = dq::launch<16>(qb, kb, vb, ob, lf, gb, dqb, bh, t, scale, causal, s); break;
+    case 32: err = dq::launch<32>(qb, kb, vb, ob, lf, gb, dqb, bh, t, scale, causal, s); break;
+    case 64: err = dq::launch<64>(qb, kb, vb, ob, lf, gb, dqb, bh, t, scale, causal, s); break;
+    case 128: err = dq::launch<128>(qb, kb, vb, ob, lf, gb, dqb, bh, t, scale, causal, s); break;
     default: err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);
@@ -600,10 +779,10 @@ extern "C" int gordo_flash_attention_backward_dkv_bf16(
 extern "C" int gordo_flash_attention_backward_dq_bf16_occupancy(int dh, int* smem_bytes,
                                                                int* blocks_per_sm) {
   switch (dh) {
-    case 16: return static_cast<int>(dq_occupancy<16>(smem_bytes, blocks_per_sm));
-    case 32: return static_cast<int>(dq_occupancy<32>(smem_bytes, blocks_per_sm));
-    case 64: return static_cast<int>(dq_occupancy<64>(smem_bytes, blocks_per_sm));
-    case 128: return static_cast<int>(dq_occupancy<128>(smem_bytes, blocks_per_sm));
+    case 16: return static_cast<int>(dq::occupancy<16>(smem_bytes, blocks_per_sm));
+    case 32: return static_cast<int>(dq::occupancy<32>(smem_bytes, blocks_per_sm));
+    case 64: return static_cast<int>(dq::occupancy<64>(smem_bytes, blocks_per_sm));
+    case 128: return static_cast<int>(dq::occupancy<128>(smem_bytes, blocks_per_sm));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -620,9 +799,32 @@ extern "C" int gordo_flash_attention_backward_dkv_bf16_occupancy(int dh, int* sm
   }
 }
 
-// The host time of encoding the dK/dV kernel's five tensor maps at
-// (bh, t, dh), the mean over `reps` encodings, in microseconds, for reports;
-// the maps point at `base` and are not used. Returns the CUDA error code.
+// The host time of encoding the dQ kernel's five tensor maps at (bh, t, dh),
+// the mean over `reps` encodings, in microseconds, for reports; the maps
+// point at `base` and are not used. Returns the CUDA error code.
+extern "C" int gordo_flash_attention_backward_dq_bf16_encode_us(const void* base, int bh, int t,
+                                                               int dh, int reps, float* us) {
+  if (reps <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const bf16* p = static_cast<const bf16*>(base);
+  CUtensorMap maps[5];
+  const auto start = std::chrono::steady_clock::now();
+  for (int i = 0; i < reps; ++i) {
+    cudaError_t err;
+    switch (dh) {
+      case 16: err = dq::encode<16>(maps, p, p, p, p, p, bh, t); break;
+      case 32: err = dq::encode<32>(maps, p, p, p, p, p, bh, t); break;
+      case 64: err = dq::encode<64>(maps, p, p, p, p, p, bh, t); break;
+      case 128: err = dq::encode<128>(maps, p, p, p, p, p, bh, t); break;
+      default: err = cudaErrorInvalidValue;
+    }
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const std::chrono::duration<double, std::micro> spent = std::chrono::steady_clock::now() - start;
+  *us = static_cast<float>(spent.count() / reps);
+  return 0;
+}
+
+// As above, for the dK/dV kernel's five tensor maps.
 extern "C" int gordo_flash_attention_backward_dkv_bf16_encode_us(const void* base, int bh, int t,
                                                                 int dh, int reps, float* us) {
   if (reps <= 0) return static_cast<int>(cudaErrorInvalidValue);

@@ -1,6 +1,6 @@
 // Hopper (sm_90a) building blocks of the warp-specialised bf16 flash-attention
-// kernels of this directory: the forward (flash_attention_bf16.cu) and dK/dV
-// (flash_attention_bwd_bf16.cu). Inline PTX throughout (PTX ISA 8.x).
+// kernels of this directory: the forward (flash_attention_bf16.cu), dQ and
+// dK/dV (flash_attention_bwd_bf16.cu). Inline PTX throughout (PTX ISA 8.x).
 //
 // - wgmma.mma_async m64nNk16, bf16 x bf16 -> float32, N = 16, 32, 64 or 128,
 //   in SS form (A and B from shared memory, both K-major) and RS form (A
@@ -12,8 +12,18 @@
 //   load of a 3-D box (cp.async.bulk.tensor), with the host-side encoding
 //   of its CUtensorMap through the runtime's driver entry point (no libcuda
 //   link).
-// - setmaxnreg and named barriers for the warp-specialised block.
-// - The float32-to-A-fragment split of P and dS into three bf16 parts.
+// - setmaxnreg and named barriers for the warp-specialised block, and the
+//   order in which a persistent block walks over (head, query tile) work.
+// - The float32-to-A-fragment split of P and dS into three bf16 parts, and
+//   the float32 dot product of bf16 rows (D = rowsum(dO O)).
+//
+// Every input is exact in float32 and every product and sum is float32, as
+// in the TPU kernels: a bf16 x bf16 product is exact, so S, dP and their
+// transposes are one bf16 product with float32 sums; P and dS, float32,
+// go through three bf16 products, one per part of their split, which hold
+// all 24 of their significand bits (two parts leave outputs more than a
+// bf16 ulp off where the sum cancels, one moves a third of them:
+// tests/test_torch_bf16.py emulates all three).
 //
 // Layouts (PTX ISA, "Matrix fragments for wgmma" and "Shared memory matrix
 // layout"; CUTLASS's SM90 GMMA traits give the same):
@@ -44,6 +54,10 @@
 #include <cstdint>
 
 namespace gordo_wgmma {
+
+using bf16 = __nv_bfloat16;
+
+constexpr float LOG2E = 1.4426950408889634f;
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -107,6 +121,27 @@ __device__ __forceinline__ void setmaxnreg_dec() {
 // barrier `id` (1..15; 0 is __syncthreads) over `threads` threads
 __device__ __forceinline__ void named_barrier(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// --- persistent scheduling ---
+
+// the key tiles of `bn` rows that query rows [0, row_end) see
+__device__ __forceinline__ int key_tiles(int row_end, int t, int bn, int causal) {
+  const int all = (t + bn - 1) / bn;
+  return causal ? min(all, (row_end + bn - 1) / bn) : all;
+}
+
+// Work item w of bh * n_q_tiles: head w / n_q_tiles, so that the query
+// tiles of a head run at once on neighbouring SMs (K and V come from L2
+// after the first); within a head the tiles rotate by the round the head
+// falls in, so that each SM, taking every grid-th item, cycles through
+// light and heavy causal tiles.
+__device__ __forceinline__ void schedule(int w, int n_q_tiles, int grid, int* bh, int* qt) {
+  const int h = w / n_q_tiles;
+  const int slot = w - h * n_q_tiles;
+  const long long round = static_cast<long long>(h) * n_q_tiles / grid;
+  *bh = h;
+  *qt = n_q_tiles - 1 - static_cast<int>((slot + round) % n_q_tiles);
 }
 
 // --- mbarriers ---
@@ -462,6 +497,21 @@ __device__ __forceinline__ void fence_split(uint32_t (&a)[NC][3][4]) {
 #pragma unroll
     for (int part = 0; part < 3; ++part) fence_regs(a[c][part]);
   }
+}
+
+// acc + the sum of the products of the eight bf16 pairs of a and b, in
+// float32
+__device__ __forceinline__ float dot8(uint4 a, uint4 b, float acc) {
+  const uint32_t av[4] = {a.x, a.y, a.z, a.w};
+  const uint32_t bv[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 x = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&av[i]));
+    const float2 y = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&bv[i]));
+    acc = fmaf(x.x, y.x, acc);
+    acc = fmaf(x.y, y.y, acc);
+  }
+  return acc;
 }
 
 // the sum over the four threads of a quad (an accumulator row's holders)

@@ -15,10 +15,10 @@ causal mask, returning the output and the per-row logsumexp, stored here as
 the Pallas kernels, all of them take float32 or bf16 inputs, compute in
 float32 and write out, dq, dk and dv in the input dtype; lse is float32.
 The float32 kernels run their products on the tensor cores in 3xTF32
-(``csrc/mma_tf32x3.cuh``), the bf16 kernels in bf16 with float32 sums: the
-forward and dK/dV on Hopper's ``wgmma``, fed by TMA in warp-specialised
-blocks (``csrc/wgmma_bf16.cuh``), dQ on ``mma.sync`` (``csrc/mma_bf16.cuh``);
-the source notes say what bounds each and what its design does about that.
+(``csrc/mma_tf32x3.cuh``), the bf16 kernels in bf16 with float32 sums, all
+three on Hopper's ``wgmma``, fed by TMA in warp-specialised blocks
+(``csrc/wgmma_bf16.cuh``); the source notes say what bounds each and what
+its design does about that.
 
 Dispatch is by where the tensors lie: CPU tensors take the plain twins,
 CUDA tensors launch the kernels or raise. There is no fallback from one to

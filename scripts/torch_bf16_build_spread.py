@@ -20,8 +20,10 @@ initial weights and the batch order), each time:
 scores in the build's predicts over 8,192 windows outgrow the card.)
 
 Prints the card's name and power limit, the held-out scaled MSE
-(``chip_smoke.held_out_mse``) of each build, each side's mean, smallest and
-largest, and one JSON line.
+(``chip_smoke.held_out_mse``) of each build, each side's mean, standard
+deviation, smallest and largest, with ``--other`` the paired differences
+(source minus other, seed by seed: their mean, standard deviation, paired
+t and the seeds where the source reads higher), and one JSON line.
 """
 
 import argparse
@@ -85,10 +87,22 @@ def main(argv) -> int:
             mse[side].append(err["trained"])
             print(f"seed {seed} {side} on {card}: held-out scaled MSE {err['trained']:.6f} "
                   f"(seeded initial weights {err['seeded']:.6f})", flush=True)
-    summary = {side: {"mean": statistics.fmean(x), "min": min(x), "max": max(x)}
-               for side, x in mse.items()}
+    summary = {side: {"mean": statistics.fmean(x), "sd": statistics.stdev(x) if len(x) > 1
+                      else None, "min": min(x), "max": max(x)} for side, x in mse.items()}
     for side, s in summary.items():
-        print(f"{side}: mean {s['mean']:.6f}, min {s['min']:.6f}, max {s['max']:.6f}", flush=True)
+        print(f"{side}: mean {s['mean']:.6f}, sd {s['sd']}, min {s['min']:.6f}, "
+              f"max {s['max']:.6f}", flush=True)
+    if "other" in mse and args.seeds > 1:
+        # the seeds pair the two sides: the same weights and batch order
+        diff = [a - b for a, b in zip(mse["source"], mse["other"])]
+        sd = statistics.stdev(diff)
+        paired = {"mean": statistics.fmean(diff), "sd": sd,
+                  "t": statistics.fmean(diff) / (sd / len(diff) ** 0.5) if sd > 0 else None,
+                  "source_higher": sum(d > 0 for d in diff)}
+        summary["source_minus_other"] = paired
+        print(f"source - other: mean {paired['mean']:.6f}, sd {sd:.6f}, paired t "
+              f"{paired['t']} ({len(diff) - 1} df), source higher on "
+              f"{paired['source_higher']} of {len(diff)} seeds", flush=True)
     print(json.dumps({"card": card, "seeds": args.seeds, "held_out_mse": mse,
                       "summary": summary}))
     return 0

@@ -5,7 +5,9 @@ NVIDIA GPU.
     python3 scripts/torch_bf16_variants.py [VARIANT ...]   # from the repo root
 
 A variant is the kernels' sources (``gordo_tpu_torch/ops/csrc``) with a
-few text replacements (``VARIANTS``: each names its file). Two kinds:
+few text replacements (``VARIANTS``: each names its file;
+``tests/test_torch_build.py`` checks on the CPU that each applies). Three
+kinds:
 
 - accumulation choices, held to the gates: how deep each product's wgmma
   chain runs in one accumulator before it is added in float32, the
@@ -13,14 +15,17 @@ few text replacements (``VARIANTS``: each names its file). Two kinds:
   (``flash_attention_bf16.cu``) P V a tile at a time instead of over the
   whole loop; in dK/dV (``flash_attention_bwd_bf16.cu``) S^T and dP^T one
   k16 step at a time instead of a tile, P^T dO a tile at a time instead of
-  the whole loop, dS^T Q the whole loop instead of a tile; and, for the dQ
-  kernel (``mma_bf16.cuh``), P and dS in two bf16 parts or one instead of
-  three, or S and dP summed in one running accumulator instead of a fresh
-  one per 16-deep step;
-- the forward's layout and softmax: two consumer warpgroups (128-row work
-  tiles) instead of three at dh 64; 128-key K/V tiles; a ring of K/V
-  stages 4 or 5 deep instead of 3; O rescaled whenever a row's max grows
-  instead of only when it grows by more than 2^8;
+  the whole loop, dS^T Q the whole loop instead of a tile; in dQ (the same
+  file) S and dP one k16 step at a time instead of a tile, dS K a tile at
+  a time instead of the whole loop, dS in two bf16 parts or one instead of
+  three, and D = rowsum(dO O) by float32 fmas on the CUDA cores instead of
+  the diagonal of dO O^T on the tensor cores;
+- layouts and schedules: in the forward two consumer warpgroups (128-row
+  work tiles) instead of three at dh 64, 128-key K/V tiles, a ring of K/V
+  stages 4 or 5 deep instead of 3, O rescaled whenever a row's max grows
+  instead of only when it grows by more than 2^8; in dQ S and dP waited
+  for apart, a ring 2 or 4 deep instead of 3, one block per work instead
+  of a persistent block per SM;
 - diagnostic cuts (``DIAGNOSTIC``), timed only, their results wrong by
   design: a part of the work taken out to see what it costs, or every
   head reading head 0's K and V (which then stay in L2).
@@ -62,12 +67,6 @@ SOURCES = ("flash_attention_bf16", "flash_attention_bwd_bf16")
 FWD = "flash_attention_bf16.cu"
 BWD = "flash_attention_bwd_bf16.cu"
 
-_LO = """      mma(p0, a[i].lo, b[0]);
-      mma(p1, a[i].lo, b[1]);
-"""
-_MID = """      mma(p0, a[i].mid, b[0]);
-      mma(p1, a[i].mid, b[1]);
-"""
 # name -> [(file in csrc, its text, the replacement)]; each text must occur once
 VARIANTS = {
     "fwd_pv_tile": [(FWD, """    int pending = 0;                      // the stage of the pending tile
@@ -151,17 +150,151 @@ VARIANTS = {
       wgmma_wait<0>();
       fence_regs(dka);
 """)],
-    "dq_two_parts": [("mma_bf16.cuh", _LO, "")],
-    "dq_one_part": [("mma_bf16.cuh", _LO + _MID, "")],
-    "dq_running_sum": [("mma_bf16.cuh", """      float f0[4] = {0.f, 0.f, 0.f, 0.f}, f1[4] = {0.f, 0.f, 0.f, 0.f};
-      mma(f0, a, b[0]);
-      mma(f1, a, b[1]);
+    "dq_sdp_step": [(BWD, """      fence_regs(sc);
+      fence_regs(dp);
+      wgmma_fence();
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        acc[2 * j][e] += f0[e];
-        acc[2 * j + 1][e] += f1[e];
-      }""", """      mma(acc[2 * j], a, b[0]);
-      mma(acc[2 * j + 1], a, b[1]);""")],
+      for (int kk = 0; kk < DH / 16; ++kk) {
+        Wgmma<BN>::ss(sc, L::k_major(q_tile, BLOCK_M, 64 * wg, kk),
+                      L::k_major(k_tile, BN, 0, kk), kk > 0);
+      }
+#pragma unroll
+      for (int kk = 0; kk < DH / 16; ++kk) {
+        Wgmma<BN>::ss(dp, L::k_major(do_tile, BLOCK_M, 64 * wg, kk),
+                      L::k_major(v_tile, BN, 0, kk), kk > 0);
+      }
+      wgmma_commit();
+""", """#pragma unroll
+      for (int kk = 0; kk < DH / 16; ++kk) {
+        float fs[BN / 2], fd[BN / 2];
+        fence_regs(fs);
+        fence_regs(fd);
+        wgmma_fence();
+        Wgmma<BN>::ss(fs, L::k_major(q_tile, BLOCK_M, 64 * wg, kk),
+                      L::k_major(k_tile, BN, 0, kk), 0);
+        Wgmma<BN>::ss(fd, L::k_major(do_tile, BLOCK_M, 64 * wg, kk),
+                      L::k_major(v_tile, BN, 0, kk), 0);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(fs);
+        fence_regs(fd);
+#pragma unroll
+        for (int i = 0; i < BN / 2; ++i) {
+          sc[i] = kk == 0 ? fs[i] : sc[i] + fs[i];
+          dp[i] = kk == 0 ? fd[i] : dp[i] + fd[i];
+        }
+      }
+""")],
+    "dq_tile": [(BWD, """    int pending = 0;        // the stage of the pending tile
+""", """    int pending = 0;        // the stage of the pending tile
+    float f[DH / 2];        // dS K of the pending tile
+"""), (BWD, """      fence_regs(acc);
+      wgmma_fence();
+      rs_product<DH, NC>(acc, a, k_desc, true);
+""", """      fence_regs(f);
+      wgmma_fence();
+      rs_product<DH, NC>(f, a, k_desc, false);
+"""), (BWD, """      fence_regs(acc);
+      fence_split(a);
+""", """      fence_regs(f);
+#pragma unroll
+      for (int i = 0; i < DH / 2; ++i) acc[i] += f[i];
+      fence_split(a);
+""")],
+    "dq_two_parts": [(BWD, "      rs_product<DH, NC>(acc, a, k_desc, true);\n", """#pragma unroll
+      for (int part = 1; part < 3; ++part) {
+#pragma unroll
+        for (int c = 0; c < NC; ++c) Wgmma<DH>::rs(acc, a[c][part], k_desc(c), 1);
+      }
+""")],
+    "dq_one_part": [(BWD, "      rs_product<DH, NC>(acc, a, k_desc, true);\n", """#pragma unroll
+      for (int c = 0; c < NC; ++c) Wgmma<DH>::rs(acc, a[c][2], k_desc(c), 1);
+""")],
+    # dQ's D = rowsum(dO O) by float32 fmas on the CUDA cores, from the
+    # shared O and dO tiles, instead of the diagonal of dO O^T on the tensor
+    # cores
+    "dq_d_fma": [(BWD, """        const uint32_t o_tile = (wg == 0 ? k_slot : v_slot) + s * C::KV_BYTES;
+        fence_regs(dp);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < DH / 16; ++kk) {
+          Wgmma<BN>::ss(dp, L::k_major(do_tile, BLOCK_M, 64 * wg, kk),
+                        L::k_major(o_tile, BN, 0, kk), kk > 0);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(dp);
+        // (r, r), r = 16 warp + g + 8 h, is column g of column group
+        // 2 warp + h, held by lane 4 g + g / 2 of the quad
+        float diag0 = 0.f, diag1 = 0.f;
+#pragma unroll
+        for (int w4 = 0; w4 < 4; ++w4) {
+          if (w4 == warp) {
+            diag0 = (g & 1) ? dp[8 * w4 + 1] : dp[8 * w4];
+            diag1 = (g & 1) ? dp[8 * w4 + 7] : dp[8 * w4 + 6];
+          }
+        }
+        d0 = __shfl_sync(0xffffffffu, diag0, 4 * g + g / 2);
+        d1 = __shfl_sync(0xffffffffu, diag1, 4 * g + g / 2);
+""", """        const uint8_t* o_rows = smem + (wg == 0 ? C::K : C::V) + s * C::KV_BYTES;
+        const uint8_t* do_rows = smem + C::Q + b * 2 * C::Q_BYTES + C::Q_BYTES;
+        const int r = 16 * warp + g;
+        float part0 = 0.f, part1 = 0.f;
+#pragma unroll
+        for (int ch = tq; ch < DH / 8; ch += 4) {
+          part0 = dot8(*reinterpret_cast<const uint4*>(o_rows + L::offset(BN, r, 8 * ch)),
+                       *reinterpret_cast<const uint4*>(
+                           do_rows + L::offset(BLOCK_M, 64 * wg + r, 8 * ch)), part0);
+          part1 = dot8(*reinterpret_cast<const uint4*>(o_rows + L::offset(BN, r + 8, 8 * ch)),
+                       *reinterpret_cast<const uint4*>(
+                           do_rows + L::offset(BLOCK_M, 64 * wg + r + 8, 8 * ch)), part1);
+        }
+        d0 = quad_sum(part0);
+        d1 = quad_sum(part1);
+""")],
+    # dQ's schedule: S and dP in two commit groups, P computed while dP
+    # runs; K/V rings of 2 or 4 stages instead of 3 (4 does not fit at
+    # dh 128); one block per work instead of a persistent block per SM
+    "dq_split_wait": [(BWD, """                      L::k_major(k_tile, BN, 0, kk), kk > 0);
+      }
+#pragma unroll
+      for (int kk = 0; kk < DH / 16; ++kk) {
+        Wgmma<BN>::ss(dp,""", """                      L::k_major(k_tile, BN, 0, kk), kk > 0);
+      }
+      wgmma_commit();
+#pragma unroll
+      for (int kk = 0; kk < DH / 16; ++kk) {
+        Wgmma<BN>::ss(dp,"""), (BWD, """      wgmma_wait<1>();
+      fence_regs(sc);
+      fence_regs(dp);
+      if (kt == mine - 1) mbar_arrive_warp(&q_empty[b]);  // the last read of Q and dO
+      probabilities(kt);
+      score_grads();
+""", """      wgmma_wait<2>();
+      fence_regs(sc);
+      probabilities(kt);
+      wgmma_wait<1>();
+      fence_regs(dp);
+      if (kt == mine - 1) mbar_arrive_warp(&q_empty[b]);  // the last read of Q and dO
+      score_grads();
+"""), (BWD, """      wgmma_wait<0>();
+      fence_regs(sc);
+      fence_regs(dp);
+      if (mine == 1) mbar_arrive_warp(&q_empty[b]);
+      probabilities(0);
+      score_grads();
+""", """      wgmma_wait<1>();
+      fence_regs(sc);
+      probabilities(0);
+      wgmma_wait<0>();
+      fence_regs(dp);
+      if (mine == 1) mbar_arrive_warp(&q_empty[b]);
+      score_grads();
+""")],
+    "dq_stages2": [(BWD, "  static constexpr int STAGES = 3;", "  static constexpr int STAGES = 2;")],
+    "dq_stages4": [(BWD, "  static constexpr int STAGES = 3;", "  static constexpr int STAGES = 4;")],
+    "dq_grid": [(BWD, "  const unsigned grid = static_cast<unsigned>(n_work < sms ? n_work : sms);",
+                 "  const unsigned grid = static_cast<unsigned>(n_work);")],
     # the forward's layout: two consumer warpgroups (128-row work tiles)
     # instead of three at dh 64; 128-key tiles; a deeper ring of K/V stages
     "fwd_2wg": [(FWD, "static constexpr int CONSUMERS = DH == 128 ? 2 : 3;",

@@ -278,12 +278,13 @@ def test_bf16_autograd_goes_through_the_bf16_kernels(cuda_device):
     assert all(g.dtype == torch.bfloat16 and torch.isfinite(g).all() for g in grads)
 
 
-# The bf16 forward and dK/dV run on wgmma fed by TMA through 3-D tensor maps
+# The bf16 kernels run on wgmma fed by TMA through 3-D tensor maps
 # (dh, T, BH), which zero-fill the rows at or past T of each head: at a T
 # that is not a multiple of the tiles (64 keys, 64-row warpgroup slices of
 # 128- or 192-row query tiles, 128-row key tiles, 32- or 64-row query tiles
 # in dK/dV), with BH >= 2, a tile that crosses T reads zeros, never the next
-# head's rows.
+# head's rows. dQ is also held to the gate against the float64 result
+# rounded to bf16, as chip_smoke.py holds it.
 WGMMA_T = [1, 77, 144, 200, 513]
 
 
@@ -293,17 +294,19 @@ WGMMA_T = [1, 77, 144, 200, 513]
 @pytest.mark.parametrize("dh", [16, 32, 64, 128])
 def test_wgmma_kernels_at_ragged_lengths_across_heads(cuda_device, dh, t, causal):
     q, k, v, do = _bf16_inputs((3, t, dh), 11, 4, cuda_device)
-    before = (fa.BF16_LAUNCHES, fa.BF16_DKV_LAUNCHES)
+    before = (fa.BF16_LAUNCHES, fa.BF16_DQ_LAUNCHES, fa.BF16_DKV_LAUNCHES)
     out, lse = fa.flash_attention_forward(q, k, v, causal)
-    runs = [fa.launch_dkv(q, k, v, out, lse, do, causal) for _ in range(2)]
+    runs = [(fa.launch_dq(q, k, v, out, lse, do, causal),
+             *fa.launch_dkv(q, k, v, out, lse, do, causal)) for _ in range(2)]
     torch.cuda.synchronize()
-    assert (fa.BF16_LAUNCHES, fa.BF16_DKV_LAUNCHES) == (before[0] + 1, before[1] + 2)
+    assert (fa.BF16_LAUNCHES, fa.BF16_DQ_LAUNCHES, fa.BF16_DKV_LAUNCHES) == (
+        before[0] + 1, before[1] + 2, before[2] + 2)
     ref_out, ref_lse = fa.flash_attention_forward_plain(q, k, v, causal)
     _assert_bf16_close(out, ref_out, "out")
     assert ((lse - ref_lse).abs() <= TOL_BF16_LSE_REL * ref_lse.abs().clamp_min(1.0)).all()
-    _, ref_dk, ref_dv = fa.flash_attention_backward_plain(q, k, v, out, lse, do, causal)
-    _, exact_dk, exact_dv = _exact_backward(q, k, v, out, lse, do, causal)
-    for name, got, again, ref, ref64 in (("dk", *(r[0] for r in runs), ref_dk, exact_dk),
-                                         ("dv", *(r[1] for r in runs), ref_dv, exact_dv)):
+    refs = fa.flash_attention_backward_plain(q, k, v, out, lse, do, causal)
+    exact = _exact_backward(q, k, v, out, lse, do, causal)
+    for name, got, again, ref, ref64 in zip(("dq", "dk", "dv"), *runs, refs, exact):
         _assert_bf16_close(got, ref, name, ref64)
         assert torch.equal(got, again), name  # no atomics: bit-identical reruns
+    _assert_bf16_close(runs[0][0], exact[0].to(torch.bfloat16), "dq vs float64", exact[0])
