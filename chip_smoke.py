@@ -23,7 +23,10 @@ Drive the PyTorch/CUDA port (gordo_tpu_torch) on one NVIDIA GPU.
    no HMMA, the three float32 ``mma.sync`` kernels HMMA. Each timed entry
    gets its achieved TFLOP/s and the share of its bound it reaches; the
    ``wgmma`` kernels' host time of encoding their TMA tensor maps is
-   printed beside their registers.
+   printed beside their registers. All six are also held against their
+   plain twins at the fleet's training shape (FLEET_SHAPE, BH 1,024; the
+   float32 and bf16 gates above) and timed there beside their bounds and
+   ``scaled_dot_product_attention``.
 4. Serving path: a ``transformer-ae-512`` artifact (TransformerAutoEncoder,
    lookback 512, d_model 256, 4 heads, ff 512, 2 blocks, 8 tags; weights
    from a seed) is served by the port's HTTP server on the card, and three
@@ -31,7 +34,14 @@ Drive the PyTorch/CUDA port (gordo_tpu_torch) on one NVIDIA GPU.
    row counts, finite values, one kernel launch per Transformer block per
    request, and the first answer's model output against the same model with
    the plain attention.
-5. Build path: one step's gradients and the first 20 step losses of the
+5. Server surface: the same artifact served as ``run-server`` serves it,
+   with ``EXPECTED_MODELS`` naming it: every GET route (readiness met, and
+   unmet for a sibling revision without the model), three base requests
+   (``POST …/prediction``; 1,535, 700 and 1,535 rows), each one forward
+   launch per block, its model output equal to the anomaly route's and
+   the first held against plain attention, and ``download-model``'s bytes
+   loaded back on the card, predicting as served.
+6. Build path: one step's gradients and the first 20 step losses of the
    model against the same parameters with the plain attention; then the
    ``transformer-ae-512`` machine is built from its config
    (``BUILD_CONFIG``: RandomDataset, 6,144 rows, a ``DiffBasedAnomalyDetector``
@@ -44,7 +54,7 @@ Drive the PyTorch/CUDA port (gordo_tpu_torch) on one NVIDIA GPU.
    (``python -m gordo_tpu_torch build``) builds it once more in a
    subprocess; the built artifact answers one request and its metadata
    request through the server.
-6. bf16: the bf16 forward, dQ and dK/dV kernels against their plain twins
+7. bf16: the bf16 forward, dQ and dK/dV kernels against their plain twins
    on bf16 inputs at the same shapes (every element within one bf16 ulp of
    the twin's, at most 1% of them different at all, lse within 1e-5
    relative, bit-identical backward reruns; dQ also within that gate of the
@@ -55,7 +65,20 @@ Drive the PyTorch/CUDA port (gordo_tpu_torch) on one NVIDIA GPU.
    checked as above, its training and predicts going through the bf16
    kernels alone, and the built artifact answers a 1,535-row request whose
    model output is held against the same bf16 model with plain attention.
-7. A ``kernels`` JSON line (six entries: three float32, three bf16), then
+8. Fleet: eight ``transformer-ae-512`` machines (each its own tags, so its
+   own data) built by ``BatchedModelBuilder`` on the card, in float32 and
+   in bf16: every machine from the stacked program, one dQ and one dK/dV
+   launch per block a stacked step for the whole bucket (attention BH =
+   machines x batch x heads), no plain attention, each machine's held-out
+   error below its seeded weights', finite thresholds; the wall, ms per
+   stacked step and peak memory beside the serial build x 8. A two-machine
+   bucket against the serial model on the same parameters: one batch's
+   output and parameter gradients (float32 within TOL_GRAD_REL, bf16
+   within TOL_BF16_MODEL_REL), then 20 float32 step losses against the
+   serial trainer's on the same orders; ``python -m gordo_tpu_torch batch-build`` in a
+   subprocess, and one of its artifacts answering a base and an anomaly
+   request.
+9. A ``kernels`` JSON line (six entries: three float32, three bf16), then
    the last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
@@ -72,6 +95,7 @@ import subprocess
 import sys
 import threading
 import time
+import urllib.error
 import urllib.request
 from datetime import datetime, timedelta, timezone
 from pathlib import Path
@@ -123,14 +147,15 @@ TOL_BF16_MODEL_REL = 2e-2
 # (gordo_tpu_torch/ops/csrc/wgmma_bf16.cuh)
 FLOP_PER_PAIR = {"float32": {"forward": 4, "dq": 6, "dkv": 8},
                  "bfloat16": {"forward": 8, "dq": 10, "dkv": 16}}
-def build_config(name: str, **estimator) -> dict:
-    """A transformer-ae-512 machine: 6,144 ten-minute RandomDataset rows, the
-    model written with the JAX package's paths (``estimator`` added to the
-    TransformerAutoEncoder's arguments), the default CV and metrics."""
+def build_config(name: str, tags=TAGS, **estimator) -> dict:
+    """A transformer-ae-512 machine: 6,144 ten-minute RandomDataset rows of
+    ``tags``, the model written with the JAX package's paths (``estimator``
+    added to the TransformerAutoEncoder's arguments), the default CV and
+    metrics."""
     return {
         "name": name,
         "dataset": {"type": "RandomDataset", "train_start_date": "2020-01-01T00:00:00+00:00",
-                    "train_end_date": "2020-02-12T16:00:00+00:00", "tags": TAGS,
+                    "train_end_date": "2020-02-12T16:00:00+00:00", "tags": list(tags),
                     "resolution": "10min"},
         "model": {"gordo_tpu.models.anomaly.diff.DiffBasedAnomalyDetector": {
             "base_estimator": {"sklearn.pipeline.Pipeline": {"steps": [
@@ -889,7 +914,7 @@ def gradient_and_loss_checks(card: str, rows: np.ndarray, spec) -> None:
         raise AssertionError("the loss curve through the flash kernels disagrees")
 
 
-def _provider_continuation(n_train: int, n_rows: int, rng) -> np.ndarray:
+def _provider_continuation(n_train: int, n_rows: int, rng, tags=TAGS) -> np.ndarray:
     """Rows ``n_train .. n_train + n_rows`` of each tag's RandomDataProvider
     signal: its three sines and its offset continued past the training
     span, with fresh noise of the same scale (the provider's own draws, in
@@ -899,7 +924,7 @@ def _provider_continuation(n_train: int, n_rows: int, rng) -> np.ndarray:
     provider = RandomDataProvider()
     t = np.arange(n_train, n_train + n_rows, dtype=np.float64)
     columns = []
-    for tag in TAGS:
+    for tag in tags:
         draws = np.random.RandomState(provider._tag_seed(SensorTag(tag)))
         freqs, amps, phases = (draws.uniform(low, high, size=3)
                                for low, high in ((0.001, 0.05), (0.5, 2.0), (0, 2 * np.pi)))
@@ -956,6 +981,13 @@ def cli_build(collection: Path, register: Path) -> None:
         raise AssertionError(f"expected {expected} finite score lines, got {len(lines)}")
 
 
+def _config_rows(config: dict) -> int:
+    """The ten-minute rows of a build config's dataset (6,144)."""
+    dataset = config["dataset"]
+    return (datetime.fromisoformat(dataset["train_end_date"])
+            - datetime.fromisoformat(dataset["train_start_date"])) // timedelta(minutes=10)
+
+
 def build_and_check(card: str, config: dict, spec, output: Path, register: Path):
     """Build ``config``'s machine through ``ModelBuilder`` on the card (3-fold
     CV and a fit over the config's 6,144 RandomDataset rows, 420 steps) and
@@ -974,9 +1006,7 @@ def build_and_check(card: str, config: dict, spec, output: Path, register: Path)
 
     dtype = spec.compute_dtype
     other = next(d for d in COUNTERS if d != dtype)
-    dataset = config["dataset"]  # 6,144 ten-minute rows
-    n_rows = (datetime.fromisoformat(dataset["train_end_date"])
-              - datetime.fromisoformat(dataset["train_start_date"])) // timedelta(minutes=10)
+    n_rows = _config_rows(config)
     steps = [math.ceil(n_train_samples(spec, len(train_idx)) / BATCH)
              for train_idx, _ in TimeSeriesSplit(3).split(np.zeros(n_rows))]
     steps.append(math.ceil(n_train_samples(spec, n_rows) / BATCH))
@@ -1043,19 +1073,19 @@ def build_and_check(card: str, config: dict, spec, output: Path, register: Path)
           f"{model.aggregate_threshold_}", flush=True)
     if not all(math.isfinite(x) for x in thresholds):
         raise AssertionError("a threshold is not finite")
-    return model, launches
+    return model, launches, seconds
 
 
-def held_out_mse(model, spec, n_rows: int) -> dict:
+def held_out_mse(model, spec, n_rows: int, tags=TAGS) -> dict:
     """The scaled MSE of a built detector (``trained``) and of the same
     model with the seeded initial weights (``seeded``) on 2,048 rows of the
-    provider's signal past the ``n_rows`` of the training span."""
+    provider's signal of ``tags`` past the ``n_rows`` of the training span."""
     import torch
 
     from gordo_tpu_torch.models.models import TransformerAutoEncoder
     from gordo_tpu_torch.ops.nn import init_model_params
 
-    held_out = _provider_continuation(n_rows, 2048, np.random.RandomState(SEED + 3))
+    held_out = _provider_continuation(n_rows, 2048, np.random.RandomState(SEED + 3), tags)
     input_scaler = model.base_estimator.steps[0][1]
     seeded = TransformerAutoEncoder(**CONFIG).load_params(
         spec, init_model_params(spec, torch.Generator().manual_seed(SEED)), "cuda")
@@ -1070,7 +1100,8 @@ def build_path(card: str, root: Path) -> dict:
     """Build the transformer-ae-512 machine from its config on the card
     (:func:`build_and_check`), build it again from the register's cache,
     build it once more through the CLI, and serve the built artifact.
-    Returns the kernels' launches in the build and in the served request."""
+    Returns the kernels' launches in the build and in the served request,
+    and the build's seconds."""
     import torch
 
     from gordo_tpu_torch.machine import Machine
@@ -1082,7 +1113,7 @@ def build_path(card: str, root: Path) -> dict:
     spec = TransformerAutoEncoder(**CONFIG).build_spec(len(TAGS), len(TAGS))
     gradient_and_loss_checks(card, rows, spec)
     output, register = root / "transformer-ae-512-built", root.parent / "register"
-    model, launches = build_and_check(card, BUILD_CONFIG, spec, output, register)
+    model, launches, seconds = build_and_check(card, BUILD_CONFIG, spec, output, register)
     input_scaler = model.base_estimator.steps[0][1]
 
     # the same machine again: a cache hit, which trains and launches nothing
@@ -1113,7 +1144,7 @@ def build_path(card: str, root: Path) -> dict:
             and served["cross_validation"].get("splits")
             and served.get("model_meta", {}).get("aggregate-threshold") is not None):
         raise AssertionError("the served metadata lacks the build's model metadata")
-    return launches
+    return launches, seconds
 
 
 def bf16_build_path(card: str, root: Path) -> dict:
@@ -1121,18 +1152,552 @@ def bf16_build_path(card: str, root: Path) -> dict:
     (:func:`build_and_check`) and serve the built artifact: one 1,535-row
     request, its model output against the same bf16 model with plain
     attention. Returns the bf16 kernels' launches in the build and in the
-    served request."""
+    served request, and the build's seconds."""
     from gordo_tpu_torch.models.models import TransformerAutoEncoder
 
     spec = TransformerAutoEncoder(**CONFIG, compute_dtype="bfloat16").build_spec(
         len(TAGS), len(TAGS))
     output = root / "transformer-ae-512-bf16-built"
-    model, launches = build_and_check(card, BUILD_CONFIG_BF16, spec, output,
-                                      root.parent / "register-bf16")
+    model, launches, seconds = build_and_check(card, BUILD_CONFIG_BF16, spec, output,
+                                               root.parent / "register-bf16")
     layers = model.base_estimator.steps[-1][1].module_.params_numpy()
     launches["serving"] = main_path(card, spec, layers, model.base_estimator.steps[0][1],
                                     root, name=output.name, request_rows=(1535,))
-    return launches
+    return launches, seconds
+
+
+class _PlainAttentionCalls:
+    """Counts the calls of the plain attention path while it is entered: a
+    phase on the card that reaches it fails."""
+
+    def __enter__(self):
+        from gordo_tpu_torch.ops import attention
+
+        self.calls, self._plain = 0, attention.dot_product_attention_plain
+
+        def counted(*args, **kwargs):
+            self.calls += 1
+            return self._plain(*args, **kwargs)
+
+        attention.dot_product_attention_plain = counted
+        return self
+
+    def __exit__(self, *exc):
+        from gordo_tpu_torch.ops import attention
+
+        attention.dot_product_attention_plain = self._plain
+
+
+def _request(url: str, payload=None) -> tuple:
+    """``(status, body bytes, headers, ms)`` of a GET (or a POST of
+    ``payload``), HTTP errors included."""
+    data = None if payload is None else json.dumps(payload).encode()
+    req = urllib.request.Request(url, data=data, headers={"Content-Type": "application/json"})
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=300) as resp:
+            status, body, headers = resp.status, resp.read(), resp.headers
+    except urllib.error.HTTPError as err:
+        status, body, headers = err.code, err.read(), err.headers
+    return status, body, headers, 1e3 * (time.perf_counter() - t0)
+
+
+def _columns(block: dict, tags) -> np.ndarray:
+    return np.array([list(block[tag].values()) for tag in tags]).T
+
+
+def server_surface_path(card: str, spec, layers, scaler, collection: Path,
+                        device: str = "cuda") -> int:
+    """The rest of the server's routes on the transformer-ae-512 artifact,
+    served as ``run-server`` serves it (``make_server``, then
+    ``serve_forever``) with ``EXPECTED_MODELS`` naming it: every GET route
+    (status and keys; readiness met, and unmet for a sibling revision
+    without the model), three base requests (1,535, 700 and 1,535 rows),
+    each launching the forward once per block and nothing else, its
+    ``model-output`` equal to the anomaly route's for the same request and
+    the first held against plain attention; and ``download-model``'s bytes
+    loaded back on the card, predicting as served. Returns the forward
+    launches of the base requests alone (the anomaly requests beside them
+    are not counted)."""
+    from gordo_tpu_torch import serializer
+    from gordo_tpu_torch.models.models import TransformerAutoEncoder
+    from gordo_tpu_torch.models.spec import TransformerBlock
+    from gordo_tpu_torch.server.server import make_server
+
+    started = time.perf_counter()
+    name, dtype = "transformer-ae-512", spec.compute_dtype
+    n_blocks = sum(isinstance(layer, TransformerBlock) for layer in spec.layers)
+    previous = os.environ.get("EXPECTED_MODELS")
+    os.environ["EXPECTED_MODELS"] = json.dumps([name])
+    try:
+        server = make_server("127.0.0.1", 0, device=device, collection_dir=str(collection))
+    finally:
+        if previous is None:
+            del os.environ["EXPECTED_MODELS"]
+        else:
+            os.environ["EXPECTED_MODELS"] = previous
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    project = f"{base}/gordo/v0/smoke"
+    sibling = sorted(p.name for p in collection.parent.iterdir() if p.name != collection.name)[0]
+    revisions = sorted(p.name for p in collection.parent.iterdir())
+    gets = [  # (path, status, keys of the body, the body where it is known)
+        ("/healthcheck", 200, None, None),
+        ("/readiness", 200, {"ready"}, {"ready": True}),
+        (f"/readiness?revision={sibling}", 503, {"ready", "missing", "n_missing"},
+         {"ready": False, "missing": [name], "n_missing": 1}),
+        ("/server-version", 200, {"version", "revision"}, None),
+        ("/gordo/v0/smoke/models", 200, {"models", "revision"},
+         {"models": [name], "revision": collection.name}),
+        ("/gordo/v0/smoke/revisions", 200, {"latest", "available-revisions", "revision"},
+         {"latest": collection.name, "available-revisions": revisions,
+          "revision": collection.name}),
+        ("/gordo/v0/smoke/expected-models", 200, {"expected-models", "revision"},
+         {"expected-models": [name], "revision": collection.name}),
+        (f"/gordo/v0/smoke/{name}/metadata", 200,
+         {"gordo-server-version", "metadata", "env", "revision"}, None),
+        (f"/gordo/v0/smoke/{name}/healthcheck", 200,
+         {"gordo-server-version", "metadata", "env", "revision"}, None),
+        ("/gordo/v0/smoke/nope/metadata", 404, {"message", "revision"}, None),
+        (f"/gordo/v0/smoke/{name}/metadata?revision=nope", 410, {"error"}, None),
+    ]
+    rng = np.random.RandomState(SEED + 5)
+    start = datetime(2020, 1, 1, tzinfo=timezone.utc)
+    first, base_launches = None, 0
+    try:
+        for path, status, keys, expected in gets:
+            got, body, _, ms = _request(base + path)
+            parsed = json.loads(body) if body else None
+            print(f"GET {path}: {got} in {ms:.1f} ms on {card}", flush=True)
+            if got != status or (keys is not None and set(parsed) != keys) or (
+                    expected is not None and parsed != expected):
+                raise AssertionError(f"GET {path}: {got} {parsed}")
+        _reset_launches()
+        with _PlainAttentionCalls() as plain:
+            for i, n_rows in enumerate(REQUEST_ROWS):
+                payload = _payload(_series(n_rows, 16384 + 2000 * i, rng), start)
+                before = _launches(dtype)["forward"]
+                status, body, _, ms = _request(f"{project}/{name}/prediction", payload)
+                launched = _launches(dtype)["forward"] - before
+                data = json.loads(body)["data"]
+                n_out = n_rows - spec.lookback_window + 1
+                if status != 200 or set(data) != {"start", "end", "model-input", "model-output"}:
+                    raise AssertionError(f"base request {i}: {status}, blocks {sorted(data)}")
+                for top, block in data.items():
+                    for column in block.values():
+                        if len(column) != n_out:
+                            raise AssertionError(f"{top}: {len(column)} rows, not {n_out}")
+                        if top not in ("start", "end") and not all(
+                                isinstance(x, float) and math.isfinite(x) for x in column.values()):
+                            raise AssertionError(f"{top} has non-finite values")
+                _, anomaly, _, anomaly_ms = _request(f"{project}/{name}/anomaly/prediction",
+                                                     payload)
+                same = json.loads(anomaly)["data"]["model-output"] == data["model-output"]
+                print(f"POST {name}/prediction {i}: {n_rows} rows -> {n_out} windows, status "
+                      f"{status}, {ms:.1f} ms on {card} (anomaly route {anomaly_ms:.1f} ms), "
+                      f"{dtype} flash launches {launched}, model-output equal to the anomaly "
+                      f"route's: {same}", flush=True)
+                if launched != n_blocks or not same:
+                    raise AssertionError(f"base request {i}: {launched} launches, equal {same}")
+                base_launches += launched
+                if first is None:
+                    first = (payload, data["model-output"])
+        launches = _launches(dtype)
+        if launches["dq"] or launches["dkv"] or plain.calls:
+            raise AssertionError(f"the base route launched a backward kernel or reached the "
+                                 f"plain attention ({plain.calls} calls)")
+        status, blob, headers, ms = _request(f"{project}/{name}/download-model")
+        if status != 200 or headers["Content-Disposition"] != "attachment; filename=model.tar.gz":
+            raise AssertionError(f"download-model: {status} {dict(headers)}")
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=60)
+
+    values = np.array([list(first[0]["X"][tag].values()) for tag in TAGS]).T
+    served = _columns(first[1], TAGS)
+    plain = TransformerAutoEncoder(**CONFIG).load_params(_with_attention(spec, "xla"), layers,
+                                                         device)
+    ref = plain.predict(scaler.transform(values))
+    err = np.abs(served - ref).max() / np.abs(ref).max()
+    loaded = serializer.loads(blob, device=device)
+    reloaded = np.abs(loaded.predict(values) - served).max() / np.abs(served).max()
+    print(f"base route model-output vs plain attention: max rel err {err:.3e}; download-model "
+          f"({len(blob)} bytes in {ms:.1f} ms) loaded back on {device}: max rel err "
+          f"{reloaded:.3e}; server surface phase {time.perf_counter() - started:.1f} s",
+          flush=True)
+    if not (err <= TOL_MODEL_REL and reloaded <= TOL_MODEL_REL):
+        raise AssertionError("the base route or the downloaded model disagrees")
+    return base_launches
+
+
+# the fleet phase's machines: each its own tags, so that their data differ
+FLEET_MACHINES = 8
+FLEET_TAGS = [[f"m{m}-tag-{j}" for j in range(len(TAGS))] for m in range(FLEET_MACHINES)]
+# one stacked training step's attention: machines x batch 32 x 4 heads (the
+# fold predicts run at SERVE_SHAPE: 1,024 machine-windows x 4 heads)
+FLEET_SHAPE = (FLEET_MACHINES * BATCH * 4, 512, 64)
+
+
+def _plain_in_parts(fn, tensors, causal: bool, parts: int = 4) -> list:
+    """``fn`` (a plain twin returning a tuple) over ``parts`` slices of BH,
+    its results joined: a quarter of its score matrices alive at once."""
+    import torch
+
+    pieces = [fn(*xs, causal) for xs in zip(*(x.chunk(parts) for x in tensors))]
+    return [torch.cat(outs) for outs in zip(*pieces)]
+
+
+def fleet_kernel_gates(q, k, v, do, o, lse) -> dict:
+    """The forward, dQ and dK/dV of one dtype at the fleet's shape held
+    against their plain twins on the same inputs (``o`` and ``lse`` from
+    the forward kernel, as training has them): float32 at TOL_OUT_REL,
+    TOL_LSE_ABS and TOL_GRAD_REL as the kernel phases hold them; bf16 by
+    ``_bf16_gate`` (one ulp, at most TOL_BF16_SHARE differing, the elements
+    that float64 makes exactly 0 held near 0) and lse at TOL_BF16_LSE_REL.
+    Raises on a miss; returns ``{kernel: errors}``."""
+    import torch
+
+    from gordo_tpu_torch.ops import flash_attention as fa
+
+    causal = True
+    bf16 = q.dtype == torch.bfloat16
+    inputs = (q, k, v, o, lse, do)
+    out, lse_k = fa.flash_attention_forward(q, k, v, causal)
+    got = {"out": out, "dq": fa.launch_dq(*inputs, causal)}
+    got["dk"], got["dv"] = fa.launch_dkv(*inputs, causal)
+    torch.cuda.synchronize()
+    ref_out, ref_lse = _plain_in_parts(fa.flash_attention_forward_plain, (q, k, v), causal)
+    refs = dict(zip(("dq", "dk", "dv"),
+                    _plain_in_parts(fa.flash_attention_backward_plain, inputs, causal)))
+    refs["out"] = ref_out
+    exact = (dict(zip(("dq", "dk", "dv"), _plain_in_parts(
+        fa.flash_attention_backward_plain, [x.double() for x in inputs], causal)))
+        if bf16 else {})
+    errors = {}
+    if bf16:
+        lse_err = ((lse_k - ref_lse).abs() / ref_lse.abs().clamp_min(1.0)).max().item()
+        ok = lse_err <= TOL_BF16_LSE_REL
+        for name in ("out", "dq", "dk", "dv"):
+            within, share, max_abs = _bf16_gate(got[name], refs[name], exact.get(name))
+            errors[name] = {"within_one_ulp": within, "share_differing": share,
+                            "max_abs_err": max_abs}
+            ok = ok and within and share <= TOL_BF16_SHARE
+    else:
+        lse_err = (lse_k - ref_lse).abs().max().item()
+        ok = lse_err <= TOL_LSE_ABS
+        for name in ("out", "dq", "dk", "dv"):
+            max_abs = (got[name] - refs[name]).abs().max().item()
+            # out relative to its largest entry; the gradients as the
+            # backward phase holds them, absolute below 1
+            scale = refs[name].abs().max().item()
+            rel = max_abs / (scale if name == "out" else max(scale, 1.0))
+            errors[name] = {"max_abs_err": max_abs, "max_rel_err": rel}
+            ok = ok and rel <= (TOL_OUT_REL if name == "out" else TOL_GRAD_REL)
+    errors["lse"] = lse_err
+    print(f"{'bf16' if bf16 else 'float32'} kernels at the fleet's {tuple(q.shape)} causal "
+          f"against their plain twins: {errors}", flush=True)
+    if not ok:
+        raise AssertionError(f"a kernel disagrees with its plain twin at {tuple(q.shape)}")
+    return errors
+
+
+def fleet_kernel_times(card: str) -> dict:
+    """The six kernels at FLEET_SHAPE, causal: each held against its plain
+    twin there (:func:`fleet_kernel_gates`), and its time beside its bound,
+    the plain twin's (the forward, or the whole backward) and
+    ``scaled_dot_product_attention``'s forward or whole backward on the
+    same inputs. Returns ``{kernel entry name: timings and errors}``."""
+    import torch
+
+    from gordo_tpu_torch.ops import flash_attention as fa
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    times = {}
+    for dtype, name, suffix, size in ((torch.float32, "float32", "", 4),
+                                      (torch.bfloat16, "bfloat16", "_bf16", 2)):
+        q, k, v, do = (torch.randn(FLEET_SHAPE, device="cuda", generator=g).to(dtype)
+                       for _ in range(4))
+        o, lse = fa.flash_attention_forward(q, k, v, True)
+        errors = fleet_kernel_gates(q, k, v, do, o, lse)
+        torch.cuda.empty_cache()
+        forward_lib, backward_lib = _sdpa_ms(q, k, v, 20), _sdpa_ms(q, k, v, 10, do=do)
+        plain_forward = _time_ms(lambda: fa.flash_attention_forward_plain(q, k, v, True), 5)
+        plain_backward = _time_ms(
+            lambda: fa.flash_attention_backward_plain(q, k, v, o, lse, do, True), 5)
+        torch.cuda.empty_cache()
+        for kernel, entry, call, n_tensors, library, plain_ms, checked in (
+                ("forward", "flash_attention_forward",
+                 lambda: fa.flash_attention_forward(q, k, v, True), 4, forward_lib,
+                 plain_forward, {"out": errors["out"], "lse": errors["lse"]}),
+                ("dq", "flash_attention_backward_dq",
+                 lambda: fa.launch_dq(q, k, v, o, lse, do, True), 6, backward_lib,
+                 plain_backward, {"dq": errors["dq"]}),
+                ("dkv", "flash_attention_backward_dkv",
+                 lambda: fa.launch_dkv(q, k, v, o, lse, do, True), 7, backward_lib,
+                 plain_backward, {"dk": errors["dk"], "dv": errors["dv"]})):
+            ms = _time_ms(call, 50)
+            bound = _flash_bound_ms(*FLEET_SHAPE, causal=True, n_tensors=n_tensors,
+                                    flop_per_pair=FLOP_PER_PAIR[name][kernel],
+                                    bytes_per_element=size, dtype=name)
+            times[entry + suffix] = {"shape": list(FLEET_SHAPE), "ms": ms,
+                                     "plain_ms": plain_ms, "bound_ms": bound["bound_ms"],
+                                     "bound_by": bound["bound_by"], **library,
+                                     "against_plain": checked}
+            print(f"{entry}{suffix} at the fleet's {FLEET_SHAPE} causal on {card}: {ms:.4f} ms, "
+                  f"plain {plain_ms:.4f} ms{'' if kernel == 'forward' else ' (whole backward)'}, "
+                  f"bound {bound['bound_ms']:.4f} ms ({bound['bound_by']}), "
+                  f"scaled_dot_product_attention {library['library_ms']:.4f} ms "
+                  f"({library['library_3d_ms']:.4f} given 3-D tensors"
+                  f"{'' if kernel == 'forward' else '; its whole backward'})", flush=True)
+        del q, k, v, do, o, lse
+        torch.cuda.empty_cache()
+    return times
+
+
+def fleet_configs(**estimator) -> list:
+    return [build_config(f"transformer-ae-512-m{m}", tags=FLEET_TAGS[m], **estimator)
+            for m in range(FLEET_MACHINES)]
+
+
+def fleet_path(card: str, root: Path, serial_seconds: float, device: str = "cuda",
+               **estimator) -> dict:
+    """FLEET_MACHINES transformer-ae-512 machines (``estimator`` added to
+    their arguments) built by ``BatchedModelBuilder`` on the card: every
+    machine from the stacked program (no serial fallback, no quarantine, no
+    plain attention), each stacked step launching the dtype's dQ and dK/dV
+    once per block for the whole bucket, and each machine's held-out error
+    below its seeded weights', its thresholds finite. Prints the wall, ms
+    per stacked step and peak device memory beside ``serial_seconds`` (one
+    serial build of the same run) times the machines. Returns the launches
+    and the models."""
+    import torch
+
+    from gordo_tpu_torch.machine import Machine
+    from gordo_tpu_torch.models.anomaly.diff import TimeSeriesSplit
+    from gordo_tpu_torch.models.models import TransformerAutoEncoder
+    from gordo_tpu_torch.models.spec import TransformerBlock
+    from gordo_tpu_torch.ops.predict import n_train_samples
+    from gordo_tpu_torch.parallel import batch_trainer as bt
+
+    configs = fleet_configs(**estimator)
+    spec = TransformerAutoEncoder(**CONFIG, **estimator).build_spec(len(TAGS), len(TAGS))
+    dtype = spec.compute_dtype
+    other = next(d for d in COUNTERS if d != dtype)
+    n_blocks = sum(isinstance(layer, TransformerBlock) for layer in spec.layers)
+    n_rows = _config_rows(configs[0])
+    steps = [math.ceil(n_train_samples(spec, len(train_idx)) / BATCH)
+             for train_idx, _ in TimeSeriesSplit(3).split(np.zeros(n_rows))]
+    steps.append(math.ceil(n_train_samples(spec, n_rows) / BATCH))
+    epochs = []  # (seconds, steps) of each stacked epoch
+    run_masked_epoch = bt.run_masked_epoch
+
+    def synchronize():
+        if device == "cuda":
+            torch.cuda.synchronize()
+
+    def timed_epoch(model, optimizer, X, y, orders, n_valid, batch_size):
+        synchronize()
+        t0 = time.perf_counter()
+        out = run_masked_epoch(model, optimizer, X, y, orders, n_valid, batch_size)
+        synchronize()
+        epochs.append((time.perf_counter() - t0, len(out[1])))
+        return out
+
+    if device == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    builder = bt.BatchedModelBuilder([Machine.from_config(c, "chip-smoke") for c in configs],
+                                     serial_fallback=False, device=device,
+                                     output_dir=str(root / f"fleet-{dtype}"))
+    _reset_launches()
+    bt.run_masked_epoch = timed_epoch
+    try:
+        with _PlainAttentionCalls() as plain:
+            t0 = time.perf_counter()
+            results = builder.build()
+            seconds = time.perf_counter() - t0
+    finally:
+        bt.run_masked_epoch = run_masked_epoch
+    launches = _launches(dtype)
+    peak = torch.cuda.max_memory_allocated() / 2**30 if device == "cuda" else float("nan")
+    train_s, n_steps = sum(s for s, _ in epochs), sum(n for _, n in epochs)
+    bh = FLEET_MACHINES * BATCH * next(
+        layer.num_heads for layer in spec.layers if isinstance(layer, TransformerBlock))
+    print(f"fleet of {FLEET_MACHINES} ({dtype}) on {card}: {seconds:.2f} s in all, "
+          f"{len(results)} built, serial {builder.serial_built}, chunks halved for memory "
+          f"{builder.oom_bisections}, quarantined "
+          f"{[r.to_dict() for r in builder.quarantine_records]}; {n_steps} stacked steps "
+          f"(CV {steps[:3]}, fit {steps[3]}) in {train_s:.2f} s, "
+          f"{1e3 * train_s / n_steps:.2f} ms per stacked step at attention BH {bh}; {dtype} "
+          f"launches {launches}; peak device memory {peak:.2f} GiB; the serial build x "
+          f"{FLEET_MACHINES}: {serial_seconds * FLEET_MACHINES:.2f} s "
+          f"({serial_seconds:.2f} s each)", flush=True)
+    if (len(results) != FLEET_MACHINES or builder.serial_built or builder.quarantine_records
+            or builder.oom_bisections):
+        raise AssertionError("a machine did not come out of the stacked program")
+    if plain.calls:
+        raise AssertionError(f"the fleet reached the plain attention {plain.calls} times")
+    if n_steps != sum(steps) or not launches["dq"] == launches["dkv"] == n_blocks * sum(steps):
+        raise AssertionError(f"expected {n_blocks * sum(steps)} dQ and dK/dV launches, one "
+                             f"per block a stacked step, got {launches} in {n_steps} steps")
+    if any(_launches(other).values()):
+        raise AssertionError(f"the {dtype} fleet launched {other} kernels")
+    for (model, machine), tags in zip(results, FLEET_TAGS):
+        mse = held_out_mse(model, spec, n_rows, tags)
+        thresholds = [*model.feature_thresholds_, model.aggregate_threshold_]
+        print(f"  {machine.name}: held-out scaled MSE {mse['trained']:.6f} (seeded "
+              f"{mse['seeded']:.6f}), aggregate threshold {model.aggregate_threshold_:.6f}, "
+              f"fit losses {model.base_estimator.steps[1][1].history['loss']}", flush=True)
+        if not (mse["trained"] < mse["seeded"] and all(math.isfinite(x) for x in thresholds)):
+            raise AssertionError(f"{machine.name}: held-out error {mse} or thresholds "
+                                 f"{thresholds}")
+    return {**launches, "bh": bh, "seconds": seconds,
+            "ms_per_stacked_step": 1e3 * train_s / n_steps, "peak_gib": peak}
+
+
+def _one_batch_diffs(spec, params, X, orders, device: str) -> tuple:
+    """One batch through a two-machine stacked model and through each
+    machine's own model at the same parameters: the largest differences of
+    the outputs and of the parameter gradients (``bk`` left out: its true
+    gradient is 0, rounding noise), each relative to the serial one's
+    largest entry."""
+    import torch
+
+    from gordo_tpu_torch.ops import nn, train
+
+    stacked = nn.StackedTransformerModel(spec, nn.stack_params(params), torch.device(device))
+    serials = [nn.TransformerModel(spec, p, torch.device(device)) for p in params]
+    xb, yb = train._gather_batch(spec, X, X, orders[:, :BATCH].to(device))
+    wb = torch.ones(len(params), BATCH, device=device)
+    stacked_grads = torch.autograd.grad(train._loss_terms(spec, stacked, xb, yb, wb).sum(),
+                                        list(stacked.parameters()))
+    with torch.no_grad():
+        stacked_out = stacked(xb)
+    out_diff = grad_diff = 0.0
+    for m, model in enumerate(serials):
+        with torch.no_grad():
+            ref = model(xb[m])
+        out_diff = max(out_diff, ((stacked_out[m] - ref).abs().max() / ref.abs().max()).item())
+        grads = torch.autograd.grad(train._loss_terms(spec, model, xb[m], yb[m], wb[m]),
+                                    list(model.parameters()))
+        for (name, _), got, want in zip(model.named_parameters(), stacked_grads, grads):
+            if not name.endswith(".bk"):
+                grad_diff = max(grad_diff, ((got[m] - want).abs().max()
+                                            / want.abs().max()).item())
+    return out_diff, grad_diff
+
+
+def fleet_loss_check(card: str, device: str = "cuda") -> dict:
+    """A two-machine bucket against the serial trainer given the same
+    initial parameters and orders. The gate that tells a stacking fault
+    (a wrong machine slice, a wrong loss sum) from rounding: one batch's
+    output and parameter gradients, stacked against serial, within
+    TOL_GRAD_REL in float32 and TOL_BF16_MODEL_REL in bf16. Then LOSS_STEPS
+    float32 step losses per machine within TOL_LOSS_REL of the serial
+    trainer's, printed beside how far the serial trainer drifts from
+    parameters one float32 ulp up. Returns the differences."""
+    import torch
+
+    from gordo_tpu_torch.models.models import TransformerAutoEncoder
+    from gordo_tpu_torch.models.scaler import MinMaxScaler
+    from gordo_tpu_torch.ops import nn, train
+
+    spec = TransformerAutoEncoder(**CONFIG).build_spec(len(TAGS), len(TAGS))
+    n_rows = LOSS_STEPS * BATCH + spec.lookback_window - 1
+    rng = np.random.RandomState(SEED + 6)
+    rows = [MinMaxScaler().fit(x).transform(x) for x in (_series(n_rows, 0, rng),
+                                                         _series(n_rows, 5000, rng))]
+    X = torch.as_tensor(np.stack(rows), dtype=torch.float32, device=device)
+    params = [[{k: v.numpy() for k, v in p.items()}
+               for p in nn.init_model_params(spec, torch.Generator().manual_seed(SEED + m))]
+              for m in range(2)]
+    orders = torch.stack([torch.randperm(LOSS_STEPS * BATCH,
+                                         generator=torch.Generator().manual_seed(m))
+                          for m in range(2)])
+    diffs = {}
+    for dtype, tol in (("float32", TOL_GRAD_REL), ("bfloat16", TOL_BF16_MODEL_REL)):
+        dtype_spec = TransformerAutoEncoder(**CONFIG, compute_dtype=dtype).build_spec(
+            len(TAGS), len(TAGS))
+        out_diff, grad_diff = _one_batch_diffs(dtype_spec, params, X, orders, device)
+        print(f"two-machine bucket vs the serial model ({dtype}), one batch: output max rel "
+              f"diff {out_diff:.3e}, gradients max rel diff {grad_diff:.3e} (gate {tol:g})",
+              flush=True)
+        if not (out_diff <= tol and grad_diff <= tol):
+            raise AssertionError(f"the {dtype} stacked model's batch disagrees with serial")
+        diffs[dtype] = {"out": out_diff, "grad": grad_diff}
+
+    stacked = nn.StackedTransformerModel(spec, nn.stack_params(params), torch.device(device))
+    _, losses = train.run_masked_epoch(stacked, train.make_optimizer(
+        spec.optimizer, stacked.parameters()), X, X, orders, LOSS_STEPS * BATCH, BATCH)
+    worst, per_step, ulp = 0.0, [], []
+    for m in range(2):
+        curves = []
+        # the serial trainer, and again from every parameter one float32 ulp
+        # up: how far rounding alone moves these 20 losses
+        for start in ([dict(p) for p in params[m]],
+                      [{k: np.nextafter(v, np.float32(np.inf)) for k, v in p.items()}
+                       for p in params[m]]):
+            model = nn.TransformerModel(spec, start, torch.device(device))
+            curves.append(train.run_epoch(model, train.make_optimizer(
+                spec.optimizer, model.parameters()), X[m], X[m], orders[m], BATCH)[1])
+        rel = (losses[:, m] - curves[0]).abs().div(curves[0].abs())
+        worst = max(worst, rel.max().item())
+        per_step.append([float(f"{x:.2e}") for x in rel.tolist()])
+        ulp.append((curves[1] - curves[0]).abs().div(curves[0].abs()).max().item())
+    print(f"two-machine bucket vs the serial trainer, {LOSS_STEPS} step losses each: max rel "
+          f"diff {worst:.3e} on {card}; by step {per_step}; the serial trainer from "
+          f"parameters one ulp up, per machine: {[f'{x:.3e}' for x in ulp]}", flush=True)
+    if not worst <= TOL_LOSS_REL:
+        raise AssertionError("the stacked losses disagree with the serial trainer's")
+    return {**diffs, "losses": worst, "ulp": max(ulp)}
+
+
+def cli_batch_build(root: Path, device: str = "cuda") -> None:
+    """``python -m gordo_tpu_torch batch-build`` of the float32 fleet in a
+    subprocess on the card (it must exit 0 and report every machine); one
+    of its artifacts then answers a base and an anomaly request through the
+    server."""
+    from gordo_tpu_torch.server.server import make_server
+
+    config = root / "fleet.json"
+    config.write_text(json.dumps({"machines": fleet_configs()}))
+    output = root / "fleet-cli"
+    command = [sys.executable, "-m", "gordo_tpu_torch", "--log-level", "WARNING",
+               "batch-build", str(config), str(output), "--project-name", "smoke"]
+    if device != "cuda":
+        command += ["--device", device]
+    started = time.perf_counter()
+    result = subprocess.run(command, cwd=REPO, capture_output=True, text=True, timeout=600,
+                            env={**os.environ, "PYTHONPATH": str(REPO)})
+    built = [line for line in result.stdout.splitlines() if line.startswith("built: ")]
+    print(f"python -m gordo_tpu_torch batch-build: exit {result.returncode} in "
+          f"{time.perf_counter() - started:.1f} s, {len(built)} machines built", flush=True)
+    if result.returncode != 0 or len(built) != FLEET_MACHINES:
+        print(result.stderr[-4000:], file=sys.stderr)
+        raise AssertionError(f"batch-build exited {result.returncode}")
+    server = make_server("127.0.0.1", 0, device=device, collection_dir=str(output))
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        url = f"http://127.0.0.1:{server.server_address[1]}/gordo/v0/smoke/transformer-ae-512-m0"
+        values = _provider_continuation(_config_rows(fleet_configs()[0]), 1535,
+                                        np.random.RandomState(SEED + 7), FLEET_TAGS[0])
+        stamps = [(datetime(2020, 2, 12, 16, tzinfo=timezone.utc) + timedelta(minutes=10 * i))
+                  .isoformat() for i in range(len(values))]
+        frame = {tag: dict(zip(stamps, values[:, j].tolist()))
+                 for j, tag in enumerate(FLEET_TAGS[0])}
+        for route in ("prediction", "anomaly/prediction"):
+            status, body, _, ms = _request(f"{url}/{route}", {"X": frame, "y": frame})
+            rows = len(json.loads(body)["data"]["model-output"][FLEET_TAGS[0][0]])
+            print(f"fleet artifact POST {route}: {status}, {rows} rows in {ms:.1f} ms", flush=True)
+            if status != 200 or rows != len(values) - CONFIG["lookback_window"] + 1:
+                raise AssertionError(f"the fleet artifact's {route}: {status}, {rows} rows")
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=60)
 
 
 def main() -> int:
@@ -1188,30 +1753,45 @@ def main() -> int:
             raise AssertionError(f"{kernel}'s SASS holds no {op} instruction")
         if mma and op == "HGMMA" and entry["sass_hmma"]:
             raise AssertionError(f"{kernel}'s SASS holds HMMA beside its HGMMA")
+    fleet_times = fleet_kernel_times(card)
     torch.cuda.empty_cache()
 
     collections = [REPO / "build" / "chip_smoke" / rev for rev in ("1", "2", "3")]
-    for collection in collections:
+    fleet_root = REPO / "build" / "chip_smoke_fleet"
+    for collection in collections + [fleet_root]:
         shutil.rmtree(collection, ignore_errors=True)
         collection.mkdir(parents=True)
     spec, layers, scaler = write_artifact(collections[0])
     serving = main_path(card, spec, layers, scaler, collections[0])
     torch.cuda.empty_cache()
-    build = build_path(card, collections[1])
+    base_route = server_surface_path(card, spec, layers, scaler, collections[0])
     torch.cuda.empty_cache()
-    bf16_build = bf16_build_path(card, collections[2])
+    build, serial_seconds = build_path(card, collections[1])
+    torch.cuda.empty_cache()
+    bf16_build, bf16_serial_seconds = bf16_build_path(card, collections[2])
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    fleet = fleet_path(card, fleet_root, serial_seconds)
+    torch.cuda.empty_cache()
+    bf16_fleet = fleet_path(card, fleet_root, bf16_serial_seconds, compute_dtype="bfloat16")
+    torch.cuda.empty_cache()
+    fleet_loss_check(card)
+    cli_batch_build(fleet_root)
+    print(f"fleet phase: {time.perf_counter() - t0:.1f} s", flush=True)
 
-    forward["launches"] = serving + build["forward"] + build["serving"]
-    forward["launches_by_path"] = {"serving": serving, "build": build["forward"],
-                                   "serving_built": build["serving"]}
-    bf16_forward["launches"] = bf16_build["forward"] + bf16_build["serving"]
+    forward["launches_by_path"] = {"serving": serving, "server_surface": base_route,
+                                   "build": build["forward"], "serving_built": build["serving"],
+                                   "fleet": fleet["forward"]}
     bf16_forward["launches_by_path"] = {"build": bf16_build["forward"],
-                                        "serving_built": bf16_build["serving"]}
-    for entry, key, launches in ((dq, "dq", build), (dkv, "dkv", build),
-                                 (bf16_dq, "dq", bf16_build), (bf16_dkv, "dkv", bf16_build)):
-        entry["launches"] = launches[key]
-        entry["launches_by_path"] = {"build": launches[key]}
+                                        "serving_built": bf16_build["serving"],
+                                        "fleet": bf16_fleet["forward"]}
+    for entry, key, launches, fleet_launches in (
+            (dq, "dq", build, fleet), (dkv, "dkv", build, fleet),
+            (bf16_dq, "dq", bf16_build, bf16_fleet), (bf16_dkv, "dkv", bf16_build, bf16_fleet)):
+        entry["launches_by_path"] = {"build": launches[key], "fleet": fleet_launches[key]}
     for entry in entries:
+        entry["launches"] = sum(entry["launches_by_path"].values())
+        entry["fleet_shape"] = fleet_times[entry["name"]]
         if entry["launches"] < 1:
             raise AssertionError(f"the main paths launched no {entry['name']} kernel")
 

@@ -200,19 +200,28 @@ class DiffBasedAnomalyDetector(EstimatorRepr):
     def cross_validate(self, *, X, y, cv=None, scoring=None) -> dict:
         """:func:`cross_validate` of this detector (``TimeSeriesSplit(3)`` by
         default), which also sets the thresholds from each fold model's
-        errors on its test span: the max of their ``rolling(6)`` minimum
-        and, when smoothing is set, of their ``rolling(window)`` minimum.
-        The last fold's are the final thresholds."""
+        errors on its test span (:meth:`set_thresholds`)."""
         X, y = np.asarray(X, np.float64), np.asarray(y, np.float64)
         splitter = cv if cv is not None else TimeSeriesSplit(n_splits=3)
         out = cross_validate(self, X, y, cv=splitter, scoring=scoring)
-        agg, tag, smooth_agg, smooth_tag = {}, {}, {}, {}
-        for fold, (model, (_, test_idx)) in enumerate(zip(out["estimator"], splitter.split(X, y))):
+        fold_errors = []
+        for model, (_, test_idx) in zip(out["estimator"], splitter.split(X, y)):
             pred = np.asarray(model.predict(X[test_idx]), np.float64)
             truth = y[test_idx[-len(pred):]]  # windowed models emit fewer rows
             scaled = model.scaler.transform(pred) - model.scaler.transform(truth)
-            point_mse = np.square(scaled).mean(axis=1)
-            abs_err = np.abs(truth - pred)
+            fold_errors.append((np.square(scaled).mean(axis=1), np.abs(truth - pred)))
+        self.set_thresholds(fold_errors)
+        return out
+
+    def set_thresholds(self, fold_errors) -> None:
+        """The thresholds from each fold model's errors on its test span,
+        ``fold_errors`` a ``(scaled point MSE, absolute error per tag)`` pair
+        per fold: the max of their ``rolling(6)`` minimum and, when
+        smoothing is set, of their ``rolling(window)`` minimum. The last
+        fold's are the final thresholds. The fleet trainer sets its
+        detectors' thresholds here too."""
+        agg, tag, smooth_agg, smooth_tag = {}, {}, {}, {}
+        for fold, (point_mse, abs_err) in enumerate(fold_errors):
             label = f"fold-{fold}"
             agg[label] = _rolling_floor_peak(point_mse, 6)
             tag[label] = _rolling_floor_peak(abs_err, 6)
@@ -224,12 +233,11 @@ class DiffBasedAnomalyDetector(EstimatorRepr):
         self.feature_thresholds_per_fold_ = tag
         self.smooth_aggregate_thresholds_per_fold_ = smooth_agg
         self.smooth_feature_thresholds_per_fold_ = smooth_tag
-        last = f"fold-{len(out['estimator']) - 1}"
+        last = f"fold-{len(fold_errors) - 1}"
         self.aggregate_threshold_ = agg.get(last)
         self.feature_thresholds_ = tag.get(last)
         self.smooth_aggregate_threshold_ = smooth_agg.get(last)
         self.smooth_feature_thresholds_ = smooth_tag.get(last)
-        return out
 
     def predict(self, X) -> np.ndarray:
         return pipeline_predict(self.base_estimator, np.asarray(X, np.float64))

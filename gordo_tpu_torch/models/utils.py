@@ -7,7 +7,8 @@ index). :class:`RawFrame` is the port's counterpart of the JAX package's
 index, whose :meth:`RawFrame.to_dict` emits exactly the layout of
 ``dataframe_to_dict`` (``gordo_tpu/server/utils.py``) applied to the
 assembled response frame: ``start``/``end`` time columns, then one
-``{top: {sub: {index_key: value}}}`` block per group.
+``{top: {sub: {index_key: value}}}`` block per group. :func:`make_base_raw`
+makes the base route's groups.
 """
 
 import functools
@@ -137,3 +138,27 @@ def metric_wrapper(metric, scaler=None):
         return metric(y_true[-len(y_pred):], y_pred)
 
     return _wrapper
+
+
+def make_base_raw(tags: Sequence[str], model_input: np.ndarray, model_output: np.ndarray,
+                  target_tag_list: Optional[Sequence[str]] = None, index=None,
+                  frequency: Optional[timedelta] = None) -> RawFrame:
+    """The base route's response groups, ``model-input`` and
+    ``model-output``, as the JAX package's ``make_base_raw`` makes them:
+    the input's last rows aligned to the output's length, the index's tail
+    (row numbers without one), and the tags as sub-columns where the widths
+    match them (else the column numbers)."""
+    target_tag_list = target_tag_list if target_tag_list is not None else tags
+    model_output = np.asarray(model_output)
+    n = len(model_output)
+    model_input = np.asarray(model_input)[-n:, :]
+    index = list(index)[-n:] if index is not None else range(n)
+    groups = []
+    for top, values, names in (("model-input", model_input, tags),
+                               ("model-output", model_output, target_tag_list)):
+        if values.shape[1] == len(names):
+            subs = [str(name) for name in names]
+        else:
+            subs = [str(i) for i in range(values.shape[1])]
+        groups.append((top, subs, values))
+    return RawFrame(groups, index, frequency)

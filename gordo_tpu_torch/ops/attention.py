@@ -34,17 +34,17 @@ RING_NOT_PORTED = (
 
 
 def split_heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:
-    """(B, T, D) -> (B, H, T, D//H), a view."""
-    b, t, d = x.shape
+    """(..., T, D) -> (..., H, T, D//H), a view."""
+    *lead, t, d = x.shape
     if d % num_heads:
         raise ValueError(f"model dim {d} not divisible by num_heads {num_heads}")
-    return x.reshape(b, t, num_heads, d // num_heads).transpose(1, 2)
+    return x.reshape(*lead, t, num_heads, d // num_heads).transpose(-3, -2)
 
 
 def merge_heads(x: torch.Tensor) -> torch.Tensor:
-    """(B, H, T, Dh) -> (B, T, H*Dh)"""
-    b, h, t, dh = x.shape
-    return x.transpose(1, 2).reshape(b, t, h * dh)
+    """(..., H, T, Dh) -> (..., T, H*Dh)"""
+    *lead, h, t, dh = x.shape
+    return x.transpose(-3, -2).reshape(*lead, t, h * dh)
 
 
 def dot_product_attention_plain(q, k, v, causal: bool = False) -> torch.Tensor:
@@ -97,8 +97,9 @@ def dot_product_attention(q, k, v, causal: bool = False, impl: str = "auto"):
 
 def multihead_attention(q, k, v, num_heads: int, causal: bool = False,
                         impl: str = "auto") -> torch.Tensor:
-    """Multi-head attention over (B, T, D) tensors (projections applied by
-    the caller). Returns (B, T, D)."""
+    """Multi-head attention over (..., T, D) tensors (projections applied by
+    the caller): the heads of every leading index go to the kernels as one
+    (..., H) batch. Returns (..., T, D)."""
     out = dot_product_attention(
         split_heads(q, num_heads),
         split_heads(k, num_heads),

@@ -35,6 +35,12 @@ from . import _build
 
 NEG_INF = -1e30
 SUPPORTED_HEAD_DIMS = (16, 32, 64, 128)
+# The kernels take BH as a 32-bit int and count their works (a head and a
+# tile of at least 64 rows) and blocks in 32-bit ints; the persistent
+# kernels' loops step past the last work by at most their grid (one block
+# per SM), which the headroom covers.
+MIN_TILE_ROWS = 64
+MAX_WORKS = 2**31 - 1 - 65536
 DTYPES = (torch.float32, torch.bfloat16)
 
 # kernel launches made on CUDA tensors: the float32 forward (LAUNCHES) and
@@ -166,13 +172,24 @@ def _count(name: str) -> None:
         globals()[name] += 1
 
 
-def _call(kernel, label: str, tensors, bh: int, t: int, dh: int, causal: bool) -> None:
-    """Launch a C kernel on (bh, t, dh) CUDA tensors on the current stream,
-    raising if the launch failed."""
+def check_launch_limits(bh: int, t: int, dh: int) -> None:
+    """Raise, naming the limit, for a shape the kernels cannot count."""
     if dh not in SUPPORTED_HEAD_DIMS:
         raise ValueError(
             f"the flash kernels support head dims {SUPPORTED_HEAD_DIMS}, got {dh}"
         )
+    works = bh * -(-t // MIN_TILE_ROWS)
+    if works > MAX_WORKS:
+        raise ValueError(
+            f"BH {bh} x T {t}: {works} (head, {MIN_TILE_ROWS}-row tile) works, above "
+            f"the {MAX_WORKS} the kernels' 32-bit work counters take; split the batch"
+        )
+
+
+def _call(kernel, label: str, tensors, bh: int, t: int, dh: int, causal: bool) -> None:
+    """Launch a C kernel on (bh, t, dh) CUDA tensors on the current stream,
+    raising if the launch failed."""
+    check_launch_limits(bh, t, dh)
     for x in tensors:
         if x.data_ptr() % 16:
             raise ValueError(f"{label}: an input is not 16-byte aligned")

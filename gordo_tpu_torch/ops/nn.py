@@ -9,11 +9,16 @@ there (``kernel``/``bias`` for Dense; ``ln1_scale``, ``wq`` ... ``b_ff2``
 for a Transformer block), so weights carry across unchanged
 (serializer/from_jax.py). :class:`TransformerModel` holds them on the
 device and runs the forward pass, the counterpart of ``apply_model``.
+:class:`StackedTransformerModel` holds M machines' parameters of one spec
+with a leading machine axis and runs them as one model, the counterpart of
+``apply_model`` under the fleet trainer's ``vmap`` over machines. The
+layers take any leading axes before (time, features).
 """
 
 import math
 from typing import Dict, List
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -149,9 +154,9 @@ def _layer_norm(x, scale, bias, eps: float = 1e-6):
 
 
 def _apply_positional_encoding(layer: PositionalEncoding, x):
-    """x: (batch, time, d). The JAX package's sinusoid, added to x: its
+    """x: (..., time, d). The JAX package's sinusoid, added to x: its
     frequencies are exp(-log(max_wavelength) * i / max(half - 1, 1))."""
-    _, t, d = x.shape
+    t, d = x.shape[-2:]
     pos = torch.arange(t, dtype=torch.float32, device=x.device)[:, None]
     half = (d + 1) // 2
     log_wavelength = torch.log(torch.tensor(layer.max_wavelength, dtype=torch.float32))
@@ -164,15 +169,15 @@ def _apply_positional_encoding(layer: PositionalEncoding, x):
     pe = torch.zeros((t, d), dtype=x.dtype, device=x.device)
     pe[:, 0::2] = torch.sin(angles)[:, : (d + 1) // 2]
     pe[:, 1::2] = torch.cos(angles)[:, : d // 2]
-    return x + pe[None, :, :]
+    return x + pe
 
 
 def _attention_sublayer(layer, p, x):
     """Pre-LN multi-head attention + residual, with one fused (d, 3d) QKV
     projection (the params stay separate, as in the artifact)."""
     h = _layer_norm(x, p["ln1_scale"], p["ln1_bias"])
-    w_qkv = torch.cat([p["wq"], p["wk"], p["wv"]], dim=1)
-    b_qkv = torch.cat([p["bq"], p["bk"], p["bv"]])
+    w_qkv = torch.cat([p["wq"], p["wk"], p["wv"]], dim=-1)
+    b_qkv = torch.cat([p["bq"], p["bk"], p["bv"]], dim=-1)
     q, k, v = torch.chunk(torch.matmul(h, w_qkv) + b_qkv, 3, dim=-1)
     attn = multihead_attention(
         q, k, v, layer.num_heads, causal=layer.causal, impl=layer.attention_impl
@@ -181,7 +186,7 @@ def _attention_sublayer(layer, p, x):
 
 
 def _apply_transformer_block(layer: TransformerBlock, p, x):
-    """Pre-LN encoder block. x: (batch, time, d_model)."""
+    """Pre-LN encoder block. x: (..., time, d_model)."""
     x = _attention_sublayer(layer, p, x)
     h = _layer_norm(x, p["ln2_scale"], p["ln2_bias"])
     ff = _activation(layer.activation)(torch.matmul(h, p["w_ff1"]) + p["b_ff1"])
@@ -190,11 +195,11 @@ def _apply_transformer_block(layer: TransformerBlock, p, x):
 
 def _apply_pool(layer: PoolLayer, x):
     if layer.mode == "last":
-        return x[:, -1, :]
+        return x[..., -1, :]
     if layer.mode == "mean":
-        return x.mean(dim=1)
+        return x.mean(dim=-2)
     if layer.mode == "max":
-        return x.amax(dim=1)
+        return x.amax(dim=-2)
     raise ValueError(f"Unknown pool mode {layer.mode!r}")
 
 
@@ -239,12 +244,15 @@ class TransformerModel(nn.Module):
         )
         self.to(device)
 
+    def _layer(self, p, ndim: int) -> Dict[str, torch.Tensor]:
+        """A layer's parameters as the forward takes them at an input of
+        ``ndim`` dims: cast to the compute dtype."""
+        return {name: value.to(self.compute_dtype) for name, value in p.items()}
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        dtype = self.compute_dtype
-        out = x.to(dtype)
+        out = x.to(self.compute_dtype)
         for layer, p in zip(self.spec.layers, self.layer_params):
-            if dtype != torch.float32:
-                p = {name: value.to(dtype) for name, value in p.items()}
+            p = self._layer(p, out.dim())
             if isinstance(layer, DenseLayer):
                 out = _apply_dense(layer, p, out)
             elif isinstance(layer, PositionalEncoding):
@@ -263,3 +271,37 @@ class TransformerModel(nn.Module):
             {name: value.detach().cpu().numpy() for name, value in p.items()}
             for p in self.layer_params
         ]
+
+
+def stack_params(per_machine: List[List[Dict]]) -> List[Dict[str, np.ndarray]]:
+    """M machines' parameters (each in the JAX package's layout) as one
+    list of dicts of arrays with a leading machine axis."""
+    return [
+        {name: np.stack([np.asarray(machine[i][name], np.float32) for machine in per_machine])
+         for name in layer}
+        for i, layer in enumerate(per_machine[0])
+    ]
+
+
+class StackedTransformerModel(TransformerModel):
+    """M models of one spec, each parameter with a leading machine axis M:
+    ``forward`` takes (M, B, T, features) and returns (M, B, outputs),
+    machine m's rows through machine m's parameters. The projections are
+    batched matmuls, biases and layer-norm parameters broadcast over (B, T),
+    and attention folds the machines into its batch, so each Transformer
+    block launches the flash kernels once for all M machines, at BH = M x B
+    x heads. With M = 1 it computes what :class:`TransformerModel` does."""
+
+    def _layer(self, p, ndim: int) -> Dict[str, torch.Tensor]:
+        """Each (M, *shape) parameter viewed as (M, 1, ..., *shape) so that
+        it broadcasts against an (M, ..., features) input of ``ndim``
+        dims: a kernel over the batch axes, a bias or scale over (B, T)."""
+        return {
+            name: value.reshape(value.shape[:1] + (1,) * (ndim - value.dim()) + value.shape[1:])
+            for name, value in super()._layer(p, ndim).items()
+        }
+
+    def machine_params(self, m: int):
+        """Machine ``m``'s parameters in the JAX package's layout, as numpy
+        arrays."""
+        return [{name: value[m] for name, value in p.items()} for p in self.params_numpy()]

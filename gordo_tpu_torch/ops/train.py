@@ -1,7 +1,7 @@
 """
 The training loop: the port's counterpart of ``make_optimizer``,
-``_loss_terms``, ``_gather_batch``, ``make_epoch_fn``, ``evaluate_loss`` and
-``fit_arrays`` in ``gordo_tpu/ops/train.py``.
+``_loss_terms``, ``_gather_batch``, ``make_epoch_fn``, ``make_masked_epoch_fn``,
+``evaluate_loss`` and ``fit_arrays`` in ``gordo_tpu/ops/train.py``.
 
 X and y go to the model's device once per fit. Each step gathers its
 (batch, lookback, features) windows on the device from the flat series:
@@ -13,9 +13,13 @@ stream, so the last short batch's loss and gradient are means over its
 live samples only and every step hands the attention kernels one shape.
 The per-step losses stay on the device until the epoch ends.
 
-The fleet trainer (``make_masked_epoch_fn``, ``make_scanned_fit``) is not
-ported yet: see the 'Training, the rest of the build path' item of
-ROADMAP.md queue A.
+The fleet trainer's epoch, :func:`run_masked_epoch`, trains M machines of
+one spec at once (a ``StackedTransformerModel``): X and y carry a leading
+machine axis, each machine takes its own sample order, and the loss is the
+sum over machines of each machine's weighted mean, so that each machine's
+gradient is its own. Every optimizer rule of :func:`make_optimizer`
+(``RULES``) is elementwise, so one optimizer over the stacked parameters
+steps M independent optimizers.
 """
 
 import math
@@ -132,6 +136,49 @@ class OptaxAdamax(_OptaxRule):
         return -group["lr"] * _bias_corrected(mu, b1, state["step"]) / state["nu"]
 
 
+def _adam(params, lr, kwargs):
+    return torch.optim.Adam(params, lr=lr,
+                            betas=(kwargs.get("beta_1", 0.9), kwargs.get("beta_2", 0.999)),
+                            eps=kwargs.get("epsilon", 1e-7))
+
+
+def _sgd(params, lr, kwargs):
+    # without momentum optax trains plain SGD whatever `nesterov` says
+    momentum = kwargs.get("momentum", 0.0) or 0.0
+    return torch.optim.SGD(params, lr=lr, momentum=momentum,
+                           nesterov=bool(kwargs.get("nesterov", False)) and momentum > 0)
+
+
+def _rmsprop(params, lr, kwargs):
+    return OptaxRMSprop(params, lr=lr, decay=kwargs.get("rho", 0.9),
+                        eps=kwargs.get("epsilon", 1e-7),
+                        momentum=kwargs.get("momentum", 0.0) or 0.0)
+
+
+def _adam_family(nesterov: bool, weight_decay: float):
+    def make(params, lr, kwargs):
+        return OptaxAdam(params, lr=lr, b1=0.9, b2=0.999, eps=1e-8, nesterov=nesterov,
+                         weight_decay=weight_decay)
+    return make
+
+
+# make_optimizer's rules by lower-cased name. Each one's update of an
+# element reads only that element's gradient and state, so one optimizer
+# over stacked machines' parameters steps each machine as its own optimizer
+# would (the fleet trainer relies on it): a rule that is not elementwise
+# does not belong here.
+RULES = {
+    "adam": _adam,
+    "sgd": _sgd,
+    "rmsprop": _rmsprop,
+    "adagrad": lambda params, lr, _: OptaxAdagrad(params, lr=lr, initial_accumulator_value=0.1,
+                                                  eps=1e-7),
+    "nadam": _adam_family(nesterov=True, weight_decay=0.0),
+    "adamw": _adam_family(nesterov=False, weight_decay=1e-4),
+    "adamax": lambda params, lr, _: OptaxAdamax(params, lr=lr, b1=0.9, b2=0.999, eps=1e-8),
+}
+
+
 def make_optimizer(spec: OptimizerSpec, params) -> torch.optim.Optimizer:
     """A torch optimizer over ``params`` from a Keras-style optimizer spec,
     with the JAX package's arguments and optax's update rules.
@@ -142,38 +189,17 @@ def make_optimizer(spec: OptimizerSpec, params) -> torch.optim.Optimizer:
     kwargs = spec.as_dict()
     lr = kwargs.pop("learning_rate", kwargs.pop("lr", None))
     name = spec.name.lower()
+    if name not in RULES:
+        raise ValueError(f"Unknown optimizer {spec.name!r}")
     if lr is None:
         lr = 1e-2 if name == "sgd" else 1e-3
-    if name == "adam":
-        return torch.optim.Adam(
-            params, lr=lr,
-            betas=(kwargs.get("beta_1", 0.9), kwargs.get("beta_2", 0.999)),
-            eps=kwargs.get("epsilon", 1e-7),
-        )
-    if name == "sgd":
-        # without momentum optax trains plain SGD whatever `nesterov` says
-        momentum = kwargs.get("momentum", 0.0) or 0.0
-        return torch.optim.SGD(
-            params, lr=lr, momentum=momentum,
-            nesterov=bool(kwargs.get("nesterov", False)) and momentum > 0,
-        )
-    if name == "rmsprop":
-        return OptaxRMSprop(params, lr=lr, decay=kwargs.get("rho", 0.9),
-                            eps=kwargs.get("epsilon", 1e-7),
-                            momentum=kwargs.get("momentum", 0.0) or 0.0)
-    if name == "adagrad":
-        return OptaxAdagrad(params, lr=lr, initial_accumulator_value=0.1, eps=1e-7)
-    if name in ("nadam", "adamw"):
-        return OptaxAdam(params, lr=lr, b1=0.9, b2=0.999, eps=1e-8, nesterov=name == "nadam",
-                         weight_decay=1e-4 if name == "adamw" else 0.0)
-    if name == "adamax":
-        return OptaxAdamax(params, lr=lr, b1=0.9, b2=0.999, eps=1e-8)
-    raise ValueError(f"Unknown optimizer {spec.name!r}")
+    return RULES[name](params, lr, kwargs)
 
 
 def _loss_terms(spec: ModelSpec, model: torch.nn.Module, xb, yb, wb) -> torch.Tensor:
     """The loss of a batch: the per-sample loss averaged over the live
-    samples (weight 1; padding has weight 0)."""
+    samples (weight 1; padding has weight 0); with stacked machines
+    (``wb`` of shape (M, B)), one such loss per machine."""
     out = model(xb)
     if spec.loss in ("mse", "mean_squared_error"):
         per_sample = torch.mean((out - yb) ** 2, dim=-1)
@@ -181,17 +207,21 @@ def _loss_terms(spec: ModelSpec, model: torch.nn.Module, xb, yb, wb) -> torch.Te
         per_sample = torch.mean(torch.abs(out - yb), dim=-1)
     else:
         raise ValueError(f"Unknown loss {spec.loss!r}")
-    return torch.sum(per_sample * wb) / torch.clamp(torch.sum(wb), min=1.0)
+    return torch.sum(per_sample * wb, dim=-1) / torch.clamp(torch.sum(wb, dim=-1), min=1.0)
 
 
 def _gather_batch(spec: ModelSpec, X: torch.Tensor, y: torch.Tensor, idx: torch.Tensor):
-    """A minibatch by sample (window-start) indices, gathered on the device."""
+    """A minibatch by sample (window-start) indices, gathered on the device.
+    Stacked machines: X (M, rows, D), y (M, rows, D_out) and idx (M, B),
+    machine m's batch from machine m's rows."""
+    window = torch.arange(spec.lookback_window, device=X.device)
+    target = idx + spec.lookback_window - 1 + spec.lookahead
+    if X.dim() == 3:  # the fleet's estimators are all windowed
+        m = torch.arange(len(X), device=X.device)[:, None]
+        return X[m[..., None], idx[..., None] + window], y[m, target]  # (M, B, L, D)
     if spec.lookback_window <= 1 and spec.lookahead == 0:
         return X[idx], y[idx]
-    window = torch.arange(spec.lookback_window, device=X.device)
-    xb = X[idx[:, None] + window[None, :]]  # (B, L, D)
-    yb = y[idx + spec.lookback_window - 1 + spec.lookahead]
-    return xb, yb
+    return X[idx[:, None] + window[None, :]], y[target]  # (B, L, D)
 
 
 def _padded_stream(order: torch.Tensor, batch_size: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -229,6 +259,47 @@ def run_epoch(model: torch.nn.Module, optimizer: torch.optim.Optimizer, X: torch
     losses, weights = torch.stack(step_losses), torch.stack(step_weights)
     epoch_loss = (losses * weights).sum() / torch.clamp(weights.sum(), min=1.0)
     return float(epoch_loss), losses
+
+
+def run_masked_epoch(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
+                     X: torch.Tensor, y: torch.Tensor, orders: torch.Tensor, n_valid: int,
+                     batch_size: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One epoch of M stacked machines (X (M, rows, D), y (M, rows, D_out)
+    on the model's device), the counterpart of ``make_masked_epoch_fn``.
+    ``orders`` (M, n_max) holds each machine's valid-first sample order:
+    its first ``n_valid`` entries are the live samples, in the order they
+    are taken. Slots past them point at sample 0 with weight 0, the stream
+    is padded to whole batches, and only the ``ceil(n_valid / batch)`` live
+    steps run (a bucket's machines share ``n_valid``). Returns each
+    machine's epoch loss (M,) and the step losses (steps, M), each computed
+    before its step's update."""
+    spec = model.spec
+    orders = orders.to(X.device)
+    n_max = orders.shape[1]
+    if not bool((orders[:, :n_valid] < n_valid).all()):
+        raise ValueError(f"orders are not valid-first: a live slot is past n_valid={n_valid}")
+    n_steps = max(math.ceil(n_max / batch_size), 1)
+    live = orders < n_valid
+    idx_stream = torch.zeros((len(orders), n_steps * batch_size), dtype=torch.long,
+                             device=X.device)
+    idx_stream[:, :n_max] = torch.where(live, orders, 0)
+    w_stream = torch.zeros(idx_stream.shape, dtype=torch.float32, device=X.device)
+    w_stream[:, :n_max] = live.float()
+    n_live_steps = min(max(math.ceil(n_valid / batch_size), 1), n_steps)
+    step_losses, step_weights = [], []
+    for start in range(0, n_live_steps * batch_size, batch_size):
+        idx = idx_stream[:, start:start + batch_size]
+        wb = w_stream[:, start:start + batch_size]
+        xb, yb = _gather_batch(spec, X, y, idx)
+        optimizer.zero_grad(set_to_none=True)
+        losses = _loss_terms(spec, model, xb, yb, wb)
+        losses.sum().backward()
+        optimizer.step()
+        step_losses.append(losses.detach())
+        step_weights.append(wb.sum(dim=-1))
+    losses, weights = torch.stack(step_losses), torch.stack(step_weights)
+    epoch_losses = (losses * weights).sum(dim=0) / torch.clamp(weights.sum(dim=0), min=1.0)
+    return epoch_losses, losses
 
 
 def evaluate_loss(model: torch.nn.Module, X: torch.Tensor, y: torch.Tensor,

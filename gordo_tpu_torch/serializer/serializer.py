@@ -12,13 +12,16 @@ The port's artifact: one directory per model holding
   ``ModelBuilder`` puts it.
 
 Every file is written atomically (a unique temp file, then a rename), as
-``gordo_tpu/serializer/serializer.py`` writes its artifact.
+``gordo_tpu/serializer/serializer.py`` writes its artifact. :func:`dumps`
+packs an artifact directory into gzipped tar bytes (what the server's
+``download-model`` answers) and :func:`loads` reads them back.
 """
 
 import copy
 import io
 import json
 import os
+import tarfile
 import tempfile
 from typing import Any, Dict, List, Optional
 
@@ -31,6 +34,7 @@ from ..models.scaler import MinMaxScaler, Pipeline
 from ..models.spec import spec_from_dict, spec_to_dict
 
 FORMAT = "gordo_tpu_torch/1"
+ARTIFACT_FILES = ("model.json", "params.npz", "metadata.json")
 
 
 def _atomic_write(final: str, data: bytes) -> None:
@@ -193,3 +197,28 @@ def load_metadata(source_dir: str) -> dict:
         return {}
     with open(path) as f:
         return json.load(f)
+
+
+def dumps(source_dir: str) -> bytes:
+    """The artifact in ``source_dir`` as the bytes of a gzipped tar of its
+    files."""
+    buf = io.BytesIO()
+    with tarfile.open(fileobj=buf, mode="w:gz", compresslevel=1) as tar:
+        for name in ARTIFACT_FILES:
+            path = os.path.join(source_dir, name)
+            if os.path.exists(path):
+                tar.add(path, arcname=name)
+    return buf.getvalue()
+
+
+def loads(data: bytes, device=None) -> DiffBasedAnomalyDetector:
+    """The detector of bytes made by :func:`dumps`, its parameters on
+    ``device`` (``cuda`` unless ``"cpu"``). Only the artifact's own files
+    are read from the tar."""
+    with tempfile.TemporaryDirectory() as directory:
+        with tarfile.open(fileobj=io.BytesIO(data), mode="r:gz") as tar:
+            for member in tar.getmembers():
+                if member.isfile() and member.name in ARTIFACT_FILES:
+                    with open(os.path.join(directory, member.name), "wb") as f:
+                        f.write(tar.extractfile(member).read())
+        return load(directory, device)

@@ -1,25 +1,39 @@
 """
 The port's model server: a standard-library ``ThreadingHTTPServer`` with
+the JAX package's route table (``gordo_tpu/server/server.py``):
 
-- ``GET  /healthcheck``
+- ``GET  /healthcheck``, ``GET /readiness``, ``GET /server-version``
+- ``GET  /gordo/v0/<project>/models``, ``…/revisions``, ``…/expected-models``
+- ``POST /gordo/v0/<project>/<name>/prediction`` (the base route:
+  ``model-input`` and ``model-output``)
 - ``POST /gordo/v0/<project>/<name>/anomaly/prediction``
-- ``GET  /gordo/v0/<project>/<name>/metadata``
+- ``GET  /gordo/v0/<project>/<name>/metadata`` and ``…/<name>/healthcheck``
+  (the same metadata view)
+- ``GET  /gordo/v0/<project>/<name>/download-model`` (the artifact as the
+  bytes ``serializer.loads`` takes)
+
+Not ported yet: ``/metrics``, ``/debug/*`` and ``/gordo/v0/openapi.json``
+(ROADMAP.md queue A8), ``?format=parquet``, and the breakers, deadlines
+and output check of ``gordo_tpu/server/resilience.py`` (queue A9).
 
 Every artifact under ``MODEL_COLLECTION_DIR`` (one directory per model,
 serializer/serializer.py) is loaded once at start, with its parameters on
 the card (``device="cpu"`` serves from the CPU). Requests to one model run
 one at a time. The revision is the collection directory's name, as in the
-JAX package's server; a request may name another revision, a sibling
-collection directory, with ``?revision=`` or a ``revision`` header: it is
-loaded at its first request and kept, and a revision that does not exist is
-answered 410. Non-finite floats in a JSON body are written as null, and an
-unhandled error is answered 500 ``{"error": "Internal server error"}``, as
-the JAX package's server answers them.
+JAX package's server; a request to any route may name another revision, a
+sibling collection directory, with ``?revision=`` or a ``revision``
+header: its models are loaded at their first request and kept, and a
+revision that does not exist is answered 410. ``/readiness`` and
+``…/expected-models`` read the expected fleet from ``EXPECTED_MODELS`` (a
+JSON list), else from the file ``EXPECTED_MODELS_FILE`` names, read at each
+call; a declared file that cannot be read is answered 503. Non-finite
+floats in a JSON body are written as null, and an unhandled error is
+answered 500 ``{"error": "Internal server error"}``, as the JAX package's
+server answers them.
 
-Run it with ``python -m gordo_tpu_torch.server.server --port 5555``.
+Run it with ``python -m gordo_tpu_torch run-server --port 5555``.
 """
 
-import argparse
 import json
 import logging
 import math
@@ -27,28 +41,35 @@ import os
 import re
 import threading
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-from typing import Dict
+from typing import Dict, Optional
 from urllib.parse import parse_qs, urlsplit
 
 from .. import __version__, resolve_device
 from ..models.utils import parse_resolution
 from ..serializer import load, load_metadata, load_model_json
-from .views import anomaly_prediction_core
+from . import views
 
 logger = logging.getLogger(__name__)
 
-_MODEL_ROUTE = re.compile(r"^/gordo/v0/([^/]+)/([^/]+)/(anomaly/prediction|metadata)$")
+_PROJECT_ROUTE = re.compile(r"^/gordo/v0/([^/]+)/(models|revisions|expected-models)/?$")
+_MODEL_ROUTE = re.compile(
+    r"^/gordo/v0/([^/]+)/([^/]+)/"
+    r"(prediction|anomaly/prediction|metadata|healthcheck|download-model)/?$"
+)
+_TOP_ROUTES = ("/healthcheck", "/readiness", "/server-version")
+_POST_ACTIONS = ("prediction", "anomaly/prediction")
 # a revision is a plain directory-name token; anything with path separators
 # or dot-runs would escape the model collection tree
 _REVISION = re.compile(r"^[A-Za-z0-9][A-Za-z0-9._-]*$")
 
 
 class ModelEntry:
-    """One served model: the detector on the device, its tags, its
-    resolution and its metadata."""
+    """One served model: the detector on the device, its directory, tags,
+    resolution and metadata."""
 
     def __init__(self, directory: str, device):
         spec = load_model_json(directory)
+        self.directory = directory
         self.detector = load(directory, device)
         self.tags = spec["tags"]
         self.target_tags = spec["target_tags"]
@@ -94,24 +115,43 @@ class GordoServer(ThreadingHTTPServer):
         self.collection_dir = collection_dir
         self.revision = os.path.basename(os.path.normpath(collection_dir))
         self.device = device
+        expected = os.environ.get("EXPECTED_MODELS")
+        self.expected = json.loads(expected) if expected else []
+        self.expected_file = os.environ.get("EXPECTED_MODELS_FILE")
         self.models = load_collection(collection_dir, device)
         # revision -> its models: the current one at start, others at their
-        # first request
+        # first model request
         self._revisions = {self.revision: self.models}
         self._revisions_lock = threading.Lock()
         super().__init__(address, _Handler)
 
-    def revision_models(self, revision: str):
-        """The models of a sibling revision of the served collection, or
-        None if there is no such revision."""
+    def revision_dir(self, revision: str) -> Optional[str]:
+        """The collection directory of ``revision``, or None if there is no
+        such revision."""
+        if revision == self.revision:
+            return self.collection_dir
+        directory = os.path.join(self.collection_dir, "..", revision)
+        if _REVISION.match(revision) and ".." not in revision and os.path.isdir(directory):
+            return directory
+        return None
+
+    def revision_models(self, revision: str) -> Dict[str, ModelEntry]:
+        """The models of an existing revision, loaded at the first call."""
         with self._revisions_lock:
             if revision not in self._revisions:
-                directory = os.path.join(self.collection_dir, "..", revision)
-                if not (_REVISION.match(revision) and ".." not in revision
-                        and os.path.isdir(directory)):
-                    return None
-                self._revisions[revision] = load_collection(directory, self.device)
+                self._revisions[revision] = load_collection(
+                    self.revision_dir(revision), self.device
+                )
             return self._revisions[revision]
+
+    def expected_models(self) -> list:
+        """The expected fleet: ``EXPECTED_MODELS``, else the file
+        ``EXPECTED_MODELS_FILE`` names, read at each call. Raises OSError or
+        ValueError when a declared file cannot be read."""
+        if not self.expected and self.expected_file:
+            with open(self.expected_file) as f:
+                return json.load(f)
+        return self.expected
 
 
 class _Handler(BaseHTTPRequestHandler):
@@ -122,7 +162,8 @@ class _Handler(BaseHTTPRequestHandler):
 
     revision = None  # the request's revision, once resolved
 
-    def _send(self, status: int, body, with_revision: bool = True) -> None:
+    def _send(self, status: int, body, with_revision: bool = True,
+              content_type: str = "application/json", headers=()) -> None:
         """Answer ``body``: a dict as JSON, with the request's revision in
         it unless ``with_revision`` is false, or bytes as they are."""
         if isinstance(body, dict):
@@ -132,54 +173,105 @@ class _Handler(BaseHTTPRequestHandler):
         else:
             data = body
         self.send_response(status)
-        self.send_header("Content-Type", "application/json")
+        self.send_header("Content-Type", content_type)
         self.send_header("Content-Length", str(len(data)))
+        for name, value in headers:
+            self.send_header(name, value)
         if self.revision:
             self.send_header("revision", self.revision)
         self.end_headers()
         self.wfile.write(data)
 
+    def _payload(self):
+        length = int(self.headers.get("Content-Length") or 0)
+        try:
+            return json.loads(self.rfile.read(length) or b"null")
+        except ValueError:
+            return None
+
+    def _readiness(self, collection_dir: str):
+        """200 when every expected model's artifact is in the collection
+        (or none is expected), else 503 with the missing ones."""
+        try:
+            expected = self.server.expected_models()
+        except (OSError, ValueError):
+            return self._send(503, {
+                "ready": False,
+                "missing": [f"(expected-models file {self.server.expected_file!r} unreadable)"],
+                "n_missing": 1,
+            }, with_revision=False)
+        missing = [name for name in expected if not os.path.exists(
+            os.path.join(collection_dir, name, "metadata.json"))]
+        if missing:
+            return self._send(503, {"ready": False, "missing": missing[:20],
+                                    "n_missing": len(missing)}, with_revision=False)
+        return self._send(200, {"ready": True}, with_revision=False)
+
+    def _expected(self):
+        try:
+            expected = self.server.expected_models()
+        except (OSError, ValueError):
+            return self._send(503, {"error": "expected-models file declared but unreadable"},
+                              with_revision=False)
+        return self._send(200, {"expected-models": expected})
+
     def _route(self, method: str):
         url = urlsplit(self.path)
         query = parse_qs(url.query, keep_blank_values=True)
-        self.revision = self.server.revision
         pinned = (query.get("revision") or [""])[0] or self.headers.get("revision")
-        models = self.server.models
-        if pinned:
-            self.revision = pinned
-            models = self.server.revision_models(pinned)
-            if models is None:
-                return self._send(410, {"error": f"Revision '{pinned}' not found."},
-                                  with_revision=False)
-        if url.path == "/healthcheck" and method == "GET":
-            return self._send(200, b"")
-        match = _MODEL_ROUTE.match(url.path)
-        if not match:
+        self.revision = pinned or self.server.revision
+        collection_dir = self.server.revision_dir(self.revision)
+        if collection_dir is None:
+            return self._send(410, {"error": f"Revision '{pinned}' not found."},
+                              with_revision=False)
+        path = url.path.rstrip("/") or "/"
+        project_match = _PROJECT_ROUTE.match(path)
+        model_match = _MODEL_ROUTE.match(path)
+        if not (project_match or model_match or path in _TOP_ROUTES):
             return self._send(404, {"message": f"No route {method} {url.path}"})
-        _, name, action = match.groups()
-        entry = models.get(name)
+        allowed = "POST" if model_match and model_match.group(3) in _POST_ACTIONS else "GET"
+        if method != allowed:
+            return self._send(405, {"message": f"{method} not allowed on {url.path}"})
+        if path == "/healthcheck":
+            return self._send(200, b"")
+        if path == "/readiness":
+            return self._readiness(collection_dir)
+        if path == "/server-version":
+            return self._send(200, {"version": __version__})
+        if project_match:
+            listing = project_match.group(2)
+            if listing == "models":
+                return self._send(200, views.model_list(collection_dir))
+            if listing == "revisions":
+                return self._send(200, views.revision_list(collection_dir, self.server.revision))
+            return self._expected()
+        _, name, action = model_match.groups()
+        entry = self.server.revision_models(self.revision).get(name)
         if entry is None:
-            return self._send(404, {"message": f"No such model found: '{name}'"})
-        if action == "metadata" and method == "GET":
+            found = "No model found for" if action in ("metadata", "healthcheck") else (
+                "No such model found:")
+            return self._send(404, {"message": f"{found} '{name}'"})
+        if action in ("metadata", "healthcheck"):
             return self._send(200, {
                 "gordo-server-version": __version__,
                 "metadata": entry.metadata,
                 "env": {"MODEL_COLLECTION_DIR": self.server.collection_dir},
             })
-        if action == "anomaly/prediction" and method == "POST":
-            length = int(self.headers.get("Content-Length") or 0)
-            try:
-                payload = json.loads(self.rfile.read(length) or b"null")
-            except ValueError:
-                payload = None
-            all_columns = "all_columns" in query
-            with entry.lock:
-                status, body = anomaly_prediction_core(
+        if action == "download-model":
+            return self._send(200, views.download_model(entry.directory),
+                              content_type="application/octet-stream",
+                              headers=[("Content-Disposition",
+                                        "attachment; filename=model.tar.gz")])
+        payload = self._payload()
+        with entry.lock:
+            if action == "prediction":
+                status, body = views.base_prediction_core(
+                    entry.detector, payload, entry.tags, entry.target_tags, entry.frequency)
+            else:
+                status, body = views.anomaly_prediction_core(
                     entry.detector, payload, entry.tags, entry.target_tags,
-                    entry.frequency, all_columns,
-                )
-            return self._send(status, body)
-        return self._send(405, {"message": f"{method} not allowed on {url.path}"})
+                    entry.frequency, "all_columns" in query)
+        return self._send(status, body)
 
     def _handle(self, method: str) -> None:
         try:
@@ -210,17 +302,9 @@ def run_server(host: str = "0.0.0.0", port: int = 5555, device=None,
                collection_dir: str = None) -> None:
     """Serve until interrupted."""
     server = make_server(host, port, device, collection_dir)
+    logger.info("Serving %s on http://%s:%d", server.collection_dir,
+                *server.server_address[:2])
     try:
         server.serve_forever()
     finally:
         server.server_close()
-
-
-if __name__ == "__main__":
-    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--host", default="0.0.0.0")
-    parser.add_argument("--port", type=int, default=5555)
-    parser.add_argument("--device", default=None, help="cuda (default) or cpu")
-    args = parser.parse_args()
-    logging.basicConfig(level=logging.INFO)
-    run_server(args.host, args.port, args.device)

@@ -1,8 +1,9 @@
 """
-The anomaly route without pandas: request decode, the anomaly core and the
-response body, the port's counterpart of ``anomaly_prediction_core`` in
-``gordo_tpu/server/views.py`` with the frame helpers of
-``gordo_tpu/server/utils.py``.
+The route handlers without pandas: request decode, the base and anomaly
+cores and their response bodies, and the listings, the port's counterparts
+of ``base_prediction_core``, ``anomaly_prediction_core``, ``model_list``,
+``revision_list`` and ``download_model`` in ``gordo_tpu/server/views.py``
+with the frame helpers of ``gordo_tpu/server/utils.py``.
 
 Request frames arrive as ``{tag: {iso_timestamp: value}}`` dicts or as
 plain 2-D lists; timestamps are parsed with
@@ -12,14 +13,20 @@ plain 2-D lists; timestamps are parsed with
 with the ``smooth-*`` blocks dropped unless ``all_columns`` is given.
 """
 
+import logging
 import math
+import os
 import timeit
 from datetime import datetime
 from typing import List, Optional, Tuple
 
 import numpy as np
 
-from ..models.utils import Frame
+from .. import serializer
+from ..models.utils import Frame, make_base_raw
+from .model_io import get_model_output
+
+logger = logging.getLogger(__name__)
 
 DELETED_FROM_RESPONSE_COLUMNS = (
     "smooth-tag-anomaly-scaled",
@@ -121,3 +128,52 @@ def anomaly_prediction_core(model, payload, tags: List[str], target_tags: List[s
         "data": frame.to_dict(),
         "time-seconds": f"{timeit.default_timer() - start_time:.4f}",
     }
+
+
+def base_prediction_core(model, payload, tags: List[str], target_tags: List[str],
+                         frequency) -> Tuple[int, dict]:
+    """``(status, body)`` of one base request against ``model``: the
+    ``model-input`` and ``model-output`` blocks. A ValueError of the
+    predict is answered 400 with its message, any other error 400 with a
+    generic one, as the JAX package answers them."""
+    try:
+        X, _ = extract_X_y(payload, tags, target_tags)
+    except ValueError as exc:
+        return 400, {"message": str(exc)}
+    start = timeit.default_timer()
+    try:
+        output = get_model_output(model, X)
+    except ValueError as err:
+        logger.error("Failed to predict: %s", err, exc_info=True)
+        return 400, {"error": f"ValueError: {err}"}
+    except Exception:  # noqa: BLE001 -- answered 400, as the JAX server does
+        logger.exception("Failed to predict")
+        return 400, {"error": "Something unexpected happened; check your input data"}
+    data = make_base_raw(tags, X.values, output, target_tags, X.index, frequency)
+    return 200, {
+        "data": data.to_dict(),
+        "time-seconds": f"{timeit.default_timer() - start:.4f}",
+    }
+
+
+def model_list(collection_dir: str) -> dict:
+    """Every entry of the collection directory, sorted."""
+    try:
+        return {"models": sorted(os.listdir(collection_dir))}
+    except FileNotFoundError:
+        return {"models": []}
+
+
+def revision_list(collection_dir: str, current_revision: str) -> dict:
+    """The served revision and every sibling of the collection directory."""
+    try:
+        available = sorted(os.listdir(os.path.join(collection_dir, "..")))
+    except FileNotFoundError:
+        logger.error("Attempted to list directories above %s", collection_dir, exc_info=True)
+        available = [current_revision]
+    return {"latest": current_revision, "available-revisions": available}
+
+
+def download_model(model_dir: str) -> bytes:
+    """The artifact of ``model_dir`` as the bytes ``serializer.loads`` takes."""
+    return serializer.dumps(model_dir)

@@ -2,13 +2,15 @@
 Where one training step of the PyTorch/CUDA port spends its time, on one
 NVIDIA GPU.
 
-    python3 scripts/torch_train_breakdown.py [float32|bfloat16]   # from the repo root
+    python3 scripts/torch_train_breakdown.py [float32|bfloat16] [MACHINES]   # from the repo root
 
 Builds ``chip_smoke.py``'s ``transformer-ae-512`` model (seeded weights,
 attention through the flash kernels) at the given compute dtype (float32
 unless named; bfloat16 is ``transformer-ae-512-bf16``) and its 6,144
 training rows, runs
-warm-up steps of ``ops/train.py``'s epoch function (Adam, MSE, batch 32),
+warm-up steps of ``ops/train.py``'s epoch function (Adam, MSE, batch 32;
+with MACHINES above 1, the fleet trainer's stacked step of that many
+machines, ``run_masked_epoch`` on a ``StackedTransformerModel``),
 then times STEPS steps on the host clock (ending in a synchronise) and runs
 STEPS more under ``torch.profiler`` to split the device time by kernel
 group: fp32 matmuls, the flash forward, dQ and dK/dV kernels, the
@@ -51,7 +53,9 @@ def main() -> int:
     from gordo_tpu_torch.models.models import TransformerAutoEncoder
     from gordo_tpu_torch.models.scaler import MinMaxScaler
     from gordo_tpu_torch.ops import train
-    from gordo_tpu_torch.ops.nn import TransformerModel, init_model_params
+    from gordo_tpu_torch.ops.nn import (
+        StackedTransformerModel, TransformerModel, init_model_params, stack_params,
+    )
     from gordo_tpu_torch.ops.predict import n_train_samples
 
     card = chip_smoke._card()
@@ -61,19 +65,34 @@ def main() -> int:
     rng = np.random.RandomState(chip_smoke.SEED)
     rows = np.concatenate([chip_smoke._series(4096, 0, rng), chip_smoke._series(2048, 4096, rng)])
     dtype = sys.argv[1] if len(sys.argv) > 1 else "float32"
+    machines = int(sys.argv[2]) if len(sys.argv) > 2 else 1
     spec = TransformerAutoEncoder(**chip_smoke.CONFIG, compute_dtype=dtype).build_spec(8, 8)
-    model = TransformerModel(
-        spec, init_model_params(spec, torch.Generator().manual_seed(chip_smoke.SEED)),
-        torch.device("cuda"))
-    optimizer = train.make_optimizer(spec.optimizer, model.parameters())
+    params = [init_model_params(spec, torch.Generator().manual_seed(chip_smoke.SEED + m))
+              for m in range(machines)]
     X = torch.as_tensor(MinMaxScaler().fit(rows).transform(rows), dtype=torch.float32,
                         device="cuda")
     order = torch.randperm(n_train_samples(spec, len(rows)),
                            generator=torch.Generator().manual_seed(chip_smoke.SEED))
     batch = chip_smoke.BATCH
+    if machines == 1:
+        model = TransformerModel(spec, params[0], torch.device("cuda"))
+    else:
+        model = StackedTransformerModel(spec, stack_params(
+            [[{k: v.numpy() for k, v in p.items()} for p in machine] for machine in params]),
+            torch.device("cuda"))
+        X = X.expand(machines, *X.shape).contiguous()
+    optimizer = train.make_optimizer(spec.optimizer, model.parameters())
 
     def steps(n: int, first: int) -> None:
-        train.run_epoch(model, optimizer, X, X, order[first * batch:(first + n) * batch], batch)
+        if machines == 1:
+            train.run_epoch(model, optimizer, X, X, order[first * batch:(first + n) * batch],
+                            batch)
+            return
+        # the stacked step takes each machine's live samples as a prefix:
+        # the rows of these n steps' windows, in each machine's own order
+        rows_n = X[:, first * batch:(first + n) * batch + spec.lookback_window - 1]
+        orders = torch.stack([torch.randperm(n * batch) for _ in range(machines)])
+        train.run_masked_epoch(model, optimizer, rows_n, rows_n, orders, n * batch, batch)
 
     steps(WARMUP, 0)
     torch.cuda.synchronize()
@@ -102,6 +121,7 @@ def main() -> int:
     busy = sum(per_step.values())
     result = {
         "config": "transformer-ae-512", "compute_dtype": dtype, "batch": batch,
+        "machines": machines,
         "steps": STEPS,
         "step_ms": step_ms, "profiled_step_ms": profiled_ms,
         "device_ms_per_step_by_kernel": per_step or "not measured (no device events)",

@@ -366,6 +366,13 @@ import gordo_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(gordo_tpu_torch.__path__, "gordo_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
+# the fleet trainer and the CLI's fleet and server commands, as they load
+import gordo_tpu_torch.parallel.batch_trainer
+import gordo_tpu_torch.workflow.normalized_config
+from gordo_tpu_torch import cli
+for argv in (["batch-build", "fleet.json", "out", "--device", "cpu", "--fail-fast"],
+             ["run-server", "--port", "5555", "--device", "cpu"]):
+    assert cli._parser().parse_args(argv).command == argv[0]
 import chip_smoke
 leaked = [m for m in sys.modules if m == "gordo_tpu" or m.startswith("gordo_tpu.")]
 assert not leaked, leaked
