@@ -6,7 +6,8 @@ Drive the PyTorch/CUDA port (gordo_tpu_torch) on one NVIDIA GPU.
 1. Device: the card's name and power limit, CUDA version; TF32 is turned
    off for matmuls and cuDNN, so every reference below is float32.
 2. Build: every kernel of ``gordo_tpu_torch/ops/csrc`` with nvcc, the
-   sources compiled in parallel.
+   sources compiled in parallel, and beside them the request codec's
+   native library (``gordo_tpu_torch/native/gordo_native.cpp``) with g++.
 3. Kernel phases: the forward kernel, then the dQ and dK/dV kernels, each
    against its plain PyTorch version on the card at the main paths'
    shapes (and ragged, small-head and large-head shapes), with the times
@@ -41,7 +42,26 @@ Drive the PyTorch/CUDA port (gordo_tpu_torch) on one NVIDIA GPU.
    launch per block, its model output equal to the anomaly route's and
    the first held against plain attention, and ``download-model``'s bytes
    loaded back on the card, predicting as served.
-6. Build path: one step's gradients and the first 20 step losses of the
+6. Batcher path (float32 here, bf16 after step 8): the JAX package's
+   default serving path, its bench's batcher A/B. Eight
+   ``transformer-ae-512`` artifacts with their own seeded weights are served
+   by the port's server; 16 threads each POST 2 anomaly requests of 600 rows
+   (89 windows, padded to 128), round robin over the models, in the
+   rectangular body the native parser takes, with
+   ``GORDO_TPU_SERVING_BATCH`` 0, then 1, then auto; then 8 concurrent
+   1,535-row requests, one per model, unbatched and batched. Every answer
+   is 200, every body parsed and every answer encoded natively, the codec
+   not poisoned, no plain attention, no bisection or serial rescue; forced
+   on, the forward launches once per block a fused call and there are
+   fewer fused calls than requests; each batched model output is within
+   the dtype's served tolerance (TOL_OUT_REL, TOL_BF16_MODEL_REL) of the
+   same request unbatched. Then the codec's stages for one 1,535-row
+   request (native against the dict path), 16 requests queued at once with
+   ``GORDO_TPU_DEVICE_PIPELINE`` 0 and 1 (the same fused calls, identical
+   outputs), the peak device memory per window of a direct predict and of
+   one fused call of eight 1,535-row requests, and the forward kernel at
+   that call's BH against its twin, its bound and SDPA.
+7. Build path: one step's gradients and the first 20 step losses of the
    model against the same parameters with the plain attention; then the
    ``transformer-ae-512`` machine is built from its config
    (``BUILD_CONFIG``: RandomDataset, 6,144 rows, a ``DiffBasedAnomalyDetector``
@@ -54,7 +74,7 @@ Drive the PyTorch/CUDA port (gordo_tpu_torch) on one NVIDIA GPU.
    (``python -m gordo_tpu_torch build``) builds it once more in a
    subprocess; the built artifact answers one request and its metadata
    request through the server.
-7. bf16: the bf16 forward, dQ and dK/dV kernels against their plain twins
+8. bf16: the bf16 forward, dQ and dK/dV kernels against their plain twins
    on bf16 inputs at the same shapes (every element within one bf16 ulp of
    the twin's, at most 1% of them different at all, lse within 1e-5
    relative, bit-identical backward reruns; dQ also within that gate of the
@@ -65,7 +85,7 @@ Drive the PyTorch/CUDA port (gordo_tpu_torch) on one NVIDIA GPU.
    checked as above, its training and predicts going through the bf16
    kernels alone, and the built artifact answers a 1,535-row request whose
    model output is held against the same bf16 model with plain attention.
-8. Fleet: eight ``transformer-ae-512`` machines (each its own tags, so its
+9. Fleet: eight ``transformer-ae-512`` machines (each its own tags, so its
    own data) built by ``BatchedModelBuilder`` on the card, in float32 and
    in bf16: every machine from the stacked program, one dQ and one dK/dV
    launch per block a stacked step for the whole bucket (attention BH =
@@ -78,14 +98,15 @@ Drive the PyTorch/CUDA port (gordo_tpu_torch) on one NVIDIA GPU.
    serial trainer's on the same orders; ``python -m gordo_tpu_torch batch-build`` in a
    subprocess, and one of its artifacts answering a base and an anomaly
    request.
-9. A ``kernels`` JSON line (six entries: three float32, three bf16), then
-   the last line
+10. A ``batcher_path`` JSON line (both dtypes' numbers), a ``kernels`` JSON
+   line (six entries: three float32, three bf16), then the last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
 Any failure raises, so the exit code is not 0 and no result line is
 printed. Without CUDA, or outside a checkout, it exits 2 at once.
 """
 
+import concurrent.futures
 import dataclasses
 import json
 import math
@@ -194,18 +215,19 @@ def _time_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def _sdpa_ms(q, k, v, iters: int, do=None) -> dict:
+def _sdpa_ms(q, k, v, iters: int, do=None, three_d: bool = True) -> dict:
     """``scaled_dot_product_attention`` (causal) on the same (BH, T, dh)
     inputs, its forward or, with ``do``, its backward through autograd:
     given as one (1, BH, T, dh) batch, where PyTorch may pick its fused
-    kernels (``library_ms``), and as the (BH, T, dh) tensors themselves
-    (``library_3d_ms``, which takes its unfused path)."""
+    kernels (``library_ms``), and, unless ``three_d`` is false, as the
+    (BH, T, dh) tensors themselves (``library_3d_ms``, which takes its
+    unfused path and holds the (BH, T, T) scores)."""
     import torch
     import torch.nn.functional as F
 
-    times = {}
+    times = {"library_3d_ms": None}
     for key, view in (("library_ms", lambda x: x.unsqueeze(0)),
-                      ("library_3d_ms", lambda x: x)):
+                      ("library_3d_ms", lambda x: x))[:2 if three_d else 1]:
         if do is None:
             qv, kv, vv = (view(x) for x in (q, k, v))
             times[key] = _time_ms(
@@ -698,11 +720,12 @@ def _series(n_rows: int, offset: int, rng) -> np.ndarray:
     return np.sin(2 * np.pi * t / period) + 0.05 * rng.randn(n_rows, len(TAGS))
 
 
-def write_artifact(collection: Path, device: str = "cuda", **estimator):
-    """The transformer-ae-512 artifact: seeded weights, scalers fitted on a
-    training span, thresholds from a held-out span (the JAX package's
-    rule: the max over the span of the rolling(6) minimum of the error);
-    ``estimator`` adds to the estimator's arguments."""
+def write_artifact(collection: Path, device: str = "cuda", name: str = "transformer-ae-512",
+                   seed: int = SEED, **estimator):
+    """The transformer-ae-512 artifact ``name``: weights from ``seed``,
+    scalers fitted on a training span, thresholds from a held-out span (the
+    JAX package's rule: the max over the span of the rolling(6) minimum of
+    the error); ``estimator`` adds to the estimator's arguments."""
     import torch
 
     from gordo_tpu_torch import serializer
@@ -716,7 +739,7 @@ def write_artifact(collection: Path, device: str = "cuda", **estimator):
     train, held_out = _series(4096, 0, rng), _series(2048, 4096, rng)
     estimator = TransformerAutoEncoder(**CONFIG, **estimator)
     spec = estimator.build_spec(len(TAGS), len(TAGS))
-    params = init_model_params(spec, torch.Generator().manual_seed(SEED))
+    params = init_model_params(spec, torch.Generator().manual_seed(seed))
     scaler = MinMaxScaler().fit(train)
     layers = [{k: v.numpy() for k, v in p.items()} for p in params]
     detector = detector_from_arrays(
@@ -729,10 +752,9 @@ def write_artifact(collection: Path, device: str = "cuda", **estimator):
     mse = np.square(scaler.transform(pred) - scaler.transform(truth)).mean(axis=1)
     detector.feature_thresholds_ = np.nanmax(_rolling(abs_err, 6, np.min), axis=0)
     detector.aggregate_threshold_ = float(np.nanmax(_rolling(mse, 6, np.min)))
-    metadata = {"name": "transformer-ae-512", "model": CONFIG,
+    metadata = {"name": name, "model": CONFIG,
                 "dataset": {"tags": TAGS, "resolution": "10min"}}
-    serializer.dump(detector, str(collection / "transformer-ae-512"), tags=TAGS,
-                    metadata=metadata)
+    serializer.dump(detector, str(collection / name), tags=TAGS, metadata=metadata)
     return spec, layers, scaler
 
 
@@ -1332,6 +1354,416 @@ def server_surface_path(card: str, spec, layers, scaler, collection: Path,
     return base_launches
 
 
+# the batcher phase: the JAX bench's batcher A/B (16 users, 8 models, round
+# robin), each user posting BATCHER_REQUESTS anomaly requests of BATCHER_ROWS
+# rows: 89 windows, padded to 128, attention BH 512 a request. Two requests a
+# user (the JAX bench's four cost the script ~2 s a dtype) and the auto
+# mode's A/B at AB_ROUNDS rounds keep the script near its earlier time.
+BATCHER_MODELS = 8
+BATCHER_USERS = 16
+BATCHER_REQUESTS = 2
+AB_ROUNDS = 2
+BATCHER_ROWS = 600
+FULL_ROWS = 1535  # a full-width request: 1,024 windows
+# the pipeline check: this many requests of BATCHER_ROWS rows queued at once
+# into a batcher fusing at most PIPELINE_FUSE of them a call
+PIPELINE_ITEMS = 16
+PIPELINE_FUSE = 4
+
+
+def _rect_body(values: np.ndarray) -> bytes:
+    """An anomaly request body in the rectangular form the native parser
+    takes: ``{"X": [[...]], "y": [[...]]}``."""
+    rows = values.tolist()
+    return json.dumps({"X": rows, "y": rows}).encode()
+
+
+def _drive(project: str, requests: list, users: int) -> tuple:
+    """POST ``requests`` (``(model name, body)``) to the anomaly route from
+    ``users`` threads, user u sending requests u, u + users, ... one after
+    another. Returns ``([(status, body, ms)], wall seconds)``."""
+    results = [None] * len(requests)
+
+    def user(u):
+        for i in range(u, len(requests), users):
+            name, body = requests[i]
+            req = urllib.request.Request(f"{project}/{name}/anomaly/prediction", data=body,
+                                         headers={"Content-Type": "application/json"})
+            t0 = time.perf_counter()
+            try:
+                with urllib.request.urlopen(req, timeout=300) as resp:
+                    status, answer = resp.status, resp.read()
+            except urllib.error.HTTPError as err:
+                status, answer = err.code, err.read()
+            except OSError as err:  # no answer at all
+                status, answer = None, repr(err).encode()
+            results[i] = (status, answer, 1e3 * (time.perf_counter() - t0))
+
+    threads = [threading.Thread(target=user, args=(u,)) for u in range(users)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    return results, time.perf_counter() - t0
+
+
+def _reset_codec() -> None:
+    from gordo_tpu_torch.server import fast_codec
+
+    for name in fast_codec.COUNTERS:
+        setattr(fast_codec, name, 0)
+
+
+def _codec_counts() -> dict:
+    from gordo_tpu_torch.server import fast_codec
+
+    return {name.lower(): getattr(fast_codec, name) for name in fast_codec.COUNTERS}
+
+
+def _served_run(card: str, project: str, requests: list, users: int, mode: str, dtype: str,
+                n_blocks: int, n_out: int, label: str, must_fuse: bool = True) -> dict:
+    """One run of ``requests`` through the server with
+    ``GORDO_TPU_SERVING_BATCH=mode`` and a fresh batcher, checked: every
+    answer 200, each body parsed and each answer encoded by the native codec
+    (no fallback, no poisoning), no plain attention; with the batcher forced
+    on, ``n_blocks`` forward launches a fused call, fewer fused calls than
+    requests (where ``must_fuse``), no bisection and no serial rescue;
+    batching off, ``n_blocks``
+    launches a request. Returns the run's outputs, numbers and batcher."""
+    from gordo_tpu_torch.server import batcher
+
+    os.environ["GORDO_TPU_SERVING_BATCH"] = mode
+    batcher.reset_batcher()
+    _reset_codec()
+    _reset_launches()
+    with _PlainAttentionCalls() as plain:
+        results, wall = _drive(project, requests, users)
+    launched = _launches(dtype)["forward"]
+    codec = _codec_counts()
+    fused = batcher.peek_batcher()
+    stats = dict(fused.stats) if fused else None
+    statuses = [r[0] if r else None for r in results]
+    if any(status != 200 for status in statuses):
+        raise AssertionError(f"{label} ({mode}): statuses {statuses}, first failure "
+                             f"{next(r[1][:300] for r in results if r[0] != 200)}")
+    outputs = [_columns(json.loads(r[1])["data"]["model-output"], TAGS) for r in results]
+    if any(out.shape[0] != n_out or not np.isfinite(out).all() for out in outputs):
+        raise AssertionError(f"{label} ({mode}): model-output not {n_out} finite rows")
+    latencies = sorted(r[2] for r in results)
+    run = {"mode": mode, "requests": len(requests), "wall_s": wall,
+           "p50_ms": latencies[len(latencies) // 2], "max_ms": latencies[-1],
+           "samples_per_s": len(requests) * n_out / wall, "forward_launches": launched,
+           "codec": codec, "plain_attention_calls": plain.calls, "batcher": stats,
+           "fused_calls": list(fused.calls) if fused else None,
+           "self_ab": ({str(k.lookback_window): v for k, v in fused.calibrations.items()}
+                       if fused else None)}
+    print(f"{label}, GORDO_TPU_SERVING_BATCH={mode} on {card} ({dtype}): {len(requests)} "
+          f"requests from {users} users in {wall:.3f} s, per-call p50 {run['p50_ms']:.2f} ms "
+          f"(max {run['max_ms']:.2f}), {run['samples_per_s']:.1f} samples/s; forward "
+          f"launches {launched}; batcher {stats}; fuse widths and windows per fused call "
+          f"{run['fused_calls']}; self-A/B {run['self_ab']}; codec {codec}", flush=True)
+    if (codec["native_parses"] != len(requests) or codec["native_encodes"] != len(requests)
+            or codec["parse_fallbacks"] or codec["encode_fallbacks"] or codec["poisonings"]):
+        raise AssertionError(f"{label} ({mode}): a body or answer left the native codec")
+    if plain.calls:
+        raise AssertionError(f"{label} ({mode}): reached the plain attention")
+    if mode == "0" and launched != n_blocks * len(requests):
+        raise AssertionError(f"{label}: {launched} launches unbatched, not {n_blocks} a request")
+    if mode == "1" and not (launched == n_blocks * stats["device_calls"]
+                            and (stats["device_calls"] < len(requests) or not must_fuse)
+                            and stats["items"] == len(requests)):
+        raise AssertionError(f"{label}: {launched} launches for {stats}")
+    if stats and (stats["bisections"] or stats["serial_rescues"]):
+        raise AssertionError(f"{label} ({mode}): the batcher bisected or rescued: {stats}")
+    run["outputs"] = outputs
+    return run
+
+
+def _max_rel(got: list, ref: list) -> float:
+    return max(float(np.abs(a - b).max() / np.abs(b).max()) for a, b in zip(got, ref))
+
+
+def _queued(fused, items: list) -> list:
+    """Queue ``items`` (``(estimator, X)``) on the batcher ``fused`` before
+    its dispatcher starts, so that the first drain takes them in order and
+    the fused calls are known; wait for every result. Returns the results."""
+    from gordo_tpu_torch.ops.predict import pad_for_predict
+    from gordo_tpu_torch.server import batcher
+
+    queued = []
+    for est, X in items:
+        X_pad, n_pad, n_keep = pad_for_predict(est.spec_, X)
+        item = batcher._Item(est.spec_, est.module_, X_pad, n_pad, n_keep,
+                             batcher._device_of(est.module_))
+        fused._ring.put(item)
+        queued.append(item)
+    fused._ensure_thread()
+    for item in queued:
+        if not item.done.wait(timeout=300):
+            raise AssertionError("a queued batcher item was not answered")
+        if item.error is not None:
+            raise item.error
+    fused.close()
+    return [item.result for item in queued]
+
+
+def pipeline_check(card: str, estimators: list, n_blocks: int, dtype: str, rng) -> dict:
+    """PIPELINE_ITEMS requests of BATCHER_ROWS rows queued at once into a
+    batcher fusing PIPELINE_FUSE a call, with ``GORDO_TPU_DEVICE_PIPELINE``
+    0 and then 1: the same fused calls, and the outputs must be the same
+    bytes; the pipelined run must have overlapped calls, and each run
+    launches the forward once per block a fused call."""
+    from gordo_tpu_torch.server import batcher
+
+    items = [(estimators[i % len(estimators)],
+              _series(BATCHER_ROWS, 50000 + 700 * i, rng).astype(np.float32))
+             for i in range(PIPELINE_ITEMS)]
+    outs, stats = {}, {}
+    for flag in ("0", "1"):
+        os.environ["GORDO_TPU_DEVICE_PIPELINE"] = flag
+        fused = batcher.CrossModelBatcher(max_batch=PIPELINE_FUSE)
+        _reset_launches()
+        with _PlainAttentionCalls() as plain:
+            outs[flag] = _queued(fused, items)
+        stats[flag] = {**fused.stats, "launches": _launches(dtype)["forward"],
+                       "calls": list(fused.calls), "plain": plain.calls}
+    same = all(np.array_equal(a, b) for a, b in zip(outs["0"], outs["1"]))
+    print(f"pipeline check on {card} ({dtype}): {PIPELINE_ITEMS} requests, {PIPELINE_FUSE} a "
+          f"fused call; GORDO_TPU_DEVICE_PIPELINE=0 {stats['0']}; =1 {stats['1']}; outputs "
+          f"identical: {same}", flush=True)
+    for flag, st in stats.items():
+        if st["launches"] != n_blocks * st["device_calls"] or st["plain"] or (
+                st["bisections"] or st["serial_rescues"]):
+            raise AssertionError(f"pipeline {flag}: {st}")
+    if not same or stats["1"]["pipeline_overlaps"] < 1 or stats["0"]["calls"] != stats["1"]["calls"]:
+        raise AssertionError("the pipelined batcher's outputs or calls differ from the serial")
+    return stats
+
+
+def fused_memory(card: str, estimators: list, dtype: str, rng, tol: float) -> dict:
+    """Peak device memory of one direct FULL_ROWS-row predict and of one
+    fused call of every model's FULL_ROWS-row request (queued at once: one
+    call of BATCHER_MODELS x 1,024 windows), each above what was allocated
+    before it, per window; the fused lanes against the direct predicts."""
+    import torch
+
+    from gordo_tpu_torch.server import batcher
+
+    items = [(est, _series(FULL_ROWS, 70000 + 2000 * m, rng).astype(np.float32))
+             for m, est in enumerate(estimators)]
+    torch.cuda.synchronize()
+    direct = []
+    for i, (est, X) in enumerate(items):
+        if i == 0:
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+        direct.append(est.predict(X))
+        if i == 0:
+            direct_gib = (torch.cuda.max_memory_allocated() - base) / 2**30
+    windows = direct[0].shape[0]
+    fused = batcher.CrossModelBatcher()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    lanes = _queued(fused, items)
+    seconds = time.perf_counter() - t0
+    fused_gib = (torch.cuda.max_memory_allocated() - base) / 2**30
+    calls = list(fused.calls)
+    err = _max_rel(lanes, direct)
+    out = {"direct_gib": direct_gib, "direct_windows": windows,
+           "direct_mib_per_window": direct_gib * 1024 / windows, "fused_gib": fused_gib,
+           "fused_calls": calls, "fused_mib_per_window": fused_gib * 1024 / calls[0][1],
+           "fused_s": seconds, "fused_vs_direct_max_rel": err}
+    print(f"fused memory on {card} ({dtype}): one direct {FULL_ROWS}-row predict "
+          f"({windows} windows) peaks {direct_gib:.3f} GiB above its start "
+          f"({out['direct_mib_per_window']:.3f} MiB a window); one fused call (width, "
+          f"windows) {calls} peaks {fused_gib:.3f} GiB ({out['fused_mib_per_window']:.3f} MiB "
+          f"a window) in {seconds:.3f} s; fused lanes vs direct max rel err {err:.3e}",
+          flush=True)
+    if len(calls) != 1 or not err <= tol:
+        raise AssertionError(f"the full-width fused call: {calls}, max rel err {err}")
+    return out
+
+
+def codec_stages(card: str, entry, body: bytes, dict_body: bytes, reps: int = 3) -> dict:
+    """The codec's stages for one FULL_ROWS-row anomaly request, in-process,
+    medians over ``reps``: the native one-pass parse against ``json`` and
+    ``decode_frame``, and the native template encode against ``json.dumps``
+    of ``to_dict()``, on the rectangular body and on the time-indexed
+    column-dict body (whose column-dict ``y`` the native grammar leaves to
+    ``json``)."""
+    from gordo_tpu_torch.server import fast_codec, views
+
+    def median_ms(fn):
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            result = fn()
+            times.append(1e3 * (time.perf_counter() - t0))
+        return sorted(times)[reps // 2], result
+
+    out = {}
+    for label, raw_body in (("rect", body), ("column_dict", dict_body)):
+        native_ms, parsed = median_ms(lambda: fast_codec.decode_body_xy(raw_body))
+        parse_ms, payload = median_ms(lambda: json.loads(raw_body))
+        decode_ms, (X, y) = median_ms(
+            lambda: views.extract_X_y(payload, entry.tags, entry.target_tags))
+        raw = entry.detector.anomaly_raw(X, y, frequency=entry.frequency)
+        dict_ms, expected = median_ms(lambda: json.dumps(raw.to_dict()))
+        encode_ms, fragment = median_ms(lambda: fast_codec.encode_raw(raw))
+        out[label] = {"native_parse_ms": native_ms if parsed is not None else None,
+                      "json_parse_ms": parse_ms, "decode_frame_ms": decode_ms,
+                      "native_encode_ms": encode_ms, "dict_encode_ms": dict_ms,
+                      "body_bytes": len(raw_body), "answer_bytes": len(expected)}
+        print(f"codec stages on {card}, one {FULL_ROWS}-row {label} request "
+              f"({len(raw_body)} bytes in, {len(expected)} out): native parse "
+              f"{'%.3f ms' % native_ms if parsed is not None else 'not taken (y as a column dict)'}"
+              f"; json parse {parse_ms:.3f} ms + decode_frame {decode_ms:.3f} ms; native encode "
+              f"{encode_ms:.3f} ms; json.dumps of to_dict() {dict_ms:.3f} ms", flush=True)
+        if fragment != expected:
+            raise AssertionError(f"the native encode of the {label} answer differs")
+        if label == "rect" and parsed is None:
+            raise AssertionError("the native parser refused the rectangular body")
+    return out
+
+
+def fused_forward_times(card: str, bh: int, dtype: str) -> dict:
+    """The forward kernel of ``dtype`` at the fused call's (bh, 512, 64),
+    causal: held against its plain twin (in 8 slices of BH), and timed
+    beside the twin, its bound and ``scaled_dot_product_attention``."""
+    import torch
+
+    from gordo_tpu_torch.ops import flash_attention as fa
+
+    shape = (bh, CONFIG["lookback_window"], CONFIG["d_model"] // CONFIG["num_heads"])
+    torch_dtype = torch.bfloat16 if dtype == "bfloat16" else torch.float32
+    g = torch.Generator(device="cuda").manual_seed(SEED + 10)
+    q, k, v = (torch.randn(shape, device="cuda", generator=g).to(torch_dtype) for _ in range(3))
+    out, lse = fa.flash_attention_forward(q, k, v, True)
+    ref_out, ref_lse = _plain_in_parts(fa.flash_attention_forward_plain, (q, k, v), True, 8)
+    if dtype == "bfloat16":
+        within, share, max_abs = _bf16_gate(out, ref_out)
+        ok = within and share <= TOL_BF16_SHARE
+        errors = {"within_one_ulp": within, "share_differing": share, "max_abs_err": max_abs}
+    else:
+        max_abs = (out - ref_out).abs().max().item()
+        rel = max_abs / ref_out.abs().max().item()
+        ok = rel <= TOL_OUT_REL and (lse - ref_lse).abs().max().item() <= TOL_LSE_ABS
+        errors = {"max_rel_err": rel, "max_abs_err": max_abs}
+    del out, lse, ref_out, ref_lse
+    torch.cuda.empty_cache()
+    ms = _time_ms(lambda: fa.flash_attention_forward(q, k, v, True), 5)
+    plain_ms = _time_ms(lambda: _plain_in_parts(fa.flash_attention_forward_plain,
+                                                (q, k, v), True, 8), 1)
+    # given as 3-D tensors SDPA would hold (BH, T, T) float32 scores: 32 GiB
+    library = _sdpa_ms(q, k, v, 5, three_d=False)
+    bound = _flash_bound_ms(*shape, causal=True, flop_per_pair=FLOP_PER_PAIR[dtype]["forward"],
+                            bytes_per_element=q.element_size(), dtype=dtype)
+    del q, k, v
+    torch.cuda.empty_cache()
+    timed = {"shape": list(shape), "ms": ms, "plain_ms": plain_ms, "bound_ms": bound["bound_ms"],
+             "bound_by": bound["bound_by"], **library, "against_plain": errors}
+    print(f"flash_attention_forward ({dtype}) at the fused call's {shape} causal on {card}: "
+          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound['bound_ms']:.4f} ms "
+          f"({bound['bound_by']}), scaled_dot_product_attention {library['library_ms']:.4f} ms "
+          f"(given 3-D tensors: not measured, its scores need {shape[0] * shape[1] ** 2 * 4 / 2**30:.0f} "
+          f"GiB); against plain {errors}", flush=True)
+    if not ok:
+        raise AssertionError(f"the {dtype} forward disagrees with its twin at {shape}")
+    return timed
+
+
+def batcher_path(card: str, root: Path, device: str = "cuda", **estimator) -> dict:
+    """The JAX package's default serving path on the card: BATCHER_MODELS
+    transformer-ae-512 artifacts (``estimator`` added to their arguments,
+    each its own seeded weights) served by the port's server, and
+    BATCHER_USERS threads each POSTing BATCHER_REQUESTS anomaly requests of
+    BATCHER_ROWS rows, round robin over the models, with
+    ``GORDO_TPU_SERVING_BATCH`` 0, then 1, then auto (:func:`_served_run`
+    checks each run); the batched answers within the dtype's served-output
+    tolerance of the unbatched; then one FULL_ROWS-row request per model, all
+    at once, unbatched and batched; the codec's stages; the pipeline check;
+    the fused call's memory; and the forward kernel at the fused call's BH.
+    Returns the numbers and the forward launches of the batched run."""
+    import torch
+
+    from gordo_tpu_torch.models.spec import TransformerBlock
+    from gordo_tpu_torch.server import batcher
+    from gordo_tpu_torch.server.server import make_server
+
+    started = time.perf_counter()
+    collection = root / "1"
+    names = [f"batcher-m{m}" for m in range(BATCHER_MODELS)]
+    for m, name in enumerate(names):
+        spec = write_artifact(collection, device, name=name, seed=SEED + 100 + m, **estimator)[0]
+    dtype = spec.compute_dtype
+    n_blocks = sum(isinstance(layer, TransformerBlock) for layer in spec.layers)
+    heads = next(layer.num_heads for layer in spec.layers if isinstance(layer, TransformerBlock))
+    tol = TOL_BF16_MODEL_REL if dtype == "bfloat16" else TOL_OUT_REL
+    rng = np.random.RandomState(SEED + 9)
+    traffic = [(names[(u + r) % BATCHER_MODELS],
+                _rect_body(_series(BATCHER_ROWS, 20000 + 700 * (r * BATCHER_USERS + u), rng)))
+               for r in range(BATCHER_REQUESTS) for u in range(BATCHER_USERS)]
+    full = [(name, _rect_body(_series(FULL_ROWS, 90000 + 2000 * m, rng)))
+            for m, name in enumerate(names)]
+    n_out = BATCHER_ROWS - spec.lookback_window + 1
+    n_full = FULL_ROWS - spec.lookback_window + 1
+    knobs = ("GORDO_TPU_SERVING_BATCH", "GORDO_TPU_DEVICE_PIPELINE",
+             "GORDO_TPU_BATCH_AB_ROUNDS")
+    previous = {knob: os.environ.get(knob) for knob in knobs}
+    os.environ["GORDO_TPU_BATCH_AB_ROUNDS"] = str(AB_ROUNDS)
+    server = make_server("127.0.0.1", 0, device=device, collection_dir=str(collection))
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    project = f"http://127.0.0.1:{server.server_address[1]}/gordo/v0/smoke"
+    try:
+        runs = {mode: _served_run(card, project, traffic, BATCHER_USERS, mode, dtype, n_blocks,
+                                  n_out, f"batcher traffic ({BATCHER_ROWS} rows)")
+                for mode in ("0", "1", "auto")}
+        full_runs = {mode: _served_run(card, project, full, len(full), mode, dtype, n_blocks,
+                                       n_full, f"{len(full)} concurrent {FULL_ROWS}-row requests",
+                                       must_fuse=False)
+                     for mode in ("0", "1")}
+        entries = server.models
+        estimators = [entries[name].detector.base_estimator.steps[1][1] for name in names]
+        os.environ["GORDO_TPU_SERVING_BATCH"] = "0"
+        batcher.reset_batcher()
+        stages = codec_stages(card, entries[names[0]], full[0][1], json.dumps(_payload(
+            _series(FULL_ROWS, 90000, np.random.RandomState(SEED + 11)),
+            datetime(2020, 1, 1, tzinfo=timezone.utc))).encode())
+        pipeline = pipeline_check(card, estimators, n_blocks, dtype, rng)
+        memory = fused_memory(card, estimators, dtype, rng, tol)
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=60)
+        batcher.reset_batcher()
+        for knob, value in previous.items():
+            if value is None:
+                os.environ.pop(knob, None)
+            else:
+                os.environ[knob] = value
+    errors = {mode: _max_rel(run["outputs"], runs["0"]["outputs"])
+              for mode, run in runs.items() if mode != "0"}
+    errors[f"full_{FULL_ROWS}"] = _max_rel(full_runs["1"]["outputs"], full_runs["0"]["outputs"])
+    print(f"batched model-output vs unbatched ({dtype}, tolerance {tol:g}): max rel err "
+          f"{errors}; auto decision {runs['auto']['self_ab']}; batched p50 "
+          f"{runs['1']['p50_ms']:.2f} ms and {runs['1']['samples_per_s']:.1f} samples/s against "
+          f"unbatched {runs['0']['p50_ms']:.2f} ms and {runs['0']['samples_per_s']:.1f}; "
+          f"batcher phase {time.perf_counter() - started:.1f} s", flush=True)
+    if not all(err <= tol for err in errors.values()):
+        raise AssertionError(f"batched answers disagree with unbatched: {errors}")
+    fused_bh = memory["fused_calls"][0][1] * heads
+    forward = fused_forward_times(card, fused_bh, dtype)
+    for run in [*runs.values(), *full_runs.values()]:
+        del run["outputs"]
+    return {"launches": runs["1"]["forward_launches"], "runs": runs, "full_runs": full_runs,
+            "errors": errors, "codec_stages": stages, "pipeline": pipeline, "memory": memory,
+            "fused_forward": forward, "seconds": time.perf_counter() - started}
+
+
 # the fleet phase's machines: each its own tags, so that their data differ
 FLEET_MACHINES = 8
 FLEET_TAGS = [[f"m{m}-tag-{j}" for j in range(len(TAGS))] for m in range(FLEET_MACHINES)]
@@ -1710,6 +2142,7 @@ def main() -> int:
         print("chip_smoke: run it from a checkout of the repository", file=sys.stderr)
         return 2
     sys.path.insert(0, str(REPO))
+    from gordo_tpu_torch import native
     from gordo_tpu_torch.ops import _build
 
     card = _card()
@@ -1722,8 +2155,13 @@ def main() -> int:
           f"{torch.backends.cudnn.allow_tf32}", flush=True)
 
     t0 = time.perf_counter()
-    libs = _build.build_all()
-    print(f"built {sorted(libs)} in {time.perf_counter() - t0:.1f} s", flush=True)
+    # the codec's native library (g++) builds beside the kernels (nvcc)
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        native_build = pool.submit(native.load)
+        libs = _build.build_all()
+        native_build.result()
+    print(f"built {sorted(libs)} and {native.library_path().name} in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
     for stem, log in _build.BUILD_LOGS.items():
         for line in log.splitlines():
             if "entry function" in line or "registers" in line or "spill" in line:
@@ -1758,7 +2196,8 @@ def main() -> int:
 
     collections = [REPO / "build" / "chip_smoke" / rev for rev in ("1", "2", "3")]
     fleet_root = REPO / "build" / "chip_smoke_fleet"
-    for collection in collections + [fleet_root]:
+    batcher_root = REPO / "build" / "chip_smoke_batcher"
+    for collection in collections + [fleet_root, batcher_root]:
         shutil.rmtree(collection, ignore_errors=True)
         collection.mkdir(parents=True)
     spec, layers, scaler = write_artifact(collections[0])
@@ -1766,9 +2205,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     base_route = server_surface_path(card, spec, layers, scaler, collections[0])
     torch.cuda.empty_cache()
+    batched = batcher_path(card, batcher_root / "float32")
+    torch.cuda.empty_cache()
     build, serial_seconds = build_path(card, collections[1])
     torch.cuda.empty_cache()
     bf16_build, bf16_serial_seconds = bf16_build_path(card, collections[2])
+    torch.cuda.empty_cache()
+    bf16_batched = batcher_path(card, batcher_root / "bfloat16", compute_dtype="bfloat16")
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     fleet = fleet_path(card, fleet_root, serial_seconds)
@@ -1780,11 +2223,19 @@ def main() -> int:
     print(f"fleet phase: {time.perf_counter() - t0:.1f} s", flush=True)
 
     forward["launches_by_path"] = {"serving": serving, "server_surface": base_route,
+                                   "batcher": batched["launches"],
                                    "build": build["forward"], "serving_built": build["serving"],
                                    "fleet": fleet["forward"]}
-    bf16_forward["launches_by_path"] = {"build": bf16_build["forward"],
+    bf16_forward["launches_by_path"] = {"batcher": bf16_batched["launches"],
+                                        "build": bf16_build["forward"],
                                         "serving_built": bf16_build["serving"],
                                         "fleet": bf16_fleet["forward"]}
+    for entry, result in ((forward, batched), (bf16_forward, bf16_batched)):
+        entry["batcher_shape"] = result["fused_forward"]
+    print(json.dumps({"batcher_path": {dtype: {key: value for key, value in result.items()
+                                              if key != "fused_forward"}
+                                       for dtype, result in (("float32", batched),
+                                                             ("bfloat16", bf16_batched))}}))
     for entry, key, launches, fleet_launches in (
             (dq, "dq", build, fleet), (dkv, "dkv", build, fleet),
             (bf16_dq, "dq", bf16_build, bf16_fleet), (bf16_dkv, "dkv", bf16_build, bf16_fleet)):

@@ -19,8 +19,11 @@ fault with the code of its exception.
 
 ``run-server`` serves the artifacts of ``MODEL_COLLECTION_DIR`` on
 ``--host`` and ``--port`` (``GORDO_SERVER_HOST``, ``GORDO_SERVER_PORT``)
-from ``--device``, one process with a thread per connection: the JAX
-command's workers, warm-up and batcher are not ported.
+from ``--device``, one process with a thread per connection. As the JAX
+command does, it batches predicts by default: ``--batch-predicts`` (or
+``GORDO_SERVER_BATCH_PREDICTS``) exports ``GORDO_TPU_SERVING_BATCH=auto``
+before the server starts, ``--no-batch-predicts`` exports ``0``
+(server/batcher.py). The JAX command's workers and warm-up are not ported.
 """
 
 import argparse
@@ -123,6 +126,18 @@ def batch_build(config_file: str, output_dir: str, project_name: str = "batch",
     return 0
 
 
+def _env_flag(name: str, default: bool) -> bool:
+    """A boolean environment variable as click reads one."""
+    value = os.environ.get(name, "").strip().lower()
+    if not value:
+        return default
+    if value in ("1", "true", "t", "yes", "y", "on"):
+        return True
+    if value in ("0", "false", "f", "no", "n", "off"):
+        return False
+    raise ValueError(f"{name}={value!r} is not a boolean")
+
+
 def _parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(prog="python -m gordo_tpu_torch")
     parser.add_argument("--log-level", default=os.environ.get("GORDO_LOG_LEVEL", "INFO"),
@@ -158,6 +173,11 @@ def _parser() -> argparse.ArgumentParser:
     server_cmd.add_argument("--port", type=int,
                             default=int(os.environ.get("GORDO_SERVER_PORT", "5555")))
     server_cmd.add_argument("--device", default=None, help="cuda (default) or cpu")
+    server_cmd.add_argument(
+        "--batch-predicts", action=argparse.BooleanOptionalAction,
+        default=_env_flag("GORDO_SERVER_BATCH_PREDICTS", True),
+        help="fuse concurrent predicts of one architecture into one device call, where a "
+             "measured A/B at first use finds that it wins (default: on)")
     return parser
 
 
@@ -170,6 +190,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     if args.command == "run-server":
         from .server.server import run_server
 
+        # before the server starts: the batcher reads it at its first predict
+        os.environ["GORDO_TPU_SERVING_BATCH"] = "auto" if args.batch_predicts else "0"
         run_server(args.host, args.port, args.device)
         return 0
     try:

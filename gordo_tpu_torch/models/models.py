@@ -5,8 +5,10 @@ Windowed Transformer estimators: the port's counterparts of
 
 An estimator holds its spec and a :class:`~gordo_tpu_torch.ops.nn.TransformerModel`
 whose parameters stay on the device; ``fit`` trains it there
-(ops/train.py), ``predict`` takes and returns numpy. The device is
-``cuda`` unless the estimator is made with ``device="cpu"``.
+(ops/train.py), ``predict`` takes and returns numpy: through the
+cross-model batcher when it is on (server/batcher.py), which fuses
+concurrent predicts of one spec into one device call, else direct. The
+device is ``cuda`` unless the estimator is made with ``device="cpu"``.
 """
 
 import dataclasses
@@ -19,6 +21,7 @@ from .. import resolve_device
 from ..ops.nn import TransformerModel, init_model_params
 from ..ops.predict import predict_fn
 from ..ops.train import fit_arrays
+from ..server.batcher import maybe_submit
 from .base import explained_variance_score
 from .factories import FACTORIES
 from .pretty import EstimatorRepr
@@ -153,7 +156,11 @@ class WindowedSequenceEstimator(EstimatorRepr):
     def predict(self, X) -> np.ndarray:
         if not hasattr(self, "module_"):
             raise AttributeError(f"This {type(self).__name__} has no parameters yet")
-        return self._predict(_as_2d(X))
+        X = _as_2d(X)
+        batched = maybe_submit(self.spec_, self.module_, X)
+        if batched is not None:
+            return batched
+        return self._predict(X)
 
     def score(self, X, y) -> float:
         """Explained variance of the output against the last rows of y."""

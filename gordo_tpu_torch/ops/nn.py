@@ -9,10 +9,12 @@ there (``kernel``/``bias`` for Dense; ``ln1_scale``, ``wq`` ... ``b_ff2``
 for a Transformer block), so weights carry across unchanged
 (serializer/from_jax.py). :class:`TransformerModel` holds them on the
 device and runs the forward pass, the counterpart of ``apply_model``.
-:class:`StackedTransformerModel` holds M machines' parameters of one spec
-with a leading machine axis and runs them as one model, the counterpart of
-``apply_model`` under the fleet trainer's ``vmap`` over machines. The
-layers take any leading axes before (time, features).
+:func:`stacked_forward` runs M models of one spec as one: each parameter
+with a leading model axis M, the counterpart of ``apply_model`` under a
+``vmap`` over models. :class:`StackedTransformerModel` holds M machines'
+parameters that way for the fleet trainer; the serving batcher
+(server/batcher.py) calls :func:`stacked_forward` on parameters gathered
+from its bank. The layers take any leading axes before (time, features).
 """
 
 import math
@@ -141,8 +143,18 @@ def init_model_params(spec: ModelSpec, generator: torch.Generator = None) -> Par
     return params
 
 
+def _matmul(x, w):
+    """x (..., K) times a kernel: a (K, N) one, or M stacked (M, K, N) ones
+    against an x whose leading axis is M, as one batched product over
+    everything between (no copy of a kernel per window)."""
+    if w.dim() == 2:
+        return torch.matmul(x, w)
+    m, k, n = w.shape
+    return torch.bmm(x.reshape(m, -1, k), w).reshape(*x.shape[:-1], n)
+
+
 def _apply_dense(layer: DenseLayer, p, x):
-    return _activation(layer.activation)(torch.matmul(x, p["kernel"]) + p["bias"])
+    return _activation(layer.activation)(_matmul(x, p["kernel"]) + p["bias"])
 
 
 def _layer_norm(x, scale, bias, eps: float = 1e-6):
@@ -178,19 +190,19 @@ def _attention_sublayer(layer, p, x):
     h = _layer_norm(x, p["ln1_scale"], p["ln1_bias"])
     w_qkv = torch.cat([p["wq"], p["wk"], p["wv"]], dim=-1)
     b_qkv = torch.cat([p["bq"], p["bk"], p["bv"]], dim=-1)
-    q, k, v = torch.chunk(torch.matmul(h, w_qkv) + b_qkv, 3, dim=-1)
+    q, k, v = torch.chunk(_matmul(h, w_qkv) + b_qkv, 3, dim=-1)
     attn = multihead_attention(
         q, k, v, layer.num_heads, causal=layer.causal, impl=layer.attention_impl
     )
-    return x + torch.matmul(attn, p["wo"]) + p["bo"]
+    return x + _matmul(attn, p["wo"]) + p["bo"]
 
 
 def _apply_transformer_block(layer: TransformerBlock, p, x):
     """Pre-LN encoder block. x: (..., time, d_model)."""
     x = _attention_sublayer(layer, p, x)
     h = _layer_norm(x, p["ln2_scale"], p["ln2_bias"])
-    ff = _activation(layer.activation)(torch.matmul(h, p["w_ff1"]) + p["b_ff1"])
-    return x + torch.matmul(ff, p["w_ff2"]) + p["b_ff2"]
+    ff = _activation(layer.activation)(_matmul(h, p["w_ff1"]) + p["b_ff1"])
+    return x + _matmul(ff, p["w_ff2"]) + p["b_ff2"]
 
 
 def _apply_pool(layer: PoolLayer, x):
@@ -201,6 +213,44 @@ def _apply_pool(layer: PoolLayer, x):
     if layer.mode == "max":
         return x.amax(dim=-2)
     raise ValueError(f"Unknown pool mode {layer.mode!r}")
+
+
+def _forward(spec: ModelSpec, layer_params, x: torch.Tensor, compute_dtype,
+             stacked: bool) -> torch.Tensor:
+    """The layer walk: x and every parameter cast to ``compute_dtype``, the
+    output cast to float32. ``stacked``: each parameter has a leading model
+    axis; a vector (M, N) is viewed as (M, 1, ..., N) to broadcast against
+    x, a kernel (M, K, N) goes to :func:`_matmul` as it is."""
+    out = x.to(compute_dtype)
+    for layer, p in zip(spec.layers, layer_params):
+        p = {name: value.to(compute_dtype) for name, value in p.items()}
+        if stacked:
+            p = {name: value.reshape(value.shape[:1] + (1,) * (out.dim() - 2) + value.shape[1:])
+                 if value.dim() == 2 else value for name, value in p.items()}
+        if isinstance(layer, DenseLayer):
+            out = _apply_dense(layer, p, out)
+        elif isinstance(layer, PositionalEncoding):
+            out = _apply_positional_encoding(layer, out)
+        elif isinstance(layer, TransformerBlock):
+            out = _apply_transformer_block(layer, p, out)
+        elif isinstance(layer, PoolLayer):
+            out = _apply_pool(layer, out)
+        else:
+            raise TypeError(f"Unknown layer spec: {layer!r}")
+    return out.float()
+
+
+def stacked_forward(spec: ModelSpec, layer_params, x: torch.Tensor) -> torch.Tensor:
+    """B models of one spec run as one: ``layer_params`` is one dict per
+    layer of (B, ...) parameters (the JAX package's names, float32), x is
+    (B, ..., T, features) (a serving batch: (B, n_pad, L, D) windows) and
+    the output (B, ..., outputs) in float32, model b's rows through model
+    b's parameters. Under ``compute_dtype: bfloat16`` x and the parameters
+    are cast to bf16 as :class:`TransformerModel` casts them, so a lane
+    computes what the single model computes. The projections are batched
+    products, and attention folds the models into its batch, so each
+    Transformer block launches the flash forward once for all B models."""
+    return _forward(spec, layer_params, x, COMPUTE_DTYPES[spec.compute_dtype], stacked=True)
 
 
 class TransformerModel(nn.Module):
@@ -244,26 +294,8 @@ class TransformerModel(nn.Module):
         )
         self.to(device)
 
-    def _layer(self, p, ndim: int) -> Dict[str, torch.Tensor]:
-        """A layer's parameters as the forward takes them at an input of
-        ``ndim`` dims: cast to the compute dtype."""
-        return {name: value.to(self.compute_dtype) for name, value in p.items()}
-
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        out = x.to(self.compute_dtype)
-        for layer, p in zip(self.spec.layers, self.layer_params):
-            p = self._layer(p, out.dim())
-            if isinstance(layer, DenseLayer):
-                out = _apply_dense(layer, p, out)
-            elif isinstance(layer, PositionalEncoding):
-                out = _apply_positional_encoding(layer, out)
-            elif isinstance(layer, TransformerBlock):
-                out = _apply_transformer_block(layer, p, out)
-            elif isinstance(layer, PoolLayer):
-                out = _apply_pool(layer, out)
-            else:
-                raise TypeError(f"Unknown layer spec: {layer!r}")
-        return out.float()
+        return _forward(self.spec, self.layer_params, x, self.compute_dtype, stacked=False)
 
     def params_numpy(self):
         """The parameters in the JAX package's layout, as numpy arrays."""
@@ -286,20 +318,13 @@ def stack_params(per_machine: List[List[Dict]]) -> List[Dict[str, np.ndarray]]:
 class StackedTransformerModel(TransformerModel):
     """M models of one spec, each parameter with a leading machine axis M:
     ``forward`` takes (M, B, T, features) and returns (M, B, outputs),
-    machine m's rows through machine m's parameters. The projections are
-    batched matmuls, biases and layer-norm parameters broadcast over (B, T),
-    and attention folds the machines into its batch, so each Transformer
-    block launches the flash kernels once for all M machines, at BH = M x B
-    x heads. With M = 1 it computes what :class:`TransformerModel` does."""
+    machine m's rows through machine m's parameters (:func:`stacked_forward`),
+    so each Transformer block launches the flash kernels once for all M
+    machines, at BH = M x B x heads. With M = 1 it computes what
+    :class:`TransformerModel` does."""
 
-    def _layer(self, p, ndim: int) -> Dict[str, torch.Tensor]:
-        """Each (M, *shape) parameter viewed as (M, 1, ..., *shape) so that
-        it broadcasts against an (M, ..., features) input of ``ndim``
-        dims: a kernel over the batch axes, a bias or scale over (B, T)."""
-        return {
-            name: value.reshape(value.shape[:1] + (1,) * (ndim - value.dim()) + value.shape[1:])
-            for name, value in super()._layer(p, ndim).items()
-        }
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return stacked_forward(self.spec, self.layer_params, x)
 
     def machine_params(self, m: int):
         """Machine ``m``'s parameters in the JAX package's layout, as numpy

@@ -52,21 +52,30 @@ def pad_for_predict(spec: ModelSpec, X) -> Tuple[np.ndarray, int, int]:
     return X_pad, n_pad, n_out
 
 
+def unfold_windows(spec: ModelSpec, x: torch.Tensor, n_pad: int) -> torch.Tensor:
+    """Padded rows (..., rows, D) as (..., n_pad, L, D) windows, a view:
+    window i is rows i .. i+L-1, the layout of ``X[idx[:, None] + window]``
+    in the JAX package. A spec without windows takes the rows as they are."""
+    if spec.lookback_window <= 1 and spec.lookahead == 0:
+        return x
+    return x.unfold(-2, spec.lookback_window, 1)[..., :n_pad, :, :].transpose(-1, -2)
+
+
+def predict_padded(model: torch.nn.Module, X_pad: np.ndarray, n_pad: int) -> np.ndarray:
+    """The model's (n_pad, outputs) on padded rows, in float32 on the host."""
+    device = next(model.parameters()).device
+    with torch.inference_mode():
+        x = unfold_windows(model.spec, torch.from_numpy(X_pad).to(device), n_pad)
+        return model(x).cpu().numpy()
+
+
 def predict_fn(model: torch.nn.Module) -> Callable[[np.ndarray], np.ndarray]:
     """A predictor ``f(X) -> np.ndarray`` for a model whose parameters
     stay resident on its device between calls."""
     spec: ModelSpec = model.spec
-    device = next(model.parameters()).device
 
     def predict(X: np.ndarray) -> np.ndarray:
         X_pad, n_pad, n_keep = pad_for_predict(spec, X)
-        with torch.inference_mode():
-            x = torch.from_numpy(X_pad).to(device)
-            if spec.lookback_window > 1 or spec.lookahead:
-                # (rows, D) -> (n_pad, L, D): window i is rows i .. i+L-1,
-                # the layout of X[idx[:, None] + window] in the JAX package
-                x = x.unfold(0, spec.lookback_window, 1)[:n_pad].transpose(1, 2)
-            out = model(x)
-            return out.cpu().numpy()[:n_keep]
+        return predict_padded(model, X_pad, n_pad)[:n_keep]
 
     return predict

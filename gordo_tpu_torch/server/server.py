@@ -18,8 +18,14 @@ and output check of ``gordo_tpu/server/resilience.py`` (queue A9).
 
 Every artifact under ``MODEL_COLLECTION_DIR`` (one directory per model,
 serializer/serializer.py) is loaded once at start, with its parameters on
-the card (``device="cpu"`` serves from the CPU). Requests to one model run
-one at a time. The revision is the collection directory's name, as in the
+the card (``device="cpu"`` serves from the CPU). Requests run concurrently,
+to one model as to many, as the JAX package's server runs them: a predict
+reads the detector and writes nothing to it, and with the cross-model
+batcher on (server/batcher.py, which ``run-server`` turns on) concurrent
+predicts of one spec fuse into one device call. Request bodies are parsed
+and responses encoded by the native codec (server/fast_codec.py), whose
+library is built when the server starts unless ``GORDO_TPU_FAST_CODEC=0``.
+The revision is the collection directory's name, as in the
 JAX package's server; a request to any route may name another revision, a
 sibling collection directory, with ``?revision=`` or a ``revision``
 header: its models are loaded at their first request and kept, and a
@@ -36,7 +42,6 @@ Run it with ``python -m gordo_tpu_torch run-server --port 5555``.
 
 import json
 import logging
-import math
 import os
 import re
 import threading
@@ -44,10 +49,10 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Dict, Optional
 from urllib.parse import parse_qs, urlsplit
 
-from .. import __version__, resolve_device
+from .. import __version__, native, resolve_device
 from ..models.utils import parse_resolution
 from ..serializer import load, load_metadata, load_model_json
-from . import views
+from . import fast_codec, views
 
 logger = logging.getLogger(__name__)
 
@@ -76,7 +81,6 @@ class ModelEntry:
         self.metadata = load_metadata(directory)
         dataset = self.metadata.get("dataset") or {}
         self.frequency = parse_resolution(dataset.get("resolution", "10min"))
-        self.lock = threading.Lock()
 
 
 def load_collection(collection_dir: str, device) -> Dict[str, ModelEntry]:
@@ -88,28 +92,11 @@ def load_collection(collection_dir: str, device) -> Dict[str, ModelEntry]:
     return models
 
 
-def _without_nan(value):
-    """``value`` with every non-finite float replaced by None, as
-    ``simplejson.dumps(..., ignore_nan=True)`` writes it."""
-    if isinstance(value, float):
-        return value if math.isfinite(value) else None
-    if isinstance(value, dict):
-        return {key: _without_nan(v) for key, v in value.items()}
-    if isinstance(value, (list, tuple)):
-        return [_without_nan(v) for v in value]
-    return value
-
-
-def _json_bytes(body) -> bytes:
-    """``body`` as JSON, with null for every non-finite float."""
-    try:
-        return json.dumps(body, allow_nan=False).encode()
-    except ValueError:
-        return json.dumps(_without_nan(body), allow_nan=False).encode()
-
-
 class GordoServer(ThreadingHTTPServer):
     daemon_threads = True
+    # the listen backlog: socketserver's default of 5 resets connections
+    # when more clients than that connect at once
+    request_queue_size = 128
 
     def __init__(self, address, collection_dir: str, device):
         self.collection_dir = collection_dir
@@ -118,6 +105,8 @@ class GordoServer(ThreadingHTTPServer):
         expected = os.environ.get("EXPECTED_MODELS")
         self.expected = json.loads(expected) if expected else []
         self.expected_file = os.environ.get("EXPECTED_MODELS_FILE")
+        if fast_codec.enabled():
+            native.load()  # a failed build fails the start, not a request
         self.models = load_collection(collection_dir, device)
         # revision -> its models: the current one at start, others at their
         # first model request
@@ -161,15 +150,17 @@ class _Handler(BaseHTTPRequestHandler):
         logger.debug("%s - %s", self.address_string(), format % args)
 
     revision = None  # the request's revision, once resolved
+    fast = False  # whether the request takes the native codec
 
     def _send(self, status: int, body, with_revision: bool = True,
               content_type: str = "application/json", headers=()) -> None:
-        """Answer ``body``: a dict as JSON, with the request's revision in
-        it unless ``with_revision`` is false, or bytes as they are."""
+        """Answer ``body``: a dict as JSON (its ``"data"`` may be a
+        RawFrame), with the request's revision in it unless
+        ``with_revision`` is false, or bytes as they are."""
         if isinstance(body, dict):
             if with_revision:
                 body = dict(body, revision=self.revision)
-            data = _json_bytes(body)
+            data = views.response_bytes(body, self.fast)
         else:
             data = body
         self.send_response(status)
@@ -182,12 +173,8 @@ class _Handler(BaseHTTPRequestHandler):
         self.end_headers()
         self.wfile.write(data)
 
-    def _payload(self):
-        length = int(self.headers.get("Content-Length") or 0)
-        try:
-            return json.loads(self.rfile.read(length) or b"null")
-        except ValueError:
-            return None
+    def _body(self) -> bytes:
+        return self.rfile.read(int(self.headers.get("Content-Length") or 0))
 
     def _readiness(self, collection_dir: str):
         """200 when every expected model's artifact is in the collection
@@ -262,15 +249,16 @@ class _Handler(BaseHTTPRequestHandler):
                               content_type="application/octet-stream",
                               headers=[("Content-Disposition",
                                         "attachment; filename=model.tar.gz")])
-        payload = self._payload()
-        with entry.lock:
-            if action == "prediction":
-                status, body = views.base_prediction_core(
-                    entry.detector, payload, entry.tags, entry.target_tags, entry.frequency)
-            else:
-                status, body = views.anomaly_prediction_core(
-                    entry.detector, payload, entry.tags, entry.target_tags,
-                    entry.frequency, "all_columns" in query)
+        self.fast = fast_codec.request_enabled(self.headers)
+        body = self._body()
+        if action == "prediction":
+            status, body = views.base_prediction_core(
+                entry.detector, body, entry.tags, entry.target_tags, entry.frequency,
+                self.fast)
+        else:
+            status, body = views.anomaly_prediction_core(
+                entry.detector, body, entry.tags, entry.target_tags,
+                entry.frequency, "all_columns" in query, self.fast)
         return self._send(status, body)
 
     def _handle(self, method: str) -> None:

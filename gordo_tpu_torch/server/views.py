@@ -11,8 +11,15 @@ plain 2-D lists; timestamps are parsed with
 ``verify_dataframe`` checks them. The response is
 ``{"data": ..., "time-seconds": "..."}`` (the server adds ``revision``),
 with the ``smooth-*`` blocks dropped unless ``all_columns`` is given.
+
+With the native codec on for a request (server/fast_codec.py), its body is
+parsed natively where the strict grammar takes it (:func:`decode_request`)
+and its response's ``"data"`` is rendered by the template encoder
+(:func:`response_bytes`); both give what the dict path gives, byte for
+byte, and every other body or frame takes the dict path.
 """
 
+import json
 import logging
 import math
 import os
@@ -23,7 +30,8 @@ from typing import List, Optional, Tuple
 import numpy as np
 
 from .. import serializer
-from ..models.utils import Frame, make_base_raw
+from ..models.utils import Frame, RawFrame, make_base_raw
+from . import fast_codec
 from .model_io import get_model_output
 
 logger = logging.getLogger(__name__)
@@ -106,13 +114,72 @@ def extract_X_y(payload, tags: List[str], target_tags: List[str]
     return X, y
 
 
-def anomaly_prediction_core(model, payload, tags: List[str], target_tags: List[str],
-                            frequency, all_columns: bool) -> Tuple[int, dict]:
-    """``(status, body)`` of one anomaly request against ``model`` (a
-    DiffBasedAnomalyDetector)."""
+def decode_request(body: bytes, tags: List[str], target_tags: List[str], fast: bool
+                   ) -> Tuple[Frame, Optional[Frame]]:
+    """``(X, y)`` of a request body, checked against the tags: parsed
+    natively when ``fast`` and the strict grammar takes the body, else by
+    ``json`` and :func:`extract_X_y` (a body that is not JSON has no X)."""
+    if fast:
+        parsed = fast_codec.decode_body_xy(body)
+        if parsed is not None:
+            fast_codec.count("NATIVE_PARSES")
+            X, y = parsed
+            return verify_frame(X, tags), None if y is None else verify_frame(y, target_tags)
+        fast_codec.count("PARSE_FALLBACKS")
+    try:
+        payload = fast_codec.loads(body or b"null")
+    except ValueError:
+        payload = None
+    return extract_X_y(payload, tags, target_tags)
+
+
+def _without_nan(value):
+    """``value`` with every non-finite float replaced by None, as
+    ``simplejson.dumps(..., ignore_nan=True)`` writes it."""
+    if isinstance(value, float):
+        return value if math.isfinite(value) else None
+    if isinstance(value, dict):
+        return {key: _without_nan(v) for key, v in value.items()}
+    if isinstance(value, (list, tuple)):
+        return [_without_nan(v) for v in value]
+    return value
+
+
+def json_text(body) -> str:
+    """``body`` as JSON, with null for every non-finite float."""
+    try:
+        return json.dumps(body, allow_nan=False)
+    except ValueError:
+        return json.dumps(_without_nan(body), allow_nan=False)
+
+
+def response_bytes(body: dict, fast: bool) -> bytes:
+    """The JSON of a response body whose ``"data"`` may be a
+    :class:`RawFrame`: its fragment from the template encoder when ``fast``
+    and the encoder takes the frame, spliced before the other fields;
+    otherwise ``json`` of ``to_dict()``. The bytes are the same either way."""
+    raw = body.get("data")
+    if not isinstance(raw, RawFrame):
+        return json_text(body).encode()
+    rest = {key: value for key, value in body.items() if key != "data"}
+    if fast:
+        fragment = fast_codec.encode_raw(raw)
+        if fragment is not None:
+            fast_codec.count("NATIVE_ENCODES")
+            return fast_codec.splice_response_body(fragment, json_text(rest)).encode()
+        fast_codec.count("ENCODE_FALLBACKS")
+    return json_text({"data": raw.to_dict(), **rest}).encode()
+
+
+def anomaly_prediction_core(model, body: bytes, tags: List[str], target_tags: List[str],
+                            frequency, all_columns: bool, fast: bool = False
+                            ) -> Tuple[int, dict]:
+    """``(status, body)`` of one anomaly request (its body's bytes) against
+    ``model`` (a DiffBasedAnomalyDetector), the frame unencoded in
+    ``"data"``; ``fast`` parses the body natively where it can."""
     start_time = timeit.default_timer()
     try:
-        X, y = extract_X_y(payload, tags, target_tags)
+        X, y = decode_request(body, tags, target_tags, fast)
     except ValueError as exc:
         return 400, {"message": str(exc)}
     if y is None:
@@ -125,19 +192,19 @@ def anomaly_prediction_core(model, payload, tags: List[str], target_tags: List[s
         drop = [c for c in frame.top_levels() if c in DELETED_FROM_RESPONSE_COLUMNS]
         frame = frame.drop_top_level(drop)
     return 200, {
-        "data": frame.to_dict(),
+        "data": frame,
         "time-seconds": f"{timeit.default_timer() - start_time:.4f}",
     }
 
 
-def base_prediction_core(model, payload, tags: List[str], target_tags: List[str],
-                         frequency) -> Tuple[int, dict]:
+def base_prediction_core(model, body: bytes, tags: List[str], target_tags: List[str],
+                         frequency, fast: bool = False) -> Tuple[int, dict]:
     """``(status, body)`` of one base request against ``model``: the
-    ``model-input`` and ``model-output`` blocks. A ValueError of the
-    predict is answered 400 with its message, any other error 400 with a
-    generic one, as the JAX package answers them."""
+    ``model-input`` and ``model-output`` blocks, unencoded in ``"data"``. A
+    ValueError of the predict is answered 400 with its message, any other
+    error 400 with a generic one, as the JAX package answers them."""
     try:
-        X, _ = extract_X_y(payload, tags, target_tags)
+        X, _ = decode_request(body, tags, target_tags, fast)
     except ValueError as exc:
         return 400, {"message": str(exc)}
     start = timeit.default_timer()
@@ -151,7 +218,7 @@ def base_prediction_core(model, payload, tags: List[str], target_tags: List[str]
         return 400, {"error": "Something unexpected happened; check your input data"}
     data = make_base_raw(tags, X.values, output, target_tags, X.index, frequency)
     return 200, {
-        "data": data.to_dict(),
+        "data": data,
         "time-seconds": f"{timeit.default_timer() - start:.4f}",
     }
 

@@ -366,13 +366,20 @@ import gordo_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(gordo_tpu_torch.__path__, "gordo_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
-# the fleet trainer and the CLI's fleet and server commands, as they load
+# the fleet trainer, the serving batcher and codec and the native library,
+# and the CLI's fleet and server commands, as they load
 import gordo_tpu_torch.parallel.batch_trainer
 import gordo_tpu_torch.workflow.normalized_config
+import gordo_tpu_torch.server.batcher
+import gordo_tpu_torch.server.fast_codec
+import gordo_tpu_torch.native
 from gordo_tpu_torch import cli
 for argv in (["batch-build", "fleet.json", "out", "--device", "cpu", "--fail-fast"],
-             ["run-server", "--port", "5555", "--device", "cpu"]):
+             ["run-server", "--port", "5555", "--device", "cpu"],
+             ["run-server", "--no-batch-predicts"]):
     assert cli._parser().parse_args(argv).command == argv[0]
+assert cli._parser().parse_args(["run-server"]).batch_predicts is True
+assert cli._parser().parse_args(["run-server", "--no-batch-predicts"]).batch_predicts is False
 import chip_smoke
 leaked = [m for m in sys.modules if m == "gordo_tpu" or m.startswith("gordo_tpu.")]
 assert not leaked, leaked
@@ -383,4 +390,4 @@ print(len(names))
         env={**os.environ, "PYTHONPATH": REPO},
     )
     assert result.returncode == 0, result.stderr
-    assert int(result.stdout.split()[-1]) >= 45
+    assert int(result.stdout.split()[-1]) >= 48
