@@ -98,8 +98,32 @@ Drive the PyTorch/CUDA port (gordo_tpu_torch) on one NVIDIA GPU.
    serial trainer's on the same orders; ``python -m gordo_tpu_torch batch-build`` in a
    subprocess, and one of its artifacts answering a base and an anomaly
    request.
-10. A ``batcher_path`` JSON line (both dtypes' numbers), a ``kernels`` JSON
-   line (six entries: three float32, three bf16), then the last line
+10. Feedforward build: ``python -m gordo_tpu_torch build`` of
+   examples/config.yaml's two feedforward machines as written
+   (``pump-station-a``, a DiffBasedAnomalyDetector, and ``turbine-c``, a
+   DiffBasedKFCVAnomalyDetector with shuffled KFold(5) folds), two
+   processes at once on the card: finite thresholds, held-out error below
+   the seeded weights', the KFCV folds sklearn's.
+11. Feedforward serving: both artifacts and a ``transformer-ae-512``
+   artifact in one collection served with batching ``auto`` (run-server's
+   default): bench.py's request (100 samples of the machine's tags) on
+   both routes within TOL_FF of the direct predict, 100 sequential
+   anomaly requests a model (p50, p95, samples a second, Server-Timing's
+   phases), the auto A/B's decisions; then, batching forced on, 48
+   feedforward and 8 Transformer requests from 16 users at once: no fused
+   call holding two specs (the batcher's counters), one forward launch
+   per block a fused Transformer call, every answer within its tolerance
+   of the direct predict.
+12. Feedforward fleet: two hourglass machines stacked against serial on one
+   batch (TOL_FF); then ``batch-build`` of bench.py's training shape,
+   FF_FLEET_MACHINES hourglass autoencoders (4 tags, 7 days of 10-minute
+   rows, 5 epochs, batch 128, TimeSeriesSplit(3) with thresholds), and
+   the fleet's eight ``transformer-ae-512`` machines in one config: exit 0,
+   every machine an artifact, the buckets apart, the Transformer bucket's
+   dQ and dK/dV launches; machines a minute beside one serial build x N.
+13. A ``batcher_path`` JSON line (both dtypes' numbers), a ``feedforward``
+   JSON line, a ``kernels`` JSON line (six entries: three float32, three
+   bf16), then the last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
 Any failure raises, so the exit code is not 0 and no result line is
@@ -2132,6 +2156,463 @@ def cli_batch_build(root: Path, device: str = "cuda") -> None:
         thread.join(timeout=60)
 
 
+# ---------------------------------------------------- the feedforward family
+# examples/config.yaml's two feedforward machines as written there, in JSON
+# (the card's machine has no yaml; tests/test_torch_kfcv.py holds this copy
+# equal to the file)
+_EXAMPLE_DATASET = {"train_start_date": "2019-01-01T00:00:00+00:00",
+                    "train_end_date": "2019-01-08T00:00:00+00:00",
+                    "data_provider": {"type": "RandomDataProvider"}}
+
+
+def _example_model(detector: str, epochs: int, **arguments) -> dict:
+    return {f"gordo_tpu.models.anomaly.diff.{detector}": {
+        "require_thresholds": True, **arguments,
+        "base_estimator": {"sklearn.pipeline.Pipeline": {"steps": [
+            "sklearn.preprocessing.MinMaxScaler",
+            {"gordo_tpu.models.models.AutoEncoder": {"kind": "feedforward_hourglass",
+                                                     "epochs": epochs}}]}}}}
+
+
+EXAMPLE_MACHINES = [
+    {"name": "pump-station-a",
+     "dataset": {"tags": ["pump-a-pressure", "pump-a-temperature", "pump-a-flow",
+                          "pump-a-vibration"], **_EXAMPLE_DATASET},
+     "model": _example_model("DiffBasedAnomalyDetector", 5)},
+    {"name": "turbine-c",
+     "dataset": {"tags": ["turb-c-speed", "turb-c-torque", "turb-c-temperature"],
+                 **_EXAMPLE_DATASET},
+     "model": _example_model("DiffBasedKFCVAnomalyDetector", 3, window=144),
+     "evaluation": {"cv": {"sklearn.model_selection.KFold": {
+         "n_splits": 5, "shuffle": True, "random_state": 0}}}},
+]
+EXAMPLE_ROWS = 1008  # 7 days of 10-minute rows
+TOL_FF = 1e-5  # a served feedforward answer against its direct predict; a stacked batch
+BENCH_ROWS = 100  # bench.py's anomaly request: 100 samples of the machine's tags
+BENCH_ROUNDS = 100  # bench.py's sequential requests (BENCH_SERVER_ROUNDS)
+FF_USERS = 16
+FF_REQUESTS = 48  # concurrent feedforward requests across the two models
+FF_FLEET_MACHINES = 1024  # bench.py's fleet (BENCH_MACHINES)
+
+
+def _kfold_reference(n: int, n_splits: int, seed: int) -> list:
+    """sklearn's shuffled KFold test rows, written out plainly: the indices
+    permuted by ``np.random.RandomState(seed).shuffle``, cut into folds
+    (the first ``n % n_splits`` one longer), each fold's rows ascending."""
+    indices = np.arange(n)
+    np.random.RandomState(seed).shuffle(indices)
+    sizes = [n // n_splits + (k < n % n_splits) for k in range(n_splits)]
+    bounds = np.cumsum([0] + sizes)
+    return [np.sort(indices[a:b]) for a, b in zip(bounds[:-1], bounds[1:])]
+
+
+def _row_label(row: int) -> str:
+    start = datetime.fromisoformat(_EXAMPLE_DATASET["train_start_date"])
+    return str(start + timedelta(minutes=10 * int(row)))
+
+
+def _seeded_error(model, tags, n_rows: int, device: str) -> dict:
+    """The scaled MSE of a built feedforward detector (``trained``) and of
+    the same model with the seeded initial weights (``seeded``) on
+    ``n_rows`` rows of the provider's signal past the training span."""
+    import torch
+
+    from gordo_tpu_torch.ops.nn import init_model_params
+
+    held_out = _provider_continuation(EXAMPLE_ROWS, n_rows, np.random.RandomState(SEED + 12),
+                                      tags)
+    (_, input_scaler), (_, estimator) = model.base_estimator.steps
+    seeded = type(estimator)(estimator.kind, **estimator.kwargs).load_params(
+        estimator.spec_, init_model_params(estimator.spec_, torch.Generator().manual_seed(SEED)),
+        device)
+    truth = model.scaler.transform(held_out)
+    return {name: float(np.mean(np.square(model.scaler.transform(pred) - truth)))
+            for name, pred in (("trained", model.base_estimator.predict(held_out)),
+                               ("seeded", seeded.predict(input_scaler.transform(held_out))))}
+
+
+def feedforward_build_path(card: str, root: Path, device: str = "cuda") -> dict:
+    """``python -m gordo_tpu_torch build`` of examples/config.yaml's
+    feedforward machines as written, the two builds at once in two
+    processes on the card. Each must exit 0 with finite thresholds and a
+    held-out error below its seeded weights'; the KFCV machine's folds must
+    be sklearn's shuffled KFold(5, random_state=0) (its split metadata
+    against :func:`_kfold_reference`), the hourglass machine's the three
+    TimeSeriesSplit folds. Returns the seconds and the builds' phases."""
+    from gordo_tpu_torch import serializer
+
+    started = time.perf_counter()
+    procs = {}
+    for config in EXAMPLE_MACHINES:
+        command = [sys.executable, "-m", "gordo_tpu_torch", "--log-level", "WARNING", "build",
+                   json.dumps(config), str(root / config["name"]), "--print-cv-scores"]
+        if device != "cuda":
+            command += ["--device", device]
+        procs[config["name"]] = subprocess.Popen(
+            command, cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            env={**os.environ, "PYTHONPATH": str(REPO)})
+    outputs = {name: proc.communicate(timeout=600) for name, proc in procs.items()}
+    seconds = time.perf_counter() - started
+    result = {"seconds": seconds, "machines": {}}
+    for config in EXAMPLE_MACHINES:
+        name, tags = config["name"], config["dataset"]["tags"]
+        stdout, stderr = outputs[name]
+        if procs[name].returncode != 0:
+            print(stderr[-4000:], file=sys.stderr)
+            raise AssertionError(f"python -m gordo_tpu_torch build {name}: exit "
+                                 f"{procs[name].returncode}")
+        model = serializer.load(str(root / name), device)
+        built = serializer.load_metadata(str(root / name))["metadata"]["build_metadata"]
+        splits = built["model"]["cross_validation"]["splits"]
+        mse = _seeded_error(model, tags, EXAMPLE_ROWS, device)
+        thresholds = [float(x) for x in (*model.feature_thresholds_, model.aggregate_threshold_)]
+        folds = 5 if name == "turbine-c" else 3
+        entry = {"detector": type(model).__name__, "phases": built["phases"],
+                 "offset": built["model"]["model_offset"], "held_out_mse": mse,
+                 "aggregate_threshold": model.aggregate_threshold_,
+                 "score_lines": sum("_fold-" in line for line in stdout.splitlines())}
+        result["machines"][name] = entry
+        print(f"feedforward build {name} ({entry['detector']}) on {card}: phases "
+              f"{entry['phases']}, offset {entry['offset']}, held-out scaled MSE "
+              f"{mse['trained']:.6f} (seeded {mse['seeded']:.6f}), thresholds {thresholds}, "
+              f"{entry['score_lines']} CV score lines", flush=True)
+        if not (mse["trained"] < mse["seeded"] and all(math.isfinite(x) for x in thresholds)
+                and entry["offset"] == 0 and f"fold-{folds}-n-test" in splits
+                and f"fold-{folds + 1}-n-test" not in splits):
+            raise AssertionError(f"{name}: held-out error {mse}, thresholds {thresholds}, "
+                                 f"offset {entry['offset']}, splits {sorted(splits)}")
+        if name == "turbine-c":
+            for k, test in enumerate(_kfold_reference(EXAMPLE_ROWS, 5, 0), start=1):
+                want = {f"fold-{k}-n-test": len(test), f"fold-{k}-n-train": EXAMPLE_ROWS - len(test),
+                        f"fold-{k}-test-start": _row_label(test[0]),
+                        f"fold-{k}-test-end": _row_label(test[-1])}
+                got = {key: splits[key] for key in want}
+                if got != want:
+                    raise AssertionError(f"turbine-c fold {k}: {got}, sklearn's KFold {want}")
+    print(f"feedforward build path: two CLI builds at once in {seconds:.1f} s", flush=True)
+    return result
+
+
+def _bench_body(n_tags: int, seed: int, rows: int = BENCH_ROWS) -> bytes:
+    """bench.py's anomaly request: ``rows`` samples of each tag in
+    [0, 1), as X and as y, rectangular."""
+    values = np.random.RandomState(seed).random_sample((rows, n_tags))
+    return _rect_body(values)
+
+
+def _direct(detector, X: np.ndarray) -> np.ndarray:
+    """The detector's model output, predicted without the batcher."""
+    from gordo_tpu_torch.ops.predict import predict_fn
+
+    steps = detector.base_estimator.steps
+    for _, step in steps[:-1]:
+        X = step.transform(X)
+    return predict_fn(steps[-1][1].module_)(X)
+
+
+def _spec_label(spec) -> str:
+    return (f"transformer lookback {spec.lookback_window}" if spec.lookback_window > 1
+            else f"feedforward {spec.n_features} tags")
+
+
+def feedforward_served_path(card: str, root: Path, built: Path, device: str = "cuda") -> dict:
+    """One collection served as ``run-server`` serves it (batching ``auto``):
+    the two feedforward artifacts of :func:`feedforward_build_path` and a
+    ``transformer-ae-512`` artifact. Single requests of bench.py's shape on
+    both routes of both feedforward models, each model output within TOL_FF
+    of the direct predict; BENCH_ROUNDS sequential anomaly requests a model
+    (p50, p95, samples a second, Server-Timing's phases); what the auto
+    A/B decided for each spec. Then, forced on, FF_USERS users sending
+    FF_REQUESTS feedforward requests and BATCHER_MODELS 600-row
+    Transformer requests at once: every answer 200 and within its
+    tolerance of the direct predict, no fused call holding two specs (the
+    batcher's counters), the Transformer requests launching the forward
+    kernel once per block a fused call. Returns the numbers and launches."""
+    from gordo_tpu_torch.models.spec import TransformerBlock
+    from gordo_tpu_torch.server import batcher
+    from gordo_tpu_torch.server.server import make_server
+
+    collection = root / "served"
+    shutil.rmtree(collection, ignore_errors=True)
+    collection.mkdir(parents=True)
+    for config in EXAMPLE_MACHINES:
+        shutil.copytree(built / config["name"], collection / config["name"])
+    spec, _, _ = write_artifact(collection, device)
+    n_blocks = sum(isinstance(layer, TransformerBlock) for layer in spec.layers)
+    previous = os.environ.get("GORDO_TPU_SERVING_BATCH")
+    os.environ["GORDO_TPU_SERVING_BATCH"] = "auto"  # run-server's default
+    batcher.reset_batcher()
+    server = make_server("127.0.0.1", 0, device=device, collection_dir=str(collection))
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    project = f"http://127.0.0.1:{server.server_address[1]}/gordo/v0/smoke"
+    result = {"models": {}}
+    try:
+        for k, config in enumerate(EXAMPLE_MACHINES):
+            name, tags = config["name"], config["dataset"]["tags"]
+            body = _bench_body(len(tags), SEED + 20 + k)
+            X = np.asarray(json.loads(body)["X"])
+            for route in ("prediction", "anomaly/prediction"):
+                req = urllib.request.Request(f"{project}/{name}/{route}", data=body,
+                                             headers={"Content-Type": "application/json"})
+                with urllib.request.urlopen(req, timeout=300) as resp:
+                    status, answer = resp.status, json.loads(resp.read())
+                out = _columns(answer["data"]["model-output"], tags)
+                want = _direct(server.models[name].detector, X)
+                diff = float(np.abs(out - want).max() / np.abs(want).max())
+                print(f"feedforward served {name} POST {route}: {status}, {out.shape} output, "
+                      f"max rel diff from the direct predict {diff:.3e} (gate {TOL_FF:g})",
+                      flush=True)
+                if status != 200 or out.shape != (BENCH_ROWS, len(tags)) or not diff <= TOL_FF:
+                    raise AssertionError(f"{name} {route}: {status}, {out.shape}, {diff}")
+            times, phases = [], {"decode_s": [], "predict_s": [], "encode_s": []}
+            for _ in range(BENCH_ROUNDS):
+                req = urllib.request.Request(f"{project}/{name}/anomaly/prediction", data=body,
+                                             headers={"Content-Type": "application/json"})
+                t0 = time.perf_counter()
+                with urllib.request.urlopen(req, timeout=300) as resp:
+                    resp.read()
+                    timing = resp.headers["Server-Timing"]
+                times.append(time.perf_counter() - t0)
+                for entry in timing.split(", "):
+                    key, _, seconds = entry.partition(";dur=")
+                    if key in phases:
+                        phases[key].append(float(seconds))
+            times.sort()
+            numbers = {"p50_ms": 1e3 * times[len(times) // 2],
+                       "p95_ms": 1e3 * times[int(len(times) * 0.95)],
+                       "samples_per_s": BENCH_ROWS / (sum(times) / len(times)),
+                       **{f"{key[:-2]}_p50_ms": 1e3 * sorted(v)[len(v) // 2]
+                          for key, v in phases.items()}}
+            result["models"][name] = numbers
+            print(f"feedforward served {name}, {BENCH_ROUNDS} sequential {BENCH_ROWS} x "
+                  f"{len(tags)} anomaly requests on {card}: {numbers}", flush=True)
+        fused = batcher.peek_batcher()
+        result["self_ab"] = {_spec_label(s): v for s, v in fused.calibrations.items()}
+        print(f"the auto mode's A/B for the feedforward specs: {result['self_ab']}", flush=True)
+
+        os.environ["GORDO_TPU_SERVING_BATCH"] = "1"
+        batcher.reset_batcher()
+        rng = np.random.RandomState(SEED + 30)
+        requests, refs = [], []
+        for i in range(FF_REQUESTS):
+            config = EXAMPLE_MACHINES[i % 2]
+            body = _bench_body(len(config["dataset"]["tags"]), SEED + 40 + i)
+            requests.append((config["name"], body))
+        for m in range(BATCHER_MODELS):
+            values = _series(BATCHER_ROWS, 50000 + 700 * m, rng)
+            requests.append(("transformer-ae-512", _rect_body(values)))
+        _reset_launches()
+        with _PlainAttentionCalls() as plain:
+            results, wall = _drive(project, requests, FF_USERS)
+        launches = _launches("float32")
+        fused = batcher.peek_batcher()
+        stats, spec_calls = dict(fused.stats), dict(fused.spec_calls)
+        statuses = [r[0] if r else None for r in results]
+        if any(status != 200 for status in statuses):
+            raise AssertionError(f"concurrent mixed requests: statuses {statuses}")
+        worst = {"feedforward": 0.0, "transformer": 0.0}
+        for (name, body), (_, answer, _) in zip(requests, results):
+            entry = server.models[name]
+            out = _columns(json.loads(answer)["data"]["model-output"], entry.tags)
+            want = _direct(entry.detector, np.asarray(json.loads(body)["X"]))
+            family = "transformer" if name == "transformer-ae-512" else "feedforward"
+            worst[family] = max(worst[family],
+                                float(np.abs(out - want).max() / np.abs(want).max()))
+        latencies = sorted(r[2] for r in results)
+        n_ff_samples = FF_REQUESTS * BENCH_ROWS
+        result["concurrent"] = {
+            "requests": len(requests), "users": FF_USERS, "wall_s": wall,
+            "p50_ms": latencies[len(latencies) // 2], "max_ms": latencies[-1],
+            "feedforward_samples_per_s": n_ff_samples / wall, "batcher": stats,
+            "fused_calls_by_spec": {_spec_label(s): n for s, n in spec_calls.items()},
+            "max_rel_diff": worst, "launches": launches, "plain_attention_calls": plain.calls}
+        print(f"concurrent mixed requests (batching forced on) on {card}: "
+              f"{result['concurrent']}", flush=True)
+        transformer_calls = spec_calls.get(spec, 0)
+        if (stats["mixed_spec_calls"] or len(spec_calls) != 3
+                or stats["items"] != len(requests) or stats["bisections"]
+                or stats["serial_rescues"] or plain.calls):
+            raise AssertionError(f"the mixed collection's fused calls: {stats}, {spec_calls}")
+        if not (transformer_calls and launches["forward"] == n_blocks * transformer_calls):
+            raise AssertionError(f"{launches} forward launches for {transformer_calls} fused "
+                                 f"Transformer calls of {n_blocks} blocks")
+        if not (worst["feedforward"] <= TOL_FF and worst["transformer"] <= TOL_MODEL_REL):
+            raise AssertionError(f"fused answers off their direct predicts: {worst}")
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=60)
+        batcher.reset_batcher()
+        if previous is None:
+            os.environ.pop("GORDO_TPU_SERVING_BATCH", None)
+        else:
+            os.environ["GORDO_TPU_SERVING_BATCH"] = previous
+    result["forward"] = launches["forward"]
+    return result
+
+
+def bench_machine_config(name: str) -> dict:
+    """bench.py's machine (``_machine_config``): a 4-tag hourglass
+    autoencoder (5 epochs, batch 128) over MinMaxScaler in a
+    DiffBasedAnomalyDetector, on 7 days of 10-minute RandomDataset rows,
+    the default 3-fold TimeSeriesSplit CV with thresholds."""
+    return {
+        "name": name,
+        "dataset": {"type": "RandomDataset", "tags": [f"{name}-tag-{j}" for j in range(4)],
+                    "train_start_date": "2019-01-01T00:00:00+00:00",
+                    "train_end_date": "2019-01-08T00:00:00+00:00"},
+        "model": {"gordo_tpu.models.anomaly.diff.DiffBasedAnomalyDetector": {
+            "require_thresholds": True,
+            "base_estimator": {"sklearn.pipeline.Pipeline": {"steps": [
+                "sklearn.preprocessing.MinMaxScaler",
+                {"gordo_tpu.models.models.AutoEncoder": {
+                    "kind": "feedforward_hourglass", "epochs": 5, "batch_size": 128}}]}}}},
+    }
+
+
+def feedforward_one_batch_check(card: str, device: str = "cuda") -> dict:
+    """Two hourglass machines stacked against each machine's own model on
+    the same parameters: one batch's output and parameter gradients (the
+    l1 activity penalty in the loss) within TOL_FF."""
+    import torch
+
+    from gordo_tpu_torch.models.models import AutoEncoder
+    from gordo_tpu_torch.ops import nn
+
+    spec = AutoEncoder("feedforward_hourglass").build_spec(4, 4)
+    rng = np.random.RandomState(SEED + 13)
+    X = torch.as_tensor(rng.rand(2, 4 * BATCH, 4), dtype=torch.float32, device=device)
+    params = [[{k: v.numpy() for k, v in p.items()}
+               for p in nn.init_model_params(spec, torch.Generator().manual_seed(SEED + m))]
+              for m in range(2)]
+    orders = torch.stack([torch.randperm(4 * BATCH, generator=torch.Generator().manual_seed(m))
+                          for m in range(2)])
+    out_diff, grad_diff = _one_batch_diffs(spec, params, X, orders, device)
+    print(f"two hourglass machines stacked vs serial, one batch on {card}: output max rel diff "
+          f"{out_diff:.3e}, gradients {grad_diff:.3e} (gate {TOL_FF:g})", flush=True)
+    if not (out_diff <= TOL_FF and grad_diff <= TOL_FF):
+        raise AssertionError("the stacked hourglass batch disagrees with serial")
+    return {"out": out_diff, "grad": grad_diff}
+
+
+def feedforward_fleet_path(card: str, root: Path, device: str = "cuda") -> dict:
+    """``batch-build`` (``cli.batch_build``, in this process so that the
+    launches count) of one config: FF_FLEET_MACHINES of bench.py's hourglass
+    machines and the FLEET_MACHINES ``transformer-ae-512`` machines of
+    :func:`fleet_configs`. Gates: exit 0, every machine an artifact, every
+    stacked program of one family (the buckets apart: the feedforward
+    machines in their bucket's chunks, the Transformers in one), the
+    Transformer bucket launching dQ and dK/dV once per block a stacked step,
+    sampled artifacts finite; one stacked hourglass batch against serial
+    (:func:`feedforward_one_batch_check`). Prints the machines a minute, the
+    stacked programs' share, the peak device memory, and one serial build
+    of a bench machine times FF_FLEET_MACHINES beside it."""
+    import contextlib
+    import io
+
+    import torch
+
+    from gordo_tpu_torch import cli, serializer
+    from gordo_tpu_torch.builder import ModelBuilder
+    from gordo_tpu_torch.machine import Machine
+    from gordo_tpu_torch.models.anomaly.diff import TimeSeriesSplit
+    from gordo_tpu_torch.models.models import TransformerAutoEncoder
+    from gordo_tpu_torch.models.spec import TransformerBlock
+    from gordo_tpu_torch.ops.predict import n_train_samples
+    from gordo_tpu_torch.parallel import batch_trainer as bt
+
+    one_batch = feedforward_one_batch_check(card, device)
+    names = [f"bench-ae-{i}" for i in range(FF_FLEET_MACHINES)]
+    config = root / "mixed.json"
+    config.write_text(json.dumps({"machines": [bench_machine_config(n) for n in names]
+                                  + fleet_configs()}))
+    output = root / "mixed"
+    shutil.rmtree(output, ignore_errors=True)
+    tf_spec = TransformerAutoEncoder(**CONFIG).build_spec(len(TAGS), len(TAGS))
+    n_blocks = sum(isinstance(layer, TransformerBlock) for layer in tf_spec.layers)
+    n_rows = _config_rows(fleet_configs()[0])
+    steps = [math.ceil(n_train_samples(tf_spec, len(train_idx)) / BATCH)
+             for train_idx, _ in TimeSeriesSplit(3).split(np.zeros(n_rows))]
+    steps.append(math.ceil(n_train_samples(tf_spec, n_rows) / BATCH))
+    programs = []  # (spec, machines, seconds) of each stacked program
+    run_bucket = bt.run_bucket
+
+    def timed_bucket(spec, X, *args, **kwargs):
+        if device == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = run_bucket(spec, X, *args, **kwargs)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        programs.append((spec, len(X), time.perf_counter() - t0))
+        return out
+
+    if device == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    bt.run_bucket = timed_bucket
+    stdout = io.StringIO()
+    try:
+        with _PlainAttentionCalls() as plain, contextlib.redirect_stdout(stdout):
+            t0 = time.perf_counter()
+            code = cli.batch_build(str(config), str(output), "smoke-fleet", device=device)
+            seconds = time.perf_counter() - t0
+    finally:
+        bt.run_bucket = run_bucket
+    launches = _launches("float32")
+    peak = torch.cuda.max_memory_allocated() / 2**30 if device == "cuda" else float("nan")
+    built = [line for line in stdout.getvalue().splitlines() if line.startswith("built: ")]
+    artifacts = sum((output / name / "model.json").exists()
+                    for name in names + [c["name"] for c in fleet_configs()])
+    families = {}
+    for spec, machines, secs in programs:
+        family = families.setdefault(_spec_label(spec), {"programs": 0, "machines": 0,
+                                                         "seconds": 0.0, "spec": spec})
+        family["programs"] += 1
+        family["machines"] += machines
+        family["seconds"] += secs
+    # one serial build of a bench machine, for the serial build x N
+    machine = Machine.from_config(bench_machine_config("bench-ae-serial"), "smoke-fleet")
+    t0 = time.perf_counter()
+    ModelBuilder(machine, device).build()
+    serial_seconds = time.perf_counter() - t0
+    n_all = FF_FLEET_MACHINES + FLEET_MACHINES
+    result = {
+        "machines": n_all, "feedforward_machines": FF_FLEET_MACHINES, "seconds": seconds,
+        "machines_per_minute": 60.0 * n_all / seconds,
+        "stacked_programs": {label: {k: v for k, v in f.items() if k != "spec"}
+                             for label, f in families.items()},
+        "peak_gib": peak, "serial_build_s": serial_seconds,
+        "serial_build_x_feedforward_s": serial_seconds * FF_FLEET_MACHINES,
+        "launches": launches, "one_batch": one_batch}
+    print(f"mixed batch-build of {FF_FLEET_MACHINES} hourglass + {FLEET_MACHINES} "
+          f"transformer-ae-512 machines on {card}: exit {code} in {seconds:.2f} s "
+          f"({result['machines_per_minute']:.1f} machines a minute), {len(built)} built, "
+          f"{artifacts} artifacts; stacked programs {result['stacked_programs']}; peak device "
+          f"memory {peak:.2f} GiB; float32 launches {launches}; one serial hourglass build "
+          f"{serial_seconds:.2f} s, x {FF_FLEET_MACHINES} = "
+          f"{result['serial_build_x_feedforward_s']:.1f} s", flush=True)
+    if code != 0 or len(built) != n_all or artifacts != n_all:
+        raise AssertionError(f"batch-build exited {code}: {len(built)} built, {artifacts} "
+                             f"artifacts of {n_all}")
+    ff = families.get("feedforward 4 tags")
+    tf = families.get(_spec_label(tf_spec))
+    if not (len(families) == 2 and ff and tf and ff["machines"] == FF_FLEET_MACHINES
+            and tf["machines"] == FLEET_MACHINES and tf["spec"] == tf_spec):
+        raise AssertionError(f"the buckets did not stay apart: {result['stacked_programs']}")
+    if plain.calls or not launches["dq"] == launches["dkv"] == n_blocks * sum(steps):
+        raise AssertionError(f"expected {n_blocks * sum(steps)} dQ and dK/dV launches, got "
+                             f"{launches}; plain attention {plain.calls}")
+    for name in (names[0], names[-1], fleet_configs()[0]["name"]):
+        model = serializer.load(str(output / name), device)
+        thresholds = [*model.feature_thresholds_, model.aggregate_threshold_]
+        if not all(math.isfinite(x) for x in thresholds):
+            raise AssertionError(f"{name}: thresholds {thresholds}")
+    return result
+
+
 def main() -> int:
     import torch
 
@@ -2221,11 +2702,30 @@ def main() -> int:
     fleet_loss_check(card)
     cli_batch_build(fleet_root)
     print(f"fleet phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    torch.cuda.empty_cache()
+    ff_root = REPO / "build" / "chip_smoke_feedforward"
+    shutil.rmtree(ff_root, ignore_errors=True)
+    ff_root.mkdir(parents=True)
+    t0 = time.perf_counter()
+    ff_build = feedforward_build_path(card, ff_root / "built")
+    ff_build["phase_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ff_served = feedforward_served_path(card, ff_root, ff_root / "built")
+    ff_served["phase_s"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ff_fleet = feedforward_fleet_path(card, ff_root)
+    ff_fleet["phase_s"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    print(f"feedforward phases: build {ff_build['phase_s']:.1f} s, served "
+          f"{ff_served['phase_s']:.1f} s, fleet {ff_fleet['phase_s']:.1f} s", flush=True)
 
     forward["launches_by_path"] = {"serving": serving, "server_surface": base_route,
                                    "batcher": batched["launches"],
                                    "build": build["forward"], "serving_built": build["serving"],
-                                   "fleet": fleet["forward"]}
+                                   "fleet": fleet["forward"],
+                                   "feedforward_served": ff_served["forward"],
+                                   "feedforward_fleet": ff_fleet["launches"]["forward"]}
     bf16_forward["launches_by_path"] = {"batcher": bf16_batched["launches"],
                                         "build": bf16_build["forward"],
                                         "serving_built": bf16_build["serving"],
@@ -2236,10 +2736,14 @@ def main() -> int:
                                               if key != "fused_forward"}
                                        for dtype, result in (("float32", batched),
                                                              ("bfloat16", bf16_batched))}}))
+    print(json.dumps({"feedforward": {"build": ff_build, "served": ff_served,
+                                      "fleet": ff_fleet}}, default=str))
     for entry, key, launches, fleet_launches in (
             (dq, "dq", build, fleet), (dkv, "dkv", build, fleet),
             (bf16_dq, "dq", bf16_build, bf16_fleet), (bf16_dkv, "dkv", bf16_build, bf16_fleet)):
         entry["launches_by_path"] = {"build": launches[key], "fleet": fleet_launches[key]}
+        if entry is dq or entry is dkv:
+            entry["launches_by_path"]["feedforward_fleet"] = ff_fleet["launches"][key]
     for entry in entries:
         entry["launches"] = sum(entry["launches_by_path"].values())
         entry["fleet_shape"] = fleet_times[entry["name"]]

@@ -1,15 +1,20 @@
 """
-Diff-based anomaly detection in numpy: the port's counterpart of
-``DiffBasedAnomalyDetector`` in ``gordo_tpu/models/anomaly/diff.py``.
+Diff-based anomaly detection in numpy: the port's counterparts of
+``DiffBasedAnomalyDetector`` and ``DiffBasedKFCVAnomalyDetector`` in
+``gordo_tpu/models/anomaly/diff.py``, with sklearn's ``TimeSeriesSplit``
+and ``KFold``.
 
-The detector wraps a base estimator (a pipeline ending in a windowed
-Transformer) and scores anomalies as the scaled and unscaled difference
-between the model output and the target, with optional smoothing and,
-when thresholds are present, confidence columns. ``fit`` trains the base
-estimator and fits the scaler on y; ``cross_validate`` trains a fresh copy
-per ``TimeSeriesSplit`` fold, scores it (with the builder's per-tag
-scorers when it is given them) and sets the thresholds from the folds'
-rolling error statistics, the last fold's being the final ones.
+The detector wraps a base estimator (by default a feedforward hourglass
+``AutoEncoder``, usually inside a pipeline) and scores anomalies as the
+scaled and unscaled difference between the model output and the target,
+with optional smoothing and, when thresholds are present, confidence
+columns. ``fit`` trains the base estimator and fits the scaler on y;
+``cross_validate`` trains a fresh copy per ``TimeSeriesSplit`` fold, scores
+it (with the builder's per-tag scorers when it is given them) and sets the
+thresholds from the folds' rolling error statistics, the last fold's being
+the final ones. The KFCV detector takes shuffled ``KFold`` folds instead,
+scatters each fold model's predictions back onto its test rows, and takes
+its thresholds as a percentile of the smoothed errors over all rows.
 """
 
 import time
@@ -21,6 +26,7 @@ from numpy.lib.stride_tricks import sliding_window_view
 
 from .. import utils as model_utils
 from ..base import clone
+from ..models import AutoEncoder
 from ..pretty import EstimatorRepr
 from ..scaler import MinMaxScaler, pipeline_predict
 
@@ -44,6 +50,55 @@ class TimeSeriesSplit:
         indices = np.arange(n)
         for start in range(n - self.n_splits * test_size, n, test_size):
             yield indices[:start], indices[start:start + test_size]
+
+
+class KFold:
+    """``sklearn.model_selection.KFold``: ``n_splits`` consecutive folds of
+    the indices (the first ``n % n_splits`` one row longer), after the
+    indices are shuffled by ``np.random.RandomState(random_state)`` (the
+    global numpy RNG when it is None) if ``shuffle``. Each split yields the
+    train and the test indices, both in ascending order, as sklearn's do."""
+
+    def __init__(self, n_splits: int = 5, *, shuffle: bool = False, random_state=None):
+        if not shuffle and random_state is not None:
+            raise ValueError(
+                "Setting a random_state has no effect since shuffle is False. You should "
+                "leave random_state to its default (None), or set shuffle=True."
+            )
+        self.n_splits = int(n_splits)
+        self.shuffle = shuffle
+        self.random_state = random_state
+
+    def get_params(self, deep=False) -> dict:
+        return {"n_splits": self.n_splits, "random_state": self.random_state,
+                "shuffle": self.shuffle}
+
+    def __repr__(self) -> str:
+        return "KFold(" + ", ".join(f"{k}={v!r}" for k, v in self.get_params().items()) + ")"
+
+    def get_n_splits(self, X=None, y=None, groups=None) -> int:
+        return self.n_splits
+
+    def split(self, X, y=None, groups=None):
+        n = len(X)
+        if self.n_splits > n:
+            raise ValueError(
+                f"Cannot have number of splits n_splits={self.n_splits} greater than the "
+                f"number of samples: n_samples={n}."
+            )
+        indices = np.arange(n)
+        if self.shuffle:
+            rng = (np.random.mtrand._rand if self.random_state is None
+                   else np.random.RandomState(self.random_state))
+            rng.shuffle(indices)
+        sizes = np.full(self.n_splits, n // self.n_splits)
+        sizes[: n % self.n_splits] += 1
+        start = 0
+        for size in sizes:
+            test = np.zeros(n, bool)
+            test[indices[start:start + size]] = True
+            yield np.flatnonzero(~test), np.flatnonzero(test)
+            start += size
 
 
 def shuffled_order(n: int) -> np.ndarray:
@@ -130,7 +185,7 @@ def _by_column(per_fold: Dict[str, np.ndarray]) -> Dict[int, Dict[str, float]]:
 class DiffBasedAnomalyDetector(EstimatorRepr):
     def __init__(
         self,
-        base_estimator,
+        base_estimator=None,
         scaler: Optional[MinMaxScaler] = None,
         require_thresholds: bool = True,
         shuffle: bool = False,
@@ -139,7 +194,8 @@ class DiffBasedAnomalyDetector(EstimatorRepr):
         feature_thresholds: Optional[np.ndarray] = None,
         aggregate_threshold: Optional[float] = None,
     ):
-        self.base_estimator = base_estimator
+        self.base_estimator = (base_estimator if base_estimator is not None
+                               else AutoEncoder(kind="feedforward_hourglass"))
         self.scaler = scaler if scaler is not None else MinMaxScaler()
         self.require_thresholds = require_thresholds
         self.shuffle = shuffle
@@ -176,10 +232,14 @@ class DiffBasedAnomalyDetector(EstimatorRepr):
 
     @classmethod
     def from_definition(cls, definition: dict, device=None) -> "DiffBasedAnomalyDetector":
-        """The detector of a definition's arguments, its estimators on ``device``."""
+        """The detector of a definition's arguments, its estimators (the
+        default one too) on ``device``."""
         from ...serializer.from_definition import load_params_from_definition
 
-        return cls(**load_params_from_definition(definition, device))
+        params = load_params_from_definition(definition, device)
+        if params.get("base_estimator") is None:
+            params["base_estimator"] = AutoEncoder(kind="feedforward_hourglass", device=device)
+        return cls(**params)
 
     def fit(self, X, y) -> "DiffBasedAnomalyDetector":
         """Train the base estimator (on rows shuffled as
@@ -354,3 +414,93 @@ class DiffBasedAnomalyDetector(EstimatorRepr):
                 "total-anomaly-confidence", total_anomaly_scaled / self.aggregate_threshold_
             )
         return model_utils.RawFrame(groups, index, frequency)
+
+
+class DiffBasedKFCVAnomalyDetector(DiffBasedAnomalyDetector):
+    """The KFold variant: ``cross_validate`` takes ``KFold(5, shuffle=True,
+    random_state=0)`` folds by default and needs a base estimator without
+    an output offset; every row is a test row once, and the thresholds are
+    the ``threshold_percentile`` quantile (linear, NaN skipped, as pandas'
+    ``quantile``) of the smoothed scaled MSE per row and of the smoothed
+    absolute error per tag."""
+
+    def __init__(
+        self,
+        base_estimator=None,
+        scaler: Optional[MinMaxScaler] = None,
+        require_thresholds: bool = True,
+        shuffle: bool = True,
+        window: int = 144,
+        smoothing_method: str = "smm",
+        threshold_percentile: float = 0.99,
+        feature_thresholds: Optional[np.ndarray] = None,
+        aggregate_threshold: Optional[float] = None,
+    ):
+        super().__init__(base_estimator, scaler, require_thresholds, shuffle, window,
+                         smoothing_method, feature_thresholds, aggregate_threshold)
+        self.smoothing_method = smoothing_method
+        self.threshold_percentile = threshold_percentile
+
+    def get_params(self, deep=False) -> dict:
+        return {
+            "base_estimator": self.base_estimator,
+            "scaler": self.scaler,
+            "window": self.window,
+            "smoothing_method": self.smoothing_method,
+            "shuffle": self.shuffle,
+            "threshold_percentile": self.threshold_percentile,
+        }
+
+    def get_metadata(self) -> dict:
+        """The final thresholds, then the base estimator's metadata where it
+        has any, else its description, with the JAX detector's keys."""
+        metadata = {}
+        if self.feature_thresholds_ is not None:
+            metadata["feature-thresholds"] = self.feature_thresholds_.tolist()
+        if self.aggregate_threshold_ is not None:
+            metadata["aggregate-threshold"] = self.aggregate_threshold_
+        if hasattr(self.base_estimator, "get_metadata"):
+            metadata.update(self.base_estimator.get_metadata())
+        else:
+            metadata.update({
+                "scaler": str(self.scaler),
+                "base_estimator": str(self.base_estimator),
+                "shuffle": self.shuffle,
+                "window": self.window,
+                "smoothing-method": self.smoothing_method,
+                "threshold-percentile": self.threshold_percentile,
+            })
+        return metadata
+
+    def estimator_offset(self) -> int:
+        """The output offset of the (pipelined) base estimator."""
+        steps = getattr(self.base_estimator, "steps", None)
+        estimator = steps[-1][1] if steps else self.base_estimator
+        return int(getattr(estimator, "output_offset", 0) or 0)
+
+    def cross_validate(self, *, X, y, cv=None, scoring=None) -> dict:
+        """:func:`cross_validate` over the folds, then each fold model's
+        predictions and scaled MSE written onto its test rows, and the
+        thresholds taken from them."""
+        offset = self.estimator_offset()
+        if offset:
+            raise ValueError(
+                f"DiffBasedKFCVAnomalyDetector requires an offset-free base estimator (got "
+                f"lookback/lookahead offset {offset}); use DiffBasedAnomalyDetector for "
+                f"windowed models"
+            )
+        X, y = np.asarray(X, np.float64), np.asarray(y, np.float64)
+        cv = cv if cv is not None else KFold(n_splits=5, shuffle=True, random_state=0)
+        out = cross_validate(self, X, y, cv=cv, scoring=scoring)
+        y_pred = np.zeros_like(y)
+        y_val_mse = np.full(len(y), np.nan)
+        for (_, test_idx), model in zip(cv.split(X, y), out["estimator"]):
+            y_pred[test_idx] = model.predict(X[test_idx])
+            scaled = model.scaler.transform(y_pred[test_idx]) - model.scaler.transform(y[test_idx])
+            y_val_mse[test_idx] = np.square(scaled).mean(axis=1)
+        self.aggregate_threshold_ = float(self._threshold(y_val_mse))
+        self.feature_thresholds_ = self._threshold(np.abs(y - y_pred))
+        return out
+
+    def _threshold(self, metric: np.ndarray):
+        return np.nanquantile(self._smoothing(metric), self.threshold_percentile, axis=0)

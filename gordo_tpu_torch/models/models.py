@@ -1,31 +1,37 @@
 """
-Windowed Transformer estimators: the port's counterparts of
-``TransformerAutoEncoder`` and ``TransformerForecast`` in
-``gordo_tpu/models/models.py``.
+The port's estimators: the counterparts of ``AutoEncoder``,
+``RawModelRegressor``, ``TransformerAutoEncoder`` and ``TransformerForecast``
+in ``gordo_tpu/models/models.py``, on the ``BaseJaxEstimator`` contract
+(``fit``, ``predict``, ``score``, ``get_params``, definitions, metadata).
 
 An estimator holds its spec and a :class:`~gordo_tpu_torch.ops.nn.TransformerModel`
+(any spec of Dense, positional-encoding, Transformer-block and pool layers)
 whose parameters stay on the device; ``fit`` trains it there
 (ops/train.py), ``predict`` takes and returns numpy: through the
 cross-model batcher when it is on (server/batcher.py), which fuses
 concurrent predicts of one spec into one device call, else direct. The
 device is ``cuda`` unless the estimator is made with ``device="cpu"``.
+``AutoEncoder`` and ``RawModelRegressor`` are unwindowed (output offset 0,
+one output row per input row); the Transformer estimators are windowed
+(many-to-one over ``lookback_window`` rows).
 """
 
 import dataclasses
+from pprint import pformat
 from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
 
 from .. import resolve_device
-from ..ops.nn import TransformerModel, init_model_params
+from ..ops.nn import TransformerModel, init_model_params, not_ported
 from ..ops.predict import predict_fn
 from ..ops.train import fit_arrays
 from ..server.batcher import maybe_submit
 from .base import explained_variance_score
 from .factories import FACTORIES
 from .pretty import EstimatorRepr
-from .spec import ModelSpec
+from .spec import DenseLayer, LSTMLayer, ModelSpec, OptimizerSpec
 
 _PARALLEL_KWARGS = (
     "tensor_parallel", "pipeline_parallel", "expert_parallel", "data_parallel"
@@ -35,31 +41,26 @@ _FIT_KWARGS = ("batch_size", "epochs", "verbose", "callbacks", "validation_split
 _NON_FACTORY_KWARGS = (*_FIT_KWARGS, "compute_dtype", "remat", *_PARALLEL_KWARGS)
 
 
-class WindowedSequenceEstimator(EstimatorRepr):
-    """Many-to-one windowed estimator over a registered factory ``kind``.
-    Its repr is the JAX estimator's: the device is where it runs, not one
-    of its parameters."""
+class BaseEstimator(EstimatorRepr):
+    """The fit/predict machinery shared by every estimator of the port, over
+    the factories filed under its ``factory_type``. Its repr is the JAX
+    estimator's: the device is where it runs, not one of its parameters."""
 
     factory_type = ""
     lookahead = 0
 
-    def __init__(self, kind: str = "transformer_model", lookback_window: int = 144,
-                 device=None, batch_size: int = 32, **kwargs):
-        if kind not in FACTORIES:
+    def __init__(self, kind, device=None, **kwargs):
+        self.kind = self._check_kind(kind)
+        self.device = device
+        self.kwargs: Dict[str, Any] = kwargs
+        self.history: Optional[Dict[str, Any]] = None
+
+    def _check_kind(self, kind):
+        if kind not in FACTORIES[self.factory_type]:
             raise ValueError(
                 f"kind: {kind} is not an available model for type: {self.factory_type}!"
             )
-        if lookback_window < 2:
-            raise ValueError(
-                f"{type(self).__name__} requires lookback_window >= 2, "
-                f"got {lookback_window}"
-            )
-        self.kind = kind
-        self.device = device
-        self.kwargs: Dict[str, Any] = {
-            "lookback_window": int(lookback_window), "batch_size": int(batch_size), **kwargs
-        }
-        self.history: Optional[Dict[str, Any]] = None
+        return kind
 
     def get_params(self, deep=False) -> Dict[str, Any]:
         return {"kind": self.kind, "device": self.device, **self.kwargs}
@@ -68,9 +69,8 @@ class WindowedSequenceEstimator(EstimatorRepr):
         return {"kind": self.kind, **self.kwargs}
 
     def repr_defaults(self) -> Dict[str, Any]:
-        # the JAX estimator's __init__(kind, lookback_window=144,
-        # batch_size=32, **kwargs): its kind has no default
-        return {"lookback_window": 144, "batch_size": 32}
+        # the JAX estimator's __init__(kind, **kwargs): no defaults
+        return {}
 
     @classmethod
     def from_definition(cls, definition: dict, device=None):
@@ -86,12 +86,19 @@ class WindowedSequenceEstimator(EstimatorRepr):
 
     @property
     def lookback_window(self) -> int:
-        return self.kwargs["lookback_window"]
+        return 1
 
     @property
     def output_offset(self) -> int:
         """Rows the model's output is shorter than its input by."""
-        return self.lookback_window - 1 + self.lookahead
+        return max(self.lookback_window - 1 + self.lookahead, 0)
+
+    def _factory_kwargs(self) -> Dict[str, Any]:
+        return {k: v for k, v in self.kwargs.items() if k not in _NON_FACTORY_KWARGS}
+
+    def _build_spec(self, n_features: int, n_features_out: int) -> ModelSpec:
+        return FACTORIES[self.factory_type][self.kind](
+            n_features=n_features, n_features_out=n_features_out, **self._factory_kwargs())
 
     def build_spec(self, n_features: int, n_features_out: int) -> ModelSpec:
         for knob in _PARALLEL_KWARGS:
@@ -100,11 +107,7 @@ class WindowedSequenceEstimator(EstimatorRepr):
                     f"{knob} is not ported yet: see the ring attention / parallel "
                     f"axes item of ROADMAP.md queue A"
                 )
-        kwargs = {k: v for k, v in self.kwargs.items() if k not in _NON_FACTORY_KWARGS}
-        spec = FACTORIES[self.kind](
-            n_features=n_features, n_features_out=n_features_out,
-            lookahead=self.lookahead, **kwargs,
-        )
+        spec = self._build_spec(n_features, n_features_out)
         compute_dtype = self.kwargs.get("compute_dtype")
         if compute_dtype:
             spec = dataclasses.replace(spec, compute_dtype=str(compute_dtype))
@@ -163,21 +166,112 @@ class WindowedSequenceEstimator(EstimatorRepr):
         return self._predict(X)
 
     def score(self, X, y) -> float:
-        """Explained variance of the output against the last rows of y."""
+        """Explained variance of the output against the last rows of y
+        (all of them for an unwindowed model)."""
         out = self.predict(X)
         return explained_variance_score(_as_2d(y)[-len(out):], out)
 
     def get_metadata(self) -> Dict[str, Any]:
-        """The training history, and the forecast steps (the lookahead), as
-        the JAX estimator reports them."""
-        metadata = {"history": dict(self.history)} if self.history is not None else {}
-        metadata["forecast_steps"] = self.lookahead
-        return metadata
+        """The training history, as the JAX estimator reports it."""
+        return {"history": dict(self.history)} if self.history is not None else {}
 
 
 def _as_2d(data) -> np.ndarray:
     arr = np.asarray(data, np.float32)
     return arr.reshape(-1, 1) if arr.ndim == 1 else arr
+
+
+class AutoEncoder(BaseEstimator):
+    """Dense autoencoder over a feedforward factory ``kind``; its output has
+    as many rows as its input."""
+
+    factory_type = "AutoEncoder"
+
+
+class RawModelRegressor(AutoEncoder):
+    """An arbitrary stack of Dense layers from a raw config dict ``kind``
+    (``{"spec": {"layers": [{"Dense": {...}}, ...]}, "compile": {...}}``),
+    as the JAX ``RawModelRegressor`` reads it. An LSTM layer is refused
+    until that family is ported."""
+
+    _expected_keys = ("spec", "compile")
+
+    def _check_kind(self, kind):
+        if not isinstance(kind, dict):
+            raise ValueError("RawModelRegressor kind must be a config dict")
+        return kind
+
+    def __repr__(self):
+        return f"{type(self).__name__}(kind: {pformat(self.kind)})"
+
+    @staticmethod
+    def _parse_layer(layer_def) -> DenseLayer:
+        if not isinstance(layer_def, dict) or len(layer_def) != 1:
+            raise ValueError(f"Invalid layer definition: {layer_def!r}")
+        name = next(iter(layer_def))
+        kwargs = dict(layer_def[name] or {})
+        short = name.rsplit(".", 1)[-1]
+        if short == "Dense":
+            return DenseLayer(units=int(kwargs["units"]),
+                              activation=kwargs.get("activation", "linear"))
+        if short == "LSTM":
+            raise not_ported(LSTMLayer)
+        raise ValueError(f"Unsupported raw layer type: {name!r}")
+
+    def _build_spec(self, n_features: int, n_features_out: int) -> ModelSpec:
+        if not all(k in self.kind for k in self._expected_keys):
+            raise ValueError(
+                f"Expected spec to have keys: {self._expected_keys}, "
+                f"but found {list(self.kind)}"
+            )
+        spec_def = self.kind["spec"]
+        if isinstance(spec_def, dict) and "layers" not in spec_def:
+            # the reference's {Sequential: {layers: [...]}} nesting
+            inner = next(iter(spec_def.values()))
+            spec_def = inner if isinstance(inner, dict) else {"layers": inner}
+        layers = tuple(self._parse_layer(layer) for layer in spec_def["layers"])
+        compile_kwargs = dict(self.kind.get("compile") or {})
+        return ModelSpec(
+            layers=layers,
+            n_features=n_features,
+            n_features_out=layers[-1].units,
+            lookback_window=int(self.kind.get("lookback_window", 1)),
+            optimizer=OptimizerSpec.create(str(compile_kwargs.get("optimizer", "Adam")),
+                                           compile_kwargs.get("optimizer_kwargs")),
+            loss=compile_kwargs.get("loss", "mse"),
+        )
+
+
+class WindowedSequenceEstimator(BaseEstimator):
+    """Many-to-one windowed estimator over a registered factory ``kind``:
+    its output is ``len(X) - lookback_window + 1 - lookahead`` rows."""
+
+    def __init__(self, kind: str = "transformer_model", lookback_window: int = 144,
+                 device=None, batch_size: int = 32, **kwargs):
+        if lookback_window < 2:
+            raise ValueError(
+                f"{type(self).__name__} requires lookback_window >= 2, "
+                f"got {lookback_window}"
+            )
+        super().__init__(kind, device, lookback_window=int(lookback_window),
+                         batch_size=int(batch_size), **kwargs)
+
+    def repr_defaults(self) -> Dict[str, Any]:
+        # the JAX estimator's __init__(kind, lookback_window=144,
+        # batch_size=32, **kwargs): its kind has no default
+        return {"lookback_window": 144, "batch_size": 32}
+
+    @property
+    def lookback_window(self) -> int:
+        return self.kwargs["lookback_window"]
+
+    def _factory_kwargs(self) -> Dict[str, Any]:
+        return {**super()._factory_kwargs(), "lookahead": self.lookahead}
+
+    def get_metadata(self) -> Dict[str, Any]:
+        """The training history, and the forecast steps (the lookahead), as
+        the JAX estimator reports them."""
+        return {**super().get_metadata(), "forecast_steps": self.lookahead}
 
 
 class TransformerAutoEncoder(WindowedSequenceEstimator):
@@ -195,5 +289,6 @@ class TransformerForecast(WindowedSequenceEstimator):
 
 
 ESTIMATORS = {
-    cls.__name__: cls for cls in (TransformerAutoEncoder, TransformerForecast)
+    cls.__name__: cls
+    for cls in (AutoEncoder, RawModelRegressor, TransformerAutoEncoder, TransformerForecast)
 }

@@ -1,8 +1,10 @@
 """
 Layer init/apply in PyTorch: the port's counterpart of
-``gordo_tpu/ops/nn.py`` for the layers of the Transformer family (Dense,
-positional encoding, pre-LN Transformer block, pooling), at the spec's
-``compute_dtype``: float32 or bfloat16.
+``gordo_tpu/ops/nn.py`` for the layers of the feedforward and Transformer
+families (Dense, positional encoding, pre-LN Transformer block, pooling),
+at the spec's ``compute_dtype``: float32 or bfloat16. A Dense layer with an
+``l1_activity`` adds its activity penalty to the training loss
+(``forward_with_penalty``), as ``apply_model`` returns it.
 
 Parameters use the JAX package's layout: one dict per layer, keyed as
 there (``kernel``/``bias`` for Dense; ``ln1_scale``, ``wq`` ... ``b_ff2``
@@ -76,10 +78,11 @@ def _activation(name: str):
         ) from None
 
 
-def _not_ported(layer) -> NotImplementedError:
+def not_ported(layer) -> NotImplementedError:
+    """The refusal of a layer (or layer class) the port cannot run yet."""
+    cls = layer if isinstance(layer, type) else type(layer)
     return NotImplementedError(
-        f"{type(layer).__name__} is not ported yet: see "
-        f"{NOT_PORTED[type(layer)]} of ROADMAP.md queue A"
+        f"{cls.__name__} is not ported yet: see {NOT_PORTED[cls]} of ROADMAP.md queue A"
     )
 
 
@@ -137,7 +140,7 @@ def init_model_params(spec: ModelSpec, generator: torch.Generator = None) -> Par
         elif isinstance(layer, (PositionalEncoding, PoolLayer)):
             params.append({})
         elif type(layer) in NOT_PORTED:
-            raise _not_ported(layer)
+            raise not_ported(layer)
         else:
             raise TypeError(f"Unknown layer spec: {layer!r}")
     return params
@@ -215,13 +218,24 @@ def _apply_pool(layer: PoolLayer, x):
     raise ValueError(f"Unknown pool mode {layer.mode!r}")
 
 
+def _l1_activity(layer: DenseLayer, out: torch.Tensor, stacked: bool) -> torch.Tensor:
+    """The layer's l1 activity penalty, as ``apply_model`` takes it: l1 times
+    the sum of |output| in float32 over the whole batch (padding rows
+    included), over the batch size; one per machine when ``stacked``."""
+    batch = out.shape[1 if stacked else 0]
+    return layer.l1_activity * out.float().abs().flatten(1 if stacked else 0).sum(-1) / batch
+
+
 def _forward(spec: ModelSpec, layer_params, x: torch.Tensor, compute_dtype,
-             stacked: bool) -> torch.Tensor:
+             stacked: bool, with_penalty: bool = False):
     """The layer walk: x and every parameter cast to ``compute_dtype``, the
     output cast to float32. ``stacked``: each parameter has a leading model
     axis; a vector (M, N) is viewed as (M, 1, ..., N) to broadcast against
-    x, a kernel (M, K, N) goes to :func:`_matmul` as it is."""
+    x, a kernel (M, K, N) goes to :func:`_matmul` as it is.
+    ``with_penalty``: also the summed l1 activity penalty of the Dense
+    layers that carry one (a scalar, or (M,) when ``stacked``)."""
     out = x.to(compute_dtype)
+    penalty = torch.zeros(x.shape[:1] if stacked else (), device=x.device)
     for layer, p in zip(spec.layers, layer_params):
         p = {name: value.to(compute_dtype) for name, value in p.items()}
         if stacked:
@@ -229,6 +243,8 @@ def _forward(spec: ModelSpec, layer_params, x: torch.Tensor, compute_dtype,
                  if value.dim() == 2 else value for name, value in p.items()}
         if isinstance(layer, DenseLayer):
             out = _apply_dense(layer, p, out)
+            if with_penalty and layer.l1_activity > 0.0:
+                penalty = penalty + _l1_activity(layer, out, stacked)
         elif isinstance(layer, PositionalEncoding):
             out = _apply_positional_encoding(layer, out)
         elif isinstance(layer, TransformerBlock):
@@ -237,7 +253,7 @@ def _forward(spec: ModelSpec, layer_params, x: torch.Tensor, compute_dtype,
             out = _apply_pool(layer, out)
         else:
             raise TypeError(f"Unknown layer spec: {layer!r}")
-    return out.float()
+    return (out.float(), penalty) if with_penalty else out.float()
 
 
 def stacked_forward(spec: ModelSpec, layer_params, x: torch.Tensor) -> torch.Tensor:
@@ -255,7 +271,8 @@ def stacked_forward(spec: ModelSpec, layer_params, x: torch.Tensor) -> torch.Ten
 
 class TransformerModel(nn.Module):
     """A spec of Dense / PositionalEncoding / TransformerBlock / PoolLayer
-    layers with its parameters resident on ``device``; ``forward`` is the
+    layers (a feedforward autoencoder's Dense layers alone included; the
+    name is the first family's) with its parameters resident on ``device``; ``forward`` is the
     counterpart of ``apply_model``'s output (float32). The parameters are
     float32 and trainable (ops/train.py); serving runs under
     ``torch.inference_mode``.
@@ -276,7 +293,7 @@ class TransformerModel(nn.Module):
         self.compute_dtype = COMPUTE_DTYPES[spec.compute_dtype]
         for layer in spec.layers:
             if type(layer) in NOT_PORTED:
-                raise _not_ported(layer)
+                raise not_ported(layer)
         if len(params) != len(spec.layers):
             raise ValueError(
                 f"{len(params)} parameter dicts for {len(spec.layers)} layers"
@@ -294,8 +311,16 @@ class TransformerModel(nn.Module):
         )
         self.to(device)
 
+    stacked = False
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return _forward(self.spec, self.layer_params, x, self.compute_dtype, stacked=False)
+        return _forward(self.spec, self.layer_params, x, self.compute_dtype, self.stacked)
+
+    def forward_with_penalty(self, x: torch.Tensor):
+        """``(output, penalty)``: the output and the l1 activity penalty the
+        loss adds (``apply_model``'s pair)."""
+        return _forward(self.spec, self.layer_params, x, self.compute_dtype, self.stacked,
+                        with_penalty=True)
 
     def params_numpy(self):
         """The parameters in the JAX package's layout, as numpy arrays."""
@@ -323,8 +348,7 @@ class StackedTransformerModel(TransformerModel):
     machines, at BH = M x B x heads. With M = 1 it computes what
     :class:`TransformerModel` does."""
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return stacked_forward(self.spec, self.layer_params, x)
+    stacked = True
 
     def machine_params(self, m: int):
         """Machine ``m``'s parameters in the JAX package's layout, as numpy

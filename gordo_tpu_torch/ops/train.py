@@ -6,12 +6,15 @@ The training loop: the port's counterpart of ``make_optimizer``,
 X and y go to the model's device once per fit. Each step gathers its
 (batch, lookback, features) windows on the device from the flat series:
 window i covers rows [i, i + lookback) and its target is row
-i + lookback - 1 + lookahead. An epoch runs in a fixed number of
+i + lookback - 1 + lookahead; an unwindowed model (a feedforward
+autoencoder) takes its batch's rows as they are. An epoch runs in a fixed number of
 equal-sized steps: the sample order is padded to whole batches with
 zero-weighted repeats of sample 0, as the JAX package pads its index
 stream, so the last short batch's loss and gradient are means over its
 live samples only and every step hands the attention kernels one shape.
-The per-step losses stay on the device until the epoch ends.
+The per-step losses stay on the device until the epoch ends. The l1
+activity penalty of a feedforward autoencoder's encoder layers is added to
+each step's loss over the whole padded batch, as the JAX package adds it.
 
 The fleet trainer's epoch, :func:`run_masked_epoch`, trains M machines of
 one spec at once (a ``StackedTransformerModel``): X and y carry a leading
@@ -29,7 +32,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from ..models.spec import DenseLayer, ModelSpec, OptimizerSpec
+from ..models.spec import ModelSpec, OptimizerSpec
 from .predict import n_train_samples
 
 EVAL_BATCH = 2048
@@ -198,29 +201,38 @@ def make_optimizer(spec: OptimizerSpec, params) -> torch.optim.Optimizer:
 
 def _loss_terms(spec: ModelSpec, model: torch.nn.Module, xb, yb, wb) -> torch.Tensor:
     """The loss of a batch: the per-sample loss averaged over the live
-    samples (weight 1; padding has weight 0); with stacked machines
-    (``wb`` of shape (M, B)), one such loss per machine."""
-    out = model(xb)
+    samples (weight 1; padding has weight 0), plus the l1 activity penalty,
+    which is unweighted: taken over the whole padded batch and divided by
+    its size, as the JAX package's ``_loss_terms`` adds it. With stacked
+    machines (``wb`` of shape (M, B)), one such loss per machine, each with
+    its own machine's penalty."""
+    out, penalty = model.forward_with_penalty(xb)
     if spec.loss in ("mse", "mean_squared_error"):
         per_sample = torch.mean((out - yb) ** 2, dim=-1)
     elif spec.loss in ("mae", "mean_absolute_error"):
         per_sample = torch.mean(torch.abs(out - yb), dim=-1)
     else:
         raise ValueError(f"Unknown loss {spec.loss!r}")
-    return torch.sum(per_sample * wb, dim=-1) / torch.clamp(torch.sum(wb, dim=-1), min=1.0)
+    loss = torch.sum(per_sample * wb, dim=-1) / torch.clamp(torch.sum(wb, dim=-1), min=1.0)
+    return loss + penalty
 
 
 def _gather_batch(spec: ModelSpec, X: torch.Tensor, y: torch.Tensor, idx: torch.Tensor):
     """A minibatch by sample (window-start) indices, gathered on the device.
     Stacked machines: X (M, rows, D), y (M, rows, D_out) and idx (M, B),
     machine m's batch from machine m's rows."""
+    unwindowed = spec.lookback_window <= 1 and spec.lookahead == 0
+    if X.dim() == 3:
+        m = torch.arange(len(X), device=X.device)[:, None]
+        if unwindowed:
+            return X[m, idx], y[m, idx]  # (M, B, D)
+        window = torch.arange(spec.lookback_window, device=X.device)
+        target = idx + spec.lookback_window - 1 + spec.lookahead
+        return X[m[..., None], idx[..., None] + window], y[m, target]  # (M, B, L, D)
+    if unwindowed:
+        return X[idx], y[idx]
     window = torch.arange(spec.lookback_window, device=X.device)
     target = idx + spec.lookback_window - 1 + spec.lookahead
-    if X.dim() == 3:  # the fleet's estimators are all windowed
-        m = torch.arange(len(X), device=X.device)[:, None]
-        return X[m[..., None], idx[..., None] + window], y[m, target]  # (M, B, L, D)
-    if spec.lookback_window <= 1 and spec.lookahead == 0:
-        return X[idx], y[idx]
     return X[idx[:, None] + window[None, :]], y[target]  # (B, L, D)
 
 
@@ -304,17 +316,19 @@ def run_masked_epoch(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
 
 def evaluate_loss(model: torch.nn.Module, X: torch.Tensor, y: torch.Tensor,
                   batch_size: int = EVAL_BATCH) -> float:
-    """The loss over every sample of (X, y), in batches of ``batch_size``,
-    without gradients."""
+    """The loss over every sample of (X, y), in batches of ``batch_size``
+    without gradients, the last batch padded with zero-weighted repeats of
+    sample 0, as the JAX package pads it (the activity penalty is taken
+    over the padded batch)."""
     spec = model.spec
     n = n_train_samples(spec, len(X))
     loss_sum = torch.zeros((), device=X.device)
     with torch.no_grad():
         for start in range(0, n, batch_size):
-            idx = torch.arange(start, min(start + batch_size, n), device=X.device)
+            idx, wb = _padded_stream(
+                torch.arange(start, min(start + batch_size, n), device=X.device), batch_size)
             xb, yb = _gather_batch(spec, X, y, idx)
-            wb = torch.ones(len(idx), device=X.device)
-            loss_sum += _loss_terms(spec, model, xb, yb, wb) * len(idx)
+            loss_sum += _loss_terms(spec, model, xb, yb, wb) * wb.sum()
     return float(loss_sum / max(n, 1))
 
 
@@ -341,12 +355,6 @@ def fit_arrays(
     held out) and EarlyStopping-style callbacks. Each shuffled epoch's order
     is ``torch.randperm`` on ``generator`` (a CPU generator)."""
     spec: ModelSpec = model.spec
-    for layer in spec.layers:
-        if isinstance(layer, DenseLayer) and layer.l1_activity > 0.0:
-            raise NotImplementedError(
-                "the l1 activity penalty is not ported yet: see the feedforward "
-                "autoencoder item of ROADMAP.md queue A"
-            )
     device = next(model.parameters()).device
     X = torch.as_tensor(np.asarray(X, np.float32), device=device)
     y = torch.as_tensor(np.asarray(y, np.float32), device=device)

@@ -8,8 +8,11 @@ stacked program on the card (``run_bucket``): per stage, the CV folds and
 then the full fit, the inputs are min-max scaled over the stage's train
 rows, every machine's parameters are initialised, the epochs run through
 one ``StackedTransformerModel`` (so each Transformer block launches the
-flash kernels once for the whole bucket, at BH = machines x batch x heads),
-and the folds' models predict their test slices in chunks of windows. On
+flash kernels once for the whole bucket, at BH = machines x batch x heads,
+and each Dense layer of a feedforward autoencoder is one batched product
+over the bucket), and the folds' models predict their test slices.
+Machines bucket by spec, so a config mixing families trains each family's
+machines apart. On
 the host each machine then gets the serial detector's thresholds, the CV
 scores and split metadata in its ``BuildMetadata``, and is written and
 registered as soon as its chunk of machines is done, so a resumed build
@@ -25,9 +28,10 @@ come from ``torch.Generator``s seeded by ``_machine_seed``, the stage and
 the epoch (``draw_inputs``): the JAX package's PRNG streams cannot be
 reproduced, so ``run_bucket`` takes them as arguments and the tests hand it
 the JAX program's own draws. Not ported yet (ROADMAP.md queue A): the
-elastic scheduler and multi-host fleets, warm starts, KFold and the KFCV
-detector, the retry ladder and fault injection, the drift queue, and the
-telemetry spans and metrics.
+elastic scheduler and multi-host fleets, warm starts, the KFCV plans (a
+KFCV machine goes to the serial builder, which gives the same artifact),
+the retry ladder and fault injection, the drift queue, and the telemetry
+spans and metrics.
 """
 
 import dataclasses
@@ -51,12 +55,12 @@ from ..machine.metadata import (
 )
 from ..models.anomaly.diff import DiffBasedAnomalyDetector, TimeSeriesSplit
 from ..models.base import extract_metadata
-from ..models.models import _FIT_KWARGS, WindowedSequenceEstimator
+from ..models.models import _FIT_KWARGS, BaseEstimator
 from ..models.scaler import MinMaxScaler, Pipeline
 from ..models.spec import ModelSpec, TransformerBlock
 from ..models.utils import Frame, index_label
 from ..ops.nn import StackedTransformerModel, init_model_params, stack_params
-from ..ops.predict import n_train_samples
+from ..ops.predict import n_train_samples, unfold_windows
 from ..ops.train import make_optimizer, run_masked_epoch
 from ..util import disk_registry
 
@@ -153,7 +157,7 @@ def _plan_machine(machine: Machine) -> Optional[_Plan]:
             inner = steps[0]
         else:
             return None
-    if not isinstance(inner, WindowedSequenceEstimator):
+    if not isinstance(inner, BaseEstimator):
         return None
     n_splits = 3
     if evaluation.get("cv") is not None:
@@ -266,18 +270,18 @@ def _minmax(X: torch.Tensor, train_rows: int) -> torch.Tensor:
 
 def predict_windows(model: StackedTransformerModel, X: torch.Tensor) -> np.ndarray:
     """The stacked model's output over each machine's windows of X (M, rows,
-    D), in chunks of PREDICT_WINDOWS machine-windows a launch."""
+    D): a windowed model's in chunks of PREDICT_WINDOWS machine-windows a
+    launch, an unwindowed one's (a few kilobytes a row) in one launch."""
     spec = model.spec
     M, n_rows = X.shape[:2]
-    n_out = n_rows - spec.lookback_window + 1 - spec.lookahead
-    chunk = max(PREDICT_WINDOWS // M, 1)
+    n_out = n_train_samples(spec, n_rows)
+    chunk = max(PREDICT_WINDOWS // M, 1) if spec.output_offset else n_out
     outs = []
     with torch.inference_mode():
         for start in range(0, n_out, chunk):
             stop = min(start + chunk, n_out)
             rows = X[:, start:stop + spec.lookback_window - 1]
-            xb = rows.unfold(1, spec.lookback_window, 1).transpose(2, 3)  # (M, W, L, D)
-            outs.append(model(xb).cpu())
+            outs.append(model(unfold_windows(spec, rows, stop - start)).cpu())
     return torch.cat(outs, dim=1).numpy()
 
 

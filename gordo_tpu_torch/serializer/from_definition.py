@@ -3,9 +3,9 @@ Definitions to live objects: the port's counterpart of
 ``gordo_tpu/serializer/from_definition.py``, with the same rules.
 
 A definition is a dict with one path key mapping to the keyword arguments,
-or a bare path. ``Pipeline`` steps recurse (named ``step_0``, ``step_1``,
-...); a class with a ``from_definition`` classmethod gets the raw
-arguments; string arguments that name a function become that function;
+or a bare path. ``Pipeline`` steps and ``FeatureUnion`` transformers
+recurse (named ``step_0``, ``step_1``, ...); a class with a
+``from_definition`` classmethod gets the raw arguments; string arguments that name a function become that function;
 arguments that are themselves definitions are built. Paths resolve from
 the port's table (resolver.py). ``device`` goes to every estimator built,
 as the device it trains and predicts on.
@@ -14,7 +14,7 @@ as the device it trains and predicts on.
 import copy
 from typing import Any, Dict, Iterable, Union
 
-from ..models.scaler import Pipeline
+from ..models.scaler import FeatureUnion, Pipeline
 from .resolver import locate
 
 
@@ -49,8 +49,11 @@ def _build_step(step, device):
             for param, value in params.items():
                 if isinstance(value, str) and callable(locate(value)):
                     params[param] = locate(value)
-        if StepClass is Pipeline:
-            if isinstance(params, dict) and "steps" in params:
+        if StepClass in (FeatureUnion, Pipeline):
+            if isinstance(params, dict) and "transformer_list" in params:
+                params["transformer_list"] = _build_scikit_branch(params["transformer_list"],
+                                                                  device)
+            elif isinstance(params, dict) and "steps" in params:
                 params["steps"] = _build_scikit_branch(params["steps"], device)
             elif isinstance(params, (tuple, list)):
                 return StepClass(_build_scikit_branch(params, device))

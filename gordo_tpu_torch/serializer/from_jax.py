@@ -5,9 +5,11 @@ Carry a model across from the JAX package, numpy in.
 pickle (``BaseJaxEstimator.__getstate__``: a list with one
 ``{"kernel", "bias", "wq", ...}`` dict of numpy arrays per layer);
 ``spec_from_dataclass`` reads a spec dataclass with the JAX package's
-field names; ``detector_from_arrays`` builds a port detector from the
-scaler arrays and thresholds. Nothing here imports the JAX package:
-unpickling a JAX artifact is the caller's job.
+field names; ``estimator_from_arrays`` builds a port estimator of any
+family (a Transformer, or the Dense layers of an ``AutoEncoder`` or a
+``RawModelRegressor``) on those parameters, and ``detector_from_arrays`` a
+port detector from them and the scaler arrays and thresholds. Nothing here
+imports the JAX package: unpickling a JAX artifact is the caller's job.
 """
 
 from typing import Dict, List, Optional, Sequence
@@ -16,7 +18,7 @@ import numpy as np
 import torch
 
 from ..models.anomaly.diff import DiffBasedAnomalyDetector
-from ..models.models import ESTIMATORS
+from ..models.models import ESTIMATORS, BaseEstimator, WindowedSequenceEstimator
 from ..models.scaler import MinMaxScaler, Pipeline
 from ..models.spec import ModelSpec, spec_from_dict, spec_to_dict
 
@@ -39,6 +41,20 @@ def params_from_numpy(spec: ModelSpec, layers: Sequence[Dict[str, np.ndarray]]
     ]
 
 
+def estimator_from_arrays(spec: ModelSpec, layers: Sequence[Dict[str, np.ndarray]],
+                          estimator: str = "TransformerAutoEncoder",
+                          kind="transformer_model", estimator_kwargs: Optional[dict] = None,
+                          device=None) -> BaseEstimator:
+    """A port estimator of class ``estimator`` (by name) with these
+    parameters for ``spec`` on ``device``; a windowed one takes the spec's
+    lookback window unless ``estimator_kwargs`` names one."""
+    cls = ESTIMATORS[estimator]
+    kwargs = dict(estimator_kwargs or {})
+    if issubclass(cls, WindowedSequenceEstimator):
+        kwargs.setdefault("lookback_window", spec.lookback_window)
+    return cls(kind, **kwargs).load_params(spec, params_from_numpy(spec, layers), device)
+
+
 def detector_from_arrays(
     spec: ModelSpec,
     layers: Sequence[Dict[str, np.ndarray]],
@@ -47,7 +63,7 @@ def detector_from_arrays(
     output_min: np.ndarray,
     output_scale: np.ndarray,
     estimator: str = "TransformerAutoEncoder",
-    kind: str = "transformer_model",
+    kind="transformer_model",
     estimator_kwargs: Optional[dict] = None,
     feature_thresholds: Optional[np.ndarray] = None,
     aggregate_threshold: Optional[float] = None,
@@ -60,10 +76,7 @@ def detector_from_arrays(
     estimator]`` computing what the JAX detector with these arrays
     computes. ``input_*`` are the pipeline scaler's ``min_``/``scale_``,
     ``output_*`` the detector scaler's."""
-    kwargs = dict(estimator_kwargs or {})
-    kwargs.setdefault("lookback_window", spec.lookback_window)
-    model = ESTIMATORS[estimator](kind, **kwargs)
-    model.load_params(spec, params_from_numpy(spec, layers), device)
+    model = estimator_from_arrays(spec, layers, estimator, kind, estimator_kwargs, device)
     return DiffBasedAnomalyDetector(
         base_estimator=Pipeline([
             ("scaler", MinMaxScaler(input_min, input_scale)),

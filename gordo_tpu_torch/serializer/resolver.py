@@ -17,10 +17,19 @@ them from a table of what it has ported; nothing is imported by path.
 from typing import Any, Optional
 
 from ..models import base
-from ..models.anomaly.diff import DiffBasedAnomalyDetector, TimeSeriesSplit
+from ..models.anomaly.diff import (
+    DiffBasedAnomalyDetector, DiffBasedKFCVAnomalyDetector, KFold, TimeSeriesSplit,
+)
 from ..models.callbacks import EarlyStopping
-from ..models.models import TransformerAutoEncoder, TransformerForecast
-from ..models.scaler import MinMaxScaler, Pipeline
+from ..models.models import (
+    AutoEncoder, RawModelRegressor, TransformerAutoEncoder, TransformerForecast,
+)
+from ..models.scaler import (
+    PCA, FeatureUnion, FunctionTransformer, MinMaxScaler, Pipeline, RobustScaler,
+    StandardScaler,
+)
+from ..models.transformer_funcs.general import multiply_by
+from ..models.transformers.imputer import InfImputer
 
 # Reference-path compatibility aliases, as the JAX package has them: old
 # gordo import paths to the JAX package's
@@ -64,15 +73,24 @@ SHORT_ALIASES = {
 # what the port has: the path the JAX package's into_definition writes
 # first, then the other paths that reach the same object
 _PORTED = (
-    (TransformerAutoEncoder, ("gordo_tpu.models.models.TransformerAutoEncoder",)),
-    (TransformerForecast, ("gordo_tpu.models.models.TransformerForecast",)),
-    (DiffBasedAnomalyDetector, ("gordo_tpu.models.anomaly.diff.DiffBasedAnomalyDetector",)),
+    *((cls, (f"gordo_tpu.models.models.{cls.__name__}",))
+      for cls in (AutoEncoder, RawModelRegressor, TransformerAutoEncoder, TransformerForecast)),
+    *((cls, (f"gordo_tpu.models.anomaly.diff.{cls.__name__}",))
+      for cls in (DiffBasedAnomalyDetector, DiffBasedKFCVAnomalyDetector)),
+    (InfImputer, ("gordo_tpu.models.transformers.imputer.InfImputer",)),
+    (multiply_by, ("gordo_tpu.models.transformer_funcs.general.multiply_by",)),
     (EarlyStopping, ("gordo_tpu.models.callbacks.EarlyStopping",)),
     (Pipeline, ("sklearn.pipeline.Pipeline",)),
-    (MinMaxScaler, ("sklearn.preprocessing._data.MinMaxScaler",
-                    "sklearn.preprocessing.MinMaxScaler")),
-    (TimeSeriesSplit, ("sklearn.model_selection._split.TimeSeriesSplit",
-                       "sklearn.model_selection.TimeSeriesSplit")),
+    (FeatureUnion, ("sklearn.pipeline.FeatureUnion",)),
+    *((cls, (f"sklearn.preprocessing._data.{cls.__name__}",
+             f"sklearn.preprocessing.{cls.__name__}"))
+      for cls in (MinMaxScaler, StandardScaler, RobustScaler)),
+    (FunctionTransformer, ("sklearn.preprocessing._function_transformer.FunctionTransformer",
+                           "sklearn.preprocessing.FunctionTransformer")),
+    (PCA, ("sklearn.decomposition._pca.PCA", "sklearn.decomposition.PCA")),
+    *((cls, (f"sklearn.model_selection._split.{cls.__name__}",
+             f"sklearn.model_selection.{cls.__name__}"))
+      for cls in (TimeSeriesSplit, KFold)),
     *((getattr(base, name), (f"sklearn.metrics._regression.{name}", f"sklearn.metrics.{name}"))
       for name in ("explained_variance_score", "r2_score", "mean_squared_error",
                    "mean_absolute_error")),

@@ -1,15 +1,23 @@
 """
 The port's artifact: one directory per model holding
 
-- ``model.json``: the estimator class, the spec, the input scaler, the
-  training history, the detector's fields and thresholds (final and per
-  cross-validation fold), and the tags;
+- ``model.json``: the detector's class, fields and thresholds (final and
+  per cross-validation fold), the pipeline's transform steps (each by its
+  definition path, its constructor arguments and its fitted attributes; a
+  ``FeatureUnion`` with its transformers), the estimator class, kind,
+  arguments and spec, the training history, and the tags;
 - ``params.npz``: the parameters, keyed ``"{layer}/{name}"``;
 - ``metadata.json``: the build metadata (a machine's ``to_dict``) that the
   server returns and reads the dataset's resolution from, with the model's
   own metadata (thresholds per fold, training history) at
   ``metadata.build_metadata.model.model_meta``, where the JAX
   ``ModelBuilder`` puts it.
+
+``dump`` writes any detector of the port (``DiffBasedAnomalyDetector`` or
+``DiffBasedKFCVAnomalyDetector``) over a ``Pipeline`` of ported steps
+ending in a ported estimator, or over the bare estimator. ``load`` reads
+that layout (``FORMAT``) and the one written before it (``FORMAT_V1``: a
+detector over ``Pipeline[MinMaxScaler, estimator]``).
 
 Every file is written atomically (a unique temp file, then a rename), as
 ``gordo_tpu/serializer/serializer.py`` writes its artifact. :func:`dumps`
@@ -27,13 +35,19 @@ from typing import Any, Dict, List, Optional
 
 import numpy as np
 
-from ..models.anomaly.diff import DiffBasedAnomalyDetector
+from ..models.anomaly.diff import DiffBasedAnomalyDetector, DiffBasedKFCVAnomalyDetector
 from ..models.base import extract_metadata
 from ..models.models import ESTIMATORS
-from ..models.scaler import MinMaxScaler, Pipeline
+from ..models.scaler import FeatureUnion, MinMaxScaler, Pipeline
 from ..models.spec import spec_from_dict, spec_to_dict
+from .from_definition import from_definition
+from .into_definition import load_definition_from_params
+from .resolver import definition_path
 
-FORMAT = "gordo_tpu_torch/1"
+FORMAT = "gordo_tpu_torch/2"
+FORMAT_V1 = "gordo_tpu_torch/1"
+DETECTORS = {cls.__name__: cls
+             for cls in (DiffBasedAnomalyDetector, DiffBasedKFCVAnomalyDetector)}
 ARTIFACT_FILES = ("model.json", "params.npz", "metadata.json")
 
 
@@ -56,14 +70,9 @@ def _atomic_write(final: str, data: bytes) -> None:
         raise
 
 
-def _scaler_dict(scaler: MinMaxScaler) -> Dict[str, Any]:
-    return {"min_": scaler.min_.tolist(), "scale_": scaler.scale_.tolist(),
-            "feature_range": list(scaler.feature_range), "clip": scaler.clip}
-
-
 def _scaler(fields: Dict[str, Any]) -> MinMaxScaler:
-    """Inverse of :func:`_scaler_dict`; JSON keeps no tuples, and the
-    default ``feature_range`` is one."""
+    """A ``FORMAT_V1`` scaler; JSON keeps no tuples, and the default
+    ``feature_range`` is one."""
     return MinMaxScaler(**dict(fields, feature_range=tuple(fields["feature_range"])))
 
 
@@ -89,37 +98,78 @@ _CV_ATTRIBUTES = (
 )
 
 
+def _step_record(name: str, step) -> Dict[str, Any]:
+    """A transform step as its definition path, constructor arguments and
+    fitted attributes; a feature union with its transformers' records; a
+    ``"passthrough"`` (or None) placeholder as it is."""
+    if step is None or isinstance(step, str):
+        return {"name": name, "placeholder": step}
+    params = step.get_params(deep=False)
+    record: Dict[str, Any] = {"name": name, "path": definition_path(type(step))}
+    if isinstance(step, FeatureUnion):
+        record["transformers"] = [_step_record(*pair) for pair in params.pop("transformer_list")]
+    record["params"] = load_definition_from_params(params)
+    record["fitted"] = {attr: _listed(getattr(step, attr))
+                        for attr in step.fitted_attributes if hasattr(step, attr)}
+    return record
+
+
+def _step(record: Dict[str, Any]):
+    """Inverse of :func:`_step_record`. JSON keeps no tuples: a list of
+    numbers among the arguments (a ``feature_range``) is read as one."""
+    if "path" not in record:
+        return record["placeholder"]
+    params = {key: tuple(value) if isinstance(value, list) and all(
+                  isinstance(v, (int, float)) for v in value) else value
+              for key, value in record["params"].items()}
+    if "transformers" in record:
+        step = FeatureUnion([(r["name"], _step(r)) for r in record["transformers"]], **params)
+    else:
+        step = from_definition({record["path"]: params})
+    for attr, value in record["fitted"].items():
+        setattr(step, attr, _arrays(value))
+    return step
+
+
 def dump(detector: DiffBasedAnomalyDetector, dest_dir: str, tags: List[str],
          target_tags: Optional[List[str]] = None, metadata: Optional[dict] = None):
-    """Write ``detector`` (a DiffBasedAnomalyDetector over
-    ``Pipeline[MinMaxScaler, estimator]``) into ``dest_dir``."""
-    if not isinstance(detector, DiffBasedAnomalyDetector):
+    """Write ``detector`` (a detector of :data:`DETECTORS` over a
+    ``Pipeline`` of ported transform steps ending in a ported estimator, or
+    over that estimator alone) into ``dest_dir``."""
+    if type(detector).__name__ not in DETECTORS:
         raise TypeError(
-            f"the port's artifact holds a DiffBasedAnomalyDetector over "
-            f"Pipeline[MinMaxScaler, estimator], not a {type(detector).__name__}"
+            f"the port's artifact holds a DiffBasedAnomalyDetector or a "
+            f"DiffBasedKFCVAnomalyDetector, not a {type(detector).__name__}"
         )
+    base = detector.base_estimator
+    steps = base.steps[:-1] if isinstance(base, Pipeline) else None
+    estimator = base.steps[-1][1] if isinstance(base, Pipeline) else base
+    if type(estimator).__name__ not in ESTIMATORS:
+        raise TypeError(f"the pipeline ends in a {type(estimator).__name__}, not an "
+                        f"estimator of the port")
     os.makedirs(dest_dir, exist_ok=True)
-    (_, input_scaler), (_, estimator) = detector.base_estimator.steps
+    fields = {
+        "class": type(detector).__name__,
+        "scaler": _step_record("scaler", detector.scaler),
+        "require_thresholds": detector.require_thresholds,
+        "window": detector.window,
+        "smoothing_method": detector.smoothing_method,
+        "feature_thresholds": _listed(detector.feature_thresholds_),
+        "aggregate_threshold": detector.aggregate_threshold_,
+        "shuffle": detector.shuffle,
+        **{name: _listed(getattr(detector, name)) for name in _CV_ATTRIBUTES},
+    }
+    if isinstance(detector, DiffBasedKFCVAnomalyDetector):
+        fields["threshold_percentile"] = detector.threshold_percentile
     model = {
         "format": FORMAT,
+        "detector": fields,
+        "steps": None if steps is None else [_step_record(*pair) for pair in steps],
+        "estimator_name": base.steps[-1][0] if steps is not None else None,
         "estimator": type(estimator).__name__,
         "kind": estimator.kind,
         "kwargs": estimator.kwargs,
         "spec": spec_to_dict(estimator.spec_),
-        "input_scaler": _scaler_dict(input_scaler),
-        "detector": {
-            "scaler": _scaler_dict(detector.scaler),
-            "require_thresholds": detector.require_thresholds,
-            "window": detector.window,
-            "smoothing_method": detector.smoothing_method,
-            "feature_thresholds": (
-                None if detector.feature_thresholds_ is None
-                else detector.feature_thresholds_.tolist()
-            ),
-            "aggregate_threshold": detector.aggregate_threshold_,
-            "shuffle": detector.shuffle,
-            **{name: _listed(getattr(detector, name)) for name in _CV_ATTRIBUTES},
-        },
         "history": estimator.history,
         "tags": list(tags),
         "target_tags": list(target_tags if target_tags is not None else tags),
@@ -153,11 +203,12 @@ def load_params(path: str, n_layers: int) -> List[Dict[str, np.ndarray]]:
 
 
 def load(source_dir: str, device=None) -> DiffBasedAnomalyDetector:
-    """Read an artifact written by :func:`dump`, with the model's
-    parameters placed on ``device`` (``cuda`` unless ``"cpu"``)."""
+    """Read an artifact written by :func:`dump` (or in ``FORMAT_V1``), with
+    the model's parameters placed on ``device`` (``cuda`` unless
+    ``"cpu"``)."""
     with open(os.path.join(source_dir, "model.json")) as f:
         model = json.load(f)
-    if model.get("format") != FORMAT:
+    if model.get("format") not in (FORMAT, FORMAT_V1):
         raise ValueError(f"{source_dir} is not a {FORMAT} artifact")
     spec = spec_from_dict(model["spec"])
     estimator = ESTIMATORS[model["estimator"]](model["kind"], **model["kwargs"])
@@ -167,18 +218,27 @@ def load(source_dir: str, device=None) -> DiffBasedAnomalyDetector:
     )
     estimator.history = model.get("history")
     det = model["detector"]
-    detector = DiffBasedAnomalyDetector(
-        base_estimator=Pipeline([
-            ("scaler", _scaler(model["input_scaler"])),
-            ("estimator", estimator),
-        ]),
-        scaler=_scaler(det["scaler"]),
+    if model["format"] == FORMAT_V1:
+        base = Pipeline([("scaler", _scaler(model["input_scaler"])), ("estimator", estimator)])
+        scaler, cls, extra = _scaler(det["scaler"]), DiffBasedAnomalyDetector, {}
+    else:
+        base = estimator
+        if model["steps"] is not None:
+            base = Pipeline([(r["name"], _step(r)) for r in model["steps"]]
+                            + [(model["estimator_name"], estimator)])
+        scaler, cls = _step(det["scaler"]), DETECTORS[det["class"]]
+        extra = ({"threshold_percentile": det["threshold_percentile"]}
+                 if "threshold_percentile" in det else {})
+    detector = cls(
+        base_estimator=base,
+        scaler=scaler,
         require_thresholds=det["require_thresholds"],
         shuffle=det.get("shuffle", False),
         window=det["window"],
         smoothing_method=det["smoothing_method"],
         feature_thresholds=det["feature_thresholds"],
         aggregate_threshold=det["aggregate_threshold"],
+        **extra,
     )
     for name in _CV_ATTRIBUTES:
         setattr(detector, name, _arrays(det.get(name)))

@@ -14,8 +14,9 @@ whole group, at BH = (windows summed over the group) x heads.
   against batched submits under thread load (``GORDO_TPU_BATCH_AB_USERS``,
   ``_ROUNDS``, ``_HOSTWORK_MS``), and stands down for the spec where
   batching loses; ``1`` forces batching on; anything else is off.
-  ``WindowedSequenceEstimator.predict`` goes through :func:`maybe_submit`,
-  which returns None (predict direct) when batching is off or stood down.
+  Every estimator's ``predict`` (models/models.py) goes through
+  :func:`maybe_submit`, which returns None (predict direct) when batching
+  is off or stood down.
 - Scheduling is work-conserving: the dispatcher (a thread named
   ``gordo-batcher``) fuses whatever requests piled up while the previous
   call ran, at most ``GORDO_TPU_BATCH_MAX`` (64) of them;
@@ -51,8 +52,8 @@ Not ported here: the telemetry spans and metric catalog (ROADMAP.md queue
 A8), the resilience request scope, deadlines, breakers and output check
 (A9), the fault sites (A10), and ``load_shipped``/``prelower`` with the
 AOT programs they install (A10). The counters are plain attributes:
-``stats``, ``calls`` and each bank's ``generation``, ``restacks`` and
-``evictions``.
+``stats``, ``calls``, ``spec_calls`` (fused calls by spec) and each bank's
+``generation``, ``restacks`` and ``evictions``.
 """
 
 import contextlib
@@ -389,9 +390,12 @@ class CrossModelBatcher:
         self._stack_buffers: Dict[Tuple, list] = {}
         self.stats = {"items": 0, "device_calls": 0, "largest_batch": 0,
                       "pipeline_overlaps": 0, "bisections": 0, "serial_rescues": 0,
-                      "abandoned": 0, "windows": 0}
+                      "abandoned": 0, "windows": 0, "mixed_spec_calls": 0}
         # (fuse width, windows) of the latest fused calls
         self.calls: "deque[Tuple[int, int]]" = deque(maxlen=4096)
+        # fused calls by spec; a call whose items span more than one spec
+        # (which the grouping never makes) counts in "mixed_spec_calls"
+        self.spec_calls: Dict[Any, int] = {}
         self._pipeline = device_pipeline_enabled()
 
     # ------------------------------------------------------------- public
@@ -777,6 +781,9 @@ class CrossModelBatcher:
         self.stats["windows"] += call.windows
         self.stats["largest_batch"] = max(self.stats["largest_batch"], n)
         self.calls.append((n, call.windows))
+        self.spec_calls[call.spec] = self.spec_calls.get(call.spec, 0) + 1
+        if any(item.spec != call.spec for item in call.items):
+            self.stats["mixed_spec_calls"] += 1
         for i, item in enumerate(call.items):
             item.result = out[i, : item.n_keep]
             item.done.set()

@@ -5,9 +5,12 @@ of ``base_prediction_core``, ``anomaly_prediction_core``, ``model_list``,
 ``revision_list`` and ``download_model`` in ``gordo_tpu/server/views.py``
 with the frame helpers of ``gordo_tpu/server/utils.py``.
 
-Request frames arrive as ``{tag: {iso_timestamp: value}}`` dicts or as
-plain 2-D lists; timestamps are parsed with
-``datetime.fromisoformat`` and rows sorted by time. Columns are checked as
+Request frames arrive as ``{tag: {iso_timestamp: value}}`` dicts, or in
+the other layouts ``pd.DataFrame(data)`` reads: plain 2-D lists, column
+dicts of lists (``{tag: [value, ...]}``) and lists of records
+(``[{tag: value}, ...]``), the last three with row numbers for an index;
+timestamps are parsed with ``datetime.fromisoformat`` and rows sorted by
+time. Columns are checked as
 ``verify_dataframe`` checks them. The response is
 ``{"data": ..., "time-seconds": "..."}`` (the server adds ``revision``),
 with the ``smooth-*`` blocks dropped unless ``all_columns`` is given.
@@ -19,13 +22,14 @@ and its response's ``"data"`` is rendered by the template encoder
 byte, and every other body or frame takes the dict path.
 """
 
+import contextlib
 import json
 import logging
 import math
 import os
 import timeit
 from datetime import datetime
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -44,8 +48,24 @@ DELETED_FROM_RESPONSE_COLUMNS = (
 )
 
 
+PARQUET_REFUSAL = ("format=parquet is not supported by this server: it needs pyarrow, "
+                   "which is not installed; ask for JSON (no format argument)")
+
+
 class BadDataFrame(ValueError):
     """A request payload that cannot be coerced to the expected shape."""
+
+
+@contextlib.contextmanager
+def _phase(timings: Optional[Dict[str, float]], name: str):
+    """Time one request phase into ``timings`` (the Server-Timing header's
+    entries), also when it raises."""
+    started = timeit.default_timer()
+    try:
+        yield
+    finally:
+        if timings is not None:
+            timings[name] = timings.get(name, 0.0) + timeit.default_timer() - started
 
 
 def _parse_index(labels: list) -> list:
@@ -70,6 +90,18 @@ def decode_frame(data) -> Frame:
             labels.update(dict.fromkeys(column))
         labels = list(labels)
         values = [[_float(data[c].get(label)) for c in columns] for label in labels]
+    elif isinstance(data, dict) and all(isinstance(v, list) for v in data.values()):
+        # {tag: [value, ...]}, the lists of one length
+        if len({len(v) for v in data.values()}) > 1:
+            raise BadDataFrame("All arrays must be of the same length")
+        columns = list(data)
+        labels = list(range(len(next(iter(data.values()), []))))
+        values = [[_float(column[i]) for column in data.values()] for i in labels]
+    elif isinstance(data, list) and data and all(isinstance(row, dict) for row in data):
+        # records: the columns in the order of their first appearance
+        columns = list(dict.fromkeys(key for row in data for key in row))
+        labels = list(range(len(data)))
+        values = [[_float(row.get(c)) for c in columns] for row in data]
     elif isinstance(data, list) and all(isinstance(row, list) for row in data):
         width = len(data[0]) if data else 0
         if any(len(row) != width for row in data):
@@ -114,11 +146,14 @@ def extract_X_y(payload, tags: List[str], target_tags: List[str]
     return X, y
 
 
-def decode_request(body: bytes, tags: List[str], target_tags: List[str], fast: bool
-                   ) -> Tuple[Frame, Optional[Frame]]:
+def decode_request(body: Optional[bytes], tags: List[str], target_tags: List[str],
+                   fast: bool) -> Tuple[Frame, Optional[Frame]]:
     """``(X, y)`` of a request body, checked against the tags: parsed
     natively when ``fast`` and the strict grammar takes the body, else by
-    ``json`` and :func:`extract_X_y` (a body that is not JSON has no X)."""
+    ``json`` and :func:`extract_X_y` (a body that is not JSON, or was not
+    sent as JSON, ``body`` None, has no X)."""
+    if body is None:
+        raise BadDataFrame('Cannot predict without "X"')
     if fast:
         parsed = fast_codec.decode_body_xy(body)
         if parsed is not None:
@@ -171,21 +206,25 @@ def response_bytes(body: dict, fast: bool) -> bytes:
     return json_text({"data": raw.to_dict(), **rest}).encode()
 
 
-def anomaly_prediction_core(model, body: bytes, tags: List[str], target_tags: List[str],
-                            frequency, all_columns: bool, fast: bool = False
+def anomaly_prediction_core(model, body: Optional[bytes], tags: List[str],
+                            target_tags: List[str], frequency, all_columns: bool,
+                            fast: bool = False, timings: Optional[Dict[str, float]] = None
                             ) -> Tuple[int, dict]:
-    """``(status, body)`` of one anomaly request (its body's bytes) against
-    ``model`` (a DiffBasedAnomalyDetector), the frame unencoded in
-    ``"data"``; ``fast`` parses the body natively where it can."""
+    """``(status, body)`` of one anomaly request (its body's bytes, None
+    when it was not sent as JSON) against ``model`` (a detector), the frame
+    unencoded in ``"data"``; ``fast`` parses the body natively where it
+    can. The decode and predict phases are timed into ``timings``."""
     start_time = timeit.default_timer()
     try:
-        X, y = decode_request(body, tags, target_tags, fast)
+        with _phase(timings, "decode"):
+            X, y = decode_request(body, tags, target_tags, fast)
     except ValueError as exc:
         return 400, {"message": str(exc)}
     if y is None:
         return 400, {"message": "Cannot perform anomaly detection without 'y'"}
     try:
-        frame = model.anomaly_raw(X, y, frequency=frequency)
+        with _phase(timings, "predict"):
+            frame = model.anomaly_raw(X, y, frequency=frequency)
     except AttributeError as exc:
         return 422, {"message": f"Model is not complete; cannot compute anomalies: {exc}"}
     if not all_columns:
@@ -197,19 +236,23 @@ def anomaly_prediction_core(model, body: bytes, tags: List[str], target_tags: Li
     }
 
 
-def base_prediction_core(model, body: bytes, tags: List[str], target_tags: List[str],
-                         frequency, fast: bool = False) -> Tuple[int, dict]:
+def base_prediction_core(model, body: Optional[bytes], tags: List[str],
+                         target_tags: List[str], frequency, fast: bool = False,
+                         timings: Optional[Dict[str, float]] = None) -> Tuple[int, dict]:
     """``(status, body)`` of one base request against ``model``: the
     ``model-input`` and ``model-output`` blocks, unencoded in ``"data"``. A
     ValueError of the predict is answered 400 with its message, any other
-    error 400 with a generic one, as the JAX package answers them."""
+    error 400 with a generic one, as the JAX package answers them. The
+    decode and predict phases are timed into ``timings``."""
     try:
-        X, _ = decode_request(body, tags, target_tags, fast)
+        with _phase(timings, "decode"):
+            X, _ = decode_request(body, tags, target_tags, fast)
     except ValueError as exc:
         return 400, {"message": str(exc)}
     start = timeit.default_timer()
     try:
-        output = get_model_output(model, X)
+        with _phase(timings, "predict"):
+            output = get_model_output(model, X)
     except ValueError as err:
         logger.error("Failed to predict: %s", err, exc_info=True)
         return 400, {"error": f"ValueError: {err}"}

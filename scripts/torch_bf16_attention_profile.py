@@ -12,7 +12,8 @@ profiler's kernel times do not. Compared, on inputs made from
 
 - ``backward``, at the training shape (BH 128 x T 512 x dh 64, causal):
   the port's dQ and dK/dV launches against SDPA's backward through
-  autograd, the inputs given to SDPA as (1, BH, T, dh);
+  autograd, the inputs given to SDPA as (1, BH, T, dh), and against the
+  kernels' plain twin (``flash_attention_backward_plain``: dQ, dK and dV);
 - ``backward_serve``, the same at the serving shape's size (BH 4,096),
   where the launch cost no longer hides the card's time;
 - ``forward``, at the serving shape (BH 4,096): the port's forward against
@@ -67,8 +68,8 @@ def main(rounds: int) -> int:
     g = torch.Generator(device="cuda").manual_seed(chip_smoke.SEED)
 
     def backward_sides(shape):
-        """The port's dQ and dK/dV launches and SDPA's backward through
-        autograd, on the same inputs of ``shape``."""
+        """The port's dQ and dK/dV launches, SDPA's backward through
+        autograd and the plain twin, on the same inputs of ``shape``."""
         q, k, v, do = (torch.randn(shape, device="cuda", generator=g).bfloat16()
                        for _ in range(4))
         out, lse = fa.flash_attention_forward(q, k, v, True)
@@ -82,7 +83,8 @@ def main(rounds: int) -> int:
 
         return {"port": port_backward,
                 "sdpa": lambda: torch.autograd.grad(sdpa_out, leaves, sdpa_grad,
-                                                    retain_graph=True)}
+                                                    retain_graph=True),
+                "plain": lambda: fa.flash_attention_backward_plain(q, k, v, out, lse, do, True)}
 
     serve = [torch.randn(chip_smoke.SERVE_SHAPE, device="cuda", generator=g).bfloat16()
              for _ in range(3)]

@@ -102,8 +102,8 @@ def test_definitions_build_the_port_objects_on_the_given_device():
 
 
 @pytest.mark.parametrize("path", ["subprocess.Popen", "gordo_tpu.models.models.LSTMAutoEncoder",
-                                  "gordo.machine.model.models.KerasAutoEncoder",
-                                  "sklearn.decomposition.PCA"])
+                                  "gordo.machine.model.models.KerasLSTMForecast",
+                                  "sklearn.decomposition.TruncatedSVD"])
 def test_paths_the_port_lacks_raise_import_error(path):
     with pytest.raises(ImportError, match=path.replace(".", r"\.")):
         serializer.from_definition({path: {}})

@@ -373,6 +373,13 @@ import gordo_tpu_torch.workflow.normalized_config
 import gordo_tpu_torch.server.batcher
 import gordo_tpu_torch.server.fast_codec
 import gordo_tpu_torch.native
+# the feedforward family, the KFCV detector and the sklearn steps' copies
+import gordo_tpu_torch.models.factories.feedforward_autoencoder
+import gordo_tpu_torch.models.transformers.imputer
+import gordo_tpu_torch.models.transformer_funcs.general
+from gordo_tpu_torch.models.anomaly.diff import DiffBasedKFCVAnomalyDetector, KFold
+from gordo_tpu_torch.models.models import AutoEncoder, RawModelRegressor
+from gordo_tpu_torch.models.scaler import PCA, FeatureUnion, RobustScaler, StandardScaler
 from gordo_tpu_torch import cli
 for argv in (["batch-build", "fleet.json", "out", "--device", "cpu", "--fail-fast"],
              ["run-server", "--port", "5555", "--device", "cpu"],
@@ -390,4 +397,4 @@ print(len(names))
         env={**os.environ, "PYTHONPATH": REPO},
     )
     assert result.returncode == 0, result.stderr
-    assert int(result.stdout.split()[-1]) >= 48
+    assert int(result.stdout.split()[-1]) >= 58
