@@ -121,9 +121,26 @@ Drive the PyTorch/CUDA port (gordo_tpu_torch) on one NVIDIA GPU.
    the fleet's eight ``transformer-ae-512`` machines in one config: exit 0,
    every machine an artifact, the buckets apart, the Transformer bucket's
    dQ and dK/dV launches; machines a minute beside one serial build x N.
-13. A ``batcher_path`` JSON line (both dtypes' numbers), a ``feedforward``
-   JSON line, a ``kernels`` JSON line (six entries: three float32, three
-   bf16), then the last line
+13. Fast lanes: the float32 batcher artifacts and ``pump-station-a``
+   served by the default lane (HTTP/1.1, keep-alive), the fast lane's
+   thread lane and its event loop, batching forced on and ``auto``, the
+   clients in a child process: 16 users on keep-alive connections sending
+   600-row anomaly requests round robin, one request a Transformer in
+   turn, and bench.py's 100 sequential requests over one connection and
+   over a connection each. Every answer 200, the sequential answers the
+   default lane's bytes (forced on), the rest within TOL_MODEL_REL,
+   connections reused, the forward launched once per block a fused call
+   (a request alone in each on the event loop); ``openapi.json`` served.
+14. KFCV fleet: ``batch-build`` of ``turbine-c``, ``pump-station-a``,
+   128 KFCV bench machines under a seeded KFold(5), 128 under the default
+   TimeSeriesSplit and the eight ``transformer-ae-512``: no machine built
+   serially, the geometries' buckets apart, the KFold machines' split
+   metadata sklearn's, the thresholds the plain KFCV math on the program's
+   fold predictions (1e-9) and within 3x of a serial build's, dQ and dK/dV
+   launched by the Transformer bucket alone.
+15. A ``batcher_path`` JSON line (both dtypes' numbers), a ``feedforward``
+   JSON line, a ``fastlane``/``kfcv_fleet`` JSON line, a ``kernels`` JSON
+   line (six entries: three float32, three bf16), then the last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
 Any failure raises, so the exit code is not 0 and no result line is
@@ -135,6 +152,7 @@ import dataclasses
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -2613,6 +2631,526 @@ def feedforward_fleet_path(card: str, root: Path, device: str = "cuda") -> dict:
     return result
 
 
+# ---------------------------------------------------------- the fast lanes
+FAST_LANES = ("default", "thread", "loop")
+LANE_REQUESTS = 2  # anomaly requests a user, BATCHER_ROWS rows, round robin
+LANE_BENCH_MODEL = "pump-station-a"
+_TIME_SECONDS = re.compile(rb'"time-seconds": "[0-9.]+"')
+
+
+def _masked(body: bytes) -> bytes:
+    """A response body with its one wall-clock value masked."""
+    return _TIME_SECONDS.sub(b'"time-seconds": "T"', body)
+
+
+def _model_output(body: bytes) -> np.ndarray:
+    """The ``model-output`` block of an answer, (rows, tags)."""
+    block = json.loads(body)["data"]["model-output"]
+    return np.array([list(column.values()) for column in block.values()]).T
+
+
+def lane_client(job: dict) -> dict:
+    """The clients of one run, in a process of their own (standard library
+    only): for each of the job's phases, ``users`` threads, user u sending
+    requests u, u + users, ... one after another over one keep-alive
+    ``http.client`` connection (or a new connection a request, with
+    ``Connection: close``, where the phase's ``keep_alive`` is false).
+    Returns each phase's ``[status, ms, body or None]`` a request and its
+    wall seconds."""
+    import base64
+    import http.client
+
+    out = {}
+    for phase in job["phases"]:
+        requests, users = phase["requests"], phase["users"]
+        results = [None] * len(requests)
+        headers = {"Content-Type": "application/json"}
+        if not phase["keep_alive"]:
+            headers["Connection"] = "close"
+
+        def user(u, phase=phase, requests=requests, results=results, users=users):
+            conn = None
+            for i in range(u, len(requests), users):
+                path, body = requests[i]
+                if conn is None:
+                    conn = http.client.HTTPConnection("127.0.0.1", job["port"], timeout=300)
+                t0 = time.perf_counter()
+                try:
+                    conn.request("POST", path, body.encode(), headers)
+                    resp = conn.getresponse()
+                    status, data = resp.status, resp.read()
+                except OSError as err:  # no answer at all
+                    status, data = None, repr(err).encode()
+                    conn.close()
+                    conn = None
+                keep = phase["bodies"] is True or i < phase["bodies"]
+                results[i] = [status, 1e3 * (time.perf_counter() - t0),
+                              base64.b64encode(data).decode() if keep or status != 200 else None]
+                if conn is not None and (not phase["keep_alive"] or resp.will_close):
+                    conn.close()
+                    conn = None
+            if conn is not None:
+                conn.close()
+
+        threads = [threading.Thread(target=user, args=(u,)) for u in range(users)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=900)
+        out[phase["name"]] = {"results": results, "wall_s": time.perf_counter() - t0}
+    return out
+
+
+def _run_clients(job: dict, root: Path) -> dict:
+    """:func:`lane_client` of ``job`` in a child process; its results, with
+    the bodies decoded."""
+    import base64
+
+    job_file, out_file = root / "client_job.json", root / "client_out.json"
+    job_file.write_text(json.dumps(job))
+    code = ("import json, sys, chip_smoke; json.dump(chip_smoke.lane_client("
+            "json.load(open(sys.argv[1]))), open(sys.argv[2], 'w'))")
+    proc = subprocess.run([sys.executable, "-c", code, str(job_file), str(out_file)], cwd=REPO,
+                          capture_output=True, text=True, timeout=900,
+                          env={**os.environ, "PYTHONPATH": str(REPO)})
+    if proc.returncode != 0:
+        raise AssertionError(f"the client process exited {proc.returncode}: "
+                             f"{proc.stderr[-3000:]}")
+    out = json.loads(out_file.read_text())
+    for phase in out.values():
+        for result in phase["results"]:
+            if result[2] is not None:
+                result[2] = base64.b64decode(result[2])
+    return out
+
+
+class _Lane:
+    """One front end of ``collection`` in a thread: ``default`` (the
+    server's own HTTP/1.1 handler), ``thread`` (the fast lane, a thread a
+    connection) or ``loop`` (the fast lane's event loop)."""
+
+    def __init__(self, kind: str, collection: Path, device: str):
+        from gordo_tpu_torch.server import fastlane
+        from gordo_tpu_torch.server.server import make_server
+
+        if kind == "default":
+            self.app = self.server = make_server("127.0.0.1", 0, device=device,
+                                                 collection_dir=str(collection))
+            self.port = self.server.server_address[1]
+        else:
+            self.app = make_server("127.0.0.1", 0, device=device, collection_dir=str(collection),
+                                   bind_and_activate=False)
+            cls = fastlane.EventLoopServer if kind == "loop" else fastlane.FastLaneServer
+            self.server = cls(self.app, host="127.0.0.1", port=0, uds="")
+            self.port = self.server.server_port
+        self.thread = threading.Thread(target=self.server.serve_forever, daemon=True)
+        self.thread.start()
+
+    def close(self) -> None:
+        self.server.shutdown()
+        self.server.server_close()
+        if self.app is not self.server:
+            self.app.server_close()
+        self.thread.join(timeout=60)
+
+
+def fastlane_path(card: str, root: Path, transformers: Path, built: Path,
+                  device: str = "cuda") -> dict:
+    """The BATCHER_MODELS float32 ``transformer-ae-512`` artifacts of
+    :func:`batcher_path` (``transformers``) and ``pump-station-a`` (``built``)
+    served by the default lane, then the fast lane's thread lane, then its
+    event loop, each with batching forced on and then ``auto``; the clients
+    in a child process (:func:`lane_client`). A run: BATCHER_USERS users on
+    keep-alive connections, each sending LANE_REQUESTS anomaly requests of
+    BATCHER_ROWS rows round robin over the Transformers, after a warm-up
+    request to each model (its load, and auto's A/B); one request a
+    Transformer, sequentially; BENCH_ROUNDS sequential bench requests
+    (BENCH_ROWS x 4 rows) to ``pump-station-a`` over one connection, then
+    over a new connection each. Gates: every answer 200; the sequential
+    answers (each alone in its fused call, on every lane) byte-identical to
+    the default lane's, the wall clock masked; the concurrent ones, whose
+    fused calls differ by lane, within TOL_MODEL_REL of the default lane's;
+    fewer connections accepted than requests, on the server's count; no
+    plain attention; forced on, the forward launched once per block a fused
+    Transformer call, with fewer fused calls than requests on the default
+    and thread lanes, and on the event loop one fused call a request (fuse
+    width 1). Returns the numbers; ``forward`` is the forced runs' forward
+    launches."""
+    from gordo_tpu_torch.models.models import TransformerAutoEncoder
+    from gordo_tpu_torch.models.spec import TransformerBlock
+    from gordo_tpu_torch.server import batcher
+
+    collection = root / "lanes" / "1"
+    shutil.rmtree(collection.parent, ignore_errors=True)
+    shutil.copytree(transformers, collection)
+    shutil.copytree(built / LANE_BENCH_MODEL, collection / LANE_BENCH_MODEL)
+    names = sorted(p.name for p in transformers.iterdir())
+    spec = TransformerAutoEncoder(**CONFIG).build_spec(len(TAGS), len(TAGS))
+    n_blocks = sum(isinstance(layer, TransformerBlock) for layer in spec.layers)
+    n_out = BATCHER_ROWS - spec.lookback_window + 1
+    rng = np.random.RandomState(SEED + 50)
+    anomaly = "/gordo/v0/smoke/{}/anomaly/prediction"
+    concurrent = [[anomaly.format(names[(u + r) % len(names)]),
+                   _rect_body(_series(BATCHER_ROWS, 30000 + 700 * (r * BATCHER_USERS + u), rng))
+                   .decode()]
+                  for r in range(LANE_REQUESTS) for u in range(BATCHER_USERS)]
+    sequential = [[anomaly.format(name),
+                   _rect_body(_series(BATCHER_ROWS, 60000 + 700 * m, rng)).decode()]
+                  for m, name in enumerate(names)]
+    bench = [anomaly.format(LANE_BENCH_MODEL), _bench_body(4, SEED + 60).decode()]
+    # the warm-up loads each model on the lane's server and runs auto's A/B
+    warm = [[anomaly.format(name), sequential[0][1]] for name in names] + [bench]
+    job = {"phases": [
+        {"name": "warm", "requests": warm, "users": 1, "keep_alive": True, "bodies": 0},
+        {"name": "concurrent", "requests": concurrent, "users": BATCHER_USERS,
+         "keep_alive": True, "bodies": True},
+        {"name": "sequential", "requests": sequential, "users": 1, "keep_alive": True,
+         "bodies": True},
+        {"name": "bench_keep_alive", "requests": [bench] * BENCH_ROUNDS, "users": 1,
+         "keep_alive": True, "bodies": 3},
+        {"name": "bench_new_connection", "requests": [bench] * BENCH_ROUNDS, "users": 1,
+         "keep_alive": False, "bodies": 3}]}
+    n_requests = sum(len(p["requests"]) for p in job["phases"])
+    knobs = ("GORDO_TPU_SERVING_BATCH", "GORDO_TPU_BATCH_AB_ROUNDS")
+    previous = {knob: os.environ.get(knob) for knob in knobs}
+    os.environ["GORDO_TPU_BATCH_AB_ROUNDS"] = str(AB_ROUNDS)
+    runs, reference = {}, {}
+    try:
+        for kind in FAST_LANES:
+            for mode in ("1", "auto"):
+                os.environ["GORDO_TPU_SERVING_BATCH"] = mode
+                batcher.reset_batcher()
+                lane = _Lane(kind, collection, device)
+                try:
+                    job["port"] = lane.port
+                    _reset_launches()
+                    with _PlainAttentionCalls() as plain:
+                        out = _run_clients(job, root)
+                    launches = _launches("float32")["forward"]
+                    accepted = lane.server.accepted
+                    openapi = _request(f"http://127.0.0.1:{lane.port}/gordo/v0/openapi.json")
+                finally:
+                    lane.close()
+                fused = batcher.peek_batcher()
+                stats = dict(fused.stats) if fused else {}
+                tf_calls = fused.spec_calls.get(spec, 0) if fused else 0
+                widths = sorted({n for n, _ in fused.calls}) if fused else []
+                batcher.reset_batcher()
+                label = f"{kind} lane, GORDO_TPU_SERVING_BATCH={mode}"
+                statuses = [r[0] for p in out.values() for r in p["results"]]
+                if any(status != 200 for status in statuses):
+                    bad = next(r for p in out.values() for r in p["results"] if r[0] != 200)
+                    raise AssertionError(f"{label}: statuses {statuses}, first failure {bad}")
+                ms = sorted(r[1] for r in out["concurrent"]["results"])
+                bench_ms = {key: sorted(r[1] for r in out[key]["results"])
+                            for key in ("bench_keep_alive", "bench_new_connection")}
+                run = {
+                    "p50_ms": ms[len(ms) // 2], "p99_ms": ms[int(0.99 * len(ms))],
+                    "windows_per_s": len(concurrent) * n_out / out["concurrent"]["wall_s"],
+                    "bench": {key: {"p50_ms": v[len(v) // 2], "p95_ms": v[int(0.95 * len(v))]}
+                              for key, v in bench_ms.items()},
+                    "accepted": accepted, "requests": n_requests,
+                    "forward_launches": launches, "transformer_fused_calls": tf_calls,
+                    "fuse_widths": widths, "batcher": stats,
+                    "self_ab": ({_spec_label(s): v for s, v in fused.calibrations.items()}
+                                if fused else None),
+                    "plain_attention_calls": plain.calls,
+                    "openapi": {"status": openapi[0],
+                                "paths": len(json.loads(openapi[1])["paths"])}}
+                bodies = [_masked(r[2]) for key in ("sequential", "bench_keep_alive",
+                                                    "bench_new_connection")
+                          for r in out[key]["results"] if r[2] is not None]
+                outputs = [_model_output(r[2]) for key in ("concurrent", "sequential")
+                           for r in out[key]["results"]]
+                if kind == "default":
+                    reference[mode] = {"bodies": bodies, "outputs": outputs}
+                run["max_rel_diff"] = _max_rel(outputs, reference[mode]["outputs"])
+                run["identical_sequential"] = bodies == reference[mode]["bodies"]
+                runs[f"{kind}/{mode}"] = run
+                print(f"{label} on {card}: {run}", flush=True)
+                # forced on, a sequential request is alone in its fused call on
+                # every lane: the same arithmetic, so the same bytes; the
+                # concurrent ones fuse differently by lane, and auto's A/B may
+                # decide differently from run to run
+                if mode == "1" and not run["identical_sequential"]:
+                    raise AssertionError(f"{label}: the sequential answers are not the default "
+                                         f"lane's bytes")
+                if not run["max_rel_diff"] <= TOL_MODEL_REL:
+                    raise AssertionError(f"{label}: answers off the default lane's by "
+                                         f"{run['max_rel_diff']}")
+                if not accepted < n_requests or plain.calls or openapi[0] != 200:
+                    raise AssertionError(f"{label}: {accepted} connections for {n_requests} "
+                                         f"requests, plain attention {plain.calls}, "
+                                         f"openapi.json {openapi[0]}")
+                if mode != "1":
+                    continue
+                n_tf = len(concurrent) + len(sequential) + len(names)
+                if not (tf_calls and launches == n_blocks * tf_calls
+                        and stats["items"] == n_requests
+                        and not (stats["bisections"] or stats["serial_rescues"])):
+                    raise AssertionError(f"{label}: {launches} forward launches for {tf_calls} "
+                                         f"fused Transformer calls of {n_blocks} blocks; {stats}")
+                if kind == "loop" and not (widths == [1] and tf_calls == n_tf):
+                    raise AssertionError(f"{label}: fuse widths {widths}, {tf_calls} fused calls "
+                                         f"for {n_tf} Transformer requests")
+                if kind != "loop" and not tf_calls < n_tf:
+                    raise AssertionError(f"{label}: {tf_calls} fused calls for {n_tf} requests")
+    finally:
+        batcher.reset_batcher()
+        for knob, value in previous.items():
+            if value is None:
+                os.environ.pop(knob, None)
+            else:
+                os.environ[knob] = value
+    forward = sum(run["forward_launches"] for key, run in runs.items() if key.endswith("/1"))
+    return {"runs": runs, "forward": forward}
+
+
+# ------------------------------------------------------ the KFCV fleet
+# each of the KFold and the TimeSeriesSplit groups: at 256 each this phase
+# and the fast lanes' added 71.6 s to the smoke run (47.4 s and 24.2 s on an
+# H100 at 700 W), over the minute they are given, so each group is 128
+KFCV_FLEET_MACHINES = 128
+HELD_OUT_SAMPLE = 8  # machines of each group whose held-out error is read
+
+
+def kfcv_machine_config(name: str, kfold: bool) -> dict:
+    """bench.py's machine (:func:`bench_machine_config`) under a
+    ``DiffBasedKFCVAnomalyDetector``, with ``KFold(5, shuffle=True,
+    random_state=0)`` folds or the default TimeSeriesSplit(3)."""
+    config = bench_machine_config(name)
+    (_, detector), = config["model"].items()
+    config["model"] = {"gordo_tpu.models.anomaly.diff.DiffBasedKFCVAnomalyDetector": detector}
+    if kfold:
+        config["evaluation"] = {"cv": {"sklearn.model_selection.KFold": {
+            "n_splits": 5, "shuffle": True, "random_state": 0}}}
+    return config
+
+
+def _kfcv_reference_thresholds(y: np.ndarray, folds, preds, window: int,
+                               percentile: float) -> tuple:
+    """The serial KFCV detector's threshold math written out plainly, in
+    float64: each fold's predictions of its test rows written onto them
+    (a padded tail's leading rows dropped; unvisited rows 0), its squared
+    errors scaled by the min and max of its train targets and averaged over
+    the tags (unvisited rows NaN), both smoothed by a rolling median of
+    ``window`` rows, then the ``percentile`` quantile, NaN skipped."""
+    from numpy.lib.stride_tricks import sliding_window_view
+
+    y = np.asarray(y, np.float64)
+    y_pred, mse = np.zeros_like(y), np.full(len(y), np.nan)
+    for (train, test), pred in zip(folds, preds):
+        pred = np.asarray(pred, np.float64)[len(pred) - len(test):]
+        low, high = y[train].min(axis=0), y[train].max(axis=0)
+        span = np.where(high - low < 10 * np.finfo(np.float64).eps, 1.0, high - low)
+        y_pred[test] = pred
+        mse[test] = np.square((pred - low) / span - (y[test] - low) / span).mean(axis=1)
+
+    def smoothed(values):
+        out = np.full(values.shape, np.nan)
+        out[window - 1:] = np.median(sliding_window_view(values, window, axis=0), axis=-1)
+        return np.nanquantile(out, percentile, axis=0)
+
+    return float(smoothed(mse)), smoothed(np.abs(y - y_pred))
+
+
+def kfcv_fleet_path(card: str, root: Path, device: str = "cuda") -> dict:
+    """``batch-build`` (``cli.batch_build``, in this process) of one config:
+    examples/config.yaml's ``turbine-c`` and ``pump-station-a`` as written,
+    KFCV_FLEET_MACHINES KFCV bench hourglass machines under KFold(5,
+    shuffle=True, random_state=0) (1,008 rows: test folds of 202, 202, 202,
+    201 and 201, padded to 202), as many under the default TimeSeriesSplit,
+    and the FLEET_MACHINES float32 ``transformer-ae-512``. Gates: exit 0,
+    every machine an artifact, no machine built by the serial builder; every
+    stacked program of one fold geometry, the KFold ones running row
+    permutations; each KFold machine's split metadata sklearn's KFold index
+    for index (:func:`_kfold_reference`); sampled thresholds finite, and the
+    held-out error below the seeded weights' (the example machines' each, the
+    bench machines' as HELD_OUT_SAMPLE machines' mean); a KFold chunk's first
+    machine's thresholds equal to :func:`_kfcv_reference_thresholds` on that
+    program's fold predictions (1e-9, float64); one KFold machine built by
+    the serial builder with thresholds within 1/3 to 3 times the fleet's;
+    the Transformer bucket launching dQ and dK/dV once per block a stacked
+    step and the hourglass buckets none."""
+    import contextlib
+    import io
+
+    import torch
+
+    from gordo_tpu_torch import cli, serializer
+    from gordo_tpu_torch.builder import ModelBuilder
+    from gordo_tpu_torch.machine import Machine
+    from gordo_tpu_torch.models.anomaly.diff import TimeSeriesSplit
+    from gordo_tpu_torch.models.models import TransformerAutoEncoder
+    from gordo_tpu_torch.models.spec import TransformerBlock
+    from gordo_tpu_torch.ops.predict import n_train_samples
+    from gordo_tpu_torch.parallel import batch_trainer as bt
+
+    kfold = [f"kfcv-kfold-{i}" for i in range(KFCV_FLEET_MACHINES)]
+    tss = [f"kfcv-tss-{i}" for i in range(KFCV_FLEET_MACHINES)]
+    configs = (EXAMPLE_MACHINES + [kfcv_machine_config(n, True) for n in kfold]
+               + [kfcv_machine_config(n, False) for n in tss] + fleet_configs())
+    config = root / "kfcv.json"
+    config.write_text(json.dumps({"machines": configs}))
+    output = root / "kfcv"
+    shutil.rmtree(output, ignore_errors=True)
+    tf_spec = TransformerAutoEncoder(**CONFIG).build_spec(len(TAGS), len(TAGS))
+    n_blocks = sum(isinstance(layer, TransformerBlock) for layer in tf_spec.layers)
+    n_rows = _config_rows(fleet_configs()[0])
+    steps = [math.ceil(n_train_samples(tf_spec, len(train_idx)) / BATCH)
+             for train_idx, _ in TimeSeriesSplit(3).split(np.zeros(n_rows))]
+    steps.append(math.ceil(n_train_samples(tf_spec, n_rows) / BATCH))
+    chunks, serial = [], []  # (names, cv, kfcv, spec, program seconds, y0, fold preds of machine 0)
+    run_bucket, build_chunk, serial_build = (bt.run_bucket, bt.BatchedModelBuilder._build_chunk,
+                                             bt.BatchedModelBuilder._serial_build)
+    programs = []
+
+    def timed_bucket(spec, X, *args, **kwargs):
+        if device == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = run_bucket(spec, X, *args, **kwargs)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        programs.append((time.perf_counter() - t0, [p[0] for p in out[2]]))
+        return out
+
+    def recorded_chunk(self, group, *args, **kwargs):
+        out = build_chunk(self, group, *args, **kwargs)
+        seconds, preds = programs[-1]
+        chunks.append({"names": [p.machine.name for p in group], "cv": group[0].cv,
+                       "kfcv": group[0].kfcv, "spec": group[0].spec, "seconds": seconds,
+                       "y0": group[0].y, "preds0": preds})
+        return out
+
+    def recorded_serial(self, machine):
+        serial.append(machine.name)
+        return serial_build(self, machine)
+
+    if device == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    bt.run_bucket = timed_bucket
+    bt.BatchedModelBuilder._build_chunk = recorded_chunk
+    bt.BatchedModelBuilder._serial_build = recorded_serial
+    stdout = io.StringIO()
+    try:
+        with _PlainAttentionCalls() as plain, contextlib.redirect_stdout(stdout):
+            t0 = time.perf_counter()
+            code = cli.batch_build(str(config), str(output), "smoke-kfcv", device=device)
+            seconds = time.perf_counter() - t0
+    finally:
+        bt.run_bucket = run_bucket
+        bt.BatchedModelBuilder._build_chunk = build_chunk
+        bt.BatchedModelBuilder._serial_build = serial_build
+    launches = _launches("float32")
+    peak = torch.cuda.max_memory_allocated() / 2**30 if device == "cuda" else float("nan")
+    built = [line for line in stdout.getvalue().splitlines() if line.startswith("built: ")]
+    n_all = len(configs)
+    artifacts = sum((output / c["name"] / "model.json").exists() for c in configs)
+    groups = {}
+    for chunk in chunks:
+        names = chunk["names"]
+        key = ("transformer" if chunk["spec"] == tf_spec else
+               "kfcv-kfold" if all(n.startswith("kfcv-kfold") for n in names) else
+               "kfcv-tss" if all(n.startswith("kfcv-tss") for n in names) else "/".join(names))
+        group = groups.setdefault(key, {"programs": 0, "machines": 0, "seconds": 0.0,
+                                        "cv": set(), "kfcv": set()})
+        group["programs"] += 1
+        group["machines"] += len(names)
+        group["seconds"] += chunk["seconds"]
+        group["cv"].add(chunk["cv"])
+        group["kfcv"].add(chunk["kfcv"])
+    result = {"machines": n_all, "seconds": seconds, "machines_per_minute": 60.0 * n_all / seconds,
+              "stacked_programs": {k: {**v, "cv": sorted(map(str, v["cv"])),
+                                       "kfcv": sorted(v["kfcv"])} for k, v in groups.items()},
+              "peak_gib": peak, "launches": launches, "serial_built": serial}
+    print(f"KFCV batch-build of {n_all} machines ({KFCV_FLEET_MACHINES} KFold + "
+          f"{KFCV_FLEET_MACHINES} TimeSeriesSplit KFCV hourglass, turbine-c, pump-station-a, "
+          f"{FLEET_MACHINES} transformer-ae-512) on {card}: exit {code} in {seconds:.2f} s "
+          f"({result['machines_per_minute']:.1f} machines a minute), {len(built)} built, "
+          f"{artifacts} artifacts, serial {serial}; stacked programs "
+          f"{result['stacked_programs']}; peak device memory {peak:.2f} GiB; float32 launches "
+          f"{launches}", flush=True)
+    if code != 0 or len(built) != n_all or artifacts != n_all or serial:
+        raise AssertionError(f"batch-build exited {code}: {len(built)} built, {artifacts} "
+                             f"artifacts of {n_all}, serially built {serial}")
+    kfold_cv = ("kfold", 5, True, 0)
+    want = {"kfcv-kfold": ({kfold_cv}, KFCV_FLEET_MACHINES),
+            "kfcv-tss": ({("tss", 3)}, KFCV_FLEET_MACHINES),
+            "transformer": ({("tss", 3)}, FLEET_MACHINES),
+            "turbine-c": ({kfold_cv}, 1), "pump-station-a": ({("tss", 3)}, 1)}
+    if {k: (g["cv"], g["machines"]) for k, g in groups.items()} != want:
+        raise AssertionError(f"the buckets did not keep their geometries apart: {groups}")
+    if plain.calls or not launches["dq"] == launches["dkv"] == n_blocks * sum(steps):
+        raise AssertionError(f"expected {n_blocks * sum(steps)} dQ and dK/dV launches, got "
+                             f"{launches}; plain attention {plain.calls}")
+    reference = _kfold_reference(EXAMPLE_ROWS, 5, 0)
+    for name in kfold + ["turbine-c"]:
+        splits = serializer.load_metadata(str(output / name))["metadata"]["build_metadata"][
+            "model"]["cross_validation"]["splits"]
+        for k, test in enumerate(reference, start=1):
+            train = np.setdiff1d(np.arange(EXAMPLE_ROWS), test)
+            expected = {f"fold-{k}-n-test": len(test), f"fold-{k}-n-train": len(train),
+                        f"fold-{k}-test-start": _row_label(test[0]),
+                        f"fold-{k}-test-end": _row_label(test[-1]),
+                        f"fold-{k}-train-start": _row_label(train[0]),
+                        f"fold-{k}-train-end": _row_label(train[-1])}
+            if {key: splits[key] for key in expected} != expected:
+                raise AssertionError(f"{name} fold {k}: {splits}, sklearn's KFold {expected}")
+    # held-out error: the example machines' each (160 and 96 steps), the
+    # bench machines' (40 steps, which barely move a 4-tag hourglass, so a
+    # single machine can end above its seeded weights) as a sample's mean
+    errors = {}
+    for name in kfold[:HELD_OUT_SAMPLE] + tss[:HELD_OUT_SAMPLE] + ["turbine-c",
+                                                                   "pump-station-a"]:
+        model = serializer.load(str(output / name), device)
+        tags = serializer.load_model_json(str(output / name))["tags"]
+        thresholds = [*model.feature_thresholds_, model.aggregate_threshold_]
+        errors[name] = _seeded_error(model, tags, EXAMPLE_ROWS, device)
+        if not all(math.isfinite(x) for x in thresholds):
+            raise AssertionError(f"{name}: thresholds {thresholds}")
+    held_out = {group: {key: float(np.mean([errors[n][key] for n in names]))
+                        for key in ("trained", "seeded")}
+                for group, names in (("kfcv-kfold", kfold[:HELD_OUT_SAMPLE]),
+                                     ("kfcv-tss", tss[:HELD_OUT_SAMPLE]),
+                                     ("turbine-c", ["turbine-c"]),
+                                     ("pump-station-a", ["pump-station-a"]))}
+    result["held_out_mse"] = held_out
+    if not all(e["trained"] < e["seeded"] for e in held_out.values()):
+        raise AssertionError(f"held-out scaled MSE not below the seeded weights': {held_out}")
+    first = next(c for c in chunks if c["cv"] == kfold_cv and c["names"][0].startswith("kfcv"))
+    model = serializer.load(str(output / first["names"][0]), device)
+    folds = bt.fold_geometry(kfold_cv, EXAMPLE_ROWS)[1]
+    agg, feature = _kfcv_reference_thresholds(first["y0"], folds, first["preds0"], model.window,
+                                              model.threshold_percentile)
+    threshold_diff = max(abs(agg - model.aggregate_threshold_) / abs(agg), float(np.max(
+        np.abs(feature - model.feature_thresholds_) / np.abs(feature))))
+    result["threshold_math_rel_diff"] = threshold_diff
+    machine = Machine.from_config(kfcv_machine_config(first["names"][0], True), "smoke-kfcv")
+    t0 = time.perf_counter()
+    serial_model, _ = ModelBuilder(machine, device).build()
+    result["serial_build_s"] = time.perf_counter() - t0
+    result["serial_build_x_kfcv_s"] = result["serial_build_s"] * 2 * KFCV_FLEET_MACHINES
+    ratios = np.array([model.aggregate_threshold_ / serial_model.aggregate_threshold_,
+                       *(np.asarray(model.feature_thresholds_)
+                         / np.asarray(serial_model.feature_thresholds_))])
+    result["serial_threshold_ratios"] = ratios.tolist()
+    print(f"KFCV fleet on {card}: held-out scaled MSE {held_out}; the bucket's thresholds against "
+          f"the plain threshold math on its fold predictions: max rel diff {threshold_diff:.3e} "
+          f"(gate 1e-9); one serial KFCV build {result['serial_build_s']:.2f} s (x "
+          f"{2 * KFCV_FLEET_MACHINES} = {result['serial_build_x_kfcv_s']:.1f} s), thresholds "
+          f"fleet / serial {ratios.round(3).tolist()}", flush=True)
+    if not threshold_diff <= 1e-9:
+        raise AssertionError(f"the bucket's KFCV thresholds are off the plain math by "
+                             f"{threshold_diff}")
+    if not np.all((ratios > 1 / 3) & (ratios < 3)):
+        raise AssertionError(f"fleet against serial KFCV thresholds: {ratios}")
+    return result
+
+
 def main() -> int:
     import torch
 
@@ -2719,13 +3257,25 @@ def main() -> int:
     torch.cuda.empty_cache()
     print(f"feedforward phases: build {ff_build['phase_s']:.1f} s, served "
           f"{ff_served['phase_s']:.1f} s, fleet {ff_fleet['phase_s']:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    lanes = fastlane_path(card, ff_root, batcher_root / "float32" / "1", ff_root / "built")
+    lanes["phase_s"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    kfcv_fleet = kfcv_fleet_path(card, ff_root)
+    kfcv_fleet["phase_s"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    print(f"fast lane phase {lanes['phase_s']:.1f} s, KFCV fleet phase "
+          f"{kfcv_fleet['phase_s']:.1f} s", flush=True)
 
     forward["launches_by_path"] = {"serving": serving, "server_surface": base_route,
                                    "batcher": batched["launches"],
                                    "build": build["forward"], "serving_built": build["serving"],
                                    "fleet": fleet["forward"],
                                    "feedforward_served": ff_served["forward"],
-                                   "feedforward_fleet": ff_fleet["launches"]["forward"]}
+                                   "feedforward_fleet": ff_fleet["launches"]["forward"],
+                                   "fastlane": lanes["forward"],
+                                   "kfcv_fleet": kfcv_fleet["launches"]["forward"]}
     bf16_forward["launches_by_path"] = {"batcher": bf16_batched["launches"],
                                         "build": bf16_build["forward"],
                                         "serving_built": bf16_build["serving"],
@@ -2738,12 +3288,14 @@ def main() -> int:
                                                              ("bfloat16", bf16_batched))}}))
     print(json.dumps({"feedforward": {"build": ff_build, "served": ff_served,
                                       "fleet": ff_fleet}}, default=str))
+    print(json.dumps({"fastlane": lanes, "kfcv_fleet": kfcv_fleet}, default=str))
     for entry, key, launches, fleet_launches in (
             (dq, "dq", build, fleet), (dkv, "dkv", build, fleet),
             (bf16_dq, "dq", bf16_build, bf16_fleet), (bf16_dkv, "dkv", bf16_build, bf16_fleet)):
         entry["launches_by_path"] = {"build": launches[key], "fleet": fleet_launches[key]}
         if entry is dq or entry is dkv:
             entry["launches_by_path"]["feedforward_fleet"] = ff_fleet["launches"][key]
+            entry["launches_by_path"]["kfcv_fleet"] = kfcv_fleet["launches"][key]
     for entry in entries:
         entry["launches"] = sum(entry["launches_by_path"].values())
         entry["fleet_shape"] = fleet_times[entry["name"]]

@@ -23,7 +23,10 @@ from ``--device``, one process with a thread per connection. As the JAX
 command does, it batches predicts by default: ``--batch-predicts`` (or
 ``GORDO_SERVER_BATCH_PREDICTS``) exports ``GORDO_TPU_SERVING_BATCH=auto``
 before the server starts, ``--no-batch-predicts`` exports ``0``
-(server/batcher.py). The JAX command's workers and warm-up are not ported.
+(server/batcher.py). With ``GORDO_TPU_FAST_LANE=1`` it serves through the
+socket fast lane (server/fastlane.py: an event loop, or a thread per
+connection with ``GORDO_TPU_FAST_LANE_EVENT_LOOP=0``), as the JAX command
+does. The JAX command's workers and warm-up are not ported.
 """
 
 import argparse

@@ -492,15 +492,27 @@ class DiffBasedKFCVAnomalyDetector(DiffBasedAnomalyDetector):
         X, y = np.asarray(X, np.float64), np.asarray(y, np.float64)
         cv = cv if cv is not None else KFold(n_splits=5, shuffle=True, random_state=0)
         out = cross_validate(self, X, y, cv=cv, scoring=scoring)
+        self.set_fold_thresholds(y, [
+            (test_idx, model.predict(X[test_idx]), model.scaler)
+            for (_, test_idx), model in zip(cv.split(X, y), out["estimator"])])
+        return out
+
+    def set_fold_thresholds(self, y: np.ndarray, folds) -> None:
+        """The thresholds from the folds' predictions, ``folds`` a ``(test
+        rows, predictions of them, y scaler)`` triple per fold, the scaler
+        fitted on the fold's train targets: the predictions and their scaled
+        MSE are written onto their test rows (rows no fold visits stay 0 and
+        NaN), then smoothed, and the percentile taken. The fleet trainer
+        sets its KFCV detectors' thresholds here too."""
+        y = np.asarray(y, np.float64)
         y_pred = np.zeros_like(y)
         y_val_mse = np.full(len(y), np.nan)
-        for (_, test_idx), model in zip(cv.split(X, y), out["estimator"]):
-            y_pred[test_idx] = model.predict(X[test_idx])
-            scaled = model.scaler.transform(y_pred[test_idx]) - model.scaler.transform(y[test_idx])
+        for test_idx, pred, scaler in folds:
+            y_pred[test_idx] = pred
+            scaled = scaler.transform(y_pred[test_idx]) - scaler.transform(y[test_idx])
             y_val_mse[test_idx] = np.square(scaled).mean(axis=1)
         self.aggregate_threshold_ = float(self._threshold(y_val_mse))
         self.feature_thresholds_ = self._threshold(np.abs(y - y_pred))
-        return out
 
     def _threshold(self, metric: np.ndarray):
         return np.nanquantile(self._smoothing(metric), self.threshold_percentile, axis=0)

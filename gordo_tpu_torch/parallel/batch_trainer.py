@@ -11,8 +11,11 @@ one ``StackedTransformerModel`` (so each Transformer block launches the
 flash kernels once for the whole bucket, at BH = machines x batch x heads,
 and each Dense layer of a feedforward autoencoder is one batched product
 over the bucket), and the folds' models predict their test slices.
-Machines bucket by spec, so a config mixing families trains each family's
-machines apart. On
+Machines bucket by spec and fold geometry, so a config mixing families
+trains each family's machines apart. ``DiffBasedKFCVAnomalyDetector``
+machines are bucketed too: under TimeSeriesSplit beside the plain
+detectors, and under a seeded KFold, whose folds the program runs as
+per-stage row permutations gathered on the card (``fold_geometry``). On
 the host each machine then gets the serial detector's thresholds, the CV
 scores and split metadata in its ``BuildMetadata``, and is written and
 registered as soon as its chunk of machines is done, so a resumed build
@@ -20,18 +23,17 @@ loads it from the register's cache.
 
 A machine whose fetch, validation or training raises is quarantined with
 its reason, and the rest build on (``fail_fast`` raises instead). Machines
-the planner cannot express (another detector, scaler or splitter, a
-callback, ring attention) go to the port's serial ``ModelBuilder``.
+the planner cannot express (another detector, scaler or splitter, an
+unseeded shuffled KFold, a callback, ring attention) go to the port's
+serial ``ModelBuilder``.
 
 Each machine's initial parameters per stage and its sample order per epoch
 come from ``torch.Generator``s seeded by ``_machine_seed``, the stage and
 the epoch (``draw_inputs``): the JAX package's PRNG streams cannot be
 reproduced, so ``run_bucket`` takes them as arguments and the tests hand it
 the JAX program's own draws. Not ported yet (ROADMAP.md queue A): the
-elastic scheduler and multi-host fleets, warm starts, the KFCV plans (a
-KFCV machine goes to the serial builder, which gives the same artifact),
-the retry ladder and fault injection, the drift queue, and the telemetry
-spans and metrics.
+elastic scheduler and multi-host fleets, warm starts, the retry ladder and
+fault injection, the drift queue, and the telemetry spans and metrics.
 """
 
 import dataclasses
@@ -53,7 +55,9 @@ from ..machine import Machine
 from ..machine.metadata import (
     BuildMetadata, CrossValidationMetaData, DatasetBuildMetadata, ModelBuildMetadata,
 )
-from ..models.anomaly.diff import DiffBasedAnomalyDetector, TimeSeriesSplit
+from ..models.anomaly.diff import (
+    DiffBasedAnomalyDetector, DiffBasedKFCVAnomalyDetector, KFold, TimeSeriesSplit,
+)
 from ..models.base import extract_metadata
 from ..models.models import _FIT_KWARGS, BaseEstimator
 from ..models.scaler import MinMaxScaler, Pipeline
@@ -105,11 +109,14 @@ class _Plan:
     spec: ModelSpec
     scale_x: bool
     wrap_anomaly: bool
+    kfcv: bool = False
     anomaly_kwargs: Dict[str, Any] = field(default_factory=dict)
     epochs: int = 1
     batch_size: int = 32
     shuffle: bool = True
     n_splits: int = 3
+    # the fold geometry: ("tss", n_splits) or ("kfold", n_splits, shuffle, seed)
+    cv: Tuple = ("tss", 3)
     # filled during data load
     X: Optional[np.ndarray] = None
     y: Optional[np.ndarray] = None
@@ -120,12 +127,20 @@ class _Plan:
 
     def bucket_key(self) -> Tuple:
         return (self.spec, len(self.X), self.epochs, self.batch_size, self.shuffle,
-                self.scale_x, self.n_splits)
+                self.scale_x, self.n_splits, self.cv)
 
 
 def _plan_machine(machine: Machine) -> Optional[_Plan]:
     """The machine's model definition as a batchable plan, or None where
-    the serial builder must build it, as the JAX planner decides."""
+    the serial builder must build it, as the JAX planner decides.
+
+    A ``DiffBasedKFCVAnomalyDetector`` (that class, no subclass) is a plan
+    with ``kfcv``: its pre-fit shuffle is subsumed by the program's batch
+    shuffle, as in the JAX planner, and its folds are the evaluation's
+    splitter, TimeSeriesSplit(3) by default as the builders pass it, or a
+    seeded KFold, which the program runs as per-stage row permutations. An
+    unseeded shuffled KFold, a KFold outside KFCV, and a KFCV model with an
+    output offset stay serial."""
     evaluation = machine.evaluation
     if evaluation.get("cv_mode", "full_build") != "full_build":
         return None
@@ -138,13 +153,19 @@ def _plan_machine(machine: Machine) -> Optional[_Plan]:
     anomaly_kwargs: Dict[str, Any] = {}
     inner = model
     wrap_anomaly = isinstance(model, DiffBasedAnomalyDetector)
+    kfcv = isinstance(model, DiffBasedKFCVAnomalyDetector)
     if wrap_anomaly:
-        if type(model) is not DiffBasedAnomalyDetector or model.shuffle:
+        if kfcv:
+            if type(model) is not DiffBasedKFCVAnomalyDetector:
+                return None
+        elif type(model) is not DiffBasedAnomalyDetector or model.shuffle:
             return None
         if not isinstance(model.scaler, MinMaxScaler) or tuple(model.scaler.feature_range) != (0, 1):
             return None
         anomaly_kwargs = {"require_thresholds": model.require_thresholds, "window": model.window,
                           "smoothing_method": model.smoothing_method, "shuffle": model.shuffle}
+        if kfcv:
+            anomaly_kwargs["threshold_percentile"] = model.threshold_percentile
         inner = model.base_estimator
     scale_x = False
     if isinstance(inner, Pipeline):
@@ -159,15 +180,22 @@ def _plan_machine(machine: Machine) -> Optional[_Plan]:
             return None
     if not isinstance(inner, BaseEstimator):
         return None
-    n_splits = 3
+    n_splits, cv_desc = 3, ("tss", 3)
     if evaluation.get("cv") is not None:
         try:
             cv = serializer.from_definition(evaluation["cv"])
-        except Exception:  # noqa: BLE001 -- gap/test_size/KFold: serial
+        except Exception:  # noqa: BLE001 -- gap/test_size and the like: serial
             return None
-        if not isinstance(cv, TimeSeriesSplit):
+        if isinstance(cv, TimeSeriesSplit):
+            n_splits, cv_desc = cv.n_splits, ("tss", cv.n_splits)
+        elif isinstance(cv, KFold) and kfcv:
+            seed = cv.random_state
+            if cv.shuffle and not isinstance(seed, (int, np.integer)):
+                return None  # unseeded shuffled folds cannot be reproduced
+            n_splits = cv.n_splits
+            cv_desc = ("kfold", n_splits, bool(cv.shuffle), None if seed is None else int(seed))
+        else:
             return None
-        n_splits = cv.n_splits
     fit_args = {k: v for k, v in inner.kwargs.items() if k in _FIT_KWARGS}
     if fit_args.get("callbacks") or fit_args.get("validation_split"):
         return None
@@ -176,14 +204,17 @@ def _plan_machine(machine: Machine) -> Optional[_Plan]:
                                 len(machine.dataset.target_tag_list))
     except Exception:  # noqa: BLE001 -- a parallel axis or unknown kind: serial
         return None
+    if kfcv and spec.output_offset != 0:
+        return None  # the serial KFCV detector refuses an offset too
     if any(isinstance(layer, TransformerBlock) and layer.attention_impl == "ring"
            for layer in spec.layers):
         return None
     return _Plan(
         machine=machine, estimator_cls=type(inner), estimator_params=inner.get_params(),
-        spec=spec, scale_x=scale_x, wrap_anomaly=wrap_anomaly, anomaly_kwargs=anomaly_kwargs,
-        epochs=int(fit_args.get("epochs", 1)), batch_size=int(fit_args.get("batch_size", 32)),
-        shuffle=bool(fit_args.get("shuffle", True)), n_splits=n_splits,
+        spec=spec, scale_x=scale_x, wrap_anomaly=wrap_anomaly, kfcv=kfcv,
+        anomaly_kwargs=anomaly_kwargs, epochs=int(fit_args.get("epochs", 1)),
+        batch_size=int(fit_args.get("batch_size", 32)),
+        shuffle=bool(fit_args.get("shuffle", True)), n_splits=n_splits, cv=cv_desc,
     )
 
 
@@ -193,6 +224,44 @@ def _fold_bounds(n_rows: int, n_splits: int) -> Tuple[Tuple[int, int, int], ...]
         (int(train_idx[-1]) + 1, int(test_idx[0]), int(test_idx[-1]) + 1)
         for train_idx, test_idx in TimeSeriesSplit(n_splits).split(np.zeros(n_rows))
     )
+
+
+def fold_geometry(cv: Tuple, n_rows: int):
+    """``(fold_bounds, fold_rows, perms)`` of a plan's folds (``_Plan.cv``).
+
+    TimeSeriesSplit: :func:`_fold_bounds`, each fold's train and test row
+    indices, and no permutations. A KFold (the KFCV plans): the folds are
+    sklearn's, assigned on the host by the port's ``KFold``; each stage of
+    the program trains on a row permutation ``[train..., test...]`` of the
+    data, so its train rows are a prefix and its test rows the tail, and the
+    bounds pad every fold's test slice to the largest fold's (the padded
+    leading rows of a tail are train rows, predicted and then discarded).
+    ``perms`` is (folds + 1, rows), the full fit's the identity."""
+    if cv[0] != "kfold":
+        bounds = _fold_bounds(n_rows, cv[1])
+        rows = [(np.arange(train_end), np.arange(test_start, test_end))
+                for train_end, test_start, test_end in bounds]
+        return bounds, rows, None
+    _, n_splits, shuffle, seed = cv
+    rows = list(KFold(n_splits, shuffle=shuffle, random_state=seed if shuffle else None)
+                .split(np.zeros((n_rows, 1))))
+    longest = max(len(test) for _, test in rows)
+    bounds = tuple((len(train), n_rows - longest, n_rows) for train, _ in rows)
+    perms = np.stack([np.concatenate([train, test]) for train, test in rows]
+                     + [np.arange(n_rows)]).astype(np.int64)
+    return bounds, rows, perms
+
+
+def _fold_pairs(y: np.ndarray, fold_rows, fold_preds) -> list:
+    """Each fold's ``(test targets, predictions)`` on the test rows that
+    have a prediction: a windowed model predicts the last rows of its test
+    slice, and a padded KFold tail's leading predictions are not its test
+    rows."""
+    pairs = []
+    for (_, test), pred in zip(fold_rows, fold_preds):
+        n = min(len(test), len(pred))
+        pairs.append((y[test[len(test) - n:]], pred[len(pred) - n:]))
+    return pairs
 
 
 # ------------------------------------------------------------ the program
@@ -286,21 +355,27 @@ def predict_windows(model: StackedTransformerModel, X: torch.Tensor) -> np.ndarr
 
 
 def run_bucket(spec: ModelSpec, X: np.ndarray, y: np.ndarray, stages: List[Stage], epochs: int,
-               scale_x: bool, inits, orders, device):
+               scale_x: bool, inits, orders, device, perms: Optional[np.ndarray] = None):
     """The bucket program over M machines' stacked data (X (M, rows, D), y
     (M, rows, D_out)) with the given initial parameters and orders
-    (:func:`draw_inputs`'s layout). Returns the full fit's stacked
-    parameters (a ``StackedTransformerModel``), its epoch losses (M,
-    epochs) and each fold's predictions of its test slice (M, windows,
-    D_out)."""
+    (:func:`draw_inputs`'s layout). With ``perms`` (:func:`fold_geometry`'s
+    KFold row permutations) each fold stage first gathers its permutation
+    of X and y on the card, one index a row for every machine. Returns the
+    full fit's stacked parameters (a ``StackedTransformerModel``), its epoch
+    losses (M, epochs) and each fold's predictions of its test slice (M,
+    windows, D_out)."""
     X_d = torch.as_tensor(np.asarray(X, np.float32), device=device)
     y_d = torch.as_tensor(np.asarray(y, np.float32), device=device)
+    perms_d = None if perms is None else torch.as_tensor(perms, device=device)
     fold_preds = []
     for k, stage in enumerate(stages):
-        Xs = _minmax(X_d, stage.train_rows) if scale_x else X_d
+        Xk, yk = X_d, y_d
+        if perms_d is not None and stage.test_len:  # the full fit's is the identity
+            Xk, yk = X_d[:, perms_d[k]], y_d[:, perms_d[k]]
+        Xs = _minmax(Xk, stage.train_rows) if scale_x else Xk
         model = StackedTransformerModel(spec, inits[k], device)
         optimizer = make_optimizer(spec.optimizer, model.parameters())
-        losses = [run_masked_epoch(model, optimizer, Xs, y_d, orders[k][e], stage.n_valid,
+        losses = [run_masked_epoch(model, optimizer, Xs, yk, orders[k][e], stage.n_valid,
                                    stage.batch)[0] for e in range(epochs)]
         if stage.test_len:
             fold_preds.append(predict_windows(
@@ -525,8 +600,8 @@ class BatchedModelBuilder:
         each machine built by the serial builder."""
         plan0 = bucket[0]
         spec, n_rows = plan0.spec, len(plan0.X)
-        fold_bounds = _fold_bounds(n_rows, plan0.n_splits)
-        for train_end, _, _ in fold_bounds:
+        geometry = fold_geometry(plan0.cv, n_rows)
+        for train_end, _, _ in geometry[0]:
             if n_train_samples(spec, train_end) <= 0:
                 error = ValueError(
                     f"CV fold with {train_end} rows yields no training samples for "
@@ -535,16 +610,16 @@ class BatchedModelBuilder:
                 if self.fail_fast:
                     raise error
                 return self._serial_rebuild(bucket, idxs, error)
-        stages = stages_of(spec, n_rows, fold_bounds, plan0.batch_size)
+        stages = stages_of(spec, n_rows, geometry[0], plan0.batch_size)
         out = {}
         for start in range(0, len(bucket), self.chunk_size):
             out.update(self._build_chunk_guarded(
                 bucket[start:start + self.chunk_size], idxs[start:start + self.chunk_size],
-                stages, fold_bounds, device))
+                stages, geometry, device))
         logger.info("Batched bucket: %d machines", len(bucket))
         return out
 
-    def _build_chunk_guarded(self, group: List[_Plan], idxs: List[int], stages, fold_bounds,
+    def _build_chunk_guarded(self, group: List[_Plan], idxs: List[int], stages, geometry,
                              device):
         """One chunk as one stacked program. A chunk of more than one
         machine that runs out of device memory is halved and each half
@@ -553,7 +628,7 @@ class BatchedModelBuilder:
         built by the serial builder, quarantining those whose serial build
         fails too. ``fail_fast`` raises instead."""
         try:
-            return self._build_chunk(group, idxs, stages, fold_bounds, device)
+            return self._build_chunk(group, idxs, stages, geometry, device)
         except Exception as exc:
             if self.fail_fast:
                 raise
@@ -567,9 +642,9 @@ class BatchedModelBuilder:
             logger.warning("Chunk of %d machines ran out of device memory (%s); bisecting "
                            "into %d + %d", len(group), error, mid, len(group) - mid)
             self.oom_bisections += 1
-            return {**self._build_chunk_guarded(group[:mid], idxs[:mid], stages, fold_bounds,
+            return {**self._build_chunk_guarded(group[:mid], idxs[:mid], stages, geometry,
                                                 device),
-                    **self._build_chunk_guarded(group[mid:], idxs[mid:], stages, fold_bounds,
+                    **self._build_chunk_guarded(group[mid:], idxs[mid:], stages, geometry,
                                                 device)}
         return self._serial_rebuild(group, idxs, error)
 
@@ -583,14 +658,15 @@ class BatchedModelBuilder:
                 out[i] = built
         return out
 
-    def _build_chunk(self, group: List[_Plan], idxs: List[int], stages, fold_bounds, device):
+    def _build_chunk(self, group: List[_Plan], idxs: List[int], stages, geometry, device):
         plan0 = group[0]
+        fold_bounds, fold_rows, perms = geometry
         started = time.time()
         inits, orders = draw_inputs([_machine_seed(p.machine) for p in group], plan0.spec,
                                     stages, plan0.epochs, plan0.shuffle)
         model, losses, fold_preds = run_bucket(
             plan0.spec, np.stack([p.X for p in group]), np.stack([p.y for p in group]), stages,
-            plan0.epochs, plan0.scale_x, inits, orders, device)
+            plan0.epochs, plan0.scale_x, inits, orders, device, perms)
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         # the stacked program's wall, shared evenly by the chunk's machines,
@@ -607,13 +683,13 @@ class BatchedModelBuilder:
                 self._quarantine(plan.machine, STAGE_TRAINING, "diverged", bad)
                 continue
             built = self._assemble(plan, params, losses[j], [p[j] for p in fold_preds],
-                                   fold_bounds, per_machine - cv_share, cv_share, device)
+                                   fold_rows, per_machine - cv_share, cv_share, device)
             self._persist(plan.machine, *built)
             out[idxs[j]] = built
         return out
 
     # ------------------------------------------------------------ assembly
-    def _assemble(self, plan: _Plan, params, losses: np.ndarray, fold_preds, fold_bounds,
+    def _assemble(self, plan: _Plan, params, losses: np.ndarray, fold_preds, fold_rows,
                   train_duration: float, cv_duration: float, device) -> Tuple[Any, Machine]:
         estimator = plan.estimator_cls(**plan.estimator_params)
         estimator.load_params(plan.spec, params, device)
@@ -626,11 +702,15 @@ class BatchedModelBuilder:
         if plan.scale_x:
             model = Pipeline([("step_0", MinMaxScaler().fit(plan.X)), ("step_1", estimator)])
         if plan.wrap_anomaly:
-            detector = DiffBasedAnomalyDetector(base_estimator=model, scaler=MinMaxScaler(),
-                                                **plan.anomaly_kwargs)
+            detector_cls = DiffBasedKFCVAnomalyDetector if plan.kfcv else DiffBasedAnomalyDetector
+            detector = detector_cls(base_estimator=model, scaler=MinMaxScaler(),
+                                    **plan.anomaly_kwargs)
             detector.scaler.fit(plan.y)
             # the serial detector's thresholds, from the program's fold predictions
-            detector.set_thresholds(self._fold_errors(plan, fold_preds, fold_bounds))
+            if plan.kfcv:
+                _set_kfcv_thresholds(detector, plan.y, fold_preds, fold_rows)
+            else:
+                detector.set_thresholds(self._fold_errors(plan, fold_preds, fold_rows))
             model = detector
 
         machine_out = ModelBuilder(plan.machine)._fresh_machine()
@@ -643,8 +723,8 @@ class BatchedModelBuilder:
                 model_training_duration_sec=train_duration,
                 cross_validation=CrossValidationMetaData(
                     cv_duration_sec=cv_duration,
-                    scores=self._fold_scores(plan, fold_preds, fold_bounds),
-                    splits=self._split_metadata(plan.frame, fold_bounds)),
+                    scores=self._fold_scores(plan, fold_preds, fold_rows),
+                    splits=self._split_metadata(plan.frame, fold_rows)),
                 model_meta=extract_metadata(model),
             ),
             dataset=DatasetBuildMetadata(query_duration_sec=plan.query_duration,
@@ -655,14 +735,13 @@ class BatchedModelBuilder:
         return model, machine_out
 
     @staticmethod
-    def _fold_errors(plan: _Plan, fold_preds, fold_bounds):
+    def _fold_errors(plan: _Plan, fold_preds, fold_rows):
         """Each fold's (scaled point MSE, absolute error per tag) on its test
         span, y scaled by the min and max of the fold's train targets."""
-        offset = plan.spec.output_offset
         errors = []
-        for (train_end, test_start, test_end), pred in zip(fold_bounds, fold_preds):
-            truth = plan.y[test_start + offset:test_end]
-            train_y = plan.y[:train_end]
+        for (train, _), (truth, pred) in zip(fold_rows,
+                                              _fold_pairs(plan.y, fold_rows, fold_preds)):
+            train_y = plan.y[train]
             low = train_y.min(axis=0)
             span = train_y.max(axis=0) - low
             scale = 1.0 / np.where(span < 10 * np.finfo(span.dtype).eps, 1.0, span)
@@ -670,7 +749,7 @@ class BatchedModelBuilder:
         return errors
 
     @staticmethod
-    def _fold_scores(plan: _Plan, fold_preds, fold_bounds) -> Dict[str, Any]:
+    def _fold_scores(plan: _Plan, fold_preds, fold_rows) -> Dict[str, Any]:
         """Per-tag and aggregate fold scores, with the serial builder's names."""
         evaluation = plan.machine.evaluation
         names = [m.rsplit(".", 1)[-1] for m in evaluation.get("metrics") or METRIC_NAMES]
@@ -680,10 +759,8 @@ class BatchedModelBuilder:
             if isinstance(scaler, (str, dict)):
                 scaler = serializer.from_definition(scaler)
             scaler.fit(plan.y)
-        offset = plan.spec.output_offset
         per_fold = {name: [] for name in names}
-        for (_, test_start, test_end), pred in zip(fold_bounds, fold_preds):
-            truth = plan.y[test_start + offset:test_end]
+        for truth, pred in _fold_pairs(plan.y, fold_rows, fold_preds):
             if scaler is not None:
                 truth, pred = scaler.transform(truth), scaler.transform(pred)
             for name in names:
@@ -698,15 +775,26 @@ class BatchedModelBuilder:
         return scores
 
     @staticmethod
-    def _split_metadata(frame: Frame, fold_bounds) -> Dict[str, Any]:
+    def _split_metadata(frame: Frame, fold_rows) -> Dict[str, Any]:
+        """Each fold's first and last train and test rows' labels and its
+        row counts, the serial builder's keys (``build_split_dict``)."""
         splits: Dict[str, Any] = {}
-        for k, (train_end, test_start, test_end) in enumerate(fold_bounds, start=1):
-            splits.update({
-                f"fold-{k}-train-start": index_label(frame, 0),
-                f"fold-{k}-train-end": index_label(frame, train_end - 1),
-                f"fold-{k}-test-start": index_label(frame, test_start),
-                f"fold-{k}-test-end": index_label(frame, test_end - 1),
-                f"fold-{k}-n-train": train_end,
-                f"fold-{k}-n-test": test_end - test_start,
-            })
+        for k, (train, test) in enumerate(fold_rows, start=1):
+            for part, rows in (("train", train), ("test", test)):
+                splits[f"fold-{k}-{part}-start"] = index_label(frame, int(rows[0]))
+                splits[f"fold-{k}-{part}-end"] = index_label(frame, int(rows[-1]))
+                splits[f"fold-{k}-n-{part}"] = len(rows)
         return splits
+
+
+def _set_kfcv_thresholds(detector: DiffBasedKFCVAnomalyDetector, y: np.ndarray, fold_preds,
+                         fold_rows) -> None:
+    """The KFCV detector's thresholds from the program's fold predictions,
+    through the serial detector's own math
+    (:meth:`DiffBasedKFCVAnomalyDetector.set_fold_thresholds`), in float64:
+    each fold's predictions of its test rows (a padded tail's leading rows
+    dropped), its errors scaled by the min and max of its train targets."""
+    y = np.asarray(y, np.float64)
+    detector.set_fold_thresholds(y, [
+        (test, np.asarray(pred, np.float64), MinMaxScaler().fit(y[train]))
+        for (train, test), (_, pred) in zip(fold_rows, _fold_pairs(y, fold_rows, fold_preds))])

@@ -11,9 +11,23 @@ the JAX package's route table (``gordo_tpu/server/server.py``):
   (the same metadata view)
 - ``GET  /gordo/v0/<project>/<name>/download-model`` (the artifact as the
   bytes ``serializer.loads`` takes)
+- ``GET  /gordo/v0/openapi.json`` (server/openapi.py)
 
-Not ported yet: ``/metrics``, ``/debug/*`` and ``/gordo/v0/openapi.json``
-(ROADMAP.md queue A8), and the breakers, deadlines and output check of
+The route table is :meth:`GordoServer.dispatch`, which knows nothing of
+the transport: it takes a request's method, target, headers and body and
+returns its status, headers and body. This module's handler and the socket
+fast lanes of server/fastlane.py (``GORDO_TPU_FAST_LANE=1``) answer
+through it. The handler speaks HTTP/1.1 with persistent connections: the
+body of every request (``Content-Length`` or chunked) is read whole before
+the request is answered, whatever the answer, so the next request on the
+connection starts at its request line; a client that sends ``Connection:
+close``, or speaks HTTP/1.0 without ``keep-alive``, has its connection
+closed after the response. (werkzeug 3.1's threaded server, which serves
+the JAX app by default, also answers HTTP/1.1 but closes every connection
+after its response; the JAX fast lane keeps them, as this handler does.)
+
+Not ported yet: ``/metrics`` and ``/debug/*`` (ROADMAP.md queue A8), and
+the breakers, deadlines and output check of
 ``gordo_tpu/server/resilience.py`` (queue A9). ``?format=parquet`` on a
 POST route is refused with 501: the card's machine has no pyarrow.
 
@@ -56,6 +70,7 @@ import json
 import logging
 import os
 import re
+import socket
 import threading
 import time
 import timeit
@@ -67,6 +82,7 @@ from .. import __version__, native, resolve_device
 from ..models.utils import parse_resolution
 from ..serializer import load, load_metadata, load_model_json
 from . import fast_codec, views
+from .openapi import openapi_document
 
 logger = logging.getLogger(__name__)
 
@@ -75,11 +91,16 @@ _MODEL_ROUTE = re.compile(
     r"^/gordo/v0/([^/]+)/([^/]+)/"
     r"(prediction|anomaly/prediction|metadata|healthcheck|download-model)/?$"
 )
-_TOP_ROUTES = ("/healthcheck", "/readiness", "/server-version")
+OPENAPI_ROUTE = "/gordo/v0/openapi.json"
+_TOP_ROUTES = ("/healthcheck", "/readiness", "/server-version", OPENAPI_ROUTE)
 _POST_ACTIONS = ("prediction", "anomaly/prediction")
 # a revision is a plain directory-name token; anything with path separators
 # or dot-runs would escape the model collection tree
 _REVISION = re.compile(r"^[A-Za-z0-9][A-Za-z0-9._-]*$")
+# a request head or body beyond these is a client error, not a reason to
+# buffer unbounded bytes per connection
+MAX_HEAD_BYTES = 64 * 1024
+MAX_BODY_BYTES = 256 * 1024 * 1024
 
 
 class ModelEntry:
@@ -105,13 +126,110 @@ def _load_failure_ttl_s() -> float:
         return 30.0
 
 
+def _is_json(content_type: Optional[str]) -> bool:
+    """werkzeug's ``Request.is_json``: the mimetype is ``application/json``
+    or ``application/*+json``."""
+    mimetype = (content_type or "").split(";", 1)[0].strip().lower()
+    return mimetype == "application/json" or (
+        mimetype.startswith("application/") and mimetype.endswith("+json"))
+
+
+class BadRequest(Exception):
+    """A request the transport cannot frame: answered with ``status`` and
+    the connection closed."""
+
+    def __init__(self, status: int, message: str):
+        super().__init__(message)
+        self.status = status
+        self.message = message
+
+
+def read_body(rfile, headers) -> bytes:
+    """The request body off a buffered socket file: ``Content-Length``
+    bytes, or a ``Transfer-Encoding: chunked`` body (trailers discarded),
+    as werkzeug's server reads them; no body without either. Every byte of
+    the body is consumed, so the next request on the connection starts at
+    its request line. Raises :class:`BadRequest` for a malformed length and
+    a body over MAX_BODY_BYTES."""
+    if "chunked" in (headers.get("Transfer-Encoding") or "").lower():
+        body = bytearray()
+        while True:
+            line = rfile.readline(MAX_HEAD_BYTES + 1)
+            try:
+                size = int(line.split(b";", 1)[0].strip(), 16)
+            except ValueError:
+                raise BadRequest(400, "malformed chunk size") from None
+            if size == 0:
+                while rfile.readline(MAX_HEAD_BYTES + 1) not in (b"\r\n", b"\n", b""):
+                    pass
+                return bytes(body)
+            if len(body) + size > MAX_BODY_BYTES:
+                raise BadRequest(413, "request body too large")
+            body += rfile.read(size)
+            rfile.readline(MAX_HEAD_BYTES + 1)  # the chunk's CRLF
+    length = content_length(headers.get("Content-Length"))
+    return rfile.read(length) if length else b""
+
+
+def content_length(value: Optional[str]) -> int:
+    """A ``Content-Length`` header's byte count (0 without one); raises
+    :class:`BadRequest` for one that is not a count or is over
+    MAX_BODY_BYTES."""
+    try:
+        length = int(value or 0)
+    except ValueError:
+        raise BadRequest(400, "malformed Content-Length") from None
+    if length < 0:
+        raise BadRequest(400, "malformed Content-Length")
+    if length > MAX_BODY_BYTES:
+        raise BadRequest(413, "request body too large")
+    return length
+
+
+class _Exchange:
+    """One request's state while the route table answers it: when it
+    started, its revision once resolved, whether it takes the native codec,
+    and its phases' seconds."""
+
+    def __init__(self, started: float):
+        self.started = started
+        self.timings: Dict[str, float] = {}
+        self.revision: Optional[str] = None
+        self.fast = False
+
+    def answer(self, status: int, body, with_revision: bool = True,
+               content_type: str = "application/json", headers=()) -> Tuple[int, list, bytes]:
+        """``(status, headers, bytes)`` of ``body``: a dict as JSON (its
+        ``"data"`` may be a RawFrame), with the request's revision in it
+        unless ``with_revision`` is false, or bytes as they are. A
+        prediction that succeeded times its encoding as the ``encode``
+        phase; the ``Server-Timing`` header holds the request's wall time so
+        far, then its phases."""
+        encode_started = timeit.default_timer()
+        if isinstance(body, dict):
+            if with_revision:
+                body = dict(body, revision=self.revision)
+            data = views.response_bytes(body, self.fast)
+        else:
+            data = body
+        if status == 200 and "predict" in self.timings:
+            self.timings["encode"] = timeit.default_timer() - encode_started
+        entries = [f"request_walltime_s;dur={timeit.default_timer() - self.started}"]
+        entries += [f"{name}_s;dur={seconds}" for name, seconds in self.timings.items()]
+        out = [("Content-Type", content_type), ("Server-Timing", ", ".join(entries)),
+               *headers]
+        if self.revision:
+            out.append(("revision", self.revision))
+        return status, out, data
+
+
 class GordoServer(ThreadingHTTPServer):
     daemon_threads = True
     # the listen backlog: socketserver's default of 5 resets connections
     # when more clients than that connect at once
     request_queue_size = 128
 
-    def __init__(self, address, collection_dir: str, device):
+    def __init__(self, address, collection_dir: str, device, bind_and_activate: bool = True):
         self.collection_dir = collection_dir
         self.revision = os.path.basename(os.path.normpath(collection_dir))
         self.device = device
@@ -126,7 +244,23 @@ class GordoServer(ThreadingHTTPServer):
         self._failures: Dict[Tuple[str, str], Tuple[float, BaseException]] = {}
         self._load_locks: Dict[Tuple[str, str], threading.Lock] = {}
         self._entries_lock = threading.Lock()
-        super().__init__(address, _Handler)
+        # the connections open on this server, and how many were accepted
+        self._connections = set()
+        self._connections_lock = threading.Lock()
+        self.accepted = 0
+        super().__init__(address, _Handler, bind_and_activate)
+
+    def server_close(self) -> None:
+        """Close the listener, end the keep-alive connections waiting for
+        their next request (their read side is shut down; a response being
+        written still goes out), and wait for the connections' threads."""
+        with self._connections_lock:
+            for connection in self._connections:
+                try:
+                    connection.shutdown(socket.SHUT_RD)
+                except OSError:
+                    pass
+        super().server_close()
 
     @property
     def models(self) -> Dict[str, ModelEntry]:
@@ -204,159 +338,236 @@ class GordoServer(ThreadingHTTPServer):
                 return json.load(f)
         return self.expected
 
+    # ------------------------------------------------------------ dispatch
+    def dispatch(self, method: str, target: str, headers, body: bytes,
+                 started: Optional[float] = None) -> Tuple[int, list, bytes]:
+        """The answer to one request, whatever carried it: ``method``, the
+        request target (path and query), ``headers`` (any mapping whose
+        ``get`` takes a header's name in any case) and the body's bytes.
+        Returns ``(status, headers, body bytes)``: the headers hold
+        ``Content-Type``, ``Server-Timing`` and the revision, never
+        ``Content-Length`` or ``Connection``, which are the transport's. Every
+        front end of this server (the handler below and the fast lanes of
+        server/fastlane.py) answers through it."""
+        exchange = _Exchange(timeit.default_timer() if started is None else started)
+        try:
+            return self._route(exchange, method, target, headers, body)
+        except Exception:  # noqa: BLE001 -- the server keeps serving
+            logger.exception("Unhandled server error: %s %s", method, target)
+            return exchange.answer(500, {"error": "Internal server error"}, with_revision=False)
 
-def _is_json(content_type: Optional[str]) -> bool:
-    """werkzeug's ``Request.is_json``: the mimetype is ``application/json``
-    or ``application/*+json``."""
-    mimetype = (content_type or "").split(";", 1)[0].strip().lower()
-    return mimetype == "application/json" or (
-        mimetype.startswith("application/") and mimetype.endswith("+json"))
-
-
-class _Handler(BaseHTTPRequestHandler):
-    server: GordoServer
-
-    def log_message(self, format, *args):
-        logger.debug("%s - %s", self.address_string(), format % args)
-
-    revision = None  # the request's revision, once resolved
-    fast = False  # whether the request takes the native codec
-
-    def _send(self, status: int, body, with_revision: bool = True,
-              content_type: str = "application/json", headers=()) -> None:
-        """Answer ``body``: a dict as JSON (its ``"data"`` may be a
-        RawFrame), with the request's revision in it unless
-        ``with_revision`` is false, or bytes as they are. A prediction that
-        succeeded times its encoding as the ``encode`` phase; the
-        ``Server-Timing`` header holds the request's wall time so far, then
-        its phases."""
-        started = timeit.default_timer()
-        if isinstance(body, dict):
-            if with_revision:
-                body = dict(body, revision=self.revision)
-            data = views.response_bytes(body, self.fast)
-        else:
-            data = body
-        if status == 200 and "predict" in self.timings:
-            self.timings["encode"] = timeit.default_timer() - started
-        entries = [f"request_walltime_s;dur={timeit.default_timer() - self.started}"]
-        entries += [f"{name}_s;dur={seconds}" for name, seconds in self.timings.items()]
-        self.send_response(status)
-        self.send_header("Content-Type", content_type)
-        self.send_header("Content-Length", str(len(data)))
-        self.send_header("Server-Timing", ", ".join(entries))
-        for name, value in headers:
-            self.send_header(name, value)
-        if self.revision:
-            self.send_header("revision", self.revision)
-        self.end_headers()
-        self.wfile.write(data)
-
-    def _body(self) -> bytes:
-        return self.rfile.read(int(self.headers.get("Content-Length") or 0))
-
-    def _readiness(self, collection_dir: str):
+    def _readiness(self, exchange: _Exchange, collection_dir: str):
         """200 when every expected model's artifact is in the collection
         (or none is expected), else 503 with the missing ones."""
         try:
-            expected = self.server.expected_models()
+            expected = self.expected_models()
         except (OSError, ValueError):
-            return self._send(503, {
+            return exchange.answer(503, {
                 "ready": False,
-                "missing": [f"(expected-models file {self.server.expected_file!r} unreadable)"],
+                "missing": [f"(expected-models file {self.expected_file!r} unreadable)"],
                 "n_missing": 1,
             }, with_revision=False)
         missing = [name for name in expected if not os.path.exists(
             os.path.join(collection_dir, name, "metadata.json"))]
         if missing:
-            return self._send(503, {"ready": False, "missing": missing[:20],
-                                    "n_missing": len(missing)}, with_revision=False)
-        return self._send(200, {"ready": True}, with_revision=False)
+            return exchange.answer(503, {"ready": False, "missing": missing[:20],
+                                         "n_missing": len(missing)}, with_revision=False)
+        return exchange.answer(200, {"ready": True}, with_revision=False)
 
-    def _expected(self):
+    def _expected(self, exchange: _Exchange):
         try:
-            expected = self.server.expected_models()
+            expected = self.expected_models()
         except (OSError, ValueError):
-            return self._send(503, {"error": "expected-models file declared but unreadable"},
-                              with_revision=False)
-        return self._send(200, {"expected-models": expected})
+            return exchange.answer(503, {"error": "expected-models file declared but unreadable"},
+                                   with_revision=False)
+        return exchange.answer(200, {"expected-models": expected})
 
-    def _route(self, method: str):
-        url = urlsplit(self.path)
+    def prediction_request(self, name: str, action: str, query: str, headers, body: bytes,
+                           started: Optional[float] = None) -> Tuple[int, list, bytes]:
+        """The answer to a POST to one of the two prediction routes of model
+        ``name`` (``action`` ``"prediction"`` or ``"anomaly/prediction"``),
+        the route table's own handler of them: what :meth:`dispatch` answers
+        for the same request. The fast lanes call it for their hot routes."""
+        exchange = _Exchange(timeit.default_timer() if started is None else started)
+        try:
+            parsed = parse_qs(query, keep_blank_values=True)
+            refusal = self._resolve_revision(exchange, parsed, headers)
+            if refusal is not None:
+                return refusal
+            return self._model_action(exchange, name, action, parsed, headers, body)
+        except Exception:  # noqa: BLE001 -- the server keeps serving
+            logger.exception("Unhandled server error: POST %s %s", name, action)
+            return exchange.answer(500, {"error": "Internal server error"}, with_revision=False)
+
+    def _resolve_revision(self, exchange: _Exchange, query: dict, headers):
+        """Set the request's revision (``?revision=``, else the ``revision``
+        header, else the served one); the 410 answer when it does not exist,
+        else None."""
+        pinned = (query.get("revision") or [""])[0] or headers.get("revision")
+        exchange.revision = pinned or self.revision
+        if self.revision_dir(exchange.revision) is None:
+            return exchange.answer(410, {"error": f"Revision '{pinned}' not found."},
+                                   with_revision=False)
+        return None
+
+    def _route(self, exchange: _Exchange, method: str, target: str, headers, body: bytes):
+        url = urlsplit(target)
         query = parse_qs(url.query, keep_blank_values=True)
-        pinned = (query.get("revision") or [""])[0] or self.headers.get("revision")
-        self.revision = pinned or self.server.revision
-        collection_dir = self.server.revision_dir(self.revision)
-        if collection_dir is None:
-            return self._send(410, {"error": f"Revision '{pinned}' not found."},
-                              with_revision=False)
-        path = url.path.rstrip("/") or "/"
+        refusal = self._resolve_revision(exchange, query, headers)
+        if refusal is not None:
+            return refusal
+        collection_dir = self.revision_dir(exchange.revision)
+        path = local_path(url.path, headers).rstrip("/") or "/"
         project_match = _PROJECT_ROUTE.match(path)
         model_match = _MODEL_ROUTE.match(path)
         if not (project_match or model_match or path in _TOP_ROUTES):
-            return self._send(404, {"message": f"No route {method} {url.path}"})
+            return exchange.answer(404, {"message": f"No route {method} {url.path}"})
         if model_match and model_match.group(3) in _POST_ACTIONS and method != "POST":
-            return self._send(405, {"message": f"{method} not allowed on {url.path}"},
-                              headers=[("Allow", "POST")])
+            return exchange.answer(405, {"message": f"{method} not allowed on {url.path}"},
+                                   headers=[("Allow", "POST")])
         if path == "/healthcheck":
-            return self._send(200, b"")
+            return exchange.answer(200, b"")
         if path == "/readiness":
-            return self._readiness(collection_dir)
+            return self._readiness(exchange, collection_dir)
         if path == "/server-version":
-            return self._send(200, {"version": __version__})
+            return exchange.answer(200, {"version": __version__})
+        if path == OPENAPI_ROUTE:
+            return exchange.answer(200, json.dumps(openapi_document()).encode())
         if project_match:
             listing = project_match.group(2)
             if listing == "models":
-                return self._send(200, views.model_list(collection_dir))
+                return exchange.answer(200, views.model_list(collection_dir))
             if listing == "revisions":
-                return self._send(200, views.revision_list(collection_dir, self.server.revision))
-            return self._expected()
+                return exchange.answer(200, views.revision_list(collection_dir, self.revision))
+            return self._expected(exchange)
         _, name, action = model_match.groups()
         if action in ("metadata", "healthcheck"):
             directory = os.path.join(collection_dir, name)
             if not os.path.exists(os.path.join(directory, "metadata.json")):
-                return self._send(404, {"message": f"No model found for '{name}'"})
-            return self._send(200, {
+                return exchange.answer(404, {"message": f"No model found for '{name}'"})
+            return exchange.answer(200, {
                 "gordo-server-version": __version__,
                 "metadata": load_metadata(directory),
-                "env": {"MODEL_COLLECTION_DIR": self.server.collection_dir},
+                "env": {"MODEL_COLLECTION_DIR": self.collection_dir},
             })
+        return self._model_action(exchange, name, action, query, headers, body)
+
+    def _model_action(self, exchange: _Exchange, name: str, action: str, query: dict, headers,
+                      body: bytes):
+        """A route that loads model ``name``: ``download-model`` or a
+        prediction (``body`` read as X and y only when sent as JSON)."""
         try:
-            entry = self.server.model_entry(self.revision, name)
+            entry = self.model_entry(exchange.revision, name)
         except FileNotFoundError:
-            return self._send(404, {"message": f"No such model found: '{name}'"})
+            return exchange.answer(404, {"message": f"No such model found: '{name}'"})
         except Exception:  # noqa: BLE001 -- one broken artifact; the rest serve on
             if action == "download-model":
                 raise  # the JAX server's generic 500
             logger.exception("Failed to load model %r", name)
-            return self._send(500, {"error": f"Model '{name}' failed to load"})
+            return exchange.answer(500, {"error": f"Model '{name}' failed to load"})
         if action == "download-model":
-            return self._send(200, views.download_model(entry.directory),
-                              content_type="application/octet-stream",
-                              headers=[("Content-Disposition",
-                                        "attachment; filename=model.tar.gz")])
+            return exchange.answer(200, views.download_model(entry.directory),
+                                   content_type="application/octet-stream",
+                                   headers=[("Content-Disposition",
+                                             "attachment; filename=model.tar.gz")])
         if (query.get("format") or [""])[0] == "parquet":
-            return self._send(501, {"error": views.PARQUET_REFUSAL})
-        self.fast = fast_codec.request_enabled(self.headers)
-        body = self._body() if _is_json(self.headers.get("Content-Type")) else None
+            return exchange.answer(501, {"error": views.PARQUET_REFUSAL})
+        exchange.fast = fast_codec.request_enabled(headers)
+        if not _is_json(headers.get("Content-Type")):
+            body = None
         if action == "prediction":
-            status, body = views.base_prediction_core(
+            status, out = views.base_prediction_core(
                 entry.detector, body, entry.tags, entry.target_tags, entry.frequency,
-                self.fast, self.timings)
+                exchange.fast, exchange.timings)
         else:
-            status, body = views.anomaly_prediction_core(
+            status, out = views.anomaly_prediction_core(
                 entry.detector, body, entry.tags, entry.target_tags,
-                entry.frequency, "all_columns" in query, self.fast, self.timings)
-        return self._send(status, body)
+                entry.frequency, "all_columns" in query, exchange.fast, exchange.timings)
+        return exchange.answer(status, out)
+
+
+def local_path(path: str, headers) -> str:
+    """``path`` without the prefix of a prefixed ingress, as the JAX app's
+    ``adapt_proxy_deployment`` strips it: the prefix is
+    ``X-Envoy-Original-Path`` (its path part) less the local path when it
+    ends with it, else the header's path itself; without that header,
+    ``X-Forwarded-Prefix``. It is stripped at a segment boundary only."""
+    original = (headers.get("X-Envoy-Original-Path") or "").split("?", 1)[0]
+    if original:
+        local, stripped = path.rstrip("/"), original.rstrip("/")
+        prefix = stripped[:-len(local)] if local and stripped.endswith(local) else original
+    else:
+        prefix = headers.get("X-Forwarded-Prefix") or ""
+    prefix = prefix.rstrip("/")
+    if prefix and path == prefix:
+        return "/"
+    if prefix and path.startswith(prefix + "/"):
+        return path[len(prefix):]
+    return path
+
+
+def client_keep_alive(version: str, connection: Optional[str]) -> bool:
+    """Whether a client keeps its connection after this request: HTTP/1.1
+    unless it sends ``Connection: close``, HTTP/1.0 only with
+    ``Connection: keep-alive``."""
+    connection = (connection or "").lower()
+    if "close" in connection:
+        return False
+    if version == "HTTP/1.0":
+        return "keep-alive" in connection
+    return True
+
+
+class _Handler(BaseHTTPRequestHandler):
+    """HTTP/1.1 with persistent connections, as the JAX package's fast lane
+    speaks it: the body of every request is read whole before it is
+    answered, whatever the answer, so the next request on the connection
+    starts at its request line."""
+
+    server: GordoServer
+    protocol_version = "HTTP/1.1"
+    # a connection idle (or stalled) this long is closed
+    timeout = 75.0
+    # TCP_NODELAY: on a kept connection a response must not wait for the
+    # client's delayed ACK of the previous one (Nagle's algorithm)
+    disable_nagle_algorithm = True
+
+    def setup(self):
+        super().setup()
+        with self.server._connections_lock:
+            self.server._connections.add(self.connection)
+            self.server.accepted += 1
+
+    def finish(self):
+        with self.server._connections_lock:
+            self.server._connections.discard(self.connection)
+        super().finish()
+
+    def log_message(self, format, *args):
+        logger.debug("%s - %s", self.address_string(), format % args)
+
+    def _write(self, status: int, headers, data: bytes) -> None:
+        """The response, its head and body in one write."""
+        self.send_response(status)
+        for name, value in headers:
+            self.send_header(name, value)
+        self.send_header("Content-Length", str(len(data)))
+        keep = not self.close_connection
+        self.send_header("Connection", "keep-alive" if keep else "close")
+        self._headers_buffer.extend((b"\r\n", data))
+        self.flush_headers()
 
     def _handle(self, method: str) -> None:
-        self.started = timeit.default_timer()
-        self.timings: Dict[str, float] = {}
+        started = timeit.default_timer()
+        self.close_connection = not client_keep_alive(self.request_version,
+                                                      self.headers.get("Connection"))
         try:
-            self._route(method)
-        except Exception:  # noqa: BLE001 -- the server keeps serving
-            logger.exception("Unhandled server error: %s %s", method, self.path)
-            self._send(500, {"error": "Internal server error"}, with_revision=False)
+            body = read_body(self.rfile, self.headers)
+        except BadRequest as exc:
+            self.close_connection = True
+            return self._write(exc.status, [("Content-Type", "application/json")],
+                               json.dumps({"error": exc.message}).encode())
+        self._write(*self.server.dispatch(method, self.path, self.headers, body, started))
 
     def do_GET(self):
         self._handle("GET")
@@ -371,24 +582,49 @@ class _Handler(BaseHTTPRequestHandler):
         self._handle("DELETE")
 
 
-def make_server(host: str, port: int, device=None, collection_dir: str = None
-                ) -> GordoServer:
+def make_server(host: str, port: int, device=None, collection_dir: str = None,
+                bind_and_activate: bool = True) -> GordoServer:
     """A bound server of the collection's models, each loaded on ``device``
     (``cuda`` unless ``"cpu"``) at its first request; ``port`` 0 picks a
-    free one (``server.server_address`` has it)."""
+    free one (``server.server_address`` has it). With ``bind_and_activate``
+    false it opens no socket: a fast lane serves its :meth:`dispatch`."""
     collection_dir = collection_dir or os.environ.get("MODEL_COLLECTION_DIR")
     if not collection_dir:
         raise ValueError("MODEL_COLLECTION_DIR is not set")
-    return GordoServer((host, port), collection_dir, resolve_device(device))
+    return GordoServer((host, port), collection_dir, resolve_device(device), bind_and_activate)
+
+
+def make_front_end(host: str, port: int, device=None, collection_dir: str = None,
+                   fd: Optional[int] = None):
+    """``(app, server)``: the server of the collection (``app``) and the
+    front end that serves it: the socket fast lane (server/fastlane.py) when
+    ``GORDO_TPU_FAST_LANE=1``, as the JAX ``run_server`` mounts it, else the
+    server itself with this module's handler. ``fd`` adopts a listening
+    socket (one that prefork workers share) instead of binding
+    ``host:port``."""
+    from . import fastlane
+
+    if fastlane.enabled():
+        app = make_server(host, port, device, collection_dir, bind_and_activate=False)
+        return app, fastlane.make_server(app, host, port, fd=fd)
+    app = make_server(host, port, device, collection_dir, bind_and_activate=fd is None)
+    if fd is not None:
+        app.socket.close()
+        app.socket = socket.socket(socket.AF_INET, socket.SOCK_STREAM, fileno=os.dup(fd))
+        app.server_address = app.socket.getsockname()
+    return app, app
 
 
 def run_server(host: str = "0.0.0.0", port: int = 5555, device=None,
-               collection_dir: str = None) -> None:
-    """Serve until interrupted."""
-    server = make_server(host, port, device, collection_dir)
-    logger.info("Serving %s on http://%s:%d", server.collection_dir,
-                *server.server_address[:2])
+               collection_dir: str = None, fd: Optional[int] = None) -> None:
+    """Serve until interrupted (:func:`make_front_end`)."""
+    app, server = make_front_end(host, port, device, collection_dir, fd)
+    logger.info("Serving %s on port %d (%s)", app.collection_dir,
+                getattr(server, "server_port", None) or server.server_address[1],
+                type(server).__name__)
     try:
         server.serve_forever()
     finally:
         server.server_close()
+        if app is not server:
+            app.server_close()

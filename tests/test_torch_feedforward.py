@@ -339,12 +339,13 @@ def test_fleet_plans_feedforward_machines_like_jax(case):
                     "sklearn.preprocessing.MinMaxScaler",
                     {"gordo_tpu.models.models.RawModelRegressor": RAW_ESTIMATOR}]}}}}
     ours, theirs = _machines([config])
-    plan = bt._plan_machine(ours[0])
-    assert (plan is None) == (case in ("KFCV", "KFold CV"))
-    if case in ("hourglass", "raw regressor"):
-        jax_plan = jax_bt._plan_machine(theirs[0])
+    plan, jax_plan = bt._plan_machine(ours[0]), jax_bt._plan_machine(theirs[0])
+    # a KFCV machine is bucketed, a KFold outside KFCV stays serial
+    assert (plan is None) == (jax_plan is None) == (case == "KFold CV")
+    if plan is not None:
         assert plan.spec == spec_from_dataclass(jax_plan.spec)
-        for key in ("scale_x", "wrap_anomaly", "epochs", "batch_size", "shuffle", "n_splits"):
+        for key in ("scale_x", "wrap_anomaly", "kfcv", "epochs", "batch_size", "shuffle",
+                    "n_splits", "cv", "anomaly_kwargs"):
             assert getattr(plan, key) == getattr(jax_plan, key), key
 
 
@@ -382,18 +383,26 @@ def test_feedforward_bucket_program_matches_jax():
                                            atol=1e-5)
 
 
-def test_mixed_fleet_keeps_families_apart_and_kfcv_serial(monkeypatch, tmp_path):
-    """Hourglass machines, Transformer machines and a KFCV machine in one
-    fleet: two stacked buckets, one spec each, and the KFCV machine built
-    by the serial builder; every artifact loads and predicts."""
+def test_mixed_fleet_keeps_families_apart_and_buckets_kfcv(monkeypatch, tmp_path):
+    """Hourglass machines, Transformer machines, a KFCV machine under the
+    default TimeSeriesSplit and examples/config.yaml's ``turbine-c`` (KFCV,
+    seeded shuffled KFold(5)) in one fleet: every machine from a stacked
+    program, none by the serial builder; the KFCV machine shares the
+    hourglass machines' bucket (only its assembly differs), ``turbine-c``
+    has a bucket of its own (its tags and its KFold), the Transformers
+    theirs; every artifact loads and predicts, and the KFCV ones are KFCV
+    detectors with finite thresholds."""
+    from chip_smoke import EXAMPLE_MACHINES
     from gordo_tpu_torch import serializer
     from gordo_tpu_torch.machine import Machine
+    from gordo_tpu_torch.models.anomaly.diff import DiffBasedKFCVAnomalyDetector
     from gordo_tpu_torch.parallel import batch_trainer as bt
     from test_torch_fleet import ESTIMATOR, machine_config
 
+    turbine = next(dict(c) for c in EXAMPLE_MACHINES if c["name"] == "turbine-c")
     configs = ([ff_config(f"ff-{m}") for m in range(3)]
                + [machine_config(f"tf-{m}", estimator=dict(ESTIMATOR, epochs=1)) for m in range(2)]
-               + [ff_config("kfcv", detector="DiffBasedKFCVAnomalyDetector", window=12)])
+               + [ff_config("kfcv", detector="DiffBasedKFCVAnomalyDetector", window=12), turbine])
     buckets = []
     run_bucket = bt.run_bucket
 
@@ -406,17 +415,21 @@ def test_mixed_fleet_keeps_families_apart_and_kfcv_serial(monkeypatch, tmp_path)
                                      device="cpu", output_dir=str(tmp_path))
     built = builder.build()
     assert [m.name for _, m in built] == [c["name"] for c in configs]
-    assert builder.serial_built == ["kfcv"] and not builder.quarantine_records
-    assert sorted(n for _, n in buckets) == [2, 3]
-    assert len({spec for spec, _ in buckets}) == 2
-    X = np.random.RandomState(13).rand(30, 4)
+    assert builder.serial_built == [] and not builder.quarantine_records
+    assert sorted(n for _, n in buckets) == [1, 2, 4]
+    assert len({spec for spec, _ in buckets}) == 3
     for (model, machine), config in zip(built, configs):
+        n_tags = len(config["dataset"]["tags"])
+        X = np.random.RandomState(13).rand(30, n_tags)
         again = serializer.load(str(tmp_path / machine.name), device="cpu")
         assert type(again).__name__ == type(model).__name__
+        assert isinstance(model, DiffBasedKFCVAnomalyDetector) == (
+            machine.name in ("kfcv", "turbine-c"))
         offset = 15 if machine.name.startswith("tf") else 0
-        assert again.predict(X).shape == (30 - offset, 4)
+        assert again.predict(X).shape == (30 - offset, n_tags)
         np.testing.assert_allclose(again.predict(X), model.predict(X), rtol=1e-6, atol=1e-6)
         assert np.isfinite(model.aggregate_threshold_)
+        assert np.all(np.isfinite(model.feature_thresholds_))
 
 
 def test_feedforward_fleet_build_matches_jax_batched_builder(monkeypatch):

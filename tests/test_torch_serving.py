@@ -373,6 +373,9 @@ import gordo_tpu_torch.workflow.normalized_config
 import gordo_tpu_torch.server.batcher
 import gordo_tpu_torch.server.fast_codec
 import gordo_tpu_torch.native
+# the socket fast lane and the OpenAPI document
+import gordo_tpu_torch.server.fastlane
+import gordo_tpu_torch.server.openapi
 # the feedforward family, the KFCV detector and the sklearn steps' copies
 import gordo_tpu_torch.models.factories.feedforward_autoencoder
 import gordo_tpu_torch.models.transformers.imputer
