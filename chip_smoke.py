@@ -27,7 +27,13 @@ Drive the PyTorch/CUDA port (gordo_tpu_torch) on one NVIDIA GPU.
    printed beside their registers. All six are also held against their
    plain twins at the fleet's training shape (FLEET_SHAPE, BH 1,024; the
    float32 and bf16 gates above) and timed there beside their bounds and
-   ``scaled_dot_product_attention``.
+   ``scaled_dot_product_attention``. The LSTM recurrence's forward and
+   backward kernels (``lstm_recurrence.cu``, no Pallas counterpart) are
+   held against their plain twins in float32 (1e-4 relative) and bf16
+   (2e-2) at compressor-b's, bench.py's lstm_ae_144 (alone and as a
+   64-machine fleet step) and the factories' default width, the backward
+   bit-identical on a rerun, and timed beside their bounds, their twins
+   and cuDNN's ``torch.nn.LSTM``.
 4. Serving path: a ``transformer-ae-512`` artifact (TransformerAutoEncoder,
    lookback 512, d_model 256, 4 heads, ff 512, 2 blocks, 8 tags; weights
    from a seed) is served by the port's HTTP server on the card, and three
@@ -138,9 +144,30 @@ Drive the PyTorch/CUDA port (gordo_tpu_torch) on one NVIDIA GPU.
    metadata sklearn's, the thresholds the plain KFCV math on the program's
    fold predictions (1e-9) and within 3x of a serial build's, dQ and dK/dV
    launched by the Transformer bucket alone.
-15. A ``batcher_path`` JSON line (both dtypes' numbers), a ``feedforward``
-   JSON line, a ``fastlane``/``kfcv_fleet`` JSON line, a ``kernels`` JSON
-   line (six entries: three float32, three bf16), then the last line
+15. LSTM example build: ``build`` of examples/config.yaml's LSTM machine
+   (``compressor-b``, an LSTMAutoEncoder, lstm_hourglass, lookback 24, 3
+   epochs, batch 1) as written, through the port's CLI in this process:
+   finite thresholds, the offset 23, held-out error below the seeded
+   weights', the float32 recurrence backward launched once per LSTM layer a
+   step; then a step's host-clock ms on the kernels and on the plain twin.
+16. Windowed serving: ``lstm_ae_144``, ``lstm_forecast_144`` and ``tcn_144``
+   artifacts (bench.py's shapes, seeded weights, float32 and bf16) and a
+   ``transformer-ae-512`` artifact in one collection: 1,535-row anomaly
+   requests with batching ``auto`` (p50), then forced on, each answer
+   within its dtype's tolerance of the direct predict, no fused call of two
+   specs, the recurrence forward once per LSTM layer a fused LSTM call, the
+   flash forward once per block a fused Transformer call.
+17. Windowed fleet: ``batch-build`` of WINDOWED_FLEET_MACHINES bf16 machines
+   of each windowed family beside the eight ``transformer-ae-512``: no
+   serial build, one family a stacked program, the bf16 recurrence
+   backward once per LSTM layer a stacked step, dQ and dK/dV from the
+   Transformer bucket alone, held-out errors below the seeded weights';
+   the wall beside one serial build of each family x N.
+18. A ``batcher_path`` JSON line (both dtypes' numbers), a ``feedforward``
+   JSON line, a ``fastlane``/``kfcv_fleet`` JSON line, a ``windowed`` JSON
+   line, a ``kernels`` JSON line (ten entries: the six flash kernels, then
+   the LSTM recurrence's forward and backward in float32 and bf16), then
+   the last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
 Any failure raises, so the exit code is not 0 and no result line is
@@ -149,6 +176,7 @@ printed. Without CUDA, or outside a checkout, it exits 2 at once.
 
 import concurrent.futures
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -755,6 +783,227 @@ def bf16_kernel_phase(card: str) -> list:
     return [forward, *backward]
 
 
+# ------------------------------------------------------------ the LSTM recurrence
+# the recurrence kernels' shapes, (label, machines M, batch B, steps T,
+# units U): examples/config.yaml's compressor-b (lstm_hourglass of 4 tags:
+# units 3, 3, 2, 2, 3, 3; batch 1, lookback 24: its widest), bench.py's lstm_ae_144
+# (lstm_symmetric dims 64, 32: batch 64, lookback 144) alone and as a
+# stacked fleet step of 64 machines, and the factories' default width
+# (lstm_model's encoding_dim 256), whose recurrent kernel is read through L2
+LSTM_SHAPES = (("compressor-b", 1, 1, 24, 3),
+               ("lstm_ae_144", 1, 64, 144, 64), ("lstm_ae_144", 1, 64, 144, 32),
+               ("lstm_ae_144 fleet step", 64, 64, 144, 64),
+               ("lstm_ae_144 fleet step", 64, 64, 144, 32),
+               ("default width", 1, 32, 144, 256))
+# held against the twins only, untimed: the shapes the main paths launch at
+# besides (serving: one or two stacked models over 2,048 windows, as
+# pad_for_predict pads a 1,535-row request's 1,392; the smoke's 32-machine
+# fleet step), and a batch that is not a multiple of its batch tile (2)
+LSTM_CHECK_SHAPES = (("served", 1, 2048, 144, 64), ("served stacked", 2, 2048, 144, 32),
+                     ("smoke fleet step", 32, 64, 144, 64), ("ragged tile", 3, 101, 24, 64))
+LSTM_MAIN_SHAPE = ("lstm_ae_144", 1, 64, 144, 64)  # the entries' top-level numbers
+TOL_LSTM_REL = 1e-4  # float32 kernel vs twin, relative to the largest entry
+LSTM_SOURCE = "gordo_tpu_torch/ops/csrc/lstm_recurrence.cu"
+# no Pallas kernel: the JAX package's LSTM layer is a lax.scan
+LSTM_REPLACES = "gordo_tpu/ops/nn.py:205 (lax.scan, no Pallas kernel)"
+
+
+def _rel_err(got, ref) -> float:
+    return ((got.float() - ref.float()).abs().max().item()
+            / max(ref.float().abs().max().item(), 1e-30))
+
+
+def _lstm_inputs(m: int, b: int, t: int, u: int, dtype, g):
+    """Zx as an input projection gives it (entries ~ N(0, 0.25)), a recurrent
+    kernel of an orthogonal's scale (1/sqrt(U)) and an output gradient, all
+    on the card."""
+    import torch
+
+    zx = (0.5 * torch.randn((m, b, t, 4 * u), device="cuda", generator=g)).to(dtype)
+    rk = (torch.randn((m, u, 4 * u), device="cuda", generator=g) / u ** 0.5).to(dtype)
+    return zx, rk
+
+
+def _cudnn_lstm_ms(b: int, t: int, u: int, dtype, iters: int) -> dict:
+    """cuDNN's ``torch.nn.LSTM`` (tanh, sigmoid; U inputs and U units, one
+    layer) in ``dtype`` over (B, T, U) on the card: its forward without
+    gradients, and the backward of its output through autograd. It is the
+    yardstick only: the port never calls it. None where it does not take
+    the dtype."""
+    import torch
+
+    try:
+        lstm = torch.nn.LSTM(u, u, batch_first=True).to(device="cuda", dtype=dtype)
+        x = torch.randn((b, t, u), device="cuda", dtype=dtype, requires_grad=True)
+        with torch.no_grad():
+            forward = _time_ms(lambda: lstm(x), iters)
+        out = lstm(x)[0]
+        grad = torch.randn_like(out)
+        leaves = [x, *lstm.parameters()]
+        backward = _time_ms(lambda: torch.autograd.grad(out, leaves, grad, retain_graph=True),
+                            iters)
+    except RuntimeError as err:
+        print(f"cuDNN LSTM at {dtype}: {err}", flush=True)
+        return {"forward": None, "backward": None}
+    return {"forward": forward, "backward": backward}
+
+
+def _lstm_bound(m: int, b: int, t: int, u: int, dtype: str, backward: bool,
+                return_sequences: bool) -> dict:
+    """The least time of one launch: its bytes read and written once at the
+    HBM rate, against h_{t-1} R (or dz R^T) at the card's peak for the
+    operand type (PEAK_FLOP_PER_S, as the flash kernels' bounds).
+    Forward: zx and R read, the output written; backward: the output's
+    gradient, z and c (float32) and R^T read, dZ written.
+    ``fp32_core_bound_ms`` takes the operations at the CUDA cores' float32
+    rate, where the kernels compute today (no tensor-core path yet)."""
+    elem = 2 if dtype == "bfloat16" else 4
+    rows, g4 = m * b * t, 4 * u
+    out = rows * u if return_sequences else m * b * u
+    if backward:
+        n_bytes = elem * out + 4 * rows * g4 + 4 * rows * u + elem * m * u * g4 + elem * rows * g4
+    else:
+        n_bytes = elem * rows * g4 + elem * m * u * g4 + elem * out
+    flops = 2 * rows * u * g4  # the cell's elementwise work is not counted
+    by_bytes, by_ops = n_bytes / HBM_BYTES_PER_S, flops / PEAK_FLOP_PER_S[dtype]
+    return {"bound_ms": 1e3 * max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes > by_ops else "operations",
+            "fp32_core_bound_ms": 1e3 * max(by_bytes, flops / FP32_FLOP_PER_S),
+            "flop": flops, "bytes": n_bytes}
+
+
+def lstm_kernel_phase(card: str) -> list:
+    """The recurrence's forward and backward kernels against their plain
+    twins on the card, in float32 and bf16, at each of LSTM_SHAPES and
+    LSTM_CHECK_SHAPES: the forward's output and saved z and c, both
+    ``return_sequences``; the backward's dZ from the kernel forward's saved
+    tensors, bit-identical on a second launch; the serving forward (nothing
+    saved) equal to the training forward. Then, at each of LSTM_SHAPES,
+    the kernels' times with CUDA events beside their bounds, the twins' and
+    cuDNN's ``torch.nn.LSTM``.
+    Returns the four kernels' entries of the ``kernels`` line (float32 and
+    bf16, forward and backward)."""
+    import torch
+
+    from gordo_tpu_torch.ops import lstm
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 13)
+    tol = {torch.float32: TOL_LSTM_REL, torch.bfloat16: TOL_BF16_MODEL_REL}
+    worst = {(dtype, kind, err): 0.0 for dtype in tol for kind in ("forward", "backward")
+             for err in ("rel", "abs")}
+    for label, m, b, t, u in LSTM_SHAPES + LSTM_CHECK_SHAPES:
+        for dtype in tol:
+            zx, rk = _lstm_inputs(m, b, t, u, dtype, g)
+            for return_sequences in (True, False):
+                out, (z, c, h) = lstm.lstm_recurrence_forward(zx, rk, "tanh", "sigmoid",
+                                                              return_sequences, True)
+                serve, _ = lstm.lstm_recurrence_forward(zx, rk, "tanh", "sigmoid",
+                                                        return_sequences, False)
+                dout = torch.randn(out.shape, device="cuda", generator=g).to(dtype)
+                dz = lstm.lstm_recurrence_backward(dout, z, c, rk, "tanh", "sigmoid",
+                                                   return_sequences)
+                again = lstm.lstm_recurrence_backward(dout, z, c, rk, "tanh", "sigmoid",
+                                                      return_sequences)
+                torch.cuda.synchronize()
+                ref, (ref_z, ref_c, ref_h) = lstm.lstm_recurrence_forward_plain(
+                    zx, rk, "tanh", "sigmoid", return_sequences, True)
+                ref_dz = lstm.lstm_recurrence_backward_plain(dout, z, c, rk, "tanh", "sigmoid",
+                                                             return_sequences)
+                fwd = max(_rel_err(out, ref), _rel_err(z, ref_z), _rel_err(c, ref_c),
+                          _rel_err(h, ref_h))
+                bwd = _rel_err(dz, ref_dz)
+                print(f"lstm recurrence {label} M {m} B {b} T {t} U {u} {dtype} "
+                      f"return_sequences={return_sequences}: forward max rel err {fwd:.3e}, "
+                      f"backward {bwd:.3e}", flush=True)
+                if not (fwd <= tol[dtype] and bwd <= tol[dtype]):
+                    raise AssertionError(f"the LSTM kernels disagree with their twins at "
+                                         f"{label} {dtype}: {fwd:.3e}, {bwd:.3e}")
+                if not torch.equal(dz, again):
+                    raise AssertionError(f"the LSTM backward differs between two launches "
+                                         f"at {label} {dtype}")
+                if not torch.equal(serve, out):
+                    raise AssertionError(f"the serving forward differs from the training "
+                                         f"forward at {label} {dtype}")
+                for kind, rel, got, want in (("forward", fwd, out, ref),
+                                             ("backward", bwd, dz, ref_dz)):
+                    worst[dtype, kind, "rel"] = max(worst[dtype, kind, "rel"], rel)
+                    worst[dtype, kind, "abs"] = max(worst[dtype, kind, "abs"], (
+                        got.float() - want.float()).abs().max().item())
+                del out, z, c, h, serve, dout, dz, again, ref, ref_z, ref_c, ref_h, ref_dz
+            del zx, rk
+    print(f"lstm recurrence kernels: within their twins at every shape, the backward "
+          f"bit-identical on a rerun", flush=True)
+
+    timed = {(dtype, kind): [] for dtype in tol for kind in ("forward", "backward")}
+    for label, m, b, t, u in LSTM_SHAPES:
+        for dtype in tol:
+            cudnn = _cudnn_lstm_ms(b, t, u, dtype, 10) if m == 1 else {
+                "forward": None, "backward": None}
+            zx, rk = _lstm_inputs(m, b, t, u, dtype, g)
+            out, (z, c, _) = lstm.lstm_recurrence_forward(zx, rk, "tanh", "sigmoid", True, True)
+            dout = torch.randn(out.shape, device="cuda", generator=g).to(dtype)
+            iters = 20
+            ms = {
+                "forward": _time_ms(lambda: lstm.lstm_recurrence_forward(
+                    zx, rk, "tanh", "sigmoid", True, False), iters),
+                "backward": _time_ms(lambda: lstm.lstm_recurrence_backward(
+                    dout, z, c, rk, "tanh", "sigmoid", True), iters),
+            }
+            plain = {
+                "forward": _time_ms(lambda: lstm.lstm_recurrence_forward_plain(
+                    zx, rk, "tanh", "sigmoid", True, False), 3),
+                "backward": _time_ms(lambda: lstm.lstm_recurrence_backward_plain(
+                    dout, z, c, rk, "tanh", "sigmoid", True), 3),
+            }
+            training_ms = _time_ms(lambda: lstm.lstm_recurrence_forward(
+                zx, rk, "tanh", "sigmoid", True, True), iters)
+            for kind in ("forward", "backward"):
+                bound = _lstm_bound(m, b, t, u, str(dtype).replace("torch.", ""),
+                                    kind == "backward", True)
+                row = {"label": label, "shape": [m, b, t, u], "return_sequences": True,
+                       "ms": ms[kind], "plain_ms": plain[kind],
+                       "library_ms": cudnn[kind],
+                       "batch_tile": lstm.batch_tile(m, b),
+                       **lstm.kernel_plan(u, lstm.batch_tile(m, b), dtype, kind == "backward"),
+                       **bound}
+                row["bound_share"] = bound["bound_ms"] / ms[kind]
+                row["fp32_core_bound_share"] = bound["fp32_core_bound_ms"] / ms[kind]
+                row["achieved_tflop_s"] = bound["flop"] / (ms[kind] * 1e9)
+                if kind == "forward":
+                    row["training_forward_ms"] = training_ms
+                timed[dtype, kind].append(row)
+                print(f"lstm recurrence {kind} {label} M {m} B {b} T {t} U {u} {dtype} on "
+                      f"{card}: kernel {ms[kind]:.4f} ms, bound {bound['bound_ms']:.4f} ms "
+                      f"({bound['bound_by']}, {row['bound_share']:.1%}; CUDA cores "
+                      f"{bound['fp32_core_bound_ms']:.4f} ms, "
+                      f"{row['fp32_core_bound_share']:.1%}), plain "
+                      f"{plain[kind]:.4f} ms, cuDNN LSTM {row['library_ms']} ms; plan "
+                      f"{row['threads']} threads, {row['smem_bytes']} B shared, R in shared "
+                      f"{row['r_in_smem']}", flush=True)
+            del zx, rk, out, z, c, dout
+
+    entries = []
+    for dtype, suffix in ((torch.float32, ""), (torch.bfloat16, "_bf16")):
+        for kind in ("forward", "backward"):
+            rows = timed[dtype, kind]
+            main = next((r for r in rows if (r["label"], *r["shape"]) == LSTM_MAIN_SHAPE), {})
+            entries.append({
+                "name": f"lstm_recurrence_{kind}{suffix}", "route": "cuda",
+                "source": LSTM_SOURCE, "replaces": LSTM_REPLACES,
+                "dtype": str(dtype).replace("torch.", ""), "launches": None,
+                "max_abs_err": worst[dtype, kind, "abs"],
+                "max_rel_err": worst[dtype, kind, "rel"],
+                "ms": main.get("ms"), "plain_ms": main.get("plain_ms"),
+                "bound_ms": main.get("bound_ms"), "bound_by": main.get("bound_by"),
+                "fp32_core_bound_ms": main.get("fp32_core_bound_ms"),
+                "library_ms": main.get("library_ms"),
+                "library": "cuDNN torch.nn.LSTM in the dtype (U in, U units, one layer, "
+                           "input projection included); none takes M stacked layers",
+                "shape": main.get("shape"), "shapes": rows,
+            })
+    return entries
+
+
 def _series(n_rows: int, offset: int, rng) -> np.ndarray:
     """Eight sine tags with noise, rows ``offset .. offset + n_rows``."""
     t = np.arange(offset, offset + n_rows)[:, None]
@@ -763,30 +1012,34 @@ def _series(n_rows: int, offset: int, rng) -> np.ndarray:
 
 
 def write_artifact(collection: Path, device: str = "cuda", name: str = "transformer-ae-512",
-                   seed: int = SEED, **estimator):
-    """The transformer-ae-512 artifact ``name``: weights from ``seed``,
-    scalers fitted on a training span, thresholds from a held-out span (the
-    JAX package's rule: the max over the span of the rolling(6) minimum of
-    the error); ``estimator`` adds to the estimator's arguments."""
+                   seed: int = SEED, estimator_cls: str = "TransformerAutoEncoder",
+                   config: dict = None, **estimator):
+    """The artifact ``name`` of a windowed estimator of 8 tags (by default
+    the transformer-ae-512 one: ``CONFIG``): weights from ``seed``, scalers
+    fitted on a training span, thresholds from a held-out span (the JAX
+    package's rule: the max over the span of the rolling(6) minimum of the
+    error); ``estimator`` adds to the estimator's arguments."""
     import torch
 
     from gordo_tpu_torch import serializer
     from gordo_tpu_torch.models.anomaly.diff import _rolling
-    from gordo_tpu_torch.models.models import TransformerAutoEncoder
+    from gordo_tpu_torch.models.models import ESTIMATORS
     from gordo_tpu_torch.models.scaler import MinMaxScaler
     from gordo_tpu_torch.ops.nn import init_model_params
     from gordo_tpu_torch.serializer.from_jax import detector_from_arrays
 
+    config = CONFIG if config is None else config
     rng = np.random.RandomState(SEED)
     train, held_out = _series(4096, 0, rng), _series(2048, 4096, rng)
-    estimator = TransformerAutoEncoder(**CONFIG, **estimator)
+    estimator = ESTIMATORS[estimator_cls](**config, **estimator)
     spec = estimator.build_spec(len(TAGS), len(TAGS))
     params = init_model_params(spec, torch.Generator().manual_seed(seed))
     scaler = MinMaxScaler().fit(train)
     layers = [{k: v.numpy() for k, v in p.items()} for p in params]
     detector = detector_from_arrays(
         spec, layers, scaler.min_, scaler.scale_, scaler.min_, scaler.scale_,
-        estimator_kwargs=estimator.kwargs, device=device,
+        estimator=estimator_cls, kind=config["kind"], estimator_kwargs=estimator.kwargs,
+        device=device,
     )
     pred = detector.base_estimator.predict(held_out)
     truth = held_out[-len(pred):]
@@ -794,7 +1047,7 @@ def write_artifact(collection: Path, device: str = "cuda", name: str = "transfor
     mse = np.square(scaler.transform(pred) - scaler.transform(truth)).mean(axis=1)
     detector.feature_thresholds_ = np.nanmax(_rolling(abs_err, 6, np.min), axis=0)
     detector.aggregate_threshold_ = float(np.nanmax(_rolling(mse, 6, np.min)))
-    metadata = {"name": name, "model": CONFIG,
+    metadata = {"name": name, "model": config,
                 "dataset": {"tags": TAGS, "resolution": "10min"}}
     serializer.dump(detector, str(collection / name), tags=TAGS, metadata=metadata)
     return spec, layers, scaler
@@ -819,12 +1072,29 @@ COUNTERS = {"float32": ("LAUNCHES", "DQ_LAUNCHES", "DKV_LAUNCHES"),
             "bfloat16": ("BF16_LAUNCHES", "BF16_DQ_LAUNCHES", "BF16_DKV_LAUNCHES")}
 
 
+# the LSTM recurrence's counters: its forward and backward kernels of each dtype
+LSTM_COUNTERS = {"float32": ("FORWARD_LAUNCHES", "BACKWARD_LAUNCHES"),
+                 "bfloat16": ("BF16_FORWARD_LAUNCHES", "BF16_BACKWARD_LAUNCHES")}
+
+
 def _reset_launches() -> None:
-    from gordo_tpu_torch.ops import flash_attention as fa
+    from gordo_tpu_torch.ops import flash_attention as fa, lstm
 
     for names in COUNTERS.values():
         for name in names:
             setattr(fa, name, 0)
+    for names in LSTM_COUNTERS.values():
+        for name in names:
+            setattr(lstm, name, 0)
+
+
+def _lstm_launches(dtype: str) -> dict:
+    """``{"forward": n, "backward": n}``: the launches of ``dtype``'s LSTM
+    recurrence kernels since the counters were last reset."""
+    from gordo_tpu_torch.ops import lstm
+
+    return {key: getattr(lstm, name)
+            for key, name in zip(("forward", "backward"), LSTM_COUNTERS[dtype])}
 
 
 def _launches(dtype: str) -> dict:
@@ -2204,6 +2474,19 @@ EXAMPLE_MACHINES = [
      "evaluation": {"cv": {"sklearn.model_selection.KFold": {
          "n_splits": 5, "shuffle": True, "random_state": 0}}}},
 ]
+# examples/config.yaml's LSTM machine as written: an LSTMAutoEncoder
+# (lstm_hourglass, lookback 24, 3 epochs, the estimator's batch size of 1)
+LSTM_EXAMPLE_MACHINE = {
+    "name": "compressor-b",
+    "dataset": {"tags": ["comp-b-pressure", "comp-b-temperature", "comp-b-rpm",
+                         "comp-b-power"], **_EXAMPLE_DATASET},
+    "model": {"gordo_tpu.models.anomaly.diff.DiffBasedAnomalyDetector": {
+        "require_thresholds": True,
+        "base_estimator": {"sklearn.pipeline.Pipeline": {"steps": [
+            "sklearn.preprocessing.MinMaxScaler",
+            {"gordo_tpu.models.models.LSTMAutoEncoder": {
+                "kind": "lstm_hourglass", "lookback_window": 24, "epochs": 3}}]}}}},
+}
 EXAMPLE_ROWS = 1008  # 7 days of 10-minute rows
 TOL_FF = 1e-5  # a served feedforward answer against its direct predict; a stacked batch
 BENCH_ROWS = 100  # bench.py's anomaly request: 100 samples of the machine's tags
@@ -2230,9 +2513,10 @@ def _row_label(row: int) -> str:
 
 
 def _seeded_error(model, tags, n_rows: int, device: str) -> dict:
-    """The scaled MSE of a built feedforward detector (``trained``) and of
-    the same model with the seeded initial weights (``seeded``) on
-    ``n_rows`` rows of the provider's signal past the training span."""
+    """The scaled MSE of a built detector (``trained``) and of the same
+    model with the seeded initial weights (``seeded``) on ``n_rows`` rows
+    of the provider's signal past the training span (a windowed model's
+    output against the last rows)."""
     import torch
 
     from gordo_tpu_torch.ops.nn import init_model_params
@@ -2244,7 +2528,7 @@ def _seeded_error(model, tags, n_rows: int, device: str) -> dict:
         estimator.spec_, init_model_params(estimator.spec_, torch.Generator().manual_seed(SEED)),
         device)
     truth = model.scaler.transform(held_out)
-    return {name: float(np.mean(np.square(model.scaler.transform(pred) - truth)))
+    return {name: float(np.mean(np.square(model.scaler.transform(pred) - truth[-len(pred):])))
             for name, pred in (("trained", model.base_estimator.predict(held_out)),
                                ("seeded", seeded.predict(input_scaler.transform(held_out))))}
 
@@ -2329,8 +2613,15 @@ def _direct(detector, X: np.ndarray) -> np.ndarray:
 
 
 def _spec_label(spec) -> str:
-    return (f"transformer lookback {spec.lookback_window}" if spec.lookback_window > 1
-            else f"feedforward {spec.n_features} tags")
+    """A spec's family (by its sequence layers), window, lookahead and dtype,
+    or the feedforward family's tags."""
+    if spec.lookback_window <= 1 and spec.lookahead == 0:
+        return f"feedforward {spec.n_features} tags"
+    names = {type(layer).__name__ for layer in spec.layers}
+    family = next((f for f, layer in (("transformer", "TransformerBlock"), ("lstm", "LSTMLayer"),
+                                      ("tcn", "TCNBlock")) if layer in names), "dense")
+    return (f"{family} lookback {spec.lookback_window} lookahead {spec.lookahead} "
+            f"{spec.compute_dtype}")
 
 
 def feedforward_served_path(card: str, root: Path, built: Path, device: str = "cuda") -> dict:
@@ -3151,6 +3442,459 @@ def kfcv_fleet_path(card: str, root: Path, device: str = "cuda") -> dict:
     return result
 
 
+# ------------------------------------------------------------ the LSTM and TCN families
+# bench.py's windowed section (_WINDOWED_FAMILIES, _windowed_machine_config):
+# 8 tags, lookback 144, 2 epochs, batch 64, the windowed fleets in bf16
+# (BENCH_WINDOWED_DTYPE), BENCH_WINDOWED_MACHINES machines of each family
+WINDOWED_FAMILIES = {
+    "lstm_ae_144": ("LSTMAutoEncoder", {"kind": "lstm_symmetric", "dims": [64, 32],
+                                        "funcs": ["tanh", "tanh"]}),
+    "lstm_forecast_144": ("LSTMForecast", {"kind": "lstm_symmetric", "dims": [64, 32],
+                                           "funcs": ["tanh", "tanh"]}),
+    "tcn_144": ("TCNAutoEncoder", {"kind": "tcn_model"}),
+}
+WINDOWED_FIT = {"lookback_window": 144, "epochs": 2, "batch_size": 64}
+WINDOWED_DTYPE = "bfloat16"
+# bench.py's 64 machines a family, cut to 32: the LSTM/TCN phases added
+# ~113 s to the smoke run at 64 (over the ~90 s they may take), the fleet's
+# N is the first cut
+WINDOWED_FLEET_MACHINES = 32
+WINDOWED_ROUNDS = 10  # sequential 1,535-row anomaly requests a windowed artifact
+WINDOWED_REQUESTS = 2  # concurrent 1,535-row requests a model, batching forced on
+LSTM_STEPS_TIMED = 200  # compressor-b's training steps timed on the kernels
+LSTM_PLAIN_STEPS = 10  # and on the plain twin (the step loop in torch)
+
+
+def _n_lstm(spec) -> int:
+    from gordo_tpu_torch.models.spec import LSTMLayer
+
+    return sum(isinstance(layer, LSTMLayer) for layer in spec.layers)
+
+
+def _stage_steps(spec, n_rows: int, batch: int, epochs: int) -> int:
+    """The optimizer steps of one build of ``spec`` on ``n_rows`` rows: the
+    three TimeSeriesSplit folds, then the full fit, each its live steps
+    (``stages_of``, ``run_masked_epoch``) for each epoch."""
+    from gordo_tpu_torch.parallel import batch_trainer as bt
+
+    stages = bt.stages_of(spec, n_rows, bt._fold_bounds(n_rows, 3), batch)
+    return epochs * sum(max(math.ceil(stage.n_valid / stage.batch), 1) for stage in stages)
+
+
+def _lstm_step_ms(spec, device: str, steps: int, plain: bool) -> float:
+    """Host-clock ms a training step of ``spec`` at batch 1 (compressor-b's
+    shape), after a warm-up: through the recurrence kernels, or with
+    ``plain`` through the plain twin's step loop in torch on the card
+    (autograd over its ops), which launches ~10 kernels a layer and step."""
+    import torch
+
+    from gordo_tpu_torch.ops import lstm, nn as port_nn, train
+    from gordo_tpu_torch.ops.nn import TransformerModel, init_model_params
+
+    model = TransformerModel(spec, init_model_params(spec, torch.Generator().manual_seed(SEED)),
+                             torch.device(device))
+    optimizer = train.make_optimizer(spec.optimizer, model.parameters())
+    X = torch.rand((steps + spec.lookback_window + 16, spec.n_features),
+                   generator=torch.Generator().manual_seed(SEED)).to(device)
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    kernel = port_nn.lstm_recurrence
+    if plain:
+        port_nn.lstm_recurrence = lambda zx, rk, act, rec, seqs: lstm.lstm_recurrence_forward_plain(
+            zx, rk, act, rec, seqs)[0]
+    try:
+        train.run_epoch(model, optimizer, X, X, torch.arange(4), 1)  # warm-up
+        sync()
+        t0 = time.perf_counter()
+        train.run_epoch(model, optimizer, X, X, torch.arange(steps), 1)
+        sync()
+        return 1e3 * (time.perf_counter() - t0) / steps
+    finally:
+        port_nn.lstm_recurrence = kernel
+
+
+def lstm_example_build_path(card: str, root: Path, device: str = "cuda") -> dict:
+    """``build`` of examples/config.yaml's compressor-b as written
+    (``LSTM_EXAMPLE_MACHINE``: an LSTMAutoEncoder, lstm_hourglass of 4 tags,
+    lookback 24, 3 epochs at the estimator's batch of 1) through the port's
+    CLI (``cli.main``, in this process, so that its launches are counted).
+    Gates: exit 0, finite thresholds, the offset 23, the held-out error
+    below the seeded weights', the recurrence's backward kernel launched
+    once per LSTM layer a step of every fold and the fit, and its forward
+    at least as often. Then a step's host-clock ms on the kernels and on the
+    plain twin, the launch cost the kernels remove."""
+    import contextlib
+    import io
+
+    from gordo_tpu_torch import cli, serializer
+    from gordo_tpu_torch.models.spec import LSTMLayer
+
+    out = root / "compressor-b"
+    shutil.rmtree(out, ignore_errors=True)
+    argv = ["--log-level", "WARNING", "build", json.dumps(LSTM_EXAMPLE_MACHINE), str(out),
+            "--print-cv-scores"] + ([] if device == "cuda" else ["--device", device])
+    stdout = io.StringIO()
+    # the earlier phases' objects are frozen out of the collector's passes,
+    # which the build's 7,284 steps of autograd objects trigger: a fresh
+    # `python -m gordo_tpu_torch build` process holds none of them
+    gc.collect()
+    gc.freeze()
+    _reset_launches()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(stdout):
+            code = cli.main(argv)
+    finally:
+        gc.unfreeze()
+    seconds = time.perf_counter() - t0
+    launches = _lstm_launches("float32")
+    if code != 0:
+        raise AssertionError(f"build compressor-b: exit {code}")
+    model = serializer.load(str(out), device)
+    built = serializer.load_metadata(str(out))["metadata"]["build_metadata"]
+    estimator = model.base_estimator.steps[-1][1]
+    spec = estimator.spec_
+    steps = _stage_steps(spec, EXAMPLE_ROWS, 1, 3)
+    tags = LSTM_EXAMPLE_MACHINE["dataset"]["tags"]
+    mse = _seeded_error(model, tags, EXAMPLE_ROWS, device)
+    thresholds = [float(x) for x in (*model.feature_thresholds_, model.aggregate_threshold_)]
+    phases = built["phases"]
+    result = {
+        "seconds": seconds, "phases": phases, "offset": built["model"]["model_offset"],
+        "units": [layer.units for layer in spec.layers if isinstance(layer, LSTMLayer)],
+        "steps": steps, "launches": launches, "held_out_mse": mse,
+        "aggregate_threshold": model.aggregate_threshold_,
+        "ms_per_step_of_cv_and_fit": 1e3 * (phases["cross_validation"] + phases["fit"]) / steps,
+        "score_lines": sum("_fold-" in line for line in stdout.getvalue().splitlines()),
+    }
+    print(f"LSTM example build compressor-b on {card}: exit {code} in {seconds:.2f} s, phases "
+          f"{phases}, {steps} steps ({result['ms_per_step_of_cv_and_fit']:.3f} ms a step of CV "
+          f"and fit, fold predicts included), LSTM units {result['units']}, offset "
+          f"{result['offset']}, held-out scaled MSE {mse['trained']:.6f} (seeded "
+          f"{mse['seeded']:.6f}), thresholds {thresholds}, recurrence launches {launches}",
+          flush=True)
+    n_lstm = _n_lstm(spec)
+    if not (mse["trained"] < mse["seeded"] and all(math.isfinite(x) for x in thresholds)
+            and result["offset"] == 23 and launches["backward"] == n_lstm * steps
+            and launches["forward"] >= launches["backward"]):
+        raise AssertionError(f"compressor-b: {result}, expected {n_lstm * steps} backward "
+                             f"launches")
+    before = _lstm_launches("float32")
+    kernel_ms = _lstm_step_ms(spec, device, LSTM_STEPS_TIMED, plain=False)
+    plain_before = _lstm_launches("float32")
+    plain_ms = _lstm_step_ms(spec, device, LSTM_PLAIN_STEPS, plain=True)
+    if device == "cuda" and (_lstm_launches("float32") != plain_before or plain_before == before):
+        raise AssertionError("the timed steps did not take the paths they name")
+    result.update({"step_ms": kernel_ms, "plain_twin_step_ms": plain_ms})
+    print(f"compressor-b's training step at batch 1 on {card}: {kernel_ms:.3f} ms on the "
+          f"recurrence kernels ({LSTM_STEPS_TIMED} steps), {plain_ms:.3f} ms on the plain twin's "
+          f"step loop ({LSTM_PLAIN_STEPS} steps); the build's {steps} steps on the plain twin "
+          f"would take ~{plain_ms * steps / 1e3:.0f} s of training", flush=True)
+    return result
+
+
+def windowed_served_path(card: str, root: Path, device: str = "cuda") -> dict:
+    """bench.py's windowed families served: ``lstm_ae_144``,
+    ``lstm_forecast_144`` and ``tcn_144`` artifacts (8 tags, lookback 144,
+    seeded weights) in float32 and bf16, and a ``transformer-ae-512``
+    artifact, in one collection served as ``run-server`` serves it
+    (batching ``auto``): a 1,535-row anomaly request to each windowed
+    artifact within its dtype's tolerance of the direct predict, then
+    WINDOWED_ROUNDS sequential requests each (p50). Then, batching forced
+    on, WINDOWED_REQUESTS 1,535-row requests to every model at once from 16
+    users: every answer 200 and within its tolerance of the direct
+    predict, no fused call of two specs, the recurrence's forward launched
+    once per LSTM layer a fused LSTM call (and no backward), the flash
+    forward once per block a fused Transformer call."""
+    from gordo_tpu_torch.models.spec import TransformerBlock
+    from gordo_tpu_torch.server import batcher
+    from gordo_tpu_torch.server.server import make_server
+
+    collection = root / "windowed_served"
+    shutil.rmtree(collection, ignore_errors=True)
+    collection.mkdir(parents=True)
+    specs, tolerance = {}, {}
+    for k, (family, (cls, kwargs)) in enumerate(WINDOWED_FAMILIES.items()):
+        for dtype in ("float32", "bfloat16"):
+            name = f"{family}-{dtype}"
+            specs[name], _, _ = write_artifact(
+                collection, device, name=name, seed=SEED + 50 + k, estimator_cls=cls,
+                config={**kwargs, "lookback_window": WINDOWED_FIT["lookback_window"]},
+                compute_dtype=dtype)
+            tolerance[name] = TOL_MODEL_REL if dtype == "float32" else TOL_BF16_MODEL_REL
+    specs["transformer-ae-512"], _, _ = write_artifact(collection, device)
+    tolerance["transformer-ae-512"] = TOL_MODEL_REL
+    n_blocks = sum(isinstance(layer, TransformerBlock)
+                   for layer in specs["transformer-ae-512"].layers)
+    rng = np.random.RandomState(SEED + 60)
+    previous = os.environ.get("GORDO_TPU_SERVING_BATCH")
+    os.environ["GORDO_TPU_SERVING_BATCH"] = "auto"
+    batcher.reset_batcher()
+    server = make_server("127.0.0.1", 0, device=device, collection_dir=str(collection))
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    project = f"http://127.0.0.1:{server.server_address[1]}/gordo/v0/smoke"
+    result = {"models": {}}
+
+    def worst_diff(requests, results) -> dict:
+        worst = {}
+        for (name, body), (_, answer, _) in zip(requests, results):
+            entry = server.models[name]
+            out = _columns(json.loads(answer)["data"]["model-output"], entry.tags)
+            want = _direct(entry.detector, np.asarray(json.loads(body)["X"]))
+            if out.shape != want.shape:
+                raise AssertionError(f"{name}: output {out.shape}, direct {want.shape}")
+            worst[name] = max(worst.get(name, 0.0),
+                              float(np.abs(out - want).max() / np.abs(want).max()))
+        return worst
+
+    try:
+        for name in specs:
+            if name == "transformer-ae-512":
+                continue
+            body = _rect_body(_series(FULL_ROWS, 60000, rng))
+            results, _ = _drive(project, [(name, body)] * WINDOWED_ROUNDS, 1)
+            if any(r[0] != 200 for r in results):
+                raise AssertionError(f"{name}: statuses {[r[0] for r in results]}")
+            diff = worst_diff([(name, body)], results[:1])[name]
+            times = sorted(r[2] for r in results)
+            result["models"][name] = {"p50_ms": times[len(times) // 2], "max_ms": times[-1],
+                                      "max_rel_diff": diff,
+                                      "offset": specs[name].output_offset}
+            print(f"windowed served {name} ({FULL_ROWS} rows, batching auto) on {card}: "
+                  f"{result['models'][name]}", flush=True)
+            if not diff <= tolerance[name]:
+                raise AssertionError(f"{name} off its direct predict: {diff}")
+        fused = batcher.peek_batcher()
+        result["self_ab"] = {_spec_label(s): v for s, v in fused.calibrations.items()}
+
+        os.environ["GORDO_TPU_SERVING_BATCH"] = "1"
+        batcher.reset_batcher()
+        requests = [(name, _rect_body(_series(FULL_ROWS, 70000 + 2000 * i, rng)))
+                    for i in range(WINDOWED_REQUESTS) for name in specs]
+        _reset_launches()
+        with _PlainAttentionCalls() as plain:
+            results, wall = _drive(project, requests, 16)
+        launches = {dtype: {**_launches(dtype), **{f"lstm_{k}": v for k, v in
+                                                    _lstm_launches(dtype).items()}}
+                    for dtype in ("float32", "bfloat16")}
+        fused = batcher.peek_batcher()
+        stats, spec_calls = dict(fused.stats), dict(fused.spec_calls)
+        if any(r is None or r[0] != 200 for r in results):
+            raise AssertionError(f"concurrent windowed requests: "
+                                 f"{[r[0] if r else None for r in results]}")
+        worst = worst_diff(requests, results)
+        latencies = sorted(r[2] for r in results)
+        lstm_calls = {dtype: sum(spec_calls.get(spec, 0) * _n_lstm(spec)
+                                 for spec in specs.values()
+                                 if _n_lstm(spec) and spec.compute_dtype == dtype)
+                      for dtype in ("float32", "bfloat16")}
+        result["concurrent"] = {
+            "requests": len(requests), "users": 16, "wall_s": wall,
+            "p50_ms": latencies[len(latencies) // 2], "max_ms": latencies[-1],
+            "batcher": stats, "fused_calls_by_model": {
+                name: spec_calls.get(spec, 0) for name, spec in specs.items()},
+            "max_rel_diff": worst, "launches": launches,
+            "lstm_layer_calls": lstm_calls, "plain_attention_calls": plain.calls}
+        print(f"concurrent windowed requests (batching forced on) on {card}: "
+              f"{result['concurrent']}", flush=True)
+        if (stats["mixed_spec_calls"] or stats["items"] != len(requests) or stats["bisections"]
+                or stats["serial_rescues"] or plain.calls):
+            raise AssertionError(f"the windowed collection's fused calls: {stats}")
+        if not all(worst[name] <= tolerance[name] for name in worst):
+            raise AssertionError(f"fused answers off their direct predicts: {worst}")
+        tf_calls = spec_calls.get(specs["transformer-ae-512"], 0)
+        for dtype in ("float32", "bfloat16"):
+            got = launches[dtype]
+            if got["lstm_forward"] != lstm_calls[dtype] or got["lstm_backward"]:
+                raise AssertionError(f"{dtype} recurrence launches {got} for "
+                                     f"{lstm_calls[dtype]} fused LSTM layer calls")
+        if not (tf_calls and launches["float32"]["forward"] == n_blocks * tf_calls):
+            raise AssertionError(f"{launches['float32']} flash forward launches for {tf_calls} "
+                                 f"fused Transformer calls of {n_blocks} blocks")
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=60)
+        batcher.reset_batcher()
+        if previous is None:
+            os.environ.pop("GORDO_TPU_SERVING_BATCH", None)
+        else:
+            os.environ["GORDO_TPU_SERVING_BATCH"] = previous
+    result["launches"] = launches
+    return result
+
+
+def windowed_machine_config(name: str, family: str) -> dict:
+    """bench.py's windowed machine (``_windowed_machine_config``): ``family``
+    over MinMaxScaler in a DiffBasedAnomalyDetector, 8 tags of 7 days of
+    10-minute RandomDataset rows, lookback 144, 2 epochs, batch 64, bf16."""
+    cls, kwargs = WINDOWED_FAMILIES[family]
+    config = bench_machine_config(name)
+    config["dataset"]["tags"] = [f"{name}-tag-{j}" for j in range(8)]
+    (_, detector), = config["model"].items()
+    detector["base_estimator"]["sklearn.pipeline.Pipeline"]["steps"][1] = {
+        f"gordo_tpu.models.models.{cls}": {**kwargs, **WINDOWED_FIT,
+                                           "compute_dtype": WINDOWED_DTYPE}}
+    return config
+
+
+def windowed_fleet_path(card: str, root: Path, device: str = "cuda") -> dict:
+    """``batch-build`` (``cli.batch_build``, in this process) of
+    WINDOWED_FLEET_MACHINES machines of each windowed family and the
+    FLEET_MACHINES float32 ``transformer-ae-512``. Gates: exit 0, every
+    machine an artifact, none built serially; each stacked program holds one
+    family; the LSTM buckets launch the bf16 recurrence backward once per
+    LSTM layer a stacked step for the whole bucket, and dQ and dK/dV come
+    from the Transformer bucket alone (once per block a stacked step);
+    every machine's thresholds finite and its held-out error below its
+    seeded weights'. Then one serial build of a machine of each family, for
+    the wall against the serial build x N."""
+    import contextlib
+    import io
+
+    import torch
+
+    from gordo_tpu_torch import cli, serializer
+    from gordo_tpu_torch.builder import ModelBuilder
+    from gordo_tpu_torch.machine import Machine
+    from gordo_tpu_torch.models.models import TransformerAutoEncoder
+    from gordo_tpu_torch.models.spec import TransformerBlock
+    from gordo_tpu_torch.parallel import batch_trainer as bt
+
+    # machine names take no underscore: lstm_ae_144's are lstm-ae-144-0, ...
+    names = {family: [f"{family.replace('_', '-')}-{i}" for i in range(WINDOWED_FLEET_MACHINES)]
+             for family in WINDOWED_FAMILIES}
+    configs = [windowed_machine_config(n, family) for family in names for n in names[family]]
+    configs += fleet_configs()
+    config = root / "windowed.json"
+    config.write_text(json.dumps({"machines": configs}))
+    output = root / "windowed"
+    shutil.rmtree(output, ignore_errors=True)
+    tf_spec = TransformerAutoEncoder(**CONFIG).build_spec(len(TAGS), len(TAGS))
+    n_blocks = sum(isinstance(layer, TransformerBlock) for layer in tf_spec.layers)
+    chunks, serial = [], []
+    run_bucket, build_chunk, serial_build = (bt.run_bucket, bt.BatchedModelBuilder._build_chunk,
+                                             bt.BatchedModelBuilder._serial_build)
+    programs = []
+
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+
+    def timed_bucket(spec, X, *args, **kwargs):
+        sync()
+        t0 = time.perf_counter()
+        out = run_bucket(spec, X, *args, **kwargs)
+        sync()
+        programs.append(time.perf_counter() - t0)
+        return out
+
+    def recorded_chunk(self, group, *args, **kwargs):
+        out = build_chunk(self, group, *args, **kwargs)
+        chunks.append({"names": [p.machine.name for p in group], "spec": group[0].spec,
+                       "seconds": programs[-1], "n_rows": len(group[0].X),
+                       "batch": group[0].batch_size, "epochs": group[0].epochs})
+        return out
+
+    def recorded_serial(self, machine):
+        serial.append(machine.name)
+        return serial_build(self, machine)
+
+    if device == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    bt.run_bucket = timed_bucket
+    bt.BatchedModelBuilder._build_chunk = recorded_chunk
+    bt.BatchedModelBuilder._serial_build = recorded_serial
+    stdout = io.StringIO()
+    try:
+        with _PlainAttentionCalls() as plain, contextlib.redirect_stdout(stdout):
+            t0 = time.perf_counter()
+            code = cli.batch_build(str(config), str(output), "smoke-windowed", device=device)
+            seconds = time.perf_counter() - t0
+    finally:
+        bt.run_bucket = run_bucket
+        bt.BatchedModelBuilder._build_chunk = build_chunk
+        bt.BatchedModelBuilder._serial_build = serial_build
+    launches = {dtype: {**_launches(dtype), **{f"lstm_{k}": v for k, v in
+                                                _lstm_launches(dtype).items()}}
+                for dtype in ("float32", "bfloat16")}
+    peak = torch.cuda.max_memory_allocated() / 2**30 if device == "cuda" else float("nan")
+    built = [line for line in stdout.getvalue().splitlines() if line.startswith("built: ")]
+    artifacts = sum((output / c["name"] / "model.json").exists() for c in configs)
+    groups, tf_steps, lstm_layer_steps = {}, 0, 0
+    for chunk in chunks:
+        family = ("transformer" if chunk["spec"] == tf_spec
+                  else chunk["names"][0].rsplit("-", 1)[0].replace("-", "_"))
+        if not all(n.rsplit("-", 1)[0] == chunk["names"][0].rsplit("-", 1)[0]
+                   for n in chunk["names"]):
+            raise AssertionError(f"a stacked program mixes families: {chunk['names']}")
+        group = groups.setdefault(family, {"programs": 0, "machines": 0, "seconds": 0.0})
+        group["programs"] += 1
+        group["machines"] += len(chunk["names"])
+        group["seconds"] += chunk["seconds"]
+        steps = _stage_steps(chunk["spec"], chunk["n_rows"], chunk["batch"], chunk["epochs"])
+        group["stacked_steps"] = group.get("stacked_steps", 0) + steps
+        if family == "transformer":
+            tf_steps += steps
+        lstm_layer_steps += _n_lstm(chunk["spec"]) * steps
+    n_all = len(configs)
+    result = {"machines": n_all, "seconds": seconds,
+              "machines_per_minute": 60.0 * n_all / seconds, "stacked_programs": groups,
+              "peak_gib": peak, "launches": launches, "serial_built": serial}
+    print(f"windowed batch-build of {n_all} machines ({WINDOWED_FLEET_MACHINES} each of "
+          f"{sorted(WINDOWED_FAMILIES)} in {WINDOWED_DTYPE}, {FLEET_MACHINES} float32 "
+          f"transformer-ae-512) on {card}: exit {code} in {seconds:.2f} s "
+          f"({result['machines_per_minute']:.1f} machines a minute), {len(built)} built, "
+          f"{artifacts} artifacts, serial {serial}; stacked programs {groups}; peak device "
+          f"memory {peak:.2f} GiB; launches {launches}", flush=True)
+    if code != 0 or len(built) != n_all or artifacts != n_all or serial:
+        raise AssertionError(f"batch-build exited {code}: {len(built)} built, {artifacts} "
+                             f"artifacts of {n_all}, serially built {serial}")
+    if {k: g["machines"] for k, g in groups.items()} != {
+            **{f: WINDOWED_FLEET_MACHINES for f in WINDOWED_FAMILIES},
+            "transformer": FLEET_MACHINES}:
+        raise AssertionError(f"the buckets did not keep the families apart: {groups}")
+    bf16, f32 = launches["bfloat16"], launches["float32"]
+    if not (bf16["lstm_backward"] == lstm_layer_steps and bf16["lstm_forward"] >= lstm_layer_steps
+            and not f32["lstm_forward"] and not f32["lstm_backward"]):
+        raise AssertionError(f"expected {lstm_layer_steps} bf16 recurrence backward launches, "
+                             f"got {launches}")
+    if plain.calls or not (f32["dq"] == f32["dkv"] == n_blocks * tf_steps
+                           and not bf16["dq"] and not bf16["dkv"]):
+        raise AssertionError(f"expected {n_blocks * tf_steps} float32 dQ and dK/dV launches "
+                             f"from the Transformer bucket alone, got {launches}; plain "
+                             f"attention {plain.calls}")
+    held_out = {}
+    for family, members in names.items():
+        errors = []
+        for name in members:
+            model = serializer.load(str(output / name), device)
+            tags = serializer.load_model_json(str(output / name))["tags"]
+            thresholds = [*model.feature_thresholds_, model.aggregate_threshold_]
+            error = _seeded_error(model, tags, EXAMPLE_ROWS, device)
+            if not (all(math.isfinite(x) for x in thresholds)
+                    and error["trained"] < error["seeded"]):
+                raise AssertionError(f"{name}: thresholds {thresholds}, held-out scaled MSE "
+                                     f"{error} (trained against seeded weights)")
+            errors.append(error)
+        held_out[family] = {"trained_mean": float(np.mean([e["trained"] for e in errors])),
+                            "seeded_mean": float(np.mean([e["seeded"] for e in errors])),
+                            "worst_ratio": max(e["trained"] / e["seeded"] for e in errors)}
+    result["held_out_mse"] = held_out
+    serial_s = {}
+    for family, members in names.items():
+        machine = Machine.from_config(windowed_machine_config(members[0], family), "serial")
+        t0 = time.perf_counter()
+        ModelBuilder(machine, device).build()
+        serial_s[family] = time.perf_counter() - t0
+    result["serial_build_s"] = serial_s
+    result["serial_build_x_n_s"] = sum(serial_s.values()) * WINDOWED_FLEET_MACHINES
+    print(f"windowed fleet on {card}: held-out scaled MSE {held_out}; one serial build "
+          f"{serial_s} s, x {WINDOWED_FLEET_MACHINES} = {result['serial_build_x_n_s']:.1f} s "
+          f"against the fleet's {seconds:.2f} s (with the Transformer bucket)", flush=True)
+    return result
+
+
 def main() -> int:
     import torch
 
@@ -3212,6 +3956,10 @@ def main() -> int:
             raise AssertionError(f"{kernel}'s SASS holds HMMA beside its HGMMA")
     fleet_times = fleet_kernel_times(card)
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    lstm_entries = lstm_kernel_phase(card)
+    print(f"LSTM recurrence kernel phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    torch.cuda.empty_cache()
 
     collections = [REPO / "build" / "chip_smoke" / rev for rev in ("1", "2", "3")]
     fleet_root = REPO / "build" / "chip_smoke_fleet"
@@ -3267,6 +4015,19 @@ def main() -> int:
     torch.cuda.empty_cache()
     print(f"fast lane phase {lanes['phase_s']:.1f} s, KFCV fleet phase "
           f"{kfcv_fleet['phase_s']:.1f} s", flush=True)
+    windowed_root = REPO / "build" / "chip_smoke_windowed"
+    shutil.rmtree(windowed_root, ignore_errors=True)
+    windowed_root.mkdir(parents=True)
+    windowed = {}
+    for key, phase in (("lstm_example_build", lstm_example_build_path),
+                       ("served", windowed_served_path), ("fleet", windowed_fleet_path)):
+        t0 = time.perf_counter()
+        windowed[key] = phase(card, windowed_root)
+        windowed[key]["phase_s"] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+    print(f"LSTM/TCN phases: compressor-b build {windowed['lstm_example_build']['phase_s']:.1f} "
+          f"s, windowed serving {windowed['served']['phase_s']:.1f} s, windowed fleet "
+          f"{windowed['fleet']['phase_s']:.1f} s", flush=True)
 
     forward["launches_by_path"] = {"serving": serving, "server_surface": base_route,
                                    "batcher": batched["launches"],
@@ -3275,7 +4036,11 @@ def main() -> int:
                                    "feedforward_served": ff_served["forward"],
                                    "feedforward_fleet": ff_fleet["launches"]["forward"],
                                    "fastlane": lanes["forward"],
-                                   "kfcv_fleet": kfcv_fleet["launches"]["forward"]}
+                                   "kfcv_fleet": kfcv_fleet["launches"]["forward"],
+                                   "windowed_served":
+                                       windowed["served"]["launches"]["float32"]["forward"],
+                                   "windowed_fleet":
+                                       windowed["fleet"]["launches"]["float32"]["forward"]}
     bf16_forward["launches_by_path"] = {"batcher": bf16_batched["launches"],
                                         "build": bf16_build["forward"],
                                         "serving_built": bf16_build["serving"],
@@ -3289,6 +4054,7 @@ def main() -> int:
     print(json.dumps({"feedforward": {"build": ff_build, "served": ff_served,
                                       "fleet": ff_fleet}}, default=str))
     print(json.dumps({"fastlane": lanes, "kfcv_fleet": kfcv_fleet}, default=str))
+    print(json.dumps({"windowed": windowed}, default=str))
     for entry, key, launches, fleet_launches in (
             (dq, "dq", build, fleet), (dkv, "dkv", build, fleet),
             (bf16_dq, "dq", bf16_build, bf16_fleet), (bf16_dkv, "dkv", bf16_build, bf16_fleet)):
@@ -3296,9 +4062,25 @@ def main() -> int:
         if entry is dq or entry is dkv:
             entry["launches_by_path"]["feedforward_fleet"] = ff_fleet["launches"][key]
             entry["launches_by_path"]["kfcv_fleet"] = kfcv_fleet["launches"][key]
+            entry["launches_by_path"]["windowed_fleet"] = windowed["fleet"]["launches"][
+                "float32"][key]
+    for entry in entries:
+        entry["fleet_shape"] = fleet_times[entry["name"]]
+    # the recurrence kernels: float32 on compressor-b's build and the float32
+    # served artifacts, bf16 on the bf16 served artifacts and the bf16 fleet
+    example, served_l, fleet_l = (windowed["lstm_example_build"]["launches"],
+                                  windowed["served"]["launches"], windowed["fleet"]["launches"])
+    for entry, paths in zip(lstm_entries, (
+            {"lstm_example_build": example["forward"],
+             "windowed_served": served_l["float32"]["lstm_forward"]},
+            {"lstm_example_build": example["backward"]},
+            {"windowed_served": served_l["bfloat16"]["lstm_forward"],
+             "windowed_fleet": fleet_l["bfloat16"]["lstm_forward"]},
+            {"windowed_fleet": fleet_l["bfloat16"]["lstm_backward"]})):
+        entry["launches_by_path"] = paths
+    entries += lstm_entries
     for entry in entries:
         entry["launches"] = sum(entry["launches_by_path"].values())
-        entry["fleet_shape"] = fleet_times[entry["name"]]
         if entry["launches"] < 1:
             raise AssertionError(f"the main paths launched no {entry['name']} kernel")
 

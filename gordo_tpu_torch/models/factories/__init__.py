@@ -5,12 +5,20 @@ builders, as the JAX package's ``register_model_builder`` files them."""
 from .feedforward_autoencoder import (
     feedforward_hourglass, feedforward_model, feedforward_symmetric,
 )
+from .lstm_autoencoder import lstm_hourglass, lstm_model, lstm_symmetric
+from .tcn import tcn_model
 from .transformer import transformer_model
 
+_LSTM = {f.__name__: f for f in (lstm_model, lstm_symmetric, lstm_hourglass)}
+_TCN = {"tcn_model": tcn_model}
 _TRANSFORMER = {"transformer_model": transformer_model}
 FACTORIES = {
     "AutoEncoder": {f.__name__: f for f in (feedforward_model, feedforward_symmetric,
                                             feedforward_hourglass)},
+    "LSTMAutoEncoder": _LSTM,
+    "LSTMForecast": _LSTM,
     "TransformerAutoEncoder": _TRANSFORMER,
     "TransformerForecast": _TRANSFORMER,
+    "TCNAutoEncoder": _TCN,
+    "TCNForecast": _TCN,
 }

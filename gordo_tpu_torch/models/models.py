@@ -1,30 +1,34 @@
 """
 The port's estimators: the counterparts of ``AutoEncoder``,
-``RawModelRegressor``, ``TransformerAutoEncoder`` and ``TransformerForecast``
-in ``gordo_tpu/models/models.py``, on the ``BaseJaxEstimator`` contract
-(``fit``, ``predict``, ``score``, ``get_params``, definitions, metadata).
+``RawModelRegressor``, ``LSTMAutoEncoder``, ``LSTMForecast``,
+``TransformerAutoEncoder``, ``TransformerForecast``, ``TCNAutoEncoder`` and
+``TCNForecast`` in ``gordo_tpu/models/models.py``, on the
+``BaseJaxEstimator`` contract (``fit``, ``predict``, ``score``,
+``get_params``, definitions, metadata).
 
 An estimator holds its spec and a :class:`~gordo_tpu_torch.ops.nn.TransformerModel`
-(any spec of Dense, positional-encoding, Transformer-block and pool layers)
+(any spec of Dense, LSTM, positional-encoding, Transformer-block, TCN and
+pool layers)
 whose parameters stay on the device; ``fit`` trains it there
 (ops/train.py), ``predict`` takes and returns numpy: through the
 cross-model batcher when it is on (server/batcher.py), which fuses
 concurrent predicts of one spec into one device call, else direct. The
 device is ``cuda`` unless the estimator is made with ``device="cpu"``.
 ``AutoEncoder`` and ``RawModelRegressor`` are unwindowed (output offset 0,
-one output row per input row); the Transformer estimators are windowed
-(many-to-one over ``lookback_window`` rows).
+one output row per input row) unless a raw config names a lookback; the
+LSTM, Transformer and TCN estimators are windowed (many-to-one over
+``lookback_window`` rows).
 """
 
 import dataclasses
 from pprint import pformat
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Union
 
 import numpy as np
 import torch
 
 from .. import resolve_device
-from ..ops.nn import TransformerModel, init_model_params, not_ported
+from ..ops.nn import TransformerModel, init_model_params
 from ..ops.predict import predict_fn
 from ..ops.train import fit_arrays
 from ..server.batcher import maybe_submit
@@ -189,10 +193,12 @@ class AutoEncoder(BaseEstimator):
 
 
 class RawModelRegressor(AutoEncoder):
-    """An arbitrary stack of Dense layers from a raw config dict ``kind``
-    (``{"spec": {"layers": [{"Dense": {...}}, ...]}, "compile": {...}}``),
-    as the JAX ``RawModelRegressor`` reads it. An LSTM layer is refused
-    until that family is ported."""
+    """An arbitrary stack of Dense and LSTM layers from a raw config dict
+    ``kind`` (``{"spec": {"layers": [{"Dense": {...}}, {"LSTM": {...}},
+    ...]}, "compile": {...}}``, with an optional ``lookback_window``), as
+    the JAX ``RawModelRegressor`` reads it. LSTM layers need a
+    ``lookback_window`` of 2 or more: unwindowed, the model is refused when
+    it is made (ops/nn.py ``check_windowed``)."""
 
     _expected_keys = ("spec", "compile")
 
@@ -205,7 +211,7 @@ class RawModelRegressor(AutoEncoder):
         return f"{type(self).__name__}(kind: {pformat(self.kind)})"
 
     @staticmethod
-    def _parse_layer(layer_def) -> DenseLayer:
+    def _parse_layer(layer_def) -> Union[DenseLayer, LSTMLayer]:
         if not isinstance(layer_def, dict) or len(layer_def) != 1:
             raise ValueError(f"Invalid layer definition: {layer_def!r}")
         name = next(iter(layer_def))
@@ -215,7 +221,9 @@ class RawModelRegressor(AutoEncoder):
             return DenseLayer(units=int(kwargs["units"]),
                               activation=kwargs.get("activation", "linear"))
         if short == "LSTM":
-            raise not_ported(LSTMLayer)
+            return LSTMLayer(units=int(kwargs["units"]),
+                             activation=kwargs.get("activation", "tanh"),
+                             return_sequences=bool(kwargs.get("return_sequences", False)))
         raise ValueError(f"Unsupported raw layer type: {name!r}")
 
     def _build_spec(self, n_features: int, n_features_out: int) -> ModelSpec:
@@ -242,24 +250,24 @@ class RawModelRegressor(AutoEncoder):
         )
 
 
-class WindowedSequenceEstimator(BaseEstimator):
+class LSTMBaseEstimator(BaseEstimator):
     """Many-to-one windowed estimator over a registered factory ``kind``:
-    its output is ``len(X) - lookback_window + 1 - lookahead`` rows."""
+    its output is ``len(X) - lookback_window + 1 - lookahead`` rows. The
+    JAX package's defaults: ``lookback_window`` 1 and ``batch_size`` 1. At
+    lookback 1 and no lookahead (an ``LSTMAutoEncoder`` left at its
+    defaults) the spec is unwindowed, and its LSTM layers are refused with
+    a ValueError naming ``lookback_window`` when the model is made (the JAX
+    package fails there too, inside its scan)."""
 
-    def __init__(self, kind: str = "transformer_model", lookback_window: int = 144,
-                 device=None, batch_size: int = 32, **kwargs):
-        if lookback_window < 2:
-            raise ValueError(
-                f"{type(self).__name__} requires lookback_window >= 2, "
-                f"got {lookback_window}"
-            )
+    def __init__(self, kind, lookback_window: int = 1, device=None, batch_size: int = 1,
+                 **kwargs):
         super().__init__(kind, device, lookback_window=int(lookback_window),
                          batch_size=int(batch_size), **kwargs)
 
     def repr_defaults(self) -> Dict[str, Any]:
-        # the JAX estimator's __init__(kind, lookback_window=144,
-        # batch_size=32, **kwargs): its kind has no default
-        return {"lookback_window": 144, "batch_size": 32}
+        # the JAX estimator's __init__(kind, lookback_window=1, batch_size=1,
+        # **kwargs): its kind has no default
+        return {"lookback_window": 1, "batch_size": 1}
 
     @property
     def lookback_window(self) -> int:
@@ -272,6 +280,40 @@ class WindowedSequenceEstimator(BaseEstimator):
         """The training history, and the forecast steps (the lookahead), as
         the JAX estimator reports them."""
         return {**super().get_metadata(), "forecast_steps": self.lookahead}
+
+
+class LSTMAutoEncoder(LSTMBaseEstimator):
+    """Windowed stacked-LSTM reconstructor (lookahead 0)."""
+
+    factory_type = "LSTMAutoEncoder"
+    lookahead = 0
+
+
+class LSTMForecast(LSTMBaseEstimator):
+    """Windowed stacked-LSTM one-step forecaster (lookahead 1)."""
+
+    factory_type = "LSTMForecast"
+    lookahead = 1
+
+
+class WindowedSequenceEstimator(LSTMBaseEstimator):
+    """The base of the sequence models whose layers need a real time axis
+    (Transformer, TCN): the default window is 144 rows and the batch 32,
+    and windows below 2 are refused when the estimator is made."""
+
+    def __init__(self, kind: str = "transformer_model", lookback_window: int = 144,
+                 device=None, batch_size: int = 32, **kwargs):
+        if lookback_window < 2:
+            raise ValueError(
+                f"{type(self).__name__} requires lookback_window >= 2, "
+                f"got {lookback_window}"
+            )
+        super().__init__(kind, lookback_window, device, batch_size, **kwargs)
+
+    def repr_defaults(self) -> Dict[str, Any]:
+        # the JAX estimator's __init__(kind, lookback_window=144,
+        # batch_size=32, **kwargs): its kind has no default
+        return {"lookback_window": 144, "batch_size": 32}
 
 
 class TransformerAutoEncoder(WindowedSequenceEstimator):
@@ -288,7 +330,22 @@ class TransformerForecast(WindowedSequenceEstimator):
     lookahead = 1
 
 
+class TCNAutoEncoder(WindowedSequenceEstimator):
+    """Windowed temporal-convolutional reconstructor (lookahead 0)."""
+
+    factory_type = "TCNAutoEncoder"
+    lookahead = 0
+
+
+class TCNForecast(WindowedSequenceEstimator):
+    """Windowed temporal-convolutional one-step forecaster (lookahead 1)."""
+
+    factory_type = "TCNForecast"
+    lookahead = 1
+
+
 ESTIMATORS = {
     cls.__name__: cls
-    for cls in (AutoEncoder, RawModelRegressor, TransformerAutoEncoder, TransformerForecast)
+    for cls in (AutoEncoder, RawModelRegressor, LSTMAutoEncoder, LSTMForecast,
+                TransformerAutoEncoder, TransformerForecast, TCNAutoEncoder, TCNForecast)
 }

@@ -3,8 +3,8 @@ Declarative model specifications: the port's own copy of
 ``gordo_tpu/models/spec.py`` (same dataclasses, same fields and defaults),
 plus the dict form the port's artifact stores them in.
 
-``LSTMLayer``, ``TCNBlock`` and ``MoEBlock`` are kept so that any spec can
-be read; applying them raises ``NotImplementedError`` (ops/nn.py).
+``MoEBlock`` is kept so that any spec can be read; applying it raises
+``NotImplementedError`` (ops/nn.py).
 """
 
 import dataclasses
@@ -69,7 +69,9 @@ class MoEBlock:
 
 @dataclass(frozen=True)
 class TCNBlock:
-    """Temporal-convolutional residual block (not ported yet)."""
+    """Temporal-convolutional residual block: two causal dilated 1-D convs
+    with a residual (1x1-projected when the channel counts differ).
+    (B, T, C_in) -> (B, T, filters)."""
 
     filters: int
     kernel_size: int = 3

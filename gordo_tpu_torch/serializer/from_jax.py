@@ -6,8 +6,8 @@ pickle (``BaseJaxEstimator.__getstate__``: a list with one
 ``{"kernel", "bias", "wq", ...}`` dict of numpy arrays per layer);
 ``spec_from_dataclass`` reads a spec dataclass with the JAX package's
 field names; ``estimator_from_arrays`` builds a port estimator of any
-family (a Transformer, or the Dense layers of an ``AutoEncoder`` or a
-``RawModelRegressor``) on those parameters, and ``detector_from_arrays`` a
+family (a Transformer, an LSTM, a TCN, or the layers of an
+``AutoEncoder`` or a ``RawModelRegressor``) on those parameters, and ``detector_from_arrays`` a
 port detector from them and the scaler arrays and thresholds. Nothing here
 imports the JAX package: unpickling a JAX artifact is the caller's job.
 """
@@ -18,7 +18,7 @@ import numpy as np
 import torch
 
 from ..models.anomaly.diff import DiffBasedAnomalyDetector
-from ..models.models import ESTIMATORS, BaseEstimator, WindowedSequenceEstimator
+from ..models.models import ESTIMATORS, BaseEstimator, LSTMBaseEstimator
 from ..models.scaler import MinMaxScaler, Pipeline
 from ..models.spec import ModelSpec, spec_from_dict, spec_to_dict
 
@@ -50,7 +50,7 @@ def estimator_from_arrays(spec: ModelSpec, layers: Sequence[Dict[str, np.ndarray
     lookback window unless ``estimator_kwargs`` names one."""
     cls = ESTIMATORS[estimator]
     kwargs = dict(estimator_kwargs or {})
-    if issubclass(cls, WindowedSequenceEstimator):
+    if issubclass(cls, LSTMBaseEstimator):
         kwargs.setdefault("lookback_window", spec.lookback_window)
     return cls(kind, **kwargs).load_params(spec, params_from_numpy(spec, layers), device)
 

@@ -22,7 +22,8 @@ from ..models.anomaly.diff import (
 )
 from ..models.callbacks import EarlyStopping
 from ..models.models import (
-    AutoEncoder, RawModelRegressor, TransformerAutoEncoder, TransformerForecast,
+    AutoEncoder, LSTMAutoEncoder, LSTMForecast, RawModelRegressor, TCNAutoEncoder, TCNForecast,
+    TransformerAutoEncoder, TransformerForecast,
 )
 from ..models.scaler import (
     PCA, FeatureUnion, FunctionTransformer, MinMaxScaler, Pipeline, RobustScaler,
@@ -74,7 +75,8 @@ SHORT_ALIASES = {
 # first, then the other paths that reach the same object
 _PORTED = (
     *((cls, (f"gordo_tpu.models.models.{cls.__name__}",))
-      for cls in (AutoEncoder, RawModelRegressor, TransformerAutoEncoder, TransformerForecast)),
+      for cls in (AutoEncoder, RawModelRegressor, LSTMAutoEncoder, LSTMForecast,
+                  TransformerAutoEncoder, TransformerForecast, TCNAutoEncoder, TCNForecast)),
     *((cls, (f"gordo_tpu.models.anomaly.diff.{cls.__name__}",))
       for cls in (DiffBasedAnomalyDetector, DiffBasedKFCVAnomalyDetector)),
     (InfImputer, ("gordo_tpu.models.transformers.imputer.InfImputer",)),

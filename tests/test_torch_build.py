@@ -26,7 +26,8 @@ def test_the_sources_include_a_header():
 
 @pytest.mark.parametrize("name", ["mma_tf32x3.cuh", "flash_attention.cu",
                                   "flash_attention_bwd.cu", "flash_attention_bf16.cu",
-                                  "flash_attention_bwd_bf16.cu", "wgmma_bf16.cuh"])
+                                  "flash_attention_bwd_bf16.cu", "wgmma_bf16.cuh",
+                                  "lstm_recurrence.cu"])
 def test_build_dir_changes_with_each_source_and_header(csrc, name):
     before = _build._build_dir()
     assert _build._build_dir() == before  # stable while nothing changes
@@ -41,14 +42,13 @@ def test_build_dir_ignores_other_files(csrc):
     assert _build._build_dir() == before
 
 
-def _variants():
-    """scripts/torch_bf16_variants.py, imported by path (stdlib only at
-    import time)."""
+def _variants(script: str = "torch_bf16_variants"):
+    """scripts/<script>.py, imported by path (stdlib only at import time)."""
     import importlib.util
     from pathlib import Path
 
-    path = Path(__file__).resolve().parents[1] / "scripts" / "torch_bf16_variants.py"
-    spec = importlib.util.spec_from_file_location("torch_bf16_variants", path)
+    path = Path(__file__).resolve().parents[1] / "scripts" / f"{script}.py"
+    spec = importlib.util.spec_from_file_location(script, path)
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
     return module
@@ -62,3 +62,13 @@ def test_each_bf16_variant_patch_applies_to_the_sources(name):
     for file, old, new in variants.VARIANTS[name]:
         assert old != new
         assert (_build.CSRC / file).read_text().count(old) == 1, (name, file)
+
+
+@pytest.mark.parametrize("name", sorted(_variants("torch_lstm_act_variants").VARIANTS))
+def test_each_lstm_variant_patch_applies_to_the_source(name):
+    """Every text an LSTM recurrence variant replaces occurs exactly once in
+    the source, as scripts/torch_lstm_act_variants.py requires."""
+    variants = _variants("torch_lstm_act_variants")
+    for old, new in variants.VARIANTS[name]:
+        assert old != new
+        assert (_build.CSRC / variants.SOURCE).read_text().count(old) == 1, name

@@ -101,8 +101,8 @@ def test_definitions_build_the_port_objects_on_the_given_device():
     assert tuple(forecast.steps[0][1].feature_range) == (-1, 1)
 
 
-@pytest.mark.parametrize("path", ["subprocess.Popen", "gordo_tpu.models.models.LSTMAutoEncoder",
-                                  "gordo.machine.model.models.KerasLSTMForecast",
+@pytest.mark.parametrize("path", ["subprocess.Popen", "gordo.reporters.mlflow.MlFlowReporter",
+                                  "gordo_tpu.reporters.postgres.PostgresReporter",
                                   "sklearn.decomposition.TruncatedSVD"])
 def test_paths_the_port_lacks_raise_import_error(path):
     with pytest.raises(ImportError, match=path.replace(".", r"\.")):

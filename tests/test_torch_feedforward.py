@@ -283,14 +283,25 @@ def test_autoencoder_fits_and_reports_like_jax():
 
 
 def test_raw_model_regressor_reads_dense_and_refuses_lstm():
+    """Dense and LSTM layers parse to the JAX spec; a layer type neither
+    package reads raises the JAX package's ValueError."""
     ours = models.RawModelRegressor(RAW_KIND, device="cpu")
     theirs = jax_models.RawModelRegressor(kind=RAW_KIND)
     assert repr(ours) == repr(theirs)
     assert spec_to_dict(ours.build_spec(4, 4)) == spec_to_dict(theirs.build_spec(4, 4))
-    lstm = {"spec": {"layers": [{"LSTM": {"units": 4}}, {"Dense": {"units": 4}}]},
-            "compile": {"loss": "mse"}}
-    with pytest.raises(NotImplementedError, match="LSTM/TCN families item"):
-        models.RawModelRegressor(lstm).build_spec(4, 4)
+    lstm = {"spec": {"layers": [{"LSTM": {"units": 4, "activation": "relu",
+                                          "return_sequences": True}},
+                                {"keras.layers.LSTM": {"units": 3}}, {"Dense": {"units": 4}}]},
+            "compile": {"loss": "mse"}, "lookback_window": 5}
+    assert spec_to_dict(models.RawModelRegressor(lstm).build_spec(4, 4)) == spec_to_dict(
+        jax_models.RawModelRegressor(kind=lstm).build_spec(4, 4))
+    gru = {"spec": {"layers": [{"GRU": {"units": 4}}, {"Dense": {"units": 4}}]},
+           "compile": {"loss": "mse"}}
+    with pytest.raises(ValueError) as refused:
+        models.RawModelRegressor(gru).build_spec(4, 4)
+    with pytest.raises(ValueError) as jax_refused:
+        jax_models.RawModelRegressor(kind=gru).build_spec(4, 4)
+    assert str(refused.value) == str(jax_refused.value) == "Unsupported raw layer type: 'GRU'"
     with pytest.raises(ValueError, match="must be a config dict"):
         models.RawModelRegressor("feedforward_hourglass")
 

@@ -310,3 +310,103 @@ def test_wgmma_kernels_at_ragged_lengths_across_heads(cuda_device, dh, t, causal
         _assert_bf16_close(got, ref, name, ref64)
         assert torch.equal(got, again), name  # no atomics: bit-identical reruns
     _assert_bf16_close(runs[0][0], exact[0].to(torch.bfloat16), "dq vs float64", exact[0])
+
+
+# ------------------------------------------------------------ the LSTM recurrence
+LSTM_SHAPES = [(1, 1, 24, 3), (1, 64, 144, 64), (3, 17, 9, 32), (2, 5, 7, 256), (1, 2, 1, 8)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("return_sequences", [True, False])
+@pytest.mark.parametrize("dtype, tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("shape", LSTM_SHAPES)
+def test_lstm_kernels_match_their_twins_on_the_card(cuda_device, shape, dtype, tol,
+                                                    return_sequences):
+    """The recurrence's forward (output and saved z, c, h) and backward (dZ
+    from the kernel's saved tensors) against the plain twins, the backward
+    bit-identical on a second launch."""
+    from gordo_tpu_torch.ops import lstm
+
+    m, b, t, u = shape
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    zx = (0.5 * torch.randn((m, b, t, 4 * u), device=cuda_device, generator=g)).to(dtype)
+    rk = (torch.randn((m, u, 4 * u), device=cuda_device, generator=g) / u ** 0.5).to(dtype)
+    names = (("BF16_FORWARD_LAUNCHES", "BF16_BACKWARD_LAUNCHES") if dtype == torch.bfloat16
+             else ("FORWARD_LAUNCHES", "BACKWARD_LAUNCHES"))
+    before = tuple(getattr(lstm, name) for name in names)
+    out, saved = lstm.lstm_recurrence_forward(zx, rk, "tanh", "sigmoid", return_sequences, True)
+    dout = torch.randn(out.shape, device=cuda_device, generator=g).to(dtype)
+    dz = lstm.lstm_recurrence_backward(dout, saved[0], saved[1], rk, "tanh", "sigmoid",
+                                       return_sequences)
+    again = lstm.lstm_recurrence_backward(dout, saved[0], saved[1], rk, "tanh", "sigmoid",
+                                          return_sequences)
+    torch.cuda.synchronize()
+    assert tuple(getattr(lstm, name) for name in names) == (before[0] + 1, before[1] + 2)
+    ref, ref_saved = lstm.lstm_recurrence_forward_plain(zx, rk, "tanh", "sigmoid",
+                                                        return_sequences, True)
+    ref_dz = lstm.lstm_recurrence_backward_plain(dout, saved[0], saved[1], rk, "tanh",
+                                                 "sigmoid", return_sequences)
+    for got, want in ((out, ref), *zip(saved, ref_saved), (dz, ref_dz)):
+        rel = ((got.float() - want.float()).abs().max() / want.float().abs().max()).item()
+        assert rel <= tol
+    assert torch.equal(dz, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("act, rec, r_scale", [
+    ("gelu", "hard_sigmoid", 0.25), ("elu", "softsign", 0.25), ("relu", "linear", 0.25),
+    ("selu", "swish", 0.25), ("leaky_relu", "tanh", 0.25),
+    # exponential gates have no bound: through R, h overflows float32 within
+    # a few steps in the twin too, so R is 0 here and the cell alone runs
+    ("softplus", "exponential", 0.0)])
+def test_lstm_kernels_take_every_activation(cuda_device, act, rec, r_scale):
+    from gordo_tpu_torch.ops import lstm
+
+    g = torch.Generator().manual_seed(1)
+    zx = (0.5 * torch.randn((2, 6, 11, 4 * 16), generator=g)).to(cuda_device)
+    rk = (r_scale * torch.randn((2, 16, 4 * 16), generator=g)).to(cuda_device)
+    out, saved = lstm.lstm_recurrence_forward(zx, rk, act, rec, True, True)
+    dout = torch.randn(out.shape, generator=g).to(cuda_device)
+    dz = lstm.lstm_recurrence_backward(dout, saved[0], saved[1], rk, act, rec, True)
+    ref, _ = lstm.lstm_recurrence_forward_plain(zx, rk, act, rec, True)
+    ref_dz = lstm.lstm_recurrence_backward_plain(dout, saved[0], saved[1], rk, act, rec, True)
+    for got, want in ((out, ref), (dz, ref_dz)):
+        assert torch.isfinite(want).all()
+        assert ((got - want).abs().max() / want.abs().max().clamp_min(1e-30)).item() <= 1e-4
+
+
+@pytest.mark.cuda
+def test_lstm_launch_limits_follow_the_kernels_plan(cuda_device):
+    """check_launch_limits raises where the CUDA source's plan refuses the
+    step buffers, and the plan holds the recurrent kernel in shared memory
+    at U 64 and reads it through L2 at U 256."""
+    from gordo_tpu_torch.ops import lstm
+
+    with pytest.raises(ValueError, match="shared memory"):
+        lstm.check_launch_limits(1, 4096, 4000)
+    lstm.check_launch_limits(64, 64, 256)
+    assert lstm.kernel_plan(64, 1, torch.float32, False)["r_in_smem"]
+    assert not lstm.kernel_plan(256, 8, torch.float32, True)["r_in_smem"]
+
+
+@pytest.mark.cuda
+def test_lstm_layer_trains_through_the_kernels(cuda_device):
+    """An LSTM layer's forward and backward on the card go through the
+    kernels (one launch each) and give the plain path's gradients."""
+    from gordo_tpu_torch.models.spec import LSTMLayer
+    from gordo_tpu_torch.ops import lstm, nn
+
+    layer = LSTMLayer(8, return_sequences=True)
+    g = torch.Generator().manual_seed(2)
+    params = nn.init_lstm_layer(g, 5, 8)
+    x = torch.rand((4, 12, 5), generator=g)
+    grads = []
+    for device in ("cpu", cuda_device):
+        p = {k: v.detach().clone().to(device).requires_grad_() for k, v in params.items()}
+        before = (lstm.FORWARD_LAUNCHES, lstm.BACKWARD_LAUNCHES)
+        nn._apply_lstm(layer, p, x.to(device), stacked=False).square().sum().backward()
+        launched = (lstm.FORWARD_LAUNCHES - before[0], lstm.BACKWARD_LAUNCHES - before[1])
+        assert launched == ((0, 0) if device == "cpu" else (1, 1))
+        grads.append({k: v.grad.cpu() for k, v in p.items()})
+    for name, want in grads[0].items():
+        assert ((grads[1][name] - want).abs().max() / want.abs().max()).item() <= 1e-4
