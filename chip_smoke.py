@@ -26,14 +26,24 @@ Drive the PyTorch/CUDA port (gordo_tpu_torch) on one NVIDIA GPU.
    ``wgmma`` kernels' host time of encoding their TMA tensor maps is
    printed beside their registers. All six are also held against their
    plain twins at the fleet's training shape (FLEET_SHAPE, BH 1,024; the
-   float32 and bf16 gates above) and timed there beside their bounds and
-   ``scaled_dot_product_attention``. The LSTM recurrence's forward and
+   float32 gates above, bf16 within one ulp of the twin run in float64 and
+   at most 1% different from either twin) and timed there beside their
+   bounds and ``scaled_dot_product_attention``. The LSTM recurrence's forward and
    backward kernels (``lstm_recurrence.cu``, no Pallas counterpart) are
    held against their plain twins in float32 (1e-4 relative) and bf16
    (2e-2) at compressor-b's, bench.py's lstm_ae_144 (alone and as a
    64-machine fleet step) and the factories' default width, the backward
    bit-identical on a rerun, and timed beside their bounds, their twins
-   and cuDNN's ``torch.nn.LSTM``.
+   and cuDNN's ``torch.nn.LSTM``. The wide head dims (the kernels take 16,
+   32 and every multiple of 8 from 64 to 256, each through its class,
+   csrc/head_dim.cuh): all six kernels against their twins at dh 72, 80,
+   96, 120, 136, 192, 200 and 256, at small BH and ragged T, causal and
+   not, and at the d384 path's training shapes (BH 128 and 256, T 512, dh
+   96), then at dh 96 and 256, BH 4,096 and 1,024, T 512, causal (the
+   gates of the fleet's shape, the backward bit-identical on a rerun),
+   timed there beside their bounds (from the true dh), their twins and
+   ``scaled_dot_product_attention``; each class's registers, spills,
+   shared memory and blocks per SM are printed.
 4. Serving path: a ``transformer-ae-512`` artifact (TransformerAutoEncoder,
    lookback 512, d_model 256, 4 heads, ff 512, 2 blocks, 8 tags; weights
    from a seed) is served by the port's HTTP server on the card, and three
@@ -163,9 +173,22 @@ Drive the PyTorch/CUDA port (gordo_tpu_torch) on one NVIDIA GPU.
    backward once per LSTM layer a stacked step, dQ and dK/dV from the
    Transformer bucket alone, held-out errors below the seeded weights';
    the wall beside one serial build of each family x N.
-18. A ``batcher_path`` JSON line (both dtypes' numbers), a ``feedforward``
+18. ``transformer-ae-512-d384`` (``transformer-ae-512`` at d_model 384
+   over 4 heads, dh 96, ff 768): ``build`` through the port's CLI in this
+   process in float32 and bf16 (every CV score line, finite thresholds,
+   held-out error below the seeded weights', dQ and dK/dV once per block a
+   step, no plain attention; phases, ms a fit step, peak memory); both
+   artifacts served as ``run-server`` serves them, 5 requests of 1,535 rows
+   direct and with the batcher forced on (the fused answers within the
+   dtype's tolerance of the direct, the direct within TOL_MODEL_REL, bf16
+   TOL_BF16_MODEL_REL, of plain attention; the peak memory a window of a
+   direct predict and of a fused call of 8,192 windows); a stacked
+   two-machine bucket against the serial trainer (``fleet_loss_check``).
+19. A ``batcher_path`` JSON line (both dtypes' numbers), a ``feedforward``
    JSON line, a ``fastlane``/``kfcv_fleet`` JSON line, a ``windowed`` JSON
-   line, a ``kernels`` JSON line (ten entries: the six flash kernels, then
+   line, a ``transformer-ae-512-d384`` JSON line, a ``kernels`` JSON line
+   (sixteen entries: the six flash kernels at dh 64 with their results by
+   head dim, the six again at dh 96 with the d384 path's launches, then
    the LSTM recurrence's forward and backward in float32 and bf16), then
    the last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -341,9 +364,26 @@ def _rates(timed: dict) -> dict:
             "bound_share": timed["bound_ms"] / timed["ms"]}
 
 
+def _head_dim_class(name: str, dh: int) -> int:
+    """The head-dim class whose instantiation of kernel ``name`` runs dh,
+    as its library has it (csrc/head_dim.cuh); 0 where it takes no dh."""
+    from gordo_tpu_torch.ops import _build
+
+    stem, tag = (("flash_attention_bf16", "bf16") if name.endswith("_bf16")
+                 else ("flash_attention", "f32"))
+    return getattr(_build.load_library(stem), f"gordo_flash_attention_{tag}_head_dim_class")(dh)
+
+
+def _classes(name: str) -> tuple:
+    """The head-dim classes of kernel ``name``: those of the supported dims."""
+    from gordo_tpu_torch.ops.flash_attention import SUPPORTED_HEAD_DIMS
+
+    return tuple(sorted({_head_dim_class(name, dh) for dh in SUPPORTED_HEAD_DIMS}))
+
+
 def _occupancy() -> dict:
-    """Per tensor-core kernel and head dim: its dynamic shared memory and
-    the blocks of it that one SM holds (``cudaOccupancy...``)."""
+    """Per tensor-core kernel and head-dim class: its dynamic shared memory
+    and the blocks of it that one SM holds (``cudaOccupancy...``)."""
     import ctypes
 
     from gordo_tpu_torch.ops import _build
@@ -366,7 +406,7 @@ def _occupancy() -> dict:
         fn = getattr(_build.load_library(stem), symbol)
         fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        for dh in (16, 32, 64, 128):
+        for dh in _classes(name):
             smem, blocks = ctypes.c_int(), ctypes.c_int()
             rc = fn(dh, ctypes.byref(smem), ctypes.byref(blocks))
             if rc != 0:
@@ -418,27 +458,33 @@ WGMMA_KERNELS = {
 
 
 def _ptxas(stem: str, kernel: str) -> dict:
-    """``{dh: (registers, spill store bytes)}`` of ``kernel``'s instantiations
-    from the ``-Xptxas -v`` output of this build of ``stem`` (empty when
-    the library was loaded as built)."""
+    """``{dh class: (registers, spill store bytes)}`` of ``kernel``'s
+    instantiation that runs the dh filling each class (``kernel<DH,
+    false>`` where the class has it, else ``kernel<DH, true>``, or
+    ``kernel_dh<DH>``; csrc/head_dim.cuh), from the ``-Xptxas -v`` output
+    of this build of ``stem`` (empty when the library was loaded as
+    built)."""
     from gordo_tpu_torch.ops import _build
 
-    report, dh = {}, None
+    pattern = re.compile(re.escape(kernel) + r"(?:ILi(\d+)ELb([01])E|_dh(\d+))")
+    report, key = {}, None
     for line in _build.BUILD_LOGS.get(stem, "").splitlines():
         if "Compiling entry function" in line:
-            dh = None
-            if kernel in line:
-                dh = int(line.split(kernel + "ILi", 1)[1].split("E", 1)[0])
-                report[dh] = [None, 0]
-        elif dh is not None and "spill stores" in line:
-            report[dh][1] = int(line.split("bytes spill stores")[0].split(",")[-1])
-        elif dh is not None and "Used" in line and "registers" in line:
-            report[dh][0] = int(line.split("Used")[1].split("registers")[0])
-    return {dh: tuple(v) for dh, v in report.items()}
+            key = None
+            match = pattern.search(line)
+            if match:
+                key = (int(match.group(1) or match.group(3)), match.group(2) == "1")
+                report[key] = [None, 0]
+        elif key is not None and "spill stores" in line:
+            report[key][1] = int(line.split("bytes spill stores")[0].split(",")[-1])
+        elif key is not None and "Used" in line and "registers" in line:
+            report[key][0] = int(line.split("Used")[1].split("registers")[0])
+    return {dh: tuple(report.get((dh, False), report.get((dh, True))))
+            for dh in sorted({dh for dh, _ in report})}
 
 
 def wgmma_report(occupancy: dict) -> dict:
-    """Per wgmma kernel and head dim: registers a thread as built (before
+    """Per wgmma kernel and head-dim class: registers a thread as built (before
     setmaxnreg moves them to the consumers), spilled bytes, dynamic shared
     memory, blocks per SM, and the host microseconds of encoding the
     kernel's TMA tensor maps at the training shape (mean of 1,000)."""
@@ -457,7 +503,7 @@ def wgmma_report(occupancy: dict) -> dict:
                        ctypes.c_void_p]
         fn.restype = ctypes.c_int
         built = _ptxas(stem, kernel)
-        for dh in (16, 32, 64, 128):
+        for dh in _classes(name):
             us = ctypes.c_float()
             rc = fn(base.data_ptr(), TRAIN_SHAPE[0], TRAIN_SHAPE[1], dh, 1000, ctypes.byref(us))
             if rc != 0:
@@ -781,6 +827,127 @@ def bf16_kernel_phase(card: str) -> list:
     for entry in backward:
         entry.update(_rates(entry))
     return [forward, *backward]
+
+
+# ------------------------------------------------------------ wide head dims
+# head dims from 64 to 256 that the kernels run through their padded
+# classes: held against the twins at every class and inside classes, at
+# small BH and ragged T; timed at dh 96 (transformer-ae-512-d384: d_model
+# 384 over 4 heads) and 256 (d_model 1,024), at the serving and fleet BH
+GATE_HEAD_DIMS = (72, 80, 96, 120, 136, 192, 200, 256)
+GATE_SHAPES = ((3, 77), (2, 200))  # (BH, T)
+# (BH, T, dh) of the d384 path's training steps: a serial step (batch 32 x
+# 4 heads) and a stacked two-machine step, many works to each persistent block
+PATH_GATE_SHAPES = ((128, 512, 96), (256, 512, 96))
+TIMED_HEAD_DIMS = (96, 256)
+TIMED_BH = (4096, 1024)
+ENTRY_NAMES = {"forward": "flash_attention_forward", "dq": "flash_attention_backward_dq",
+               "dkv": "flash_attention_backward_dkv"}
+N_TENSORS = {"forward": 4, "dq": 6, "dkv": 7}
+
+
+def head_dim_gates(dtype: str) -> dict:
+    """The forward, dQ and dK/dV kernels of ``dtype`` against their twins
+    (:func:`twin_gates`) at each of GATE_HEAD_DIMS and GATE_SHAPES, causal
+    and not, and at PATH_GATE_SHAPES, causal. Raises on a miss; returns
+    ``{kernel: {dh: worst error}}`` (float32: the relative error, bf16: the
+    share that differs), ``lse`` likewise, and, under ``max_abs``, the
+    largest absolute differences."""
+    import torch
+
+    from gordo_tpu_torch.ops import flash_attention as fa
+
+    bf16 = dtype == "bfloat16"
+    g = torch.Generator(device="cuda").manual_seed(SEED + 20)
+    worst = {name: {} for name in ("forward", "lse", "dq", "dkv", "max_abs")}
+    cases = [(bh, t, dh, causal) for dh in GATE_HEAD_DIMS for bh, t in GATE_SHAPES
+             for causal in (True, False)] + [(*shape, True) for shape in PATH_GATE_SHAPES]
+    for bh, t, dh, causal in cases:
+        q, k, v, do = (torch.randn((bh, t, dh), device="cuda", generator=g)
+                       .to(torch.bfloat16 if bf16 else torch.float32) for _ in range(4))
+        out, lse = fa.flash_attention_forward(q, k, v, causal)
+        errors = twin_gates(q, k, v, do, out, lse, causal)
+        worst["lse"][dh] = max(worst["lse"].get(dh, 0.0), errors["lse"])
+        for kernel, names in (("forward", ("out",)), ("dq", ("dq",)), ("dkv", ("dk", "dv"))):
+            err = max(errors[n]["share_differing" if bf16 else "max_rel_err"] for n in names)
+            max_abs = max(errors[n]["max_abs_err"] for n in names)
+            worst[kernel][dh] = max(worst[kernel].get(dh, 0.0), err)
+            by_dh = worst["max_abs"].setdefault(kernel, {})
+            by_dh[dh] = max(by_dh.get(dh, 0.0), max_abs)
+        del q, k, v, do, out, lse
+    for dh in sorted(worst["forward"]):
+        shapes = [(bh, t) for bh, t, d, _ in cases if d == dh]
+        print(f"{dtype} kernels at dh {dh} against their twins, (BH, T) {sorted(set(shapes))}: "
+              f"worst {'share that differs' if bf16 else 'rel err'} forward "
+              f"{worst['forward'][dh]:.3e}, dq {worst['dq'][dh]:.3e}, dkv {worst['dkv'][dh]:.3e}; "
+              f"lse {worst['lse'][dh]:.3e}; backward bit-identical on a rerun", flush=True)
+    return worst
+
+
+def head_dim_times(card: str, dtype: str) -> dict:
+    """Each kernel of ``dtype`` at (BH, 512, dh), causal, for BH in TIMED_BH
+    and dh in TIMED_HEAD_DIMS: held against its plain twin on the same
+    inputs (:func:`twin_gates`), and timed by CUDA events beside its bound
+    (from the true dh: the class's padded columns show as a lower share),
+    the plain twin (the forward, or the whole backward) and
+    ``scaled_dot_product_attention``'s forward or whole backward given
+    (1, BH, T, dh). Returns ``{kernel: {dh: {bh: timings and errors}}}``."""
+    import torch
+
+    from gordo_tpu_torch.ops import flash_attention as fa
+
+    torch_dtype = torch.bfloat16 if dtype == "bfloat16" else torch.float32
+    size = 2 if dtype == "bfloat16" else 4
+    g = torch.Generator(device="cuda").manual_seed(SEED + 21)
+    times = {kernel: {} for kernel in ENTRY_NAMES}
+    t = CONFIG["lookback_window"]
+    for dh in TIMED_HEAD_DIMS:
+        for bh in TIMED_BH:
+            q, k, v, do = (torch.randn((bh, t, dh), device="cuda", generator=g).to(torch_dtype)
+                           for _ in range(4))
+            o, lse = fa.flash_attention_forward(q, k, v, True)
+            errors = twin_gates(q, k, v, do, o, lse)
+            print(f"{dtype} kernels at ({bh}, {t}, {dh}) causal against their plain twins: "
+                  f"{errors}; backward bit-identical on a rerun", flush=True)
+            torch.cuda.empty_cache()
+            iters = 10 if bh > 1024 else 20
+            library = {"forward": _sdpa_ms(q, k, v, iters, three_d=False)["library_ms"],
+                       "backward": _sdpa_ms(q, k, v, iters // 2, do=do,
+                                            three_d=False)["library_ms"]}
+            torch.cuda.empty_cache()
+            plain = {"forward": _time_ms(lambda: fa.flash_attention_forward_plain(q, k, v, True),
+                                         2),
+                     "backward": _time_ms(lambda: fa.flash_attention_backward_plain(
+                         q, k, v, o, lse, do, True), 2)}
+            torch.cuda.empty_cache()
+            for kernel, call, checked in (
+                    ("forward", lambda: fa.flash_attention_forward(q, k, v, True),
+                     {"out": errors["out"], "lse": errors["lse"]}),
+                    ("dq", lambda: fa.launch_dq(q, k, v, o, lse, do, True),
+                     {"dq": errors["dq"]}),
+                    ("dkv", lambda: fa.launch_dkv(q, k, v, o, lse, do, True),
+                     {"dk": errors["dk"], "dv": errors["dv"]})):
+                ms = _time_ms(call, iters)
+                bound = _flash_bound_ms(bh, t, dh, True, n_tensors=N_TENSORS[kernel],
+                                        flop_per_pair=FLOP_PER_PAIR[dtype][kernel],
+                                        bytes_per_element=size, dtype=dtype)
+                side = "forward" if kernel == "forward" else "backward"
+                entry = {"shape": [bh, t, dh], "ms": ms, "plain_ms": plain[side],
+                         "library_ms": library[side], "bound_ms": bound["bound_ms"],
+                         "bound_by": bound["bound_by"], "flop": bound["flop"],
+                         "plain_and_library_compute": "the forward" if side == "forward"
+                         else "dq, dk and dv together", "against_plain": checked}
+                entry.update(_rates(entry))
+                times[kernel].setdefault(dh, {})[bh] = entry
+                print(f"{ENTRY_NAMES[kernel]} ({dtype}) at ({bh}, {t}, {dh}) causal on {card}: "
+                      f"{ms:.4f} ms, bound {bound['bound_ms']:.4f} ms ({bound['bound_by']}, "
+                      f"{100 * entry['bound_share']:.1f}%), {entry['achieved_tflop_s']:.1f} "
+                      f"TFLOP/s; plain {plain[side]:.4f} ms, scaled_dot_product_attention "
+                      f"{library[side]:.4f} ms ({entry['plain_and_library_compute']})",
+                      flush=True)
+            del q, k, v, do, o, lse
+            torch.cuda.empty_cache()
+    return times
 
 
 # ------------------------------------------------------------ the LSTM recurrence
@@ -2084,50 +2251,68 @@ FLEET_TAGS = [[f"m{m}-tag-{j}" for j in range(len(TAGS))] for m in range(FLEET_M
 FLEET_SHAPE = (FLEET_MACHINES * BATCH * 4, 512, 64)
 
 
-def _plain_in_parts(fn, tensors, causal: bool, parts: int = 4) -> list:
+def _plain_in_parts(fn, tensors, causal: bool, parts: int = 4, dtype=None) -> list:
     """``fn`` (a plain twin returning a tuple) over ``parts`` slices of BH,
-    its results joined: a quarter of its score matrices alive at once."""
+    its results joined: a ``parts``-th of its score matrices alive at once;
+    with ``dtype``, each slice cast to it first."""
     import torch
 
-    pieces = [fn(*xs, causal) for xs in zip(*(x.chunk(parts) for x in tensors))]
+    pieces = [fn(*(x if dtype is None else x.to(dtype) for x in xs), causal)
+              for xs in zip(*(x.chunk(parts) for x in tensors))]
     return [torch.cat(outs) for outs in zip(*pieces)]
 
 
-def fleet_kernel_gates(q, k, v, do, o, lse) -> dict:
-    """The forward, dQ and dK/dV of one dtype at the fleet's shape held
-    against their plain twins on the same inputs (``o`` and ``lse`` from
-    the forward kernel, as training has them): float32 at TOL_OUT_REL,
-    TOL_LSE_ABS and TOL_GRAD_REL as the kernel phases hold them; bf16 by
-    ``_bf16_gate`` (one ulp, at most TOL_BF16_SHARE differing, the elements
-    that float64 makes exactly 0 held near 0) and lse at TOL_BF16_LSE_REL.
-    Raises on a miss; returns ``{kernel: errors}``."""
+def twin_gates(q, k, v, do, o, lse, causal: bool = True) -> dict:
+    """The forward, dQ and dK/dV of one dtype held against their plain twins
+    on the same inputs (``o`` and ``lse`` from the forward kernel, as
+    training has them), the backward launched twice for bit-identical
+    results, the twins run over slices of at most 256 of BH: float32 at
+    TOL_OUT_REL, TOL_LSE_ABS and TOL_GRAD_REL (absolute below 1); bf16 by
+    ``_bf16_gate``: every element within one ulp of the twin run in
+    float64 and rounded to bf16 (the elements that float64 makes exactly 0
+    held near 0), at most TOL_BF16_SHARE differing from it and from the
+    float32 twin, and lse at TOL_BF16_LSE_REL. The float32 twin is no
+    judge of one ulp near 0: its own error there is of the order of the
+    gate's 1e-6 (one bf16 dK element at (1024, 512, 256), within one ulp of
+    float64, is not within one ulp of the float32 twin). Raises on a miss;
+    returns ``{kernel: errors}``."""
     import torch
 
     from gordo_tpu_torch.ops import flash_attention as fa
 
-    causal = True
     bf16 = q.dtype == torch.bfloat16
     inputs = (q, k, v, o, lse, do)
+    parts = max(1, q.shape[0] // 256)
+    where = f"{'bf16' if bf16 else 'float32'} {tuple(q.shape)} causal {causal}"
     out, lse_k = fa.flash_attention_forward(q, k, v, causal)
-    got = {"out": out, "dq": fa.launch_dq(*inputs, causal)}
-    got["dk"], got["dv"] = fa.launch_dkv(*inputs, causal)
+    runs = [(fa.launch_dq(*inputs, causal), *fa.launch_dkv(*inputs, causal)) for _ in range(2)]
     torch.cuda.synchronize()
-    ref_out, ref_lse = _plain_in_parts(fa.flash_attention_forward_plain, (q, k, v), causal)
+    if not all(torch.equal(a, b) for a, b in zip(*runs)):
+        raise AssertionError(f"{where}: the backward differs between two launches")
+    got = {"out": out, **dict(zip(("dq", "dk", "dv"), runs[0]))}
+    del runs
+    ref_out, ref_lse = _plain_in_parts(fa.flash_attention_forward_plain, (q, k, v), causal,
+                                       parts)
     refs = dict(zip(("dq", "dk", "dv"),
-                    _plain_in_parts(fa.flash_attention_backward_plain, inputs, causal)))
+                    _plain_in_parts(fa.flash_attention_backward_plain, inputs, causal, parts)))
     refs["out"] = ref_out
-    exact = (dict(zip(("dq", "dk", "dv"), _plain_in_parts(
-        fa.flash_attention_backward_plain, [x.double() for x in inputs], causal)))
-        if bf16 else {})
     errors = {}
     if bf16:
+        exact = dict(zip(("dq", "dk", "dv"), _plain_in_parts(
+            fa.flash_attention_backward_plain, inputs, causal, parts, torch.float64)))
+        exact["out"] = _plain_in_parts(fa.flash_attention_forward_plain, (q, k, v), causal,
+                                       parts, torch.float64)[0]
         lse_err = ((lse_k - ref_lse).abs() / ref_lse.abs().clamp_min(1.0)).max().item()
         ok = lse_err <= TOL_BF16_LSE_REL
         for name in ("out", "dq", "dk", "dv"):
-            within, share, max_abs = _bf16_gate(got[name], refs[name], exact.get(name))
+            within, share_f64, max_abs_f64 = _bf16_gate(got[name], exact[name].bfloat16(),
+                                                        exact[name])
+            within_twin, share, max_abs = _bf16_gate(got[name], refs[name], exact[name])
             errors[name] = {"within_one_ulp": within, "share_differing": share,
-                            "max_abs_err": max_abs}
-            ok = ok and within and share <= TOL_BF16_SHARE
+                            "max_abs_err": max_abs, "f64_share_differing": share_f64,
+                            "f64_max_abs_err": max_abs_f64,
+                            "within_one_ulp_of_float32_twin": within_twin}
+            ok = ok and within and max(share, share_f64) <= TOL_BF16_SHARE
     else:
         lse_err = (lse_k - ref_lse).abs().max().item()
         ok = lse_err <= TOL_LSE_ABS
@@ -2140,16 +2325,14 @@ def fleet_kernel_gates(q, k, v, do, o, lse) -> dict:
             errors[name] = {"max_abs_err": max_abs, "max_rel_err": rel}
             ok = ok and rel <= (TOL_OUT_REL if name == "out" else TOL_GRAD_REL)
     errors["lse"] = lse_err
-    print(f"{'bf16' if bf16 else 'float32'} kernels at the fleet's {tuple(q.shape)} causal "
-          f"against their plain twins: {errors}", flush=True)
     if not ok:
-        raise AssertionError(f"a kernel disagrees with its plain twin at {tuple(q.shape)}")
+        raise AssertionError(f"{where}: a kernel disagrees with its plain twin: {errors}")
     return errors
 
 
 def fleet_kernel_times(card: str) -> dict:
     """The six kernels at FLEET_SHAPE, causal: each held against its plain
-    twin there (:func:`fleet_kernel_gates`), and its time beside its bound,
+    twin there (:func:`twin_gates`), and its time beside its bound,
     the plain twin's (the forward, or the whole backward) and
     ``scaled_dot_product_attention``'s forward or whole backward on the
     same inputs. Returns ``{kernel entry name: timings and errors}``."""
@@ -2164,7 +2347,9 @@ def fleet_kernel_times(card: str) -> dict:
         q, k, v, do = (torch.randn(FLEET_SHAPE, device="cuda", generator=g).to(dtype)
                        for _ in range(4))
         o, lse = fa.flash_attention_forward(q, k, v, True)
-        errors = fleet_kernel_gates(q, k, v, do, o, lse)
+        errors = twin_gates(q, k, v, do, o, lse)
+        print(f"{name} kernels at the fleet's {FLEET_SHAPE} causal against their plain twins: "
+              f"{errors}; backward bit-identical on a rerun", flush=True)
         torch.cuda.empty_cache()
         forward_lib, backward_lib = _sdpa_ms(q, k, v, 20), _sdpa_ms(q, k, v, 10, do=do)
         plain_forward = _time_ms(lambda: fa.flash_attention_forward_plain(q, k, v, True), 5)
@@ -2333,11 +2518,12 @@ def _one_batch_diffs(spec, params, X, orders, device: str) -> tuple:
     return out_diff, grad_diff
 
 
-def fleet_loss_check(card: str, device: str = "cuda") -> dict:
-    """A two-machine bucket against the serial trainer given the same
-    initial parameters and orders. The gate that tells a stacking fault
-    (a wrong machine slice, a wrong loss sum) from rounding: one batch's
-    output and parameter gradients, stacked against serial, within
+def fleet_loss_check(card: str, device: str = "cuda", config: dict = None) -> dict:
+    """A two-machine bucket of ``config`` (``CONFIG`` by default) against
+    the serial trainer given the same initial parameters and orders. The
+    gate that tells a stacking fault (a wrong machine slice, a wrong loss
+    sum) from rounding: one batch's output and parameter gradients, stacked
+    against serial, within
     TOL_GRAD_REL in float32 and TOL_BF16_MODEL_REL in bf16. Then LOSS_STEPS
     float32 step losses per machine within TOL_LOSS_REL of the serial
     trainer's, printed beside how far the serial trainer drifts from
@@ -2348,7 +2534,8 @@ def fleet_loss_check(card: str, device: str = "cuda") -> dict:
     from gordo_tpu_torch.models.scaler import MinMaxScaler
     from gordo_tpu_torch.ops import nn, train
 
-    spec = TransformerAutoEncoder(**CONFIG).build_spec(len(TAGS), len(TAGS))
+    config = CONFIG if config is None else config
+    spec = TransformerAutoEncoder(**config).build_spec(len(TAGS), len(TAGS))
     n_rows = LOSS_STEPS * BATCH + spec.lookback_window - 1
     rng = np.random.RandomState(SEED + 6)
     rows = [MinMaxScaler().fit(x).transform(x) for x in (_series(n_rows, 0, rng),
@@ -2362,10 +2549,11 @@ def fleet_loss_check(card: str, device: str = "cuda") -> dict:
                           for m in range(2)])
     diffs = {}
     for dtype, tol in (("float32", TOL_GRAD_REL), ("bfloat16", TOL_BF16_MODEL_REL)):
-        dtype_spec = TransformerAutoEncoder(**CONFIG, compute_dtype=dtype).build_spec(
+        dtype_spec = TransformerAutoEncoder(**config, compute_dtype=dtype).build_spec(
             len(TAGS), len(TAGS))
         out_diff, grad_diff = _one_batch_diffs(dtype_spec, params, X, orders, device)
-        print(f"two-machine bucket vs the serial model ({dtype}), one batch: output max rel "
+        print(f"two-machine bucket (d_model {config['d_model']}) vs the serial model "
+              f"({dtype}), one batch: output max rel "
               f"diff {out_diff:.3e}, gradients max rel diff {grad_diff:.3e} (gate {tol:g})",
               flush=True)
         if not (out_diff <= tol and grad_diff <= tol):
@@ -3895,6 +4083,200 @@ def windowed_fleet_path(card: str, root: Path, device: str = "cuda") -> dict:
     return result
 
 
+# ------------------------------------------------------------ transformer-ae-512-d384
+# transformer-ae-512 at d_model 384 over its 4 heads (dh 96, a head dim the
+# kernels run through their padded classes) and ff 768; everything else as
+# the main path: built by the CLI in float32 and bf16, served direct and
+# fused, trained as a stacked two-machine bucket
+D384 = {"d_model": 384, "ff_dim": 768}
+D384_CONFIG = {**CONFIG, **D384}
+D384_ROUNDS = 5  # sequential 1,535-row requests in each serving mode
+
+
+def d384_build(card: str, root: Path, dtype: str, device: str = "cuda") -> dict:
+    """``build`` of transformer-ae-512-d384 (``compute_dtype`` ``dtype``)
+    through the port's CLI in this process (``cli.main``), so that its
+    launches are counted. Gates: exit 0, every CV score line, finite
+    thresholds, the held-out error below the seeded weights', the dtype's
+    dQ and dK/dV launched once per block a step of every fold and the fit,
+    the forward at least as often, no kernel of the other dtype and no
+    plain attention. Returns the phases, ms a fit step, peak device memory
+    and launches."""
+    import contextlib
+    import io
+
+    import torch
+
+    from gordo_tpu_torch import cli, serializer
+    from gordo_tpu_torch.models.anomaly.diff import TimeSeriesSplit
+    from gordo_tpu_torch.models.models import TransformerAutoEncoder
+    from gordo_tpu_torch.models.spec import TransformerBlock
+    from gordo_tpu_torch.ops.predict import n_train_samples
+
+    extra = {"compute_dtype": "bfloat16"} if dtype == "bfloat16" else {}
+    name = "transformer-ae-512-d384" + ("-bf16" if extra else "")
+    config = build_config(name, **D384, **extra)
+    spec = TransformerAutoEncoder(**D384_CONFIG, **extra).build_spec(len(TAGS), len(TAGS))
+    other = next(d for d in COUNTERS if d != dtype)
+    n_rows = _config_rows(config)
+    steps = [math.ceil(n_train_samples(spec, len(train_idx)) / BATCH)
+             for train_idx, _ in TimeSeriesSplit(3).split(np.zeros(n_rows))]
+    steps.append(math.ceil(n_train_samples(spec, n_rows) / BATCH))
+    n_blocks = sum(isinstance(layer, TransformerBlock) for layer in spec.layers)
+    out = root / name
+    shutil.rmtree(out, ignore_errors=True)
+    argv = ["--log-level", "WARNING", "build", json.dumps(config), str(out),
+            "--print-cv-scores"] + ([] if device == "cuda" else ["--device", device])
+    stdout = io.StringIO()
+    gc.collect()
+    gc.freeze()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    t0 = time.perf_counter()
+    try:
+        with _PlainAttentionCalls() as plain, contextlib.redirect_stdout(stdout):
+            code = cli.main(argv)
+        torch.cuda.synchronize()
+    finally:
+        gc.unfreeze()
+    seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    launches, others = _launches(dtype), _launches(other)
+    if code != 0:
+        raise AssertionError(f"build {name}: exit {code}")
+    model = serializer.load(str(out), device)
+    phases = serializer.load_metadata(str(out))["metadata"]["build_metadata"]["phases"]
+    mse = held_out_mse(model, spec, n_rows)
+    thresholds = [float(x) for x in (*model.feature_thresholds_, model.aggregate_threshold_)]
+    score_lines = sum("_fold-" in line for line in stdout.getvalue().splitlines())
+    result = {"name": name, "seconds": seconds, "phases": phases, "steps": steps,
+              "ms_per_fit_step": 1e3 * phases["fit"] / steps[3], "peak_gib": peak,
+              "launches": launches, "held_out_mse": mse, "thresholds": thresholds,
+              "score_lines": score_lines, "plain_attention_calls": plain.calls}
+    print(f"build {name} ({dtype}, dh {D384_CONFIG['d_model'] // D384_CONFIG['num_heads']}) "
+          f"through the CLI on {card}: exit {code} in {seconds:.2f} s; phases (s) {phases}; CV "
+          f"{steps[:3]} steps, fit {steps[3]} steps, {result['ms_per_fit_step']:.2f} ms per fit "
+          f"step; peak device memory {peak:.2f} GiB; {dtype} launches {launches}; held-out "
+          f"scaled MSE {mse['trained']:.6f} (seeded {mse['seeded']:.6f}); aggregate threshold "
+          f"{model.aggregate_threshold_:.6f}; {score_lines} score lines; plain attention "
+          f"calls {plain.calls}", flush=True)
+    expected_lines = 4 * (len(TAGS) + 1) * 7
+    if not (launches["dq"] == launches["dkv"] == n_blocks * sum(steps)
+            and launches["forward"] >= launches["dq"]):
+        raise AssertionError(f"{name}: launches {launches}, expected {n_blocks * sum(steps)} "
+                             f"dQ and dK/dV")
+    if any(others.values()) or plain.calls:
+        raise AssertionError(f"{name}: {other} launches {others}, plain calls {plain.calls}")
+    if not (mse["trained"] < mse["seeded"] and all(math.isfinite(x) for x in thresholds)
+            and score_lines == expected_lines):
+        raise AssertionError(f"{name}: {result}")
+    return result
+
+
+def d384_served(card: str, collection: Path, names: dict, device: str = "cuda") -> dict:
+    """The built transformer-ae-512-d384 artifacts (``names``: dtype ->
+    name) served as ``run-server`` serves them, with
+    ``GORDO_TPU_SERVING_BATCH`` 0 (direct), then 1 (the batcher forced on):
+    D384_ROUNDS 1,535-row anomaly requests each (:func:`_served_run`'s
+    checks: every answer 200, the native codec, no plain attention, the
+    forward once per block a request or fused call). Gates: the fused
+    answers within the dtype's tolerance (TOL_OUT_REL, TOL_BF16_MODEL_REL)
+    of the direct ones, and the direct answer's model output within
+    TOL_MODEL_REL (bf16 TOL_BF16_MODEL_REL) of the same model with the plain
+    attention. Then the peak device memory a window of a direct predict and
+    of one fused call of eight full-width requests (``fused_memory``).
+    Returns p50s, errors, memory and the forward launches."""
+    from gordo_tpu_torch.models.models import TransformerAutoEncoder
+    from gordo_tpu_torch.server import batcher
+    from gordo_tpu_torch.server.server import make_server
+
+    previous = os.environ.get("GORDO_TPU_SERVING_BATCH")
+    server = make_server("127.0.0.1", 0, device=device, collection_dir=str(collection))
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    project = f"http://127.0.0.1:{server.server_address[1]}/gordo/v0/smoke"
+    rng = np.random.RandomState(SEED + 30)
+    result = {}
+    try:
+        for dtype, name in names.items():
+            tol = TOL_BF16_MODEL_REL if dtype == "bfloat16" else TOL_OUT_REL
+            values = _series(FULL_ROWS, 80000, rng)
+            body = _rect_body(values)
+            n_out = FULL_ROWS - D384_CONFIG["lookback_window"] + 1
+            runs = {mode: _served_run(card, project, [(name, body)] * D384_ROUNDS, 1, mode,
+                                      dtype, D384_CONFIG["num_blocks"], n_out,
+                                      f"transformer-ae-512-d384 ({FULL_ROWS} rows)",
+                                      must_fuse=False)
+                    for mode in ("0", "1")}
+            os.environ["GORDO_TPU_SERVING_BATCH"] = "0"
+            batcher.reset_batcher()
+            detector = server.models[name].detector
+            estimator, scaler = (detector.base_estimator.steps[-1][1],
+                                 detector.base_estimator.steps[0][1])
+            plain = TransformerAutoEncoder(**D384_CONFIG).load_params(
+                _with_attention(estimator.spec_, "xla"), estimator.module_.params_numpy(), device)
+            ref = plain.predict(scaler.transform(values))
+            served = runs["0"]["outputs"][0]
+            errors = {"fused_vs_direct": _max_rel(runs["1"]["outputs"], runs["0"]["outputs"]),
+                      "direct_vs_plain_attention": float(np.abs(served - ref).max()
+                                                         / np.abs(ref).max())}
+            plain_tol = TOL_BF16_MODEL_REL if dtype == "bfloat16" else TOL_MODEL_REL
+            print(f"transformer-ae-512-d384 served ({dtype}) on {card}: p50 direct "
+                  f"{runs['0']['p50_ms']:.2f} ms, fused {runs['1']['p50_ms']:.2f} ms; max rel "
+                  f"err {errors} (gates {tol:g}, {plain_tol:g})", flush=True)
+            if not (errors["fused_vs_direct"] <= tol
+                    and errors["direct_vs_plain_attention"] <= plain_tol):
+                raise AssertionError(f"transformer-ae-512-d384 ({dtype}) answers: {errors}")
+            memory = fused_memory(card, [estimator] * BATCHER_MODELS, dtype, rng, tol)
+            result[dtype] = {
+                "p50_ms": {"direct": runs["0"]["p50_ms"], "fused": runs["1"]["p50_ms"]},
+                "max_ms": {"direct": runs["0"]["max_ms"], "fused": runs["1"]["max_ms"]},
+                "errors": errors, "memory": memory,
+                "forward_launches": runs["0"]["forward_launches"] + runs["1"]["forward_launches"],
+                "fused_calls": runs["1"]["fused_calls"]}
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=60)
+        batcher.reset_batcher()
+        if previous is None:
+            os.environ.pop("GORDO_TPU_SERVING_BATCH", None)
+        else:
+            os.environ["GORDO_TPU_SERVING_BATCH"] = previous
+    return result
+
+
+def d384_path(card: str, root: Path, device: str = "cuda") -> dict:
+    """transformer-ae-512-d384 on the card: built by the CLI in float32 and
+    bf16 (:func:`d384_build`), both artifacts served direct and fused
+    (:func:`d384_served`), and a stacked two-machine bucket of it against
+    the serial trainer (:func:`fleet_loss_check`: one batch's output and
+    gradients within TOL_GRAD_REL in float32 and TOL_BF16_MODEL_REL in bf16,
+    LOSS_STEPS float32 losses within TOL_LOSS_REL), with no plain
+    attention. Returns each part's numbers and the kernels' launches by
+    dtype and part: every launch here is at dh 96."""
+    shutil.rmtree(root, ignore_errors=True)
+    collection = root / "collection"
+    collection.mkdir(parents=True)
+    builds = {dtype: d384_build(card, collection, dtype, device) for dtype in COUNTERS}
+    served = d384_served(card, collection, {dtype: b["name"] for dtype, b in builds.items()},
+                         device)
+    _reset_launches()
+    with _PlainAttentionCalls() as plain:
+        stacked = fleet_loss_check(card, device, config=D384_CONFIG)
+    stacked["launches"] = {dtype: _launches(dtype) for dtype in COUNTERS}
+    print(f"transformer-ae-512-d384 stacked against serial: launches {stacked['launches']}, "
+          f"plain attention calls {plain.calls}", flush=True)
+    if plain.calls or not all(n["dq"] and n["dkv"] for n in stacked["launches"].values()):
+        raise AssertionError(f"the d384 stacked check: {stacked['launches']}, plain calls "
+                             f"{plain.calls}")
+    launches = {dtype: {"build": builds[dtype]["launches"],
+                        "served": {"forward": served[dtype]["forward_launches"]},
+                        "stacked": stacked["launches"][dtype]} for dtype in COUNTERS}
+    return {"build": builds, "served": served, "stacked": stacked, "launches": launches}
+
+
 def main() -> int:
     import torch
 
@@ -3955,6 +4337,11 @@ def main() -> int:
         if mma and op == "HGMMA" and entry["sass_hmma"]:
             raise AssertionError(f"{kernel}'s SASS holds HMMA beside its HGMMA")
     fleet_times = fleet_kernel_times(card)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    head_dims = {dtype: {"gates": head_dim_gates(dtype), "times": head_dim_times(card, dtype)}
+                 for dtype in COUNTERS}
+    print(f"wide head-dim kernel phase: {time.perf_counter() - t0:.1f} s", flush=True)
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     lstm_entries = lstm_kernel_phase(card)
@@ -4028,6 +4415,11 @@ def main() -> int:
     print(f"LSTM/TCN phases: compressor-b build {windowed['lstm_example_build']['phase_s']:.1f} "
           f"s, windowed serving {windowed['served']['phase_s']:.1f} s, windowed fleet "
           f"{windowed['fleet']['phase_s']:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    d384 = d384_path(card, REPO / "build" / "chip_smoke_d384")
+    d384["phase_s"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    print(f"transformer-ae-512-d384 phase: {d384['phase_s']:.1f} s", flush=True)
 
     forward["launches_by_path"] = {"serving": serving, "server_surface": base_route,
                                    "batcher": batched["launches"],
@@ -4055,6 +4447,8 @@ def main() -> int:
                                       "fleet": ff_fleet}}, default=str))
     print(json.dumps({"fastlane": lanes, "kfcv_fleet": kfcv_fleet}, default=str))
     print(json.dumps({"windowed": windowed}, default=str))
+    print(json.dumps({"transformer-ae-512-d384": {key: value for key, value in d384.items()
+                                                  if key != "launches"}}, default=str))
     for entry, key, launches, fleet_launches in (
             (dq, "dq", build, fleet), (dkv, "dkv", build, fleet),
             (bf16_dq, "dq", bf16_build, bf16_fleet), (bf16_dkv, "dkv", bf16_build, bf16_fleet)):
@@ -4066,6 +4460,40 @@ def main() -> int:
                 "float32"][key]
     for entry in entries:
         entry["fleet_shape"] = fleet_times[entry["name"]]
+    # the wide head dims: each kernel's gates by dh and its times at dh 96
+    # and 256; an entry of its own at dh 96, launched by the d384 path
+    f32_ptxas = {"forward": ("flash_attention", "flash_forward_f32"),
+                 "dq": ("flash_attention_bwd", "flash_bwd_dq_f32"),
+                 "dkv": ("flash_attention_bwd", "flash_bwd_dkv_f32")}
+    d384_entries = []
+    for entry in entries:
+        dtype = entry["dtype"]
+        kernel = next(k for k, n in ENTRY_NAMES.items()
+                      if entry["name"] in (n, n + "_bf16"))
+        gates, times = head_dims[dtype]["gates"], head_dims[dtype]["times"][kernel]
+        entry["head_dims"] = {"gates": gates[kernel], "lse": gates["lse"],
+                              "max_abs_err": gates["max_abs"][kernel], "timed": times}
+        if dtype == "float32":
+            entry["ptxas_by_head_dim"] = _ptxas(*f32_ptxas[kernel])
+        top = times[96][TIMED_BH[0] if kernel == "forward" else TIMED_BH[1]]
+        paths = d384["launches"][dtype]
+        d384_entries.append({
+            "name": f"{entry['name']}_dh96", "route": "cuda", "source": entry["source"],
+            "replaces": entry["replaces"], "dtype": dtype, "head_dim": 96,
+            "head_dim_class": _head_dim_class(entry["name"], 96),
+            "launches_by_path": (
+                {"d384_build": paths["build"]["forward"],
+                 "d384_served": paths["served"]["forward"]} if kernel == "forward" else
+                {"d384_build": paths["build"][kernel], "d384_stacked": paths["stacked"][kernel]}),
+            "max_abs_err": gates["max_abs"][kernel][96], "gate_err_at_dh96": gates[kernel][96],
+            **{key: top[key] for key in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                                         "shape", "achieved_tflop_s", "bound_share",
+                                         "plain_and_library_compute")},
+            "timed_by_bh": times[96]})
+    for entry in entries:
+        for dh, built in sorted(entry.get("ptxas_by_head_dim", {}).items()):
+            print(f"  {entry['name']} class {dh}: {built[0]} registers ({built[1]} B spilled), "
+                  f"{entry['occupancy_by_head_dim'][dh]}", flush=True)
     # the recurrence kernels: float32 on compressor-b's build and the float32
     # served artifacts, bf16 on the bf16 served artifacts and the bf16 fleet
     example, served_l, fleet_l = (windowed["lstm_example_build"]["launches"],
@@ -4078,7 +4506,7 @@ def main() -> int:
              "windowed_fleet": fleet_l["bfloat16"]["lstm_forward"]},
             {"windowed_fleet": fleet_l["bfloat16"]["lstm_backward"]})):
         entry["launches_by_path"] = paths
-    entries += lstm_entries
+    entries += d384_entries + lstm_entries
     for entry in entries:
         entry["launches"] = sum(entry["launches_by_path"].values())
         if entry["launches"] < 1:

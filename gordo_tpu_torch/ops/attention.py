@@ -7,7 +7,9 @@ counterpart of ``gordo_tpu/ops/attention.py``.
   :func:`_flash_ok` accepts, decided before any launch; every other shape
   takes the plain path, as the JAX dispatcher sends the shapes its kernel
   cannot take to XLA. The JAX package's own gate encodes Mosaic/VMEM limits
-  of the TPU; this one encodes what the CUDA kernels take.
+  of the TPU; this one encodes what the CUDA kernels take. Head dims above
+  256, which the JAX dispatcher sends to its Pallas kernels, take the plain
+  path here: the kernels for them are not ported yet (ROADMAP.md queue B).
 - ``impl="flash"``, named explicitly: the flash kernels for every shape; on
   the card an unsupported shape raises. On the CPU their plain twins run.
 - ``impl="xla"``, named explicitly in a spec: the plain PyTorch path,
@@ -64,7 +66,9 @@ def dot_product_attention_plain(q, k, v, causal: bool = False) -> torch.Tensor:
 def _flash_ok(q: torch.Tensor, k: torch.Tensor) -> bool:
     """Whether the flash kernels take these shapes: self-attention (equal
     query and key lengths), q and k of one dtype the kernels are built for
-    (float32 or bfloat16), and a head dim they are built for."""
+    (float32 or bfloat16), and a head dim they take (16, 32, and every
+    multiple of 8 from 64 to 256: the JAX dispatcher's ``dh % 8 == 0,
+    dh >= 64`` up to 256, and the two small dims the port adds)."""
     return (
         k.shape[-2] == q.shape[-2]
         and q.dtype == k.dtype

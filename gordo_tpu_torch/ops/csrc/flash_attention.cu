@@ -23,8 +23,13 @@
 // - K and V tiles of 32 rows are double-buffered in shared memory with
 //   cp.async: tile j + 1 loads while tile j computes; rows at or past T are
 //   zero-filled. Shared memory is 15 / 27 / 51 / 99 KB at dh 16 / 32 / 64 /
-//   128 (rows padded to dh + 4 floats); at dh 64 registers, not shared
-//   memory, hold an SM to three blocks;
+//   128 (rows padded to dh + 4 floats), 195 KB at 256; at dh 64 registers,
+//   not shared memory, hold an SM to three blocks;
+// - head dims: each class DH (16, 32, and the multiples of 32 from 64 to
+//   256, mma_tf32x3.cuh) takes every dh % 8 == 0 up to it with its tiles:
+//   the loads zero-fill the columns at or past dh, which add nothing to S,
+//   give zero columns of O, and are not stored; the scale is the caller's
+//   1/sqrt(dh);
 // - S = Q K^T * scale goes into float32 accumulator fragments (16 x 32 per
 //   warp), and the online softmax runs on them in registers: row max by
 //   __shfl_xor within each quad, running max and denominator as the
@@ -38,7 +43,8 @@
 // - under causal masking the key loop stops at the diagonal tile, a warp
 //   whose rows all lie before a key tile skips it, only tiles that cross
 //   the diagonal or T are masked, and the query tiles with the most work
-//   are scheduled first; any T >= 1 works.
+//   are scheduled first; any T >= 1 works; dh is 16, 32 or any multiple of
+//   8 from 64 to 256.
 
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -62,12 +68,13 @@ struct Fwd {
   static constexpr int SMEM_FLOATS = Q + BLOCK_M * LD;
 };
 
-template <int DH>
+template <int DH, bool PADDED>
 __global__ void __launch_bounds__(THREADS)
 flash_forward_f32(const float* __restrict__ q, const float* __restrict__ k,
                   const float* __restrict__ v, float* __restrict__ out,
-                  float* __restrict__ lse, int t, int n_q_tiles, float scale,
+                  float* __restrict__ lse, int t, int dh_in, int n_q_tiles, float scale,
                   int causal) {
+  const int dh = head_dim<DH, PADDED>(dh_in);
   using C = Fwd<DH>;
   constexpr int LD = C::LD, TILE = C::TILE;
   constexpr int KSTEPS = DH / 8;     // k-steps of S = Q K^T
@@ -87,16 +94,16 @@ flash_forward_f32(const float* __restrict__ q, const float* __restrict__ k,
   const int w0 = q0 + 16 * warp;  // the warp's first query row
   const int row0 = w0 + g;
   const int row1 = row0 + 8;
-  const size_t base = bh * static_cast<size_t>(t) * DH;
+  const size_t base = bh * static_cast<size_t>(t) * dh;
   const float* kb = k + base;
   const float* vb = v + base;
 
   int n_k_tiles = (t + BLOCK_N - 1) / BLOCK_N;
   if (causal) n_k_tiles = min(n_k_tiles, (q0 + BLOCK_M + BLOCK_N - 1) / BLOCK_N);
 
-  load_tile_async<BLOCK_M, DH, THREADS>(qs, q + base, q0, t);
-  load_tile_async<BLOCK_N, DH, THREADS>(smem, kb, 0, t);
-  load_tile_async<BLOCK_N, DH, THREADS>(smem + TILE, vb, 0, t);
+  load_tile_async<BLOCK_M, DH, THREADS>(qs, q + base, q0, t, dh);
+  load_tile_async<BLOCK_N, DH, THREADS>(smem, kb, 0, t, dh);
+  load_tile_async<BLOCK_N, DH, THREADS>(smem + TILE, vb, 0, t, dh);
   cp_async_commit();
   const float* qw = qs + 16 * warp * LD;
 
@@ -113,8 +120,8 @@ flash_forward_f32(const float* __restrict__ q, const float* __restrict__ k,
     __syncthreads();
     if (kt + 1 < n_k_tiles) {
       float* next = smem + (stage ^ 1) * 2 * TILE;
-      load_tile_async<BLOCK_N, DH, THREADS>(next, kb, (kt + 1) * BLOCK_N, t);
-      load_tile_async<BLOCK_N, DH, THREADS>(next + TILE, vb, (kt + 1) * BLOCK_N, t);
+      load_tile_async<BLOCK_N, DH, THREADS>(next, kb, (kt + 1) * BLOCK_N, t, dh);
+      load_tile_async<BLOCK_N, DH, THREADS>(next + TILE, vb, (kt + 1) * BLOCK_N, t, dh);
       cp_async_commit();
     }
     const float* ks = smem + stage * 2 * TILE;
@@ -205,91 +212,97 @@ flash_forward_f32(const float* __restrict__ q, const float* __restrict__ k,
   const float d0 = fmaxf(l0, 1e-30f);
   const float d1 = fmaxf(l1, 1e-30f);
   if (row0 < t) {
-    float* dst = out + base + static_cast<size_t>(row0) * DH + 2 * tq;
+    float* dst = out + base + static_cast<size_t>(row0) * dh + 2 * tq;
 #pragma unroll
     for (int n = 0; n < OT; ++n) {
-      *reinterpret_cast<float2*>(dst + 8 * n) = make_float2(o[n][0] / d0, o[n][1] / d0);
+      if (8 * n < dh) {
+        *reinterpret_cast<float2*>(dst + 8 * n) = make_float2(o[n][0] / d0, o[n][1] / d0);
+      }
     }
     if (tq == 0) lse[bh * static_cast<size_t>(t) + row0] = m0 + logf(d0);
   }
   if (row1 < t) {
-    float* dst = out + base + static_cast<size_t>(row1) * DH + 2 * tq;
+    float* dst = out + base + static_cast<size_t>(row1) * dh + 2 * tq;
 #pragma unroll
     for (int n = 0; n < OT; ++n) {
-      *reinterpret_cast<float2*>(dst + 8 * n) = make_float2(o[n][2] / d1, o[n][3] / d1);
+      if (8 * n < dh) {
+        *reinterpret_cast<float2*>(dst + 8 * n) = make_float2(o[n][2] / d1, o[n][3] / d1);
+      }
     }
     if (tq == 0) lse[bh * static_cast<size_t>(t) + row1] = m1 + logf(d1);
   }
 }
 
-// the kernel's dynamic shared memory in bytes, allowed above 48 KB
+// the class's instantiation for dh (with_instantiation)
 template <int DH>
-cudaError_t prepare(int* smem) {
+auto forward_kernel(int dh) {
+  return with_instantiation<DH>(dh, [](auto padded) {
+    return flash_forward_f32<DH, decltype(padded)::value>;
+  });
+}
+
+// the kernel's dynamic shared memory in bytes, allowed above 48 KB
+template <int DH, typename Kernel>
+cudaError_t prepare(Kernel kernel, int* smem) {
   *smem = Fwd<DH>::SMEM_FLOATS * static_cast<int>(sizeof(float));
   if (*smem <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(flash_forward_f32<DH>,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize, *smem);
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, *smem);
 }
 
 template <int DH>
 cudaError_t launch(const float* q, const float* k, const float* v, float* out,
-                   float* lse, int bh, int t, float scale, int causal,
+                   float* lse, int bh, int t, int dh, float scale, int causal,
                    cudaStream_t stream) {
   const int n_q_tiles = (t + BLOCK_M - 1) / BLOCK_M;
   const long long n_blocks = static_cast<long long>(bh) * n_q_tiles;
   if (n_blocks > INT_MAX) return cudaErrorInvalidConfiguration;
+  const auto kernel = forward_kernel<DH>(dh);
   int smem;
-  const cudaError_t err = prepare<DH>(&smem);
+  const cudaError_t err = prepare<DH>(kernel, &smem);
   if (err != cudaSuccess) return err;
-  flash_forward_f32<DH><<<static_cast<unsigned>(n_blocks), THREADS, smem,
-                          stream>>>(q, k, v, out, lse, t, n_q_tiles, scale,
-                                    causal);
+  kernel<<<static_cast<unsigned>(n_blocks), THREADS, smem, stream>>>(
+      q, k, v, out, lse, t, dh, n_q_tiles, scale, causal);
   return cudaGetLastError();
 }
 
 template <int DH>
 cudaError_t occupancy(int* smem, int* blocks_per_sm) {
-  const cudaError_t err = prepare<DH>(smem);
+  const auto kernel = forward_kernel<DH>(DH);
+  const cudaError_t err = prepare<DH>(kernel, smem);
   if (err != cudaSuccess) return err;
-  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks_per_sm, flash_forward_f32<DH>, THREADS, *smem);
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, kernel, THREADS, *smem);
 }
 
 }  // namespace
 
 // q, k, v, out: (bh, t, dh) contiguous float32, 16-byte aligned;
-// lse: (bh, t) float32. Launches on `stream` and does not synchronise.
-// Returns the CUDA error code of the launch (0 on success).
+// lse: (bh, t) float32; dh 16, 32 or a multiple of 8 from 64 to 256.
+// Launches on `stream` and does not synchronise. Returns the CUDA error
+// code of the launch (0 on success).
 extern "C" int gordo_flash_attention_forward_f32(
     const void* q, const void* k, const void* v, void* out, void* lse, int bh,
     int t, int dh, float scale, int causal, void* stream) {
   if (bh <= 0 || t <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const float* qf = static_cast<const float*>(q);
-  const float* kf = static_cast<const float*>(k);
-  const float* vf = static_cast<const float*>(v);
-  float* of = static_cast<float*>(out);
-  float* lf = static_cast<float*>(lse);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  switch (dh) {
-    case 16: err = launch<16>(qf, kf, vf, of, lf, bh, t, scale, causal, s); break;
-    case 32: err = launch<32>(qf, kf, vf, of, lf, bh, t, scale, causal, s); break;
-    case 64: err = launch<64>(qf, kf, vf, of, lf, bh, t, scale, causal, s); break;
-    case 128: err = launch<128>(qf, kf, vf, of, lf, bh, t, scale, causal, s); break;
-    default: err = cudaErrorInvalidValue;
-  }
-  return static_cast<int>(err);
+  return static_cast<int>(with_head_dim_class(dh, [&](auto c) {
+    return launch<decltype(c)::value>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<float*>(out), static_cast<float*>(lse), bh,
+        t, dh, scale, causal, static_cast<cudaStream_t>(stream));
+  }));
+}
+
+// The head-dim class whose instantiations of the three float32 kernels run
+// dh (head_dim.cuh), or 0 where they take no dh, for reports
+extern "C" int gordo_flash_attention_f32_head_dim_class(int dh) {
+  return head_dim_class(dh);
 }
 
 // The forward kernel's dynamic shared memory (bytes) and resident blocks per
-// SM at head dim `dh`, for reports. Returns the CUDA error code.
+// SM for head dim `dh` (its class's), for reports. Returns the CUDA error
+// code.
 extern "C" int gordo_flash_attention_forward_f32_occupancy(int dh, int* smem_bytes,
                                                           int* blocks_per_sm) {
-  switch (dh) {
-    case 16: return static_cast<int>(occupancy<16>(smem_bytes, blocks_per_sm));
-    case 32: return static_cast<int>(occupancy<32>(smem_bytes, blocks_per_sm));
-    case 64: return static_cast<int>(occupancy<64>(smem_bytes, blocks_per_sm));
-    case 128: return static_cast<int>(occupancy<128>(smem_bytes, blocks_per_sm));
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return static_cast<int>(with_head_dim_class(dh, [&](auto c) {
+    return occupancy<decltype(c)::value>(smem_bytes, blocks_per_sm);
+  }));
 }

@@ -29,11 +29,13 @@
 //   operand, so V is never transposed;
 // - one producer warpgroup (one thread issues TMA loads; setmaxnreg gives
 //   its registers to the consumers) and three consumer warpgroups of 64
-//   query rows (two at dh 128, for registers) that share every K/V tile:
-//   three warps on each SM sub-partition to hide the softmax's latency;
-// - a ring of three 64-key K/V stages with full and empty mbarriers, and
-//   two Q buffers, so that the next work's loads run under this one's
-//   compute;
+//   query rows (two from dh 128 on, for registers) that share every K/V
+//   tile: three warps on each SM sub-partition to hide the softmax's
+//   latency;
+// - a ring of three 64-key K/V stages with full and empty mbarriers (two
+//   at dh 192, for shared memory; 32-key stages at 256, for registers and
+//   shared memory), and two Q buffers, so that the next work's loads run
+//   under this one's compute;
 // - one persistent block per SM walks over the (bh, query tile) work: the
 //   query tiles of a head run side by side on neighbouring SMs (K and V
 //   come from L2 after the first), and each SM cycles through the light
@@ -53,8 +55,11 @@
 //   gates on the card; a tile at a time in a fresh accumulator was slower,
 //   scripts/torch_bf16_variants.py).
 // The layout (CONSUMERS, BN, STAGES) was timed on the card against its
-// alternatives (PERF.md section 6); any T >= 1 works, causal or not; dh is
-// 16, 32, 64 or 128.
+// alternatives (PERF.md section 6) at dh 64; any T >= 1 works, causal or
+// not; dh is 16, 32 or any multiple of 8 from 64 to 256, each run by the
+// instantiation of its class (wgmma_bf16.cuh: whole 64-column panels, the
+// columns past dh zero-filled by TMA and not stored, the scale the caller's
+// 1/sqrt(dh)).
 
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -77,13 +82,15 @@ template <int DH>
 struct Fwd {
   using T = Tile<DH>;
   // consumer warpgroups, 64 query rows each: three keep more warps in
-  // flight on each SM sub-partition; dh 128 needs two for its registers
-  static constexpr int CONSUMERS = DH == 128 ? 2 : 3;
+  // flight on each SM sub-partition; from dh 128 on, two for registers
+  static constexpr int CONSUMERS = DH >= 128 ? 2 : 3;
   using R = Regs<CONSUMERS>;
   static constexpr int THREADS = R::THREADS;
   static constexpr int BLOCK_M = 64 * CONSUMERS;  // query rows of a work tile
-  static constexpr int BN = 64;                   // key rows of a K/V tile
-  static constexpr int STAGES = 3;
+  // key rows of a K/V tile: at dh 256, 32 keep O, S and P's parts in the
+  // consumers' registers
+  static constexpr int BN = DH == 256 ? 32 : 64;
+  static constexpr int STAGES = DH == 192 ? 2 : 3;  // dh 192: shared memory
   static constexpr int Q_BYTES = BLOCK_M * DH * 2;
   static constexpr int KV_BYTES = BN * DH * 2;  // one K or V tile
   // byte offsets from the 1024-aligned base of shared memory
@@ -94,15 +101,17 @@ struct Fwd {
   // q_full[2], q_empty[2], full[STAGES], empty[STAGES]; 1024 bytes of
   // alignment slack
   static constexpr int SMEM_BYTES = BARS + 8 * (4 + 2 * STAGES) + 1024;
+  static_assert(SMEM_BYTES <= 232448, "above a block's 227 KB of shared memory");
 };
 
-template <int DH>
+template <int DH, bool PADDED>
 __global__ void __launch_bounds__(Fwd<DH>::THREADS, 1)
 flash_forward_bf16(const __grid_constant__ CUtensorMap q_map,
                    const __grid_constant__ CUtensorMap k_map,
                    const __grid_constant__ CUtensorMap v_map, bf16* __restrict__ out,
-                   float* __restrict__ lse, int t, int bh_count, int n_q_tiles,
+                   float* __restrict__ lse, int t, int dh_in, int bh_count, int n_q_tiles,
                    float scale_log2, int causal) {
+  const int dh = head_dim<DH, PADDED>(dh_in);
   using C = Fwd<DH>;
   using L = typename C::T;
   constexpr int CONSUMERS = C::CONSUMERS;
@@ -348,18 +357,20 @@ flash_forward_bf16(const __grid_constant__ CUtensorMap q_map,
     const float inv0 = 1.f / d0, inv1 = 1.f / d1;
     const size_t base = static_cast<size_t>(bh) * t;
     if (row0 < t) {
-      bf16* dst = out + (base + row0) * DH + 2 * tq;
+      bf16* dst = out + (base + row0) * dh + 2 * tq;
 #pragma unroll
       for (int n = 0; n < DH / 8; ++n) {
+        if (8 * n >= dh) break;
         *reinterpret_cast<__nv_bfloat162*>(dst + 8 * n) =
             __floats2bfloat162_rn(o[4 * n] * inv0, o[4 * n + 1] * inv0);
       }
       if (tq == 0) lse[base + row0] = m0 * LN2 + logf(d0);
     }
     if (row1 < t) {
-      bf16* dst = out + (base + row1) * DH + 2 * tq;
+      bf16* dst = out + (base + row1) * dh + 2 * tq;
 #pragma unroll
       for (int n = 0; n < DH / 8; ++n) {
+        if (8 * n >= dh) break;
         *reinterpret_cast<__nv_bfloat162*>(dst + 8 * n) =
             __floats2bfloat162_rn(o[4 * n + 2] * inv1, o[4 * n + 3] * inv1);
       }
@@ -368,85 +379,93 @@ flash_forward_bf16(const __grid_constant__ CUtensorMap q_map,
   }
 }
 
-// the three tensor maps of q, k, v
+// the three tensor maps of q, k, v, of head dim dh in the boxes of class DH
 template <int DH>
 cudaError_t encode(CUtensorMap (&maps)[3], const bf16* q, const bf16* k, const bf16* v, int bh,
-                   int t) {
-  cudaError_t err = encode_rows(&maps[0], q, bh, t, DH, Fwd<DH>::BLOCK_M);
-  if (err == cudaSuccess) err = encode_rows(&maps[1], k, bh, t, DH, Fwd<DH>::BN);
-  if (err == cudaSuccess) err = encode_rows(&maps[2], v, bh, t, DH, Fwd<DH>::BN);
+                   int t, int dh) {
+  cudaError_t err = encode_rows(&maps[0], q, bh, t, dh, Fwd<DH>::BLOCK_M);
+  if (err == cudaSuccess) err = encode_rows(&maps[1], k, bh, t, dh, Fwd<DH>::BN);
+  if (err == cudaSuccess) err = encode_rows(&maps[2], v, bh, t, dh, Fwd<DH>::BN);
   return err;
 }
 
 // one block per SM (or per work tile, if fewer)
-template <int DH>
-cudaError_t launch(const bf16* q, const bf16* k, const bf16* v, bf16* out, float* lse, int bh,
-                   int t, float scale, int causal, cudaStream_t stream) {
+template <int DH, bool PADDED>
+cudaError_t launch_as(const bf16* q, const bf16* k, const bf16* v, bf16* out, float* lse, int bh,
+                      int t, int dh, float scale, int causal, cudaStream_t stream) {
   using C = Fwd<DH>;
   const int n_q_tiles = (t + C::BLOCK_M - 1) / C::BLOCK_M;
   const long long n_work = static_cast<long long>(bh) * n_q_tiles;
   if (n_work > INT_MAX) return cudaErrorInvalidConfiguration;
   CUtensorMap maps[3];
   int sms;
-  cudaError_t err = encode<DH>(maps, q, k, v, bh, t);
+  cudaError_t err = encode<DH>(maps, q, k, v, bh, t, dh);
   if (err == cudaSuccess) {
-    err = prepare_kernel<flash_forward_bf16<DH>>(C::SMEM_BYTES, C::R::LAUNCH, &sms);
+    err = prepare_kernel<flash_forward_bf16<DH, PADDED>>(C::SMEM_BYTES, C::R::LAUNCH, &sms);
   }
   if (err != cudaSuccess) return err;
   const unsigned grid = static_cast<unsigned>(n_work < sms ? n_work : sms);
-  flash_forward_bf16<DH><<<grid, C::THREADS, C::SMEM_BYTES, stream>>>(
-      maps[0], maps[1], maps[2], out, lse, t, bh, n_q_tiles, scale * LOG2E, causal);
+  flash_forward_bf16<DH, PADDED><<<grid, C::THREADS, C::SMEM_BYTES, stream>>>(
+      maps[0], maps[1], maps[2], out, lse, t, dh, bh, n_q_tiles, scale * LOG2E, causal);
   return cudaGetLastError();
 }
 
+// the class's instantiation for dh (with_instantiation)
+template <int DH>
+cudaError_t launch(const bf16* q, const bf16* k, const bf16* v, bf16* out, float* lse, int bh,
+                   int t, int dh, float scale, int causal, cudaStream_t stream) {
+  return with_instantiation<DH>(dh, [&](auto padded) {
+    return launch_as<DH, decltype(padded)::value>(q, k, v, out, lse, bh, t, dh, scale, causal,
+                                                  stream);
+  });
+}
+
+// of the instantiation that runs dh = DH
 template <int DH>
 cudaError_t occupancy(int* smem, int* blocks_per_sm) {
   using C = Fwd<DH>;
   *smem = C::SMEM_BYTES;
-  int sms;
-  const cudaError_t err = prepare_kernel<flash_forward_bf16<DH>>(*smem, C::R::LAUNCH, &sms);
-  if (err != cudaSuccess) return err;
-  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, flash_forward_bf16<DH>,
-                                                       C::THREADS, *smem);
+  return with_instantiation<DH>(DH, [&](auto padded) {
+    constexpr auto kernel = flash_forward_bf16<DH, decltype(padded)::value>;
+    int sms;
+    const cudaError_t err = prepare_kernel<kernel>(*smem, C::R::LAUNCH, &sms);
+    if (err != cudaSuccess) return err;
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, kernel, C::THREADS,
+                                                         *smem);
+  });
 }
 
 }  // namespace
 
 // q, k, v, out: (bh, t, dh) contiguous bf16, 16-byte aligned; lse: (bh, t)
-// float32. Launches on `stream` and does not synchronise. Returns the CUDA
-// error code of the launch (0 on success).
+// float32; dh 16, 32 or a multiple of 8 from 64 to 256. Launches on
+// `stream` and does not synchronise. Returns the CUDA error code of the
+// launch (0 on success).
 extern "C" int gordo_flash_attention_forward_bf16(
     const void* q, const void* k, const void* v, void* out, void* lse, int bh,
     int t, int dh, float scale, int causal, void* stream) {
   if (bh <= 0 || t <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const bf16* qb = static_cast<const bf16*>(q);
-  const bf16* kb = static_cast<const bf16*>(k);
-  const bf16* vb = static_cast<const bf16*>(v);
-  bf16* ob = static_cast<bf16*>(out);
-  float* lf = static_cast<float*>(lse);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  switch (dh) {
-    case 16: err = launch<16>(qb, kb, vb, ob, lf, bh, t, scale, causal, s); break;
-    case 32: err = launch<32>(qb, kb, vb, ob, lf, bh, t, scale, causal, s); break;
-    case 64: err = launch<64>(qb, kb, vb, ob, lf, bh, t, scale, causal, s); break;
-    case 128: err = launch<128>(qb, kb, vb, ob, lf, bh, t, scale, causal, s); break;
-    default: err = cudaErrorInvalidValue;
-  }
-  return static_cast<int>(err);
+  return static_cast<int>(with_head_dim_class(dh, [&](auto c) {
+    return launch<decltype(c)::value>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+        static_cast<bf16*>(out), static_cast<float*>(lse), bh, t, dh, scale, causal,
+        static_cast<cudaStream_t>(stream));
+  }));
 }
 
-// The kernel's dynamic shared memory (bytes) and resident blocks per SM at
-// head dim `dh`, for reports. Returns the CUDA error code.
+// The head-dim class whose instantiations of the three bf16 kernels run
+// dh (head_dim.cuh), or 0 where they take no dh, for reports
+extern "C" int gordo_flash_attention_bf16_head_dim_class(int dh) {
+  return head_dim_class(dh);
+}
+
+// The kernel's dynamic shared memory (bytes) and resident blocks per SM for
+// head dim `dh` (its class's), for reports. Returns the CUDA error code.
 extern "C" int gordo_flash_attention_forward_bf16_occupancy(int dh, int* smem_bytes,
                                                            int* blocks_per_sm) {
-  switch (dh) {
-    case 16: return static_cast<int>(occupancy<16>(smem_bytes, blocks_per_sm));
-    case 32: return static_cast<int>(occupancy<32>(smem_bytes, blocks_per_sm));
-    case 64: return static_cast<int>(occupancy<64>(smem_bytes, blocks_per_sm));
-    case 128: return static_cast<int>(occupancy<128>(smem_bytes, blocks_per_sm));
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return static_cast<int>(with_head_dim_class(dh, [&](auto c) {
+    return occupancy<decltype(c)::value>(smem_bytes, blocks_per_sm);
+  }));
 }
 
 // The host time of encoding the forward's three tensor maps at (bh, t, dh),
@@ -459,14 +478,9 @@ extern "C" int gordo_flash_attention_forward_bf16_encode_us(const void* base, in
   CUtensorMap maps[3];
   const auto start = std::chrono::steady_clock::now();
   for (int i = 0; i < reps; ++i) {
-    cudaError_t err;
-    switch (dh) {
-      case 16: err = encode<16>(maps, p, p, p, bh, t); break;
-      case 32: err = encode<32>(maps, p, p, p, bh, t); break;
-      case 64: err = encode<64>(maps, p, p, p, bh, t); break;
-      case 128: err = encode<128>(maps, p, p, p, bh, t); break;
-      default: err = cudaErrorInvalidValue;
-    }
+    const cudaError_t err = with_head_dim_class(dh, [&](auto c) {
+      return encode<decltype(c)::value>(maps, p, p, p, bh, t, dh);
+    });
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   const std::chrono::duration<double, std::micro> spent = std::chrono::steady_clock::now() - start;

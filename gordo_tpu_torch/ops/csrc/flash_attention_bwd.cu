@@ -40,16 +40,20 @@
 //   diagonal, a warp whose rows all lie on the masked side of a tile skips
 //   it, only tiles that cross the diagonal or T are masked, and the blocks
 //   with the most work are scheduled first. The ragged tail is zero-filled
-//   and masked, so any T >= 1 works; dh is 16, 32, 64 or 128 (a template
-//   parameter).
+//   and masked, so any T >= 1 works;
+// - head dims: dh is 16, 32 or any multiple of 8 from 64 to 256, each run
+//   by the instantiation of its class DH (mma_tf32x3.cuh): the tile loads
+//   zero-fill the columns at or past dh, which add nothing to S, dP or D
+//   and give zero columns of the gradients, which are not stored; the
+//   scale is the caller's 1/sqrt(dh).
 //
 // dQ (flash_bwd_dq_f32):
 // - each warp owns 16 query rows. Q and dO of the block's 64 rows are
 //   loaded once; while they land, each thread reads the lse of its two
 //   rows (g and g + 8 of its warp's strip) and computes their
 //   D = rowsum(dO * O) from global memory, so O is read once and not kept;
-// - K and V tiles of 32 key rows (16 at dh 128, where more would not fit
-//   the registers) are double-buffered;
+// - K and V tiles of 32 key rows (16 from dh 128 on, where more would not
+//   fit the registers) are double-buffered;
 // - per tile: S = Q K^T and dP = dO V^T, K and V as "col" B fragments, in
 //   one loop so that their chains of dependent mma instructions interleave
 //   (the kernel waits on latency more than it issues); P = exp(S * scale -
@@ -65,9 +69,12 @@
 //
 // dK/dV (flash_bwd_dkv_f32):
 // - each warp owns 16 key rows. K and V are loaded once; Q, dO and lse
-//   tiles of 32 query rows (8 at dh 128, where more would not fit the
-//   registers) are double-buffered, and O's tile goes through one buffer
-//   into D;
+//   tiles of 32 query rows (16 at dh 96, 8 from 128 on, where more would
+//   not fit the registers) are double-buffered, and O's tile goes through
+//   one buffer into D;
+// - above dh 128 the accumulators of all dK and dV columns would not fit
+//   the registers: each key tile is split over two blocks, each summing
+//   half of the columns (DC); both compute the whole S^T and dP^T;
 // - it computes on the transposed problem, so that no product needs a
 //   transpose in registers: S^T = K Q^T * scale, masked, P^T =
 //   exp(S^T - lse); dV += P^T dO; dP^T = V dO^T; dS^T = P^T * (dP^T - D),
@@ -76,9 +83,9 @@
 // - at dh 64, the training shape, two blocks share an SM (77 KB of shared
 //   memory each), and the kernel asks the register allocator for that
 //   (flash_bwd_dkv_f32_dh64): it then keeps more products in flight.
-// Shared memory: dQ 20 / 36 / 68 / 99 KB, dK/dV 23 / 41 / 77 / 87 KB at
-// dh 16 / 32 / 64 / 128. Above 48 KB only through the dynamic-size
-// attribute.
+// Shared memory: dQ 20 / 36 / 68 / 99 / 195 KB, dK/dV 23 / 41 / 77 / 87 /
+// 171 KB at dh 16 / 32 / 64 / 128 / 256. Above 48 KB only through the
+// dynamic-size attribute.
 
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -112,18 +119,19 @@ __device__ __forceinline__ void product_nt(float (&acc)[N][4], const float* a_ro
   }
 }
 
-// acc (16 rows x DH) += X (16 rows x 8N, accumulator fragments `x`) times
-// the 8N rows of `rows` ([row][DH]): dQ += dS K, dV += P^T dO and dK +=
-// dS^T Q; the 8N rows in one fresh sum per 8 output columns
-template <int DH, int N>
-__device__ __forceinline__ void product_nn(float (&acc)[DH / 8][4], const float (&x)[N][4],
+// acc (16 rows x DC) += X (16 rows x 8N, accumulator fragments `x`) times
+// the 8N rows of `rows` ([row][DH + 4], from the first of the DC columns):
+// dQ += dS K, dV += P^T dO and dK += dS^T Q; the 8N rows in one fresh sum
+// per 8 output columns
+template <int DH, int DC, int N>
+__device__ __forceinline__ void product_nn(float (&acc)[DC / 8][4], const float (&x)[N][4],
                                            const float* rows, int g, int tq) {
   constexpr int LD = DH + 4;
   FragA a[N];
 #pragma unroll
   for (int n = 0; n < N; ++n) a[n] = acc_to_a(x[n]);
 #pragma unroll
-  for (int m = 0; m < DH / 8; ++m) {
+  for (int m = 0; m < DC / 8; ++m) {
     FragB b[N];
 #pragma unroll
     for (int n = 0; n < N; ++n) b[n] = load_b_kn_paired(rows + 8 * n * LD + 8 * m, LD, g, tq);
@@ -135,26 +143,28 @@ __device__ __forceinline__ void product_nn(float (&acc)[DH / 8][4], const float 
 
 template <int DH>
 struct Dq {
-  // key rows per double-buffered K/V tile: 16 at dh 128 keeps the dQ
+  // key rows per double-buffered K/V tile: 16 from dh 128 on keeps the dQ
   // accumulators and the S and dP tiles in registers
-  static constexpr int BK = DH == 128 ? 16 : 32;
+  static constexpr int BK = DH >= 128 ? 16 : 32;
   static constexpr int LD = DH + 4;         // shared-memory row stride
   static constexpr int Q = 0;               // Q, then dO: [TILE][LD] each
   static constexpr int KV = 2 * TILE * LD;  // [stage][K, V][BK][LD]
   static constexpr int SMEM_FLOATS = KV + 4 * BK * LD;
 };
 
-// this thread's part of rowsum(dO * O) of `row` (0 at or past t): float4
-// columns tq, tq + 4, ...; the four threads of a quad hold one row's parts
+// this thread's part of rowsum(dO * O) of `row` (0 at or past t) of (t, dh)
+// matrices: float4 columns tq, tq + 4, ... below dh; the four threads of a
+// quad hold one row's parts
 template <int DH>
 __device__ __forceinline__ float row_dot_part(const float* o, const float* dout, int row,
-                                              int t, int tq) {
+                                              int t, int dh, int tq) {
   float d = 0.f;
   if (row < t) {
-    const float4* o4 = reinterpret_cast<const float4*>(o + static_cast<size_t>(row) * DH);
-    const float4* g4 = reinterpret_cast<const float4*>(dout + static_cast<size_t>(row) * DH);
+    const float4* o4 = reinterpret_cast<const float4*>(o + static_cast<size_t>(row) * dh);
+    const float4* g4 = reinterpret_cast<const float4*>(dout + static_cast<size_t>(row) * dh);
 #pragma unroll
     for (int c = tq; c < DH / 4; c += 4) {
+      if (4 * c >= dh) break;
       const float4 a = o4[c];
       const float4 b = g4[c];
       d = fmaf(a.x, b.x, d);
@@ -172,12 +182,14 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
-template <int DH>
+template <int DH, bool PADDED>
 __global__ void __launch_bounds__(THREADS)
 flash_bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, const float* __restrict__ o,
                  const float* __restrict__ lse, const float* __restrict__ dout,
-                 float* __restrict__ dq, int t, int n_tiles, float scale, int causal) {
+                 float* __restrict__ dq, int t, int dh_in, int n_tiles, float scale,
+                 int causal) {
+  const int dh = head_dim<DH, PADDED>(dh_in);
   using C = Dq<DH>;
   constexpr int LD = C::LD;
   constexpr int BK = C::BK;
@@ -194,17 +206,17 @@ flash_bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
   const size_t bh = blockIdx.x / n_tiles;
   const int q0 = tile * TILE;
   const int w0 = q0 + 16 * warp;  // the warp's first query row
-  const size_t base = bh * static_cast<size_t>(t) * DH;
+  const size_t base = bh * static_cast<size_t>(t) * dh;
   const float* kb = k + base;
   const float* vb = v + base;
 
   int n_k_tiles = (t + BK - 1) / BK;
   if (causal) n_k_tiles = min(n_k_tiles, (q0 + TILE + BK - 1) / BK);
 
-  load_tile_async<TILE, DH, THREADS>(smem + C::Q, q + base, q0, t);
-  load_tile_async<TILE, DH, THREADS>(smem + C::Q + TILE * LD, dout + base, q0, t);
-  load_tile_async<BK, DH, THREADS>(smem + C::KV, kb, 0, t);
-  load_tile_async<BK, DH, THREADS>(smem + C::KV + BK * LD, vb, 0, t);
+  load_tile_async<TILE, DH, THREADS>(smem + C::Q, q + base, q0, t, dh);
+  load_tile_async<TILE, DH, THREADS>(smem + C::Q + TILE * LD, dout + base, q0, t, dh);
+  load_tile_async<BK, DH, THREADS>(smem + C::KV, kb, 0, t, dh);
+  load_tile_async<BK, DH, THREADS>(smem + C::KV + BK * LD, vb, 0, t, dh);
   cp_async_commit();
   // while the tiles land: lse and D of the thread's rows w0 + g + 8 h, h
   // the accumulator fragment's half
@@ -213,7 +225,7 @@ flash_bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
   for (int h = 0; h < 2; ++h) {
     const int row = w0 + g + 8 * h;
     lse_r[h] = row < t ? lse[bh * t + row] : 0.f;
-    d_r[h] = quad_sum(row_dot_part<DH>(o + base, dout + base, row, t, tq));
+    d_r[h] = quad_sum(row_dot_part<DH>(o + base, dout + base, row, t, dh, tq));
   }
   const float* qw = smem + C::Q + 16 * warp * LD;
   const float* gw = qw + TILE * LD;  // the warp's dO rows
@@ -229,8 +241,8 @@ flash_bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
     __syncthreads();
     if (kt + 1 < n_k_tiles) {
       float* next = smem + C::KV + (stage ^ 1) * 2 * BK * LD;
-      load_tile_async<BK, DH, THREADS>(next, kb, (kt + 1) * BK, t);
-      load_tile_async<BK, DH, THREADS>(next + BK * LD, vb, (kt + 1) * BK, t);
+      load_tile_async<BK, DH, THREADS>(next, kb, (kt + 1) * BK, t, dh);
+      load_tile_async<BK, DH, THREADS>(next + BK * LD, vb, (kt + 1) * BK, t, dh);
       cp_async_commit();
     }
     const float* ks = smem + C::KV + stage * 2 * BK * LD;
@@ -275,18 +287,20 @@ flash_bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
         ds[n][e] = p * (ds[n][e] - d_r[h]);
       }
     }
-    product_nn<DH>(acc, ds, ks, g, tq);  // dQ += dS K (times scale below)
+    product_nn<DH, DH>(acc, ds, ks, g, tq);  // dQ += dS K (times scale below)
   }
 
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int row = w0 + g + 8 * h;
     if (row >= t) continue;
-    float* dst = dq + base + static_cast<size_t>(row) * DH + 2 * tq;
+    float* dst = dq + base + static_cast<size_t>(row) * dh + 2 * tq;
 #pragma unroll
     for (int m = 0; m < OT; ++m) {
-      *reinterpret_cast<float2*>(dst + 8 * m) =
-          make_float2(acc[m][2 * h] * scale, acc[m][2 * h + 1] * scale);
+      if (8 * m < dh) {
+        *reinterpret_cast<float2*>(dst + 8 * m) =
+            make_float2(acc[m][2 * h] * scale, acc[m][2 * h + 1] * scale);
+      }
     }
   }
 }
@@ -295,9 +309,12 @@ flash_bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
 
 template <int DH>
 struct Dkv {
-  // query rows per double-buffered tile: 8 at dh 128 keeps the
-  // accumulators in registers
-  static constexpr int BQ = DH == 128 ? 8 : 32;
+  // query rows per double-buffered tile: 16 at dh 96 and 8 from 128 on
+  // keep the accumulators in registers
+  static constexpr int BQ = DH >= 128 ? 8 : DH > 64 ? 16 : 32;
+  // dK and dV columns a block sums: above dh 128, half of them
+  static constexpr int DC = DH > 128 ? DH / 2 : DH;
+  static constexpr int SLICES = DH / DC;
   static constexpr int LD = DH + 4;          // shared-memory row stride
   static constexpr int KV = 0;               // K, then V: [TILE][LD] each
   static constexpr int Q = 2 * TILE * LD;    // [stage][Q, dO][BQ][LD]
@@ -312,13 +329,13 @@ template <int DH>
 __device__ __forceinline__ void load_query_tile(float* smem, int stage,
                                                 const float* q, const float* dout,
                                                 const float* o, const float* lse,
-                                                int q0, int t) {
+                                                int q0, int t, int dh) {
   using C = Dkv<DH>;
   constexpr int BQ = C::BQ;
   float* qs = smem + C::Q + stage * 2 * BQ * C::LD;
-  load_tile_async<BQ, DH, THREADS>(qs, q, q0, t);
-  load_tile_async<BQ, DH, THREADS>(qs + BQ * C::LD, dout, q0, t);
-  load_tile_async<BQ, DH, THREADS>(smem + C::O, o, q0, t);
+  load_tile_async<BQ, DH, THREADS>(qs, q, q0, t, dh);
+  load_tile_async<BQ, DH, THREADS>(qs + BQ * C::LD, dout, q0, t, dh);
+  load_tile_async<BQ, DH, THREADS>(smem + C::O, o, q0, t, dh);
   if (threadIdx.x < BQ) {
     const int row = q0 + static_cast<int>(threadIdx.x);
     cp_async4(smem + C::LSE + stage * BQ + threadIdx.x, lse + (row < t ? row : 0),
@@ -335,12 +352,14 @@ __device__ __forceinline__ void dkv_body(const float* __restrict__ q,
                                          const float* __restrict__ lse,
                                          const float* __restrict__ dout,
                                          float* __restrict__ dk, float* __restrict__ dv,
-                                         int t, int n_tiles, float scale, int causal) {
+                                         int t, int dh, int n_tiles, float scale,
+                                         int causal) {
   using C = Dkv<DH>;
   constexpr int LD = C::LD;
   constexpr int BQ = C::BQ;
+  constexpr int DC = C::DC;
   constexpr int NT = BQ / 8;      // 8-query column groups
-  constexpr int OT = DH / 8;      // 8-column groups of dK and dV
+  constexpr int OT = DC / 8;      // 8-column groups of the block's dK and dV
   constexpr int TPR = THREADS / BQ;  // threads per row computing D
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
@@ -348,12 +367,15 @@ __device__ __forceinline__ void dkv_body(const float* __restrict__ q,
   const int warp = threadIdx.x / 32;
   const int g = (threadIdx.x % 32) / 4;
   const int tq = threadIdx.x % 4;
-  // under causal masking the first key tiles see the most queries: first
+  // under causal masking the first key tiles see the most queries: first.
+  // Block (bh SLICES + slice) n_tiles + tile sums columns slice DC ..
   const int tile = static_cast<int>(blockIdx.x % n_tiles);
-  const size_t bh = blockIdx.x / n_tiles;
+  const int slice = static_cast<int>(blockIdx.x / n_tiles % C::SLICES);
+  const size_t bh = blockIdx.x / n_tiles / C::SLICES;
+  const int c0 = slice * DC;      // the block's first dK and dV column
   const int k0 = tile * TILE;
   const int w0 = k0 + 16 * warp;  // the warp's first key row
-  const size_t base = bh * static_cast<size_t>(t) * DH;
+  const size_t base = bh * static_cast<size_t>(t) * dh;
   const float* qb = q + base;
   const float* gb = dout + base;
   const float* ob = o + base;
@@ -361,9 +383,9 @@ __device__ __forceinline__ void dkv_body(const float* __restrict__ q,
 
   const int n_q_tiles = (t + BQ - 1) / BQ;
   const int first = causal ? k0 / BQ : 0;  // the diagonal tile
-  load_tile_async<TILE, DH, THREADS>(smem + C::KV, k + base, k0, t);
-  load_tile_async<TILE, DH, THREADS>(smem + C::KV + TILE * LD, v + base, k0, t);
-  load_query_tile<DH>(smem, 0, qb, gb, ob, lb, first * BQ, t);
+  load_tile_async<TILE, DH, THREADS>(smem + C::KV, k + base, k0, t, dh);
+  load_tile_async<TILE, DH, THREADS>(smem + C::KV + TILE * LD, v + base, k0, t, dh);
+  load_query_tile<DH>(smem, 0, qb, gb, ob, lb, first * BQ, t, dh);
   const float* kw = smem + C::KV + 16 * warp * LD;
   const float* vw = kw + TILE * LD;
   float* d_s = smem + C::D;
@@ -406,7 +428,7 @@ __device__ __forceinline__ void dkv_body(const float* __restrict__ q,
     }
     __syncthreads();  // D is written and the O buffer is free
     if (qt + 1 < n_q_tiles) {
-      load_query_tile<DH>(smem, stage ^ 1, qb, gb, ob, lb, q0 + BQ, t);
+      load_query_tile<DH>(smem, stage ^ 1, qb, gb, ob, lb, q0 + BQ, t, dh);
     }
     if (causal && q0 + BQ - 1 < w0) continue;  // warp-uniform: all masked
 
@@ -431,7 +453,7 @@ __device__ __forceinline__ void dkv_body(const float* __restrict__ q,
         p[n][e] = x;
       }
     }
-    product_nn<DH>(dv_acc, p, dos, g, tq);  // dV += P^T dO
+    product_nn<DH, DC>(dv_acc, p, dos + c0, g, tq);  // dV += P^T dO
     // dP^T = V dO^T, then dS^T = P^T * (dP^T - D)
     float ds[NT][4];
 #pragma unroll
@@ -444,17 +466,18 @@ __device__ __forceinline__ void dkv_body(const float* __restrict__ q,
         ds[n][e] = p[n][e] * (ds[n][e] - d_s[8 * n + 2 * tq + (e & 1)]);
       }
     }
-    product_nn<DH>(dk_acc, ds, qs, g, tq);  // dK += dS^T Q (times scale below)
+    product_nn<DH, DC>(dk_acc, ds, qs + c0, g, tq);  // dK += dS^T Q (times scale below)
   }
 
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     const int key = w0 + g + 8 * half;
     if (key >= t) continue;
-    float* dkr = dk + base + static_cast<size_t>(key) * DH + 2 * tq;
-    float* dvr = dv + base + static_cast<size_t>(key) * DH + 2 * tq;
+    float* dkr = dk + base + static_cast<size_t>(key) * dh + c0 + 2 * tq;
+    float* dvr = dv + base + static_cast<size_t>(key) * dh + c0 + 2 * tq;
 #pragma unroll
     for (int m = 0; m < OT; ++m) {
+      if (c0 + 8 * m >= dh) break;
       *reinterpret_cast<float2*>(dkr + 8 * m) =
           make_float2(dk_acc[m][2 * half] * scale, dk_acc[m][2 * half + 1] * scale);
       *reinterpret_cast<float2*>(dvr + 8 * m) =
@@ -467,28 +490,39 @@ __device__ __forceinline__ void dkv_body(const float* __restrict__ q,
   const float *__restrict__ q, const float *__restrict__ k,                   \
       const float *__restrict__ v, const float *__restrict__ o,               \
       const float *__restrict__ lse, const float *__restrict__ dout,          \
-      float *__restrict__ dk, float *__restrict__ dv, int t, int n_tiles,     \
-      float scale, int causal
+      float *__restrict__ dk, float *__restrict__ dv, int t, int dh,          \
+      int n_tiles, float scale, int causal
 
-template <int DH>
+template <int DH, bool PADDED>
 __global__ void __launch_bounds__(THREADS) flash_bwd_dkv_f32(DKV_PARAMS) {
-  dkv_body<DH>(q, k, v, o, lse, dout, dk, dv, t, n_tiles, scale, causal);
+  dkv_body<DH>(q, k, v, o, lse, dout, dk, dv, t, head_dim<DH, PADDED>(dh), n_tiles, scale,
+               causal);
 }
 
 // dh 64, the training shape, with two resident blocks per SM asked of the
 // register allocator (the hint makes the other head dims' code worse)
 __global__ void __launch_bounds__(THREADS, 2) flash_bwd_dkv_f32_dh64(DKV_PARAMS) {
-  dkv_body<64>(q, k, v, o, lse, dout, dk, dv, t, n_tiles, scale, causal);
+  dkv_body<64>(q, k, v, o, lse, dout, dk, dv, t, 64, n_tiles, scale, causal);
 }
 
 #undef DKV_PARAMS
 
+// each kernel's instantiation for dh (with_instantiation)
 template <int DH>
-constexpr auto dkv_kernel() {
+auto dq_kernel(int dh) {
+  return with_instantiation<DH>(dh, [](auto padded) {
+    return flash_bwd_dq_f32<DH, decltype(padded)::value>;
+  });
+}
+
+template <int DH>
+auto dkv_kernel(int dh) {
   if constexpr (DH == 64) {
     return flash_bwd_dkv_f32_dh64;
   } else {
-    return flash_bwd_dkv_f32<DH>;
+    return with_instantiation<DH>(dh, [](auto padded) {
+      return flash_bwd_dkv_f32<DH, decltype(padded)::value>;
+    });
   }
 }
 
@@ -500,12 +534,12 @@ cudaError_t allow_smem(Kernel kernel, int smem) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
 }
 
-// one block per (bh, 64-row tile)
+// one block per (bh, column slice, 64-row tile)
 template <typename Kernel>
-cudaError_t prepare(Kernel kernel, int bh, int t, int smem, unsigned* n_blocks,
+cudaError_t prepare(Kernel kernel, int bh, int t, int slices, int smem, unsigned* n_blocks,
                     int* n_tiles) {
   *n_tiles = (t + TILE - 1) / TILE;
-  const long long blocks = static_cast<long long>(bh) * *n_tiles;
+  const long long blocks = static_cast<long long>(bh) * slices * *n_tiles;
   if (blocks > INT_MAX) return cudaErrorInvalidConfiguration;
   *n_blocks = static_cast<unsigned>(blocks);
   return allow_smem(kernel, smem);
@@ -514,33 +548,33 @@ cudaError_t prepare(Kernel kernel, int bh, int t, int smem, unsigned* n_blocks,
 template <int DH>
 cudaError_t launch_dq(const float* q, const float* k, const float* v,
                       const float* o, const float* lse, const float* dout,
-                      float* dq, int bh, int t, float scale, int causal,
+                      float* dq, int bh, int t, int dh, float scale, int causal,
                       cudaStream_t stream) {
   const int smem = Dq<DH>::SMEM_FLOATS * static_cast<int>(sizeof(float));
+  const auto kernel = dq_kernel<DH>(dh);
   unsigned n_blocks;
   int n_tiles;
-  const cudaError_t err =
-      prepare(flash_bwd_dq_f32<DH>, bh, t, smem, &n_blocks, &n_tiles);
+  const cudaError_t err = prepare(kernel, bh, t, 1, smem, &n_blocks, &n_tiles);
   if (err != cudaSuccess) return err;
-  flash_bwd_dq_f32<DH><<<n_blocks, THREADS, smem, stream>>>(
-      q, k, v, o, lse, dout, dq, t, n_tiles, scale, causal);
+  kernel<<<n_blocks, THREADS, smem, stream>>>(
+      q, k, v, o, lse, dout, dq, t, dh, n_tiles, scale, causal);
   return cudaGetLastError();
 }
 
 template <int DH>
 cudaError_t launch_dkv(const float* q, const float* k, const float* v,
                        const float* o, const float* lse, const float* dout,
-                       float* dk, float* dv, int bh, int t, float scale,
+                       float* dk, float* dv, int bh, int t, int dh, float scale,
                        int causal, cudaStream_t stream) {
   const int smem = Dkv<DH>::SMEM_FLOATS * static_cast<int>(sizeof(float));
+  const auto kernel = dkv_kernel<DH>(dh);
   unsigned n_blocks;
   int n_tiles;
   const cudaError_t err =
-      prepare(dkv_kernel<DH>(), bh, t, smem, &n_blocks, &n_tiles);
+      prepare(kernel, bh, t, Dkv<DH>::SLICES, smem, &n_blocks, &n_tiles);
   if (err != cudaSuccess) return err;
-  const auto kernel = dkv_kernel<DH>();
   kernel<<<n_blocks, THREADS, smem, stream>>>(
-      q, k, v, o, lse, dout, dk, dv, t, n_tiles, scale, causal);
+      q, k, v, o, lse, dout, dk, dv, t, dh, n_tiles, scale, causal);
   return cudaGetLastError();
 }
 
@@ -557,41 +591,32 @@ cudaError_t occupancy(Kernel kernel, int smem_floats, int* smem, int* blocks_per
 
 template <int DH>
 cudaError_t dq_occupancy(int* smem, int* blocks_per_sm) {
-  return occupancy(flash_bwd_dq_f32<DH>, Dq<DH>::SMEM_FLOATS, smem, blocks_per_sm);
+  return occupancy(dq_kernel<DH>(DH), Dq<DH>::SMEM_FLOATS, smem, blocks_per_sm);
 }
 
 template <int DH>
 cudaError_t dkv_occupancy(int* smem, int* blocks_per_sm) {
-  return occupancy(dkv_kernel<DH>(), Dkv<DH>::SMEM_FLOATS, smem, blocks_per_sm);
+  return occupancy(dkv_kernel<DH>(DH), Dkv<DH>::SMEM_FLOATS, smem, blocks_per_sm);
 }
 
 }  // namespace
 
 // q, k, v, o, dout, dq: (bh, t, dh) contiguous float32, 16-byte aligned;
-// lse: (bh, t) float32 from the forward. Launches on `stream` and does not
-// synchronise. Returns the CUDA error code of the launch (0 on success).
+// lse: (bh, t) float32 from the forward; dh 16, 32 or a multiple of 8 from
+// 64 to 256. Launches on `stream` and does not synchronise. Returns the
+// CUDA error code of the launch (0 on success).
 extern "C" int gordo_flash_attention_backward_dq_f32(
     const void* q, const void* k, const void* v, const void* o,
     const void* lse, const void* dout, void* dq, int bh, int t, int dh,
     float scale, int causal, void* stream) {
   if (bh <= 0 || t <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const float* qf = static_cast<const float*>(q);
-  const float* kf = static_cast<const float*>(k);
-  const float* vf = static_cast<const float*>(v);
-  const float* of = static_cast<const float*>(o);
-  const float* lf = static_cast<const float*>(lse);
-  const float* gf = static_cast<const float*>(dout);
-  float* dqf = static_cast<float*>(dq);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  switch (dh) {
-    case 16: err = launch_dq<16>(qf, kf, vf, of, lf, gf, dqf, bh, t, scale, causal, s); break;
-    case 32: err = launch_dq<32>(qf, kf, vf, of, lf, gf, dqf, bh, t, scale, causal, s); break;
-    case 64: err = launch_dq<64>(qf, kf, vf, of, lf, gf, dqf, bh, t, scale, causal, s); break;
-    case 128: err = launch_dq<128>(qf, kf, vf, of, lf, gf, dqf, bh, t, scale, causal, s); break;
-    default: err = cudaErrorInvalidValue;
-  }
-  return static_cast<int>(err);
+  return static_cast<int>(with_head_dim_class(dh, [&](auto c) {
+    return launch_dq<decltype(c)::value>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<const float*>(o),
+        static_cast<const float*>(lse), static_cast<const float*>(dout),
+        static_cast<float*>(dq), bh, t, dh, scale, causal, static_cast<cudaStream_t>(stream));
+  }));
 }
 
 // As above, writing dk and dv: (bh, t, dh) contiguous float32.
@@ -600,47 +625,29 @@ extern "C" int gordo_flash_attention_backward_dkv_f32(
     const void* lse, const void* dout, void* dk, void* dv, int bh, int t,
     int dh, float scale, int causal, void* stream) {
   if (bh <= 0 || t <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const float* qf = static_cast<const float*>(q);
-  const float* kf = static_cast<const float*>(k);
-  const float* vf = static_cast<const float*>(v);
-  const float* of = static_cast<const float*>(o);
-  const float* lf = static_cast<const float*>(lse);
-  const float* gf = static_cast<const float*>(dout);
-  float* dkf = static_cast<float*>(dk);
-  float* dvf = static_cast<float*>(dv);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  switch (dh) {
-    case 16: err = launch_dkv<16>(qf, kf, vf, of, lf, gf, dkf, dvf, bh, t, scale, causal, s); break;
-    case 32: err = launch_dkv<32>(qf, kf, vf, of, lf, gf, dkf, dvf, bh, t, scale, causal, s); break;
-    case 64: err = launch_dkv<64>(qf, kf, vf, of, lf, gf, dkf, dvf, bh, t, scale, causal, s); break;
-    case 128: err = launch_dkv<128>(qf, kf, vf, of, lf, gf, dkf, dvf, bh, t, scale, causal, s); break;
-    default: err = cudaErrorInvalidValue;
-  }
-  return static_cast<int>(err);
+  return static_cast<int>(with_head_dim_class(dh, [&](auto c) {
+    return launch_dkv<decltype(c)::value>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<const float*>(o),
+        static_cast<const float*>(lse), static_cast<const float*>(dout),
+        static_cast<float*>(dk), static_cast<float*>(dv), bh, t, dh, scale, causal,
+        static_cast<cudaStream_t>(stream));
+  }));
 }
 
 // The dQ kernel's dynamic shared memory (bytes) and resident blocks per SM
-// at head dim `dh`, for reports. Returns the CUDA error code.
+// for head dim `dh` (its class's), for reports. Returns the CUDA error code.
 extern "C" int gordo_flash_attention_backward_dq_f32_occupancy(int dh, int* smem_bytes,
                                                               int* blocks_per_sm) {
-  switch (dh) {
-    case 16: return static_cast<int>(dq_occupancy<16>(smem_bytes, blocks_per_sm));
-    case 32: return static_cast<int>(dq_occupancy<32>(smem_bytes, blocks_per_sm));
-    case 64: return static_cast<int>(dq_occupancy<64>(smem_bytes, blocks_per_sm));
-    case 128: return static_cast<int>(dq_occupancy<128>(smem_bytes, blocks_per_sm));
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return static_cast<int>(with_head_dim_class(dh, [&](auto c) {
+    return dq_occupancy<decltype(c)::value>(smem_bytes, blocks_per_sm);
+  }));
 }
 
 // As above, for the dK/dV kernel.
 extern "C" int gordo_flash_attention_backward_dkv_f32_occupancy(int dh, int* smem_bytes,
                                                                int* blocks_per_sm) {
-  switch (dh) {
-    case 16: return static_cast<int>(dkv_occupancy<16>(smem_bytes, blocks_per_sm));
-    case 32: return static_cast<int>(dkv_occupancy<32>(smem_bytes, blocks_per_sm));
-    case 64: return static_cast<int>(dkv_occupancy<64>(smem_bytes, blocks_per_sm));
-    case 128: return static_cast<int>(dkv_occupancy<128>(smem_bytes, blocks_per_sm));
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return static_cast<int>(with_head_dim_class(dh, [&](auto c) {
+    return dkv_occupancy<decltype(c)::value>(smem_bytes, blocks_per_sm);
+  }));
 }

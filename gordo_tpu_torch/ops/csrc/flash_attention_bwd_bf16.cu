@@ -44,8 +44,9 @@
 // - one persistent block per SM walks over the (bh, 128-row query tile)
 //   work in the forward's order; Q and dO of the tile are loaded once, into
 //   one of two buffers, so the next work's load runs under this one;
-// - K and V tiles of 64 keys come through a ring of three stages; a
-//   warpgroup skips the key tiles past its diagonal;
+// - K and V tiles of 64 keys (32 from dh 192 on, for registers and shared
+//   memory, where the Q and dO buffer is single) come through a ring of
+//   three stages; a warpgroup skips the key tiles past its diagonal;
 // - D = rowsum(dO O) is the diagonal of dO O^T, an SS product over the
 //   work's O, which comes through the ring as one more stage: summed on
 //   the tensor cores as dP is, D cancels dP exactly where the float64
@@ -68,20 +69,32 @@
 //
 // dK/dV, the same design with the roles of queries and keys exchanged:
 // - one block per 128-row key tile; K and V are loaded once, and Q, dO and
-//   O tiles of 64 query rows (32 at dh 128) come through a ring of two
+//   O tiles of 64 query rows (32 from dh 128 on) come through a ring of two
 //   stages, from the diagonal on;
+// - D = rowsum(dO O): from dh 128 on (32-query tiles) the diagonal of
+//   O dO^T on the tensor cores, summed as dP^T is, as dQ takes it; below,
+//   float32 fmas over the shared tiles;
+// - above dh 128 the dK and dV accumulators of all columns would not fit
+//   the registers: a key tile is split over blocks of 64 columns each (128
+//   at dh 256; DC), each of which computes the whole S^T and dP^T;
 // - S^T = K Q^T and dP^T = V dO^T are SS products; while they run the
-//   consumers compute D from the shared O and dO tiles and read the lse;
+//   consumers read the lse (and below dh 128 compute D);
 // - P^T and dS^T stay in registers: split in three by truncation, they are
 //   the A operands of the RS products dV += P^T dO and dK += dS^T Q, with
 //   dO and Q as MN-major B operands, so nothing is transposed in memory;
-// - S^T and dP^T each sum a tile's k16 steps in one chain; dV sums over the
+// - S^T and dP^T each sum a tile's k16 steps in one chain (S^T from dh 192
+//   on one chain a 64-column panel, added in float32: a longer chain's
+//   truncations reached dV beyond the gate); dV sums over the
 //   whole query loop in its own accumulator, dK a query tile at a time in a
-//   fresh one added in float32: the fastest choices on the card, each held
-//   to the gates, beside their alternatives in
-//   scripts/torch_bf16_variants.py;
+//   fresh one added in float32 (from 128 columns a block in its own too:
+//   the fresh one spilled): the fastest choices on the card, each held to
+//   the gates, beside their alternatives in scripts/torch_bf16_variants.py
+//   (and at the wide dims in scripts/torch_bf16_dkv_layouts.py);
 // - the tiles that see the most queries are scheduled first.
-// Any T >= 1 works; dh is 16, 32, 64 or 128 (a template parameter).
+// Any T >= 1 works; dh is 16, 32 or any multiple of 8 from 64 to 256, each
+// run by the instantiation of its class (wgmma_bf16.cuh: whole 64-column
+// panels, the columns past dh zero-filled by TMA and not stored, the scale
+// the caller's 1/sqrt(dh)).
 
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -98,33 +111,42 @@ using namespace gordo_wgmma;
 
 namespace dq {
 
-// consumer warpgroups, 64 query rows each: a work's O takes one stage of
-// the K/V ring, one consumer's rows in each of its two slots
+// consumer warpgroups, 64 query rows each: a work's O takes the slots of
+// the K/V ring, one consumer's rows in each of the two slots of a stage (in
+// both slots of its own stage at 32-key tiles)
 constexpr int CONSUMERS = 2;
 using R = Regs<CONSUMERS>;
 constexpr int THREADS = R::THREADS;
 constexpr int BLOCK_M = 64 * CONSUMERS;  // query rows of a work tile
-constexpr int BN = 64;                   // key rows of a K/V tile
 
 template <int DH>
 struct Dq {
   using T = Tile<DH>;
+  // key rows of a K/V tile: from dh 192 on, 32 keep dQ, S, dP and dS's
+  // parts in the consumers' registers
+  static constexpr int BN = DH >= 192 ? 32 : 64;
+  static constexpr int O_STAGES = BLOCK_M / (2 * BN);  // ring stages of a work's O
+  // Q and dO buffers: two, so that the next work's load runs under this
+  // one, where shared memory holds them
+  static constexpr int Q_BUFS = DH >= 192 ? 1 : 2;
   static constexpr int STAGES = 3;
   static constexpr int Q_BYTES = BLOCK_M * DH * 2;  // Q or dO of a work tile
   static constexpr int KV_BYTES = BN * DH * 2;      // one K or V tile
   // byte offsets from the 1024-aligned base of shared memory
-  static constexpr int Q = 0;                      // [2][Q, dO]: two works'
-  static constexpr int K = Q + 4 * Q_BYTES;        // [STAGES]
-  static constexpr int V = K + STAGES * KV_BYTES;  // [STAGES]
+  static constexpr int Q = 0;                          // [Q_BUFS][Q, dO]
+  static constexpr int K = Q + 2 * Q_BUFS * Q_BYTES;   // [STAGES]
+  static constexpr int V = K + STAGES * KV_BYTES;      // [STAGES]
   static constexpr int BARS = V + STAGES * KV_BYTES;
   // q_full[2], q_empty[2], full[STAGES], empty[STAGES]; 1024 bytes of
   // alignment slack
   static constexpr int SMEM_BYTES = BARS + 8 * (4 + 2 * STAGES) + 1024;
+  static_assert(SMEM_BYTES <= 232448, "above a block's 227 KB of shared memory");
 };
 
 // The producer loads each work's Q and dO once, then, through the ring,
-// its O (rows 0..63 in a stage's K slot, 64..127 in its V slot) and its
-// K/V tiles up to the diagonal. Consumer warpgroup wg owns query rows
+// its O (rows 0..63 in a stage's K slot, 64..127 in its V slot; at 32-key
+// tiles rows 0..63 in the first stage, 64..127 in the second) and its K/V
+// tiles up to the diagonal. Consumer warpgroup wg owns query rows
 // 64 wg .. 64 wg + 63 of a work tile: it takes D = rowsum(dO O) of its
 // rows from the diagonal of dO O^T (SS, summed as dP is, so that dP - D
 // is exactly 0 where it is in float64: a query that sees one key, whose O
@@ -132,18 +154,21 @@ struct Dq {
 // dP = dO V^T (SS), P = exp(S scale - lse) and dS = P (dP - D) in
 // registers, and dQ += dS K (RS, three parts, K MN-major). dQ of a query
 // is written by exactly one thread, with no atomics.
-template <int DH>
+template <int DH, bool PADDED>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_bwd_dq_bf16(const __grid_constant__ CUtensorMap q_map,
                   const __grid_constant__ CUtensorMap k_map,
                   const __grid_constant__ CUtensorMap v_map,
                   const __grid_constant__ CUtensorMap o_map,
                   const __grid_constant__ CUtensorMap do_map, const float* __restrict__ lse,
-                  bf16* __restrict__ dq, int t, int bh_count, int n_q_tiles, float scale,
-                  int causal) {
+                  bf16* __restrict__ dq, int t, int dh_in, int bh_count, int n_q_tiles,
+                  float scale, int causal) {
+  const int dh = head_dim<DH, PADDED>(dh_in);
   using C = Dq<DH>;
   using L = typename C::T;
+  constexpr int BN = C::BN;
   constexpr int STAGES = C::STAGES;
+  constexpr int Q_BUFS = C::Q_BUFS;
   constexpr int NC = BN / 16;  // k-chunks of dS
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = reinterpret_cast<uint8_t*>(
@@ -171,7 +196,7 @@ flash_bwd_dq_bf16(const __grid_constant__ CUtensorMap q_map,
   const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
   if (wg == CONSUMERS) {
     // producer: one thread issues every load; work j's Q and dO go to
-    // buffer j % 2
+    // buffer j % Q_BUFS
     setmaxnreg_dec<R::PRODUCER>();
     if (threadIdx.x != 128 * CONSUMERS) return;
     Ring<STAGES> ring;
@@ -180,9 +205,9 @@ flash_bwd_dq_bf16(const __grid_constant__ CUtensorMap q_map,
       schedule(w, n_q_tiles, gridDim.x, &bh, &qt);
       const int q0 = qt * BLOCK_M;
       const int n_kt = key_tiles(q0 + BLOCK_M, t, BN, causal);
-      const int b = j & 1;
+      const int b = j % Q_BUFS;
       uint8_t* q_tile = smem + C::Q + b * 2 * C::Q_BYTES;
-      mbar_wait(&q_empty[b], ((j >> 1) & 1) ^ 1);
+      mbar_wait(&q_empty[b], ((j / Q_BUFS) & 1) ^ 1);
       mbar_arrive_expect_tx(&q_full[b], 2 * C::Q_BYTES);
 #pragma unroll
       for (int p = 0; p < L::PANELS; ++p) {
@@ -190,17 +215,18 @@ flash_bwd_dq_bf16(const __grid_constant__ CUtensorMap q_map,
         tma_load_3d(q_tile + off, &q_map, &q_full[b], p * L::COLS, q0, bh);
         tma_load_3d(q_tile + C::Q_BYTES + off, &do_map, &q_full[b], p * L::COLS, q0, bh);
       }
-      {  // O of the work's rows, one consumer's 64 rows in each slot of a stage
+      // O of the work's rows, 2 BN rows a stage: BN in its K slot, BN in its V slot
+      for (int os = 0; os < C::O_STAGES; ++os, ring.advance()) {
         const int s = ring.stage;
+        const int r0 = q0 + 2 * BN * os;
         mbar_wait(&empty[s], ring.phase ^ 1);
         mbar_arrive_expect_tx(&full[s], 2 * C::KV_BYTES);
 #pragma unroll
         for (int p = 0; p < L::PANELS; ++p) {
           const int off = s * C::KV_BYTES + p * BN * L::RB;
-          tma_load_3d(smem + C::K + off, &o_map, &full[s], p * L::COLS, q0, bh);
-          tma_load_3d(smem + C::V + off, &o_map, &full[s], p * L::COLS, q0 + BN, bh);
+          tma_load_3d(smem + C::K + off, &o_map, &full[s], p * L::COLS, r0, bh);
+          tma_load_3d(smem + C::V + off, &o_map, &full[s], p * L::COLS, r0 + BN, bh);
         }
-        ring.advance();
       }
       for (int kt = 0; kt < n_kt; ++kt, ring.advance()) {
         const int s = ring.stage;
@@ -239,7 +265,7 @@ flash_bwd_dq_bf16(const __grid_constant__ CUtensorMap q_map,
     const int mine = w0 < t ? key_tiles(w0 + 64, t, BN, causal) : 0;
     const int row0 = w0 + 16 * warp + g;
     const int row1 = row0 + 8;
-    const int b = j & 1;
+    const int b = j % Q_BUFS;
     const uint32_t q_tile = smem_u32(smem + C::Q + b * 2 * C::Q_BYTES);
     const uint32_t do_tile = q_tile + C::Q_BYTES;
     const size_t base = static_cast<size_t>(bh) * t;
@@ -253,38 +279,56 @@ flash_bwd_dq_bf16(const __grid_constant__ CUtensorMap q_map,
     int pending = 0;        // the stage of the pending tile
     float lse0 = 0.f, lse1 = 0.f;  // lse * log2(e) of rows row0, row1
     float d0 = 0.f, d1 = 0.f;      // their D
-    mbar_wait(&q_full[b], (j >> 1) & 1);
+    mbar_wait(&q_full[b], (j / Q_BUFS) & 1);
     if (mine == 0) mbar_arrive_warp(&q_empty[b]);
-    {  // D from the work's O, in the first stage it takes
+    // D from the work's O, in the stage that holds this warpgroup's rows:
+    // at 64-key tiles the first, its K slot for warpgroup 0 and V slot for
+    // 1; at 32-key tiles stage wg, its K slot holding rows 0..31 of the
+    // warpgroup's and its V slot rows 32..63 (a second product, into sc)
+    for (int os = 0; os < C::O_STAGES; ++os, ring.advance()) {
       const int s = ring.stage;
       mbar_wait(&full[s], ring.phase);
-      if (mine > 0) {
-        const uint32_t o_tile = (wg == 0 ? k_slot : v_slot) + s * C::KV_BYTES;
+      if (mine > 0 && os == wg * C::O_STAGES / CONSUMERS) {
+        const uint32_t o_tile =
+            (C::O_STAGES == 1 && wg == 1 ? v_slot : k_slot) + s * C::KV_BYTES;
         fence_regs(dp);
+        fence_regs(sc);
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < DH / 16; ++kk) {
           Wgmma<BN>::ss(dp, L::k_major(do_tile, BLOCK_M, 64 * wg, kk),
                         L::k_major(o_tile, BN, 0, kk), kk > 0);
         }
+        if constexpr (BN == 32) {
+#pragma unroll
+          for (int kk = 0; kk < DH / 16; ++kk) {
+            Wgmma<BN>::ss(sc, L::k_major(do_tile, BLOCK_M, 64 * wg, kk),
+                          L::k_major(v_slot + s * C::KV_BYTES, BN, 0, kk), kk > 0);
+          }
+        }
         wgmma_commit();
         wgmma_wait<0>();
         fence_regs(dp);
+        fence_regs(sc);
         // (r, r), r = 16 warp + g + 8 h, is column g of column group
-        // 2 warp + h, held by lane 4 g + g / 2 of the quad
+        // 2 warp + h of the slot's rows (2 (warp % 2) + h, in sc for warps
+        // 2 and 3, at 32-key tiles), held by lane 4 g + g / 2 of the quad
         float diag0 = 0.f, diag1 = 0.f;
 #pragma unroll
         for (int w4 = 0; w4 < 4; ++w4) {
-          if (w4 == warp) {
-            diag0 = (g & 1) ? dp[8 * w4 + 1] : dp[8 * w4];
-            diag1 = (g & 1) ? dp[8 * w4 + 7] : dp[8 * w4 + 6];
+          const int c = 8 * (w4 % (BN / 16));
+          if (w4 == warp && BN == 32 && w4 >= 2) {
+            diag0 = (g & 1) ? sc[c + 1] : sc[c];
+            diag1 = (g & 1) ? sc[c + 7] : sc[c + 6];
+          } else if (w4 == warp) {
+            diag0 = (g & 1) ? dp[c + 1] : dp[c];
+            diag1 = (g & 1) ? dp[c + 7] : dp[c + 6];
           }
         }
         d0 = __shfl_sync(0xffffffffu, diag0, 4 * g + g / 2);
         d1 = __shfl_sync(0xffffffffu, diag1, 4 * g + g / 2);
       }
       mbar_arrive_warp(&empty[s]);
-      ring.advance();
     }
 
     // S = Q K^T and dP = dO V^T of the tile in stage s: issued, not waited for
@@ -395,9 +439,10 @@ flash_bwd_dq_bf16(const __grid_constant__ CUtensorMap q_map,
     for (int half = 0; half < 2; ++half) {
       const int row = half ? row1 : row0;
       if (row >= t) continue;
-      bf16* dst = dq + (base + row) * DH + 2 * tq;
+      bf16* dst = dq + (base + row) * dh + 2 * tq;
 #pragma unroll
       for (int n = 0; n < DH / 8; ++n) {
+        if (8 * n >= dh) break;
         const int i = 4 * n + 2 * half;
         *reinterpret_cast<__nv_bfloat162*>(dst + 8 * n) =
             __floats2bfloat162_rn(acc[i] * scale, acc[i + 1] * scale);
@@ -406,46 +451,64 @@ flash_bwd_dq_bf16(const __grid_constant__ CUtensorMap q_map,
   }
 }
 
-// the five tensor maps of q, k, v, o, dO (o in K/V tile boxes)
+// the five tensor maps of q, k, v, o, dO (o in K/V tile boxes), of head dim
+// dh in the boxes of class DH
 template <int DH>
 cudaError_t encode(CUtensorMap (&maps)[5], const bf16* q, const bf16* k, const bf16* v,
-                   const bf16* o, const bf16* dout, int bh, int t) {
-  cudaError_t err = encode_rows(&maps[0], q, bh, t, DH, BLOCK_M);
-  if (err == cudaSuccess) err = encode_rows(&maps[1], k, bh, t, DH, BN);
-  if (err == cudaSuccess) err = encode_rows(&maps[2], v, bh, t, DH, BN);
-  if (err == cudaSuccess) err = encode_rows(&maps[3], o, bh, t, DH, BN);
-  if (err == cudaSuccess) err = encode_rows(&maps[4], dout, bh, t, DH, BLOCK_M);
+                   const bf16* o, const bf16* dout, int bh, int t, int dh) {
+  constexpr int BN = Dq<DH>::BN;
+  cudaError_t err = encode_rows(&maps[0], q, bh, t, dh, BLOCK_M);
+  if (err == cudaSuccess) err = encode_rows(&maps[1], k, bh, t, dh, BN);
+  if (err == cudaSuccess) err = encode_rows(&maps[2], v, bh, t, dh, BN);
+  if (err == cudaSuccess) err = encode_rows(&maps[3], o, bh, t, dh, BN);
+  if (err == cudaSuccess) err = encode_rows(&maps[4], dout, bh, t, dh, BLOCK_M);
   return err;
 }
 
 // one block per SM (or per work tile, if fewer)
-template <int DH>
-cudaError_t launch(const bf16* q, const bf16* k, const bf16* v, const bf16* o,
-                   const float* lse, const bf16* dout, bf16* dq, int bh, int t, float scale,
-                   int causal, cudaStream_t stream) {
+template <int DH, bool PADDED>
+cudaError_t launch_as(const bf16* q, const bf16* k, const bf16* v, const bf16* o,
+                      const float* lse, const bf16* dout, bf16* dq, int bh, int t, int dh,
+                      float scale, int causal, cudaStream_t stream) {
   const int n_q_tiles = (t + BLOCK_M - 1) / BLOCK_M;
   const long long n_work = static_cast<long long>(bh) * n_q_tiles;
   if (n_work > INT_MAX) return cudaErrorInvalidConfiguration;
   constexpr int smem = Dq<DH>::SMEM_BYTES;
   CUtensorMap maps[5];
   int sms;
-  cudaError_t err = encode<DH>(maps, q, k, v, o, dout, bh, t);
-  if (err == cudaSuccess) err = prepare_kernel<flash_bwd_dq_bf16<DH>>(smem, R::LAUNCH, &sms);
+  cudaError_t err = encode<DH>(maps, q, k, v, o, dout, bh, t, dh);
+  if (err == cudaSuccess) {
+    err = prepare_kernel<flash_bwd_dq_bf16<DH, PADDED>>(smem, R::LAUNCH, &sms);
+  }
   if (err != cudaSuccess) return err;
   const unsigned grid = static_cast<unsigned>(n_work < sms ? n_work : sms);
-  flash_bwd_dq_bf16<DH><<<grid, THREADS, smem, stream>>>(
-      maps[0], maps[1], maps[2], maps[3], maps[4], lse, dq, t, bh, n_q_tiles, scale, causal);
+  flash_bwd_dq_bf16<DH, PADDED><<<grid, THREADS, smem, stream>>>(
+      maps[0], maps[1], maps[2], maps[3], maps[4], lse, dq, t, dh, bh, n_q_tiles, scale, causal);
   return cudaGetLastError();
 }
 
+// the class's instantiation for dh (with_instantiation)
+template <int DH>
+cudaError_t launch(const bf16* q, const bf16* k, const bf16* v, const bf16* o,
+                   const float* lse, const bf16* dout, bf16* dq, int bh, int t, int dh,
+                   float scale, int causal, cudaStream_t stream) {
+  return with_instantiation<DH>(dh, [&](auto padded) {
+    return launch_as<DH, decltype(padded)::value>(q, k, v, o, lse, dout, dq, bh, t, dh, scale,
+                                                  causal, stream);
+  });
+}
+
+// of the instantiation that runs dh = DH
 template <int DH>
 cudaError_t occupancy(int* smem, int* blocks_per_sm) {
   *smem = Dq<DH>::SMEM_BYTES;
-  int sms;
-  const cudaError_t err = prepare_kernel<flash_bwd_dq_bf16<DH>>(*smem, R::LAUNCH, &sms);
-  if (err != cudaSuccess) return err;
-  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, flash_bwd_dq_bf16<DH>,
-                                                       THREADS, *smem);
+  return with_instantiation<DH>(DH, [&](auto padded) {
+    constexpr auto kernel = flash_bwd_dq_bf16<DH, decltype(padded)::value>;
+    int sms;
+    const cudaError_t err = prepare_kernel<kernel>(*smem, R::LAUNCH, &sms);
+    if (err != cudaSuccess) return err;
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, kernel, THREADS, *smem);
+  });
 }
 
 }  // namespace dq
@@ -462,9 +525,14 @@ constexpr int THREADS = R::THREADS;
 template <int DH>
 struct Dkv {
   using T = Tile<DH>;
-  // query rows of a Q/dO/O tile: 32 at dh 128 keeps the consumers'
-  // accumulators in registers
-  static constexpr int BQ = DH == 128 ? 32 : 64;
+  // query rows of a Q/dO/O tile: 32 from dh 128 on keeps the consumers'
+  // accumulators in registers (and, above 128, shared memory in bounds)
+  static constexpr int BQ = DH >= 128 ? 32 : 64;
+  // dK and dV columns a block sums: above dh 128 a share of them, for
+  // registers (one 64-column panel at dh 192; two at 256, where the
+  // accumulators fit beside each other without dK's fresh one)
+  static constexpr int DC = DH == 256 ? 128 : DH > 128 ? 64 : DH;
+  static constexpr int SLICES = DH / DC;
   static constexpr int STAGES = 2;
   static constexpr int KV_BYTES = BLOCK_N * DH * 2;  // K or V
   static constexpr int Q_BYTES = BQ * DH * 2;        // one of Q, dO, O
@@ -478,39 +546,51 @@ struct Dkv {
   static constexpr int BARS = D + CONSUMERS * 2 * 2 * BQ * 4;
   // kv_full, full[STAGES], empty[STAGES]; 1024 bytes of alignment slack
   static constexpr int SMEM_BYTES = BARS + 8 * (1 + 2 * STAGES) + 1024;
+  static_assert(SMEM_BYTES <= 232448, "above a block's 227 KB of shared memory");
 };
 
-// One block per (bh, 128-row key tile), the tiles that see the most
-// queries under causal masking first. The producer loads K and V once,
-// then Q, dO and O tiles of BQ rows from the diagonal on through a ring of
-// two stages; each consumer warpgroup runs, per query tile, S^T = K Q^T and
-// dP^T = V dO^T (SS), computes D = rowsum(dO O) of the tile from shared
-// memory while they run, then P^T = exp(S^T scale - lse) and
+// One block per (bh, 128-row key tile, DC-column slice of dK and dV), the
+// tiles that see the most queries under causal masking first. The producer
+// loads K and V once, then Q, dO and O tiles of BQ rows from the diagonal on
+// through a ring of two stages; each consumer warpgroup runs, per query
+// tile, S^T = K Q^T and dP^T = V dO^T (SS), computes D = rowsum(dO O) of
+// the tile from shared memory while they run, then P^T = exp(S^T scale - lse) and
 // dS^T = P^T (dP^T - D) in registers, and dV += P^T dO, dK += dS^T Q (RS,
 // three parts each, dO and Q MN-major). dK and dV of a key are written by
 // exactly one thread, with no atomics.
-template <int DH>
+template <int DH, bool PADDED>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_bwd_dkv_bf16(const __grid_constant__ CUtensorMap q_map,
                    const __grid_constant__ CUtensorMap k_map,
                    const __grid_constant__ CUtensorMap v_map,
                    const __grid_constant__ CUtensorMap o_map,
                    const __grid_constant__ CUtensorMap do_map, const float* __restrict__ lse,
-                   bf16* __restrict__ dk, bf16* __restrict__ dv, int t, int bh_count,
+                   bf16* __restrict__ dk, bf16* __restrict__ dv, int t, int dh_in,
+                   int bh_count,
                    float scale, int causal) {
+  const int dh = head_dim<DH, PADDED>(dh_in);
   using C = Dkv<DH>;
   using L = typename C::T;
   constexpr int BQ = C::BQ;
+  constexpr int DC = C::DC;
   constexpr int STAGES = C::STAGES;
   constexpr int NC = BQ / 16;  // k-chunks of P^T and dS^T
+  // k16 steps of one S^T chain: from dh 192 on a 64-column panel's, the
+  // panels' chains added in float32. The tensor cores truncate the running
+  // sum at every step, and P = exp(S - lse) carries the error into dV: one
+  // chain of 16 steps left a dV element (a key seen by all 512 queries)
+  // 1.17x the gate's one ulp + 1e-6 off float64 at dh 256, BH 4,096
+  constexpr int S_STEPS = DH > 128 ? 4 : DH / 16;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
   uint64_t* kv_full = reinterpret_cast<uint64_t*>(smem + C::BARS);
   uint64_t* full = kv_full + 1;
   uint64_t* empty = full + STAGES;
-  const int tile = static_cast<int>(blockIdx.x) / bh_count;
-  const int bh = static_cast<int>(blockIdx.x) - tile * bh_count;
+  // block (tile SLICES + slice) bh_count + bh
+  const int bh = static_cast<int>(blockIdx.x % bh_count);
+  const int slice = static_cast<int>(blockIdx.x / bh_count % C::SLICES);
+  const int tile = static_cast<int>(blockIdx.x / bh_count / C::SLICES);
   const int k0 = tile * BLOCK_N;
   const int n_q_tiles = (t + BQ - 1) / BQ;
   const int first = causal ? k0 / BQ : 0;  // the first query tile that sees a key
@@ -570,9 +650,9 @@ flash_bwd_dkv_bf16(const __grid_constant__ CUtensorMap q_map,
   const auto ka = [&](int kk) { return L::k_major(k_tile, BLOCK_N, 64 * wg, kk); };
   const auto va = [&](int kk) { return L::k_major(v_tile, BLOCK_N, 64 * wg, kk); };
 
-  float dka[DH / 2], dva[DH / 2];
+  float dka[DC / 2], dva[DC / 2];  // dK and dV of the block's columns
 #pragma unroll
-  for (int i = 0; i < DH / 2; ++i) dka[i] = dva[i] = 0.f;
+  for (int i = 0; i < DC / 2; ++i) dka[i] = dva[i] = 0.f;
   mbar_wait(kv_full, 0);
 
   Ring<STAGES> ring;
@@ -592,14 +672,47 @@ flash_bwd_dkv_bf16(const __grid_constant__ CUtensorMap q_map,
       fence_regs(dp);
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < DH / 16; ++kk) Wgmma<BQ>::ss(sa, ka(kk), qb(kk), kk > 0);
+      for (int kk = 0; kk < S_STEPS; ++kk) Wgmma<BQ>::ss(sa, ka(kk), qb(kk), kk > 0);
 #pragma unroll
       for (int kk = 0; kk < DH / 16; ++kk) Wgmma<BQ>::ss(dp, va(kk), gb(kk), kk > 0);
       wgmma_commit();
-      // while they run: D of the tile's queries from the shared O and dO
-      // tiles, TPR threads a row, and their lse
       float* d_tile = d_s + (done & 1) * 2 * BQ;  // D, then lse * log2(e)
-      {
+      if constexpr (BQ == 32) {
+        // D = rowsum(dO O) as the diagonal of O dO^T, summed on the tensor
+        // cores as dP^T is, so that dP^T - D is exactly 0 where it is in
+        // float64 (a query that sees one key, whose O is that key's V):
+        // from dh 128 on, float32 fmas left such dK elements above the
+        // gate's 1e-6. The A operand's 64 rows start 32 rows before the O
+        // tile (the dO tile's last rows), so that its rows 32..63 are the
+        // tile's: D of query j is element (32 + j, j), held by warps 2, 3.
+        const uint32_t o_rows = q_tile + 2 * C::Q_BYTES - (64 - BQ) * L::RB;
+        float dd[BQ / 2];
+        fence_regs(dd);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < DH / 16; ++kk) {
+          Wgmma<BQ>::ss(dd, L::k_major(o_rows, BQ, 0, kk), gb(kk), kk > 0);
+        }
+        wgmma_commit();
+        if (tid < BQ) d_tile[BQ + tid] = q0 + tid < t ? lse_h[q0 + tid] * LOG2E : 0.f;
+        wgmma_wait<0>();
+        fence_regs(dd);
+        float diag0 = 0.f, diag1 = 0.f;
+#pragma unroll
+        for (int w4 = 2; w4 < 4; ++w4) {
+          if (w4 == warp) {
+            const int c = 8 * (w4 - 2);
+            diag0 = (g & 1) ? dd[c + 1] : dd[c];
+            diag1 = (g & 1) ? dd[c + 7] : dd[c + 6];
+          }
+        }
+        if (warp >= 2 && tq == g / 2) {
+          d_tile[16 * (warp - 2) + g] = diag0;
+          d_tile[16 * (warp - 2) + g + 8] = diag1;
+        }
+      } else {
+        // while they run: D of the tile's queries from the shared O and dO
+        // tiles, TPR threads a row, and their lse
         constexpr int TPR = 128 / BQ;
         const int r = tid / TPR;
         float d = 0.f;
@@ -618,6 +731,24 @@ flash_bwd_dkv_bf16(const __grid_constant__ CUtensorMap q_map,
       wgmma_wait<0>();
       fence_regs(sa);
       fence_regs(dp);
+      if constexpr (S_STEPS < DH / 16) {
+        // S^T's other 64-column panels, each in a fresh chain added in float32
+        float sb[BQ / 2];
+#pragma unroll
+        for (int kk0 = S_STEPS; kk0 < DH / 16; kk0 += S_STEPS) {
+          fence_regs(sb);
+          wgmma_fence();
+#pragma unroll
+          for (int kk = kk0; kk < kk0 + S_STEPS; ++kk) {
+            Wgmma<BQ>::ss(sb, ka(kk), qb(kk), kk > kk0);
+          }
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_regs(sb);
+#pragma unroll
+          for (int i = 0; i < BQ / 2; ++i) sa[i] += sb[i];
+        }
+      }
 
       // P^T = exp(S^T scale - lse), 0 where masked; dS^T = P^T (dP^T - D)
       const bool mask = q0 + BQ > t || (causal && kw0 + 63 > q0);
@@ -632,28 +763,38 @@ flash_bwd_dkv_bf16(const __grid_constant__ CUtensorMap q_map,
         sa[i] = p;
         dp[i] = p * (dp[i] - d_tile[col]);
       }
-      const auto gmn = [&](int c) { return L::mn_major(do_tile, BQ, c); };
-      const auto qmn = [&](int c) { return L::mn_major(q_tile, BQ, c); };
+      // the block's columns of dO and Q: from panel slice DC / 64 on
+      const uint32_t panel = slice * (DC / L::COLS) * BQ * L::RB;
+      const auto gmn = [&](int c) { return L::mn_major(do_tile + panel, BQ, c); };
+      const auto qmn = [&](int c) { return L::mn_major(q_tile + panel, BQ, c); };
       // dV += P^T dO, in dV's own accumulator
       uint32_t pa[NC][3][4];
       split_to_a<NC>(sa, pa);
       fence_regs(dva);
       wgmma_fence();
-      rs_product<DH, NC>(dva, pa, gmn, true);
+      rs_product<DC, NC>(dva, pa, gmn, true);
       wgmma_commit();
-      // dK += dS^T Q (times scale below), in a fresh accumulator added in
-      // float32, once dV's product has read P^T's parts: the consumers'
-      // registers hold one split operand at a time
+      // dK += dS^T Q (times scale below), once dV's product has read P^T's
+      // parts (the consumers' registers hold one split operand at a time):
+      // up to 64 columns in a fresh accumulator added in float32, wider in
+      // dK's own, whose registers a fresh one would spill
       wgmma_wait<0>();
       fence_regs(dva);
       fence_split(pa);
       uint32_t da[NC][3][4];
       split_to_a<NC>(dp, da);
-      {
-        float f[DH / 2];
-        rs_fresh<DH, NC>(f, da, qmn);
+      if constexpr (DC > 64) {
+        fence_regs(dka);
+        wgmma_fence();
+        rs_product<DC, NC>(dka, da, qmn, true);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(dka);
+      } else {
+        float f[DC / 2];
+        rs_fresh<DC, NC>(f, da, qmn);
 #pragma unroll
-        for (int i = 0; i < DH / 2; ++i) dka[i] += f[i];
+        for (int i = 0; i < DC / 2; ++i) dka[i] += f[i];
       }
       fence_split(da);
       ++done;
@@ -665,9 +806,10 @@ flash_bwd_dkv_bf16(const __grid_constant__ CUtensorMap q_map,
   for (int half = 0; half < 2; ++half) {
     const int key = key0 + 8 * half;
     if (key >= t) continue;
-    const size_t row = (static_cast<size_t>(bh) * t + key) * DH + 2 * tq;
+    const size_t row = (static_cast<size_t>(bh) * t + key) * dh + slice * DC + 2 * tq;
 #pragma unroll
-    for (int n = 0; n < DH / 8; ++n) {
+    for (int n = 0; n < DC / 8; ++n) {
+      if (slice * DC + 8 * n >= dh) break;
       const int i = 4 * n + 2 * half;
       *reinterpret_cast<__nv_bfloat162*>(dk + row + 8 * n) =
           __floats2bfloat162_rn(dka[i] * scale, dka[i + 1] * scale);
@@ -677,44 +819,62 @@ flash_bwd_dkv_bf16(const __grid_constant__ CUtensorMap q_map,
   }
 }
 
-// the five tensor maps of q, k, v, o, dO
+// the five tensor maps of q, k, v, o, dO, of head dim dh in the boxes of
+// class DH
 template <int DH>
 cudaError_t encode(CUtensorMap (&maps)[5], const bf16* q, const bf16* k, const bf16* v,
-                   const bf16* o, const bf16* dout, int bh, int t) {
+                   const bf16* o, const bf16* dout, int bh, int t, int dh) {
   constexpr int BQ = Dkv<DH>::BQ;
-  cudaError_t err = encode_rows(&maps[0], q, bh, t, DH, BQ);
-  if (err == cudaSuccess) err = encode_rows(&maps[1], k, bh, t, DH, BLOCK_N);
-  if (err == cudaSuccess) err = encode_rows(&maps[2], v, bh, t, DH, BLOCK_N);
-  if (err == cudaSuccess) err = encode_rows(&maps[3], o, bh, t, DH, BQ);
-  if (err == cudaSuccess) err = encode_rows(&maps[4], dout, bh, t, DH, BQ);
+  cudaError_t err = encode_rows(&maps[0], q, bh, t, dh, BQ);
+  if (err == cudaSuccess) err = encode_rows(&maps[1], k, bh, t, dh, BLOCK_N);
+  if (err == cudaSuccess) err = encode_rows(&maps[2], v, bh, t, dh, BLOCK_N);
+  if (err == cudaSuccess) err = encode_rows(&maps[3], o, bh, t, dh, BQ);
+  if (err == cudaSuccess) err = encode_rows(&maps[4], dout, bh, t, dh, BQ);
   return err;
 }
 
-template <int DH>
-cudaError_t launch(const bf16* q, const bf16* k, const bf16* v, const bf16* o,
-                   const float* lse, const bf16* dout, bf16* dk, bf16* dv, int bh, int t,
-                   float scale, int causal, cudaStream_t stream) {
-  const long long n_blocks = static_cast<long long>(bh) * ((t + BLOCK_N - 1) / BLOCK_N);
+template <int DH, bool PADDED>
+cudaError_t launch_as(const bf16* q, const bf16* k, const bf16* v, const bf16* o,
+                      const float* lse, const bf16* dout, bf16* dk, bf16* dv, int bh, int t,
+                      int dh, float scale, int causal, cudaStream_t stream) {
+  const long long n_blocks =
+      static_cast<long long>(bh) * ((t + BLOCK_N - 1) / BLOCK_N) * Dkv<DH>::SLICES;
   if (n_blocks > INT_MAX) return cudaErrorInvalidConfiguration;
   constexpr int smem = Dkv<DH>::SMEM_BYTES;
   CUtensorMap maps[5];
   int sms;
-  cudaError_t err = encode<DH>(maps, q, k, v, o, dout, bh, t);
-  if (err == cudaSuccess) err = prepare_kernel<flash_bwd_dkv_bf16<DH>>(smem, R::LAUNCH, &sms);
+  cudaError_t err = encode<DH>(maps, q, k, v, o, dout, bh, t, dh);
+  if (err == cudaSuccess) {
+    err = prepare_kernel<flash_bwd_dkv_bf16<DH, PADDED>>(smem, R::LAUNCH, &sms);
+  }
   if (err != cudaSuccess) return err;
-  flash_bwd_dkv_bf16<DH><<<static_cast<unsigned>(n_blocks), THREADS, smem, stream>>>(
-      maps[0], maps[1], maps[2], maps[3], maps[4], lse, dk, dv, t, bh, scale, causal);
+  flash_bwd_dkv_bf16<DH, PADDED><<<static_cast<unsigned>(n_blocks), THREADS, smem, stream>>>(
+      maps[0], maps[1], maps[2], maps[3], maps[4], lse, dk, dv, t, dh, bh, scale, causal);
   return cudaGetLastError();
 }
 
+// the class's instantiation for dh (with_instantiation)
+template <int DH>
+cudaError_t launch(const bf16* q, const bf16* k, const bf16* v, const bf16* o,
+                   const float* lse, const bf16* dout, bf16* dk, bf16* dv, int bh, int t,
+                   int dh, float scale, int causal, cudaStream_t stream) {
+  return with_instantiation<DH>(dh, [&](auto padded) {
+    return launch_as<DH, decltype(padded)::value>(q, k, v, o, lse, dout, dk, dv, bh, t, dh,
+                                                  scale, causal, stream);
+  });
+}
+
+// of the instantiation that runs dh = DH
 template <int DH>
 cudaError_t occupancy(int* smem, int* blocks_per_sm) {
   *smem = Dkv<DH>::SMEM_BYTES;
-  int sms;
-  const cudaError_t err = prepare_kernel<flash_bwd_dkv_bf16<DH>>(*smem, R::LAUNCH, &sms);
-  if (err != cudaSuccess) return err;
-  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, flash_bwd_dkv_bf16<DH>,
-                                                       THREADS, *smem);
+  return with_instantiation<DH>(DH, [&](auto padded) {
+    constexpr auto kernel = flash_bwd_dkv_bf16<DH, decltype(padded)::value>;
+    int sms;
+    const cudaError_t err = prepare_kernel<kernel>(*smem, R::LAUNCH, &sms);
+    if (err != cudaSuccess) return err;
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, kernel, THREADS, *smem);
+  });
 }
 
 }  // namespace dkv
@@ -722,30 +882,21 @@ cudaError_t occupancy(int* smem, int* blocks_per_sm) {
 }  // namespace
 
 // q, k, v, o, dout, dq: (bh, t, dh) contiguous bf16, 16-byte aligned; lse:
-// (bh, t) float32 from the forward. Launches on `stream` and does not
-// synchronise. Returns the CUDA error code of the launch (0 on success).
+// (bh, t) float32 from the forward; dh 16, 32 or a multiple of 8 from 64 to
+// 256. Launches on `stream` and does not synchronise. Returns the CUDA
+// error code of the launch (0 on success).
 extern "C" int gordo_flash_attention_backward_dq_bf16(
     const void* q, const void* k, const void* v, const void* o, const void* lse,
     const void* dout, void* dq, int bh, int t, int dh, float scale, int causal,
     void* stream) {
   if (bh <= 0 || t <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const bf16* qb = static_cast<const bf16*>(q);
-  const bf16* kb = static_cast<const bf16*>(k);
-  const bf16* vb = static_cast<const bf16*>(v);
-  const bf16* ob = static_cast<const bf16*>(o);
-  const float* lf = static_cast<const float*>(lse);
-  const bf16* gb = static_cast<const bf16*>(dout);
-  bf16* dqb = static_cast<bf16*>(dq);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  switch (dh) {
-    case 16: err = dq::launch<16>(qb, kb, vb, ob, lf, gb, dqb, bh, t, scale, causal, s); break;
-    case 32: err = dq::launch<32>(qb, kb, vb, ob, lf, gb, dqb, bh, t, scale, causal, s); break;
-    case 64: err = dq::launch<64>(qb, kb, vb, ob, lf, gb, dqb, bh, t, scale, causal, s); break;
-    case 128: err = dq::launch<128>(qb, kb, vb, ob, lf, gb, dqb, bh, t, scale, causal, s); break;
-    default: err = cudaErrorInvalidValue;
-  }
-  return static_cast<int>(err);
+  return static_cast<int>(with_head_dim_class(dh, [&](auto c) {
+    return dq::launch<decltype(c)::value>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+        static_cast<const bf16*>(o), static_cast<const float*>(lse),
+        static_cast<const bf16*>(dout), static_cast<bf16*>(dq), bh, t, dh, scale, causal,
+        static_cast<cudaStream_t>(stream));
+  }));
 }
 
 // As above, writing dk and dv: (bh, t, dh) contiguous bf16.
@@ -754,49 +905,30 @@ extern "C" int gordo_flash_attention_backward_dkv_bf16(
     const void* dout, void* dk, void* dv, int bh, int t, int dh, float scale,
     int causal, void* stream) {
   if (bh <= 0 || t <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const bf16* qb = static_cast<const bf16*>(q);
-  const bf16* kb = static_cast<const bf16*>(k);
-  const bf16* vb = static_cast<const bf16*>(v);
-  const bf16* ob = static_cast<const bf16*>(o);
-  const float* lf = static_cast<const float*>(lse);
-  const bf16* gb = static_cast<const bf16*>(dout);
-  bf16* dkb = static_cast<bf16*>(dk);
-  bf16* dvb = static_cast<bf16*>(dv);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  switch (dh) {
-    case 16: err = dkv::launch<16>(qb, kb, vb, ob, lf, gb, dkb, dvb, bh, t, scale, causal, s); break;
-    case 32: err = dkv::launch<32>(qb, kb, vb, ob, lf, gb, dkb, dvb, bh, t, scale, causal, s); break;
-    case 64: err = dkv::launch<64>(qb, kb, vb, ob, lf, gb, dkb, dvb, bh, t, scale, causal, s); break;
-    case 128: err = dkv::launch<128>(qb, kb, vb, ob, lf, gb, dkb, dvb, bh, t, scale, causal, s); break;
-    default: err = cudaErrorInvalidValue;
-  }
-  return static_cast<int>(err);
+  return static_cast<int>(with_head_dim_class(dh, [&](auto c) {
+    return dkv::launch<decltype(c)::value>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+        static_cast<const bf16*>(o), static_cast<const float*>(lse),
+        static_cast<const bf16*>(dout), static_cast<bf16*>(dk), static_cast<bf16*>(dv), bh, t,
+        dh, scale, causal, static_cast<cudaStream_t>(stream));
+  }));
 }
 
 // The dQ kernel's dynamic shared memory (bytes) and resident blocks per SM
-// at head dim `dh`, for reports. Returns the CUDA error code.
+// for head dim `dh` (its class's), for reports. Returns the CUDA error code.
 extern "C" int gordo_flash_attention_backward_dq_bf16_occupancy(int dh, int* smem_bytes,
                                                                int* blocks_per_sm) {
-  switch (dh) {
-    case 16: return static_cast<int>(dq::occupancy<16>(smem_bytes, blocks_per_sm));
-    case 32: return static_cast<int>(dq::occupancy<32>(smem_bytes, blocks_per_sm));
-    case 64: return static_cast<int>(dq::occupancy<64>(smem_bytes, blocks_per_sm));
-    case 128: return static_cast<int>(dq::occupancy<128>(smem_bytes, blocks_per_sm));
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return static_cast<int>(with_head_dim_class(dh, [&](auto c) {
+    return dq::occupancy<decltype(c)::value>(smem_bytes, blocks_per_sm);
+  }));
 }
 
 // As above, for the dK/dV kernel.
 extern "C" int gordo_flash_attention_backward_dkv_bf16_occupancy(int dh, int* smem_bytes,
                                                                 int* blocks_per_sm) {
-  switch (dh) {
-    case 16: return static_cast<int>(dkv::occupancy<16>(smem_bytes, blocks_per_sm));
-    case 32: return static_cast<int>(dkv::occupancy<32>(smem_bytes, blocks_per_sm));
-    case 64: return static_cast<int>(dkv::occupancy<64>(smem_bytes, blocks_per_sm));
-    case 128: return static_cast<int>(dkv::occupancy<128>(smem_bytes, blocks_per_sm));
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return static_cast<int>(with_head_dim_class(dh, [&](auto c) {
+    return dkv::occupancy<decltype(c)::value>(smem_bytes, blocks_per_sm);
+  }));
 }
 
 // The host time of encoding the dQ kernel's five tensor maps at (bh, t, dh),
@@ -809,14 +941,9 @@ extern "C" int gordo_flash_attention_backward_dq_bf16_encode_us(const void* base
   CUtensorMap maps[5];
   const auto start = std::chrono::steady_clock::now();
   for (int i = 0; i < reps; ++i) {
-    cudaError_t err;
-    switch (dh) {
-      case 16: err = dq::encode<16>(maps, p, p, p, p, p, bh, t); break;
-      case 32: err = dq::encode<32>(maps, p, p, p, p, p, bh, t); break;
-      case 64: err = dq::encode<64>(maps, p, p, p, p, p, bh, t); break;
-      case 128: err = dq::encode<128>(maps, p, p, p, p, p, bh, t); break;
-      default: err = cudaErrorInvalidValue;
-    }
+    const cudaError_t err = with_head_dim_class(dh, [&](auto c) {
+      return dq::encode<decltype(c)::value>(maps, p, p, p, p, p, bh, t, dh);
+    });
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   const std::chrono::duration<double, std::micro> spent = std::chrono::steady_clock::now() - start;
@@ -832,14 +959,9 @@ extern "C" int gordo_flash_attention_backward_dkv_bf16_encode_us(const void* bas
   CUtensorMap maps[5];
   const auto start = std::chrono::steady_clock::now();
   for (int i = 0; i < reps; ++i) {
-    cudaError_t err;
-    switch (dh) {
-      case 16: err = dkv::encode<16>(maps, p, p, p, p, p, bh, t); break;
-      case 32: err = dkv::encode<32>(maps, p, p, p, p, p, bh, t); break;
-      case 64: err = dkv::encode<64>(maps, p, p, p, p, p, bh, t); break;
-      case 128: err = dkv::encode<128>(maps, p, p, p, p, p, bh, t); break;
-      default: err = cudaErrorInvalidValue;
-    }
+    const cudaError_t err = with_head_dim_class(dh, [&](auto c) {
+      return dkv::encode<decltype(c)::value>(maps, p, p, p, p, p, bh, t, dh);
+    });
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   const std::chrono::duration<double, std::micro> spent = std::chrono::steady_clock::now() - start;

@@ -51,7 +51,12 @@
 
 #pragma once
 
+#include <cuda_runtime.h>
+
 #include <cstdint>
+#include <type_traits>
+
+#include "head_dim.cuh"
 
 namespace gordo_mma {
 
@@ -193,20 +198,45 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// issue the copy of rows [r0, r0 + ROWS) of a (t, DH) float32 matrix into
-// shared memory with row stride DH + 4, by THREADS threads; rows at or
-// past t are zero-filled. Does not commit.
+// issue the copy of rows [r0, r0 + ROWS) of a (t, dh) float32 matrix into
+// shared memory with row stride DH + 4, by THREADS threads: DH is the
+// kernel's head-dim class, dh <= DH the matrix's own (a multiple of 4, so
+// that each 16-byte chunk lies wholly inside or outside a row); rows at or
+// past t and columns at or past dh are zero-filled. Does not commit.
 template <int ROWS, int DH, int THREADS>
-__device__ __forceinline__ void load_tile_async(float* dst, const float* src, int r0,
-                                                int t) {
+__device__ __forceinline__ void load_tile_async(float* dst, const float* src, int r0, int t,
+                                                int dh) {
   constexpr int D4 = DH / 4;
   for (int i = threadIdx.x; i < ROWS * D4; i += THREADS) {
     const int r = i / D4;
     const int c4 = i - r * D4;
-    const bool in = r0 + r < t;
-    const float* from = src + (in ? static_cast<size_t>(r0 + r) * DH + 4 * c4 : 0);
+    const bool in = r0 + r < t && 4 * c4 < dh;
+    const float* from = src + (in ? static_cast<size_t>(r0 + r) * dh + 4 * c4 : 0);
     cp_async16(dst + r * (DH + 4) + 4 * c4, from, in);
   }
+}
+
+// The head-dim classes of the float32 kernels (head_dim.cuh): 32-column
+// classes (a whole number of the 16-column steps that S = Q K^T takes two
+// k8 steps at a time, and a row stride of DH + 4 floats that keeps the
+// fragment loads conflict-free)
+inline int head_dim_class(int dh) { return gordo_flash::head_dim_class<32>(dh); }
+
+template <typename Fn>
+cudaError_t with_head_dim_class(int dh, Fn&& fn) {
+  return gordo_flash::with_head_dim_class<32>(dh, fn);
+}
+
+using gordo_flash::has_padded_dims;
+using gordo_flash::head_dim;
+
+// Classes 128 and 256 also have an exact instantiation for the dh that
+// fills them: it takes 0.94x the padded one's time in dQ at 128, 0.90x in
+// dQ and 0.94x in the forward at 256 (H100, scripts/torch_flash_ab.py;
+// PERF.md); at 96 it was within 2.5% either way. Every other dh runs padded.
+template <int DH, typename Fn>
+auto with_instantiation(int dh, Fn&& fn) {
+  return gordo_flash::with_instantiation<DH, DH == 128 || DH == 256>(dh, fn);
 }
 
 }  // namespace gordo_mma

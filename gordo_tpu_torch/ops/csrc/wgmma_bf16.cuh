@@ -2,7 +2,8 @@
 // kernels of this directory: the forward (flash_attention_bf16.cu), dQ and
 // dK/dV (flash_attention_bwd_bf16.cu). Inline PTX throughout (PTX ISA 8.x).
 //
-// - wgmma.mma_async m64nNk16, bf16 x bf16 -> float32, N = 16, 32, 64 or 128,
+// - wgmma.mma_async m64nNk16, bf16 x bf16 -> float32, N = 16, 32, 64, 128,
+//   192 or 256,
 //   in SS form (A and B from shared memory, both K-major) and RS form (A
 //   from registers, B from shared memory MN-major: trans-b = 1), with the
 //   fence / commit_group / wait_group that order them.
@@ -52,10 +53,35 @@
 
 #include <atomic>
 #include <cstdint>
+#include <type_traits>
+
+#include "head_dim.cuh"
 
 namespace gordo_wgmma {
 
 using bf16 = __nv_bfloat16;
+
+// --- head dims ---
+
+// The head-dim classes of the bf16 kernels (head_dim.cuh): 64-column
+// classes (a tensor of head dim dh is mapped for TMA with its own dh
+// (encode_rows), so the columns of the last panel past dh load as zeros)
+inline int head_dim_class(int dh) { return gordo_flash::head_dim_class<64>(dh); }
+
+template <typename Fn>
+cudaError_t with_head_dim_class(int dh, Fn&& fn) {
+  return gordo_flash::with_head_dim_class<64>(dh, fn);
+}
+
+using gordo_flash::has_padded_dims;
+using gordo_flash::head_dim;
+
+// One instantiation a class: from 128 on every dh runs padded (an exact
+// one for the dh that fills the class measured no faster: PERF.md)
+template <int DH, typename Fn>
+auto with_instantiation(int dh, Fn&& fn) {
+  return gordo_flash::with_instantiation<DH, false>(dh, fn);
+}
 
 constexpr float LOG2E = 1.4426950408889634f;
 
@@ -256,7 +282,10 @@ inline EncodeTiled encode_tiled() {
 // The tensor map of a contiguous (bh, t, dh) bf16 tensor as a 3-D tensor
 // (dh, t, bh), innermost first, in boxes of `box_rows` rows by
 // min(dh, 64) columns, swizzled at the box's row width (32, 64 or 128
-// bytes). Rows at or past t of a head, and heads past bh, load as zeros.
+// bytes). Rows at or past t of a head, columns at or past dh (the last
+// panel's remainder where dh is not a multiple of 64), and heads past bh,
+// load as zeros; dh % 8 == 0 keeps the row stride a multiple of 16 bytes,
+// as TMA needs.
 // Returns 0 or a CUDA error code.
 inline cudaError_t encode_rows(CUtensorMap* map, const void* base, int bh, int t, int dh,
                                int box_rows) {
@@ -282,7 +311,7 @@ inline cudaError_t encode_rows(CUtensorMap* map, const void* base, int bh, int t
 // --- shared-memory tiles and their wgmma descriptors ---
 
 // A tile of `rows` rows of a (.., dh) bf16 matrix as TMA writes it: in
-// panels of min(dh, 64) columns (two at dh 128), each panel `rows` rows of
+// panels of min(dh, 64) columns (DH / 64 from dh 64 on), each panel `rows` rows of
 // RB = 2 min(dh, 64) bytes, the 16-byte chunks of row r XOR-swizzled by
 // bits of r (the 32/64/128-byte swizzle of CUTLASS's GMMA layout atoms).
 // Tiles start at multiples of 1024 bytes, so the swizzle, which TMA and
@@ -363,6 +392,8 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
 #define GORDO_D16(i) GORDO_D8(i), GORDO_D8(i + 8)
 #define GORDO_D32(i) GORDO_D16(i), GORDO_D16(i + 16)
 #define GORDO_D64(i) GORDO_D32(i), GORDO_D32(i + 32)
+#define GORDO_D96(i) GORDO_D64(i), GORDO_D32(i + 64)
+#define GORDO_D128(i) GORDO_D64(i), GORDO_D64(i + 64)
 #define GORDO_R8 "%0, %1, %2, %3, %4, %5, %6, %7"
 #define GORDO_R16 GORDO_R8 ", %8, %9, %10, %11, %12, %13, %14, %15"
 #define GORDO_R32 \
@@ -371,6 +402,14 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
   GORDO_R32 ", %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, "  \
             "%47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, " \
             "%63"
+#define GORDO_R96                                                                            \
+  GORDO_R64 ", %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, "                 \
+            "%76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, "                   \
+            "%88, %89, %90, %91, %92, %93, %94, %95"
+#define GORDO_R128                                                                           \
+  GORDO_R96 ", %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, "                     \
+            "%106, %107, %108, %109, %110, %111, %112, %113, %114, %115, "                   \
+            "%116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
 
 // d (64 x N, float32) = A B + (scale_d ? d : 0), bf16 operands; ss: A and B
 // K-major in shared memory (descriptors); rs: A from registers (a, the
@@ -403,6 +442,10 @@ GORDO_WGMMA(32, GORDO_R16, GORDO_D16(0), "%16, %17", "%18", "{%16, %17, %18, %19
 GORDO_WGMMA(64, GORDO_R32, GORDO_D32(0), "%32, %33", "%34", "{%32, %33, %34, %35}, %36", "%37")
 GORDO_WGMMA(128, GORDO_R64, GORDO_D64(0), "%64, %65", "%66", "{%64, %65, %66, %67}, %68",
             "%69")
+GORDO_WGMMA(192, GORDO_R96, GORDO_D96(0), "%96, %97", "%98", "{%96, %97, %98, %99}, %100",
+            "%101")
+GORDO_WGMMA(256, GORDO_R128, GORDO_D128(0), "%128, %129", "%130",
+            "{%128, %129, %130, %131}, %132", "%133")
 
 #undef GORDO_WGMMA
 #undef GORDO_D4
@@ -410,10 +453,14 @@ GORDO_WGMMA(128, GORDO_R64, GORDO_D64(0), "%64, %65", "%66", "{%64, %65, %66, %6
 #undef GORDO_D16
 #undef GORDO_D32
 #undef GORDO_D64
+#undef GORDO_D96
+#undef GORDO_D128
 #undef GORDO_R8
 #undef GORDO_R16
 #undef GORDO_R32
 #undef GORDO_R64
+#undef GORDO_R96
+#undef GORDO_R128
 
 // 2^x in one MUFU.EX2 (ex2.approx.ftz: relative error below 2^-22; 0 for
 // x below -126, as the masked scores need)

@@ -20,6 +20,12 @@ three on Hopper's ``wgmma``, fed by TMA in warp-specialised blocks
 (``csrc/wgmma_bf16.cuh``); the source notes say what bounds each and what
 its design does about that.
 
+Head dims: 16, 32, and every multiple of 8 from 64 to 256 (the JAX
+dispatcher sends every ``dh % 8 == 0, dh >= 64`` to its Pallas kernels).
+Each kernel is built for a few head-dim classes and runs a dh with its
+class's tiles, the columns past dh zero-filled and left unstored
+(``csrc/head_dim.cuh`` names the classes).
+
 Dispatch is by where the tensors lie: CPU tensors take the plain twins,
 CUDA tensors launch the kernels or raise. There is no fallback from one to
 the other.
@@ -34,7 +40,8 @@ import torch
 from . import _build
 
 NEG_INF = -1e30
-SUPPORTED_HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIM_RULE = "16, 32 and every multiple of 8 from 64 to 256"
+SUPPORTED_HEAD_DIMS = (16, 32, *range(64, 257, 8))
 # The kernels take BH as a 32-bit int and count their works (a head and a
 # tile of at least 64 rows) and blocks in 32-bit ints; the persistent
 # kernels' loops step past the last work by at most their grid (one block
@@ -175,9 +182,7 @@ def _count(name: str) -> None:
 def check_launch_limits(bh: int, t: int, dh: int) -> None:
     """Raise, naming the limit, for a shape the kernels cannot count."""
     if dh not in SUPPORTED_HEAD_DIMS:
-        raise ValueError(
-            f"the flash kernels support head dims {SUPPORTED_HEAD_DIMS}, got {dh}"
-        )
+        raise ValueError(f"the flash kernels take head dims {HEAD_DIM_RULE}, got {dh}")
     works = bh * -(-t // MIN_TILE_ROWS)
     if works > MAX_WORKS:
         raise ValueError(

@@ -103,7 +103,7 @@ VARIANTS = {
       fence_regs(dp);
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < DH / 16; ++kk) Wgmma<BQ>::ss(sa, ka(kk), qb(kk), kk > 0);
+      for (int kk = 0; kk < S_STEPS; ++kk) Wgmma<BQ>::ss(sa, ka(kk), qb(kk), kk > 0);
 #pragma unroll
       for (int kk = 0; kk < DH / 16; ++kk) Wgmma<BQ>::ss(dp, va(kk), gb(kk), kk > 0);
       wgmma_commit();
@@ -128,27 +128,29 @@ VARIANTS = {
 """)],
     "dkv_dv_tile": [(BWD, """      fence_regs(dva);
       wgmma_fence();
-      rs_product<DH, NC>(dva, pa, gmn, true);
+      rs_product<DC, NC>(dva, pa, gmn, true);
       wgmma_commit();
 """, """      {
-        float f[DH / 2];
-        rs_fresh<DH, NC>(f, pa, gmn);
+        float f[DC / 2];
+        rs_fresh<DC, NC>(f, pa, gmn);
 #pragma unroll
-        for (int i = 0; i < DH / 2; ++i) dva[i] += f[i];
+        for (int i = 0; i < DC / 2; ++i) dva[i] += f[i];
       }
 """)],
-    "dkv_dk_loop": [(BWD, """      {
-        float f[DH / 2];
-        rs_fresh<DH, NC>(f, da, qmn);
+    "dkv_dk_loop": [(BWD, """      } else {
+        float f[DC / 2];
+        rs_fresh<DC, NC>(f, da, qmn);
 #pragma unroll
-        for (int i = 0; i < DH / 2; ++i) dka[i] += f[i];
+        for (int i = 0; i < DC / 2; ++i) dka[i] += f[i];
       }
-""", """      fence_regs(dka);
-      wgmma_fence();
-      rs_product<DH, NC>(dka, da, qmn, true);
-      wgmma_commit();
-      wgmma_wait<0>();
-      fence_regs(dka);
+""", """      } else {
+        fence_regs(dka);
+        wgmma_fence();
+        rs_product<DC, NC>(dka, da, qmn, true);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(dka);
+      }
 """)],
     "dq_sdp_step": [(BWD, """      fence_regs(sc);
       fence_regs(dp);
@@ -213,39 +215,60 @@ VARIANTS = {
     # dQ's D = rowsum(dO O) by float32 fmas on the CUDA cores, from the
     # shared O and dO tiles, instead of the diagonal of dO O^T on the tensor
     # cores
-    "dq_d_fma": [(BWD, """        const uint32_t o_tile = (wg == 0 ? k_slot : v_slot) + s * C::KV_BYTES;
+    "dq_d_fma": [(BWD, """        const uint32_t o_tile =
+            (C::O_STAGES == 1 && wg == 1 ? v_slot : k_slot) + s * C::KV_BYTES;
         fence_regs(dp);
+        fence_regs(sc);
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < DH / 16; ++kk) {
           Wgmma<BN>::ss(dp, L::k_major(do_tile, BLOCK_M, 64 * wg, kk),
                         L::k_major(o_tile, BN, 0, kk), kk > 0);
         }
+        if constexpr (BN == 32) {
+#pragma unroll
+          for (int kk = 0; kk < DH / 16; ++kk) {
+            Wgmma<BN>::ss(sc, L::k_major(do_tile, BLOCK_M, 64 * wg, kk),
+                          L::k_major(v_slot + s * C::KV_BYTES, BN, 0, kk), kk > 0);
+          }
+        }
         wgmma_commit();
         wgmma_wait<0>();
         fence_regs(dp);
+        fence_regs(sc);
         // (r, r), r = 16 warp + g + 8 h, is column g of column group
-        // 2 warp + h, held by lane 4 g + g / 2 of the quad
+        // 2 warp + h of the slot's rows (2 (warp % 2) + h, in sc for warps
+        // 2 and 3, at 32-key tiles), held by lane 4 g + g / 2 of the quad
         float diag0 = 0.f, diag1 = 0.f;
 #pragma unroll
         for (int w4 = 0; w4 < 4; ++w4) {
-          if (w4 == warp) {
-            diag0 = (g & 1) ? dp[8 * w4 + 1] : dp[8 * w4];
-            diag1 = (g & 1) ? dp[8 * w4 + 7] : dp[8 * w4 + 6];
+          const int c = 8 * (w4 % (BN / 16));
+          if (w4 == warp && BN == 32 && w4 >= 2) {
+            diag0 = (g & 1) ? sc[c + 1] : sc[c];
+            diag1 = (g & 1) ? sc[c + 7] : sc[c + 6];
+          } else if (w4 == warp) {
+            diag0 = (g & 1) ? dp[c + 1] : dp[c];
+            diag1 = (g & 1) ? dp[c + 7] : dp[c + 6];
           }
         }
         d0 = __shfl_sync(0xffffffffu, diag0, 4 * g + g / 2);
         d1 = __shfl_sync(0xffffffffu, diag1, 4 * g + g / 2);
-""", """        const uint8_t* o_rows = smem + (wg == 0 ? C::K : C::V) + s * C::KV_BYTES;
+""", """        // the slot of row r of the warpgroup's O: at 64-key tiles its own,
+        // at 32-key tiles the K slot for rows 0..31 and the V slot for 32..63
+        const auto o_slot = [&](int r) {
+          const int slot = C::O_STAGES == 1 ? wg : r / BN;
+          return smem + (slot == 0 ? C::K : C::V) + s * C::KV_BYTES;
+        };
         const uint8_t* do_rows = smem + C::Q + b * 2 * C::Q_BYTES + C::Q_BYTES;
         const int r = 16 * warp + g;
         float part0 = 0.f, part1 = 0.f;
 #pragma unroll
         for (int ch = tq; ch < DH / 8; ch += 4) {
-          part0 = dot8(*reinterpret_cast<const uint4*>(o_rows + L::offset(BN, r, 8 * ch)),
+          part0 = dot8(*reinterpret_cast<const uint4*>(o_slot(r) + L::offset(BN, r % BN, 8 * ch)),
                        *reinterpret_cast<const uint4*>(
                            do_rows + L::offset(BLOCK_M, 64 * wg + r, 8 * ch)), part0);
-          part1 = dot8(*reinterpret_cast<const uint4*>(o_rows + L::offset(BN, r + 8, 8 * ch)),
+          part1 = dot8(*reinterpret_cast<const uint4*>(
+                           o_slot(r + 8) + L::offset(BN, (r + 8) % BN, 8 * ch)),
                        *reinterpret_cast<const uint4*>(
                            do_rows + L::offset(BLOCK_M, 64 * wg + r + 8, 8 * ch)), part1);
         }
@@ -253,8 +276,8 @@ VARIANTS = {
         d1 = quad_sum(part1);
 """)],
     # dQ's schedule: S and dP in two commit groups, P computed while dP
-    # runs; K/V rings of 2 or 4 stages instead of 3 (4 does not fit at
-    # dh 128); one block per work instead of a persistent block per SM
+    # runs; K/V rings of 2 or 4 stages instead of 3 (4 only up to dh 64,
+    # where it fits); one block per work instead of a persistent block per SM
     "dq_split_wait": [(BWD, """                      L::k_major(k_tile, BN, 0, kk), kk > 0);
       }
 #pragma unroll
@@ -292,16 +315,21 @@ VARIANTS = {
       score_grads();
 """)],
     "dq_stages2": [(BWD, "  static constexpr int STAGES = 3;", "  static constexpr int STAGES = 2;")],
-    "dq_stages4": [(BWD, "  static constexpr int STAGES = 3;", "  static constexpr int STAGES = 4;")],
+    "dq_stages4": [(BWD, "  static constexpr int STAGES = 3;",
+                    "  static constexpr int STAGES = DH <= 64 ? 4 : 3;")],
     "dq_grid": [(BWD, "  const unsigned grid = static_cast<unsigned>(n_work < sms ? n_work : sms);",
                  "  const unsigned grid = static_cast<unsigned>(n_work);")],
     # the forward's layout: two consumer warpgroups (128-row work tiles)
     # instead of three at dh 64; 128-key tiles; a deeper ring of K/V stages
-    "fwd_2wg": [(FWD, "static constexpr int CONSUMERS = DH == 128 ? 2 : 3;",
+    "fwd_2wg": [(FWD, "static constexpr int CONSUMERS = DH >= 128 ? 2 : 3;",
                  "static constexpr int CONSUMERS = 2;")],
-    "fwd_bn128": [(FWD, "static constexpr int BN = 64;", "static constexpr int BN = 128;")],
-    "fwd_stages4": [(FWD, "  static constexpr int STAGES = 3;", "  static constexpr int STAGES = 4;")],
-    "fwd_stages5": [(FWD, "  static constexpr int STAGES = 3;", "  static constexpr int STAGES = 5;")],
+    # (the wider tiles and deeper rings where shared memory holds them)
+    "fwd_bn128": [(FWD, "static constexpr int BN = DH == 256 ? 32 : 64;",
+                   "static constexpr int BN = DH <= 64 ? 128 : DH == 256 ? 32 : 64;")],
+    "fwd_stages4": [(FWD, "static constexpr int STAGES = DH == 192 ? 2 : 3;",
+                     "static constexpr int STAGES = DH <= 128 ? 4 : DH == 192 ? 2 : 3;")],
+    "fwd_stages5": [(FWD, "static constexpr int STAGES = DH == 192 ? 2 : 3;",
+                     "static constexpr int STAGES = DH <= 128 ? 5 : DH == 192 ? 2 : 3;")],
     # the softmax: O and l rescaled whenever a row's max grows at all
     "fwd_rescale_every_growth": [(FWD, "constexpr float RESCALE = 8.f;",
                                   "constexpr float RESCALE = 0.f;")],

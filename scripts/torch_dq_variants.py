@@ -95,7 +95,7 @@ FUSED_S_DP = """#pragma unroll 2
         mma_3xtf32_sum<2>(ds[n], ag, bv);
       }
     }"""
-DQ_PRODUCT = "    product_nn<DH>(acc, ds, ks, g, tq);  // dQ += dS K (times scale below)"
+DQ_PRODUCT = "    product_nn<DH, DH>(acc, ds, ks, g, tq);  // dQ += dS K (times scale below)"
 # fragment loads from operands split into TF32 big and small parts in shared
 # memory, the small part SMALL floats past the big one
 PRESPLIT_LOADS = """
@@ -222,10 +222,10 @@ __global__ void __launch_bounds__(THREADS)
 flash_bwd_dq_f32(""", """template <int DH>
 __global__ void __launch_bounds__(THREADS, DH == 64 ? 4 : 1)
 flash_bwd_dq_f32(""")],
-    "bk16": [("  static constexpr int BK = DH == 128 ? 16 : 32;",
+    "bk16": [("  static constexpr int BK = DH >= 128 ? 16 : 32;",
               "  static constexpr int BK = 16;")],
-    "bk64": [("  static constexpr int BK = DH == 128 ? 16 : 32;",
-              "  static constexpr int BK = DH == 128 ? 16 : 64;")],
+    "bk64": [("  static constexpr int BK = DH >= 128 ? 16 : 32;",
+              "  static constexpr int BK = DH >= 128 ? 16 : 64;")],
 }
 VARIANTS = {
     "separate_s_dp": ["separate_s_dp"],
@@ -272,7 +272,8 @@ def _compile(name: str, texts):
     folder.mkdir(parents=True, exist_ok=True)
     src, lib = folder / SOURCE.name, folder / f"lib{name}.so"
     src.write_text(texts[0])
-    (folder / HEADER.name).write_text(texts[1])
+    for header in SOURCE.parent.glob("*.cuh"):  # the headers it includes, HEADER patched
+        (folder / header.name).write_text(texts[1] if header == HEADER else header.read_text())
     proc = subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", str(lib), str(src)],
                           capture_output=True, text=True)
     if proc.returncode != 0:

@@ -20,14 +20,15 @@ def csrc(tmp_path, monkeypatch):
 
 
 def test_the_sources_include_a_header():
-    assert sorted(p.name for p in _build.CSRC.glob("*.cuh")) == ["mma_tf32x3.cuh",
+    assert sorted(p.name for p in _build.CSRC.glob("*.cuh")) == ["head_dim.cuh",
+                                                                 "mma_tf32x3.cuh",
                                                                  "wgmma_bf16.cuh"]
 
 
 @pytest.mark.parametrize("name", ["mma_tf32x3.cuh", "flash_attention.cu",
                                   "flash_attention_bwd.cu", "flash_attention_bf16.cu",
                                   "flash_attention_bwd_bf16.cu", "wgmma_bf16.cuh",
-                                  "lstm_recurrence.cu"])
+                                  "head_dim.cuh", "lstm_recurrence.cu"])
 def test_build_dir_changes_with_each_source_and_header(csrc, name):
     before = _build._build_dir()
     assert _build._build_dir() == before  # stable while nothing changes

@@ -69,6 +69,25 @@ def test_forward_matches_pallas_kernel(shape, causal):
     np.testing.assert_allclose(out.numpy(), np.asarray(xla), **TOL)
 
 
+# head dims the Pallas kernels take and the CUDA kernels run by padded
+# classes (72 and 136 inside a class, 96 and 256 at d_model 384 and 1,024
+# with 4 heads); T a multiple of the Pallas kernels' 128-row blocks
+WIDE_SHAPES = [(2, 128, 72), (2, 256, 96), (1, 128, 136), (1, 256, 256)]
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("shape", WIDE_SHAPES)
+def test_forward_matches_pallas_kernel_at_wide_head_dims(shape, causal):
+    """The port's forward (on the CPU its plain twin, the CUDA kernels'
+    reference at every head dim they take) against the Pallas kernel in
+    interpret mode, at the file's float32 tolerance."""
+    q, k, v = _qkv(shape, seed=3)
+    ref_out, ref_lse = _flash_forward(*(jnp.asarray(x) for x in (q, k, v)), causal, True)
+    out, lse = fa.flash_attention_forward(*(torch.from_numpy(x) for x in (q, k, v)), causal)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref_out), **TOL)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(ref_lse)[..., 0], **TOL)
+
+
 @pytest.mark.parametrize("causal", [False, True])
 def test_plain_attention_matches_xla_reference(causal):
     q, k, v = _qkv((2, 3, 40, 8), seed=1)

@@ -80,6 +80,44 @@ def test_autograd_function_gradients_match_pallas_kernels(shape, causal):
         assert _rel_err(g[0].numpy(), r) <= TOL_FUNCTION, name
 
 
+# head dims the Pallas kernels take and the CUDA kernels run by padded
+# classes; T a multiple of the Pallas kernels' 128-row blocks
+WIDE_SHAPES = [(2, 128, 72), (2, 256, 96), (1, 128, 136), (1, 256, 256)]
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("shape", WIDE_SHAPES)
+def test_plain_backward_matches_pallas_kernels_at_wide_head_dims(shape, causal):
+    """The port's backward (on the CPU the kernels' plain twin) against the
+    Pallas dQ and dK/dV kernels in interpret mode, on the Pallas forward's
+    output and logsumexp, at TOL_PLAIN."""
+    q, k, v, do = _inputs(shape, seed=5)
+    ref, out, lse = _pallas_grads(q, k, v, do, causal)
+    grads = fa.flash_attention_backward(
+        *(torch.from_numpy(x) for x in (q, k, v, out, lse, do)), causal
+    )
+    for name, g, r in zip("qkv", grads, ref):
+        assert _rel_err(g.numpy(), r) <= TOL_PLAIN, name
+
+
+def test_flash_predicate_takes_the_head_dims_of_the_rule():
+    """_flash_ok takes exactly 16, 32 and every multiple of 8 from 64 to
+    256: over 64..256 the JAX dispatcher's own head-dim rule (dh % 8 == 0,
+    dh >= 64), which sends larger dims to Pallas too; the launch check
+    refuses the rest, naming the rule."""
+    taken = [dh for dh in range(1, 321)
+             if _flash_ok(torch.zeros(1, 4, dh), torch.zeros(1, 4, dh))]
+    assert taken == [16, 32, *range(64, 257, 8)]
+    for dh in range(64, 257):
+        assert (dh in taken) is (dh % 8 == 0 and dh >= 64), dh
+    assert list(fa.SUPPORTED_HEAD_DIMS) == taken
+    for dh in (8, 24, 48, 60, 100, 264):
+        with pytest.raises(ValueError, match="every multiple of 8 from 64 to 256"):
+            fa.check_launch_limits(4, 512, dh)
+    for dh in taken:
+        fa.check_launch_limits(4, 512, dh)
+
+
 def test_cpu_backward_counts_no_launch_and_checks_lse():
     q, k, v, do = (torch.from_numpy(x) for x in _inputs((2, 16, 16), seed=2))
     o, lse = fa.flash_attention_forward(q, k, v, True)

@@ -579,7 +579,7 @@ def test_batch_build_artifacts_are_served(tmp_path, capsys):
     (8 * 32 * 4, 512, 64, None),          # a fleet step: 8 machines x batch 32 x 4 heads
     (8 * 1024 * 4, 512, 64, None),        # a fold predict at the serving chunk
     (2**31 // 8, 512, 64, "32-bit work counters"),
-    (4, 512, 72, "head dims"),
+    (4, 512, 264, "head dims"),
 ])
 def test_kernel_launch_limits_are_named(bh, t, dh, limit):
     """The flash wrappers refuse a shape the kernels cannot count before any

@@ -104,6 +104,52 @@ def test_auto_sends_unsupported_head_dims_to_the_plain_path(cuda_device):
         dot_product_attention(q, k, v, True, impl="flash")
 
 
+# Head dims from 64 to 256 run by classes of instantiations, a dh inside a
+# class with its columns past dh zero-filled: every float32 class (the
+# multiples of 32) and dims inside classes; every bf16 class (whole
+# 64-column panels) and dims inside them
+F32_RAGGED_DIMS = [64, 72, 96, 128, 136, 160, 192, 200, 224, 256]
+BF16_RAGGED_DIMS = [64, 72, 96, 120, 128, 136, 192, 200, 256]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dh", [8, 24, 48, 60, 264])
+def test_flash_raises_outside_the_head_dim_rule(cuda_device, dh):
+    """impl="flash" at a dh the kernels do not take raises on the card,
+    naming the rule, and "auto" takes the plain path without a launch."""
+    from gordo_tpu_torch.ops.attention import dot_product_attention, dot_product_attention_plain
+
+    g = torch.Generator(device=cuda_device).manual_seed(12)
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = (torch.randn((1, 2, 24, dh), device=cuda_device, generator=g).to(dtype)
+                   for _ in range(3))
+        with pytest.raises(ValueError, match="every multiple of 8 from 64 to 256"):
+            dot_product_attention(q, k, v, True, impl="flash")
+        before = (fa.LAUNCHES, fa.BF16_LAUNCHES)
+        out = dot_product_attention(q, k, v, True, impl="auto")
+        assert (fa.LAUNCHES, fa.BF16_LAUNCHES) == before
+        torch.testing.assert_close(out, dot_product_attention_plain(q, k, v, True))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dh", [72, 96, 136, 200, 256])
+def test_auto_launches_the_kernels_at_every_head_dim_of_the_rule(cuda_device, dh, dtype):
+    from gordo_tpu_torch.ops.attention import dot_product_attention
+
+    g = torch.Generator(device=cuda_device).manual_seed(13)
+    q, k, v = (torch.randn((1, 2, 40, dh), device=cuda_device, generator=g).to(dtype)
+               .requires_grad_() for _ in range(3))
+    names = (("BF16_LAUNCHES", "BF16_DQ_LAUNCHES", "BF16_DKV_LAUNCHES")
+             if dtype == torch.bfloat16 else ("LAUNCHES", "DQ_LAUNCHES", "DKV_LAUNCHES"))
+    before = [getattr(fa, name) for name in names]
+    out = dot_product_attention(q, k, v, True, impl="auto")
+    grads = torch.autograd.grad(out.float().square().sum(), (q, k, v))
+    torch.cuda.synchronize()
+    assert [getattr(fa, name) - b for name, b in zip(names, before)] == [1, 1, 1]
+    assert all(g.shape == q.shape and torch.isfinite(g).all() for g in grads)
+
+
 def _rel(got, ref):
     # relative to the largest entry, and absolute below 1 (standard normal
     # inputs): at T = 1, dq and dk are exactly 0
@@ -113,7 +159,7 @@ def _rel(got, ref):
 @pytest.mark.cuda
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("t", [1, 63, 65, 200])
-@pytest.mark.parametrize("dh", [64, 128])
+@pytest.mark.parametrize("dh", F32_RAGGED_DIMS)
 def test_forward_kernel_at_ragged_lengths(cuda_device, dh, t, causal):
     g = torch.Generator(device=cuda_device).manual_seed(3)
     q, k, v = (torch.randn((2, 3, t, dh), device=cuda_device, generator=g) for _ in range(3))
@@ -127,7 +173,7 @@ def test_forward_kernel_at_ragged_lengths(cuda_device, dh, t, causal):
 @pytest.mark.cuda
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("t", [1, 63, 65, 200])
-@pytest.mark.parametrize("dh", [64, 128])
+@pytest.mark.parametrize("dh", F32_RAGGED_DIMS)
 def test_dkv_kernel_at_ragged_lengths(cuda_device, dh, t, causal):
     g = torch.Generator(device=cuda_device).manual_seed(4)
     q, k, v, do = (torch.randn((6, t, dh), device=cuda_device, generator=g) for _ in range(4))
@@ -159,7 +205,7 @@ def test_dkv_kernel_is_bit_identical_on_rerun(cuda_device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("t", [1, 63, 65, 200])
-@pytest.mark.parametrize("dh", [16, 32, 64, 128])
+@pytest.mark.parametrize("dh", [16, 32] + F32_RAGGED_DIMS)
 def test_dq_kernel_at_ragged_lengths(cuda_device, dh, t, causal):
     g = torch.Generator(device=cuda_device).manual_seed(6)
     q, k, v, do = (torch.randn((6, t, dh), device=cuda_device, generator=g) for _ in range(4))
@@ -249,7 +295,7 @@ def test_bf16_kernels_match_plain_on_the_card(cuda_device, shape, causal):
 @pytest.mark.cuda
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("t", [1, 63, 65, 200])
-@pytest.mark.parametrize("dh", [16, 32, 64, 128])
+@pytest.mark.parametrize("dh", [16, 32] + BF16_RAGGED_DIMS)
 def test_bf16_kernels_at_ragged_lengths(cuda_device, dh, t, causal):
     q, k, v, do = _bf16_inputs((6, t, dh), 9, 4, cuda_device)
     out, lse = fa.flash_attention_forward(q, k, v, causal)
@@ -291,7 +337,7 @@ WGMMA_T = [1, 77, 144, 200, 513]
 @pytest.mark.cuda
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("t", WGMMA_T)
-@pytest.mark.parametrize("dh", [16, 32, 64, 128])
+@pytest.mark.parametrize("dh", [16, 32] + BF16_RAGGED_DIMS)
 def test_wgmma_kernels_at_ragged_lengths_across_heads(cuda_device, dh, t, causal):
     q, k, v, do = _bf16_inputs((3, t, dh), 11, 4, cuda_device)
     before = (fa.BF16_LAUNCHES, fa.BF16_DQ_LAUNCHES, fa.BF16_DKV_LAUNCHES)
