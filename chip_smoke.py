@@ -32,9 +32,12 @@ Drive the PyTorch/CUDA port (gordo_tpu_torch) on one NVIDIA GPU.
    backward kernels (``lstm_recurrence.cu``, no Pallas counterpart) are
    held against their plain twins in float32 (1e-4 relative) and bf16
    (2e-2) at compressor-b's, bench.py's lstm_ae_144 (alone and as a
-   64-machine fleet step) and the factories' default width, the backward
-   bit-identical on a rerun, and timed beside their bounds, their twins
-   and cuDNN's ``torch.nn.LSTM``. The wide head dims (the kernels take 16,
+   64-machine fleet step), the factories' default width, the served
+   shapes and U 128 and 512, the backward bit-identical on a rerun and the
+   serving forward equal to the training forward, and timed beside their
+   bounds, their twins and cuDNN's ``torch.nn.LSTM``; each tensor-core
+   instantiation's registers, spills and HMMA count are printed (its SASS
+   must hold HMMA). The wide head dims (the kernels take 16,
    32 and every multiple of 8 from 64 to 256, each through its class,
    csrc/head_dim.cuh): all six kernels against their twins at dh 72, 80,
    96, 120, 136, 192, 200 and 256, at small BH and ragged T, causal and
@@ -160,17 +163,20 @@ Drive the PyTorch/CUDA port (gordo_tpu_torch) on one NVIDIA GPU.
    finite thresholds, the offset 23, held-out error below the seeded
    weights', the float32 recurrence backward launched once per LSTM layer a
    step; then a step's host-clock ms on the kernels and on the plain twin.
-16. Windowed serving: ``lstm_ae_144``, ``lstm_forecast_144`` and ``tcn_144``
-   artifacts (bench.py's shapes, seeded weights, float32 and bf16) and a
+16. Windowed serving: ``lstm_ae_144``, ``lstm_forecast_144``, ``tcn_144``
+   and ``lstm_model_144`` (the LSTM factory at its defaults: U 256, 128 and
+   64) artifacts (seeded weights, float32 and bf16) and a
    ``transformer-ae-512`` artifact in one collection: 1,535-row anomaly
    requests with batching ``auto`` (p50), then forced on, each answer
    within its dtype's tolerance of the direct predict, no fused call of two
-   specs, the recurrence forward once per LSTM layer a fused LSTM call, the
-   flash forward once per block a fused Transformer call.
+   specs, the recurrence forward once per LSTM layer a fused LSTM call (U
+   256 twice a fused ``lstm_model_144`` call), the flash forward once per
+   block a fused Transformer call.
 17. Windowed fleet: ``batch-build`` of WINDOWED_FLEET_MACHINES bf16 machines
    of each windowed family beside the eight ``transformer-ae-512``: no
    serial build, one family a stacked program, the bf16 recurrence
-   backward once per LSTM layer a stacked step, dQ and dK/dV from the
+   backward once per LSTM layer a stacked step (U 256 twice a step of
+   ``lstm_model_144``'s bucket), dQ and dK/dV from the
    Transformer bucket alone, held-out errors below the seeded weights';
    the wall beside one serial build of each family x N.
 18. ``transformer-ae-512-d384`` (``transformer-ae-512`` at d_model 384
@@ -955,20 +961,26 @@ def head_dim_times(card: str, dtype: str) -> dict:
 # units U): examples/config.yaml's compressor-b (lstm_hourglass of 4 tags:
 # units 3, 3, 2, 2, 3, 3; batch 1, lookback 24: its widest), bench.py's lstm_ae_144
 # (lstm_symmetric dims 64, 32: batch 64, lookback 144) alone and as a
-# stacked fleet step of 64 machines, and the factories' default width
-# (lstm_model's encoding_dim 256), whose recurrent kernel is read through L2
+# stacked fleet step of 64 machines, the factories' default width
+# (lstm_model's encoding_dim 256), and the served shapes (one or two
+# stacked models over 2,048 windows, as pad_for_predict pads a 1,535-row
+# request's 1,392)
 LSTM_SHAPES = (("compressor-b", 1, 1, 24, 3),
                ("lstm_ae_144", 1, 64, 144, 64), ("lstm_ae_144", 1, 64, 144, 32),
                ("lstm_ae_144 fleet step", 64, 64, 144, 64),
                ("lstm_ae_144 fleet step", 64, 64, 144, 32),
-               ("default width", 1, 32, 144, 256))
-# held against the twins only, untimed: the shapes the main paths launch at
-# besides (serving: one or two stacked models over 2,048 windows, as
-# pad_for_predict pads a 1,535-row request's 1,392; the smoke's 32-machine
-# fleet step), and a batch that is not a multiple of its batch tile (2)
-LSTM_CHECK_SHAPES = (("served", 1, 2048, 144, 64), ("served stacked", 2, 2048, 144, 32),
-                     ("smoke fleet step", 32, 64, 144, 64), ("ragged tile", 3, 101, 24, 64))
-LSTM_MAIN_SHAPE = ("lstm_ae_144", 1, 64, 144, 64)  # the entries' top-level numbers
+               ("default width", 1, 32, 144, 256),
+               ("served", 1, 2048, 144, 64), ("served stacked", 2, 2048, 144, 32))
+# held against the twins only, untimed: the smoke's 32-machine fleet step, a
+# batch that is not a multiple of its row tile, U 128 (a cluster of 2 in
+# float32), U 512 (16 CTAs; float32 streams R from L2) and U 256 over
+# stacked models and a ragged batch (M > 1 on the cluster route)
+LSTM_CHECK_SHAPES = (("smoke fleet step", 32, 64, 144, 64), ("ragged tile", 3, 101, 24, 64),
+                     ("U 128", 1, 32, 144, 128), ("U 512", 1, 32, 144, 512),
+                     ("U 256 stacked", 4, 20, 24, 256))
+# the entries' top-level numbers: lstm_ae_144 served (its 64-window training
+# batch takes the legacy route)
+LSTM_MAIN_SHAPE = ("served", 1, 2048, 144, 64)
 TOL_LSTM_REL = 1e-4  # float32 kernel vs twin, relative to the largest entry
 LSTM_SOURCE = "gordo_tpu_torch/ops/csrc/lstm_recurrence.cu"
 # no Pallas kernel: the JAX package's LSTM layer is a lax.scan
@@ -1023,7 +1035,7 @@ def _lstm_bound(m: int, b: int, t: int, u: int, dtype: str, backward: bool,
     Forward: zx and R read, the output written; backward: the output's
     gradient, z and c (float32) and R^T read, dZ written.
     ``fp32_core_bound_ms`` takes the operations at the CUDA cores' float32
-    rate, where the kernels compute today (no tensor-core path yet)."""
+    rate, where the legacy route computes (below U 8)."""
     elem = 2 if dtype == "bfloat16" else 4
     rows, g4 = m * b * t, 4 * u
     out = rows * u if return_sequences else m * b * u
@@ -1047,7 +1059,8 @@ def lstm_kernel_phase(card: str) -> list:
     tensors, bit-identical on a second launch; the serving forward (nothing
     saved) equal to the training forward. Then, at each of LSTM_SHAPES,
     the kernels' times with CUDA events beside their bounds, the twins' and
-    cuDNN's ``torch.nn.LSTM``.
+    cuDNN's ``torch.nn.LSTM`` (at M 1), each with the plan it launched
+    with (route, cluster, row tile, k split; csrc/lstm_plan.cuh).
     Returns the four kernels' entries of the ``kernels`` line (float32 and
     bf16, forward and backward)."""
     import torch
@@ -1131,7 +1144,7 @@ def lstm_kernel_phase(card: str) -> list:
                        "ms": ms[kind], "plain_ms": plain[kind],
                        "library_ms": cudnn[kind],
                        "batch_tile": lstm.batch_tile(m, b),
-                       **lstm.kernel_plan(u, lstm.batch_tile(m, b), dtype, kind == "backward"),
+                       "plan": lstm.kernel_plan(m, b, u, dtype, kind == "backward"),
                        **bound}
                 row["bound_share"] = bound["bound_ms"] / ms[kind]
                 row["fp32_core_bound_share"] = bound["fp32_core_bound_ms"] / ms[kind]
@@ -1145,8 +1158,7 @@ def lstm_kernel_phase(card: str) -> list:
                       f"{bound['fp32_core_bound_ms']:.4f} ms, "
                       f"{row['fp32_core_bound_share']:.1%}), plain "
                       f"{plain[kind]:.4f} ms, cuDNN LSTM {row['library_ms']} ms; plan "
-                      f"{row['threads']} threads, {row['smem_bytes']} B shared, R in shared "
-                      f"{row['r_in_smem']}", flush=True)
+                      f"{row['plan']}", flush=True)
             del zx, rk, out, z, c, dout
 
     entries = []
@@ -1169,6 +1181,54 @@ def lstm_kernel_phase(card: str) -> list:
                 "shape": main.get("shape"), "shapes": rows,
             })
     return entries
+
+
+# the recurrence's tensor-core instantiations besides dtype and activation
+# pair: (backward, n-tiles a forward warp, k split, R held in shared memory)
+# (STREAM is built in one layout a direction)
+LSTM_TC_INSTANTIATIONS = ((False, 1, 1, True), (False, 1, 2, True), (False, 2, 1, True),
+                          (True, 1, 2, True), (True, 1, 4, True),
+                          (False, 1, 1, False), (True, 1, 2, False))
+
+
+def lstm_build_report(mma: dict) -> list:
+    """Each tensor-core instantiation of the recurrence kernels as built:
+    registers, spilled (local) bytes and the most threads a block
+    (cudaFuncGetAttributes), and the HMMA and HGMMA count of its SASS
+    (``_sass_mma``'s, by its mangled name); fails where one's SASS holds
+    no HMMA. The shared memory and cluster of a launch are its plan's
+    (``lstm_kernel_phase``' rows)."""
+    import torch
+
+    from gordo_tpu_torch.ops import lstm
+
+    report = []
+    for dtype in lstm.DTYPES:
+        mangled_t = "f" if dtype == torch.float32 else "13__nv_bfloat16"
+        for backward, tiles, ksplit, held in LSTM_TC_INSTANTIATIONS:
+            for constants in (True, False):
+                layout = f"Li{4 // ksplit}E" if backward else f"Li{tiles}ELi{ksplit}E"
+                name = (f"tc_{'backward' if backward else 'forward'}I{mangled_t}"
+                        f"{'Li1ELi3E' if constants else 'Lin1ELin1E'}{layout}Lb{int(held)}EE")
+                sass = next((n for f, n in mma.items() if name in f), None)
+                entry = {"kernel": "backward" if backward else "forward",
+                         "dtype": str(dtype).replace("torch.", ""), "tiles_a_warp": tiles,
+                         "ksplit": ksplit, "r_in_smem": held, "tanh_sigmoid_constants": constants,
+                         **lstm.kernel_attributes(backward, dtype, constants, tiles, ksplit,
+                                                  held),
+                         "sass_hmma": sass["HMMA"] if sass else None,
+                         "sass_hgmma": sass["HGMMA"] if sass else None}
+                report.append(entry)
+                print(f"  lstm {entry['kernel']} {entry['dtype']} tiles_a_warp {tiles} ksplit "
+                      f"{ksplit} R "
+                      f"{'held' if held else 'streamed'} "
+                      f"{'(tanh, sigmoid)' if constants else 'run-time pair'}: "
+                      f"{entry['registers']} registers, {entry['local_bytes']} B local "
+                      f"(spills), {entry['sass_hmma']} HMMA, {entry['sass_hgmma']} HGMMA",
+                      flush=True)
+                if mma and not entry["sass_hmma"]:
+                    raise AssertionError(f"the recurrence's {name} holds no HMMA in its SASS")
+    return report
 
 
 def _series(n_rows: int, offset: int, rng) -> np.ndarray:
@@ -1253,6 +1313,7 @@ def _reset_launches() -> None:
     for names in LSTM_COUNTERS.values():
         for name in names:
             setattr(lstm, name, 0)
+    lstm.UNIT_LAUNCHES.clear()
 
 
 def _lstm_launches(dtype: str) -> dict:
@@ -1261,6 +1322,18 @@ def _lstm_launches(dtype: str) -> dict:
     from gordo_tpu_torch.ops import lstm
 
     return {key: getattr(lstm, name)
+            for key, name in zip(("forward", "backward"), LSTM_COUNTERS[dtype])}
+
+
+def _lstm_unit_launches(dtype: str) -> dict:
+    """``{"forward": {U: n}, "backward": {U: n}}``: the launches of
+    ``dtype``'s LSTM recurrence kernels by units since the counters were
+    last reset."""
+    from gordo_tpu_torch.ops import lstm
+
+    return {key: {u: n for (counter, u), n in sorted(lstm.UNIT_LAUNCHES.items(),
+                                                      key=lambda item: item[0][1])
+                  if counter == name}
             for key, name in zip(("forward", "backward"), LSTM_COUNTERS[dtype])}
 
 
@@ -3640,6 +3713,10 @@ WINDOWED_FAMILIES = {
     "lstm_forecast_144": ("LSTMForecast", {"kind": "lstm_symmetric", "dims": [64, 32],
                                            "funcs": ["tanh", "tanh"]}),
     "tcn_144": ("TCNAutoEncoder", {"kind": "tcn_model"}),
+    # the LSTM factory at its defaults (encoding 256, 128, 64, decoding 64,
+    # 128, 256, tanh): the factories' default width on a served path and in
+    # a build
+    "lstm_model_144": ("LSTMAutoEncoder", {"kind": "lstm_model"}),
 }
 WINDOWED_FIT = {"lookback_window": 144, "epochs": 2, "batch_size": 64}
 WINDOWED_DTYPE = "bfloat16"
@@ -3735,6 +3812,7 @@ def lstm_example_build_path(card: str, root: Path, device: str = "cuda") -> dict
         gc.unfreeze()
     seconds = time.perf_counter() - t0
     launches = _lstm_launches("float32")
+    by_units = _lstm_unit_launches("float32")
     if code != 0:
         raise AssertionError(f"build compressor-b: exit {code}")
     model = serializer.load(str(out), device)
@@ -3748,6 +3826,7 @@ def lstm_example_build_path(card: str, root: Path, device: str = "cuda") -> dict
     phases = built["phases"]
     result = {
         "seconds": seconds, "phases": phases, "offset": built["model"]["model_offset"],
+        "launches_by_units": by_units,
         "units": [layer.units for layer in spec.layers if isinstance(layer, LSTMLayer)],
         "steps": steps, "launches": launches, "held_out_mse": mse,
         "aggregate_threshold": model.aggregate_threshold_,
@@ -3865,6 +3944,7 @@ def windowed_served_path(card: str, root: Path, device: str = "cuda") -> dict:
         launches = {dtype: {**_launches(dtype), **{f"lstm_{k}": v for k, v in
                                                     _lstm_launches(dtype).items()}}
                     for dtype in ("float32", "bfloat16")}
+        by_units = {dtype: _lstm_unit_launches(dtype) for dtype in ("float32", "bfloat16")}
         fused = batcher.peek_batcher()
         stats, spec_calls = dict(fused.stats), dict(fused.spec_calls)
         if any(r is None or r[0] != 200 for r in results):
@@ -3881,7 +3961,7 @@ def windowed_served_path(card: str, root: Path, device: str = "cuda") -> dict:
             "p50_ms": latencies[len(latencies) // 2], "max_ms": latencies[-1],
             "batcher": stats, "fused_calls_by_model": {
                 name: spec_calls.get(spec, 0) for name, spec in specs.items()},
-            "max_rel_diff": worst, "launches": launches,
+            "max_rel_diff": worst, "launches": launches, "lstm_launches_by_units": by_units,
             "lstm_layer_calls": lstm_calls, "plain_attention_calls": plain.calls}
         print(f"concurrent windowed requests (batching forced on) on {card}: "
               f"{result['concurrent']}", flush=True)
@@ -3896,6 +3976,11 @@ def windowed_served_path(card: str, root: Path, device: str = "cuda") -> dict:
             if got["lstm_forward"] != lstm_calls[dtype] or got["lstm_backward"]:
                 raise AssertionError(f"{dtype} recurrence launches {got} for "
                                      f"{lstm_calls[dtype]} fused LSTM layer calls")
+            # lstm_model_144's two U-256 layers, the only ones of that width
+            wide = 2 * spec_calls.get(specs[f"lstm_model_144-{dtype}"], 0)
+            if not wide or by_units[dtype]["forward"].get(256, 0) != wide:
+                raise AssertionError(f"{dtype} U-256 recurrence launches "
+                                     f"{by_units[dtype]['forward']}, expected {wide}")
         if not (tf_calls and launches["float32"]["forward"] == n_blocks * tf_calls):
             raise AssertionError(f"{launches['float32']} flash forward launches for {tf_calls} "
                                  f"fused Transformer calls of {n_blocks} blocks")
@@ -3909,6 +3994,7 @@ def windowed_served_path(card: str, root: Path, device: str = "cuda") -> dict:
         else:
             os.environ["GORDO_TPU_SERVING_BATCH"] = previous
     result["launches"] = launches
+    result["lstm_launches_by_units"] = by_units
     return result
 
 
@@ -4006,10 +4092,11 @@ def windowed_fleet_path(card: str, root: Path, device: str = "cuda") -> dict:
     launches = {dtype: {**_launches(dtype), **{f"lstm_{k}": v for k, v in
                                                 _lstm_launches(dtype).items()}}
                 for dtype in ("float32", "bfloat16")}
+    by_units = _lstm_unit_launches("bfloat16")
     peak = torch.cuda.max_memory_allocated() / 2**30 if device == "cuda" else float("nan")
     built = [line for line in stdout.getvalue().splitlines() if line.startswith("built: ")]
     artifacts = sum((output / c["name"] / "model.json").exists() for c in configs)
-    groups, tf_steps, lstm_layer_steps = {}, 0, 0
+    groups, tf_steps, lstm_layer_steps, wide_steps = {}, 0, 0, 0
     for chunk in chunks:
         family = ("transformer" if chunk["spec"] == tf_spec
                   else chunk["names"][0].rsplit("-", 1)[0].replace("-", "_"))
@@ -4025,10 +4112,13 @@ def windowed_fleet_path(card: str, root: Path, device: str = "cuda") -> dict:
         if family == "transformer":
             tf_steps += steps
         lstm_layer_steps += _n_lstm(chunk["spec"]) * steps
+        if family == "lstm_model_144":
+            wide_steps += 2 * steps  # its two U-256 layers
     n_all = len(configs)
     result = {"machines": n_all, "seconds": seconds,
               "machines_per_minute": 60.0 * n_all / seconds, "stacked_programs": groups,
-              "peak_gib": peak, "launches": launches, "serial_built": serial}
+              "peak_gib": peak, "launches": launches, "lstm_launches_by_units": by_units,
+              "serial_built": serial}
     print(f"windowed batch-build of {n_all} machines ({WINDOWED_FLEET_MACHINES} each of "
           f"{sorted(WINDOWED_FAMILIES)} in {WINDOWED_DTYPE}, {FLEET_MACHINES} float32 "
           f"transformer-ae-512) on {card}: exit {code} in {seconds:.2f} s "
@@ -4047,6 +4137,9 @@ def windowed_fleet_path(card: str, root: Path, device: str = "cuda") -> dict:
             and not f32["lstm_forward"] and not f32["lstm_backward"]):
         raise AssertionError(f"expected {lstm_layer_steps} bf16 recurrence backward launches, "
                              f"got {launches}")
+    if not wide_steps or by_units["backward"].get(256, 0) != wide_steps:
+        raise AssertionError(f"expected {wide_steps} U-256 bf16 recurrence backward launches "
+                             f"from lstm_model_144's buckets, got {by_units}")
     if plain.calls or not (f32["dq"] == f32["dkv"] == n_blocks * tf_steps
                            and not bf16["dq"] and not bf16["dkv"]):
         raise AssertionError(f"expected {n_blocks * tf_steps} float32 dQ and dK/dV launches "
@@ -4314,6 +4407,7 @@ def main() -> int:
     occupancy = _occupancy()
     mma = _sass_mma(libs)
     wgmma = wgmma_report(occupancy)
+    lstm_instantiations = lstm_build_report(mma)
 
     forward = kernel_phase(card)
     dq, dkv = backward_kernel_phase(card)
@@ -4498,14 +4592,28 @@ def main() -> int:
     # served artifacts, bf16 on the bf16 served artifacts and the bf16 fleet
     example, served_l, fleet_l = (windowed["lstm_example_build"]["launches"],
                                   windowed["served"]["launches"], windowed["fleet"]["launches"])
-    for entry, paths in zip(lstm_entries, (
+    example_u, served_u, fleet_u = (windowed["lstm_example_build"]["launches_by_units"],
+                                    windowed["served"]["lstm_launches_by_units"],
+                                    windowed["fleet"]["lstm_launches_by_units"])
+    for entry, paths, by_units in zip(lstm_entries, (
             {"lstm_example_build": example["forward"],
              "windowed_served": served_l["float32"]["lstm_forward"]},
             {"lstm_example_build": example["backward"]},
             {"windowed_served": served_l["bfloat16"]["lstm_forward"],
              "windowed_fleet": fleet_l["bfloat16"]["lstm_forward"]},
-            {"windowed_fleet": fleet_l["bfloat16"]["lstm_backward"]})):
+            {"windowed_fleet": fleet_l["bfloat16"]["lstm_backward"]}), (
+            {"lstm_example_build": example_u["forward"],
+             "windowed_served": served_u["float32"]["forward"]},
+            {"lstm_example_build": example_u["backward"]},
+            {"windowed_served": served_u["bfloat16"]["forward"],
+             "windowed_fleet": fleet_u["forward"]},
+            {"windowed_fleet": fleet_u["backward"]})):
         entry["launches_by_path"] = paths
+        # by path, the launches of each width: U 256 from lstm_model_144
+        entry["launches_by_path_and_units"] = by_units
+        entry["instantiations"] = [i for i in lstm_instantiations
+                                   if (i["kernel"], i["dtype"]) == (
+                                       entry["name"].split("_")[2], entry["dtype"])]
     entries += d384_entries + lstm_entries
     for entry in entries:
         entry["launches"] = sum(entry["launches_by_path"].values())

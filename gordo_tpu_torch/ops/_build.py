@@ -5,10 +5,12 @@ Every ``csrc/*.cu`` compiles with ``nvcc`` for ``sm_90a`` into its own
 shared library with a plain C interface, loaded with ``ctypes``. The
 sources are compiled together (one ``nvcc`` process each, all started at
 once) at first use, into ``build/gordo_tpu_torch/<hash>/`` beside the
-package, where ``<hash>`` covers the sources, the headers they include
-(``csrc/*.cuh``) and the flags: a changed source or header builds anew, an
-unchanged tree is loaded as built. A failed build
-raises with the compiler's output.
+package; a source named in ``PARTS`` is compiled as that many translation
+units at once (``-DGORDO_PART=0..n-1``, each holding a share of its
+kernels) and linked into its one library. ``<hash>`` covers the sources,
+the headers they include (``csrc/*.cuh``) and the flags: a changed source
+or header builds anew, an unchanged tree is loaded as built. A failed
+build raises with the compiler's output.
 """
 
 import ctypes
@@ -27,6 +29,9 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
+
+# sources compiled in parts: the number of parts (see each source's header)
+PARTS = {"lstm_recurrence": 5}
 
 _lock = threading.Lock()
 _libraries: Dict[str, ctypes.CDLL] = {}
@@ -50,6 +55,7 @@ def _build_dir() -> Path:
     """The build directory: a hash of the flags and of every source and
     header in ``csrc`` (``*.cu`` and the ``*.cuh`` they include)."""
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    digest.update(repr(sorted(PARTS.items())).encode())
     for src in sorted([*CSRC.glob("*.cu"), *CSRC.glob("*.cuh")]):
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
@@ -65,24 +71,40 @@ def build_all() -> Dict[str, Path]:
     out_dir.mkdir(parents=True, exist_ok=True)
     libs = {src.stem: out_dir / f"lib{src.stem}.so" for src in CSRC.glob("*.cu")}
     nvcc = nvcc_path()
-    jobs = {}
+    compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
+    jobs = {}  # stem: (library, its temporary file, [(process, object file or None)])
     for stem, lib in libs.items():
         if lib.exists():
             continue
+        src = str(CSRC / f"{stem}.cu")
         tmp = lib.with_suffix(f".tmp-{os.getpid()}.so")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{stem}.cu")]
-        proc = subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
-        )
-        jobs[stem] = (proc, tmp, lib)
+        if stem in PARTS:
+            objs = [lib.with_suffix(f".part{i}.tmp-{os.getpid()}.o") for i in range(PARTS[stem])]
+            cmds = [[nvcc, *compile_flags, "-c", f"-DGORDO_PART={i}", "-o", str(obj), src]
+                    for i, obj in enumerate(objs)]
+        else:
+            objs, cmds = [None], [[nvcc, *NVCC_FLAGS, "-o", str(tmp), src]]
+        jobs[stem] = (lib, tmp, [(subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                   stderr=subprocess.STDOUT, text=True), obj)
+                                 for cmd, obj in zip(cmds, objs)])
     failures = []
-    for stem, (proc, tmp, lib) in jobs.items():
-        log, _ = proc.communicate()
-        BUILD_LOGS[stem] = log
-        if proc.returncode != 0:
-            failures.append(f"nvcc failed on {stem}.cu ({proc.returncode}):\n{log}")
-            continue
-        os.replace(tmp, lib)
+    for stem, (lib, tmp, procs) in jobs.items():
+        logs, objs, before = [], [obj for _, obj in procs if obj is not None], len(failures)
+        for proc, _ in procs:
+            logs.append(proc.communicate()[0])
+            if proc.returncode != 0:
+                failures.append(f"nvcc failed on {stem}.cu ({proc.returncode}):\n{logs[-1]}")
+        if objs and len(failures) == before:
+            link = subprocess.run([nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            logs.append(link.stdout)
+            if link.returncode != 0:
+                failures.append(f"nvcc failed to link {stem} ({link.returncode}):\n{link.stdout}")
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+        BUILD_LOGS[stem] = "".join(logs)
+        if len(failures) == before:
+            os.replace(tmp, lib)
     if failures:
         raise RuntimeError("\n".join(failures))
     return libs

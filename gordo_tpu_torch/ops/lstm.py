@@ -25,12 +25,21 @@ matmul.
 Dispatch is by where the tensors lie: CPU tensors take the plain twins
 (the step loop in torch, used by the CPU tests), CUDA tensors launch the
 kernels or raise. There is no fallback from one to the other.
+
+On the card each launch takes the route, cluster, row tile and k split of
+the CUDA source's plan (``csrc/lstm_plan.cuh``, asked through
+``gordo_lstm_plan``): the tensor-core kernels with R held in a cluster's
+shared memory or streamed from L2, or the first port's CUDA-core kernels
+(the legacy route: below U 8, for float32 U <= 64 over at most 132 rows,
+and where no tensor-core route holds the buffers; ``batch_tile`` picks its
+rows). ``set_route`` forces a route or plan for measurements and the card's
+tests.
 """
 
 import ctypes
 import functools
 import threading
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -40,8 +49,9 @@ from .activations import ACTIVATION_CODES, ACTIVATION_GRADS, activation
 DTYPES = (torch.float32, torch.bfloat16)
 # grid.y of the kernels (csrc/lstm_recurrence.cu) holds the machines
 MAX_MACHINES = 65535
+# the legacy route's batch tiles, and the blocks its tile aims at: two a
+# streaming multiprocessor
 BATCH_TILES = (1, 2, 4, 8)
-# blocks the batch tile aims at: two a streaming multiprocessor
 TARGET_BLOCKS = 2 * 132
 
 # kernel launches made on CUDA tensors: the float32 forward and backward,
@@ -50,6 +60,8 @@ FORWARD_LAUNCHES = 0
 BACKWARD_LAUNCHES = 0
 BF16_FORWARD_LAUNCHES = 0
 BF16_BACKWARD_LAUNCHES = 0
+# the same launches by (counter name, units U)
+UNIT_LAUNCHES: Dict[Tuple[str, int], int] = {}
 _launches_lock = threading.Lock()
 
 
@@ -134,9 +146,15 @@ def lstm_recurrence_backward_plain(dout, z, c, rk, act: str = "tanh", rec: str =
 
 
 # ------------------------------------------------------------ the kernels
+# the plan's routes (csrc/lstm_plan.cuh ``Route``): the tensor-core kernels
+# with R held in a cluster's shared memory or streamed from L2, and the
+# legacy CUDA-core kernels
+ROUTES = ("legacy", "cluster", "stream")
+
+
 def batch_tile(m: int, b: int) -> int:
-    """Rows a block takes: the smallest tile that keeps the blocks at most
-    TARGET_BLOCKS, else the largest."""
+    """Rows a block of the legacy route takes: the smallest tile that keeps
+    the blocks at most TARGET_BLOCKS, else the largest."""
     for bt in BATCH_TILES:
         if m * -(-b // bt) <= TARGET_BLOCKS:
             return bt
@@ -144,24 +162,25 @@ def batch_tile(m: int, b: int) -> int:
 
 
 @functools.lru_cache(maxsize=1024)
-def check_launch_limits(m: int, b: int, u: int) -> None:
+def check_launch_limits(m: int, b: int, u: int, elem_bytes: int = 4) -> None:
     """Raise, naming the limit, for a shape the kernels cannot launch: the
-    machines against grid.y, and the step buffers of the forward and the
-    backward at the chosen batch tile against the shared memory a block
-    takes (the CUDA source's own plan, ``gordo_lstm_plan``; the buffers are
-    float32 whatever the input dtype)."""
+    machines against grid.y, and the forward's and the backward's plan (the
+    CUDA source's own, ``gordo_lstm_plan``: a tensor-core route, else the
+    legacy route's step buffers at the chosen batch tile against the shared
+    memory a block takes) for inputs of ``elem_bytes``."""
     if m > MAX_MACHINES:
         raise ValueError(
             f"{m} stacked layers: the LSTM kernels take at most {MAX_MACHINES} (grid.y); "
             f"split the machines")
     bt = batch_tile(m, b)
     for backward in (False, True):
-        rc, plan = _plan(u, bt, 4, backward)
+        rc, plan = _plan(m, b, u, bt, elem_bytes, backward)
         if rc != 0:
             raise ValueError(
-                f"LSTM units {u}: the {'backward' if backward else 'forward'} kernel's step "
-                f"buffers need {plan['smem_bytes']} bytes of shared memory at batch tile {bt}, "
-                f"more than a block takes")
+                f"LSTM units {u}: no tensor-core route holds the "
+                f"{'backward' if backward else 'forward'} kernel's buffers, and the legacy "
+                f"step buffers need {plan['smem_bytes']} bytes of shared memory at batch tile "
+                f"{bt}, more than a block takes")
 
 
 def bind(lib: ctypes.CDLL, backward: bool, dtype: torch.dtype):
@@ -180,26 +199,75 @@ def _kernel(backward: bool, dtype: torch.dtype):
     return bind(_build.load_library("lstm_recurrence"), backward, dtype)
 
 
-def _plan(u: int, bt: int, elem_bytes: int, backward: bool) -> Tuple[int, dict]:
-    fn = _build.load_library("lstm_recurrence").gordo_lstm_plan
-    out = [ctypes.c_int() for _ in range(3)]
-    rc = fn(u, bt, elem_bytes, int(backward), *(ctypes.byref(x) for x in out))
-    return rc, {"threads": out[0].value, "smem_bytes": out[1].value,
-                "r_in_smem": bool(out[2].value)}
+def _plan_library() -> ctypes.CDLL:
+    """The library whose ``gordo_lstm_plan`` plans the launches: the
+    kernels' own (the CPU tests stand in a host build of csrc/lstm_plan.cuh)."""
+    return _build.load_library("lstm_recurrence")
 
 
-def kernel_plan(u: int, bt: int, dtype: torch.dtype, backward: bool) -> dict:
-    """The plan the kernels launch with, for reports: threads a block,
-    dynamic shared memory and whether the recurrent kernel sits in it."""
-    rc, plan = _plan(u, bt, torch.tensor([], dtype=dtype).element_size(), backward)
+PLAN_FIELDS = ("route", "rows", "cluster", "threads", "smem_bytes", "r_in_smem", "tiles_a_warp",
+               "ksplit")
+
+
+def _plan(m: int, b: int, u: int, bt: int, elem_bytes: int, backward: bool
+          ) -> Tuple[int, dict]:
+    fn = _plan_library().gordo_lstm_plan
+    out = [ctypes.c_int() for _ in PLAN_FIELDS]
+    rc = fn(m, b, u, bt, elem_bytes, int(backward), *(ctypes.byref(x) for x in out))
+    plan = dict(zip(PLAN_FIELDS, (x.value for x in out)))
+    plan["route"] = ROUTES[plan["route"]]
+    plan["r_in_smem"] = bool(plan["r_in_smem"])
+    return rc, plan
+
+
+def kernel_plan(m: int, b: int, u: int, dtype: torch.dtype, backward: bool) -> dict:
+    """The plan a launch of (M, B, U) in ``dtype`` takes, for reports: its
+    route, batch rows and cluster of a CTA, threads, dynamic shared memory,
+    whether R sits in it, the n-tiles a forward warp takes and the warps
+    that split a tile's K."""
+    rc, plan = _plan(m, b, u, batch_tile(m, b), torch.tensor([], dtype=dtype).element_size(),
+                     backward)
     if rc != 0:
         raise RuntimeError(f"LSTM kernel plan failed: CUDA error {rc}")
     return plan
 
 
-def _count(name: str) -> None:
+def set_route(route: Optional[str] = None, cluster: Optional[int] = None,
+              rows: Optional[int] = None, ksplit: Optional[int] = None) -> None:
+    """Make every later launch take ``route`` (one of ROUTES) and, on a
+    tensor-core route, ``cluster`` CTAs a cluster, ``rows`` batch rows a CTA
+    and ``ksplit`` warps a tile; None leaves each to the plan's rule. A
+    measurement hook (scripts/torch_lstm_ab.py and the card's tests hold and
+    time each route and plan with one library). The library keeps the
+    forcing, and its plan (``kernel_plan``, ``check_launch_limits``) follows
+    it. A launch the forced plan cannot take raises."""
+    forced = (-1 if route is None else ROUTES.index(route), cluster or -1, rows or -1,
+              ksplit or -1)
+    rc = _plan_library().gordo_lstm_set_route(*forced)
+    if rc != 0:
+        raise RuntimeError(f"gordo_lstm_set_route{forced} failed: CUDA error {rc}")
+    check_launch_limits.cache_clear()
+
+
+def kernel_attributes(backward: bool, dtype: torch.dtype, constants: bool = True,
+                      tiles_a_warp: int = 1, ksplit: int = 1, held: bool = True) -> dict:
+    """Registers, spilled (local) bytes and most threads a block of one
+    built tensor-core instantiation (cudaFuncGetAttributes): the forward's
+    layouts (tiles_a_warp, ksplit) (1, 1), (1, 2) and (2, 1), the
+    backward's ksplit 1, 2 and 4."""
+    fn = _build.load_library("lstm_recurrence").gordo_lstm_kernel_attributes
+    out = (ctypes.c_int * 3)()
+    rc = fn(int(backward), int(dtype == torch.bfloat16), int(constants), tiles_a_warp, ksplit,
+            int(held), out)
+    if rc != 0:
+        raise RuntimeError(f"gordo_lstm_kernel_attributes failed: CUDA error {rc}")
+    return {"registers": out[0], "local_bytes": out[1], "max_threads": out[2]}
+
+
+def _count(name: str, u: int) -> None:
     with _launches_lock:
         globals()[name] += 1
+        UNIT_LAUNCHES[name, u] = UNIT_LAUNCHES.get((name, u), 0) + 1
 
 
 def _ptr(x: Optional[torch.Tensor]):
@@ -208,7 +276,7 @@ def _ptr(x: Optional[torch.Tensor]):
 
 def _call(fn, label: str, tensors, m: int, b: int, t: int, u: int, act: str, rec: str,
           return_sequences: bool, device) -> None:
-    check_launch_limits(m, b, u)
+    check_launch_limits(m, b, u, tensors[0].element_size())
     args = (*(_ptr(x) for x in tensors), m, b, t, u, batch_tile(m, b), activation_code(act),
             activation_code(rec), int(return_sequences))
     if device.index == torch.cuda.current_device():
@@ -239,7 +307,7 @@ def _launch_forward(zx, rk, act, rec, return_sequences, training):
     _call(_kernel(False, zx.dtype), "LSTM forward",
           (zx, rk, out, h_save, *(saved[:2] if training else (None, None))),
           m, b, t, u, act, rec, return_sequences, zx.device)
-    _count("BF16_FORWARD_LAUNCHES" if zx.dtype == torch.bfloat16 else "FORWARD_LAUNCHES")
+    _count("BF16_FORWARD_LAUNCHES" if zx.dtype == torch.bfloat16 else "FORWARD_LAUNCHES", u)
     return out, saved
 
 
@@ -251,7 +319,8 @@ def _launch_backward(dout, z, c, rk, act, rec, return_sequences):
     rkt = rk.transpose(1, 2).contiguous()
     _call(_kernel(True, rk.dtype), "LSTM backward", (dout, z, c, rkt, dz),
           m, b, t, g4 // 4, act, rec, return_sequences, z.device)
-    _count("BF16_BACKWARD_LAUNCHES" if rk.dtype == torch.bfloat16 else "BACKWARD_LAUNCHES")
+    _count("BF16_BACKWARD_LAUNCHES" if rk.dtype == torch.bfloat16 else "BACKWARD_LAUNCHES",
+           g4 // 4)
     return dz
 
 

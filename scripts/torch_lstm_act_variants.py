@@ -7,8 +7,8 @@ the arguments at run time, on one NVIDIA GPU.
 
 The source's ``dispatch`` launches an instantiation with (tanh, sigmoid) as
 compile-time constants for that pair, and one that reads the activation
-codes at run time for any other pair. The variant ``runtime_codes`` takes
-the constant instantiation out (``VARIANTS``;
+codes at run time for any other pair, on every route. The variant
+``runtime_codes`` takes the constant instantiations out (``VARIANTS``;
 ``tests/test_torch_build.py`` checks on the CPU that its text applies), so
 that (tanh, sigmoid) too reads its codes at run time. Both builds compile
 into ``build/lstm_variants/<name>/`` with the port's nvcc flags, at once.
@@ -45,8 +45,8 @@ SHAPES = (("lstm_ae_144", 1, 64, 144, 64), ("lstm_ae_144", 1, 64, 144, 32),
 # name -> [(its text in SOURCE, the replacement)]; each text must occur once
 VARIANTS = {
     "runtime_codes": [(
-        "  if (a.act == TANH && a.rec == SIGMOID) return by_tile<T, TANH, SIGMOID>(a, p, s);\n",
-        "")],
+        "  const bool constants = a.act == TANH && a.rec == SIGMOID;\n",
+        "  const bool constants = false;\n")],
 }
 
 
@@ -63,6 +63,8 @@ def _build(name: str, patches) -> Path:
             raise ValueError(f"{name}: a patch does not apply to {SOURCE}")
         text = text.replace(old, new)
     (out / SOURCE).write_text(text)
+    for header in CSRC.glob("*.cuh"):
+        (out / header.name).write_text(header.read_text())
     lib = out / "liblstm_recurrence.so"
     proc = subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", str(lib),
                            str(out / SOURCE)], capture_output=True, text=True)

@@ -359,7 +359,50 @@ def test_wgmma_kernels_at_ragged_lengths_across_heads(cuda_device, dh, t, causal
 
 
 # ------------------------------------------------------------ the LSTM recurrence
-LSTM_SHAPES = [(1, 1, 24, 3), (1, 64, 144, 64), (3, 17, 9, 32), (2, 5, 7, 256), (1, 2, 1, 8)]
+# (M, B, T, U): compressor-b's (the legacy route), lstm_ae_144's, a ragged
+# batch, U 128, 256 and 512 (clusters of 2 to 16 CTAs; float32 U 512
+# streams R from L2), a batch that is not a multiple of the row tile (20,
+# 101), M > 1 on the cluster routes, and one step
+LSTM_SHAPES = [(1, 1, 24, 3), (1, 64, 144, 64), (3, 17, 9, 32), (2, 5, 7, 256), (1, 2, 1, 8),
+               (1, 20, 12, 128), (2, 20, 9, 256), (1, 6, 5, 512), (3, 101, 24, 64)]
+
+
+def _lstm_inputs(shape, dtype, device, r_scale=None, seed=0):
+    m, b, t, u = shape
+    g = torch.Generator(device=device).manual_seed(seed)
+    zx = (0.5 * torch.randn((m, b, t, 4 * u), device=device, generator=g)).to(dtype)
+    rk = (torch.randn((m, u, 4 * u), device=device, generator=g)
+          * (u ** -0.5 if r_scale is None else r_scale)).to(dtype)
+    return zx, rk, g
+
+
+def _lstm_against_twins(zx, rk, act, rec, return_sequences, tol, g):
+    """The forward (output and saved z, c, h), the serving forward and the
+    backward (dZ from the kernel's saved tensors, twice) against the plain
+    twins; returns the launches made, by counter."""
+    from gordo_tpu_torch.ops import lstm
+
+    names = ("FORWARD_LAUNCHES", "BACKWARD_LAUNCHES", "BF16_FORWARD_LAUNCHES",
+             "BF16_BACKWARD_LAUNCHES")
+    before = {name: getattr(lstm, name) for name in names}
+    out, saved = lstm.lstm_recurrence_forward(zx, rk, act, rec, return_sequences, True)
+    serve, _ = lstm.lstm_recurrence_forward(zx, rk, act, rec, return_sequences, False)
+    dout = torch.randn(out.shape, device=zx.device, generator=g).to(zx.dtype)
+    dz = lstm.lstm_recurrence_backward(dout, saved[0], saved[1], rk, act, rec, return_sequences)
+    again = lstm.lstm_recurrence_backward(dout, saved[0], saved[1], rk, act, rec,
+                                          return_sequences)
+    torch.cuda.synchronize()
+    ref, ref_saved = lstm.lstm_recurrence_forward_plain(zx, rk, act, rec, return_sequences, True)
+    ref_dz = lstm.lstm_recurrence_backward_plain(dout, saved[0], saved[1], rk, act, rec,
+                                                 return_sequences)
+    for got, want in ((out, ref), *zip(saved, ref_saved), (dz, ref_dz)):
+        assert torch.isfinite(want.float()).all()
+        rel = ((got.float() - want.float()).abs().max()
+               / want.float().abs().max().clamp_min(1e-30)).item()
+        assert rel <= tol
+    assert torch.equal(dz, again)  # no atomics, a fixed order: bit-identical
+    assert torch.equal(serve, out)  # the serving forward is the training forward
+    return {name: getattr(lstm, name) - n for name, n in before.items()}
 
 
 @pytest.mark.cuda
@@ -369,70 +412,166 @@ LSTM_SHAPES = [(1, 1, 24, 3), (1, 64, 144, 64), (3, 17, 9, 32), (2, 5, 7, 256), 
 def test_lstm_kernels_match_their_twins_on_the_card(cuda_device, shape, dtype, tol,
                                                     return_sequences):
     """The recurrence's forward (output and saved z, c, h) and backward (dZ
-    from the kernel's saved tensors) against the plain twins, the backward
-    bit-identical on a second launch."""
-    from gordo_tpu_torch.ops import lstm
-
-    m, b, t, u = shape
-    g = torch.Generator(device=cuda_device).manual_seed(0)
-    zx = (0.5 * torch.randn((m, b, t, 4 * u), device=cuda_device, generator=g)).to(dtype)
-    rk = (torch.randn((m, u, 4 * u), device=cuda_device, generator=g) / u ** 0.5).to(dtype)
-    names = (("BF16_FORWARD_LAUNCHES", "BF16_BACKWARD_LAUNCHES") if dtype == torch.bfloat16
-             else ("FORWARD_LAUNCHES", "BACKWARD_LAUNCHES"))
-    before = tuple(getattr(lstm, name) for name in names)
-    out, saved = lstm.lstm_recurrence_forward(zx, rk, "tanh", "sigmoid", return_sequences, True)
-    dout = torch.randn(out.shape, device=cuda_device, generator=g).to(dtype)
-    dz = lstm.lstm_recurrence_backward(dout, saved[0], saved[1], rk, "tanh", "sigmoid",
-                                       return_sequences)
-    again = lstm.lstm_recurrence_backward(dout, saved[0], saved[1], rk, "tanh", "sigmoid",
-                                          return_sequences)
-    torch.cuda.synchronize()
-    assert tuple(getattr(lstm, name) for name in names) == (before[0] + 1, before[1] + 2)
-    ref, ref_saved = lstm.lstm_recurrence_forward_plain(zx, rk, "tanh", "sigmoid",
-                                                        return_sequences, True)
-    ref_dz = lstm.lstm_recurrence_backward_plain(dout, saved[0], saved[1], rk, "tanh",
-                                                 "sigmoid", return_sequences)
-    for got, want in ((out, ref), *zip(saved, ref_saved), (dz, ref_dz)):
-        rel = ((got.float() - want.float()).abs().max() / want.float().abs().max()).item()
-        assert rel <= tol
-    assert torch.equal(dz, again)
+    from the kernel's saved tensors) against the plain twins on the plan's
+    own route, the backward bit-identical on a second launch and the
+    serving forward equal to the training forward."""
+    zx, rk, g = _lstm_inputs(shape, dtype, cuda_device)
+    launched = _lstm_against_twins(zx, rk, "tanh", "sigmoid", return_sequences, tol, g)
+    prefix = "BF16_" if dtype == torch.bfloat16 else ""
+    assert launched[prefix + "FORWARD_LAUNCHES"] == 2
+    assert launched[prefix + "BACKWARD_LAUNCHES"] == 2
+    assert sum(launched.values()) == 4
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype, tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("route, shape", [
+    ("legacy", (1, 64, 20, 64)), ("legacy", (2, 9, 7, 256)), ("cluster", (1, 1, 24, 3)),
+    ("cluster", (2, 9, 7, 256)), ("stream", (1, 64, 20, 64)), ("stream", (2, 9, 7, 256)),
+    ("stream", (1, 40, 6, 32))])
+def test_every_lstm_route_matches_the_twins(cuda_device, route, shape, dtype, tol):
+    """Each route of the plan, forced with lstm.set_route, at shapes the
+    plan gives another route or its own."""
+    from gordo_tpu_torch.ops import lstm
+
+    zx, rk, g = _lstm_inputs(shape, dtype, cuda_device)
+    lstm.set_route(route)
+    try:
+        assert lstm.kernel_plan(*shape[:2], shape[3], dtype, False)["route"] == route
+        for return_sequences in (True, False):
+            _lstm_against_twins(zx, rk, "tanh", "sigmoid", return_sequences, tol, g)
+    finally:
+        lstm.set_route(None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype, tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("route, u", [(None, 3), (None, 16), ("cluster", 16), ("cluster", 256)])
 @pytest.mark.parametrize("act, rec, r_scale", [
     ("gelu", "hard_sigmoid", 0.25), ("elu", "softsign", 0.25), ("relu", "linear", 0.25),
-    ("selu", "swish", 0.25), ("leaky_relu", "tanh", 0.25),
+    ("selu", "swish", 0.25), ("leaky_relu", "tanh", 0.25), ("tanh", "sigmoid", 0.25),
     # exponential gates have no bound: through R, h overflows float32 within
     # a few steps in the twin too, so R is 0 here and the cell alone runs
     ("softplus", "exponential", 0.0)])
-def test_lstm_kernels_take_every_activation(cuda_device, act, rec, r_scale):
+def test_lstm_kernels_take_every_activation(cuda_device, act, rec, r_scale, route, u, dtype,
+                                            tol):
+    """Every activation pair against the twins on both routes that ship: the
+    plan's own (the legacy kernels below U 8, and for float32 U 16 over 12
+    rows; bf16 U 16 on the tensor cores) and the tensor-core route, forced
+    (U 16 without a cluster, U 256 in a cluster)."""
     from gordo_tpu_torch.ops import lstm
 
-    g = torch.Generator().manual_seed(1)
-    zx = (0.5 * torch.randn((2, 6, 11, 4 * 16), generator=g)).to(cuda_device)
-    rk = (r_scale * torch.randn((2, 16, 4 * 16), generator=g)).to(cuda_device)
-    out, saved = lstm.lstm_recurrence_forward(zx, rk, act, rec, True, True)
-    dout = torch.randn(out.shape, generator=g).to(cuda_device)
-    dz = lstm.lstm_recurrence_backward(dout, saved[0], saved[1], rk, act, rec, True)
-    ref, _ = lstm.lstm_recurrence_forward_plain(zx, rk, act, rec, True)
-    ref_dz = lstm.lstm_recurrence_backward_plain(dout, saved[0], saved[1], rk, act, rec, True)
-    for got, want in ((out, ref), (dz, ref_dz)):
-        assert torch.isfinite(want).all()
-        assert ((got - want).abs().max() / want.abs().max().clamp_min(1e-30)).item() <= 1e-4
+    shape = (2, 6, 11, u)
+    zx, rk, g = _lstm_inputs(shape, dtype, cuda_device, r_scale=r_scale * 16 ** 0.5 * u ** -0.5)
+    lstm.set_route(route)
+    try:
+        want = route or ("legacy" if u < 8 or dtype == torch.float32 else "cluster")
+        for backward in (False, True):
+            assert lstm.kernel_plan(2, 6, u, dtype, backward)["route"] == want
+        _lstm_against_twins(zx, rk, act, rec, True, tol, g)
+    finally:
+        lstm.set_route(None)
+
+
+@pytest.mark.cuda
+def test_lstm_launches_from_threads_at_plans_of_other_sizes(cuda_device):
+    """Launches from eight threads at once, of one instantiation at plans
+    that differ in shared memory (the legacy kernels at float32 U 16 and 64
+    over 8 rows, the tensor-core kernels at bf16 U 32 and 64), each launch
+    and give what a launch alone gives. A launch sets its kernel's
+    shared-memory size and launches under one lock: a served model's layers
+    under concurrent requests failed with CUDA error 1 where a thread set a
+    smaller size in between. The threads call the C entry point itself, as
+    the wrapper does, so that the launches overlap more than the wrapper's
+    Python lets them."""
+    import threading
+
+    from gordo_tpu_torch.ops import lstm
+
+    cases = []
+    for dtype, units in ((torch.float32, (16, 64)), (torch.bfloat16, (32, 64))):
+        for u in units:
+            zx, rk, _ = _lstm_inputs((1, 8, 2, u), dtype, cuda_device, seed=u)
+            want, _ = lstm.lstm_recurrence_forward(zx, rk, "tanh", "sigmoid", True, False)
+            cases.append((zx, rk, want))
+    stream = torch.cuda.current_stream(cuda_device)
+    codes = (lstm.activation_code("tanh"), lstm.activation_code("sigmoid"))
+    failures = []
+
+    def worker(i):
+        outs = [torch.empty_like(want) for _, _, want in cases]
+        for r in range(2000):
+            k = (i + r) % len(cases)
+            zx, rk, _ = cases[k]
+            m, b, t, g4 = zx.shape
+            rc = lstm._kernel(False, zx.dtype)(
+                zx.data_ptr(), rk.data_ptr(), outs[k].data_ptr(), None, None, None, m, b, t,
+                g4 // 4, lstm.batch_tile(m, b), *codes, 1, stream.cuda_stream)
+            if rc != 0:
+                failures.append((i, r, k, rc))
+        stream.synchronize()
+        failures.extend((i, k, "differs") for k, (_, _, want) in enumerate(cases)
+                        if not torch.equal(outs[k], want))
+
+    threads = [threading.Thread(target=worker, args=(i,)) for i in range(8)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert not failures, (len(failures), failures[:5])
 
 
 @pytest.mark.cuda
 def test_lstm_launch_limits_follow_the_kernels_plan(cuda_device):
-    """check_launch_limits raises where the CUDA source's plan refuses the
-    step buffers, and the plan holds the recurrent kernel in shared memory
-    at U 64 and reads it through L2 at U 256."""
+    """check_launch_limits raises where no route of the CUDA source's plan
+    takes a shape; the plan holds R in shared memory at U 64 (one CTA) and
+    U 256 (16 CTAs), streams float32 U 512, keeps compressor-b's U 3 and
+    float32 U 64 over 64 rows on the legacy route, fills the card at the
+    fleet step and the served shape, and takes every shape the legacy plan
+    alone took (U up to 1,200 at the largest batch tile)."""
     from gordo_tpu_torch.ops import lstm
 
     with pytest.raises(ValueError, match="shared memory"):
         lstm.check_launch_limits(1, 4096, 4000)
     lstm.check_launch_limits(64, 64, 256)
-    assert lstm.kernel_plan(64, 1, torch.float32, False)["r_in_smem"]
-    assert not lstm.kernel_plan(256, 8, torch.float32, True)["r_in_smem"]
+    for u in (1, 3, 64, 100, 256, 512, 1000, 1200):
+        lstm.check_launch_limits(1, 4096, u)
+        lstm.check_launch_limits(64, 64, u, 2)
+    plan = lambda u, dtype, backward, m=1, b=32: lstm.kernel_plan(m, b, u, dtype, backward)
+    assert plan(3, torch.float32, True)["route"] == "legacy"
+    for backward in (False, True):
+        # float32 U <= 64 over at most 132 rows: the legacy kernels, a block a
+        # row; bf16 there on the tensor cores, one CTA holding R
+        assert plan(64, torch.float32, backward, 1, 64)["route"] == "legacy"
+        small = plan(64, torch.bfloat16, backward, 1, 64)
+        assert (small["route"], small["cluster"], small["rows"]) == ("cluster", 1, 8), small
+        # the default width: R over 16 CTAs
+        for dtype in lstm.DTYPES:
+            wide = plan(256, dtype, backward)
+            assert (wide["route"], wide["cluster"], wide["r_in_smem"]) == ("cluster", 16, True)
+        assert plan(512, torch.float32, backward)["route"] == "stream"
+        assert plan(512, torch.bfloat16, backward)["route"] == "cluster"
+        # the fleet step and a served request without a cluster, in one wave
+        # of 128 CTAs: forward rows of 32 and 16, backward 16 (k split 2)
+        fleet = plan(64, torch.float32, backward, 64, 64)
+        assert (fleet["cluster"], fleet["rows"]) == (1, 16 if backward else 32), fleet
+        served = plan(64, torch.float32, backward, 1, 2048)
+        assert (served["cluster"], served["rows"]) == (1, 16), served
+
+
+@pytest.mark.cuda
+def test_lstm_tensor_core_kernels_fit_their_plan(cuda_device):
+    """Each built tensor-core instantiation takes the threads its plans
+    launch with (at most 512: 128 registers a thread)."""
+    from gordo_tpu_torch.ops import lstm
+
+    for dtype in lstm.DTYPES:
+        for backward, tiles, ksplit, held in (
+                (False, 1, 1, True), (False, 1, 2, True), (False, 2, 1, True), (True, 1, 2, True),
+                (True, 1, 4, True), (False, 1, 1, False), (True, 1, 2, False)):
+            for constants in (True, False):
+                got = lstm.kernel_attributes(backward, dtype, constants, tiles, ksplit, held)
+                assert got["max_threads"] >= 512 and got["registers"] <= 128, got
 
 
 @pytest.mark.cuda

@@ -25,8 +25,11 @@ bf16 falls differently (the port rounds the input projection and the
 recurrent product apart, the JAX code their sum).
 """
 
+import ctypes
 import json
 import pickle
+import subprocess
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -448,11 +451,30 @@ def test_lookback_one_defect_is_refused_with_its_cause():
                        stacked=False)
 
 
-def test_recurrence_checks_its_inputs_and_names_its_limits(monkeypatch):
+PLAN_SOURCE = Path(lstm.__file__).resolve().parent / "csrc" / "lstm_plan.cuh"
+
+
+@pytest.fixture(scope="module")
+def plan_library(tmp_path_factory):
+    """The kernels' launch plan and index maps (csrc/lstm_plan.cuh, plain
+    C++ that the CUDA source includes) built for the host with g++, bound
+    as the wrapper binds the card's library."""
+    out = tmp_path_factory.mktemp("lstm_plan") / "liblstm_plan.so"
+    subprocess.run(["g++", "-x", "c++", "-std=c++17", "-O2", "-shared", "-fPIC", "-o", str(out),
+                    str(PLAN_SOURCE)], check=True, capture_output=True)
+    return ctypes.CDLL(str(out))
+
+
+def _plans(plan_library, monkeypatch):
+    monkeypatch.setattr(lstm, "_plan_library", lambda: plan_library)
+    lstm.check_launch_limits.cache_clear()
+
+
+def test_recurrence_checks_its_inputs_and_names_its_limits(monkeypatch, plan_library):
     """The inputs' checks, and the launch limits: the machines against
-    grid.y here, the shared memory through the CUDA source's plan (a
-    stand-in for it on the CPU, which builds no kernel; the plan itself is
-    held on the card in test_torch_kernels_cuda.py)."""
+    grid.y here, the shared memory through the CUDA source's plan (its
+    host build; the plan on the card is held in
+    test_torch_kernels_cuda.py)."""
     with pytest.raises(ValueError, match="Unknown activation"):
         lstm.activation_code("mish")
     with pytest.raises(ValueError, match="do not match"):
@@ -462,26 +484,199 @@ def test_recurrence_checks_its_inputs_and_names_its_limits(monkeypatch):
                              torch.zeros(1, 2, 8, dtype=torch.float64))
     with pytest.raises(ValueError, match="grid.y"):
         lstm.check_launch_limits(70000, 4, 8)
-    planned = []
-
-    def plan(u, bt, elem_bytes, backward):
-        planned.append((u, bt, elem_bytes, backward))
-        too_big = u > 1000 and backward
-        return (1 if too_big else 0), {"threads": 256, "smem_bytes": 7 * u, "r_in_smem": False}
-
-    monkeypatch.setattr(lstm, "_plan", plan)
-    lstm.check_launch_limits.cache_clear()
-    with pytest.raises(ValueError, match="backward kernel's step buffers need 28000 bytes of "
-                                         "shared memory at batch tile 8"):
+    _plans(plan_library, monkeypatch)
+    with pytest.raises(ValueError, match="the legacy step buffers need 768000 bytes of shared "
+                                         "memory at batch tile 8"):
         lstm.check_launch_limits(1, 4096, 4000)
     lstm.check_launch_limits(64, 64, 256)
-    assert planned == [(4000, 8, 4, False), (4000, 8, 4, True), (256, 8, 4, False),
-                       (256, 8, 4, True)]
     lstm.check_launch_limits.cache_clear()
     assert [lstm.batch_tile(m, b) for m, b in ((1, 1), (1, 64), (1, 2048), (64, 64))] == [
         1, 1, 8, 8]
     assert lstm.ACTIVATION_CODES == tuple(sorted(nn.ACTIVATIONS, key=lstm.ACTIVATION_CODES.index))
     assert sorted(lstm.ACTIVATION_CODES) == sorted(jax_nn.ACTIVATIONS)
+
+
+def _legacy_takes(u, bt, backward):
+    """The first port's plan alone (the legacy kernels): its step buffers within a
+    block."""
+    threads = min(-(-4 * u // 32) * 32, 256)
+    parts = 1 if u >= threads else threads // u
+    return 4 * (6 if not backward else 5 + parts) * bt * u <= 232448
+
+
+@pytest.mark.parametrize("u", [1, 3, 8, 16, 64, 100, 256, 512, 600, 1000, 1200, 1210, 3000,
+                               9000])
+def test_plan_takes_every_shape_the_legacy_plan_took(monkeypatch, plan_library, u):
+    """check_launch_limits accepts every (M, B, U) that the first port's
+    plan accepted, in both dtypes; it may accept more."""
+    _plans(plan_library, monkeypatch)
+    for m, b in ((1, 1), (1, 64), (64, 64), (1, 4096), (3, 101)):
+        bt = lstm.batch_tile(m, b)
+        if not (_legacy_takes(u, bt, False) and _legacy_takes(u, bt, True)):
+            continue
+        for elem in (4, 2):
+            lstm.check_launch_limits(m, b, u, elem)
+    lstm.check_launch_limits.cache_clear()
+
+
+def _smoke_shapes():
+    import chip_smoke
+
+    return [shape[1:] for shape in chip_smoke.LSTM_SHAPES + chip_smoke.LSTM_CHECK_SHAPES] + [
+        (1, 32, 144, 128), (1, 32, 144, 512), (32, 64, 144, 256)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("backward", [False, True])
+def test_every_smoke_shape_gets_a_plan_within_the_card(monkeypatch, plan_library, dtype,
+                                                       backward):
+    """Every shape chip_smoke.py launches (LSTM_SHAPES, LSTM_CHECK_SHAPES,
+    and U 128, 256 and 512) gets a plan within a block's 232,448 bytes of
+    shared memory and 512 threads, a cluster of at most 16 that divides
+    the padded units into whole tiles, and the tensor-core routes from U 8
+    on (but for float32 U <= 64 over at most 132 rows, where the legacy
+    kernels are faster): R held in the cluster at U 256 and below."""
+    _plans(plan_library, monkeypatch)
+    for m, b, _, u in _smoke_shapes():
+        plan = lstm.kernel_plan(m, b, u, dtype, backward)
+        assert 0 < plan["smem_bytes"] <= 232448 and 0 < plan["threads"] <= 512, plan
+        assert plan["cluster"] in (1, 2, 4, 8, 16), plan
+        legacy = u < 8 or (dtype == torch.float32 and u <= 64 and m * b <= 132)
+        assert plan["route"] == ("legacy" if legacy else "cluster" if u <= 256 else
+                                 "stream" if dtype == torch.float32 else "cluster"), (u, plan)
+        if plan["route"] != "legacy":
+            # whole tiles a CTA: unit blocks of 8 forward, m16 tiles backward
+            assert (-(-u // 16) * 16) % ((16 if backward else 8) * plan["cluster"]) == 0
+            assert plan["rows"] in (8, 16, 32) and plan["threads"] % 32 == 0
+
+
+def _cells(plan_library, m_b_u, plan, backward):
+    """Every (unit, row) the plan's threads own, with repeats."""
+    _, b, u = m_b_u
+    up = -(-u // 16) * 16
+    uc = up // plan["cluster"]
+    unit, row = ctypes.c_int(), ctypes.c_int()
+    cells = []
+    slots = (4 if backward else 2 * plan["tiles_a_warp"]) // plan["ksplit"]
+    for tile in range(-(-b // plan["rows"])):
+        for rank in range(plan["cluster"]):
+            for warp in range(plan["threads"] // 32):
+                for lane in range(32):
+                    for s in range(slots):
+                        plan_library.gordo_lstm_cell_of(
+                            int(backward), uc, plan["rows"], plan["tiles_a_warp"],
+                            plan["ksplit"], rank, tile, warp, lane, s, ctypes.byref(unit),
+                            ctypes.byref(row))
+                        cells.append((unit.value, row.value))
+    return cells
+
+
+def test_set_route_forces_the_librarys_plan(monkeypatch, plan_library):
+    """The forced route lives in the plan's library alone: set_route changes
+    what kernel_plan and check_launch_limits read from it, and None gives
+    back the plan's own rule."""
+    _plans(plan_library, monkeypatch)
+    own = lstm.kernel_plan(1, 64, 64, torch.float32, False)
+    assert own["route"] == "legacy"
+    lstm.check_launch_limits(1, 64, 64)
+    try:
+        lstm.set_route("cluster", rows=8)
+        forced = lstm.kernel_plan(1, 64, 64, torch.float32, False)
+        assert (forced["route"], forced["rows"], forced["cluster"]) == ("cluster", 8, 1)
+        lstm.set_route("cluster", cluster=16)  # 64 units do not split over 16 CTAs
+        with pytest.raises(ValueError, match="no tensor-core route"):
+            lstm.check_launch_limits(1, 64, 64)
+    finally:
+        lstm.set_route(None)
+    assert lstm.kernel_plan(1, 64, 64, torch.float32, False) == own
+    lstm.check_launch_limits(1, 64, 64)
+
+
+@pytest.mark.parametrize("backward", [False, True])
+def test_the_tiles_cover_each_row_once(monkeypatch, plan_library, backward):
+    """At every smoke shape on a tensor-core route, the threads of the
+    plan's CTAs (row tiles x cluster) finish each (unit, batch row) of a
+    machine exactly once, in both dtypes' plans and every k split (cell_of,
+    the map the kernels use)."""
+    _plans(plan_library, monkeypatch)
+    # the smoke's shapes on the plan's own route, and small ones (which
+    # the plan gives the legacy route) on the held-R route, forced
+    shapes = _smoke_shapes() + [(1, 1, 1, 8), (2, 20, 1, 40), (1, 64, 1, 64), (1, 64, 1, 32)]
+    plans = []
+    try:
+        for i, (m, b, _, u) in enumerate(shapes):
+            lstm.set_route(None if i < len(_smoke_shapes()) else "cluster")
+            plans += [lstm.kernel_plan(m, b, u, dtype, backward)
+                      for dtype in (torch.float32, torch.bfloat16)]
+    finally:
+        lstm.set_route(None)
+    assert {plan["ksplit"] for plan in plans if plan["route"] != "legacy"} == (
+        {2, 4} if backward else {1, 2})
+    for (m, b, _, u), plan in zip([s for s in shapes for _ in range(2)], plans):
+        if plan["route"] == "legacy":
+            continue
+        cells = [c for c in _cells(plan_library, (m, b, u), plan, backward)
+                 if c[0] < u and c[1] < b]
+        assert sorted(cells) == [(k, r) for k in range(u) for r in range(b)], (u, b, plan)
+
+
+def _interleaved(plan_library, u):
+    up = -(-u // 16) * 16
+    return [plan_library.gordo_lstm_interleaved_column(u, q) for q in range(4 * up)]
+
+
+@pytest.mark.parametrize("u", [3, 8, 16, 20, 64, 256])
+def test_gate_interleaved_order_round_trips(plan_library, u):
+    """The forward's rows (R's columns gate-interleaved in blocks of 8
+    units, -1 for a padded unit) are a permutation of R's 4U columns, and
+    every m16 tile holds two whole gates of one block: the thread holding
+    (unit, row) in a block's two tiles holds its i, f, g and o."""
+    order = _interleaved(plan_library, u)
+    columns = [col for col in order if col >= 0]
+    assert sorted(columns) == list(range(4 * u))
+    inverse = np.argsort(columns)
+    assert (np.asarray(columns)[inverse] == np.arange(4 * u)).all()
+    for q, col in enumerate(order):
+        unit = (q // 32) * 8 + q % 8
+        assert col == ((q % 32) // 8 * u + unit if unit < u else -1)
+
+
+def test_plain_twin_through_the_interleaved_order_matches_jax(plan_library):
+    """The layer's recurrent kernel and input projection carried through the
+    kernels' interleaved order: the product in that order is the product's
+    columns reordered, and the twin fed the order's inverse of them gives
+    the JAX ``_apply_lstm``."""
+    u = 20
+    layer = L(u, return_sequences=True)
+    p = jax_nn.init_lstm_layer(jax.random.PRNGKey(5), 4, u)
+    x = _windows(n=3, lookback=6, n_features=4, seed=4)
+    theirs = np.asarray(jax_nn._apply_lstm(layer, p, jnp.asarray(x)))
+    columns = [col for col in _interleaved(plan_library, u) if col >= 0]
+    inverse = np.argsort(columns)
+    kernel, rk, bias = (torch.from_numpy(np.asarray(p[k])) for k in
+                        ("kernel", "recurrent_kernel", "bias"))
+    rk_il, zx_il = rk[:, columns], (torch.from_numpy(x) @ kernel + bias)[..., columns]
+    h = torch.from_numpy(np.random.RandomState(0).rand(3, u).astype(np.float32))
+    torch.testing.assert_close(h @ rk_il, (h @ rk)[:, columns], rtol=0, atol=0)
+    ours, _ = lstm.lstm_recurrence_forward_plain(zx_il[..., inverse][None], rk_il[:, inverse][None],
+                                                 "tanh", "sigmoid", True)
+    np.testing.assert_allclose(ours[0].numpy(), theirs, **TOL)
+
+
+def test_chip_smokes_lstm_model_family_is_the_jax_factorys_default():
+    """chip_smoke.py's fourth windowed family, lstm_model_144: the JAX
+    factory's lstm_model at its defaults (encoding 256, 128, 64, decoding
+    64, 128, 256, tanh), an LSTMAutoEncoder over 8 tags at lookback 144."""
+    import chip_smoke
+
+    cls, kwargs = chip_smoke.WINDOWED_FAMILIES["lstm_model_144"]
+    assert cls == "LSTMAutoEncoder" and kwargs == {"kind": "lstm_model"}
+    ours = getattr(models, cls)(**kwargs, lookback_window=chip_smoke.WINDOWED_FIT[
+        "lookback_window"], device="cpu").build_spec(8, 8)
+    theirs = jax_lstm.lstm_model(8, lookback_window=144)
+    assert spec_to_dict(ours) == spec_to_dict(spec_from_dataclass(theirs))
+    assert [layer.units for layer in ours.layers if hasattr(layer, "recurrent_activation")] == [
+        256, 128, 64, 64, 128, 256]
 
 
 # ------------------------------------------------------------ the fleet
