@@ -190,12 +190,38 @@ Drive the PyTorch/CUDA port (gordo_tpu_torch) on one NVIDIA GPU.
    TOL_BF16_MODEL_REL, of plain attention; the peak memory a window of a
    direct predict and of a fused call of 8,192 windows); a stacked
    two-machine bucket against the serial trainer (``fleet_loss_check``).
-19. A ``batcher_path`` JSON line (both dtypes' numbers), a ``feedforward``
+19. The Switch-MoE Transformer (``moe_path``): ``moe-transformer-ae-512``
+   (``transformer-ae-512`` with each FFN 8 Switch experts of 512, capacity
+   factor 1.25) built through the port's CLI in this process in float32
+   and bf16 (as step 18's builds: the dtype's dQ and dK/dV once per block
+   a step, no plain attention; phases, ms a fit step, peak memory); both
+   artifacts served as ``run-server`` serves them, 5 requests of 1,535
+   rows direct and with the batcher forced on, the served answers equal to
+   the direct predict and the fused lane recomputed with their routing;
+   every comparison of two MoE computations compares their routing first
+   (``routing_gate``: a token routed to another expert must have a logit
+   gap under MOE_FLIP_GAP, 1e-5 in float32 and one bf16 ulp of its top
+   logit in bf16, and taints its window; the untainted windows are held
+   to the dtype's tolerance): the fused lane against the direct predict,
+   the direct against plain attention, and each lane of one fused call of
+   eight full-width requests (8,192 windows, its peak memory) against its
+   direct predict; the tokens dropped per block and each expert's load;
+   some token of the served requests must go over capacity. Then stacked
+   buckets of it and of ``moe_model_144`` (the JAX factory's defaults:
+   lookback 144, d_model 64, 4 heads of 16, 8 experts of 128) against the
+   serial trainer (``fleet_loss_check``), a ``batch-build`` of two of each
+   (two stacked programs, no serial build, float32 dQ and dK/dV once per
+   block a stacked step at dh 64 and at dh 16 by the wrapper's head-dim
+   tally, held-out errors below the seeded weights'), and the six flash
+   kernels timed at dh 16 at ``moe_model_144``'s stacked step (BH 256, T
+   144) beside their bounds, twins and SDPA.
+20. A ``batcher_path`` JSON line (both dtypes' numbers), a ``feedforward``
    JSON line, a ``fastlane``/``kfcv_fleet`` JSON line, a ``windowed`` JSON
-   line, a ``transformer-ae-512-d384`` JSON line, a ``kernels`` JSON line
-   (sixteen entries: the six flash kernels at dh 64 with their results by
-   head dim, the six again at dh 96 with the d384 path's launches, then
-   the LSTM recurrence's forward and backward in float32 and bf16), then
+   line, a ``transformer-ae-512-d384`` JSON line, a ``moe`` JSON line, a
+   ``kernels`` JSON line (twenty-two entries: the six flash kernels at dh
+   64 with their results by head dim, the six again at dh 96 with the d384
+   path's launches and at dh 16 with the MoE fleet's, then the LSTM
+   recurrence's forward and backward in float32 and bf16), then
    the last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
@@ -267,11 +293,11 @@ TOL_BF16_MODEL_REL = 2e-2
 # (gordo_tpu_torch/ops/csrc/wgmma_bf16.cuh)
 FLOP_PER_PAIR = {"float32": {"forward": 4, "dq": 6, "dkv": 8},
                  "bfloat16": {"forward": 8, "dq": 10, "dkv": 16}}
-def build_config(name: str, tags=TAGS, **estimator) -> dict:
+def build_config(name: str, tags=TAGS, base=None, **estimator) -> dict:
     """A transformer-ae-512 machine: 6,144 ten-minute RandomDataset rows of
     ``tags``, the model written with the JAX package's paths (``estimator``
-    added to the TransformerAutoEncoder's arguments), the default CV and
-    metrics."""
+    added to the TransformerAutoEncoder's arguments, ``base``, CONFIG by
+    default), the default CV and metrics."""
     return {
         "name": name,
         "dataset": {"type": "RandomDataset", "train_start_date": "2020-01-01T00:00:00+00:00",
@@ -281,7 +307,8 @@ def build_config(name: str, tags=TAGS, **estimator) -> dict:
             "base_estimator": {"sklearn.pipeline.Pipeline": {"steps": [
                 "sklearn.preprocessing.MinMaxScaler",
                 {"gordo_tpu.models.models.TransformerAutoEncoder": {
-                    **CONFIG, "epochs": 1, "batch_size": BATCH, **estimator}},
+                    **(CONFIG if base is None else base), "epochs": 1, "batch_size": BATCH,
+                    **estimator}},
             ]}}}},
         "evaluation": {"cv_mode": "full_build", "seed": 0},
     }
@@ -890,9 +917,11 @@ def head_dim_gates(dtype: str) -> dict:
     return worst
 
 
-def head_dim_times(card: str, dtype: str) -> dict:
-    """Each kernel of ``dtype`` at (BH, 512, dh), causal, for BH in TIMED_BH
-    and dh in TIMED_HEAD_DIMS: held against its plain twin on the same
+def head_dim_times(card: str, dtype: str, dims=TIMED_HEAD_DIMS, bhs=TIMED_BH,
+                   t: int = None) -> dict:
+    """Each kernel of ``dtype`` at (BH, T, dh), causal, for BH in ``bhs``
+    and dh in ``dims`` (T the main path's lookback unless ``t`` is given):
+    held against its plain twin on the same
     inputs (:func:`twin_gates`), and timed by CUDA events beside its bound
     (from the true dh: the class's padded columns show as a lower share),
     the plain twin (the forward, or the whole backward) and
@@ -906,9 +935,9 @@ def head_dim_times(card: str, dtype: str) -> dict:
     size = 2 if dtype == "bfloat16" else 4
     g = torch.Generator(device="cuda").manual_seed(SEED + 21)
     times = {kernel: {} for kernel in ENTRY_NAMES}
-    t = CONFIG["lookback_window"]
-    for dh in TIMED_HEAD_DIMS:
-        for bh in TIMED_BH:
+    t = CONFIG["lookback_window"] if t is None else t
+    for dh in dims:
+        for bh in bhs:
             q, k, v, do = (torch.randn((bh, t, dh), device="cuda", generator=g).to(torch_dtype)
                            for _ in range(4))
             o, lse = fa.flash_attention_forward(q, k, v, True)
@@ -1287,11 +1316,16 @@ def _payload(values: np.ndarray, start: datetime) -> dict:
 
 
 def _with_attention(spec, impl: str):
-    from gordo_tpu_torch.models.spec import TransformerBlock
-
+    """``spec`` with every attention layer (Transformer and MoE blocks) on
+    ``impl``."""
     return dataclasses.replace(spec, layers=tuple(
         dataclasses.replace(layer, attention_impl=impl)
-        if isinstance(layer, TransformerBlock) else layer for layer in spec.layers))
+        if hasattr(layer, "attention_impl") else layer for layer in spec.layers))
+
+
+def _attention_blocks(spec) -> int:
+    """The layers of ``spec`` that run attention (Transformer and MoE blocks)."""
+    return sum(hasattr(layer, "attention_impl") for layer in spec.layers)
 
 
 # the wrappers' launch counters: the forward, dQ and dK/dV kernels of each dtype
@@ -1310,6 +1344,7 @@ def _reset_launches() -> None:
     for names in COUNTERS.values():
         for name in names:
             setattr(fa, name, 0)
+    fa.HEAD_DIM_LAUNCHES.clear()
     for names in LSTM_COUNTERS.values():
         for name in names:
             setattr(lstm, name, 0)
@@ -2564,7 +2599,9 @@ def _one_batch_diffs(spec, params, X, orders, device: str) -> tuple:
     machine's own model at the same parameters: the largest differences of
     the outputs and of the parameter gradients (``bk`` left out: its true
     gradient is 0, rounding noise), each relative to the serial one's
-    largest entry."""
+    largest entry. An MoE spec's routing is compared first
+    (:func:`routing_gate`): the windows a rounding flip taints are left out
+    of the outputs compared and weighted 0 in both losses."""
     import torch
 
     from gordo_tpu_torch.ops import nn, train
@@ -2573,15 +2610,27 @@ def _one_batch_diffs(spec, params, X, orders, device: str) -> tuple:
     serials = [nn.TransformerModel(spec, p, torch.device(device)) for p in params]
     xb, yb = train._gather_batch(spec, X, X, orders[:, :BATCH].to(device))
     wb = torch.ones(len(params), BATCH, device=device)
+    with torch.no_grad():
+        stacked_out, stacked_routing = stacked.forward_with_routing(xb)
+        runs = [model.forward_with_routing(xb[m]) for m, model in enumerate(serials)]
+    clean = []
+    for m, (_, routing) in enumerate(runs):
+        tainted = np.zeros(BATCH, bool)
+        if routing:
+            tainted, report = routing_gate(_routing_numpy(routing),
+                                           _routing_numpy(stacked_routing, m),
+                                           spec.lookback_window, MOE_FLIP_GAP[spec.compute_dtype])
+            print(f"machine {m} stacked vs serial routing ({spec.compute_dtype}): {report}",
+                  flush=True)
+        wb[m, torch.from_numpy(tainted).to(device)] = 0.0
+        clean.append(torch.from_numpy(~tainted).to(device))
     stacked_grads = torch.autograd.grad(train._loss_terms(spec, stacked, xb, yb, wb).sum(),
                                         list(stacked.parameters()))
-    with torch.no_grad():
-        stacked_out = stacked(xb)
     out_diff = grad_diff = 0.0
     for m, model in enumerate(serials):
-        with torch.no_grad():
-            ref = model(xb[m])
-        out_diff = max(out_diff, ((stacked_out[m] - ref).abs().max() / ref.abs().max()).item())
+        ref = runs[m][0]
+        out_diff = max(out_diff, ((stacked_out[m] - ref)[clean[m]].abs().max()
+                                  / ref.abs().max()).item())
         grads = torch.autograd.grad(train._loss_terms(spec, model, xb[m], yb[m], wb[m]),
                                     list(model.parameters()))
         for (name, _), got, want in zip(model.named_parameters(), stacked_grads, grads):
@@ -4186,8 +4235,10 @@ D384_CONFIG = {**CONFIG, **D384}
 D384_ROUNDS = 5  # sequential 1,535-row requests in each serving mode
 
 
-def d384_build(card: str, root: Path, dtype: str, device: str = "cuda") -> dict:
-    """``build`` of transformer-ae-512-d384 (``compute_dtype`` ``dtype``)
+def cli_model_build(card: str, root: Path, dtype: str, model: dict, label: str,
+                    device: str = "cuda") -> dict:
+    """``build`` of the ``label`` machine (``build_config`` with the
+    TransformerAutoEncoder arguments ``model``, ``compute_dtype`` ``dtype``)
     through the port's CLI in this process (``cli.main``), so that its
     launches are counted. Gates: exit 0, every CV score line, finite
     thresholds, the held-out error below the seeded weights', the dtype's
@@ -4203,19 +4254,18 @@ def d384_build(card: str, root: Path, dtype: str, device: str = "cuda") -> dict:
     from gordo_tpu_torch import cli, serializer
     from gordo_tpu_torch.models.anomaly.diff import TimeSeriesSplit
     from gordo_tpu_torch.models.models import TransformerAutoEncoder
-    from gordo_tpu_torch.models.spec import TransformerBlock
     from gordo_tpu_torch.ops.predict import n_train_samples
 
     extra = {"compute_dtype": "bfloat16"} if dtype == "bfloat16" else {}
-    name = "transformer-ae-512-d384" + ("-bf16" if extra else "")
-    config = build_config(name, **D384, **extra)
-    spec = TransformerAutoEncoder(**D384_CONFIG, **extra).build_spec(len(TAGS), len(TAGS))
+    name = label + ("-bf16" if extra else "")
+    config = build_config(name, base=model, **extra)
+    spec = TransformerAutoEncoder(**model, **extra).build_spec(len(TAGS), len(TAGS))
     other = next(d for d in COUNTERS if d != dtype)
     n_rows = _config_rows(config)
     steps = [math.ceil(n_train_samples(spec, len(train_idx)) / BATCH)
              for train_idx, _ in TimeSeriesSplit(3).split(np.zeros(n_rows))]
     steps.append(math.ceil(n_train_samples(spec, n_rows) / BATCH))
-    n_blocks = sum(isinstance(layer, TransformerBlock) for layer in spec.layers)
+    n_blocks = _attention_blocks(spec)
     out = root / name
     shutil.rmtree(out, ignore_errors=True)
     argv = ["--log-level", "WARNING", "build", json.dumps(config), str(out),
@@ -4238,21 +4288,21 @@ def d384_build(card: str, root: Path, dtype: str, device: str = "cuda") -> dict:
     launches, others = _launches(dtype), _launches(other)
     if code != 0:
         raise AssertionError(f"build {name}: exit {code}")
-    model = serializer.load(str(out), device)
+    built = serializer.load(str(out), device)
     phases = serializer.load_metadata(str(out))["metadata"]["build_metadata"]["phases"]
-    mse = held_out_mse(model, spec, n_rows)
-    thresholds = [float(x) for x in (*model.feature_thresholds_, model.aggregate_threshold_)]
+    mse = held_out_mse(built, spec, n_rows)
+    thresholds = [float(x) for x in (*built.feature_thresholds_, built.aggregate_threshold_)]
     score_lines = sum("_fold-" in line for line in stdout.getvalue().splitlines())
     result = {"name": name, "seconds": seconds, "phases": phases, "steps": steps,
               "ms_per_fit_step": 1e3 * phases["fit"] / steps[3], "peak_gib": peak,
               "launches": launches, "held_out_mse": mse, "thresholds": thresholds,
               "score_lines": score_lines, "plain_attention_calls": plain.calls}
-    print(f"build {name} ({dtype}, dh {D384_CONFIG['d_model'] // D384_CONFIG['num_heads']}) "
+    print(f"build {name} ({dtype}, dh {model['d_model'] // model['num_heads']}) "
           f"through the CLI on {card}: exit {code} in {seconds:.2f} s; phases (s) {phases}; CV "
           f"{steps[:3]} steps, fit {steps[3]} steps, {result['ms_per_fit_step']:.2f} ms per fit "
           f"step; peak device memory {peak:.2f} GiB; {dtype} launches {launches}; held-out "
           f"scaled MSE {mse['trained']:.6f} (seeded {mse['seeded']:.6f}); aggregate threshold "
-          f"{model.aggregate_threshold_:.6f}; {score_lines} score lines; plain attention "
+          f"{built.aggregate_threshold_:.6f}; {score_lines} score lines; plain attention "
           f"calls {plain.calls}", flush=True)
     expected_lines = 4 * (len(TAGS) + 1) * 7
     if not (launches["dq"] == launches["dkv"] == n_blocks * sum(steps)
@@ -4342,7 +4392,7 @@ def d384_served(card: str, collection: Path, names: dict, device: str = "cuda") 
 
 def d384_path(card: str, root: Path, device: str = "cuda") -> dict:
     """transformer-ae-512-d384 on the card: built by the CLI in float32 and
-    bf16 (:func:`d384_build`), both artifacts served direct and fused
+    bf16 (:func:`cli_model_build`), both artifacts served direct and fused
     (:func:`d384_served`), and a stacked two-machine bucket of it against
     the serial trainer (:func:`fleet_loss_check`: one batch's output and
     gradients within TOL_GRAD_REL in float32 and TOL_BF16_MODEL_REL in bf16,
@@ -4352,7 +4402,8 @@ def d384_path(card: str, root: Path, device: str = "cuda") -> dict:
     shutil.rmtree(root, ignore_errors=True)
     collection = root / "collection"
     collection.mkdir(parents=True)
-    builds = {dtype: d384_build(card, collection, dtype, device) for dtype in COUNTERS}
+    builds = {dtype: cli_model_build(card, collection, dtype, D384_CONFIG,
+                                     "transformer-ae-512-d384", device) for dtype in COUNTERS}
     served = d384_served(card, collection, {dtype: b["name"] for dtype, b in builds.items()},
                          device)
     _reset_launches()
@@ -4368,6 +4419,484 @@ def d384_path(card: str, root: Path, device: str = "cuda") -> dict:
                         "served": {"forward": served[dtype]["forward_launches"]},
                         "stacked": stacked["launches"][dtype]} for dtype in COUNTERS}
     return {"build": builds, "served": served, "stacked": stacked, "launches": launches}
+
+
+# ------------------------------------------------------------ the Switch-MoE Transformer
+# moe-transformer-ae-512: transformer-ae-512 with each block's FFN swapped
+# for 8 Switch experts of 512 (capacity factor 1.25, the load-balancing loss
+# at the block's 0.01), float32 and bf16: built by the CLI, served direct and
+# fused, trained as stacked buckets. moe_model_144: the JAX factory at its
+# own defaults (lookback 144, d_model 64, 4 heads of 16, 8 experts of 128),
+# which runs the kernels' dh-16 class
+MOE = {"kind": "moe_transformer_model", "num_experts": 8, "expert_dim": 512,
+       "capacity_factor": 1.25}
+MOE_CONFIG = {**{k: v for k, v in CONFIG.items() if k != "ff_dim"}, **MOE}
+MOE144_CONFIG = {"kind": "moe_transformer_model", "lookback_window": 144, "d_model": 64,
+                 "num_heads": 4}
+MOE_ROUNDS = 5  # sequential 1,535-row requests in each serving mode
+# a routing flip (two computations of one model sending a token to different
+# experts) is rounding when the reference's logit gap between the two
+# experts is under absolute + relative x |its top logit|: 1e-5 in float32,
+# one bf16 ulp (BF16_ULP of the top logit) in bf16
+MOE_FLIP_GAP = {"float32": (1e-5, 0.0), "bfloat16": (0.0, BF16_ULP)}
+MOE_FLEET_MACHINES = 2  # of each configuration in the MoE batch-build
+MOE_TIMED_BH = (256,)  # moe_model_144's stacked step: 2 machines x batch 32 x 4 heads
+
+
+def _routing_numpy(routing: list, lane=None) -> list:
+    """MoE routing records (``forward_with_routing``) as numpy, lane
+    ``lane`` of stacked ones."""
+    return [{key: (value if lane is None else value[lane]).cpu().numpy()
+             for key, value in record.items() if key != "capacity"}
+            | {"capacity": record["capacity"]} for record in routing]
+
+
+def routing_gate(ref: list, got: list, tokens_per_window: int, gap: tuple) -> tuple:
+    """Two computations' routing of one model's tokens (numpy records of
+    :func:`_routing_numpy`, block by block, tokens window-major), compared
+    first, as every MoE gate compares. A flip (a token whose top-1 expert
+    differs) must have a logit gap in ``ref`` between its two experts under
+    ``gap`` (absolute, relative to the token's top logit) unless its window
+    is already tainted; a capacity shift (one expert, kept by one side
+    only) must follow a flip into or out of that expert earlier in token
+    order in the same block. A window that holds a flip or a shift is
+    tainted from then on (attention carries the difference along it).
+    Raises on any other difference; returns the tainted windows (a bool
+    array) and the counts."""
+    n = ref[0]["top1"].shape[-1] if ref else 0
+    windows = np.arange(n) // tokens_per_window
+    tainted = np.zeros(n // tokens_per_window, bool)
+    report = {"flips": [], "capacity_shifts": [], "max_flip_gap": 0.0}
+    for block, (r, g) in enumerate(zip(ref, got)):
+        flip = r["top1"] != g["top1"]
+        idx = np.flatnonzero(flip)
+        logits = r["logits"]
+        gaps = logits[idx, r["top1"][idx]] - logits[idx, g["top1"][idx]]
+        limit = gap[0] + gap[1] * np.abs(logits[idx, r["top1"][idx]])
+        fresh = ~tainted[windows[idx]]
+        if (fresh & (gaps >= limit)).any():
+            worst = idx[fresh & (gaps >= limit)][0]
+            raise AssertionError(
+                f"block {block}: token {worst} routed to {r['top1'][worst]} and "
+                f"{g['top1'][worst]}, logit gap {logits[worst, r['top1'][worst]] - logits[worst, g['top1'][worst]]:.3e} "
+                f"above the rounding gate {gap}")
+        shift = (r["keep"] != g["keep"]) & ~flip
+        first_flip = np.full(logits.shape[-1], n)
+        for experts in (r["top1"][idx], g["top1"][idx]):
+            np.minimum.at(first_flip, experts, idx)
+        unexplained = np.flatnonzero(shift)[first_flip[r["top1"][shift]] >= np.flatnonzero(shift)]
+        if len(unexplained):
+            raise AssertionError(f"block {block}: token {unexplained[0]} kept by one side only "
+                                 f"with no earlier flip into or out of its expert")
+        tainted[windows[flip | shift]] = True
+        report["flips"].append(int(flip.sum()))
+        report["capacity_shifts"].append(int(shift.sum()))
+        if len(idx):
+            report["max_flip_gap"] = max(report["max_flip_gap"], float(gaps.max()))
+    report["windows_tainted"] = int(tainted.sum())
+    return tainted, report
+
+
+def moe_compare(label: str, ref: tuple, got: tuple, tokens_per_window: int, dtype: str,
+                tol: float) -> dict:
+    """``ref`` and ``got``, each (outputs by window, numpy routing records):
+    :func:`routing_gate` first, then the outputs of the untainted windows
+    within ``tol`` of ``ref``'s largest entry. Returns the counts and the
+    error."""
+    tainted, report = routing_gate(ref[1], got[1], tokens_per_window, MOE_FLIP_GAP[dtype])
+    ref_out, got_out = np.asarray(ref[0]), np.asarray(got[0])
+    clean = ~tainted[:len(ref_out)]
+    err = float(np.abs(got_out[clean] - ref_out[clean]).max() / np.abs(ref_out).max())
+    report.update(max_rel_err=err, windows_compared=int(clean.sum()),
+                  max_rel_err_all_windows=float(np.abs(got_out - ref_out).max()
+                                                / np.abs(ref_out).max()))
+    print(f"{label}: routing flips by block {report['flips']} (largest logit gap "
+          f"{report['max_flip_gap']:.3e}, gate {MOE_FLIP_GAP[dtype]}), capacity shifts "
+          f"{report['capacity_shifts']}, {report['windows_tainted']} windows tainted; max rel "
+          f"err {err:.3e} over {report['windows_compared']} windows (gate {tol:g}; over every "
+          f"window, ungated: {report['max_rel_err_all_windows']:.3e})", flush=True)
+    if not err <= tol:
+        raise AssertionError(f"{label}: max rel err {err} over the untainted windows")
+    return report
+
+
+def moe_load(routing: list) -> list:
+    """Each block's capacity, tokens dropped (over capacity) and tokens
+    routed to each expert, from numpy routing records."""
+    return [{"capacity": r["capacity"], "tokens": int(r["top1"].size),
+             "dropped": int((~r["keep"]).sum()),
+             "dropped_share": float((~r["keep"]).mean()),
+             "expert_load": np.bincount(r["top1"].ravel(),
+                                        minlength=r["logits"].shape[-1]).tolist()}
+            for r in routing]
+
+
+def _moe_direct(module, X: np.ndarray, device: str) -> tuple:
+    """A request's (outputs of its real windows, numpy routing) through the
+    model's direct predict, as ``predict_fn`` pads it."""
+    import torch
+
+    from gordo_tpu_torch.ops.predict import pad_for_predict, unfold_windows
+
+    X_pad, n_pad, n_keep = pad_for_predict(module.spec, X)
+    with torch.inference_mode():
+        windows = unfold_windows(module.spec, torch.from_numpy(X_pad).to(device), n_pad)
+        out, routing = module.forward_with_routing(windows)
+    return out[:n_keep].cpu().numpy(), _routing_numpy(routing)
+
+
+def _moe_fused(spec, modules: list, inputs: list, device: str) -> list:
+    """The fused call of these requests (one padded shape) recomputed as
+    the batcher makes it, ``stacked_forward`` on the models' stacked
+    parameters: each lane's (outputs of its real windows, numpy routing)."""
+    import torch
+
+    from gordo_tpu_torch.ops.nn import stacked_forward
+    from gordo_tpu_torch.ops.predict import pad_for_predict, unfold_windows
+
+    padded = [pad_for_predict(spec, X) for X in inputs]
+    n_pad = padded[0][1]
+    with torch.inference_mode():
+        params = [{name: torch.stack([m.layer_params[i][name] for m in modules])
+                   for name in layer} for i, layer in enumerate(modules[0].layer_params)]
+        X = torch.from_numpy(np.stack([p[0] for p in padded])).to(device)
+        routing: list = []
+        out = stacked_forward(spec, params, unfold_windows(spec, X, n_pad), routing)
+        out = out.cpu().numpy()
+    return [(out[m, :p[2]], _routing_numpy(routing, m)) for m, p in enumerate(padded)]
+
+
+def moe_served(card: str, collection: Path, names: dict, device: str = "cuda") -> dict:
+    """The built moe-transformer-ae-512 artifacts (``names``: dtype ->
+    name) served as ``run-server`` serves them, direct then with the
+    batcher forced on: MOE_ROUNDS 1,535-row anomaly requests each
+    (:func:`_served_run`'s checks). The served answers must be the model's
+    direct predict and the same request's fused lane (recomputed with
+    their routing); then, routing first (:func:`moe_compare`), the fused
+    lane against the direct predict within the dtype's tolerance
+    (TOL_OUT_REL, TOL_BF16_MODEL_REL), and the direct predict against the
+    same model with plain attention within TOL_MODEL_REL (bf16
+    TOL_BF16_MODEL_REL). Then one fused call of BATCHER_MODELS full-width
+    requests (8,192 windows) against their direct predicts, lane by lane,
+    with its peak device memory. Reports the tokens dropped per block and
+    each expert's load. Returns p50s, the comparisons, the loads, memory
+    and forward launches."""
+    import torch
+
+    from gordo_tpu_torch.models.models import TransformerAutoEncoder
+    from gordo_tpu_torch.server import batcher
+    from gordo_tpu_torch.server.server import make_server
+
+    previous = os.environ.get("GORDO_TPU_SERVING_BATCH")
+    server = make_server("127.0.0.1", 0, device=device, collection_dir=str(collection))
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    project = f"http://127.0.0.1:{server.server_address[1]}/gordo/v0/smoke"
+    rng = np.random.RandomState(SEED + 40)
+    lookback = MOE_CONFIG["lookback_window"]
+    result = {}
+    try:
+        for dtype, name in names.items():
+            tol = TOL_BF16_MODEL_REL if dtype == "bfloat16" else TOL_OUT_REL
+            plain_tol = TOL_BF16_MODEL_REL if dtype == "bfloat16" else TOL_MODEL_REL
+            values = _series(FULL_ROWS, 90000, rng)
+            body = _rect_body(values)
+            n_out = FULL_ROWS - lookback + 1
+            runs = {mode: _served_run(card, project, [(name, body)] * MOE_ROUNDS, 1, mode,
+                                      dtype, MOE_CONFIG["num_blocks"], n_out,
+                                      f"moe-transformer-ae-512 ({FULL_ROWS} rows)",
+                                      must_fuse=False)
+                    for mode in ("0", "1")}
+            os.environ["GORDO_TPU_SERVING_BATCH"] = "0"
+            batcher.reset_batcher()
+            detector = server.models[name].detector
+            estimator, scaler = (detector.base_estimator.steps[-1][1],
+                                 detector.base_estimator.steps[0][1])
+            X = scaler.transform(values).astype(np.float32)
+            direct = _moe_direct(estimator.module_, X, device)
+            fused = _moe_fused(estimator.spec_, [estimator.module_], [X], device)[0]
+            plain_model = TransformerAutoEncoder(**MOE_CONFIG).load_params(
+                _with_attention(estimator.spec_, "xla"), estimator.module_.params_numpy(), device)
+            plain = _moe_direct(plain_model.module_, X, device)
+            served = {mode: _max_rel(runs[mode]["outputs"], [out] * MOE_ROUNDS)
+                      for mode, out in (("0", direct[0]), ("1", fused[0]))}
+            print(f"moe-transformer-ae-512 served ({dtype}) on {card}: p50 direct "
+                  f"{runs['0']['p50_ms']:.2f} ms, fused {runs['1']['p50_ms']:.2f} ms; served "
+                  f"answers against their recomputed direct and fused lanes, max rel "
+                  f"{served}", flush=True)
+            if not all(err <= 1e-6 for err in served.values()):
+                raise AssertionError(f"moe ({dtype}): the served answers are not the "
+                                     f"recomputed lanes: {served}")
+            compared = {
+                "fused_vs_direct": moe_compare(f"moe {dtype} fused lane vs direct", direct,
+                                               fused, lookback, dtype, tol),
+                "direct_vs_plain_attention": moe_compare(
+                    f"moe {dtype} direct vs plain attention", plain, direct, lookback, dtype,
+                    plain_tol)}
+            load = moe_load(direct[1])
+            print(f"moe-transformer-ae-512 ({dtype}) routing of one {FULL_ROWS}-row request "
+                  f"({load[0]['tokens'] // lookback} padded windows): {load}", flush=True)
+            lanes = moe_lanes(card, estimator, dtype, rng, tol, device)
+            result[dtype] = {
+                "p50_ms": {"direct": runs["0"]["p50_ms"], "fused": runs["1"]["p50_ms"]},
+                "max_ms": {"direct": runs["0"]["max_ms"], "fused": runs["1"]["max_ms"]},
+                "served_vs_recomputed": served, "compared": compared, "routing": load,
+                "lanes": lanes,
+                "forward_launches": runs["0"]["forward_launches"] + runs["1"]["forward_launches"]
+                + lanes["forward_launches"],
+                "fused_calls": runs["1"]["fused_calls"]}
+            del plain_model
+            torch.cuda.empty_cache()
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=60)
+        batcher.reset_batcher()
+        if previous is None:
+            os.environ.pop("GORDO_TPU_SERVING_BATCH", None)
+        else:
+            os.environ["GORDO_TPU_SERVING_BATCH"] = previous
+    return result
+
+
+def moe_lanes(card: str, estimator, dtype: str, rng, tol: float, device: str = "cuda") -> dict:
+    """BATCHER_MODELS full-width requests of the model queued on a fresh
+    batcher at once (one fused call of 8,192 windows, each lane at the
+    direct predict's capacity) against their direct predicts: the call's
+    peak device memory above its start, the answers equal to the call
+    recomputed with its routing, and each lane against its direct predict
+    routing first (:func:`moe_compare`, ``tol``). Returns the memory, the
+    comparisons and the call's forward launches."""
+    import torch
+
+    from gordo_tpu_torch.server import batcher
+
+    inputs = [_series(FULL_ROWS, 95000 + 2000 * m, rng).astype(np.float32)
+              for m in range(BATCHER_MODELS)]
+    fused = batcher.CrossModelBatcher()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    t0 = time.perf_counter()
+    answers = _queued(fused, [(estimator, X) for X in inputs])
+    seconds = time.perf_counter() - t0
+    fused_gib = (torch.cuda.max_memory_allocated() - base) / 2**30
+    launched = _launches(dtype)["forward"]
+    calls = list(fused.calls)
+    recomputed = _moe_fused(estimator.spec_, [estimator.module_] * len(inputs), inputs, device)
+    same = _max_rel(answers, [lane[0] for lane in recomputed])
+    if len(calls) != 1 or same > 1e-6:
+        raise AssertionError(f"moe fused call: {calls}, answers against the recomputed call "
+                             f"{same}")
+    compared, dropped = [], []
+    for m, X in enumerate(inputs):
+        direct = _moe_direct(estimator.module_, X, device)
+        compared.append(moe_compare(f"moe {dtype} fused lane {m} of {len(inputs)} vs direct",
+                                    direct, recomputed[m], MOE_CONFIG["lookback_window"],
+                                    dtype, tol))
+        dropped.append([b["dropped"] for b in moe_load(recomputed[m][1])])
+    out = {"fused_calls": calls, "fused_gib": fused_gib,
+           "fused_mib_per_window": fused_gib * 1024 / calls[0][1], "fused_s": seconds,
+           "dropped_by_lane": dropped, "compared": compared, "forward_launches": launched}
+    print(f"moe fused call on {card} ({dtype}): (width, windows) {calls} peaks "
+          f"{fused_gib:.3f} GiB above its start ({out['fused_mib_per_window']:.3f} MiB a "
+          f"window) in {seconds:.3f} s; tokens dropped by lane and block {dropped}", flush=True)
+    return out
+
+
+def moe_fleet(card: str, root: Path, device: str = "cuda") -> dict:
+    """A stacked two-machine bucket of each MoE configuration against the
+    serial trainer (:func:`fleet_loss_check`, its one-batch gate routing
+    first), then ``batch-build`` (``cli.batch_build``, in this process) of
+    MOE_FLEET_MACHINES moe-transformer-ae-512 and as many moe_model_144
+    machines: exit 0, every machine an artifact, none built serially, two
+    stacked programs, one configuration each; float32 dQ and dK/dV once
+    per block a stacked step of each, at dh 64 and dh 16 (the flash
+    kernels' dh-16 class) by the wrapper's head-dim tally; no bf16 launch
+    and no plain attention; each machine's thresholds finite and its
+    held-out error below its seeded weights'. Returns the checks, the wall,
+    the stacked programs and the launches by dh."""
+    import contextlib
+    import io
+
+    import torch
+
+    from gordo_tpu_torch import cli, serializer
+    from gordo_tpu_torch.models.models import TransformerAutoEncoder
+    from gordo_tpu_torch.ops import flash_attention as fa
+    from gordo_tpu_torch.parallel import batch_trainer as bt
+
+    stacked = {}
+    for label, model in (("moe-transformer-ae-512", MOE_CONFIG),
+                         ("moe_model_144", MOE144_CONFIG)):
+        _reset_launches()
+        with _PlainAttentionCalls() as plain:
+            stacked[label] = fleet_loss_check(card, device, config=model)
+        stacked[label]["launches"] = {dtype: _launches(dtype) for dtype in COUNTERS}
+        stacked[label]["launches_by_head_dim"] = {
+            f"{name}@{dh}": n for (name, dh), n in sorted(fa.HEAD_DIM_LAUNCHES.items())}
+        if plain.calls:
+            raise AssertionError(f"the {label} stacked check reached plain attention")
+    names = {label: [f"{label.replace('_', '-')}-{i}" for i in range(MOE_FLEET_MACHINES)]
+             for label in ("moe-transformer-ae-512", "moe_model_144")}
+    configs = [build_config(n, tags=[f"{n}-tag-{j}" for j in range(len(TAGS))],
+                            base=MOE_CONFIG if label.startswith("moe-") else MOE144_CONFIG)
+               for label, members in names.items() for n in members]
+    config = root / "moe-fleet.json"
+    config.write_text(json.dumps({"machines": configs}))
+    output = root / "moe-fleet"
+    shutil.rmtree(output, ignore_errors=True)
+    specs = {label: TransformerAutoEncoder(**model).build_spec(len(TAGS), len(TAGS))
+             for label, model in (("moe-transformer-ae-512", MOE_CONFIG),
+                                  ("moe_model_144", MOE144_CONFIG))}
+    chunks, serial = [], []
+    build_chunk, serial_build = (bt.BatchedModelBuilder._build_chunk,
+                                 bt.BatchedModelBuilder._serial_build)
+
+    def recorded_chunk(self, group, *args, **kwargs):
+        chunks.append({"names": [p.machine.name for p in group], "spec": group[0].spec,
+                       "n_rows": len(group[0].X)})
+        return build_chunk(self, group, *args, **kwargs)
+
+    def recorded_serial(self, machine):
+        serial.append(machine.name)
+        return serial_build(self, machine)
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    bt.BatchedModelBuilder._build_chunk = recorded_chunk
+    bt.BatchedModelBuilder._serial_build = recorded_serial
+    stdout = io.StringIO()
+    try:
+        with _PlainAttentionCalls() as plain, contextlib.redirect_stdout(stdout):
+            t0 = time.perf_counter()
+            code = cli.batch_build(str(config), str(output), "smoke-moe", device=device)
+            seconds = time.perf_counter() - t0
+    finally:
+        bt.BatchedModelBuilder._build_chunk = build_chunk
+        bt.BatchedModelBuilder._serial_build = serial_build
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    launches = {dtype: _launches(dtype) for dtype in COUNTERS}
+    by_dh = dict(fa.HEAD_DIM_LAUNCHES)
+    built = [line for line in stdout.getvalue().splitlines() if line.startswith("built: ")]
+    artifacts = sum((output / c["name"] / "model.json").exists() for c in configs)
+    expected = {}
+    for chunk in chunks:
+        label = next(k for k, spec in specs.items() if spec == chunk["spec"])
+        if sorted(chunk["names"]) != names[label]:
+            raise AssertionError(f"the MoE buckets: {[c['names'] for c in chunks]}")
+        dh = specs[label].layers[2].d_model // specs[label].layers[2].num_heads
+        expected[dh] = _attention_blocks(chunk["spec"]) * _stage_steps(
+            chunk["spec"], chunk["n_rows"], BATCH, 1)
+    result = {"stacked": stacked, "machines": len(configs), "seconds": seconds,
+              "peak_gib": peak, "stacked_programs": [c["names"] for c in chunks],
+              "launches": launches, "launches_by_head_dim": {
+                  f"{name}@{dh}": n for (name, dh), n in sorted(by_dh.items())},
+              "serial_built": serial}
+    print(f"moe batch-build of {len(configs)} machines ({MOE_FLEET_MACHINES} "
+          f"moe-transformer-ae-512, {MOE_FLEET_MACHINES} moe_model_144) on {card}: exit {code} "
+          f"in {seconds:.2f} s, {len(built)} built, {artifacts} artifacts, serial {serial}; "
+          f"stacked programs {result['stacked_programs']}; peak device memory {peak:.2f} GiB; "
+          f"launches by head dim {result['launches_by_head_dim']}", flush=True)
+    if code != 0 or len(built) != len(configs) or artifacts != len(configs) or serial:
+        raise AssertionError(f"moe batch-build exited {code}: {len(built)} built, {artifacts} "
+                             f"artifacts, serially built {serial}")
+    if len(chunks) != 2 or any(launches["bfloat16"].values()) or plain.calls:
+        raise AssertionError(f"moe batch-build: programs {result['stacked_programs']}, "
+                             f"launches {launches}, plain attention {plain.calls}")
+    for dh, n in expected.items():
+        if not (by_dh.get(("DQ_LAUNCHES", dh)) == by_dh.get(("DKV_LAUNCHES", dh)) == n
+                and by_dh.get(("LAUNCHES", dh), 0) >= n):
+            raise AssertionError(f"expected {n} float32 dQ and dK/dV launches at dh {dh}, got "
+                                 f"{result['launches_by_head_dim']}")
+    held_out = {}
+    for label, members in names.items():
+        for name in members:
+            model = serializer.load(str(output / name), device)
+            spec = model.base_estimator.steps[-1][1].spec_
+            mse = held_out_mse(model, spec, _config_rows(configs[0]),
+                               tags=serializer.load_model_json(str(output / name))["tags"])
+            thresholds = [*model.feature_thresholds_, model.aggregate_threshold_]
+            if not (all(math.isfinite(x) for x in thresholds) and mse["trained"] < mse["seeded"]):
+                raise AssertionError(f"{name}: thresholds {thresholds}, held-out {mse}")
+            held_out[name] = mse
+    result["held_out_mse"] = held_out
+    print(f"moe fleet machines' held-out scaled MSE (trained, seeded) on {card}: "
+          f"{ {n: (round(e['trained'], 6), round(e['seeded'], 6)) for n, e in held_out.items()} }",
+          flush=True)
+    return result
+
+
+def moe_path(card: str, root: Path, device: str = "cuda") -> dict:
+    """The Switch-MoE Transformer on the card: moe-transformer-ae-512 built
+    by the CLI in float32 and bf16 (:func:`cli_model_build`: the dtype's
+    flash forward, dQ and dK/dV at dh 64 and nothing else), both artifacts
+    served direct and fused (:func:`moe_served`), the fleet
+    (:func:`moe_fleet`: stacked buckets against serial, and a
+    ``batch-build`` whose moe_model_144 bucket runs the dh-16 class), and
+    the six flash kernels at dh 16 timed at that bucket's shape (BH 256, T
+    144; :func:`head_dim_times`). Returns each part's numbers and the
+    launches by dtype, part and head dim."""
+    shutil.rmtree(root, ignore_errors=True)
+    collection = root / "collection"
+    collection.mkdir(parents=True)
+    t0 = time.perf_counter()
+    builds = {dtype: cli_model_build(card, collection, dtype, MOE_CONFIG,
+                                     "moe-transformer-ae-512", device) for dtype in COUNTERS}
+    served = moe_served(card, collection, {dtype: b["name"] for dtype, b in builds.items()},
+                        device)
+    dropped = sum(b["dropped"] for r in served.values() for b in r["routing"])
+    if not dropped:
+        raise AssertionError("no token of the served requests went over its expert's capacity")
+    fleet = moe_fleet(card, root, device)
+    times = {dtype: head_dim_times(card, dtype, dims=(16,), bhs=MOE_TIMED_BH,
+                                   t=MOE144_CONFIG["lookback_window"]) for dtype in COUNTERS}
+    seconds = time.perf_counter() - t0
+    print(f"moe phase: {seconds:.1f} s", flush=True)
+    stacked = fleet["stacked"]
+    launches = {dtype: {
+        "build": builds[dtype]["launches"],
+        "served": {"forward": served[dtype]["forward_launches"]},
+        "stacked_dh64": stacked["moe-transformer-ae-512"]["launches"][dtype],
+        "stacked_dh16": stacked["moe_model_144"]["launches"][dtype]} for dtype in COUNTERS}
+    return {"build": builds, "served": served, "fleet": fleet, "times_dh16": times,
+            "launches": launches, "seconds": seconds}
+
+
+def moe_entries(entries: list, moe: dict) -> list:
+    """The MoE paths' launches in the ``kernels`` line: each of the six
+    flash ``entries`` (dh 64) gets moe-transformer-ae-512's builds, serving
+    (the forward), stacked checks and bucket of the MoE ``batch-build``;
+    returns six entries of the same kernels at dh 16 (their class at
+    moe_model_144's stacked step: timed by :func:`moe_path`, launched by its
+    stacked checks and its bucket)."""
+    fleet_by_dh = moe["fleet"]["launches_by_head_dim"]
+    dh16_entries = []
+    for entry in entries:
+        dtype = entry["dtype"]
+        kernel = next(k for k, n in ENTRY_NAMES.items() if entry["name"] in (n, n + "_bf16"))
+        counter = COUNTERS[dtype][list(ENTRY_NAMES).index(kernel)]
+        paths = moe["launches"][dtype]
+        entry["launches_by_path"].update({
+            "moe_build": paths["build"][kernel], "moe_stacked": paths["stacked_dh64"][kernel],
+            "moe_fleet": fleet_by_dh.get(f"{counter}@64", 0)})
+        if kernel == "forward":
+            entry["launches_by_path"]["moe_served"] = paths["served"]["forward"]
+        timed = moe["times_dh16"][dtype][kernel][16][MOE_TIMED_BH[0]]
+        dh16_entries.append({
+            "name": f"{entry['name']}_dh16", "route": "cuda", "source": entry["source"],
+            "replaces": entry["replaces"], "dtype": dtype, "head_dim": 16,
+            "head_dim_class": _head_dim_class(entry["name"], 16),
+            "launches_by_path": {"moe_fleet": fleet_by_dh.get(f"{counter}@16", 0),
+                                 "moe_stacked": paths["stacked_dh16"][kernel]},
+            "max_abs_err": max(v["max_abs_err"] for k, v in timed["against_plain"].items()
+                               if k != "lse"),
+            **{key: timed[key] for key in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                           "bound_by", "shape", "achieved_tflop_s",
+                                           "bound_share", "plain_and_library_compute")}})
+    return dh16_entries
 
 
 def main() -> int:
@@ -4514,6 +5043,8 @@ def main() -> int:
     d384["phase_s"] = time.perf_counter() - t0
     torch.cuda.empty_cache()
     print(f"transformer-ae-512-d384 phase: {d384['phase_s']:.1f} s", flush=True)
+    moe = moe_path(card, REPO / "build" / "chip_smoke_moe")
+    torch.cuda.empty_cache()
 
     forward["launches_by_path"] = {"serving": serving, "server_surface": base_route,
                                    "batcher": batched["launches"],
@@ -4543,6 +5074,8 @@ def main() -> int:
     print(json.dumps({"windowed": windowed}, default=str))
     print(json.dumps({"transformer-ae-512-d384": {key: value for key, value in d384.items()
                                                   if key != "launches"}}, default=str))
+    print(json.dumps({"moe": {key: value for key, value in moe.items()
+                              if key not in ("launches", "times_dh16")}}, default=str))
     for entry, key, launches, fleet_launches in (
             (dq, "dq", build, fleet), (dkv, "dkv", build, fleet),
             (bf16_dq, "dq", bf16_build, bf16_fleet), (bf16_dkv, "dkv", bf16_build, bf16_fleet)):
@@ -4552,6 +5085,7 @@ def main() -> int:
             entry["launches_by_path"]["kfcv_fleet"] = kfcv_fleet["launches"][key]
             entry["launches_by_path"]["windowed_fleet"] = windowed["fleet"]["launches"][
                 "float32"][key]
+    dh16_entries = moe_entries(entries, moe)
     for entry in entries:
         entry["fleet_shape"] = fleet_times[entry["name"]]
     # the wide head dims: each kernel's gates by dh and its times at dh 96
@@ -4614,7 +5148,7 @@ def main() -> int:
         entry["instantiations"] = [i for i in lstm_instantiations
                                    if (i["kernel"], i["dtype"]) == (
                                        entry["name"].split("_")[2], entry["dtype"])]
-    entries += d384_entries + lstm_entries
+    entries += d384_entries + dh16_entries + lstm_entries
     for entry in entries:
         entry["launches"] = sum(entry["launches_by_path"].values())
         if entry["launches"] < 1:

@@ -7,11 +7,11 @@ from .feedforward_autoencoder import (
 )
 from .lstm_autoencoder import lstm_hourglass, lstm_model, lstm_symmetric
 from .tcn import tcn_model
-from .transformer import transformer_model
+from .transformer import moe_transformer_model, transformer_model
 
 _LSTM = {f.__name__: f for f in (lstm_model, lstm_symmetric, lstm_hourglass)}
 _TCN = {"tcn_model": tcn_model}
-_TRANSFORMER = {"transformer_model": transformer_model}
+_TRANSFORMER = {f.__name__: f for f in (transformer_model, moe_transformer_model)}
 FACTORIES = {
     "AutoEncoder": {f.__name__: f for f in (feedforward_model, feedforward_symmetric,
                                             feedforward_hourglass)},

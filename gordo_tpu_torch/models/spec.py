@@ -2,9 +2,6 @@
 Declarative model specifications: the port's own copy of
 ``gordo_tpu/models/spec.py`` (same dataclasses, same fields and defaults),
 plus the dict form the port's artifact stores them in.
-
-``MoEBlock`` is kept so that any spec can be read; applying it raises
-``NotImplementedError`` (ops/nn.py).
 """
 
 import dataclasses
@@ -53,7 +50,12 @@ class TransformerBlock:
 
 @dataclass(frozen=True)
 class MoEBlock:
-    """Switch-style mixture-of-experts encoder block (not ported yet)."""
+    """Switch-style mixture-of-experts encoder block: pre-LN MHA + residual,
+    then a routed FFN + residual. Each token goes to its top-1 expert by a
+    learned router; an expert takes at most ``ceil(tokens * capacity_factor
+    / num_experts)`` tokens of a call, and the tokens over capacity pass
+    through unchanged. ``aux_loss_weight`` weighs the Switch load-balancing
+    loss in training. (B, T, d_model) in and out."""
 
     d_model: int
     num_heads: int = 4

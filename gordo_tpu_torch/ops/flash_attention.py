@@ -58,6 +58,8 @@ DKV_LAUNCHES = 0
 BF16_LAUNCHES = 0
 BF16_DQ_LAUNCHES = 0
 BF16_DKV_LAUNCHES = 0
+# the same launches by (counter name, head dim)
+HEAD_DIM_LAUNCHES = {}
 _launches_lock = threading.Lock()
 
 
@@ -174,9 +176,10 @@ def _bf16_dkv_kernel():
                        "gordo_flash_attention_backward_dkv_bf16", 8)
 
 
-def _count(name: str) -> None:
+def _count(name: str, dh: int) -> None:
     with _launches_lock:
         globals()[name] += 1
+        HEAD_DIM_LAUNCHES[name, dh] = HEAD_DIM_LAUNCHES.get((name, dh), 0) + 1
 
 
 def check_launch_limits(bh: int, t: int, dh: int) -> None:
@@ -217,7 +220,7 @@ def _launch(q, k, v, causal: bool):
     _call(_bf16_kernel() if bf16 else _kernel(),
           "bf16 flash attention" if bf16 else "flash attention",
           (q, k, v, out, lse), bh, t, dh, causal)
-    _count("BF16_LAUNCHES" if bf16 else "LAUNCHES")
+    _count("BF16_LAUNCHES" if bf16 else "LAUNCHES", dh)
     return out, lse
 
 
@@ -232,7 +235,7 @@ def launch_dq(q, k, v, o, lse, do, causal: bool):
     _call(_bf16_dq_kernel() if bf16 else _dq_kernel(),
           "bf16 flash attention dQ" if bf16 else "flash attention dQ",
           (q, k, v, o, lse, do, dq), bh, t, dh, causal)
-    _count("BF16_DQ_LAUNCHES" if bf16 else "DQ_LAUNCHES")
+    _count("BF16_DQ_LAUNCHES" if bf16 else "DQ_LAUNCHES", dh)
     return dq
 
 
@@ -247,7 +250,7 @@ def launch_dkv(q, k, v, o, lse, do, causal: bool):
     _call(_bf16_dkv_kernel() if bf16 else _dkv_kernel(),
           "bf16 flash attention dK/dV" if bf16 else "flash attention dK/dV",
           (q, k, v, o, lse, do, dk, dv), bh, t, dh, causal)
-    _count("BF16_DKV_LAUNCHES" if bf16 else "DKV_LAUNCHES")
+    _count("BF16_DKV_LAUNCHES" if bf16 else "DKV_LAUNCHES", dh)
     return dk, dv
 
 

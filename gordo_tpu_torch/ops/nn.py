@@ -1,17 +1,20 @@
 """
 Layer init/apply in PyTorch: the port's counterpart of
 ``gordo_tpu/ops/nn.py`` for the layers of the feedforward, Transformer,
-LSTM and TCN families (Dense, positional encoding, pre-LN Transformer
-block, LSTM, TCN block, pooling), at the spec's ``compute_dtype``: float32
-or bfloat16. A Dense layer with an ``l1_activity`` adds its activity
-penalty to the training loss (``forward_with_penalty``), as ``apply_model``
-returns it.
+Switch-MoE Transformer, LSTM and TCN families (Dense, positional encoding,
+pre-LN Transformer block, MoE block, LSTM, TCN block, pooling), at the
+spec's ``compute_dtype``: float32 or bfloat16. A Dense layer with an
+``l1_activity`` and an MoE block with an ``aux_loss_weight`` add their
+penalties to the training loss (``forward_with_penalty``), as
+``apply_model`` returns them.
 
 Parameters use the JAX package's layout: one dict per layer, keyed as
 there (``kernel``/``bias`` for Dense; ``kernel``/``recurrent_kernel``/
 ``bias`` for LSTM; ``conv1_kernel`` ... ``res_kernel`` for a TCN block;
-``ln1_scale``, ``wq`` ... ``b_ff2`` for a Transformer block), so weights
-carry across unchanged (serializer/from_jax.py). :class:`TransformerModel`
+``ln1_scale``, ``wq`` ... ``b_ff2`` for a Transformer block; the same
+attention keys and ``router``, ``w1``, ``b1``, ``w2``, ``b2`` with the
+experts on a leading axis for an MoE block), so weights carry across
+unchanged (serializer/from_jax.py). :class:`TransformerModel`
 holds them on the device and runs the forward pass, the counterpart of
 ``apply_model``. :func:`stacked_forward` runs M models of one spec as one:
 each parameter with a leading model axis M, the counterpart of
@@ -24,11 +27,20 @@ features).
 An LSTM layer is the input projection of every step as one matmul, then
 the recurrence as one launch of the port's CUDA kernel for all M stacked
 models (ops/lstm.py); a TCN block is the JAX package's causal convolution,
-one matmul against all taps and shifted adds, in plain torch.
+one matmul against all taps and shifted adds, in plain torch. An MoE
+block's routed FFN is the JAX package's ``moe_dispatch_ffn`` in plain
+torch (it has no Pallas kernel there): top-1 routing, each token's place
+in its expert's buffer from a cumsum in token order, a fixed (experts x
+capacity, d_model) buffer filled by gathering each slot's token, the
+experts of all M models as two batched products, and a gather back. Its
+shapes depend on the call's token count alone, never on the routing, so
+nothing waits on the device. Capacity, routing and the load-balancing
+loss are each model's own, over the tokens of its own rows (padding
+included), as under the JAX package's ``vmap``.
 """
 
 import math
-from typing import Dict, List
+from typing import Dict, List, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -54,18 +66,8 @@ Params = List[Dict[str, torch.Tensor]]
 # the compute dtypes the port runs; the parameters stay float32 at rest
 COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
-# layers the port cannot run yet, with the ROADMAP.md queue A item they wait for
-NOT_PORTED = {
-    MoEBlock: "the MoE item",
-}
-
-
-def not_ported(layer) -> NotImplementedError:
-    """The refusal of a layer (or layer class) the port cannot run yet."""
-    cls = layer if isinstance(layer, type) else type(layer)
-    return NotImplementedError(
-        f"{cls.__name__} is not ported yet: see {NOT_PORTED[cls]} of ROADMAP.md queue A"
-    )
+# the vectors of the attention sublayer, viewed against x when stacked
+_ATTENTION_VECTORS = ("ln1_scale", "ln1_bias", "bq", "bk", "bv", "bo", "ln2_scale", "ln2_bias")
 
 
 def _glorot_uniform(generator, shape) -> torch.Tensor:
@@ -76,13 +78,17 @@ def _glorot_uniform(generator, shape) -> torch.Tensor:
     )
 
 
-def _init_transformer_block(generator, in_dim: int, layer: TransformerBlock):
+def _check_d_model(in_dim: int, layer) -> None:
     if in_dim != layer.d_model:
         raise ValueError(
-            f"TransformerBlock d_model={layer.d_model} but incoming dim is "
+            f"{type(layer).__name__} d_model={layer.d_model} but incoming dim is "
             f"{in_dim}; insert a Dense projection first"
         )
-    d, ff = layer.d_model, layer.ff_dim
+
+
+def _init_attention_params(generator, d: int):
+    """The pre-LN attention sublayer's parameters, shared by the
+    Transformer and MoE blocks."""
     zeros = lambda n: torch.zeros(n, dtype=torch.float32)  # noqa: E731
     return {
         "ln1_scale": torch.ones(d),
@@ -97,10 +103,35 @@ def _init_transformer_block(generator, in_dim: int, layer: TransformerBlock):
         "bo": zeros(d),
         "ln2_scale": torch.ones(d),
         "ln2_bias": zeros(d),
+    }
+
+
+def _init_transformer_block(generator, in_dim: int, layer: TransformerBlock):
+    _check_d_model(in_dim, layer)
+    d, ff = layer.d_model, layer.ff_dim
+    return {
+        **_init_attention_params(generator, d),
         "w_ff1": _glorot_uniform(generator, (d, ff)),
-        "b_ff1": zeros(ff),
+        "b_ff1": torch.zeros(ff, dtype=torch.float32),
         "w_ff2": _glorot_uniform(generator, (ff, d)),
-        "b_ff2": zeros(d),
+        "b_ff2": torch.zeros(d, dtype=torch.float32),
+    }
+
+
+def init_moe_block(generator, in_dim: int, layer: MoEBlock):
+    """``init_moe_block``: the attention sublayer's parameters, a
+    glorot-uniform ``router`` (D, E), the experts' glorot-uniform ``w1``
+    (E, D, F) and ``w2`` (E, F, D) (each expert's own fans) and zero ``b1``
+    (E, F) and ``b2`` (E, D)."""
+    _check_d_model(in_dim, layer)
+    d, f, e = layer.d_model, layer.expert_dim, layer.num_experts
+    return {
+        **_init_attention_params(generator, d),
+        "router": _glorot_uniform(generator, (d, e)),
+        "w1": _glorot_uniform(generator, (e, d, f)),
+        "b1": torch.zeros((e, f), dtype=torch.float32),
+        "w2": _glorot_uniform(generator, (e, f, d)),
+        "b2": torch.zeros((e, d), dtype=torch.float32),
     }
 
 
@@ -176,12 +207,12 @@ def init_model_params(spec: ModelSpec, generator: torch.Generator = None) -> Par
             params.append(init_lstm_layer(generator, in_dim, layer.units))
         elif isinstance(layer, TransformerBlock):
             params.append(_init_transformer_block(generator, in_dim, layer))
+        elif isinstance(layer, MoEBlock):
+            params.append(init_moe_block(generator, in_dim, layer))
         elif isinstance(layer, TCNBlock):
             params.append(init_tcn_block(generator, in_dim, layer))
         elif isinstance(layer, (PositionalEncoding, PoolLayer)):
             params.append({})
-        elif type(layer) in NOT_PORTED:
-            raise not_ported(layer)
         else:
             raise TypeError(f"Unknown layer spec: {layer!r}")
         in_dim = layer_out_dim(layer, in_dim)
@@ -271,6 +302,130 @@ def _bias_view(bias, x, stacked: bool):
     return bias.reshape(bias.shape[:1] + (1,) * (x.dim() - 2) + bias.shape[1:])
 
 
+def moe_capacity(layer: MoEBlock, n_tokens: int) -> int:
+    """Each expert's token capacity in a call of ``n_tokens`` tokens (its
+    padding included): ``max(1, ceil(n_tokens * capacity_factor /
+    num_experts))``, Switch Transformer semantics."""
+    return max(1, math.ceil(n_tokens * layer.capacity_factor / layer.num_experts))
+
+
+class MoERoute(NamedTuple):
+    """The top-1 routing of (..., N, E) router probabilities: each token's
+    expert ``top1`` and probability ``gate`` (..., N), its place ``pos`` in
+    that expert's buffer (the tokens routed there before it, in token
+    order), whether it fits (``keep = pos < capacity``), and the capacity."""
+
+    top1: torch.Tensor
+    gate: torch.Tensor
+    pos: torch.Tensor
+    keep: torch.Tensor
+    capacity: int
+
+
+def moe_route(layer: MoEBlock, gates: torch.Tensor) -> MoERoute:
+    """The routing of ``gates`` (..., N, E), each leading index over its own
+    N tokens. ``argmax`` takes the first of tied experts, as ``jnp.argmax``
+    does; the places come from an int32 cumsum of the one-hot, exact where
+    the JAX package's float32 cumsum is (below 2^24 tokens). The one-hot
+    is laid out expert-major, (..., E, N), so that the cumsum runs along
+    the innermost axis, where CUDA scans in parallel (along the token axis
+    of an (N, E) one-hot each expert's column is one thread's serial loop:
+    ~50 ms a block at 524,288 tokens)."""
+    capacity = moe_capacity(layer, gates.shape[-2])
+    top1 = gates.argmax(dim=-1)
+    gate = gates.gather(-1, top1[..., None])[..., 0]
+    experts = torch.arange(layer.num_experts, device=gates.device)
+    onehot = (top1[..., None, :] == experts[:, None]).to(torch.int32)
+    pos = onehot.cumsum(dim=-1, dtype=torch.int32).gather(-2, top1[..., None, :])[..., 0, :] - 1
+    return MoERoute(top1, gate, pos, pos < capacity, capacity)
+
+
+def _leading(value: torch.Tensor, stacked: bool) -> torch.Tensor:
+    return value if stacked else value[None]
+
+
+def moe_dispatch_ffn(layer: MoEBlock, expert_w, h: torch.Tensor, route: MoERoute
+                     ) -> torch.Tensor:
+    """The routed FFN of ``moe_dispatch_ffn`` for M models at once: ``h``
+    (M, N, D) post-LN tokens routed by ``route`` (:func:`moe_route` of their
+    (M, N, E) router probabilities), ``expert_w`` ``w1`` (M, E, D, F), ``b1``
+    (M, E, F), ``w2`` (M, E, F, D), ``b2`` (M, E, D). Returns (M, N, D):
+    each kept token's expert output times its gate, zero for a token over
+    its expert's capacity.
+
+    The (M, E x C, D) expert buffer is gathered, not scattered: each kept
+    token's slot (its expert, its place) is written with its index into an
+    int map whose tail holds one cell for each token (a dropped token writes
+    its own cell there, so no two writes meet), and each slot then reads its
+    token; an empty slot reads a token spread by its slot index and is
+    zeroed. The M x E experts run as two batched products with bias and
+    activation, and each token reads its slot back (a dropped one a slot
+    spread by its index, weighted 0). Every index is unique or spread, so
+    the gathers' backward (a sort and an accumulate by index) never piles
+    thousands of tokens onto one row, as one shared dump row would."""
+    m, n, d = h.shape
+    e, f, cap = layer.num_experts, layer.expert_dim, route.capacity
+    rows = torch.arange(m, device=h.device)[:, None]
+    tokens = torch.arange(n, device=h.device).expand(m, n)
+    slot = route.top1 * cap + route.pos
+    owner = torch.full((m, e * cap + n), -1, dtype=torch.long, device=h.device)
+    owner.scatter_(1, torch.where(route.keep, slot, e * cap + tokens), tokens)
+    owner = owner[:, :e * cap]
+    filled = owner >= 0
+    spread = torch.arange(e * cap, device=h.device) % n
+    # in place: the gather's backward keeps its indices, not its output
+    buf = h[rows, torch.where(filled, owner, spread)].masked_fill_(~filled[..., None], 0)
+    buf = buf.reshape(m * e, cap, d)
+    mid = _activation(layer.activation)(torch.baddbmm(
+        expert_w["b1"].reshape(m * e, 1, f), buf, expert_w["w1"].reshape(m * e, d, f)))
+    out_buf = torch.baddbmm(expert_w["b2"].reshape(m * e, 1, d), mid,
+                            expert_w["w2"].reshape(m * e, f, d)).reshape(m, e * cap, d)
+    tok_out = out_buf[rows, torch.where(route.keep, slot, tokens % (e * cap))]
+    return tok_out * (route.gate * route.keep).to(tok_out.dtype)[..., None]
+
+
+def moe_aux_loss(layer: MoEBlock, gates: torch.Tensor, top1: torch.Tensor) -> torch.Tensor:
+    """The Switch load-balancing loss ``E * sum_e f_e * P_e`` of (..., N, E)
+    router probabilities with their top-1 experts (f_e the share of tokens
+    whose top-1 expert is e, P_e the mean probability of e), one per
+    leading index."""
+    share = F.one_hot(top1, layer.num_experts).float().mean(dim=-2)
+    return layer.num_experts * (share * gates.mean(dim=-2)).sum(dim=-1)
+
+
+def _apply_moe_block(layer: MoEBlock, p, x, stacked: bool, with_aux: bool = False,
+                     routing: Optional[list] = None):
+    """Pre-LN MoE encoder block. x: (..., time, d_model), or (M, ..., time,
+    d_model) with (M, ...) parameters when ``stacked``; a model's tokens are
+    every token of its rows. The router runs in float32 on the float32
+    ``router`` (routing is a decision, not an activation). Returns the
+    output and, with ``with_aux``, the weighted load-balancing loss (a
+    scalar, or (M,) when stacked). ``routing``, a list, gets the block's
+    ``{"logits", "top1", "keep", "capacity"}`` appended, (M, N, ...) when
+    stacked, else (N, ...)."""
+    vectors = {name: _bias_view(p[name], x, stacked) for name in _ATTENTION_VECTORS}
+    x = _attention_sublayer(layer, {**p, **vectors}, x)
+    h = _layer_norm(x, vectors["ln2_scale"], vectors["ln2_bias"])
+    m = x.shape[0] if stacked else 1
+    flat = h.reshape(m, -1, h.shape[-1])
+    logits = torch.bmm(flat.float(), _leading(p["router"], stacked).float())
+    gates = torch.softmax(logits, dim=-1)
+    route = moe_route(layer, gates)
+    ffn = moe_dispatch_ffn(layer, {name: _leading(p[name], stacked)
+                                   for name in ("w1", "b1", "w2", "b2")}, flat, route)
+    out = x + ffn.reshape(x.shape)
+    if routing is not None:
+        record = {"logits": logits, "top1": route.top1, "keep": route.keep}
+        routing.append({**{key: value if stacked else value[0]
+                           for key, value in record.items()}, "capacity": route.capacity})
+    if not with_aux:
+        return out
+    weight = float(layer.aux_loss_weight or 0.0)
+    aux = (weight * moe_aux_loss(layer, gates, route.top1) if weight > 0.0
+           else torch.zeros(m, device=x.device))
+    return out, aux if stacked else aux[0]
+
+
 def _apply_lstm(layer: LSTMLayer, p, x, stacked: bool):
     """x: (..., T, in) (stacked: (M, ..., T, in) with (M, ...) parameters)
     to (..., T, U) with ``return_sequences``, else the last step's (..., U).
@@ -351,25 +506,37 @@ def _l1_activity(layer: DenseLayer, out: torch.Tensor, stacked: bool) -> torch.T
 
 
 def _forward(spec: ModelSpec, layer_params, x: torch.Tensor, compute_dtype,
-             stacked: bool, with_penalty: bool = False):
-    """The layer walk: x and every parameter cast to ``compute_dtype``, the
-    output cast to float32. ``stacked``: each parameter has a leading model
-    axis; for the Dense and Transformer layers a vector (M, N) is viewed as
-    (M, 1, ..., N) to broadcast against x and a kernel (M, K, N) goes to
-    :func:`_matmul` as it is; the LSTM and TCN layers take their stacked
-    parameters as they are and view them themselves (the TCN kernels are
-    (M, width, in, out), the recurrence's tensors (M, B, ...)).
-    ``with_penalty``: also the summed l1 activity penalty of the Dense
-    layers that carry one (a scalar, or (M,) when ``stacked``)."""
+             stacked: bool, with_penalty: bool = False, routing: Optional[list] = None):
+    """The layer walk: x and every parameter cast to ``compute_dtype`` (an
+    MoE block's ``router`` excepted: it stays float32, as ``apply_model``
+    keeps it), the output cast to float32. ``stacked``: each parameter has
+    a leading model axis; for the Dense and Transformer layers a vector
+    (M, N) is viewed as (M, 1, ..., N) to broadcast against x and a kernel
+    (M, K, N) goes to :func:`_matmul` as it is; the LSTM, TCN and MoE layers
+    take their stacked parameters as they are and view them themselves (the
+    TCN kernels are (M, width, in, out), the recurrence's tensors (M, B,
+    ...), the experts' (M, E, ...)). ``with_penalty``: also the summed l1
+    activity penalty of the Dense layers that carry one and the weighted
+    load-balancing losses of the MoE blocks (a scalar, or (M,) when
+    ``stacked``). ``routing``: a list that each MoE block appends its
+    routing to (:func:`_apply_moe_block`)."""
     out = x.to(compute_dtype)
     penalty = torch.zeros(x.shape[:1] if stacked else (), device=x.device)
     for layer, p in zip(spec.layers, layer_params):
-        p = {name: value.to(compute_dtype) for name, value in p.items()}
+        moe = isinstance(layer, MoEBlock)
+        p = {name: value if moe and name == "router" else value.to(compute_dtype)
+             for name, value in p.items()}
         if isinstance(layer, LSTMLayer):
             out = _apply_lstm(layer, p, out, stacked)
             continue
         if isinstance(layer, TCNBlock):
             out = _apply_tcn_block(layer, p, out, stacked)
+            continue
+        if moe:
+            out = _apply_moe_block(layer, p, out, stacked, with_penalty, routing)
+            if with_penalty:
+                out, aux = out
+                penalty = penalty + aux
             continue
         if stacked:
             p = {name: value.reshape(value.shape[:1] + (1,) * (out.dim() - 2) + value.shape[1:])
@@ -389,7 +556,8 @@ def _forward(spec: ModelSpec, layer_params, x: torch.Tensor, compute_dtype,
     return (out.float(), penalty) if with_penalty else out.float()
 
 
-def stacked_forward(spec: ModelSpec, layer_params, x: torch.Tensor) -> torch.Tensor:
+def stacked_forward(spec: ModelSpec, layer_params, x: torch.Tensor,
+                    routing: Optional[list] = None) -> torch.Tensor:
     """B models of one spec run as one: ``layer_params`` is one dict per
     layer of (B, ...) parameters (the JAX package's names, float32), x is
     (B, ..., T, features) (a serving batch: (B, n_pad, L, D) windows) and
@@ -398,21 +566,25 @@ def stacked_forward(spec: ModelSpec, layer_params, x: torch.Tensor) -> torch.Ten
     are cast to bf16 as :class:`TransformerModel` casts them, so a lane
     computes what the single model computes. The projections are batched
     products, and attention folds the models into its batch, so each
-    Transformer block launches the flash forward once for all B models; an
-    LSTM layer launches the recurrence once for all of them."""
-    return _forward(spec, layer_params, x, COMPUTE_DTYPES[spec.compute_dtype], stacked=True)
+    Transformer or MoE block launches the flash forward once for all B
+    models; an LSTM layer launches the recurrence once for all of them. An
+    MoE block routes each model's tokens apart (its own capacity, from its
+    own token count) and runs the B x E experts as one batched product.
+    ``routing``: a list that each MoE block appends its (B, ...) routing to."""
+    return _forward(spec, layer_params, x, COMPUTE_DTYPES[spec.compute_dtype], stacked=True,
+                    routing=routing)
 
 
 class TransformerModel(nn.Module):
-    """A spec of Dense / PositionalEncoding / TransformerBlock / LSTM / TCN /
-    PoolLayer layers (a feedforward autoencoder's Dense layers alone
+    """A spec of Dense / PositionalEncoding / TransformerBlock / MoEBlock /
+    LSTM / TCN / PoolLayer layers (a feedforward autoencoder's Dense layers alone
     included; the name is the first family's) with its parameters resident
     on ``device``; ``forward`` is the counterpart of ``apply_model``'s
     output (float32). The parameters are float32 and trainable
     (ops/train.py); serving runs under ``torch.inference_mode``.
 
     Under ``compute_dtype: bfloat16`` each forward casts the input and every
-    parameter to bf16, as ``apply_model`` does, so every layer, the
+    parameter but an MoE router to bf16, as ``apply_model`` does, so every layer, the
     attention kernels included, runs in bf16; autograd takes the gradients
     back through the casts to the float32 parameters, as the JAX package's
     gradient of its cast does. The output is cast to float32."""
@@ -425,9 +597,6 @@ class TransformerModel(nn.Module):
                 f"the float16 item of ROADMAP.md queue A"
             )
         self.compute_dtype = COMPUTE_DTYPES[spec.compute_dtype]
-        for layer in spec.layers:
-            if type(layer) in NOT_PORTED:
-                raise not_ported(layer)
         check_windowed(spec)
         if len(params) != len(spec.layers):
             raise ValueError(
@@ -452,10 +621,19 @@ class TransformerModel(nn.Module):
         return _forward(self.spec, self.layer_params, x, self.compute_dtype, self.stacked)
 
     def forward_with_penalty(self, x: torch.Tensor):
-        """``(output, penalty)``: the output and the l1 activity penalty the
-        loss adds (``apply_model``'s pair)."""
+        """``(output, penalty)``: the output and the penalty the loss adds,
+        the l1 activity penalty and the MoE load-balancing loss
+        (``apply_model``'s pair)."""
         return _forward(self.spec, self.layer_params, x, self.compute_dtype, self.stacked,
                         with_penalty=True)
+
+    def forward_with_routing(self, x: torch.Tensor):
+        """``(output, routing)``: the output and each MoE block's routing,
+        in layer order (:func:`_apply_moe_block`)."""
+        routing: list = []
+        out = _forward(self.spec, self.layer_params, x, self.compute_dtype, self.stacked,
+                       routing=routing)
+        return out, routing
 
     def params_numpy(self):
         """The parameters in the JAX package's layout, as numpy arrays."""

@@ -61,7 +61,7 @@ from ..models.anomaly.diff import (
 from ..models.base import extract_metadata
 from ..models.models import _FIT_KWARGS, BaseEstimator
 from ..models.scaler import MinMaxScaler, Pipeline
-from ..models.spec import ModelSpec, TransformerBlock
+from ..models.spec import ModelSpec
 from ..models.utils import Frame, index_label
 from ..ops.nn import StackedTransformerModel, init_model_params, stack_params
 from ..ops.predict import n_train_samples, unfold_windows
@@ -206,9 +206,8 @@ def _plan_machine(machine: Machine) -> Optional[_Plan]:
         return None
     if kfcv and spec.output_offset != 0:
         return None  # the serial KFCV detector refuses an offset too
-    if any(isinstance(layer, TransformerBlock) and layer.attention_impl == "ring"
-           for layer in spec.layers):
-        return None
+    if any(getattr(layer, "attention_impl", None) == "ring" for layer in spec.layers):
+        return None  # every layer with attention, as the JAX spec_may_use_ring reads it
     return _Plan(
         machine=machine, estimator_cls=type(inner), estimator_params=inner.get_params(),
         spec=spec, scale_x=scale_x, wrap_anomaly=wrap_anomaly, kfcv=kfcv,

@@ -2,10 +2,11 @@
 Where one training step of the PyTorch/CUDA port spends its time, on one
 NVIDIA GPU.
 
-    python3 scripts/torch_train_breakdown.py [float32|bfloat16] [MACHINES]   # from the repo root
+    python3 scripts/torch_train_breakdown.py [float32|bfloat16] [MACHINES] [moe]   # from the repo root
 
 Builds ``chip_smoke.py``'s ``transformer-ae-512`` model (seeded weights,
-attention through the flash kernels) at the given compute dtype (float32
+attention through the flash kernels; with ``moe``, ``moe-transformer-ae-512``,
+its FFNs Switch experts) at the given compute dtype (float32
 unless named; bfloat16 is ``transformer-ae-512-bf16``) and its 6,144
 training rows, runs
 warm-up steps of ``ops/train.py``'s epoch function (Adam, MSE, batch 32;
@@ -14,7 +15,9 @@ machines, ``run_masked_epoch`` on a ``StackedTransformerModel``),
 then times STEPS steps on the host clock (ending in a synchronise) and runs
 STEPS more under ``torch.profiler`` to split the device time by kernel
 group: fp32 matmuls, the flash forward, dQ and dK/dV kernels, the
-optimizer's kernels, copies and other kernels. Prints the card's name and
+optimizer's kernels, indexing and scans (the MoE routing's scatter,
+gather and cumsum, and the batch's window gather), copies and other
+kernels. Prints the card's name and
 power limit and one JSON line.
 """
 
@@ -34,7 +37,8 @@ def _kernel_group(name: str) -> str:
     for key, group in (("flash_forward", "flash_forward"), ("flash_bwd_dq", "flash_dq"),
                        ("flash_bwd_dkv", "flash_dkv"), ("multi_tensor", "optimizer"),
                        ("adam", "optimizer"), ("gemm", "matmul"), ("cutlass", "matmul"),
-                       ("nvjet", "matmul"),
+                       ("nvjet", "matmul"), ("index", "index_scan"), ("scan", "index_scan"),
+                       ("scatter", "index_scan"), ("gather", "index_scan"),
                        ("memcpy", "copy"), ("memset", "copy")):
         if key in lower:
             return group
@@ -66,7 +70,9 @@ def main() -> int:
     rows = np.concatenate([chip_smoke._series(4096, 0, rng), chip_smoke._series(2048, 4096, rng)])
     dtype = sys.argv[1] if len(sys.argv) > 1 else "float32"
     machines = int(sys.argv[2]) if len(sys.argv) > 2 else 1
-    spec = TransformerAutoEncoder(**chip_smoke.CONFIG, compute_dtype=dtype).build_spec(8, 8)
+    name, config = (("moe-transformer-ae-512", chip_smoke.MOE_CONFIG) if "moe" in sys.argv[3:]
+                    else ("transformer-ae-512", chip_smoke.CONFIG))
+    spec = TransformerAutoEncoder(**config, compute_dtype=dtype).build_spec(8, 8)
     params = [init_model_params(spec, torch.Generator().manual_seed(chip_smoke.SEED + m))
               for m in range(machines)]
     X = torch.as_tensor(MinMaxScaler().fit(rows).transform(rows), dtype=torch.float32,
@@ -120,7 +126,7 @@ def main() -> int:
     per_step = {k: v / STEPS for k, v in sorted(device_ms.items(), key=lambda kv: -kv[1])}
     busy = sum(per_step.values())
     result = {
-        "config": "transformer-ae-512", "compute_dtype": dtype, "batch": batch,
+        "config": name, "compute_dtype": dtype, "batch": batch,
         "machines": machines,
         "steps": STEPS,
         "step_ms": step_ms, "profiled_step_ms": profiled_ms,

@@ -147,13 +147,8 @@ def test_init_matches_jax_shapes_and_bounds():
 
 
 def test_unported_layers_and_dtypes_raise():
-    moe = port_spec.ModelSpec(layers=(port_spec.MoEBlock(8),), n_features=8,
-                              n_features_out=8, lookback_window=4)
-    with pytest.raises(NotImplementedError, match="MoE item of ROADMAP"):
-        nn.init_model_params(moe)
-    with pytest.raises(NotImplementedError, match="MoE item of ROADMAP"):
-        nn.TransformerModel(moe, [{}], torch.device("cpu"))
-    # bfloat16 is ported (tests/test_torch_bf16.py); float16 is not
+    # the MoE block is ported (tests/test_torch_moe.py); bfloat16 is ported
+    # (tests/test_torch_bf16.py); float16 is not
     fp16 = dataclasses.replace(transformer_model(**SMALL), compute_dtype="float16")
     with pytest.raises(NotImplementedError, match="float16 item of ROADMAP"):
         nn.TransformerModel(fp16, nn.init_model_params(fp16), torch.device("cpu"))
