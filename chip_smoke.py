@@ -215,11 +215,41 @@ Drive the PyTorch/CUDA port (gordo_tpu_torch) on one NVIDIA GPU.
    tally, held-out errors below the seeded weights'), and the six flash
    kernels timed at dh 16 at ``moe_model_144``'s stacked step (BH 256, T
    144) beside their bounds, twins and SDPA.
-20. A ``batcher_path`` JSON line (both dtypes' numbers), a ``feedforward``
+20. Telemetry and observability (``observability_path``): the batcher
+   phases' first ``transformer-ae-512`` and ``transformer-ae-512-bf16``
+   artifacts served as ``run-server`` serves them (batching forced on) with
+   ``GORDO_TPU_DEBUG_ENDPOINTS``, ``ENABLE_PROMETHEUS``,
+   ``GORDO_TPU_SLO_P99_MS``, ``GORDO_TPU_LOG_FORMAT=json`` and a small
+   ``GORDO_TPU_FLIGHT_SLOW_S``, on the default lane, then on the event-loop
+   fast lane: 16 users of two 1,535-row requests, every fourth with a
+   ``traceparent``, then a 404 and a 400. Gates: ``X-Gordo-Trace`` on every
+   answer (a sent trace id echoed); ``/metrics`` counting exactly these
+   requests by the reference's labels and the fleet series by rule and
+   status class; the fuse-width count the batcher's fused calls; the
+   achieved FLOPs the analytic sum; the busy ratio in (0, 1], busy seconds
+   within the wall, online MFU in (0, 1); ``bytes_in_use`` equal to
+   ``torch.cuda.memory_allocated()`` at rest; ``/debug/flight`` holding the
+   404, the 400 and a slow traced request with its linked device call;
+   ``/debug/slo`` reporting both models. On the default lane also: the busy
+   seconds of one steady burst (16 users of OBS_BUSY_REQUESTS requests)
+   within OBS_BUSY_TOL of the union of the kernel intervals on the
+   dispatcher's stream in a ``torch.profiler`` trace of the burst;
+   ``/debug/profile?device=1&seconds=2`` under load without error,
+   naming the flash forward of each dtype; a burst ``/debug/profile``
+   naming ``gordo-batcher``; JSON log lines carrying sent trace ids. Then
+   p50 and p99 of the same traffic to each dtype's model with every knob
+   unset and every knob on (printed); and a ``batch-build`` of two
+   ``transformer-ae-512`` machines (16 days of rows) with ``--trace-file``,
+   ``--metrics-file`` and ``GORDO_TPU_PROFILE_DIR``: the build's span names
+   and phase labels, and the ``torch.profiler`` trace naming the float32 dQ
+   and dK/dV kernels (its size and export time printed).
+21. A ``batcher_path`` JSON line (both dtypes' numbers), a ``feedforward``
    JSON line, a ``fastlane``/``kfcv_fleet`` JSON line, a ``windowed`` JSON
-   line, a ``transformer-ae-512-d384`` JSON line, a ``moe`` JSON line, a
+   line, a ``transformer-ae-512-d384`` JSON line, a ``moe`` JSON line, an
+   ``observability`` JSON line, a
    ``kernels`` JSON line (twenty-two entries: the six flash kernels at dh
-   64 with their results by head dim, the six again at dh 96 with the d384
+   64 with their results by head dim and the observability phase's
+   launches among their paths, the six again at dh 96 with the d384
    path's launches and at dh 16 with the MoE fleet's, then the LSTM
    recurrence's forward and backward in float32 and bf16), then
    the last line
@@ -4899,6 +4929,551 @@ def moe_entries(entries: list, moe: dict) -> list:
     return dh16_entries
 
 
+# ------------------------------------------- telemetry and observability
+OBS_USERS = 16
+OBS_REQUESTS = 2  # full-width anomaly requests a user, the two dtypes' models in turn
+OBS_TRACED_EVERY = 4  # every fourth request sends a traceparent
+OBS_SLOW_S = "0.001"  # GORDO_TPU_FLIGHT_SLOW_S: a full-width request is slower
+OBS_SLO_P99_MS = "250"
+OBS_DEVICE_TRACE_S = 2.0
+OBS_BUSY_TOL = 0.10  # busy seconds against the profiler's kernel union
+OBS_BUSY_REQUESTS = 3  # a user, in the burst the busy gate profiles
+OBS_MODELS = ("transformer-ae-512", "transformer-ae-512-bf16")
+OBS_PROJECT = "smoke"
+OBS_KNOBS = ("GORDO_TPU_DEBUG_ENDPOINTS", "ENABLE_PROMETHEUS", "PROJECT", "GORDO_TPU_SLO_P99_MS",
+             "GORDO_TPU_LOG_FORMAT", "GORDO_TPU_FLIGHT_SLOW_S", "GORDO_TPU_FAST_LANE",
+             "GORDO_TPU_FAST_LANE_EVENT_LOOP", "GORDO_TPU_SERVING_BATCH", "GORDO_TPU_PROFILE_DIR")
+ANOMALY_RULE = "/gordo/v0/<gordo_project>/<gordo_name>/anomaly/prediction"
+# the trace ids the traffic sends (every OBS_TRACED_EVERY-th request's)
+OBS_SENT = {f"{0x0b5e0000 + i:032x}" for i in range(0, 4 * OBS_USERS * OBS_REQUESTS,
+                                                     OBS_TRACED_EVERY)}
+
+
+def _obs_post(url: str, body: bytes, traceparent: str = None) -> tuple:
+    """``(status, X-Gordo-Trace, body, ms)`` of one POST."""
+    headers = {"Content-Type": "application/json"}
+    if traceparent:
+        headers["traceparent"] = traceparent
+    req = urllib.request.Request(url, data=body, headers=headers)
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=300) as resp:
+            status, trace, answer = resp.status, resp.headers.get("X-Gordo-Trace"), resp.read()
+    except urllib.error.HTTPError as err:
+        status, trace, answer = err.code, err.headers.get("X-Gordo-Trace"), err.read()
+    return status, trace, answer, 1e3 * (time.perf_counter() - t0)
+
+
+def _obs_get(url: str) -> tuple:
+    """``(status, X-Gordo-Trace, body)`` of one GET, which must carry a trace
+    id like every answer of the server."""
+    status, body, headers, _ = _request(url)
+    trace = headers.get("X-Gordo-Trace")
+    if not trace or not re.fullmatch(r"[0-9a-f]{32}", trace):
+        raise AssertionError(f"GET {url}: {status} without X-Gordo-Trace")
+    return status, trace, body
+
+
+def _obs_traffic(base: str, bodies: dict, models=OBS_MODELS, users: int = OBS_USERS,
+                 requests: int = OBS_REQUESTS) -> list:
+    """``users`` threads each POSTing ``requests`` full-width anomaly
+    requests, the ``models`` in turn, every OBS_TRACED_EVERY-th with a
+    traceparent of its own. Returns ``[(model, sent trace id or None,
+    status, X-Gordo-Trace, ms)]``."""
+    jobs = []
+    for r in range(requests):
+        for u in range(users):
+            i = r * users + u
+            trace = f"{0x0b5e0000 + i:032x}" if i % OBS_TRACED_EVERY == 0 else None
+            jobs.append((models[i % len(models)], trace))
+    results = [None] * len(jobs)
+
+    def user(u):
+        for i in range(u, len(jobs), users):
+            model, trace = jobs[i]
+            parent = f"00-{trace}-{'5a' * 8}-01" if trace else None
+            status, echoed, _, ms = _obs_post(f"{base}/gordo/v0/{OBS_PROJECT}/{model}/"
+                                              "anomaly/prediction", bodies[model], parent)
+            results[i] = (model, trace, status, echoed, ms)
+
+    threads = [threading.Thread(target=user, args=(u,)) for u in range(users)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    return results
+
+
+def _prom(text: str, family: str) -> dict:
+    """``{labels: value}`` of one family's samples in a text exposition."""
+    out = {}
+    for line in text.splitlines():
+        if line.startswith(family + "{") or line.startswith(family + " "):
+            head, value = line.split(" # ", 1)[0].rsplit(" ", 1)
+            labels = tuple(sorted(re.findall(r'(\w+)="([^"]*)"', head)))
+            out[labels] = float(value)
+    return out
+
+
+def _percentiles(ms: list) -> dict:
+    ms = sorted(ms)
+    return {"p50_ms": ms[len(ms) // 2], "p99_ms": ms[min(len(ms) - 1, int(0.99 * len(ms)))],
+            "requests": len(ms)}
+
+
+def _kernel_union_s(trace: dict, symbol: str) -> tuple:
+    """The union of the kernel intervals (seconds) on the stream that ran
+    ``symbol`` in a ``torch.profiler`` Chrome trace, and that stream's
+    kernel count."""
+    kernels = [e for e in trace["traceEvents"] if e.get("cat") == "kernel"]
+    streams = {e["args"].get("stream") for e in kernels if symbol in e["name"]}
+    if len(streams) != 1:
+        raise AssertionError(f"{symbol} ran on streams {streams} in the profiled burst")
+    stream = streams.pop()
+    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in kernels
+                   if e["args"].get("stream") == stream)
+    total, end = 0.0, None
+    for start, stop in spans:
+        if end is None or start > end:
+            total += stop - start
+            end = stop
+        elif stop > end:
+            total += stop - end
+            end = stop
+    return total / 1e6, len(spans)
+
+
+class _ObsServer:
+    """The collection served as ``run-server`` serves it (batching on), on
+    the default lane or, with ``lane="loop"``, the fast lane's event loop."""
+
+    def __init__(self, collection: Path, lane: str, device: str):
+        from gordo_tpu_torch import cli
+        from gordo_tpu_torch.server import batcher
+        from gordo_tpu_torch.server.server import make_front_end
+
+        cli.prepare_run_server(True)
+        # batching forced on, as the batcher phases force it: run-server's
+        # auto A/B may stand a spec down, and the phase's gates read fused calls
+        os.environ["GORDO_TPU_SERVING_BATCH"] = "1"
+        os.environ["GORDO_TPU_FAST_LANE"] = "1" if lane == "loop" else "0"
+        os.environ["GORDO_TPU_FAST_LANE_EVENT_LOOP"] = "1"
+        batcher.reset_batcher()
+        self.app, self.server = make_front_end("127.0.0.1", 0, device, str(collection))
+        port = getattr(self.server, "server_port", None) or self.server.server_address[1]
+        self.base = f"http://127.0.0.1:{port}"
+        self.thread = threading.Thread(target=self.server.serve_forever, daemon=True)
+        self.thread.start()
+
+    def close(self) -> None:
+        from gordo_tpu_torch.server import batcher
+
+        self.server.shutdown()
+        self.server.server_close()
+        if self.app is not self.server:
+            self.app.server_close()
+        self.thread.join(timeout=60)
+        batcher.reset_batcher()
+
+
+def _obs_knobs_on() -> None:
+    os.environ.update(GORDO_TPU_DEBUG_ENDPOINTS="1", ENABLE_PROMETHEUS="1", PROJECT=OBS_PROJECT,
+                      GORDO_TPU_SLO_P99_MS=OBS_SLO_P99_MS, GORDO_TPU_LOG_FORMAT="json",
+                      GORDO_TPU_FLIGHT_SLOW_S=OBS_SLOW_S)
+
+
+def _obs_lane(card: str, collection: Path, bodies: dict, lane: str, device: str) -> dict:
+    """One lane with every knob on: the traffic, the 404 and the 400, then
+    the gates on its responses, ``/metrics``, the batcher's telemetry, the
+    device block, ``/debug/flight`` and ``/debug/slo`` (module docstring,
+    step 20). Returns the lane's numbers and, while it runs, the server."""
+    import torch
+
+    from gordo_tpu_torch.observability import device as device_telemetry
+    from gordo_tpu_torch.observability import flight, profiler, shared, slo, telemetry
+    from gordo_tpu_torch.observability import metrics as catalog
+    from gordo_tpu_torch.ops import flops
+    from gordo_tpu_torch.server import batcher
+
+    for module in (telemetry, slo, flight):
+        module.reset()
+    profiler.reset()
+    device_telemetry.reset_for_tests()
+    shared.reset_for_tests()
+    served = _ObsServer(collection, lane, device)
+    try:
+        base = served.base
+        device_telemetry.sample()
+        busy0 = catalog.DEVICE_BUSY_SECONDS.value()
+        t0 = time.perf_counter()
+        results = _obs_traffic(base, bodies)
+        wall = time.perf_counter() - t0
+        missing = _obs_post(f"{base}/gordo/v0/{OBS_PROJECT}/no-such-machine/anomaly/prediction",
+                            bodies[OBS_MODELS[0]], f"00-{'e4' * 16}-{'5a' * 8}-01")
+        malformed = _obs_post(f"{base}/gordo/v0/{OBS_PROJECT}/{OBS_MODELS[0]}/anomaly/"
+                              "prediction", b'{"X": [[1.0, 2.0', f"00-{'e0' * 16}-{'5a' * 8}-01")
+        statuses = [r[2] for r in results]
+        if any(s != 200 for s in statuses) or (missing[0], malformed[0]) != (404, 400):
+            raise AssertionError(f"observability traffic ({lane}): {statuses}, 404 -> "
+                                 f"{missing[0]}, 400 -> {malformed[0]}")
+        answers = [(r[1], r[3]) for r in results] + [("e4" * 16, missing[1]),
+                                                      ("e0" * 16, malformed[1])]
+        for sent, echoed in answers:
+            if not echoed or not re.fullmatch(r"[0-9a-f]{32}", echoed) or (sent and echoed != sent):
+                raise AssertionError(f"{lane}: X-Gordo-Trace {echoed!r} for traceparent {sent}")
+        status, _, metrics = _obs_get(f"{base}/metrics")
+        if status != 200:
+            raise AssertionError(f"{lane}: /metrics answered {status}")
+        text = metrics.decode()
+        n_ok = len(results)
+        # the reference's labels: every request by rule, status and model
+        expected = {(("gordo_name", m), ("method", "POST"), ("path", ANOMALY_RULE),
+                     ("project", OBS_PROJECT), ("status_code", "200")):
+                    float(sum(r[0] == m for r in results)) for m in OBS_MODELS}
+        expected[(("gordo_name", ""), ("method", "POST"), ("path", ANOMALY_RULE),
+                  ("project", OBS_PROJECT), ("status_code", "404"))] = 1.0
+        expected[(("gordo_name", OBS_MODELS[0]), ("method", "POST"), ("path", ANOMALY_RULE),
+                  ("project", OBS_PROJECT), ("status_code", "400"))] = 1.0
+        counted = _prom(text, "gordo_server_requests_total")
+        fleet = _prom(text, "gordo_server_fleet_requests_total")
+        fleet_expected = {(("endpoint", ANOMALY_RULE), ("status", "2xx")): float(n_ok),
+                          (("endpoint", ANOMALY_RULE), ("status", "4xx")): 2.0}
+        if counted != expected or fleet != fleet_expected:
+            raise AssertionError(f"{lane}: /metrics counted {counted} and {fleet}, not "
+                                 f"{expected} and {fleet_expected}")
+        fused = batcher.peek_batcher()
+        calls = fused.stats["device_calls"]
+        widths = catalog.BATCHER_FUSE_WIDTH.count()
+        fpp = flops.forward_flops_per_sample(next(iter(fused.spec_calls)))
+        analytic = fpp * sum(windows for _, windows in fused.calls)
+        achieved = catalog.DEVICE_FLOPS.value()
+        if widths != calls or abs(achieved - analytic) > 1e-9 * analytic:
+            raise AssertionError(f"{lane}: fuse widths {widths} for {calls} fused calls; "
+                                 f"FLOPs {achieved} against {analytic}")
+        status, _, body = _obs_get(f"{base}/debug/vars")
+        device_block = json.loads(body)["device"]
+        quiescent = torch.cuda.memory_allocated(0)
+        in_use = catalog.DEVICE_MEMORY.value(device="0", stat="bytes_in_use")
+        busy = catalog.DEVICE_BUSY_SECONDS.value() - busy0
+        # the duty cycle and MFU of the sampling interval that /metrics closed:
+        # the traffic's (a later sample covers the idle time after it)
+        ratio = _prom(text, "gordo_server_device_busy_ratio")[()]
+        mfu = _prom(text, "gordo_server_device_mfu")[()]
+        if not (0 < ratio <= 1 and 0 < busy <= wall and 0 < mfu < 1):
+            raise AssertionError(f"{lane}: busy ratio {ratio}, busy {busy} s in {wall} s, "
+                                 f"MFU {mfu}")
+        if in_use != quiescent:
+            raise AssertionError(f"{lane}: bytes_in_use {in_use} != memory_allocated {quiescent}")
+        status, _, body = _obs_get(f"{base}/debug/flight")
+        doc = json.loads(body)
+        kept = {(r["status"], r["class"]): r for r in doc["gordoFlight"]}
+        slow = [r["trace_id"] for r in doc["gordoFlight"] if r["class"] == "slow"
+                and r["trace_id"] in OBS_SENT]
+        if (404, "error") not in kept or (400, "error") not in kept or not slow:
+            raise AssertionError(f"{lane}: /debug/flight kept {sorted(kept)}")
+        names = {}
+        for trace_id in slow:  # a kept slow trace whose device call is linked into it
+            names = {e["name"]: e for e in doc["traceEvents"]
+                     if e["args"]["trace_id"] == trace_id}
+            call, queue = names.get("serve_device_call"), names.get("serve_batch_queue")
+            # on the default lane a fused call's span links its co-riders;
+            # the event loop fuses no two requests
+            if (call and queue and call["args"]["parent_span_id"] == queue["args"]["span_id"]
+                    and (lane == "loop" or call["args"].get("links"))):
+                break
+        else:
+            raise AssertionError(f"{lane}: no kept slow trace holds its linked device call: "
+                                 f"{sorted(names)}")
+        status, _, body = _obs_get(f"{base}/debug/slo")
+        slo_models = json.loads(body)["local"]["models"]
+        if not set(OBS_MODELS) <= set(slo_models):
+            raise AssertionError(f"{lane}: /debug/slo reports {sorted(slo_models)}")
+        lane_numbers = {
+            "wall_s": wall, **_percentiles([r[4] for r in results]),
+            "fused_calls": calls, "fuse_width_count": widths,
+            "largest_batch": fused.stats["largest_batch"], "flops": achieved,
+            "flops_analytic": analytic, "busy_s": busy, "busy_ratio": ratio, "online_mfu": mfu,
+            "bytes_in_use": in_use, "peak_bytes_in_use": catalog.DEVICE_MEMORY.value(
+                device="0", stat="peak_bytes_in_use"),
+            "param_bank_bytes": device_block["param_bank_bytes"],
+            "flight_kept": len(doc["gordoFlight"]), "slow_trace_spans": sorted(names),
+            "slo_5m": {m: slo_models[m]["5m"] for m in OBS_MODELS}}
+        print(f"observability ({lane} lane) on {card}: {len(results)} requests + 404 + 400 in "
+              f"{wall:.3f} s, p50 {lane_numbers['p50_ms']:.1f} ms p99 "
+              f"{lane_numbers['p99_ms']:.1f} ms; {calls} fused calls; busy {busy:.4f} s "
+              f"(ratio {ratio:.4f}), online MFU {mfu:.5f}, FLOPs {achieved:.6g}; bytes_in_use "
+              f"{in_use}; flight kept {len(doc['gordoFlight'])}", flush=True)
+        return lane_numbers, served
+    except BaseException:
+        served.close()
+        raise
+
+
+def _obs_busy_burst(served: _ObsServer, bodies: dict, root: Path,
+                    requests: int = OBS_BUSY_REQUESTS) -> dict:
+    """One burst of full-width float32 requests (16 users x ``requests``)
+    under a ``torch.profiler`` capture: the batcher's busy seconds, the
+    union of the kernel intervals on the dispatcher's stream, and the
+    burst's latencies."""
+    import torch
+    from torch.profiler import profile
+
+    from gordo_tpu_torch.observability import metrics as catalog
+    from gordo_tpu_torch.util import profiling
+
+    with profiling.SESSION_LOCK:
+        busy0 = catalog.DEVICE_BUSY_SECONDS.value()
+        with profile(activities=profiling.activities()) as prof:
+            results = _obs_traffic(served.base, bodies, models=OBS_MODELS[:1],
+                                   requests=requests)
+            torch.cuda.synchronize()
+        busy = catalog.DEVICE_BUSY_SECONDS.value() - busy0
+        written = profiling.export(prof, str(root / "busy_burst_trace.json"))
+    with open(written["path"]) as fh:
+        trace = json.load(fh)
+    union, n_kernels = _kernel_union_s(trace, "flash_forward_f32")
+    if any(r[2] != 200 for r in results):
+        raise AssertionError(f"profiled burst statuses {[r[2] for r in results]}")
+    return {"busy_s": busy, "kernel_union_s": union, "kernels": n_kernels,
+            "rel_diff": abs(busy - union) / union, "trace_bytes": written["bytes"],
+            "trace": written["path"], "latency": _percentiles([r[4] for r in results])}
+
+
+def _obs_busy_against_trace(card: str, served: _ObsServer, bodies: dict, root: Path) -> dict:
+    """One steady burst (:func:`_obs_busy_burst`, 16 users x
+    OBS_BUSY_REQUESTS, so that the dispatcher launches most calls while the
+    one before runs): the busy seconds within OBS_BUSY_TOL of the union of
+    the kernel intervals on the dispatcher's stream."""
+    out = _obs_busy_burst(served, bodies, root)
+    print(f"busy seconds against the profiled kernels on {card}: {out['busy_s']:.6f} s busy, "
+          f"{out['kernel_union_s']:.6f} s kernel union on the dispatcher's stream "
+          f"({out['kernels']} kernels), rel diff {out['rel_diff']:.4f} (tolerance "
+          f"{OBS_BUSY_TOL})", flush=True)
+    if out["rel_diff"] > OBS_BUSY_TOL:
+        raise AssertionError(f"busy {out['busy_s']} s against kernel union "
+                             f"{out['kernel_union_s']} s")
+    return out
+
+
+def _obs_profiles_under_load(card: str, served: _ObsServer, bodies: dict) -> dict:
+    """``/debug/profile?device=1&seconds=2`` and a burst ``/debug/profile``
+    while both models serve a steady load."""
+    stop = threading.Event()
+    statuses = []
+
+    def user(u):
+        model = OBS_MODELS[u % len(OBS_MODELS)]
+        url = f"{served.base}/gordo/v0/{OBS_PROJECT}/{model}/anomaly/prediction"
+        while not stop.is_set():
+            statuses.append(_obs_post(url, bodies[model])[0])
+
+    users = [threading.Thread(target=user, args=(u,), daemon=True) for u in range(8)]
+    for t in users:
+        t.start()
+    try:
+        time.sleep(1.0)  # the load is on
+        status, _, body = _obs_get(f"{served.base}/debug/profile?device=1&seconds="
+                                   f"{OBS_DEVICE_TRACE_S}")
+        trace = json.loads(body)["device_trace"]
+        status_burst, _, burst = _obs_get(f"{served.base}/debug/profile?seconds=0.5&hz=200")
+    finally:
+        stop.set()
+        for t in users:
+            t.join(timeout=300)
+    if status != 200 or "error" in trace:
+        raise AssertionError(f"/debug/profile?device=1 answered {status}: {trace}")
+    kernels = trace["kernels"]
+    wanted = ("flash_forward_f32", WGMMA_KERNELS["flash_attention_forward_bf16"][2])
+    named = {symbol: sum(n for name, n in kernels.items() if symbol in name) for symbol in wanted}
+    threads = {line.split(";", 1)[0] for line in json.loads(burst)["collapsed"]}
+    print(f"device trace under load on {card}: {trace['files']} file, {trace['bytes']} bytes, "
+          f"export {trace['export_s']:.2f} s, {sum(kernels.values())} kernel launches of "
+          f"{len(kernels)} kernels, flash forwards {named}; burst profile threads "
+          f"{sorted(threads)}; load statuses {sorted(set(statuses))}", flush=True)
+    if not all(named.values()):
+        raise AssertionError(f"the device trace names no flash forward of a dtype: {named}")
+    if status_burst != 200 or "gordo-batcher" not in threads:
+        raise AssertionError(f"the burst profile names no dispatcher thread: {threads}")
+    if set(statuses) != {200}:
+        raise AssertionError(f"requests under the profiler answered {sorted(set(statuses))}")
+    return {"device_trace_bytes": trace["bytes"], "device_trace_export_s": trace["export_s"],
+            "device_trace_kernel_launches": sum(kernels.values()), "flash_forwards": named,
+            "burst_threads": sorted(threads)}
+
+
+def _obs_overhead(card: str, collection: Path, bodies: dict, device: str, rounds: int = 1,
+                  requests: int = OBS_REQUESTS) -> dict:
+    """p50 and p99 of the same 16-user traffic (``requests`` a user) to each
+    dtype's model with every telemetry knob unset and with every knob on,
+    in turns (off, on, on, off) repeated ``rounds`` times, on the default
+    lane (printed, not gated). Each model's ``summary`` holds the medians of
+    the like turns, the spread of the like turns (the larger of the two
+    settings' max - min) and whether the knobs' difference exceeds it."""
+    out = {}
+    for model in OBS_MODELS:
+        runs = {"off": [], "on": []}
+        for rnd in range(rounds):
+            for turn, knobs in enumerate(("off", "on", "on", "off")):  # in turns: ABBA
+                for knob in OBS_KNOBS:
+                    os.environ.pop(knob, None)
+                if knobs == "on":
+                    _obs_knobs_on()
+                served = _ObsServer(collection, "default", device)
+                try:
+                    _obs_traffic(served.base, bodies, models=(model,), requests=1)  # warm
+                    results = _obs_traffic(served.base, bodies, models=(model,),
+                                           requests=requests)
+                finally:
+                    served.close()
+                if any(r[2] != 200 for r in results):
+                    raise AssertionError(f"overhead run ({model}, knobs {knobs}) statuses")
+                run = 2 * rnd + 1 + turn // 2
+                key = f"{model}_knobs_{knobs}_{run}"
+                out[key] = _percentiles([r[4] for r in results])
+                runs[knobs].append(out[key])
+                print(f"telemetry overhead on {card}: {model}, knobs {knobs} (run {run}): "
+                      f"{out[key]}", flush=True)
+        summary = {}
+        for q in ("p50_ms", "p99_ms"):
+            like = {knobs: [r[q] for r in turns] for knobs, turns in runs.items()}
+            medians = {knobs: float(np.median(v)) for knobs, v in like.items()}
+            spread = max(max(v) - min(v) for v in like.values())
+            diff = medians["on"] - medians["off"]
+            summary[q] = {"off": like["off"], "on": like["on"], "median_off": medians["off"],
+                          "median_on": medians["on"], "on_minus_off": diff,
+                          "like_spread": spread, "resolved": abs(diff) > spread}
+        out[f"{model}_summary"] = summary
+        print(f"telemetry overhead on {card}: {model}, {rounds} round(s) of ABBA, "
+              f"{OBS_USERS} users x {requests} requests a turn: {summary}", flush=True)
+    return out
+
+
+def _obs_build(card: str, root: Path, device: str = "cuda") -> dict:
+    """``batch-build`` of two transformer-ae-512 machines (16 days of rows)
+    through the port's CLI with ``--trace-file``, ``--metrics-file`` and
+    ``GORDO_TPU_PROFILE_DIR``: the spans, the phase labels, and the
+    profile's dQ and dK/dV kernels."""
+    from gordo_tpu_torch import cli
+    from gordo_tpu_torch.observability import telemetry
+    from gordo_tpu_torch.util import profiling
+
+    for knob in OBS_KNOBS:
+        os.environ.pop(knob, None)
+    machines = []
+    for m in range(2):
+        config = build_config(f"transformer-ae-512-obs{m}", tags=FLEET_TAGS[m])
+        config["dataset"]["train_end_date"] = "2020-01-17T00:00:00+00:00"
+        machines.append(config)
+    root.mkdir(parents=True, exist_ok=True)
+    (root / "fleet.json").write_text(json.dumps({"machines": machines}))
+    trace_file, metrics_file = root / "build_trace.json", root / "build_metrics.prom"
+    os.environ["GORDO_TPU_PROFILE_DIR"] = str(root / "profile")
+    telemetry.reset()
+    started = time.perf_counter()
+    try:
+        code = cli.main(["--log-level", "WARNING", "batch-build", str(root / "fleet.json"),
+                         str(root / "built"), "--project-name", OBS_PROJECT, "--trace-file",
+                         str(trace_file), "--metrics-file", str(metrics_file),
+                         *(["--device", device] if device != "cuda" else [])])
+    finally:
+        os.environ.pop("GORDO_TPU_PROFILE_DIR", None)
+        telemetry.reset()
+    wall = time.perf_counter() - started
+    with open(trace_file) as fh:
+        spans = {e["name"] for e in json.load(fh)["traceEvents"]}
+    phases = {dict(labels)["phase"] for labels in _prom(metrics_file.read_text(),
+                                                        "gordo_build_phase_seconds_count")}
+    written = profiling.LAST_PROFILE
+    kernels = written["kernels"] if written else {}
+    named = {symbol: sum(n for name, n in kernels.items() if symbol in name)
+             for symbol in ("flash_bwd_dq_f32", "flash_bwd_dkv_f32")}
+    wanted = {"batched_build", "fetch", "validate", "compile", "train", "assemble", "serialize"}
+    print(f"profiled batch-build on {card}: exit {code} in {wall:.1f} s; spans {sorted(spans)}; "
+          f"phase labels {sorted(phases)}; torch.profiler trace {written and written['bytes']} "
+          f"bytes, export {written and written['export_s']:.2f} s, dQ/dK/dV launches {named}",
+          flush=True)
+    if code != 0 or not wanted <= spans or not wanted - {"batched_build"} <= phases:
+        raise AssertionError(f"batch-build: exit {code}, spans {spans}, phases {phases}")
+    if not written or written["label"] != "batched-build" or not all(named.values()):
+        raise AssertionError(f"the profiled build names no dQ or dK/dV kernel: {named}")
+    return {"wall_s": wall, "spans": sorted(spans), "phases": sorted(phases),
+            "trace_bytes": written["bytes"], "trace_export_s": written["export_s"],
+            "backward_launches": named}
+
+
+def observability_path(card: str, root: Path, batcher_root: Path, device: str = "cuda") -> dict:
+    """The telemetry plane on the card (module docstring, step 20):
+    ``transformer-ae-512`` and ``transformer-ae-512-bf16`` (the batcher
+    phases' first artifacts) served as ``run-server`` serves them, every
+    knob on, on the default lane then the event loop (:func:`_obs_lane`);
+    on the default lane the busy seconds against a profiled burst, the
+    device trace and a burst profile under load, and the JSON logs; the
+    overhead of the knobs; the profiled ``batch-build``. Returns the
+    numbers and the launches of the phase's kernels."""
+    import logging
+    from io import StringIO
+
+    from gordo_tpu_torch.observability import logs
+
+    started = time.perf_counter()
+    shutil.rmtree(root, ignore_errors=True)
+    collection = root / "1"
+    collection.mkdir(parents=True)
+    for model, dtype in zip(OBS_MODELS, ("float32", "bfloat16")):
+        os.symlink(batcher_root / dtype / "1" / "batcher-m0", collection / model)
+    rng = np.random.RandomState(SEED + 17)
+    body = _rect_body(_series(FULL_ROWS, 120000, rng))
+    bodies = {model: body for model in OBS_MODELS}
+    saved = {knob: os.environ.get(knob) for knob in OBS_KNOBS}
+    root_logger = logging.getLogger()
+    saved_handlers, saved_level = list(root_logger.handlers), root_logger.level
+    server_logger = logging.getLogger("gordo_tpu_torch.server.server")
+    log = StringIO()
+    _reset_launches()
+    try:
+        _obs_knobs_on()
+        # the JSON log lines of the phase, captured (run-server's CLI
+        # configures the root logger the same way)
+        root_logger.handlers = [logging.StreamHandler(log)]
+        logs.maybe_configure()
+        server_logger.setLevel(logging.DEBUG)
+        lanes = {}
+        lanes["default"], served = _obs_lane(card, collection, bodies, "default", device)
+        try:
+            busy = _obs_busy_against_trace(card, served, bodies, root)
+            under_load = _obs_profiles_under_load(card, served, bodies)
+        finally:
+            served.close()
+        lanes["loop"], served = _obs_lane(card, collection, bodies, "loop", device)
+        served.close()
+        server_logger.setLevel(logging.NOTSET)
+        lines = [json.loads(line) for line in log.getvalue().splitlines()
+                 if line.startswith("{")]
+        traced = [line for line in lines if line.get("trace_id") and line.get("span_id")]
+        if not any(line["trace_id"] in OBS_SENT for line in traced):
+            raise AssertionError(f"no JSON log line carries a sent trace id ({len(lines)} lines)")
+        overhead = _obs_overhead(card, collection, bodies, device)
+        build = _obs_build(card, root / "build", device)
+    finally:
+        server_logger.setLevel(logging.NOTSET)
+        root_logger.handlers, root_logger.level = saved_handlers, saved_level
+        for knob, value in saved.items():
+            if value is None:
+                os.environ.pop(knob, None)
+            else:
+                os.environ[knob] = value
+    launches = {dtype: _launches(dtype) for dtype in COUNTERS}
+    print(f"observability phase: {time.perf_counter() - started:.1f} s; JSON log lines "
+          f"{len(lines)} ({len(traced)} with trace ids); launches {launches}", flush=True)
+    if not (launches["float32"]["forward"] and launches["bfloat16"]["forward"]
+            and launches["float32"]["dq"] and launches["float32"]["dkv"]):
+        raise AssertionError(f"the observability phase launched a kernel no time: {launches}")
+    return {"lanes": lanes, "busy_against_trace": busy, "under_load": under_load,
+            "overhead": overhead, "build": build, "json_log_lines": len(lines),
+            "json_log_lines_traced": len(traced), "launches": launches,
+            "phase_s": time.perf_counter() - started}
+
+
 def main() -> int:
     import torch
 
@@ -5045,6 +5620,8 @@ def main() -> int:
     print(f"transformer-ae-512-d384 phase: {d384['phase_s']:.1f} s", flush=True)
     moe = moe_path(card, REPO / "build" / "chip_smoke_moe")
     torch.cuda.empty_cache()
+    observed = observability_path(card, REPO / "build" / "chip_smoke_observability", batcher_root)
+    torch.cuda.empty_cache()
 
     forward["launches_by_path"] = {"serving": serving, "server_surface": base_route,
                                    "batcher": batched["launches"],
@@ -5076,6 +5653,8 @@ def main() -> int:
                                                   if key != "launches"}}, default=str))
     print(json.dumps({"moe": {key: value for key, value in moe.items()
                               if key not in ("launches", "times_dh16")}}, default=str))
+    print(json.dumps({"observability": {key: value for key, value in observed.items()
+                                        if key != "launches"}}, default=str))
     for entry, key, launches, fleet_launches in (
             (dq, "dq", build, fleet), (dkv, "dkv", build, fleet),
             (bf16_dq, "dq", bf16_build, bf16_fleet), (bf16_dkv, "dkv", bf16_build, bf16_fleet)):
@@ -5085,6 +5664,11 @@ def main() -> int:
             entry["launches_by_path"]["kfcv_fleet"] = kfcv_fleet["launches"][key]
             entry["launches_by_path"]["windowed_fleet"] = windowed["fleet"]["launches"][
                 "float32"][key]
+    # the observability phase's launches: the served forwards of each dtype,
+    # and the float32 backward pair of its profiled batch-build
+    for entry, dtype, key in ((forward, "float32", "forward"), (bf16_forward, "bfloat16", "forward"),
+                              (dq, "float32", "dq"), (dkv, "float32", "dkv")):
+        entry["launches_by_path"]["observability"] = observed["launches"][dtype][key]
     dh16_entries = moe_entries(entries, moe)
     for entry in entries:
         entry["fleet_shape"] = fleet_times[entry["name"]]

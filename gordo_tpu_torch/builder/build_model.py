@@ -9,8 +9,14 @@ own ``cross_validate`` computes the anomaly thresholds), fits it on all the
 data, and records the offset, the scores, the splits and the model's
 metadata in the machine's ``BuildMetadata``. With a register directory it
 first looks the machine's content hash up there and loads the artifact it
-names instead of training. The fleet trainer, the retry ladder and the
-shipped AOT programs of the JAX builder are not ported (ROADMAP.md queue A).
+names instead of training. Each phase runs in the JAX builder's telemetry
+span (``fetch``, ``validate``, ``cross_validation``, ``fit``,
+``serialize``), timed into ``gordo_build_phase_seconds{phase}``, and every
+machine leaving ``build`` counts in ``gordo_build_machines_total`` (built
+or cached); the spans are no-ops unless a trace, span timing or
+``GORDO_TPU_PROFILE_DIR`` is on (observability/telemetry.py). The retry
+ladder and the shipped AOT programs of the JAX builder are not ported
+(ROADMAP.md item A10).
 """
 
 import datetime
@@ -36,6 +42,7 @@ from ..machine.metadata import (
 from ..models.anomaly.diff import cross_validate
 from ..models.base import extract_metadata
 from ..models.utils import Frame, index_label, metric_wrapper
+from ..observability import metrics as metric_catalog, telemetry
 from ..serializer.resolver import locate
 from ..util import disk_registry
 
@@ -49,6 +56,12 @@ DEFAULT_METRICS = [
 ]
 
 _DEFAULT_CV = {"sklearn.model_selection.TimeSeriesSplit": {"n_splits": 3}}
+
+_PHASE_FETCH = metric_catalog.BUILD_PHASE_SECONDS.labels(phase="fetch")
+_PHASE_VALIDATE = metric_catalog.BUILD_PHASE_SECONDS.labels(phase="validate")
+_PHASE_CV = metric_catalog.BUILD_PHASE_SECONDS.labels(phase="cross_validation")
+_PHASE_FIT = metric_catalog.BUILD_PHASE_SECONDS.labels(phase="fit")
+_PHASE_SERIALIZE = metric_catalog.BUILD_PHASE_SECONDS.labels(phase="serialize")
 
 
 class NonFiniteDataError(ValueError):
@@ -101,6 +114,7 @@ class ModelBuilder:
             cached_model_path = self.check_cache(model_register_dir)
             if cached_model_path:
                 model, machine = self.load_from_cache(cached_model_path, self.device)
+                metric_catalog.BUILD_MACHINES.labels(outcome="cached").inc()
                 if output_dir and os.path.realpath(str(output_dir)) == os.path.realpath(
                     str(cached_model_path)
                 ):
@@ -124,7 +138,8 @@ class ModelBuilder:
         dataset, X, y, query_sec = self._fetch_data()
         phases["fetch"] = query_sec
         validate_started = time.time()
-        bad = non_finite_report(X.values, y.values)
+        with telemetry.span("validate", _PHASE_VALIDATE, machine=self.machine.name):
+            bad = non_finite_report(X.values, y.values)
         phases["validate"] = time.time() - validate_started
         if bad is not None:
             raise NonFiniteDataError(f"machine {self.machine.name}: {bad}")
@@ -152,7 +167,8 @@ class ModelBuilder:
                 return model, machine_out
 
         fit_started = time.time()
-        model.fit(X.values, y.values)
+        with telemetry.span("fit", _PHASE_FIT, machine=self.machine.name):
+            model.fit(X.values, y.values)
         fit_sec = time.time() - fit_started
         phases["fit"] = fit_sec
 
@@ -172,12 +188,14 @@ class ModelBuilder:
             dataset=dataset_meta,
             phases=phases,
         )
+        metric_catalog.BUILD_MACHINES.labels(outcome="built").inc()
         return model, machine_out
 
     def _fetch_data(self) -> Tuple[GordoBaseDataset, Frame, Frame, float]:
         started = time.time()
-        dataset = GordoBaseDataset.from_dict(self.machine.dataset.to_dict())
-        X, y = dataset.get_data()
+        with telemetry.span("fetch", _PHASE_FETCH, machine=self.machine.name):
+            dataset = GordoBaseDataset.from_dict(self.machine.dataset.to_dict())
+            X, y = dataset.get_data()
         return dataset, X, y, time.time() - started
 
     def _fresh_machine(self) -> Machine:
@@ -207,7 +225,8 @@ class ModelBuilder:
         splitter = serializer.from_definition(evaluation.get("cv", _DEFAULT_CV))
         splits = self.build_split_dict(X, splitter)
         runner = getattr(model, "cross_validate", None) or partial(cross_validate, model)
-        cv_result = runner(X=X.values, y=y.values, scoring=scorers, cv=splitter)
+        with telemetry.span("cross_validation", _PHASE_CV, machine=self.machine.name):
+            cv_result = runner(X=X.values, y=y.values, scoring=scorers, cv=splitter)
         scores = {name: _fold_summary(cv_result[f"test_{name}"]) for name in scorers}
         return scores, splits, time.time() - cv_started
 
@@ -261,12 +280,13 @@ class ModelBuilder:
 
     @staticmethod
     def _save_model(model, machine: Machine, output_dir: Union[os.PathLike, str]):
-        serializer.dump(
-            model, str(output_dir),
-            tags=[t.name for t in machine.dataset.tag_list],
-            target_tags=[t.name for t in machine.dataset.target_tag_list],
-            metadata=machine.to_dict(),
-        )
+        with telemetry.span("serialize", _PHASE_SERIALIZE, machine=machine.name):
+            serializer.dump(
+                model, str(output_dir),
+                tags=[t.name for t in machine.dataset.tag_list],
+                target_tags=[t.name for t in machine.dataset.target_tag_list],
+                metadata=machine.to_dict(),
+            )
 
     @property
     def cache_key(self) -> str:

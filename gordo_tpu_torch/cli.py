@@ -15,7 +15,11 @@ config (JSON, which is also YAML, so the JAX CLI reads the same file) with
 the fleet trainer (parallel/batch_trainer.py) into ``OUTPUT_DIR/<name>``.
 It exits 0 when every machine was built, 81 when some were quarantined and
 82 when none was (the JAX CLI's codes); ``--fail-fast`` stops at the first
-fault with the code of its exception.
+fault with the code of its exception. ``--trace-file`` (or
+``GORDO_TPU_TRACE_FILE``) records the build's telemetry spans and writes
+them as Chrome trace-event JSON; ``--metrics-file`` (or
+``GORDO_TPU_METRICS_FILE``) writes the metric catalog as a Prometheus
+textfile; both are written on every exit path, a partial build's included.
 
 ``run-server`` serves the artifacts of ``MODEL_COLLECTION_DIR`` on
 ``--host`` and ``--port`` (``GORDO_SERVER_HOST``, ``GORDO_SERVER_PORT``)
@@ -26,7 +30,11 @@ before the server starts, ``--no-batch-predicts`` exports ``0``
 (server/batcher.py). With ``GORDO_TPU_FAST_LANE=1`` it serves through the
 socket fast lane (server/fastlane.py: an event loop, or a thread per
 connection with ``GORDO_TPU_FAST_LANE_EVENT_LOOP=0``), as the JAX command
-does. The JAX command's workers and warm-up are not ported.
+does. The server reads ``ENABLE_PROMETHEUS`` and ``PROJECT`` (its
+``/metrics``), and every command ``GORDO_TPU_LOG_FORMAT=json`` (one JSON
+object a log line, stamped with the request's trace and span ids:
+observability/logs.py), as the JAX CLI reads them. The JAX command's
+workers and warm-up are not ported (ROADMAP.md item A9).
 """
 
 import argparse
@@ -98,9 +106,48 @@ def build(machine_config: dict, output_dir: str, model_register_dir: Optional[st
 
 def batch_build(config_file: str, output_dir: str, project_name: str = "batch",
                 machines: str = "", model_register_dir: Optional[str] = None,
-                serial_fallback: bool = True, fail_fast: bool = False, device=None) -> int:
+                serial_fallback: bool = True, fail_fast: bool = False, device=None,
+                trace_file: Optional[str] = None, metrics_file: Optional[str] = None) -> int:
     """Build the config's machines (or the comma-separated ``machines`` of
-    it) as a fleet; returns the exit code."""
+    it) as a fleet; returns the exit code. ``trace_file`` and
+    ``metrics_file`` receive the build's telemetry, written whatever the
+    build's outcome."""
+    from .observability import telemetry
+
+    if trace_file:
+        telemetry.start_trace()
+    elif metrics_file:
+        # metrics only: the phase histograms fill, no event buffer grows
+        telemetry.enable_spans()
+    try:
+        return _batch_build(config_file, output_dir, project_name, machines,
+                            model_register_dir, serial_fallback, fail_fast, device)
+    finally:
+        _flush_telemetry(trace_file, metrics_file)
+
+
+def _flush_telemetry(trace_file: Optional[str], metrics_file: Optional[str]) -> None:
+    """Write the Chrome trace and/or the Prometheus textfile (atomic
+    writes); an export failure is logged, never raised over the build's
+    own outcome."""
+    from .observability import telemetry
+
+    try:
+        if trace_file:
+            telemetry.write_trace(trace_file)
+            telemetry.stop_trace()
+            print(f"telemetry trace written: {trace_file} (open in Perfetto or "
+                  "chrome://tracing)", file=sys.stderr)
+        if metrics_file:
+            telemetry.write_metrics(metrics_file)
+            print(f"telemetry metrics written: {metrics_file}", file=sys.stderr)
+    except Exception:  # noqa: BLE001 -- export must not mask the build result
+        logger.exception("telemetry export failed")
+
+
+def _batch_build(config_file: str, output_dir: str, project_name: str, machines: str,
+                 model_register_dir: Optional[str], serial_fallback: bool, fail_fast: bool,
+                 device) -> int:
     from .parallel.batch_trainer import BatchedModelBuilder
     from .workflow.normalized_config import NormalizedConfig
 
@@ -141,6 +188,12 @@ def _env_flag(name: str, default: bool) -> bool:
     raise ValueError(f"{name}={value!r} is not a boolean")
 
 
+def prepare_run_server(batch_predicts: bool) -> None:
+    """What ``run-server`` sets before its server starts: the batching mode,
+    which the batcher reads at its first predict."""
+    os.environ["GORDO_TPU_SERVING_BATCH"] = "auto" if batch_predicts else "0"
+
+
 def _parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(prog="python -m gordo_tpu_torch")
     parser.add_argument("--log-level", default=os.environ.get("GORDO_LOG_LEVEL", "INFO"),
@@ -171,6 +224,12 @@ def _parser() -> argparse.ArgumentParser:
     fleet_cmd.add_argument("--fail-fast", action="store_true",
                            help="stop at the first fault instead of quarantining the machine")
     fleet_cmd.add_argument("--device", default=None, help="cuda (default) or cpu")
+    fleet_cmd.add_argument("--trace-file", default=os.environ.get("GORDO_TPU_TRACE_FILE"),
+                           help="write the build's telemetry spans as Chrome trace-event "
+                                "JSON to this path (open it in Perfetto)")
+    fleet_cmd.add_argument("--metrics-file", default=os.environ.get("GORDO_TPU_METRICS_FILE"),
+                           help="write the build's telemetry metrics as a Prometheus "
+                                "textfile to this path")
     server_cmd = commands.add_parser("run-server", help="Serve MODEL_COLLECTION_DIR's models")
     server_cmd.add_argument("--host", default=os.environ.get("GORDO_SERVER_HOST", "0.0.0.0"))
     server_cmd.add_argument("--port", type=int,
@@ -190,11 +249,14 @@ def main(argv: Optional[List[str]] = None) -> int:
         level=getattr(logging, args.log_level),
         format="[%(asctime)s] %(levelname)s [%(name)s.%(funcName)s:%(lineno)d] %(message)s",
     )
+    from .observability import logs
+
+    # GORDO_TPU_LOG_FORMAT=json: JSON lines stamped with the trace ids
+    logs.maybe_configure()
     if args.command == "run-server":
         from .server.server import run_server
 
-        # before the server starts: the batcher reads it at its first predict
-        os.environ["GORDO_TPU_SERVING_BATCH"] = "auto" if args.batch_predicts else "0"
+        prepare_run_server(args.batch_predicts)
         run_server(args.host, args.port, args.device)
         return 0
     try:
@@ -203,7 +265,8 @@ def main(argv: Optional[List[str]] = None) -> int:
                 raise ValueError("no config file: give it as an argument or in $CONFIG_FILE")
             return batch_build(args.config_file, args.output_dir, args.project_name,
                                args.machines, args.model_register_dir,
-                               not args.no_serial_fallback, args.fail_fast, args.device)
+                               not args.no_serial_fallback, args.fail_fast, args.device,
+                               args.trace_file, args.metrics_file)
         if args.machine_config is None:
             raise ValueError("no machine config: give it as an argument or in $MACHINE")
         build(json.loads(args.machine_config), args.output_dir, args.model_register_dir,

@@ -65,8 +65,9 @@ def _build_dir() -> Path:
 def build_all() -> Dict[str, Path]:
     """Compile every source not yet built; return ``{stem: library path}``.
 
-    Each library is written under a temporary name and renamed into
-    place, so a concurrent builder never loads a half-written file."""
+    Each library is written under a temporary name of its process and
+    thread and renamed into place, so a concurrent builder never loads a
+    half-written file."""
     out_dir = _build_dir()
     out_dir.mkdir(parents=True, exist_ok=True)
     libs = {src.stem: out_dir / f"lib{src.stem}.so" for src in CSRC.glob("*.cu")}
@@ -77,9 +78,10 @@ def build_all() -> Dict[str, Path]:
         if lib.exists():
             continue
         src = str(CSRC / f"{stem}.cu")
-        tmp = lib.with_suffix(f".tmp-{os.getpid()}.so")
+        tag = f"{os.getpid()}-{threading.get_ident()}"
+        tmp = lib.with_suffix(f".tmp-{tag}.so")
         if stem in PARTS:
-            objs = [lib.with_suffix(f".part{i}.tmp-{os.getpid()}.o") for i in range(PARTS[stem])]
+            objs = [lib.with_suffix(f".part{i}.tmp-{tag}.o") for i in range(PARTS[stem])]
             cmds = [[nvcc, *compile_flags, "-c", f"-DGORDO_PART={i}", "-o", str(obj), src]
                     for i, obj in enumerate(objs)]
         else:

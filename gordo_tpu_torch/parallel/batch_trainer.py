@@ -31,11 +31,27 @@ Each machine's initial parameters per stage and its sample order per epoch
 come from ``torch.Generator``s seeded by ``_machine_seed``, the stage and
 the epoch (``draw_inputs``): the JAX package's PRNG streams cannot be
 reproduced, so ``run_bucket`` takes them as arguments and the tests hand it
-the JAX program's own draws. Not ported yet (ROADMAP.md queue A): the
-elastic scheduler and multi-host fleets, warm starts, the retry ladder and
-fault injection, the drift queue, and the telemetry spans and metrics.
+the JAX program's own draws.
+
+Telemetry, under the JAX builder's span names and phase labels: each
+machine's ``fetch``, ``validate``, ``assemble`` and ``serialize`` under its
+own trace root (``tracing.root_for``, so a machine's spans share a trace
+id), each chunk's ``compile`` and ``train``, all inside ``batched_build``.
+The JAX ``compile`` span encloses XLA's compile; the port's encloses what
+stands in that place, the load of the kernel libraries the chunk launches
+(``ops/_build.py`` ``load_library``, once a process), which builds every
+CUDA source on a cold build directory; a family that launches no
+hand-written kernel (Dense, TCN) loads none.
+``GORDO_TPU_PROFILE_DIR`` wraps the build in ``torch.profiler``
+(util/profiling.py). The catalog's machines by outcome, quarantines by
+stage, OOM bisections and serial fallbacks are counted where they happen.
+
+Not ported yet (ROADMAP.md items A7, A9 and A10): the elastic scheduler and
+multi-host fleets, warm starts, the retry ladder and fault injection, and
+the drift queue.
 """
 
+import contextlib
 import dataclasses
 import datetime
 import logging
@@ -61,12 +77,15 @@ from ..models.anomaly.diff import (
 from ..models.base import extract_metadata
 from ..models.models import _FIT_KWARGS, BaseEstimator
 from ..models.scaler import MinMaxScaler, Pipeline
-from ..models.spec import ModelSpec
+from ..models.spec import LSTMLayer, ModelSpec, MoEBlock, TransformerBlock
 from ..models.utils import Frame, index_label
+from ..observability import metrics as metric_catalog, telemetry, tracing
+from ..ops import _build
 from ..ops.nn import StackedTransformerModel, init_model_params, stack_params
 from ..ops.predict import n_train_samples, unfold_windows
 from ..ops.train import make_optimizer, run_masked_epoch
 from ..util import disk_registry
+from ..util.profiling import maybe_profile
 
 logger = logging.getLogger(__name__)
 
@@ -79,6 +98,22 @@ STAGE_DATA_FETCH = "data_fetch"
 STAGE_DATA_VALIDATION = "data_validation"
 STAGE_TRAINING = "training"
 STAGE_SERIAL_BUILD = "serial_build"
+
+
+_PHASE_FETCH = metric_catalog.BUILD_PHASE_SECONDS.labels(phase="fetch")
+_PHASE_VALIDATE = metric_catalog.BUILD_PHASE_SECONDS.labels(phase="validate")
+_PHASE_COMPILE = metric_catalog.BUILD_PHASE_SECONDS.labels(phase="compile")
+_PHASE_TRAIN = metric_catalog.BUILD_PHASE_SECONDS.labels(phase="train")
+_PHASE_ASSEMBLE = metric_catalog.BUILD_PHASE_SECONDS.labels(phase="assemble")
+
+
+def _machine_trace(name: str):
+    """A trace root per machine (memoized by name), so that every span one
+    machine emits shares one trace id; a null context while spans are
+    dormant, so the disabled build path allocates nothing."""
+    if not telemetry.spans_enabled():
+        return contextlib.nullcontext()
+    return tracing.attach(tracing.root_for(name))
 
 
 def _machine_seed(machine: Machine) -> int:
@@ -424,6 +459,20 @@ def _summary(values: np.ndarray) -> Dict[str, float]:
 
 
 # --------------------------------------------------------------- the builder
+def _kernel_libraries(spec: ModelSpec) -> Tuple[str, ...]:
+    """The libraries (``ops/csrc/<stem>.cu``) of the hand-written kernels a
+    bucket of ``spec`` launches in training: the flash forward and backward
+    of its dtype for attention blocks, the LSTM recurrence pair for LSTM
+    layers, none for the other families."""
+    suffix = "_bf16" if spec.compute_dtype == "bfloat16" else ""
+    stems: Tuple[str, ...] = ()
+    if any(isinstance(layer, (TransformerBlock, MoEBlock)) for layer in spec.layers):
+        stems += (f"flash_attention{suffix}", f"flash_attention_bwd{suffix}")
+    if any(isinstance(layer, LSTMLayer) for layer in spec.layers):
+        stems += ("lstm_recurrence",)
+    return stems
+
+
 class BatchedModelBuilder:
     """Train many machines at once on one card (``cuda`` unless ``device``
     is ``"cpu"``).
@@ -466,6 +515,11 @@ class BatchedModelBuilder:
     def build(self) -> List[Tuple[Any, Machine]]:
         """Train and return ``(model, machine)`` for every machine built,
         in input order."""
+        with maybe_profile("batched-build"):
+            with telemetry.span("batched_build", machines=len(self.machines)):
+                return self._build_all()
+
+    def _build_all(self) -> List[Tuple[Any, Machine]]:
         device = resolve_device(self.device)
         self.quarantine_records, self.serial_built, self.from_cache = [], [], []
         self.oom_bisections = 0
@@ -477,6 +531,7 @@ class BatchedModelBuilder:
             if cached is not None:
                 results[i] = cached
                 self.from_cache.append(machine.name)
+                metric_catalog.BUILD_MACHINES.labels(outcome="cached").inc()
                 continue
             plan = _plan_machine(machine)
             if plan is None:
@@ -490,6 +545,7 @@ class BatchedModelBuilder:
                 raise ValueError(f"Machine {machine.name} is not batchable and "
                                  f"serial_fallback=False")
             logger.info("Machine %s: serial fallback", machine.name)
+            metric_catalog.SERIAL_FALLBACKS.labels(reason="unbatchable").inc()
             built = self._guarded(machine, STAGE_SERIAL_BUILD, self._serial_build, machine)
             if built is not None:
                 results[i] = built
@@ -498,7 +554,9 @@ class BatchedModelBuilder:
             if self._guarded(plans[i].machine, STAGE_DATA_FETCH, self._load_data, plans[i]) is None:
                 del plans[i]
         for i in list(plans):
-            bad = non_finite_report(plans[i].X, plans[i].y)
+            with _machine_trace(plans[i].machine.name), telemetry.span(
+                    "validate", _PHASE_VALIDATE, machine=plans[i].machine.name):
+                bad = non_finite_report(plans[i].X, plans[i].y)
             if bad is not None:
                 error = NonFiniteDataError(f"machine {plans[i].machine.name}: {bad}")
                 if self.fail_fast:
@@ -528,6 +586,8 @@ class BatchedModelBuilder:
 
     def _quarantine(self, machine: Machine, stage: str, reason: str, error: str) -> None:
         record = QuarantineRecord(machine.name, stage, reason, error)
+        metric_catalog.QUARANTINES.labels(stage=stage).inc()
+        metric_catalog.BUILD_MACHINES.labels(outcome="quarantined").inc()
         logger.error("Machine %s QUARANTINED at %s (%s): %s", machine.name, stage, reason, error)
         self.quarantine_records.append(record)
 
@@ -572,8 +632,10 @@ class BatchedModelBuilder:
 
     def _load_data(self, plan: _Plan) -> _Plan:
         started = time.time()
-        dataset = GordoBaseDataset.from_dict(plan.machine.dataset.to_dict())
-        X, y = dataset.get_data()
+        with _machine_trace(plan.machine.name), telemetry.span(
+                "fetch", _PHASE_FETCH, machine=plan.machine.name):
+            dataset = GordoBaseDataset.from_dict(plan.machine.dataset.to_dict())
+            X, y = dataset.get_data()
         plan.X = np.ascontiguousarray(X.values, np.float32)
         plan.y = np.ascontiguousarray(y.values, np.float32)
         plan.frame = X
@@ -587,7 +649,8 @@ class BatchedModelBuilder:
         model_dir = self._machine_dir(machine.name)
         if model_dir is None:
             return
-        ModelBuilder._save_model(model, machine_out, model_dir)
+        with _machine_trace(machine.name):
+            ModelBuilder._save_model(model, machine_out, model_dir)
         if self.model_register_dir:
             disk_registry.write_key(self.model_register_dir,
                                     ModelBuilder.calculate_cache_key(machine), model_dir)
@@ -641,6 +704,7 @@ class BatchedModelBuilder:
             logger.warning("Chunk of %d machines ran out of device memory (%s); bisecting "
                            "into %d + %d", len(group), error, mid, len(group) - mid)
             self.oom_bisections += 1
+            metric_catalog.OOM_BISECTIONS.inc()
             return {**self._build_chunk_guarded(group[:mid], idxs[:mid], stages, geometry,
                                                 device),
                     **self._build_chunk_guarded(group[mid:], idxs[mid:], stages, geometry,
@@ -652,6 +716,7 @@ class BatchedModelBuilder:
                        len(group), type(error).__name__, error)
         out = {}
         for i, plan in zip(idxs, group):
+            metric_catalog.SERIAL_FALLBACKS.labels(reason="bucket_failure").inc()
             built = self._guarded(plan.machine, STAGE_TRAINING, self._serial_build, plan.machine)
             if built is not None:
                 out[i] = built
@@ -661,13 +726,23 @@ class BatchedModelBuilder:
         plan0 = group[0]
         fold_bounds, fold_rows, perms = geometry
         started = time.time()
-        inits, orders = draw_inputs([_machine_seed(p.machine) for p in group], plan0.spec,
-                                    stages, plan0.epochs, plan0.shuffle)
-        model, losses, fold_preds = run_bucket(
-            plan0.spec, np.stack([p.X for p in group]), np.stack([p.y for p in group]), stages,
-            plan0.epochs, plan0.scale_x, inits, orders, device, perms)
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
+        bucket = f"{type(plan0.spec.layers[0]).__name__}x{len(plan0.spec.layers)}"
+        # the JAX span encloses XLA's compile of the bucket program; the port
+        # compiles no program, and what stands in that place is the load of
+        # the kernel libraries the bucket launches (nothing is loaded on the
+        # CPU, or for a family that launches no hand-written kernel)
+        with telemetry.span("compile", _PHASE_COMPILE, bucket=bucket, machines=len(group)):
+            if device.type == "cuda":
+                for stem in _kernel_libraries(plan0.spec):
+                    _build.load_library(stem)
+        with telemetry.span("train", _PHASE_TRAIN, bucket=bucket, machines=len(group)):
+            inits, orders = draw_inputs([_machine_seed(p.machine) for p in group], plan0.spec,
+                                        stages, plan0.epochs, plan0.shuffle)
+            model, losses, fold_preds = run_bucket(
+                plan0.spec, np.stack([p.X for p in group]), np.stack([p.y for p in group]),
+                stages, plan0.epochs, plan0.scale_x, inits, orders, device, perms)
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
         # the stacked program's wall, shared evenly by the chunk's machines,
         # the CV taking the folds' share of the stages
         per_machine = (time.time() - started) / len(group)
@@ -681,9 +756,12 @@ class BatchedModelBuilder:
                     raise ValueError(f"machine {plan.machine.name} diverged: {bad}")
                 self._quarantine(plan.machine, STAGE_TRAINING, "diverged", bad)
                 continue
-            built = self._assemble(plan, params, losses[j], [p[j] for p in fold_preds],
-                                   fold_rows, per_machine - cv_share, cv_share, device)
+            with _machine_trace(plan.machine.name), telemetry.span(
+                    "assemble", _PHASE_ASSEMBLE, machine=plan.machine.name):
+                built = self._assemble(plan, params, losses[j], [p[j] for p in fold_preds],
+                                       fold_rows, per_machine - cv_share, cv_share, device)
             self._persist(plan.machine, *built)
+            metric_catalog.BUILD_MACHINES.labels(outcome="built").inc()
             out[idxs[j]] = built
         return out
 

@@ -48,15 +48,41 @@ whole group, at BH = (windows summed over the group) x heads.
   nothing, so a fused call has no padding lanes; the bank's capacity still
   grows in powers of two (floor 8) so that it restacks rarely.
 
-Not ported here: the telemetry spans and metric catalog (ROADMAP.md queue
-A8), the resilience request scope, deadlines, breakers and output check
-(A9), the fault sites (A10), and ``load_shipped``/``prelower`` with the
-AOT programs they install (A10). The counters are plain attributes:
-``stats``, ``calls``, ``spec_calls`` (fused calls by spec) and each bank's
-``generation``, ``restacks`` and ``evictions``.
+- Telemetry, as the JAX batcher emits it: a submit waits inside a
+  ``serve_batch_queue`` span and carries its trace context
+  (``tracing.capture``) to the dispatcher, which records one
+  ``serve_device_call`` span into every rider's trace, linked to the other
+  riders, and one event into the global trace; the catalog's queue wait,
+  fuse width, bisections, serial rescues, abandons, pipeline overlaps and
+  the bank's restacks and evictions; ``gordo_server_device_flops_total``
+  (``ops.flops.forward_flops_per_sample(spec)`` x each rider's own
+  ``n_pad`` windows, summed over the riders); and
+  ``gordo_server_device_busy_seconds_total``. On the card a host interval
+  would time the queue, not the work (the dispatcher launches on its
+  stream and drains later), so each fused forward is bracketed by two CUDA
+  timing events on the dispatcher's stream (the first after the
+  parameter gather, whose small launches the host paces: on an H100 its
+  kernels sat up to 5 ms apart under 16 request threads,
+  ``chip_smoke.py``'s observability phase), read only after the wait
+  :meth:`_drain_call` already makes (no synchronisation is added), and
+  unioned with the previous call's interval as the JAX ``_account_busy``
+  does. Each reading spans two events a call or a gap apart (the call's
+  own pair, and the previous call's end to this call's begin), never the
+  process's lifetime, so the milliseconds CUDA reports in float32 stay
+  exact however long the server runs; on the CPU, and for
+  a serial rescue, the host clock times the call. ``device_call_stuck_s``
+  (the watchdog's reading) stays on the host clock. The dispatcher
+  registers itself with the sampling profiler as ``gordo-batcher``.
+
+Not ported here: the resilience request scope, deadlines, breakers and
+output check (A9), the fault sites (A10), and ``load_shipped``/``prelower``
+with the AOT programs they install (A10). Tests read the plain attributes
+beside the catalog: ``stats``, ``calls``, ``spec_calls`` (fused calls by
+spec) and each bank's ``generation``, ``restacks`` and ``evictions``.
 """
 
 import contextlib
+import contextvars
 import logging
 import os
 import select
@@ -69,6 +95,8 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..observability import metrics as metric_catalog, profiler, telemetry, tracing
+from ..ops.flops import forward_flops_per_sample
 from ..ops.nn import stacked_forward
 from ..ops.predict import pad_for_predict, predict_fn, predict_padded, unfold_windows
 
@@ -90,6 +118,32 @@ def _device_of(model) -> torch.device:
     return next(model.parameters()).device
 
 
+# the model a request names, set by the server around its predict: the
+# batcher's spans and logs carry it (the JAX batcher reads it off its
+# resilience request scope)
+_request_model: "contextvars.ContextVar[str]" = contextvars.ContextVar(
+    "gordo_tpu_torch_request_model", default="")
+
+
+@contextlib.contextmanager
+def request_model(name: str):
+    """Name the model of the predicts made inside the block."""
+    token = _request_model.set(name)
+    try:
+        yield
+    finally:
+        _request_model.reset(token)
+
+
+def _spec_forward_flops(spec) -> float:
+    """Analytic forward FLOPs a window for the achieved-FLOPs counter; 0.0
+    when the spec walk fails (accounting must never fail a device call)."""
+    try:
+        return float(forward_flops_per_sample(spec))
+    except Exception:  # noqa: BLE001
+        return 0.0
+
+
 @dataclass
 class _Item:
     spec: Any
@@ -103,6 +157,11 @@ class _Item:
     error: Optional[BaseException] = None
     # set by a waiter that gave up: the dispatcher skips the item
     abandoned: bool = False
+    # when it was queued (host clock), its model's name and the trace
+    # context captured at its enqueue (None outside a traced request)
+    t_submit: float = 0.0
+    tag: str = ""
+    trace_ctx: Any = None
 
 
 class _SubmitRing:
@@ -210,6 +269,11 @@ def _discard_waiter() -> None:
     _waiter_pool.event = None
 
 
+# the timing event the dispatcher's fused call records once its parameters
+# are gathered, where its forward begins (set only on the card)
+_forward_begin = threading.local()
+
+
 def _stacked_apply(spec, bank_params, idx: torch.Tensor, X: torch.Tensor, n_pad: int
                    ) -> torch.Tensor:
     """One fused call: gather ``len(idx)`` models' parameters out of the
@@ -217,9 +281,14 @@ def _stacked_apply(spec, bank_params, idx: torch.Tensor, X: torch.Tensor, n_pad:
     (B, rows, D) into (B, n_pad, L, D) windows on the device, and run the
     stacked forward: (B, n_pad, outputs) in float32. B is the group's own
     size: the JAX package pads it to 1/4/16/64 lanes only to bound its
-    compiled programs, and the port compiles nothing."""
+    compiled programs, and the port compiles nothing. The forward's begin
+    event (:data:`_forward_begin`) is recorded after the gather, whose
+    small launches the host paces."""
     params = [{name: value.index_select(0, idx) for name, value in layer.items()}
               for layer in bank_params]
+    begin = getattr(_forward_begin, "event", None)
+    if begin is not None:
+        begin.record()
     return stacked_forward(spec, params, unfold_windows(spec, X, n_pad))
 
 
@@ -296,6 +365,7 @@ class _ParamBank:
             if len(self.models) >= self.max_models:
                 _victim, slot = self.slots.popitem(last=False)
                 self.evictions += 1
+                metric_catalog.PARAM_BANK_EVICTIONS.inc()
                 self.generation += 1
                 self.models[slot] = model  # drops the victim's reference
                 self.slots[key] = slot
@@ -347,18 +417,25 @@ class _ParamBank:
             ]
         self.capacity = cap
         self.restacks += 1
+        metric_catalog.PARAM_BANK_RESTACKS.inc()
 
 
 @dataclass
 class _Call:
     """A fused call launched and not yet drained: its host output lands
-    behind ``done`` (None on the CPU, where the call has already run)."""
+    behind ``done`` (None on the CPU, where the call has already run).
+    ``t0`` is its launch on the host clock; on the card ``begin`` and
+    ``end`` are the timing events around its forward on the dispatcher's
+    stream."""
 
     spec: Any
     items: List[_Item]
     out: torch.Tensor
     done: Any
     windows: int
+    t0: float = 0.0
+    begin: Any = None
+    end: Any = None
 
 
 _STOP = object()
@@ -397,6 +474,18 @@ class CrossModelBatcher:
         # (which the grouping never makes) counts in "mixed_spec_calls"
         self.spec_calls: Dict[Any, int] = {}
         self._pipeline = device_pipeline_enabled()
+        # the launch of the device call in flight (host clock; None between
+        # calls), the end of the last busy interval on the host clock, and
+        # per device the end event of the last busy interval on its stream
+        self._busy_since: Optional[float] = None
+        self._busy_end: Dict[Any, float] = {}
+        self._busy_end_event: Dict[Any, Any] = {}
+
+    def device_call_stuck_s(self) -> float:
+        """Seconds the dispatcher has been inside its current device call
+        (0.0 between calls), on the host clock: the watchdog's reading."""
+        t0 = self._busy_since
+        return 0.0 if t0 is None else max(0.0, time.monotonic() - t0)
 
     # ------------------------------------------------------------- public
     def decision_counts(self) -> Tuple[int, int]:
@@ -522,14 +611,19 @@ class CrossModelBatcher:
         dispatcher skips it."""
         X_pad, n_pad, n_keep = pad_for_predict(spec, X)
         item = _Item(spec, model, X_pad, n_pad, n_keep, _device_of(model),
-                     done=_checkout_waiter())
+                     done=_checkout_waiter(), t_submit=time.monotonic(),
+                     tag=_request_model.get())
         self._ensure_thread()
-        self._ring.put(item)
-        if not item.done.wait(timeout=self.timeout_s):
-            item.abandoned = True
-            _discard_waiter()  # a late set() lands on an orphan Event
-            self._record_abandoned(item)
-            raise TimeoutError(f"batched predict timed out after {self.timeout_s:.0f}s")
+        # the queue span covers enqueue to fan-out; the context captured
+        # inside it is where the dispatcher parents the device-call span
+        with telemetry.span("serve_batch_queue", model=item.tag):
+            item.trace_ctx = tracing.capture()
+            self._ring.put(item)
+            if not item.done.wait(timeout=self.timeout_s):
+                item.abandoned = True
+                _discard_waiter()  # a late set() lands on an orphan Event
+                self._record_abandoned(item)
+                raise TimeoutError(f"batched predict timed out after {self.timeout_s:.0f}s")
         if item.error is not None:
             raise item.error
         return item.result
@@ -537,6 +631,7 @@ class CrossModelBatcher:
     def _record_abandoned(self, item: _Item) -> None:
         """Count one abandoned item; log once per (spec, shape)."""
         key = (item.spec, item.X_pad.shape)
+        metric_catalog.BATCHER_ABANDONED.inc()
         with self._lock:
             self.stats["abandoned"] += 1
             if key in self._abandon_logged:
@@ -567,6 +662,7 @@ class CrossModelBatcher:
     def _loop(self) -> None:
         # inference mode is thread-local: entered here, in the thread that
         # makes the device calls
+        profiler.register_thread("gordo-batcher")
         with torch.inference_mode():
             self._dispatch_until_stopped()
 
@@ -582,6 +678,7 @@ class CrossModelBatcher:
                     for call in pending:
                         self._drain_call(call)
                     pending = []
+                    self._busy_since = None
                     continue
                 batch = [nxt]
             else:
@@ -615,9 +712,12 @@ class CrossModelBatcher:
                 overlapped = len(launched) if pending else len(launched) - 1
                 if overlapped > 0:
                     self.stats["pipeline_overlaps"] += overlapped
+                    metric_catalog.DEVICE_PIPELINE_OVERLAPS.inc(overlapped)
                 for call in pending + launched[:-1]:
                     self._drain_call(call)
                 pending = launched[-1:]
+                # the watchdog's reading follows whatever is still in flight
+                self._busy_since = pending[0].t0 if pending else None
             if stop:
                 for call in pending:
                     self._drain_call(call)
@@ -642,8 +742,18 @@ class CrossModelBatcher:
             runs.append((spec, run))
         return runs
 
+    @staticmethod
+    def _observe_group(items: List[_Item]) -> None:
+        """How long each rider queued before its fused call, and the call's
+        fuse width."""
+        now = time.monotonic()
+        for item in items:
+            metric_catalog.BATCHER_QUEUE_WAIT_SECONDS.observe(max(0.0, now - item.t_submit))
+        metric_catalog.BATCHER_FUSE_WIDTH.observe(len(items))
+
     def _run(self, batch: List[_Item]) -> None:
         for spec, items in self._groups(batch):
+            self._observe_group(items)
             self._run_group(spec, items)
 
     def _run_group(self, spec, items: List[_Item]) -> None:
@@ -665,6 +775,7 @@ class CrossModelBatcher:
                 self._serial_rescue(items[0], exc)
                 return
             self.stats["bisections"] += 1
+            metric_catalog.GROUP_BISECTIONS.inc()
             logger.warning("fused device call over %d predicts failed (%s: %s); bisecting",
                            len(items), type(exc).__name__, exc)
             mid = len(items) // 2
@@ -674,9 +785,12 @@ class CrossModelBatcher:
     def _device_call(self, spec, items: List[_Item]) -> None:
         """The strict-serial device call: launch, wait, fan out; raises on
         any failure (the ladder takes it)."""
-        call = self._device_dispatch(spec, items)
-        if call is not None:
-            self._finish(call)
+        try:
+            call = self._device_dispatch(spec, items)
+            if call is not None:
+                self._finish(call)
+        finally:
+            self._busy_since = None
 
     # -------------------------------------------- pipelined device path
     def _run_async(self, batch: List[_Item]) -> List[_Call]:
@@ -685,6 +799,7 @@ class CrossModelBatcher:
         ladder instead."""
         calls = []
         for spec, items in self._groups(batch):
+            self._observe_group(items)
             try:
                 call = self._device_dispatch(spec, items)
             except Exception as exc:  # noqa: BLE001 -- the ladder takes it
@@ -720,16 +835,26 @@ class CrossModelBatcher:
                 raise RuntimeError("parameter bank churned twice during slot resolution")
         stream = bank.stream
         windows = items[0].n_pad * len(items)
+        t0 = time.monotonic()
+        self._busy_since = t0
         with contextlib.nullcontext() if stream is None else torch.cuda.stream(stream):
             X, idx = self._stacked_inputs(items, slots, device)
-            out = _stacked_apply(spec, bank.stacked, idx, X, items[0].n_pad)
             if stream is None:
-                return _Call(spec, items, out, None, windows)
+                out = _stacked_apply(spec, bank.stacked, idx, X, items[0].n_pad)
+                return _Call(spec, items, out, None, windows, t0)
+            # the forward's interval on the stream, for the busy seconds
+            begin, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            _forward_begin.event = begin
+            try:
+                out = _stacked_apply(spec, bank.stacked, idx, X, items[0].n_pad)
+            finally:
+                _forward_begin.event = None
+            end.record(stream)
             host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
             host.copy_(out, non_blocking=True)
             done = torch.cuda.Event()
             done.record(stream)
-        return _Call(spec, items, host, done, windows)
+        return _Call(spec, items, host, done, windows, t0, begin, end)
 
     def _stacked_inputs(self, items: List[_Item], slots: List[int], device: torch.device
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -769,11 +894,72 @@ class CrossModelBatcher:
         entry[toggle][2] = copied
         return X, idx
 
+    def _account_busy(self, clock, start: float, end: float) -> None:
+        """Busy seconds of one call's interval on ``clock`` (the host's, in
+        seconds of ``time.monotonic``), unioned against that clock's previous interval:
+        overlapping calls must not count twice, or the duty cycle would read
+        above 1."""
+        start = max(start, self._busy_end.get(clock, start))
+        if end > start:
+            metric_catalog.DEVICE_BUSY_SECONDS.inc(end - start)
+        self._busy_end[clock] = max(end, self._busy_end.get(clock, end))
+
+    def _account_events(self, clock, begin, end) -> None:
+        """Busy seconds of one call's interval between two completed timing
+        events on ``clock``'s stream, unioned against the end event of that
+        stream's previous interval as :meth:`_account_busy` unions host
+        times. Only the call's own length and its offset from the previous
+        end are read: both are short next to the process's lifetime."""
+        length = begin.elapsed_time(end) / 1e3
+        prev = self._busy_end_event.get(clock)
+        offset = 0.0 if prev is None else prev.elapsed_time(begin) / 1e3
+        # the interval is [offset, offset + length] past the previous end
+        if offset + length > max(offset, 0.0):
+            metric_catalog.DEVICE_BUSY_SECONDS.inc(offset + length - max(offset, 0.0))
+        if prev is None or offset + length > 0.0:
+            self._busy_end_event[clock] = end
+
+    def _account_call(self, call: _Call) -> None:
+        """The busy seconds of a drained call: its forward's interval between
+        the CUDA events on the dispatcher's stream (both have completed:
+        they precede the copy ``done`` waits for); on the CPU, its launch
+        to now."""
+        if call.begin is None:
+            self._account_busy("host", call.t0, time.monotonic())
+            return
+        self._account_events(call.items[0].device, call.begin, call.end)
+
+    def _emit_device_span(self, items: List[_Item], t0: float,
+                          error: Optional[BaseException] = None, rescue: bool = False) -> None:
+        """Record the finished device call as a span in every rider's trace
+        (parented at that rider's enqueue point, linked to the co-fused
+        riders), and one event into the global trace buffer. The dispatcher
+        holds no request context, hence the explicit fan-out."""
+        duration = time.monotonic() - t0
+        attrs: Dict[str, Any] = {"fused": len(items)}
+        if rescue:
+            attrs["rescue"] = 1
+        if error is not None:
+            attrs["error"] = type(error).__name__
+        telemetry.add_trace_event("serve_device_call", t0, duration, **attrs)
+        riders = [it for it in items if it.trace_ctx is not None]
+        for item in riders:
+            links = [(other.trace_ctx.trace_id, other.trace_ctx.span_id or "")
+                     for other in riders if other is not item]
+            tracing.record_into(item.trace_ctx, "serve_device_call", t0, duration,
+                                links=links, model=item.tag, **attrs)
+
     def _finish(self, call: _Call) -> None:
         """Wait for a call's host output and fan it out; raises if the
         device call failed."""
         if call.done is not None:
             call.done.synchronize()
+        self._account_call(call)
+        # recorded before the fan-out: a rider resuming at its event must
+        # already find the device-call span in its trace
+        self._emit_device_span(call.items, call.t0)
+        metric_catalog.DEVICE_FLOPS.inc(
+            _spec_forward_flops(call.spec) * float(sum(item.n_pad for item in call.items)))
         out = call.out.numpy()
         n = len(call.items)
         self.stats["items"] += n
@@ -795,6 +981,7 @@ class CrossModelBatcher:
         try:
             self._finish(call)
         except Exception as exc:  # noqa: BLE001 -- the ladder takes it
+            self._emit_device_span(call.items, call.t0, error=exc)
             logger.warning("pipelined fused call over %d predicts failed at drain (%s: %s); "
                            "re-running strict-serial", len(call.items), type(exc).__name__, exc)
             self._run_group(call.spec, call.items)
@@ -805,12 +992,22 @@ class CrossModelBatcher:
         if item.abandoned:
             return
         self.stats["serial_rescues"] += 1
+        metric_catalog.GROUP_SERIAL_RESCUES.inc()
+        t0 = time.monotonic()
+        self._busy_since = t0
         try:
             item.result = _single_apply(item)[: item.n_keep]
         except Exception as exc:  # noqa: BLE001 -- this item's error
             logger.warning("serial rescue failed (group error %s: %s): %s",
                            type(group_exc).__name__, group_exc, exc)
             item.error = exc
+        finally:
+            # a synchronous predict on the model's own stream: the host clock
+            self._busy_since = None
+            self._account_busy("host", t0, time.monotonic())
+        self._emit_device_span([item], t0, error=item.error, rescue=True)
+        if item.error is None:
+            metric_catalog.DEVICE_FLOPS.inc(_spec_forward_flops(item.spec) * float(item.n_pad))
         item.done.set()
 
 

@@ -23,8 +23,13 @@ The serving codec's native lane: the port's counterpart of
 
 Gate: ``GORDO_TPU_FAST_CODEC`` (on unless ``0``/``false``/``no``); with it
 on, a request with the header ``X-Gordo-Codec: pandas`` takes the dict
-path (the JAX package's name for its pandas path). The counters below are
-plain module attributes (ROADMAP.md queue A8 exports them).
+path (the JAX package's name for its pandas path).
+
+Counting: :func:`count` feeds the catalog's ``gordo_server_fast_codec_total``
+and ``gordo_server_fast_codec_fallback_total`` (``op`` ``decode`` or
+``encode``; a native parse counts once a frame, X and y, as the JAX views
+count it), and the module attributes below, which tests read per run
+(``POISONINGS`` has no catalog series).
 """
 
 import functools
@@ -39,6 +44,7 @@ import numpy as np
 
 from .. import native
 from ..models.utils import Frame, RawFrame, timestamp_columns
+from ..observability import metrics as metric_catalog
 
 logger = logging.getLogger(__name__)
 
@@ -55,12 +61,24 @@ POISONINGS = 0
 COUNTERS = ("NATIVE_PARSES", "NATIVE_ENCODES", "PARSE_FALLBACKS", "ENCODE_FALLBACKS",
             "POISONINGS")
 _count_lock = threading.Lock()
+# each attribute's catalog series (None: the attribute alone)
+_SERIES = {
+    "NATIVE_PARSES": metric_catalog.FAST_CODEC.labels(op="decode"),
+    "NATIVE_ENCODES": metric_catalog.FAST_CODEC.labels(op="encode"),
+    "PARSE_FALLBACKS": metric_catalog.FAST_CODEC_FALLBACK.labels(op="decode"),
+    "ENCODE_FALLBACKS": metric_catalog.FAST_CODEC_FALLBACK.labels(op="encode"),
+    "POISONINGS": None,
+}
 
 
-def count(name: str) -> None:
-    """Add one to the counter ``name`` (one of :data:`COUNTERS`)."""
+def count(name: str, frames: int = 1) -> None:
+    """Add one to the counter ``name`` (one of :data:`COUNTERS`), and
+    ``frames`` to its catalog series."""
     with _count_lock:
         globals()[name] += 1
+    series = _SERIES[name]
+    if series is not None and frames:
+        series.inc(frames)
 
 
 def loads(body):

@@ -42,12 +42,21 @@ Gates: ``GORDO_TPU_FAST_LANE`` (default off) makes ``run-server`` mount the
 lane; ``GORDO_TPU_FAST_LANE_EVENT_LOOP`` (default on under the lane) picks
 the event loop over a thread per connection.
 
-Not ported yet (ROADMAP.md queues A8 and A9): the admission gate and its
-shed 503, the breakers, deadlines and their 504, ``X-Gordo-Trace`` and
-``traceparent``, the flight recorder, the Prometheus feed and the syscall
-counter. The JAX lane reads its drain from ``resilience.is_draining()``;
-until A9 ports ``resilience``, the drain is this module's own flag
-(:func:`begin_drain`, :func:`is_draining`).
+Telemetry (ROADMAP.md item A8, first part) is the server's on both lanes:
+the dispatch and the prediction handler run each request under its trace
+root (``traceparent`` continued, ``X-Gordo-Trace`` on every response) and
+feed the flight recorder, the Prometheus families and the request outcome
+(``server.GordoServer._observed``). The lanes feed
+``gordo_server_fastlane_idle_closes_total`` (from the same place as their
+``idle_closes`` attribute) and the event loop
+``gordo_server_fastlane_syscalls_total`` (one ``recv`` a read, one ``send``
+a write, a vectored ``sendmsg`` counted once); the connection, accept and
+event-loop threads register with the sampling profiler.
+
+Not ported yet (ROADMAP.md item A9): the admission gate and its shed 503,
+the breakers, deadlines and their 504. The JAX lane reads its drain from
+``resilience.is_draining()``; until A9 ports ``resilience``, the drain is
+this module's own flag (:func:`begin_drain`, :func:`is_draining`).
 """
 
 import json
@@ -63,6 +72,7 @@ from http.client import responses as _status_phrases
 from typing import Dict, Optional, Tuple
 from urllib.parse import unquote
 
+from ..observability import metrics as metric_catalog, profiler
 from .server import (
     MAX_BODY_BYTES, MAX_HEAD_BYTES, BadRequest, GordoServer, client_keep_alive, content_length,
 )
@@ -302,6 +312,7 @@ class FastLaneServer:
         self._accept_loop(self._sock)
 
     def _accept_loop(self, listener) -> None:
+        profiler.register_thread("gordo-fastlane-accept")
         while not self._shutdown.is_set():
             try:
                 conn, _ = listener.accept()
@@ -331,7 +342,12 @@ class FastLaneServer:
                 pass
 
     # ----------------------------------------------------------- connection
+    def _idle_close(self) -> None:
+        self.idle_closes += 1
+        metric_catalog.FASTLANE_IDLE_CLOSES.inc()
+
     def _handle_connection(self, conn) -> None:
+        profiler.register_thread("gordo-fastlane")
         conn.settimeout(self.request_timeout)
         try:
             conn.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
@@ -356,7 +372,7 @@ class FastLaneServer:
                         # the request timeout instead of closing it
                         continue
                     if idle_wait:
-                        self.idle_closes += 1
+                        self._idle_close()
                     break
                 finally:
                     conn.settimeout(self.request_timeout)
@@ -404,7 +420,7 @@ class FastLaneServer:
                     == "application/json"):
                 answer = self.app.prediction_request(
                     match.group(2), "anomaly/prediction" if match.group(3) else "prediction",
-                    query, view, body, started)
+                    query, view, body, started, path=unquote(raw_path))
             else:
                 answer = self.app.dispatch(method, target, view, body, started)
             return _serialize(*answer, keep_alive)
@@ -481,10 +497,13 @@ class EventLoopServer(FastLaneServer):
         self._selector = selectors.DefaultSelector()
         self._conns: Dict[int, _Conn] = {}
         self._writev = writev_enabled() and hasattr(socket.socket, "sendmsg")
+        self._sys_recv = metric_catalog.FASTLANE_SYSCALLS.labels(op="recv")
+        self._sys_send = metric_catalog.FASTLANE_SYSCALLS.labels(op="send")
 
     # ------------------------------------------------------------ lifecycle
     def serve_forever(self) -> None:
         logger.info("fast lane serving on port %d (event loop)", self.server_port)
+        profiler.register_thread("gordo-eventloop")
         sel = self._selector
         sel.register(self._sock, selectors.EVENT_READ, None)
         if self._uds_sock is not None:
@@ -544,6 +563,7 @@ class EventLoopServer(FastLaneServer):
     def _on_readable(self, conn: _Conn) -> None:
         try:
             while True:
+                self._sys_recv.inc()
                 chunk = conn.sock.recv(_RECV_CHUNK)
                 if not chunk:
                     self._close(conn)
@@ -663,6 +683,7 @@ class EventLoopServer(FastLaneServer):
             return
         try:
             while conn.out:
+                self._sys_send.inc()
                 if self._writev and len(conn.out) > 1:
                     sent = conn.sock.sendmsg(conn.out[:_IOV_CAP])
                 else:
@@ -710,7 +731,7 @@ class EventLoopServer(FastLaneServer):
                 if stalled > self.request_timeout:
                     self._flush_then_close(conn)
             elif stalled > self.idle_timeout:
-                self.idle_closes += 1
+                self._idle_close()
                 self._flush_then_close(conn)
 
     def _flush_then_close(self, conn: _Conn) -> None:

@@ -12,6 +12,7 @@ the JAX package's route table (``gordo_tpu/server/server.py``):
 - ``GET  /gordo/v0/<project>/<name>/download-model`` (the artifact as the
   bytes ``serializer.loads`` takes)
 - ``GET  /gordo/v0/openapi.json`` (server/openapi.py)
+- ``GET  /metrics`` and ``/debug/*`` (server/debug.py)
 
 The route table is :meth:`GordoServer.dispatch`, which knows nothing of
 the transport: it takes a request's method, target, headers and body and
@@ -26,10 +27,21 @@ closed after the response. (werkzeug 3.1's threaded server, which serves
 the JAX app by default, also answers HTTP/1.1 but closes every connection
 after its response; the JAX fast lane keeps them, as this handler does.)
 
-Not ported yet: ``/metrics`` and ``/debug/*`` (ROADMAP.md queue A8), and
-the breakers, deadlines and output check of
-``gordo_tpu/server/resilience.py`` (queue A9). ``?format=parquet`` on a
-POST route is refused with 501: the card's machine has no pyarrow.
+Telemetry (ROADMAP.md item A8, first part), on every lane alike: each
+request runs under a trace root that continues its W3C ``traceparent``
+(observability/tracing.py) and every response carries ``X-Gordo-Trace``;
+the flight recorder keeps the errored and slow traces; the request outcome
+feeds the fleet series, the SLO windows and the telemetry shard
+(:func:`observe_request_outcome`); ``ENABLE_PROMETHEUS`` (with ``PROJECT``)
+adds the reference's request histogram and counter
+(server/prometheus/metrics.py). ``/metrics`` is served by those when
+``ENABLE_PROMETHEUS`` is set, else by the shard view when
+``GORDO_TPU_TELEMETRY_DIR`` is set, else answered 404; the ``/debug/*``
+routes are server/debug.py's. Not ported yet: ``/debug/perf`` (A8's
+second part), ``/debug/drift``, ``/debug/prewarm`` and the breakers,
+deadlines and output check of ``gordo_tpu/server/resilience.py`` (A9).
+``?format=parquet`` on a POST route is refused with 501: pyarrow is not
+a dependency of the port.
 
 Each artifact under ``MODEL_COLLECTION_DIR`` (one directory per model,
 serializer/serializer.py) is loaded at its first request, with its
@@ -80,9 +92,12 @@ from urllib.parse import parse_qs, urlsplit
 
 from .. import __version__, native, resolve_device
 from ..models.utils import parse_resolution
+from ..observability import device as device_telemetry
+from ..observability import flight, metrics as metric_catalog, shared, slo, telemetry, tracing
 from ..serializer import load, load_metadata, load_model_json
-from . import fast_codec, views
+from . import batcher, debug, fast_codec, views
 from .openapi import openapi_document
+from .prometheus import GordoServerPrometheusMetrics
 
 logger = logging.getLogger(__name__)
 
@@ -92,7 +107,24 @@ _MODEL_ROUTE = re.compile(
     r"(prediction|anomaly/prediction|metadata|healthcheck|download-model)/?$"
 )
 OPENAPI_ROUTE = "/gordo/v0/openapi.json"
-_TOP_ROUTES = ("/healthcheck", "/readiness", "/server-version", OPENAPI_ROUTE)
+_TOP_ROUTES = ("/healthcheck", "/readiness", "/server-version", "/metrics", OPENAPI_ROUTE)
+# every /debug/* rule of the JAX table: the ported ones (server/debug.py)
+# and those that answer 404 until their items land
+_DEBUG_ROUTES = (*debug.ROUTES, "/debug/drift", "/debug/prewarm", "/debug/perf")
+# the JAX table's werkzeug rules, which label the metrics and traces
+_PROJECT_RULE = "/gordo/v0/<gordo_project>/{}"
+_MODEL_RULE = "/gordo/v0/<gordo_project>/<gordo_name>/{}"
+# the JAX endpoint names of the port's routes (a debug route's name is its
+# path's, e.g. debug_flight)
+_ENDPOINTS = {
+    "/healthcheck": "healthcheck", "/readiness": "readiness",
+    "/server-version": "server_version", "/metrics": "metrics", OPENAPI_ROUTE: "openapi_spec",
+    "models": "model_list", "revisions": "revision_list", "expected-models": "expected_models",
+    "prediction": "base_prediction", "anomaly/prediction": "anomaly_prediction",
+    "metadata": "metadata_view", "healthcheck": "metadata_view",
+    "download-model": "download_model",
+}
+METRICS_TYPE = "text/plain; version=0.0.4"
 _POST_ACTIONS = ("prediction", "anomaly/prediction")
 # a revision is a plain directory-name token; anything with path separators
 # or dot-runs would escape the model collection tree
@@ -116,6 +148,24 @@ class ModelEntry:
         self.metadata = load_metadata(directory)
         dataset = self.metadata.get("dataset") or {}
         self.frequency = parse_resolution(dataset.get("resolution", "10min"))
+
+
+def observe_request_outcome(rule: str, model: str, duration_s: float, status: int,
+                            slo_eligible: bool = False) -> None:
+    """The per-request fleet and SLO feed, shared by every lane, as in the
+    JAX package (``gordo_tpu/server/server.py``): labelled by the matched
+    rule and the status class (both bounded), the prediction routes'
+    outcomes into their model's SLO windows, then this process's
+    telemetry shard flushed (throttled; a no-op without
+    ``GORDO_TPU_TELEMETRY_DIR``)."""
+    try:
+        metric_catalog.FLEET_REQUESTS.labels(endpoint=rule, status=f"{int(status) // 100}xx").inc()
+        metric_catalog.FLEET_REQUEST_SECONDS.labels(endpoint=rule).observe(duration_s)
+        if slo_eligible and model:
+            slo.record(model, duration_s, status)
+        shared.flush()
+    except Exception:  # noqa: BLE001 -- observability must not fail requests
+        logger.debug("request observability feed failed", exc_info=True)
 
 
 def _load_failure_ttl_s() -> float:
@@ -196,6 +246,14 @@ class _Exchange:
         self.timings: Dict[str, float] = {}
         self.revision: Optional[str] = None
         self.fast = False
+        # the JAX table's rule and endpoint the request matched (None when
+        # it matched none), and the model it names
+        self.rule: Optional[str] = None
+        self.endpoint: Optional[str] = None
+        self.model = ""
+
+    def matched(self, rule: str, endpoint: str, model: str = "") -> None:
+        self.rule, self.endpoint, self.model = rule, endpoint, model
 
     def answer(self, status: int, body, with_revision: bool = True,
                content_type: str = "application/json", headers=()) -> Tuple[int, list, bytes]:
@@ -238,6 +296,14 @@ class GordoServer(ThreadingHTTPServer):
         self.expected_file = os.environ.get("EXPECTED_MODELS_FILE")
         if fast_codec.enabled():
             native.load()  # a failed build fails the start, not a request
+        # the SLO windows and the device sampler ride every telemetry-shard
+        # flush (no-ops until GORDO_TPU_TELEMETRY_DIR enables shards)
+        slo.install_shard_hooks()
+        device_telemetry.install_shard_hooks()
+        self.project = os.environ.get("PROJECT")
+        self.prometheus: Optional[GordoServerPrometheusMetrics] = None
+        if os.environ.get("ENABLE_PROMETHEUS", "false").lower() in ("1", "true", "yes"):
+            self.prometheus = GordoServerPrometheusMetrics(project=self.project)
         # (revision, name) -> the loaded model; -> (expiry, error) of a
         # failed load; -> the lock its first loader holds
         self._entries: Dict[Tuple[str, str], ModelEntry] = {}
@@ -304,6 +370,7 @@ class GordoServer(ThreadingHTTPServer):
         if entry is not None:
             return entry
         if failure is not None:
+            metric_catalog.MODEL_LOAD_FAILURES.labels(kind="cached").inc()
             raise failure
         with lock:
             with self._entries_lock:
@@ -311,6 +378,7 @@ class GordoServer(ThreadingHTTPServer):
             if entry is not None:
                 return entry
             if failure is not None:
+                metric_catalog.MODEL_LOAD_FAILURES.labels(kind="cached").inc()
                 raise failure
             directory = os.path.join(self.revision_dir(revision), name)
             if not os.path.exists(os.path.join(directory, "model.json")):
@@ -318,6 +386,7 @@ class GordoServer(ThreadingHTTPServer):
             try:
                 entry = ModelEntry(directory, self.device)
             except Exception as exc:
+                metric_catalog.MODEL_LOAD_FAILURES.labels(kind="fresh").inc()
                 ttl = _load_failure_ttl_s()
                 logger.warning("Model %r failed to load (%s: %s); caching the failure for "
                                "%.0f s", name, type(exc).__name__, exc, ttl)
@@ -350,11 +419,42 @@ class GordoServer(ThreadingHTTPServer):
         front end of this server (the handler below and the fast lanes of
         server/fastlane.py) answers through it."""
         exchange = _Exchange(timeit.default_timer() if started is None else started)
-        try:
-            return self._route(exchange, method, target, headers, body)
-        except Exception:  # noqa: BLE001 -- the server keeps serving
-            logger.exception("Unhandled server error: %s %s", method, target)
-            return exchange.answer(500, {"error": "Internal server error"}, with_revision=False)
+        return self._observed(exchange, method, urlsplit(target).path, headers,
+                              self._route, exchange, method, target, headers, body)
+
+    def _observed(self, exchange: _Exchange, method: str, path: str, headers, handler, *args
+                  ) -> Tuple[int, list, bytes]:
+        """``handler(*args)``'s answer, under the request's trace root (the
+        inbound ``traceparent`` continued, or a fresh trace) and its
+        ``serve_request`` span, with ``X-Gordo-Trace`` added; then the
+        request's outcome goes to the flight recorder, the Prometheus
+        families and :func:`observe_request_outcome`, as the JAX server's
+        ``dispatch_request`` feeds them. An unhandled error is a 500."""
+        with tracing.request_root(headers.get("traceparent")) as rtrace:
+            with telemetry.span("serve_request", method=method) as root_span:
+                try:
+                    status, out_headers, data = handler(*args)
+                except Exception:  # noqa: BLE001 -- the server keeps serving
+                    logger.exception("Unhandled server error: %s %s", method, path)
+                    status, out_headers, data = exchange.answer(
+                        500, {"error": "Internal server error"}, with_revision=False)
+                if exchange.rule is not None:
+                    root_span.set_attrs(endpoint=exchange.endpoint, rule=exchange.rule)
+                    if exchange.model:
+                        root_span.set_attrs(model=exchange.model)
+            out_headers.append(("X-Gordo-Trace", rtrace.trace_id))
+            runtime_s = timeit.default_timer() - exchange.started
+            logger.debug("request %s %s -> %d in %.4fs", method, path, status, runtime_s)
+        rule = exchange.rule
+        flight.default_recorder().observe(rtrace.collector, status=status, duration_s=runtime_s,
+                                          endpoint=rule if rule is not None else path,
+                                          model=exchange.model)
+        if self.prometheus is not None:
+            self.prometheus.record(method, rule, path, status, exchange.started)
+        observe_request_outcome(rule if rule is not None else "(unmatched)", exchange.model,
+                                runtime_s, status,
+                                slo_eligible=rule is not None and rule.endswith("/prediction"))
+        return status, out_headers, data
 
     def _readiness(self, exchange: _Exchange, collection_dir: str):
         """200 when every expected model's artifact is in the collection
@@ -383,21 +483,25 @@ class GordoServer(ThreadingHTTPServer):
         return exchange.answer(200, {"expected-models": expected})
 
     def prediction_request(self, name: str, action: str, query: str, headers, body: bytes,
-                           started: Optional[float] = None) -> Tuple[int, list, bytes]:
+                           started: Optional[float] = None, path: Optional[str] = None
+                           ) -> Tuple[int, list, bytes]:
         """The answer to a POST to one of the two prediction routes of model
         ``name`` (``action`` ``"prediction"`` or ``"anomaly/prediction"``),
         the route table's own handler of them: what :meth:`dispatch` answers
-        for the same request. The fast lanes call it for their hot routes."""
+        for the same request, its telemetry included. The fast lanes call it
+        for their hot routes, with the request's ``path``."""
         exchange = _Exchange(timeit.default_timer() if started is None else started)
-        try:
-            parsed = parse_qs(query, keep_blank_values=True)
-            refusal = self._resolve_revision(exchange, parsed, headers)
-            if refusal is not None:
-                return refusal
-            return self._model_action(exchange, name, action, parsed, headers, body)
-        except Exception:  # noqa: BLE001 -- the server keeps serving
-            logger.exception("Unhandled server error: POST %s %s", name, action)
-            return exchange.answer(500, {"error": "Internal server error"}, with_revision=False)
+        exchange.matched(_MODEL_RULE.format(action), _ENDPOINTS[action], name)
+        return self._observed(exchange, "POST", path or f"/gordo/v0/-/{name}/{action}", headers,
+                              self._prediction, exchange, name, action, query, headers, body)
+
+    def _prediction(self, exchange: _Exchange, name: str, action: str, query: str, headers,
+                    body: bytes):
+        parsed = parse_qs(query, keep_blank_values=True)
+        refusal = self._resolve_revision(exchange, parsed, headers)
+        if refusal is not None:
+            return refusal
+        return self._model_action(exchange, name, action, parsed, headers, body)
 
     def _resolve_revision(self, exchange: _Exchange, query: dict, headers):
         """Set the request's revision (``?revision=``, else the ``revision``
@@ -413,18 +517,34 @@ class GordoServer(ThreadingHTTPServer):
     def _route(self, exchange: _Exchange, method: str, target: str, headers, body: bytes):
         url = urlsplit(target)
         query = parse_qs(url.query, keep_blank_values=True)
+        path = local_path(url.path, headers).rstrip("/") or "/"
+        project_match = _PROJECT_ROUTE.match(path)
+        model_match = _MODEL_ROUTE.match(path)
+        if project_match:
+            listing = project_match.group(2)
+            exchange.matched(_PROJECT_RULE.format(listing), _ENDPOINTS[listing])
+        elif model_match:
+            exchange.matched(_MODEL_RULE.format(model_match.group(3)),
+                             _ENDPOINTS[model_match.group(3)], model_match.group(2))
+        elif path in _TOP_ROUTES or path in _DEBUG_ROUTES:
+            exchange.matched(path, _ENDPOINTS.get(path) or path.strip("/").replace("/", "_"))
         refusal = self._resolve_revision(exchange, query, headers)
         if refusal is not None:
             return refusal
         collection_dir = self.revision_dir(exchange.revision)
-        path = local_path(url.path, headers).rstrip("/") or "/"
-        project_match = _PROJECT_ROUTE.match(path)
-        model_match = _MODEL_ROUTE.match(path)
-        if not (project_match or model_match or path in _TOP_ROUTES):
+        if exchange.rule is None:
             return exchange.answer(404, {"message": f"No route {method} {url.path}"})
         if model_match and model_match.group(3) in _POST_ACTIONS and method != "POST":
             return exchange.answer(405, {"message": f"{method} not allowed on {url.path}"},
                                    headers=[("Allow", "POST")])
+        if path in _DEBUG_ROUTES:
+            answer = debug.dispatch(exchange.endpoint, url.query) if path in debug.ROUTES else None
+            if answer is None:  # the gate is off, or the route is not ported yet
+                return exchange.answer(404, {"message": f"No route {method} {url.path}"})
+            status, content_type, data = answer
+            return exchange.answer(status, data, content_type=content_type)
+        if path == "/metrics":
+            return self._metrics(exchange)
         if path == "/healthcheck":
             return exchange.answer(200, b"")
         if path == "/readiness":
@@ -434,7 +554,6 @@ class GordoServer(ThreadingHTTPServer):
         if path == OPENAPI_ROUTE:
             return exchange.answer(200, json.dumps(openapi_document()).encode())
         if project_match:
-            listing = project_match.group(2)
             if listing == "models":
                 return exchange.answer(200, views.model_list(collection_dir))
             if listing == "revisions":
@@ -451,6 +570,17 @@ class GordoServer(ThreadingHTTPServer):
                 "env": {"MODEL_COLLECTION_DIR": self.collection_dir},
             })
         return self._model_action(exchange, name, action, query, headers, body)
+
+    def _metrics(self, exchange: _Exchange):
+        """``/metrics``: the Prometheus families and the catalog with
+        ``ENABLE_PROMETHEUS``, else the shard view with
+        ``GORDO_TPU_TELEMETRY_DIR``, else 404, as the JAX server answers."""
+        if self.prometheus is not None:
+            return exchange.answer(200, self.prometheus.expose(), content_type=METRICS_TYPE)
+        fleet = shared.render_fleet_text()
+        if fleet is None:
+            return exchange.answer(404, b"metrics disabled", content_type="text/plain")
+        return exchange.answer(200, fleet.encode(), content_type=METRICS_TYPE)
 
     def _model_action(self, exchange: _Exchange, name: str, action: str, query: dict, headers,
                       body: bytes):
@@ -475,14 +605,15 @@ class GordoServer(ThreadingHTTPServer):
         exchange.fast = fast_codec.request_enabled(headers)
         if not _is_json(headers.get("Content-Type")):
             body = None
-        if action == "prediction":
-            status, out = views.base_prediction_core(
-                entry.detector, body, entry.tags, entry.target_tags, entry.frequency,
-                exchange.fast, exchange.timings)
-        else:
-            status, out = views.anomaly_prediction_core(
-                entry.detector, body, entry.tags, entry.target_tags,
-                entry.frequency, "all_columns" in query, exchange.fast, exchange.timings)
+        with batcher.request_model(name):
+            if action == "prediction":
+                status, out = views.base_prediction_core(
+                    entry.detector, body, entry.tags, entry.target_tags, entry.frequency,
+                    exchange.fast, exchange.timings)
+            else:
+                status, out = views.anomaly_prediction_core(
+                    entry.detector, body, entry.tags, entry.target_tags,
+                    entry.frequency, "all_columns" in query, exchange.fast, exchange.timings)
         return exchange.answer(status, out)
 
 

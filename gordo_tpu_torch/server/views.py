@@ -157,14 +157,18 @@ def decode_request(body: Optional[bytes], tags: List[str], target_tags: List[str
     if fast:
         parsed = fast_codec.decode_body_xy(body)
         if parsed is not None:
-            fast_codec.count("NATIVE_PARSES")
             X, y = parsed
+            fast_codec.count("NATIVE_PARSES", 1 if y is None else 2)
             return verify_frame(X, tags), None if y is None else verify_frame(y, target_tags)
-        fast_codec.count("PARSE_FALLBACKS")
     try:
         payload = fast_codec.loads(body or b"null")
     except ValueError:
         payload = None
+    if fast:
+        # the catalog counts the frames the dict path decodes, as the JAX
+        # views count theirs: none for a body that is not JSON
+        fast_codec.count("PARSE_FALLBACKS", sum(
+            isinstance(payload, dict) and payload.get(key) is not None for key in ("X", "y")))
     return extract_X_y(payload, tags, target_tags)
 
 

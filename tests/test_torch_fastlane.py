@@ -18,9 +18,10 @@ by the JAX package, carried into a port artifact).
   byte-identical to its default lane's (``time-seconds`` masked), and the
   JAX fast lane (same kind, over the JAX app) held to the same status and
   structure, values within ``_assert_same_data``'s tolerance. Left out, as
-  they need queues A8 or A9: shed 503, breaker 503, deadline 504,
-  ``traceparent``, observability parity between lanes, the chaos breaker
-  and the syscall counter; and the two parquet tests (parquet format,
+  they need queue A9: shed 503, breaker 503, deadline 504 and the chaos
+  breaker (``traceparent``, ``X-Gordo-Trace`` on every lane and the lanes'
+  counters are in ``tests/test_torch_observability_server.py``); and the
+  two parquet tests (parquet format,
   multipart parquet), which the port refuses with 501 (no pyarrow on the
   card's machine).
 - ``openapi.json``: the JAX document (apart from ``info.version`` where

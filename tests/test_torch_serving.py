@@ -360,7 +360,7 @@ def test_resolve_device_defaults_to_cuda_and_never_falls_back():
 def test_port_imports_no_jax_and_nothing_of_gordo_tpu():
     code = """
 import importlib, pkgutil, sys
-for blocked in ("jax", "jaxlib", "pandas", "sklearn", "werkzeug", "yaml"):
+for blocked in ("jax", "jaxlib", "pandas", "sklearn", "werkzeug", "yaml", "prometheus_client"):
     sys.modules[blocked] = None
 import gordo_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(gordo_tpu_torch.__path__, "gordo_tpu_torch.")]
@@ -389,8 +389,19 @@ import gordo_tpu_torch.ops.lstm
 import gordo_tpu_torch.models.factories.lstm_autoencoder
 import gordo_tpu_torch.models.factories.tcn
 from gordo_tpu_torch.models.models import LSTMAutoEncoder, LSTMForecast, TCNAutoEncoder, TCNForecast
+# the telemetry plane: spans, catalog, traces, logs, flight recorder, SLOs,
+# shards, device telemetry, profiler, FLOPs, torch.profiler hookup,
+# /metrics without prometheus_client, and /debug/*
+from gordo_tpu_torch.observability import (
+    device, flight, latency, logs, metrics, profiler, shared, slo, telemetry, tracing)
+import gordo_tpu_torch.ops.flops
+import gordo_tpu_torch.util.profiling
+import gordo_tpu_torch.server.prometheus.metrics
+import gordo_tpu_torch.server.debug
 from gordo_tpu_torch import cli
 for argv in (["batch-build", "fleet.json", "out", "--device", "cpu", "--fail-fast"],
+             ["batch-build", "fleet.json", "out", "--trace-file", "t.json",
+              "--metrics-file", "m.prom"],
              ["run-server", "--port", "5555", "--device", "cpu"],
              ["run-server", "--no-batch-predicts"]):
     assert cli._parser().parse_args(argv).command == argv[0]
