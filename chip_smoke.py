@@ -243,13 +243,44 @@ Drive the PyTorch/CUDA port (gordo_tpu_torch) on one NVIDIA GPU.
    ``--metrics-file`` and ``GORDO_TPU_PROFILE_DIR``: the build's span names
    and phase labels, and the ``torch.profiler`` trace naming the float32 dQ
    and dK/dV kernels (its size and export time printed).
-21. A ``batcher_path`` JSON line (both dtypes' numbers), a ``feedforward``
+21. The serving pool and its resilience (:func:`resilience_path`), over the
+   batcher phases' ``transformer-ae-512`` artifact of each dtype: the
+   first 200 after a start and its latency with ``run-server --workers 2
+   --no-warmup``, then the p50 and p99 of 16 users of full-width requests
+   and the peak bytes on one worker with ``--warmup`` (printed); then a pool
+   of two workers with ``--warmup`` and the Prometheus sidecar. Gates: two
+   workers; each one's warm-up report (``/debug/vars``) lists both
+   architectures with rows 128 and 1,024 and no error;
+   ``gordo_server_param_bank_restacks_total`` flat from boot through the
+   traffic; 16 users of full-width requests answered 200 within 1e-4
+   (bf16 2e-2) of the direct predict; the pool's ``/metrics`` (request
+   families and fleet series) and the sidecar's counting exactly the
+   requests sent, summed over the workers; each worker's
+   ``/debug/profile?device=1`` under load without error, naming the flash
+   forward of each dtype; after a worker's SIGKILL its shard leaves the
+   sum, the pool answers on and respawns to two; SIGTERM to the arbiter
+   with 16 requests in flight: every one 200, the pool's exit 0 within
+   ``GORDO_TPU_DRAIN_S``, a new connection refused. In this process,
+   batching forced on: ``GORDO_TPU_MAX_INFLIGHT=2`` under 16 users sheds
+   503s with ``Retry-After``, counted by ``gordo_server_shed_total``, and
+   every 200 is right; a request whose ``X-Gordo-Deadline-Ms`` is below one
+   fused call's time, sent under load, is answered 504 from the batch queue
+   and abandoned, while the load answers 200; with
+   ``GORDO_TPU_VALIDATE_OUTPUT=1`` a model with a NaN in its weights, fused
+   into one call with three healthy riders of its spec, answers 500, then
+   503 from its open breaker, the riders 200 and right; with the
+   attribution and the sentinel on, a window of 600-row requests then a
+   window of full-width ones: ``/debug/perf``'s rows sum to the headline
+   delta, its largest row is ``predict``, and the sentinel fires on
+   ``predict`` once, with one flight-recorder event carrying the snapshot
+   and the profiler's stacks.
+22. A ``batcher_path`` JSON line (both dtypes' numbers), a ``feedforward``
    JSON line, a ``fastlane``/``kfcv_fleet`` JSON line, a ``windowed`` JSON
    line, a ``transformer-ae-512-d384`` JSON line, a ``moe`` JSON line, an
-   ``observability`` JSON line, a
+   ``observability`` JSON line, a ``resilience`` JSON line, a
    ``kernels`` JSON line (twenty-two entries: the six flash kernels at dh
-   64 with their results by head dim and the observability phase's
-   launches among their paths, the six again at dh 96 with the d384
+   64 with their results by head dim and the observability and resilience
+   phases' launches among their paths, the six again at dh 96 with the d384
    path's launches and at dh 16 with the MoE fleet's, then the LSTM
    recurrence's forward and backward in float32 and bf16), then
    the last line
@@ -267,6 +298,7 @@ import math
 import os
 import re
 import shutil
+import signal
 import subprocess
 import sys
 import threading
@@ -5474,6 +5506,808 @@ def observability_path(card: str, root: Path, batcher_root: Path, device: str = 
             "phase_s": time.perf_counter() - started}
 
 
+# the resilience phase (module docstring, step 21): the serving pool, its
+# warm-up and resilience, latency attribution and the perf sentinel
+RES_MODELS = OBS_MODELS
+RES_POISONED = "transformer-ae-512-nan"
+RES_TOL = {"transformer-ae-512": TOL_OUT_REL, "transformer-ae-512-bf16": TOL_BF16_MODEL_REL}
+RES_USERS = 16
+RES_REQUESTS = 2  # full-width anomaly requests a user, the two dtypes' models in turn
+RES_DRAIN_S = 30
+RES_DEADLINE_MS = 60  # above a request's decode, below one full-width fused call
+RES_WINDOW_S = 8  # GORDO_TPU_PERF_WINDOW_S of the attribution step
+RES_SENTINEL_MIN = 24  # GORDO_TPU_PERF_SENTINEL_MIN_SAMPLES
+RES_SMALL_ROWS = 600
+RES_KNOBS = ("GORDO_TPU_DEBUG_ENDPOINTS", "ENABLE_PROMETHEUS", "PROJECT",
+             "GORDO_TPU_TELEMETRY_DIR", "GORDO_TPU_MAX_INFLIGHT", "GORDO_TPU_RETRY_AFTER_S",
+             "GORDO_TPU_BREAKER_THRESHOLD", "GORDO_TPU_BREAKER_COOLDOWN_S",
+             "GORDO_TPU_VALIDATE_OUTPUT", "GORDO_TPU_FAULT_PLAN", "GORDO_TPU_PERF_ATTRIBUTION",
+             "GORDO_TPU_PERF_SENTINEL", "GORDO_TPU_PERF_WINDOW_S",
+             "GORDO_TPU_PERF_SENTINEL_MIN_SAMPLES", "GORDO_TPU_PROFILE_HZ",
+             "GORDO_TPU_SERVING_BATCH", "GORDO_TPU_FAST_LANE")
+
+
+def _children(pid: int) -> list:
+    """The live child processes of ``pid``, read from ``/proc``."""
+    out = []
+    for entry in os.listdir("/proc"):
+        if not entry.isdigit():
+            continue
+        try:
+            with open(f"/proc/{entry}/stat") as fh:
+                fields = fh.read().rsplit(")", 1)[1].split()
+        except OSError:
+            continue
+        if int(fields[1]) == pid and fields[0] != "Z":
+            out.append(int(entry))
+    return sorted(out)
+
+
+def _until(probe, what: str, timeout: float, step: float = 0.05):
+    """``probe()``'s first truthy value (an OSError or URLError counts as
+    not yet); raises after ``timeout`` seconds."""
+    deadline = time.monotonic() + timeout
+    while True:
+        try:
+            value = probe()
+            if value:
+                return value
+        except (OSError, urllib.error.URLError):
+            pass
+        if time.monotonic() > deadline:
+            raise AssertionError(f"timed out waiting for {what}")
+        time.sleep(step)
+
+
+class _Pool:
+    """``python -m gordo_tpu_torch run-server`` over ``collection`` in a
+    session of its own, its log in ``root``."""
+
+    def __init__(self, root: Path, collection: Path, workers: int, warmup: bool, device: str,
+                 label: str, **env):
+        self.port = _free_port()
+        self.base = f"http://127.0.0.1:{self.port}"
+        self.log = root / f"pool-{label}.log"
+        environ = {k: v for k, v in os.environ.items() if k not in RES_KNOBS}
+        environ.update(PYTHONPATH=str(REPO), MODEL_COLLECTION_DIR=str(collection), **env)
+        self.started = time.perf_counter()
+        with open(self.log, "w") as fh:
+            self.proc = subprocess.Popen(
+                [sys.executable, "-m", "gordo_tpu_torch", "--log-level", "INFO", "run-server",
+                 "--host", "127.0.0.1", "--port", str(self.port), "--device", device,
+                 "--workers", str(workers), "--warmup" if warmup else "--no-warmup"],
+                cwd=REPO, env=environ, stdout=subprocess.DEVNULL, stderr=fh,
+                start_new_session=True)
+
+    def text(self) -> str:
+        return self.log.read_text()
+
+    def first_200(self, url: str, body: bytes, timeout: float = 300.0) -> dict:
+        """Seconds from the start to the first 200 of ``url``, and that
+        request's latency (milliseconds; a request sent before the pool
+        accepts waits in the listener's backlog, and that wait counts)."""
+        def probe():
+            if self.proc.poll() is not None:
+                raise AssertionError(f"the pool exited {self.proc.returncode}: "
+                                     f"{self.text()[-3000:]}")
+            status, _, _, ms = _obs_post(url, body)
+            if status != 200:
+                raise AssertionError(f"the pool's first answer was {status}")
+            return ms
+        ms = _until(probe, "the pool's first 200", timeout, step=0.1)
+        return {"start_to_first_200_s": time.perf_counter() - self.started,
+                "first_request_ms": ms}
+
+    def wait_ready(self, workers: int) -> None:
+        """Until ``workers`` workers serve (each logs it after its warm-up)
+        and the pool answers a healthcheck."""
+        _until(lambda: self.text().count("Serving ") == workers and _request(
+            self.base + "/healthcheck")[0] == 200, f"{workers} worker(s) to be ready", 600,
+            step=0.1)
+
+    def workers(self) -> list:
+        return _children(self.proc.pid)
+
+    def stop(self, sig=signal.SIGTERM, timeout: float = 120.0) -> int:
+        try:
+            if self.proc.poll() is None:
+                os.kill(self.proc.pid, sig)
+            return self.proc.wait(timeout=timeout)
+        finally:
+            try:
+                os.killpg(self.proc.pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _res_traffic(base: str, bodies: dict, users: int = RES_USERS,
+                 requests: int = RES_REQUESTS) -> list:
+    """``users`` threads each POSTing ``requests`` full-width anomaly
+    requests, the two models in turn: ``[(model, status, body, ms)]``."""
+    jobs = [RES_MODELS[(r * users + u) % len(RES_MODELS)]
+            for r in range(requests) for u in range(users)]
+    results = [None] * len(jobs)
+
+    def user(u):
+        for i in range(u, len(jobs), users):
+            status, _, answer, ms = _obs_post(
+                f"{base}/gordo/v0/{OBS_PROJECT}/{jobs[i]}/anomaly/prediction", bodies[jobs[i]])
+            results[i] = (jobs[i], status, answer, ms)
+
+    threads = [threading.Thread(target=user, args=(u,)) for u in range(users)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    return results
+
+
+def _res_right(results: list, direct: dict) -> dict:
+    """The largest relative error of each model's 200 answers against its
+    direct predict; raises past the dtype's tolerance."""
+    errors = {}
+    for model, status, answer, _ in results:
+        if status == 200:
+            got = _model_output(answer)
+            err = float(np.abs(got - direct[model]).max() / np.abs(direct[model]).max())
+            errors[model] = max(errors.get(model, 0.0), err)
+    for model, err in errors.items():
+        if err > RES_TOL[model]:
+            raise AssertionError(f"{model}: a served answer {err:.3g} off its direct predict")
+    return errors
+
+
+def _prediction_count(text: str, family: str, status: str = None) -> float:
+    """The sum of ``family``'s prediction-route samples (no per-worker
+    series), of one status code when ``status`` is given."""
+    total = 0.0
+    for labels, value in _prom(text, family).items():
+        labels = dict(labels)
+        if "worker" in labels or "prediction" not in (labels.get("path", "")
+                                                      + labels.get("endpoint", "")):
+            continue
+        if status is None or labels.get("status_code") == status:
+            total += value
+    return total
+
+
+def _worker_views(base: str, path: str, pid_of, n: int = 2, timeout: float = 120.0) -> dict:
+    """``{pid: answer}`` of ``path`` from ``n`` distinct workers: GETs on
+    fresh connections, two at a time, until ``n`` workers have answered
+    (``pid_of(answer)`` is None for an answer that does not count)."""
+    seen: dict = {}
+    last = []
+
+    def probe():
+        answers = [None, None]
+
+        def get(i):
+            status, body, _, _ = _request(base + path)
+            answers[i] = (status, body)
+        threads = [threading.Thread(target=get, args=(i,)) for i in range(2)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+        for answer in answers:
+            if answer is not None and answer[0] == 200:
+                doc = json.loads(answer[1])
+                pid = pid_of(doc)
+                if pid is None:
+                    last[:] = [doc]
+                else:
+                    seen.setdefault(pid, doc)
+        return len(seen) >= n
+    try:
+        _until(probe, f"{n} workers to answer {path}", timeout)
+    except AssertionError:
+        raise AssertionError(f"{n} workers never answered {path}: {sorted(seen)}, the last "
+                             f"answer that did not count {last}") from None
+    return seen
+
+
+def _traced_pid(doc: dict):
+    """The worker that wrote an error-free device trace (its file names
+    it), else None."""
+    trace = doc["device_trace"]
+    if "error" in trace:
+        return None
+    return int(re.search(r"trace_(\d+)_", trace["path"]).group(1))
+
+
+def _under_load(base: str, bodies: dict, stop: threading.Event, statuses: list) -> list:
+    """Eight users POSTing the two models in turn until ``stop``."""
+    def user(u):
+        model = RES_MODELS[u % len(RES_MODELS)]
+        url = f"{base}/gordo/v0/{OBS_PROJECT}/{model}/anomaly/prediction"
+        while not stop.is_set():
+            statuses.append(_obs_post(url, bodies[model])[0])
+
+    users = [threading.Thread(target=user, args=(u,), daemon=True) for u in range(8)]
+    for t in users:
+        t.start()
+    return users
+
+
+def _res_pool(card: str, root: Path, collection: Path, bodies: dict, direct: dict,
+              device: str) -> dict:
+    """Step 1 and step 6 on a pool of two workers warmed before they accept,
+    with the sidecar beside it: see :func:`resilience_path`."""
+    telemetry_dir = root / "telemetry"
+    telemetry_dir.mkdir()
+    knobs = {"GORDO_TPU_DEBUG_ENDPOINTS": "1", "ENABLE_PROMETHEUS": "1", "PROJECT": OBS_PROJECT,
+             "GORDO_TPU_TELEMETRY_DIR": str(telemetry_dir),
+             "GORDO_TPU_DRAIN_S": str(RES_DRAIN_S)}
+    pool = _Pool(root, collection, 2, True, device, "warm", **knobs)
+    sidecar_port = _free_port()
+    sidecar = subprocess.Popen(
+        [sys.executable, "-c", "from gordo_tpu_torch.server.prometheus.server import "
+         f"run_metrics_server; run_metrics_server('127.0.0.1', {sidecar_port})"],
+        cwd=REPO, env={**os.environ, "PYTHONPATH": str(REPO), **knobs},
+        stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL, start_new_session=True)
+    sidecar_url = f"http://127.0.0.1:{sidecar_port}/metrics"
+    url = f"{pool.base}/gordo/v0/{OBS_PROJECT}/{RES_MODELS[0]}/anomaly/prediction"
+    try:
+        # ready: both workers warmed and serving, no prediction sent yet
+        pool.wait_ready(2)
+        restacks_boot = _prom(_request(pool.base + "/metrics")[1].decode(),
+                              "gordo_server_param_bank_restacks_total")
+        first = pool.first_200(url, bodies[RES_MODELS[0]])
+        workers = pool.workers()
+        if len(workers) != 2:
+            raise AssertionError(f"the pool runs {len(workers)} workers: {workers}")
+        # each worker's warm-up report: every architecture and row bucket, no error
+        reports = _worker_views(pool.base, "/debug/vars", lambda doc: doc["warmup"]["pid"])
+        for pid, doc in reports.items():
+            report = doc["warmup"]
+            archs = report["architectures"]
+            dtypes = sorted(arch["compute_dtype"] for arch in archs.values())
+            if (report["failed"] or report["errors"] or report["models"] != len(RES_MODELS)
+                    or dtypes != ["bfloat16", "float32"]
+                    or any(arch["rows"] != [128, 1024] for arch in archs.values())):
+                raise AssertionError(f"worker {pid}'s warm-up report: {report}")
+        sent = 1
+        results = _res_traffic(pool.base, bodies)
+        sent += len(results)
+        statuses = sorted({r[1] for r in results})
+        if statuses != [200]:
+            raise AssertionError(f"the pool answered {statuses}")
+        errors = _res_right(results, direct)
+        latency = _percentiles([r[3] for r in results])
+        # the shards hold each worker's last request once it has been idle
+        # for the flush interval
+        scrape = lambda: _request(pool.base + "/metrics")[1].decode()  # noqa: E731
+        _until(lambda: _prediction_count(scrape(), "gordo_server_requests_total", "200")
+               == sent, f"the pool's /metrics to count {sent} requests", 10)
+        text = scrape()
+        side = _request(sidecar_url)[1].decode()
+        counts = {"pool_requests_total": _prediction_count(text, "gordo_server_requests_total",
+                                                           "200"),
+                  "pool_fleet_requests_total": _prediction_count(
+                      text, "gordo_server_fleet_requests_total"),
+                  "sidecar_requests_total": _prediction_count(side, "gordo_server_requests_total",
+                                                              "200")}
+        if set(counts.values()) != {float(sent)}:
+            raise AssertionError(f"/metrics counts {counts}, {sent} requests sent")
+        restacks = _prom(text, "gordo_server_param_bank_restacks_total")
+        if restacks != restacks_boot:
+            raise AssertionError(f"the bank restacked in traffic: {restacks_boot} -> {restacks}")
+        peaks = {dict(labels)["worker"]: value for labels, value in
+                 _prom(text, "gordo_server_device_memory_bytes").items()
+                 if dict(labels).get("stat") == "peak_bytes_in_use" and "worker" in dict(labels)}
+        # each worker's device trace under load names both flash forwards
+        stop, load_statuses = threading.Event(), []
+        users = _under_load(pool.base, bodies, stop, load_statuses)
+        try:
+            traces = _worker_views(
+                pool.base, f"/debug/profile?device=1&seconds={OBS_DEVICE_TRACE_S}", _traced_pid)
+        finally:
+            stop.set()
+            for t in users:
+                t.join(timeout=300)
+        wanted = ("flash_forward_f32", WGMMA_KERNELS["flash_attention_forward_bf16"][2])
+        traced = {}
+        for pid, doc in traces.items():
+            trace = doc["device_trace"]
+            traced[pid] = {symbol: sum(n for name, n in trace["kernels"].items() if symbol in name)
+                           for symbol in wanted}
+            if not all(traced[pid].values()):
+                raise AssertionError(f"worker {pid}'s device trace names no flash forward of "
+                                     f"a dtype: {traced[pid]}")
+        if set(load_statuses) != {200}:
+            raise AssertionError(f"requests under the profiler answered {set(load_statuses)}")
+        sent += len(load_statuses)
+        # a worker's SIGKILL: its shard leaves the sum, the pool answers on
+        # and respawns to two
+        _until(lambda: _prediction_count(scrape(), "gordo_server_requests_total", "200")
+               == sent, f"the pool's /metrics to count {sent} requests", 10)
+        shards = {shard["pid"]: shard for shard in _read_shards(telemetry_dir)}
+        victim = workers[0]
+        before = float(sent)
+        os.kill(victim, signal.SIGKILL)
+        _until(lambda: not (telemetry_dir / f"telemetry_{victim}.shard").exists(),
+               "the dead worker's shard to be reaped", 30)
+        victim_count = _shard_requests(shards.get(victim))
+        after = _prediction_count(scrape(), "gordo_server_requests_total", "200")
+        if after != before - victim_count:
+            raise AssertionError(f"after the SIGKILL /metrics counts {after}, not {before} less "
+                                 f"the dead worker's {victim_count}")
+        survived = _res_traffic(pool.base, bodies, users=4, requests=1)
+        if sorted({r[1] for r in survived}) != [200]:
+            raise AssertionError(f"after a worker's SIGKILL the pool answered {survived}")
+        _until(lambda: len([p for p in pool.workers() if p != victim]) == 2
+               and pool.text().count("Serving ") == 3, "the pool to respawn to two workers", 600,
+               step=0.2)
+        # the drain: SIGTERM to the arbiter while 16 requests are in flight
+        drain = _res_drain(pool, bodies)
+    finally:
+        sidecar.kill()
+        sidecar.wait(timeout=30)
+        pool.stop(signal.SIGKILL)
+    print(f"resilience pool on {card}: 2 workers {workers}, first 200 after "
+          f"{first['start_to_first_200_s']:.1f} s ({first['first_request_ms']:.1f} ms) with "
+          f"--warmup; {len(results)} requests p50 {latency['p50_ms']:.1f} ms p99 "
+          f"{latency['p99_ms']:.1f} ms; max rel err {errors}; counts {counts}; restacks "
+          f"{restacks}; peaks {peaks}; traced flash forwards {traced}; dead worker's "
+          f"{victim_count} requests left the sum; drain {drain}", flush=True)
+    return {"first": first, "latency": latency, "errors": errors, "counts": counts,
+            "peak_bytes_by_worker": peaks, "traced_forwards": traced, "drain": drain,
+            "victim_requests": victim_count}
+
+
+def _read_shards(directory: Path) -> list:
+    from gordo_tpu_torch.observability import shared
+
+    return shared.read_shards(str(directory))
+
+
+def _shard_requests(shard) -> float:
+    """The 200 prediction requests a worker's shard counts in its request
+    families."""
+    if not shard:
+        return 0.0
+    total = 0.0
+    for entry in (shard.get("extras") or {}).get("prometheus") or []:
+        if entry["name"] != "gordo_server_requests_total":
+            continue
+        names = entry["labelnames"]
+        for key, value in entry["series"]:
+            labels = dict(zip(names, key))
+            if "prediction" in labels.get("path", "") and labels.get("status_code") == "200":
+                total += float(value)
+    return total
+
+
+def _res_drain(pool: _Pool, bodies: dict) -> dict:
+    """SIGTERM to the arbiter while RES_USERS requests are in flight: each
+    client's connection first answered a healthcheck (a worker thread
+    holds it), then its POST is sent; every answer must be 200, the pool
+    exit 0 within GORDO_TPU_DRAIN_S, and a new connection be refused."""
+    import http.client
+
+    sent = threading.Barrier(RES_USERS + 1)
+    answers = [None] * RES_USERS
+
+    def client(u):
+        model = RES_MODELS[u % len(RES_MODELS)]
+        conn = http.client.HTTPConnection("127.0.0.1", pool.port, timeout=300)
+        try:
+            conn.request("GET", "/healthcheck")
+            conn.getresponse().read()
+            conn.request("POST", f"/gordo/v0/{OBS_PROJECT}/{model}/anomaly/prediction",
+                         body=bodies[model], headers={"Content-Type": "application/json"})
+            sent.wait(timeout=120)
+            resp = conn.getresponse()
+            answers[u] = (resp.status, resp.read(), resp.getheader("Connection"))
+        except Exception as exc:  # noqa: BLE001 -- reported below
+            answers[u] = (repr(exc), b"", None)
+        finally:
+            conn.close()
+
+    threads = [threading.Thread(target=client, args=(u,)) for u in range(RES_USERS)]
+    for t in threads:
+        t.start()
+    sent.wait(timeout=120)
+    t0 = time.perf_counter()
+    os.kill(pool.proc.pid, signal.SIGTERM)
+    code = pool.proc.wait(timeout=RES_DRAIN_S + 30)
+    exit_s = time.perf_counter() - t0
+    for t in threads:
+        t.join(timeout=60)
+    statuses = [a[0] for a in answers]
+    refused = False
+    try:
+        _request(f"{pool.base}/healthcheck")
+    except (OSError, urllib.error.URLError):
+        refused = True
+    if statuses != [200] * RES_USERS or code != 0 or exit_s > RES_DRAIN_S or not refused:
+        raise AssertionError(f"drain: statuses {statuses}, exit {code} after {exit_s:.1f} s "
+                             f"(budget {RES_DRAIN_S}), new connection refused {refused}")
+    return {"in_flight": RES_USERS, "exit_s": exit_s,
+            "connection_close": sum(a[2] == "close" for a in answers)}
+
+
+def _res_first_cold(root: Path, collection: Path, bodies: dict, device: str) -> dict:
+    """Step 2's first request without --warmup, on two workers."""
+    pool = _Pool(root, collection, 2, False, device, "cold")
+    try:
+        url = f"{pool.base}/gordo/v0/{OBS_PROJECT}/{RES_MODELS[0]}/anomaly/prediction"
+        return pool.first_200(url, bodies[RES_MODELS[0]])
+    finally:
+        pool.stop()
+
+
+def _res_one_worker(root: Path, collection: Path, bodies: dict, direct: dict,
+                    device: str) -> dict:
+    """Step 2 on one worker with --warmup: the first 200, the 16 users'
+    p50 and p99, and the worker's peak bytes."""
+    telemetry_dir = root / "telemetry-one"
+    telemetry_dir.mkdir()
+    pool = _Pool(root, collection, 1, True, device, "one", GORDO_TPU_TELEMETRY_DIR=str(
+        telemetry_dir), PROJECT=OBS_PROJECT)
+    try:
+        url = f"{pool.base}/gordo/v0/{OBS_PROJECT}/{RES_MODELS[0]}/anomaly/prediction"
+        # ready (warmed and serving) before the first request, as the pool's
+        pool.wait_ready(1)
+        first = pool.first_200(url, bodies[RES_MODELS[0]])
+        results = _res_traffic(pool.base, bodies)
+        if sorted({r[1] for r in results}) != [200]:
+            raise AssertionError(f"one worker answered {sorted({r[1] for r in results})}")
+        _res_right(results, direct)
+        text = _request(pool.base + "/metrics")[1].decode()
+        peak = [value for labels, value in _prom(text, "gordo_server_device_memory_bytes").items()
+                if dict(labels).get("stat") == "peak_bytes_in_use" and "worker" in dict(labels)]
+        return {"first": first, "latency": _percentiles([r[3] for r in results]),
+                "peak_bytes": peak}
+    finally:
+        pool.stop()
+
+
+def _res_served(collection: Path, device: str):
+    """The collection served in this process as ``run-server`` serves one
+    worker, batching forced on."""
+    os.environ["GORDO_TPU_SERVING_BATCH"] = "1"
+    os.environ["GORDO_TPU_FAST_LANE"] = "0"
+    return _ObsServer(collection, "default", device)
+
+
+def _res_admission(card: str, collection: Path, bodies: dict, direct: dict,
+                   device: str) -> dict:
+    """Step 3: GORDO_TPU_MAX_INFLIGHT=2 under 16 users."""
+    from gordo_tpu_torch.observability import metrics as catalog
+
+    os.environ.update(GORDO_TPU_MAX_INFLIGHT="2", GORDO_TPU_RETRY_AFTER_S="1")
+    served = _res_served(collection, device)
+    try:
+        before = catalog.SERVER_SHED.value(reason="max_inflight")
+        shed_headers = []
+        jobs = [RES_MODELS[u % 2] for u in range(RES_USERS)]
+        results = [None] * len(jobs)
+
+        def user(i):
+            req = urllib.request.Request(
+                f"{served.base}/gordo/v0/{OBS_PROJECT}/{jobs[i]}/anomaly/prediction",
+                data=bodies[jobs[i]], headers={"Content-Type": "application/json"})
+            t0 = time.perf_counter()
+            try:
+                with urllib.request.urlopen(req, timeout=300) as resp:
+                    status, body, headers = resp.status, resp.read(), resp.headers
+            except urllib.error.HTTPError as err:
+                status, body, headers = err.code, err.read(), err.headers
+            results[i] = (jobs[i], status, body, 1e3 * (time.perf_counter() - t0))
+            if status == 503:
+                shed_headers.append(headers.get("Retry-After"))
+
+        threads = [threading.Thread(target=user, args=(i,)) for i in range(len(jobs))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        shed = catalog.SERVER_SHED.value(reason="max_inflight") - before
+    finally:
+        served.close()
+        for knob in ("GORDO_TPU_MAX_INFLIGHT", "GORDO_TPU_RETRY_AFTER_S"):
+            os.environ.pop(knob, None)
+    statuses = [r[1] for r in results]
+    n_shed = statuses.count(503)
+    errors = _res_right(results, direct)
+    if (not n_shed or set(statuses) != {200, 503} or shed != n_shed
+            or shed_headers != ["1"] * n_shed):
+        raise AssertionError(f"admission: statuses {statuses}, shed counter {shed}, "
+                             f"Retry-After {shed_headers}")
+    print(f"admission on {card}: GORDO_TPU_MAX_INFLIGHT=2 shed {n_shed} of {len(statuses)} "
+          f"(counted {shed:.0f}), every 200 right ({errors})", flush=True)
+    return {"shed": n_shed, "answered": statuses.count(200), "errors": errors}
+
+
+def _res_deadline(card: str, collection: Path, bodies: dict, direct: dict, device: str) -> dict:
+    """Step 4: a request whose deadline is below one fused call's time,
+    sent under load, is answered 504 and abandoned; the riders of the call
+    it would have joined answer 200 and right."""
+    from gordo_tpu_torch.observability import metrics as catalog
+    from gordo_tpu_torch.server import batcher
+
+    served = _res_served(collection, device)
+    try:
+        fused = None
+        before = (catalog.SERVER_DEADLINE_EXCEEDED.value(where="queue_wait"),
+                  catalog.SERVER_DEADLINE_EXCEEDED.value(where="preflight"),
+                  catalog.BATCHER_ABANDONED.value())
+        stop, statuses = threading.Event(), []
+        users = _under_load(served.base, bodies, stop, statuses)
+        model = RES_MODELS[0]
+        url = f"{served.base}/gordo/v0/{OBS_PROJECT}/{model}/anomaly/prediction"
+        try:
+            fused = _until(batcher.peek_batcher, "the batcher", 60)
+            _until(lambda: fused.stats["device_calls"] >= 2, "fused calls under load", 120)
+            req = urllib.request.Request(url, data=bodies[model], headers={
+                "Content-Type": "application/json", "X-Gordo-Deadline-Ms": str(RES_DEADLINE_MS)})
+            try:
+                with urllib.request.urlopen(req, timeout=300) as resp:
+                    status, answer = resp.status, resp.read()
+            except urllib.error.HTTPError as err:
+                status, answer = err.code, err.read()
+            after_calls = fused.stats["device_calls"]
+            _until(lambda: fused.stats["device_calls"] >= after_calls + 2,
+                   "the fused calls behind the abandoned rider", 120)
+        finally:
+            stop.set()
+            for t in users:
+                t.join(timeout=300)
+        counted = (catalog.SERVER_DEADLINE_EXCEEDED.value(where="queue_wait") - before[0],
+                   catalog.SERVER_DEADLINE_EXCEEDED.value(where="preflight") - before[1],
+                   catalog.BATCHER_ABANDONED.value() - before[2])
+        abandoned = fused.stats["abandoned"]
+    finally:
+        served.close()
+    if (status != 504 or b"deadline" not in answer or counted[0] + counted[1] != 1
+            or counted[0] != 1 or counted[2] != 1 or abandoned != 1
+            or set(statuses) != {200}):
+        raise AssertionError(f"deadline: answered {status} {answer[:200]!r}, counted "
+                             f"(queue_wait, preflight, abandoned) {counted}, batcher abandoned "
+                             f"{abandoned}, load statuses {sorted(set(statuses))}")
+    print(f"deadline on {card}: X-Gordo-Deadline-Ms {RES_DEADLINE_MS} under load answered "
+          f"{status} ({json.loads(answer)['error']}); counted {counted}; "
+          f"{len(statuses)} other requests answered 200", flush=True)
+    return {"status": status, "counted": list(counted), "riders_answered": len(statuses)}
+
+
+def _res_breaker(card: str, collection: Path, bodies: dict, direct: dict, device: str) -> dict:
+    """Step 5: a poisoned model fused with healthy riders of its spec."""
+    from gordo_tpu_torch.server import batcher
+    from gordo_tpu_torch.util import faults
+
+    model = RES_MODELS[0]
+    os.environ.update(GORDO_TPU_VALIDATE_OUTPUT="1", GORDO_TPU_BREAKER_THRESHOLD="3",
+                      GORDO_TPU_BREAKER_COOLDOWN_S="60", GORDO_TPU_FAULT_PLAN=json.dumps(
+                          {"rules": [{"site": "serve_device_call", "machine": model,
+                                      "times": 1, "error": "wedge", "seconds": 1.0}]}))
+    faults.reset_plan()
+    served = _res_served(collection, device)
+    answers = {}
+    try:
+        # loaded ahead, so that its rider queues at once
+        served.app.model_entry(served.app.revision, RES_POISONED)
+
+        def post(key, name):
+            answers[key] = _obs_post(f"{served.base}/gordo/v0/{OBS_PROJECT}/{name}/anomaly/"
+                                     "prediction", bodies[model])
+        first = threading.Thread(target=post, args=("wedged", model))
+        first.start()
+        fused = _until(batcher.peek_batcher, "the batcher", 60)
+        _until(lambda: fused.device_call_stuck_s() > 0, "the wedged fused call", 60)
+        riders = [("poisoned", RES_POISONED)] + [(f"healthy-{i}", model) for i in range(3)]
+        threads = [threading.Thread(target=post, args=rider) for rider in riders]
+        for t in threads:
+            t.start()
+        _until(lambda: len(fused._ring._q) >= len(riders), "the riders queued behind it", 60)
+        for t in [first, *threads]:
+            t.join(timeout=300)
+        calls = list(fused.calls)
+        post("again", RES_POISONED)
+    finally:
+        served.close()
+        for knob in ("GORDO_TPU_VALIDATE_OUTPUT", "GORDO_TPU_BREAKER_THRESHOLD",
+                     "GORDO_TPU_BREAKER_COOLDOWN_S", "GORDO_TPU_FAULT_PLAN"):
+            os.environ.pop(knob, None)
+        faults.reset_plan()
+    poisoned, again = answers["poisoned"], answers["again"]
+    healthy = [(model, *answers[key][0:1], answers[key][2], answers[key][3])
+               for key in answers if key.startswith("healthy") or key == "wedged"]
+    errors = _res_right([(m, s, b, ms) for m, s, b, ms in healthy], direct)
+    widths = [width for width, _ in calls]
+    if (poisoned[0] != 500 or b"non-finite fused-predict output" not in poisoned[2]
+            or again[0] != 503 or b"circuit breaker open" not in again[2]
+            or {s for _, s, _, _ in healthy} != {200} or len(riders) not in widths):
+        raise AssertionError(f"breaker: poisoned {poisoned[0]} {poisoned[2][:200]!r}, then "
+                             f"{again[0]} {again[2][:200]!r}; healthy "
+                             f"{[s for _, s, _, _ in healthy]}; fused widths {widths}")
+    print(f"breaker on {card}: the poisoned model answered {poisoned[0]} "
+          f"({json.loads(poisoned[2])['error']}), then {again[0]}; its 3 healthy riders 200 "
+          f"(max rel err {errors}); fused call widths {widths}", flush=True)
+    return {"poisoned": poisoned[0], "then": again[0], "fused_widths": widths,
+            "errors": errors}
+
+
+def _res_attribution(card: str, collection: Path, direct: dict, device: str) -> dict:
+    """Step 7: one window of RES_SMALL_ROWS-row requests, then one of
+    FULL_ROWS-row requests, with the attribution and the sentinel on."""
+    from gordo_tpu_torch.observability import attribution, flight, sentinel
+    from gordo_tpu_torch.observability import metrics as catalog
+
+    os.environ.update(GORDO_TPU_PERF_ATTRIBUTION="1", GORDO_TPU_PERF_SENTINEL="1",
+                      GORDO_TPU_PERF_WINDOW_S=str(RES_WINDOW_S),
+                      GORDO_TPU_PERF_SENTINEL_MIN_SAMPLES=str(RES_SENTINEL_MIN),
+                      GORDO_TPU_PROFILE_HZ="50", GORDO_TPU_DEBUG_ENDPOINTS="1")
+    attribution.reset()
+    sentinel.reset()
+    flight.default_recorder().reset()
+    rng = np.random.RandomState(SEED + 31)
+    small = {m: _rect_body(_series(RES_SMALL_ROWS, 150000, rng)) for m in RES_MODELS}
+    full = {m: _rect_body(_series(FULL_ROWS, 160000, rng)) for m in RES_MODELS}
+    before = {phase: catalog.PERF_REGRESSIONS.value(phase=phase)
+              for phase in ("decode", "predict", "encode", "server_other", "total")}
+    served = _res_served(collection, device)
+    try:
+        # warm both sizes outside the windows, then start at a window's edge
+        _res_traffic(served.base, small, users=4, requests=1)
+        _res_traffic(served.base, full, users=4, requests=1)
+        attribution.reset()
+        sentinel.reset()
+
+        def next_window():
+            now = time.time()
+            time.sleep(RES_WINDOW_S - now % RES_WINDOW_S + 0.05)
+            return int(time.time() // RES_WINDOW_S)
+
+        # 8 users: fused calls of at most four full-width requests a dtype
+        base_window = next_window()
+        small_results = _res_traffic(served.base, small, users=8, requests=4)
+        if int(time.time() // RES_WINDOW_S) != base_window:
+            raise AssertionError("the small requests outlasted their window")
+        cur_window = next_window()
+        full_results = _res_traffic(served.base, full, users=8, requests=2)
+        status, body, _, _ = _request(f"{served.base}/debug/perf")
+        if int(time.time() // RES_WINDOW_S) != cur_window:
+            raise AssertionError("the full-width requests outlasted their window")
+    finally:
+        served.close()
+        from gordo_tpu_torch.observability import profiler
+
+        profiler.stop_steady()
+        for knob in ("GORDO_TPU_PERF_ATTRIBUTION", "GORDO_TPU_PERF_SENTINEL",
+                     "GORDO_TPU_PERF_WINDOW_S", "GORDO_TPU_PERF_SENTINEL_MIN_SAMPLES",
+                     "GORDO_TPU_PROFILE_HZ", "GORDO_TPU_DEBUG_ENDPOINTS"):
+            os.environ.pop(knob, None)
+    statuses = {r[1] for r in small_results + full_results}
+    perf = json.loads(body)
+    decomposition = {k: v for k, v in perf["attribution"]["decomposition"].items() if v}
+    fired = {phase: catalog.PERF_REGRESSIONS.value(phase=phase) - n for phase, n in before.items()}
+    events = [e["payload"] for e in flight.default_recorder().events()
+              if e["kind"] == "perf_regression"]
+    predict_events = [e for e in events if e["phase"] == "predict"]
+    problems = []
+    if status != 200 or statuses != {200}:
+        problems.append(f"answers {status}, {statuses}")
+    for key in ("p50", "p99"):
+        decomp = decomposition.get(key)
+        if not decomp or (decomp["base_window"], decomp["cur_window"]) != (base_window,
+                                                                          cur_window):
+            problems.append(f"{key}: no decomposition of the two windows: {decomp}")
+            continue
+        row_sum = sum(r["delta_ms"] for r in decomp["rows"])
+        if abs(row_sum - decomp["headline_delta_ms"]) > 1e-9 * max(
+                1.0, abs(decomp["headline_delta_ms"])):
+            problems.append(f"{key}: rows sum to {row_sum}, not {decomp['headline_delta_ms']}")
+        if max(decomp["rows"], key=lambda r: r["delta_ms"])["name"] != "predict":
+            problems.append(f"{key}: the largest row is not predict: {decomp['rows']}")
+    if fired["predict"] != 1 or len(predict_events) != 1 or not predict_events[0].get(
+            "attribution") or "top_stacks" not in predict_events[0]:
+        problems.append(f"the sentinel fired on predict {fired['predict']} time(s), "
+                        f"{len(predict_events)} event(s)")
+    if problems:
+        raise AssertionError(f"attribution and sentinel: {problems}")
+    p99 = decomposition["p99"]
+    print(f"attribution on {card}: p99 {p99['base_ms']:.2f} -> {p99['cur_ms']:.2f} ms, rows "
+          f"{[(r['name'], round(r['delta_ms'], 3)) for r in p99['rows']]}, mix shift "
+          f"{p99['mix_shift_ms']}; sentinel fired {fired} (predict event with "
+          f"{len(predict_events[0]['top_stacks'])} stacks)", flush=True)
+    return {"decomposition": decomposition, "fired": fired,
+            "predict_event": {k: predict_events[0][k] for k in (
+                "observed_ms", "baseline_mean_ms", "baseline_std_ms", "baseline_n")},
+            "top_stacks": len(predict_events[0]["top_stacks"])}
+
+
+def _release(device: str) -> None:
+    """Free what a finished in-process step left in the caching allocator."""
+    gc.collect()
+    if device == "cuda":
+        import torch
+
+        torch.cuda.empty_cache()
+
+
+def resilience_path(card: str, root: Path, batcher_root: Path, device: str = "cuda") -> dict:
+    """The serving pool, its warm-up and its resilience on the card (module
+    docstring, step 21), over the batcher phases' first artifact of each
+    dtype and, for the breaker, a third of the float32 spec with a NaN in
+    its weights. Returns the numbers and the phase's forward launches: the
+    in-process steps' from the wrappers' counters, the pool's from its
+    workers' device traces."""
+    import torch
+
+    started = time.perf_counter()
+    shutil.rmtree(root, ignore_errors=True)
+    # the pool's collection, and the in-process steps' with the poisoned model
+    collection, poisoned = root / "1", root / "2"
+    for directory in (collection, poisoned):
+        directory.mkdir(parents=True)
+        for model, dtype in zip(RES_MODELS, ("float32", "bfloat16")):
+            os.symlink(batcher_root / dtype / "1" / "batcher-m0", directory / model)
+    write_artifact(poisoned, device, name=RES_POISONED, seed=SEED + 100)
+    params = poisoned / RES_POISONED / "params.npz"
+    weights = dict(np.load(params))
+    weights["0/kernel"][0, 0] = np.nan
+    np.savez(params, **weights)
+    rng = np.random.RandomState(SEED + 29)
+    values = {m: _series(FULL_ROWS, 140000 + 3000 * i, rng) for i, m in enumerate(RES_MODELS)}
+    bodies = {m: _rect_body(v) for m, v in values.items()}
+    bodies[RES_POISONED] = bodies[RES_MODELS[0]]
+    from gordo_tpu_torch.serializer import load
+
+    direct = {}
+    for model in RES_MODELS:
+        detector = load(str(collection / model), device)
+        direct[model] = _direct(detector, values[model])
+        del detector
+    _release(device)
+    saved = {knob: os.environ.get(knob) for knob in RES_KNOBS}
+    _reset_launches()
+    try:
+        for knob in RES_KNOBS:
+            os.environ.pop(knob, None)
+        cold = _res_first_cold(root, collection, bodies, device)
+        one = _res_one_worker(root, collection, bodies, direct, device)
+        pool = _res_pool(card, root, collection, bodies, direct, device)
+        os.environ.update(PROJECT=OBS_PROJECT)
+        steps = {}
+        for name, step in (("admission", _res_admission), ("deadline", _res_deadline),
+                           ("breaker", _res_breaker)):
+            steps[name] = step(card, poisoned, bodies, direct, device)
+            _release(device)
+        attributed = _res_attribution(card, poisoned, direct, device)
+    finally:
+        for knob, value in saved.items():
+            if value is None:
+                os.environ.pop(knob, None)
+            else:
+                os.environ[knob] = value
+    launches = {dtype: _launches(dtype)["forward"] for dtype in COUNTERS}
+    traced = {"float32": sum(t["flash_forward_f32"] for t in pool["traced_forwards"].values()),
+              "bfloat16": sum(t[WGMMA_KERNELS["flash_attention_forward_bf16"][2]]
+                              for t in pool["traced_forwards"].values())}
+    print(f"resilience phase on {card}: {time.perf_counter() - started:.1f} s; first 200 "
+          f"with --warmup {pool['first']}, without {cold}; 1 worker p50/p99 "
+          f"{one['latency']}, 2 workers {pool['latency']}; peaks 1 worker {one['peak_bytes']}, "
+          f"2 workers {pool['peak_bytes_by_worker']}; in-process forward launches {launches}, "
+          f"traced in the pool {traced}", flush=True)
+    if not all(launches.values()) or not all(traced.values()):
+        raise AssertionError(f"the resilience phase launched a forward no time: {launches}, "
+                             f"{traced}")
+    return {"first_200": {"warmup": pool["first"], "no_warmup": cold},
+            "one_worker": one, "pool": pool, **steps, "attribution": attributed,
+            "launches": {dtype: launches[dtype] + traced[dtype] for dtype in COUNTERS},
+            "phase_s": time.perf_counter() - started}
+
+
 def main() -> int:
     import torch
 
@@ -5622,6 +6456,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     observed = observability_path(card, REPO / "build" / "chip_smoke_observability", batcher_root)
     torch.cuda.empty_cache()
+    resilient = resilience_path(card, REPO / "build" / "chip_smoke_resilience", batcher_root)
+    torch.cuda.empty_cache()
 
     forward["launches_by_path"] = {"serving": serving, "server_surface": base_route,
                                    "batcher": batched["launches"],
@@ -5655,6 +6491,8 @@ def main() -> int:
                               if key not in ("launches", "times_dh16")}}, default=str))
     print(json.dumps({"observability": {key: value for key, value in observed.items()
                                         if key != "launches"}}, default=str))
+    print(json.dumps({"resilience": {key: value for key, value in resilient.items()
+                                     if key != "launches"}}, default=str))
     for entry, key, launches, fleet_launches in (
             (dq, "dq", build, fleet), (dkv, "dkv", build, fleet),
             (bf16_dq, "dq", bf16_build, bf16_fleet), (bf16_dkv, "dkv", bf16_build, bf16_fleet)):
@@ -5669,6 +6507,10 @@ def main() -> int:
     for entry, dtype, key in ((forward, "float32", "forward"), (bf16_forward, "bfloat16", "forward"),
                               (dq, "float32", "dq"), (dkv, "float32", "dkv")):
         entry["launches_by_path"]["observability"] = observed["launches"][dtype][key]
+    # the resilience phase's served forwards: the in-process steps' counted
+    # launches and the pool's from its workers' device traces
+    for entry, dtype in ((forward, "float32"), (bf16_forward, "bfloat16")):
+        entry["launches_by_path"]["resilience"] = resilient["launches"][dtype]
     dh16_entries = moe_entries(entries, moe)
     for entry in entries:
         entry["fleet_shape"] = fleet_times[entry["name"]]

@@ -45,6 +45,7 @@ from ..models.utils import Frame, index_label, metric_wrapper
 from ..observability import metrics as metric_catalog, telemetry
 from ..serializer.resolver import locate
 from ..util import disk_registry
+from ..util.faults import NonFiniteDataError, non_finite_report  # noqa: F401 -- re-exported
 
 logger = logging.getLogger(__name__)
 
@@ -62,23 +63,6 @@ _PHASE_VALIDATE = metric_catalog.BUILD_PHASE_SECONDS.labels(phase="validate")
 _PHASE_CV = metric_catalog.BUILD_PHASE_SECONDS.labels(phase="cross_validation")
 _PHASE_FIT = metric_catalog.BUILD_PHASE_SECONDS.labels(phase="fit")
 _PHASE_SERIALIZE = metric_catalog.BUILD_PHASE_SECONDS.labels(phase="serialize")
-
-
-class NonFiniteDataError(ValueError):
-    """The training data of a machine holds NaN or infinite values."""
-
-
-def non_finite_report(X, y=None) -> Optional[str]:
-    """None when every value is finite, else what is not."""
-    for name, arr in (("X", X), ("y", y)):
-        if arr is None:
-            continue
-        arr = np.asarray(arr)
-        if np.issubdtype(arr.dtype, np.floating):
-            n_bad = int(arr.size - np.count_nonzero(np.isfinite(arr)))
-            if n_bad:
-                return f"{n_bad} non-finite values in {name} (shape {arr.shape})"
-    return None
 
 
 def _fold_summary(fold_values: np.ndarray) -> Dict[str, Any]:

@@ -23,8 +23,14 @@ textfile; both are written on every exit path, a partial build's included.
 
 ``run-server`` serves the artifacts of ``MODEL_COLLECTION_DIR`` on
 ``--host`` and ``--port`` (``GORDO_SERVER_HOST``, ``GORDO_SERVER_PORT``)
-from ``--device``, one process with a thread per connection. As the JAX
-command does, it batches predicts by default: ``--batch-predicts`` (or
+from ``--device``, as the JAX command does: a prefork pool of ``--workers``
+processes (1 to 4, default 2, ``GORDO_SERVER_WORKERS``; 1 serves from one
+process), each with a thread per connection, on one listener with a
+backlog of ``--worker-connections`` (default 50,
+``GORDO_SERVER_WORKER_CONNECTIONS``; at least 128); ``--warmup``
+(``GORDO_TPU_SERVING_WARMUP``) warms every model in each worker before it
+accepts (server/warmup.py). As the JAX command does, it batches predicts
+by default: ``--batch-predicts`` (or
 ``GORDO_SERVER_BATCH_PREDICTS``) exports ``GORDO_TPU_SERVING_BATCH=auto``
 before the server starts, ``--no-batch-predicts`` exports ``0``
 (server/batcher.py). With ``GORDO_TPU_FAST_LANE=1`` it serves through the
@@ -34,7 +40,7 @@ does. The server reads ``ENABLE_PROMETHEUS`` and ``PROJECT`` (its
 ``/metrics``), and every command ``GORDO_TPU_LOG_FORMAT=json`` (one JSON
 object a log line, stamped with the request's trace and span ids:
 observability/logs.py), as the JAX CLI reads them. The JAX command's
-workers and warm-up are not ported (ROADMAP.md item A9).
+gateway node registration is not ported (ROADMAP.md item A3).
 """
 
 import argparse
@@ -240,7 +246,29 @@ def _parser() -> argparse.ArgumentParser:
         default=_env_flag("GORDO_SERVER_BATCH_PREDICTS", True),
         help="fuse concurrent predicts of one architecture into one device call, where a "
              "measured A/B at first use finds that it wins (default: on)")
+    server_cmd.add_argument("--workers", type=_int_range(1, 4),
+                            default=int(os.environ.get("GORDO_SERVER_WORKERS", "2")),
+                            help="worker processes of the prefork pool (1-4, default 2)")
+    server_cmd.add_argument("--worker-connections", type=_int_range(1, 400),
+                            default=int(os.environ.get("GORDO_SERVER_WORKER_CONNECTIONS", "50")),
+                            help="the listener's backlog, at least 128 (1-400, default 50)")
+    server_cmd.add_argument(
+        "--warmup", action=argparse.BooleanOptionalAction,
+        default=_env_flag("GORDO_TPU_SERVING_WARMUP", False),
+        help="warm every model (its kernel libraries, one predict per row bucket, its "
+             "parameters into the batcher's bank) in each worker before it accepts")
     return parser
+
+
+def _int_range(low: int, high: int):
+    """An argparse type: an integer from ``low`` to ``high``."""
+    def parse(text: str) -> int:
+        value = int(text)
+        if not low <= value <= high:
+            raise argparse.ArgumentTypeError(f"{value} is not in the range {low}-{high}")
+        return value
+
+    return parse
 
 
 def main(argv: Optional[List[str]] = None) -> int:
@@ -257,7 +285,8 @@ def main(argv: Optional[List[str]] = None) -> int:
         from .server.server import run_server
 
         prepare_run_server(args.batch_predicts)
-        run_server(args.host, args.port, args.device)
+        run_server(args.host, args.port, args.device, None, None, args.workers,
+                   args.worker_connections, args.warmup)
         return 0
     try:
         if args.command == "batch-build":

@@ -27,13 +27,17 @@ Who feeds what in the port:
   bytes and occupancy, and ``PROGRAM_CACHE_ENTRIES``, which stays 0: the
   port compiles no serving programs (its fused call is eager torch over
   hand-written kernels), so there is no program cache to count;
-- observability/profiler.py: ``PROFILE_SAMPLES``.
+- observability/profiler.py: ``PROFILE_SAMPLES``;
+- server/resilience.py and the batcher: ``SERVER_SHED``,
+  ``SERVER_DEADLINE_EXCEEDED``, ``BREAKER_STATE``, ``BREAKER_OPENS``,
+  ``BREAKER_FAST_FAILURES`` and ``WATCHDOG_TRIPS``;
+- observability/attribution.py and sentinel.py: ``PHASE_P50``,
+  ``PHASE_P99``, ``PERF_REGRESSIONS`` and ``SENTINEL_CUSUM``.
 
-Registered and not fed yet, by the ROADMAP.md item that feeds them: the
-perf sentinel and attribution (A8's second part: ``PERF_REGRESSIONS``,
-``PHASE_P50``, ``PHASE_P99``, ``SENTINEL_CUSUM``); resilience, drift, hot
-swaps and warm starts (A9); the gateway and the chaos drills (A3); fault
-and bucket retries (A10); the elastic scheduler (A7). With no counterpart
+Registered and not fed yet, by the ROADMAP.md item that feeds them: drift,
+hot swaps and warm starts (A9's drift half); the gateway and the chaos
+drills (A3); fault and bucket retries (A10); the elastic scheduler (A7).
+With no counterpart
 in the port, because it compiles nothing: the XLA persistent cache
 (``XLA_CACHE_*``), the bucket-program jit cache (``PROGRAM_CACHE``,
 ``COMPILE_SECONDS_SAVED``), ``TRACE_COMPILES`` and the AOT serving

@@ -6,10 +6,18 @@ it reads and writes the same way.
 The telemetry spine (:mod:`.telemetry`) is process-local by design: under
 a prefork serving pool each worker owns its registry, so a ``/metrics``
 scrape (or ``/debug/vars``) answered by one worker shows that worker's
-numbers only. The port serves from one process until ROADMAP.md's A9 ports
-the worker pool, but the shard view is already what ``/metrics`` serves
-without ``ENABLE_PROMETHEUS``, and the SLO and device samplers register on
-it (slo.py, device.py).
+numbers only. ``run-server``'s prefork pool (server/server.py) makes a
+shard directory by default when it runs more than one worker; the shard
+view is what ``/metrics`` serves without ``ENABLE_PROMETHEUS``, and the SLO,
+device, attribution and sentinel samplers register on it. The server's
+Prometheus request families (server/prometheus/metrics.py) ride each
+worker's shard as the extra section ``prometheus``
+(:func:`render_registry_extra` merges them), which is the port's
+counterpart of the JAX pool's ``prometheus_client`` multiprocess directory.
+
+A flush inside the throttle interval schedules one trailing flush at the
+interval's end, so a worker's shard holds its last request's counts once
+it has been idle that long.
 
 This module is the dependency-free fleet view. Each process with
 ``GORDO_TPU_TELEMETRY_DIR`` set maintains one **shard**: a small
@@ -174,6 +182,28 @@ def snapshot_payload(
     registry: Optional[telemetry.MetricsRegistry] = None,
 ) -> Dict[str, Any]:
     """This process's registry (and extras) as a JSON-able shard payload."""
+    metrics = registry_metrics(registry)
+    extras: Dict[str, Any] = {}
+    with _lock:
+        providers = dict(_extra_providers)
+    for key, provider in providers.items():
+        try:
+            extras[key] = provider()
+        except Exception:  # noqa: BLE001 — one bad extra must not kill all
+            continue
+    return {
+        "schema": PAYLOAD_SCHEMA,
+        "pid": os.getpid(),
+        "ts": time.time(),
+        "metrics": metrics,
+        "extras": extras,
+    }
+
+
+def registry_metrics(
+    registry: Optional[telemetry.MetricsRegistry] = None,
+) -> List[Dict[str, Any]]:
+    """A registry's families as the shard payload's ``metrics`` list."""
     registry = registry or telemetry.default_registry()
     metrics = []
     for metric in registry.collect():
@@ -209,21 +239,7 @@ def snapshot_payload(
                 [list(key), value] for key, value in metric.snapshot()
             ]
         metrics.append(entry)
-    extras: Dict[str, Any] = {}
-    with _lock:
-        providers = dict(_extra_providers)
-    for key, provider in providers.items():
-        try:
-            extras[key] = provider()
-        except Exception:  # noqa: BLE001 — one bad extra must not kill all
-            continue
-    return {
-        "schema": PAYLOAD_SCHEMA,
-        "pid": os.getpid(),
-        "ts": time.time(),
-        "metrics": metrics,
-        "extras": extras,
-    }
+    return metrics
 
 
 def _flush_interval() -> float:
@@ -245,7 +261,9 @@ def flush(
         return False
     now = time.monotonic()
     with _lock:
-        if not force and (now - _last_flush) < _flush_interval():
+        wait = _flush_interval() - (now - _last_flush)
+        if not force and wait > 0:
+            _schedule_trailing_flush(wait)
             return False
         _last_flush = now
         samplers = list(_samplers)
@@ -273,6 +291,27 @@ def flush(
             return False
 
 
+_trailing: Optional[threading.Timer] = None
+
+
+def _schedule_trailing_flush(delay: float) -> None:
+    """One pending flush at the end of the throttle interval (the caller
+    holds ``_lock``)."""
+    global _trailing
+    if _trailing is not None and _trailing.is_alive():
+        return
+    _trailing = threading.Timer(delay, _trailing_flush)
+    _trailing.daemon = True
+    _trailing.start()
+
+
+def _trailing_flush() -> None:
+    try:
+        flush()
+    except Exception:  # noqa: BLE001 — a background flush is best-effort
+        pass
+
+
 def _json_default(value):
     """NaN/inf guards for allow_nan=False: non-finite gauge values are
     exposition-legal but JSON-illegal; stringify so the shard stays
@@ -281,8 +320,11 @@ def _json_default(value):
 
 
 def reset_for_tests() -> None:
-    global _writer, _last_flush
+    global _writer, _last_flush, _trailing
     with _lock:
+        if _trailing is not None:
+            _trailing.cancel()
+        _trailing = None
         if _writer is not None:
             _writer.close()
         _writer = None
@@ -362,7 +404,8 @@ def _coerce(value) -> float:
     return float(value)
 
 
-def merge_shards(shards: List[Dict[str, Any]]) -> Dict[str, Dict[str, Any]]:
+def merge_shards(shards: List[Dict[str, Any]],
+                 max_merge=GAUGE_MAX_MERGE) -> Dict[str, Dict[str, Any]]:
     """Merge shard metric sections into ``{name: family}`` where a family is
     ``{kind, help, labelnames, buckets?, series, per_worker}``:
 
@@ -425,7 +468,7 @@ def merge_shards(shards: List[Dict[str, Any]]) -> Dict[str, Dict[str, Any]]:
                 else:  # gauge
                     value = _coerce(raw_value)
                     family["per_worker"][key + (pid,)] = value
-                    if name in GAUGE_MAX_MERGE:
+                    if name in max_merge:
                         prior = family["series"].get(key)
                         family["series"][key] = (
                             value if prior is None else max(prior, value)
@@ -437,13 +480,16 @@ def merge_shards(shards: List[Dict[str, Any]]) -> Dict[str, Dict[str, Any]]:
     return families
 
 
-def render_fleet_text(directory: Optional[str] = None) -> Optional[str]:
+def render_fleet_text(directory: Optional[str] = None,
+                      flush_own: bool = True) -> Optional[str]:
     """Prometheus text exposition of the merged fleet view, or None when no
     telemetry dir is configured. The scraped worker flushes its own shard
-    first so the merge always includes the process answering the scrape."""
+    first so the merge always includes the process answering the scrape
+    (``flush_own`` false for a reader that is no worker, the sidecar)."""
     if (directory or shard_dir()) is None:
         return None
-    flush(force=True)
+    if flush_own:
+        flush(force=True)
     shards = read_shards(directory)
     families = merge_shards(shards)
     # how many shards answered — the fleet-health gauge operators alert on
@@ -457,6 +503,23 @@ def render_fleet_text(directory: Optional[str] = None) -> Optional[str]:
         "series": {(): float(len(shards))},
         "per_worker": {},
     }
+    return render_families(families)
+
+
+def render_registry_extra(key: str, directory: Optional[str] = None,
+                          max_merge=frozenset()) -> str:
+    """The registry families every shard carries in its extra section
+    ``key`` (a :func:`registry_metrics` list), merged as the catalog's are
+    (gauges named in ``max_merge`` take the maximum, others the sum) and
+    rendered as Prometheus text; "" when no shard has the section."""
+    shards = [{"pid": pid, "metrics": metrics}
+              for pid, metrics in fleet_extras(key, directory) if isinstance(metrics, list)]
+    families = merge_shards(shards, max_merge)
+    return render_families(families) if families else ""
+
+
+def render_families(families: Dict[str, Dict[str, Any]]) -> str:
+    """Merged families (:func:`merge_shards`) as Prometheus text 0.0.4."""
     lines: List[str] = []
     for name in sorted(families):
         family = families[name]

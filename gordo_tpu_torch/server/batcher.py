@@ -74,15 +74,29 @@ whole group, at BH = (windows summed over the group) x heads.
   (the watchdog's reading) stays on the host clock. The dispatcher
   registers itself with the sampling profiler as ``gordo-batcher``.
 
-Not ported here: the resilience request scope, deadlines, breakers and
-output check (A9), the fault sites (A10), and ``load_shipped``/``prelower``
-with the AOT programs they install (A10). Tests read the plain attributes
-beside the catalog: ``stats``, ``calls``, ``spec_calls`` (fused calls by
-spec) and each bank's ``generation``, ``restacks`` and ``evictions``.
+- Resilience (server/resilience.py), as the JAX batcher applies it: a
+  submit carries its request's model (``tag``) and deadline; the wait in
+  the queue counts against the deadline, and a waiter whose budget or
+  ``GORDO_TPU_BATCH_TIMEOUT_S`` runs out marks its item ``abandoned``
+  (counted, and logged once per spec and padded shape) and raises
+  ``DeadlineExceeded`` (a 504) or ``TimeoutError``. The dispatcher skips
+  abandoned items at launch and at fan-out; a call already launched on the
+  card is not taken back, and no synchronisation is added for it. With
+  ``GORDO_TPU_VALIDATE_OUTPUT=1`` each rider's rows of a fused call are
+  checked for finiteness on the host copy :meth:`_drain_call` already waits
+  for, and a rider with NaN or Inf gets ``NonFiniteDataError`` while its
+  cohort's results fan out. The ``serve_device_call`` fault site
+  (util/faults.py) fires before every fused launch and serial rescue,
+  matched against the riders' models. :meth:`CrossModelBatcher.register_params`
+  writes a model into its spec's bank ahead of traffic (server/warmup.py).
+
+Not ported here: ``load_shipped``/``prelower`` with the AOT programs they
+install (A10). Tests read the plain attributes beside the catalog:
+``stats``, ``calls``, ``spec_calls`` (fused calls by spec) and each bank's
+``generation``, ``restacks`` and ``evictions``.
 """
 
 import contextlib
-import contextvars
 import logging
 import os
 import select
@@ -99,6 +113,8 @@ from ..observability import metrics as metric_catalog, profiler, telemetry, trac
 from ..ops.flops import forward_flops_per_sample
 from ..ops.nn import stacked_forward
 from ..ops.predict import pad_for_predict, predict_fn, predict_padded, unfold_windows
+from ..util import faults
+from . import resilience
 
 logger = logging.getLogger(__name__)
 
@@ -118,21 +134,12 @@ def _device_of(model) -> torch.device:
     return next(model.parameters()).device
 
 
-# the model a request names, set by the server around its predict: the
-# batcher's spans and logs carry it (the JAX batcher reads it off its
-# resilience request scope)
-_request_model: "contextvars.ContextVar[str]" = contextvars.ContextVar(
-    "gordo_tpu_torch_request_model", default="")
-
-
-@contextlib.contextmanager
 def request_model(name: str):
-    """Name the model of the predicts made inside the block."""
-    token = _request_model.set(name)
-    try:
-        yield
-    finally:
-        _request_model.reset(token)
+    """Name the model of the predicts made inside the block: a resilience
+    request scope without a deadline (the server opens one around each
+    prediction route, server/resilience.py). The batcher's spans, logs and
+    fault site carry the name."""
+    return resilience.request_scope(model=name)
 
 
 def _spec_forward_flops(spec) -> float:
@@ -502,6 +509,11 @@ class CrossModelBatcher:
                 self._banks[key] = _ParamBank(device, self._stream(device))
             return self._banks[key]
 
+    def register_params(self, spec, model) -> int:
+        """Write ``model``'s parameters into its spec's bank now (the
+        warm-up's commit-once pre-registration); returns its slot."""
+        return self.bank(spec, _device_of(model)).slot_of(model)
+
     def submit(self, spec, model, X) -> Optional[np.ndarray]:
         """Blocking predict through the batch queue (thread-safe). In auto
         mode, None when the A/B decided that batching loses for this spec:
@@ -606,24 +618,37 @@ class CrossModelBatcher:
         return won
 
     def _force_submit(self, spec, model, X) -> np.ndarray:
-        """``submit`` without the auto gate. A waiter that times out
-        (``GORDO_TPU_BATCH_TIMEOUT_S``) marks its item abandoned, and the
-        dispatcher skips it."""
+        """``submit`` without the auto gate. The wait honours both the
+        batcher's timeout (``GORDO_TPU_BATCH_TIMEOUT_S``) and the request's
+        deadline (resilience.request_scope): a waiter that gives up marks
+        its item abandoned, and the dispatcher skips it."""
         X_pad, n_pad, n_keep = pad_for_predict(spec, X)
         item = _Item(spec, model, X_pad, n_pad, n_keep, _device_of(model),
                      done=_checkout_waiter(), t_submit=time.monotonic(),
-                     tag=_request_model.get())
+                     tag=resilience.current_model() or "")
+        # a budget already spent (the decode ate it) never queues
+        resilience.check_deadline("queue_wait")
+        remaining = resilience.remaining_s()
+        timeout = self.timeout_s
+        deadline_bound = remaining is not None and (timeout is None or remaining < timeout)
+        if deadline_bound:
+            timeout = remaining
         self._ensure_thread()
         # the queue span covers enqueue to fan-out; the context captured
         # inside it is where the dispatcher parents the device-call span
         with telemetry.span("serve_batch_queue", model=item.tag):
             item.trace_ctx = tracing.capture()
             self._ring.put(item)
-            if not item.done.wait(timeout=self.timeout_s):
+            if not item.done.wait(timeout=timeout):
                 item.abandoned = True
                 _discard_waiter()  # a late set() lands on an orphan Event
                 self._record_abandoned(item)
-                raise TimeoutError(f"batched predict timed out after {self.timeout_s:.0f}s")
+                if deadline_bound:
+                    resilience.record_deadline_exceeded("queue_wait")
+                    raise resilience.DeadlineExceeded(
+                        f"batched predict abandoned: request deadline ({timeout * 1e3:.0f}ms "
+                        f"remaining at submit) expired in the batch queue")
+                raise TimeoutError(f"batched predict timed out after {timeout:.0f}s")
         if item.error is not None:
             raise item.error
         return item.result
@@ -837,6 +862,7 @@ class CrossModelBatcher:
         windows = items[0].n_pad * len(items)
         t0 = time.monotonic()
         self._busy_since = t0
+        faults.fault_point("serve_device_call", machines=[it.tag for it in items])
         with contextlib.nullcontext() if stream is None else torch.cuda.stream(stream):
             X, idx = self._stacked_inputs(items, slots, device)
             if stream is None:
@@ -970,8 +996,18 @@ class CrossModelBatcher:
         self.spec_calls[call.spec] = self.spec_calls.get(call.spec, 0) + 1
         if any(item.spec != call.spec for item in call.items):
             self.stats["mixed_spec_calls"] += 1
+        validate = resilience.validate_output_enabled()
         for i, item in enumerate(call.items):
-            item.result = out[i, : item.n_keep]
+            if item.abandoned:  # its waiter is gone: nobody reads the result
+                continue
+            result = out[i, : item.n_keep]
+            if validate and not np.all(np.isfinite(result)):
+                # per rider: the lanes of a fused call are independent, so
+                # a poisoned model fails alone
+                item.error = faults.NonFiniteDataError(
+                    f"non-finite fused-predict output for model {item.tag or '?'!r}")
+            else:
+                item.result = result
             item.done.set()
 
     def _drain_call(self, call: _Call) -> None:
@@ -996,7 +1032,12 @@ class CrossModelBatcher:
         t0 = time.monotonic()
         self._busy_since = t0
         try:
-            item.result = _single_apply(item)[: item.n_keep]
+            faults.fault_point("serve_device_call", machines=[item.tag])
+            result = _single_apply(item)[: item.n_keep]
+            if resilience.validate_output_enabled() and not np.all(np.isfinite(result)):
+                raise faults.NonFiniteDataError(
+                    f"non-finite predict output for model {item.tag or '?'!r}")
+            item.result = result
         except Exception as exc:  # noqa: BLE001 -- this item's error
             logger.warning("serial rescue failed (group error %s: %s): %s",
                            type(group_exc).__name__, group_exc, exc)

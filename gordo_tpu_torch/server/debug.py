@@ -27,12 +27,20 @@ production server exposes nothing new by default.
   (``format=chrome``); ``steady=1`` returns the steady sampler's view
   instead; ``device=1`` runs an on-demand ``torch.profiler`` device trace
   and reports its files and the CUDA kernels it recorded.
+- ``GET /debug/perf``: the latency attribution's live view
+  (observability/attribution.py: per-phase window quantiles, the
+  current-against-previous window decomposition of p50 and p99 with the
+  mix-shift term) and the perf sentinel's per-phase CUSUM state
+  (observability/sentinel.py).
+- ``/debug/prewarm?machine=<name>[&revision=<rev>]``: the one exception to
+  read-only: the serving warm-up (server/warmup.py) of one model, or of the
+  whole collection without ``machine``, through the server's own model
+  cache; ``revision`` warms a sibling revision (410 when there is none).
 
-``/debug/perf`` (the latency attribution and perf sentinel, A8's second
-part), ``/debug/drift`` and ``/debug/prewarm`` (A9) answer 404 until their
-ROADMAP.md items land. The resilience block of ``/debug/vars`` and
-``/debug/config`` waits for A9 as well; its keys are here, null where the
-port has no such knob (the drain is the fast lane's flag until then).
+``/debug/vars`` carries the resilience block (requests in flight, in the
+gate, draining) and the last warm-up report; ``/debug/config`` the
+resolved resilience knobs. ``/debug/drift`` answers 404 until the drift
+loop is ported (ROADMAP.md item A9's drift half).
 """
 
 import os
@@ -40,6 +48,7 @@ from typing import Any, Dict, Optional, Tuple
 from urllib.parse import parse_qs
 
 from ..observability import flight, telemetry
+from . import resilience
 from .views import json_text
 
 # substrings that mark a knob's VALUE as sensitive — never echo those
@@ -53,6 +62,8 @@ ROUTES = {
     "/debug/config": "debug_config",
     "/debug/slo": "debug_slo",
     "/debug/profile": "debug_profile",
+    "/debug/perf": "debug_perf",
+    "/debug/prewarm": "debug_prewarm",
 }
 
 Answer = Tuple[int, str, bytes]
@@ -67,10 +78,10 @@ def _json(payload: Dict[str, Any], status: int = 200) -> Answer:
     return status, "application/json", json_text(payload).encode()
 
 
-def dispatch(endpoint: str, query: str = "") -> Optional[Answer]:
+def dispatch(endpoint: str, query: str, server) -> Optional[Answer]:
     """``(status, content type, body)`` of one ``debug_*`` endpoint with its
-    query string; None when the gate is off (the caller answers its 404 for
-    an unknown path)."""
+    query string, for ``server`` (the GordoServer answering it); None when
+    the gate is off (the caller answers its 404 for an unknown path)."""
     if not enabled():
         return None
     args = {name: values[0] for name, values in parse_qs(query, keep_blank_values=True).items()}
@@ -82,6 +93,10 @@ def dispatch(endpoint: str, query: str = "") -> Optional[Answer]:
         return slo_view()
     if endpoint == "debug_profile":
         return profile_view(args)
+    if endpoint == "debug_perf":
+        return perf_view()
+    if endpoint == "debug_prewarm":
+        return prewarm_view(args, server)
     return config_view()
 
 
@@ -141,6 +156,37 @@ def profile_view(args: Dict[str, str]) -> Answer:
     return _json(payload)
 
 
+# ---------------------------------------------------------------- /debug/perf
+def perf_view() -> Answer:
+    """The live latency decomposition and the sentinel's state."""
+    from ..observability import attribution, sentinel
+
+    return _json({"attribution": attribution.snapshot(), "sentinel": sentinel.snapshot()})
+
+
+# ------------------------------------------------------------- /debug/prewarm
+def prewarm_view(args: Dict[str, str], server) -> Answer:
+    """Warm one model (``machine``) or the collection through the server's
+    model cache; ``revision`` warms that sibling revision instead."""
+    machine, revision = args.get("machine"), args.get("revision")
+    target = server.revision
+    if revision:
+        if server.revision_dir(revision) is None:  # also refuses a token that is no name
+            return _json({"error": f"Revision '{revision}' not found."}, status=410)
+        target = revision
+    from .warmup import warmup_collection
+
+    try:
+        result = warmup_collection(server.revision_dir(target),
+                                   names=[machine] if machine else None,
+                                   loader=lambda name: server.model_entry(target, name))
+    except Exception as exc:  # noqa: BLE001 -- warming is best-effort
+        return _json({"error": str(exc)}, status=500)
+    if revision:
+        result = dict(result, revision=revision)
+    return _json(result)
+
+
 # ---------------------------------------------------------------- /debug/vars
 def vars_view() -> Answer:
     metrics: Dict[str, Any] = {}
@@ -156,17 +202,19 @@ def vars_view() -> Answer:
         metrics[metric.name] = {"kind": metric.kind, "series": series}
 
     from ..observability import device, shared
+    from . import warmup
     from .batcher import peek_batcher
-    from .fastlane import is_draining
 
     batcher = peek_batcher()
     recorder = flight.default_recorder()
     return _json({
         "metrics": metrics,
-        "server": {"inflight_requests": None, "gated_inflight": None, "draining": is_draining(),
+        "server": {"inflight_requests": resilience.inflight_requests(),
+                   "gated_inflight": resilience.gated_inflight(),
+                   "draining": resilience.is_draining(),
                    "project": os.environ.get("PROJECT")},
         "batcher": None if batcher is None else dict(batcher.stats),
-        "warmup": None,
+        "warmup": warmup.last_report(),
         "device": device.snapshot(),
         "fleet": shared.fleet_vars(),
         "flight": {"seen": recorder.seen, "kept": recorder.kept,
@@ -199,13 +247,13 @@ def config_view() -> Answer:
     env = {name: _redact(name, value) for name, value in sorted(os.environ.items())
            if name.startswith("GORDO_TPU_")}
     resolved = {
-        "max_inflight": None,
-        "retry_after_s": None,
-        "deadline_ms_default": None,
-        "breaker_threshold": None,
-        "drain_budget_s": None,
-        "watchdog_threshold_s": None,
-        "validate_output": False,
+        "max_inflight": resilience.max_inflight(),
+        "retry_after_s": resilience.retry_after_s(),
+        "deadline_ms_default": resilience.deadline_ms_from({}),
+        "breaker_threshold": resilience.breaker_threshold(),
+        "drain_budget_s": resilience.drain_budget_s(),
+        "watchdog_threshold_s": resilience.watchdog_threshold_s(),
+        "validate_output": resilience.validate_output_enabled(),
         "flight_capacity": flight.capacity_from_env(),
         "flight_slow_s": flight.default_recorder().slow_threshold_s(),
         "debug_endpoints": enabled(),

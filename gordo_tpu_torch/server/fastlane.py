@@ -53,10 +53,19 @@ feed the flight recorder, the Prometheus families and the request outcome
 a write, a vectored ``sendmsg`` counted once); the connection, accept and
 event-loop threads register with the sampling profiler.
 
-Not ported yet (ROADMAP.md item A9): the admission gate and its shed 503,
-the breakers, deadlines and their 504. The JAX lane reads its drain from
-``resilience.is_draining()``; until A9 ports ``resilience``, the drain is
-this module's own flag (:func:`begin_drain`, :func:`is_draining`).
+Resilience (server/resilience.py) is the server's on both lanes, as the
+JAX lane reuses the same layer: the hot routes go through
+:meth:`GordoServer.prediction_request`, which applies the admission gate
+(the shed 503 with ``Retry-After``), the request scope with its deadline
+(504), the breakers (503) and the output guard exactly as the default
+lane's route table does. Both lanes count each request in flight for the
+drain (``resilience.request_started``/``request_finished``; the thread lane
+until its response is written, the event loop until it is queued, its
+buffered writes flushed before the loop closes), and both read the drain
+from ``resilience.is_draining()``: while draining they answer with
+``Connection: close`` and flush what is buffered before closing.
+:func:`begin_drain`, :func:`end_drain` and :func:`is_draining` are that
+process-wide drain's switch.
 """
 
 import json
@@ -73,6 +82,7 @@ from typing import Dict, Optional, Tuple
 from urllib.parse import unquote
 
 from ..observability import metrics as metric_catalog, profiler
+from . import resilience
 from .server import (
     MAX_BODY_BYTES, MAX_HEAD_BYTES, BadRequest, GordoServer, client_keep_alive, content_length,
 )
@@ -82,8 +92,6 @@ logger = logging.getLogger(__name__)
 # the two hot routes: group 2 is the machine name, group 3 tells the anomaly
 # route; one trailing slash allowed, as the route table allows it
 _HOT_RE = re.compile(r"^/gordo/v0/([^/]+)/([^/]+)/(anomaly/)?prediction/?$")
-
-_draining = threading.Event()
 
 
 def enabled() -> bool:
@@ -125,20 +133,19 @@ def writev_enabled() -> bool:
 
 
 def begin_drain() -> bool:
-    """Start draining: every lane answers with ``Connection: close`` from
-    now on. False if a drain was already on."""
-    if _draining.is_set():
-        return False
-    _draining.set()
-    return True
+    """Start the process's drain (``resilience.begin_drain``): every lane
+    answers with ``Connection: close`` from now on. False if a drain was
+    already on."""
+    return resilience.begin_drain()
 
 
 def end_drain() -> None:
-    _draining.clear()
+    """End the drain (a process serves on after it only in tests)."""
+    resilience._draining.clear()
 
 
 def is_draining() -> bool:
-    return _draining.is_set()
+    return resilience.is_draining()
 
 
 # most kernels allow 1,024 iovecs a sendmsg; stay beneath it
@@ -386,8 +393,13 @@ class FastLaneServer:
                 else:
                     length = content_length(headers.get("content-length"))
                     body = _recv_exact(conn, buf, length, MAX_BODY_BYTES) if length else b""
-                keep = client_keep_alive(version, headers.get("connection")) and not is_draining()
-                conn.sendall(self._dispatch(method, target, headers, body, keep))
+                resilience.request_started()
+                try:
+                    keep = (client_keep_alive(version, headers.get("connection"))
+                            and not is_draining())
+                    conn.sendall(self._dispatch(method, target, headers, body, keep))
+                finally:
+                    resilience.request_finished()
                 if not keep:
                     break
         except BadRequest as exc:
@@ -669,8 +681,14 @@ class EventLoopServer(FastLaneServer):
         return True
 
     def _finish_request(self, conn: _Conn) -> None:
-        keep = client_keep_alive(conn.version, conn.headers.get("connection")) and not is_draining()
-        conn.queue(self._dispatch(conn.method, conn.target, conn.headers, bytes(conn.body), keep))
+        resilience.request_started()
+        try:
+            keep = (client_keep_alive(conn.version, conn.headers.get("connection"))
+                    and not is_draining())
+            conn.queue(self._dispatch(conn.method, conn.target, conn.headers, bytes(conn.body),
+                                      keep))
+        finally:
+            resilience.request_finished()
         conn.state = _ST_HEAD
         conn.body = bytearray()
         conn.last_activity = time.monotonic()

@@ -8,11 +8,16 @@ the request counter, labelled ``(method, path, status_code, gordo_name,
 project)``, the version-info gauge, and the cross-model batcher's gauges.
 :meth:`GordoServerPrometheusMetrics.expose` renders them and the metric
 catalog (observability/metrics.py) in the text format ``version=0.0.4``:
-the catalog from this process's registry, or, with
-``GORDO_TPU_TELEMETRY_DIR`` set, the fleet view merged from every worker's
-shard (observability/shared.py), as the JAX server's exposition does. The
-JAX multiprocess registry (``PROMETHEUS_MULTIPROC_DIR``) and its sidecar
-come with the serving workers (ROADMAP.md item A9).
+both from this process's registries, or, with ``GORDO_TPU_TELEMETRY_DIR``
+set, merged from every worker's shard (observability/shared.py). The JAX
+pool aggregates its request families through ``prometheus_client``'s
+multiprocess directory (``PROMETHEUS_MULTIPROC_DIR``), which the port does
+not have: each worker's request families ride its telemetry shard as the
+extra section ``prometheus`` (counters and histograms summed over the
+workers, the info and largest-batch gauges their maximum), so any worker's
+``/metrics`` and the sidecar (server/prometheus/server.py) count every
+worker's requests, and a dead worker's shard, reaped by the arbiter, leaves
+the sum.
 """
 
 import re
@@ -29,6 +34,16 @@ _NAME_RE = re.compile(r"/gordo/v0/[^/]+/([^/]+)/")
 REQUEST_BUCKETS = (0.005, 0.01, 0.025, 0.05, 0.075, 0.1, 0.25, 0.5, 0.75, 1.0, 2.5, 5.0,
                    7.5, 10.0, float("inf"))
 _LABELS = ("method", "path", "status_code", "gordo_name", "project")
+# the shard section the request families ride, and the gauges merged by max
+SHARD_KEY = "prometheus"
+MAX_MERGE = frozenset({"gordo_server_info", "gordo_server_batcher_largest_batch"})
+
+
+def fleet_text() -> str:
+    """Every worker's request families, merged from the shards."""
+    from ...observability import shared
+
+    return shared.render_registry_extra(SHARD_KEY, max_merge=MAX_MERGE)
 
 
 class GordoServerPrometheusMetrics:
@@ -67,6 +82,9 @@ class GordoServerPrometheusMetrics:
         # a prometheus_client child exists, at 0, from its first labels()
         for child in self._batcher_children.values():
             child.set(0)
+        from ...observability import shared
+
+        shared.register_extra(SHARD_KEY, lambda: shared.registry_metrics(self.registry))
 
     def record(self, method: str, rule: Optional[str], path: str, status_code: int,
                start_time: float) -> None:
@@ -113,7 +131,9 @@ class GordoServerPrometheusMetrics:
 
         device.sample()
         slo.refresh_gauges()
-        out = self.registry.render_text()
-        fleet = shared.render_fleet_text() if shared.enabled() else None
-        out += fleet if fleet else telemetry.default_registry().render_text()
+        if shared.enabled():
+            self._refresh_batcher()
+            fleet = shared.render_fleet_text()  # flushes this worker's shard first
+            return (fleet_text() + fleet).encode()
+        out = self.registry.render_text() + telemetry.default_registry().render_text()
         return out.encode()

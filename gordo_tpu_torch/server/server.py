@@ -37,11 +37,34 @@ adds the reference's request histogram and counter
 (server/prometheus/metrics.py). ``/metrics`` is served by those when
 ``ENABLE_PROMETHEUS`` is set, else by the shard view when
 ``GORDO_TPU_TELEMETRY_DIR`` is set, else answered 404; the ``/debug/*``
-routes are server/debug.py's. Not ported yet: ``/debug/perf`` (A8's
-second part), ``/debug/drift``, ``/debug/prewarm`` and the breakers,
-deadlines and output check of ``gordo_tpu/server/resilience.py`` (A9).
-``?format=parquet`` on a POST route is refused with 501: pyarrow is not
-a dependency of the port.
+routes are server/debug.py's. The prediction routes' phases also feed the
+latency attribution windows and the perf sentinel
+(observability/attribution.py, sentinel.py) when their knobs are set.
+``/debug/drift`` answers 404 until the drift loop is ported (ROADMAP.md
+item A9's drift half). ``?format=parquet`` on a POST route is refused with
+501: pyarrow is not a dependency of the port.
+
+Resilience (server/resilience.py), on every lane alike, as the JAX server
+applies it: the two prediction routes (POST) pass the admission gate
+(``GORDO_TPU_MAX_INFLIGHT``: a shed request is answered 503 with
+``Retry-After``, before its revision is resolved) and run inside a request
+scope that carries the model's name and the request's deadline
+(``X-Gordo-Deadline-Ms``, ``GORDO_TPU_DEADLINE_MS``: 504 once spent); each
+model has a circuit breaker (``GORDO_TPU_BREAKER_THRESHOLD``: its open
+breaker answers 503 with ``Retry-After``); the ``serve_model_load`` fault
+site (util/faults.py) fires in the model load; ``/healthcheck`` answers 503
+while the batcher's dispatcher is stuck in one device call past
+``GORDO_TPU_WATCHDOG_S``. The transports count every request in flight
+(``resilience.request_started``/``request_finished``, around the response's
+write) for the drain, and answer ``Connection: close`` while draining.
+
+``run_server`` serves from one process (``workers=1``) or from a prefork
+pool: a pure arbiter that binds the listener once, builds the kernels
+(``--device cuda``) and forks the workers, touching no CUDA itself; each
+worker checks its device, warms up (server/warmup.py) when asked, and then
+accepts on the shared listener. The arbiter reaps and respawns dead
+workers (their telemetry shards are removed from the fleet view), stops
+respawning after repeated boot failures, and on SIGTERM drains the pool.
 
 Each artifact under ``MODEL_COLLECTION_DIR`` (one directory per model,
 serializer/serializer.py) is loaded at its first request, with its
@@ -75,14 +98,18 @@ take any method, as werkzeug's rules without methods do; a prediction body
 not sent as JSON (``Content-Type`` ``application/json`` or
 ``application/*+json``) has no X.
 
-Run it with ``python -m gordo_tpu_torch run-server --port 5555``.
+Run it with ``python -m gordo_tpu_torch run-server --port 5555``
+(``--workers``, 1 to 4, default 2; ``--warmup``).
 """
 
 import json
 import logging
 import os
 import re
+import shutil
+import signal
 import socket
+import tempfile
 import threading
 import time
 import timeit
@@ -90,12 +117,16 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Dict, Optional, Tuple
 from urllib.parse import parse_qs, urlsplit
 
+import torch
+
 from .. import __version__, native, resolve_device
 from ..models.utils import parse_resolution
-from ..observability import device as device_telemetry
-from ..observability import flight, metrics as metric_catalog, shared, slo, telemetry, tracing
+from ..observability import attribution, device as device_telemetry
+from ..observability import flight, metrics as metric_catalog, sentinel, shared, slo, telemetry
+from ..observability import tracing
 from ..serializer import load, load_metadata, load_model_json
-from . import batcher, debug, fast_codec, views
+from ..util import faults
+from . import debug, fast_codec, resilience, views
 from .openapi import openapi_document
 from .prometheus import GordoServerPrometheusMetrics
 
@@ -109,8 +140,8 @@ _MODEL_ROUTE = re.compile(
 OPENAPI_ROUTE = "/gordo/v0/openapi.json"
 _TOP_ROUTES = ("/healthcheck", "/readiness", "/server-version", "/metrics", OPENAPI_ROUTE)
 # every /debug/* rule of the JAX table: the ported ones (server/debug.py)
-# and those that answer 404 until their items land
-_DEBUG_ROUTES = (*debug.ROUTES, "/debug/drift", "/debug/prewarm", "/debug/perf")
+# and /debug/drift, which answers 404 until the drift loop is ported
+_DEBUG_ROUTES = (*debug.ROUTES, "/debug/drift")
 # the JAX table's werkzeug rules, which label the metrics and traces
 _PROJECT_RULE = "/gordo/v0/<gordo_project>/{}"
 _MODEL_RULE = "/gordo/v0/<gordo_project>/<gordo_name>/{}"
@@ -151,18 +182,24 @@ class ModelEntry:
 
 
 def observe_request_outcome(rule: str, model: str, duration_s: float, status: int,
-                            slo_eligible: bool = False) -> None:
+                            slo_eligible: bool = False,
+                            phases: Optional[Dict[str, float]] = None) -> None:
     """The per-request fleet and SLO feed, shared by every lane, as in the
     JAX package (``gordo_tpu/server/server.py``): labelled by the matched
     rule and the status class (both bounded), the prediction routes'
-    outcomes into their model's SLO windows, then this process's
-    telemetry shard flushed (throttled; a no-op without
-    ``GORDO_TPU_TELEMETRY_DIR``)."""
+    outcomes into their model's SLO windows, a successful prediction's
+    ``phases`` (decode, predict and encode seconds) into the latency
+    attribution windows and the perf sentinel (each returns before taking
+    a lock when its knob is unset), then this process's telemetry shard
+    flushed (throttled; a no-op without ``GORDO_TPU_TELEMETRY_DIR``)."""
     try:
         metric_catalog.FLEET_REQUESTS.labels(endpoint=rule, status=f"{int(status) // 100}xx").inc()
         metric_catalog.FLEET_REQUEST_SECONDS.labels(endpoint=rule).observe(duration_s)
         if slo_eligible and model:
             slo.record(model, duration_s, status)
+        if slo_eligible and status < 400:
+            attribution.observe(model, duration_s, phases)
+            sentinel.observe_phases(duration_s, phases)
         shared.flush()
     except Exception:  # noqa: BLE001 -- observability must not fail requests
         logger.debug("request observability feed failed", exc_info=True)
@@ -300,6 +337,8 @@ class GordoServer(ThreadingHTTPServer):
         # flush (no-ops until GORDO_TPU_TELEMETRY_DIR enables shards)
         slo.install_shard_hooks()
         device_telemetry.install_shard_hooks()
+        attribution.install_shard_hooks()
+        sentinel.install_shard_hooks()
         self.project = os.environ.get("PROJECT")
         self.prometheus: Optional[GordoServerPrometheusMetrics] = None
         if os.environ.get("ENABLE_PROMETHEUS", "false").lower() in ("1", "true", "yes"):
@@ -315,6 +354,13 @@ class GordoServer(ThreadingHTTPServer):
         self._connections_lock = threading.Lock()
         self.accepted = 0
         super().__init__(address, _Handler, bind_and_activate)
+
+    def get_request(self):
+        """An accepted connection, blocking whatever the listener is (a
+        shared listener is non-blocking: :func:`make_front_end`)."""
+        connection, address = self.socket.accept()
+        connection.setblocking(True)
+        return connection, address
 
     def server_close(self) -> None:
         """Close the listener, end the keep-alive connections waiting for
@@ -381,10 +427,13 @@ class GordoServer(ThreadingHTTPServer):
                 metric_catalog.MODEL_LOAD_FAILURES.labels(kind="cached").inc()
                 raise failure
             directory = os.path.join(self.revision_dir(revision), name)
-            if not os.path.exists(os.path.join(directory, "model.json")):
-                raise FileNotFoundError(directory)
             try:
+                faults.fault_point("serve_model_load", machine=name)
+                if not os.path.exists(os.path.join(directory, "model.json")):
+                    raise FileNotFoundError(directory)
                 entry = ModelEntry(directory, self.device)
+            except FileNotFoundError:
+                raise
             except Exception as exc:
                 metric_catalog.MODEL_LOAD_FAILURES.labels(kind="fresh").inc()
                 ttl = _load_failure_ttl_s()
@@ -453,8 +502,26 @@ class GordoServer(ThreadingHTTPServer):
             self.prometheus.record(method, rule, path, status, exchange.started)
         observe_request_outcome(rule if rule is not None else "(unmatched)", exchange.model,
                                 runtime_s, status,
-                                slo_eligible=rule is not None and rule.endswith("/prediction"))
+                                slo_eligible=rule is not None and rule.endswith("/prediction"),
+                                phases=exchange.timings)
         return status, out_headers, data
+
+    @staticmethod
+    def _admitted(exchange: _Exchange, name: str, headers, handler, *args):
+        """``handler(*args)`` behind the admission gate, inside the request
+        scope of model ``name`` and the request's deadline; a shed request
+        is answered 503 with ``Retry-After`` and no revision, as the JAX
+        server answers it."""
+        shed = resilience.try_admit()
+        if shed is not None:
+            return exchange.answer(503, shed, with_revision=False, headers=[
+                ("Retry-After", resilience.breaker_retry_after_header(shed))])
+        try:
+            with resilience.request_scope(model=name,
+                                          deadline_ms=resilience.deadline_ms_from(headers)):
+                return handler(*args)
+        finally:
+            resilience.release()
 
     def _readiness(self, exchange: _Exchange, collection_dir: str):
         """200 when every expected model's artifact is in the collection
@@ -493,6 +560,7 @@ class GordoServer(ThreadingHTTPServer):
         exchange = _Exchange(timeit.default_timer() if started is None else started)
         exchange.matched(_MODEL_RULE.format(action), _ENDPOINTS[action], name)
         return self._observed(exchange, "POST", path or f"/gordo/v0/-/{name}/{action}", headers,
+                              self._admitted, exchange, name, headers,
                               self._prediction, exchange, name, action, query, headers, body)
 
     def _prediction(self, exchange: _Exchange, name: str, action: str, query: str, headers,
@@ -528,6 +596,16 @@ class GordoServer(ThreadingHTTPServer):
                              _ENDPOINTS[model_match.group(3)], model_match.group(2))
         elif path in _TOP_ROUTES or path in _DEBUG_ROUTES:
             exchange.matched(path, _ENDPOINTS.get(path) or path.strip("/").replace("/", "_"))
+        if model_match and model_match.group(3) in _POST_ACTIONS and method == "POST":
+            return self._admitted(exchange, model_match.group(2), headers, self._matched, exchange,
+                                  method, url, query, path, project_match, model_match, headers,
+                                  body)
+        return self._matched(exchange, method, url, query, path, project_match, model_match,
+                             headers, body)
+
+    def _matched(self, exchange: _Exchange, method: str, url, query: dict, path: str,
+                 project_match, model_match, headers, body: bytes):
+        """The answer of a request whose route was matched (or not)."""
         refusal = self._resolve_revision(exchange, query, headers)
         if refusal is not None:
             return refusal
@@ -538,7 +616,8 @@ class GordoServer(ThreadingHTTPServer):
             return exchange.answer(405, {"message": f"{method} not allowed on {url.path}"},
                                    headers=[("Allow", "POST")])
         if path in _DEBUG_ROUTES:
-            answer = debug.dispatch(exchange.endpoint, url.query) if path in debug.ROUTES else None
+            answer = (debug.dispatch(exchange.endpoint, url.query, server=self)
+                      if path in debug.ROUTES else None)
             if answer is None:  # the gate is off, or the route is not ported yet
                 return exchange.answer(404, {"message": f"No route {method} {url.path}"})
             status, content_type, data = answer
@@ -546,6 +625,13 @@ class GordoServer(ThreadingHTTPServer):
         if path == "/metrics":
             return self._metrics(exchange)
         if path == "/healthcheck":
+            stuck = resilience.stuck_device_call_s()
+            if stuck is not None:
+                # the dispatcher has been inside one device call past the
+                # watchdog's threshold: have this worker restarted
+                return exchange.answer(503, {
+                    "error": "device watchdog: dispatcher stuck in one device call",
+                    "stuck-seconds": round(stuck, 3)}, with_revision=False)
             return exchange.answer(200, b"")
         if path == "/readiness":
             return self._readiness(exchange, collection_dir)
@@ -554,6 +640,7 @@ class GordoServer(ThreadingHTTPServer):
         if path == OPENAPI_ROUTE:
             return exchange.answer(200, json.dumps(openapi_document()).encode())
         if project_match:
+            listing = project_match.group(2)
             if listing == "models":
                 return exchange.answer(200, views.model_list(collection_dir))
             if listing == "revisions":
@@ -585,14 +672,23 @@ class GordoServer(ThreadingHTTPServer):
     def _model_action(self, exchange: _Exchange, name: str, action: str, query: dict, headers,
                       body: bytes):
         """A route that loads model ``name``: ``download-model`` or a
-        prediction (``body`` read as X and y only when sent as JSON)."""
+        prediction (``body`` read as X and y only when sent as JSON). A
+        prediction first asks the model's breaker; a failed load counts
+        against it."""
+        breaker = resilience.breaker_for(name) if action in _POST_ACTIONS else None
+        if breaker is not None:
+            open_info = breaker.allow()
+            if open_info is not None:
+                return exchange.answer(503, open_info, headers=[
+                    ("Retry-After", resilience.breaker_retry_after_header(open_info))])
         try:
             entry = self.model_entry(exchange.revision, name)
         except FileNotFoundError:
             return exchange.answer(404, {"message": f"No such model found: '{name}'"})
-        except Exception:  # noqa: BLE001 -- one broken artifact; the rest serve on
+        except Exception as exc:  # noqa: BLE001 -- one broken artifact; the rest serve on
             if action == "download-model":
                 raise  # the JAX server's generic 500
+            resilience.record_breaker_failure(breaker, exc)
             logger.exception("Failed to load model %r", name)
             return exchange.answer(500, {"error": f"Model '{name}' failed to load"})
         if action == "download-model":
@@ -605,15 +701,16 @@ class GordoServer(ThreadingHTTPServer):
         exchange.fast = fast_codec.request_enabled(headers)
         if not _is_json(headers.get("Content-Type")):
             body = None
-        with batcher.request_model(name):
-            if action == "prediction":
-                status, out = views.base_prediction_core(
-                    entry.detector, body, entry.tags, entry.target_tags, entry.frequency,
-                    exchange.fast, exchange.timings)
-            else:
-                status, out = views.anomaly_prediction_core(
-                    entry.detector, body, entry.tags, entry.target_tags,
-                    entry.frequency, "all_columns" in query, exchange.fast, exchange.timings)
+        # the request scope (:meth:`_admitted`) names the model to the batcher
+        if action == "prediction":
+            status, out = views.base_prediction_core(
+                entry.detector, body, entry.tags, entry.target_tags, entry.frequency,
+                exchange.fast, exchange.timings, name, breaker)
+        else:
+            status, out = views.anomaly_prediction_core(
+                entry.detector, body, entry.tags, entry.target_tags,
+                entry.frequency, "all_columns" in query, exchange.fast, exchange.timings,
+                name, breaker)
         return exchange.answer(status, out)
 
 
@@ -683,6 +780,8 @@ class _Handler(BaseHTTPRequestHandler):
         for name, value in headers:
             self.send_header(name, value)
         self.send_header("Content-Length", str(len(data)))
+        if resilience.is_draining():
+            self.close_connection = True
         keep = not self.close_connection
         self.send_header("Connection", "keep-alive" if keep else "close")
         self._headers_buffer.extend((b"\r\n", data))
@@ -698,7 +797,12 @@ class _Handler(BaseHTTPRequestHandler):
             self.close_connection = True
             return self._write(exc.status, [("Content-Type", "application/json")],
                                json.dumps({"error": exc.message}).encode())
-        self._write(*self.server.dispatch(method, self.path, self.headers, body, started))
+        # in flight for the drain until its response is written
+        resilience.request_started()
+        try:
+            self._write(*self.server.dispatch(method, self.path, self.headers, body, started))
+        finally:
+            resilience.request_finished()
 
     def do_GET(self):
         self._handle("GET")
@@ -742,20 +846,284 @@ def make_front_end(host: str, port: int, device=None, collection_dir: str = None
     if fd is not None:
         app.socket.close()
         app.socket = socket.socket(socket.AF_INET, socket.SOCK_STREAM, fileno=os.dup(fd))
+        # workers of a pool share the listener and all wake on a connection:
+        # the ones that lose the race must not block in accept
+        app.socket.setblocking(False)
         app.server_address = app.socket.getsockname()
     return app, app
 
 
-def run_server(host: str = "0.0.0.0", port: int = 5555, device=None,
-               collection_dir: str = None, fd: Optional[int] = None) -> None:
-    """Serve until interrupted (:func:`make_front_end`)."""
-    app, server = make_front_end(host, port, device, collection_dir, fd)
-    logger.info("Serving %s on port %d (%s)", app.collection_dir,
-                getattr(server, "server_port", None) or server.server_address[1],
-                type(server).__name__)
+def _device_type(device) -> str:
+    """``device``'s type as a string (``cuda`` unless ``"cpu"``), checked
+    without touching CUDA: the arbiter of a pool must not initialise CUDA
+    before it forks, so each worker checks its card itself."""
+    kind = torch.device("cuda" if device is None else device).type
+    if kind not in ("cuda", "cpu"):
+        raise ValueError(f"gordo_tpu_torch runs on 'cuda' or 'cpu', not {device}")
+    return kind
+
+
+def _maybe_warmup(app: GordoServer, warmup: bool) -> None:
+    """The serving warm-up of a worker, after any fork and before it
+    accepts (server/warmup.py); a failure is logged, recorded in the
+    warm-up report, and the worker serves lazily."""
+    if not warmup:
+        return
+    from . import warmup as warmup_mod
+
     try:
-        server.serve_forever()
-    finally:
+        warmup_mod.warmup_collection(
+            app.collection_dir, loader=lambda name: app.model_entry(app.revision, name))
+    except Exception as exc:  # noqa: BLE001 -- a failed warm-up must not stop the server
+        logger.exception("serving warmup failed; serving lazily")
+        warmup_mod.record_report({"models": 0, "programs": 0, "failed": [],
+                                  "error": f"{type(exc).__name__}: {exc}"})
+    # the shard holds the warm-up's counts before the first request
+    shared.flush(force=True)
+
+
+def _install_drain_handler(server) -> None:
+    """The first SIGTERM starts the drain: the accept loop is stopped from a
+    helper thread (``shutdown`` called in the serving thread's own signal
+    frame would deadlock ``serve_forever``) and the requests in flight
+    finish; a second SIGTERM exits at once."""
+    def on_term(signum, frame):
+        if not resilience.begin_drain():
+            logger.warning("second SIGTERM during drain; exiting now")
+            os._exit(0)
+        logger.info("SIGTERM: draining — closing listener, finishing %d in-flight request(s) "
+                    "within %.1fs", resilience.inflight_requests(), resilience.drain_budget_s())
+        threading.Thread(target=server.shutdown, name="gordo-drain", daemon=True).start()
+
+    signal.signal(signal.SIGTERM, on_term)
+
+
+def _finish_drain(app: GordoServer, server) -> None:
+    """After ``serve_forever`` returned: on a drain, wait for the requests in
+    flight (within ``GORDO_TPU_DRAIN_S``), then close the listener."""
+    if resilience.is_draining():
+        resilience.wait_drained()
+        logger.info("drain complete; worker exiting")
+    try:
         server.server_close()
         if app is not server:
             app.server_close()
+    except OSError:  # closed twice
+        pass
+
+
+def _serve(host: str, port: int, device, collection_dir, sock: socket.socket, warmup: bool):
+    """One worker: build the server on the shared listener, warm up, serve
+    until drained; returns the server once it stopped."""
+    app, server = make_front_end(host, port, device, collection_dir, fd=sock.fileno())
+    _maybe_warmup(app, warmup)
+    _install_drain_handler(server)
+    logger.info("Serving %s on port %d (%s)", app.collection_dir,
+                getattr(server, "server_port", None) or server.server_address[1],
+                type(server).__name__)
+    return app, server
+
+
+def run_server(host: str = "0.0.0.0", port: int = 5555, device=None,
+               collection_dir: str = None, fd: Optional[int] = None, workers: int = 2,
+               worker_connections: int = 50, warmup: bool = False) -> None:
+    """Serve until interrupted or drained (:func:`make_front_end` in each
+    worker), as the JAX ``run_server`` does.
+
+    The listener is bound once (or adopted from ``fd``) with a backlog of
+    ``max(128, worker_connections)``. ``workers=1`` serves inline, without
+    an arbiter. More workers run a prefork pool under a pure arbiter (module
+    docstring): it resolves ``device`` as a string only, builds the kernels
+    for ``cuda`` once (``ops/_build.build_all`` starts ``nvcc`` and loads no
+    library; without ``nvcc`` the pool fails to start with the compiler's
+    error), makes a telemetry shard directory unless
+    ``GORDO_TPU_TELEMETRY_DIR`` names one, drops ``GORDO_TPU_UDS_PATH`` (the
+    workers cannot share one socket path) and forks. A worker that dies
+    before signalling readiness, or within 2 s of its start, is a boot
+    failure; after 5 in a row the arbiter respawns at most once every 10 s,
+    and exits with an error when no worker is left. SIGTERM to the arbiter
+    drains every worker within ``GORDO_TPU_DRAIN_S``."""
+    kind = _device_type(device)
+    workers = max(1, int(workers))
+    made_dir = None
+    if workers > 1:
+        from .fastlane import uds_path
+
+        if uds_path():
+            logger.warning("GORDO_TPU_UDS_PATH ignored with %d workers (a prefork pool cannot "
+                           "share one socket path)", workers)
+            os.environ.pop("GORDO_TPU_UDS_PATH", None)
+        if not shared.enabled():
+            made_dir = tempfile.mkdtemp(prefix="gordo-telemetry-")
+            os.environ[shared.ENV_DIR] = made_dir
+    if fd is not None:
+        sock = socket.socket(socket.AF_INET, socket.SOCK_STREAM, fileno=os.dup(fd))
+    else:
+        sock = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+        sock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+        sock.bind((host, port))
+        sock.listen(max(128, worker_connections))
+    logger.info("Starting server on %s:%s with %d worker(s)", host, sock.getsockname()[1],
+                workers)
+    try:
+        if workers == 1:
+            app, server = _serve(host, port, device, collection_dir, sock, warmup)
+            server.serve_forever()
+            _finish_drain(app, server)
+            return
+        if kind == "cuda":
+            from ..ops import _build
+
+            # once, before the fork: the workers only load what was built
+            _build.build_all()
+        if fast_codec.enabled():
+            native.load()  # the codec's library, built once for every worker
+        _Arbiter(host, port, device, collection_dir, sock, workers, warmup).run()
+    finally:
+        sock.close()
+        if made_dir is not None:
+            shutil.rmtree(made_dir, ignore_errors=True)
+
+
+class _Arbiter:
+    """The prefork pool's parent: forks the workers, reaps and respawns
+    them from a poll loop, throttles boot failures, and on SIGTERM drains
+    the pool. It serves nothing and touches no CUDA."""
+
+    FAST_DEATH_S = 2.0
+    MAX_FAST_DEATHS = 5
+    RETRY_S = 10.0
+    POLL_S = 0.2
+
+    def __init__(self, host, port, device, collection_dir, sock, workers: int, warmup: bool):
+        self.host, self.port, self.device = host, port, device
+        self.collection_dir, self.sock = collection_dir, sock
+        self.workers, self.warmup = workers, warmup
+        self.pids: set = set()
+        self.spawned: Dict[int, float] = {}
+        self.ready: Dict[int, int] = {}  # pid -> the read end of its readiness pipe
+        self.fast_deaths = 0
+        self.shutting_down = False
+
+    def _serve_child(self, ready_w: int) -> None:
+        """The worker's life; never returns (an exception unwinding out of
+        the child would run the arbiter's cleanup in it)."""
+        try:
+            signal.signal(signal.SIGCHLD, signal.SIG_DFL)
+            # TERM kills a booting worker: there is nothing to drain yet
+            signal.signal(signal.SIGTERM, signal.SIG_DFL)
+            app, server = _serve(self.host, self.port, self.device, self.collection_dir,
+                                 self.sock, self.warmup)
+            try:
+                os.write(ready_w, b"R")
+                os.close(ready_w)
+            except OSError:
+                pass
+            server.serve_forever()
+            _finish_drain(app, server)
+        except BaseException:  # noqa: BLE001 -- reported, then the worker exits
+            logger.exception("worker failed to boot/serve")
+            os._exit(1)
+        os._exit(0)
+
+    def spawn(self) -> None:
+        start = time.monotonic()
+        # the write end is held only by this child, so its death means EOF
+        ready_r, ready_w = os.pipe()
+        os.set_blocking(ready_r, False)
+        pid = os.fork()
+        if pid == 0:
+            os.close(ready_r)
+            for other in self.ready.values():
+                try:
+                    os.close(other)
+                except OSError:
+                    pass
+            self._serve_child(ready_w)
+        os.close(ready_w)
+        self.spawned[pid] = start
+        self.ready[pid] = ready_r
+        self.pids.add(pid)
+
+    def reap(self) -> None:
+        """Reap dead workers (only ours), retire their shards, and respawn
+        them unless the boot-failure throttle holds."""
+        from .prometheus.server import mark_worker_dead
+
+        for pid in list(self.pids):
+            try:
+                reaped, _status = os.waitpid(pid, os.WNOHANG)
+            except ChildProcessError:
+                self.pids.discard(pid)
+                continue
+            if reaped != pid:
+                continue
+            self.pids.discard(pid)
+            mark_worker_dead(pid)
+            if self.shutting_down:
+                continue
+            lifetime = time.monotonic() - self.spawned.pop(pid, 0.0)
+            ready_r = self.ready.pop(pid, None)
+            became_ready = False
+            if ready_r is not None:
+                try:
+                    became_ready = os.read(ready_r, 1) == b"R"
+                except OSError:
+                    became_ready = False
+                os.close(ready_r)
+            if lifetime < self.FAST_DEATH_S or not became_ready:
+                self.fast_deaths += 1
+            else:
+                self.fast_deaths = 0
+            if self.fast_deaths >= self.MAX_FAST_DEATHS:
+                logger.error("worker %d died after %.1fs; %d consecutive boot failures — "
+                             "throttling respawn", pid, lifetime, self.fast_deaths)
+                continue
+            logger.warning("worker %d died; spawning replacement", pid)
+            self.spawn()
+
+    def run(self) -> None:
+        def terminate(signum, frame):
+            raise SystemExit(0)
+
+        try:
+            signal.signal(signal.SIGTERM, terminate)
+            # a no-op handler, not SIG_IGN (which would discard the exit
+            # statuses): the poll loop does all reaping
+            signal.signal(signal.SIGCHLD, lambda signum, frame: None)
+            for _ in range(self.workers):
+                self.spawn()
+            last_retry = time.monotonic()
+            while True:
+                self.reap()
+                if self.fast_deaths >= self.MAX_FAST_DEATHS and not self.pids:
+                    raise RuntimeError("all workers failed at boot; see logs for the child error")
+                now = time.monotonic()
+                if (len(self.pids) < self.workers and self.fast_deaths >= self.MAX_FAST_DEATHS
+                        and now - last_retry >= self.RETRY_S):
+                    last_retry = now
+                    logger.warning("pool at %d/%d workers; retrying one respawn",
+                                   len(self.pids), self.workers)
+                    self.spawn()
+                time.sleep(self.POLL_S)
+        except (KeyboardInterrupt, SystemExit):
+            pass
+        finally:
+            self.shutting_down = True
+            # a second SIGTERM must not abort the cleanup midway
+            signal.signal(signal.SIGTERM, signal.SIG_IGN)
+            for pid in list(self.pids):
+                try:
+                    os.kill(pid, signal.SIGTERM)
+                except ProcessLookupError:
+                    pass
+            for pid in list(self.pids):
+                try:
+                    os.waitpid(pid, 0)
+                except ChildProcessError:
+                    pass
+            for fd in self.ready.values():
+                try:
+                    os.close(fd)
+                except OSError:
+                    pass

@@ -15,6 +15,17 @@ time. Columns are checked as
 ``{"data": ..., "time-seconds": "..."}`` (the server adds ``revision``),
 with the ``smooth-*`` blocks dropped unless ``all_columns`` is given.
 
+Resilience (server/resilience.py), as the JAX views apply it: the cores
+take the model's circuit breaker (None when breakers are off) and record
+each predict's outcome into it; the predict phase fires the
+``serve_predict`` fault site (util/faults.py; the base route also
+``serve_poison_nan``), checks the request's deadline (``preflight``, a 504
+when spent) and, on the base route, the output's finiteness
+(``GORDO_TPU_VALIDATE_OUTPUT``: a 500 that the breaker counts). A
+``NonFiniteDataError`` raised by the batcher's per-rider guard is answered
+the same way on either route; the anomaly frame itself is not checked
+(its rolling smoothing yields NaN legitimately).
+
 With the native codec on for a request (server/fast_codec.py), its body is
 parsed natively where the strict grammar takes it (:func:`decode_request`)
 and its response's ``"data"`` is rendered by the template encoder
@@ -35,7 +46,8 @@ import numpy as np
 
 from .. import serializer
 from ..models.utils import Frame, RawFrame, make_base_raw
-from . import fast_codec
+from ..util import faults
+from . import fast_codec, resilience
 from .model_io import get_model_output
 
 logger = logging.getLogger(__name__)
@@ -212,12 +224,15 @@ def response_bytes(body: dict, fast: bool) -> bytes:
 
 def anomaly_prediction_core(model, body: Optional[bytes], tags: List[str],
                             target_tags: List[str], frequency, all_columns: bool,
-                            fast: bool = False, timings: Optional[Dict[str, float]] = None
-                            ) -> Tuple[int, dict]:
+                            fast: bool = False, timings: Optional[Dict[str, float]] = None,
+                            name: str = "", breaker=None) -> Tuple[int, dict]:
     """``(status, body)`` of one anomaly request (its body's bytes, None
-    when it was not sent as JSON) against ``model`` (a detector), the frame
-    unencoded in ``"data"``; ``fast`` parses the body natively where it
-    can. The decode and predict phases are timed into ``timings``."""
+    when it was not sent as JSON) against ``model`` (a detector) named
+    ``name``, the frame unencoded in ``"data"``; ``fast`` parses the body
+    natively where it can. The decode and predict phases are timed into
+    ``timings``; the predict's outcome goes to ``breaker``. An error the
+    predict does not map to a status is recorded and re-raised (the
+    server's 500)."""
     start_time = timeit.default_timer()
     try:
         with _phase(timings, "decode"):
@@ -228,9 +243,22 @@ def anomaly_prediction_core(model, body: Optional[bytes], tags: List[str],
         return 400, {"message": "Cannot perform anomaly detection without 'y'"}
     try:
         with _phase(timings, "predict"):
+            faults.fault_point("serve_predict", machine=name)
+            resilience.check_deadline("preflight")
             frame = model.anomaly_raw(X, y, frequency=frequency)
+    except resilience.DeadlineExceeded as exc:
+        logger.warning("Deadline exceeded predicting %r: %s", name, exc)
+        return 504, {"error": str(exc)}
     except AttributeError as exc:
         return 422, {"message": f"Model is not complete; cannot compute anomalies: {exc}"}
+    except faults.NonFiniteDataError as exc:
+        resilience.record_breaker_failure(breaker, exc)
+        logger.error("Non-finite output predicting %r: %s", name, exc)
+        return 500, {"error": str(exc)}
+    except Exception as exc:
+        resilience.record_breaker_failure(breaker, exc)
+        raise
+    resilience.record_breaker_success(breaker)
     if not all_columns:
         drop = [c for c in frame.top_levels() if c in DELETED_FROM_RESPONSE_COLUMNS]
         frame = frame.drop_top_level(drop)
@@ -242,12 +270,15 @@ def anomaly_prediction_core(model, body: Optional[bytes], tags: List[str],
 
 def base_prediction_core(model, body: Optional[bytes], tags: List[str],
                          target_tags: List[str], frequency, fast: bool = False,
-                         timings: Optional[Dict[str, float]] = None) -> Tuple[int, dict]:
-    """``(status, body)`` of one base request against ``model``: the
-    ``model-input`` and ``model-output`` blocks, unencoded in ``"data"``. A
-    ValueError of the predict is answered 400 with its message, any other
-    error 400 with a generic one, as the JAX package answers them. The
-    decode and predict phases are timed into ``timings``."""
+                         timings: Optional[Dict[str, float]] = None, name: str = "",
+                         breaker=None) -> Tuple[int, dict]:
+    """``(status, body)`` of one base request against ``model`` named
+    ``name``: the ``model-input`` and ``model-output`` blocks, unencoded in
+    ``"data"``. A ValueError of the predict is answered 400 with its
+    message, any other error 400 with a generic one, as the JAX package
+    answers them; a spent deadline 504 and a non-finite output 500. The
+    decode and predict phases are timed into ``timings``; the predict's
+    outcome goes to ``breaker``."""
     try:
         with _phase(timings, "decode"):
             X, _ = decode_request(body, tags, target_tags, fast)
@@ -256,13 +287,29 @@ def base_prediction_core(model, body: Optional[bytes], tags: List[str],
     start = timeit.default_timer()
     try:
         with _phase(timings, "predict"):
+            faults.fault_point("serve_predict", machine=name)
+            X = faults.maybe_poison(name, X, site="serve_poison_nan")
+            # the decode may have eaten the whole budget: fail before compute
+            resilience.check_deadline("preflight")
             output = get_model_output(model, X)
+            resilience.check_output_finite(output, name)
+    except resilience.DeadlineExceeded as err:
+        logger.warning("Deadline exceeded predicting %r: %s", name, err)
+        return 504, {"error": str(err)}
+    except faults.NonFiniteDataError as err:
+        # a model fault (a poisoned artifact), not the client's data: 500,
+        # and the breaker counts it
+        resilience.record_breaker_failure(breaker, err)
+        logger.error("Non-finite output predicting %r: %s", name, err)
+        return 500, {"error": str(err)}
     except ValueError as err:
         logger.error("Failed to predict: %s", err, exc_info=True)
         return 400, {"error": f"ValueError: {err}"}
-    except Exception:  # noqa: BLE001 -- answered 400, as the JAX server does
+    except Exception as err:  # noqa: BLE001 -- answered 400, as the JAX server does
+        resilience.record_breaker_failure(breaker, err)
         logger.exception("Failed to predict")
         return 400, {"error": "Something unexpected happened; check your input data"}
+    resilience.record_breaker_success(breaker)
     data = make_base_raw(tags, X.values, output, target_tags, X.index, frequency)
     return 200, {
         "data": data,

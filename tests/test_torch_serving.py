@@ -398,12 +398,20 @@ import gordo_tpu_torch.ops.flops
 import gordo_tpu_torch.util.profiling
 import gordo_tpu_torch.server.prometheus.metrics
 import gordo_tpu_torch.server.debug
+# the fault vocabulary, the serving resilience, the warm-up, the metrics
+# sidecar, latency attribution, the perf sentinel and the dashboards
+import gordo_tpu_torch.util.faults
+import gordo_tpu_torch.server.resilience
+import gordo_tpu_torch.server.warmup
+import gordo_tpu_torch.server.prometheus.server
+from gordo_tpu_torch.observability import attribution, grafana, sentinel
 from gordo_tpu_torch import cli
 for argv in (["batch-build", "fleet.json", "out", "--device", "cpu", "--fail-fast"],
              ["batch-build", "fleet.json", "out", "--trace-file", "t.json",
               "--metrics-file", "m.prom"],
              ["run-server", "--port", "5555", "--device", "cpu"],
-             ["run-server", "--no-batch-predicts"]):
+             ["run-server", "--no-batch-predicts"],
+             ["run-server", "--workers", "1", "--worker-connections", "64", "--warmup"]):
     assert cli._parser().parse_args(argv).command == argv[0]
 assert cli._parser().parse_args(["run-server"]).batch_predicts is True
 assert cli._parser().parse_args(["run-server", "--no-batch-predicts"]).batch_predicts is False
