@@ -115,8 +115,8 @@ Drive the PyTorch/CUDA port (gordo_tpu_torch) on one NVIDIA GPU.
    output and parameter gradients (float32 within TOL_GRAD_REL, bf16
    within TOL_BF16_MODEL_REL), then 20 float32 step losses against the
    serial trainer's on the same orders; ``python -m gordo_tpu_torch batch-build`` in a
-   subprocess, and one of its artifacts answering a base and an anomaly
-   request.
+   subprocess (with a register, whose warm keys step 22 reads), and one of
+   its artifacts answering a base and an anomaly request.
 10. Feedforward build: ``python -m gordo_tpu_torch build`` of
    examples/config.yaml's two feedforward machines as written
    (``pump-station-a``, a DiffBasedAnomalyDetector, and ``turbine-c``, a
@@ -274,13 +274,48 @@ Drive the PyTorch/CUDA port (gordo_tpu_torch) on one NVIDIA GPU.
    delta, its largest row is ``predict``, and the sentinel fires on
    ``predict`` once, with one flight-recorder event carrying the snapshot
    and the profiler's stacks.
-22. A ``batcher_path`` JSON line (both dtypes' numbers), a ``feedforward``
+22. The self-healing drift loop (:func:`drift_path`): the three float32
+   flash kernels against their twins at its shapes (the rebuild's stacked
+   step, BH 256, and a fused call of four 600-row requests, BH 2,048); the
+   first four of step 9's ``transformer-ae-512`` machines as its ``batch-build
+   --model-register-dir`` built and registered them, served in this process
+   (batching forced on) with
+   ``GORDO_TPU_DRIFT_DETECT`` (6 baseline samples), a drift queue,
+   ``GORDO_TPU_HOT_SWAP`` polled every 0.5 s and the telemetry shards; four
+   users send each machine its three normal 600-row payloads until every
+   baseline is frozen. Two machines then get their input x15 on the same
+   path: each turns ``drifted`` and enqueues exactly one request, five more
+   add nothing, and ``/debug/drift`` and ``/metrics`` agree with the
+   detector. ``python -m gordo_tpu_torch drift-rebuilder --once`` rebuilds
+   them in a subprocess (its stacked programs and counters read by
+   :func:`_rebuild_child`) while the load runs: the delta revision holds
+   exactly the two and the marker, warm starts 2 and one drift rebuild each
+   in its metrics file, the queue empty, each window ending at its
+   detection and 6,144 rows long, one stacked program of two machines whose
+   every stage starts from the old artifacts' parameters bit for bit, dQ and
+   dK/dV once per block a stacked step, and a first epoch below a cold
+   start's. The watcher swaps them under load: one hot swap each, the bank's
+   capacity and restacks unchanged and no kernel library built; they
+   recalibrate to ``ok`` with 0 events. A third machine's rebuild (in this
+   process) takes one injected ``swap_commit`` failure: the old artifact
+   answers, one failure is counted, the next poll swaps. Then ``run-server
+   --workers 2 --warmup`` with the hot swap over the tree, and a fourth
+   machine's rebuild landing while it serves: the hot-swap sum over the
+   shards is exactly 2 a machine. Every answer is 200 and within 1e-4 of the
+   direct predict of the artifact its revision names, one in flight at a
+   cutover of the old's or the new's, one after it of the new artifact on
+   plain attention; each machine's revisions go forward only. Printed: the
+   requests from drift to the event, the drain's seconds (claim, build,
+   commit), each swap's preload, warm, bank-write and flip milliseconds, p50
+   and p99 of the 10 s before the swap and the 10 s around it, and the first
+   answer after the flip.
+23. A ``batcher_path`` JSON line (both dtypes' numbers), a ``feedforward``
    JSON line, a ``fastlane``/``kfcv_fleet`` JSON line, a ``windowed`` JSON
    line, a ``transformer-ae-512-d384`` JSON line, a ``moe`` JSON line, an
-   ``observability`` JSON line, a ``resilience`` JSON line, a
-   ``kernels`` JSON line (twenty-two entries: the six flash kernels at dh
-   64 with their results by head dim and the observability and resilience
-   phases' launches among their paths, the six again at dh 96 with the d384
+   ``observability`` JSON line, a ``resilience`` JSON line, a ``drift`` JSON
+   line, a ``kernels`` JSON line (twenty-two entries: the six flash kernels
+   at dh 64 with their results by head dim and the observability,
+   resilience and drift phases' launches among their paths, the six again at dh 96 with the d384
    path's launches and at dh 16 with the MoE fleet's, then the LSTM
    recurrence's forward and backward in float32 and bf16), then
    the last line
@@ -2772,16 +2807,18 @@ def fleet_loss_check(card: str, device: str = "cuda", config: dict = None) -> di
 
 def cli_batch_build(root: Path, device: str = "cuda") -> None:
     """``python -m gordo_tpu_torch batch-build`` of the float32 fleet in a
-    subprocess on the card (it must exit 0 and report every machine); one
-    of its artifacts then answers a base and an anomaly request through the
-    server."""
+    subprocess on the card with a register (``fleet-cli-register``, which
+    the drift path's warm starts read; it must exit 0 and report every
+    machine); one of its artifacts then answers a base and an anomaly
+    request through the server."""
     from gordo_tpu_torch.server.server import make_server
 
     config = root / "fleet.json"
     config.write_text(json.dumps({"machines": fleet_configs()}))
     output = root / "fleet-cli"
     command = [sys.executable, "-m", "gordo_tpu_torch", "--log-level", "WARNING",
-               "batch-build", str(config), str(output), "--project-name", "smoke"]
+               "batch-build", str(config), str(output), "--project-name", "smoke",
+               "--model-register-dir", str(root / "fleet-cli-register")]
     if device != "cuda":
         command += ["--device", device]
     started = time.perf_counter()
@@ -2865,7 +2902,7 @@ BENCH_ROWS = 100  # bench.py's anomaly request: 100 samples of the machine's tag
 BENCH_ROUNDS = 100  # bench.py's sequential requests (BENCH_SERVER_ROUNDS)
 FF_USERS = 16
 FF_REQUESTS = 48  # concurrent feedforward requests across the two models
-FF_FLEET_MACHINES = 1024  # bench.py's fleet (BENCH_MACHINES)
+FF_FLEET_MACHINES = 512  # bench.py's fleet (BENCH_MACHINES, 1,024) cut to half
 
 
 def _kfold_reference(n: int, n_splits: int, seed: int) -> list:
@@ -3834,7 +3871,7 @@ WINDOWED_DTYPE = "bfloat16"
 # bench.py's 64 machines a family, cut to 32: the LSTM/TCN phases added
 # ~113 s to the smoke run at 64 (over the ~90 s they may take), the fleet's
 # N is the first cut
-WINDOWED_FLEET_MACHINES = 32
+WINDOWED_FLEET_MACHINES = 16
 WINDOWED_ROUNDS = 10  # sequential 1,535-row anomaly requests a windowed artifact
 WINDOWED_REQUESTS = 2  # concurrent 1,535-row requests a model, batching forced on
 LSTM_STEPS_TIMED = 200  # compressor-b's training steps timed on the kernels
@@ -6308,6 +6345,663 @@ def resilience_path(card: str, root: Path, batcher_root: Path, device: str = "cu
             "phase_s": time.perf_counter() - started}
 
 
+# ------------------------------------------------------------ the drift loop
+DRIFT_MACHINES = 4  # of fleet_configs(): two drift, one takes the injected fault, one is late
+DRIFT_USERS = 4
+DRIFT_VARIANTS = (0.9, 1.0, 1.1)  # each machine's normal payloads: its input scaled
+DRIFT_SCALE = 15.0  # the drifted sensor feed
+DRIFT_MIN_SAMPLES = 6
+DRIFT_POLL_S = 0.5
+DRIFT_HYSTERESIS = 5  # drifted requests after the event, which must add nothing
+DRIFT_WINDOW_S = 10.0  # the latency windows before and around the swap
+DRIFT_PROJECT = "smoke"
+DRIFT_KNOBS = ("GORDO_TPU_SERVING_BATCH", "GORDO_TPU_DRIFT_DETECT", "GORDO_TPU_DRIFT_MIN_SAMPLES",
+               "GORDO_TPU_DRIFT_QUEUE_DIR", "GORDO_TPU_HOT_SWAP", "GORDO_TPU_HOT_SWAP_POLL_S",
+               "GORDO_TPU_DEBUG_ENDPOINTS", "GORDO_TPU_TELEMETRY_DIR", "GORDO_TPU_FAULT_PLAN",
+               "GORDO_TPU_FAST_LANE", "ENABLE_PROMETHEUS", "PROJECT", "GORDO_TPU_WARM_START",
+               "GORDO_TPU_DRIFT_THRESHOLD", "GORDO_TPU_DRIFT_COOLDOWN_S")
+
+
+def _rebuild_child(report: str, argv: list) -> None:
+    """``python -m gordo_tpu_torch`` with ``argv`` in this process (run in a
+    subprocess by :func:`drift_path`), the fleet trainer's stacked programs
+    and the flash wrappers' counters read on the way: each program's
+    machines, the sha256 of each machine's initial parameters at each stage,
+    its first epoch's loss at each stage, the drain's report, the kernel
+    launches and the plain attention's calls, written to ``report`` as JSON
+    whatever the exit."""
+    import hashlib
+    import runpy
+
+    from gordo_tpu_torch.builder import drift_rebuild
+    from gordo_tpu_torch.parallel import batch_trainer as bt
+
+    out = {"programs": [], "drains": []}
+    run_bucket, drain = bt.run_bucket, drift_rebuild.drain_drift_queue
+
+    def recorded(spec, X, y, stages, epochs, *args, **kwargs):
+        inits = args[1]
+        hashes = [[{f"{i}/{name}": hashlib.sha256(np.ascontiguousarray(value[m])).hexdigest()
+                    for i, layer in enumerate(stage) for name, value in layer.items()}
+                   for m in range(len(X))] for stage in inits]
+        model, losses, preds = run_bucket(spec, X, y, stages, epochs, *args, **kwargs)
+        out["programs"].append({"machines": len(X), "init_sha256": hashes,
+                                "first_epoch_losses": losses[:, 0].tolist()})
+        return model, losses, preds
+
+    def drained(*args, **kwargs):
+        result = drain(*args, **kwargs)
+        out["drains"].append(result)
+        return result
+
+    bt.run_bucket, drift_rebuild.drain_drift_queue = recorded, drained
+    _reset_launches()
+    plain = _PlainAttentionCalls()
+    try:
+        with plain:
+            sys.argv = ["gordo_tpu_torch", *argv]
+            runpy.run_module("gordo_tpu_torch", run_name="__main__", alter_sys=True)
+    finally:
+        out.update(launches=_launches("float32"), bf16_launches=_launches("bfloat16"),
+                   plain_calls=plain.calls)
+        Path(report).write_text(json.dumps(out))
+
+
+def _param_sha256(directory: Path) -> dict:
+    """The sha256 of each parameter of an artifact's estimator, keyed as
+    :func:`_rebuild_child` keys them."""
+    import hashlib
+
+    from gordo_tpu_torch.serializer import load
+
+    params = load(str(directory), "cpu").base_estimator.steps[-1][1].module_.params_numpy()
+    return {f"{i}/{name}": hashlib.sha256(np.ascontiguousarray(value, np.float32)).hexdigest()
+            for i, layer in enumerate(params) for name, value in layer.items()}
+
+
+class _DriftLoad:
+    """DRIFT_USERS threads POSTing each machine's normal payloads in turn
+    (its variants in strict rotation) until halted; every answer is kept:
+    ``(sent, received, machine, variant, status, revision, model output,
+    ms)``, the times on ``time.time``. :meth:`post` sends one more from the
+    caller."""
+
+    def __init__(self, base: str, names: list, bodies: dict):
+        self.base, self.names, self.bodies = base, names, bodies
+        self.records: list = []
+        self.counts = {name: 0 for name in names}
+        self.lock = threading.Lock()
+        self.stop = threading.Event()
+        self.threads: list = []
+
+    def post(self, name: str, body: bytes, variant=None) -> tuple:
+        sent = time.time()
+        status, _, answer, ms = _obs_post(
+            f"{self.base}/gordo/v0/{DRIFT_PROJECT}/{name}/anomaly/prediction", body)
+        revision = output = None
+        if status == 200:
+            doc = json.loads(answer)
+            revision = doc["revision"]
+            block = doc["data"]["model-output"]
+            output = np.array([list(column.values()) for column in block.values()]).T
+        record = (sent, time.time(), name, variant, status, revision, output, ms)
+        with self.lock:
+            self.records.append(record)
+        return record
+
+    def _user(self, u: int) -> None:
+        i = 0
+        while not self.stop.is_set():
+            name = self.names[(u + i) % len(self.names)]
+            i += 1
+            with self.lock:
+                variant = self.counts[name] % len(DRIFT_VARIANTS)
+                self.counts[name] += 1
+            self.post(name, self.bodies[name][variant], variant)
+
+    def start(self) -> None:
+        self.threads = [threading.Thread(target=self._user, args=(u,), daemon=True)
+                        for u in range(DRIFT_USERS)]
+        for thread in self.threads:
+            thread.start()
+
+    def halt(self) -> None:
+        self.stop.set()
+        for thread in self.threads:
+            thread.join(timeout=300)
+
+    def revisions(self, name: str) -> list:
+        """The machine's answered revisions in the order they were received,
+        repeats collapsed."""
+        seen: list = []
+        with self.lock:
+            records = sorted(self.records, key=lambda r: r[1])
+        for record in records:
+            if record[2] == name and record[5] and (not seen or seen[-1] != record[5]):
+                seen.append(record[5])
+        return seen
+
+
+def _drift_metrics(text: str, family: str) -> dict:
+    """``{model or "": value}`` of a catalog family in a shard view or a
+    textfile, the per-worker series left out."""
+    out: dict = {}
+    for labels, value in _prom(text, family).items():
+        labels = dict(labels)
+        if "worker" not in labels:
+            model = labels.get("model", "")
+            out[model] = out.get(model, 0.0) + value
+    return out
+
+
+def _drift_references(collection: Path, names: list, variants: dict, device: str,
+                      plain: bool = False) -> dict:
+    """``{name: [model output per variant]}``: each artifact's direct predict
+    (no batcher), or with ``plain`` its model on the plain attention."""
+    from gordo_tpu_torch.models.models import TransformerAutoEncoder
+    from gordo_tpu_torch.serializer import load
+
+    out = {}
+    for name in names:
+        detector = load(str(collection / name), device)
+        if plain:
+            scaler, estimator = (detector.base_estimator.steps[0][1],
+                                 detector.base_estimator.steps[-1][1])
+            model = TransformerAutoEncoder(**CONFIG).load_params(
+                _with_attention(estimator.spec_, "xla"), estimator.module_.params_numpy(),
+                device)
+            out[name] = [model.predict(scaler.transform(X)) for X in variants[name]]
+            del model
+        else:
+            out[name] = [_direct(detector, X) for X in variants[name]]
+        del detector
+    _release(device)
+    return out
+
+
+def _drift_rebuild(root: Path, config_file: Path, queue: Path, register: Path,
+                   device: str) -> dict:
+    """Step 4: ``python -m gordo_tpu_torch drift-rebuilder --once`` in a
+    subprocess (through :func:`_rebuild_child`); returns its report, its
+    seconds and its metrics textfile."""
+    report, metrics = root / "rebuild-report.json", root / "rebuild.prom"
+    argv = ["--log-level", "INFO", "drift-rebuilder", str(config_file), "--queue-dir", str(queue),
+            "--output-dir", str(root), "--model-register-dir", str(register), "--project-name",
+            DRIFT_PROJECT, "--once", "--metrics-file", str(metrics)]
+    if device != "cuda":
+        argv += ["--device", device]
+    env = {k: v for k, v in os.environ.items() if k not in DRIFT_KNOBS}
+    env["PYTHONPATH"] = str(REPO)
+    started = time.perf_counter()
+    with open(root / "rebuild.log", "w") as log:
+        result = subprocess.run(
+            [sys.executable, "-c", f"import chip_smoke; chip_smoke._rebuild_child("
+                                   f"{str(report)!r}, {argv!r})"],
+            cwd=REPO, env=env, stdout=log, stderr=subprocess.STDOUT, timeout=600)
+    seconds = time.perf_counter() - started
+    text = (root / "rebuild.log").read_text()
+    if result.returncode != 0 or not report.exists():
+        print(text[-4000:], file=sys.stderr)
+        raise AssertionError(f"drift-rebuilder exited {result.returncode}")
+    return {"report": json.loads(report.read_text()), "seconds": seconds,
+            "metrics": metrics.read_text()}
+
+
+def _drift_served(root: Path, register: Path, names: list, bodies: dict,
+                  drifted_bodies: dict, config_file: Path, machines: list, device: str) -> dict:
+    """Steps 2 to 7 on the in-process server (module docstring, step 22)."""
+    from gordo_tpu_torch.builder import drift_rebuild
+    from gordo_tpu_torch.observability import drift
+    from gordo_tpu_torch.observability import metrics as catalog
+    from gordo_tpu_torch.ops import _build
+    from gordo_tpu_torch.parallel import drift_queue
+    from gordo_tpu_torch.server import batcher, hotswap
+    from gordo_tpu_torch.server.server import make_server
+    from gordo_tpu_torch.server.warmup import warmup_collection
+    from gordo_tpu_torch.util import faults
+
+    collection, queue = root / "rev-initial", root / "queue"
+    drifted, faulted = names[:2], names[2]
+    out: dict = {}
+    server = make_server("127.0.0.1", 0, device, str(collection))
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    load = _DriftLoad(base, names, bodies)
+    out["load"] = load
+    try:
+        # 2. serve: warmed, then traffic until every baseline is frozen
+        t0 = time.perf_counter()
+        report = warmup_collection(str(collection),
+                                   loader=lambda name: server.model_entry(server.revision, name))
+        if report["failed"] or report["registered_params"] != len(names):
+            raise AssertionError(f"the drift collection's warm-up: {report}")
+        (bank,) = batcher.peek_batcher()._banks.values()
+        bank_before = (bank.capacity, bank.restacks, len(bank))
+        out["warmup_s"] = time.perf_counter() - t0
+        load.start()
+        _until(lambda: all(drift.snapshot().get(n, {}).get("status") == "ok"
+                                for n in names), "every baseline to freeze", 180)
+
+        # 3. detect, on the same path: each drifted machine's requests to its event
+        detection = {}
+        for name in drifted:
+            for n in range(1, 51):
+                if load.post(name, drifted_bodies[name])[4] >= 500:
+                    raise AssertionError(f"{name}: a drifted request answered 5xx")
+                if drift.snapshot()[name]["status"] == "drifted":
+                    detection[name] = n
+                    break
+            else:
+                raise AssertionError(f"{name} was never detected as drifted")
+        pending = sorted(r["machine"] for r in drift_queue.pending(str(queue)))
+        events = {n: drift.snapshot()[n]["events"] for n in names}
+        if pending != sorted(drifted) or events != {n: int(n in drifted) for n in names}:
+            raise AssertionError(f"detection enqueued {pending} with events {events}")
+        for name in drifted:
+            for _ in range(DRIFT_HYSTERESIS):
+                load.post(name, drifted_bodies[name])
+        after = {n: drift.snapshot()[n]["events"] for n in names}
+        if drift_queue.depth(str(queue)) != len(drifted) or after != events:
+            raise AssertionError(f"hysteresis: depth {drift_queue.depth(str(queue))}, events "
+                                 f"{after} after {events}")
+        doc = json.loads(_request(base + "/debug/drift")[1])
+        metrics = _request(base + "/metrics")[1].decode()
+        snapshot = drift.snapshot()
+        frozen = ("status", "events", "baseline_n", "baseline_mean", "baseline_std")
+        agree = {
+            "debug_local": all(doc["local"][n][k] == snapshot[n][k] for n in names
+                               for k in frozen),
+            "debug_drifted": doc["drifted"] == drift.drifted_models() == sorted(drifted),
+            "debug_fleet_events": all(doc["fleet"][n]["events"] == events[n] for n in names),
+            "debug_queue": doc["queue"]["pending"] == sorted(drifted)
+            and doc["queue"]["depth"] == len(drifted),
+            "metrics_events": _drift_metrics(metrics, "gordo_server_drift_events_total") == {
+                n: 1.0 for n in drifted},
+            "metrics_drifted": _drift_metrics(metrics, "gordo_server_drifted_models") == {
+                "": float(len(drifted))},
+            "metrics_queue": _drift_metrics(metrics, "gordo_server_drift_queue_depth") == {
+                "": float(len(drifted))},
+        }
+        if not all(agree.values()):
+            raise AssertionError(f"/debug/drift or /metrics disagree with drift.snapshot(): "
+                                 f"{agree}: {doc}")
+        out.update(detection_requests=detection, agree=agree)
+
+        # 4. rebuild in a subprocess, the load running and the watcher polling
+        libraries = (sorted(_build._libraries), sorted(_build.BUILD_LOGS))
+        swaps = {n: catalog.HOT_SWAPS.value(model=n) for n in names}
+        out["rebuild"] = _drift_rebuild(root, config_file, queue, register, device)
+
+        # 5. the swap under load
+        _until(lambda: all(hotswap.active(n) for n in drifted), "the watcher's swap", 60)
+        flips = {r["machine"]: r for r in hotswap.swaps() if r["machine"] in drifted}
+        _until(lambda: all(any(r[2] == n and r[0] > flips[n]["flipped_at"] + 2.0
+                                    for r in list(load.records)) for n in drifted),
+                    "traffic after the swap", 60)
+        bank_after = (bank.capacity, bank.restacks)
+        if bank_after != bank_before[:2] or (sorted(_build._libraries),
+                                             sorted(_build.BUILD_LOGS)) != libraries:
+            raise AssertionError(f"the swap changed the bank ({bank_before} -> {bank_after}) "
+                                 f"or built a kernel library")
+        swapped = {n: catalog.HOT_SWAPS.value(model=n) - swaps[n] for n in names}
+        if swapped != {n: int(n in drifted) for n in names}:
+            raise AssertionError(f"hot swaps by machine: {swapped}")
+        out.update(swaps=list(flips.values()),
+                   bank={"before": bank_before, "after": (*bank_after, len(bank))})
+
+        # 6. recalibrate on the rebuilt models' normal traffic
+        t0 = time.perf_counter()
+        _until(lambda: all(drift.snapshot().get(n, {}).get("status") == "ok"
+                                and drift.snapshot()[n]["events"] == 0 for n in drifted),
+                    "the rebuilt models to recalibrate", 120)
+        out["recalibrate_s"] = time.perf_counter() - t0
+
+        # 7. one injected swap_commit failure on a third machine's rebuild,
+        # the load stopped: an in-process rebuild beside four users' threads
+        # waits on the interpreter lock (54 s against 5 s alone on the H100)
+        load.halt()
+        failures = catalog.HOT_SWAP_FAILURES.value(model=faulted)
+        before_fault = catalog.HOT_SWAPS.value(model=faulted)
+        os.environ["GORDO_TPU_FAULT_PLAN"] = json.dumps({"rules": [
+            {"site": "swap_commit", "machine": faulted, "times": 1, "error": "permanent"}]})
+        faults.reset_plan()
+        drift_queue.enqueue(str(queue), faulted, {"detected_at": time.time()})
+        third = drift_rebuild.drain_drift_queue(machines, str(queue), str(root),
+                                                model_register_dir=str(register), device=device)
+        if third["built"] != [faulted]:
+            raise AssertionError(f"the third rebuild: {third}")
+        _until(lambda: catalog.HOT_SWAP_FAILURES.value(model=faulted) > failures,
+                    "the injected swap failure", 30)
+        served_old = load.post(faulted, bodies[faulted][1], 1)[5]
+        _until(lambda: hotswap.active(faulted), "the swap after the failure", 30)
+        served_new = load.post(faulted, bodies[faulted][1], 1)[5]
+        fault = {"failures": catalog.HOT_SWAP_FAILURES.value(model=faulted) - failures,
+                 "swaps": catalog.HOT_SWAPS.value(model=faulted) - before_fault,
+                 "served_between": served_old, "served_after": served_new,
+                 "revision": third["revision"], "seconds": third["seconds"]}
+        if fault["failures"] != 1 or fault["swaps"] != 1 or (
+                served_old, served_new) != ("rev-initial", third["revision"]):
+            raise AssertionError(f"the injected swap failure: {fault}")
+        out["fault"] = fault
+    finally:
+        load.halt()
+        os.environ.pop("GORDO_TPU_FAULT_PLAN", None)
+        faults.reset_plan()
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=60)
+        batcher.reset_batcher()
+        hotswap.reset_for_tests()
+    return out
+
+
+def _drift_pool(root: Path, register: Path, names: list, bodies: dict, machines: list,
+                expected: dict, device: str) -> dict:
+    """Step 8: ``run-server --workers 2 --warmup`` with the hot swap on over
+    the tree; one more delta revision (the late machine's rebuild) lands
+    while it serves. Both workers must swap every machine: the hot-swap sum
+    over the shards is exactly 2 a machine."""
+    from gordo_tpu_torch.builder import drift_rebuild
+    from gordo_tpu_torch.parallel import drift_queue
+
+    collection, queue = root / "rev-initial", root / "queue"
+    late = names[3]
+    pool = _Pool(root, collection, 2, True, device, "drift", GORDO_TPU_HOT_SWAP="1",
+                 GORDO_TPU_HOT_SWAP_POLL_S=str(DRIFT_POLL_S), GORDO_TPU_DRIFT_DETECT="0")
+    statuses: list = []
+    answers: dict = {}
+    sums: dict = {}
+    result: dict = {}
+    try:
+        pool.wait_ready(2)
+        drift_queue.enqueue(str(queue), late, {"detected_at": time.time()})
+        fourth = drift_rebuild.drain_drift_queue(machines, str(queue), str(root),
+                                                 model_register_dir=str(register), device=device)
+        if fourth["built"] != [late]:
+            raise AssertionError(f"the late rebuild: {fourth}")
+        expected = dict(expected, **{late: fourth["revision"]})
+
+        def swapped():
+            for name in names:
+                status, _, answer, _ = _obs_post(
+                    f"{pool.base}/gordo/v0/{DRIFT_PROJECT}/{name}/anomaly/prediction",
+                    bodies[name][1])
+                statuses.append(status)
+                if status == 200:
+                    answers[name] = json.loads(answer)["revision"]
+            time.sleep(0.3)  # a worker's trailing shard flush
+            text = _request(pool.base + "/metrics")[1].decode()
+            sums.clear()
+            sums.update(_drift_metrics(text, "gordo_server_hot_swaps_total"))
+            return all(sums.get(name) == 2.0 for name in names) and all(
+                answers.get(name) == expected[name] for name in names)
+
+        _until(swapped, "both workers to swap every machine", 240, step=0.2)
+        text = _request(pool.base + "/metrics")[1].decode()
+        result = {"hot_swaps": dict(sums), "answers": dict(answers),
+                  "late_drain": fourth["seconds"], "late_revision": fourth["revision"],
+                  "workers": _drift_metrics(text, "gordo_server_fleet_workers"),
+                  "requests": len(statuses), "statuses": sorted(set(statuses))}
+        if any(s >= 500 for s in statuses) or any(v != 2.0 for v in sums.values()):
+            raise AssertionError(f"the pool's swaps: {result}")
+    finally:
+        result["exit"] = pool.stop()
+    return result
+
+
+def drift_path(card: str, root: Path, device: str = "cuda", built: tuple = None) -> dict:
+    """The self-healing drift loop on the card (module docstring, step 22):
+    DRIFT_MACHINES transformer-ae-512 float32 machines built by
+    ``batch-build`` with the register (``built``: the output and register of
+    :func:`cli_batch_build`, whose first machines are these; else built
+    here), served in-process with the detector and the hot swap on; two
+    drift, are enqueued once, rebuilt warm by ``drift-rebuilder --once`` in
+    a subprocess and swapped in under load; a third's swap takes one
+    injected failure; a ``run-server`` pool swaps them all and a fourth that
+    lands while it serves. Returns the numbers and the launches: the
+    in-process steps' from the wrappers' counters, the rebuilder's from its
+    own."""
+    import torch
+
+    from gordo_tpu_torch.builder import drift_rebuild
+    from gordo_tpu_torch.builder.build_model import ModelBuilder
+    from gordo_tpu_torch.models.anomaly.diff import TimeSeriesSplit
+    from gordo_tpu_torch.models.models import TransformerAutoEncoder
+    from gordo_tpu_torch.models.spec import TransformerBlock
+    from gordo_tpu_torch.observability import drift, shared
+    from gordo_tpu_torch.ops import flash_attention as fa
+    from gordo_tpu_torch.ops.predict import n_train_samples
+    from gordo_tpu_torch.parallel import batch_trainer as bt
+    from gordo_tpu_torch.server import batcher, hotswap
+    from gordo_tpu_torch.util import disk_registry, faults
+    from gordo_tpu_torch.workflow.normalized_config import NormalizedConfig
+
+    started = time.perf_counter()
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    configs = fleet_configs()[:DRIFT_MACHINES]
+    names = [c["name"] for c in configs]
+    drifted, faulted = names[:2], names[2]
+    config_file = root / "fleet.json"
+    config_file.write_text(json.dumps({"machines": configs}))
+    collection, register, queue = root / "rev-initial", root / "register", root / "queue"
+    machines = NormalizedConfig({"machines": configs}, project_name=DRIFT_PROJECT).machines
+    spec = TransformerAutoEncoder(**CONFIG).build_spec(len(TAGS), len(TAGS))
+    n_blocks = sum(isinstance(layer, TransformerBlock) for layer in spec.layers)
+    n_rows = _config_rows(configs[0])
+    steps = sum(math.ceil(n_train_samples(spec, len(train)) / BATCH)
+                for train, _ in TimeSeriesSplit(3).split(np.zeros(n_rows)))
+    steps += math.ceil(n_train_samples(spec, n_rows) / BATCH)
+
+    # the kernels at this path's shapes against their twins: the rebuild's
+    # stacked step (2 machines x batch 32 x 4 heads) and a fused call of the
+    # users' 600-row requests (128 windows each)
+    gates = {}
+    if device == "cuda":
+        g = torch.Generator(device="cuda").manual_seed(SEED + 43)
+        for label, shape in (("rebuild", (len(drifted) * BATCH * 4, 512, 64)),
+                             ("served", (DRIFT_USERS * 128 * 4, 512, 64))):
+            q, k, v, do = (torch.randn(shape, device="cuda", generator=g) for _ in range(4))
+            o, lse = fa.flash_attention_forward(q, k, v, True)
+            gates[label] = {"shape": list(shape), **twin_gates(q, k, v, do, o, lse)}
+            del q, k, v, do, o, lse
+        _release(device)
+        print(f"drift path kernels against their plain twins on {card}: {gates}", flush=True)
+
+    # 1. the initial revision: batch-build with the register (the fleet
+    # path's, when it ran: its register holds the warm keys)
+    t0 = time.perf_counter()
+    if built is None:
+        command = [sys.executable, "-m", "gordo_tpu_torch", "--log-level", "WARNING",
+                   "batch-build", str(config_file), str(collection), "--project-name",
+                   DRIFT_PROJECT, "--model-register-dir", str(register)]
+        if device != "cuda":
+            command += ["--device", device]
+        result = subprocess.run(command, cwd=REPO, capture_output=True, text=True, timeout=600,
+                                env={**os.environ, "PYTHONPATH": str(REPO)})
+        lines = [line for line in result.stdout.splitlines() if line.startswith("built: ")]
+        if result.returncode != 0 or len(lines) != DRIFT_MACHINES:
+            print(result.stderr[-4000:], file=sys.stderr)
+            raise AssertionError(f"the drift fleet's batch-build exited {result.returncode}")
+    else:
+        collection.mkdir()
+        for name in names:
+            os.symlink(built[0] / name, collection / name)
+        register = built[1]
+    initial_s = time.perf_counter() - t0
+    for machine in machines:
+        if not str(disk_registry.get_value(str(register), ModelBuilder.calculate_warm_key(
+                machine))).startswith(str(collection.resolve() if built is None else built[0])):
+            raise AssertionError(f"{machine.name}: the register holds no warm key for it")
+
+    rng = np.random.RandomState(SEED + 41)
+    values = {name: _provider_continuation(n_rows, BATCHER_ROWS, rng, FLEET_TAGS[m])
+              for m, name in enumerate(names)}
+    variants = {name: [(value * s).astype(np.float32) for s in DRIFT_VARIANTS]
+                for name, value in values.items()}
+    bodies = {name: [_rect_body(x) for x in xs] for name, xs in variants.items()}
+    drifted_bodies = {name: _rect_body(variants[name][1] * DRIFT_SCALE) for name in names}
+    old_hashes = {name: _param_sha256(collection / name) for name in drifted}
+    saved = {knob: os.environ.get(knob) for knob in DRIFT_KNOBS}
+    try:
+        for knob in DRIFT_KNOBS:
+            os.environ.pop(knob, None)
+        os.environ.update(
+            GORDO_TPU_SERVING_BATCH="1", GORDO_TPU_DRIFT_DETECT="1",
+            GORDO_TPU_DRIFT_MIN_SAMPLES=str(DRIFT_MIN_SAMPLES),
+            GORDO_TPU_DRIFT_QUEUE_DIR=str(queue), GORDO_TPU_HOT_SWAP="1",
+            GORDO_TPU_HOT_SWAP_POLL_S=str(DRIFT_POLL_S), GORDO_TPU_DEBUG_ENDPOINTS="1",
+            GORDO_TPU_TELEMETRY_DIR=str(root / "telemetry"))
+        drift.reset()
+        hotswap.reset_for_tests()
+        shared.reset_for_tests()
+        faults.reset_plan()
+        batcher.reset_batcher()
+        _reset_launches()
+        with _PlainAttentionCalls() as plain:
+            served = _drift_served(root, register, names, bodies, drifted_bodies, config_file,
+                                   machines, device)
+            drain = served["rebuild"]["report"]["drains"][0]
+            expected = {n: drain["revision"] for n in drifted}
+            expected[faulted] = served["fault"]["revision"]
+            pool = _drift_pool(root, register, names, bodies, machines, expected, device)
+        launches, other = _launches("float32"), _launches("bfloat16")
+    finally:
+        for knob, value in saved.items():
+            if value is None:
+                os.environ.pop(knob, None)
+            else:
+                os.environ[knob] = value
+        shared.reset_for_tests()
+        faults.reset_plan()
+        drift.reset()
+    load = served["load"]
+    child = served["rebuild"]["report"]
+    revision = drain["revision"]
+    rev_dir = root / revision
+
+    # step 4's gates, on what the rebuilder left
+    programs = child["programs"]
+    requests = {n: json.loads((queue / "done" / f"{n}.g1.json").read_text()) for n in drifted}
+    windows = {}
+    for name in drifted:
+        dataset = json.loads((rev_dir / name / "metadata.json").read_text())["dataset"]
+        start, end = (datetime.fromisoformat(str(dataset[k]))
+                      for k in ("train_start_date", "train_end_date"))
+        windows[name] = {"end_minus_detection_s": end.timestamp() - requests[name]["detected_at"],
+                         "rows": (end - start) // timedelta(minutes=10)}
+    metrics = served["rebuild"]["metrics"]
+    rebuild_gates = {
+        "built": drain["built"] == sorted(drifted) and drain["failed"] == [],
+        "revision_holds": sorted(os.listdir(rev_dir)) == sorted(
+            [*drifted, drift_rebuild.COMPLETE_MARKER]),
+        "warm_starts": _drift_metrics(metrics, "gordo_build_warm_starts_total") == {
+            "": float(len(drifted))},
+        "drift_rebuilds": _drift_metrics(metrics, "gordo_build_drift_rebuilds_total") == {
+            n: 1.0 for n in drifted},
+        "windows": all(abs(w["end_minus_detection_s"]) < 1e-3 and w["rows"] == n_rows
+                       for w in windows.values()),
+        "one_bucket": [p["machines"] for p in programs] == [len(drifted)],
+        "launches_per_block_step": child["launches"]["dq"] == child["launches"]["dkv"]
+        == n_blocks * steps,
+        "no_plain_attention": child["plain_calls"] == 0 and not any(
+            child["bf16_launches"].values()),
+        "initial_params_bit_equal": all(
+            stage[m] == old_hashes[name] for p in programs for stage in p["init_sha256"]
+            for m, name in enumerate(sorted(drifted))),
+    }
+
+    # the first epoch against a cold start from the same seeds (after the
+    # counters were read: a comparison, not the path)
+    refreshed = [drift_rebuild._refreshed_machine(m, requests[m.name]) for m in machines
+                 if m.name in drifted]
+    cold_losses: list = []
+    run_bucket = bt.run_bucket
+
+    def recorded(spec, X, y, stages, epochs, *args, **kwargs):
+        model, losses, preds = run_bucket(spec, X, y, stages, epochs, *args, **kwargs)
+        cold_losses.append(losses[:, 0].tolist())
+        return model, losses, preds
+
+    bt.run_bucket = recorded
+    try:
+        bt.BatchedModelBuilder(refreshed, serial_fallback=False, device=device,
+                               warm_start=False).build()
+    finally:
+        bt.run_bucket = run_bucket
+    warm_first = programs[0]["first_epoch_losses"]
+    rebuild_gates["warm_below_cold"] = all(w < c for w, c in zip(warm_first, cold_losses[0]))
+
+    # the answers: each against its artifact's direct predict, those in
+    # flight at the cutover against either, those after it against the new
+    # artifact on the plain attention
+    trees = {"rev-initial": collection, revision: rev_dir,
+             served["fault"]["revision"]: root / served["fault"]["revision"]}
+    refs = {rev: _drift_references(path, [n for n in names if (path / n).is_dir()], variants,
+                                   device) for rev, path in trees.items()}
+    plain_refs = _drift_references(rev_dir, drifted, variants, device, plain=True)
+    flips = {s["machine"]: s["flipped_at"] for s in served["swaps"]}
+    answers = {"5xx": 0, "checked": 0, "max_rel_err": 0.0, "in_flight": 0,
+               "in_flight_max_rel_err": 0.0, "after_swap": 0, "after_swap_vs_plain": 0.0}
+    records = sorted(load.records, key=lambda r: r[1])
+    for sent, received, name, variant, status, revision_of, output, ms in records:
+        answers["5xx"] += status >= 500
+        if status != 200 or variant is None:
+            continue
+        answers["checked"] += 1
+        answers["max_rel_err"] = max(answers["max_rel_err"],
+                                     _max_rel([output], [refs[revision_of][name][variant]]))
+        if name in flips and sent < flips[name] < received:
+            answers["in_flight"] += 1
+            either = min(_max_rel([output], [refs[r][name][variant]])
+                         for r in ("rev-initial", revision))
+            answers["in_flight_max_rel_err"] = max(answers["in_flight_max_rel_err"], either)
+        if name in flips and sent > flips[name]:
+            answers["after_swap"] += 1
+            answers["after_swap_vs_plain"] = max(answers["after_swap_vs_plain"],
+                                                 _max_rel([output], [plain_refs[name][variant]]))
+    sequences = {name: load.revisions(name) for name in names}
+    flip = min(flips.values())
+    before = [r[7] for r in records if flip - DRIFT_WINDOW_S <= r[0] < flip and r[4] == 200]
+    around = [r[7] for r in records
+              if flip - DRIFT_WINDOW_S / 2 <= r[0] < flip + DRIFT_WINDOW_S / 2 and r[4] == 200]
+    first_after = next(r for r in records if r[2] in flips and r[0] >= flips[r[2]])
+    answer_gates = {
+        "no_5xx": answers["5xx"] == 0,
+        "right_artifact": answers["max_rel_err"] <= TOL_OUT_REL,
+        "in_flight_either": answers["in_flight_max_rel_err"] <= TOL_OUT_REL,
+        "after_swap_plain": answers["after_swap"] > 0
+        and answers["after_swap_vs_plain"] <= TOL_MODEL_REL,
+        "sequences": all(sequences[n] == ["rev-initial", revision] for n in drifted)
+        and sequences[faulted] == ["rev-initial", served["fault"]["revision"]]
+        and sequences[names[3]] == ["rev-initial"],
+    }
+    result = {
+        "initial_build_s": initial_s, "warmup_s": served["warmup_s"],
+        "detection_requests": served["detection_requests"], "agree": served["agree"],
+        "drain_s": {"subprocess": served["rebuild"]["seconds"], **drain["seconds"]},
+        "swaps": [{k: s[k] for k in ("machine", "preload_ms", "warm_ms", "bank_ms", "flip_ms",
+                                      "swapped")} for s in served["swaps"]],
+        "latency_before_swap": _percentiles(before), "latency_around_swap": _percentiles(around),
+        "first_after_flip_ms": first_after[7], "bank": served["bank"],
+        "recalibrate_s": served["recalibrate_s"], "fault": served["fault"], "pool": pool,
+        "answers": answers, "sequences": sequences, "windows": windows,
+        "warm_first_epoch": warm_first, "cold_first_epoch": cold_losses[0],
+        "rebuild_launches": child["launches"], "stacked_steps": steps, "twin_gates": gates,
+        "served_launches": launches, "plain_calls": plain.calls, "requests": len(records),
+        "gates": {**rebuild_gates, **answer_gates}, "phase_s": time.perf_counter() - started,
+    }
+    print(f"drift path on {card}: {json.dumps(result, default=str)}", flush=True)
+    failed = [k for k, v in result["gates"].items() if not v]
+    if failed or plain.calls or any(other.values()) or not all(launches.values()):
+        raise AssertionError(f"the drift path's gates {failed}, plain attention {plain.calls}, "
+                             f"launches {launches}, bf16 {other}")
+    result["launches"] = {key: launches[key] + child["launches"][key]
+                          for key in ("forward", "dq", "dkv")}
+    return result
+
+
 def main() -> int:
     import torch
 
@@ -6458,6 +7152,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     resilient = resilience_path(card, REPO / "build" / "chip_smoke_resilience", batcher_root)
     torch.cuda.empty_cache()
+    drifting = drift_path(card, REPO / "build" / "chip_smoke_drift",
+                          built=(fleet_root / "fleet-cli", fleet_root / "fleet-cli-register"))
+    torch.cuda.empty_cache()
 
     forward["launches_by_path"] = {"serving": serving, "server_surface": base_route,
                                    "batcher": batched["launches"],
@@ -6493,6 +7190,8 @@ def main() -> int:
                                         if key != "launches"}}, default=str))
     print(json.dumps({"resilience": {key: value for key, value in resilient.items()
                                      if key != "launches"}}, default=str))
+    print(json.dumps({"drift": {key: value for key, value in drifting.items()
+                                if key != "launches"}}, default=str))
     for entry, key, launches, fleet_launches in (
             (dq, "dq", build, fleet), (dkv, "dkv", build, fleet),
             (bf16_dq, "dq", bf16_build, bf16_fleet), (bf16_dkv, "dkv", bf16_build, bf16_fleet)):
@@ -6511,6 +7210,10 @@ def main() -> int:
     # launches and the pool's from its workers' device traces
     for entry, dtype in ((forward, "float32"), (bf16_forward, "bfloat16")):
         entry["launches_by_path"]["resilience"] = resilient["launches"][dtype]
+    # the drift loop's: served, warmed and rebuilt in this process and the
+    # rebuilder's subprocess, float32
+    for entry, key in ((forward, "forward"), (dq, "dq"), (dkv, "dkv")):
+        entry["launches_by_path"]["drift"] = drifting["launches"][key]
     dh16_entries = moe_entries(entries, moe)
     for entry in entries:
         entry["fleet_shape"] = fleet_times[entry["name"]]

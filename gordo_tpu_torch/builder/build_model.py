@@ -295,6 +295,27 @@ class ModelBuilder:
         )
         return hashlib.sha3_512(json_rep.encode("ascii")).hexdigest()
 
+    @staticmethod
+    def calculate_warm_key(machine: Machine) -> str:
+        """The warm-start fingerprint: :meth:`calculate_cache_key` with the
+        dataset config left out, ``"warm-"`` first so the two key spaces
+        never collide in one register. Two revisions of a machine share it
+        exactly when only their data moved, the condition under which the
+        fleet trainer starts from the prior artifact's parameters."""
+        json_rep = json.dumps(
+            {
+                "name": machine.name,
+                "model_config": machine.model,
+                "evaluation_config": machine.evaluation,
+                "gordo-major-version": MAJOR_VERSION,
+                "gordo-minor-version": MINOR_VERSION,
+                "gordo_version": __version__ if IS_UNSTABLE_VERSION else "",
+            },
+            sort_keys=True,
+            default=str,
+        )
+        return "warm-" + hashlib.sha3_512(json_rep.encode("ascii")).hexdigest()
+
     def check_cache(self, model_register_dir: Union[os.PathLike, str]) -> Optional[str]:
         """The cached artifact's path, if the register has one that exists."""
         location = disk_registry.get_value(model_register_dir, self.cache_key)

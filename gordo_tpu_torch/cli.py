@@ -20,6 +20,19 @@ fault with the code of its exception. ``--trace-file`` (or
 them as Chrome trace-event JSON; ``--metrics-file`` (or
 ``GORDO_TPU_METRICS_FILE``) writes the metric catalog as a Prometheus
 textfile; both are written on every exit path, a partial build's included.
+``--warm-start/--no-warm-start`` (``GORDO_TPU_WARM_START``, default on)
+lets a machine whose cache key misses start from the artifact its warm key
+names in ``--model-register-dir``. ``--drain-drift-queue`` builds, instead
+of the whole config, the machines with a pending request in the drift queue
+(``--drift-queue-dir``, ``GORDO_TPU_DRIFT_QUEUE_DIR``), their data windows
+slid to the detection time, into a delta revision under ``OUTPUT_DIR``
+(builder/drift_rebuild.py).
+
+``drift-rebuilder CONFIG_FILE --queue-dir DIR`` drains the drift queue into
+delta revisions under ``--output-dir`` (warm starts from
+``--model-register-dir``) every ``--poll-interval`` seconds, or once with
+``--once``; on the card it builds the kernels before its first drain;
+``--metrics-file`` writes the catalog after each drain.
 
 ``run-server`` serves the artifacts of ``MODEL_COLLECTION_DIR`` on
 ``--host`` and ``--port`` (``GORDO_SERVER_HOST``, ``GORDO_SERVER_PORT``)
@@ -113,11 +126,14 @@ def build(machine_config: dict, output_dir: str, model_register_dir: Optional[st
 def batch_build(config_file: str, output_dir: str, project_name: str = "batch",
                 machines: str = "", model_register_dir: Optional[str] = None,
                 serial_fallback: bool = True, fail_fast: bool = False, device=None,
-                trace_file: Optional[str] = None, metrics_file: Optional[str] = None) -> int:
+                trace_file: Optional[str] = None, metrics_file: Optional[str] = None,
+                warm_start: Optional[bool] = None, drain_drift_queue: bool = False,
+                drift_queue_dir: Optional[str] = None) -> int:
     """Build the config's machines (or the comma-separated ``machines`` of
-    it) as a fleet; returns the exit code. ``trace_file`` and
-    ``metrics_file`` receive the build's telemetry, written whatever the
-    build's outcome."""
+    it) as a fleet, or with ``drain_drift_queue`` those of them the drift
+    queue asks for, into a delta revision; returns the exit code.
+    ``trace_file`` and ``metrics_file`` receive the build's telemetry,
+    written whatever the build's outcome."""
     from .observability import telemetry
 
     if trace_file:
@@ -127,7 +143,8 @@ def batch_build(config_file: str, output_dir: str, project_name: str = "batch",
         telemetry.enable_spans()
     try:
         return _batch_build(config_file, output_dir, project_name, machines,
-                            model_register_dir, serial_fallback, fail_fast, device)
+                            model_register_dir, serial_fallback, fail_fast, device, warm_start,
+                            drain_drift_queue, drift_queue_dir)
     finally:
         _flush_telemetry(trace_file, metrics_file)
 
@@ -151,24 +168,48 @@ def _flush_telemetry(trace_file: Optional[str], metrics_file: Optional[str]) -> 
         logger.exception("telemetry export failed")
 
 
-def _batch_build(config_file: str, output_dir: str, project_name: str, machines: str,
-                 model_register_dir: Optional[str], serial_fallback: bool, fail_fast: bool,
-                 device) -> int:
-    from .parallel.batch_trainer import BatchedModelBuilder
+def _project_machines(config_file: str, project_name: str) -> list:
     from .workflow.normalized_config import NormalizedConfig
 
     with open(config_file) as f:
         config = json.load(f)
-    selected = NormalizedConfig(config, project_name=project_name).machines
+    return NormalizedConfig(config, project_name=project_name).machines
+
+
+def _batch_build(config_file: str, output_dir: str, project_name: str, machines: str,
+                 model_register_dir: Optional[str], serial_fallback: bool, fail_fast: bool,
+                 device, warm_start: Optional[bool], drain_drift_queue: bool,
+                 drift_queue_dir: Optional[str]) -> int:
+    from .parallel.batch_trainer import BatchedModelBuilder
+
+    selected = _project_machines(config_file, project_name)
     wanted = {name.strip() for name in machines.split(",") if name.strip()}
     if wanted:
         missing = wanted - {m.name for m in selected}
         if missing:
             raise ValueError(f"--machines names not in config: {sorted(missing)}")
         selected = [m for m in selected if m.name in wanted]
+    if drain_drift_queue:
+        if not drift_queue_dir:
+            raise ValueError("--drain-drift-queue needs --drift-queue-dir "
+                             "(or GORDO_TPU_DRIFT_QUEUE_DIR)")
+        from .builder import drift_rebuild
+
+        report = drift_rebuild.drain_drift_queue(
+            selected, drift_queue_dir, output_dir, model_register_dir=model_register_dir,
+            warm_start=warm_start, serial_fallback=serial_fallback, fail_fast=fail_fast,
+            device=device)
+        for name in report["built"]:
+            print(f"drift-rebuilt: {name} -> "
+                  f"{os.path.join(output_dir, report['revision'], name)}")
+        if report["failed"]:
+            print(f"drift rebuild failed: {report['failed']}", file=sys.stderr)
+            return EXIT_PARTIAL if report["built"] else EXIT_NONE_BUILT
+        return 0
     builder = BatchedModelBuilder(
         selected, serial_fallback=serial_fallback, output_dir=output_dir,
         model_register_dir=model_register_dir, fail_fast=fail_fast, device=device,
+        warm_start=warm_start,
     )
     results = builder.build()
     for _, machine_out in results:
@@ -180,6 +221,42 @@ def _batch_build(config_file: str, output_dir: str, project_name: str, machines:
     if builder.quarantine_records:
         return EXIT_PARTIAL if results else EXIT_NONE_BUILT
     return 0
+
+
+def drift_rebuilder(config_file: str, queue_dir: str, output_dir: str,
+                    model_register_dir: Optional[str] = None, project_name: str = "batch",
+                    once: bool = False, poll_interval: float = 30.0, device=None,
+                    metrics_file: Optional[str] = None) -> int:
+    """Drain the drift queue into warm-start delta rebuilds, every
+    ``poll_interval`` seconds or ``once``; the kernels are built on the card
+    before the first drain. ``metrics_file`` receives the metric catalog as
+    a Prometheus textfile after every drain that built or failed."""
+    import time
+
+    from . import resolve_device
+    from .builder import drift_rebuild
+    from .parallel import drift_queue
+
+    if resolve_device(device).type == "cuda":
+        from .ops import _build
+
+        _build.build_all()
+    machines = _project_machines(config_file, project_name)
+    while True:
+        if drift_queue.depth(queue_dir):
+            try:
+                report = drift_rebuild.drain_drift_queue(
+                    machines, queue_dir, output_dir, model_register_dir=model_register_dir,
+                    device=device)
+            finally:
+                _flush_telemetry(None, metrics_file)
+            if report["built"] or report["failed"]:
+                seconds = ", ".join(f"{k} {v:.3f} s" for k, v in report["seconds"].items())
+                print(f"drift drain: built={report['built']} failed={report['failed']} "
+                      f"revision={report['revision']} ({seconds})", flush=True)
+        if once:
+            return 0
+        time.sleep(poll_interval)
 
 
 def _env_flag(name: str, default: bool) -> bool:
@@ -236,6 +313,41 @@ def _parser() -> argparse.ArgumentParser:
     fleet_cmd.add_argument("--metrics-file", default=os.environ.get("GORDO_TPU_METRICS_FILE"),
                            help="write the build's telemetry metrics as a Prometheus "
                                 "textfile to this path")
+    fleet_cmd.add_argument(
+        "--warm-start", action=argparse.BooleanOptionalAction,
+        default=_env_flag("GORDO_TPU_WARM_START", True),
+        help="a machine whose cache key misses but whose config matches a registered "
+             "artifact (only its data moved) starts from that artifact's parameters "
+             "(default: on)")
+    fleet_cmd.add_argument("--drain-drift-queue", action="store_true",
+                           help="build only the machines with a pending drift request "
+                                "(--drift-queue-dir), their data windows slid to the detection "
+                                "time, into a delta revision under OUTPUT_DIR")
+    fleet_cmd.add_argument("--drift-queue-dir",
+                           default=os.environ.get("GORDO_TPU_DRIFT_QUEUE_DIR"),
+                           help="the drift queue the servers enqueue into")
+    drift_cmd = commands.add_parser("drift-rebuilder", help=drift_rebuilder.__doc__)
+    drift_cmd.add_argument("config_file", nargs="?", default=os.environ.get("CONFIG_FILE"),
+                           help="the project config, JSON (default: $CONFIG_FILE)")
+    drift_cmd.add_argument("--queue-dir", default=os.environ.get("GORDO_TPU_DRIFT_QUEUE_DIR"),
+                           help="the drift queue the servers enqueue into "
+                                "(default: $GORDO_TPU_DRIFT_QUEUE_DIR)")
+    drift_cmd.add_argument("--output-dir", default=os.environ.get("OUTPUT_DIR", "/data"),
+                           help="where the delta revisions go: the parent of the served "
+                                "collection (default: $OUTPUT_DIR or /data)")
+    drift_cmd.add_argument("--model-register-dir", default=os.environ.get("MODEL_REGISTER_DIR"),
+                           help="the register the warm starts read; without it the rebuilds "
+                                "start cold")
+    drift_cmd.add_argument("--project-name", default=os.environ.get("PROJECT_NAME", "batch"))
+    drift_cmd.add_argument("--once", action="store_true",
+                           help="one drain pass instead of polling for ever")
+    drift_cmd.add_argument("--poll-interval", type=float,
+                           default=float(os.environ.get("GORDO_TPU_DRIFT_POLL_S", "30")),
+                           help="seconds between queue polls (default 30)")
+    drift_cmd.add_argument("--device", default=None, help="cuda (default) or cpu")
+    drift_cmd.add_argument("--metrics-file", default=os.environ.get("GORDO_TPU_METRICS_FILE"),
+                           help="write the metric catalog as a Prometheus textfile to this "
+                                "path after each drain")
     server_cmd = commands.add_parser("run-server", help="Serve MODEL_COLLECTION_DIR's models")
     server_cmd.add_argument("--host", default=os.environ.get("GORDO_SERVER_HOST", "0.0.0.0"))
     server_cmd.add_argument("--port", type=int,
@@ -295,7 +407,16 @@ def main(argv: Optional[List[str]] = None) -> int:
             return batch_build(args.config_file, args.output_dir, args.project_name,
                                args.machines, args.model_register_dir,
                                not args.no_serial_fallback, args.fail_fast, args.device,
-                               args.trace_file, args.metrics_file)
+                               args.trace_file, args.metrics_file, args.warm_start,
+                               args.drain_drift_queue, args.drift_queue_dir)
+        if args.command == "drift-rebuilder":
+            if args.config_file is None:
+                raise ValueError("no config file: give it as an argument or in $CONFIG_FILE")
+            if not args.queue_dir:
+                raise ValueError("no queue: give --queue-dir or $GORDO_TPU_DRIFT_QUEUE_DIR")
+            return drift_rebuilder(args.config_file, args.queue_dir, args.output_dir,
+                                   args.model_register_dir, args.project_name, args.once,
+                                   args.poll_interval, args.device, args.metrics_file)
         if args.machine_config is None:
             raise ValueError("no machine config: give it as an argument or in $MACHINE")
         build(json.loads(args.machine_config), args.output_dir, args.model_register_dir,

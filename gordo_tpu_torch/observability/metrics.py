@@ -32,11 +32,16 @@ Who feeds what in the port:
   ``SERVER_DEADLINE_EXCEEDED``, ``BREAKER_STATE``, ``BREAKER_OPENS``,
   ``BREAKER_FAST_FAILURES`` and ``WATCHDOG_TRIPS``;
 - observability/attribution.py and sentinel.py: ``PHASE_P50``,
-  ``PHASE_P99``, ``PERF_REGRESSIONS`` and ``SENTINEL_CUSUM``.
+  ``PHASE_P99``, ``PERF_REGRESSIONS`` and ``SENTINEL_CUSUM``;
+- the drift loop: ``DRIFT_EVENTS``, ``DRIFTED_MODELS`` and
+  ``DRIFT_QUEUE_DEPTH`` (observability/drift.py), ``WARM_STARTS``
+  (parallel/batch_trainer.py), ``DRIFT_REBUILDS``
+  (builder/drift_rebuild.py), ``HOT_SWAPS`` and ``HOT_SWAP_FAILURES``
+  (server/hotswap.py).
 
-Registered and not fed yet, by the ROADMAP.md item that feeds them: drift,
-hot swaps and warm starts (A9's drift half); the gateway and the chaos
-drills (A3); fault and bucket retries (A10); the elastic scheduler (A7).
+Registered and not fed yet, by the ROADMAP.md item that feeds them: the
+gateway and the chaos drills (A3); fault and bucket retries (A10); the
+elastic scheduler (A7).
 With no counterpart
 in the port, because it compiles nothing: the XLA persistent cache
 (``XLA_CACHE_*``), the bucket-program jit cache (``PROGRAM_CACHE``,

@@ -46,9 +46,19 @@ hand-written kernel (Dense, TCN) loads none.
 (util/profiling.py). The catalog's machines by outcome, quarantines by
 stage, OOM bisections and serial fallbacks are counted where they happen.
 
-Not ported yet (ROADMAP.md items A7, A9 and A10): the elastic scheduler and
-multi-host fleets, warm starts, the retry ladder and fault injection, and
-the drift queue.
+Warm starts (a delta rebuild of a drifted machine), as the JAX builder
+makes them: every machine is registered under its cache key and under its
+warm key (``ModelBuilder.calculate_warm_key``, the cache key without the
+dataset config); a machine whose cache key misses and whose warm key names
+an artifact whose layers have the names and shapes ``init_model_params``
+gives its spec starts every stage, each CV fold and the final fit, from that
+artifact's parameters instead of ``draw_inputs``' initial ones (its sample
+orders are the cold build's). Warm and cold machines bucket apart, as in
+the JAX builder; ``gordo_build_warm_starts_total`` counts the warm ones.
+``warm_start`` is on unless ``GORDO_TPU_WARM_START=0``.
+
+Not ported yet (ROADMAP.md items A7 and A10): the elastic scheduler and
+multi-host fleets, the retry ladder and fault injection.
 """
 
 import contextlib
@@ -159,10 +169,14 @@ class _Plan:
     target_columns: Optional[List[str]] = None
     query_duration: float = 0.0
     dataset_meta: Dict[str, Any] = field(default_factory=dict)
+    # a warm start: the prior artifact's parameters (numpy, one dict a
+    # layer), every stage's initial parameters in place of draw_inputs'
+    warm_params: Optional[List[Dict[str, np.ndarray]]] = None
 
     def bucket_key(self) -> Tuple:
+        # warm and cold machines bucket apart, as in the JAX builder
         return (self.spec, len(self.X), self.epochs, self.batch_size, self.shuffle,
-                self.scale_x, self.n_splits, self.cv)
+                self.scale_x, self.n_splits, self.cv, self.warm_params is not None)
 
 
 def _plan_machine(machine: Machine) -> Optional[_Plan]:
@@ -489,13 +503,19 @@ class BatchedModelBuilder:
     written into ``{output_dir}/{name}`` and registered under its cache key
     as soon as its chunk is done; a machine the register already has is
     loaded instead of trained, unless ``replace_cache``. ``fail_fast``: the
-    first fault raises instead of quarantining the machine."""
+    first fault raises instead of quarantining the machine. ``warm_start``
+    (default: on unless ``GORDO_TPU_WARM_START=0``): a machine whose cache
+    key misses starts from the artifact its warm key names (module
+    docstring)."""
 
     def __init__(self, machines: List[Machine], serial_fallback: bool = True,
                  chunk_size: int = 64, output_dir: Optional[str] = None,
                  model_register_dir: Optional[str] = None, replace_cache: bool = False,
-                 fail_fast: bool = False, device=None):
+                 fail_fast: bool = False, device=None, warm_start: Optional[bool] = None):
         self.machines = machines
+        if warm_start is None:
+            warm_start = os.environ.get("GORDO_TPU_WARM_START", "") != "0"
+        self.warm_start = bool(warm_start)
         self.serial_fallback = serial_fallback
         self.chunk_size = max(1, chunk_size)
         self.output_dir = output_dir
@@ -563,6 +583,7 @@ class BatchedModelBuilder:
                     raise error
                 self._quarantine(plans[i].machine, STAGE_DATA_VALIDATION, "non_finite_data", bad)
                 del plans[i]
+        self._attach_warm_params(plans)
 
         buckets: Dict[Tuple, List[int]] = {}
         for i, plan in plans.items():
@@ -654,6 +675,54 @@ class BatchedModelBuilder:
         if self.model_register_dir:
             disk_registry.write_key(self.model_register_dir,
                                     ModelBuilder.calculate_cache_key(machine), model_dir)
+            # a later build whose cache key misses (only its data moved)
+            # finds this artifact by its warm key and starts from it
+            disk_registry.write_key(self.model_register_dir,
+                                    ModelBuilder.calculate_warm_key(machine), model_dir)
+
+    def _maybe_warm_params(self, machine: Machine, spec: ModelSpec):
+        """The prior artifact's parameters for a warm start, or None: no
+        register or warm key, an artifact that does not load, or layers
+        whose names or shapes differ from ``init_model_params(spec)`` (the
+        premise that only the data moved failed: a cold start is safe)."""
+        if not self.warm_start or not self.model_register_dir:
+            return None
+        path = disk_registry.get_value(self.model_register_dir,
+                                       ModelBuilder.calculate_warm_key(machine))
+        if not path or not os.path.isdir(path):
+            return None
+        try:
+            inner = serializer.load(path, "cpu")
+            if isinstance(inner, DiffBasedAnomalyDetector):
+                inner = inner.base_estimator
+            if isinstance(inner, Pipeline):
+                inner = inner.steps[-1][1]
+            params = inner.module_.params_numpy()
+        except Exception:  # noqa: BLE001 -- a corrupt prior artifact costs the warm start only
+            return None
+        reference = init_model_params(spec, torch.Generator().manual_seed(0))
+        if len(params) != len(reference):
+            return None
+        for layer, ref in zip(params, reference):
+            if sorted(layer) != sorted(ref) or any(
+                    tuple(layer[name].shape) != tuple(value.shape) for name, value in ref.items()):
+                return None
+        return [{name: np.asarray(value, np.float32) for name, value in layer.items()}
+                for layer in params]
+
+    def _attach_warm_params(self, plans: Dict[int, "_Plan"]) -> None:
+        """Each plan's warm parameters (:meth:`_maybe_warm_params`); the warm
+        machines are counted in ``gordo_build_warm_starts_total``."""
+        if not self.warm_start or not self.model_register_dir:
+            return
+        n_warm = 0
+        for plan in plans.values():
+            plan.warm_params = self._maybe_warm_params(plan.machine, plan.spec)
+            n_warm += plan.warm_params is not None
+        if n_warm:
+            metric_catalog.WARM_STARTS.inc(n_warm)
+            logger.info("warm-start delta rebuild: %d of %d machines start from their prior "
+                        "artifact's parameters", n_warm, len(plans))
 
     # ------------------------------------------------------------- buckets
     def _build_bucket_guarded(self, bucket: List[_Plan], idxs: List[int], device):
@@ -738,6 +807,9 @@ class BatchedModelBuilder:
         with telemetry.span("train", _PHASE_TRAIN, bucket=bucket, machines=len(group)):
             inits, orders = draw_inputs([_machine_seed(p.machine) for p in group], plan0.spec,
                                         stages, plan0.epochs, plan0.shuffle)
+            if plan0.warm_params is not None:
+                # every stage, each fold and the fit, from the prior parameters
+                inits = [stack_params([p.warm_params for p in group])] * len(stages)
             model, losses, fold_preds = run_bucket(
                 plan0.spec, np.stack([p.X for p in group]), np.stack([p.y for p in group]),
                 stages, plan0.epochs, plan0.scale_x, inits, orders, device, perms)

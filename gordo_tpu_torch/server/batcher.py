@@ -90,6 +90,16 @@ whole group, at BH = (windows summed over the group) x heads.
   matched against the riders' models. :meth:`CrossModelBatcher.register_params`
   writes a model into its spec's bank ahead of traffic (server/warmup.py).
 
+- Hot swap (server/hotswap.py): :meth:`CrossModelBatcher.swap_params`
+  writes a rebuilt model's parameters over the old artifact's slot in
+  place, on the dispatcher's stream, with no restack and no change of
+  capacity (``_ParamBank.replace``). A fused call resolves its riders' slots
+  and reads the bank's ``generation`` before staging; if a replacement or
+  eviction lands before its gather is enqueued, the generation has moved
+  when the call checks it after the launch, and the group goes back to the
+  retry ladder, where each rider resolves its own model again. A
+  replacement enqueued after the gather runs after it on the stream.
+
 Not ported here: ``load_shipped``/``prelower`` with the AOT programs they
 install (A10). Tests read the plain attributes beside the catalog:
 ``stats``, ``calls``, ``spec_calls`` (fused calls by spec) and each bank's
@@ -281,6 +291,17 @@ def _discard_waiter() -> None:
 _forward_begin = threading.local()
 
 
+def _check_generation(bank: "_ParamBank", gen: int) -> None:
+    """Raise into the retry ladder when a slot of ``bank`` was replaced or
+    evicted since the group's slots were resolved at generation ``gen``:
+    the gather, already enqueued, may have read another model's
+    parameters. A replacement after this check is enqueued after the
+    gather on the dispatcher's stream, so it cannot reach this call."""
+    if bank.generation != gen:
+        raise RuntimeError("a parameter bank slot was replaced between the slot resolution "
+                           "and the launch; retrying")
+
+
 def _stacked_apply(spec, bank_params, idx: torch.Tensor, X: torch.Tensor, n_pad: int
                    ) -> torch.Tensor:
     """One fused call: gather ``len(idx)`` models' parameters out of the
@@ -317,9 +338,10 @@ class _ParamBank:
     powers of two with a floor of 8 (a growth restacks the bank). At
     ``GORDO_TPU_PARAM_BANK_MAX`` models (default 512) the least recently
     used model is evicted in place: the newcomer's parameters overwrite its
-    slot, one slot write, no restack, every other slot still valid.
-    ``generation`` goes up at every eviction or replacement so that a
-    caller resolving a group's slots can see that one went stale.
+    slot, one slot write, no restack, every other slot still valid. A slot
+    freed by :meth:`replace` is taken by the next newcomer, again one
+    write. ``generation`` goes up at every eviction or replacement so that
+    a caller resolving a group's slots can see that one went stale.
 
     Writes run in inference mode on ``stream`` (the dispatcher's, on the
     card), so they are ordered after the fused calls already launched
@@ -334,6 +356,7 @@ class _ParamBank:
         self.stream = stream
         self.slots: "OrderedDict[int, int]" = OrderedDict()  # id(model) -> slot, LRU first
         self.models: List[Any] = []
+        self.free: List[int] = []  # slots no model holds (a replacement freed them)
         self.stacked: Optional[List[Dict[str, torch.Tensor]]] = None
         self.capacity = 0
         self.generation = 0
@@ -349,8 +372,9 @@ class _ParamBank:
         self.max_models = configured if configured > 0 else self.MAX_MODELS
 
     def __len__(self) -> int:
+        """The resident models."""
         with self._lock:
-            return len(self.models)
+            return len(self.slots)
 
     @contextlib.contextmanager
     def _writing(self):
@@ -368,6 +392,12 @@ class _ParamBank:
             slot = self.slots.get(key)
             if slot is not None:
                 self.slots.move_to_end(key)  # now the most recently used
+                return slot
+            if self.free:
+                slot = self.free.pop()
+                self.models[slot] = model
+                self.slots[key] = slot
+                self._write(slot, model)
                 return slot
             if len(self.models) >= self.max_models:
                 _victim, slot = self.slots.popitem(last=False)
@@ -394,13 +424,18 @@ class _ParamBank:
     def replace(self, old_model, new_model) -> Optional[int]:
         """Overwrite ``old_model``'s slot in place with ``new_model``'s
         parameters (a revision's hot swap): no restack, no change of
-        capacity. Returns the slot, or None when ``old_model`` is not in
-        the bank."""
+        capacity. Where ``new_model`` already holds a slot of its own (the
+        swap's warm-up predicted through the bank), that slot is freed for
+        the next newcomer. Returns the slot, or None when ``old_model`` is
+        not in the bank."""
         with self._lock:
             slot = self.slots.pop(id(old_model), None)
             if slot is None:
                 return None
             self.generation += 1
+            spare = self.slots.pop(id(new_model), None)
+            if spare is not None:
+                self.free.append(spare)
             self.models[slot] = new_model
             self.slots[id(new_model)] = slot  # the most recently used
             self._write(slot, new_model)
@@ -513,6 +548,15 @@ class CrossModelBatcher:
         """Write ``model``'s parameters into its spec's bank now (the
         warm-up's commit-once pre-registration); returns its slot."""
         return self.bank(spec, _device_of(model)).slot_of(model)
+
+    def swap_params(self, spec, old_model, new_model) -> bool:
+        """A revision's hot swap: ``new_model``'s parameters over
+        ``old_model``'s slot, in place (``_ParamBank.replace``). False when
+        ``old_model`` is not resident (its bank never held it, or evicted
+        it); ``new_model`` then takes a slot at its first fused call."""
+        with self._lock:
+            bank = self._banks.get((spec, _device_of(old_model)))
+        return bank is not None and bank.replace(old_model, new_model) is not None
 
     def submit(self, spec, model, X) -> Optional[np.ndarray]:
         """Blocking predict through the batch queue (thread-safe). In auto
@@ -867,6 +911,7 @@ class CrossModelBatcher:
             X, idx = self._stacked_inputs(items, slots, device)
             if stream is None:
                 out = _stacked_apply(spec, bank.stacked, idx, X, items[0].n_pad)
+                _check_generation(bank, gen)
                 return _Call(spec, items, out, None, windows, t0)
             # the forward's interval on the stream, for the busy seconds
             begin, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -875,6 +920,7 @@ class CrossModelBatcher:
                 out = _stacked_apply(spec, bank.stacked, idx, X, items[0].n_pad)
             finally:
                 _forward_begin.event = None
+            _check_generation(bank, gen)
             end.record(stream)
             host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
             host.copy_(out, non_blocking=True)

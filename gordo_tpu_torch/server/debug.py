@@ -37,10 +37,15 @@ production server exposes nothing new by default.
   whole collection without ``machine``, through the server's own model
   cache; ``revision`` warms a sibling revision (410 when there is none).
 
+- ``GET /debug/drift``: the drift detector's state (observability/drift.py):
+  this process's per-model snapshot and drifted list, the fleet merge over
+  the telemetry shards when ``GORDO_TPU_TELEMETRY_DIR`` is set, and the
+  rebuild queue's depth and pending machines when
+  ``GORDO_TPU_DRIFT_QUEUE_DIR`` is set.
+
 ``/debug/vars`` carries the resilience block (requests in flight, in the
 gate, draining) and the last warm-up report; ``/debug/config`` the
-resolved resilience knobs. ``/debug/drift`` answers 404 until the drift
-loop is ported (ROADMAP.md item A9's drift half).
+resolved resilience knobs.
 """
 
 import os
@@ -64,6 +69,7 @@ ROUTES = {
     "/debug/profile": "debug_profile",
     "/debug/perf": "debug_perf",
     "/debug/prewarm": "debug_prewarm",
+    "/debug/drift": "debug_drift",
 }
 
 Answer = Tuple[int, str, bytes]
@@ -97,6 +103,8 @@ def dispatch(endpoint: str, query: str, server) -> Optional[Answer]:
         return perf_view()
     if endpoint == "debug_prewarm":
         return prewarm_view(args, server)
+    if endpoint == "debug_drift":
+        return drift_view()
     return config_view()
 
 
@@ -162,6 +170,32 @@ def perf_view() -> Answer:
     from ..observability import attribution, sentinel
 
     return _json({"attribution": attribution.snapshot(), "sentinel": sentinel.snapshot()})
+
+
+# --------------------------------------------------------------- /debug/drift
+def drift_view() -> Answer:
+    """The drift detector's state: this process's view, the fleet merge
+    over the shards, and the rebuild queue, as the JAX route answers it."""
+    from ..observability import drift, shared
+
+    payload: Dict[str, Any] = {
+        "enabled": drift.enabled(),
+        "local": drift.snapshot(),
+        "drifted": drift.drifted_models(),
+    }
+    if shared.enabled():
+        shared.flush(force=True)
+        payload["fleet"] = drift.merge_payloads(shared.fleet_extras("drift"))
+    directory = drift.queue_dir()
+    if directory:
+        from ..parallel import drift_queue
+
+        payload["queue"] = {
+            "dir": directory,
+            "depth": drift_queue.depth(directory),
+            "pending": [r.get("machine") for r in drift_queue.pending(directory)],
+        }
+    return _json(payload)
 
 
 # ------------------------------------------------------------- /debug/prewarm

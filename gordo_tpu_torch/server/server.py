@@ -40,9 +40,18 @@ adds the reference's request histogram and counter
 routes are server/debug.py's. The prediction routes' phases also feed the
 latency attribution windows and the perf sentinel
 (observability/attribution.py, sentinel.py) when their knobs are set.
-``/debug/drift`` answers 404 until the drift loop is ported (ROADMAP.md
-item A9's drift half). ``?format=parquet`` on a POST route is refused with
-501: pyarrow is not a dependency of the port.
+``?format=parquet`` on a POST route is refused with 501: pyarrow is not a
+dependency of the port.
+
+The drift loop's serving half (ROADMAP.md item A9), on every lane alike:
+the prediction cores feed the drift detector (observability/drift.py, gated
+by ``GORDO_TPU_DRIFT_DETECT``), whose payload rides the telemetry shards and
+whose state ``/debug/drift`` serves; with ``GORDO_TPU_HOT_SWAP`` the server
+starts the hot-swap watcher (server/hotswap.py), which swaps the machines
+of each committed delta revision (``drift-<epoch-ms>``, a sibling of the
+collection directory) in: a model route that pins no revision resolves
+its model's override once, at its start, so a request in flight at a
+cutover finishes on the artifact it resolved.
 
 Resilience (server/resilience.py), on every lane alike, as the JAX server
 applies it: the two prediction routes (POST) pass the admission gate
@@ -121,12 +130,12 @@ import torch
 
 from .. import __version__, native, resolve_device
 from ..models.utils import parse_resolution
-from ..observability import attribution, device as device_telemetry
+from ..observability import attribution, device as device_telemetry, drift
 from ..observability import flight, metrics as metric_catalog, sentinel, shared, slo, telemetry
 from ..observability import tracing
 from ..serializer import load, load_metadata, load_model_json
 from ..util import faults
-from . import debug, fast_codec, resilience, views
+from . import debug, fast_codec, hotswap, resilience, views
 from .openapi import openapi_document
 from .prometheus import GordoServerPrometheusMetrics
 
@@ -139,9 +148,8 @@ _MODEL_ROUTE = re.compile(
 )
 OPENAPI_ROUTE = "/gordo/v0/openapi.json"
 _TOP_ROUTES = ("/healthcheck", "/readiness", "/server-version", "/metrics", OPENAPI_ROUTE)
-# every /debug/* rule of the JAX table: the ported ones (server/debug.py)
-# and /debug/drift, which answers 404 until the drift loop is ported
-_DEBUG_ROUTES = (*debug.ROUTES, "/debug/drift")
+# every /debug/* rule of the JAX table (server/debug.py)
+_DEBUG_ROUTES = tuple(debug.ROUTES)
 # the JAX table's werkzeug rules, which label the metrics and traces
 _PROJECT_RULE = "/gordo/v0/<gordo_project>/{}"
 _MODEL_RULE = "/gordo/v0/<gordo_project>/<gordo_name>/{}"
@@ -339,6 +347,7 @@ class GordoServer(ThreadingHTTPServer):
         device_telemetry.install_shard_hooks()
         attribution.install_shard_hooks()
         sentinel.install_shard_hooks()
+        drift.install_shard_hooks()
         self.project = os.environ.get("PROJECT")
         self.prometheus: Optional[GordoServerPrometheusMetrics] = None
         if os.environ.get("ENABLE_PROMETHEUS", "false").lower() in ("1", "true", "yes"):
@@ -365,7 +374,9 @@ class GordoServer(ThreadingHTTPServer):
     def server_close(self) -> None:
         """Close the listener, end the keep-alive connections waiting for
         their next request (their read side is shut down; a response being
-        written still goes out), and wait for the connections' threads."""
+        written still goes out), and wait for the connections' threads; stop
+        the hot-swap watcher this server started."""
+        hotswap.stop_watcher(self)
         with self._connections_lock:
             for connection in self._connections:
                 try:
@@ -446,6 +457,24 @@ class GordoServer(ThreadingHTTPServer):
             with self._entries_lock:
                 self._entries[key] = entry
             return entry
+
+    def peek_entry(self, revision: str, name: str) -> Optional[ModelEntry]:
+        """The loaded model ``name`` of ``revision``, or None; never loads."""
+        with self._entries_lock:
+            return self._entries.get((revision, name))
+
+    def evict_machine(self, name: str, keep_revision: str) -> None:
+        """Drop what describes an artifact of ``name`` that no longer serves
+        (a hot swap's last step, as the JAX ``evict_machine``): its failed
+        loads in every revision, ``keep_revision``'s included (a cached
+        failure must not mask the new artifact), and its loaded models in
+        every revision but ``keep_revision``. A request that already holds
+        an evicted model finishes on it."""
+        with self._entries_lock:
+            for key in [k for k in self._failures if k[1] == name]:
+                del self._failures[key]
+            for key in [k for k in self._entries if k[1] == name and k[0] != keep_revision]:
+                del self._entries[key]
 
     def expected_models(self) -> list:
         """The expected fleet: ``EXPECTED_MODELS``, else the file
@@ -566,17 +595,23 @@ class GordoServer(ThreadingHTTPServer):
     def _prediction(self, exchange: _Exchange, name: str, action: str, query: str, headers,
                     body: bytes):
         parsed = parse_qs(query, keep_blank_values=True)
-        refusal = self._resolve_revision(exchange, parsed, headers)
+        refusal = self._resolve_revision(exchange, parsed, headers, name)
         if refusal is not None:
             return refusal
         return self._model_action(exchange, name, action, parsed, headers, body)
 
-    def _resolve_revision(self, exchange: _Exchange, query: dict, headers):
+    def _resolve_revision(self, exchange: _Exchange, query: dict, headers,
+                          name: Optional[str] = None):
         """Set the request's revision (``?revision=``, else the ``revision``
-        header, else the served one); the 410 answer when it does not exist,
-        else None."""
+        header, else, on a route of model ``name``, the hot swap's override
+        of it, else the served one); the 410 answer when it does not exist,
+        else None. A pinned revision bypasses the override."""
         pinned = (query.get("revision") or [""])[0] or headers.get("revision")
         exchange.revision = pinned or self.revision
+        if not pinned and name is not None:
+            override = hotswap.active(name)
+            if override is not None:
+                exchange.revision = override[1]
         if self.revision_dir(exchange.revision) is None:
             return exchange.answer(410, {"error": f"Revision '{pinned}' not found."},
                                    with_revision=False)
@@ -606,7 +641,8 @@ class GordoServer(ThreadingHTTPServer):
     def _matched(self, exchange: _Exchange, method: str, url, query: dict, path: str,
                  project_match, model_match, headers, body: bytes):
         """The answer of a request whose route was matched (or not)."""
-        refusal = self._resolve_revision(exchange, query, headers)
+        refusal = self._resolve_revision(exchange, query, headers,
+                                         model_match.group(2) if model_match else None)
         if refusal is not None:
             return refusal
         collection_dir = self.revision_dir(exchange.revision)
@@ -826,7 +862,11 @@ def make_server(host: str, port: int, device=None, collection_dir: str = None,
     collection_dir = collection_dir or os.environ.get("MODEL_COLLECTION_DIR")
     if not collection_dir:
         raise ValueError("MODEL_COLLECTION_DIR is not set")
-    return GordoServer((host, port), collection_dir, resolve_device(device), bind_and_activate)
+    server = GordoServer((host, port), collection_dir, resolve_device(device), bind_and_activate)
+    # the hot-swap watcher (a no-op unless GORDO_TPU_HOT_SWAP): in a pool it
+    # starts in each worker, which makes its server here after the fork
+    hotswap.start_watcher(collection_dir, server)
+    return server
 
 
 def make_front_end(host: str, port: int, device=None, collection_dir: str = None,

@@ -26,6 +26,16 @@ when spent) and, on the base route, the output's finiteness
 the same way on either route; the anomaly frame itself is not checked
 (its rolling smoothing yields NaN legitimately).
 
+Drift detection (observability/drift.py), as the JAX views feed it: with
+``GORDO_TPU_DRIFT_DETECT`` open, each successful predict records one
+reconstruction-error statistic for its model (:func:`_record_drift_stat`):
+the base core the mean absolute error of the output against the input's
+target columns, the anomaly core the mean of the frame's
+``total-anomaly-unscaled`` block. Every lane answers through these cores,
+so every lane feeds it, batched riders included; a failure of the
+statistic never fails the request, and with the gate closed nothing is
+computed.
+
 With the native codec on for a request (server/fast_codec.py), its body is
 parsed natively where the strict grammar takes it (:func:`decode_request`)
 and its response's ``"data"`` is rendered by the template encoder
@@ -46,6 +56,7 @@ import numpy as np
 
 from .. import serializer
 from ..models.utils import Frame, RawFrame, make_base_raw
+from ..observability import drift
 from ..util import faults
 from . import fast_codec, resilience
 from .model_io import get_model_output
@@ -222,6 +233,51 @@ def response_bytes(body: dict, fast: bool) -> bytes:
     return json_text({"data": raw.to_dict(), **rest}).encode()
 
 
+def _record_drift_stat(name: str, stat_fn) -> None:
+    """Feed one reconstruction-error observation of model ``name`` to the
+    drift detector. Computed only when the detector's gate is open, and
+    never allowed to fail the request."""
+    if not drift.enabled():
+        return
+    try:
+        stat = stat_fn()
+        if stat is not None:
+            drift.observe(name, float(stat))
+    except Exception:  # noqa: BLE001 -- detection is advisory
+        logger.debug("drift stat computation failed for %r", name, exc_info=True)
+
+
+def _base_reconstruction_stat(tags: List[str], target_tags: List[str], X: np.ndarray, output):
+    """Mean absolute reconstruction error of a base predict: |output - the
+    input's target columns|, aligned to the output's last rows for a
+    windowed model. When the output does not map onto input columns, the
+    mean |output|: any stable per-request scalar supports shift detection."""
+    out = np.asarray(output, dtype=float)
+    if out.ndim != 2 or out.size == 0:
+        return None
+    offset = len(X) - len(out)
+    if offset >= 0 and out.shape[1] == len(target_tags):
+        try:
+            cols = [tags.index(tag) for tag in target_tags]
+        except ValueError:
+            cols = None
+        if cols is not None:
+            target = np.asarray(X, dtype=float)[offset:, cols]
+            if target.shape == out.shape:
+                return float(np.nanmean(np.abs(out - target)))
+    return float(np.nanmean(np.abs(out)))
+
+
+def _anomaly_total_stat(frame: RawFrame):
+    """The mean of the anomaly frame's ``total-anomaly-unscaled`` block, the
+    calibrated per-point reconstruction error every diff-based detector
+    emits."""
+    for top, _subs, values in frame.groups:
+        if top == "total-anomaly-unscaled":
+            return float(np.nanmean(np.asarray(values, dtype=float)))
+    return None
+
+
 def anomaly_prediction_core(model, body: Optional[bytes], tags: List[str],
                             target_tags: List[str], frequency, all_columns: bool,
                             fast: bool = False, timings: Optional[Dict[str, float]] = None,
@@ -259,6 +315,8 @@ def anomaly_prediction_core(model, body: Optional[bytes], tags: List[str],
         resilience.record_breaker_failure(breaker, exc)
         raise
     resilience.record_breaker_success(breaker)
+    # before the smoothing blocks are dropped off the frame
+    _record_drift_stat(name, lambda: _anomaly_total_stat(frame))
     if not all_columns:
         drop = [c for c in frame.top_levels() if c in DELETED_FROM_RESPONSE_COLUMNS]
         frame = frame.drop_top_level(drop)
@@ -310,6 +368,8 @@ def base_prediction_core(model, body: Optional[bytes], tags: List[str],
         logger.exception("Failed to predict")
         return 400, {"error": "Something unexpected happened; check your input data"}
     resilience.record_breaker_success(breaker)
+    _record_drift_stat(name, lambda: _base_reconstruction_stat(tags, target_tags, X.values,
+                                                               output))
     data = make_base_raw(tags, X.values, output, target_tags, X.index, frequency)
     return 200, {
         "data": data,

@@ -44,9 +44,13 @@ The serving sites wired in the port (server/resilience.py):
 ``wedge``), ``serve_poison_nan`` on the base route's feature matrix, and
 ``serve_device_call`` at the top of every fused device call of the
 cross-model batcher and of its serial rescue (machine matched against the
-group's members; supports ``wedge``). ``KNOWN_SITES`` is the JAX package's
-whole vocabulary: the build, gateway, drift and chaos sites are wired by the
-ROADMAP.md items that port those paths.
+group's members; supports ``wedge``). The drift loop's sites:
+``drift_detect`` in the drift detector's event emission
+(observability/drift.py), ``drift_enqueue`` in the queue's enqueue
+(parallel/drift_queue.py) and ``swap_commit`` at the start of each hot swap
+(server/hotswap.py), each with the machine's name. ``KNOWN_SITES`` is the
+JAX package's whole vocabulary: the build, gateway and chaos sites are
+wired by the ROADMAP.md items that port those paths.
 """
 
 import json

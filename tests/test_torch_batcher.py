@@ -5,7 +5,9 @@ parameters come from the JAX side through ``serializer/from_jax.py``:
 
 - fused answers against the JAX ``CrossModelBatcher`` (forced on) and the
   port's direct predict, float32 and bf16;
-- the parameter bank (capacity buckets, LRU eviction in place, replace),
+- the parameter bank (capacity buckets, LRU eviction in place, replace, the
+  hot swap's ``swap_params`` and a rider whose slot a swap replaced before
+  its launch, which takes the retry ladder),
   the window cap, the bisection ladder and serial rescue, abandoned items,
   the pipeline switch, the auto mode's A/B, and the dispatcher's re-entry
   guard;
@@ -246,6 +248,66 @@ def test_replace_overwrites_a_slot_in_place(models):
     np.testing.assert_allclose(fused.submit(new.spec_, new.module_, X), new.predict(X), **TOL)
     fused.close()
     assert bank.restacks == 1
+
+
+def test_swap_params_keeps_capacity_and_frees_the_warm_slot(models):
+    """A hot swap whose warm-up already gave the rebuilt model a slot: the
+    old slot is rewritten in place, the warm slot freed and taken by the
+    next newcomer, with no restack and no change of capacity."""
+    (_, _, old), (_, _, new), (_, _, other) = models[0], models[1], models[2]
+    fused = batcher.CrossModelBatcher()
+    X = _X(3)
+    for est in (old, new):  # new: the swap's warm-up predicts through the bank
+        np.testing.assert_allclose(fused.submit(est.spec_, est.module_, X), est.predict(X), **TOL)
+    bank = fused.bank(old.spec_, torch.device("cpu"))
+    slot, warm_slot = bank.slots[id(old.module_)], bank.slots[id(new.module_)]
+    assert fused.swap_params(old.spec_, old.module_, new.module_)
+    assert bank.slots[id(new.module_)] == slot and bank.free == [warm_slot]
+    assert len(bank) == 1 and bank.capacity == 8 and bank.restacks == 1
+    assert not fused.swap_params(old.spec_, old.module_, new.module_)  # no longer resident
+    np.testing.assert_allclose(fused.submit(new.spec_, new.module_, X), new.predict(X), **TOL)
+    # the old model, still held by a request in flight, comes back into the freed slot
+    np.testing.assert_allclose(fused.submit(old.spec_, old.module_, X), old.predict(X), **TOL)
+    assert bank.slots[id(old.module_)] == warm_slot and bank.free == []
+    np.testing.assert_allclose(fused.submit(other.spec_, other.module_, X), other.predict(X),
+                               **TOL)
+    fused.close()
+    assert bank.capacity == 8 and bank.restacks == 1 and bank.evictions == 0
+
+
+@pytest.mark.parametrize("pipeline", ["1", "0"])
+def test_a_rider_whose_slot_is_replaced_before_its_launch_retries(models, monkeypatch,
+                                                                   pipeline):
+    """A swap that lands between a fused call's slot resolution and its
+    gather would hand the old model's rider the new parameters: the call
+    sees the bank's generation move, the group takes the retry ladder, and
+    every rider answers with its own model's output."""
+    monkeypatch.setenv("GORDO_TPU_DEVICE_PIPELINE", pipeline)
+    (_, _, old), (_, _, new), (_, _, other) = models[0], models[1], models[3]
+    fused = batcher.CrossModelBatcher()
+    X = _X(4)
+    fused.register_params(old.spec_, old.module_)
+    fused.register_params(other.spec_, other.module_)
+    bank = fused.bank(old.spec_, torch.device("cpu"))
+    staged = batcher.CrossModelBatcher._stacked_inputs
+    swaps, stagings = [], []
+
+    def staging_then_swap(self, items, slots, device):
+        stagings.append(list(slots))
+        out = staged(self, items, slots, device)
+        if not swaps:  # once: the swap lands after the slots were resolved
+            swaps.append(bank.replace(old.module_, new.module_))
+        return out
+
+    monkeypatch.setattr(batcher.CrossModelBatcher, "_stacked_inputs", staging_then_swap)
+    got = _queued(fused, [(old, X), (other, X)])
+    assert swaps == [0]
+    # the retry resolved the old model again: out of the slot the swap rewrote
+    assert len(stagings) >= 2 and stagings[0] == [0, 1] and 0 not in stagings[-1]
+    np.testing.assert_allclose(got[0], old.predict(X), **TOL)
+    np.testing.assert_allclose(got[1], other.predict(X), **TOL)
+    assert not np.allclose(got[0], new.predict(X), **TOL)
+    assert bank.capacity == 8 and bank.restacks == 1
 
 
 def test_the_window_cap_splits_a_group(models, monkeypatch):

@@ -239,7 +239,7 @@ def test_debug_routes_answer_with_the_same_keys(servers, monkeypatch, gate):
     for method, path, body, headers in REQUESTS[4:6]:
         _ours(ours, method, path, body, headers), _theirs(theirs, method, path, body, headers)
     unknown = _ours(ours, "GET", "/debug/unknown")
-    for path in DEBUG_ROUTES + ["/debug/perf"]:
+    for path in DEBUG_ROUTES + ["/debug/perf", "/debug/drift"]:
         mine, jax = _ours(ours, "GET", path), _theirs(theirs, "GET", path)
         assert mine[0] == jax[0] == (200 if gate else 404), path
         if not gate:
@@ -256,7 +256,6 @@ def test_debug_routes_answer_with_the_same_keys(servers, monkeypatch, gate):
             if isinstance(value, dict) and key not in ("metrics", "models", "env", "merged",
                                                        "batcher"):
                 assert sorted(doc[key] or {}) == sorted(value), (path, key)
-    assert _ours(ours, "GET", "/debug/drift")[0] == 404  # not ported yet
 
 
 @pytest.fixture(scope="module")

@@ -405,10 +405,20 @@ import gordo_tpu_torch.server.resilience
 import gordo_tpu_torch.server.warmup
 import gordo_tpu_torch.server.prometheus.server
 from gordo_tpu_torch.observability import attribution, grafana, sentinel
+# the drift loop: the detector, the rebuild queue, the rebuilder, the hot swap
+import gordo_tpu_torch.observability.drift
+import gordo_tpu_torch.parallel.drift_queue
+import gordo_tpu_torch.builder.drift_rebuild
+import gordo_tpu_torch.server.hotswap
 from gordo_tpu_torch import cli
 for argv in (["batch-build", "fleet.json", "out", "--device", "cpu", "--fail-fast"],
              ["batch-build", "fleet.json", "out", "--trace-file", "t.json",
               "--metrics-file", "m.prom"],
+             ["batch-build", "fleet.json", "out", "--no-warm-start", "--drain-drift-queue",
+              "--drift-queue-dir", "q"],
+             ["drift-rebuilder", "fleet.json", "--queue-dir", "q", "--output-dir", "out",
+              "--model-register-dir", "r", "--project-name", "p", "--once",
+              "--poll-interval", "1", "--device", "cpu"],
              ["run-server", "--port", "5555", "--device", "cpu"],
              ["run-server", "--no-batch-predicts"],
              ["run-server", "--workers", "1", "--worker-connections", "64", "--warmup"]):
