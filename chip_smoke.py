@@ -309,13 +309,48 @@ Drive the PyTorch/CUDA port (gordo_tpu_torch) on one NVIDIA GPU.
    commit), each swap's preload, warm, bank-write and flip milliseconds, p50
    and p99 of the 10 s before the swap and the 10 s around it, and the first
    answer after the flip.
-23. A ``batcher_path`` JSON line (both dtypes' numbers), a ``feedforward``
+23. The cross-node gateway (:func:`gateway_path`): two ``python -m
+   gordo_tpu_torch run-server --workers 1 --warmup`` nodes, each on the
+   fast lane with a Unix-domain socket, serving the batcher phases' eight
+   ``transformer-ae-512`` artifacts of each dtype, registered in one
+   membership directory (lease 2.0 s, heartbeat 0.1 s), behind ``python -m
+   gordo_tpu_torch run-gateway`` (health poll 0.2 s, connect timeout 0.5 s,
+   ``GORDO_TPU_DEBUG_ENDPOINTS``), the chaos drill ``kill_node_mid_ramp``
+   running meanwhile on stub nodes (``chaos run``, host only). Gates: each
+   lease names its node's address, pid and socket; two ``node_partition``
+   faults armed on the gateway are two hedges; 8 users of 600-row requests
+   across the 16 machines for GW_LOAD_S seconds, then one 1,535-row request
+   a dtype, all 200, each answered by its machine's primary in
+   ``/gateway/status``'s ring (``X-Gordo-Gateway-Node``), with the direct
+   response's structure and a model output within the dtype's served
+   tolerance of the artifact's direct predict; each node's forward launches
+   of a dtype (its counters, :func:`_gateway_node`) above 0 and at most one
+   per block a request placed on it, 0 where none was; no plain attention;
+   no hedge under that load; the gateway's pid not among the card's compute
+   processes; ``python -m gordo_tpu_torch trace`` of a traced request a
+   complete stitch with the node's ``serve_request`` and the batcher's
+   ``serve_device_call``; SIGTERM to a node under load: its lease
+   withdrawn, its machines answered by the other node after the next poll,
+   every answer 200 and right, its drain exiting 0, and the node back in
+   the ring after a restart; SIGKILL of a machine's primary under load:
+   every request of the healthy shard 200, failures only among the
+   requests in flight on the victim at the kill, its shard answered 200
+   again within the lease timeout, a request hedged at the kill traced with
+   the victim ``MISSING`` and the survivor's subtree whole, and the victim
+   restarted over its stale lease at generation 2; the gateway's
+   ``/metrics`` equal to the client's counts of requests by node and
+   status, the hedges and failovers the requests' own traces hold, and the
+   live, dead and draining nodes; the drill's report ``ok``. Printed: routed
+   and direct p50 and p99, the overhead, the leave's and the crash's
+   seconds, the phase's seconds.
+24. A ``batcher_path`` JSON line (both dtypes' numbers), a ``feedforward``
    JSON line, a ``fastlane``/``kfcv_fleet`` JSON line, a ``windowed`` JSON
    line, a ``transformer-ae-512-d384`` JSON line, a ``moe`` JSON line, an
    ``observability`` JSON line, a ``resilience`` JSON line, a ``drift`` JSON
-   line, a ``kernels`` JSON line (twenty-two entries: the six flash kernels
-   at dh 64 with their results by head dim and the observability,
-   resilience and drift phases' launches among their paths, the six again at dh 96 with the d384
+   line, a ``gateway`` JSON line, a ``kernels`` JSON line (twenty-two
+   entries: the six flash kernels at dh 64 with their results by head dim
+   and the observability, resilience, drift and gateway phases' launches
+   among their paths, the six again at dh 96 with the d384
    path's launches and at dh 16 with the MoE fleet's, then the LSTM
    recurrence's forward and backward in float32 and bf16), then
    the last line
@@ -2902,7 +2937,7 @@ BENCH_ROWS = 100  # bench.py's anomaly request: 100 samples of the machine's tag
 BENCH_ROUNDS = 100  # bench.py's sequential requests (BENCH_SERVER_ROUNDS)
 FF_USERS = 16
 FF_REQUESTS = 48  # concurrent feedforward requests across the two models
-FF_FLEET_MACHINES = 512  # bench.py's fleet (BENCH_MACHINES, 1,024) cut to half
+FF_FLEET_MACHINES = 128  # bench.py's fleet (BENCH_MACHINES, 1,024) cut to an eighth
 
 
 def _kfold_reference(n: int, n_splits: int, seed: int) -> list:
@@ -3868,10 +3903,11 @@ WINDOWED_FAMILIES = {
 }
 WINDOWED_FIT = {"lookback_window": 144, "epochs": 2, "batch_size": 64}
 WINDOWED_DTYPE = "bfloat16"
-# bench.py's 64 machines a family, cut to 32: the LSTM/TCN phases added
-# ~113 s to the smoke run at 64 (over the ~90 s they may take), the fleet's
-# N is the first cut
-WINDOWED_FLEET_MACHINES = 16
+# bench.py's 64 machines a family, cut to 32, then 16, then 8: the LSTM/TCN
+# phases added ~113 s to the smoke run at 64 (over the ~90 s they may take),
+# and each later slice's phase needed room in the run's time; the fleet's N
+# is the first cut
+WINDOWED_FLEET_MACHINES = 8
 WINDOWED_ROUNDS = 10  # sequential 1,535-row anomaly requests a windowed artifact
 WINDOWED_REQUESTS = 2  # concurrent 1,535-row requests a model, batching forced on
 LSTM_STEPS_TIMED = 200  # compressor-b's training steps timed on the kernels
@@ -7002,6 +7038,650 @@ def drift_path(card: str, root: Path, device: str = "cuda", built: tuple = None)
     return result
 
 
+# ------------------------------------------------------ the gateway tier
+GW_MACHINES = BATCHER_MODELS  # of each dtype: the batcher phases' artifacts
+GW_USERS = 8
+GW_ROWS = BATCHER_ROWS
+GW_LOAD_S = 10.0  # the routed load's seconds
+GW_DIRECT_S = 5.0  # the same users straight to the machines' primaries
+GW_ROUNDS = 4  # the two arms in turns, so that neither has the other's place in time
+GW_LEASE_S = 2.0  # bench.py's serving_gateway knobs
+GW_HEARTBEAT_S = 0.1
+GW_HEALTH_S = 0.2
+GW_CONNECT_S = 0.5
+# the nodes' p99 objective (GORDO_TPU_SLO_P99_MS): two nodes share one card
+# under this traffic, and a node burning the default 250 ms objective would be
+# drained by the gateway (its segment spilled), which the placement gates
+# would read as misplacement; a drain is counted and must not happen
+GW_SLO_P99_MS = 5000
+# node_partition faults armed on the gateway, each a hedge: fewer than the node
+# breaker's threshold (3), which would skip the node afterwards
+GW_PARTITIONS = 2
+GW_TOL = {"float32": TOL_OUT_REL, "bfloat16": TOL_BF16_MODEL_REL}
+GW_DRILL = "gordo_tpu_torch/chaos/scenarios/kill_node_mid_ramp.json"
+GW_KNOBS = ("GORDO_TPU_GATEWAY_DIR", "GORDO_TPU_LEASE_TIMEOUT_S", "GORDO_TPU_HEARTBEAT_S",
+            "GORDO_TPU_GATEWAY_HEALTH_S", "GORDO_TPU_GATEWAY_CONNECT_TIMEOUT_S",
+            "GORDO_TPU_HOST_ID", "GORDO_TPU_UDS_PATH", "GORDO_TPU_FAST_LANE",
+            "GORDO_TPU_DEBUG_ENDPOINTS", "GORDO_TPU_FLIGHT_RECENT", "GORDO_TPU_FLIGHT_SLOW_S",
+            "GORDO_TPU_FLIGHT_CAPACITY", "GORDO_TPU_FAULT_PLAN", "GORDO_TPU_TELEMETRY_DIR",
+            "GORDO_TPU_SERVING_BATCH", "MODEL_COLLECTION_DIR", "ENABLE_PROMETHEUS",
+            "GORDO_TPU_SLO_P99_MS")
+
+
+def _gateway_node(counts: str, argv: list) -> None:
+    """``python -m gordo_tpu_torch`` with ``argv`` in this process (a
+    ``run-server`` node of :func:`gateway_path`, run in a subprocess), its
+    flash forward wrappers' counters, its plain attention calls and its
+    batcher's decision for each dtype written to ``counts`` (JSON, replaced
+    atomically) every 0.05 s while it serves."""
+    import runpy
+
+    from gordo_tpu_torch.ops import flash_attention as fa
+    from gordo_tpu_torch.server import batcher
+
+    plain = _PlainAttentionCalls()
+
+    def dump():
+        while True:
+            fused = batcher.peek_batcher()
+            decisions = {} if fused is None else dict(fused._spec_on)
+            doc = {"pid": os.getpid(), "float32": fa.LAUNCHES, "bfloat16": fa.BF16_LAUNCHES,
+                   "plain_calls": plain.calls,
+                   "batching": {str(spec.compute_dtype): on for spec, on in decisions.items()}}
+            Path(counts + ".tmp").write_text(json.dumps(doc))
+            os.replace(counts + ".tmp", counts)
+            time.sleep(0.05)
+
+    with plain:
+        threading.Thread(target=dump, name="gateway-node-counts", daemon=True).start()
+        sys.argv = ["gordo_tpu_torch", *argv]
+        runpy.run_module("gordo_tpu_torch", run_name="__main__", alter_sys=True)
+
+
+class _GatewayNode:
+    """One ``python -m gordo_tpu_torch run-server --workers 1`` node of the
+    gateway phase (through :func:`_gateway_node`), with the fast lane, a
+    Unix-domain socket, a lease in ``directory`` under the node id
+    ``node_id``, and its log and counters under ``root``."""
+
+    def __init__(self, root: Path, directory: Path, collection: Path, node_id: str,
+                 incarnation: int, warmup: bool, device: str):
+        self.node_id = node_id
+        self.port = _free_port()
+        self.base = f"http://127.0.0.1:{self.port}"
+        self.counts = root / f"{node_id}-{incarnation}.counts.json"
+        self.log = root / f"{node_id}-{incarnation}.log"
+        environ = {k: v for k, v in os.environ.items() if k not in GW_KNOBS}
+        environ.update(
+            PYTHONPATH=str(REPO), MODEL_COLLECTION_DIR=str(collection),
+            GORDO_TPU_GATEWAY_DIR=str(directory), GORDO_TPU_LEASE_TIMEOUT_S=str(GW_LEASE_S),
+            GORDO_TPU_HEARTBEAT_S=str(GW_HEARTBEAT_S), GORDO_TPU_HOST_ID=node_id,
+            GORDO_TPU_FAST_LANE="1", GORDO_TPU_UDS_PATH=str(root / f"{node_id}.sock"),
+            GORDO_TPU_DEBUG_ENDPOINTS="1", GORDO_TPU_FLIGHT_RECENT="20000",
+            GORDO_TPU_SLO_P99_MS=str(GW_SLO_P99_MS))
+        argv = ["--log-level", "INFO", "run-server", "--host", "127.0.0.1", "--port",
+                str(self.port), "--device", device, "--workers", "1",
+                "--warmup" if warmup else "--no-warmup"]
+        self.started = time.perf_counter()
+        with open(self.log, "w") as fh:
+            self.proc = subprocess.Popen(
+                [sys.executable, "-c", "import sys, chip_smoke; "
+                 "chip_smoke._gateway_node(sys.argv[1], sys.argv[2:])", str(self.counts), *argv],
+                cwd=REPO, env=environ, stdout=subprocess.DEVNULL, stderr=fh,
+                start_new_session=True)
+
+    def read(self) -> dict:
+        return json.loads(self.counts.read_text())
+
+    def alive(self) -> bool:
+        return self.proc.poll() is None
+
+    def stop(self, sig=signal.SIGKILL, timeout: float = 60.0) -> int:
+        try:
+            if self.proc.poll() is None:
+                os.kill(self.proc.pid, sig)
+            return self.proc.wait(timeout=timeout)
+        finally:
+            try:
+                os.killpg(self.proc.pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+
+
+def _gw_post(url: str, body: bytes, traceparent: str = None) -> dict:
+    """One POST: its status, ``X-Gordo-Gateway-Node``, ``X-Gordo-Trace``,
+    body, and start and end on the monotonic clock (ms between them)."""
+    headers = {"Content-Type": "application/json"}
+    if traceparent:
+        headers["traceparent"] = traceparent
+    req = urllib.request.Request(url, data=body, headers=headers)
+    t0 = time.monotonic()
+    try:
+        with urllib.request.urlopen(req, timeout=300) as resp:
+            status, head, answer = resp.status, resp.headers, resp.read()
+    except urllib.error.HTTPError as err:
+        status, head, answer = err.code, err.headers, err.read()
+    except OSError as exc:
+        status, head, answer = -1, {}, repr(exc).encode()
+    t1 = time.monotonic()
+    return {"status": status, "node": head.get("X-Gordo-Gateway-Node"),
+            "trace": head.get("X-Gordo-Trace"), "body": answer, "t0": t0, "t1": t1,
+            "ms": 1e3 * (t1 - t0)}
+
+
+def _shape(doc):
+    """A JSON document's structure: its keys and lengths, every leaf's type."""
+    if isinstance(doc, dict):
+        return {key: _shape(value) for key, value in doc.items()}
+    if isinstance(doc, list):
+        return [_shape(value) for value in doc]
+    return type(doc).__name__
+
+
+class _GatewayTraffic:
+    """The phase's client: machines (name -> dtype), each machine's request
+    body, its direct predict and the direct response's structure; every
+    routed answer is checked against them (:meth:`check`) and kept as a
+    record for the metrics gate."""
+
+    def __init__(self, machines: dict, bodies: dict, direct: dict):
+        self.machines, self.bodies, self.direct = machines, bodies, direct
+        self.shapes: dict = {}
+        self.records: list = []
+        self.errors = {dtype: 0.0 for dtype in GW_TOL}
+        self._lock = threading.Lock()
+
+    def check(self, key: str, result: dict) -> None:
+        """A 200's structure is the direct response's, its model output within
+        the dtype's tolerance of the direct predict."""
+        if result["status"] != 200:
+            return
+        doc = json.loads(result["body"])
+        if _shape(doc) != self.shapes[key]:
+            raise AssertionError(f"{key}: a routed answer's structure differs from the direct "
+                                 f"response's")
+        machine, dtype = key.split("@")[0], self.machines[key.split("@")[0]]
+        got = np.array([list(c.values()) for c in doc["data"]["model-output"].values()]).T
+        ref = self.direct[key]
+        err = float(np.abs(got - ref).max() / np.abs(ref).max())
+        if err > GW_TOL[dtype]:
+            raise AssertionError(f"{machine}: a routed answer {err:.3g} off its direct predict "
+                                 f"({dtype}, tolerance {GW_TOL[dtype]:g})")
+        with self._lock:
+            self.errors[dtype] = max(self.errors[dtype], err)
+
+    def send(self, base: str, key: str, step: str, traced: bool = False) -> dict:
+        from gordo_tpu_torch.observability import tracing
+
+        machine = key.split("@")[0]
+        traceparent = (f"00-{tracing.new_trace_id()}-{tracing.new_span_id()}-01"
+                       if traced else None)
+        result = _gw_post(f"{base}/gordo/v0/{OBS_PROJECT}/{machine}/anomaly/prediction",
+                          self.bodies[key], traceparent)
+        result.update(machine=machine, key=key, step=step,
+                      sent_trace=traceparent and traceparent.split("-")[1])
+        self.check(key, result)
+        del result["body"]
+        with self._lock:
+            self.records.append(result)
+        return result
+
+    def load(self, base, step: str, seconds: float = None, stop: threading.Event = None,
+             traced: bool = False, keys: list = None) -> list:
+        """GW_USERS users sending the machines' 600-row requests round robin
+        for ``seconds`` (or until ``stop``); returns this load's records."""
+        keys = keys or sorted(self.machines)
+        end = None if seconds is None else time.monotonic() + seconds
+        mine: list = []
+        failures: list = []
+
+        def user(u):
+            k = u
+            try:
+                while (end is None or time.monotonic() < end) and not (stop and stop.is_set()):
+                    mine.append(self.send(base(keys[k % len(keys)]) if callable(base) else base,
+                                          keys[k % len(keys)], step, traced))
+                    k += GW_USERS
+            except BaseException as exc:  # noqa: BLE001 -- raised by the caller
+                failures.append(exc)
+
+        threads = [threading.Thread(target=user, args=(u,)) for u in range(GW_USERS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        if failures:
+            raise failures[0]
+        return mine
+
+
+def _gw_status(base: str) -> dict:
+    return json.loads(_request(base + "/gateway/status")[1])
+
+
+def _gw_ring(status: dict):
+    """The ring of the gateway's live nodes, as ``/gateway/status`` lists them."""
+    from gordo_tpu_torch.server.gateway import HashRing
+
+    ring = HashRing(vnodes=status["ring"]["vnodes"])
+    ring.rebuild(sorted(n for n, info in status["nodes"].items() if info["alive"]))
+    return ring
+
+
+def _gw_trace(trace_id: str, port: int) -> list:
+    """``python -m gordo_tpu_torch trace <id> --port <gateway>``'s lines."""
+    out = subprocess.run(
+        [sys.executable, "-m", "gordo_tpu_torch", "trace", trace_id, "--port", str(port)],
+        cwd=REPO, env={**os.environ, "PYTHONPATH": str(REPO)}, capture_output=True, text=True,
+        timeout=120)
+    if out.returncode != 0:
+        raise AssertionError(f"trace {trace_id} exited {out.returncode}: {out.stderr[-2000:]}")
+    return out.stdout.splitlines()
+
+
+def _compute_pids() -> list:
+    out = subprocess.run(["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60)
+    return [int(p) for p in out.stdout.split() if p.strip().isdigit()]
+
+
+def gateway_path(card: str, root: Path, batcher_root: Path, device: str = "cuda") -> dict:
+    """The cross-node gateway on the card (module docstring, step 23): two
+    ``run-server`` nodes of the batcher phases' artifacts behind
+    ``run-gateway``, and the chaos drill on stub nodes beside them. Returns
+    the numbers and the forward launches of each dtype in the nodes."""
+    from gordo_tpu_torch.serializer import load
+
+    started = time.perf_counter()
+    shutil.rmtree(root, ignore_errors=True)
+    collection, directory = root / "1", root / "members"
+    collection.mkdir(parents=True)
+    machines = {}
+    for dtype, tag in (("float32", "f32"), ("bfloat16", "bf16")):
+        for m in range(GW_MACHINES):
+            name = f"gw-{tag}-m{m}"
+            os.symlink(batcher_root / dtype / "1" / f"batcher-m{m}", collection / name)
+            machines[name] = dtype
+    rng = np.random.RandomState(SEED + 41)
+    values = {name: _series(GW_ROWS, 160000 + 1000 * i, rng)
+              for i, name in enumerate(sorted(machines))}
+    full = {f"gw-{tag}-m0@full": _series(FULL_ROWS, 190000 + 3000 * i, rng)
+            for i, tag in enumerate(("f32", "bf16"))}
+    values.update(full)
+    bodies = {key: _rect_body(v) for key, v in values.items()}
+    direct = {}
+    for key, v in values.items():
+        detector = load(str(collection / key.split("@")[0]), device)
+        direct[key] = _direct(detector, v)
+        del detector
+    _release(device)
+    traffic = _GatewayTraffic(machines, bodies, direct)
+    n_blocks = CONFIG["num_blocks"]
+
+    # the drill runs on stub nodes, host only, beside the nodes' start
+    drill_out, drill_log = root / "drill.json", root / "drill.log"
+    with open(drill_log, "w") as fh:
+        drill = subprocess.Popen(
+            [sys.executable, "-m", "gordo_tpu_torch", "--log-level", "WARNING", "chaos", "run",
+             GW_DRILL, "--dir", str(root / "drill"), "--out", str(drill_out)],
+            cwd=REPO, env={k: v for k, v in {**os.environ, "PYTHONPATH": str(REPO)}.items()
+                           if k not in GW_KNOBS},
+            stdout=fh, stderr=subprocess.STDOUT, start_new_session=True)
+    nodes = {node_id: _GatewayNode(root, directory, collection, node_id, 0, True, device)
+             for node_id in ("gw-node-a", "gw-node-b")}
+    old = []
+    gw_port = _free_port()
+    gw_base = f"http://127.0.0.1:{gw_port}"
+    gw_log = root / "gateway.log"
+    plan = {"rules": [{"site": "node_partition", "machine": "gw-node-a", "times": GW_PARTITIONS,
+                       "error": "transient"}]}
+    gw_env = {k: v for k, v in os.environ.items() if k not in GW_KNOBS}
+    gw_env.update(PYTHONPATH=str(REPO), GORDO_TPU_DEBUG_ENDPOINTS="1",
+                  GORDO_TPU_LEASE_TIMEOUT_S=str(GW_LEASE_S),
+                  GORDO_TPU_GATEWAY_HEALTH_S=str(GW_HEALTH_S),
+                  GORDO_TPU_GATEWAY_CONNECT_TIMEOUT_S=str(GW_CONNECT_S),
+                  # every traced request kept, so that its spans count its hedges
+                  GORDO_TPU_FLIGHT_RECENT="20000", GORDO_TPU_FLIGHT_CAPACITY="20000",
+                  GORDO_TPU_FLIGHT_SLOW_S="0.000001", GORDO_TPU_FAULT_PLAN=json.dumps(plan))
+    with open(gw_log, "w") as fh:
+        gateway = subprocess.Popen(
+            [sys.executable, "-m", "gordo_tpu_torch", "--log-level", "INFO", "run-gateway",
+             "--host", "127.0.0.1", "--port", str(gw_port), "--membership-dir", str(directory)],
+            cwd=REPO, env=gw_env, stdout=subprocess.DEVNULL, stderr=fh, start_new_session=True)
+    out: dict = {}
+    try:
+        def both_alive():
+            for node in nodes.values():
+                if not node.alive():
+                    raise AssertionError(f"{node.node_id} exited {node.proc.returncode}: "
+                                         f"{node.log.read_text()[-3000:]}")
+            if gateway.poll() is not None:
+                raise AssertionError(f"the gateway exited: {gw_log.read_text()[-3000:]}")
+            status = _gw_status(gw_base)
+            return sorted(n for n, i in status["nodes"].items() if i["alive"]) == sorted(nodes)
+        _until(both_alive, "two live nodes in the gateway's ring", 600, step=0.1)
+        out["start_to_ring_s"] = time.perf_counter() - started
+        leases = {}
+        for name in os.listdir(directory / "nodes"):
+            if ".hb-" not in name:
+                lease = json.loads((directory / "nodes" / name).read_text())
+                leases[lease["node_id"]] = lease
+        for node_id, node in nodes.items():
+            lease = leases[node_id]
+            if (lease["address"] != f"127.0.0.1:{node.port}" or lease["pid"] != node.proc.pid
+                    or lease.get("uds") != str(root / f"{node_id}.sock")):
+                raise AssertionError(f"{node_id}'s lease {lease}")
+        status = _gw_status(gw_base)
+        ring = _gw_ring(status)
+        primary = {key: ring.candidates(key.split("@")[0])[0] for key in bodies}
+        # each machine's direct response, from its primary
+        for key in bodies:
+            result = _gw_post(f"{nodes[primary[key]].base}/gordo/v0/{OBS_PROJECT}/"
+                              f"{key.split('@')[0]}/anomaly/prediction", bodies[key])
+            if result["status"] != 200:
+                raise AssertionError(f"{key}: the direct request answered {result['status']}")
+            traffic.shapes[key] = _shape(json.loads(result["body"]))
+        machine_keys = sorted(machines)
+
+        # placement: the partition faults first (each a hedge), then the load,
+        # routed and direct in turns
+        victims = [k for k in machine_keys if primary[k] == "gw-node-a"]
+        for key in victims[:1] * GW_PARTITIONS:
+            result = traffic.send(gw_base, key, "partition", traced=True)
+            if result["status"] != 200 or result["node"] != "gw-node-b":
+                raise AssertionError(f"a partitioned request answered {result['status']} from "
+                                     f"{result['node']}")
+        time.sleep(0.3)  # the nodes' counters are dumped every 0.05 s
+        base_counts = {n: node.read() for n, node in nodes.items()}
+        metrics_before = _request(gw_base + "/metrics")[1].decode()
+        direct_load, routed = [], []
+        for _ in range(GW_ROUNDS):
+            direct_load += traffic.load(lambda key: nodes[primary[key]].base, "direct",
+                                        GW_DIRECT_S / GW_ROUNDS)
+            routed += traffic.load(gw_base, "routed", GW_LOAD_S / GW_ROUNDS)
+        for key in full:
+            routed.append(traffic.send(gw_base, key, "routed"))
+        pids = _compute_pids()
+        time.sleep(0.3)  # the nodes' counters are dumped every 0.05 s
+        counts = {n: node.read() for n, node in nodes.items()}
+        metrics_after = _request(gw_base + "/metrics")[1].decode()
+        statuses = sorted({r["status"] for r in routed + direct_load})
+        if statuses != [200]:
+            raise AssertionError(f"routed and direct requests answered {statuses}")
+        misplaced = [r for r in routed if r["node"] != primary[r["key"]]]
+        if misplaced:
+            raise AssertionError(f"{len(misplaced)} routed answers not from the ring's primary: "
+                                 f"{misplaced[:3]}")
+        # placed on a node: the routed requests it answered, the direct ones sent to it
+        placed = {n: {d: sum(1 for r in routed if r["node"] == n and machines[r["machine"]] == d)
+                      + sum(1 for r in direct_load if primary[r["key"]] == n
+                            and machines[r["machine"]] == d)
+                      for d in GW_TOL} for n in nodes}
+        launched = {n: {d: counts[n][d] - base_counts[n][d] for d in GW_TOL} for n in nodes}
+        for n in nodes:
+            for d in GW_TOL:
+                if not (0 < launched[n][d] <= n_blocks * placed[n][d]
+                        if placed[n][d] else launched[n][d] == 0):
+                    raise AssertionError(f"{n} launched {launched[n][d]} {d} forwards for "
+                                         f"{placed[n][d]} requests placed on it")
+            if counts[n]["plain_calls"]:
+                raise AssertionError(f"{n} reached the plain attention")
+        for family in ("gordo_gateway_hedges_total", "gordo_gateway_failovers_total"):
+            if _prom(metrics_after, family) != _prom(metrics_before, family):
+                raise AssertionError(f"{family} moved under the routed load without a fault")
+        # where nvidia-smi sees this container's processes under other pids (all
+        # 1 in a sandbox), their count still tells: this process and the nodes
+        if gateway.pid in pids or len(pids) > 1 + len(nodes):
+            raise AssertionError(f"the gateway (pid {gateway.pid}) is among the card's compute "
+                                 f"processes {pids}")
+        out["direct"] = _percentiles([r["ms"] for r in direct_load])
+        out["routed"] = _percentiles([r["ms"] for r in routed])
+        out["overhead_p50_ms"] = out["routed"]["p50_ms"] - out["direct"]["p50_ms"]
+        out["placed"], out["launched"] = placed, launched
+        out["compute_pids"] = {"gateway": gateway.pid, "nodes": {n: nodes[n].proc.pid
+                                                                  for n in nodes},
+                               "listed": pids}
+        out["batching"] = {n: counts[n]["batching"] for n in nodes}
+        print(f"gateway placement on {card}: {GW_USERS} users x {GW_ROWS} rows, routed p50/p99 "
+              f"{out['routed']['p50_ms']:.2f}/{out['routed']['p99_ms']:.2f} ms ("
+              f"{out['routed']['requests']} requests), direct {out['direct']['p50_ms']:.2f}/"
+              f"{out['direct']['p99_ms']:.2f} ms ({out['direct']['requests']}); placed {placed}, "
+              f"launched {launched}; the two nodes in the ring {out['start_to_ring_s']:.1f} s "
+              f"after the start; compute processes {out['compute_pids']}", flush=True)
+
+        # trace: one traced request alone; its stitch complete, the node's
+        # subtree its request span and the batcher's device call. Node b's
+        # machines first: the `trace` process then runs beside the leave
+        batched = sorted((k for k in machine_keys
+                          if counts[primary[k]]["batching"].get(machines[k])),
+                         key=lambda k: primary[k] != "gw-node-b")
+        if not batched:
+            raise AssertionError(f"no node batches a dtype: {out['batching']}")
+        result = traffic.send(gw_base, batched[0], "trace", traced=True)
+        node = primary[batched[0]]
+        traced: list = []
+
+        def trace_it():
+            try:
+                traced.append(_gw_trace(result["trace"], gw_port))
+            except AssertionError as exc:
+                traced.append(exc)
+
+        tracer = threading.Thread(target=trace_it)
+        tracer.start()
+        if node != "gw-node-b":
+            tracer.join(timeout=300)  # its node leaves next
+
+        # the graceful leave: SIGTERM node a under load
+        leaver = nodes["gw-node-a"]
+        stop = threading.Event()
+        load_result: list = []
+        loader = threading.Thread(target=lambda: load_result.append(
+            traffic.load(gw_base, "leave", stop=stop, traced=True)))
+        loader.start()
+        time.sleep(1.0)
+        t_term = time.monotonic()
+        os.kill(leaver.proc.pid, signal.SIGTERM)
+        _until(lambda: not any(n.startswith("gw-node-a.") and ".hb-" not in n
+                               for n in os.listdir(directory / "nodes")),
+               "node a's lease to be withdrawn", 10)
+        t_gone = time.monotonic()
+        _until(lambda: list(_gw_status(gw_base)["nodes"]) == ["gw-node-b"],
+               "the gateway to drop node a", 10)
+        time.sleep(1.0)
+        stop.set()
+        loader.join(timeout=300)
+        leave_code = leaver.proc.wait(timeout=120)
+        leave = load_result[0]
+        if leave_code != 0:
+            raise AssertionError(f"node a's drain exited {leave_code}")
+        bad = [r for r in leave if r["status"] != 200]
+        if bad:
+            raise AssertionError(f"{len(bad)} non-200 answers across the graceful leave: "
+                                 f"{sorted({r['status'] for r in bad})}")
+        moved = [r for r in leave if primary[r["key"]] == "gw-node-a" and r["t0"] > t_gone]
+        first_moved = min((r["t1"] for r in moved if r["node"] == "gw-node-b"), default=None)
+        if not moved or any(r["node"] != "gw-node-b" for r in moved if r["t0"] > t_gone + 0.5):
+            raise AssertionError("node a's machines did not move to node b")
+        out["leave"] = {"requests": len(leave), "lease_withdrawn_s": t_gone - t_term,
+                        "first_moved_answer_s": (None if first_moved is None
+                                                 else first_moved - t_term),
+                        "drain_exit": leave_code}
+        tracer.join(timeout=300)
+        lines = traced[0] if traced else ["(no output)"]
+        if isinstance(lines, AssertionError):
+            raise lines
+        if (f"stitch {node}: ok" not in lines or any("PARTIAL" in line for line in lines)
+                or not any(line.strip().startswith(f"serve_request @{node} ") for line in lines)
+                or not any(line.strip().startswith(f"serve_device_call @{node} ")
+                           for line in lines)):
+            raise AssertionError("the trace of a routed request is not a complete stitch:\n"
+                                 + "\n".join(lines))
+        out["trace_lines"] = len(lines)
+        old.append(leaver)
+        nodes["gw-node-a"] = _GatewayNode(root, directory, collection, "gw-node-a", 1, True,
+                                          device)
+        _until(both_alive, "node a back in the ring", 600, step=0.1)
+        out["leave"]["rejoin_s"] = time.monotonic() - t_term
+        # the leave's refused connects opened node a's breaker in the gateway:
+        # its machines come back to it once a half-open probe has succeeded
+        home = next(k for k in machine_keys if primary[k] == "gw-node-a")
+        _until(lambda: traffic.send(gw_base, home, "rejoin")["node"] == "gw-node-a",
+               "node a to answer its machines again", 60, step=0.1)
+        out["leave"]["home_again_s"] = time.monotonic() - t_term
+        print(f"gateway graceful leave on {card}: {out['leave']}", flush=True)
+
+        # the crash: SIGKILL the primary of one machine under load
+        victim = primary[machine_keys[0]]
+        survivor = next(n for n in nodes if n != victim)
+        stop = threading.Event()
+        load_result = []
+        loader = threading.Thread(target=lambda: load_result.append(
+            traffic.load(gw_base, "crash", stop=stop, traced=True)))
+        loader.start()
+        time.sleep(1.5)
+        t_kill = time.monotonic()
+        nodes[victim].stop(signal.SIGKILL)
+        time.sleep(GW_LEASE_S + 1.0)
+        stop.set()
+        loader.join(timeout=300)
+        crash = load_result[0]
+        shard = {k for k in bodies if primary[k] == victim}
+        healthy_bad = [r for r in crash if r["key"] not in shard and r["status"] != 200]
+        if healthy_bad:
+            raise AssertionError(f"{len(healthy_bad)} requests on the healthy shard failed: "
+                                 f"{healthy_bad[:3]}")
+        failed = [r for r in crash if r["status"] != 200]
+        in_flight = [r for r in crash if r["key"] in shard and r["t0"] <= t_kill <= r["t1"]]
+        if any(r not in in_flight for r in failed):
+            raise AssertionError("a request failed that was not in flight on the victim at "
+                                 "the kill")
+        recovered = min((r["t1"] for r in crash if r["key"] in shard and r["t0"] > t_kill
+                         and r["status"] == 200), default=None)
+        # the chaos conductor's failover_s: the first 200 of the shard after the kill
+        answered = min(r["t1"] for r in crash if r["key"] in shard and r["t1"] > t_kill
+                       and r["status"] == 200)
+        if recovered is None or recovered - t_kill > GW_LEASE_S:
+            raise AssertionError(f"the killed shard answered 200 again after "
+                                 f"{None if recovered is None else recovered - t_kill} s")
+        hedged_at_kill = [r for r in in_flight if r["status"] == 200 and r["node"] == survivor]
+        if not hedged_at_kill:
+            raise AssertionError(f"no request in flight on {victim} at the kill was hedged "
+                                 f"({len(in_flight)} in flight)")
+        lines = _gw_trace(hedged_at_kill[0]["trace"], gw_port)
+        if (not any(line.startswith(f"stitch {victim}: MISSING") for line in lines)
+                or f"stitch {survivor}: ok" not in lines
+                or not any(line.strip().startswith(f"serve_request @{survivor} ")
+                           for line in lines)):
+            raise AssertionError("the trace of a request hedged at the kill:\n" + "\n".join(lines))
+        out["crash"] = {"victim": victim, "requests": len(crash), "failed": len(failed),
+                        "in_flight_at_kill": len(in_flight), "hedged_at_kill": len(hedged_at_kill),
+                        "recovery_s": recovered - t_kill, "first_200_s": answered - t_kill}
+        print(f"gateway crash on {card}: {len(failed)} of {len(in_flight)} requests in flight "
+              f"on {victim} at the SIGKILL failed, {len(hedged_at_kill)} hedged; the shard's "
+              f"first 200 {answered - t_kill:.4f} s after the kill, to a request sent after it "
+              f"{recovered - t_kill:.4f} s", flush=True)
+        # the victim restarts (its boot runs beside the counts below)
+        old.append(nodes[victim])
+        nodes[victim] = _GatewayNode(root, directory, collection, victim, 2, False, device)
+
+        # /metrics against the client's counts (every request answered by now)
+        text = _request(gw_base + "/metrics")[1].decode()
+        mine = {}
+        for r in traffic.records:
+            if r["step"] == "direct":
+                continue
+            key = (("node", r["node"] or "none"), ("status", str(r["status"])))
+            mine[key] = mine.get(key, 0) + 1
+        theirs = {labels: value for labels, value in
+                  _prom(text, "gordo_gateway_requests_total").items() if value}
+        if theirs != {k: float(v) for k, v in mine.items()}:
+            raise AssertionError(f"gordo_gateway_requests_total {theirs} against the client's "
+                                 f"{mine}")
+        # a hedged request is answered by another node than its machine's
+        # primary (or not 200): those requests' own traces count the hedges
+        hedges, failovers = 0, {}
+        for r in traffic.records:
+            if not r["sent_trace"] or (r["status"] == 200 and r["node"] == primary[r["key"]]):
+                continue
+            doc = json.loads(_request(f"{gw_base}/debug/flight?trace={r['sent_trace']}")[1])
+            for event in doc["traceEvents"]:
+                args = event.get("args") or {}
+                if event["name"] == "gateway_retry_decision" and args.get("decision") == "hedge":
+                    hedges += 1
+                    failovers[args["failed_node"]] = failovers.get(args["failed_node"], 0) + 1
+        counted = {"hedges": sum(_prom(text, "gordo_gateway_hedges_total").values()),
+                   "failovers": {dict(k)["node"]: v for k, v in
+                                 _prom(text, "gordo_gateway_failovers_total").items() if v}}
+        if counted != {"hedges": float(hedges),
+                       "failovers": {k: float(v) for k, v in failovers.items()}}:
+            raise AssertionError(f"hedges and failovers {counted} against the traces' "
+                                 f"{hedges}, {failovers}")
+        if hedges < GW_PARTITIONS + len(hedged_at_kill):
+            raise AssertionError(f"{hedges} hedges, fewer than the partitions and the kill's")
+        _until(both_alive, f"{victim} back in the ring", 600, step=0.1)
+        generation = _gw_status(gw_base)["nodes"][victim]["generation"]
+        if generation != 2:
+            raise AssertionError(f"{victim} restarted over its stale lease at generation "
+                                 f"{generation}, not 2")
+        out["crash"]["restart_generation"] = generation
+        time.sleep(2 * GW_HEALTH_S)  # a membership poll after the rejoin
+        text = _request(gw_base + "/metrics")[1].decode()
+        drains = sum(_prom(text, "gordo_gateway_drain_events_total").values())
+        if drains:
+            raise AssertionError(f"the gateway drained a node {drains} time(s): burns "
+                                 f"{_prom(text, 'gordo_gateway_node_latency_burn_rate')}")
+        nodes_gauge = {dict(k)["state"]: v for k, v in _prom(text, "gordo_gateway_nodes").items()}
+        if nodes_gauge != {"live": 2.0, "dead": 0.0, "draining": 0.0}:
+            raise AssertionError(f"gordo_gateway_nodes {nodes_gauge}")
+        out["metrics"] = {"requests": {f"{dict(k)['node']}/{dict(k)['status']}": v
+                                       for k, v in theirs.items()},
+                          "hedges": hedges, "failovers": failovers, "nodes": nodes_gauge}
+
+        # the drill, on stub nodes since the start
+        drill.wait(timeout=300)
+        report = json.loads(drill_out.read_text()) if drill_out.exists() else {}
+        if drill.returncode != 0 or not report.get("ok") or not all(
+                r["ok"] for r in report.get("invariants", [])):
+            raise AssertionError(f"the chaos drill exited {drill.returncode}: "
+                                 f"{drill_log.read_text()[-3000:]}")
+        out["drill"] = {key: report[key] for key in ("scenario", "availability", "failover_s",
+                                                     "p99_ms", "scheduled")}
+        out["drill"]["invariants"] = {r["check"]: r["ok"] for r in report["invariants"]}
+        final = {n: node.read() for n, node in nodes.items()}
+        final.update({f"{o.node_id}@{i}": o.read() for i, o in enumerate(old)})
+    finally:
+        for node in list(nodes.values()) + old:
+            node.stop(signal.SIGKILL)
+        gateway.send_signal(signal.SIGTERM)
+        try:
+            gateway.wait(timeout=30)
+        finally:
+            try:
+                os.killpg(gateway.pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+        if drill.poll() is None:
+            os.killpg(drill.pid, signal.SIGKILL)
+            drill.wait(timeout=30)
+    out["errors"] = traffic.errors
+    out["launches"] = {d: sum(c[d] for c in final.values()) for d in GW_TOL}
+    out["phase_s"] = time.perf_counter() - started
+    if not all(out["launches"].values()):
+        raise AssertionError(f"the gateway phase launched a forward no time: {out['launches']}")
+    print(f"gateway phase on {card}: routed p50/p99 {out['routed']['p50_ms']:.2f}/"
+          f"{out['routed']['p99_ms']:.2f} ms, direct {out['direct']['p50_ms']:.2f}/"
+          f"{out['direct']['p99_ms']:.2f} ms, overhead p50 {out['overhead_p50_ms']:.2f} ms "
+          f"({out['routed']['requests']} and {out['direct']['requests']} requests, "
+          f"{GW_USERS} users x {GW_ROWS} rows); graceful leave: lease withdrawn after "
+          f"{out['leave']['lease_withdrawn_s']:.4f} s, first answer of node a's machines from "
+          f"node b after {out['leave']['first_moved_answer_s']} s, rejoined after "
+          f"{out['leave']['rejoin_s']:.1f} s; crash recovery {out['crash']['recovery_s']:.4f} "
+          f"s; max rel err {traffic.errors}; forward launches {out['launches']}; drill "
+          f"{out['drill']}; phase {out['phase_s']:.1f} s", flush=True)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -7155,6 +7835,8 @@ def main() -> int:
     drifting = drift_path(card, REPO / "build" / "chip_smoke_drift",
                           built=(fleet_root / "fleet-cli", fleet_root / "fleet-cli-register"))
     torch.cuda.empty_cache()
+    routed = gateway_path(card, REPO / "build" / "chip_smoke_gateway", batcher_root)
+    torch.cuda.empty_cache()
 
     forward["launches_by_path"] = {"serving": serving, "server_surface": base_route,
                                    "batcher": batched["launches"],
@@ -7192,6 +7874,8 @@ def main() -> int:
                                      if key != "launches"}}, default=str))
     print(json.dumps({"drift": {key: value for key, value in drifting.items()
                                 if key != "launches"}}, default=str))
+    print(json.dumps({"gateway": {key: value for key, value in routed.items()
+                                  if key != "launches"}}, default=str))
     for entry, key, launches, fleet_launches in (
             (dq, "dq", build, fleet), (dkv, "dkv", build, fleet),
             (bf16_dq, "dq", bf16_build, bf16_fleet), (bf16_dkv, "dkv", bf16_build, bf16_fleet)):
@@ -7214,6 +7898,10 @@ def main() -> int:
     # rebuilder's subprocess, float32
     for entry, key in ((forward, "forward"), (dq, "dq"), (dkv, "dkv")):
         entry["launches_by_path"]["drift"] = drifting["launches"][key]
+    # the gateway's: the forwards of its two nodes (every incarnation), read
+    # from their own counters
+    for entry, dtype in ((forward, "float32"), (bf16_forward, "bfloat16")):
+        entry["launches_by_path"]["gateway"] = routed["launches"][dtype]
     dh16_entries = moe_entries(entries, moe)
     for entry in entries:
         entry["fleet_shape"] = fleet_times[entry["name"]]

@@ -1,6 +1,7 @@
 """
 The port's command line, ``python -m gordo_tpu_torch``: the counterparts
-of ``gordo build`` and ``gordo run-server`` (``gordo_tpu/cli/cli.py``).
+of ``gordo build``, ``batch-build``, ``drift-rebuilder``, ``run-server``,
+``run-gateway``, ``trace`` and ``chaos`` (``gordo_tpu/cli/cli.py``).
 
 ``build MACHINE OUTPUT_DIR`` builds one machine from its config, a JSON
 object given as the argument or in the ``MACHINE`` environment variable
@@ -52,8 +53,26 @@ connection with ``GORDO_TPU_FAST_LANE_EVENT_LOOP=0``), as the JAX command
 does. The server reads ``ENABLE_PROMETHEUS`` and ``PROJECT`` (its
 ``/metrics``), and every command ``GORDO_TPU_LOG_FORMAT=json`` (one JSON
 object a log line, stamped with the request's trace and span ids:
-observability/logs.py), as the JAX CLI reads them. The JAX command's
-gateway node registration is not ported (ROADMAP.md item A3).
+observability/logs.py), as the JAX CLI reads them. With
+``GORDO_TPU_GATEWAY_DIR`` set the server holds a lease in that membership
+directory (``GORDO_TPU_GATEWAY_ADVERTISE`` the address it advertises), as
+the JAX command's does.
+
+``run-gateway`` runs the cross-node gateway (server/gateway.py) on
+``--host`` and ``--port`` (``GORDO_GATEWAY_HOST``, ``GORDO_GATEWAY_PORT``,
+default 5556) over ``--membership-dir`` (``GORDO_TPU_GATEWAY_DIR``). It
+initialises no CUDA: the gateway computes nothing.
+
+``trace TRACE_ID`` fetches one request's stitched cross-node trace from a
+gateway's ``/debug/flight?trace=`` (``--host``, ``--port`` 5556; ``--out``
+keeps the JSON) and prints its span tree and a ``stitch`` line per node, as
+the JAX command prints them; it exits 2 when the gateway is unreachable and
+1 on another answer than 200.
+
+``chaos run SCENARIO`` runs one chaos drill (chaos/conductor.py; ``--dir``
+its working directory, ``--out`` the JSON report, ``--verbose``) and exits
+0 only when every invariant holds; ``chaos list`` lists the scenarios of
+``--dir`` (default the port's JSON copies, ``gordo_tpu_torch/chaos/scenarios``).
 """
 
 import argparse
@@ -369,7 +388,150 @@ def _parser() -> argparse.ArgumentParser:
         default=_env_flag("GORDO_TPU_SERVING_WARMUP", False),
         help="warm every model (its kernel libraries, one predict per row bucket, its "
              "parameters into the batcher's bank) in each worker before it accepts")
+    gateway_cmd = commands.add_parser(
+        "run-gateway", help="Run the cross-node serving gateway over a membership directory")
+    gateway_cmd.add_argument("--host", default=os.environ.get("GORDO_GATEWAY_HOST", "0.0.0.0"))
+    gateway_cmd.add_argument("--port", type=_int_range(1, 65535),
+                             default=int(os.environ.get("GORDO_GATEWAY_PORT", "5556")))
+    gateway_cmd.add_argument("--membership-dir", default=os.environ.get("GORDO_TPU_GATEWAY_DIR"),
+                             help="the shared directory the serving nodes heartbeat their leases "
+                                  "into (default: $GORDO_TPU_GATEWAY_DIR)")
+    trace_cmd = commands.add_parser(
+        "trace", help="Fetch and print one request's stitched cross-node trace from a gateway")
+    trace_cmd.add_argument("trace_id")
+    trace_cmd.add_argument("--host", default="127.0.0.1",
+                           help="the gateway's host (a node works too: its subtree)")
+    trace_cmd.add_argument("--port", type=int, default=5556, help="the gateway's port (5556)")
+    trace_cmd.add_argument("--out", default=None,
+                           help="also write the stitched Chrome-trace JSON here")
+    chaos_cmd = commands.add_parser("chaos", help="Failure drills against a gateway and a fleet")
+    chaos_commands = chaos_cmd.add_subparsers(dest="chaos_command", required=True)
+    chaos_run = chaos_commands.add_parser("run", help="Run one scenario; exit 0 iff every "
+                                                      "invariant holds")
+    chaos_run.add_argument("scenario")
+    chaos_run.add_argument("--dir", dest="work_dir", default=None,
+                           help="the drill's working directory (leases, drift queue); default a "
+                                "fresh temporary directory, removed afterwards")
+    chaos_run.add_argument("--out", default=None, help="also write the JSON report here")
+    chaos_run.add_argument("--verbose", action="store_true",
+                           help="the stack's and the gateway's logs on stderr")
+    chaos_list = chaos_commands.add_parser("list", help="List the scenarios and their invariants")
+    chaos_list.add_argument("--dir", dest="scenario_dir", default=None,
+                            help="a directory of JSON scenarios (default: the port's copies)")
     return parser
+
+
+def trace_lines(doc: dict, trace_id: str) -> List[str]:
+    """The ``trace`` command's lines for a stitched ``/debug/flight``
+    document: the span tree (indented, durations in ms, node-side spans
+    tagged ``@<node>``), then a ``stitch`` line per node."""
+    lines = [f"trace {trace_id}"]
+    events = doc.get("traceEvents") or []
+    known = {e.get("args", {}).get("span_id") for e in events}
+    children: dict = {}
+    roots = []
+    for event in events:
+        parent = event.get("args", {}).get("parent_span_id") or ""
+        if parent and parent in known:
+            children.setdefault(parent, []).append(event)
+        else:
+            roots.append(event)
+
+    def emit(event, depth):
+        args = dict(event.get("args") or {})
+        span_id = args.get("span_id")
+        node = args.pop("gordo_node", None)
+        attrs = " ".join(f"{k}={args[k]}" for k in sorted(args)
+                         if k not in ("trace_id", "span_id", "parent_span_id", "links"))
+        where = f" @{node}" if node else ""
+        dur_ms = float(event.get("dur", 0.0)) / 1000.0
+        lines.append(f"{'  ' * depth}{event.get('name')}{where} {dur_ms:.2f}ms  {attrs}".rstrip())
+        for child in sorted(children.get(span_id, ()), key=lambda c: c.get("ts", 0.0)):
+            emit(child, depth + 1)
+
+    for root in sorted(roots, key=lambda e: e.get("ts", 0.0)):
+        emit(root, 1)
+    stitch = doc.get("gordoStitch") or {}
+    for entry in stitch.get("nodes", ()):
+        mark = "ok" if entry.get("ok") else f"MISSING ({entry.get('reason')})"
+        lines.append(f"stitch {entry.get('node')}: {mark}")
+    if stitch and not stitch.get("complete"):
+        lines.append("stitch: PARTIAL — some node subtrees are missing")
+    return lines
+
+
+def trace(trace_id: str, host: str, port: int, out: Optional[str]) -> int:
+    """Print one request's stitched trace from ``host:port``'s
+    ``/debug/flight?trace=`` (``GORDO_TPU_DEBUG_ENDPOINTS`` must be on
+    there); 2 when unreachable, 1 on another answer than 200."""
+    import http.client
+
+    conn = http.client.HTTPConnection(host, port, timeout=10)
+    try:
+        conn.request("GET", f"/debug/flight?trace={trace_id}")
+        resp = conn.getresponse()
+        status, raw = resp.status, resp.read()
+    except OSError as exc:
+        print(f"error: cannot reach {host}:{port} ({exc})", file=sys.stderr)
+        return 2
+    finally:
+        conn.close()
+    if status != 200:
+        print(f"error: {host}:{port} answered {status}: {raw[:200].decode(errors='replace')}",
+              file=sys.stderr)
+        return 1
+    doc = json.loads(raw)
+    if out:
+        with open(out, "w") as fh:
+            json.dump(doc, fh, indent=1)
+    print("\n".join(trace_lines(doc, trace_id)))
+    return 0
+
+
+def chaos_run(scenario: str, work_dir: Optional[str], out: Optional[str], verbose: bool) -> int:
+    """Run one chaos scenario; 0 iff every invariant holds."""
+    import shutil
+    import tempfile
+
+    from .chaos import load_scenario, run_scenario
+
+    if verbose:
+        logging.getLogger().setLevel(logging.INFO)
+    spec = load_scenario(scenario)
+    directory = work_dir or tempfile.mkdtemp(prefix="gordo-chaos-")
+    try:
+        report = run_scenario(spec, directory)
+    finally:
+        if work_dir is None:
+            shutil.rmtree(directory, ignore_errors=True)
+    if out:
+        with open(out, "w") as fh:
+            json.dump(report, fh, indent=1)
+    for res in report["invariants"]:
+        print(f"[{'PASS' if res['ok'] else 'FAIL'}] {res['check']}: {res['detail']}")
+    print(f"{report['scenario']}: availability={report['availability']} "
+          f"p99={report['p99_ms']}ms failover_s={report['failover_s']} "
+          f"-> {'OK' if report['ok'] else 'FAILED'}")
+    return 0 if report["ok"] else 1
+
+
+def chaos_list(scenario_dir: Optional[str]) -> int:
+    """List the scenarios of ``scenario_dir`` and their invariants."""
+    from .chaos.scenario import SCENARIO_DIR, load_scenario
+
+    scenario_dir = scenario_dir or SCENARIO_DIR
+    for name in sorted(os.listdir(scenario_dir)):
+        if not name.endswith((".yaml", ".yml", ".json")):
+            continue
+        try:
+            spec = load_scenario(os.path.join(scenario_dir, name))
+        except Exception as exc:  # noqa: BLE001 -- a broken file is listed as such
+            print(f"{name}: INVALID ({exc})")
+            continue
+        checks = ",".join(inv.check for inv in spec.invariants)
+        print(f"{name}: {spec.name} — nodes={spec.nodes} phases={len(spec.phases)} "
+              f"invariants=[{checks}]")
+    return 0
 
 
 def _int_range(low: int, high: int):
@@ -400,6 +562,17 @@ def main(argv: Optional[List[str]] = None) -> int:
         run_server(args.host, args.port, args.device, None, None, args.workers,
                    args.worker_connections, args.warmup)
         return 0
+    if args.command == "run-gateway":
+        from .server.gateway import run_gateway
+
+        run_gateway(host=args.host, port=args.port, directory=args.membership_dir)
+        return 0
+    if args.command == "trace":
+        return trace(args.trace_id, args.host, args.port, args.out)
+    if args.command == "chaos":
+        if args.chaos_command == "run":
+            return chaos_run(args.scenario, args.work_dir, args.out, args.verbose)
+        return chaos_list(args.scenario_dir)
     try:
         if args.command == "batch-build":
             if args.config_file is None:

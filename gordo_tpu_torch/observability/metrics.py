@@ -37,11 +37,14 @@ Who feeds what in the port:
   ``DRIFT_QUEUE_DEPTH`` (observability/drift.py), ``WARM_STARTS``
   (parallel/batch_trainer.py), ``DRIFT_REBUILDS``
   (builder/drift_rebuild.py), ``HOT_SWAPS`` and ``HOT_SWAP_FAILURES``
-  (server/hotswap.py).
+  (server/hotswap.py);
+- the gateway tier: the eleven ``GATEWAY_*`` series (server/gateway.py),
+  and the chaos drills' ``CHAOS_ACTIONS``, ``CHAOS_INVARIANT_FAILURES``,
+  ``CHAOS_AVAILABILITY`` and ``CHAOS_FAILOVER_SECONDS``
+  (chaos/conductor.py).
 
-Registered and not fed yet, by the ROADMAP.md item that feeds them: the
-gateway and the chaos drills (A3); fault and bucket retries (A10); the
-elastic scheduler (A7).
+Registered and not fed yet, by the ROADMAP.md item that feeds them: fault
+and bucket retries (A10); the elastic scheduler (A7).
 With no counterpart
 in the port, because it compiles nothing: the XLA persistent cache
 (``XLA_CACHE_*``), the bucket-program jit cache (``PROGRAM_CACHE``,

@@ -36,7 +36,12 @@ Two front ends, both over the same parser functions and dispatch:
   a pipelined burst's responses in one vectored ``sendmsg``
   (``GORDO_TPU_FASTLANE_WRITEV``). Dispatch is synchronous on the loop
   thread, as in the JAX lane, so the batcher sees one request at a time
-  from it: its fuse width is 1.
+  from it: its fuse width is 1. A subclass that sets ``offloop`` answers
+  off the loop instead (server/gateway.py): :meth:`EventLoopServer._hand_off`
+  gives it each parsed request with its place in the connection's pipeline,
+  its threads return the response bytes through
+  :meth:`EventLoopServer.complete`, and a wake-up socket has the loop write
+  each connection's responses in request order.
 
 Gates: ``GORDO_TPU_FAST_LANE`` (default off) makes ``run-server`` mount the
 lane; ``GORDO_TPU_FAST_LANE_EVENT_LOOP`` (default on under the lane) picks
@@ -77,6 +82,7 @@ import socket
 import threading
 import time
 import timeit
+from collections import deque
 from http.client import responses as _status_phrases
 from typing import Dict, Optional, Tuple
 from urllib.parse import unquote
@@ -252,6 +258,14 @@ def _serialize(status: int, headers, body: bytes, keep_alive: bool) -> bytes:
     out.append(f"Content-Length: {len(body)}")
     out.append("Connection: keep-alive" if keep_alive else "Connection: close")
     return ("\r\n".join(out) + "\r\n\r\n").encode("latin-1") + body
+
+
+# hop-by-hop headers (RFC 7230 section 6.1, and the framing the lane writes
+# itself): a proxy in front of the lane forwards none of them
+_HOP_BY_HOP = frozenset((
+    "connection", "keep-alive", "proxy-authenticate", "proxy-authorization", "te", "trailers",
+    "transfer-encoding", "upgrade", "content-length",
+))
 
 
 def _refusal(exc: BadRequest) -> bytes:
@@ -446,6 +460,7 @@ class FastLaneServer:
 # ------------------------------------------------------------- event loop
 _ST_HEAD, _ST_BODY, _ST_CHUNK_SIZE, _ST_CHUNK_DATA, _ST_CHUNK_CRLF, _ST_CHUNK_TRAILER = range(6)
 _RECV_CHUNK = 262144
+_WAKE = object()  # the selector's tag of the off-loop wake-up socket
 
 
 class _Conn:
@@ -454,7 +469,8 @@ class _Conn:
     leaves in one ``sendmsg``), and the parser's state between callbacks."""
 
     __slots__ = ("sock", "buf", "out", "state", "method", "target", "version", "headers",
-                 "body", "body_remaining", "close_after_flush", "last_activity", "events")
+                 "body", "body_remaining", "close_after_flush", "last_activity", "events",
+                 "submitted", "emitted", "ready", "closing")
 
     def __init__(self, sock):
         self.sock = sock
@@ -468,6 +484,12 @@ class _Conn:
         self.close_after_flush = False
         self.last_activity = time.monotonic()
         self.events = selectors.EVENT_READ
+        # off the loop (EventLoopServer.offloop): requests handed off, responses
+        # written, finished responses waiting for an earlier one, and whether a
+        # handed-off request asked to close the connection
+        self.submitted = self.emitted = 0
+        self.ready: Dict[int, Tuple[bytes, bool]] = {}
+        self.closing = False
 
     def queue(self, data: bytes) -> None:
         self.out.append(data)
@@ -487,7 +509,8 @@ class _Conn:
     def mid_request(self) -> bool:
         """A request partly received or a response partly written: the
         request timeout applies, not the idle bound."""
-        return self.state != _ST_HEAD or bool(self.buf) or bool(self.out)
+        return (self.state != _ST_HEAD or bool(self.buf) or bool(self.out)
+                or self.submitted != self.emitted)
 
 
 class EventLoopServer(FastLaneServer):
@@ -497,7 +520,16 @@ class EventLoopServer(FastLaneServer):
     answered from one wake-up. Requests are dispatched on the loop thread,
     in arrival order. Keep-alive, ``Expect: 100-continue``, the drain,
     partial writes (kept and flushed on ``EVENT_WRITE``) and the idle bound
-    are handled on the loop."""
+    are handled on the loop.
+
+    With ``offloop`` set (a subclass), requests are not dispatched on the
+    loop: :meth:`_hand_off` receives each one with its sequence number on
+    its connection, and the subclass's threads call :meth:`complete` with
+    the response bytes; the loop, woken through a socket pair, writes each
+    connection's responses in request order. Pipelined bytes after a
+    request that closes the connection are not served."""
+
+    offloop = False
 
     def __init__(self, app: GordoServer, host: str = "127.0.0.1", port: int = 0,
                  fd: Optional[int] = None, request_timeout: float = 120.0,
@@ -511,6 +543,12 @@ class EventLoopServer(FastLaneServer):
         self._writev = writev_enabled() and hasattr(socket.socket, "sendmsg")
         self._sys_recv = metric_catalog.FASTLANE_SYSCALLS.labels(op="recv")
         self._sys_send = metric_catalog.FASTLANE_SYSCALLS.labels(op="send")
+        self._done: deque = deque()  # (conn, seq, payload, close) from complete()
+        self._wake_r = self._wake_w = None
+        if self.offloop:
+            self._wake_r, self._wake_w = socket.socketpair()
+            self._wake_r.setblocking(False)
+            self._wake_w.setblocking(False)
 
     # ------------------------------------------------------------ lifecycle
     def serve_forever(self) -> None:
@@ -520,6 +558,8 @@ class EventLoopServer(FastLaneServer):
         sel.register(self._sock, selectors.EVENT_READ, None)
         if self._uds_sock is not None:
             sel.register(self._uds_sock, selectors.EVENT_READ, None)
+        if self._wake_r is not None:
+            sel.register(self._wake_r, selectors.EVENT_READ, _WAKE)
         last_sweep = time.monotonic()
         try:
             while not self._shutdown.is_set():
@@ -531,6 +571,10 @@ class EventLoopServer(FastLaneServer):
                     if key.data is None:
                         self._accept(key.fileobj)
                         continue
+                    if key.data is _WAKE:
+                        self._drain_wake()
+                        self._emit_completions()
+                        continue
                     conn = key.data
                     if mask & selectors.EVENT_WRITE:
                         self._flush(conn)
@@ -541,13 +585,14 @@ class EventLoopServer(FastLaneServer):
                     last_sweep = now
                     self._sweep_idle(now)
         finally:
+            self._emit_completions()
             if is_draining():
                 # a drain's last responses may still be buffered: give them a
                 # bounded window to reach their sockets
                 self._drain_flush()
             for conn in list(self._conns.values()):
                 self._close(conn)
-            for listener in (self._sock, self._uds_sock):
+            for listener in (self._sock, self._uds_sock, self._wake_r):
                 if listener is not None:
                     try:
                         sel.unregister(listener)
@@ -607,8 +652,9 @@ class EventLoopServer(FastLaneServer):
     def _advance(self, conn: _Conn) -> bool:
         """One parser step: True when it made progress, False when it needs
         more bytes (or the connection is closing)."""
-        if conn.close_after_flush:
-            # a response with Connection: close is queued: pipelined bytes
+        if conn.close_after_flush or conn.closing:
+            # a response with Connection: close is queued (or, off the loop, a
+            # request that asked for it was handed off): pipelined bytes
             # after it are not served
             return False
         buf, state = conn.buf, conn.state
@@ -681,19 +727,75 @@ class EventLoopServer(FastLaneServer):
         return True
 
     def _finish_request(self, conn: _Conn) -> None:
-        resilience.request_started()
-        try:
+        if self.offloop:
             keep = (client_keep_alive(conn.version, conn.headers.get("connection"))
                     and not is_draining())
-            conn.queue(self._dispatch(conn.method, conn.target, conn.headers, bytes(conn.body),
-                                      keep))
-        finally:
-            resilience.request_finished()
+            seq = conn.submitted
+            conn.submitted += 1
+            conn.closing = not keep
+            self._hand_off(conn, seq, conn.method, conn.target, dict(conn.headers),
+                           bytes(conn.body), keep)
+        else:
+            resilience.request_started()
+            try:
+                keep = (client_keep_alive(conn.version, conn.headers.get("connection"))
+                        and not is_draining())
+                conn.queue(self._dispatch(conn.method, conn.target, conn.headers,
+                                          bytes(conn.body), keep))
+            finally:
+                resilience.request_finished()
+            if not keep:
+                conn.close_after_flush = True
         conn.state = _ST_HEAD
         conn.body = bytearray()
         conn.last_activity = time.monotonic()
-        if not keep:
-            conn.close_after_flush = True
+
+    # ------------------------------------------------------ off the loop
+    def _hand_off(self, conn: _Conn, seq: int, method: str, target: str,
+                  headers: Dict[str, str], body: bytes, keep: bool) -> None:
+        """An ``offloop`` subclass's intake: request ``seq`` of ``conn``,
+        parsed; its answer comes back through :meth:`complete`."""
+        raise NotImplementedError
+
+    def complete(self, conn: _Conn, seq: int, payload: bytes, close: bool) -> None:
+        """From any thread: ``payload`` answers request ``seq`` of ``conn``
+        (``close``: the connection closes after it). The loop writes it once
+        every earlier response of the connection is written."""
+        self._done.append((conn, seq, payload, close))
+        try:
+            self._wake_w.send(b"x")
+        except OSError:  # a full pair already holds a wake-up, or the lane closed
+            pass
+
+    def _drain_wake(self) -> None:
+        try:
+            while self._wake_r.recv(4096):
+                pass
+        except OSError:  # drained (BlockingIOError), or closed
+            pass
+
+    def _emit_completions(self) -> None:
+        """Queue every finished response whose predecessors on its
+        connection are written, in request order, and flush."""
+        while True:
+            try:
+                conn, seq, payload, close = self._done.popleft()
+            except IndexError:
+                return
+            if conn.sock.fileno() < 0:
+                continue  # the connection went away while the answer was made
+            conn.ready[seq] = (payload, close)
+            progressed = False
+            while conn.emitted in conn.ready:
+                body, close_flag = conn.ready.pop(conn.emitted)
+                conn.emitted += 1
+                conn.queue(body)
+                if close_flag:
+                    conn.close_after_flush = True
+                progressed = True
+            if progressed:
+                conn.last_activity = time.monotonic()
+                self._flush(conn)
 
     # ------------------------------------------------------------- writing
     def _flush(self, conn: _Conn) -> None:
@@ -765,6 +867,15 @@ class EventLoopServer(FastLaneServer):
                 self._want(conn, selectors.EVENT_READ | selectors.EVENT_WRITE)
                 return
         self._close(conn)
+
+    def server_close(self) -> None:
+        super().server_close()
+        for sock in (self._wake_r, self._wake_w):
+            if sock is not None:
+                try:
+                    sock.close()
+                except OSError:  # pragma: no cover - closed twice
+                    pass
 
     def _drain_flush(self, budget_s: float = 1.0) -> None:
         """Before the loop closes every connection, give buffered responses

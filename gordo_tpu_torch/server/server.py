@@ -74,6 +74,15 @@ worker checks its device, warms up (server/warmup.py) when asked, and then
 accepts on the shared listener. The arbiter reaps and respawns dead
 workers (their telemetry shards are removed from the fleet view), stops
 respawning after repeated boot failures, and on SIGTERM drains the pool.
+With ``GORDO_TPU_GATEWAY_DIR`` set, the server holds a lease in that
+membership directory (server/membership.py) so that the gateway
+(server/gateway.py) places its ring segment here: one lease a server, held
+by the process that owns the listener (the arbiter of a pool, so a
+worker's death and respawn leave it as it is), advertising
+``GORDO_TPU_GATEWAY_ADVERTISE`` or the bound ``host:port``, and the fast
+lane's Unix-domain socket where the node binds one. SIGTERM's drain
+withdraws the lease first, so the gateway re-places the segment at its
+next membership poll.
 
 Each artifact under ``MODEL_COLLECTION_DIR`` (one directory per model,
 serializer/serializer.py) is loaded at its first request, with its
@@ -922,18 +931,46 @@ def _maybe_warmup(app: GordoServer, warmup: bool) -> None:
     shared.flush(force=True)
 
 
-def _install_drain_handler(server) -> None:
-    """The first SIGTERM starts the drain: the accept loop is stopped from a
-    helper thread (``shutdown`` called in the serving thread's own signal
-    frame would deadlock ``serve_forever``) and the requests in flight
-    finish; a second SIGTERM exits at once."""
+def _register_node(sock: socket.socket, host: str, uds: Optional[str] = None):
+    """The server's lease in ``GORDO_TPU_GATEWAY_DIR`` (None when the
+    variable is unset), advertising ``GORDO_TPU_GATEWAY_ADVERTISE`` or the
+    listener's ``host:port`` (the host name for a wildcard bind), and
+    ``uds`` where the node binds one. A failed registration logs and the
+    server serves on without membership, as the JAX server does."""
+    from . import membership
+
+    directory = membership.gateway_dir()
+    if not directory:
+        return None
+    advertise = os.environ.get("GORDO_TPU_GATEWAY_ADVERTISE")
+    if not advertise:
+        bind_host = socket.gethostname() if host in ("0.0.0.0", "::") else host
+        advertise = f"{bind_host}:{sock.getsockname()[1]}"
+    try:
+        return membership.NodeRegistration(directory, address=advertise, uds=uds)
+    except OSError:
+        logger.exception("gateway registration failed; serving without membership")
+        return None
+
+
+def _install_drain_handler(server, registration=None) -> None:
+    """The first SIGTERM starts the drain: the lease (``registration``) is
+    withdrawn and the accept loop stopped from a helper thread (``shutdown``
+    called in the serving thread's own signal frame would deadlock
+    ``serve_forever``), and the requests in flight finish; a second SIGTERM
+    exits at once."""
+    def drain():
+        if registration is not None:
+            registration.close()
+        server.shutdown()
+
     def on_term(signum, frame):
         if not resilience.begin_drain():
             logger.warning("second SIGTERM during drain; exiting now")
             os._exit(0)
         logger.info("SIGTERM: draining — closing listener, finishing %d in-flight request(s) "
                     "within %.1fs", resilience.inflight_requests(), resilience.drain_budget_s())
-        threading.Thread(target=server.shutdown, name="gordo-drain", daemon=True).start()
+        threading.Thread(target=drain, name="gordo-drain", daemon=True).start()
 
     signal.signal(signal.SIGTERM, on_term)
 
@@ -952,16 +989,21 @@ def _finish_drain(app: GordoServer, server) -> None:
         pass
 
 
-def _serve(host: str, port: int, device, collection_dir, sock: socket.socket, warmup: bool):
-    """One worker: build the server on the shared listener, warm up, serve
-    until drained; returns the server once it stopped."""
+def _serve(host: str, port: int, device, collection_dir, sock: socket.socket, warmup: bool,
+           register: bool = False):
+    """One worker: build the server on the shared listener, warm up, and
+    with ``register`` take the node's lease (after the warm-up, advertising
+    the Unix-domain socket the front end really bound); returns ``(app,
+    server, registration)`` ready to serve."""
     app, server = make_front_end(host, port, device, collection_dir, fd=sock.fileno())
     _maybe_warmup(app, warmup)
-    _install_drain_handler(server)
+    registration = (_register_node(sock, host, getattr(server, "uds_path", None))
+                    if register else None)
+    _install_drain_handler(server, registration)
     logger.info("Serving %s on port %d (%s)", app.collection_dir,
                 getattr(server, "server_port", None) or server.server_address[1],
                 type(server).__name__)
-    return app, server
+    return app, server, registration
 
 
 def run_server(host: str = "0.0.0.0", port: int = 5555, device=None,
@@ -978,7 +1020,8 @@ def run_server(host: str = "0.0.0.0", port: int = 5555, device=None,
     library; without ``nvcc`` the pool fails to start with the compiler's
     error), makes a telemetry shard directory unless
     ``GORDO_TPU_TELEMETRY_DIR`` names one, drops ``GORDO_TPU_UDS_PATH`` (the
-    workers cannot share one socket path) and forks. A worker that dies
+    workers cannot share one socket path), takes the node's lease under
+    ``GORDO_TPU_GATEWAY_DIR`` (one server, one lease) and forks. A worker that dies
     before signalling readiness, or within 2 s of its start, is a boot
     failure; after 5 in a row the arbiter respawns at most once every 10 s,
     and exits with an error when no worker is left. SIGTERM to the arbiter
@@ -1005,9 +1048,11 @@ def run_server(host: str = "0.0.0.0", port: int = 5555, device=None,
         sock.listen(max(128, worker_connections))
     logger.info("Starting server on %s:%s with %d worker(s)", host, sock.getsockname()[1],
                 workers)
+    registration = None
     try:
         if workers == 1:
-            app, server = _serve(host, port, device, collection_dir, sock, warmup)
+            app, server, registration = _serve(host, port, device, collection_dir, sock, warmup,
+                                               register=True)
             server.serve_forever()
             _finish_drain(app, server)
             return
@@ -1018,8 +1063,11 @@ def run_server(host: str = "0.0.0.0", port: int = 5555, device=None,
             _build.build_all()
         if fast_codec.enabled():
             native.load()  # the codec's library, built once for every worker
-        _Arbiter(host, port, device, collection_dir, sock, workers, warmup).run()
+        registration = _register_node(sock, host)
+        _Arbiter(host, port, device, collection_dir, sock, workers, warmup, registration).run()
     finally:
+        if registration is not None:
+            registration.close()
         sock.close()
         if made_dir is not None:
             shutil.rmtree(made_dir, ignore_errors=True)
@@ -1027,18 +1075,21 @@ def run_server(host: str = "0.0.0.0", port: int = 5555, device=None,
 
 class _Arbiter:
     """The prefork pool's parent: forks the workers, reaps and respawns
-    them from a poll loop, throttles boot failures, and on SIGTERM drains
-    the pool. It serves nothing and touches no CUDA."""
+    them from a poll loop, throttles boot failures, and on SIGTERM
+    withdraws the node's lease (``registration``) and drains the pool. It
+    serves nothing and touches no CUDA."""
 
     FAST_DEATH_S = 2.0
     MAX_FAST_DEATHS = 5
     RETRY_S = 10.0
     POLL_S = 0.2
 
-    def __init__(self, host, port, device, collection_dir, sock, workers: int, warmup: bool):
+    def __init__(self, host, port, device, collection_dir, sock, workers: int, warmup: bool,
+                 registration=None):
         self.host, self.port, self.device = host, port, device
         self.collection_dir, self.sock = collection_dir, sock
         self.workers, self.warmup = workers, warmup
+        self.registration = registration
         self.pids: set = set()
         self.spawned: Dict[int, float] = {}
         self.ready: Dict[int, int] = {}  # pid -> the read end of its readiness pipe
@@ -1052,7 +1103,7 @@ class _Arbiter:
             signal.signal(signal.SIGCHLD, signal.SIG_DFL)
             # TERM kills a booting worker: there is nothing to drain yet
             signal.signal(signal.SIGTERM, signal.SIG_DFL)
-            app, server = _serve(self.host, self.port, self.device, self.collection_dir,
+            app, server, _ = _serve(self.host, self.port, self.device, self.collection_dir,
                                  self.sock, self.warmup)
             try:
                 os.write(ready_w, b"R")
@@ -1152,6 +1203,10 @@ class _Arbiter:
             self.shutting_down = True
             # a second SIGTERM must not abort the cleanup midway
             signal.signal(signal.SIGTERM, signal.SIG_IGN)
+            if self.registration is not None:
+                # the graceful leave: the gateway re-places the segment while
+                # the workers drain
+                self.registration.close()
             for pid in list(self.pids):
                 try:
                     os.kill(pid, signal.SIGTERM)

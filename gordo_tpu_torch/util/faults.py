@@ -48,9 +48,13 @@ group's members; supports ``wedge``). The drift loop's sites:
 ``drift_detect`` in the drift detector's event emission
 (observability/drift.py), ``drift_enqueue`` in the queue's enqueue
 (parallel/drift_queue.py) and ``swap_commit`` at the start of each hot swap
-(server/hotswap.py), each with the machine's name. ``KNOWN_SITES`` is the
-JAX package's whole vocabulary: the build, gateway and chaos sites are
-wired by the ROADMAP.md items that port those paths.
+(server/hotswap.py), each with the machine's name. The gateway tier's:
+``gateway_route`` at the top of the gateway's routing (machine = the
+placement key) and ``node_partition`` before each upstream attempt
+(machine = node id) in server/gateway.py, ``node_dead`` and
+``lease_refresh`` in the membership heartbeat (server/membership.py).
+``KNOWN_SITES`` is the JAX package's whole vocabulary: the build sites are
+wired by the ROADMAP.md item that ports that path (A10).
 """
 
 import json

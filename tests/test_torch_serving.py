@@ -360,7 +360,8 @@ def test_resolve_device_defaults_to_cuda_and_never_falls_back():
 def test_port_imports_no_jax_and_nothing_of_gordo_tpu():
     code = """
 import importlib, pkgutil, sys
-for blocked in ("jax", "jaxlib", "pandas", "sklearn", "werkzeug", "yaml", "prometheus_client"):
+for blocked in ("jax", "jaxlib", "pandas", "sklearn", "werkzeug", "yaml", "prometheus_client",
+                "click"):
     sys.modules[blocked] = None
 import gordo_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(gordo_tpu_torch.__path__, "gordo_tpu_torch.")]
@@ -410,6 +411,10 @@ import gordo_tpu_torch.observability.drift
 import gordo_tpu_torch.parallel.drift_queue
 import gordo_tpu_torch.builder.drift_rebuild
 import gordo_tpu_torch.server.hotswap
+# the gateway tier: membership leases, the gateway, the chaos drills
+import gordo_tpu_torch.server.membership
+import gordo_tpu_torch.server.gateway
+from gordo_tpu_torch.chaos import conductor, invariants, load, node, scenario, stack
 from gordo_tpu_torch import cli
 for argv in (["batch-build", "fleet.json", "out", "--device", "cpu", "--fail-fast"],
              ["batch-build", "fleet.json", "out", "--trace-file", "t.json",
@@ -421,12 +426,19 @@ for argv in (["batch-build", "fleet.json", "out", "--device", "cpu", "--fail-fas
               "--poll-interval", "1", "--device", "cpu"],
              ["run-server", "--port", "5555", "--device", "cpu"],
              ["run-server", "--no-batch-predicts"],
-             ["run-server", "--workers", "1", "--worker-connections", "64", "--warmup"]):
+             ["run-server", "--workers", "1", "--worker-connections", "64", "--warmup"],
+             ["run-gateway", "--host", "127.0.0.1", "--port", "5556", "--membership-dir", "d"],
+             ["trace", "0af7651916cd43dd8448eb211c80319c", "--port", "5556", "--out", "t.json"],
+             ["chaos", "run", "s.json", "--dir", "w", "--out", "r.json", "--verbose"],
+             ["chaos", "list", "--dir", "scenarios"]):
     assert cli._parser().parse_args(argv).command == argv[0]
+assert cli._parser().parse_args(["chaos", "list"]).chaos_command == "list"
+assert cli._parser().parse_args(["run-gateway"]).port == 5556
 assert cli._parser().parse_args(["run-server"]).batch_predicts is True
 assert cli._parser().parse_args(["run-server", "--no-batch-predicts"]).batch_predicts is False
 import chip_smoke
-leaked = [m for m in sys.modules if m == "gordo_tpu" or m.startswith("gordo_tpu.")]
+leaked = [m for m in sys.modules if m in ("gordo_tpu", "benchmarks")
+          or m.startswith(("gordo_tpu.", "benchmarks."))]
 assert not leaked, leaked
 print(len(names))
 """
