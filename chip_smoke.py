@@ -114,9 +114,10 @@ Drive the PyTorch/CUDA port (gordo_tpu_torch) on one NVIDIA GPU.
    bucket against the serial model on the same parameters: one batch's
    output and parameter gradients (float32 within TOL_GRAD_REL, bf16
    within TOL_BF16_MODEL_REL), then 20 float32 step losses against the
-   serial trainer's on the same orders; ``python -m gordo_tpu_torch batch-build`` in a
-   subprocess (with a register, whose warm keys step 22 reads), and one of
-   its artifacts answering a base and an anomaly request.
+   serial trainer's on the same orders; ``python -m gordo_tpu_torch batch-build`` of
+   the first four machines (``--machines``) in a subprocess (with a
+   register, whose warm keys step 22 reads), and one of its artifacts
+   answering a base and an anomaly request.
 10. Feedforward build: ``python -m gordo_tpu_torch build`` of
    examples/config.yaml's two feedforward machines as written
    (``pump-station-a``, a DiffBasedAnomalyDetector, and ``turbine-c``, a
@@ -151,7 +152,7 @@ Drive the PyTorch/CUDA port (gordo_tpu_torch) on one NVIDIA GPU.
    connections reused, the forward launched once per block a fused call
    (a request alone in each on the event loop); ``openapi.json`` served.
 14. KFCV fleet: ``batch-build`` of ``turbine-c``, ``pump-station-a``,
-   128 KFCV bench machines under a seeded KFold(5), 128 under the default
+   64 KFCV bench machines under a seeded KFold(5), 64 under the default
    TimeSeriesSplit and the eight ``transformer-ae-512``: no machine built
    serially, the geometries' buckets apart, the KFold machines' split
    metadata sklearn's, the thresholds the plain KFCV math on the program's
@@ -343,14 +344,42 @@ Drive the PyTorch/CUDA port (gordo_tpu_torch) on one NVIDIA GPU.
    live, dead and draining nodes; the drill's report ``ok``. Printed: routed
    and direct p50 and p99, the overhead, the leave's and the crash's
    seconds, the phase's seconds.
-24. A ``batcher_path`` JSON line (both dtypes' numbers), a ``feedforward``
+24. Builds from real sensor data (:func:`data_build_path`), at
+   ``transformer-ae-512``'s widths over BUILD_CONFIG's 6,144 rows of the
+   eight tags' RandomDataProvider series. (a) The series written as per-tag
+   CSV files (``plant-a/<tag>.csv``; tag-3 missing six rows, which
+   interpolation fills, tag-2's first 32 values empty, which dropna
+   removes), and ``python -m gordo_tpu_torch build`` (the CLI in this
+   process, float32) of a machine reading them through
+   ``ParquetFilesProvider(file_format="csv")`` with a ``row_filter`` over two
+   backticked tags (about a fifth of the rows dropped), four metrics by name
+   and ``TimeSeriesSplit(n_splits=3, gap=512, test_size=768)``, with
+   ``--exceptions-reporter-file``. Gates: the dataset's X byte-equal to the
+   series interpolated, dropped and filtered by the same mask in numpy; the
+   native resample run for every tag; exit 0 and no report; every CV score
+   line finite; finite thresholds; ``model_offset`` 511; a served 1,535-row
+   answer within TOL_MODEL_REL of the direct predict; the held-out error
+   below the seeded weights'; forward, dQ and dK/dV launched. A second
+   ``build`` whose row filter keeps no row exits 80 with the JAX reporter's
+   JSON (``type``, ``message``, ``exit_code``). (b) ``batch-build`` of five
+   machines (bf16, 3 epochs) from an InfluxDB 1.x stub on 127.0.0.1 under
+   ``GORDO_TPU_FAULT_PLAN``: m-0's fetch fails once (retried), m-1's always,
+   m-2's data are poisoned, m-3 diverges, the bucket's first program fails
+   once. Gates: exit 81; ``--quarantine-report-file`` m-1 at
+   ``data_fetch``, m-2 at ``data_validation``, m-3 at ``training``, each with
+   its attempts, and two built; ``--metrics-file``'s fetch retries at least
+   1 and bucket retries exactly 1 more than before; m-0 and m-4 served
+   within TOL_BF16_MODEL_REL of their direct predicts; bf16 forward, dQ and
+   dK/dV launched. The phase's seconds and each build's phases printed.
+25. A ``batcher_path`` JSON line (both dtypes' numbers), a ``feedforward``
    JSON line, a ``fastlane``/``kfcv_fleet`` JSON line, a ``windowed`` JSON
    line, a ``transformer-ae-512-d384`` JSON line, a ``moe`` JSON line, an
    ``observability`` JSON line, a ``resilience`` JSON line, a ``drift`` JSON
-   line, a ``gateway`` JSON line, a ``kernels`` JSON line (twenty-two
-   entries: the six flash kernels at dh 64 with their results by head dim
-   and the observability, resilience, drift and gateway phases' launches
-   among their paths, the six again at dh 96 with the d384
+   line, a ``gateway`` JSON line, a ``data_build`` JSON line, a ``kernels``
+   JSON line (twenty-two entries: the six flash kernels at dh 64 with their
+   results by head dim and the observability, resilience, drift, gateway,
+   ``data_build`` (float32) and ``data_fleet`` (bf16) launches among their
+   paths, the six again at dh 96 with the d384
    path's launches and at dh 16 with the MoE fleet's, then the LSTM
    recurrence's forward and backward in float32 and bf16), then
    the last line
@@ -2841,18 +2870,22 @@ def fleet_loss_check(card: str, device: str = "cuda", config: dict = None) -> di
 
 
 def cli_batch_build(root: Path, device: str = "cuda") -> None:
-    """``python -m gordo_tpu_torch batch-build`` of the float32 fleet in a
-    subprocess on the card with a register (``fleet-cli-register``, which
-    the drift path's warm starts read; it must exit 0 and report every
-    machine); one of its artifacts then answers a base and an anomaly
-    request through the server."""
+    """``python -m gordo_tpu_torch batch-build`` of the float32 fleet's
+    config in a subprocess on the card, ``--machines`` its first
+    DRIFT_MACHINES (those the drift path serves), with a register
+    (``fleet-cli-register``, whose warm keys the drift path's warm starts
+    read); it must exit 0 and report every machine asked for; one of its
+    artifacts then answers a base and an anomaly request through the
+    server."""
     from gordo_tpu_torch.server.server import make_server
 
     config = root / "fleet.json"
     config.write_text(json.dumps({"machines": fleet_configs()}))
+    wanted = [c["name"] for c in fleet_configs()[:DRIFT_MACHINES]]
     output = root / "fleet-cli"
     command = [sys.executable, "-m", "gordo_tpu_torch", "--log-level", "WARNING",
                "batch-build", str(config), str(output), "--project-name", "smoke",
+               "--machines", ",".join(wanted),
                "--model-register-dir", str(root / "fleet-cli-register")]
     if device != "cuda":
         command += ["--device", device]
@@ -2862,7 +2895,7 @@ def cli_batch_build(root: Path, device: str = "cuda") -> None:
     built = [line for line in result.stdout.splitlines() if line.startswith("built: ")]
     print(f"python -m gordo_tpu_torch batch-build: exit {result.returncode} in "
           f"{time.perf_counter() - started:.1f} s, {len(built)} machines built", flush=True)
-    if result.returncode != 0 or len(built) != FLEET_MACHINES:
+    if result.returncode != 0 or len(built) != len(wanted):
         print(result.stderr[-4000:], file=sys.stderr)
         raise AssertionError(f"batch-build exited {result.returncode}")
     server = make_server("127.0.0.1", 0, device=device, collection_dir=str(output))
@@ -2937,7 +2970,7 @@ BENCH_ROWS = 100  # bench.py's anomaly request: 100 samples of the machine's tag
 BENCH_ROUNDS = 100  # bench.py's sequential requests (BENCH_SERVER_ROUNDS)
 FF_USERS = 16
 FF_REQUESTS = 48  # concurrent feedforward requests across the two models
-FF_FLEET_MACHINES = 128  # bench.py's fleet (BENCH_MACHINES, 1,024) cut to an eighth
+FF_FLEET_MACHINES = 64  # bench.py's fleet (BENCH_MACHINES, 1,024) cut to a sixteenth
 
 
 def _kfold_reference(n: int, n_splits: int, seed: int) -> list:
@@ -3646,7 +3679,7 @@ def fastlane_path(card: str, root: Path, transformers: Path, built: Path,
 # each of the KFold and the TimeSeriesSplit groups: at 256 each this phase
 # and the fast lanes' added 71.6 s to the smoke run (47.4 s and 24.2 s on an
 # H100 at 700 W), over the minute they are given, so each group is 128
-KFCV_FLEET_MACHINES = 128
+KFCV_FLEET_MACHINES = 64
 HELD_OUT_SAMPLE = 8  # machines of each group whose held-out error is read
 
 
@@ -3907,7 +3940,7 @@ WINDOWED_DTYPE = "bfloat16"
 # phases added ~113 s to the smoke run at 64 (over the ~90 s they may take),
 # and each later slice's phase needed room in the run's time; the fleet's N
 # is the first cut
-WINDOWED_FLEET_MACHINES = 8
+WINDOWED_FLEET_MACHINES = 4
 WINDOWED_ROUNDS = 10  # sequential 1,535-row anomaly requests a windowed artifact
 WINDOWED_REQUESTS = 2  # concurrent 1,535-row requests a model, batching forced on
 LSTM_STEPS_TIMED = 200  # compressor-b's training steps timed on the kernels
@@ -7042,8 +7075,8 @@ def drift_path(card: str, root: Path, device: str = "cuda", built: tuple = None)
 GW_MACHINES = BATCHER_MODELS  # of each dtype: the batcher phases' artifacts
 GW_USERS = 8
 GW_ROWS = BATCHER_ROWS
-GW_LOAD_S = 10.0  # the routed load's seconds
-GW_DIRECT_S = 5.0  # the same users straight to the machines' primaries
+GW_LOAD_S = 6.0  # the routed load's seconds
+GW_DIRECT_S = 3.0  # the same users straight to the machines' primaries
 GW_ROUNDS = 4  # the two arms in turns, so that neither has the other's place in time
 GW_LEASE_S = 2.0  # bench.py's serving_gateway knobs
 GW_HEARTBEAT_S = 0.1
@@ -7682,6 +7715,361 @@ def gateway_path(card: str, root: Path, batcher_root: Path, device: str = "cuda"
     return out
 
 
+# ------------------------------------------------ builds from real sensor data
+DATA_ASSET = "plant-a"
+DATA_FILTER_TAGS = ("tag-0", "tag-1")  # the row filter's two backticked tags
+DATA_NAN_ROWS = 32  # tag-2's first rows are empty in its file: dropna removes them
+DATA_GAP = (3000, 3006)  # tag-3's rows missing from its file: interpolation fills them
+DATA_METRICS = ["median_absolute_error", "mean_absolute_percentage_error",
+                "explained_variance_score", "root_mean_squared_error"]
+DATA_TEST_SIZE = 768  # TimeSeriesSplit(n_splits=3, gap=lookback, test_size=768)
+DATA_FLEET = 5  # machines m-0 .. m-4 of the Influx fleet, bf16
+DATA_FLEET_EPOCHS = 3
+# m-0 fetches once transiently, m-1 never, m-2's data is poisoned, m-3
+# diverges; the bucket's first program fails transiently once
+DATA_FAULT_PLAN = {"rules": [
+    {"site": "data_fetch", "machine": "m-0", "error": "transient", "times": 1},
+    {"site": "data_fetch", "machine": "m-1", "error": "permanent", "times": -1},
+    {"site": "poison_nan", "machine": "m-2"},
+    {"site": "diverge", "machine": "m-3"},
+    {"site": "bucket_compile", "error": "transient", "times": 1},
+]}
+DATA_QUARANTINED = {"m-1": "data_fetch", "m-2": "data_validation", "m-3": "training"}
+
+
+def _data_frame(n_rows: int):
+    """The eight tags' RandomDataProvider series over BUILD_CONFIG's span:
+    (int64 nanosecond stamps, (rows, 8) values)."""
+    from gordo_tpu_torch.dataset import RandomDataProvider, SensorTag
+
+    dataset = BUILD_CONFIG["dataset"]
+    start = datetime.fromisoformat(dataset["train_start_date"])
+    end = datetime.fromisoformat(dataset["train_end_date"])
+    series = list(RandomDataProvider().load_series(start, end, [SensorTag(t) for t in TAGS]))
+    values = np.stack([s.values for s in series], axis=1)
+    assert values.shape == (n_rows, len(TAGS))
+    return series[0].index.view(np.int64), values
+
+
+def _write_tag_files(base: Path, stamps: np.ndarray, values: np.ndarray) -> None:
+    """``{base}/{asset}/{tag}.csv`` for each tag: a header, then ISO time
+    and value rows; tag-2's first DATA_NAN_ROWS values empty, tag-3's
+    DATA_GAP rows left out."""
+    folder = base / DATA_ASSET
+    folder.mkdir(parents=True, exist_ok=True)
+    times = [datetime.fromtimestamp(int(ns) // 10**9, timezone.utc).isoformat()
+             for ns in stamps]
+    for j, tag in enumerate(TAGS):
+        lines = ["time,value"]
+        for i, (stamp, value) in enumerate(zip(times, values[:, j])):
+            if j == 3 and DATA_GAP[0] <= i < DATA_GAP[1]:
+                continue
+            lines.append(f"{stamp},{'' if j == 2 and i < DATA_NAN_ROWS else repr(float(value))}")
+        (folder / f"{tag}.csv").write_text("\n".join(lines) + "\n")
+
+
+def _data_expected(values: np.ndarray, bounds: tuple) -> tuple:
+    """What the file-backed dataset must give, computed apart in numpy:
+    tag-3's gap linearly interpolated between its neighbours, the rows
+    with tag-2's NaNs dropped, then the row filter's mask (tag-0 above
+    bounds[0] or tag-1 below bounds[1]). Returns (X, kept share)."""
+    table = np.array(values, np.float64)
+    rows = np.arange(len(table))
+    gap = (rows >= DATA_GAP[0]) & (rows < DATA_GAP[1])
+    table[gap, 3] = np.interp(rows[gap], rows[~gap], table[~gap, 3])
+    table = table[DATA_NAN_ROWS:]
+    keep = (table[:, 0] > bounds[0]) | (table[:, 1] < bounds[1])
+    return table[keep], float(keep.mean())
+
+
+def data_machine_config(name: str, provider: dict, row_filter: str = "", cv=None,
+                        metrics=None, base=None, **estimator) -> dict:
+    """BUILD_CONFIG's machine reading the eight tags of DATA_ASSET from
+    ``provider``, with ``row_filter``, ``cv`` and ``metrics`` where given."""
+    config = build_config(name, base=base, **estimator)
+    dataset = config["dataset"]
+    dataset.update(type="TimeSeriesDataset", asset=DATA_ASSET, data_provider=provider)
+    if row_filter:
+        dataset["row_filter"] = row_filter
+    if cv is not None:
+        config["evaluation"]["cv"] = cv
+    if metrics is not None:
+        config["evaluation"]["metrics"] = metrics
+    return config
+
+
+class _InfluxStub:
+    """An InfluxDB 1.x ``/query`` endpoint on 127.0.0.1 (a thread of this
+    process) answering the port's Influx provider from ``series``: one tag's
+    rows a query, those in the query's time bounds, epoch nanoseconds."""
+
+    _QUERY = re.compile(r"""SELECT "(?P<field>[^"]+)" FROM "(?P<measurement>[^"]+)" """
+                        r"""WHERE "[^"]+" = '(?P<tag>(?:[^']|'')*)' """
+                        r"""AND time >= '(?P<start>[^']+)' AND time < '(?P<end>[^']+)'""")
+
+    def __init__(self, stamps: np.ndarray, series: dict):
+        import http.server
+        import urllib.parse
+
+        stub = self
+        self.queries = 0
+
+        class Handler(http.server.BaseHTTPRequestHandler):
+            def do_GET(self):
+                query = urllib.parse.parse_qs(urllib.parse.urlparse(self.path).query)
+                match = _InfluxStub._QUERY.match(query["q"][0])
+                stub.queries += 1
+                tag = match["tag"].replace("''", "'")
+                lo, hi = (_iso_ns(match[k]) for k in ("start", "end"))
+                keep = (stamps >= lo) & (stamps < hi)
+                rows = [[int(t), float(v)] for t, v in zip(stamps[keep], series[tag][keep])]
+                block = {"statement_id": 0, "series": [
+                    {"name": match["measurement"], "columns": ["time", match["field"]],
+                     "values": rows}]}
+                body = json.dumps({"results": [block]}).encode()
+                self.send_response(200)
+                self.send_header("Content-Type", "application/json")
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+
+            def log_message(self, *args):
+                pass
+
+        self.server = http.server.ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+        self.port = self.server.server_address[1]
+        self.thread = threading.Thread(target=self.server.serve_forever, daemon=True)
+        self.thread.start()
+
+    def close(self) -> None:
+        self.server.shutdown()
+        self.server.server_close()
+        self.thread.join(timeout=30)
+
+
+def _iso_ns(text: str) -> int:
+    stamp = datetime.fromisoformat(text)
+    return round(stamp.timestamp()) * 10**9
+
+
+def _served_output(collection: Path, name: str, values: np.ndarray, device: str) -> np.ndarray:
+    """The model output of one anomaly request of ``values`` (the eight tags)
+    to ``name`` served from ``collection`` by the port's server."""
+    from gordo_tpu_torch.server.server import make_server
+
+    server = make_server("127.0.0.1", 0, device=device, collection_dir=str(collection))
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        status, body, _, _ = _request(
+            f"http://127.0.0.1:{server.server_address[1]}/gordo/v0/smoke/{name}"
+            f"/anomaly/prediction", _payload(values, datetime(2020, 3, 1, tzinfo=timezone.utc)))
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=60)
+    if status != 200:
+        raise AssertionError(f"{name} answered {status}: {body[:300]!r}")
+    return _columns(json.loads(body)["data"]["model-output"], TAGS)
+
+
+def data_build_path(card: str, root: Path, device: str = "cuda", base=None) -> dict:
+    """Builds from real sensor data (the module docstring's step 24), at
+    ``base`` (CONFIG by default): a float32 ``build`` through the CLI in this
+    process from per-tag CSV files with a row filter, named metrics and a
+    TimeSeriesSplit with a gap and a test size, a second ``build`` whose
+    row filter leaves no row, and a bf16 ``batch-build`` of DATA_FLEET
+    machines from an Influx stub under DATA_FAULT_PLAN. Returns the phase's
+    numbers and each dtype's kernel launches."""
+    import contextlib
+    import io
+
+    import torch
+
+    from gordo_tpu_torch import cli, native, serializer
+    from gordo_tpu_torch.dataset import GordoBaseDataset
+    from gordo_tpu_torch.machine import Machine
+    from gordo_tpu_torch.models.models import TransformerAutoEncoder
+    from gordo_tpu_torch.observability import metrics as catalog
+    from gordo_tpu_torch.util import faults
+
+    base = CONFIG if base is None else base
+    started = time.perf_counter()
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    n_rows = _config_rows(BUILD_CONFIG)
+    stamps, values = _data_frame(n_rows)
+    _write_tag_files(root / "files", stamps, values)
+    # tag-0 above its 40th percentile or tag-1 below its median: about a fifth dropped
+    bounds = (float(np.quantile(values[DATA_NAN_ROWS:, 0], 0.4)),
+              float(np.quantile(values[DATA_NAN_ROWS:, 1], 0.5)))
+    row_filter = (f"`{DATA_FILTER_TAGS[0]}` > {bounds[0]!r} | "
+                  f"`{DATA_FILTER_TAGS[1]}` < {bounds[1]!r}")
+    expected, kept = _data_expected(values, bounds)
+    files = {"type": "ParquetFilesProvider", "base_path": str(root / "files"),
+             "file_format": "csv"}
+    cv = {"sklearn.model_selection.TimeSeriesSplit": {
+        "n_splits": 3, "gap": base["lookback_window"], "test_size": DATA_TEST_SIZE}}
+    config = data_machine_config("data-file", files, row_filter, cv, DATA_METRICS, base)
+    spec = TransformerAutoEncoder(**base).build_spec(len(TAGS), len(TAGS))
+    out: dict = {"card": card, "rows": {"written": n_rows, "kept": len(expected),
+                                        "filter_kept_share": kept}}
+
+    # the dataset the build reads, against the numpy reference
+    resamples = native.CALLS["resample"]
+    dataset = GordoBaseDataset.from_dict(Machine.from_config(config, "smoke").dataset.to_dict())
+    X, _ = dataset.get_data()
+    out["native_resample_calls"] = native.CALLS["resample"] - resamples
+    if X.values.shape != expected.shape or X.values.tobytes() != expected.tobytes():
+        raise AssertionError(f"the file dataset's X {X.values.shape} is not the numpy "
+                             f"reference's {expected.shape} byte for byte")
+    if not out["native_resample_calls"] >= len(TAGS):
+        raise AssertionError(f"the native resample ran {out['native_resample_calls']} times")
+
+    # the file-backed build, float32, through the CLI in this process
+    collection = root / "collection"
+    reporter = root / "data-file-report.json"
+    if device == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    t0 = time.perf_counter()
+    stdout = io.StringIO()
+    with contextlib.redirect_stdout(stdout):
+        code = cli.main(["build", json.dumps(config), str(collection / "data-file"),
+                         "--print-cv-scores", "--device", device,
+                         "--exceptions-reporter-file", str(reporter)])
+    out["file_build_s"] = time.perf_counter() - t0
+    launches = _launches("float32")
+    out["launches"] = {"float32": launches}
+    lines = [line for line in stdout.getvalue().splitlines() if "_fold-" in line]
+    if code != 0 or reporter.exists():
+        raise AssertionError(f"the file-backed build exited {code}")
+    model = serializer.load(str(collection / "data-file"), device)
+    built = serializer.load_metadata(str(collection / "data-file"))["metadata"][
+        "build_metadata"]
+    out["file_build_phases"] = built["phases"]
+    out["file_build_splits"] = {k: v for k, v in built["model"]["cross_validation"][
+        "splits"].items() if k.startswith("fold-1")}
+    expected_lines = len(DATA_METRICS) * (len(TAGS) + 1) * 7
+    if len(lines) != expected_lines or not all(
+            math.isfinite(float(line.rsplit("=", 1)[1])) for line in lines):
+        raise AssertionError(f"expected {expected_lines} finite score lines, got {len(lines)}")
+    out["cv_means"] = {m.replace("_", "-"): built["model"]["cross_validation"]["scores"][
+        m.replace("_", "-")]["fold-mean"] for m in DATA_METRICS}
+    thresholds = [*model.feature_thresholds_, model.aggregate_threshold_]
+    if not all(math.isfinite(x) for x in thresholds):
+        raise AssertionError("a threshold of the file-backed build is not finite")
+    if built["model"]["model_offset"] != spec.lookback_window - 1:
+        raise AssertionError(f"model_offset {built['model']['model_offset']}")
+    request = values[-FULL_ROWS:]
+    served = _served_output(collection, "data-file", request, device)
+    direct = np.asarray(model.predict(request), np.float64)
+    out["served_rel_err"] = _max_rel([served], [direct])
+    if not out["served_rel_err"] <= TOL_MODEL_REL:
+        raise AssertionError(f"the served answer is {out['served_rel_err']} from the direct "
+                             f"predict")
+    if device == "cuda":
+        out["file_build_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        mse = held_out_mse(model, spec, n_rows)
+        out["held_out_mse"] = mse
+        if not mse["trained"] < mse["seeded"]:
+            raise AssertionError(f"the file-backed build's held-out error: {mse}")
+        if not all(launches[k] > 0 for k in ("forward", "dq", "dkv")):
+            raise AssertionError(f"the file-backed build launched {launches}")
+    print(f"data_build: file-backed build of {len(expected)} of {n_rows} rows "
+          f"(filter kept {kept:.3f}) exit {code} in {out['file_build_s']:.2f} s, phases "
+          f"{out['file_build_phases']}, float32 launches {launches}, CV means "
+          f"{out['cv_means']}, served {out['served_rel_err']:.2e}", flush=True)
+
+    # a row filter that keeps nothing: InsufficientDataError's code and report
+    empty = data_machine_config("data-empty", files, f"`{DATA_FILTER_TAGS[0]}` > 1e9", cv,
+                                DATA_METRICS, base)
+    report = root / "data-empty-report.json"
+    with contextlib.redirect_stderr(io.StringIO()):
+        code = cli.main(["build", json.dumps(empty), str(root / "empty" / "data-empty"),
+                         "--device", device, "--exceptions-reporter-file", str(report)])
+    doc = json.loads(report.read_text())
+    out["empty_build"] = {"exit": code, "report": doc}
+    if code != 80 or sorted(doc) != ["exit_code", "message", "type"] or (
+            doc["type"], doc["exit_code"]) != ("InsufficientDataError", 80):
+        raise AssertionError(f"the empty build: exit {code}, report {doc}")
+
+    # the Influx fleet, bf16, under the fault plan, through the CLI in this process
+    stub = _InfluxStub(stamps, {tag: values[:, j] for j, tag in enumerate(TAGS)})
+    influx = {"type": "InfluxDataProvider", "uri": f"127.0.0.1:{stub.port}/gordo"}
+    machines = [data_machine_config(f"m-{m}", influx, base=base, compute_dtype="bfloat16",
+                                    epochs=DATA_FLEET_EPOCHS) for m in range(DATA_FLEET)]
+    fleet_config = root / "fleet.json"
+    fleet_config.write_text(json.dumps({"machines": machines}))
+    quarantine, metrics_file = root / "quarantine.json", root / "fleet.prom"
+    knobs = {"GORDO_TPU_FAULT_PLAN": json.dumps(DATA_FAULT_PLAN),
+             "GORDO_TPU_FAULT_BACKOFF_BASE": "0.05", "GORDO_TPU_FAULT_JITTER": "0"}
+    saved = {k: os.environ.get(k) for k in knobs}
+    before = {"fault": catalog.FAULT_RETRIES.value(operation="data_fetch"),
+              "bucket": catalog.BUCKET_RETRIES.value()}
+    _reset_launches()
+    t0 = time.perf_counter()
+    os.environ.update(knobs)
+    faults.reset_plan()
+    try:
+        with contextlib.redirect_stdout(io.StringIO()) as fleet_out:
+            code = cli.main(["batch-build", str(fleet_config), str(root / "fleet"),
+                             "--project-name", "smoke", "--device", device,
+                             "--quarantine-report-file", str(quarantine),
+                             "--metrics-file", str(metrics_file)])
+    finally:
+        for k, v in saved.items():
+            os.environ.pop(k) if v is None else os.environ.__setitem__(k, v)
+        faults.reset_plan()
+        stub.close()
+    out["fleet_s"] = time.perf_counter() - t0
+    bf16 = _launches("bfloat16")
+    out["launches"]["bfloat16"] = bf16
+    records = json.loads(quarantine.read_text())
+    prom = metrics_file.read_text()
+    fetch_series = 'gordo_build_fault_retries_total{operation="data_fetch"}'
+    retries = {"fault": _prom_value(prom, fetch_series) - before["fault"],
+               "bucket": _prom_value(prom, "gordo_build_bucket_retries_total") - before["bucket"]}
+    got = {r["machine"]: r["stage"] for r in records["quarantined"]}
+    out["fleet"] = {"exit": code, "built": records["built"],
+                    "quarantined": records["quarantined"], "retries": retries,
+                    "influx_queries": stub.queries,
+                    "built_lines": fleet_out.getvalue().count("built: ")}
+    quarantined = [(r["machine"], r["stage"], r["reason"], r["attempts"])
+                   for r in records["quarantined"]]
+    print(f"data_build: Influx fleet exit {code} in {out['fleet_s']:.2f} s, quarantined "
+          f"{quarantined}, retries {retries}, {stub.queries} Influx queries, bf16 launches "
+          f"{bf16}", flush=True)
+    if code != 81 or got != DATA_QUARANTINED or records["built"] != 2:
+        raise AssertionError(f"the fleet: exit {code}, built {records['built']}, "
+                             f"quarantined {got}")
+    if not all(r["attempts"] >= 1 for r in records["quarantined"]):
+        raise AssertionError("a quarantine record has no attempts")
+    if not (retries["fault"] >= 1 and retries["bucket"] == 1):
+        raise AssertionError(f"the fleet's retry counters: {retries}")
+    for name in ("m-0", "m-4"):
+        fleet_model = serializer.load(str(root / "fleet" / name), device)
+        served = _served_output(root / "fleet", name, request, device)
+        err = _max_rel([served], [np.asarray(fleet_model.predict(request), np.float64)])
+        out["fleet"][f"{name}_served_rel_err"] = err
+        if not err <= TOL_BF16_MODEL_REL:
+            raise AssertionError(f"{name} served {err} from its direct predict")
+    if device == "cuda" and not all(bf16[k] > 0 for k in ("forward", "dq", "dkv")):
+        raise AssertionError(f"the bf16 fleet launched {bf16}")
+    out["phase_s"] = time.perf_counter() - started
+    print(f"data_build phase: {out['phase_s']:.1f} s", flush=True)
+    return out
+
+
+def _prom_value(text: str, series: str) -> float:
+    """The value of one series line of a Prometheus textfile (0 if absent)."""
+    for line in text.splitlines():
+        if line.startswith(series + " "):
+            return float(line.rsplit(" ", 1)[1])
+    return 0.0
+
+
 def main() -> int:
     import torch
 
@@ -7837,6 +8225,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     routed = gateway_path(card, REPO / "build" / "chip_smoke_gateway", batcher_root)
     torch.cuda.empty_cache()
+    data = data_build_path(card, REPO / "build" / "chip_smoke_data")
+    torch.cuda.empty_cache()
 
     forward["launches_by_path"] = {"serving": serving, "server_surface": base_route,
                                    "batcher": batched["launches"],
@@ -7876,6 +8266,8 @@ def main() -> int:
                                 if key != "launches"}}, default=str))
     print(json.dumps({"gateway": {key: value for key, value in routed.items()
                                   if key != "launches"}}, default=str))
+    print(json.dumps({"data_build": {key: value for key, value in data.items()
+                                     if key != "launches"}}, default=str))
     for entry, key, launches, fleet_launches in (
             (dq, "dq", build, fleet), (dkv, "dkv", build, fleet),
             (bf16_dq, "dq", bf16_build, bf16_fleet), (bf16_dkv, "dkv", bf16_build, bf16_fleet)):
@@ -7902,6 +8294,12 @@ def main() -> int:
     # from their own counters
     for entry, dtype in ((forward, "float32"), (bf16_forward, "bfloat16")):
         entry["launches_by_path"]["gateway"] = routed["launches"][dtype]
+    # the builds from real data: the file-backed float32 build's, the Influx
+    # fleet's bf16
+    for entry, key in ((forward, "forward"), (dq, "dq"), (dkv, "dkv")):
+        entry["launches_by_path"]["data_build"] = data["launches"]["float32"][key]
+    for entry, key in ((bf16_forward, "forward"), (bf16_dq, "dq"), (bf16_dkv, "dkv")):
+        entry["launches_by_path"]["data_fleet"] = data["launches"]["bfloat16"][key]
     dh16_entries = moe_entries(entries, moe)
     for entry in entries:
         entry["fleet_shape"] = fleet_times[entry["name"]]

@@ -14,9 +14,14 @@ span (``fetch``, ``validate``, ``cross_validation``, ``fit``,
 ``serialize``), timed into ``gordo_build_phase_seconds{phase}``, and every
 machine leaving ``build`` counts in ``gordo_build_machines_total`` (built
 or cached); the spans are no-ops unless a trace, span timing or
-``GORDO_TPU_PROFILE_DIR`` is on (observability/telemetry.py). The retry
-ladder and the shipped AOT programs of the JAX builder are not ported
-(ROADMAP.md item A10).
+``GORDO_TPU_PROFILE_DIR`` is on (observability/telemetry.py). The fetch
+runs under the JAX builder's retry ladder (util/faults.py:
+``FaultPolicy.from_env`` and ``retry_call``, each retry counted in
+``gordo_build_fault_retries_total``) with its fault sites ``data_fetch``
+and ``poison_nan``; a fetch that took more than one attempt is recorded in
+``BuildMetadata.fault_domain``. ``model_offset`` is read from the final
+estimator's ``output_offset``, as the fleet trainer reads it from the
+spec, instead of a predict over every row.
 """
 
 import datetime
@@ -44,7 +49,7 @@ from ..models.base import extract_metadata
 from ..models.utils import Frame, index_label, metric_wrapper
 from ..observability import metrics as metric_catalog, telemetry
 from ..serializer.resolver import locate
-from ..util import disk_registry
+from ..util import disk_registry, faults
 from ..util.faults import NonFiniteDataError, non_finite_report  # noqa: F401 -- re-exported
 
 logger = logging.getLogger(__name__)
@@ -119,7 +124,7 @@ class ModelBuilder:
         evaluation config says."""
         self.set_seed(seed=self.machine.evaluation.get("seed", 0))
         phases: Dict[str, float] = {}
-        dataset, X, y, query_sec = self._fetch_data()
+        dataset, X, y, query_sec, fetch_attempts = self._fetch_data()
         phases["fetch"] = query_sec
         validate_started = time.time()
         with telemetry.span("validate", _PHASE_VALIDATE, machine=self.machine.name):
@@ -127,6 +132,8 @@ class ModelBuilder:
         phases["validate"] = time.time() - validate_started
         if bad is not None:
             raise NonFiniteDataError(f"machine {self.machine.name}: {bad}")
+        fault_domain = ({"quarantined": False, "data_fetch_attempts": fetch_attempts}
+                        if fetch_attempts > 1 else {})
         model = serializer.from_definition(self.machine.model, self.device)
         machine_out = self._fresh_machine()
         dataset_meta = DatasetBuildMetadata(
@@ -146,6 +153,7 @@ class ModelBuilder:
                     model=ModelBuildMetadata(cross_validation=CrossValidationMetaData(
                         cv_duration_sec=cv_sec, scores=scores, splits=splits)),
                     dataset=dataset_meta,
+                    fault_domain=fault_domain,
                     phases=phases,
                 )
                 return model, machine_out
@@ -158,7 +166,7 @@ class ModelBuilder:
 
         machine_out.metadata.build_metadata = BuildMetadata(
             model=ModelBuildMetadata(
-                model_offset=self._determine_offset(model, X),
+                model_offset=self._determine_offset(model),
                 model_creation_date=str(
                     datetime.datetime.now(datetime.timezone.utc).astimezone()
                 ),
@@ -170,17 +178,30 @@ class ModelBuilder:
                 model_meta=extract_metadata(model),
             ),
             dataset=dataset_meta,
+            fault_domain=fault_domain,
             phases=phases,
         )
         metric_catalog.BUILD_MACHINES.labels(outcome="built").inc()
         return model, machine_out
 
-    def _fetch_data(self) -> Tuple[GordoBaseDataset, Frame, Frame, float]:
-        started = time.time()
-        with telemetry.span("fetch", _PHASE_FETCH, machine=self.machine.name):
+    def _fetch_data(self) -> Tuple[GordoBaseDataset, Frame, Frame, float, int]:
+        """The dataset, X, y, the seconds and the attempts of the fetch,
+        transient faults retried with backoff; a permanent fault or the
+        last attempt's raises."""
+        name = self.machine.name
+
+        def fetch():
+            faults.fault_point("data_fetch", machine=name)
             dataset = GordoBaseDataset.from_dict(self.machine.dataset.to_dict())
             X, y = dataset.get_data()
-        return dataset, X, y, time.time() - started
+            return dataset, faults.maybe_poison(name, X), y
+
+        started = time.time()
+        with telemetry.span("fetch", _PHASE_FETCH, machine=name):
+            (dataset, X, y), attempts = faults.retry_call(
+                fetch, faults.FaultPolicy.from_env(), key=name,
+                describe=f"data fetch for machine {name}")
+        return dataset, X, y, time.time() - started, attempts
 
     def _fresh_machine(self) -> Machine:
         """The output Machine: the same identity and config, metadata to fill."""
@@ -258,9 +279,17 @@ class ModelBuilder:
         return scorers
 
     @staticmethod
-    def _determine_offset(model, X: Frame) -> int:
-        """len(X) - len(model output): the rows a windowed model's output lacks."""
-        return len(X.values) - len(model.predict(X.values))
+    def _determine_offset(model) -> int:
+        """The rows a windowed model's output lacks: the ``output_offset``
+        of the final estimator inside its detector and pipeline (0 for a
+        model without one), what ``len(X) - len(model.predict(X))`` gives."""
+        while True:
+            if hasattr(model, "base_estimator"):
+                model = model.base_estimator
+            elif getattr(model, "steps", None):
+                model = model.steps[-1][1]
+            else:
+                return int(getattr(model, "output_offset", 0) or 0)
 
     @staticmethod
     def _save_model(model, machine: Machine, output_dir: Union[os.PathLike, str]):

@@ -8,15 +8,22 @@ object given as the argument or in the ``MACHINE`` environment variable
 (the output directory likewise, or ``OUTPUT_DIR``), on the card unless
 ``--device cpu`` is given. The model definition is round-tripped first so
 that every default is recorded. A failure exits with the code of its
-exception's class, as the JAX CLI's table has them. Jinja model templates
-and the exceptions-reporter file are not ported.
+exception's class, as the JAX CLI's table has them, and with
+``--exceptions-reporter-file`` (``EXCEPTIONS_REPORTER_FILE``) writes the
+JAX CLI's JSON report of it there at ``--exceptions-report-level``
+(``EXCEPTIONS_REPORT_LEVEL``: ``EXIT_CODE``, ``TYPE``, ``MESSAGE``, the
+default, or ``TRACEBACK``; cli_exceptions_reporter.py); ``batch-build``
+takes both too. Jinja model templates are not ported.
 
 ``batch-build CONFIG_FILE OUTPUT_DIR`` builds every machine of a project
 config (JSON, which is also YAML, so the JAX CLI reads the same file) with
 the fleet trainer (parallel/batch_trainer.py) into ``OUTPUT_DIR/<name>``.
 It exits 0 when every machine was built, 81 when some were quarantined and
-82 when none was (the JAX CLI's codes); ``--fail-fast`` stops at the first
-fault with the code of its exception. ``--trace-file`` (or
+82 when none was (the JAX CLI's codes), a line on stderr for each
+quarantined machine (its stage, reason, attempts and error) and, with
+``--quarantine-report-file`` (``GORDO_TPU_QUARANTINE_REPORT_FILE``), the
+JSON report ``{"built": n, "quarantined": [record, ...]}``; ``--fail-fast``
+stops at the first fault with the code of its exception. ``--trace-file`` (or
 ``GORDO_TPU_TRACE_FILE``) records the build's telemetry spans and writes
 them as Chrome trace-event JSON; ``--metrics-file`` (or
 ``GORDO_TPU_METRICS_FILE``) writes the metric catalog as a Prometheus
@@ -36,7 +43,8 @@ delta revisions under ``--output-dir`` (warm starts from
 ``--metrics-file`` writes the catalog after each drain.
 
 ``run-server`` serves the artifacts of ``MODEL_COLLECTION_DIR`` on
-``--host`` and ``--port`` (``GORDO_SERVER_HOST``, ``GORDO_SERVER_PORT``)
+``--host`` (an IP address) and ``--port`` (1 to 65535;
+``GORDO_SERVER_HOST``, ``GORDO_SERVER_PORT``)
 from ``--device``, as the JAX command does: a prefork pool of ``--workers``
 processes (1 to 4, default 2, ``GORDO_SERVER_WORKERS``; 1 serves from one
 process), each with a thread per connection, on one listener with a
@@ -59,7 +67,7 @@ directory (``GORDO_TPU_GATEWAY_ADVERTISE`` the address it advertises), as
 the JAX command's does.
 
 ``run-gateway`` runs the cross-node gateway (server/gateway.py) on
-``--host`` and ``--port`` (``GORDO_GATEWAY_HOST``, ``GORDO_GATEWAY_PORT``,
+``--host`` (an IP address) and ``--port`` (``GORDO_GATEWAY_HOST``, ``GORDO_GATEWAY_PORT``,
 default 5556) over ``--membership-dir`` (``GORDO_TPU_GATEWAY_DIR``). It
 initialises no CUDA: the gateway computes nothing.
 
@@ -76,6 +84,7 @@ its working directory, ``--out`` the JSON report, ``--verbose``) and exits
 """
 
 import argparse
+import ipaddress
 import json
 import logging
 import os
@@ -86,14 +95,14 @@ from typing import List, Optional
 from . import serializer
 from .builder import ModelBuilder
 from .builder.build_model import NonFiniteDataError
+from .cli_exceptions_reporter import ExceptionsReporter, ReportLevel
 from .dataset.datasets import InsufficientDataError
 from .dataset.sensor_tag import SensorTagNormalizationError
 from .machine import Machine
+from .util.faults import EXIT_NONE_BUILT, EXIT_PARTIAL
 
 logger = logging.getLogger(__name__)
 
-EXIT_PARTIAL = 81
-EXIT_NONE_BUILT = 82
 EXIT_CODES = (
     (Exception, 1),
     (PermissionError, 20),
@@ -102,12 +111,26 @@ EXIT_CODES = (
     (InsufficientDataError, 80),
     (NonFiniteDataError, 83),
 )
+_exceptions_reporter = ExceptionsReporter(EXIT_CODES)
 
 
 def exit_code(exc: BaseException) -> int:
     """The code of the closest class of ``exc`` in :data:`EXIT_CODES`."""
-    codes = dict(EXIT_CODES)
-    return next((codes[cls] for cls in type(exc).__mro__ if cls in codes), 1)
+    return _exceptions_reporter.exception_exit_code(type(exc))
+
+
+def report_exception(exc: BaseException, reporter_file: Optional[str],
+                     report_level: str) -> int:
+    """What a failed ``build`` or ``batch-build`` does, as the JAX CLI does
+    it: the traceback on stderr, the JSON report in ``reporter_file`` where
+    one is given (trimmed to a termination message's 2,024 bytes less 500),
+    and the exit code of the exception's class, returned."""
+    traceback.print_exception(type(exc), exc, exc.__traceback__)
+    if reporter_file:
+        _exceptions_reporter.safe_report(
+            ReportLevel.get_by_name(report_level, ReportLevel.EXIT_CODE), type(exc), exc,
+            exc.__traceback__, reporter_file, max_message_len=2024 - 500)
+    return exit_code(exc)
 
 
 def get_all_score_strings(machine: Machine) -> List[str]:
@@ -147,12 +170,14 @@ def batch_build(config_file: str, output_dir: str, project_name: str = "batch",
                 serial_fallback: bool = True, fail_fast: bool = False, device=None,
                 trace_file: Optional[str] = None, metrics_file: Optional[str] = None,
                 warm_start: Optional[bool] = None, drain_drift_queue: bool = False,
-                drift_queue_dir: Optional[str] = None) -> int:
+                drift_queue_dir: Optional[str] = None,
+                quarantine_report_file: Optional[str] = None) -> int:
     """Build the config's machines (or the comma-separated ``machines`` of
     it) as a fleet, or with ``drain_drift_queue`` those of them the drift
     queue asks for, into a delta revision; returns the exit code.
     ``trace_file`` and ``metrics_file`` receive the build's telemetry,
-    written whatever the build's outcome."""
+    written whatever the build's outcome; ``quarantine_report_file`` the
+    quarantined machines' records."""
     from .observability import telemetry
 
     if trace_file:
@@ -163,7 +188,7 @@ def batch_build(config_file: str, output_dir: str, project_name: str = "batch",
     try:
         return _batch_build(config_file, output_dir, project_name, machines,
                             model_register_dir, serial_fallback, fail_fast, device, warm_start,
-                            drain_drift_queue, drift_queue_dir)
+                            drain_drift_queue, drift_queue_dir, quarantine_report_file)
     finally:
         _flush_telemetry(trace_file, metrics_file)
 
@@ -198,7 +223,7 @@ def _project_machines(config_file: str, project_name: str) -> list:
 def _batch_build(config_file: str, output_dir: str, project_name: str, machines: str,
                  model_register_dir: Optional[str], serial_fallback: bool, fail_fast: bool,
                  device, warm_start: Optional[bool], drain_drift_queue: bool,
-                 drift_queue_dir: Optional[str]) -> int:
+                 drift_queue_dir: Optional[str], quarantine_report_file: Optional[str]) -> int:
     from .parallel.batch_trainer import BatchedModelBuilder
 
     selected = _project_machines(config_file, project_name)
@@ -234,11 +259,22 @@ def _batch_build(config_file: str, output_dir: str, project_name: str, machines:
     for _, machine_out in results:
         machine_out.report()
         print(f"built: {machine_out.name} -> {os.path.join(output_dir, machine_out.name)}")
-    for record in builder.quarantine_records:
+    return report_quarantine(builder.quarantine_records, len(results), quarantine_report_file)
+
+
+def report_quarantine(records: list, n_built: int, report_file: Optional[str]) -> int:
+    """The fleet build's exit report, as the JAX CLI's: a line on stderr for
+    each quarantined machine, the JSON report in ``report_file`` where one
+    is given, and the exit code (0 all built, 81 some, 82 none)."""
+    for record in records:
         print(f"quarantined: {record.machine} stage={record.stage} reason={record.reason} "
-              f"error={record.error}", file=sys.stderr)
-    if builder.quarantine_records:
-        return EXIT_PARTIAL if results else EXIT_NONE_BUILT
+              f"attempts={record.attempts} error={record.error}", file=sys.stderr)
+    if report_file:
+        with open(report_file, "w") as fh:
+            json.dump({"built": n_built, "quarantined": [r.to_dict() for r in records]}, fh,
+                      indent=2)
+    if records:
+        return EXIT_PARTIAL if n_built else EXIT_NONE_BUILT
     return 0
 
 
@@ -312,6 +348,7 @@ def _parser() -> argparse.ArgumentParser:
     build_cmd.add_argument("--print-cv-scores", action="store_true",
                            help="print the CV scores to stdout")
     build_cmd.add_argument("--device", default=None, help="cuda (default) or cpu")
+    _reporter_options(build_cmd)
     fleet_cmd = commands.add_parser("batch-build", help=batch_build.__doc__)
     fleet_cmd.add_argument("config_file", nargs="?", default=os.environ.get("CONFIG_FILE"),
                            help="the project config, JSON (default: $CONFIG_FILE)")
@@ -345,6 +382,11 @@ def _parser() -> argparse.ArgumentParser:
     fleet_cmd.add_argument("--drift-queue-dir",
                            default=os.environ.get("GORDO_TPU_DRIFT_QUEUE_DIR"),
                            help="the drift queue the servers enqueue into")
+    fleet_cmd.add_argument("--quarantine-report-file",
+                           default=os.environ.get("GORDO_TPU_QUARANTINE_REPORT_FILE"),
+                           help="write the quarantined machines and their reasons to this JSON "
+                                "file in addition to stderr")
+    _reporter_options(fleet_cmd)
     drift_cmd = commands.add_parser("drift-rebuilder", help=drift_rebuilder.__doc__)
     drift_cmd.add_argument("config_file", nargs="?", default=os.environ.get("CONFIG_FILE"),
                            help="the project config, JSON (default: $CONFIG_FILE)")
@@ -368,9 +410,12 @@ def _parser() -> argparse.ArgumentParser:
                            help="write the metric catalog as a Prometheus textfile to this "
                                 "path after each drain")
     server_cmd = commands.add_parser("run-server", help="Serve MODEL_COLLECTION_DIR's models")
-    server_cmd.add_argument("--host", default=os.environ.get("GORDO_SERVER_HOST", "0.0.0.0"))
-    server_cmd.add_argument("--port", type=int,
-                            default=int(os.environ.get("GORDO_SERVER_PORT", "5555")))
+    # string defaults: argparse checks them by their type too, as click
+    # checks the values of the environment variables
+    server_cmd.add_argument("--host", type=_host_ip,
+                            default=os.environ.get("GORDO_SERVER_HOST", "0.0.0.0"))
+    server_cmd.add_argument("--port", type=_int_range(1, 65535),
+                            default=os.environ.get("GORDO_SERVER_PORT", "5555"))
     server_cmd.add_argument("--device", default=None, help="cuda (default) or cpu")
     server_cmd.add_argument(
         "--batch-predicts", action=argparse.BooleanOptionalAction,
@@ -390,9 +435,10 @@ def _parser() -> argparse.ArgumentParser:
              "parameters into the batcher's bank) in each worker before it accepts")
     gateway_cmd = commands.add_parser(
         "run-gateway", help="Run the cross-node serving gateway over a membership directory")
-    gateway_cmd.add_argument("--host", default=os.environ.get("GORDO_GATEWAY_HOST", "0.0.0.0"))
+    gateway_cmd.add_argument("--host", type=_host_ip,
+                             default=os.environ.get("GORDO_GATEWAY_HOST", "0.0.0.0"))
     gateway_cmd.add_argument("--port", type=_int_range(1, 65535),
-                             default=int(os.environ.get("GORDO_GATEWAY_PORT", "5556")))
+                             default=os.environ.get("GORDO_GATEWAY_PORT", "5556"))
     gateway_cmd.add_argument("--membership-dir", default=os.environ.get("GORDO_TPU_GATEWAY_DIR"),
                              help="the shared directory the serving nodes heartbeat their leases "
                                   "into (default: $GORDO_TPU_GATEWAY_DIR)")
@@ -535,14 +581,40 @@ def chaos_list(scenario_dir: Optional[str]) -> int:
 
 
 def _int_range(low: int, high: int):
-    """An argparse type: an integer from ``low`` to ``high``."""
+    """An argparse type: an integer from ``low`` to ``high``, refused in
+    click's ``IntRange`` words."""
     def parse(text: str) -> int:
-        value = int(text)
+        try:
+            value = int(text)
+        except ValueError:
+            raise argparse.ArgumentTypeError(f"{text!r} is not a valid integer range.")
         if not low <= value <= high:
-            raise argparse.ArgumentTypeError(f"{value} is not in the range {low}-{high}")
+            raise argparse.ArgumentTypeError(
+                f"{value} is not in the range {low}<=x<={high}.")
         return value
 
     return parse
+
+
+def _host_ip(text: str) -> str:
+    """An argparse type: an IP address, refused as the JAX CLI's ``HostIP``
+    refuses what is not one."""
+    try:
+        ipaddress.ip_address(text)
+    except ValueError:
+        raise argparse.ArgumentTypeError(f"{text!r} is not a valid IP address")
+    return text
+
+
+def _reporter_options(command: argparse.ArgumentParser) -> None:
+    """The exceptions-reporter options of ``build`` and ``batch-build``."""
+    command.add_argument("--exceptions-reporter-file",
+                         default=os.environ.get("EXCEPTIONS_REPORTER_FILE"),
+                         help="JSON output file for exception information")
+    command.add_argument("--exceptions-report-level", type=str.upper,
+                         choices=ReportLevel.get_names(),
+                         default=os.environ.get("EXCEPTIONS_REPORT_LEVEL", "MESSAGE"),
+                         help="detail level for exception reporting (default MESSAGE)")
 
 
 def main(argv: Optional[List[str]] = None) -> int:
@@ -581,7 +653,8 @@ def main(argv: Optional[List[str]] = None) -> int:
                                args.machines, args.model_register_dir,
                                not args.no_serial_fallback, args.fail_fast, args.device,
                                args.trace_file, args.metrics_file, args.warm_start,
-                               args.drain_drift_queue, args.drift_queue_dir)
+                               args.drain_drift_queue, args.drift_queue_dir,
+                               args.quarantine_report_file)
         if args.command == "drift-rebuilder":
             if args.config_file is None:
                 raise ValueError("no config file: give it as an argument or in $CONFIG_FILE")
@@ -595,6 +668,9 @@ def main(argv: Optional[List[str]] = None) -> int:
         build(json.loads(args.machine_config), args.output_dir, args.model_register_dir,
               args.print_cv_scores, args.device)
     except Exception as exc:  # noqa: BLE001 -- the exit code reports the failure
+        if args.command in ("build", "batch-build"):
+            return report_exception(exc, args.exceptions_reporter_file,
+                                    args.exceptions_report_level)
         traceback.print_exc()
         return exit_code(exc)
     return 0

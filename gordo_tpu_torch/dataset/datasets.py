@@ -1,30 +1,42 @@
 """
 Datasets without pandas: the port's counterpart of the registry,
 ``InsufficientDataError``, ``TimeSeriesDataset`` and ``RandomDataset`` in
-``gordo_tpu/dataset/datasets.py``, with a numpy resample in place of the
-JAX package's host C++ one (``gordo_tpu/native``).
+``gordo_tpu/dataset/datasets.py``.
 
 ``get_data`` joins every tag and target tag on one time grid: each series
-is resampled as pandas' ``resample(resolution).agg(method)`` does (buckets
-closed and labelled on the left from the midnight of the first sample's
-day in the index's own time zone, NaNs skipped), the columns are joined on
-the union of their grids, gaps are filled as pandas'
-``interpolate(method="linear", limit=k)`` fills them, and rows that still
-hold a NaN are dropped. X and y come back as :class:`Frame` s with a
-datetime64[ns] (UTC) index and the time zone to read it in.
+is resampled as pandas' ``resample(resolution).agg(method)`` does, the
+columns are joined on the union of their grids, gaps are filled as pandas'
+``interpolate(method="linear", limit=k)`` fills them, rows that still hold
+a NaN are dropped, and the ``row_filter`` (a pandas query expression,
+dataset/row_filter.py) keeps its rows. X and y come back as :class:`Frame` s
+with a datetime64[ns] (UTC) index and the time zone to read it in.
+
+A fixed resolution ("10min", "1h", "D") buckets from the midnight of the
+first sample's day in the index's own time zone, closed and labelled on the
+left, by the native library's one-pass kernel (native/``gordo_resample``),
+as the JAX dataset's native path does. A calendar one buckets on local
+calendar edges, in numpy: ``W`` (``W-SUN``) and ``W-MON`` ... ``W-SAT``
+weeks labelled by their last day, ``MS`` months labelled by their first and
+``ME`` months by their last day. Other aliases are refused by name. The
+interpolation limit is ``interpolation_limit`` over the resolution where
+pandas reads the resolution as a ``Timedelta`` (a number and a fixed unit),
+else over the median spacing of the joined grid, as the JAX dataset takes it.
 """
 
 import abc
+import re
 import time
-from datetime import datetime, timedelta
+from datetime import date, datetime, time as clock, timedelta, tzinfo
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
+from .. import native
 from ..models.utils import Frame
 from .data_provider import (
-    GordoBaseDataProvider, RandomDataProvider, Series, resolution_ns,
+    GordoBaseDataProvider, RandomDataProvider, Series, datetime_ns, resolution_ns,
 )
+from .row_filter import RowFilter
 from .sensor_tag import normalize_sensor_tags
 
 _DATASET_REGISTRY: Dict[str, type] = {}
@@ -73,15 +85,67 @@ def _parse_dt(value: Union[str, datetime]) -> datetime:
     return ts
 
 
-def resample(series: Series, bucket_ns: int, methods: Sequence[str]
+_CALENDAR = re.compile(r"\s*(?:(W)(?:-(SUN|MON|TUE|WED|THU|FRI|SAT))?|(MS)|(ME))\s*")
+_WEEKDAYS = ("MON", "TUE", "WED", "THU", "FRI", "SAT", "SUN")
+_FIXED_TIMEDELTA = re.compile(r"\s*\d+\s*[A-Za-z]+\s*")
+
+
+def bucket_of(resolution: str) -> Union[int, str]:
+    """A dataset resolution as its bucket: nanoseconds for a fixed alias, the
+    alias itself for a calendar one (module docstring); ValueError for what
+    neither is."""
+    try:
+        return resolution_ns(resolution)
+    except ValueError:
+        if _CALENDAR.fullmatch(str(resolution)):
+            return str(resolution).strip()
+        raise ValueError(f"Unsupported resolution {resolution!r}: a fixed alias "
+                         f"('10min', '1h', 'D') or W, W-<day>, MS or ME") from None
+
+
+def _month_start(day: date, months: int = 0) -> date:
+    index = day.year * 12 + day.month - 1 + months
+    return date(index // 12, index % 12 + 1, 1)
+
+
+def calendar_edges(first_ns: int, last_ns: int, alias: str, tz: tzinfo
+                   ) -> Tuple[np.ndarray, np.ndarray]:
+    """The buckets of a calendar alias that cover [first_ns, last_ns]:
+    their edges (one more than buckets, UTC nanoseconds of local midnights)
+    and their labels, as pandas' resample bins and labels them."""
+    week, anchor, month_start, month_end = _CALENDAR.fullmatch(alias).groups()
+    first = datetime.fromtimestamp(first_ns // 1_000_000_000, tz).date()
+    last = datetime.fromtimestamp(last_ns // 1_000_000_000, tz).date()
+    if week:
+        weekday = _WEEKDAYS.index(anchor or "SUN")
+        start = first + timedelta(days=(weekday - first.weekday()) % 7 - 6)
+        n = (last - start).days // 7 + 1
+        days = [start + timedelta(days=7 * k) for k in range(n + 1)]
+        labels = [d + timedelta(days=6) for d in days[:-1]]
+    else:
+        months = (last.year - first.year) * 12 + last.month - first.month + 1
+        days = [_month_start(first, k) for k in range(months + 1)]
+        labels = (days[:-1] if month_start
+                  else [d - timedelta(days=1) for d in days[1:]])
+    edges = np.array([_local_ns(d, tz) for d in days], np.int64)
+    return edges, np.array([_local_ns(d, tz) for d in labels], np.int64)
+
+
+def _local_ns(day: date, tz: tzinfo) -> int:
+    """UTC nanoseconds of ``day``'s midnight in ``tz``."""
+    return datetime_ns(datetime.combine(day, clock(0), tzinfo=tz))
+
+
+def resample(series: Series, bucket: Union[int, str], methods: Sequence[str]
              ) -> Tuple[np.ndarray, List[np.ndarray]]:
-    """``series.resample(bucket).agg(method)`` for each of ``methods``, as
-    pandas computes it: ``(grid, [column per method])``. The grid runs from
-    the first sample's bucket to the last one's, in datetime64[ns] UTC. Empty
-    buckets give NaN, but 0 for ``sum`` and ``count``. The origin is the
-    midnight of the first sample's day where the index's time zone has it,
-    which for a fixed offset that the bucket does not divide moves every
-    bucket edge."""
+    """``series.resample(resolution).agg(method)`` for each of ``methods``, as
+    pandas computes it: ``(grid, [column per method])``, the grid from the
+    first sample's bucket to the last one's, in datetime64[ns] UTC. Empty
+    buckets give NaN, but 0 for ``sum`` and ``count``. ``bucket`` is
+    :func:`bucket_of`'s: nanoseconds, whose origin is the midnight of the
+    first sample's day where the index's time zone has it (for a fixed
+    offset that the bucket does not divide this moves every bucket edge),
+    aggregated by the native kernel; or a calendar alias."""
     unknown = [m for m in methods if m not in AGGREGATIONS]
     if unknown:
         raise ValueError(f"Unsupported aggregation methods {unknown}; ported: {AGGREGATIONS}")
@@ -92,16 +156,29 @@ def resample(series: Series, bucket_ns: int, methods: Sequence[str]
     if np.any(ts[1:] < ts[:-1]):
         order = np.argsort(ts, kind="stable")
         ts, values = ts[order], values[order]
+    if isinstance(bucket, str):
+        edges, labels = calendar_edges(int(ts[0]), int(ts[-1]), bucket, series.tz)
+        pos = np.searchsorted(edges, ts, side="right") - 1
+        first, last = pos[0], pos[-1]
+        return (labels[first:last + 1].view("datetime64[ns]"),
+                _aggregate(pos - first, values, int(last - first + 1), methods))
     first = datetime.fromtimestamp(int(ts[0]) // 1_000_000_000, series.tz)
     offset_ns = first.utcoffset() // timedelta(microseconds=1) * 1_000
     local = int(ts[0]) + offset_ns
     origin = local - local % _DAY_NS - offset_ns
-    buckets = (ts - origin) // bucket_ns
-    n = int(buckets[-1] - buckets[0] + 1)
-    grid = (origin + bucket_ns * np.arange(buckets[0], buckets[-1] + 1)).view("datetime64[ns]")
+    b0, b1 = (int(ts[0]) - origin) // bucket, (int(ts[-1]) - origin) // bucket
+    n = b1 - b0 + 1
+    start = origin + bucket * b0
+    grid = (start + bucket * np.arange(n, dtype=np.int64)).view("datetime64[ns]")
+    return grid, list(native.resample(ts, values, start, bucket, n, methods))
 
+
+def _aggregate(pos: np.ndarray, values: np.ndarray, n: int, methods: Sequence[str]
+               ) -> List[np.ndarray]:
+    """Each of ``methods`` over the values of each bucket ``pos`` assigns,
+    NaNs skipped (the calendar buckets' numpy path)."""
     valid = ~np.isnan(values)
-    pos, vals = (buckets - buckets[0])[valid], values[valid]
+    pos, vals = pos[valid], values[valid]
     count = np.bincount(pos, minlength=n)
     columns = []
     for method in methods:
@@ -121,7 +198,7 @@ def resample(series: Series, bucket_ns: int, methods: Sequence[str]
             lower = ordered[np.where(count > 0, starts + (count - 1) // 2, -1)]
             col = (lower + upper) / 2
         columns.append(col)
-    return grid, columns
+    return columns
 
 
 def interpolate_linear(values: np.ndarray, limit: int) -> np.ndarray:
@@ -184,11 +261,6 @@ class TimeSeriesDataset(GordoBaseDataset):
                 f"train_start_date ({self.train_start_date}) must be before "
                 f"train_end_date ({self.train_end_date})"
             )
-        if row_filter:
-            raise NotImplementedError(
-                "row_filter (a pandas query expression) is not ported yet: see the "
-                "'Training, the rest of the build path' item of ROADMAP.md queue A"
-            )
         self.asset = asset
         self.tag_list = normalize_sensor_tags(tags, asset=asset)
         self.target_tag_list = (
@@ -210,6 +282,13 @@ class TimeSeriesDataset(GordoBaseDataset):
         self.interpolation_method = interpolation_method
         self.interpolation_limit = interpolation_limit
         self._metadata: dict = {}
+        # both checked now, before any data is read
+        self._bucket = bucket_of(resolution)
+        self._row_filter = (
+            RowFilter(row_filter, self._column_names(
+                list(dict.fromkeys(self.tag_list + self.target_tag_list))))
+            if row_filter else None
+        )
 
         self._init_kwargs = dict(
             train_start_date=self.train_start_date.isoformat(),
@@ -233,29 +312,45 @@ class TimeSeriesDataset(GordoBaseDataset):
 
     def _join_series(self):
         """(index, table, column names, time zone) of every tag after the
-        resample, the join, the interpolation and the dropping of NaN rows."""
+        resample, the join, the interpolation, the dropping of NaN rows and
+        the row filter."""
         t0 = time.monotonic()
         all_tags = list(dict.fromkeys(self.tag_list + self.target_tag_list))
         methods = (
             [self.aggregation_methods] if isinstance(self.aggregation_methods, str)
             else list(self.aggregation_methods)
         )
-        bucket = resolution_ns(self.resolution)
         grids, columns, tz = [], [], self.train_start_date.tzinfo
         for series in self.data_provider.load_series(
             self.train_start_date, self.train_end_date, all_tags
         ):
-            grid, resampled = resample(series, bucket, methods)
+            grid, resampled = resample(series, self._bucket, methods)
             grids.extend([grid] * len(resampled))
             columns.extend(resampled)
             tz = series.tz
         index, table = _join(grids, columns)
         if self.interpolation_method == "linear_interpolation":
-            limit = max(resolution_ns(self.interpolation_limit) // bucket, 1)
-            table = interpolate_linear(table, limit)
+            table = interpolate_linear(table, self._interpolation_limit(index))
         keep = ~np.isnan(table).any(axis=1)
+        index, table = index[keep], table[keep]
+        if self._row_filter is not None:
+            keep = self._row_filter.mask(table)
+            index, table = index[keep], table[keep]
         self._metadata["query_duration_sec"] = time.monotonic() - t0
-        return index[keep], table[keep], self._column_names(all_tags), tz
+        return index, table, self._column_names(all_tags), tz
+
+    def _interpolation_limit(self, index: np.ndarray) -> int:
+        """``interpolation_limit`` in buckets: over the resolution where
+        pandas reads it as a Timedelta (a number and a fixed unit), else over
+        the median spacing of the joined grid; 1 where that is not positive."""
+        if _FIXED_TIMEDELTA.fullmatch(str(self.resolution)) and isinstance(self._bucket, int):
+            step = self._bucket
+        else:
+            diffs = np.diff(index.view(np.int64))
+            step = float(np.median(diffs)) if len(diffs) else 0.0
+        if step <= 0:
+            return 1
+        return max(int(resolution_ns(self.interpolation_limit) / step), 1)
 
     def get_data(self) -> Tuple[Frame, Frame]:
         index, table, names, tz = self._join_series()

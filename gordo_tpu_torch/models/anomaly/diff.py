@@ -2,28 +2,30 @@
 Diff-based anomaly detection in numpy: the port's counterparts of
 ``DiffBasedAnomalyDetector`` and ``DiffBasedKFCVAnomalyDetector`` in
 ``gordo_tpu/models/anomaly/diff.py``, with sklearn's ``TimeSeriesSplit``
-and ``KFold``.
+(its ``gap``, ``test_size`` and ``max_train_size`` too) and ``KFold``.
 
 The detector wraps a base estimator (by default a feedforward hourglass
 ``AutoEncoder``, usually inside a pipeline) and scores anomalies as the
 scaled and unscaled difference between the model output and the target,
 with optional smoothing and, when thresholds are present, confidence
 columns. ``fit`` trains the base estimator and fits the scaler on y;
-``cross_validate`` trains a fresh copy per ``TimeSeriesSplit`` fold, scores
-it (with the builder's per-tag scorers when it is given them) and sets the
-thresholds from the folds' rolling error statistics, the last fold's being
-the final ones. The KFCV detector takes shuffled ``KFold`` folds instead,
+``cross_validate`` trains a fresh copy per ``TimeSeriesSplit`` fold, predicts
+its test span once, scores that prediction (with the builder's per-tag
+scorers when it is given them) and sets the thresholds from the folds'
+rolling error statistics, the last fold's being the final ones. The KFCV detector takes shuffled ``KFold`` folds instead,
 scatters each fold model's predictions back onto its test rows, and takes
 its thresholds as a percentile of the smoothed errors over all rows.
 """
 
 import time
+import warnings
 from datetime import timedelta
 from typing import Dict, Optional
 
 import numpy as np
 from numpy.lib.stride_tricks import sliding_window_view
 
+from ... import native
 from .. import utils as model_utils
 from ..base import clone
 from ..models import AutoEncoder
@@ -32,24 +34,48 @@ from ..scaler import MinMaxScaler, pipeline_predict
 
 
 class TimeSeriesSplit:
-    """``sklearn.model_selection.TimeSeriesSplit`` (no gap, no maximum
-    train size): fold i trains on every row before its test span, and the
-    ``n_splits`` test spans of ``n // (n_splits + 1)`` rows end the data."""
+    """``sklearn.model_selection.TimeSeriesSplit``: ``n_splits`` test spans
+    of ``test_size`` rows (``n // (n_splits + 1)`` by default) end the data;
+    fold i trains on the rows before its test span less the ``gap`` rows
+    just before it, at most the last ``max_train_size`` of them."""
 
-    def __init__(self, n_splits: int = 3):
+    def __init__(self, n_splits: int = 5, *, max_train_size=None, test_size=None, gap: int = 0):
         self.n_splits = n_splits
+        self.max_train_size = max_train_size
+        self.test_size = test_size
+        self.gap = gap
 
-    def split(self, X, y=None):
+    def get_params(self, deep=False) -> dict:
+        return {"gap": self.gap, "max_train_size": self.max_train_size,
+                "n_splits": self.n_splits, "test_size": self.test_size}
+
+    def __repr__(self) -> str:
+        return ("TimeSeriesSplit("
+                + ", ".join(f"{k}={v!r}" for k, v in self.get_params().items()) + ")")
+
+    def get_n_splits(self, X=None, y=None, groups=None) -> int:
+        return self.n_splits
+
+    def split(self, X, y=None, groups=None):
         n = len(X)
-        test_size = n // (self.n_splits + 1)
-        if self.n_splits + 1 > n or test_size < 1:
+        n_folds = self.n_splits + 1
+        test_size = self.test_size if self.test_size is not None else n // n_folds
+        if n_folds > n:
             raise ValueError(
-                f"Cannot have number of folds={self.n_splits + 1} greater than "
-                f"the number of samples={n}."
+                f"Cannot have number of folds={n_folds} greater than the number of "
+                f"samples={n}."
+            )
+        if n - self.gap - test_size * self.n_splits <= 0:
+            raise ValueError(
+                f"Too many splits={self.n_splits} for number of samples={n} with "
+                f"test_size={test_size} and gap={self.gap}."
             )
         indices = np.arange(n)
-        for start in range(n - self.n_splits * test_size, n, test_size):
-            yield indices[:start], indices[start:start + test_size]
+        for test_start in range(n - self.n_splits * test_size, n, test_size):
+            train_end = test_start - self.gap
+            train_start = (train_end - self.max_train_size
+                           if self.max_train_size and self.max_train_size < train_end else 0)
+            yield indices[train_start:train_end], indices[test_start:test_start + test_size]
 
 
 class KFold:
@@ -108,29 +134,35 @@ def shuffled_order(n: int) -> np.ndarray:
     return order
 
 
-def cross_validate(estimator, X, y, cv=None, scoring=None) -> dict:
+def cross_validate(estimator, X, y, cv=None, scoring=None, predictions=None) -> dict:
     """sklearn's ``cross_validate(..., return_estimator=True)``: an unfitted
     copy of ``estimator`` trained on each fold of ``cv``
-    (``TimeSeriesSplit(3)`` by default) and scored on the fold's test span.
-    Returns ``estimator``, ``fit_time``, ``score_time`` and ``test_score``
-    (the estimator's own ``score``), one entry per fold, and for each
-    ``name: metric`` of ``scoring``, ``test_{name}``: ``metric(y_test,
-    prediction)`` over one prediction per fold."""
+    (``TimeSeriesSplit(3)`` by default) and scored on the fold's test span
+    from one prediction of it. Returns ``estimator``, ``fit_time`` and
+    ``score_time``, one entry per fold, and for each ``name: metric`` of
+    ``scoring`` ``test_{name}``: ``metric(y_test, prediction)``, NaN with a
+    warning where the metric raises (sklearn's ``error_score``); without
+    ``scoring``, as sklearn's, ``test_score``: the fold model's own
+    ``score``. Each fold's prediction is appended to ``predictions`` when a
+    list is given: the builder's scorers and the thresholds share it."""
     X, y = np.asarray(X, np.float64), np.asarray(y, np.float64)
     splitter = cv if cv is not None else TimeSeriesSplit(n_splits=3)
-    scoring = scoring or {}
-    out = {"estimator": [], "fit_time": [], "score_time": [], "test_score": [],
-           **{f"test_{name}": [] for name in scoring}}
+    names = [f"test_{name}" for name in scoring] if scoring else ["test_score"]
+    out = {"estimator": [], "fit_time": [], "score_time": [], **{name: [] for name in names}}
     for train_idx, test_idx in splitter.split(X, y):
         model = clone(estimator)
         started = time.perf_counter()
         model.fit(X[train_idx], y[train_idx])
         fitted = time.perf_counter()
-        out["test_score"].append(model.score(X[test_idx], y[test_idx]))
-        if scoring:
-            pred = model.predict(X[test_idx])
-            for name, metric in scoring.items():
-                out[f"test_{name}"].append(metric(y[test_idx], pred))
+        if not scoring:
+            out["test_score"].append(
+                _score(lambda X_test, y_test: model.score(X_test, y_test), X[test_idx],
+                       y[test_idx], "score"))
+        pred = model.predict(X[test_idx]) if scoring or predictions is not None else None
+        if predictions is not None:
+            predictions.append(pred)
+        for name, metric in (scoring or {}).items():
+            out[f"test_{name}"].append(_score(metric, y[test_idx], pred, name))
         out["score_time"].append(time.perf_counter() - fitted)
         out["fit_time"].append(fitted - started)
         out["estimator"].append(model)
@@ -138,15 +170,30 @@ def cross_validate(estimator, X, y, cv=None, scoring=None) -> dict:
             for key, value in out.items()}
 
 
+def _score(metric, y_true, y_pred, name: str) -> float:
+    """``metric(y_true, y_pred)``, or NaN with sklearn's warning where it
+    raises, as sklearn's ``cross_validate`` scores with ``error_score=nan``."""
+    try:
+        return metric(y_true, y_pred)
+    except Exception as exc:  # noqa: BLE001 -- sklearn's error_score contract
+        warnings.warn(
+            f"Scoring failed. The score on this train-test partition for these parameters "
+            f"will be set to nan. Details: {name}: {type(exc).__name__}: {exc}",
+            UserWarning,
+        )
+        return float("nan")
+
+
 def _rolling_floor_peak(values: np.ndarray, window: int):
     """Max over the span of the rolling minimum, as pandas'
     ``rolling(window).min().max()``: a spike-tolerant ceiling for 'normal'
-    error. A scalar for a 1-D metric, one value per column for a 2-D one;
-    NaN where the span is shorter than the window."""
-    if len(values) < window:
-        return np.full(values.shape[1:], np.nan) if values.ndim > 1 else float("nan")
-    peak = np.nanmax(_rolling(values, window, np.min), axis=0)
-    return float(peak) if values.ndim == 1 else peak
+    error, by the native library's one-pass kernel. A scalar for a 1-D
+    metric, one value per column for a 2-D one; NaN where the span is
+    shorter than the window."""
+    if values.ndim == 1:
+        return native.rolling_min_max(values, window)
+    return np.array([native.rolling_min_max(values[:, d], window)
+                     for d in range(values.shape[1])])
 
 
 def _rolling(values: np.ndarray, window: int, reduce) -> np.ndarray:
@@ -263,10 +310,12 @@ class DiffBasedAnomalyDetector(EstimatorRepr):
         errors on its test span (:meth:`set_thresholds`)."""
         X, y = np.asarray(X, np.float64), np.asarray(y, np.float64)
         splitter = cv if cv is not None else TimeSeriesSplit(n_splits=3)
-        out = cross_validate(self, X, y, cv=splitter, scoring=scoring)
+        predictions = []
+        out = cross_validate(self, X, y, cv=splitter, scoring=scoring, predictions=predictions)
         fold_errors = []
-        for model, (_, test_idx) in zip(out["estimator"], splitter.split(X, y)):
-            pred = np.asarray(model.predict(X[test_idx]), np.float64)
+        for model, (_, test_idx), pred in zip(out["estimator"], splitter.split(X, y),
+                                              predictions):
+            pred = np.asarray(pred, np.float64)
             truth = y[test_idx[-len(pred):]]  # windowed models emit fewer rows
             scaled = model.scaler.transform(pred) - model.scaler.transform(truth)
             fold_errors.append((np.square(scaled).mean(axis=1), np.abs(truth - pred)))
@@ -491,10 +540,12 @@ class DiffBasedKFCVAnomalyDetector(DiffBasedAnomalyDetector):
             )
         X, y = np.asarray(X, np.float64), np.asarray(y, np.float64)
         cv = cv if cv is not None else KFold(n_splits=5, shuffle=True, random_state=0)
-        out = cross_validate(self, X, y, cv=cv, scoring=scoring)
+        predictions = []
+        out = cross_validate(self, X, y, cv=cv, scoring=scoring, predictions=predictions)
         self.set_fold_thresholds(y, [
-            (test_idx, model.predict(X[test_idx]), model.scaler)
-            for (_, test_idx), model in zip(cv.split(X, y), out["estimator"])])
+            (test_idx, pred, model.scaler)
+            for (_, test_idx), model, pred in zip(cv.split(X, y), out["estimator"],
+                                                  predictions)])
         return out
 
     def set_fold_thresholds(self, y: np.ndarray, folds) -> None:

@@ -3,13 +3,16 @@ What the JAX package takes from scikit-learn for fitting and scoring, in
 numpy: ``clone`` (an unfitted copy from the constructor parameters, as
 ``sklearn.base.clone`` makes one), ``explained_variance_score`` (the
 estimators' ``score``) and the other default build metrics, ``r2_score``,
-``mean_squared_error`` and ``mean_absolute_error``, each averaged uniformly
-over outputs. ``extract_metadata`` gathers a model's metadata.
+``mean_squared_error`` and ``mean_absolute_error`` (models/metrics.py has
+them and the rest of sklearn's regression metrics).
+``extract_metadata`` gathers a model's metadata.
 """
 
 import copy
 
-import numpy as np
+from .metrics import (  # noqa: F401 -- the default build metrics, by their old place
+    explained_variance_score, mean_absolute_error, mean_squared_error, r2_score,
+)
 
 
 def clone(estimator):
@@ -31,56 +34,6 @@ def clone(estimator):
             value = copy.deepcopy(value)
         params[name] = value
     return type(estimator)(**params)
-
-
-def _targets(y_true, y_pred):
-    """Float64 (n_samples, n_outputs) views of a target and a prediction."""
-    y_true = np.asarray(y_true, np.float64)
-    y_pred = np.asarray(y_pred, np.float64)
-    if y_true.ndim == 1:
-        return y_true[:, None], y_pred.reshape(-1, 1)
-    return y_true, y_pred
-
-
-def _uniform_score(numerator: np.ndarray, denominator: np.ndarray) -> float:
-    """The mean over outputs of 1 - numerator / denominator, 1 where both
-    are 0 and 0 where only the denominator is (sklearn's finite scores)."""
-    scores = np.ones(len(numerator))
-    valid = (denominator != 0) & (numerator != 0)
-    scores[valid] = 1.0 - numerator[valid] / denominator[valid]
-    scores[(numerator != 0) & (denominator == 0)] = 0.0
-    return float(scores.mean())
-
-
-def explained_variance_score(y_true, y_pred) -> float:
-    """``sklearn.metrics.explained_variance_score`` with uniform averaging
-    over outputs: 1 - Var(y - y_pred) / Var(y) per column."""
-    y_true, y_pred = _targets(y_true, y_pred)
-    diff = y_true - y_pred
-    numerator = np.mean((diff - diff.mean(axis=0)) ** 2, axis=0)
-    denominator = np.mean((y_true - y_true.mean(axis=0)) ** 2, axis=0)
-    return _uniform_score(numerator, denominator)
-
-
-def r2_score(y_true, y_pred) -> float:
-    """``sklearn.metrics.r2_score`` with uniform averaging over outputs:
-    1 - SS_res / SS_tot per column."""
-    y_true, y_pred = _targets(y_true, y_pred)
-    numerator = np.sum((y_true - y_pred) ** 2, axis=0)
-    denominator = np.sum((y_true - y_true.mean(axis=0)) ** 2, axis=0)
-    return _uniform_score(numerator, denominator)
-
-
-def mean_squared_error(y_true, y_pred) -> float:
-    """``sklearn.metrics.mean_squared_error``, averaged over outputs."""
-    y_true, y_pred = _targets(y_true, y_pred)
-    return float(np.mean(np.mean((y_true - y_pred) ** 2, axis=0)))
-
-
-def mean_absolute_error(y_true, y_pred) -> float:
-    """``sklearn.metrics.mean_absolute_error``, averaged over outputs."""
-    y_true, y_pred = _targets(y_true, y_pred)
-    return float(np.mean(np.mean(np.abs(y_pred - y_true), axis=0)))
 
 
 def extract_metadata(model) -> dict:

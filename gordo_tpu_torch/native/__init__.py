@@ -14,10 +14,11 @@ to Python (``GORDO_TPU_FAST_CODEC=0`` is the one switch to the dict path,
 server/fast_codec.py).
 
 Bound here: :func:`parse_xy`, :func:`parse_columns` and
-:func:`encode_template`. The source's ``gordo_resample`` and
-``gordo_rolling_min_max`` are built but not bound yet: the dataset and
-threshold call sites that use them in the JAX package are not ported
-(ROADMAP.md queue A10).
+:func:`encode_template` (the request codec), :func:`resample` (the
+dataset's per-tag resample on a fixed bucket, dataset/datasets.py) and
+:func:`rolling_min_max` (the anomaly thresholds' rolling minima,
+models/anomaly/diff.py), at the JAX package's call sites of the same
+functions. ``CALLS`` counts the calls of each of the last two.
 """
 
 import ctypes
@@ -37,6 +38,10 @@ FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 _encode_tpl = None  # the PYFUNCTYPE binding of gordo_encode_tpl
+
+# the aggregations gordo_resample computes, by its codes
+AGG_CODES = {"mean": 0, "min": 1, "max": 2, "sum": 3, "count": 4, "median": 5}
+CALLS = {"resample": 0, "rolling_min_max": 0}
 
 _P_F64 = ctypes.POINTER(ctypes.c_double)
 _P_I64 = ctypes.POINTER(ctypes.c_int64)
@@ -81,6 +86,13 @@ def load() -> ctypes.CDLL:
         if _lib is not None:
             return _lib
         lib = ctypes.CDLL(str(build()))
+        lib.gordo_resample.restype = ctypes.c_int32
+        lib.gordo_resample.argtypes = [
+            _P_I64, _P_F64, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+            _P_I32, ctypes.c_int32, _P_F64,
+        ]
+        lib.gordo_rolling_min_max.restype = ctypes.c_double
+        lib.gordo_rolling_min_max.argtypes = [_P_F64, ctypes.c_int64, ctypes.c_int64]
         lib.gordo_parse_xy.restype = ctypes.c_int32
         lib.gordo_parse_xy.argtypes = [
             ctypes.c_char_p, ctypes.c_int64, _P_F64, ctypes.c_int64, _P_I64,
@@ -104,6 +116,41 @@ def load() -> ctypes.CDLL:
 
 def _ptr(array: np.ndarray, kind):
     return array.ctypes.data_as(kind)
+
+
+def resample(ts_ns: np.ndarray, values: np.ndarray, origin_ns: int, bucket_ns: int,
+             n_buckets: int, methods) -> np.ndarray:
+    """(timestamp, value) samples aggregated into ``n_buckets`` buckets of
+    ``bucket_ns`` from ``origin_ns``, ``(len(methods), n_buckets)``, as
+    pandas' ``resample(...).agg(method)`` computes each of ``methods``
+    (:data:`AGG_CODES`): buckets closed on the left, NaNs skipped, an empty
+    bucket NaN (0 for ``sum`` and ``count``)."""
+    lib = load()
+    ts_ns = np.ascontiguousarray(ts_ns, np.int64)
+    values = np.ascontiguousarray(values, np.float64)
+    if len(values) != len(ts_ns):
+        # the kernel reads len(ts_ns) values: a shorter array would be read past its end
+        raise ValueError(f"timestamps and values differ in length: {len(ts_ns)} vs "
+                         f"{len(values)}")
+    aggs = np.array([AGG_CODES[m] for m in methods], np.int32)
+    out = np.empty((len(methods), n_buckets), np.float64)
+    rc = lib.gordo_resample(_ptr(ts_ns, _P_I64), _ptr(values, _P_F64), len(ts_ns),
+                            int(origin_ns), int(bucket_ns), int(n_buckets), _ptr(aggs, _P_I32),
+                            len(methods), _ptr(out, _P_F64))
+    if rc != 0:
+        raise ValueError(f"gordo_resample failed with code {rc}")
+    CALLS["resample"] += 1
+    return out
+
+
+def rolling_min_max(values: np.ndarray, window: int) -> float:
+    """pandas' ``Series.rolling(window).min().max()`` in one pass: the max
+    over the windows without a NaN of their minimum; NaN when there is no
+    such window."""
+    lib = load()
+    values = np.ascontiguousarray(values, np.float64)
+    CALLS["rolling_min_max"] += 1
+    return float(lib.gordo_rolling_min_max(_ptr(values, _P_F64), len(values), int(window)))
 
 
 def parse_xy(body: bytes):

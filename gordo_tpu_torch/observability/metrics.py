@@ -15,7 +15,8 @@ Who feeds what in the port:
 
 - builder/build_model.py and parallel/batch_trainer.py: the build phases
   (``BUILD_PHASE_SECONDS``), ``BUILD_MACHINES``, ``QUARANTINES``,
-  ``OOM_BISECTIONS`` and ``SERIAL_FALLBACKS``;
+  ``OOM_BISECTIONS``, ``SERIAL_FALLBACKS``, ``BUCKET_RETRIES``, and through
+  util/faults.py's ``retry_call`` ``FAULT_RETRIES``;
 - server/batcher.py: the queue wait and fuse width, the bank's restacks and
   evictions, bisections, serial rescues, abandons, pipeline overlaps, and
   the device's busy seconds and achieved FLOPs;
@@ -43,8 +44,8 @@ Who feeds what in the port:
   ``CHAOS_AVAILABILITY`` and ``CHAOS_FAILOVER_SECONDS``
   (chaos/conductor.py).
 
-Registered and not fed yet, by the ROADMAP.md item that feeds them: fault
-and bucket retries (A10); the elastic scheduler (A7).
+Registered and not fed yet, by the ROADMAP.md item that feeds them: the
+elastic scheduler (A7).
 With no counterpart
 in the port, because it compiles nothing: the XLA persistent cache
 (``XLA_CACHE_*``), the bucket-program jit cache (``PROGRAM_CACHE``,

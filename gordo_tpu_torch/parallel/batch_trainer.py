@@ -21,11 +21,22 @@ scores and split metadata in its ``BuildMetadata``, and is written and
 registered as soon as its chunk of machines is done, so a resumed build
 loads it from the register's cache.
 
-A machine whose fetch, validation or training raises is quarantined with
-its reason, and the rest build on (``fail_fast`` raises instead). Machines
-the planner cannot express (another detector, scaler or splitter, an
-unseeded shuffled KFold, a callback, ring attention) go to the port's
-serial ``ModelBuilder``.
+A machine whose fetch, validation or training fails is quarantined with
+its reason and attempts (util/faults.py's ``QuarantineRecord``), and the
+rest build on (``fail_fast`` raises instead). The JAX builder's fault
+ladder, under ``FaultPolicy.from_env()``: each fetch retries transient
+faults with backoff (``retry_call``; ``gordo_build_fault_retries_total``); a
+chunk's stacked program that runs out of device memory is halved, one that
+fails transiently is retried whole (``gordo_build_bucket_retries_total``)
+within the policy's attempts, and one that fails otherwise has each machine
+built by the serial builder as the last resort. Its fault sites fire where
+the JAX builder's do: ``data_fetch`` and ``poison_nan`` in the fetch,
+``bucket_compile`` before a chunk's program, ``diverge`` in the check of
+each trained machine. Machines the planner cannot express (another
+detector, scaler or splitter, a TimeSeriesSplit with a gap, test size or
+maximum train size, named metrics beyond the default four, an unseeded
+shuffled KFold, a callback, ring attention) go to the port's serial
+``ModelBuilder``.
 
 Each machine's initial parameters per stage and its sample order per epoch
 come from ``torch.Generator``s seeded by ``_machine_seed``, the stage and
@@ -57,12 +68,11 @@ orders are the cold build's). Warm and cold machines bucket apart, as in
 the JAX builder; ``gordo_build_warm_starts_total`` counts the warm ones.
 ``warm_start`` is on unless ``GORDO_TPU_WARM_START=0``.
 
-Not ported yet (ROADMAP.md items A7 and A10): the elastic scheduler and
-multi-host fleets, the retry ladder and fault injection.
+Not ported yet (ROADMAP.md item A7): the elastic scheduler and multi-host
+fleets.
 """
 
 import contextlib
-import dataclasses
 import datetime
 import logging
 import os
@@ -94,7 +104,11 @@ from ..ops import _build
 from ..ops.nn import StackedTransformerModel, init_model_params, stack_params
 from ..ops.predict import n_train_samples, unfold_windows
 from ..ops.train import make_optimizer, run_masked_epoch
-from ..util import disk_registry
+from ..util import disk_registry, faults
+from ..util.faults import (
+    STAGE_DATA_FETCH, STAGE_DATA_VALIDATION, STAGE_SERIAL_BUILD, STAGE_TRAINING,
+    QuarantineRecord,
+)
 from ..util.profiling import maybe_profile
 
 logger = logging.getLogger(__name__)
@@ -104,10 +118,6 @@ logger = logging.getLogger(__name__)
 PREDICT_WINDOWS = 1024
 METRIC_NAMES = ("explained_variance_score", "r2_score", "mean_squared_error",
                 "mean_absolute_error")
-STAGE_DATA_FETCH = "data_fetch"
-STAGE_DATA_VALIDATION = "data_validation"
-STAGE_TRAINING = "training"
-STAGE_SERIAL_BUILD = "serial_build"
 
 
 _PHASE_FETCH = metric_catalog.BUILD_PHASE_SECONDS.labels(phase="fetch")
@@ -130,19 +140,6 @@ def _machine_seed(machine: Machine) -> int:
     """Combine evaluation.seed with the machine name into one RNG stream id."""
     seed = int(machine.evaluation.get("seed", 0))
     return (zlib.crc32(machine.name.encode()) ^ (seed * 2654435761)) & 0xFFFFFFFF
-
-
-@dataclass
-class QuarantineRecord:
-    """Why one machine was dropped from a fleet build."""
-
-    machine: str
-    stage: str
-    reason: str
-    error: str = ""
-
-    def to_dict(self) -> dict:
-        return dataclasses.asdict(self)
 
 
 # ------------------------------------------------------------------ planning
@@ -168,6 +165,7 @@ class _Plan:
     frame: Optional[Frame] = None
     target_columns: Optional[List[str]] = None
     query_duration: float = 0.0
+    fetch_attempts: int = 1
     dataset_meta: Dict[str, Any] = field(default_factory=dict)
     # a warm start: the prior artifact's parameters (numpy, one dict a
     # layer), every stage's initial parameters in place of draw_inputs'
@@ -233,9 +231,11 @@ def _plan_machine(machine: Machine) -> Optional[_Plan]:
     if evaluation.get("cv") is not None:
         try:
             cv = serializer.from_definition(evaluation["cv"])
-        except Exception:  # noqa: BLE001 -- gap/test_size and the like: serial
+        except Exception:  # noqa: BLE001 -- a splitter the port lacks: serial
             return None
         if isinstance(cv, TimeSeriesSplit):
+            if cv.gap or cv.test_size is not None or cv.max_train_size is not None:
+                return None  # folds _fold_bounds does not model, as in the JAX planner
             n_splits, cv_desc = cv.n_splits, ("tss", cv.n_splits)
         elif isinstance(cv, KFold) and kfcv:
             seed = cv.random_state
@@ -503,7 +503,9 @@ class BatchedModelBuilder:
     written into ``{output_dir}/{name}`` and registered under its cache key
     as soon as its chunk is done; a machine the register already has is
     loaded instead of trained, unless ``replace_cache``. ``fail_fast``: the
-    first fault raises instead of quarantining the machine. ``warm_start``
+    first fault raises instead of quarantining the machine, and no fault is
+    retried; otherwise ``GORDO_TPU_FAULT_*`` set the retries and backoff of
+    the fetches and the chunks (``FaultPolicy.from_env``). ``warm_start``
     (default: on unless ``GORDO_TPU_WARM_START=0``): a machine whose cache
     key misses starts from the artifact its warm key names (module
     docstring)."""
@@ -522,12 +524,14 @@ class BatchedModelBuilder:
         self.model_register_dir = model_register_dir
         self.replace_cache = replace_cache
         self.fail_fast = fail_fast
+        self.fault_policy = faults.FaultPolicy.from_env()
         self.device = device
         # the outcome of the last build: quarantined machines with their
         # records, the machines built by the serial builder or loaded from
         # the register instead of the stacked program, and the chunks halved
         # after running out of device memory
         self.quarantine_records: List[QuarantineRecord] = []
+        self._quarantined: set = set()
         self.serial_built: List[str] = []
         self.from_cache: List[str] = []
         self.oom_bisections = 0
@@ -542,6 +546,7 @@ class BatchedModelBuilder:
     def _build_all(self) -> List[Tuple[Any, Machine]]:
         device = resolve_device(self.device)
         self.quarantine_records, self.serial_built, self.from_cache = [], [], []
+        self._quarantined = set()
         self.oom_bisections = 0
         results: Dict[int, Tuple[Any, Machine]] = {}
         plans: Dict[int, _Plan] = {}
@@ -571,7 +576,7 @@ class BatchedModelBuilder:
                 results[i] = built
 
         for i in list(plans):
-            if self._guarded(plans[i].machine, STAGE_DATA_FETCH, self._load_data, plans[i]) is None:
+            if not self._load_data_guarded(plans[i]):
                 del plans[i]
         for i in list(plans):
             with _machine_trace(plans[i].machine.name), telemetry.span(
@@ -581,7 +586,8 @@ class BatchedModelBuilder:
                 error = NonFiniteDataError(f"machine {plans[i].machine.name}: {bad}")
                 if self.fail_fast:
                     raise error
-                self._quarantine(plans[i].machine, STAGE_DATA_VALIDATION, "non_finite_data", bad)
+                self._quarantine(plans[i].machine, STAGE_DATA_VALIDATION, "non_finite_data",
+                                 bad)
                 del plans[i]
         self._attach_warm_params(plans)
 
@@ -601,16 +607,36 @@ class BatchedModelBuilder:
         except Exception as exc:
             if self.fail_fast:
                 raise
-            reason = "fetch_failure" if stage == STAGE_DATA_FETCH else type(exc).__name__
-            self._quarantine(machine, stage, reason, f"{type(exc).__name__}: {exc}")
+            self._quarantine(machine, stage, type(exc).__name__, str(exc))
             return None
 
-    def _quarantine(self, machine: Machine, stage: str, reason: str, error: str) -> None:
-        record = QuarantineRecord(machine.name, stage, reason, error)
-        metric_catalog.QUARANTINES.labels(stage=stage).inc()
-        metric_catalog.BUILD_MACHINES.labels(outcome="quarantined").inc()
+    def _load_data_guarded(self, plan: "_Plan") -> bool:
+        """The machine's fetch under the fault policy's retries; False with
+        the machine quarantined once a permanent fault or the last attempt
+        fails (``fail_fast`` raises at the first)."""
+        if self.fail_fast:
+            self._load_data(plan)
+            return True
+        name = plan.machine.name
+        try:
+            _, plan.fetch_attempts = faults.retry_call(
+                lambda: self._load_data(plan), self.fault_policy, key=name,
+                describe=f"data fetch for machine {name}")
+            return True
+        except Exception as exc:
+            kind = self.fault_policy.classify(exc)
+            self._quarantine(plan.machine, STAGE_DATA_FETCH, f"{kind}_fetch_failure",
+                             f"{type(exc).__name__}: {exc}",
+                             self.fault_policy.max_attempts if kind == "transient" else 1)
+            return False
+
+    def _quarantine(self, machine: Machine, stage: str, reason: str, error: str,
+                    attempts: int = 1) -> None:
+        record = QuarantineRecord(machine.name, stage, reason, error, attempts)
+        faults.record_quarantine(stage)
         logger.error("Machine %s QUARANTINED at %s (%s): %s", machine.name, stage, reason, error)
         self.quarantine_records.append(record)
+        self._quarantined.add(machine.name)
 
     def _machine_dir(self, name: str) -> Optional[str]:
         return os.path.join(self.output_dir, name) if self.output_dir else None
@@ -653,11 +679,12 @@ class BatchedModelBuilder:
 
     def _load_data(self, plan: _Plan) -> _Plan:
         started = time.time()
-        with _machine_trace(plan.machine.name), telemetry.span(
-                "fetch", _PHASE_FETCH, machine=plan.machine.name):
+        name = plan.machine.name
+        with _machine_trace(name), telemetry.span("fetch", _PHASE_FETCH, machine=name):
+            faults.fault_point("data_fetch", machine=name)
             dataset = GordoBaseDataset.from_dict(plan.machine.dataset.to_dict())
             X, y = dataset.get_data()
-        plan.X = np.ascontiguousarray(X.values, np.float32)
+        plan.X = faults.maybe_poison(name, np.ascontiguousarray(X.values, np.float32))
         plan.y = np.ascontiguousarray(y.values, np.float32)
         plan.frame = X
         plan.target_columns = list(y.columns)
@@ -751,22 +778,28 @@ class BatchedModelBuilder:
         return out
 
     def _build_chunk_guarded(self, group: List[_Plan], idxs: List[int], stages, geometry,
-                             device):
-        """One chunk as one stacked program. A chunk of more than one
-        machine that runs out of device memory is halved and each half
-        built on its own, as the JAX builder bisects a bucket (counted in
-        ``oom_bisections``); a chunk that fails otherwise has each machine
-        built by the serial builder, quarantining those whose serial build
-        fails too. ``fail_fast`` raises instead."""
+                             device, attempt: int = 1):
+        """One chunk as one stacked program, under the JAX builder's bucket
+        ladder: a chunk of more than one machine that runs out of device
+        memory is halved and each half built on its own (counted in
+        ``oom_bisections``); one that fails transiently is built again,
+        after the policy's backoff, up to its attempts (members quarantined
+        meanwhile left out); one that fails otherwise has each machine built
+        by the serial builder, quarantining those whose serial build fails
+        too. ``fail_fast`` raises instead."""
+        live = [(p, i) for p, i in zip(group, idxs) if p.machine.name not in self._quarantined]
+        if not live:
+            return {}
+        group, idxs = [p for p, _ in live], [i for _, i in live]
         try:
             return self._build_chunk(group, idxs, stages, geometry, device)
         except Exception as exc:
             if self.fail_fast:
                 raise
-            error, oom = exc, isinstance(exc, torch.OutOfMemoryError)
+            error = exc
             # the failed program's tensors are held by the traceback's frames
             error.__traceback__ = None
-        if oom and len(group) > 1:
+        if faults.is_oom(error) and len(group) > 1:
             if device.type == "cuda":
                 torch.cuda.empty_cache()
             mid = len(group) // 2
@@ -778,6 +811,15 @@ class BatchedModelBuilder:
                                                 device),
                     **self._build_chunk_guarded(group[mid:], idxs[mid:], stages, geometry,
                                                 device)}
+        if (self.fault_policy.classify(error) == "transient"
+                and attempt < self.fault_policy.max_attempts):
+            delay = self.fault_policy.backoff(attempt, group[0].machine.name)
+            logger.warning("Chunk of %d machines failed transiently (attempt %d/%d, retrying "
+                           "in %.2fs): %s", len(group), attempt, self.fault_policy.max_attempts,
+                           delay, error)
+            metric_catalog.BUCKET_RETRIES.inc()
+            time.sleep(delay)
+            return self._build_chunk_guarded(group, idxs, stages, geometry, device, attempt + 1)
         return self._serial_rebuild(group, idxs, error)
 
     def _serial_rebuild(self, group: List[_Plan], idxs: List[int], error: Exception):
@@ -792,6 +834,7 @@ class BatchedModelBuilder:
         return out
 
     def _build_chunk(self, group: List[_Plan], idxs: List[int], stages, geometry, device):
+        faults.fault_point("bucket_compile", machines=[p.machine.name for p in group])
         plan0 = group[0]
         fold_bounds, fold_rows, perms = geometry
         started = time.time()
@@ -823,9 +866,11 @@ class BatchedModelBuilder:
         for j, plan in enumerate(group):
             params = model.machine_params(j)
             bad = _diverged(params, losses[j])
+            if bad is None and faults.should_fire("diverge", plan.machine.name):
+                bad = "injected divergence"
             if bad is not None:
                 if self.fail_fast:
-                    raise ValueError(f"machine {plan.machine.name} diverged: {bad}")
+                    raise faults.DivergedModelError(f"machine {plan.machine.name}: {bad}")
                 self._quarantine(plan.machine, STAGE_TRAINING, "diverged", bad)
                 continue
             with _machine_trace(plan.machine.name), telemetry.span(
@@ -878,6 +923,8 @@ class BatchedModelBuilder:
             ),
             dataset=DatasetBuildMetadata(query_duration_sec=plan.query_duration,
                                          dataset_meta=plan.dataset_meta),
+            fault_domain=({"quarantined": False, "data_fetch_attempts": plan.fetch_attempts}
+                          if plan.fetch_attempts > 1 else {}),
             phases={"fetch": plan.query_duration, "cross_validation": cv_duration,
                     "fit": train_duration},
         )

@@ -16,11 +16,11 @@ them from a table of what it has ported; nothing is imported by path.
 
 from typing import Any, Optional
 
-from ..models import base
 from ..models.anomaly.diff import (
     DiffBasedAnomalyDetector, DiffBasedKFCVAnomalyDetector, KFold, TimeSeriesSplit,
 )
 from ..models.callbacks import EarlyStopping
+from ..models.metrics import REGRESSION_METRICS
 from ..models.models import (
     AutoEncoder, LSTMAutoEncoder, LSTMForecast, RawModelRegressor, TCNAutoEncoder, TCNForecast,
     TransformerAutoEncoder, TransformerForecast,
@@ -93,9 +93,8 @@ _PORTED = (
     *((cls, (f"sklearn.model_selection._split.{cls.__name__}",
              f"sklearn.model_selection.{cls.__name__}"))
       for cls in (TimeSeriesSplit, KFold)),
-    *((getattr(base, name), (f"sklearn.metrics._regression.{name}", f"sklearn.metrics.{name}"))
-      for name in ("explained_variance_score", "r2_score", "mean_squared_error",
-                   "mean_absolute_error")),
+    *((func, (f"sklearn.metrics._regression.{name}", f"sklearn.metrics.{name}"))
+      for name, func in REGRESSION_METRICS.items()),
 )
 TABLE = {path: obj for obj, paths in _PORTED for path in paths}
 _PATHS = {obj: paths[0] for obj, paths in _PORTED}

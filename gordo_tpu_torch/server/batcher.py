@@ -100,10 +100,12 @@ whole group, at BH = (windows summed over the group) x heads.
   retry ladder, where each rider resolves its own model again. A
   replacement enqueued after the gather runs after it on the stream.
 
-Not ported here: ``load_shipped``/``prelower`` with the AOT programs they
-install (A10). Tests read the plain attributes beside the catalog:
-``stats``, ``calls``, ``spec_calls`` (fused calls by spec) and each bank's
-``generation``, ``restacks`` and ``evictions``.
+``load_shipped``/``prelower`` and the AOT programs they install have no
+counterpart here: whether the port ships anything in their place is
+decided by ROADMAP.md item A10's remainder. Tests read the plain
+attributes beside the catalog: ``stats``, ``calls``, ``spec_calls`` (fused
+calls by spec) and each bank's ``generation``, ``restacks`` and
+``evictions``.
 """
 
 import contextlib

@@ -2,9 +2,9 @@
 The OpenAPI document of the model server's REST surface, served at
 ``GET /gordo/v0/openapi.json``: the port's own copy of
 ``gordo_tpu/server/openapi.py``, plain data. It describes the JAX package's
-whole surface, ``/metrics`` and ``/debug/*`` included, which the port does
-not serve yet (ROADMAP.md queue A8); ``tests/test_torch_fastlane.py``
-holds it equal to the JAX document and its paths over the port's routes.
+whole surface, ``/metrics`` and ``/debug/*`` included, all of which the
+port serves; ``tests/test_torch_fastlane.py`` holds it equal to the JAX
+document and its paths over the port's routes.
 """
 
 from .. import __version__

@@ -661,9 +661,8 @@ class GordoServer(ThreadingHTTPServer):
             return exchange.answer(405, {"message": f"{method} not allowed on {url.path}"},
                                    headers=[("Allow", "POST")])
         if path in _DEBUG_ROUTES:
-            answer = (debug.dispatch(exchange.endpoint, url.query, server=self)
-                      if path in debug.ROUTES else None)
-            if answer is None:  # the gate is off, or the route is not ported yet
+            answer = debug.dispatch(exchange.endpoint, url.query, server=self)
+            if answer is None:  # GORDO_TPU_DEBUG_ENDPOINTS is off
                 return exchange.answer(404, {"message": f"No route {method} {url.path}"})
             status, content_type, data = answer
             return exchange.answer(status, data, content_type=content_type)

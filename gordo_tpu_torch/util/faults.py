@@ -10,8 +10,8 @@ fires at the same sites and calls in either package.
   allocation failure: the runtime's ``RESOURCE_EXHAUSTED``, an injected OOM,
   or ``torch.OutOfMemoryError`` on the card).
 - ``FaultPolicy`` and :func:`retry_call`: bounded retries with exponential
-  backoff and deterministic jitter. The fleet trainer does not call them
-  yet: the retry ladder's build side is ROADMAP.md item A10.
+  backoff and deterministic jitter, around the serial builder's and the
+  fleet trainer's fetches and the fleet trainer's chunks.
 - ``QuarantineRecord``: a machine dropped from a fleet build, with the host
   and process rank that observed the fault (the rank is the multi-host
   flag ``GORDO_TPU_PROCESS_ID``, else ``torch.distributed``'s rank when a
@@ -53,8 +53,13 @@ group's members; supports ``wedge``). The drift loop's sites:
 placement key) and ``node_partition`` before each upstream attempt
 (machine = node id) in server/gateway.py, ``node_dead`` and
 ``lease_refresh`` in the membership heartbeat (server/membership.py).
-``KNOWN_SITES`` is the JAX package's whole vocabulary: the build sites are
-wired by the ROADMAP.md item that ports that path (A10).
+The build sites: ``data_fetch`` and ``poison_nan`` in the serial
+builder's and the fleet trainer's fetch (builder/build_model.py,
+parallel/batch_trainer.py), ``bucket_compile`` before each of the fleet's
+stacked programs (machines = the chunk's) and ``diverge`` in the fleet's
+check of each trained machine. ``KNOWN_SITES`` is the JAX package's whole
+vocabulary; ``scheduler_lease`` and ``aot_program_load`` belong to paths the
+port does not have (ROADMAP.md items A7 and A10's remainder).
 """
 
 import json

@@ -168,8 +168,8 @@ def test_time_series_dataset_matches_jax_on_gapped_data(methods, interpolation_l
 
 def test_dataset_refusals():
     config = dict(train_start_date=STARTS["utc"][0], train_end_date=STARTS["utc"][1], tags=TAGS)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        RandomDataset(row_filter="`tag-0` > 0", **config)
+    with pytest.raises(ValueError, match="attribute access"):
+        RandomDataset(row_filter="`tag-0`.real > 0", **config)
     with pytest.raises(InsufficientDataError):
         RandomDataset(n_samples_threshold=288, **config).get_data()
     assert len(RandomDataset(n_samples_threshold=287, **config).get_data()[0].values) == 288
@@ -182,4 +182,4 @@ def test_dataset_refusals():
     with pytest.raises(ValueError, match="Unknown dataset type"):
         GordoBaseDataset.from_dict({"type": "ParquetDataset", **config})
     with pytest.raises(ValueError, match="Unknown data provider type"):
-        TimeSeriesDataset(data_provider={"type": "InfluxDataProvider"}, **config)
+        TimeSeriesDataset(data_provider={"type": "NoSuchProvider"}, **config)

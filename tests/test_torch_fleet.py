@@ -521,7 +521,8 @@ def test_quarantine_and_exit_codes(tmp_path, capsys):
     partial = _write_config(tmp_path / "partial.json", good + [short])
     assert cli.main(["batch-build", partial, str(tmp_path / "a"), "--device", "cpu"]) == 81
     err = capsys.readouterr().err
-    assert "quarantined: m-short stage=data_fetch reason=fetch_failure" in err
+    assert ("quarantined: m-short stage=data_fetch reason=permanent_fetch_failure attempts=1 "
+            "error=InsufficientDataError" in err)
     assert "InsufficientDataError" in err
     assert sorted(os.listdir(tmp_path / "a")) == ["m-0", "m-1"]
 
@@ -535,9 +536,11 @@ def test_quarantine_and_exit_codes(tmp_path, capsys):
         bt.BatchedModelBuilder(machines, fail_fast=True, device="cpu").build()
     records = bt.BatchedModelBuilder(machines, device="cpu")
     records.build()
+    record = records.quarantine_records[0]
     assert [r.to_dict() for r in records.quarantine_records] == [{
-        "machine": "m-short", "stage": "data_fetch", "reason": "fetch_failure",
-        "error": records.quarantine_records[0].error}]
+        "quarantined": True, "machine": "m-short", "stage": "data_fetch",
+        "reason": "permanent_fetch_failure", "error": record.error, "attempts": 1,
+        "host": record.host, "process_index": record.process_index}]
 
 
 def test_batch_build_artifacts_are_served(tmp_path, capsys):

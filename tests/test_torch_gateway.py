@@ -882,19 +882,20 @@ def small_collection(tmp_path_factory):
 
 
 class _Server:
-    """``python -m gordo_tpu_torch run-server --port 0 --device cpu`` under
-    ``GORDO_TPU_GATEWAY_DIR=directory``, in a session of its own: its
-    address is the one its lease advertises."""
+    """``python -m gordo_tpu_torch run-server --port <a free port> --device
+    cpu`` under ``GORDO_TPU_GATEWAY_DIR=directory``, in a session of its own:
+    its address is the one its lease advertises (``--port`` is 1-65535, as
+    the JAX command's)."""
 
     def __init__(self, collection, tmp_path, directory, workers: int, **env):
-        from test_torch_server_pool import _env
+        from test_torch_server_pool import _env, _free_port
 
         self.directory = directory
         self.log = tmp_path / f"server-{workers}.log"
         with open(self.log, "w") as fh:
             self.proc = subprocess.Popen(
                 [sys.executable, "-m", "gordo_tpu_torch", "--log-level", "INFO", "run-server",
-                 "--host", "127.0.0.1", "--port", "0", "--device", "cpu",
+                 "--host", "127.0.0.1", "--port", str(_free_port()), "--device", "cpu",
                  "--workers", str(workers)],
                 cwd=REPO, env=_env(collection, GORDO_TPU_GATEWAY_DIR=str(directory), **env),
                 stdout=subprocess.DEVNULL, stderr=fh, start_new_session=True)

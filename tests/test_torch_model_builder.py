@@ -72,7 +72,7 @@ def _keys(tree, path=""):
 
 def test_builders_fetch_bit_identical_data(builds):
     ours, _, _, theirs, _, _ = builds
-    _, X, y, _ = ours._fetch_data()
+    _, X, y, _, _ = ours._fetch_data()
     _, jX, jy, _, _ = theirs._fetch_data()
     for frame, expected in ((X, jX), (y, jy)):
         np.testing.assert_array_equal(frame.values, expected.to_numpy())
@@ -105,7 +105,7 @@ def test_build_metadata_matches_jax(builds):
 @pytest.mark.parametrize("scaler", [None, "sklearn.preprocessing.MinMaxScaler"])
 def test_scorers_match_jax_on_a_carried_detector(builds, scaler):
     ours, _, _, theirs, jax_model, _ = builds
-    _, X, y, _ = ours._fetch_data()
+    _, X, y, _, _ = ours._fetch_data()
     _, jX, jy, _, _ = theirs._fetch_data()
     (_, in_scaler), (_, estimator) = jax_model.base_estimator.steps
     detector = detector_from_arrays(
@@ -219,9 +219,9 @@ def test_build_refuses_non_finite_data(monkeypatch):
     fetch = builder._fetch_data
 
     def poisoned():
-        dataset, X, y, seconds = fetch()
+        dataset, X, y, seconds, attempts = fetch()
         X.values[3, 1] = np.nan
-        return dataset, X, y, seconds
+        return dataset, X, y, seconds, attempts
 
     monkeypatch.setattr(builder, "_fetch_data", poisoned)
     with pytest.raises(NonFiniteDataError, match="1 non-finite values in X"):

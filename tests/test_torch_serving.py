@@ -415,6 +415,15 @@ import gordo_tpu_torch.server.hotswap
 import gordo_tpu_torch.server.membership
 import gordo_tpu_torch.server.gateway
 from gordo_tpu_torch.chaos import conductor, invariants, load, node, scenario, stack
+# the build from real data: providers, row filter, metrics by name, the
+# native data kernels, the exceptions reporter
+from gordo_tpu_torch.dataset.data_provider import (
+    DataLakeProvider, InfluxDataProvider, ParquetFilesProvider)
+from gordo_tpu_torch.dataset.row_filter import RowFilter
+from gordo_tpu_torch.models.metrics import REGRESSION_METRICS
+from gordo_tpu_torch.native import resample, rolling_min_max
+from gordo_tpu_torch.util import text, utils
+from gordo_tpu_torch import cli_exceptions_reporter
 from gordo_tpu_torch import cli
 for argv in (["batch-build", "fleet.json", "out", "--device", "cpu", "--fail-fast"],
              ["batch-build", "fleet.json", "out", "--trace-file", "t.json",
@@ -430,7 +439,11 @@ for argv in (["batch-build", "fleet.json", "out", "--device", "cpu", "--fail-fas
              ["run-gateway", "--host", "127.0.0.1", "--port", "5556", "--membership-dir", "d"],
              ["trace", "0af7651916cd43dd8448eb211c80319c", "--port", "5556", "--out", "t.json"],
              ["chaos", "run", "s.json", "--dir", "w", "--out", "r.json", "--verbose"],
-             ["chaos", "list", "--dir", "scenarios"]):
+             ["chaos", "list", "--dir", "scenarios"],
+             ["build", "{}", "out", "--exceptions-reporter-file", "r.json",
+              "--exceptions-report-level", "traceback"],
+             ["batch-build", "fleet.json", "out", "--quarantine-report-file", "q.json",
+              "--exceptions-reporter-file", "r.json", "--exceptions-report-level", "TYPE"]):
     assert cli._parser().parse_args(argv).command == argv[0]
 assert cli._parser().parse_args(["chaos", "list"]).chaos_command == "list"
 assert cli._parser().parse_args(["run-gateway"]).port == 5556
