@@ -371,15 +371,42 @@ Drive the PyTorch/CUDA port (gordo_tpu_torch) on one NVIDIA GPU.
    1 and bucket retries exactly 1 more than before; m-0 and m-4 served
    within TOL_BF16_MODEL_REL of their direct predicts; bf16 forward, dQ and
    dK/dV launched. The phase's seconds and each build's phases printed.
-25. A ``batcher_path`` JSON line (both dtypes' numbers), a ``feedforward``
+25. Configs as the JAX CLI reads them (:func:`template_build_path`). (a)
+   ``python -m gordo_tpu_torch build`` (the CLI in this process) of
+   BUILD_CONFIG's machine given as YAML text (unquoted timestamps), its
+   ``model`` a Jinja template of transformer-ae-512's definition
+   (TEMPLATE_MODEL: an ``{% if %}``, filters) whose widths and epochs come
+   through ``--model-parameter``, its runtime an env, a volume and a mount
+   fragment, and ``runtime.reporters`` a ``PostgresReporter`` and an
+   ``MlFlowReporter`` over stand-in ``psycopg2`` and ``mlflow`` modules
+   (the external services; the reporters are the port's). Gates: the
+   rendered definition is BUILD_CONFIG's key for key; exit 0; the
+   forward, dQ and dK/dV launched; a served 1,535-row answer within
+   TOL_MODEL_REL of the direct predict; the Postgres stand-in's one row
+   equal to the artifact's ``metadata.json`` (name, dataset, model,
+   metadata); the MLflow stand-in's batches equal to
+   ``extract_metrics_and_params`` of it. (b) Three builds refused before
+   any launch (the counters stay 0): a template parameter not given (exit
+   1, ``Model parameter missing value!``), a ``runtime.volumes[0].mountPth``
+   typo (exit 1, ``RuntimeConfigError`` naming that path), an anchor in the
+   YAML (exit 1, the reader's ``YAMLSubsetError`` with its line and
+   column). (c) A ``build`` subprocess in which ``psycopg2`` cannot be
+   imported: the artifact written, then exit 90 with a
+   ``PostgresReporterException`` report. (d) ``batch-build`` of the
+   ``spec.config`` block of examples/config.yaml written as YAML text
+   with unquoted train dates (its feedforward machines, ``--machines``):
+   exit 0, each built machine served within TOL_FF of its direct
+   predict. The phase's seconds printed.
+26. A ``batcher_path`` JSON line (both dtypes' numbers), a ``feedforward``
    JSON line, a ``fastlane``/``kfcv_fleet`` JSON line, a ``windowed`` JSON
    line, a ``transformer-ae-512-d384`` JSON line, a ``moe`` JSON line, an
    ``observability`` JSON line, a ``resilience`` JSON line, a ``drift`` JSON
-   line, a ``gateway`` JSON line, a ``data_build`` JSON line, a ``kernels``
+   line, a ``gateway`` JSON line, a ``data_build`` JSON line, a
+   ``template_build`` JSON line, a ``kernels``
    JSON line (twenty-two entries: the six flash kernels at dh 64 with their
    results by head dim and the observability, resilience, drift, gateway,
-   ``data_build`` (float32) and ``data_fleet`` (bf16) launches among their
-   paths, the six again at dh 96 with the d384
+   ``data_build`` and ``template_build`` (float32) and ``data_fleet`` (bf16)
+   launches among their paths, the six again at dh 96 with the d384
    path's launches and at dh 16 with the MoE fleet's, then the LSTM
    recurrence's forward and backward in float32 and bf16), then
    the last line
@@ -1470,9 +1497,9 @@ def write_artifact(collection: Path, device: str = "cuda", name: str = "transfor
     return spec, layers, scaler
 
 
-def _payload(values: np.ndarray, start: datetime) -> dict:
+def _payload(values: np.ndarray, start: datetime, tags=TAGS) -> dict:
     stamps = [(start + timedelta(minutes=10 * i)).isoformat() for i in range(len(values))]
-    frame = {tag: dict(zip(stamps, values[:, j].tolist())) for j, tag in enumerate(TAGS)}
+    frame = {tag: dict(zip(stamps, values[:, j].tolist())) for j, tag in enumerate(tags)}
     return {"X": frame, "y": frame}
 
 
@@ -7852,9 +7879,11 @@ def _iso_ns(text: str) -> int:
     return round(stamp.timestamp()) * 10**9
 
 
-def _served_output(collection: Path, name: str, values: np.ndarray, device: str) -> np.ndarray:
-    """The model output of one anomaly request of ``values`` (the eight tags)
-    to ``name`` served from ``collection`` by the port's server."""
+def _served_output(collection: Path, name: str, values: np.ndarray, device: str,
+                   tags=TAGS) -> np.ndarray:
+    """The model output of one anomaly request of ``values`` (the columns of
+    ``tags``, the eight tags by default) to ``name`` served from
+    ``collection`` by the port's server."""
     from gordo_tpu_torch.server.server import make_server
 
     server = make_server("127.0.0.1", 0, device=device, collection_dir=str(collection))
@@ -7863,14 +7892,15 @@ def _served_output(collection: Path, name: str, values: np.ndarray, device: str)
     try:
         status, body, _, _ = _request(
             f"http://127.0.0.1:{server.server_address[1]}/gordo/v0/smoke/{name}"
-            f"/anomaly/prediction", _payload(values, datetime(2020, 3, 1, tzinfo=timezone.utc)))
+            f"/anomaly/prediction", _payload(values, datetime(2020, 3, 1, tzinfo=timezone.utc),
+                                             tags))
     finally:
         server.shutdown()
         server.server_close()
         thread.join(timeout=60)
     if status != 200:
         raise AssertionError(f"{name} answered {status}: {body[:300]!r}")
-    return _columns(json.loads(body)["data"]["model-output"], TAGS)
+    return _columns(json.loads(body)["data"]["model-output"], tags)
 
 
 def data_build_path(card: str, root: Path, device: str = "cuda", base=None) -> dict:
@@ -8070,6 +8100,342 @@ def _prom_value(text: str, series: str) -> float:
     return 0.0
 
 
+# ------------------------------------------- configs as the JAX CLI reads them
+# transformer-ae-512's definition (BUILD_CONFIG's model) as a Jinja template:
+# its widths and epochs come through --model-parameter, the rest from
+# filters' defaults; the {% if %} adds compute_dtype only where one is given
+TEMPLATE_MODEL = """\
+gordo_tpu.models.anomaly.diff.DiffBasedAnomalyDetector:
+  base_estimator:
+    sklearn.pipeline.Pipeline:
+      steps:
+        - sklearn.preprocessing.MinMaxScaler
+        - gordo_tpu.models.models.TransformerAutoEncoder:
+            kind: {{ kind | default('transformer_model') }}
+            lookback_window: {{ lookback_window | int }}
+            d_model: {{ d_model }}
+            num_heads: {{ num_heads }}
+            ff_dim: {{ ff_dim }}
+            num_blocks: {{ num_blocks | default(2) }}
+            causal: {{ causal | default('true') | lower }}
+            pool: {{ pool | default('last') }}
+            attention: auto
+            epochs: {{ epochs }}
+            batch_size: {{ batch_size | default(32) }}
+{%- if compute_dtype | default('float32') != 'float32' %}
+            compute_dtype: {{ compute_dtype }}
+{%- endif %}
+"""
+TEMPLATE_RUNTIME = """\
+  env:
+    - name: GORDO_SMOKE_KNOB
+      value: "1"
+  volumes:
+    - name: data
+      emptyDir: {}
+  builder:
+    volumeMounts:
+      - name: data
+        mountPath: /gordo/data
+        readOnly: true
+"""
+TEMPLATE_REPORTERS = """\
+  reporters:
+    - gordo_tpu.reporters.postgres.PostgresReporter:
+        host: 127.0.0.1
+    - gordo_tpu.reporters.mlflow.MlFlowReporter:
+        tracking_uri: file:///mlruns
+        experiment_name: chip-smoke
+"""
+# the C2 batch-build: examples/config.yaml's feedforward machines (the
+# block's third, compressor-b, is the LSTM machine that step 13 builds)
+EXAMPLE_FEEDFORWARD = ("pump-station-a", "turbine-c")
+
+
+def template_parameters(base=None) -> list:
+    """``--model-parameter`` pairs of ``base``'s widths (CONFIG by default)
+    and BUILD_CONFIG's epochs, as strings."""
+    base = CONFIG if base is None else base
+    values = {key: base[key] for key in ("lookback_window", "d_model", "num_heads", "ff_dim")}
+    values["epochs"] = 1
+    return [f"{key},{value}" for key, value in values.items()]
+
+
+def template_machine_yaml(name: str, model: str = TEMPLATE_MODEL, runtime: str = TEMPLATE_RUNTIME,
+                          reporters: str = TEMPLATE_REPORTERS, extra: str = "") -> str:
+    """BUILD_CONFIG's machine as YAML text: its dates as unquoted
+    timestamps, ``model`` a block scalar, ``runtime`` and ``reporters``
+    under ``runtime``."""
+    dataset = BUILD_CONFIG["dataset"]
+    model_block = "".join("  " + line + "\n" if line else "\n" for line in model.splitlines())
+    return (f"name: {name}\n{extra}"
+            f"dataset:\n  type: RandomDataset\n"
+            f"  train_start_date: {dataset['train_start_date']}\n"
+            f"  train_end_date: {dataset['train_end_date']}\n"
+            f"  resolution: {dataset['resolution']}\n"
+            f"  tags: [{', '.join(TAGS)}]\n"
+            f"evaluation:\n  cv_mode: full_build\n  seed: 0\n"
+            f"runtime:\n{runtime}{reporters}"
+            f"model: |\n{model_block}")
+
+
+class _ReporterServices:
+    """Stand-ins for the two external services, put in ``sys.modules`` for
+    the phase: ``psycopg2`` (its connection records SQL and parameters)
+    and ``mlflow`` (its client records calls). The reporters' code is the
+    port's; only the libraries they import are replaced."""
+
+    NAMES = ("psycopg2", "mlflow", "mlflow.entities", "mlflow.tracking")
+
+    def __init__(self):
+        import types
+
+        self.sql, self.mlflow = [], []
+        service = self
+
+        class Cursor:
+            def execute(self, sql, params=None):
+                service.sql.append((" ".join(sql.split()), params))
+
+        class Connection:
+            def cursor(self):
+                return Cursor()
+
+            def commit(self):
+                pass
+
+            def close(self):
+                pass
+
+        class Record(dict):
+            def __init__(self, **kwargs):
+                super().__init__(kwargs)
+
+        class Client:
+            def __init__(self, tracking_uri=None):
+                service.mlflow.append(("client", tracking_uri))
+
+            def get_experiment_by_name(self, name):
+                return None
+
+            def create_experiment(self, name):
+                return "experiment-1"
+
+            def create_run(self, experiment_id, run_name=None):
+                service.mlflow.append(("create_run", experiment_id, run_name))
+                return types.SimpleNamespace(info=types.SimpleNamespace(run_id="run-1"))
+
+            def log_batch(self, run_id, metrics, params):
+                service.mlflow.append(("log_batch", [dict(m) for m in metrics],
+                                       [dict(p) for p in params]))
+
+            def log_artifact(self, run_id, path):
+                service.mlflow.append(("log_artifact", Path(path).name))
+
+            def set_terminated(self, run_id, status="FINISHED"):
+                service.mlflow.append(("set_terminated", status))
+
+        psycopg2 = types.ModuleType("psycopg2")
+        psycopg2.connect = lambda **kwargs: Connection()
+        entities = types.ModuleType("mlflow.entities")
+        entities.Metric = entities.Param = Record
+        tracking = types.ModuleType("mlflow.tracking")
+        tracking.MlflowClient = Client
+        package = types.ModuleType("mlflow")
+        package.entities, package.tracking = entities, tracking
+        self.modules = dict(zip(self.NAMES, (psycopg2, package, entities, tracking)))
+
+    def __enter__(self):
+        self.saved = {name: sys.modules.get(name) for name in self.NAMES}
+        sys.modules.update(self.modules)
+        return self
+
+    def __exit__(self, *exc):
+        for name, module in self.saved.items():
+            if module is None:
+                sys.modules.pop(name, None)
+            else:
+                sys.modules[name] = module
+
+
+def _cli_report(argv: list, report: Path) -> tuple:
+    """``python -m gordo_tpu_torch`` with ``argv`` in this process, its
+    output swallowed: (exit code, the exceptions report or None)."""
+    import contextlib
+    import io
+
+    from gordo_tpu_torch import cli
+
+    report.unlink(missing_ok=True)
+    with contextlib.redirect_stdout(io.StringIO()), contextlib.redirect_stderr(io.StringIO()):
+        code = cli.main([*argv, "--exceptions-reporter-file", str(report)])
+    return code, (json.loads(report.read_text()) if report.exists() else None)
+
+
+# python -m gordo_tpu_torch where psycopg2 cannot be imported
+_NO_PSYCOPG2 = ("import runpy, sys; sys.modules['psycopg2'] = None; "
+                "sys.argv = ['gordo_tpu_torch', *sys.argv[1:]]; "
+                "runpy.run_module('gordo_tpu_torch', run_name='__main__', alter_sys=True)")
+
+
+def _example_block(unquoted: bool = True) -> str:
+    """The ``spec.config`` block of examples/config.yaml as YAML text (its
+    lines, dedented), the train dates unquoted timestamps."""
+    lines = (REPO / "examples" / "config.yaml").read_text().splitlines()
+    start = lines.index("  config:") + 1
+    text = "\n".join(line[4:] for line in lines[start:]) + "\n"
+    return re.sub(r'"(\d{4}-\d\d-\d\dT[0-9:]+\+00:00)"', r"\1", text) if unquoted else text
+
+
+def template_build_path(card: str, root: Path, device: str = "cuda", base=None) -> dict:
+    """Configs as the JAX CLI reads them (the module docstring's step 25):
+    a templated YAML build of transformer-ae-512 through the CLI with both
+    reporters, three refusals before any launch, a reporter without its
+    library in a subprocess, and batch-build of examples/config.yaml's
+    feedforward machines from YAML. Returns the phase's numbers and the
+    float32 kernels' launches of the templated build."""
+    from gordo_tpu_torch import cli, serializer
+    from gordo_tpu_torch.reporters.mlflow import extract_metrics_and_params
+
+    base = CONFIG if base is None else base
+    started = time.perf_counter()
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    on_card = ["--device", device] if device != "cuda" else []
+    pairs = [flag for pair in template_parameters(base)
+             for flag in ("--model-parameter", pair)]
+    out: dict = {"card": card}
+
+    # (c) a reporter without its library: the artifact, then exit 90; a
+    # subprocess, started first and awaited after (d)
+    example = EXAMPLE_MACHINES[0]
+    ff_machine = (
+        f"name: {example['name']}\ndataset: {json.dumps(example['dataset'])}\n"
+        f"model: {json.dumps(example['model'])}\n"
+        f"runtime:\n  reporters:\n    - gordo_tpu.reporters.postgres.PostgresReporter:\n"
+        f"        host: 127.0.0.1\n")
+    no_library, child_log = root / "no-psycopg2.json", root / "no-psycopg2.log"
+    with open(child_log, "w") as log:
+        child = subprocess.Popen(
+            [sys.executable, "-c", _NO_PSYCOPG2, "build", ff_machine, str(root / "no-psycopg2"),
+             "--exceptions-reporter-file", str(no_library), *on_card],
+            cwd=REPO, stdout=log, stderr=subprocess.STDOUT,
+            env={**os.environ, "PYTHONPATH": str(REPO)})
+    t_child = time.perf_counter()
+
+    try:
+        # (a) the templated build: the rendered definition is BUILD_CONFIG's
+        machine = template_machine_yaml("template-ae-512")
+        expected = build_config("template-ae-512", base=base)["model"]
+        rendered = cli.expand_model(TEMPLATE_MODEL, dict(p.split(",", 1) for p in pairs[1::2]))
+        if rendered != expected:
+            raise AssertionError(f"the template rendered {rendered}, not {expected}")
+        collection = root / "collection"
+        _reset_launches()
+        t0 = time.perf_counter()
+        with _ReporterServices() as services:
+            code, report = _cli_report(["build", machine, str(collection / "template-ae-512"),
+                                        *pairs, *on_card], root / "template-report.json")
+        out["build_s"] = time.perf_counter() - t0
+        launches = _launches("float32")
+        out["launches"] = {"float32": launches}
+        if code != 0 or report is not None:
+            raise AssertionError(f"the templated build exited {code}: {report}")
+        written = json.loads((collection / "template-ae-512" / "metadata.json").read_text())
+        if written["model"] != json.loads(json.dumps(
+                serializer.into_definition(serializer.from_definition(expected)))):
+            raise AssertionError("the built model's definition is not the template's")
+        rows = [params for sql, params in services.sql if sql.startswith("INSERT INTO machine")]
+        if len(rows) != 1 or [rows[0][0], *map(json.loads, rows[0][1:])] != [
+                written["name"], written["dataset"], written["model"], written["metadata"]]:
+            raise AssertionError(f"the Postgres stub's rows are not metadata.json's: {len(rows)}")
+        metrics, params = extract_metrics_and_params(written)
+        batches = [call for call in services.mlflow if call[0] == "log_batch"]
+        if ([(m["key"], m["value"]) for b in batches for m in b[1]] != metrics
+                or [(p["key"], p["value"]) for b in batches for p in b[2]] != params
+                or services.mlflow[-1] != ("set_terminated", "FINISHED")):
+            raise AssertionError(f"the MLflow stub's batches are not the metadata's: {batches}")
+        out["reported"] = {"postgres_rows": len(rows), "mlflow_metrics": len(metrics),
+                           "mlflow_params": len(params), "mlflow_batches": len(batches)}
+        model = serializer.load(str(collection / "template-ae-512"), device)
+        request = np.asarray(_provider_continuation(
+            _config_rows(BUILD_CONFIG), FULL_ROWS, np.random.RandomState(SEED + 25)))
+        served = _served_output(collection, "template-ae-512", request, device)
+        out["served_rel_err"] = _max_rel([served], [np.asarray(model.predict(request), np.float64)])
+        if not out["served_rel_err"] <= TOL_MODEL_REL:
+            raise AssertionError(f"the templated build served {out['served_rel_err']} from its "
+                                 f"direct predict")
+        if device == "cuda" and not all(launches[k] > 0 for k in ("forward", "dq", "dkv")):
+            raise AssertionError(f"the templated build launched {launches}")
+        print(f"template_build: rendered {len(TEMPLATE_MODEL.splitlines())}-line template = "
+              f"BUILD_CONFIG's model, build exit {code} in {out['build_s']:.2f} s, float32 "
+              f"launches {launches}, served {out['served_rel_err']:.2e}, reported "
+              f"{out['reported']}", flush=True)
+
+        # (b) refusals before any launch
+        _reset_launches()
+        refusals = {
+            "undefined_parameter": (["build", machine, str(root / "refused-1"), *pairs[:-4],
+                                     *on_card], "ValueError", "Model parameter missing value!"),
+            "mount_typo": (["build", template_machine_yaml(
+                "template-typo", runtime="  volumes:\n    - name: data\n      mountPth: /gordo/data\n"),
+                str(root / "refused-2"), *pairs, *on_card], "RuntimeConfigError",
+                "runtime.volumes[0].mountPth"),
+            "anchor": (["build", template_machine_yaml("template-anchor", extra="owner: &who me\n"),
+                        str(root / "refused-3"), *pairs, *on_card], "YAMLSubsetError",
+                       "an anchor ('&') at line 2, column 8"),
+        }
+        out["refusals"] = {}
+        for label, (argv, kind, words) in refusals.items():
+            code, report = _cli_report(argv, root / f"{label}.json")
+            out["refusals"][label] = {"exit": code, "report": report}
+            if code != 1 or report is None or report["type"] != kind or words not in report[
+                    "message"]:
+                raise AssertionError(f"the {label} refusal: exit {code}, report {report}")
+        if any(_launches("float32").values()):
+            raise AssertionError(f"a refusal launched a kernel: {_launches('float32')}")
+
+        # (d) C2: batch-build of a YAML project config, the dates unquoted
+        block = root / "example-config.yaml"
+        block.write_text(_example_block())
+        t0 = time.perf_counter()
+        code, report = _cli_report(["batch-build", str(block), str(root / "examples"),
+                                    "--machines", ",".join(EXAMPLE_FEEDFORWARD), *on_card],
+                                   root / "examples-report.json")
+        out["examples"] = {"exit": code, "s": time.perf_counter() - t0, "served_rel_err": {}}
+        if code != 0 or sorted(os.listdir(root / "examples")) != sorted(EXAMPLE_FEEDFORWARD):
+            raise AssertionError(f"batch-build of the YAML config exited {code}: {report}")
+        for example in EXAMPLE_MACHINES:
+            tags = example["dataset"]["tags"]
+            values = np.random.RandomState(SEED + 26).random_sample((BENCH_ROWS, len(tags)))
+            detector = serializer.load(str(root / "examples" / example["name"]), device)
+            served = _served_output(root / "examples", example["name"], values, device, tags)
+            err = _max_rel([served], [np.asarray(detector.predict(values), np.float64)])
+            out["examples"]["served_rel_err"][example["name"]] = err
+            if not err <= TOL_FF:
+                raise AssertionError(f"{example['name']} served {err} from its direct predict")
+        # (c), awaited
+        child.wait(timeout=600)
+        out["no_library"] = {"exit": child.returncode, "s": time.perf_counter() - t_child,
+                             "report": (json.loads(no_library.read_text())
+                                        if no_library.exists() else None)}
+        if (child.returncode != 90 or not (root / "no-psycopg2" / "metadata.json").exists()
+                or (out["no_library"]["report"] or {}).get("type") != "PostgresReporterException"):
+            raise AssertionError(f"the build without psycopg2: {out['no_library']}\n"
+                                 f"{child_log.read_text()[-2000:]}")
+    finally:  # the subprocess never outlives the phase
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+    out["phase_s"] = time.perf_counter() - started
+    print(f"template_build phase: refusals {[(k, v['exit']) for k, v in out['refusals'].items()]}"
+          f", no psycopg2 exit {out['no_library']['exit']} in {out['no_library']['s']:.1f} s, "
+          f"YAML batch-build exit {out['examples']['exit']} in {out['examples']['s']:.1f} s "
+          f"(served {out['examples']['served_rel_err']}); phase {out['phase_s']:.1f} s",
+          flush=True)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -8227,6 +8593,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     data = data_build_path(card, REPO / "build" / "chip_smoke_data")
     torch.cuda.empty_cache()
+    template = template_build_path(card, REPO / "build" / "chip_smoke_template")
+    torch.cuda.empty_cache()
 
     forward["launches_by_path"] = {"serving": serving, "server_surface": base_route,
                                    "batcher": batched["launches"],
@@ -8268,6 +8636,8 @@ def main() -> int:
                                   if key != "launches"}}, default=str))
     print(json.dumps({"data_build": {key: value for key, value in data.items()
                                      if key != "launches"}}, default=str))
+    print(json.dumps({"template_build": {key: value for key, value in template.items()
+                                         if key != "launches"}}, default=str))
     for entry, key, launches, fleet_launches in (
             (dq, "dq", build, fleet), (dkv, "dkv", build, fleet),
             (bf16_dq, "dq", bf16_build, bf16_fleet), (bf16_dkv, "dkv", bf16_build, bf16_fleet)):
@@ -8300,6 +8670,9 @@ def main() -> int:
         entry["launches_by_path"]["data_build"] = data["launches"]["float32"][key]
     for entry, key in ((bf16_forward, "forward"), (bf16_dq, "dq"), (bf16_dkv, "dkv")):
         entry["launches_by_path"]["data_fleet"] = data["launches"]["bfloat16"][key]
+    # the templated YAML build's, float32
+    for entry, key in ((forward, "forward"), (dq, "dq"), (dkv, "dkv")):
+        entry["launches_by_path"]["template_build"] = template["launches"]["float32"][key]
     dh16_entries = moe_entries(entries, moe)
     for entry in entries:
         entry["fleet_shape"] = fleet_times[entry["name"]]

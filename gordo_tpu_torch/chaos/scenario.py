@@ -3,16 +3,15 @@ Chaos scenario schema, vocabulary and parser: the port's copy of
 ``gordo_tpu/chaos/scenario.py``, with the same schema, vocabulary and
 errors.
 
-A scenario is one JSON document describing a drill: the stack (N serving
+A scenario is one document describing a drill: the stack (N serving
 nodes and one gateway, with its membership and gateway knobs), extra
 environment for both, a fault plan (util/faults.py rules), the machines,
 the load phases (chaos/load.py schedules) and chaff, an optional drift
 burst, a timeline of fault actions, and the invariants to check. The
 committed drills are ``gordo_tpu_torch/chaos/scenarios/*.json``, each the
 JSON of the JAX package's YAML file of the same name
-(``resources/chaos/``). The port reads JSON only (the card's machine has no
-YAML parser): :func:`load_scenario` refuses a YAML path and names the JSON
-copy.
+(``resources/chaos/``). :func:`load_scenario` reads either, as the JAX one
+does: ``.json`` as JSON, anything else as YAML (util/yaml_subset.py).
 
 The vocabulary lives here (``ACTIONS``, ``INVARIANTS``, ``CHAFF_KINDS``),
 with ``faults.KNOWN_SITES`` and ``load.SCHEDULE_SHAPES``.
@@ -23,7 +22,7 @@ import os
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional
 
-from ..util import faults
+from ..util import faults, yaml_subset
 from .load import SCHEDULE_SHAPES
 
 # the committed drills, JSON copies of the JAX package's YAML files
@@ -227,18 +226,15 @@ def parse_scenario(doc: dict, path: Optional[str] = None) -> Scenario:
 
 
 def load_scenario(path: str) -> Scenario:
-    """Parse a JSON scenario file. A YAML file is refused with a
-    :class:`ScenarioError` that names its JSON copy."""
-    stem, ext = os.path.splitext(path)
-    if ext.lower() in (".yaml", ".yml"):
-        copy = os.path.join(SCENARIO_DIR, os.path.basename(stem) + ".json")
-        hint = (f"use its JSON copy {copy}" if os.path.exists(copy)
-                else f"write it as JSON ({os.path.basename(stem)}.json)")
-        raise ScenarioError(f"{path}: the port reads JSON scenarios only (no YAML parser); {hint}")
+    """Parse a scenario file: ``.json`` as JSON, anything else as YAML (the
+    superset, so a JSON file loads either way)."""
     with open(path) as fh:
         raw = fh.read()
-    try:
-        doc = json.loads(raw)
-    except ValueError as exc:
-        raise ScenarioError(f"{path}: not JSON ({exc})") from None
+    if os.path.splitext(path)[1].lower() == ".json":
+        try:
+            doc = json.loads(raw)
+        except ValueError as exc:
+            raise ScenarioError(f"{path}: not JSON ({exc})") from None
+    else:
+        doc = yaml_subset.load(raw)
     return parse_scenario(doc, path=path)

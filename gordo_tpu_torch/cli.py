@@ -3,21 +3,27 @@ The port's command line, ``python -m gordo_tpu_torch``: the counterparts
 of ``gordo build``, ``batch-build``, ``drift-rebuilder``, ``run-server``,
 ``run-gateway``, ``trace`` and ``chaos`` (``gordo_tpu/cli/cli.py``).
 
-``build MACHINE OUTPUT_DIR`` builds one machine from its config, a JSON
-object given as the argument or in the ``MACHINE`` environment variable
-(the output directory likewise, or ``OUTPUT_DIR``), on the card unless
-``--device cpu`` is given. The model definition is round-tripped first so
-that every default is recorded. A failure exits with the code of its
-exception's class, as the JAX CLI's table has them, and with
-``--exceptions-reporter-file`` (``EXCEPTIONS_REPORTER_FILE``) writes the
-JAX CLI's JSON report of it there at ``--exceptions-report-level``
-(``EXCEPTIONS_REPORT_LEVEL``: ``EXIT_CODE``, ``TYPE``, ``MESSAGE``, the
-default, or ``TRACEBACK``; cli_exceptions_reporter.py); ``batch-build``
-takes both too. Jinja model templates are not ported.
+``build MACHINE OUTPUT_DIR`` builds one machine from its config, YAML
+(JSON included) given as the argument or in the ``MACHINE`` environment
+variable (the output directory likewise, or ``OUTPUT_DIR``), on the card
+unless ``--device cpu`` is given. Configs are read as the JAX CLI reads
+them with ``yaml.safe_load`` (util/yaml_subset.py). A ``model`` given as a
+string is a Jinja template, rendered with the ``--model-parameter
+key,value`` pairs (repeatable; the values stay strings until the rendered
+text is read as YAML) through the Jinja subset of util/templates.py, then
+read as YAML; a parameter the template uses but was not given raises
+``ValueError("Model parameter missing value!")``. The model definition is
+round-tripped so that every default is recorded, and after the build the
+reporters of ``runtime.reporters`` run (reporters/). A failure exits with
+the code of its exception's class, as the JAX CLI's table has them (a
+reporter's failure 90), and with ``--exceptions-reporter-file``
+(``EXCEPTIONS_REPORTER_FILE``) writes the JAX CLI's JSON report of it there
+at ``--exceptions-report-level`` (``EXCEPTIONS_REPORT_LEVEL``: ``EXIT_CODE``,
+``TYPE``, ``MESSAGE``, the default, or ``TRACEBACK``;
+cli_exceptions_reporter.py); ``batch-build`` takes both too.
 
 ``batch-build CONFIG_FILE OUTPUT_DIR`` builds every machine of a project
-config (JSON, which is also YAML, so the JAX CLI reads the same file) with
-the fleet trainer (parallel/batch_trainer.py) into ``OUTPUT_DIR/<name>``.
+config (YAML, JSON included) with the fleet trainer (parallel/batch_trainer.py) into ``OUTPUT_DIR/<name>``.
 It exits 0 when every machine was built, 81 when some were quarantined and
 82 when none was (the JAX CLI's codes), a line on stderr for each
 quarantined machine (its stage, reason, attempts and error) and, with
@@ -79,8 +85,9 @@ the JAX command prints them; it exits 2 when the gateway is unreachable and
 
 ``chaos run SCENARIO`` runs one chaos drill (chaos/conductor.py; ``--dir``
 its working directory, ``--out`` the JSON report, ``--verbose``) and exits
-0 only when every invariant holds; ``chaos list`` lists the scenarios of
-``--dir`` (default the port's JSON copies, ``gordo_tpu_torch/chaos/scenarios``).
+0 only when every invariant holds (a ``.json`` scenario is read as JSON,
+any other as YAML); ``chaos list`` lists the scenarios of ``--dir``
+(default the port's JSON copies, ``gordo_tpu_torch/chaos/scenarios``).
 """
 
 import argparse
@@ -99,6 +106,8 @@ from .cli_exceptions_reporter import ExceptionsReporter, ReportLevel
 from .dataset.datasets import InsufficientDataError
 from .dataset.sensor_tag import SensorTagNormalizationError
 from .machine import Machine
+from .reporters.base import ReporterException
+from .util import templates, yaml_subset
 from .util.faults import EXIT_NONE_BUILT, EXIT_PARTIAL
 
 logger = logging.getLogger(__name__)
@@ -110,6 +119,7 @@ EXIT_CODES = (
     (SensorTagNormalizationError, 60),
     (InsufficientDataError, 80),
     (NonFiniteDataError, 83),
+    (ReporterException, 90),
 )
 _exceptions_reporter = ExceptionsReporter(EXIT_CODES)
 
@@ -144,14 +154,24 @@ def get_all_score_strings(machine: Machine) -> List[str]:
     return all_scores
 
 
+def expand_model(model_config: str, model_parameters: dict):
+    """A string model rendered as a Jinja template with
+    ``model_parameters``, then read as YAML."""
+    try:
+        model_config = templates.render(model_config, model_parameters)
+    except templates.UndefinedError as exc:
+        raise ValueError("Model parameter missing value!") from exc
+    return yaml_subset.load(model_config)
+
+
 def build(machine_config: dict, output_dir: str, model_register_dir: Optional[str] = None,
-          print_cv_scores: bool = False, device=None) -> None:
-    """Build one machine and write its artifact into ``output_dir``."""
+          print_cv_scores: bool = False, device=None, model_parameter=()) -> None:
+    """Build one machine and write its artifact into ``output_dir``; a
+    string model is rendered first with the ``model_parameter`` pairs."""
     if isinstance(machine_config.get("model"), str):
-        raise ValueError(
-            "the model is a string (a Jinja template): templates are not ported; "
-            "give the model definition as a JSON object"
-        )
+        # rendered whenever it is a string, parameters or not, as in JAX
+        machine_config["model"] = expand_model(machine_config["model"],
+                                               dict(model_parameter or ()))
     machine = Machine.from_config(
         machine_config, project_name=machine_config.get("project_name", "project")
     )
@@ -216,7 +236,7 @@ def _project_machines(config_file: str, project_name: str) -> list:
     from .workflow.normalized_config import NormalizedConfig
 
     with open(config_file) as f:
-        config = json.load(f)
+        config = yaml_subset.load(f)
     return NormalizedConfig(config, project_name=project_name).machines
 
 
@@ -340,18 +360,21 @@ def _parser() -> argparse.ArgumentParser:
     commands = parser.add_subparsers(dest="command", required=True)
     build_cmd = commands.add_parser("build", help=build.__doc__)
     build_cmd.add_argument("machine_config", nargs="?", default=os.environ.get("MACHINE"),
-                           help="the machine's config as JSON (default: $MACHINE)")
+                           help="the machine's config as YAML or JSON (default: $MACHINE)")
     build_cmd.add_argument("output_dir", nargs="?", default=os.environ.get("OUTPUT_DIR", "/data"),
                            help="where the artifact goes (default: $OUTPUT_DIR or /data)")
     build_cmd.add_argument("--model-register-dir",
                            default=os.environ.get("MODEL_REGISTER_DIR"))
     build_cmd.add_argument("--print-cv-scores", action="store_true",
                            help="print the CV scores to stdout")
+    build_cmd.add_argument("--model-parameter", type=key_value_par, action="append",
+                           default=[],
+                           help="key,value for the model template's variables; repeatable")
     build_cmd.add_argument("--device", default=None, help="cuda (default) or cpu")
     _reporter_options(build_cmd)
     fleet_cmd = commands.add_parser("batch-build", help=batch_build.__doc__)
     fleet_cmd.add_argument("config_file", nargs="?", default=os.environ.get("CONFIG_FILE"),
-                           help="the project config, JSON (default: $CONFIG_FILE)")
+                           help="the project config, YAML or JSON (default: $CONFIG_FILE)")
     fleet_cmd.add_argument("output_dir", nargs="?", default=os.environ.get("OUTPUT_DIR", "/data"),
                            help="where the artifacts go (default: $OUTPUT_DIR or /data)")
     fleet_cmd.add_argument("--project-name", default=os.environ.get("PROJECT_NAME", "batch"))
@@ -389,7 +412,7 @@ def _parser() -> argparse.ArgumentParser:
     _reporter_options(fleet_cmd)
     drift_cmd = commands.add_parser("drift-rebuilder", help=drift_rebuilder.__doc__)
     drift_cmd.add_argument("config_file", nargs="?", default=os.environ.get("CONFIG_FILE"),
-                           help="the project config, JSON (default: $CONFIG_FILE)")
+                           help="the project config, YAML or JSON (default: $CONFIG_FILE)")
     drift_cmd.add_argument("--queue-dir", default=os.environ.get("GORDO_TPU_DRIFT_QUEUE_DIR"),
                            help="the drift queue the servers enqueue into "
                                 "(default: $GORDO_TPU_DRIFT_QUEUE_DIR)")
@@ -463,7 +486,7 @@ def _parser() -> argparse.ArgumentParser:
                            help="the stack's and the gateway's logs on stderr")
     chaos_list = chaos_commands.add_parser("list", help="List the scenarios and their invariants")
     chaos_list.add_argument("--dir", dest="scenario_dir", default=None,
-                            help="a directory of JSON scenarios (default: the port's copies)")
+                            help="a directory of scenarios (default: the port's JSON copies)")
     return parser
 
 
@@ -596,6 +619,17 @@ def _int_range(low: int, high: int):
     return parse
 
 
+def key_value_par(text: str) -> tuple:
+    """An argparse type: ``key,value`` as the pair ``(key, value)`` (the
+    value may hold commas), refused as the JAX CLI's ``key_value_par``
+    refuses a value without a comma."""
+    parts = tuple(text.split(",", 1))
+    if len(parts) != 2:
+        raise argparse.ArgumentTypeError(
+            f"{text!r} is not of the form 'key,value' (missing comma)")
+    return parts
+
+
 def _host_ip(text: str) -> str:
     """An argparse type: an IP address, refused as the JAX CLI's ``HostIP``
     refuses what is not one."""
@@ -665,8 +699,8 @@ def main(argv: Optional[List[str]] = None) -> int:
                                    args.poll_interval, args.device, args.metrics_file)
         if args.machine_config is None:
             raise ValueError("no machine config: give it as an argument or in $MACHINE")
-        build(json.loads(args.machine_config), args.output_dir, args.model_register_dir,
-              args.print_cv_scores, args.device)
+        build(yaml_subset.load(args.machine_config), args.output_dir, args.model_register_dir,
+              args.print_cv_scores, args.device, args.model_parameter)
     except Exception as exc:  # noqa: BLE001 -- the exit code reports the failure
         if args.command in ("build", "batch-build"):
             return report_exception(exc, args.exceptions_reporter_file,

@@ -2,8 +2,8 @@
 ``Machine``: one asset's dataset, model and evaluation settings, the unit a
 build turns into an artifact. The port's counterpart of
 ``gordo_tpu/machine/machine.py``: the same merge of a machine block with the
-project's ``globals``, the same ``to_dict``/``from_dict``. Reporters are not
-ported (see ROADMAP.md queue A), so ``report`` raises if the runtime names one.
+project's ``globals``, the same ``to_dict``/``from_dict``, and ``report``
+running the reporters its runtime names (reporters/).
 """
 
 import json
@@ -110,12 +110,20 @@ class Machine:
         }
 
     def report(self):
-        """Reporters are not ported: raises if the runtime names any."""
-        if self.runtime.get("reporters"):
-            raise NotImplementedError(
-                "reporters are not ported yet: see the 'Training, the rest of the "
-                "build path' item of ROADMAP.md queue A"
-            )
+        """Send this machine to every reporter of ``runtime.reporters``, in
+        order, as the JAX ``Machine.report`` does, e.g.::
+
+            runtime:
+              reporters:
+                - gordo_tpu.reporters.postgres.PostgresReporter:
+                    host: my-special-host
+        """
+        from ..reporters.base import BaseReporter
+
+        for spec in self.runtime.get("reporters", []):
+            reporter = BaseReporter.from_dict(spec)
+            logger.debug("Using reporter: %s", reporter)
+            reporter.report(self)
 
     def __eq__(self, other):
         return self.to_dict() == other.to_dict()

@@ -1,8 +1,9 @@
 """
 Descriptor-based validation of Machine fields: the port's counterpart of
-``gordo_tpu/machine/validators.py``. The runtime's pod-fragment schema
-checks (``gordo_tpu/workflow/schemas.py``) are not ported: a port build
-reads no pod runtime.
+``gordo_tpu/machine/validators.py``. The runtime is checked against the
+pod-fragment schemas (workflow/schemas.py) as the JAX package checks it, so
+a malformed env, volume, mount or resource fragment fails when the machine
+is made, naming its config path.
 """
 
 import logging
@@ -111,11 +112,16 @@ def fix_resource_limits(resources: dict) -> dict:
 
 
 class ValidMachineRuntime(BaseDescriptor):
-    """A runtime dict, with the builder's and server's resources fixed up."""
+    """A runtime dict checked against the pod-fragment schemas
+    (workflow/schemas.py), then the builder's and server's resources fixed
+    up."""
 
     def __set__(self, instance, value):
         if not isinstance(value, dict):
             raise ValueError(f"{self.name} must be a dict")
+        from ..workflow.schemas import validate_runtime
+
+        validate_runtime(value, self.name)
         for section in ("builder", "server"):
             if isinstance(value.get(section), dict) and "resources" in value[section]:
                 value[section]["resources"] = fix_resource_limits(value[section]["resources"])

@@ -31,6 +31,8 @@ from ..models.scaler import (
 )
 from ..models.transformer_funcs.general import multiply_by
 from ..models.transformers.imputer import InfImputer
+from ..reporters.mlflow import MlFlowReporter
+from ..reporters.postgres import PostgresReporter
 
 # Reference-path compatibility aliases, as the JAX package has them: old
 # gordo import paths to the JAX package's
@@ -82,6 +84,8 @@ _PORTED = (
     (InfImputer, ("gordo_tpu.models.transformers.imputer.InfImputer",)),
     (multiply_by, ("gordo_tpu.models.transformer_funcs.general.multiply_by",)),
     (EarlyStopping, ("gordo_tpu.models.callbacks.EarlyStopping",)),
+    (PostgresReporter, ("gordo_tpu.reporters.postgres.PostgresReporter",)),
+    (MlFlowReporter, ("gordo_tpu.reporters.mlflow.MlFlowReporter",)),
     (Pipeline, ("sklearn.pipeline.Pipeline",)),
     (FeatureUnion, ("sklearn.pipeline.FeatureUnion",)),
     *((cls, (f"sklearn.preprocessing._data.{cls.__name__}",

@@ -23,11 +23,22 @@ Every file is written atomically (a unique temp file, then a rename), as
 ``gordo_tpu/serializer/serializer.py`` writes its artifact. :func:`dumps`
 packs an artifact directory into gzipped tar bytes (what the server's
 ``download-model`` answers) and :func:`loads` reads them back.
+
+The JAX package's artifact may also carry compiled serving programs
+(``gordo_tpu/serializer/programs.py``: XLA executables written under
+``GORDO_TPU_SHIP_PROGRAMS`` and loaded at serving under
+``GORDO_TPU_LOAD_SHIPPED_PROGRAMS``, so that a node does not compile). The
+port has no counterpart because it has nothing to ship: it traces and
+compiles no program, its kernels are built once a host from their sources
+(``ops/_build.py``) and its server runs eager torch over them. With either
+knob set, :func:`dump` or :func:`load` logs once a process that no program
+is shipped or loaded, and nothing else changes.
 """
 
 import copy
 import io
 import json
+import logging
 import os
 import tarfile
 import tempfile
@@ -44,11 +55,28 @@ from .from_definition import from_definition
 from .into_definition import load_definition_from_params
 from .resolver import definition_path
 
+logger = logging.getLogger(__name__)
+
 FORMAT = "gordo_tpu_torch/2"
 FORMAT_V1 = "gordo_tpu_torch/1"
 DETECTORS = {cls.__name__: cls
              for cls in (DiffBasedAnomalyDetector, DiffBasedKFCVAnomalyDetector)}
 ARTIFACT_FILES = ("model.json", "params.npz", "metadata.json")
+# the JAX package's knobs for shipped serving programs, by side
+PROGRAM_KNOBS = {"ship": "GORDO_TPU_SHIP_PROGRAMS", "load": "GORDO_TPU_LOAD_SHIPPED_PROGRAMS"}
+_programs_noted: set = set()
+
+
+def note_no_programs(side: str) -> None:
+    """Log once a process, where ``side``'s knob (:data:`PROGRAM_KNOBS`) is
+    on, that the port ships and loads no compiled program."""
+    knob = PROGRAM_KNOBS[side]
+    if knob in _programs_noted or os.environ.get(knob, "").lower() not in ("1", "true", "yes"):
+        return
+    _programs_noted.add(knob)
+    logger.info("%s is set, but the port %s no compiled serving program: it compiles none "
+                "(eager torch over kernels built from their sources)", knob,
+                "ships" if side == "ship" else "loads")
 
 
 def _atomic_write(final: str, data: bytes) -> None:
@@ -136,6 +164,7 @@ def dump(detector: DiffBasedAnomalyDetector, dest_dir: str, tags: List[str],
     """Write ``detector`` (a detector of :data:`DETECTORS` over a
     ``Pipeline`` of ported transform steps ending in a ported estimator, or
     over that estimator alone) into ``dest_dir``."""
+    note_no_programs("ship")
     if type(detector).__name__ not in DETECTORS:
         raise TypeError(
             f"the port's artifact holds a DiffBasedAnomalyDetector or a "
@@ -206,6 +235,7 @@ def load(source_dir: str, device=None) -> DiffBasedAnomalyDetector:
     """Read an artifact written by :func:`dump` (or in ``FORMAT_V1``), with
     the model's parameters placed on ``device`` (``cuda`` unless
     ``"cpu"``)."""
+    note_no_programs("load")
     with open(os.path.join(source_dir, "model.json")) as f:
         model = json.load(f)
     if model.get("format") not in (FORMAT, FORMAT_V1):

@@ -101,8 +101,13 @@ whole group, at BH = (windows summed over the group) x heads.
   replacement enqueued after the gather runs after it on the stream.
 
 ``load_shipped``/``prelower`` and the AOT programs they install have no
-counterpart here: whether the port ships anything in their place is
-decided by ROADMAP.md item A10's remainder. Tests read the plain
+counterpart here, by decision: they exist so that a serving node does not
+trace and compile the stacked XLA program, and the port traces and
+compiles nothing (its fused forward is eager torch over kernels that
+``ops/_build.py`` builds once a host), so there is no program to ship or
+lower ahead (serializer/serializer.py ``note_no_programs``). The catalog's
+``gordo_server_aot_programs_total`` and ``gordo_server_prelower_failures_total``
+stay unfed. Tests read the plain
 attributes beside the catalog: ``stats``, ``calls``, ``spec_calls`` (fused
 calls by spec) and each bank's ``generation``, ``restacks`` and
 ``evictions``.

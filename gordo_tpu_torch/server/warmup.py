@@ -3,8 +3,10 @@ Serving warm-up: pay the first request's costs before traffic. The port's
 counterpart of ``gordo_tpu/server/warmup.py``, with its report's keys.
 
 The JAX warm-up compiles each artifact's XLA predict programs per padded
-row bucket. The port compiles no program; what its first request pays in
-that place is, per architecture of the collection:
+row bucket, or loads them where the artifact ships them. The port compiles
+no program, so it neither ships nor loads one (serializer/serializer.py:
+with ``GORDO_TPU_LOAD_SHIPPED_PROGRAMS`` set it logs that once); what its
+first request pays in that place is, per architecture of the collection:
 
 - the kernel libraries its spec launches (``ops/_build.py``
   ``load_library``: on an empty build directory this builds every CUDA

@@ -58,8 +58,11 @@ builder's and the fleet trainer's fetch (builder/build_model.py,
 parallel/batch_trainer.py), ``bucket_compile`` before each of the fleet's
 stacked programs (machines = the chunk's) and ``diverge`` in the fleet's
 check of each trained machine. ``KNOWN_SITES`` is the JAX package's whole
-vocabulary; ``scheduler_lease`` and ``aot_program_load`` belong to paths the
-port does not have (ROADMAP.md items A7 and A10's remainder).
+vocabulary; ``scheduler_lease`` belongs to the elastic scheduler, which the
+port does not have yet (ROADMAP.md item A7), and ``aot_program_load`` to the
+loading of shipped XLA programs, which the port will not have: it compiles
+no program, so it ships and loads none (serializer/serializer.py), and a
+rule at that site never fires.
 """
 
 import json

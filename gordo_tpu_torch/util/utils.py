@@ -1,9 +1,30 @@
 """
-Small helpers: the port's copy of ``parse_service_uri`` from
-``gordo_tpu/util/utils.py``.
+Small helpers: the port's copies of ``capture_args`` and
+``parse_service_uri`` from ``gordo_tpu/util/utils.py``.
 """
 
+import functools
+import inspect
 from typing import Tuple
+
+
+def capture_args(method):
+    """Decorate an ``__init__`` so that the arguments of each call, the
+    defaults included and ``**kwargs`` spread out, land in ``self._params``:
+    the objects' ``get_params`` (the reporters')."""
+
+    @functools.wraps(method)
+    def wrapper(self, *args, **kwargs):
+        bound = inspect.signature(method).bind(self, *args, **kwargs)
+        bound.apply_defaults()
+        params = dict(bound.arguments)
+        params.pop("self", None)
+        if "kwargs" in params:
+            params.update(params.pop("kwargs"))
+        self._params = params
+        return method(self, *args, **kwargs)
+
+    return wrapper
 
 
 def parse_service_uri(uri, default_host: str = "localhost", default_port: int = 8086,

@@ -37,7 +37,7 @@ from gordo_tpu_torch import cli
 from gordo_tpu_torch.chaos import conductor, invariants as inv, load, node, scenario as scn, stack
 from gordo_tpu_torch.observability.latency import LatencyHistogram
 from gordo_tpu_torch.server import resilience
-from gordo_tpu_torch.util import faults
+from gordo_tpu_torch.util import faults, yaml_subset
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 JAX_DIR = os.path.join(REPO, "resources", "chaos")
@@ -141,11 +141,16 @@ def test_minimal_scenario_and_yaml_refusal(tmp_path):
     path = tmp_path / "s.json"
     path.write_text(json.dumps(_minimal_doc()))
     assert scn.load_scenario(str(path)).machines == ["m-000", "m-001", "m-002", "m-003"]
-    with pytest.raises(scn.ScenarioError, match="kill_node_mid_ramp.json"):
-        scn.load_scenario(os.path.join(JAX_DIR, "kill_node_mid_ramp.yaml"))
+    # a YAML scenario loads as its JSON copy does (util/yaml_subset.py)
+    yaml_path = os.path.join(JAX_DIR, "kill_node_mid_ramp.yaml")
+    assert _fields(scn.load_scenario(yaml_path)) == _fields(
+        scn.load_scenario(os.path.join(scn.SCENARIO_DIR, "kill_node_mid_ramp.json")))
     (tmp_path / "mine.yml").write_text("name: x\n")
-    with pytest.raises(scn.ScenarioError, match=r"write it as JSON \(mine.json\)"):
-        scn.load_scenario(str(tmp_path / "mine.yml"))
+    assert _fields(scn.load_scenario(str(tmp_path / "mine.yml"))) == _fields(
+        jax_scn.load_scenario(str(tmp_path / "mine.yml")))
+    (tmp_path / "anchored.yaml").write_text("name: &n x\n")
+    with pytest.raises(yaml_subset.YAMLSubsetError, match="an anchor"):
+        scn.load_scenario(str(tmp_path / "anchored.yaml"))
     (tmp_path / "broken.json").write_text("{not json")
     with pytest.raises(scn.ScenarioError, match="not JSON"):
         scn.load_scenario(str(tmp_path / "broken.json"))

@@ -361,7 +361,7 @@ def test_port_imports_no_jax_and_nothing_of_gordo_tpu():
     code = """
 import importlib, pkgutil, sys
 for blocked in ("jax", "jaxlib", "pandas", "sklearn", "werkzeug", "yaml", "prometheus_client",
-                "click"):
+                "click", "jinja2", "mlflow", "psycopg2"):
     sys.modules[blocked] = None
 import gordo_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(gordo_tpu_torch.__path__, "gordo_tpu_torch.")]
@@ -425,6 +425,15 @@ from gordo_tpu_torch.native import resample, rolling_min_max
 from gordo_tpu_torch.util import text, utils
 from gordo_tpu_torch import cli_exceptions_reporter
 from gordo_tpu_torch import cli
+# configs as the JAX CLI reads them: the YAML reader, the Jinja subset, the
+# runtime schemas and the reporters
+from gordo_tpu_torch.util import templates, yaml_subset
+from gordo_tpu_torch.workflow import schemas
+from gordo_tpu_torch.reporters import base, mlflow, postgres
+from gordo_tpu_torch.reporters.postgres import PostgresReporter
+from gordo_tpu_torch.reporters.mlflow import MlFlowReporter
+assert cli._parser().parse_args(["build", "{}", "--model-parameter", "a,b"]).model_parameter == [
+    ("a", "b")]
 for argv in (["batch-build", "fleet.json", "out", "--device", "cpu", "--fail-fast"],
              ["batch-build", "fleet.json", "out", "--trace-file", "t.json",
               "--metrics-file", "m.prom"],
