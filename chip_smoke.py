@@ -397,19 +397,50 @@ Drive the PyTorch/CUDA port (gordo_tpu_torch) on one NVIDIA GPU.
    with unquoted train dates (its feedforward machines, ``--machines``):
    exit 0, each built machine served within TOL_FF of its direct
    predict. The phase's seconds printed.
-26. A ``batcher_path`` JSON line (both dtypes' numbers), a ``feedforward``
+26. The prediction client and the workflow generator
+   (:func:`client_workflow_path`). A project config of two machines,
+   BUILD_CONFIG's ``transformer-ae-512`` in float32 and in bf16, each
+   reading the eight tags' per-tag CSV files (``_write_tag_files``), which
+   run CW_CLIENT_ROWS rows past the training span, is rendered by
+   ``workflow generate`` (``--machines-per-gpu-worker 2 --server-workers 1``,
+   the client dates those later rows, no Postgres) and passes ``workflow
+   validate``. Then the rendered commands run as rendered, without Argo,
+   each with its rendered ``env``: only the pod's own paths (the ``/gordo``
+   mount prefix and the pod-private ``/tmp``, where the builder's
+   ``EXCEPTIONS_REPORTER_FILE`` lies, replaced by the phase's root and its
+   ``tmp``) and the Kubernetes service addresses (the server and Influx
+   hosts and ports of the client's args, the server's ``GORDO_SERVER_PORT``)
+   are substituted, and the DAG's parameters bound as Argo binds them; the ``python`` on their PATH is this run's interpreter,
+   which records each process's kernel counters (:func:`_counted_python`).
+   (a) ``stage-config``'s script; (b) the ``gpu-batch-builder`` chunk, on
+   the card; (c) the server Deployment's container (its manifest read from
+   the block scalar); (d) the client task of each machine at once, forwarding
+   into an InfluxDB stub on 127.0.0.1; (e) ``python -m
+   gordo_tpu_torch.client`` ``predict --output-dir``, ``metadata`` and
+   ``download-model``. Gates: every process exits 0; both artifacts built
+   and no exceptions report written; the builder's float32 and bf16 forward, dQ and dK/dV launched, the
+   server's forward of each dtype, no plain attention; each task's
+   predictions (the stub's ``model-output`` lines) within TOL_MODEL_REL
+   (bf16 TOL_BF16_MODEL_REL) of the direct predict of the same rows by the
+   artifact, CW_CLIENT_ROWS less the lookback plus one of them; the stub's
+   lines and fields of each served block equal to the rows and values that
+   are finite in the direct anomaly frame; each parquet file's footer
+   stating those rows; ``metadata`` equal to the server's ``/metadata``; the
+   downloaded model predicting within the same tolerance of the served
+   answer. The phase's seconds printed.
+27. A ``batcher_path`` JSON line (both dtypes' numbers), a ``feedforward``
    JSON line, a ``fastlane``/``kfcv_fleet`` JSON line, a ``windowed`` JSON
    line, a ``transformer-ae-512-d384`` JSON line, a ``moe`` JSON line, an
    ``observability`` JSON line, a ``resilience`` JSON line, a ``drift`` JSON
    line, a ``gateway`` JSON line, a ``data_build`` JSON line, a
-   ``template_build`` JSON line, a ``kernels``
-   JSON line (twenty-two entries: the six flash kernels at dh 64 with their
-   results by head dim and the observability, resilience, drift, gateway,
-   ``data_build`` and ``template_build`` (float32) and ``data_fleet`` (bf16)
-   launches among their paths, the six again at dh 96 with the d384
-   path's launches and at dh 16 with the MoE fleet's, then the LSTM
-   recurrence's forward and backward in float32 and bf16), then
-   the last line
+   ``template_build`` JSON line, a ``client_workflow`` JSON line, a
+   ``kernels`` JSON line (twenty-two entries: the six flash kernels at dh 64
+   with their results by head dim and the observability, resilience, drift,
+   gateway, ``data_build`` and ``template_build`` (float32), ``data_fleet``
+   (bf16) and ``client_workflow`` (both) launches among their paths, the
+   six again at dh 96 with the d384 path's launches and at dh 16 with the
+   MoE fleet's, then the LSTM recurrence's forward and backward in float32
+   and bf16), then the last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
 Any failure raises, so the exit code is not 0 and no result line is
@@ -7765,13 +7796,13 @@ DATA_QUARANTINED = {"m-1": "data_fetch", "m-2": "data_validation", "m-3": "train
 
 
 def _data_frame(n_rows: int):
-    """The eight tags' RandomDataProvider series over BUILD_CONFIG's span:
-    (int64 nanosecond stamps, (rows, 8) values)."""
+    """The eight tags' RandomDataProvider series over ``n_rows`` ten-minute
+    rows from BUILD_CONFIG's start: (int64 nanosecond stamps, (rows, 8)
+    values)."""
     from gordo_tpu_torch.dataset import RandomDataProvider, SensorTag
 
-    dataset = BUILD_CONFIG["dataset"]
-    start = datetime.fromisoformat(dataset["train_start_date"])
-    end = datetime.fromisoformat(dataset["train_end_date"])
+    start = datetime.fromisoformat(BUILD_CONFIG["dataset"]["train_start_date"])
+    end = start + n_rows * timedelta(minutes=10)
     series = list(RandomDataProvider().load_series(start, end, [SensorTag(t) for t in TAGS]))
     values = np.stack([s.values for s in series], axis=1)
     assert values.shape == (n_rows, len(TAGS))
@@ -8436,6 +8467,379 @@ def template_build_path(card: str, root: Path, device: str = "cuda", base=None) 
     return out
 
 
+# -- step 26: the prediction client and the workflow generator
+CW_PROJECT = "smoke"
+CW_MACHINES = {"transformer-ae-512": "float32", "transformer-ae-512-bf16": "bfloat16"}
+CW_TOL = {"float32": TOL_MODEL_REL, "bfloat16": TOL_BF16_MODEL_REL}
+CW_CLIENT_ROWS = FULL_ROWS  # the rows a client task fetches after the training span
+CW_ENV = ("MODEL_COLLECTION_DIR", "EXPECTED_MODELS", "EXPECTED_MODELS_FILE", "PROJECT",
+          "ENABLE_PROMETHEUS", "OUTPUT_DIR", "MACHINE", "CONFIG_FILE", "MODEL_REGISTER_DIR",
+          "EXCEPTIONS_REPORTER_FILE", "EXCEPTIONS_REPORT_LEVEL", "MACHINES", "PROJECT_NAME")
+
+
+def _counted_python(argv: list) -> None:
+    """The ``python`` on the rendered commands' PATH (client_workflow_path):
+    ``python -m MODULE ARGS`` runs the module in this process, its flash
+    wrappers' counters and plain attention calls dumped as JSON into
+    ``$GORDO_SMOKE_COUNTS_DIR/<module>-<pid>.json`` every 0.1 s and at its
+    exit; with ``GORDO_SMOKE_DEVICE=cpu`` (a rehearsal off the card) the
+    port's commands get ``--device cpu``. Anything else runs as given."""
+    import runpy
+
+    if argv[:1] != ["-m"]:
+        os.execv(sys.executable, [sys.executable, *argv])
+    module, args = argv[1], list(argv[2:])
+    if os.environ.get("GORDO_SMOKE_DEVICE") == "cpu" and module == "gordo_tpu_torch":
+        args += ["--device", "cpu"]
+    counts = Path(os.environ["GORDO_SMOKE_COUNTS_DIR"]) / f"{module}-{os.getpid()}.json"
+    plain, lock = _PlainAttentionCalls(), threading.Lock()
+
+    def dump():
+        doc = {"pid": os.getpid(), "argv": argv, "float32": _launches("float32"),
+               "bfloat16": _launches("bfloat16"), "plain_calls": plain.calls}
+        with lock:
+            counts.with_suffix(".tmp").write_text(json.dumps(doc))
+            os.replace(counts.with_suffix(".tmp"), counts)
+
+    def every():
+        while True:
+            dump()
+            time.sleep(0.1)
+
+    _reset_launches()
+    with plain:
+        threading.Thread(target=every, name="smoke-counts", daemon=True).start()
+        sys.argv = [module, *args]
+        try:
+            runpy.run_module(module, run_name="__main__", alter_sys=True)
+        finally:
+            dump()
+
+
+# A pod's own paths: the ``/gordo`` mount, and its private ``/tmp``, where the
+# builder's env puts EXCEPTIONS_REPORTER_FILE; each at the start of a path.
+_CW_POD_PATH = re.compile(r"(?<![\w.~/-])/(gordo|tmp)/")
+
+
+def _cw_pod_paths(root: Path) -> dict:
+    """Where the phase puts each of a pod's own path prefixes."""
+    return {"/gordo/": f"{root}/", "/tmp/": f"{root}/tmp/"}
+
+
+def _cw_resolved(value: str, root: Path, parameters: dict) -> str:
+    """A rendered string with the DAG task's parameters bound, as Argo binds
+    them, and the pod's own path prefixes (``/gordo/``, ``/tmp/``) replaced
+    by ``root``'s, in one pass, so that a ``root`` under ``/tmp`` stays."""
+    for name, bound in parameters.items():
+        value = value.replace("{{inputs.parameters.%s}}" % name, bound)
+    paths = _cw_pod_paths(root)
+    return _CW_POD_PATH.sub(lambda m: paths[m.group(0)], value)
+
+
+def _cw_env(container: dict, root: Path, parameters: dict, base: dict) -> dict:
+    """``base`` and the container's rendered ``env`` (a ``valueFrom``, a
+    cluster secret, left unset, as an optional one is without it)."""
+    env = dict(base)
+    for item in container.get("env") or []:
+        if "value" in item:
+            env[item["name"]] = _cw_resolved(str(item["value"]), root, parameters)
+    return env
+
+
+class _InfluxWrites:
+    """An InfluxDB 1.x HTTP API on 127.0.0.1 (a thread of this process):
+    ``/query`` answers 200, ``/write`` keeps each body's lines by database."""
+
+    def __init__(self):
+        import http.server
+        import urllib.parse
+
+        stub = self
+        self.lines, self.queries = [], []
+
+        class Handler(http.server.BaseHTTPRequestHandler):
+            def do_POST(self):
+                url = urllib.parse.urlparse(self.path)
+                query = urllib.parse.parse_qs(url.query)
+                body = self.rfile.read(int(self.headers.get("Content-Length") or 0))
+                if url.path == "/write":
+                    stub.lines += [(query["db"][0], line)
+                                   for line in body.decode().splitlines()]
+                    status = 204
+                else:
+                    stub.queries.append(query.get("q", [""])[0])
+                    status = 200
+                self.send_response(status)
+                self.send_header("Content-Length", "0")
+                self.end_headers()
+
+            def log_message(self, *args):
+                pass
+
+        self.server = http.server.ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+        self.port = self.server.server_address[1]
+        self.thread = threading.Thread(target=self.server.serve_forever, daemon=True)
+        self.thread.start()
+
+    def close(self) -> None:
+        self.server.shutdown()
+        self.server.server_close()
+        self.thread.join(timeout=30)
+
+
+def _cw_lines(lines: list, machine: str) -> dict:
+    """``{measurement: {ns time: {field: value}}}`` of one machine's lines."""
+    out: dict = {}
+    for _, line in lines:
+        head, fields, stamp = line.split(" ")
+        measurement, tag = head.split(",", 1)
+        if tag != f"machine={machine}":
+            continue
+        row = dict(pair.split("=", 1) for pair in fields.split(","))
+        rows = out.setdefault(measurement, {})
+        if int(stamp) in rows:
+            raise AssertionError(f"{machine}: two {measurement} lines at {stamp}")
+        rows[int(stamp)] = {key: float(value) for key, value in row.items()}
+    return out
+
+
+def _cw_run(argv: list, env: dict, log: Path) -> subprocess.Popen:
+    with open(log, "w") as fh:
+        return subprocess.Popen(argv, cwd=REPO, env=env, stdout=fh, stderr=subprocess.STDOUT,
+                                start_new_session=True)
+
+
+def _cw_wait(proc: subprocess.Popen, log: Path, what: str, timeout: float = 600.0) -> int:
+    try:
+        code = proc.wait(timeout=timeout)
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+    if code != 0:
+        raise AssertionError(f"{what} exited {code}:\n{log.read_text()[-3000:]}")
+    return code
+
+
+def client_workflow_path(card: str, root: Path, device: str = "cuda", base=None) -> dict:
+    """The prediction client and the workflow generator (the module
+    docstring's step 26): a two-machine project config rendered by
+    ``workflow generate`` and validated, then the rendered stage-config,
+    builder, server and client commands run as rendered, without Argo, with
+    the pod's own paths (the ``/gordo`` mount, its private ``/tmp``) and the
+    Kubernetes service addresses replaced; then the port's client CLI's
+    parquet, metadata and download-model. The server starts beside the
+    builder, as the DAG deploys it at its start (gated by its readiness).
+    Returns the phase's numbers and the kernels' launches of the builder and
+    the server."""
+    from gordo_tpu_torch import cli, serializer
+    from gordo_tpu_torch.dataset.datasets import GordoBaseDataset
+    from gordo_tpu_torch.util import parquet, yaml_subset
+
+    base = CONFIG if base is None else base
+    started = time.perf_counter()
+    shutil.rmtree(root, ignore_errors=True)
+    (root / "counts").mkdir(parents=True)
+    (root / "tmp").mkdir()  # the pods' private /tmp
+    out: dict = {"card": card}
+    n_train = _config_rows(BUILD_CONFIG)
+    stamps, values = _data_frame(n_train + CW_CLIENT_ROWS)
+    _write_tag_files(root / "files", stamps, values)
+    files = {"type": "ParquetFilesProvider", "base_path": str(root / "files"),
+             "file_format": "csv"}
+    machines = [data_machine_config(name, files, base=base,
+                                    **({} if dtype == "float32" else {"compute_dtype": dtype}))
+                for name, dtype in CW_MACHINES.items()]
+    config = root / "project.yaml"
+    config.write_text(yaml_subset.dump({"machines": machines}) + "\n")
+    client_start = datetime.fromisoformat(BUILD_CONFIG["dataset"]["train_end_date"])
+    client_end = client_start + CW_CLIENT_ROWS * timedelta(minutes=10)
+
+    # (0) render and validate
+    rendered = root / "workflow.yaml"
+    t0 = time.perf_counter()
+    code = cli.main(["workflow", "generate", "--machine-config", str(config), "--project-name",
+                     CW_PROJECT, "--machines-per-gpu-worker", "2", "--server-workers", "1",
+                     "--client-start-date", client_start.isoformat(), "--client-end-date",
+                     client_end.isoformat(), "--no-enable-postgres", "--output-file",
+                     str(rendered)])
+    if code != 0 or cli.main(["workflow", "validate", str(rendered)]) != 0:
+        raise AssertionError(f"workflow generate exited {code}, or its output is invalid")
+    out["render_s"] = time.perf_counter() - t0
+    doc, = yaml_subset.load_all(rendered.read_text())
+    templates = {t["name"]: t for t in doc["spec"]["templates"]}
+    tasks = {t["name"]: t for t in templates["do-all"]["dag"]["tasks"]}
+    parameters = {name: {p["name"]: p["value"] for p in task.get("arguments", {}).get(
+        "parameters", [])} for name, task in tasks.items()}
+    chunks = [name for name in tasks if name.startswith("gpu-batch-builder-")]
+    if len(chunks) != 1 or parameters[chunks[0]]["machine-names"] != ",".join(CW_MACHINES):
+        raise AssertionError(f"the rendered chunks: {chunks}")
+
+    # the pod's python: the interpreter of this run, recording its counters
+    shim = root / "bin" / "python"
+    shim.parent.mkdir()
+    shim.write_text(f"#!{sys.executable}\nimport sys\nsys.path.insert(0, {str(REPO)!r})\n"
+                    "import chip_smoke\nchip_smoke._counted_python(sys.argv[1:])\n")
+    shim.chmod(0o755)
+    base_env = {k: v for k, v in os.environ.items()
+                if not k.startswith(("GORDO_", "WORKFLOW_GENERATOR_")) and k not in CW_ENV}
+    base_env.update(PATH=f"{shim.parent}{os.pathsep}{os.environ.get('PATH', '')}",
+                    PYTHONPATH=str(REPO), GORDO_SMOKE_COUNTS_DIR=str(root / "counts"),
+                    **({"GORDO_SMOKE_DEVICE": "cpu"} if device == "cpu" else {}))
+    server_port, influx = _free_port(), _InfluxWrites()
+    addresses = {f"--host=gordo-server-{CW_PROJECT}": "--host=127.0.0.1",
+                 "--port=80": f"--port={server_port}",
+                 f"gordo-influx-{CW_PROJECT}:8086": f"127.0.0.1:{influx.port}",
+                 "GORDO_SERVER_PORT=5555": f"GORDO_SERVER_PORT={server_port}"}
+    out["substituted"] = {**_cw_pod_paths(root), **addresses}
+    print(f"client_workflow: rendered {len(templates)} templates, {len(tasks)} DAG tasks in "
+          f"{out['render_s']:.2f} s; substituted {out['substituted']}; python on PATH: "
+          f"{shim} (this run's interpreter, counting the kernels)", flush=True)
+    server, building, procs = None, None, {}
+    try:
+        # (a) stage-config, as Argo runs a script template
+        stage = templates["stage-config"]["script"]
+        script = root / "stage-config.sh"
+        script.write_text(stage["source"])
+        env = _cw_env(stage, root, {}, base_env)
+        _cw_wait(_cw_run([*stage["command"], str(script)], env, root / "stage-config.log"),
+                 root / "stage-config.log", "stage-config")
+        expected = json.loads(Path(env["EXPECTED_PATH"]).read_text())
+        if expected != list(CW_MACHINES):
+            raise AssertionError(f"the staged expected models: {expected}")
+
+        # (b) the builder chunk, on the card, and (c) the server Deployment's
+        # container beside it
+        builder = templates["gpu-batch-builder"]["container"]
+        build_env = _cw_env(builder, root, parameters[chunks[0]], base_env)
+        argv = [*builder["command"], *(_cw_resolved(a, root, {}) for a in builder["args"])]
+        t0 = time.perf_counter()
+        building = _cw_run(argv, build_env, root / "builder.log")
+        deployment = yaml_subset.load(templates["gordo-server-deployment"]["resource"][
+            "manifest"])
+        container = deployment["spec"]["template"]["spec"]["containers"][0]
+        env = _cw_env(container, root, {}, base_env)
+        env["GORDO_SERVER_PORT"] = str(server_port)
+        collection = Path(build_env["OUTPUT_DIR"])
+        if env["GORDO_SERVER_WORKERS"] != "1" or env["MODEL_COLLECTION_DIR"] != str(collection):
+            raise AssertionError(f"the rendered server env: {env}")
+        server = _cw_run(list(container["command"]), env, root / "server.log")
+        _cw_wait(building, root / "builder.log", "the rendered builder", timeout=900)
+        out["build_s"] = time.perf_counter() - t0
+        report = Path(build_env["EXCEPTIONS_REPORTER_FILE"])
+        if report.parent != root / "tmp" or report.exists():
+            raise AssertionError(f"the builder exited 0 and its exceptions report {report} "
+                                 f"is {'there' if report.exists() else 'outside the root'}")
+        built = json.loads((root / "counts" / f"gordo_tpu_torch-{building.pid}.json").read_text())
+        if sorted(os.listdir(collection)) != sorted(CW_MACHINES):
+            raise AssertionError(f"the builder wrote {sorted(os.listdir(collection))}")
+        out["launches"] = {"build": {d: built[d] for d in COUNTERS}}
+        if device == "cuda" and not all(n > 0 for d in COUNTERS for n in built[d].values()):
+            raise AssertionError(f"the rendered builder launched {out['launches']['build']}")
+        if device == "cuda" and built["plain_calls"]:
+            raise AssertionError(f"the builder ran plain attention {built['plain_calls']}x")
+        base_url = f"http://127.0.0.1:{server_port}"
+        _until(lambda: _request(base_url + "/readiness")[0] == 200, "the server's readiness",
+               180.0, 0.2)
+        out["server_ready_s"] = time.perf_counter() - t0
+
+        # (d) each machine's client task, and (e) the client CLI, at once
+        client = templates["gordo-client"]["container"]
+        runs, t0 = {}, time.perf_counter()
+        for name in CW_MACHINES:
+            args = [_cw_resolved(a, root, parameters[f"client-{name}"]) for a in client["args"]]
+            for old, new in addresses.items():
+                args = [a.replace(old, new) for a in args]
+            runs[f"task-{name}"] = [*client["command"], *args]
+        cli_base = [sys.executable, "-m", "gordo_tpu_torch.client", f"--project={CW_PROJECT}",
+                    "--host=127.0.0.1", f"--port={server_port}", "--scheme=http"]
+        runs["cli-predict"] = [*cli_base, "predict", client_start.isoformat(),
+                               client_end.isoformat(), "--output-dir", str(root / "parquet")]
+        runs["cli-metadata"] = [*cli_base, "metadata", "--output-file",
+                                str(root / "metadata.json")]
+        runs["cli-download"] = [*cli_base, "download-model", str(root / "downloaded")]
+        procs = {key: _cw_run(argv, base_env, root / f"{key}.log") for key, argv in runs.items()}
+        for key, proc in procs.items():
+            _cw_wait(proc, root / f"{key}.log", key)
+        out["clients_s"] = time.perf_counter() - t0
+        for name in CW_MACHINES:
+            printed = (root / f"task-{name}.log").read_text()
+            if f"{name}: {CW_CLIENT_ROWS - base['lookback_window'] + 1} rows, 0 errors" not in \
+                    printed:
+                raise AssertionError(f"the client task of {name} printed:\n{printed[-2000:]}")
+        served_metadata = {name: json.loads(_request(
+            f"{base_url}/gordo/v0/{CW_PROJECT}/{name}/metadata")[1])["metadata"]
+            for name in CW_MACHINES}
+    finally:  # no process outlives the phase; the server drains on SIGTERM
+        if server is not None:
+            if server.poll() is None:
+                os.killpg(server.pid, signal.SIGTERM)
+            try:
+                out["server_exit"] = server.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                pass
+        for proc in [building, server, *procs.values()]:
+            if proc is not None and proc.poll() is None:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait()
+        influx.close()
+    served_counts = json.loads((root / "counts" / f"gordo_tpu_torch-{server.pid}.json")
+                               .read_text())
+    if device == "cuda" and served_counts["plain_calls"]:
+        raise AssertionError(f"the server ran plain attention: {served_counts}")
+    out["launches"]["served"] = {d: served_counts[d]["forward"] for d in COUNTERS}
+    if device == "cuda" and not all(out["launches"]["served"].values()):
+        raise AssertionError(f"the server launched {out['launches']['served']}")
+
+    # the gates on what the clients delivered
+    if json.loads((root / "metadata.json").read_text()) != served_metadata:
+        raise AssertionError("the client CLI's metadata is not the server's /metadata")
+    n_rows = CW_CLIENT_ROWS - base["lookback_window"] + 1
+    out["machines"] = {}
+    for name, dtype in CW_MACHINES.items():
+        dataset = dict(served_metadata[name]["dataset"], train_start_date=client_start,
+                       train_end_date=client_end)
+        X, y = GordoBaseDataset.from_dict(dataset).get_data()
+        model = serializer.load(str(collection / name), device)
+        direct = np.asarray(model.predict(X.values), np.float64)
+        downloaded = np.asarray(serializer.load(str(root / "downloaded" / name), device)
+                                .predict(X.values), np.float64)
+        lines = _cw_lines(influx.lines, name)
+        output = lines.get("model-output", {})
+        served = np.array([[row[tag] for tag in TAGS] for _, row in sorted(output.items())])
+        raw = model.anomaly_raw(X, y, timedelta(minutes=10))
+        groups = {top: np.asarray(v, np.float64) for top, _, v in raw.groups}
+        want = {top: (int(np.isfinite(values).any(axis=1).sum()), int(np.isfinite(values).sum()))
+                for top, values in groups.items() if not top.startswith("smooth-")}
+        got = {top: (len(rows), sum(len(r) for r in rows.values())) for top, rows in lines.items()}
+        files = sorted((root / "parquet" / name).glob("*.parquet"))
+        result = {
+            "rows": len(output), "measurements": got,
+            "served_rel_err": _max_rel([served], [direct]) if len(output) else None,
+            "downloaded_rel_err": _max_rel([downloaded], [served]) if len(output) else None,
+            "parquet_rows": [parquet.footer_rows(str(f)) for f in files]}
+        out["machines"][name] = result
+        if (result["rows"] != n_rows or direct.shape != (n_rows, len(TAGS))
+                or result["parquet_rows"] != [n_rows]):
+            raise AssertionError(f"{name}: rows {result}, direct {direct.shape}, want {n_rows}")
+        if got != want or "total-anomaly-scaled" not in got:
+            raise AssertionError(f"{name}: the Influx stub's (lines, fields) {got}, the "
+                                 f"direct anomaly frame's {want}")
+        if not (result["served_rel_err"] <= CW_TOL[dtype]
+                and result["downloaded_rel_err"] <= CW_TOL[dtype]):
+            raise AssertionError(f"{name}: the client's predictions {result['served_rel_err']} "
+                                 f"from the direct predict, the download "
+                                 f"{result['downloaded_rel_err']} from the served answer")
+    out["influx"] = {"lines": len(influx.lines), "queries": influx.queries}
+    out["phase_s"] = time.perf_counter() - started
+    print(f"client_workflow phase: build {out['build_s']:.1f} s (launches "
+          f"{out['launches']['build']}), server ready {out['server_ready_s']:.1f} s after the "
+          f"build's start, clients {out['clients_s']:.1f} s, served forward launches "
+          f"{out['launches']['served']}, machines {out['machines']}, "
+          f"{out['influx']['lines']} Influx lines; phase {out['phase_s']:.1f} s", flush=True)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -8595,6 +8999,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     template = template_build_path(card, REPO / "build" / "chip_smoke_template")
     torch.cuda.empty_cache()
+    workflow = client_workflow_path(card, REPO / "build" / "chip_smoke_client_workflow")
+    torch.cuda.empty_cache()
 
     forward["launches_by_path"] = {"serving": serving, "server_surface": base_route,
                                    "batcher": batched["launches"],
@@ -8638,6 +9044,7 @@ def main() -> int:
                                      if key != "launches"}}, default=str))
     print(json.dumps({"template_build": {key: value for key, value in template.items()
                                          if key != "launches"}}, default=str))
+    print(json.dumps({"client_workflow": workflow}, default=str))
     for entry, key, launches, fleet_launches in (
             (dq, "dq", build, fleet), (dkv, "dkv", build, fleet),
             (bf16_dq, "dq", bf16_build, bf16_fleet), (bf16_dkv, "dkv", bf16_build, bf16_fleet)):
@@ -8673,6 +9080,14 @@ def main() -> int:
     # the templated YAML build's, float32
     for entry, key in ((forward, "forward"), (dq, "dq"), (dkv, "dkv")):
         entry["launches_by_path"]["template_build"] = template["launches"]["float32"][key]
+    # the rendered workflow's: its builder's (a subprocess) and, for the
+    # forward, its server's, each read from the process's own counters
+    for entry, dtype, key in ((forward, "float32", "forward"), (dq, "float32", "dq"),
+                              (dkv, "float32", "dkv"), (bf16_forward, "bfloat16", "forward"),
+                              (bf16_dq, "bfloat16", "dq"), (bf16_dkv, "bfloat16", "dkv")):
+        entry["launches_by_path"]["client_workflow"] = (
+            workflow["launches"]["build"][dtype][key]
+            + (workflow["launches"]["served"][dtype] if key == "forward" else 0))
     dh16_entries = moe_entries(entries, moe)
     for entry in entries:
         entry["fleet_shape"] = fleet_times[entry["name"]]

@@ -22,8 +22,10 @@ at ``--exceptions-report-level`` (``EXCEPTIONS_REPORT_LEVEL``: ``EXIT_CODE``,
 ``TYPE``, ``MESSAGE``, the default, or ``TRACEBACK``;
 cli_exceptions_reporter.py); ``batch-build`` takes both too.
 
-``batch-build CONFIG_FILE OUTPUT_DIR`` builds every machine of a project
-config (YAML, JSON included) with the fleet trainer (parallel/batch_trainer.py) into ``OUTPUT_DIR/<name>``.
+``batch-build CONFIG_FILE OUTPUT_DIR`` (or ``--output-dir``, as the JAX
+command takes it) builds every machine of a project config (YAML, JSON
+included) with the fleet trainer (parallel/batch_trainer.py) into
+``OUTPUT_DIR/<name>``.
 It exits 0 when every machine was built, 81 when some were quarantined and
 82 when none was (the JAX CLI's codes), a line on stderr for each
 quarantined machine (its stage, reason, attempts and error) and, with
@@ -88,10 +90,21 @@ its working directory, ``--out`` the JSON report, ``--verbose``) and exits
 0 only when every invariant holds (a ``.json`` scenario is read as JSON,
 any other as YAML); ``chaos list`` lists the scenarios of ``--dir``
 (default the port's JSON copies, ``gordo_tpu_torch/chaos/scenarios``).
+
+``workflow generate --machine-config FILE --project-name NAME`` renders the
+project's Argo Workflow documents for NVIDIA GPUs
+(workflow/workflow_generator.py, ``resources/gpu-workflow.yml.template``)
+with the JAX command's options, names, defaults, environment variables
+(``WORKFLOW_GENERATOR_*``) and checks; the TPU options are refused (exit 2)
+naming their counterpart: ``--machines-per-gpu-worker``, ``--gpu-product``
+(``nvidia.com/gpu.product``), one card a pod, or A7. A refused option or
+config prints ``Error: <message>`` and exits 1, as click does; the rendered
+documents are validated unless ``--no-validate``. ``workflow validate
+[FILE]`` (stdin by default) validates rendered documents
+(workflow/validate.py).
 """
 
 import argparse
-import ipaddress
 import json
 import logging
 import os
@@ -103,6 +116,9 @@ from . import serializer
 from .builder import ModelBuilder
 from .builder.build_model import NonFiniteDataError
 from .cli_exceptions_reporter import ExceptionsReporter, ReportLevel
+from .custom_types import env_flag as _env_flag, host_ip as _host_ip
+from .custom_types import choice, flag_pair, integer
+from .custom_types import int_range as _int_range, key_value_par
 from .dataset.datasets import InsufficientDataError
 from .dataset.sensor_tag import SensorTagNormalizationError
 from .machine import Machine
@@ -334,18 +350,6 @@ def drift_rebuilder(config_file: str, queue_dir: str, output_dir: str,
         time.sleep(poll_interval)
 
 
-def _env_flag(name: str, default: bool) -> bool:
-    """A boolean environment variable as click reads one."""
-    value = os.environ.get(name, "").strip().lower()
-    if not value:
-        return default
-    if value in ("1", "true", "t", "yes", "y", "on"):
-        return True
-    if value in ("0", "false", "f", "no", "n", "off"):
-        return False
-    raise ValueError(f"{name}={value!r} is not a boolean")
-
-
 def prepare_run_server(batch_predicts: bool) -> None:
     """What ``run-server`` sets before its server starts: the batching mode,
     which the batcher reads at its first predict."""
@@ -377,6 +381,9 @@ def _parser() -> argparse.ArgumentParser:
                            help="the project config, YAML or JSON (default: $CONFIG_FILE)")
     fleet_cmd.add_argument("output_dir", nargs="?", default=os.environ.get("OUTPUT_DIR", "/data"),
                            help="where the artifacts go (default: $OUTPUT_DIR or /data)")
+    fleet_cmd.add_argument("--output-dir", dest="output_dir_option", default=None,
+                           help="where the artifacts go, as the JAX command takes it (wins "
+                                "over OUTPUT_DIR)")
     fleet_cmd.add_argument("--project-name", default=os.environ.get("PROJECT_NAME", "batch"))
     fleet_cmd.add_argument("--machines", default=os.environ.get("MACHINES", ""),
                            help="comma-separated machine names: build only these")
@@ -487,7 +494,163 @@ def _parser() -> argparse.ArgumentParser:
     chaos_list = chaos_commands.add_parser("list", help="List the scenarios and their invariants")
     chaos_list.add_argument("--dir", dest="scenario_dir", default=None,
                             help="a directory of scenarios (default: the port's JSON copies)")
+    workflow_cmd = commands.add_parser(
+        "workflow", help="Generate workflow documents from machine configs")
+    workflow_commands = workflow_cmd.add_subparsers(dest="workflow_command", required=True)
+    _workflow_generate_options(workflow_commands.add_parser(
+        "generate", help="Generate workflow documents for a machine config."))
+    validate_cmd = workflow_commands.add_parser(
+        "validate", help="Schema-validate rendered Workflow documents (file or stdin).")
+    validate_cmd.add_argument("workflow_file", nargs="?", default="-")
     return parser
+
+
+WORKFLOW_PREFIX = "WORKFLOW_GENERATOR"
+# the JAX generator's TPU options, refused with their counterpart on the card
+TPU_OPTIONS = {
+    "--machines-per-tpu-worker": "it is --machines-per-gpu-worker on the card (the same "
+                                 "chunks of machines)",
+    "--tpu-accelerator-type": "it is --gpu-product on the card (the nvidia.com/gpu.product "
+                              "node label)",
+    "--tpu-topology": "a card has no topology; a builder takes one card, chosen by "
+                      "--gpu-product",
+    "--tpu-chips-per-worker": "each builder or server pod requests one card "
+                              "(nvidia.com/gpu: 1), as one process drives one card",
+    "--tpu-workers-per-slice": "multi-worker chunks are A7's (the parallel axes item)",
+}
+
+
+def _refused_option(counterpart: str):
+    """An argparse action that refuses its option (exit 2), naming
+    ``counterpart``."""
+    class Refused(argparse.Action):
+        def __init__(self, option_strings, dest, **kwargs):
+            super().__init__(option_strings, dest, nargs="?", **kwargs)
+
+        def __call__(self, parser, namespace, values, option_string=None):
+            parser.error(f"{option_string} has no counterpart in gordo_tpu_torch: {counterpart}")
+
+    return Refused
+
+
+def _workflow_generate_options(command: argparse.ArgumentParser) -> None:
+    """``workflow generate``'s options: the JAX command's, with the TPU ones
+    mapped onto the card (workflow/workflow_generator.py)."""
+    from . import __version__
+    from .workflow.workflow_generator import DEFAULT_GPU_PRODUCT
+
+    def option(name: str, default=None, type=None, env: bool = True, **kwargs):
+        envvar = f"{WORKFLOW_PREFIX}_{name.lstrip('-').upper().replace('-', '_')}"
+        value = os.environ.get(envvar, default) if env else default
+        command.add_argument(name, default=value, type=type, **kwargs)
+
+    option("--machine-config", help="Machine configuration file (YAML, or a Gordo CRD)")
+    option("--workflow-template", env=False, help="Template file to expand")
+    option("--project-name", help="Name of the project")
+    option("--project-revision", "1")
+    option("--output-file", env=False,
+           help="Where to write the workflow documents (default: stdout)")
+    option("--docker-registry", "ghcr.io/gordo-tpu")
+    option("--docker-image", "gordo-tpu")
+    option("--gordo-version", __version__, help="Version (docker tag) of gordo-tpu to deploy")
+    option("--image-pull-policy", "", choice(["Always", "IfNotPresent", "Never", ""]), env=False,
+           help="Override the derived imagePullPolicy")
+    option("--retries", "5", integer, help="Retry limit for builder/client tasks")
+    option("--machines-per-gpu-worker", "256", integer,
+           help="How many machines one batched builder chunk trains on its card")
+    option("--gpu-product", DEFAULT_GPU_PRODUCT,
+           help="The card builder and server pods run on: the nvidia.com/gpu.product node "
+                "label NVIDIA's GPU feature discovery sets")
+    for name, counterpart in TPU_OPTIONS.items():
+        command.add_argument(name, action=_refused_option(counterpart), default=argparse.SUPPRESS,
+                             help=argparse.SUPPRESS)
+    option("--server-replicas", "2", integer)
+    option("--server-workers", "2", integer)
+    option("--ml-server-hpa-type", "cpu", choice(["cpu", "keda"]))
+    option("--ml-server-max-replicas", None, integer, help="Default: 10 x number of machines")
+    option("--ml-server-min-replicas", None, integer,
+           help="Default: --server-replicas (the Deployment itself pins no replica count; the "
+                "autoscaler owns scaling)")
+    option("--ml-server-hpa-cpu-target", "50", integer)
+    option("--prometheus-server-address", "http://prometheus:9090")
+    option("--keda-threshold", "10")
+    command.add_argument("--resource-labels", type=key_value_par, action="append", default=None,
+                         help="Key,value labels added to all resources; repeatable")
+    option("--custom-model-builder-envs", "",
+           help="JSON list of k8s EnvVar dicts for builder pods")
+    option("--owner-references", None,
+           help="JSON/YAML list of k8s ownerReferences for the workflow")
+    option("--storage-claim-name", "gordo-storage")
+    option("--service-account", "gordo-tpu")
+    option("--deadline-seconds", "86400", integer)
+    option("--client-start-date", "")
+    option("--client-end-date", "")
+    option("--split-workflows", "30", integer,
+           help="Split the config into multiple Workflow docs of at most this many machines "
+                "each (0 disables splitting)")
+    option("--exceptions-report-level", "MESSAGE")
+    option("--postgres-host", None,
+           help="If set, a PostgresReporter pointed here is appended to every machine runtime")
+    for on, off, name in (("--enable-clients", "--disable-clients", "ENABLE_CLIENTS"),
+                          ("--enable-postgres", "--no-enable-postgres", "ENABLE_POSTGRES"),
+                          ("--enable-influx", "--no-enable-influx", "ENABLE_INFLUX"),
+                          ("--enable-grafana", "--no-enable-grafana", "ENABLE_GRAFANA"),
+                          ("--spot-tolerations", "--no-spot-tolerations", "SPOT_TOLERATIONS"),
+                          ("--validate", "--no-validate", "VALIDATE")):
+        flag_pair(command, on, off, True, f"{WORKFLOW_PREFIX}_{name}")
+
+
+def workflow_generate(args: argparse.Namespace, parser: argparse.ArgumentParser) -> int:
+    """``workflow generate``: the documents on stdout or in
+    ``--output-file``; a refused option or config is ``Error: ...`` and
+    exit 1, a required option missing exit 2, as with click."""
+    from .workflow.validate import WorkflowValidationError, validate_workflow_docs
+    from .workflow.workflow_generator import WorkflowGeneratorError, generate_workflow_docs
+
+    for name in ("machine_config", "project_name"):
+        if not getattr(args, name):
+            parser.error(f"Missing option '--{name.replace('_', '-')}'.")
+    labels = args.resource_labels
+    if labels is None:
+        labels = [key_value_par(text) for text in
+                  os.environ.get(f"{WORKFLOW_PREFIX}_RESOURCE_LABELS", "").split()]
+    options = {key: value for key, value in vars(args).items() if key not in (
+        "command", "workflow_command", "log_level", "validate", "resource_labels")}
+    try:
+        content = generate_workflow_docs(resource_labels=tuple(labels), **options)
+        if args.validate:
+            try:
+                validate_workflow_docs(content)
+            except WorkflowValidationError as exc:
+                raise WorkflowGeneratorError(f"rendered workflow invalid: {exc}")
+    except WorkflowGeneratorError as exc:
+        print(f"Error: {exc}", file=sys.stderr)
+        return 1
+    if args.output_file:
+        with open(args.output_file, "w") as f:
+            f.write(content)
+    else:
+        print(content)
+    return 0
+
+
+def workflow_validate(workflow_file: str) -> int:
+    """``workflow validate``: ``workflow documents OK``, or ``Error: ...``
+    and exit 1."""
+    from .workflow.validate import validate_workflow_docs
+
+    try:
+        if workflow_file == "-":
+            text = sys.stdin.read()
+        else:
+            with open(workflow_file) as fh:
+                text = fh.read()
+        validate_workflow_docs(text)
+    except Exception as exc:  # noqa: BLE001 -- click's ClickException(str(exc))
+        print(f"Error: {exc}", file=sys.stderr)
+        return 1
+    print("workflow documents OK")
+    return 0
 
 
 def trace_lines(doc: dict, trace_id: str) -> List[str]:
@@ -603,43 +766,6 @@ def chaos_list(scenario_dir: Optional[str]) -> int:
     return 0
 
 
-def _int_range(low: int, high: int):
-    """An argparse type: an integer from ``low`` to ``high``, refused in
-    click's ``IntRange`` words."""
-    def parse(text: str) -> int:
-        try:
-            value = int(text)
-        except ValueError:
-            raise argparse.ArgumentTypeError(f"{text!r} is not a valid integer range.")
-        if not low <= value <= high:
-            raise argparse.ArgumentTypeError(
-                f"{value} is not in the range {low}<=x<={high}.")
-        return value
-
-    return parse
-
-
-def key_value_par(text: str) -> tuple:
-    """An argparse type: ``key,value`` as the pair ``(key, value)`` (the
-    value may hold commas), refused as the JAX CLI's ``key_value_par``
-    refuses a value without a comma."""
-    parts = tuple(text.split(",", 1))
-    if len(parts) != 2:
-        raise argparse.ArgumentTypeError(
-            f"{text!r} is not of the form 'key,value' (missing comma)")
-    return parts
-
-
-def _host_ip(text: str) -> str:
-    """An argparse type: an IP address, refused as the JAX CLI's ``HostIP``
-    refuses what is not one."""
-    try:
-        ipaddress.ip_address(text)
-    except ValueError:
-        raise argparse.ArgumentTypeError(f"{text!r} is not a valid IP address")
-    return text
-
-
 def _reporter_options(command: argparse.ArgumentParser) -> None:
     """The exceptions-reporter options of ``build`` and ``batch-build``."""
     command.add_argument("--exceptions-reporter-file",
@@ -652,7 +778,8 @@ def _reporter_options(command: argparse.ArgumentParser) -> None:
 
 
 def main(argv: Optional[List[str]] = None) -> int:
-    args = _parser().parse_args(argv)
+    parser = _parser()
+    args = parser.parse_args(argv)
     logging.basicConfig(
         level=getattr(logging, args.log_level),
         format="[%(asctime)s] %(levelname)s [%(name)s.%(funcName)s:%(lineno)d] %(message)s",
@@ -675,6 +802,10 @@ def main(argv: Optional[List[str]] = None) -> int:
         return 0
     if args.command == "trace":
         return trace(args.trace_id, args.host, args.port, args.out)
+    if args.command == "workflow":
+        if args.workflow_command == "validate":
+            return workflow_validate(args.workflow_file)
+        return workflow_generate(args, parser)
     if args.command == "chaos":
         if args.chaos_command == "run":
             return chaos_run(args.scenario, args.work_dir, args.out, args.verbose)
@@ -683,7 +814,8 @@ def main(argv: Optional[List[str]] = None) -> int:
         if args.command == "batch-build":
             if args.config_file is None:
                 raise ValueError("no config file: give it as an argument or in $CONFIG_FILE")
-            return batch_build(args.config_file, args.output_dir, args.project_name,
+            return batch_build(args.config_file, args.output_dir_option or args.output_dir,
+                               args.project_name,
                                args.machines, args.model_register_dir,
                                not args.no_serial_fallback, args.fail_fast, args.device,
                                args.trace_file, args.metrics_file, args.warm_start,

@@ -8,7 +8,10 @@ index, whose :meth:`RawFrame.to_dict` emits exactly the layout of
 ``dataframe_to_dict`` (``gordo_tpu/server/utils.py``) applied to the
 assembled response frame: ``start``/``end`` time columns, then one
 ``{top: {sub: {index_key: value}}}`` block per group. :func:`make_base_raw`
-makes the base route's groups.
+makes the base route's groups. :meth:`RawFrame.from_dict` reads that layout
+back, as the JAX client's ``dataframe_from_dict`` reads a response, and
+:meth:`RawFrame.concat` joins a client's batches, as ``pd.concat(frames)
+.sort_index()`` does.
 """
 
 import functools
@@ -38,6 +41,13 @@ class Frame:
                 f"values of shape {self.values.shape} for {len(self.index)} rows "
                 f"and {len(self.columns)} columns"
             )
+
+    def to_dict(self) -> dict:
+        """``{column: {index key: value}}``, the layout ``dataframe_to_dict``
+        gives a frame with one level of columns: a request body's X or y."""
+        keys = [index_label(self, row) for row in range(len(self.index))]
+        return {column: dict(zip(keys, values))
+                for column, values in zip(self.columns, self.values.T.tolist())}
 
 
 def _is_time_index(index) -> bool:
@@ -98,8 +108,65 @@ class RawFrame:
         self.index = list(index)
         self.frequency = frequency
 
+    def __len__(self) -> int:
+        return len(self.index)
+
     def top_levels(self) -> List[str]:
         return [top for top, _, _ in self.groups]
+
+    @classmethod
+    def from_dict(cls, data: dict) -> "RawFrame":
+        """The frame of a ``dataframe_to_dict`` layout (what :meth:`to_dict`
+        writes), as the JAX client's ``dataframe_from_dict`` reads a
+        response's ``data``: index keys as tz-aware times where every one is
+        an ISO timestamp, else as integers; rows sorted by index; null as
+        NaN. The ``start`` and ``end`` blocks give the frequency back (None
+        where ``end`` is null); every other block is a group of floats."""
+        columns = [(top, sub, column) for top, block in data.items()
+                   for sub, column in block.items()]
+        if not columns:
+            raise ValueError("a frame without columns")
+        keys = list(columns[0][2])
+        if any(list(column) != keys for _, _, column in columns):
+            raise ValueError("the columns of a frame must share their index keys")
+        try:
+            index = [datetime.fromisoformat(key) for key in keys]
+        except (TypeError, ValueError):
+            index = [int(key) for key in keys]
+        frequency = None
+        times = data.get("start", {}).get(""), data.get("end", {}).get("")
+        if times[0] is not None and times[1] is not None and keys and None not in (
+                times[0][keys[0]], times[1][keys[0]]):
+            gaps = {datetime.fromisoformat(times[1][k]) - datetime.fromisoformat(times[0][k])
+                    for k in keys}
+            if len(gaps) != 1:
+                raise ValueError(f"end - start varies over the rows: {sorted(gaps)[:3]}")
+            frequency = gaps.pop()
+        groups = []
+        for top, block in data.items():
+            if top in ("start", "end"):
+                continue
+            values = np.array([[np.nan if v is None else v for v in column.values()]
+                               for column in block.values()], np.float64).T
+            groups.append((top, list(block), values.reshape(len(keys), len(block))))
+        return cls(groups, index, frequency).sort_index()
+
+    def sort_index(self) -> "RawFrame":
+        """The rows in the order of the index (stable among equal keys)."""
+        order = sorted(range(len(self.index)), key=self.index.__getitem__)
+        return RawFrame([(top, subs, values[order]) for top, subs, values in self.groups],
+                        [self.index[i] for i in order], self.frequency)
+
+    @classmethod
+    def concat(cls, frames: Sequence["RawFrame"]) -> "RawFrame":
+        """The rows of ``frames``, all of one layout, sorted by index."""
+        layout = [(top, list(subs)) for top, subs, _ in frames[0].groups]
+        if any([(top, list(subs)) for top, subs, _ in f.groups] != layout for f in frames):
+            raise ValueError("frames of different columns cannot be joined")
+        groups = [(top, subs, np.concatenate([f.groups[g][2] for f in frames]))
+                  for g, (top, subs) in enumerate(layout)]
+        return cls(groups, [ts for f in frames for ts in f.index],
+                   frames[0].frequency).sort_index()
 
     def drop_top_level(self, names) -> "RawFrame":
         dropped = set(names)

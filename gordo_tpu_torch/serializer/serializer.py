@@ -301,14 +301,20 @@ def dumps(source_dir: str) -> bytes:
     return buf.getvalue()
 
 
+def unpack(data: bytes, directory: str) -> None:
+    """Write the artifact files of bytes made by :func:`dumps` into
+    ``directory``; only the artifact's own files are read from the tar."""
+    os.makedirs(directory, exist_ok=True)
+    with tarfile.open(fileobj=io.BytesIO(data), mode="r:gz") as tar:
+        for member in tar.getmembers():
+            if member.isfile() and member.name in ARTIFACT_FILES:
+                with open(os.path.join(directory, member.name), "wb") as f:
+                    f.write(tar.extractfile(member).read())
+
+
 def loads(data: bytes, device=None) -> DiffBasedAnomalyDetector:
     """The detector of bytes made by :func:`dumps`, its parameters on
-    ``device`` (``cuda`` unless ``"cpu"``). Only the artifact's own files
-    are read from the tar."""
+    ``device`` (``cuda`` unless ``"cpu"``)."""
     with tempfile.TemporaryDirectory() as directory:
-        with tarfile.open(fileobj=io.BytesIO(data), mode="r:gz") as tar:
-            for member in tar.getmembers():
-                if member.isfile() and member.name in ARTIFACT_FILES:
-                    with open(os.path.join(directory, member.name), "wb") as f:
-                        f.write(tar.extractfile(member).read())
+        unpack(data, directory)
         return load(directory, device)

@@ -18,13 +18,17 @@ What renders, with Jinja's meaning:
   positional arguments;
 - ``{% if %}`` / ``{% elif %}`` / ``{% else %}`` / ``{% endif %}``;
 - ``{% for x in y %}`` / ``{% endfor %}`` with ``loop.index``, ``loop.first``
-  and ``loop.last``; each iteration is a scope, as Jinja's are;
+  and ``loop.last``; each iteration is a scope, as Jinja's are; and
+  ``{% for k, v in m.items() %}`` over a mapping, the one call and the one
+  unpacking of the subset;
 - ``{% set name = expr %}``, ``{# comments #}`` and the ``-`` whitespace
   markers on every tag.
 
 Jinja's whitespace rules hold: newlines are normalised to ``\\n``, one
 trailing newline of the template is dropped (``keep_trailing_newline``
-off), and ``trim_blocks`` and ``lstrip_blocks`` are off. A name that is not
+off), and ``trim_blocks`` and ``lstrip_blocks`` are off unless
+:func:`render` is asked for them, as the workflow generator's environment
+asks (workflow/workflow_generator.py). A name that is not
 defined renders nothing and raises :class:`UndefinedError` where Jinja's
 ``StrictUndefined`` raises (printing it, testing its truth, iterating,
 comparing, filtering it other than through ``default``). Anything outside
@@ -134,9 +138,12 @@ def _lex_expression(src: str, pos: int, end: str, line: int):
             pos += len(op)
 
 
-def _lex(source: str) -> List[tuple]:
+def _lex(source: str, trim_blocks: bool = False, lstrip_blocks: bool = False) -> List[tuple]:
     """("data", text) and ("var" | "block", tokens, line) items, Jinja's
-    whitespace markers applied."""
+    whitespace markers applied, and its ``trim_blocks`` (the first newline
+    after a block or comment tag dropped) and ``lstrip_blocks`` (the spaces
+    and tabs before a block or comment tag alone at the start of its line
+    dropped) where asked for."""
     lines = re.split(r"\r\n|\r|\n", source)
     if lines[-1] == "":
         del lines[-1]
@@ -145,11 +152,17 @@ def _lex(source: str) -> List[tuple]:
     pos, strip_next = 0, False
     while pos < len(src):
         m = _TAG_START.search(src, pos)
-        data = src[pos:m.start() if m else len(src)]
-        if strip_next:
-            data = data.lstrip()
+        end = m.start() if m else len(src)
+        while strip_next and pos < end and src[pos].isspace():
+            pos += 1
+        data = src[pos:end]
         if m and src.startswith("-", m.end()):
             data = data.rstrip()
+        elif m and lstrip_blocks and m.group() != "{{":
+            line_start = data.rfind("\n") + 1
+            if (line_start > 0 or pos == 0 or src[pos - 1] == "\n") and re.fullmatch(
+                    r"\s+", data[line_start:]):
+                data = data[:line_start]
         if m and src.startswith("+", m.end()):
             raise TemplateSubsetError(f"line {src.count(chr(10), 0, m.start()) + 1}: "
                                       "the '+' whitespace marker is not in the subset")
@@ -165,9 +178,11 @@ def _lex(source: str) -> List[tuple]:
                 raise TemplateSubsetError(f"line {line}: a comment without its '#}}'")
             strip_next = src[close - 1] == "-" and close - 1 >= start
             pos = close + 2
-            continue
-        tokens, pos, strip_next = _lex_expression(src, start, _ENDS[m.group()], line)
-        items.append(("var" if m.group() == "{{" else "block", tokens, line))
+        else:
+            tokens, pos, strip_next = _lex_expression(src, start, _ENDS[m.group()], line)
+            items.append(("var" if m.group() == "{{" else "block", tokens, line))
+        if trim_blocks and m.group() != "{{" and not strip_next and src.startswith("\n", pos):
+            pos += 1
     return items
 
 
@@ -418,10 +433,18 @@ def _parse_body(items: List[tuple], i: int, ends: Tuple[str, ...]):
             i += 1
         elif keyword == "for":
             name = t.expect("name")
-            if t.at("op", ","):
-                t.fail("unpacking in a 'for' is not in the subset")
-            t.expect("name", "in")
-            iterable = _or(t)
+            if t.skip("op", ","):
+                name = (name, t.expect("name"))
+                t.expect("name", "in")
+                target = _postfix(t, _primary(t))
+                if target[0] != "getattr" or target[2] != "items" or not t.skip("op", "("):
+                    t.fail("unpacking in a 'for' is in the subset only over a mapping's "
+                           "items()")
+                t.expect("op", ")")
+                iterable = ("items", target[1])
+            else:
+                t.expect("name", "in")
+                iterable = _or(t)
             if t.at("name", "if") or t.at("name", "recursive"):
                 t.fail(f"a 'for ... {t.peek()[1]}' is not in the subset")
             t.done()
@@ -564,6 +587,12 @@ def _eval(node: tuple, scope: _Scope):
         return _getattr(_eval(node[1], scope), node[2])
     if kind == "getitem":
         return _getitem(_eval(node[1], scope), _eval(node[2], scope))
+    if kind == "items":
+        mapping = _defined(_eval(node[1], scope))
+        if not isinstance(mapping, dict):
+            raise TemplateSubsetError(f"items() of a {type(mapping).__name__} is not in the "
+                                      "subset")
+        return list(mapping.items())
     if kind == "neg":
         return -_eval(node[1], scope)
     if kind == "not":
@@ -630,18 +659,21 @@ def _run(body: list, scope: _Scope, out: List[str]) -> None:
             _, name, iterable, block = node
             items = list(_eval(iterable, scope))
             for index, item in enumerate(items):
-                scope.frames.append({name: item, "loop": _Loop(index, len(items))})
+                names = dict(zip(name, item)) if isinstance(name, tuple) else {name: item}
+                scope.frames.append({**names, "loop": _Loop(index, len(items))})
                 try:
                     _run(block, scope, out)
                 finally:
                     scope.frames.pop()
 
 
-def render(template: str, params: Optional[Dict[str, Any]] = None) -> str:
+def render(template: str, params: Optional[Dict[str, Any]] = None, trim_blocks: bool = False,
+           lstrip_blocks: bool = False) -> str:
     """``template`` rendered with ``params`` as Jinja renders it with
-    ``StrictUndefined``; raises :class:`UndefinedError` for a missing name
-    and :class:`TemplateSubsetError` for a construct outside the subset."""
-    body = _parse(_lex(template))
+    ``StrictUndefined`` (and with ``trim_blocks`` and ``lstrip_blocks`` where
+    they are true); raises :class:`UndefinedError` for a missing name and
+    :class:`TemplateSubsetError` for a construct outside the subset."""
+    body = _parse(_lex(template, trim_blocks, lstrip_blocks))
     out: List[str] = []
     _run(body, _Scope(params or {}), out)
     return "".join(out)

@@ -361,7 +361,7 @@ def test_port_imports_no_jax_and_nothing_of_gordo_tpu():
     code = """
 import importlib, pkgutil, sys
 for blocked in ("jax", "jaxlib", "pandas", "sklearn", "werkzeug", "yaml", "prometheus_client",
-                "click", "jinja2", "mlflow", "psycopg2"):
+                "click", "jinja2", "mlflow", "psycopg2", "requests", "pyarrow"):
     sys.modules[blocked] = None
 import gordo_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(gordo_tpu_torch.__path__, "gordo_tpu_torch.")]
@@ -432,6 +432,17 @@ from gordo_tpu_torch.workflow import schemas
 from gordo_tpu_torch.reporters import base, mlflow, postgres
 from gordo_tpu_torch.reporters.postgres import PostgresReporter
 from gordo_tpu_torch.reporters.mlflow import MlFlowReporter
+# the prediction client, its forwarders, the parquet writer, the version
+# grammar and the workflow generator, with requests and pyarrow blocked too
+import gordo_tpu_torch.client.__main__
+from gordo_tpu_torch.client import Client, PredictionResult, cli as client_cli, testing
+from gordo_tpu_torch.client.forwarders import (
+    ForwardPredictionsIntoInflux, ForwardPredictionsToDisk)
+from gordo_tpu_torch.util import parquet, version
+from gordo_tpu_torch.workflow import validate, workflow_generator
+from gordo_tpu_torch import custom_types
+assert workflow_generator.load_workflow_template().render is not None
+assert client_cli._parser().parse_args(["--project", "p", "predict", "a", "b"]).command == "predict"
 assert cli._parser().parse_args(["build", "{}", "--model-parameter", "a,b"]).model_parameter == [
     ("a", "b")]
 for argv in (["batch-build", "fleet.json", "out", "--device", "cpu", "--fail-fast"],
@@ -452,7 +463,11 @@ for argv in (["batch-build", "fleet.json", "out", "--device", "cpu", "--fail-fas
              ["build", "{}", "out", "--exceptions-reporter-file", "r.json",
               "--exceptions-report-level", "traceback"],
              ["batch-build", "fleet.json", "out", "--quarantine-report-file", "q.json",
-              "--exceptions-reporter-file", "r.json", "--exceptions-report-level", "TYPE"]):
+              "--exceptions-reporter-file", "r.json", "--exceptions-report-level", "TYPE"],
+             ["batch-build", "fleet.json", "--output-dir", "out", "--machines", "a,b"],
+             ["workflow", "generate", "--machine-config", "c.yaml", "--project-name", "p",
+              "--machines-per-gpu-worker", "2", "--server-workers", "1", "--no-validate"],
+             ["workflow", "validate", "w.yaml"]):
     assert cli._parser().parse_args(argv).command == argv[0]
 assert cli._parser().parse_args(["chaos", "list"]).chaos_command == "list"
 assert cli._parser().parse_args(["run-gateway"]).port == 5556
