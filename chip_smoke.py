@@ -4,7 +4,10 @@ Drive the PyTorch/CUDA port (gordo_tpu_torch) on one NVIDIA GPU.
     python3 chip_smoke.py          # from the root of a checkout
 
 1. Device: the card's name and power limit, CUDA version; TF32 is turned
-   off for matmuls and cuDNN, so every reference below is float32.
+   off for matmuls and cuDNN, so every reference below is float32. The
+   bytecode of every module that this run and its subprocesses import is
+   kept under build/pycache (``_cache_bytecode``), and each phase's seconds
+   are printed as it ends.
 2. Build: every kernel of ``gordo_tpu_torch/ops/csrc`` with nvcc, the
    sources compiled in parallel, and beside them the request codec's
    native library (``gordo_tpu_torch/native/gordo_native.cpp``) with g++.
@@ -104,6 +107,23 @@ Drive the PyTorch/CUDA port (gordo_tpu_torch) on one NVIDIA GPU.
    checked as above, its training and predicts going through the bf16
    kernels alone, and the built artifact answers a 1,535-row request whose
    model output is held against the same bf16 model with plain attention.
+   fp16 (``f16_kernel_phase``, after the bf16 kernels): the fp16 forward,
+   dQ and dK/dV (the bf16 sources' fp16 instantiations) against their
+   twins at every head-dim class (16, 32 and the classes of 64 to 256,
+   dims inside them, ragged T, causal and not) and at the main paths'
+   shapes (BH 4,096 and 128, T 512, dh 64), each with dO at unit scale and
+   at 1e-4: every element within one fp16 ulp of the twin run in float64
+   (plus 1e-6 times dO's scale), at most 1% different from either twin,
+   the backward bit-identical on a rerun; timed at dh 64 at BH 4,096,
+   1,024 and 128 beside their bounds, twins and SDPA; their SASS must hold
+   HGMMA and no HMMA. Then ``float16_path`` (after the bf16 batcher path):
+   ``transformer-ae-512-f16`` (BUILD_CONFIG_F16) built by ``ModelBuilder``
+   and checked as above through the fp16 kernels alone, served with the
+   main path's three requests (one fp16 forward launch per block a
+   request, the model output within TOL_F16_MODEL_REL of the same fp16
+   model with plain attention), and two float16 fleet machines through
+   ``batch-build`` in this process (one fp16 dQ and dK/dV per block a
+   stacked step, no plain attention).
 9. Fleet: eight ``transformer-ae-512`` machines (each its own tags, so its
    own data) built by ``BatchedModelBuilder`` on the card, in float32 and
    in bf16: every machine from the stacked program, one dQ and one dK/dV
@@ -434,13 +454,15 @@ Drive the PyTorch/CUDA port (gordo_tpu_torch) on one NVIDIA GPU.
    ``observability`` JSON line, a ``resilience`` JSON line, a ``drift`` JSON
    line, a ``gateway`` JSON line, a ``data_build`` JSON line, a
    ``template_build`` JSON line, a ``client_workflow`` JSON line, a
-   ``kernels`` JSON line (twenty-two entries: the six flash kernels at dh 64
+   ``kernels`` JSON line (twenty-five entries: the six flash kernels at dh 64
    with their results by head dim and the observability, resilience, drift,
    gateway, ``data_build`` and ``template_build`` (float32), ``data_fleet``
    (bf16) and ``client_workflow`` (both) launches among their paths, the
    six again at dh 96 with the d384 path's launches and at dh 16 with the
    MoE fleet's, then the LSTM recurrence's forward and backward in float32
-   and bf16), then the last line
+   and bf16, and the three fp16 kernels with the float16 path's launches),
+   a ``phase_seconds`` JSON line (each phase's seconds and the whole run's),
+   the card's name and power limit, then the last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
 Any failure raises, so the exit code is not 0 and no result line is
@@ -482,7 +504,7 @@ FP32_FLOP_PER_S = 67e12
 TF32X3_FLOP_PER_S = 495e12 / 3
 # the kernels' operations at their dtype's tensor-core rate: 3xTF32 for the
 # float32 kernels, the dense bf16 rate for the bf16 kernels
-PEAK_FLOP_PER_S = {"float32": TF32X3_FLOP_PER_S, "bfloat16": 989e12}
+PEAK_FLOP_PER_S = {"float32": TF32X3_FLOP_PER_S, "bfloat16": 989e12, "float16": 989e12}
 TOL_OUT_REL = 1e-4  # kernel vs plain, float32, sums in another order
 TOL_LSE_ABS = 1e-4
 TOL_MODEL_REL = 1e-4  # served model output vs the same model with plain attention
@@ -504,6 +526,16 @@ SERVE_SHAPE = (1024 * 4, 512, 64)  # 1,024 windows x 4 heads of the main path
 BF16_ULP = 2.0 ** -7
 TOL_BF16_SHARE = 0.01
 TOL_BF16_LSE_REL = 1e-5
+# fp16 kernels vs their twins run in float64 and rounded to fp16: each
+# element within one fp16 ulp (|a - b| <= max(2^-10 max(|a|, |b|), 2^-24),
+# fp16's least subnormal, + 1e-6 times the scale of dO), at most 1% of them
+# different at all, lse as bf16's (_f16_gate)
+F16_ULP = 2.0 ** -10
+F16_SUBNORMAL = 2.0 ** -24
+# the served fp16 model vs the same model with plain attention: half of
+# bf16's (tests/test_torch_float16.py holds the port's fp16 model to the JAX
+# package's at the same)
+TOL_F16_MODEL_REL = 1e-2
 # the served bf16 model vs the same model with plain attention: the JAX
 # package's own bf16 tolerance (tests/gordo_tpu/test_attention_models.py)
 TOL_BF16_MODEL_REL = 2e-2
@@ -511,7 +543,8 @@ TOL_BF16_MODEL_REL = 2e-2
 # and bf16, where P and dS go through three bf16 products
 # (gordo_tpu_torch/ops/csrc/wgmma_bf16.cuh)
 FLOP_PER_PAIR = {"float32": {"forward": 4, "dq": 6, "dkv": 8},
-                 "bfloat16": {"forward": 8, "dq": 10, "dkv": 16}}
+                 "bfloat16": {"forward": 8, "dq": 10, "dkv": 16},
+                 "float16": {"forward": 8, "dq": 10, "dkv": 16}}
 def build_config(name: str, tags=TAGS, base=None, **estimator) -> dict:
     """A transformer-ae-512 machine: 6,144 ten-minute RandomDataset rows of
     ``tags``, the model written with the JAX package's paths (``estimator``
@@ -537,6 +570,8 @@ BUILD_CONFIG = build_config("transformer-ae-512")
 # every width the same, at the JAX package's TPU compute dtype for windowed
 # fleets (bench.py)
 BUILD_CONFIG_BF16 = build_config("transformer-ae-512-bf16", compute_dtype="bfloat16")
+# and at float16, the JAX package's other half-width compute dtype
+BUILD_CONFIG_F16 = build_config("transformer-ae-512-f16", compute_dtype="float16")
 
 
 def _card() -> str:
@@ -622,6 +657,7 @@ def _head_dim_class(name: str, dh: int) -> int:
     from gordo_tpu_torch.ops import _build
 
     stem, tag = (("flash_attention_bf16", "bf16") if name.endswith("_bf16")
+                 else ("flash_attention_bf16", "f16") if name.endswith("_f16")
                  else ("flash_attention", "f32"))
     return getattr(_build.load_library(stem), f"gordo_flash_attention_{tag}_head_dim_class")(dh)
 
@@ -654,6 +690,12 @@ def _occupancy() -> dict:
          "gordo_flash_attention_backward_dq_bf16_occupancy"),
         ("flash_attention_backward_dkv_bf16", "flash_attention_bwd_bf16",
          "gordo_flash_attention_backward_dkv_bf16_occupancy"),
+        ("flash_attention_forward_f16", "flash_attention_bf16",
+         "gordo_flash_attention_forward_f16_occupancy"),
+        ("flash_attention_backward_dq_f16", "flash_attention_bwd_bf16",
+         "gordo_flash_attention_backward_dq_f16_occupancy"),
+        ("flash_attention_backward_dkv_f16", "flash_attention_bwd_bf16",
+         "gordo_flash_attention_backward_dkv_f16_occupancy"),
     ):
         fn = getattr(_build.load_library(stem), symbol)
         fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
@@ -679,19 +721,19 @@ def _sass_mma(libs: dict) -> dict:
     if not Path(cuobjdump).exists():
         print("  cuobjdump not found: SASS not inspected", flush=True)
         return {}
+    # every library's disassembly at once; each function's section counted
+    # whole ("HMMA" is no part of "HGMMA")
+    with concurrent.futures.ThreadPoolExecutor(len(libs)) as pool:
+        listings = list(pool.map(lambda path: subprocess.run(
+            [cuobjdump, "-sass", str(path)], capture_output=True, text=True, check=True,
+            timeout=300).stdout, libs.values()))
     counts = {}
-    for path in libs.values():
-        sass = subprocess.run([cuobjdump, "-sass", str(path)], capture_output=True,
-                              text=True, check=True, timeout=120).stdout
-        function = None
-        for line in sass.splitlines():
-            if "Function :" in line:
-                function = line.split("Function :")[1].strip()
-                counts.setdefault(function, {"HMMA": 0, "HGMMA": 0})
-            elif function:
-                for op in ("HGMMA", "HMMA"):
-                    if op in line:
-                        counts[function][op] += 1
+    for sass in listings:
+        for section in sass.split("Function :")[1:]:
+            function, _, body = section.partition("\n")
+            entry = counts.setdefault(function.strip(), {"HMMA": 0, "HGMMA": 0})
+            for op in ("HGMMA", "HMMA"):
+                entry[op] += body.count(op)
     for function, n in sorted(counts.items()):
         print(f"  SASS {function}: {n['HMMA']} HMMA, {n['HGMMA']} HGMMA", flush=True)
     return counts
@@ -706,6 +748,12 @@ WGMMA_KERNELS = {
                                          "flash_attention_bwd_bf16", "flash_bwd_dq_bf16"),
     "flash_attention_backward_dkv_bf16": ("gordo_flash_attention_backward_dkv_bf16",
                                           "flash_attention_bwd_bf16", "flash_bwd_dkv_bf16"),
+    "flash_attention_forward_f16": ("gordo_flash_attention_forward_f16", "flash_attention_bf16",
+                                    "flash_forward_f16"),
+    "flash_attention_backward_dq_f16": ("gordo_flash_attention_backward_dq_f16",
+                                        "flash_attention_bwd_bf16", "flash_bwd_dq_f16"),
+    "flash_attention_backward_dkv_f16": ("gordo_flash_attention_backward_dkv_f16",
+                                         "flash_attention_bwd_bf16", "flash_bwd_dkv_f16"),
 }
 
 
@@ -949,6 +997,30 @@ def _bf16_gate(got, ref, exact=None) -> tuple:
     return bool(ok.all()), differs.float().mean().item(), diff.max().item()
 
 
+def _f16_gate(got, ref, exact=None, atol: float = 1e-6) -> tuple:
+    """:func:`_bf16_gate` in fp16: every element within one fp16 ulp of the
+    twin's (F16_ULP of the larger, at least fp16's least subnormal
+    F16_SUBNORMAL, plus ``atol``: 1e-6 times the scale of dO), the share of
+    elements that differ at all, the largest absolute difference; with
+    ``exact``, its exact zeros held to |x| <= ``atol`` and left out of the
+    share."""
+    import torch
+
+    a, b = got.float(), ref.float()
+    diff = (a - b).abs()
+    ok = diff <= torch.clamp(F16_ULP * torch.maximum(a.abs(), b.abs()), min=F16_SUBNORMAL) + atol
+    differs = a != b
+    if exact is not None:
+        zero = exact == 0
+        ok = torch.where(zero, a.abs() <= atol, ok)
+        differs = differs & ~zero
+    return bool(ok.all()), differs.float().mean().item(), diff.max().item()
+
+
+# the element size of each of the kernels' dtypes
+ELEMENT_BYTES = {"float32": 4, "bfloat16": 2, "float16": 2}
+
+
 def bf16_kernel_phase(card: str) -> list:
     """The bf16 forward, dQ and dK/dV kernels against their plain twins on
     bf16 inputs at each shape (the backward also run twice for
@@ -1098,39 +1170,41 @@ ENTRY_NAMES = {"forward": "flash_attention_forward", "dq": "flash_attention_back
 N_TENSORS = {"forward": 4, "dq": 6, "dkv": 7}
 
 
-def head_dim_gates(dtype: str) -> dict:
+def head_dim_gates(dtype: str, dims=GATE_HEAD_DIMS, extra=(), do_scales=(1.0,)) -> dict:
     """The forward, dQ and dK/dV kernels of ``dtype`` against their twins
-    (:func:`twin_gates`) at each of GATE_HEAD_DIMS and GATE_SHAPES, causal
-    and not, and at PATH_GATE_SHAPES, causal. Raises on a miss; returns
-    ``{kernel: {dh: worst error}}`` (float32: the relative error, bf16: the
-    share that differs), ``lse`` likewise, and, under ``max_abs``, the
-    largest absolute differences."""
+    (:func:`twin_gates`) at each of ``dims`` and GATE_SHAPES, causal and
+    not, at PATH_GATE_SHAPES, causal, and at the (BH, T, dh, causal) cases
+    ``extra``, each with dO drawn at each of ``do_scales``. Raises on a
+    miss; returns ``{kernel: {dh: worst error}}`` (float32: the relative
+    error, bf16 and fp16: the share that differs), ``lse`` likewise, and,
+    under ``max_abs``, the largest absolute differences."""
     import torch
 
     from gordo_tpu_torch.ops import flash_attention as fa
 
-    bf16 = dtype == "bfloat16"
+    half = dtype != "float32"
     g = torch.Generator(device="cuda").manual_seed(SEED + 20)
     worst = {name: {} for name in ("forward", "lse", "dq", "dkv", "max_abs")}
-    cases = [(bh, t, dh, causal) for dh in GATE_HEAD_DIMS for bh, t in GATE_SHAPES
+    cases = [(bh, t, dh, causal) for dh in dims for bh, t in GATE_SHAPES
              for causal in (True, False)] + [(*shape, True) for shape in PATH_GATE_SHAPES]
-    for bh, t, dh, causal in cases:
-        q, k, v, do = (torch.randn((bh, t, dh), device="cuda", generator=g)
-                       .to(torch.bfloat16 if bf16 else torch.float32) for _ in range(4))
+    for (bh, t, dh, causal), do_scale in ((case, scale) for case in [*cases, *extra]
+                                          for scale in do_scales):
+        q, k, v, do = (torch.randn((bh, t, dh), device="cuda", generator=g) for _ in range(4))
+        q, k, v, do = (x.to(getattr(torch, dtype)) for x in (q, k, v, do * do_scale))
         out, lse = fa.flash_attention_forward(q, k, v, causal)
-        errors = twin_gates(q, k, v, do, out, lse, causal)
+        errors = twin_gates(q, k, v, do, out, lse, causal, do_scale)
         worst["lse"][dh] = max(worst["lse"].get(dh, 0.0), errors["lse"])
         for kernel, names in (("forward", ("out",)), ("dq", ("dq",)), ("dkv", ("dk", "dv"))):
-            err = max(errors[n]["share_differing" if bf16 else "max_rel_err"] for n in names)
+            err = max(errors[n]["share_differing" if half else "max_rel_err"] for n in names)
             max_abs = max(errors[n]["max_abs_err"] for n in names)
             worst[kernel][dh] = max(worst[kernel].get(dh, 0.0), err)
             by_dh = worst["max_abs"].setdefault(kernel, {})
             by_dh[dh] = max(by_dh.get(dh, 0.0), max_abs)
         del q, k, v, do, out, lse
     for dh in sorted(worst["forward"]):
-        shapes = [(bh, t) for bh, t, d, _ in cases if d == dh]
+        shapes = [(bh, t) for bh, t, d, _ in [*cases, *extra] if d == dh]
         print(f"{dtype} kernels at dh {dh} against their twins, (BH, T) {sorted(set(shapes))}: "
-              f"worst {'share that differs' if bf16 else 'rel err'} forward "
+              f"worst {'share that differs' if half else 'rel err'} forward "
               f"{worst['forward'][dh]:.3e}, dq {worst['dq'][dh]:.3e}, dkv {worst['dkv'][dh]:.3e}; "
               f"lse {worst['lse'][dh]:.3e}; backward bit-identical on a rerun", flush=True)
     return worst
@@ -1150,8 +1224,8 @@ def head_dim_times(card: str, dtype: str, dims=TIMED_HEAD_DIMS, bhs=TIMED_BH,
 
     from gordo_tpu_torch.ops import flash_attention as fa
 
-    torch_dtype = torch.bfloat16 if dtype == "bfloat16" else torch.float32
-    size = 2 if dtype == "bfloat16" else 4
+    torch_dtype = getattr(torch, dtype)
+    size = ELEMENT_BYTES[dtype]
     g = torch.Generator(device="cuda").manual_seed(SEED + 21)
     times = {kernel: {} for kernel in ENTRY_NAMES}
     t = CONFIG["lookback_window"] if t is None else t
@@ -1202,6 +1276,59 @@ def head_dim_times(card: str, dtype: str, dims=TIMED_HEAD_DIMS, bhs=TIMED_BH,
             del q, k, v, do, o, lse
             torch.cuda.empty_cache()
     return times
+
+
+# ------------------------------------------------------------ float16
+# the fp16 kernels' gates beyond head_dim_gates' small shapes: the main
+# paths' (serving BH 4,096, building BH 128, T 512, dh 64, causal and not)
+F16_MAIN_CASES = ((128, 512, 64, True), (128, 512, 64, False), (4096, 512, 64, True),
+                  (4096, 512, 64, False))
+# dO at unit scale and small, where an unscaled split of dS would fall into
+# fp16's subnormals (csrc/wgmma_bf16.cuh)
+F16_DO_SCALES = (1.0, 1e-4)
+# the fp16 kernels timed at dh 64: the serving forward's BH, the fleet
+# step's and the serial build step's
+F16_TIMED_BH = (4096, 1024, 128)
+F16_SOURCES = {"forward": "gordo_tpu_torch/ops/csrc/flash_attention_bf16.cu",
+               "dq": "gordo_tpu_torch/ops/csrc/flash_attention_bwd_bf16.cu",
+               "dkv": "gordo_tpu_torch/ops/csrc/flash_attention_bwd_bf16.cu"}
+F16_REPLACES = {"forward": "gordo_tpu/ops/pallas_kernels/flash_attention.py:41",
+                "dq": "gordo_tpu/ops/pallas_kernels/flash_attention.py:89",
+                "dkv": "gordo_tpu/ops/pallas_kernels/flash_attention.py:127"}
+
+
+def f16_kernel_phase(card: str) -> list:
+    """The fp16 forward, dQ and dK/dV kernels (the bf16 sources' fp16
+    instantiations) against their plain twins (:func:`twin_gates`: one fp16
+    ulp of the twin run in float64, at most 1% different from either twin,
+    the backward bit-identical on a rerun) at every head-dim class (16, 32
+    and the classes of 64 to 256, dims inside them too, small BH and ragged
+    T, causal and not) and at the main paths' shapes, each with dO at unit
+    scale and at 1e-4; then timed at dh 64 at F16_TIMED_BH beside their
+    bounds, their twins and ``scaled_dot_product_attention`` on the same
+    fp16 inputs (:func:`head_dim_times`, which gates each timed shape
+    again). Returns the three kernels' entries of the ``kernels`` line: the
+    forward's numbers at the serving BH, dQ's and dK/dV's at the build's."""
+    gates = head_dim_gates("float16", dims=(16, 32, 64, *GATE_HEAD_DIMS),
+                           extra=F16_MAIN_CASES, do_scales=F16_DO_SCALES)
+    times = head_dim_times(card, "float16", dims=(64,), bhs=F16_TIMED_BH)
+    entries = []
+    for kernel, main_bh in (("forward", SERVE_SHAPE[0]), ("dq", TRAIN_SHAPE[0]),
+                            ("dkv", TRAIN_SHAPE[0])):
+        timed = times[kernel][64]
+        entry = {"name": f"{ENTRY_NAMES[kernel]}_f16", "route": "cuda",
+                 "source": F16_SOURCES[kernel], "replaces": F16_REPLACES[kernel],
+                 "dtype": "float16", "launches": None,
+                 "max_abs_err": max(gates["max_abs"][kernel].values()),
+                 "share_differing_by_head_dim": gates[kernel],
+                 **{key: timed[main_bh][key] for key in (
+                     "ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "shape",
+                     "achieved_tflop_s", "bound_share", "plain_and_library_compute")},
+                 "timed_by_bh": timed, "do_scales": list(F16_DO_SCALES)}
+        if kernel == "forward":
+            entry["lse_max_rel_err_by_head_dim"] = gates["lse"]
+        entries.append(entry)
+    return entries
 
 
 # ------------------------------------------------------------ the LSTM recurrence
@@ -1549,7 +1676,21 @@ def _attention_blocks(spec) -> int:
 
 # the wrappers' launch counters: the forward, dQ and dK/dV kernels of each dtype
 COUNTERS = {"float32": ("LAUNCHES", "DQ_LAUNCHES", "DKV_LAUNCHES"),
-            "bfloat16": ("BF16_LAUNCHES", "BF16_DQ_LAUNCHES", "BF16_DKV_LAUNCHES")}
+            "bfloat16": ("BF16_LAUNCHES", "BF16_DQ_LAUNCHES", "BF16_DKV_LAUNCHES"),
+            "float16": ("F16_LAUNCHES", "F16_DQ_LAUNCHES", "F16_DKV_LAUNCHES")}
+# the dtypes the phases before float16_path run in both (float16 has that
+# phase and its kernel phase of its own)
+PHASE_DTYPES = ("float32", "bfloat16")
+# the served model vs the same model with plain attention, by dtype
+TOL_SERVED_REL = {"float32": TOL_MODEL_REL, "bfloat16": TOL_BF16_MODEL_REL,
+                  "float16": TOL_F16_MODEL_REL}
+
+
+def _others_launched(dtype: str) -> dict:
+    """The launches of every other dtype's kernels since the counters were
+    last reset, where there were any."""
+    return {other: launches for other in COUNTERS if other != dtype
+            for launches in (_launches(other),) if any(launches.values())}
 
 
 # the LSTM recurrence's counters: its forward and backward kernels of each dtype
@@ -1611,7 +1752,6 @@ def main_path(card: str, spec, layers, scaler, collection: Path, device: str = "
     from gordo_tpu_torch.server.server import make_server
 
     dtype = spec.compute_dtype
-    other = next(d for d in COUNTERS if d != dtype)
     server = make_server("127.0.0.1", 0, device=device, collection_dir=str(collection))
     thread = threading.Thread(target=server.serve_forever, daemon=True)
     thread.start()
@@ -1658,7 +1798,7 @@ def main_path(card: str, spec, layers, scaler, collection: Path, device: str = "
             if first is None:
                 first = (values, data["model-output"])
         launches = _launches(dtype)
-        if launches["dq"] or launches["dkv"] or any(_launches(other).values()):
+        if launches["dq"] or launches["dkv"] or _others_launched(dtype):
             raise AssertionError("serving launched a backward kernel or another dtype's")
     finally:
         server.shutdown()
@@ -1674,7 +1814,7 @@ def main_path(card: str, spec, layers, scaler, collection: Path, device: str = "
         raise AssertionError("the plain reference launched the kernel")
     served = np.array([list(first[1][tag].values()) for tag in TAGS]).T
     err = np.abs(served - ref).max() / np.abs(ref).max()
-    tol = TOL_BF16_MODEL_REL if dtype == "bfloat16" else TOL_MODEL_REL
+    tol = TOL_SERVED_REL[dtype]
     print(f"served model-output vs plain attention ({dtype}): max rel err {err:.3e}",
           flush=True)
     if not err <= tol:
@@ -1833,7 +1973,6 @@ def build_and_check(card: str, config: dict, spec, output: Path, register: Path)
     from gordo_tpu_torch.ops.predict import n_train_samples
 
     dtype = spec.compute_dtype
-    other = next(d for d in COUNTERS if d != dtype)
     n_rows = _config_rows(config)
     steps = [math.ceil(n_train_samples(spec, len(train_idx)) / BATCH)
              for train_idx, _ in TimeSeriesSplit(3).split(np.zeros(n_rows))]
@@ -1880,9 +2019,9 @@ def build_and_check(card: str, config: dict, spec, output: Path, register: Path)
                              f"got {launches}")
     if not launches["forward"] >= launches["dq"]:
         raise AssertionError(f"fewer forward launches than training steps: {launches}")
-    if any(_launches(other).values()):
-        raise AssertionError(f"the {dtype} build launched {other} kernels: "
-                             f"{_launches(other)}")
+    if _others_launched(dtype):
+        raise AssertionError(f"the {dtype} build launched other kernels: "
+                             f"{_others_launched(dtype)}")
     if built.model.model_offset != spec.lookback_window - 1:
         raise AssertionError(f"model_offset {built.model.model_offset}")
     print(f"epoch losses (folds, then fit): {losses}", flush=True)
@@ -1992,6 +2131,72 @@ def bf16_build_path(card: str, root: Path) -> dict:
     launches["serving"] = main_path(card, spec, layers, model.base_estimator.steps[0][1],
                                     root, name=output.name, request_rows=(1535,))
     return launches, seconds
+
+
+F16_FLEET_MACHINES = 2  # float16 machines of the fleet config through batch-build
+
+
+def float16_path(card: str, root: Path, device: str = "cuda") -> dict:
+    """``transformer-ae-512`` at ``compute_dtype: float16`` (BUILD_CONFIG_F16)
+    built by ``ModelBuilder`` on the card (:func:`build_and_check`: the fp16
+    dQ and dK/dV twice a step, no other dtype's kernel, finite losses,
+    scores and thresholds, held-out error below the seeded weights'); the
+    built artifact served by the port's server (:func:`main_path`: 1,535,
+    700 and 1,535 rows, one fp16 forward launch per block a request, the
+    first model output within TOL_F16_MODEL_REL of the same fp16 model with
+    plain attention); then ``batch-build`` of F16_FLEET_MACHINES float16
+    fleet machines through the port's CLI in this process: exit 0, every
+    machine an artifact, one stacked program, the fp16 dQ and dK/dV once per
+    block a stacked step, no other dtype's kernel and no plain attention.
+    Returns the fp16 kernels' launches by part and the seconds."""
+    import contextlib
+    import io
+
+    from gordo_tpu_torch import cli
+    from gordo_tpu_torch.models.anomaly.diff import TimeSeriesSplit
+    from gordo_tpu_torch.models.models import TransformerAutoEncoder
+    from gordo_tpu_torch.ops.predict import n_train_samples
+
+    spec = TransformerAutoEncoder(**CONFIG, compute_dtype="float16").build_spec(
+        len(TAGS), len(TAGS))
+    output = root / "transformer-ae-512-f16-built"
+    model, launches, seconds = build_and_check(card, BUILD_CONFIG_F16, spec, output,
+                                               root.parent / "register-f16")
+    layers = model.base_estimator.steps[-1][1].module_.params_numpy()
+    served = main_path(card, spec, layers, model.base_estimator.steps[0][1], root,
+                       name=output.name)
+
+    configs = fleet_configs(compute_dtype="float16")[:F16_FLEET_MACHINES]
+    (root / "fleet-f16.json").write_text(json.dumps({"machines": configs}))
+    n_rows = _config_rows(configs[0])
+    steps = [math.ceil(n_train_samples(spec, len(train_idx)) / BATCH)
+             for train_idx, _ in TimeSeriesSplit(3).split(np.zeros(n_rows))]
+    steps.append(math.ceil(n_train_samples(spec, n_rows) / BATCH))
+    n_blocks = _attention_blocks(spec)
+    stdout = io.StringIO()
+    _reset_launches()
+    t0 = time.perf_counter()
+    with _PlainAttentionCalls() as plain, contextlib.redirect_stdout(stdout):
+        code = cli.main(["--log-level", "WARNING", "batch-build", str(root / "fleet-f16.json"),
+                         str(root / "fleet-f16"), "--project-name", "smoke",
+                         *(["--device", device] if device != "cuda" else [])])
+    fleet_seconds = time.perf_counter() - t0
+    fleet = _launches("float16")
+    built = [line for line in stdout.getvalue().splitlines() if line.startswith("built: ")]
+    artifacts = sum((root / "fleet-f16" / c["name"] / "model.json").exists() for c in configs)
+    print(f"batch-build of {len(configs)} float16 machines on {card}: exit {code} in "
+          f"{fleet_seconds:.1f} s, {len(built)} built, {artifacts} artifacts; fp16 launches "
+          f"{fleet} (dQ and dK/dV expected {n_blocks * sum(steps)}, one per block a stacked "
+          f"step); plain attention calls {plain.calls}", flush=True)
+    if code != 0 or len(built) != len(configs) or artifacts != len(configs):
+        raise AssertionError(f"the float16 batch-build: exit {code}, built {built}")
+    if not (fleet["dq"] == fleet["dkv"] == n_blocks * sum(steps) and fleet["forward"] > 0):
+        raise AssertionError(f"the float16 fleet's fp16 launches {fleet}")
+    if _others_launched("float16") or plain.calls:
+        raise AssertionError(f"the float16 fleet launched {_others_launched('float16')}, "
+                             f"plain attention {plain.calls}x")
+    return {"build": launches, "served": served, "fleet": fleet, "build_s": seconds,
+            "fleet_s": fleet_seconds}
 
 
 class _PlainAttentionCalls:
@@ -2589,7 +2794,7 @@ def _plain_in_parts(fn, tensors, causal: bool, parts: int = 4, dtype=None) -> li
     return [torch.cat(outs) for outs in zip(*pieces)]
 
 
-def twin_gates(q, k, v, do, o, lse, causal: bool = True) -> dict:
+def twin_gates(q, k, v, do, o, lse, causal: bool = True, do_scale: float = 1.0) -> dict:
     """The forward, dQ and dK/dV of one dtype held against their plain twins
     on the same inputs (``o`` and ``lse`` from the forward kernel, as
     training has them), the backward launched twice for bit-identical
@@ -2601,16 +2806,18 @@ def twin_gates(q, k, v, do, o, lse, causal: bool = True) -> dict:
     float32 twin, and lse at TOL_BF16_LSE_REL. The float32 twin is no
     judge of one ulp near 0: its own error there is of the order of the
     gate's 1e-6 (one bf16 dK element at (1024, 512, 256), within one ulp of
-    float64, is not within one ulp of the float32 twin). Raises on a miss;
-    returns ``{kernel: errors}``."""
+    float64, is not within one ulp of the float32 twin). fp16 as bf16, by
+    ``_f16_gate``, the gradients' absolute term 1e-6 times ``do_scale`` (dO
+    was drawn at that scale). Raises on a miss; returns ``{kernel:
+    errors}``."""
     import torch
 
     from gordo_tpu_torch.ops import flash_attention as fa
 
-    bf16 = q.dtype == torch.bfloat16
+    half = q.dtype in (torch.bfloat16, torch.float16)
     inputs = (q, k, v, o, lse, do)
     parts = max(1, q.shape[0] // 256)
-    where = f"{'bf16' if bf16 else 'float32'} {tuple(q.shape)} causal {causal}"
+    where = f"{q.dtype} {tuple(q.shape)} causal {causal} dO x{do_scale:g}"
     out, lse_k = fa.flash_attention_forward(q, k, v, causal)
     runs = [(fa.launch_dq(*inputs, causal), *fa.launch_dkv(*inputs, causal)) for _ in range(2)]
     torch.cuda.synchronize()
@@ -2624,7 +2831,7 @@ def twin_gates(q, k, v, do, o, lse, causal: bool = True) -> dict:
                     _plain_in_parts(fa.flash_attention_backward_plain, inputs, causal, parts)))
     refs["out"] = ref_out
     errors = {}
-    if bf16:
+    if half:
         exact = dict(zip(("dq", "dk", "dv"), _plain_in_parts(
             fa.flash_attention_backward_plain, inputs, causal, parts, torch.float64)))
         exact["out"] = _plain_in_parts(fa.flash_attention_forward_plain, (q, k, v), causal,
@@ -2632,9 +2839,14 @@ def twin_gates(q, k, v, do, o, lse, causal: bool = True) -> dict:
         lse_err = ((lse_k - ref_lse).abs() / ref_lse.abs().clamp_min(1.0)).max().item()
         ok = lse_err <= TOL_BF16_LSE_REL
         for name in ("out", "dq", "dk", "dv"):
-            within, share_f64, max_abs_f64 = _bf16_gate(got[name], exact[name].bfloat16(),
-                                                        exact[name])
-            within_twin, share, max_abs = _bf16_gate(got[name], refs[name], exact[name])
+            if q.dtype == torch.bfloat16:
+                gate = _bf16_gate
+            else:
+                atol = 1e-6 * (1.0 if name == "out" else do_scale)
+                gate = lambda got, ref, exact: _f16_gate(got, ref, exact, atol)  # noqa: E731
+            within, share_f64, max_abs_f64 = gate(got[name], exact[name].to(q.dtype),
+                                                  exact[name])
+            within_twin, share, max_abs = gate(got[name], refs[name], exact[name])
             errors[name] = {"within_one_ulp": within, "share_differing": share,
                             "max_abs_err": max_abs, "f64_share_differing": share_f64,
                             "f64_max_abs_err": max_abs_f64,
@@ -2740,7 +2952,6 @@ def fleet_path(card: str, root: Path, serial_seconds: float, device: str = "cuda
     configs = fleet_configs(**estimator)
     spec = TransformerAutoEncoder(**CONFIG, **estimator).build_spec(len(TAGS), len(TAGS))
     dtype = spec.compute_dtype
-    other = next(d for d in COUNTERS if d != dtype)
     n_blocks = sum(isinstance(layer, TransformerBlock) for layer in spec.layers)
     n_rows = _config_rows(configs[0])
     steps = [math.ceil(n_train_samples(spec, len(train_idx)) / BATCH)
@@ -2798,8 +3009,8 @@ def fleet_path(card: str, root: Path, serial_seconds: float, device: str = "cuda
     if n_steps != sum(steps) or not launches["dq"] == launches["dkv"] == n_blocks * sum(steps):
         raise AssertionError(f"expected {n_blocks * sum(steps)} dQ and dK/dV launches, one "
                              f"per block a stacked step, got {launches} in {n_steps} steps")
-    if any(_launches(other).values()):
-        raise AssertionError(f"the {dtype} fleet launched {other} kernels")
+    if _others_launched(dtype):
+        raise AssertionError(f"the {dtype} fleet launched {_others_launched(dtype)}")
     for (model, machine), tags in zip(results, FLEET_TAGS):
         mse = held_out_mse(model, spec, n_rows, tags)
         thresholds = [*model.feature_thresholds_, model.aggregate_threshold_]
@@ -4486,7 +4697,6 @@ def cli_model_build(card: str, root: Path, dtype: str, model: dict, label: str,
     name = label + ("-bf16" if extra else "")
     config = build_config(name, base=model, **extra)
     spec = TransformerAutoEncoder(**model, **extra).build_spec(len(TAGS), len(TAGS))
-    other = next(d for d in COUNTERS if d != dtype)
     n_rows = _config_rows(config)
     steps = [math.ceil(n_train_samples(spec, len(train_idx)) / BATCH)
              for train_idx, _ in TimeSeriesSplit(3).split(np.zeros(n_rows))]
@@ -4511,7 +4721,7 @@ def cli_model_build(card: str, root: Path, dtype: str, model: dict, label: str,
         gc.unfreeze()
     seconds = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated() / 2**30
-    launches, others = _launches(dtype), _launches(other)
+    launches, others = _launches(dtype), _others_launched(dtype)
     if code != 0:
         raise AssertionError(f"build {name}: exit {code}")
     built = serializer.load(str(out), device)
@@ -4535,8 +4745,8 @@ def cli_model_build(card: str, root: Path, dtype: str, model: dict, label: str,
             and launches["forward"] >= launches["dq"]):
         raise AssertionError(f"{name}: launches {launches}, expected {n_blocks * sum(steps)} "
                              f"dQ and dK/dV")
-    if any(others.values()) or plain.calls:
-        raise AssertionError(f"{name}: {other} launches {others}, plain calls {plain.calls}")
+    if others or plain.calls:
+        raise AssertionError(f"{name}: other launches {others}, plain calls {plain.calls}")
     if not (mse["trained"] < mse["seeded"] and all(math.isfinite(x) for x in thresholds)
             and score_lines == expected_lines):
         raise AssertionError(f"{name}: {result}")
@@ -4629,13 +4839,13 @@ def d384_path(card: str, root: Path, device: str = "cuda") -> dict:
     collection = root / "collection"
     collection.mkdir(parents=True)
     builds = {dtype: cli_model_build(card, collection, dtype, D384_CONFIG,
-                                     "transformer-ae-512-d384", device) for dtype in COUNTERS}
+                                     "transformer-ae-512-d384", device) for dtype in PHASE_DTYPES}
     served = d384_served(card, collection, {dtype: b["name"] for dtype, b in builds.items()},
                          device)
     _reset_launches()
     with _PlainAttentionCalls() as plain:
         stacked = fleet_loss_check(card, device, config=D384_CONFIG)
-    stacked["launches"] = {dtype: _launches(dtype) for dtype in COUNTERS}
+    stacked["launches"] = {dtype: _launches(dtype) for dtype in PHASE_DTYPES}
     print(f"transformer-ae-512-d384 stacked against serial: launches {stacked['launches']}, "
           f"plain attention calls {plain.calls}", flush=True)
     if plain.calls or not all(n["dq"] and n["dkv"] for n in stacked["launches"].values()):
@@ -4643,7 +4853,7 @@ def d384_path(card: str, root: Path, device: str = "cuda") -> dict:
                              f"{plain.calls}")
     launches = {dtype: {"build": builds[dtype]["launches"],
                         "served": {"forward": served[dtype]["forward_launches"]},
-                        "stacked": stacked["launches"][dtype]} for dtype in COUNTERS}
+                        "stacked": stacked["launches"][dtype]} for dtype in PHASE_DTYPES}
     return {"build": builds, "served": served, "stacked": stacked, "launches": launches}
 
 
@@ -4664,7 +4874,8 @@ MOE_ROUNDS = 5  # sequential 1,535-row requests in each serving mode
 # experts) is rounding when the reference's logit gap between the two
 # experts is under absolute + relative x |its top logit|: 1e-5 in float32,
 # one bf16 ulp (BF16_ULP of the top logit) in bf16
-MOE_FLIP_GAP = {"float32": (1e-5, 0.0), "bfloat16": (0.0, BF16_ULP)}
+MOE_FLIP_GAP = {"float32": (1e-5, 0.0), "bfloat16": (0.0, BF16_ULP),
+                "float16": (0.0, F16_ULP)}
 MOE_FLEET_MACHINES = 2  # of each configuration in the MoE batch-build
 MOE_TIMED_BH = (256,)  # moe_model_144's stacked step: 2 machines x batch 32 x 4 heads
 
@@ -4959,7 +5170,7 @@ def moe_fleet(card: str, root: Path, device: str = "cuda") -> dict:
         _reset_launches()
         with _PlainAttentionCalls() as plain:
             stacked[label] = fleet_loss_check(card, device, config=model)
-        stacked[label]["launches"] = {dtype: _launches(dtype) for dtype in COUNTERS}
+        stacked[label]["launches"] = {dtype: _launches(dtype) for dtype in PHASE_DTYPES}
         stacked[label]["launches_by_head_dim"] = {
             f"{name}@{dh}": n for (name, dh), n in sorted(fa.HEAD_DIM_LAUNCHES.items())}
         if plain.calls:
@@ -5004,7 +5215,7 @@ def moe_fleet(card: str, root: Path, device: str = "cuda") -> dict:
         bt.BatchedModelBuilder._build_chunk = build_chunk
         bt.BatchedModelBuilder._serial_build = serial_build
     peak = torch.cuda.max_memory_allocated() / 2**30
-    launches = {dtype: _launches(dtype) for dtype in COUNTERS}
+    launches = {dtype: _launches(dtype) for dtype in PHASE_DTYPES}
     by_dh = dict(fa.HEAD_DIM_LAUNCHES)
     built = [line for line in stdout.getvalue().splitlines() if line.startswith("built: ")]
     artifacts = sum((output / c["name"] / "model.json").exists() for c in configs)
@@ -5070,7 +5281,7 @@ def moe_path(card: str, root: Path, device: str = "cuda") -> dict:
     collection.mkdir(parents=True)
     t0 = time.perf_counter()
     builds = {dtype: cli_model_build(card, collection, dtype, MOE_CONFIG,
-                                     "moe-transformer-ae-512", device) for dtype in COUNTERS}
+                                     "moe-transformer-ae-512", device) for dtype in PHASE_DTYPES}
     served = moe_served(card, collection, {dtype: b["name"] for dtype, b in builds.items()},
                         device)
     dropped = sum(b["dropped"] for r in served.values() for b in r["routing"])
@@ -5078,7 +5289,7 @@ def moe_path(card: str, root: Path, device: str = "cuda") -> dict:
         raise AssertionError("no token of the served requests went over its expert's capacity")
     fleet = moe_fleet(card, root, device)
     times = {dtype: head_dim_times(card, dtype, dims=(16,), bhs=MOE_TIMED_BH,
-                                   t=MOE144_CONFIG["lookback_window"]) for dtype in COUNTERS}
+                                   t=MOE144_CONFIG["lookback_window"]) for dtype in PHASE_DTYPES}
     seconds = time.perf_counter() - t0
     print(f"moe phase: {seconds:.1f} s", flush=True)
     stacked = fleet["stacked"]
@@ -5086,7 +5297,7 @@ def moe_path(card: str, root: Path, device: str = "cuda") -> dict:
         "build": builds[dtype]["launches"],
         "served": {"forward": served[dtype]["forward_launches"]},
         "stacked_dh64": stacked["moe-transformer-ae-512"]["launches"][dtype],
-        "stacked_dh16": stacked["moe_model_144"]["launches"][dtype]} for dtype in COUNTERS}
+        "stacked_dh16": stacked["moe_model_144"]["launches"][dtype]} for dtype in PHASE_DTYPES}
     return {"build": builds, "served": served, "fleet": fleet, "times_dh16": times,
             "launches": launches, "seconds": seconds}
 
@@ -5658,7 +5869,7 @@ def observability_path(card: str, root: Path, batcher_root: Path, device: str = 
                 os.environ.pop(knob, None)
             else:
                 os.environ[knob] = value
-    launches = {dtype: _launches(dtype) for dtype in COUNTERS}
+    launches = {dtype: _launches(dtype) for dtype in PHASE_DTYPES}
     print(f"observability phase: {time.perf_counter() - started:.1f} s; JSON log lines "
           f"{len(lines)} ({len(traced)} with trace ids); launches {launches}", flush=True)
     if not (launches["float32"]["forward"] and launches["bfloat16"]["forward"]
@@ -6454,7 +6665,7 @@ def resilience_path(card: str, root: Path, batcher_root: Path, device: str = "cu
                 os.environ.pop(knob, None)
             else:
                 os.environ[knob] = value
-    launches = {dtype: _launches(dtype)["forward"] for dtype in COUNTERS}
+    launches = {dtype: _launches(dtype)["forward"] for dtype in PHASE_DTYPES}
     traced = {"float32": sum(t["flash_forward_f32"] for t in pool["traced_forwards"].values()),
               "bfloat16": sum(t[WGMMA_KERNELS["flash_attention_forward_bf16"][2]]
                               for t in pool["traced_forwards"].values())}
@@ -6468,7 +6679,7 @@ def resilience_path(card: str, root: Path, batcher_root: Path, device: str = "cu
                              f"{traced}")
     return {"first_200": {"warmup": pool["first"], "no_warmup": cold},
             "one_worker": one, "pool": pool, **steps, "attribution": attributed,
-            "launches": {dtype: launches[dtype] + traced[dtype] for dtype in COUNTERS},
+            "launches": {dtype: launches[dtype] + traced[dtype] for dtype in PHASE_DTYPES},
             "phase_s": time.perf_counter() - started}
 
 
@@ -8733,8 +8944,8 @@ def client_workflow_path(card: str, root: Path, device: str = "cuda", base=None)
         built = json.loads((root / "counts" / f"gordo_tpu_torch-{building.pid}.json").read_text())
         if sorted(os.listdir(collection)) != sorted(CW_MACHINES):
             raise AssertionError(f"the builder wrote {sorted(os.listdir(collection))}")
-        out["launches"] = {"build": {d: built[d] for d in COUNTERS}}
-        if device == "cuda" and not all(n > 0 for d in COUNTERS for n in built[d].values()):
+        out["launches"] = {"build": {d: built[d] for d in PHASE_DTYPES}}
+        if device == "cuda" and not all(n > 0 for d in PHASE_DTYPES for n in built[d].values()):
             raise AssertionError(f"the rendered builder launched {out['launches']['build']}")
         if device == "cuda" and built["plain_calls"]:
             raise AssertionError(f"the builder ran plain attention {built['plain_calls']}x")
@@ -8787,7 +8998,7 @@ def client_workflow_path(card: str, root: Path, device: str = "cuda", base=None)
                                .read_text())
     if device == "cuda" and served_counts["plain_calls"]:
         raise AssertionError(f"the server ran plain attention: {served_counts}")
-    out["launches"]["served"] = {d: served_counts[d]["forward"] for d in COUNTERS}
+    out["launches"]["served"] = {d: served_counts[d]["forward"] for d in PHASE_DTYPES}
     if device == "cuda" and not all(out["launches"]["served"].values()):
         raise AssertionError(f"the server launched {out['launches']['served']}")
 
@@ -8840,14 +9051,53 @@ def client_workflow_path(card: str, root: Path, device: str = "cuda", base=None)
     return out
 
 
+# each phase's seconds, as main() runs it (_phase), printed on one line at
+# the end; "whole" is the run's from the start of main()
+PHASE_SECONDS = {}
+STARTED = time.perf_counter()
+
+
+def _phase(name: str, fn, *args, **kwargs):
+    """``fn(*args, **kwargs)``, its seconds recorded as phase ``name``."""
+    t0 = time.perf_counter()
+    try:
+        return fn(*args, **kwargs)
+    finally:
+        PHASE_SECONDS[name] = time.perf_counter() - t0
+        print(f"phase {name}: {PHASE_SECONDS[name]:.1f} s", flush=True)
+
+
+# the bytecode of every module this run and its subprocesses import
+# (_cache_bytecode)
+PYCACHE = REPO / "build" / "pycache"
+
+
+def _cache_bytecode() -> None:
+    """Keep the compiled bytecode of what this process and every process it
+    starts imports under PYCACHE. Where the interpreter's package
+    directories are read-only, nothing caches it, and each new Python
+    process compiles torch's sources again: ~9 of the ~10 s of a process's
+    ``import torch`` on the card's machine (``builtins.compile`` in a
+    profile of a ``build`` subprocess). Writing the bytecode is turned back
+    on where the environment turned it off (PYTHONDONTWRITEBYTECODE)."""
+    sys.pycache_prefix = str(PYCACHE)
+    sys.dont_write_bytecode = False
+    os.environ["PYTHONPYCACHEPREFIX"] = str(PYCACHE)
+    os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
+
+
 def main() -> int:
+    global STARTED
+
+    STARTED = time.perf_counter()
+    if not (REPO / "gordo_tpu_torch" / "ops" / "csrc").is_dir():
+        print("chip_smoke: run it from a checkout of the repository", file=sys.stderr)
+        return 2
+    _cache_bytecode()
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
-        return 2
-    if not (REPO / "gordo_tpu_torch" / "ops" / "csrc").is_dir():
-        print("chip_smoke: run it from a checkout of the repository", file=sys.stderr)
         return 2
     sys.path.insert(0, str(REPO))
     from gordo_tpu_torch import native
@@ -8862,34 +9112,52 @@ def main() -> int:
           f"{torch.backends.cuda.matmul.allow_tf32}, cuDNN "
           f"{torch.backends.cudnn.allow_tf32}", flush=True)
 
-    t0 = time.perf_counter()
     # the codec's native library (g++) builds beside the kernels (nvcc)
-    with concurrent.futures.ThreadPoolExecutor(1) as pool:
-        native_build = pool.submit(native.load)
-        libs = _build.build_all()
-        native_build.result()
+    def build():
+        with concurrent.futures.ThreadPoolExecutor(1) as pool:
+            native_build = pool.submit(native.load)
+            libs = _build.build_all()
+            native_build.result()
+        return libs
+
+    libs = _phase("build", build)
     print(f"built {sorted(libs)} and {native.library_path().name} in "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
+          f"{PHASE_SECONDS['build']:.1f} s", flush=True)
     for stem, log in _build.BUILD_LOGS.items():
         for line in log.splitlines():
             if "entry function" in line or "registers" in line or "spill" in line:
                 print(f"  {stem}: {line.strip()}")
-    occupancy = _occupancy()
-    mma = _sass_mma(libs)
-    wgmma = wgmma_report(occupancy)
-    lstm_instantiations = lstm_build_report(mma)
 
-    forward = kernel_phase(card)
-    dq, dkv = backward_kernel_phase(card)
-    bf16_forward, bf16_dq, bf16_dkv = bf16_kernel_phase(card)
+    def build_report():
+        parts, t0 = [], time.perf_counter()
+        occupancy = _occupancy()
+        parts.append(time.perf_counter() - t0)
+        mma = _sass_mma(libs)
+        parts.append(time.perf_counter() - t0 - sum(parts))
+        wgmma = wgmma_report(occupancy)
+        parts.append(time.perf_counter() - t0 - sum(parts))
+        lstm = lstm_build_report(mma)
+        parts.append(time.perf_counter() - t0 - sum(parts))
+        print("build report (s): occupancy {:.1f}, SASS {:.1f}, wgmma {:.1f}, LSTM {:.1f}".format(
+            *parts), flush=True)
+        return occupancy, mma, wgmma, lstm
+
+    occupancy, mma, wgmma, lstm_instantiations = _phase("build_report", build_report)
+
+    forward = _phase("kernel", kernel_phase, card)
+    dq, dkv = _phase("backward_kernel", backward_kernel_phase, card)
+    bf16_forward, bf16_dq, bf16_dkv = _phase("bf16_kernel", bf16_kernel_phase, card)
     entries = [forward, dq, dkv, bf16_forward, bf16_dq, bf16_dkv]
+    f16_entries = _phase("f16_kernel", f16_kernel_phase, card)
+    torch.cuda.empty_cache()
     # each kernel's __global__ name and the tensor-core instruction its SASS
-    # must hold: HGMMA (wgmma) and no HMMA for the three bf16 kernels, HMMA
-    # (mma.sync) for the float32 ones
-    for entry, kernel, op in zip(entries, (
+    # must hold: HGMMA (wgmma) and no HMMA for the three bf16 and the three
+    # fp16 kernels, HMMA (mma.sync) for the float32 ones
+    for entry, kernel, op in zip(entries + f16_entries, (
             "flash_forward_f32", "flash_bwd_dq_f32", "flash_bwd_dkv_f32",
-            "flash_forward_bf16", "flash_bwd_dq_bf16", "flash_bwd_dkv_bf16"),
-            ("HMMA", "HMMA", "HMMA", "HGMMA", "HGMMA", "HGMMA")):
+            "flash_forward_bf16", "flash_bwd_dq_bf16", "flash_bwd_dkv_bf16",
+            "flash_forward_f16", "flash_bwd_dq_f16", "flash_bwd_dkv_f16"),
+            ("HMMA", "HMMA", "HMMA", "HGMMA", "HGMMA", "HGMMA", "HGMMA", "HGMMA", "HGMMA")):
         entry["occupancy_by_head_dim"] = occupancy[entry["name"]]
         if entry["name"] in wgmma:
             entry["wgmma_by_head_dim"] = wgmma[entry["name"]]
@@ -8900,69 +9168,71 @@ def main() -> int:
             raise AssertionError(f"{kernel}'s SASS holds no {op} instruction")
         if mma and op == "HGMMA" and entry["sass_hmma"]:
             raise AssertionError(f"{kernel}'s SASS holds HMMA beside its HGMMA")
-    fleet_times = fleet_kernel_times(card)
+    fleet_times = _phase("fleet_kernel_times", fleet_kernel_times, card)
     torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    head_dims = {dtype: {"gates": head_dim_gates(dtype), "times": head_dim_times(card, dtype)}
-                 for dtype in COUNTERS}
-    print(f"wide head-dim kernel phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    head_dims = _phase("head_dims", lambda: {
+        dtype: {"gates": head_dim_gates(dtype), "times": head_dim_times(card, dtype)}
+        for dtype in PHASE_DTYPES})
+    print(f"wide head-dim kernel phase: {PHASE_SECONDS['head_dims']:.1f} s", flush=True)
     torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    lstm_entries = lstm_kernel_phase(card)
-    print(f"LSTM recurrence kernel phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    lstm_entries = _phase("lstm_kernel", lstm_kernel_phase, card)
+    print(f"LSTM recurrence kernel phase: {PHASE_SECONDS['lstm_kernel']:.1f} s", flush=True)
     torch.cuda.empty_cache()
 
-    collections = [REPO / "build" / "chip_smoke" / rev for rev in ("1", "2", "3")]
+    collections = [REPO / "build" / "chip_smoke" / rev for rev in ("1", "2", "3", "4")]
     fleet_root = REPO / "build" / "chip_smoke_fleet"
     batcher_root = REPO / "build" / "chip_smoke_batcher"
     for collection in collections + [fleet_root, batcher_root]:
         shutil.rmtree(collection, ignore_errors=True)
         collection.mkdir(parents=True)
     spec, layers, scaler = write_artifact(collections[0])
-    serving = main_path(card, spec, layers, scaler, collections[0])
+    serving = _phase("main", main_path, card, spec, layers, scaler, collections[0])
     torch.cuda.empty_cache()
-    base_route = server_surface_path(card, spec, layers, scaler, collections[0])
+    base_route = _phase("server_surface", server_surface_path, card, spec, layers, scaler,
+                        collections[0])
     torch.cuda.empty_cache()
-    batched = batcher_path(card, batcher_root / "float32")
+    batched = _phase("batcher", batcher_path, card, batcher_root / "float32")
     torch.cuda.empty_cache()
-    build, serial_seconds = build_path(card, collections[1])
+    build, serial_seconds = _phase("build_path", build_path, card, collections[1])
     torch.cuda.empty_cache()
-    bf16_build, bf16_serial_seconds = bf16_build_path(card, collections[2])
+    bf16_build, bf16_serial_seconds = _phase("bf16_build", bf16_build_path, card,
+                                             collections[2])
     torch.cuda.empty_cache()
-    bf16_batched = batcher_path(card, batcher_root / "bfloat16", compute_dtype="bfloat16")
+    bf16_batched = _phase("bf16_batcher", batcher_path, card, batcher_root / "bfloat16",
+                          compute_dtype="bfloat16")
     torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    fleet = fleet_path(card, fleet_root, serial_seconds)
+    f16 = _phase("float16_path", float16_path, card, collections[3])
     torch.cuda.empty_cache()
-    bf16_fleet = fleet_path(card, fleet_root, bf16_serial_seconds, compute_dtype="bfloat16")
+    fleet = _phase("fleet", fleet_path, card, fleet_root, serial_seconds)
     torch.cuda.empty_cache()
-    fleet_loss_check(card)
-    cli_batch_build(fleet_root)
-    print(f"fleet phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    bf16_fleet = _phase("bf16_fleet", fleet_path, card, fleet_root, bf16_serial_seconds,
+                        compute_dtype="bfloat16")
+    torch.cuda.empty_cache()
+    _phase("fleet_loss_check", fleet_loss_check, card)
+    _phase("cli_batch_build", cli_batch_build, fleet_root)
+    fleet_phases = ("fleet", "bf16_fleet", "fleet_loss_check", "cli_batch_build")
+    print(f"fleet phase: {sum(PHASE_SECONDS[k] for k in fleet_phases):.1f} s", flush=True)
     torch.cuda.empty_cache()
     ff_root = REPO / "build" / "chip_smoke_feedforward"
     shutil.rmtree(ff_root, ignore_errors=True)
     ff_root.mkdir(parents=True)
-    t0 = time.perf_counter()
-    ff_build = feedforward_build_path(card, ff_root / "built")
-    ff_build["phase_s"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    ff_served = feedforward_served_path(card, ff_root, ff_root / "built")
-    ff_served["phase_s"] = time.perf_counter() - t0
+    ff_build = _phase("feedforward_build", feedforward_build_path, card, ff_root / "built")
+    ff_build["phase_s"] = PHASE_SECONDS["feedforward_build"]
+    ff_served = _phase("feedforward_served", feedforward_served_path, card, ff_root,
+                       ff_root / "built")
+    ff_served["phase_s"] = PHASE_SECONDS["feedforward_served"]
     torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    ff_fleet = feedforward_fleet_path(card, ff_root)
-    ff_fleet["phase_s"] = time.perf_counter() - t0
+    ff_fleet = _phase("feedforward_fleet", feedforward_fleet_path, card, ff_root)
+    ff_fleet["phase_s"] = PHASE_SECONDS["feedforward_fleet"]
     torch.cuda.empty_cache()
     print(f"feedforward phases: build {ff_build['phase_s']:.1f} s, served "
           f"{ff_served['phase_s']:.1f} s, fleet {ff_fleet['phase_s']:.1f} s", flush=True)
-    t0 = time.perf_counter()
-    lanes = fastlane_path(card, ff_root, batcher_root / "float32" / "1", ff_root / "built")
-    lanes["phase_s"] = time.perf_counter() - t0
+    lanes = _phase("fastlane", fastlane_path, card, ff_root, batcher_root / "float32" / "1",
+                   ff_root / "built")
+    lanes["phase_s"] = PHASE_SECONDS["fastlane"]
     torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    kfcv_fleet = kfcv_fleet_path(card, ff_root)
-    kfcv_fleet["phase_s"] = time.perf_counter() - t0
+    kfcv_fleet = _phase("kfcv_fleet", kfcv_fleet_path, card, ff_root)
+    kfcv_fleet["phase_s"] = PHASE_SECONDS["kfcv_fleet"]
     torch.cuda.empty_cache()
     print(f"fast lane phase {lanes['phase_s']:.1f} s, KFCV fleet phase "
           f"{kfcv_fleet['phase_s']:.1f} s", flush=True)
@@ -8972,34 +9242,37 @@ def main() -> int:
     windowed = {}
     for key, phase in (("lstm_example_build", lstm_example_build_path),
                        ("served", windowed_served_path), ("fleet", windowed_fleet_path)):
-        t0 = time.perf_counter()
-        windowed[key] = phase(card, windowed_root)
-        windowed[key]["phase_s"] = time.perf_counter() - t0
+        windowed[key] = _phase(f"windowed_{key}", phase, card, windowed_root)
+        windowed[key]["phase_s"] = PHASE_SECONDS[f"windowed_{key}"]
         torch.cuda.empty_cache()
     print(f"LSTM/TCN phases: compressor-b build {windowed['lstm_example_build']['phase_s']:.1f} "
           f"s, windowed serving {windowed['served']['phase_s']:.1f} s, windowed fleet "
           f"{windowed['fleet']['phase_s']:.1f} s", flush=True)
-    t0 = time.perf_counter()
-    d384 = d384_path(card, REPO / "build" / "chip_smoke_d384")
-    d384["phase_s"] = time.perf_counter() - t0
+    d384 = _phase("d384", d384_path, card, REPO / "build" / "chip_smoke_d384")
+    d384["phase_s"] = PHASE_SECONDS["d384"]
     torch.cuda.empty_cache()
     print(f"transformer-ae-512-d384 phase: {d384['phase_s']:.1f} s", flush=True)
-    moe = moe_path(card, REPO / "build" / "chip_smoke_moe")
+    moe = _phase("moe", moe_path, card, REPO / "build" / "chip_smoke_moe")
     torch.cuda.empty_cache()
-    observed = observability_path(card, REPO / "build" / "chip_smoke_observability", batcher_root)
+    observed = _phase("observability", observability_path, card,
+                      REPO / "build" / "chip_smoke_observability", batcher_root)
     torch.cuda.empty_cache()
-    resilient = resilience_path(card, REPO / "build" / "chip_smoke_resilience", batcher_root)
+    resilient = _phase("resilience", resilience_path, card,
+                       REPO / "build" / "chip_smoke_resilience", batcher_root)
     torch.cuda.empty_cache()
-    drifting = drift_path(card, REPO / "build" / "chip_smoke_drift",
-                          built=(fleet_root / "fleet-cli", fleet_root / "fleet-cli-register"))
+    drifting = _phase("drift", drift_path, card, REPO / "build" / "chip_smoke_drift",
+                      built=(fleet_root / "fleet-cli", fleet_root / "fleet-cli-register"))
     torch.cuda.empty_cache()
-    routed = gateway_path(card, REPO / "build" / "chip_smoke_gateway", batcher_root)
+    routed = _phase("gateway", gateway_path, card, REPO / "build" / "chip_smoke_gateway",
+                    batcher_root)
     torch.cuda.empty_cache()
-    data = data_build_path(card, REPO / "build" / "chip_smoke_data")
+    data = _phase("data_build", data_build_path, card, REPO / "build" / "chip_smoke_data")
     torch.cuda.empty_cache()
-    template = template_build_path(card, REPO / "build" / "chip_smoke_template")
+    template = _phase("template_build", template_build_path, card,
+                      REPO / "build" / "chip_smoke_template")
     torch.cuda.empty_cache()
-    workflow = client_workflow_path(card, REPO / "build" / "chip_smoke_client_workflow")
+    workflow = _phase("client_workflow", client_workflow_path, card,
+                      REPO / "build" / "chip_smoke_client_workflow")
     torch.cuda.empty_cache()
 
     forward["launches_by_path"] = {"serving": serving, "server_surface": base_route,
@@ -9151,12 +9424,20 @@ def main() -> int:
         entry["instantiations"] = [i for i in lstm_instantiations
                                    if (i["kernel"], i["dtype"]) == (
                                        entry["name"].split("_")[2], entry["dtype"])]
-    entries += d384_entries + dh16_entries + lstm_entries
+    # the fp16 kernels: the float16 path's build, served requests and fleet
+    for entry, key in zip(f16_entries, ("forward", "dq", "dkv")):
+        entry["launches_by_path"] = {"float16_build": f16["build"][key],
+                                     "float16_fleet": f16["fleet"][key]}
+        if key == "forward":
+            entry["launches_by_path"]["float16_served"] = f16["served"]
+    entries += d384_entries + dh16_entries + lstm_entries + f16_entries
     for entry in entries:
         entry["launches"] = sum(entry["launches_by_path"].values())
         if entry["launches"] < 1:
             raise AssertionError(f"the main paths launched no {entry['name']} kernel")
 
+    PHASE_SECONDS["whole"] = time.perf_counter() - STARTED
+    print(json.dumps({"phase_seconds": PHASE_SECONDS}))
     print(card)
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

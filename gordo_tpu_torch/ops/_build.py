@@ -31,7 +31,7 @@ NVCC_FLAGS = (
 )
 
 # sources compiled in parts: the number of parts (see each source's header)
-PARTS = {"lstm_recurrence": 5}
+PARTS = {"lstm_recurrence": 9, "flash_attention_bf16": 2, "flash_attention_bwd_bf16": 4}
 
 _lock = threading.Lock()
 _libraries: Dict[str, ctypes.CDLL] = {}

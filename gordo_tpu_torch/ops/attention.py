@@ -66,9 +66,11 @@ def dot_product_attention_plain(q, k, v, causal: bool = False) -> torch.Tensor:
 def _flash_ok(q: torch.Tensor, k: torch.Tensor) -> bool:
     """Whether the flash kernels take these shapes: self-attention (equal
     query and key lengths), q and k of one dtype the kernels are built for
-    (float32 or bfloat16), and a head dim they take (16, 32, and every
-    multiple of 8 from 64 to 256: the JAX dispatcher's ``dh % 8 == 0,
-    dh >= 64`` up to 256, and the two small dims the port adds)."""
+    (``flash_attention.DTYPES``: float32, bfloat16 and float16; the JAX
+    dispatcher has no dtype condition), and a head dim they take (16, 32,
+    and every multiple of 8 from 64 to 256: the JAX dispatcher's
+    ``dh % 8 == 0, dh >= 64`` up to 256, and the two small dims the port
+    adds)."""
     return (
         k.shape[-2] == q.shape[-2]
         and q.dtype == k.dtype

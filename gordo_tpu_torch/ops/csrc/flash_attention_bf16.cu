@@ -1,16 +1,21 @@
-// Flash-attention forward for bf16 inputs on NVIDIA Hopper (sm_90a):
-// warp-specialised, TMA-fed, wgmma on the tensor cores in bf16 with float32
-// sums.
+// Flash-attention forward for bf16 and fp16 inputs on NVIDIA Hopper
+// (sm_90a): warp-specialised, TMA-fed, wgmma on the tensor cores in bf16 or
+// fp16 with float32 sums. One template on the element type E, built as two
+// kernels, flash_forward_bf16 and flash_forward_f16.
 //
 // Replaces the TPU kernel `_flash_kernel` of
 // gordo_tpu/ops/pallas_kernels/flash_attention.py (launched by
-// `_flash_forward`) for bf16 q, k and v, as the JAX package sends them under
-// `compute_dtype: bfloat16`: the TPU kernel upcasts them to float32,
-// computes in float32 and writes the output in bf16 and the per-row
-// logsumexp in float32. So does this kernel: S = Q K^T is bf16 x bf16
-// (exact products) with float32 sums, the online softmax runs in float32
-// registers, and O += P V takes P split into three bf16 parts
-// (wgmma_bf16.cuh), which hold all of its float32 bits. The logsumexp is
+// `_flash_forward`) for bf16 or fp16 q, k and v, as the JAX package sends
+// them under `compute_dtype: bfloat16` or `float16`: the TPU kernel upcasts
+// them to float32, computes in float32 and writes the output in the input
+// dtype and the per-row logsumexp in float32. So does this kernel:
+// S = Q K^T is a product of two values of E (exact) with float32 sums, the
+// online softmax runs in float32 registers, and O += P V takes P split into
+// three parts of E (wgmma_bf16.cuh), which hold all of its float32 bits. In
+// fp16, P = exp2(x - m + 7): the running max m stays within 8 (RESCALE) of
+// each row's largest score, so P < 2^15 stays inside fp16's range and its
+// parts above fp16's subnormals down to 2^-31 of the row's largest P; the
+// 2^7 cancels in O / l and is taken off the logsumexp. The logsumexp is
 // stored as (BH, T) float32, without the TPU's 128-lane replication; the
 // backward kernels read it as exp(S - lse).
 //
@@ -55,7 +60,8 @@
 //   gates on the card; a tile at a time in a fresh accumulator was slower,
 //   scripts/torch_bf16_variants.py).
 // The layout (CONSUMERS, BN, STAGES) was timed on the card against its
-// alternatives (PERF.md section 6) at dh 64; any T >= 1 works, causal or
+// alternatives in bf16 (PERF.md section 6) at dh 64, and fp16 runs the same;
+// any T >= 1 works, causal or
 // not; dh is 16, 32 or any multiple of 8 from 64 to 256, each run by the
 // instantiation of its class (wgmma_bf16.cuh: whole 64-column panels, the
 // columns past dh zero-filled by TMA and not stored, the scale the caller's
@@ -65,6 +71,7 @@
 #include <limits.h>
 
 #include <chrono>
+#include <type_traits>
 
 #include "wgmma_bf16.cuh"
 
@@ -77,6 +84,8 @@ constexpr float LN2 = 0.6931471805599453f;
 // the growth of a row's max (log2 units) that rescales O and l (a rescale
 // on every growth was ~3% slower on the card, PERF.md section 6)
 constexpr float RESCALE = 8.f;
+// fp16's P = exp2(x - m + P_SHIFT) <= 2^(RESCALE + P_SHIFT), below fp16's 65504
+constexpr float P_SHIFT = 7.f;
 
 template <int DH>
 struct Fwd {
@@ -104,13 +113,13 @@ struct Fwd {
   static_assert(SMEM_BYTES <= 232448, "above a block's 227 KB of shared memory");
 };
 
-template <int DH, bool PADDED>
-__global__ void __launch_bounds__(Fwd<DH>::THREADS, 1)
-flash_forward_bf16(const __grid_constant__ CUtensorMap q_map,
-                   const __grid_constant__ CUtensorMap k_map,
-                   const __grid_constant__ CUtensorMap v_map, bf16* __restrict__ out,
-                   float* __restrict__ lse, int t, int dh_in, int bh_count, int n_q_tiles,
-                   float scale_log2, int causal) {
+// The kernel's body, for elements of E; the tensor maps are the kernel's
+// __grid_constant__ parameters
+template <typename E, int DH, bool PADDED>
+__device__ __forceinline__ void forward(const CUtensorMap& q_map, const CUtensorMap& k_map,
+                                        const CUtensorMap& v_map, E* __restrict__ out,
+                                        float* __restrict__ lse, int t, int dh_in, int bh_count,
+                                        int n_q_tiles, float scale_log2, int causal) {
   const int dh = head_dim<DH, PADDED>(dh_in);
   using C = Fwd<DH>;
   using L = typename C::T;
@@ -220,8 +229,8 @@ flash_forward_bf16(const __grid_constant__ CUtensorMap q_map,
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < DH / 16; ++kk) {
-        Wgmma<BN>::ss(sc, L::k_major(q_tile, BLOCK_M, 64 * wg, kk),
-                      L::k_major(k_tile, BN, 0, kk), kk > 0);
+        Wgmma<BN, E>::ss(sc, L::k_major(q_tile, BLOCK_M, 64 * wg, kk),
+                         L::k_major(k_tile, BN, 0, kk), kk > 0);
       }
       wgmma_commit();
     };
@@ -241,7 +250,7 @@ flash_forward_bf16(const __grid_constant__ CUtensorMap q_map,
       }
       fence_regs(o);
       wgmma_fence();
-      rs_product<DH, NC>(o, a, v_desc, true);
+      rs_product<DH, NC, E>(o, a, v_desc, true);
       wgmma_commit();
     };
     // after its wait: free the pending tile's P and stage
@@ -284,7 +293,9 @@ flash_forward_bf16(const __grid_constant__ CUtensorMap q_map,
         m0 = mn0;
         m1 = mn1;
       }
-      const float mn0 = m0, mn1 = m1;
+      // the exponent's offset: fp16's P shifted up by 2^P_SHIFT
+      const float mn0 = Elem<E>::SCALED ? m0 - P_SHIFT : m0;
+      const float mn1 = Elem<E>::SCALED ? m1 - P_SHIFT : m1;
       float sum0 = 0.f, sum1 = 0.f;
 #pragma unroll
       for (int i = 0; i < BN / 2; i += 4) {
@@ -316,7 +327,7 @@ flash_forward_bf16(const __grid_constant__ CUtensorMap q_map,
       softmax(kt);
       wgmma_wait<0>();
       retire_pv();
-      split_to_a<NC>(sc, a);
+      split_to_a<E, NC>(sc, a);
       corr0 = c0;
       corr1 = c1;
       pending = s;
@@ -338,7 +349,7 @@ flash_forward_bf16(const __grid_constant__ CUtensorMap q_map,
       fence_regs(sc);
       if (mine == 1) mbar_arrive_warp(&q_empty[b]);
       softmax(0);
-      split_to_a<NC>(sc, a);
+      split_to_a<E, NC>(sc, a);
       corr0 = c0;
       corr1 = c1;
       kt = 1;
@@ -356,77 +367,111 @@ flash_forward_bf16(const __grid_constant__ CUtensorMap q_map,
     const float d1 = fmaxf(quad_sum(l1), 1e-30f);
     const float inv0 = 1.f / d0, inv1 = 1.f / d1;
     const size_t base = static_cast<size_t>(bh) * t;
+    // d0, d1 sum fp16's shifted P: the shift comes off the logsumexp
+    const float lse0 = Elem<E>::SCALED ? (m0 - P_SHIFT) * LN2 : m0 * LN2;
+    const float lse1 = Elem<E>::SCALED ? (m1 - P_SHIFT) * LN2 : m1 * LN2;
     if (row0 < t) {
-      bf16* dst = out + (base + row0) * dh + 2 * tq;
+      E* dst = out + (base + row0) * dh + 2 * tq;
 #pragma unroll
       for (int n = 0; n < DH / 8; ++n) {
         if (8 * n >= dh) break;
-        *reinterpret_cast<__nv_bfloat162*>(dst + 8 * n) =
-            __floats2bfloat162_rn(o[4 * n] * inv0, o[4 * n + 1] * inv0);
+        *reinterpret_cast<uint32_t*>(dst + 8 * n) =
+            Elem<E>::pack(o[4 * n] * inv0, o[4 * n + 1] * inv0);
       }
-      if (tq == 0) lse[base + row0] = m0 * LN2 + logf(d0);
+      if (tq == 0) lse[base + row0] = lse0 + logf(d0);
     }
     if (row1 < t) {
-      bf16* dst = out + (base + row1) * dh + 2 * tq;
+      E* dst = out + (base + row1) * dh + 2 * tq;
 #pragma unroll
       for (int n = 0; n < DH / 8; ++n) {
         if (8 * n >= dh) break;
-        *reinterpret_cast<__nv_bfloat162*>(dst + 8 * n) =
-            __floats2bfloat162_rn(o[4 * n + 2] * inv1, o[4 * n + 3] * inv1);
+        *reinterpret_cast<uint32_t*>(dst + 8 * n) =
+            Elem<E>::pack(o[4 * n + 2] * inv1, o[4 * n + 3] * inv1);
       }
-      if (tq == 0) lse[base + row1] = m1 * LN2 + logf(d1);
+      if (tq == 0) lse[base + row1] = lse1 + logf(d1);
     }
   }
 }
 
+// the kernel of each element type, by its name in reports
+template <int DH, bool PADDED>
+__global__ void __launch_bounds__(Fwd<DH>::THREADS, 1)
+flash_forward_bf16(const __grid_constant__ CUtensorMap q_map,
+                   const __grid_constant__ CUtensorMap k_map,
+                   const __grid_constant__ CUtensorMap v_map, bf16* __restrict__ out,
+                   float* __restrict__ lse, int t, int dh_in, int bh_count, int n_q_tiles,
+                   float scale_log2, int causal) {
+  forward<bf16, DH, PADDED>(q_map, k_map, v_map, out, lse, t, dh_in, bh_count, n_q_tiles,
+                            scale_log2, causal);
+}
+
+template <int DH, bool PADDED>
+__global__ void __launch_bounds__(Fwd<DH>::THREADS, 1)
+flash_forward_f16(const __grid_constant__ CUtensorMap q_map,
+                  const __grid_constant__ CUtensorMap k_map,
+                  const __grid_constant__ CUtensorMap v_map, f16* __restrict__ out,
+                  float* __restrict__ lse, int t, int dh_in, int bh_count, int n_q_tiles,
+                  float scale_log2, int causal) {
+  forward<f16, DH, PADDED>(q_map, k_map, v_map, out, lse, t, dh_in, bh_count, n_q_tiles,
+                           scale_log2, causal);
+}
+
+template <typename E, int DH, bool PADDED>
+constexpr auto forward_kernel() {
+  if constexpr (std::is_same_v<E, bf16>) {
+    return flash_forward_bf16<DH, PADDED>;
+  } else {
+    return flash_forward_f16<DH, PADDED>;
+  }
+}
+
 // the three tensor maps of q, k, v, of head dim dh in the boxes of class DH
-template <int DH>
-cudaError_t encode(CUtensorMap (&maps)[3], const bf16* q, const bf16* k, const bf16* v, int bh,
-                   int t, int dh) {
-  cudaError_t err = encode_rows(&maps[0], q, bh, t, dh, Fwd<DH>::BLOCK_M);
-  if (err == cudaSuccess) err = encode_rows(&maps[1], k, bh, t, dh, Fwd<DH>::BN);
-  if (err == cudaSuccess) err = encode_rows(&maps[2], v, bh, t, dh, Fwd<DH>::BN);
+template <typename E, int DH>
+cudaError_t encode(CUtensorMap (&maps)[3], const E* q, const E* k, const E* v, int bh, int t,
+                   int dh) {
+  cudaError_t err = encode_rows<E>(&maps[0], q, bh, t, dh, Fwd<DH>::BLOCK_M);
+  if (err == cudaSuccess) err = encode_rows<E>(&maps[1], k, bh, t, dh, Fwd<DH>::BN);
+  if (err == cudaSuccess) err = encode_rows<E>(&maps[2], v, bh, t, dh, Fwd<DH>::BN);
   return err;
 }
 
 // one block per SM (or per work tile, if fewer)
-template <int DH, bool PADDED>
-cudaError_t launch_as(const bf16* q, const bf16* k, const bf16* v, bf16* out, float* lse, int bh,
-                      int t, int dh, float scale, int causal, cudaStream_t stream) {
+template <typename E, int DH, bool PADDED>
+cudaError_t launch_as(const E* q, const E* k, const E* v, E* out, float* lse, int bh, int t,
+                      int dh, float scale, int causal, cudaStream_t stream) {
   using C = Fwd<DH>;
   const int n_q_tiles = (t + C::BLOCK_M - 1) / C::BLOCK_M;
   const long long n_work = static_cast<long long>(bh) * n_q_tiles;
   if (n_work > INT_MAX) return cudaErrorInvalidConfiguration;
   CUtensorMap maps[3];
   int sms;
-  cudaError_t err = encode<DH>(maps, q, k, v, bh, t, dh);
-  if (err == cudaSuccess) {
-    err = prepare_kernel<flash_forward_bf16<DH, PADDED>>(C::SMEM_BYTES, C::R::LAUNCH, &sms);
-  }
+  constexpr auto kernel = forward_kernel<E, DH, PADDED>();
+  cudaError_t err = encode<E, DH>(maps, q, k, v, bh, t, dh);
+  if (err == cudaSuccess) err = prepare_kernel<kernel>(C::SMEM_BYTES, C::R::LAUNCH, &sms);
   if (err != cudaSuccess) return err;
   const unsigned grid = static_cast<unsigned>(n_work < sms ? n_work : sms);
-  flash_forward_bf16<DH, PADDED><<<grid, C::THREADS, C::SMEM_BYTES, stream>>>(
+  kernel<<<grid, C::THREADS, C::SMEM_BYTES, stream>>>(
       maps[0], maps[1], maps[2], out, lse, t, dh, bh, n_q_tiles, scale * LOG2E, causal);
   return cudaGetLastError();
 }
 
 // the class's instantiation for dh (with_instantiation)
-template <int DH>
-cudaError_t launch(const bf16* q, const bf16* k, const bf16* v, bf16* out, float* lse, int bh,
-                   int t, int dh, float scale, int causal, cudaStream_t stream) {
+template <typename E, int DH>
+cudaError_t launch(const E* q, const E* k, const E* v, E* out, float* lse, int bh, int t, int dh,
+                   float scale, int causal, cudaStream_t stream) {
   return with_instantiation<DH>(dh, [&](auto padded) {
-    return launch_as<DH, decltype(padded)::value>(q, k, v, out, lse, bh, t, dh, scale, causal,
-                                                  stream);
+    return launch_as<E, DH, decltype(padded)::value>(q, k, v, out, lse, bh, t, dh, scale,
+                                                     causal, stream);
   });
 }
 
 // of the instantiation that runs dh = DH
-template <int DH>
+template <typename E, int DH>
 cudaError_t occupancy(int* smem, int* blocks_per_sm) {
   using C = Fwd<DH>;
   *smem = C::SMEM_BYTES;
   return with_instantiation<DH>(DH, [&](auto padded) {
-    constexpr auto kernel = flash_forward_bf16<DH, decltype(padded)::value>;
+    constexpr auto kernel = forward_kernel<E, DH, decltype(padded)::value>();
     int sms;
     const cudaError_t err = prepare_kernel<kernel>(*smem, C::R::LAUNCH, &sms);
     if (err != cudaSuccess) return err;
@@ -437,49 +482,53 @@ cudaError_t occupancy(int* smem, int* blocks_per_sm) {
 
 }  // namespace
 
-// q, k, v, out: (bh, t, dh) contiguous bf16, 16-byte aligned; lse: (bh, t)
+// The build compiles this file in two parts at once (ops/_build.py PARTS)
+// and links them into one library: GORDO_PART 0 holds the bf16 kernels and
+// their entry points, 1 the fp16 ones. Without GORDO_PART the file is one
+// translation unit of both, as nvcc compiles it alone.
+#ifndef GORDO_PART
+#define GORDO_PART -1
+#endif
+
+namespace {
+
+// q, k, v, out: (bh, t, dh) contiguous, 16-byte aligned; lse: (bh, t)
 // float32; dh 16, 32 or a multiple of 8 from 64 to 256. Launches on
 // `stream` and does not synchronise. Returns the CUDA error code of the
 // launch (0 on success).
-extern "C" int gordo_flash_attention_forward_bf16(
-    const void* q, const void* k, const void* v, void* out, void* lse, int bh,
-    int t, int dh, float scale, int causal, void* stream) {
+template <typename E>
+int forward_entry(const void* q, const void* k, const void* v, void* out, void* lse, int bh,
+                  int t, int dh, float scale, int causal, void* stream) {
   if (bh <= 0 || t <= 0) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(with_head_dim_class(dh, [&](auto c) {
-    return launch<decltype(c)::value>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-        static_cast<bf16*>(out), static_cast<float*>(lse), bh, t, dh, scale, causal,
+    return launch<E, decltype(c)::value>(
+        static_cast<const E*>(q), static_cast<const E*>(k), static_cast<const E*>(v),
+        static_cast<E*>(out), static_cast<float*>(lse), bh, t, dh, scale, causal,
         static_cast<cudaStream_t>(stream));
   }));
 }
 
-// The head-dim class whose instantiations of the three bf16 kernels run
-// dh (head_dim.cuh), or 0 where they take no dh, for reports
-extern "C" int gordo_flash_attention_bf16_head_dim_class(int dh) {
-  return head_dim_class(dh);
-}
-
 // The kernel's dynamic shared memory (bytes) and resident blocks per SM for
 // head dim `dh` (its class's), for reports. Returns the CUDA error code.
-extern "C" int gordo_flash_attention_forward_bf16_occupancy(int dh, int* smem_bytes,
-                                                           int* blocks_per_sm) {
+template <typename E>
+int occupancy_entry(int dh, int* smem_bytes, int* blocks_per_sm) {
   return static_cast<int>(with_head_dim_class(dh, [&](auto c) {
-    return occupancy<decltype(c)::value>(smem_bytes, blocks_per_sm);
+    return occupancy<E, decltype(c)::value>(smem_bytes, blocks_per_sm);
   }));
 }
 
 // The host time of encoding the forward's three tensor maps at (bh, t, dh),
 // the mean over `reps` encodings, in microseconds, for reports; the maps
 // point at `base` and are not used. Returns the CUDA error code.
-extern "C" int gordo_flash_attention_forward_bf16_encode_us(const void* base, int bh, int t,
-                                                           int dh, int reps, float* us) {
+template <typename E>
+int encode_us_entry(const void* base, int bh, int t, int dh, int reps, float* us) {
   if (reps <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const bf16* p = static_cast<const bf16*>(base);
+  const E* p = static_cast<const E*>(base);
   CUtensorMap maps[3];
   const auto start = std::chrono::steady_clock::now();
   for (int i = 0; i < reps; ++i) {
     const cudaError_t err = with_head_dim_class(dh, [&](auto c) {
-      return encode<decltype(c)::value>(maps, p, p, p, bh, t, dh);
+      return encode<E, decltype(c)::value>(maps, p, p, p, bh, t, dh);
     });
     if (err != cudaSuccess) return static_cast<int>(err);
   }
@@ -487,3 +536,37 @@ extern "C" int gordo_flash_attention_forward_bf16_encode_us(const void* base, in
   *us = static_cast<float>(spent.count() / reps);
   return 0;
 }
+
+}  // namespace
+
+// The entry points of each element type (forward_entry, occupancy_entry,
+// encode_us_entry), and the head-dim class whose instantiations of the
+// three kernels of that type run dh (head_dim.cuh), or 0 where they take
+// no dh, for reports
+#define GORDO_FORWARD_ENTRIES(E, TAG)                                                           \
+  extern "C" int gordo_flash_attention_forward_##TAG(const void* q, const void* k,              \
+                                                     const void* v, void* out, void* lse,       \
+                                                     int bh, int t, int dh, float scale,        \
+                                                     int causal, void* stream) {                \
+    return forward_entry<E>(q, k, v, out, lse, bh, t, dh, scale, causal, stream);               \
+  }                                                                                             \
+  extern "C" int gordo_flash_attention_##TAG##_head_dim_class(int dh) {                         \
+    return head_dim_class(dh);                                                                  \
+  }                                                                                             \
+  extern "C" int gordo_flash_attention_forward_##TAG##_occupancy(int dh, int* smem_bytes,       \
+                                                                 int* blocks_per_sm) {          \
+    return occupancy_entry<E>(dh, smem_bytes, blocks_per_sm);                                   \
+  }                                                                                             \
+  extern "C" int gordo_flash_attention_forward_##TAG##_encode_us(const void* base, int bh,      \
+                                                                 int t, int dh, int reps,       \
+                                                                 float* us) {                   \
+    return encode_us_entry<E>(base, bh, t, dh, reps, us);                                       \
+  }
+
+#if GORDO_PART <= 0
+GORDO_FORWARD_ENTRIES(bf16, bf16)
+#endif
+#if GORDO_PART != 0
+GORDO_FORWARD_ENTRIES(f16, f16)
+#endif
+#undef GORDO_FORWARD_ENTRIES

@@ -1,11 +1,13 @@
-// Flash-attention backward for bf16 inputs on NVIDIA Hopper (sm_90a), on
-// the tensor cores in bf16 with float32 sums: two kernels, dQ and dK/dV,
-// launched one after the other on one stream.
+// Flash-attention backward for bf16 and fp16 inputs on NVIDIA Hopper
+// (sm_90a), on the tensor cores in bf16 or fp16 with float32 sums: two
+// kernels, dQ and dK/dV, launched one after the other on one stream, each a
+// template on its element type E built as two kernels (flash_bwd_dq_bf16
+// and flash_bwd_dq_f16; flash_bwd_dkv_bf16 and flash_bwd_dkv_f16).
 //
 // Replaces the two TPU kernels of `_flash_backward` in
-// gordo_tpu/ops/pallas_kernels/flash_attention.py for bf16 q, k, v, o and
-// dO (as the JAX package sends them under `compute_dtype: bfloat16`); lse
-// is float32, from the forward:
+// gordo_tpu/ops/pallas_kernels/flash_attention.py for bf16 or fp16 q, k, v,
+// o and dO (as the JAX package sends them under `compute_dtype: bfloat16`
+// or `float16`); lse is float32, from the forward:
 // - flash_bwd_dq_bf16 replaces `_flash_dq_kernel`: for each 64-row query
 //   slice, loop over key tiles up to the diagonal, recompute
 //   P = exp(S - lse), D = rowsum(dO * O), dS = P * (dP - D) with
@@ -14,11 +16,17 @@
 //   tile, loop over query tiles from the diagonal on, and accumulate
 //   dV += P^T dO and dK += dS^T Q * scale.
 // As the TPU kernels do, they compute in float32 and write dq, dk and dv in
-// bf16; D is taken from the stored bf16 O. Products of two bf16 operands
-// (S, dP and their transposes) are exact products with float32 sums; P and
-// dS, float32, are split into three bf16 operands that hold all their bits
-// (wgmma_bf16.cuh). Each output element is written by exactly one thread,
-// with no atomics, so two runs give bit-identical results.
+// the input dtype; D is taken from the stored O. Products of two operands of
+// E (S, dP and their transposes) are exact products with float32 sums; P
+// and dS, float32, are split into three operands of E that hold all their
+// bits (wgmma_bf16.cuh). In fp16 each row of P, dS, P^T and dS^T is split
+// times a power of two (f16_scale_exp) that its accumulator's row is scaled
+// back by: a running scale per row where the product sums over the whole
+// loop in its accumulator (dQ, dV, and dK above 64 columns a block,
+// RowScale), the tile's own where dK takes each tile in a fresh accumulator.
+// dS scales with dO, so without it a small dO would leave dS in fp16's
+// subnormals. Each output element is written by exactly one thread, with no
+// atomics, so two runs give bit-identical results.
 //
 // What bounds them on this card: at the training shape (BH 128, T 512,
 // dh 64, causal) dQ moves q/k/v/o/dO/dQ at 2 bytes and lse at 4 (50.6 MB,
@@ -71,9 +79,9 @@
 // - one block per 128-row key tile; K and V are loaded once, and Q, dO and
 //   O tiles of 64 query rows (32 from dh 128 on) come through a ring of two
 //   stages, from the diagonal on;
-// - D = rowsum(dO O): from dh 128 on (32-query tiles) the diagonal of
-//   O dO^T on the tensor cores, summed as dP^T is, as dQ takes it; below,
-//   float32 fmas over the shared tiles;
+// - D = rowsum(dO O): from dh 128 on (32-query tiles), and in fp16 at
+//   every dh, the diagonal of O dO^T on the tensor cores, summed as dP^T
+//   is, as dQ takes it; below, float32 fmas over the shared tiles;
 // - above dh 128 the dK and dV accumulators of all columns would not fit
 //   the registers: a key tile is split over blocks of 64 columns each (128
 //   at dh 256; DC), each of which computes the whole S^T and dP^T;
@@ -100,6 +108,7 @@
 #include <limits.h>
 
 #include <chrono>
+#include <type_traits>
 
 #include "wgmma_bf16.cuh"
 
@@ -154,15 +163,14 @@ struct Dq {
 // dP = dO V^T (SS), P = exp(S scale - lse) and dS = P (dP - D) in
 // registers, and dQ += dS K (RS, three parts, K MN-major). dQ of a query
 // is written by exactly one thread, with no atomics.
-template <int DH, bool PADDED>
-__global__ void __launch_bounds__(THREADS, 1)
-flash_bwd_dq_bf16(const __grid_constant__ CUtensorMap q_map,
-                  const __grid_constant__ CUtensorMap k_map,
-                  const __grid_constant__ CUtensorMap v_map,
-                  const __grid_constant__ CUtensorMap o_map,
-                  const __grid_constant__ CUtensorMap do_map, const float* __restrict__ lse,
-                  bf16* __restrict__ dq, int t, int dh_in, int bh_count, int n_q_tiles,
-                  float scale, int causal) {
+// The kernel's body, for elements of E; the tensor maps are the kernel's
+// __grid_constant__ parameters
+template <typename E, int DH, bool PADDED>
+__device__ __forceinline__ void dq_body(const CUtensorMap& q_map, const CUtensorMap& k_map,
+                                        const CUtensorMap& v_map, const CUtensorMap& o_map,
+                                        const CUtensorMap& do_map, const float* __restrict__ lse,
+                                        E* __restrict__ dq, int t, int dh_in, int bh_count,
+                                        int n_q_tiles, float scale, int causal) {
   const int dh = head_dim<DH, PADDED>(dh_in);
   using C = Dq<DH>;
   using L = typename C::T;
@@ -277,6 +285,8 @@ flash_bwd_dq_bf16(const __grid_constant__ CUtensorMap q_map,
     float dp[BN / 2];       // dP, then dS
     uint32_t a[NC][3][4];   // dS of the pending tile, split
     int pending = 0;        // the stage of the pending tile
+    RowScale rs;            // fp16: the running scale of dQ's rows, and of dS's
+    float c0 = 1.f, c1 = 1.f;  // fp16: the fall of the rows' scale at this tile
     float lse0 = 0.f, lse1 = 0.f;  // lse * log2(e) of rows row0, row1
     float d0 = 0.f, d1 = 0.f;      // their D
     mbar_wait(&q_full[b], (j / Q_BUFS) & 1);
@@ -296,14 +306,14 @@ flash_bwd_dq_bf16(const __grid_constant__ CUtensorMap q_map,
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < DH / 16; ++kk) {
-          Wgmma<BN>::ss(dp, L::k_major(do_tile, BLOCK_M, 64 * wg, kk),
-                        L::k_major(o_tile, BN, 0, kk), kk > 0);
+          Wgmma<BN, E>::ss(dp, L::k_major(do_tile, BLOCK_M, 64 * wg, kk),
+                           L::k_major(o_tile, BN, 0, kk), kk > 0);
         }
         if constexpr (BN == 32) {
 #pragma unroll
           for (int kk = 0; kk < DH / 16; ++kk) {
-            Wgmma<BN>::ss(sc, L::k_major(do_tile, BLOCK_M, 64 * wg, kk),
-                          L::k_major(v_slot + s * C::KV_BYTES, BN, 0, kk), kk > 0);
+            Wgmma<BN, E>::ss(sc, L::k_major(do_tile, BLOCK_M, 64 * wg, kk),
+                             L::k_major(v_slot + s * C::KV_BYTES, BN, 0, kk), kk > 0);
           }
         }
         wgmma_commit();
@@ -340,13 +350,13 @@ flash_bwd_dq_bf16(const __grid_constant__ CUtensorMap q_map,
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < DH / 16; ++kk) {
-        Wgmma<BN>::ss(sc, L::k_major(q_tile, BLOCK_M, 64 * wg, kk),
-                      L::k_major(k_tile, BN, 0, kk), kk > 0);
+        Wgmma<BN, E>::ss(sc, L::k_major(q_tile, BLOCK_M, 64 * wg, kk),
+                         L::k_major(k_tile, BN, 0, kk), kk > 0);
       }
 #pragma unroll
       for (int kk = 0; kk < DH / 16; ++kk) {
-        Wgmma<BN>::ss(dp, L::k_major(do_tile, BLOCK_M, 64 * wg, kk),
-                      L::k_major(v_tile, BN, 0, kk), kk > 0);
+        Wgmma<BN, E>::ss(dp, L::k_major(do_tile, BLOCK_M, 64 * wg, kk),
+                         L::k_major(v_tile, BN, 0, kk), kk > 0);
       }
       wgmma_commit();
     };
@@ -357,7 +367,7 @@ flash_bwd_dq_bf16(const __grid_constant__ CUtensorMap q_map,
       const auto k_desc = [&](int c) { return L::mn_major(k_tile, BN, c); };
       fence_regs(acc);
       wgmma_fence();
-      rs_product<DH, NC>(acc, a, k_desc, true);
+      rs_product<DH, NC, E>(acc, a, k_desc, true);
       wgmma_commit();
     };
     // after its wait: free the pending tile's dS and stage
@@ -381,10 +391,22 @@ flash_bwd_dq_bf16(const __grid_constant__ CUtensorMap q_map,
         sc[i] = p;
       }
     };
-    // dS = P (dP - D), in dp
+    // dS = P (dP - D), in dp; in fp16 with its rows' scale (c0, c1: its fall)
     const auto score_grads = [&]() {
 #pragma unroll
       for (int i = 0; i < BN / 2; ++i) dp[i] = sc[i] * (dp[i] - ((i & 2) ? d1 : d0));
+      if constexpr (Elem<E>::SCALED) rs.update(dp, c0, c1);
+    };
+    // dS of the tile split into a, once dQ's accumulator holds every
+    // earlier tile's product: in fp16 the accumulator's rows first brought
+    // to the tile's scale
+    const auto split_ds = [&]() {
+      if constexpr (Elem<E>::SCALED) {
+        scale_rows(acc, c0, c1);
+        split_to_a_scaled<NC>(dp, rs.s0(), rs.s1(), a);
+      } else {
+        split_to_a<E, NC>(dp, a);
+      }
     };
     // one key tile kt (>= 1): S and dP of kt and dS K of the pending tile
     // on the tensor cores, kt's dS meanwhile, then its split
@@ -402,7 +424,7 @@ flash_bwd_dq_bf16(const __grid_constant__ CUtensorMap q_map,
       score_grads();
       wgmma_wait<0>();
       retire_dq();
-      split_to_a<NC>(dp, a);
+      split_ds();
       pending = s;
       ++kt;
       ring.advance();
@@ -421,7 +443,7 @@ flash_bwd_dq_bf16(const __grid_constant__ CUtensorMap q_map,
       if (mine == 1) mbar_arrive_warp(&q_empty[b]);
       probabilities(0);
       score_grads();
-      split_to_a<NC>(dp, a);
+      split_ds();
       kt = 1;
       ring.advance();
       while (kt < mine) step();
@@ -439,75 +461,112 @@ flash_bwd_dq_bf16(const __grid_constant__ CUtensorMap q_map,
     for (int half = 0; half < 2; ++half) {
       const int row = half ? row1 : row0;
       if (row >= t) continue;
-      bf16* dst = dq + (base + row) * dh + 2 * tq;
+      E* dst = dq + (base + row) * dh + 2 * tq;
+      // the scale, and in fp16 the row's split scale taken off (both exact
+      // powers of two but the first)
+      const float f = Elem<E>::SCALED ? scale * (half ? rs.inv1() : rs.inv0()) : scale;
 #pragma unroll
       for (int n = 0; n < DH / 8; ++n) {
         if (8 * n >= dh) break;
         const int i = 4 * n + 2 * half;
-        *reinterpret_cast<__nv_bfloat162*>(dst + 8 * n) =
-            __floats2bfloat162_rn(acc[i] * scale, acc[i + 1] * scale);
+        *reinterpret_cast<uint32_t*>(dst + 8 * n) = Elem<E>::pack(acc[i] * f, acc[i + 1] * f);
       }
     }
   }
 }
 
+// the kernel of each element type, by its name in reports
+template <int DH, bool PADDED>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_bwd_dq_bf16(const __grid_constant__ CUtensorMap q_map,
+                  const __grid_constant__ CUtensorMap k_map,
+                  const __grid_constant__ CUtensorMap v_map,
+                  const __grid_constant__ CUtensorMap o_map,
+                  const __grid_constant__ CUtensorMap do_map, const float* __restrict__ lse,
+                  bf16* __restrict__ dq, int t, int dh_in, int bh_count, int n_q_tiles,
+                  float scale, int causal) {
+  dq_body<bf16, DH, PADDED>(q_map, k_map, v_map, o_map, do_map, lse, dq, t, dh_in, bh_count,
+                            n_q_tiles, scale, causal);
+}
+
+template <int DH, bool PADDED>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_bwd_dq_f16(const __grid_constant__ CUtensorMap q_map,
+                 const __grid_constant__ CUtensorMap k_map,
+                 const __grid_constant__ CUtensorMap v_map,
+                 const __grid_constant__ CUtensorMap o_map,
+                 const __grid_constant__ CUtensorMap do_map, const float* __restrict__ lse,
+                 f16* __restrict__ dq, int t, int dh_in, int bh_count, int n_q_tiles,
+                 float scale, int causal) {
+  dq_body<f16, DH, PADDED>(q_map, k_map, v_map, o_map, do_map, lse, dq, t, dh_in, bh_count,
+                           n_q_tiles, scale, causal);
+}
+
+template <typename E, int DH, bool PADDED>
+constexpr auto kernel() {
+  if constexpr (std::is_same_v<E, bf16>) {
+    return flash_bwd_dq_bf16<DH, PADDED>;
+  } else {
+    return flash_bwd_dq_f16<DH, PADDED>;
+  }
+}
+
 // the five tensor maps of q, k, v, o, dO (o in K/V tile boxes), of head dim
 // dh in the boxes of class DH
-template <int DH>
-cudaError_t encode(CUtensorMap (&maps)[5], const bf16* q, const bf16* k, const bf16* v,
-                   const bf16* o, const bf16* dout, int bh, int t, int dh) {
+template <typename E, int DH>
+cudaError_t encode(CUtensorMap (&maps)[5], const E* q, const E* k, const E* v, const E* o,
+                   const E* dout, int bh, int t, int dh) {
   constexpr int BN = Dq<DH>::BN;
-  cudaError_t err = encode_rows(&maps[0], q, bh, t, dh, BLOCK_M);
-  if (err == cudaSuccess) err = encode_rows(&maps[1], k, bh, t, dh, BN);
-  if (err == cudaSuccess) err = encode_rows(&maps[2], v, bh, t, dh, BN);
-  if (err == cudaSuccess) err = encode_rows(&maps[3], o, bh, t, dh, BN);
-  if (err == cudaSuccess) err = encode_rows(&maps[4], dout, bh, t, dh, BLOCK_M);
+  cudaError_t err = encode_rows<E>(&maps[0], q, bh, t, dh, BLOCK_M);
+  if (err == cudaSuccess) err = encode_rows<E>(&maps[1], k, bh, t, dh, BN);
+  if (err == cudaSuccess) err = encode_rows<E>(&maps[2], v, bh, t, dh, BN);
+  if (err == cudaSuccess) err = encode_rows<E>(&maps[3], o, bh, t, dh, BN);
+  if (err == cudaSuccess) err = encode_rows<E>(&maps[4], dout, bh, t, dh, BLOCK_M);
   return err;
 }
 
 // one block per SM (or per work tile, if fewer)
-template <int DH, bool PADDED>
-cudaError_t launch_as(const bf16* q, const bf16* k, const bf16* v, const bf16* o,
-                      const float* lse, const bf16* dout, bf16* dq, int bh, int t, int dh,
-                      float scale, int causal, cudaStream_t stream) {
+template <typename E, int DH, bool PADDED>
+cudaError_t launch_as(const E* q, const E* k, const E* v, const E* o, const float* lse,
+                      const E* dout, E* dq, int bh, int t, int dh, float scale, int causal,
+                      cudaStream_t stream) {
   const int n_q_tiles = (t + BLOCK_M - 1) / BLOCK_M;
   const long long n_work = static_cast<long long>(bh) * n_q_tiles;
   if (n_work > INT_MAX) return cudaErrorInvalidConfiguration;
   constexpr int smem = Dq<DH>::SMEM_BYTES;
   CUtensorMap maps[5];
   int sms;
-  cudaError_t err = encode<DH>(maps, q, k, v, o, dout, bh, t, dh);
-  if (err == cudaSuccess) {
-    err = prepare_kernel<flash_bwd_dq_bf16<DH, PADDED>>(smem, R::LAUNCH, &sms);
-  }
+  constexpr auto fn = kernel<E, DH, PADDED>();
+  cudaError_t err = encode<E, DH>(maps, q, k, v, o, dout, bh, t, dh);
+  if (err == cudaSuccess) err = prepare_kernel<fn>(smem, R::LAUNCH, &sms);
   if (err != cudaSuccess) return err;
   const unsigned grid = static_cast<unsigned>(n_work < sms ? n_work : sms);
-  flash_bwd_dq_bf16<DH, PADDED><<<grid, THREADS, smem, stream>>>(
+  fn<<<grid, THREADS, smem, stream>>>(
       maps[0], maps[1], maps[2], maps[3], maps[4], lse, dq, t, dh, bh, n_q_tiles, scale, causal);
   return cudaGetLastError();
 }
 
 // the class's instantiation for dh (with_instantiation)
-template <int DH>
-cudaError_t launch(const bf16* q, const bf16* k, const bf16* v, const bf16* o,
-                   const float* lse, const bf16* dout, bf16* dq, int bh, int t, int dh,
-                   float scale, int causal, cudaStream_t stream) {
+template <typename E, int DH>
+cudaError_t launch(const E* q, const E* k, const E* v, const E* o, const float* lse,
+                   const E* dout, E* dq, int bh, int t, int dh, float scale, int causal,
+                   cudaStream_t stream) {
   return with_instantiation<DH>(dh, [&](auto padded) {
-    return launch_as<DH, decltype(padded)::value>(q, k, v, o, lse, dout, dq, bh, t, dh, scale,
-                                                  causal, stream);
+    return launch_as<E, DH, decltype(padded)::value>(q, k, v, o, lse, dout, dq, bh, t, dh,
+                                                     scale, causal, stream);
   });
 }
 
 // of the instantiation that runs dh = DH
-template <int DH>
+template <typename E, int DH>
 cudaError_t occupancy(int* smem, int* blocks_per_sm) {
   *smem = Dq<DH>::SMEM_BYTES;
   return with_instantiation<DH>(DH, [&](auto padded) {
-    constexpr auto kernel = flash_bwd_dq_bf16<DH, decltype(padded)::value>;
+    constexpr auto fn = kernel<E, DH, decltype(padded)::value>();
     int sms;
-    const cudaError_t err = prepare_kernel<kernel>(*smem, R::LAUNCH, &sms);
+    const cudaError_t err = prepare_kernel<fn>(*smem, R::LAUNCH, &sms);
     if (err != cudaSuccess) return err;
-    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, kernel, THREADS, *smem);
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, fn, THREADS, *smem);
   });
 }
 
@@ -558,16 +617,16 @@ struct Dkv {
 // dS^T = P^T (dP^T - D) in registers, and dV += P^T dO, dK += dS^T Q (RS,
 // three parts each, dO and Q MN-major). dK and dV of a key are written by
 // exactly one thread, with no atomics.
-template <int DH, bool PADDED>
-__global__ void __launch_bounds__(THREADS, 1)
-flash_bwd_dkv_bf16(const __grid_constant__ CUtensorMap q_map,
-                   const __grid_constant__ CUtensorMap k_map,
-                   const __grid_constant__ CUtensorMap v_map,
-                   const __grid_constant__ CUtensorMap o_map,
-                   const __grid_constant__ CUtensorMap do_map, const float* __restrict__ lse,
-                   bf16* __restrict__ dk, bf16* __restrict__ dv, int t, int dh_in,
-                   int bh_count,
-                   float scale, int causal) {
+// (fp16: P^T and dS^T split with their rows' scales, RowScale for the
+// accumulators that sum over the loop.) The kernel's body, for elements of
+// E; the tensor maps are the kernel's __grid_constant__ parameters
+template <typename E, int DH, bool PADDED>
+__device__ __forceinline__ void dkv_body(const CUtensorMap& q_map, const CUtensorMap& k_map,
+                                         const CUtensorMap& v_map, const CUtensorMap& o_map,
+                                         const CUtensorMap& do_map,
+                                         const float* __restrict__ lse, E* __restrict__ dk,
+                                         E* __restrict__ dv, int t, int dh_in, int bh_count,
+                                         float scale, int causal) {
   const int dh = head_dim<DH, PADDED>(dh_in);
   using C = Dkv<DH>;
   using L = typename C::T;
@@ -653,6 +712,9 @@ flash_bwd_dkv_bf16(const __grid_constant__ CUtensorMap q_map,
   float dka[DC / 2], dva[DC / 2];  // dK and dV of the block's columns
 #pragma unroll
   for (int i = 0; i < DC / 2; ++i) dka[i] = dva[i] = 0.f;
+  // fp16: the running scales of dV's rows and, where it sums in its own
+  // accumulator (DC > 64), dK's
+  RowScale dv_scale, dk_scale;
   mbar_wait(kv_full, 0);
 
   Ring<STAGES> ring;
@@ -672,26 +734,30 @@ flash_bwd_dkv_bf16(const __grid_constant__ CUtensorMap q_map,
       fence_regs(dp);
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < S_STEPS; ++kk) Wgmma<BQ>::ss(sa, ka(kk), qb(kk), kk > 0);
+      for (int kk = 0; kk < S_STEPS; ++kk) Wgmma<BQ, E>::ss(sa, ka(kk), qb(kk), kk > 0);
 #pragma unroll
-      for (int kk = 0; kk < DH / 16; ++kk) Wgmma<BQ>::ss(dp, va(kk), gb(kk), kk > 0);
+      for (int kk = 0; kk < DH / 16; ++kk) Wgmma<BQ, E>::ss(dp, va(kk), gb(kk), kk > 0);
       wgmma_commit();
       float* d_tile = d_s + (done & 1) * 2 * BQ;  // D, then lse * log2(e)
-      if constexpr (BQ == 32) {
+      if constexpr (BQ == 32 || Elem<E>::SCALED) {
         // D = rowsum(dO O) as the diagonal of O dO^T, summed on the tensor
         // cores as dP^T is, so that dP^T - D is exactly 0 where it is in
         // float64 (a query that sees one key, whose O is that key's V):
         // from dh 128 on, float32 fmas left such dK elements above the
-        // gate's 1e-6. The A operand's 64 rows start 32 rows before the O
-        // tile (the dO tile's last rows), so that its rows 32..63 are the
-        // tile's: D of query j is element (32 + j, j), held by warps 2, 3.
+        // gate's 1e-6, and in fp16 at every dh they left dK elements of a
+        // key that all queries see (its dS^T summed over 512 queries) above
+        // fp16's tighter gate. The A operand's 64 rows start 64 - BQ rows
+        // before the O tile (at 32-query tiles the dO tile's last rows), so
+        // that its rows 64 - BQ .. 63 are the tile's: D of query j is
+        // element (64 - BQ + j, j), held by warps W0 .. 3.
+        constexpr int W0 = (64 - BQ) / 16;
         const uint32_t o_rows = q_tile + 2 * C::Q_BYTES - (64 - BQ) * L::RB;
         float dd[BQ / 2];
         fence_regs(dd);
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < DH / 16; ++kk) {
-          Wgmma<BQ>::ss(dd, L::k_major(o_rows, BQ, 0, kk), gb(kk), kk > 0);
+          Wgmma<BQ, E>::ss(dd, L::k_major(o_rows, BQ, 0, kk), gb(kk), kk > 0);
         }
         wgmma_commit();
         if (tid < BQ) d_tile[BQ + tid] = q0 + tid < t ? lse_h[q0 + tid] * LOG2E : 0.f;
@@ -699,16 +765,16 @@ flash_bwd_dkv_bf16(const __grid_constant__ CUtensorMap q_map,
         fence_regs(dd);
         float diag0 = 0.f, diag1 = 0.f;
 #pragma unroll
-        for (int w4 = 2; w4 < 4; ++w4) {
+        for (int w4 = W0; w4 < 4; ++w4) {
           if (w4 == warp) {
-            const int c = 8 * (w4 - 2);
+            const int c = 8 * (w4 - W0);
             diag0 = (g & 1) ? dd[c + 1] : dd[c];
             diag1 = (g & 1) ? dd[c + 7] : dd[c + 6];
           }
         }
-        if (warp >= 2 && tq == g / 2) {
-          d_tile[16 * (warp - 2) + g] = diag0;
-          d_tile[16 * (warp - 2) + g + 8] = diag1;
+        if (warp >= W0 && tq == g / 2) {
+          d_tile[16 * (warp - W0) + g] = diag0;
+          d_tile[16 * (warp - W0) + g + 8] = diag1;
         }
       } else {
         // while they run: D of the tile's queries from the shared O and dO
@@ -719,8 +785,8 @@ flash_bwd_dkv_bf16(const __grid_constant__ CUtensorMap q_map,
 #pragma unroll
         for (int ch = tid % TPR; ch < DH / 8; ch += TPR) {
           const uint32_t at = L::offset(BQ, r, 8 * ch);
-          d = dot8(*reinterpret_cast<const uint4*>(stage + 2 * C::Q_BYTES + at),
-                   *reinterpret_cast<const uint4*>(stage + C::Q_BYTES + at), d);
+          d = dot8<E>(*reinterpret_cast<const uint4*>(stage + 2 * C::Q_BYTES + at),
+                      *reinterpret_cast<const uint4*>(stage + C::Q_BYTES + at), d);
         }
 #pragma unroll
         for (int step = 1; step < TPR; step *= 2) d += __shfl_xor_sync(0xffffffffu, d, step);
@@ -740,7 +806,7 @@ flash_bwd_dkv_bf16(const __grid_constant__ CUtensorMap q_map,
           wgmma_fence();
 #pragma unroll
           for (int kk = kk0; kk < kk0 + S_STEPS; ++kk) {
-            Wgmma<BQ>::ss(sb, ka(kk), qb(kk), kk > kk0);
+            Wgmma<BQ, E>::ss(sb, ka(kk), qb(kk), kk > kk0);
           }
           wgmma_commit();
           wgmma_wait<0>();
@@ -767,12 +833,20 @@ flash_bwd_dkv_bf16(const __grid_constant__ CUtensorMap q_map,
       const uint32_t panel = slice * (DC / L::COLS) * BQ * L::RB;
       const auto gmn = [&](int c) { return L::mn_major(do_tile + panel, BQ, c); };
       const auto qmn = [&](int c) { return L::mn_major(q_tile + panel, BQ, c); };
-      // dV += P^T dO, in dV's own accumulator
+      // dV += P^T dO, in dV's own accumulator (fp16: its rows first brought
+      // to the tile's scale)
       uint32_t pa[NC][3][4];
-      split_to_a<NC>(sa, pa);
+      if constexpr (Elem<E>::SCALED) {
+        float c0, c1;
+        dv_scale.update(sa, c0, c1);
+        scale_rows(dva, c0, c1);
+        split_to_a_scaled<NC>(sa, dv_scale.s0(), dv_scale.s1(), pa);
+      } else {
+        split_to_a<E, NC>(sa, pa);
+      }
       fence_regs(dva);
       wgmma_fence();
-      rs_product<DC, NC>(dva, pa, gmn, true);
+      rs_product<DC, NC, E>(dva, pa, gmn, true);
       wgmma_commit();
       // dK += dS^T Q (times scale below), once dV's product has read P^T's
       // parts (the consumers' registers hold one split operand at a time):
@@ -782,19 +856,45 @@ flash_bwd_dkv_bf16(const __grid_constant__ CUtensorMap q_map,
       fence_regs(dva);
       fence_split(pa);
       uint32_t da[NC][3][4];
-      split_to_a<NC>(dp, da);
       if constexpr (DC > 64) {
+        if constexpr (Elem<E>::SCALED) {
+          float c0, c1;
+          dk_scale.update(dp, c0, c1);
+          scale_rows(dka, c0, c1);
+          split_to_a_scaled<NC>(dp, dk_scale.s0(), dk_scale.s1(), da);
+        } else {
+          split_to_a<E, NC>(dp, da);
+        }
         fence_regs(dka);
         wgmma_fence();
-        rs_product<DC, NC>(dka, da, qmn, true);
+        rs_product<DC, NC, E>(dka, da, qmn, true);
         wgmma_commit();
         wgmma_wait<0>();
         fence_regs(dka);
       } else {
+        // fp16: the tile's own scale, taken off as the fresh sum is added
+        int e0 = 127, e1 = 127;
+        if constexpr (Elem<E>::SCALED) {
+          row_scale_exps(dp, e0, e1);
+          split_to_a_scaled<NC>(dp, pow2_biased(e0), pow2_biased(e1), da);
+        } else {
+          split_to_a<E, NC>(dp, da);
+        }
         float f[DC / 2];
-        rs_fresh<DC, NC>(f, da, qmn);
+        rs_fresh<DC, NC, E>(f, da, qmn);
+        if constexpr (Elem<E>::SCALED) {
+          const float inv0 = pow2_biased(254 - e0), inv1 = pow2_biased(254 - e1);
 #pragma unroll
-        for (int i = 0; i < DC / 2; ++i) dka[i] += f[i];
+          for (int i = 0; i < DC / 2; i += 4) {
+            dka[i] += f[i] * inv0;
+            dka[i + 1] += f[i + 1] * inv0;
+            dka[i + 2] += f[i + 2] * inv1;
+            dka[i + 3] += f[i + 3] * inv1;
+          }
+        } else {
+#pragma unroll
+          for (int i = 0; i < DC / 2; ++i) dka[i] += f[i];
+        }
       }
       fence_split(da);
       ++done;
@@ -807,142 +907,189 @@ flash_bwd_dkv_bf16(const __grid_constant__ CUtensorMap q_map,
     const int key = key0 + 8 * half;
     if (key >= t) continue;
     const size_t row = (static_cast<size_t>(bh) * t + key) * dh + slice * DC + 2 * tq;
+    // fp16: the rows' running split scales taken off (exact powers of two)
+    float fk = scale, fv = 1.f;
+    if constexpr (Elem<E>::SCALED) {
+      fv = half ? dv_scale.inv1() : dv_scale.inv0();
+      if constexpr (DC > 64) fk = scale * (half ? dk_scale.inv1() : dk_scale.inv0());
+    }
 #pragma unroll
     for (int n = 0; n < DC / 8; ++n) {
       if (slice * DC + 8 * n >= dh) break;
       const int i = 4 * n + 2 * half;
-      *reinterpret_cast<__nv_bfloat162*>(dk + row + 8 * n) =
-          __floats2bfloat162_rn(dka[i] * scale, dka[i + 1] * scale);
-      *reinterpret_cast<__nv_bfloat162*>(dv + row + 8 * n) =
-          __floats2bfloat162_rn(dva[i], dva[i + 1]);
+      *reinterpret_cast<uint32_t*>(dk + row + 8 * n) = Elem<E>::pack(dka[i] * fk, dka[i + 1] * fk);
+      *reinterpret_cast<uint32_t*>(dv + row + 8 * n) =
+          Elem<E>::SCALED ? Elem<E>::pack(dva[i] * fv, dva[i + 1] * fv)
+                          : Elem<E>::pack(dva[i], dva[i + 1]);
     }
+  }
+}
+
+// the kernel of each element type, by its name in reports
+template <int DH, bool PADDED>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_bwd_dkv_bf16(const __grid_constant__ CUtensorMap q_map,
+                   const __grid_constant__ CUtensorMap k_map,
+                   const __grid_constant__ CUtensorMap v_map,
+                   const __grid_constant__ CUtensorMap o_map,
+                   const __grid_constant__ CUtensorMap do_map, const float* __restrict__ lse,
+                   bf16* __restrict__ dk, bf16* __restrict__ dv, int t, int dh_in,
+                   int bh_count, float scale, int causal) {
+  dkv_body<bf16, DH, PADDED>(q_map, k_map, v_map, o_map, do_map, lse, dk, dv, t, dh_in,
+                             bh_count, scale, causal);
+}
+
+template <int DH, bool PADDED>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_bwd_dkv_f16(const __grid_constant__ CUtensorMap q_map,
+                  const __grid_constant__ CUtensorMap k_map,
+                  const __grid_constant__ CUtensorMap v_map,
+                  const __grid_constant__ CUtensorMap o_map,
+                  const __grid_constant__ CUtensorMap do_map, const float* __restrict__ lse,
+                  f16* __restrict__ dk, f16* __restrict__ dv, int t, int dh_in,
+                  int bh_count, float scale, int causal) {
+  dkv_body<f16, DH, PADDED>(q_map, k_map, v_map, o_map, do_map, lse, dk, dv, t, dh_in,
+                            bh_count, scale, causal);
+}
+
+template <typename E, int DH, bool PADDED>
+constexpr auto kernel() {
+  if constexpr (std::is_same_v<E, bf16>) {
+    return flash_bwd_dkv_bf16<DH, PADDED>;
+  } else {
+    return flash_bwd_dkv_f16<DH, PADDED>;
   }
 }
 
 // the five tensor maps of q, k, v, o, dO, of head dim dh in the boxes of
 // class DH
-template <int DH>
-cudaError_t encode(CUtensorMap (&maps)[5], const bf16* q, const bf16* k, const bf16* v,
-                   const bf16* o, const bf16* dout, int bh, int t, int dh) {
+template <typename E, int DH>
+cudaError_t encode(CUtensorMap (&maps)[5], const E* q, const E* k, const E* v, const E* o,
+                   const E* dout, int bh, int t, int dh) {
   constexpr int BQ = Dkv<DH>::BQ;
-  cudaError_t err = encode_rows(&maps[0], q, bh, t, dh, BQ);
-  if (err == cudaSuccess) err = encode_rows(&maps[1], k, bh, t, dh, BLOCK_N);
-  if (err == cudaSuccess) err = encode_rows(&maps[2], v, bh, t, dh, BLOCK_N);
-  if (err == cudaSuccess) err = encode_rows(&maps[3], o, bh, t, dh, BQ);
-  if (err == cudaSuccess) err = encode_rows(&maps[4], dout, bh, t, dh, BQ);
+  cudaError_t err = encode_rows<E>(&maps[0], q, bh, t, dh, BQ);
+  if (err == cudaSuccess) err = encode_rows<E>(&maps[1], k, bh, t, dh, BLOCK_N);
+  if (err == cudaSuccess) err = encode_rows<E>(&maps[2], v, bh, t, dh, BLOCK_N);
+  if (err == cudaSuccess) err = encode_rows<E>(&maps[3], o, bh, t, dh, BQ);
+  if (err == cudaSuccess) err = encode_rows<E>(&maps[4], dout, bh, t, dh, BQ);
   return err;
 }
 
-template <int DH, bool PADDED>
-cudaError_t launch_as(const bf16* q, const bf16* k, const bf16* v, const bf16* o,
-                      const float* lse, const bf16* dout, bf16* dk, bf16* dv, int bh, int t,
-                      int dh, float scale, int causal, cudaStream_t stream) {
+template <typename E, int DH, bool PADDED>
+cudaError_t launch_as(const E* q, const E* k, const E* v, const E* o, const float* lse,
+                      const E* dout, E* dk, E* dv, int bh, int t, int dh, float scale,
+                      int causal, cudaStream_t stream) {
   const long long n_blocks =
       static_cast<long long>(bh) * ((t + BLOCK_N - 1) / BLOCK_N) * Dkv<DH>::SLICES;
   if (n_blocks > INT_MAX) return cudaErrorInvalidConfiguration;
   constexpr int smem = Dkv<DH>::SMEM_BYTES;
   CUtensorMap maps[5];
   int sms;
-  cudaError_t err = encode<DH>(maps, q, k, v, o, dout, bh, t, dh);
-  if (err == cudaSuccess) {
-    err = prepare_kernel<flash_bwd_dkv_bf16<DH, PADDED>>(smem, R::LAUNCH, &sms);
-  }
+  constexpr auto fn = kernel<E, DH, PADDED>();
+  cudaError_t err = encode<E, DH>(maps, q, k, v, o, dout, bh, t, dh);
+  if (err == cudaSuccess) err = prepare_kernel<fn>(smem, R::LAUNCH, &sms);
   if (err != cudaSuccess) return err;
-  flash_bwd_dkv_bf16<DH, PADDED><<<static_cast<unsigned>(n_blocks), THREADS, smem, stream>>>(
+  fn<<<static_cast<unsigned>(n_blocks), THREADS, smem, stream>>>(
       maps[0], maps[1], maps[2], maps[3], maps[4], lse, dk, dv, t, dh, bh, scale, causal);
   return cudaGetLastError();
 }
 
 // the class's instantiation for dh (with_instantiation)
-template <int DH>
-cudaError_t launch(const bf16* q, const bf16* k, const bf16* v, const bf16* o,
-                   const float* lse, const bf16* dout, bf16* dk, bf16* dv, int bh, int t,
-                   int dh, float scale, int causal, cudaStream_t stream) {
+template <typename E, int DH>
+cudaError_t launch(const E* q, const E* k, const E* v, const E* o, const float* lse,
+                   const E* dout, E* dk, E* dv, int bh, int t, int dh, float scale, int causal,
+                   cudaStream_t stream) {
   return with_instantiation<DH>(dh, [&](auto padded) {
-    return launch_as<DH, decltype(padded)::value>(q, k, v, o, lse, dout, dk, dv, bh, t, dh,
-                                                  scale, causal, stream);
+    return launch_as<E, DH, decltype(padded)::value>(q, k, v, o, lse, dout, dk, dv, bh, t, dh,
+                                                     scale, causal, stream);
   });
 }
 
 // of the instantiation that runs dh = DH
-template <int DH>
+template <typename E, int DH>
 cudaError_t occupancy(int* smem, int* blocks_per_sm) {
   *smem = Dkv<DH>::SMEM_BYTES;
   return with_instantiation<DH>(DH, [&](auto padded) {
-    constexpr auto kernel = flash_bwd_dkv_bf16<DH, decltype(padded)::value>;
+    constexpr auto fn = kernel<E, DH, decltype(padded)::value>();
     int sms;
-    const cudaError_t err = prepare_kernel<kernel>(*smem, R::LAUNCH, &sms);
+    const cudaError_t err = prepare_kernel<fn>(*smem, R::LAUNCH, &sms);
     if (err != cudaSuccess) return err;
-    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, kernel, THREADS, *smem);
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, fn, THREADS, *smem);
   });
 }
 
 }  // namespace dkv
 
-}  // namespace
+// The build compiles this file in four parts at once (ops/_build.py PARTS)
+// and links them into one library: GORDO_PART 0 holds the bf16 dQ kernels
+// and their entry points, 1 the bf16 dK/dV ones, 2 and 3 the fp16 dQ and
+// dK/dV ones. Without GORDO_PART the file is one translation unit of all of
+// them, as nvcc compiles it alone.
+#ifndef GORDO_PART
+#define GORDO_PART -1
+#endif
 
-// q, k, v, o, dout, dq: (bh, t, dh) contiguous bf16, 16-byte aligned; lse:
+// q, k, v, o, dout, dq: (bh, t, dh) contiguous, 16-byte aligned; lse:
 // (bh, t) float32 from the forward; dh 16, 32 or a multiple of 8 from 64 to
 // 256. Launches on `stream` and does not synchronise. Returns the CUDA
 // error code of the launch (0 on success).
-extern "C" int gordo_flash_attention_backward_dq_bf16(
-    const void* q, const void* k, const void* v, const void* o, const void* lse,
-    const void* dout, void* dq, int bh, int t, int dh, float scale, int causal,
-    void* stream) {
+template <typename E>
+int dq_entry(const void* q, const void* k, const void* v, const void* o, const void* lse,
+             const void* dout, void* dq, int bh, int t, int dh, float scale, int causal,
+             void* stream) {
   if (bh <= 0 || t <= 0) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(with_head_dim_class(dh, [&](auto c) {
-    return dq::launch<decltype(c)::value>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-        static_cast<const bf16*>(o), static_cast<const float*>(lse),
-        static_cast<const bf16*>(dout), static_cast<bf16*>(dq), bh, t, dh, scale, causal,
+    return dq::launch<E, decltype(c)::value>(
+        static_cast<const E*>(q), static_cast<const E*>(k), static_cast<const E*>(v),
+        static_cast<const E*>(o), static_cast<const float*>(lse), static_cast<const E*>(dout),
+        static_cast<E*>(dq), bh, t, dh, scale, causal, static_cast<cudaStream_t>(stream));
+  }));
+}
+
+// As above, writing dk and dv: (bh, t, dh) contiguous.
+template <typename E>
+int dkv_entry(const void* q, const void* k, const void* v, const void* o, const void* lse,
+              const void* dout, void* dk, void* dv, int bh, int t, int dh, float scale,
+              int causal, void* stream) {
+  if (bh <= 0 || t <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(with_head_dim_class(dh, [&](auto c) {
+    return dkv::launch<E, decltype(c)::value>(
+        static_cast<const E*>(q), static_cast<const E*>(k), static_cast<const E*>(v),
+        static_cast<const E*>(o), static_cast<const float*>(lse), static_cast<const E*>(dout),
+        static_cast<E*>(dk), static_cast<E*>(dv), bh, t, dh, scale, causal,
         static_cast<cudaStream_t>(stream));
   }));
 }
 
-// As above, writing dk and dv: (bh, t, dh) contiguous bf16.
-extern "C" int gordo_flash_attention_backward_dkv_bf16(
-    const void* q, const void* k, const void* v, const void* o, const void* lse,
-    const void* dout, void* dk, void* dv, int bh, int t, int dh, float scale,
-    int causal, void* stream) {
-  if (bh <= 0 || t <= 0) return static_cast<int>(cudaErrorInvalidValue);
+// A kernel's dynamic shared memory (bytes) and resident blocks per SM for
+// head dim `dh` (its class's), for reports. Returns the CUDA error code.
+template <typename E, bool DKV>
+int occupancy_entry(int dh, int* smem_bytes, int* blocks_per_sm) {
   return static_cast<int>(with_head_dim_class(dh, [&](auto c) {
-    return dkv::launch<decltype(c)::value>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-        static_cast<const bf16*>(o), static_cast<const float*>(lse),
-        static_cast<const bf16*>(dout), static_cast<bf16*>(dk), static_cast<bf16*>(dv), bh, t,
-        dh, scale, causal, static_cast<cudaStream_t>(stream));
+    if constexpr (DKV) {
+      return dkv::occupancy<E, decltype(c)::value>(smem_bytes, blocks_per_sm);
+    } else {
+      return dq::occupancy<E, decltype(c)::value>(smem_bytes, blocks_per_sm);
+    }
   }));
 }
 
-// The dQ kernel's dynamic shared memory (bytes) and resident blocks per SM
-// for head dim `dh` (its class's), for reports. Returns the CUDA error code.
-extern "C" int gordo_flash_attention_backward_dq_bf16_occupancy(int dh, int* smem_bytes,
-                                                               int* blocks_per_sm) {
-  return static_cast<int>(with_head_dim_class(dh, [&](auto c) {
-    return dq::occupancy<decltype(c)::value>(smem_bytes, blocks_per_sm);
-  }));
-}
-
-// As above, for the dK/dV kernel.
-extern "C" int gordo_flash_attention_backward_dkv_bf16_occupancy(int dh, int* smem_bytes,
-                                                                int* blocks_per_sm) {
-  return static_cast<int>(with_head_dim_class(dh, [&](auto c) {
-    return dkv::occupancy<decltype(c)::value>(smem_bytes, blocks_per_sm);
-  }));
-}
-
-// The host time of encoding the dQ kernel's five tensor maps at (bh, t, dh),
-// the mean over `reps` encodings, in microseconds, for reports; the maps
-// point at `base` and are not used. Returns the CUDA error code.
-extern "C" int gordo_flash_attention_backward_dq_bf16_encode_us(const void* base, int bh, int t,
-                                                               int dh, int reps, float* us) {
+// The host time of encoding a kernel's five tensor maps at (bh, t, dh), the
+// mean over `reps` encodings, in microseconds, for reports; the maps point
+// at `base` and are not used. Returns the CUDA error code.
+template <typename E, bool DKV>
+int encode_us_entry(const void* base, int bh, int t, int dh, int reps, float* us) {
   if (reps <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const bf16* p = static_cast<const bf16*>(base);
+  const E* p = static_cast<const E*>(base);
   CUtensorMap maps[5];
   const auto start = std::chrono::steady_clock::now();
   for (int i = 0; i < reps; ++i) {
     const cudaError_t err = with_head_dim_class(dh, [&](auto c) {
-      return dq::encode<decltype(c)::value>(maps, p, p, p, p, p, bh, t, dh);
+      if constexpr (DKV) {
+        return dkv::encode<E, decltype(c)::value>(maps, p, p, p, p, p, bh, t, dh);
+      } else {
+        return dq::encode<E, decltype(c)::value>(maps, p, p, p, p, p, bh, t, dh);
+      }
     });
     if (err != cudaSuccess) return static_cast<int>(err);
   }
@@ -951,20 +1098,49 @@ extern "C" int gordo_flash_attention_backward_dq_bf16_encode_us(const void* base
   return 0;
 }
 
-// As above, for the dK/dV kernel's five tensor maps.
-extern "C" int gordo_flash_attention_backward_dkv_bf16_encode_us(const void* base, int bh, int t,
-                                                                int dh, int reps, float* us) {
-  if (reps <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const bf16* p = static_cast<const bf16*>(base);
-  CUtensorMap maps[5];
-  const auto start = std::chrono::steady_clock::now();
-  for (int i = 0; i < reps; ++i) {
-    const cudaError_t err = with_head_dim_class(dh, [&](auto c) {
-      return dkv::encode<decltype(c)::value>(maps, p, p, p, p, p, bh, t, dh);
-    });
-    if (err != cudaSuccess) return static_cast<int>(err);
+}  // namespace
+
+// The entry points of one kernel (dq or dkv) of one element type
+#define GORDO_BACKWARD_ENTRIES(E, TAG, KERNEL, DKV)                                             \
+  extern "C" int gordo_flash_attention_backward_##KERNEL##_##TAG##_occupancy(                   \
+      int dh, int* smem_bytes, int* blocks_per_sm) {                                           \
+    return occupancy_entry<E, DKV>(dh, smem_bytes, blocks_per_sm);                              \
+  }                                                                                             \
+  extern "C" int gordo_flash_attention_backward_##KERNEL##_##TAG##_encode_us(                   \
+      const void* base, int bh, int t, int dh, int reps, float* us) {                          \
+    return encode_us_entry<E, DKV>(base, bh, t, dh, reps, us);                                  \
   }
-  const std::chrono::duration<double, std::micro> spent = std::chrono::steady_clock::now() - start;
-  *us = static_cast<float>(spent.count() / reps);
-  return 0;
-}
+
+#define GORDO_DQ_ENTRIES(E, TAG)                                                                \
+  extern "C" int gordo_flash_attention_backward_dq_##TAG(                                       \
+      const void* q, const void* k, const void* v, const void* o, const void* lse,             \
+      const void* dout, void* dq, int bh, int t, int dh, float scale, int causal,              \
+      void* stream) {                                                                           \
+    return dq_entry<E>(q, k, v, o, lse, dout, dq, bh, t, dh, scale, causal, stream);            \
+  }                                                                                             \
+  GORDO_BACKWARD_ENTRIES(E, TAG, dq, false)
+
+#define GORDO_DKV_ENTRIES(E, TAG)                                                               \
+  extern "C" int gordo_flash_attention_backward_dkv_##TAG(                                      \
+      const void* q, const void* k, const void* v, const void* o, const void* lse,             \
+      const void* dout, void* dk, void* dv, int bh, int t, int dh, float scale, int causal,    \
+      void* stream) {                                                                           \
+    return dkv_entry<E>(q, k, v, o, lse, dout, dk, dv, bh, t, dh, scale, causal, stream);       \
+  }                                                                                             \
+  GORDO_BACKWARD_ENTRIES(E, TAG, dkv, true)
+
+#if GORDO_PART < 0 || GORDO_PART == 0
+GORDO_DQ_ENTRIES(bf16, bf16)
+#endif
+#if GORDO_PART < 0 || GORDO_PART == 1
+GORDO_DKV_ENTRIES(bf16, bf16)
+#endif
+#if GORDO_PART < 0 || GORDO_PART == 2
+GORDO_DQ_ENTRIES(f16, f16)
+#endif
+#if GORDO_PART < 0 || GORDO_PART == 3
+GORDO_DKV_ENTRIES(f16, f16)
+#endif
+#undef GORDO_DQ_ENTRIES
+#undef GORDO_DKV_ENTRIES
+#undef GORDO_BACKWARD_ENTRIES

@@ -91,10 +91,10 @@
 //
 // The build compiles this file in parts, at once (ops/_build.py PARTS), and
 // links them into one library: GORDO_PART 0 holds the legacy kernels, the
-// plan's dispatch and the C entry points, parts 1-4 the tensor-core kernels
-// of one input type and activation pair each (tc_route, the costliest code
-// to compile). Without GORDO_PART the file is one translation unit of all
-// of it, as nvcc compiles it alone.
+// plan's dispatch and the C entry points, parts 1-8 the tensor-core kernels
+// of one input type, activation pair and direction each (tc_route, the
+// costliest code to compile). Without GORDO_PART the file is one
+// translation unit of all of it, as nvcc compiles it alone.
 #ifndef GORDO_PART
 #define GORDO_PART -1
 #endif
@@ -1029,14 +1029,18 @@ cudaError_t attributes(const void* kernel, int* out) {
   return err;
 }
 
-template <typename T, int ACT, int REC>
-cudaError_t tc_attributes(int backward, int tiles_a_warp, int ksplit, int held, int* out) {
+// of one direction's kernels, so that each direction compiles apart
+template <typename T, int ACT, int REC, bool BACKWARD>
+cudaError_t tc_attributes(int tiles_a_warp, int ksplit, int held, int* out) {
   const void* kernel = nullptr;
   if (!held) {  // STREAM: one layout a direction
-    if (tiles_a_warp != 1 || ksplit != (backward ? 2 : 1)) return cudaErrorInvalidValue;
-    kernel = backward ? reinterpret_cast<const void*>(tc_backward<T, ACT, REC, 2, false>)
-                      : reinterpret_cast<const void*>(tc_forward<T, ACT, REC, 1, 1, false>);
-  } else if (backward) {
+    if (tiles_a_warp != 1 || ksplit != (BACKWARD ? 2 : 1)) return cudaErrorInvalidValue;
+    if constexpr (BACKWARD) {
+      kernel = reinterpret_cast<const void*>(tc_backward<T, ACT, REC, 2, false>);
+    } else {
+      kernel = reinterpret_cast<const void*>(tc_forward<T, ACT, REC, 1, 1, false>);
+    }
+  } else if constexpr (BACKWARD) {
     if (ksplit != 2 && ksplit != 4) return cudaErrorInvalidValue;
     kernel = reinterpret_cast<const void*>(ksplit == 4 ? tc_backward<T, ACT, REC, 1, true>
                                                        : tc_backward<T, ACT, REC, 2, true>);
@@ -1053,12 +1057,13 @@ cudaError_t tc_attributes(int backward, int tiles_a_warp, int ksplit, int held, 
 namespace gordo_lstm {
 
 // A launch on the tensor-core route of the plan, and the attributes of a
-// tensor-core instantiation (tc_attributes), for one input type and
-// activation pair: each pair's kernels are compiled in a part of their own
+// tensor-core instantiation (tc_attributes), for one input type, activation
+// pair and direction: each direction of each pair compiles in a part of its
+// own
 template <typename T, int ACT, int REC, typename Args>
 cudaError_t tc_route(const Args& a, const Plan& p, cudaStream_t s);
-template <typename T, int ACT, int REC>
-cudaError_t tc_kernel_attributes(int backward, int tiles_a_warp, int ksplit, int held, int* out);
+template <typename T, int ACT, int REC, bool BACKWARD>
+cudaError_t tc_direction_attributes(int tiles_a_warp, int ksplit, int held, int* out);
 
 #if GORDO_PART != 0
 template <typename T, int ACT, int REC, typename Args>
@@ -1066,28 +1071,47 @@ cudaError_t tc_route(const Args& a, const Plan& p, cudaStream_t s) {
   return by_route<T, ACT, REC>(a, p, s);
 }
 
-template <typename T, int ACT, int REC>
-cudaError_t tc_kernel_attributes(int backward, int tiles_a_warp, int ksplit, int held, int* out) {
-  return tc_attributes<T, ACT, REC>(backward, tiles_a_warp, ksplit, held, out);
+template <typename T, int ACT, int REC, bool BACKWARD>
+cudaError_t tc_direction_attributes(int tiles_a_warp, int ksplit, int held, int* out) {
+  return tc_attributes<T, ACT, REC, BACKWARD>(tiles_a_warp, ksplit, held, out);
 }
 #endif
 
-#define GORDO_TC_PART(T, ACT, REC)                                                          \
+#if GORDO_PART <= 0
+template <typename T, int ACT, int REC>
+cudaError_t tc_kernel_attributes(int backward, int tiles_a_warp, int ksplit, int held, int* out) {
+  return backward ? tc_direction_attributes<T, ACT, REC, true>(tiles_a_warp, ksplit, held, out)
+                  : tc_direction_attributes<T, ACT, REC, false>(tiles_a_warp, ksplit, held, out);
+}
+#endif
+
+#define GORDO_TC_FORWARD(T, ACT, REC)                                                       \
   template cudaError_t tc_route<T, ACT, REC, FwdArgs>(const FwdArgs&, const Plan&,          \
                                                       cudaStream_t);                        \
+  template cudaError_t tc_direction_attributes<T, ACT, REC, false>(int, int, int, int*);
+#define GORDO_TC_BACKWARD(T, ACT, REC)                                                      \
   template cudaError_t tc_route<T, ACT, REC, BwdArgs>(const BwdArgs&, const Plan&,          \
                                                       cudaStream_t);                        \
-  template cudaError_t tc_kernel_attributes<T, ACT, REC>(int, int, int, int, int*);
+  template cudaError_t tc_direction_attributes<T, ACT, REC, true>(int, int, int, int*);
 #if GORDO_PART == 1
-GORDO_TC_PART(float, TANH, SIGMOID)
+GORDO_TC_FORWARD(float, TANH, SIGMOID)
 #elif GORDO_PART == 2
-GORDO_TC_PART(float, DYNAMIC, DYNAMIC)
+GORDO_TC_BACKWARD(float, TANH, SIGMOID)
 #elif GORDO_PART == 3
-GORDO_TC_PART(__nv_bfloat16, TANH, SIGMOID)
+GORDO_TC_FORWARD(float, DYNAMIC, DYNAMIC)
 #elif GORDO_PART == 4
-GORDO_TC_PART(__nv_bfloat16, DYNAMIC, DYNAMIC)
+GORDO_TC_BACKWARD(float, DYNAMIC, DYNAMIC)
+#elif GORDO_PART == 5
+GORDO_TC_FORWARD(__nv_bfloat16, TANH, SIGMOID)
+#elif GORDO_PART == 6
+GORDO_TC_BACKWARD(__nv_bfloat16, TANH, SIGMOID)
+#elif GORDO_PART == 7
+GORDO_TC_FORWARD(__nv_bfloat16, DYNAMIC, DYNAMIC)
+#elif GORDO_PART == 8
+GORDO_TC_BACKWARD(__nv_bfloat16, DYNAMIC, DYNAMIC)
 #endif
-#undef GORDO_TC_PART
+#undef GORDO_TC_FORWARD
+#undef GORDO_TC_BACKWARD
 
 }  // namespace gordo_lstm
 

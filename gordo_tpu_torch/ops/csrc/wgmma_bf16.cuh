@@ -1,9 +1,11 @@
-// Hopper (sm_90a) building blocks of the warp-specialised bf16 flash-attention
-// kernels of this directory: the forward (flash_attention_bf16.cu), dQ and
-// dK/dV (flash_attention_bwd_bf16.cu). Inline PTX throughout (PTX ISA 8.x).
+// Hopper (sm_90a) building blocks of the warp-specialised bf16 and fp16
+// flash-attention kernels of this directory: the forward
+// (flash_attention_bf16.cu), dQ and dK/dV (flash_attention_bwd_bf16.cu),
+// each a template on its element type E (Elem: bf16 or fp16). Inline PTX
+// throughout (PTX ISA 8.x).
 //
-// - wgmma.mma_async m64nNk16, bf16 x bf16 -> float32, N = 16, 32, 64, 128,
-//   192 or 256,
+// - wgmma.mma_async m64nNk16, bf16 x bf16 or fp16 x fp16 -> float32, N = 16,
+//   32, 64, 128, 192 or 256,
 //   in SS form (A and B from shared memory, both K-major) and RS form (A
 //   from registers, B from shared memory MN-major: trans-b = 1), with the
 //   fence / commit_group / wait_group that order them.
@@ -15,16 +17,27 @@
 //   link).
 // - setmaxnreg and named barriers for the warp-specialised block, and the
 //   order in which a persistent block walks over (head, query tile) work.
-// - The float32-to-A-fragment split of P and dS into three bf16 parts, and
-//   the float32 dot product of bf16 rows (D = rowsum(dO O)).
+// - The float32-to-A-fragment split of P and dS into three parts of E (for
+//   fp16 after a power-of-two scale per row), and the float32 dot product
+//   of rows of E (D = rowsum(dO O)).
 //
 // Every input is exact in float32 and every product and sum is float32, as
-// in the TPU kernels: a bf16 x bf16 product is exact, so S, dP and their
-// transposes are one bf16 product with float32 sums; P and dS, float32,
-// go through three bf16 products, one per part of their split, which hold
-// all 24 of their significand bits (two parts leave outputs more than a
-// bf16 ulp off where the sum cancels, one moves a third of them:
-// tests/test_torch_bf16.py emulates all three).
+// in the TPU kernels: a product of two bf16 (8 significant bits) or two
+// fp16 (11) values is exact, so S, dP and their transposes are one product
+// with float32 sums; P and dS, float32, go through three products, one per
+// part of their split. Three bf16 parts hold all 24 of their significand
+// bits (two parts leave outputs more than a bf16 ulp off where the sum
+// cancels, one moves a third of them: tests/test_torch_bf16.py emulates all
+// three). fp16 has the bits but not the range: its least normal value is
+// 2^-14 and its least subnormal 2^-24, so the second and third parts of P,
+// and all of a small dS (dS = P (dP - D) scales with dO), would fall into
+// its subnormals or to zero. The fp16 split therefore takes each row (of
+// the A operand: a query of P or dS, a key of P^T or dS^T) times a power of
+// two that brings the row's largest |x| in the tile into [2^14, 2^15): the
+// three parts then hold every bit of x down to 2^-38 of that largest value.
+// A power of two per row commutes with the product, so the row of the
+// result is scaled back in float32, exactly (tests/test_torch_float16.py
+// emulates the split with and without the scale).
 //
 // Layouts (PTX ISA, "Matrix fragments for wgmma" and "Shared memory matrix
 // layout"; CUTLASS's SM90 GMMA traits give the same):
@@ -49,6 +62,7 @@
 
 #include <cuda.h>  // CUtensorMap and its enums; the encoder is fetched at run time
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 #include <atomic>
@@ -60,6 +74,39 @@
 namespace gordo_wgmma {
 
 using bf16 = __nv_bfloat16;
+using f16 = __half;
+
+// What the kernels need to know of their element type E: its TMA data
+// type, whether its split of P and dS is scaled (fp16), and its pairs
+// packed from and read as float32 (x0 in the low half)
+template <typename E>
+struct Elem;
+
+template <>
+struct Elem<bf16> {
+  static constexpr CUtensorMapDataType TMA = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  static constexpr bool SCALED = false;
+  __device__ static uint32_t pack(float x0, float x1) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+    return *reinterpret_cast<const uint32_t*>(&h);
+  }
+  __device__ static float2 unpack(uint32_t x) {
+    return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&x));
+  }
+};
+
+template <>
+struct Elem<f16> {
+  static constexpr CUtensorMapDataType TMA = CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
+  static constexpr bool SCALED = true;
+  __device__ static uint32_t pack(float x0, float x1) {
+    const __half2 h = __floats2half2_rn(x0, x1);
+    return *reinterpret_cast<const uint32_t*>(&h);
+  }
+  __device__ static float2 unpack(uint32_t x) {
+    return __half22float2(*reinterpret_cast<const __half2*>(&x));
+  }
+};
 
 // --- head dims ---
 
@@ -279,7 +326,7 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// The tensor map of a contiguous (bh, t, dh) bf16 tensor as a 3-D tensor
+// The tensor map of a contiguous (bh, t, dh) tensor of E as a 3-D tensor
 // (dh, t, bh), innermost first, in boxes of `box_rows` rows by
 // min(dh, 64) columns, swizzled at the box's row width (32, 64 or 128
 // bytes). Rows at or past t of a head, columns at or past dh (the last
@@ -287,8 +334,9 @@ inline EncodeTiled encode_tiled() {
 // load as zeros; dh % 8 == 0 keeps the row stride a multiple of 16 bytes,
 // as TMA needs.
 // Returns 0 or a CUDA error code.
-inline cudaError_t encode_rows(CUtensorMap* map, const void* base, int bh, int t, int dh,
-                               int box_rows) {
+template <typename E>
+cudaError_t encode_rows(CUtensorMap* map, const void* base, int bh, int t, int dh,
+                        int box_rows) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return cudaErrorNotSupported;
   const int cols = dh < 64 ? dh : 64;
@@ -301,7 +349,7 @@ inline cudaError_t encode_rows(CUtensorMap* map, const void* base, int bh, int t
   const CUtensorMapSwizzle swizzle = cols == 64   ? CU_TENSOR_MAP_SWIZZLE_128B
                                      : cols == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
                                                   : CU_TENSOR_MAP_SWIZZLE_32B;
-  const CUresult rc = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base),
+  const CUresult rc = encode(map, Elem<E>::TMA, 3, const_cast<void*>(base),
                              dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                              CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
@@ -310,7 +358,7 @@ inline cudaError_t encode_rows(CUtensorMap* map, const void* base, int bh, int t
 
 // --- shared-memory tiles and their wgmma descriptors ---
 
-// A tile of `rows` rows of a (.., dh) bf16 matrix as TMA writes it: in
+// A tile of `rows` rows of a (.., dh) bf16 or fp16 matrix as TMA writes it: in
 // panels of min(dh, 64) columns (DH / 64 from dh 64 on), each panel `rows` rows of
 // RB = 2 min(dh, 64) bytes, the 16-byte chunks of row r XOR-swizzled by
 // bits of r (the 32/64/128-byte swizzle of CUTLASS's GMMA layout atoms).
@@ -411,18 +459,18 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
             "%106, %107, %108, %109, %110, %111, %112, %113, %114, %115, "                   \
             "%116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
 
-// d (64 x N, float32) = A B + (scale_d ? d : 0), bf16 operands; ss: A and B
-// K-major in shared memory (descriptors); rs: A from registers (a, the
-// m64k16 fragment), B MN-major in shared memory
-template <int N>
+// d (64 x N, float32) = A B + (scale_d ? d : 0), operands of E (bf16 or
+// fp16); ss: A and B K-major in shared memory (descriptors); rs: A from
+// registers (a, the m64k16 fragment), B MN-major in shared memory
+template <int N, typename E>
 struct Wgmma;
 
-#define GORDO_WGMMA(N, REGS, OUTS, SS_OPS, SS_SCALE, RS_OPS, RS_SCALE)                         \
+#define GORDO_WGMMA_OF(N, E, TY, REGS, OUTS, SS_OPS, SS_SCALE, RS_OPS, RS_SCALE)               \
   template <>                                                                                \
-  struct Wgmma<N> {                                                                          \
+  struct Wgmma<N, E> {                                                                       \
     __device__ static void ss(float (&d)[N / 2], uint64_t a, uint64_t b, int scale_d) {       \
       asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, " SS_SCALE ", 0;\n"                     \
-                   "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32.bf16.bf16 {" REGS          \
+                   "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32." TY "." TY " {" REGS       \
                    "}, " SS_OPS ", p, 1, 1, 0, 0;\n}\n"                                      \
                    : OUTS                                                                    \
                    : "l"(a), "l"(b), "r"(scale_d));                                          \
@@ -430,24 +478,39 @@ struct Wgmma;
     __device__ static void rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t b,          \
                               int scale_d) {                                                 \
       asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, " RS_SCALE ", 0;\n"                     \
-                   "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32.bf16.bf16 {" REGS          \
+                   "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32." TY "." TY " {" REGS       \
                    "}, " RS_OPS ", p, 1, 1, 1;\n}\n"                                         \
                    : OUTS                                                                    \
                    : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));      \
     }                                                                                        \
   };
+// one specialisation a width and element type (TY: its PTX type)
+GORDO_WGMMA_OF(16, bf16, "bf16", GORDO_R8, GORDO_D8(0), "%8, %9", "%10",
+               "{%8, %9, %10, %11}, %12", "%13")
+GORDO_WGMMA_OF(16, f16, "f16", GORDO_R8, GORDO_D8(0), "%8, %9", "%10",
+               "{%8, %9, %10, %11}, %12", "%13")
+GORDO_WGMMA_OF(32, bf16, "bf16", GORDO_R16, GORDO_D16(0), "%16, %17", "%18",
+               "{%16, %17, %18, %19}, %20", "%21")
+GORDO_WGMMA_OF(32, f16, "f16", GORDO_R16, GORDO_D16(0), "%16, %17", "%18",
+               "{%16, %17, %18, %19}, %20", "%21")
+GORDO_WGMMA_OF(64, bf16, "bf16", GORDO_R32, GORDO_D32(0), "%32, %33", "%34",
+               "{%32, %33, %34, %35}, %36", "%37")
+GORDO_WGMMA_OF(64, f16, "f16", GORDO_R32, GORDO_D32(0), "%32, %33", "%34",
+               "{%32, %33, %34, %35}, %36", "%37")
+GORDO_WGMMA_OF(128, bf16, "bf16", GORDO_R64, GORDO_D64(0), "%64, %65", "%66",
+               "{%64, %65, %66, %67}, %68", "%69")
+GORDO_WGMMA_OF(128, f16, "f16", GORDO_R64, GORDO_D64(0), "%64, %65", "%66",
+               "{%64, %65, %66, %67}, %68", "%69")
+GORDO_WGMMA_OF(192, bf16, "bf16", GORDO_R96, GORDO_D96(0), "%96, %97", "%98",
+               "{%96, %97, %98, %99}, %100", "%101")
+GORDO_WGMMA_OF(192, f16, "f16", GORDO_R96, GORDO_D96(0), "%96, %97", "%98",
+               "{%96, %97, %98, %99}, %100", "%101")
+GORDO_WGMMA_OF(256, bf16, "bf16", GORDO_R128, GORDO_D128(0), "%128, %129", "%130",
+               "{%128, %129, %130, %131}, %132", "%133")
+GORDO_WGMMA_OF(256, f16, "f16", GORDO_R128, GORDO_D128(0), "%128, %129", "%130",
+               "{%128, %129, %130, %131}, %132", "%133")
 
-GORDO_WGMMA(16, GORDO_R8, GORDO_D8(0), "%8, %9", "%10", "{%8, %9, %10, %11}, %12", "%13")
-GORDO_WGMMA(32, GORDO_R16, GORDO_D16(0), "%16, %17", "%18", "{%16, %17, %18, %19}, %20", "%21")
-GORDO_WGMMA(64, GORDO_R32, GORDO_D32(0), "%32, %33", "%34", "{%32, %33, %34, %35}, %36", "%37")
-GORDO_WGMMA(128, GORDO_R64, GORDO_D64(0), "%64, %65", "%66", "{%64, %65, %66, %67}, %68",
-            "%69")
-GORDO_WGMMA(192, GORDO_R96, GORDO_D96(0), "%96, %97", "%98", "{%96, %97, %98, %99}, %100",
-            "%101")
-GORDO_WGMMA(256, GORDO_R128, GORDO_D128(0), "%128, %129", "%130",
-            "{%128, %129, %130, %131}, %132", "%133")
-
-#undef GORDO_WGMMA
+#undef GORDO_WGMMA_OF
 #undef GORDO_D4
 #undef GORDO_D8
 #undef GORDO_D16
@@ -495,15 +558,61 @@ __device__ __forceinline__ void split3(float x0, float x1, uint32_t& hi, uint32_
   lo = pack_high(r0 - truncate_bf16(r0), r1 - truncate_bf16(r1));
 }
 
+// x truncated to fp16's 11 significant bits (its low 13 bits cleared):
+// fp16's round-toward-zero of x wherever x is in fp16's normal range
+// (2^-14 .. 65504), and exact there as an fp16 value
+__device__ __forceinline__ float truncate_f16(float x) {
+  return __uint_as_float(__float_as_uint(x) & 0xffffe000u);
+}
+
+// (x0, x1) as three fp16 pairs, hi + mid + lo, x0 in the low half of each:
+// hi = trunc(x), mid = trunc(x - hi), lo = x - hi - mid, each packed with
+// round-to-nearest. Where hi and mid lie in fp16's normal range they pack
+// exactly and lo (at most 2 significant bits) too, so hi + mid + lo == x;
+// a part below 2^-14 packs to fp16's subnormals, off by at most 2^-25.
+// Callers scale x first so that a row's largest |x| is in [2^14, 2^15)
+// (f16_scale_exp): what a part loses is then below 2^-39 of it.
+__device__ __forceinline__ void split3_f16(float x0, float x1, uint32_t& hi, uint32_t& mid,
+                                           uint32_t& lo) {
+  const float h0 = truncate_f16(x0), h1 = truncate_f16(x1);
+  const float r0 = x0 - h0, r1 = x1 - h1;
+  const float m0 = truncate_f16(r0), m1 = truncate_f16(r1);
+  hi = Elem<f16>::pack(h0, h1);
+  mid = Elem<f16>::pack(m0, m1);
+  lo = Elem<f16>::pack(r0 - m0, r1 - m1);
+}
+
 // The accumulator x (64 x 16 NC columns, float32) as RS A fragments of NC
-// k-chunks, three parts each: a[c][0] lo, a[c][1] mid, a[c][2] hi
-template <int NC>
+// k-chunks, three parts each: a[c][0] lo, a[c][1] mid, a[c][2] hi. bf16
+// splits x as it is; fp16 splits the forward's P, which its shift keeps in
+// range (flash_attention_bf16.cu)
+template <typename E, int NC>
 __device__ __forceinline__ void split_to_a(const float (&x)[8 * NC], uint32_t (&a)[NC][3][4]) {
 #pragma unroll
   for (int c = 0; c < NC; ++c) {
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
-      split3(x[8 * c + 2 * r], x[8 * c + 2 * r + 1], a[c][2][r], a[c][1][r], a[c][0][r]);
+      if constexpr (Elem<E>::SCALED) {
+        split3_f16(x[8 * c + 2 * r], x[8 * c + 2 * r + 1], a[c][2][r], a[c][1][r], a[c][0][r]);
+      } else {
+        split3(x[8 * c + 2 * r], x[8 * c + 2 * r + 1], a[c][2][r], a[c][1][r], a[c][0][r]);
+      }
+    }
+  }
+}
+
+// As split_to_a in fp16, the thread's row g (elements i with i & 2 clear)
+// times s0 and row g + 8 times s1 first
+template <int NC>
+__device__ __forceinline__ void split_to_a_scaled(const float (&x)[8 * NC], float s0, float s1,
+                                                  uint32_t (&a)[NC][3][4]) {
+#pragma unroll
+  for (int c = 0; c < NC; ++c) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const float s = (r & 1) ? s1 : s0;
+      split3_f16(x[8 * c + 2 * r] * s, x[8 * c + 2 * r + 1] * s, a[c][2][r], a[c][1][r],
+                 a[c][0][r]);
     }
   }
 }
@@ -512,26 +621,26 @@ __device__ __forceinline__ void split_to_a(const float (&x)[8 * NC], uint32_t (&
 // split_to_a), the B descriptor of chunk c from db(c): the lo parts of
 // every chunk first, then mid, then hi, so that the truncating sum grows
 // with its terms. `accumulate` false starts from zero. Does not commit.
-template <int N, int NC, typename DescB>
+template <int N, int NC, typename E, typename DescB>
 __device__ __forceinline__ void rs_product(float (&acc)[N / 2], const uint32_t (&a)[NC][3][4],
                                            DescB db, bool accumulate) {
 #pragma unroll
   for (int part = 0; part < 3; ++part) {
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
-      Wgmma<N>::rs(acc, a[c][part], db(c), accumulate || part > 0 || c > 0);
+      Wgmma<N, E>::rs(acc, a[c][part], db(c), accumulate || part > 0 || c > 0);
     }
   }
 }
 
 // f (64 x N) = X B (rs_product into the fresh accumulator f), waited for:
 // a tile's chain, to be added in float32
-template <int N, int NC, typename DescB>
+template <int N, int NC, typename E, typename DescB>
 __device__ __forceinline__ void rs_fresh(float (&f)[N / 2], const uint32_t (&a)[NC][3][4],
                                          DescB db) {
   fence_regs(f);
   wgmma_fence();
-  rs_product<N, NC>(f, a, db, false);
+  rs_product<N, NC, E>(f, a, db, false);
   wgmma_commit();
   wgmma_wait<0>();
   fence_regs(f);
@@ -546,15 +655,16 @@ __device__ __forceinline__ void fence_split(uint32_t (&a)[NC][3][4]) {
   }
 }
 
-// acc + the sum of the products of the eight bf16 pairs of a and b, in
+// acc + the sum of the products of the eight pairs of E of a and b, in
 // float32
+template <typename E>
 __device__ __forceinline__ float dot8(uint4 a, uint4 b, float acc) {
   const uint32_t av[4] = {a.x, a.y, a.z, a.w};
   const uint32_t bv[4] = {b.x, b.y, b.z, b.w};
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    const float2 x = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&av[i]));
-    const float2 y = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&bv[i]));
+    const float2 x = Elem<E>::unpack(av[i]);
+    const float2 y = Elem<E>::unpack(bv[i]);
     acc = fmaf(x.x, y.x, acc);
     acc = fmaf(x.y, y.y, acc);
   }
@@ -570,6 +680,78 @@ __device__ __forceinline__ float quad_sum(float x) {
 __device__ __forceinline__ float quad_max(float x) {
   x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
   return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+// --- the fp16 split's scale per row ---
+
+// The power of two 2^(b - 127) that takes m (>= 0, finite) into
+// [2^14, 2^15), as its biased float32 exponent b, within [27, 227]
+// (2^-100 .. 2^100): 227 for m = 0
+__device__ __forceinline__ int f16_scale_exp(float m) {
+  const int e = (__float_as_int(m) >> 23) & 0xff;
+  return max(27, min(227, 268 - e));
+}
+
+// 2^(b - 127) for a biased exponent b in 0 .. 254 (0 gives 0)
+__device__ __forceinline__ float pow2_biased(int b) { return __int_as_float(b << 23); }
+
+// f16_scale_exp of the largest |x| of each of the thread's two rows in the
+// tile (an m64nN accumulator: row g for the elements i with i & 2 clear,
+// g + 8 for the others, over the quad that holds them)
+template <int N>
+__device__ __forceinline__ void row_scale_exps(const float (&x)[N], int& e0, int& e1) {
+  float a0 = 0.f, a1 = 0.f;
+#pragma unroll
+  for (int i = 0; i < N; i += 4) {
+    a0 = fmaxf(a0, fmaxf(fabsf(x[i]), fabsf(x[i + 1])));
+    a1 = fmaxf(a1, fmaxf(fabsf(x[i + 2]), fabsf(x[i + 3])));
+  }
+  e0 = f16_scale_exp(quad_max(a0));
+  e1 = f16_scale_exp(quad_max(a1));
+}
+
+// The scale of each of the thread's two rows of an accumulator that sums
+// scaled fp16 products over a loop: at each tile it falls to that tile's
+// row scale where that is lower (never rises, so no scaled row exceeds
+// 2^15), the accumulator's row times the fall; at the end the row is
+// times 1 / scale. Exact, being powers of two, but for a fall below 2^-126
+// (a row whose values grow by more than 2^126 over the loop), which drops
+// the earlier sum as float32 addition would.
+struct RowScale {
+  int e0 = 227, e1 = 227;  // biased exponents of the two rows' scales
+
+  // take tile x's scales; (c0, c1): what the accumulator's rows are to be
+  // multiplied by before this tile's product is added (1 where unchanged)
+  template <int N>
+  __device__ __forceinline__ void update(const float (&x)[N], float& c0, float& c1) {
+    int t0, t1;
+    row_scale_exps(x, t0, t1);
+    t0 = min(e0, t0);
+    t1 = min(e1, t1);
+    c0 = pow2_biased(max(0, 127 + t0 - e0));
+    c1 = pow2_biased(max(0, 127 + t1 - e1));
+    e0 = t0;
+    e1 = t1;
+  }
+  __device__ __forceinline__ float s0() const { return pow2_biased(e0); }
+  __device__ __forceinline__ float s1() const { return pow2_biased(e1); }
+  __device__ __forceinline__ float inv0() const { return pow2_biased(254 - e0); }
+  __device__ __forceinline__ float inv1() const { return pow2_biased(254 - e1); }
+};
+
+// acc's row g times c0 and row g + 8 times c1 (an m64nN accumulator), if
+// any lane of the warp has a factor other than 1
+template <int N>
+__device__ __forceinline__ void scale_rows(float (&acc)[N], float c0, float c1) {
+  if (__any_sync(0xffffffffu, c0 != 1.f || c1 != 1.f)) {
+#pragma unroll
+    for (int i = 0; i < N; i += 4) {
+      acc[i] *= c0;
+      acc[i + 1] *= c0;
+      acc[i + 2] *= c1;
+      acc[i + 3] *= c1;
+    }
+  }
 }
 
 }  // namespace gordo_wgmma

@@ -1,10 +1,11 @@
 """
 Flash attention, forward and backward: the wrappers of the hand-written
 CUDA kernels, their plain PyTorch twins, and the ``torch.autograd.Function``
-that joins them. Each kernel has a float32 and a bf16 build:
-``csrc/flash_attention.cu`` and ``csrc/flash_attention_bf16.cu`` (forward),
+that joins them. Each kernel has a float32, a bf16 and an fp16 build:
+``csrc/flash_attention.cu`` and ``csrc/flash_attention_bf16.cu`` (forward;
+the latter a template on the element type, bf16 and fp16),
 ``csrc/flash_attention_bwd.cu`` and ``csrc/flash_attention_bwd_bf16.cu``
-(dQ and dK/dV).
+(dQ and dK/dV, likewise).
 
 The kernels replace the three Pallas kernels of
 ``gordo_tpu/ops/pallas_kernels/flash_attention.py``: ``_flash_kernel``
@@ -12,13 +13,16 @@ The kernels replace the three Pallas kernels of
 causal mask, returning the output and the per-row logsumexp, stored here as
 (BH, T) without the TPU's 128-lane replication), ``_flash_dq_kernel`` and
 ``_flash_dkv_kernel`` (the backward, recomputing P = exp(S - lse)). Like
-the Pallas kernels, all of them take float32 or bf16 inputs, compute in
-float32 and write out, dq, dk and dv in the input dtype; lse is float32.
-The float32 kernels run their products on the tensor cores in 3xTF32
-(``csrc/mma_tf32x3.cuh``), the bf16 kernels in bf16 with float32 sums, all
-three on Hopper's ``wgmma``, fed by TMA in warp-specialised blocks
-(``csrc/wgmma_bf16.cuh``); the source notes say what bounds each and what
-its design does about that.
+the Pallas kernels, all of them take float32, bf16 or float16 inputs,
+compute in float32 and write out, dq, dk and dv in the input dtype; lse is
+float32. The float32 kernels run their products on the tensor cores in
+3xTF32 (``csrc/mma_tf32x3.cuh``), the bf16 and fp16 kernels in their
+element type with float32 sums, all three on Hopper's ``wgmma``, fed by TMA
+in warp-specialised blocks (``csrc/wgmma_bf16.cuh``; in fp16, P and dS are
+split with a power-of-two scale per row, which keeps them out of fp16's
+subnormals); the source notes say what bounds each and what its design
+does about that. The plain twins compute in float32 for every input dtype,
+so they are the fp16 kernels' twins as they are the bf16 kernels'.
 
 Head dims: 16, 32, and every multiple of 8 from 64 to 256 (the JAX
 dispatcher sends every ``dh % 8 == 0, dh >= 64`` to its Pallas kernels).
@@ -48,16 +52,20 @@ SUPPORTED_HEAD_DIMS = (16, 32, *range(64, 257, 8))
 # per SM), which the headroom covers.
 MIN_TILE_ROWS = 64
 MAX_WORKS = 2**31 - 1 - 65536
-DTYPES = (torch.float32, torch.bfloat16)
+DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 
 # kernel launches made on CUDA tensors: the float32 forward (LAUNCHES) and
-# the float32 backward's dQ and dK/dV kernels; then the same for bf16
+# the float32 backward's dQ and dK/dV kernels; then the same for bf16 and
+# for fp16
 LAUNCHES = 0
 DQ_LAUNCHES = 0
 DKV_LAUNCHES = 0
 BF16_LAUNCHES = 0
 BF16_DQ_LAUNCHES = 0
 BF16_DKV_LAUNCHES = 0
+F16_LAUNCHES = 0
+F16_DQ_LAUNCHES = 0
+F16_DKV_LAUNCHES = 0
 # the same launches by (counter name, head dim)
 HEAD_DIM_LAUNCHES = {}
 _launches_lock = threading.Lock()
@@ -121,7 +129,7 @@ def _check(*tensors, names="qkv") -> None:
         if x.device != q.device:
             raise ValueError(f"q and {name} lie on {q.device} and {x.device}")
     if q.dtype not in DTYPES:
-        raise TypeError(f"flash_attention takes float32 or bfloat16, got q {q.dtype}")
+        raise TypeError(f"flash_attention takes float32, bfloat16 or float16, got q {q.dtype}")
     for name, x in zip(names, tensors):
         if x.dtype != q.dtype:
             raise TypeError(
@@ -176,6 +184,46 @@ def _bf16_dkv_kernel():
                        "gordo_flash_attention_backward_dkv_bf16", 8)
 
 
+@functools.lru_cache(maxsize=None)
+def _f16_kernel():
+    return _c_function("flash_attention_bf16", "gordo_flash_attention_forward_f16", 5)
+
+
+@functools.lru_cache(maxsize=None)
+def _f16_dq_kernel():
+    return _c_function("flash_attention_bwd_bf16",
+                       "gordo_flash_attention_backward_dq_f16", 7)
+
+
+@functools.lru_cache(maxsize=None)
+def _f16_dkv_kernel():
+    return _c_function("flash_attention_bwd_bf16",
+                       "gordo_flash_attention_backward_dkv_f16", 8)
+
+
+# per input dtype: the forward, dQ and dK/dV kernels' getters, their labels
+# in errors and their counters (the getters are looked up at each launch,
+# so a caller may stand another in)
+_BY_DTYPE = {
+    torch.float32: (("_kernel", "_dq_kernel", "_dkv_kernel"), "flash attention",
+                    ("LAUNCHES", "DQ_LAUNCHES", "DKV_LAUNCHES")),
+    torch.bfloat16: (("_bf16_kernel", "_bf16_dq_kernel", "_bf16_dkv_kernel"),
+                     "bf16 flash attention",
+                     ("BF16_LAUNCHES", "BF16_DQ_LAUNCHES", "BF16_DKV_LAUNCHES")),
+    torch.float16: (("_f16_kernel", "_f16_dq_kernel", "_f16_dkv_kernel"),
+                    "fp16 flash attention",
+                    ("F16_LAUNCHES", "F16_DQ_LAUNCHES", "F16_DKV_LAUNCHES")),
+}
+
+
+def _kernel_of(dtype, which: int):
+    """``(C function, label, counter)`` of kernel ``which`` (0 forward, 1 dQ,
+    2 dK/dV) for inputs of ``dtype``."""
+    getters, label, counters = _BY_DTYPE[dtype]
+    return (globals()[getters[which]](), label + ("", " dQ", " dK/dV")[which],
+            counters[which])
+
+
 def _count(name: str, dh: int) -> None:
     with _launches_lock:
         globals()[name] += 1
@@ -216,11 +264,9 @@ def _launch(q, k, v, causal: bool):
     lse = torch.empty((bh, t), dtype=torch.float32, device=q.device)
     if bh == 0:
         return out, lse
-    bf16 = q.dtype == torch.bfloat16
-    _call(_bf16_kernel() if bf16 else _kernel(),
-          "bf16 flash attention" if bf16 else "flash attention",
-          (q, k, v, out, lse), bh, t, dh, causal)
-    _count("BF16_LAUNCHES" if bf16 else "LAUNCHES", dh)
+    kernel, label, counter = _kernel_of(q.dtype, 0)
+    _call(kernel, label, (q, k, v, out, lse), bh, t, dh, causal)
+    _count(counter, dh)
     return out, lse
 
 
@@ -231,11 +277,9 @@ def launch_dq(q, k, v, o, lse, do, causal: bool):
     dq = torch.empty_like(q)
     if bh == 0:
         return dq
-    bf16 = q.dtype == torch.bfloat16
-    _call(_bf16_dq_kernel() if bf16 else _dq_kernel(),
-          "bf16 flash attention dQ" if bf16 else "flash attention dQ",
-          (q, k, v, o, lse, do, dq), bh, t, dh, causal)
-    _count("BF16_DQ_LAUNCHES" if bf16 else "DQ_LAUNCHES", dh)
+    kernel, label, counter = _kernel_of(q.dtype, 1)
+    _call(kernel, label, (q, k, v, o, lse, do, dq), bh, t, dh, causal)
+    _count(counter, dh)
     return dq
 
 
@@ -246,17 +290,15 @@ def launch_dkv(q, k, v, o, lse, do, causal: bool):
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     if bh == 0:
         return dk, dv
-    bf16 = q.dtype == torch.bfloat16
-    _call(_bf16_dkv_kernel() if bf16 else _dkv_kernel(),
-          "bf16 flash attention dK/dV" if bf16 else "flash attention dK/dV",
-          (q, k, v, o, lse, do, dk, dv), bh, t, dh, causal)
-    _count("BF16_DKV_LAUNCHES" if bf16 else "DKV_LAUNCHES", dh)
+    kernel, label, counter = _kernel_of(q.dtype, 2)
+    _call(kernel, label, (q, k, v, o, lse, do, dk, dv), bh, t, dh, causal)
+    _count(counter, dh)
     return dk, dv
 
 
 def flash_attention_forward(q, k, v, causal: bool = False):
     """Flash attention over (..., T, Dh) tensors of one shape and one dtype,
-    float32 or bfloat16. Returns ``(out, lse)``: out (..., T, Dh) in that
+    float32, bfloat16 or float16. Returns ``(out, lse)``: out (..., T, Dh) in that
     dtype and lse (..., T) float32."""
     _check(q, k, v)
     lead = q.shape[:-2]
@@ -273,7 +315,7 @@ def flash_attention_forward(q, k, v, causal: bool = False):
 
 def flash_attention_backward(q, k, v, o, lse, do, causal: bool = False):
     """Gradients ``(dq, dk, dv)`` of flash attention over (..., T, Dh)
-    tensors of one dtype (float32 or bfloat16), from the forward's output
+    tensors of one dtype (float32, bfloat16 or float16), from the forward's output
     ``o`` and float32 logsumexp ``lse`` (..., T) and the output's gradient
     ``do``. On CUDA tensors the dQ kernel, then the dK/dV kernel, on the
     current stream."""

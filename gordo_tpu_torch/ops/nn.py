@@ -3,7 +3,8 @@ Layer init/apply in PyTorch: the port's counterpart of
 ``gordo_tpu/ops/nn.py`` for the layers of the feedforward, Transformer,
 Switch-MoE Transformer, LSTM and TCN families (Dense, positional encoding,
 pre-LN Transformer block, MoE block, LSTM, TCN block, pooling), at the
-spec's ``compute_dtype``: float32 or bfloat16. A Dense layer with an
+spec's ``compute_dtype``: float32, bfloat16 or float16 (an LSTM layer not
+in float16: :func:`check_compute_dtype`). A Dense layer with an
 ``l1_activity`` and an MoE block with an ``aux_loss_weight`` add their
 penalties to the training loss (``forward_with_penalty``), as
 ``apply_model`` returns them.
@@ -64,7 +65,8 @@ from .lstm import lstm_recurrence
 Params = List[Dict[str, torch.Tensor]]
 
 # the compute dtypes the port runs; the parameters stay float32 at rest
-COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+                  "float16": torch.float16}
 
 # the vectors of the attention sublayer, viewed against x when stacked
 _ATTENTION_VECTORS = ("ln1_scale", "ln1_bias", "bq", "bk", "bv", "bo", "ln2_scale", "ln2_bias")
@@ -230,6 +232,22 @@ def check_windowed(spec: ModelSpec) -> None:
             f"LSTM layers need windows: this spec is unwindowed (lookback_window="
             f"{spec.lookback_window}, lookahead={spec.lookahead}), so its batches have no "
             f"time axis; set lookback_window >= 2")
+
+
+def check_compute_dtype(spec: ModelSpec) -> None:
+    """Refuse, on every device, a spec the port cannot run at its
+    ``compute_dtype``: one the port has no dtype for, and an LSTM layer at
+    float16, whose recurrence kernel (ops/lstm.py, csrc/lstm_recurrence.cu)
+    has no fp16 form yet (the JAX package runs it, a ``lax.scan``)."""
+    if spec.compute_dtype not in COMPUTE_DTYPES:
+        raise NotImplementedError(
+            f"compute_dtype {spec.compute_dtype!r} is not ported: the port runs "
+            f"{', '.join(COMPUTE_DTYPES)}")
+    if spec.compute_dtype == "float16" and spec.is_recurrent:
+        raise NotImplementedError(
+            "an LSTM layer at compute_dtype 'float16' is not ported yet: the LSTM "
+            "recurrence kernel has no fp16 form (see A12's LSTM part in ROADMAP.md "
+            "queue A); use float32 or bfloat16")
 
 
 def _matmul(x, w):
@@ -562,15 +580,17 @@ def stacked_forward(spec: ModelSpec, layer_params, x: torch.Tensor,
     layer of (B, ...) parameters (the JAX package's names, float32), x is
     (B, ..., T, features) (a serving batch: (B, n_pad, L, D) windows) and
     the output (B, ..., outputs) in float32, model b's rows through model
-    b's parameters. Under ``compute_dtype: bfloat16`` x and the parameters
-    are cast to bf16 as :class:`TransformerModel` casts them, so a lane
-    computes what the single model computes. The projections are batched
-    products, and attention folds the models into its batch, so each
-    Transformer or MoE block launches the flash forward once for all B
-    models; an LSTM layer launches the recurrence once for all of them. An
+    b's parameters. Under ``compute_dtype: bfloat16`` (or ``float16``) x
+    and the parameters are cast to it as :class:`TransformerModel` casts
+    them, so a lane computes what the single model computes. The
+    projections are batched products, and attention folds the models into
+    its batch, so each Transformer or MoE block launches the flash forward
+    once for all B models; an LSTM layer launches the recurrence once for
+    all of them. An
     MoE block routes each model's tokens apart (its own capacity, from its
     own token count) and runs the B x E experts as one batched product.
     ``routing``: a list that each MoE block appends its (B, ...) routing to."""
+    check_compute_dtype(spec)
     return _forward(spec, layer_params, x, COMPUTE_DTYPES[spec.compute_dtype], stacked=True,
                     routing=routing)
 
@@ -583,20 +603,22 @@ class TransformerModel(nn.Module):
     output (float32). The parameters are float32 and trainable
     (ops/train.py); serving runs under ``torch.inference_mode``.
 
-    Under ``compute_dtype: bfloat16`` each forward casts the input and every
-    parameter but an MoE router to bf16, as ``apply_model`` does, so every layer, the
-    attention kernels included, runs in bf16; autograd takes the gradients
-    back through the casts to the float32 parameters, as the JAX package's
-    gradient of its cast does. The output is cast to float32."""
+    Under ``compute_dtype: bfloat16`` or ``float16`` each forward casts the
+    input and every parameter but an MoE router to that dtype, as
+    ``apply_model`` does, so every layer, the attention kernels included,
+    runs in it; autograd takes the gradients back through the casts to the
+    float32 parameters, as the JAX package's gradient of its cast does. The
+    output is cast to float32. A spec with an LSTM layer at float16 is
+    refused here (:func:`check_compute_dtype`)."""
 
     def __init__(self, spec: ModelSpec, params, device: torch.device):
         super().__init__()
-        if spec.compute_dtype not in COMPUTE_DTYPES:
-            raise NotImplementedError(
-                f"compute_dtype {spec.compute_dtype!r} is not ported yet: see "
-                f"the float16 item of ROADMAP.md queue A"
-            )
+        check_compute_dtype(spec)
         self.compute_dtype = COMPUTE_DTYPES[spec.compute_dtype]
+        if self.compute_dtype == torch.float16 and torch.device(device).type == "cuda":
+            # fp16 products sum in float32, as the JAX package's do: cuBLAS
+            # may otherwise reduce in fp16 (a process-wide switch)
+            torch.backends.cuda.matmul.allow_fp16_reduced_precision_reduction = False
         check_windowed(spec)
         if len(params) != len(spec.layers):
             raise ValueError(

@@ -476,9 +476,10 @@ def _summary(values: np.ndarray) -> Dict[str, float]:
 def _kernel_libraries(spec: ModelSpec) -> Tuple[str, ...]:
     """The libraries (``ops/csrc/<stem>.cu``) of the hand-written kernels a
     bucket of ``spec`` launches in training: the flash forward and backward
-    of its dtype for attention blocks, the LSTM recurrence pair for LSTM
-    layers, none for the other families."""
-    suffix = "_bf16" if spec.compute_dtype == "bfloat16" else ""
+    of its dtype for attention blocks (bf16 and fp16 are two parts of one
+    pair of libraries), the LSTM recurrence pair for LSTM layers, none for
+    the other families."""
+    suffix = "" if spec.compute_dtype == "float32" else "_bf16"
     stems: Tuple[str, ...] = ()
     if any(isinstance(layer, (TransformerBlock, MoEBlock)) for layer in spec.layers):
         stems += (f"flash_attention{suffix}", f"flash_attention_bwd{suffix}")

@@ -8,7 +8,9 @@ pickle (``BaseJaxEstimator.__getstate__``: a list with one
 field names; ``estimator_from_arrays`` builds a port estimator of any
 family (a Transformer, an LSTM, a TCN, or the layers of an
 ``AutoEncoder`` or a ``RawModelRegressor``) on those parameters, and ``detector_from_arrays`` a
-port detector from them and the scaler arrays and thresholds. Nothing here
+port detector from them and the scaler arrays and thresholds. The spec's
+``compute_dtype`` (float32, bfloat16 or float16) carries across as it is:
+the parameters are float32 at rest on both sides. Nothing here
 imports the JAX package: unpickling a JAX artifact is the caller's job.
 """
 

@@ -509,10 +509,43 @@ def _join(value, d=""):
     return str(d).join(map(str, _defined(value)))
 
 
+class Markup(str):
+    """What Jinja's ``tojson`` returns: a copy of the parts of
+    ``markupsafe.Markup`` that a rendering in the subset can reach. It
+    prints as its text and shows as ``Markup('...')`` inside a printed list
+    or dict; an index, ``trim``, ``lower`` and ``upper`` keep it a Markup.
+    (Markup's ``+`` escapes what it adds; the subset refuses ``+`` and
+    ``~``.)"""
+
+    __slots__ = ()
+
+    def __repr__(self) -> str:
+        return f"Markup({super().__repr__()})"
+
+    def __getitem__(self, key) -> "Markup":
+        return Markup(super().__getitem__(key))
+
+    def strip(self, chars=None) -> "Markup":
+        return Markup(super().strip(chars))
+
+    def lower(self) -> "Markup":
+        return Markup(super().lower())
+
+    def upper(self) -> "Markup":
+        return Markup(super().upper())
+
+
+def _text(value) -> str:
+    """Jinja's ``soft_str``: a string as it is (a Markup stays one), else
+    its ``str``."""
+    value = _defined(value)
+    return value if isinstance(value, str) else str(value)
+
+
 def _tojson(value, indent=None):
     text = json.dumps(value, sort_keys=True, **({} if indent is None else {"indent": indent}))
-    return (text.replace("<", "\\u003c").replace(">", "\\u003e").replace("&", "\\u0026")
-            .replace("'", "\\u0027"))
+    return Markup(text.replace("<", "\\u003c").replace(">", "\\u003e").replace("&", "\\u0026")
+                  .replace("'", "\\u0027"))
 
 
 def _check_json(value) -> None:
@@ -554,9 +587,9 @@ FILTERS = {
     "default": _default,
     "join": _join,
     "tojson": _tojson,
-    "trim": lambda value, chars=None: str(_defined(value)).strip(chars),
-    "lower": lambda value: str(_defined(value)).lower(),
-    "upper": lambda value: str(_defined(value)).upper(),
+    "trim": lambda value, chars=None: _text(value).strip(chars),
+    "lower": lambda value: _text(value).lower(),
+    "upper": lambda value: _text(value).upper(),
     "int": _int,
     "float": _float,
     "length": lambda value: len(value),

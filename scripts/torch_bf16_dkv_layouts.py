@@ -29,8 +29,8 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parents[1]
 DC = "  static constexpr int DC = DH == 256 ? 128 : DH > 128 ? 64 : DH;"
-OWN_DK = "      if constexpr (DC > 64) {\n        fence_regs(dka);"
-FRESH_DK = "      if constexpr (false) {\n        fence_regs(dka);"
+OWN_DK = "      if constexpr (DC > 64) {\n        if constexpr (Elem<E>::SCALED) {\n          float c0"
+FRESH_DK = "      if constexpr (false) {\n        if constexpr (Elem<E>::SCALED) {\n          float c0"
 LAYOUTS = {
     "source": [],
     "fresh_dk": [("flash_attention_bwd_bf16.cu", DC,

@@ -83,10 +83,10 @@ VARIANTS = {
       }
       fence_regs(o);
       wgmma_fence();
-      rs_product<DH, NC>(o, a, v_desc, true);
+      rs_product<DH, NC, E>(o, a, v_desc, true);
 """, """      fence_regs(f);
       wgmma_fence();
-      rs_product<DH, NC>(f, a, v_desc, false);
+      rs_product<DH, NC, E>(f, a, v_desc, false);
 """), (FWD, """      fence_regs(o);
       fence_split(a);
 """, """      fence_regs(f);
@@ -103,9 +103,9 @@ VARIANTS = {
       fence_regs(dp);
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < S_STEPS; ++kk) Wgmma<BQ>::ss(sa, ka(kk), qb(kk), kk > 0);
+      for (int kk = 0; kk < S_STEPS; ++kk) Wgmma<BQ, E>::ss(sa, ka(kk), qb(kk), kk > 0);
 #pragma unroll
-      for (int kk = 0; kk < DH / 16; ++kk) Wgmma<BQ>::ss(dp, va(kk), gb(kk), kk > 0);
+      for (int kk = 0; kk < DH / 16; ++kk) Wgmma<BQ, E>::ss(dp, va(kk), gb(kk), kk > 0);
       wgmma_commit();
 """, """#pragma unroll
       for (int kk = 0; kk < DH / 16; ++kk) {
@@ -113,8 +113,8 @@ VARIANTS = {
         fence_regs(fs);
         fence_regs(fd);
         wgmma_fence();
-        Wgmma<BQ>::ss(fs, ka(kk), qb(kk), 0);
-        Wgmma<BQ>::ss(fd, va(kk), gb(kk), 0);
+        Wgmma<BQ, E>::ss(fs, ka(kk), qb(kk), 0);
+        Wgmma<BQ, E>::ss(fd, va(kk), gb(kk), 0);
         wgmma_commit();
         wgmma_wait<0>();
         fence_regs(fs);
@@ -128,42 +128,37 @@ VARIANTS = {
 """)],
     "dkv_dv_tile": [(BWD, """      fence_regs(dva);
       wgmma_fence();
-      rs_product<DC, NC>(dva, pa, gmn, true);
+      rs_product<DC, NC, E>(dva, pa, gmn, true);
       wgmma_commit();
 """, """      {
         float f[DC / 2];
-        rs_fresh<DC, NC>(f, pa, gmn);
+        rs_fresh<DC, NC, E>(f, pa, gmn);
 #pragma unroll
         for (int i = 0; i < DC / 2; ++i) dva[i] += f[i];
       }
 """)],
-    "dkv_dk_loop": [(BWD, """      } else {
-        float f[DC / 2];
-        rs_fresh<DC, NC>(f, da, qmn);
-#pragma unroll
-        for (int i = 0; i < DC / 2; ++i) dka[i] += f[i];
-      }
-""", """      } else {
-        fence_regs(dka);
-        wgmma_fence();
-        rs_product<DC, NC>(dka, da, qmn, true);
-        wgmma_commit();
-        wgmma_wait<0>();
-        fence_regs(dka);
-      }
-""")],
+    "dkv_dk_loop": [(BWD, """      if constexpr (DC > 64) {
+        if constexpr (Elem<E>::SCALED) {
+          float c0, c1;
+          dk_scale.update(dp, c0, c1);
+""", """      if constexpr (true) {  // dK in its own accumulator at every DC
+        if constexpr (Elem<E>::SCALED) {
+          float c0, c1;
+          dk_scale.update(dp, c0, c1);
+"""), (BWD, "      if constexpr (DC > 64) fk = scale * (half ? dk_scale.inv1() : dk_scale.inv0());",
+           "      fk = scale * (half ? dk_scale.inv1() : dk_scale.inv0());")],
     "dq_sdp_step": [(BWD, """      fence_regs(sc);
       fence_regs(dp);
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < DH / 16; ++kk) {
-        Wgmma<BN>::ss(sc, L::k_major(q_tile, BLOCK_M, 64 * wg, kk),
-                      L::k_major(k_tile, BN, 0, kk), kk > 0);
+        Wgmma<BN, E>::ss(sc, L::k_major(q_tile, BLOCK_M, 64 * wg, kk),
+                         L::k_major(k_tile, BN, 0, kk), kk > 0);
       }
 #pragma unroll
       for (int kk = 0; kk < DH / 16; ++kk) {
-        Wgmma<BN>::ss(dp, L::k_major(do_tile, BLOCK_M, 64 * wg, kk),
-                      L::k_major(v_tile, BN, 0, kk), kk > 0);
+        Wgmma<BN, E>::ss(dp, L::k_major(do_tile, BLOCK_M, 64 * wg, kk),
+                         L::k_major(v_tile, BN, 0, kk), kk > 0);
       }
       wgmma_commit();
 """, """#pragma unroll
@@ -172,10 +167,10 @@ VARIANTS = {
         fence_regs(fs);
         fence_regs(fd);
         wgmma_fence();
-        Wgmma<BN>::ss(fs, L::k_major(q_tile, BLOCK_M, 64 * wg, kk),
-                      L::k_major(k_tile, BN, 0, kk), 0);
-        Wgmma<BN>::ss(fd, L::k_major(do_tile, BLOCK_M, 64 * wg, kk),
-                      L::k_major(v_tile, BN, 0, kk), 0);
+        Wgmma<BN, E>::ss(fs, L::k_major(q_tile, BLOCK_M, 64 * wg, kk),
+                         L::k_major(k_tile, BN, 0, kk), 0);
+        Wgmma<BN, E>::ss(fd, L::k_major(do_tile, BLOCK_M, 64 * wg, kk),
+                         L::k_major(v_tile, BN, 0, kk), 0);
         wgmma_commit();
         wgmma_wait<0>();
         fence_regs(fs);
@@ -192,10 +187,10 @@ VARIANTS = {
     float f[DH / 2];        // dS K of the pending tile
 """), (BWD, """      fence_regs(acc);
       wgmma_fence();
-      rs_product<DH, NC>(acc, a, k_desc, true);
+      rs_product<DH, NC, E>(acc, a, k_desc, true);
 """, """      fence_regs(f);
       wgmma_fence();
-      rs_product<DH, NC>(f, a, k_desc, false);
+      rs_product<DH, NC, E>(f, a, k_desc, false);
 """), (BWD, """      fence_regs(acc);
       fence_split(a);
 """, """      fence_regs(f);
@@ -203,14 +198,14 @@ VARIANTS = {
       for (int i = 0; i < DH / 2; ++i) acc[i] += f[i];
       fence_split(a);
 """)],
-    "dq_two_parts": [(BWD, "      rs_product<DH, NC>(acc, a, k_desc, true);\n", """#pragma unroll
+    "dq_two_parts": [(BWD, "      rs_product<DH, NC, E>(acc, a, k_desc, true);\n", """#pragma unroll
       for (int part = 1; part < 3; ++part) {
 #pragma unroll
-        for (int c = 0; c < NC; ++c) Wgmma<DH>::rs(acc, a[c][part], k_desc(c), 1);
+        for (int c = 0; c < NC; ++c) Wgmma<DH, E>::rs(acc, a[c][part], k_desc(c), 1);
       }
 """)],
-    "dq_one_part": [(BWD, "      rs_product<DH, NC>(acc, a, k_desc, true);\n", """#pragma unroll
-      for (int c = 0; c < NC; ++c) Wgmma<DH>::rs(acc, a[c][2], k_desc(c), 1);
+    "dq_one_part": [(BWD, "      rs_product<DH, NC, E>(acc, a, k_desc, true);\n", """#pragma unroll
+      for (int c = 0; c < NC; ++c) Wgmma<DH, E>::rs(acc, a[c][2], k_desc(c), 1);
 """)],
     # dQ's D = rowsum(dO O) by float32 fmas on the CUDA cores, from the
     # shared O and dO tiles, instead of the diagonal of dO O^T on the tensor
@@ -222,14 +217,14 @@ VARIANTS = {
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < DH / 16; ++kk) {
-          Wgmma<BN>::ss(dp, L::k_major(do_tile, BLOCK_M, 64 * wg, kk),
-                        L::k_major(o_tile, BN, 0, kk), kk > 0);
+          Wgmma<BN, E>::ss(dp, L::k_major(do_tile, BLOCK_M, 64 * wg, kk),
+                           L::k_major(o_tile, BN, 0, kk), kk > 0);
         }
         if constexpr (BN == 32) {
 #pragma unroll
           for (int kk = 0; kk < DH / 16; ++kk) {
-            Wgmma<BN>::ss(sc, L::k_major(do_tile, BLOCK_M, 64 * wg, kk),
-                          L::k_major(v_slot + s * C::KV_BYTES, BN, 0, kk), kk > 0);
+            Wgmma<BN, E>::ss(sc, L::k_major(do_tile, BLOCK_M, 64 * wg, kk),
+                             L::k_major(v_slot + s * C::KV_BYTES, BN, 0, kk), kk > 0);
           }
         }
         wgmma_commit();
@@ -264,10 +259,10 @@ VARIANTS = {
         float part0 = 0.f, part1 = 0.f;
 #pragma unroll
         for (int ch = tq; ch < DH / 8; ch += 4) {
-          part0 = dot8(*reinterpret_cast<const uint4*>(o_slot(r) + L::offset(BN, r % BN, 8 * ch)),
+          part0 = dot8<E>(*reinterpret_cast<const uint4*>(o_slot(r) + L::offset(BN, r % BN, 8 * ch)),
                        *reinterpret_cast<const uint4*>(
                            do_rows + L::offset(BLOCK_M, 64 * wg + r, 8 * ch)), part0);
-          part1 = dot8(*reinterpret_cast<const uint4*>(
+          part1 = dot8<E>(*reinterpret_cast<const uint4*>(
                            o_slot(r + 8) + L::offset(BN, (r + 8) % BN, 8 * ch)),
                        *reinterpret_cast<const uint4*>(
                            do_rows + L::offset(BLOCK_M, 64 * wg + r + 8, 8 * ch)), part1);
@@ -282,12 +277,12 @@ VARIANTS = {
       }
 #pragma unroll
       for (int kk = 0; kk < DH / 16; ++kk) {
-        Wgmma<BN>::ss(dp,""", """                      L::k_major(k_tile, BN, 0, kk), kk > 0);
+        Wgmma<BN, E>::ss(dp,""", """                      L::k_major(k_tile, BN, 0, kk), kk > 0);
       }
       wgmma_commit();
 #pragma unroll
       for (int kk = 0; kk < DH / 16; ++kk) {
-        Wgmma<BN>::ss(dp,"""), (BWD, """      wgmma_wait<1>();
+        Wgmma<BN, E>::ss(dp,"""), (BWD, """      wgmma_wait<1>();
       fence_regs(sc);
       fence_regs(dp);
       if (kt == mine - 1) mbar_arrive_warp(&q_empty[b]);  // the last read of Q and dO
@@ -351,9 +346,9 @@ VARIANTS = {
   mid = pack_high(r0, r1);
   lo = pack_high(r0 - truncate_bf16(r0), r1 - truncate_bf16(r1));""",
                   "  hi = mid = lo = pack_high(x0, x1);")],
-    "fwd_no_pv": [(FWD, "      rs_product<DH, NC>(o, a, v_desc, true);\n", "")],
-    "fwd_no_s": [(FWD, """        Wgmma<BN>::ss(sc, L::k_major(q_tile, BLOCK_M, 64 * wg, kk),
-                      L::k_major(k_tile, BN, 0, kk), kk > 0);
+    "fwd_no_pv": [(FWD, "      rs_product<DH, NC, E>(o, a, v_desc, true);\n", "")],
+    "fwd_no_s": [(FWD, """        Wgmma<BN, E>::ss(sc, L::k_major(q_tile, BLOCK_M, 64 * wg, kk),
+                         L::k_major(k_tile, BN, 0, kk), kk > 0);
 """, "")],
 }
 DIAGNOSTIC = {"no_split", "fwd_no_pv", "fwd_no_s", "fwd_kv_head0"}

@@ -11,7 +11,9 @@
   same metadata structure, splits, offset and ``model_meta`` strings), and
   the JAX package's bf16 artifact carried across and served by both
   servers (the same blocks, model outputs within the bf16 tolerance);
-- what the wrappers and the model refuse (float16, mixed dtypes);
+- what the wrappers and the model refuse (float64, mixed dtypes; an LSTM
+  layer at float16, tests/test_torch_float16.py holding the rest of
+  float16);
 - the bf16 kernels' arithmetic, emulated: P (or dS) split into three bf16
   parts is float32-accurate, and fewer parts are not; and the wgmma
   kernels' order of summation (truncated float32 sums, chains as deep as
@@ -312,14 +314,14 @@ def test_dispatcher_sends_bf16_to_the_flash_path():
 @pytest.mark.parametrize(
     "make",
     [
-        lambda q: (q.half(),) * 3,  # float16: not a compute dtype of any config
+        lambda q: (q.double(),) * 3,  # float64: no kernel takes it
         lambda q: (q.bfloat16(), q, q),  # mixed dtypes
         lambda q: (q, q.bfloat16(), q.bfloat16()),
     ],
 )
 def test_wrappers_refuse_float16_and_mixed_dtypes(make):
     q = torch.zeros(2, 16, 16)
-    with pytest.raises(TypeError, match="dtype|float32 or bfloat16"):
+    with pytest.raises(TypeError, match="dtype|float32, bfloat16 or float16"):
         fa.flash_attention_forward(*make(q))
 
 
@@ -331,10 +333,17 @@ def test_backward_wrapper_refuses_mixed_dtypes():
 
 
 def test_transformer_model_refuses_float16():
-    jax_spec, params = _jax_setup("flash")
-    spec = dataclasses.replace(spec_from_dataclass(jax_spec), compute_dtype="float16")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        nn.TransformerModel(spec, params_from_numpy(spec, params), torch.device("cpu"))
+    """float16 runs everywhere but in an LSTM layer, whose recurrence kernel
+    has no fp16 form: a spec with one is refused on the CPU too."""
+    from gordo_tpu_torch.models.factories.lstm_autoencoder import lstm_model
+
+    spec = dataclasses.replace(lstm_model(4, lookback_window=8), compute_dtype="float16")
+    params = nn.init_model_params(spec, torch.Generator().manual_seed(0))
+    with pytest.raises(NotImplementedError, match="LSTM.*ROADMAP"):
+        nn.TransformerModel(spec, params, torch.device("cpu"))
+    transformer = dataclasses.replace(spec_from_dataclass(_jax_setup("flash")[0]),
+                                      compute_dtype="float16")
+    nn.TransformerModel(transformer, nn.init_model_params(transformer), torch.device("cpu"))
 
 
 def _split(x: torch.Tensor, parts: int) -> list:

@@ -80,39 +80,45 @@ def _fake_nvcc(tmp_path, monkeypatch, fail="none"):
 
 def test_a_source_in_parts_is_compiled_at_once_and_linked_into_one_library(
         csrc, tmp_path, monkeypatch):
-    """A source of PARTS compiles as that many translation units
+    """Each source of PARTS compiles as that many translation units
     (-DGORDO_PART=0..n-1, -c, no -shared), started with every other source
     before any is waited for, then links into its one library; each other
     source is one nvcc to its library."""
     calls = _fake_nvcc(tmp_path, monkeypatch)
     libs = _build.build_all()
     runs = calls()
-    parts = _build.PARTS["lstm_recurrence"]
-    assert parts > 1
+    assert _build.PARTS["lstm_recurrence"] > 1
+    assert set(_build.PARTS) >= {"lstm_recurrence", "flash_attention_bf16",
+                                 "flash_attention_bwd_bf16"}
     compiled = [r for r in runs if "-c" in r["args"]]
-    assert sorted(a for r in compiled for a in r["args"] if a.startswith("-DGORDO_PART=")) == [
-        f"-DGORDO_PART={i}" for i in range(parts)]
-    assert all("-shared" not in r["args"] and r["args"][-1].endswith("lstm_recurrence.cu")
-               for r in compiled)
     links = [r for r in runs if "-c" not in r["args"] and not r["args"][-1].endswith(".cu")]
-    assert len(links) == 1 and "-shared" in links[0]["args"]
-    assert sorted(Path(a).name.split(".")[1] for a in links[0]["args"] if a.endswith(".o")) == [
-        f"part{i}" for i in range(parts)]
+    assert len(links) == len(_build.PARTS) and all("-shared" in r["args"] for r in links)
+    for stem, parts in _build.PARTS.items():
+        mine = [r for r in compiled if r["args"][-1].endswith(f"/{stem}.cu")]
+        assert sorted(a for r in mine for a in r["args"] if a.startswith("-DGORDO_PART=")) == [
+            f"-DGORDO_PART={i}" for i in range(parts)]
+        assert all("-shared" not in r["args"] for r in mine)
+        link, = [r for r in links
+                 if Path(r["args"][r["args"].index("-o") + 1]).name.startswith(f"lib{stem}.tmp-")]
+        assert sorted(Path(a).name.split(".")[1] for a in link["args"] if a.endswith(".o")) == [
+            f"part{i}" for i in range(parts)]
+        assert _build.BUILD_LOGS[stem].count("Used 40 registers") == parts + 1
     whole = {Path(r["args"][-1]).stem for r in runs if r["args"][-1].endswith(".cu")
              and "-c" not in r["args"]}
-    assert whole == {p.stem for p in csrc.glob("*.cu")} - {"lstm_recurrence"}
+    assert whole == {p.stem for p in csrc.glob("*.cu")} - set(_build.PARTS)
     # every part started before the first ended: compiled at once
     assert max(r["started"] for r in compiled) < min(r["ended"] for r in compiled)
     assert sorted(libs) == sorted(p.stem for p in csrc.glob("*.cu"))
     assert all(lib.read_text() == "built" for lib in libs.values())
     assert not list(libs["lstm_recurrence"].parent.glob("*.o"))  # the objects are removed
-    assert _build.BUILD_LOGS["lstm_recurrence"].count("Used 40 registers") == parts + 1
 
 
 def test_a_failed_part_leaves_no_library_and_names_its_source(csrc, tmp_path, monkeypatch):
     """One part that fails to compile fails the build, naming the source:
-    its library is not linked, the other sources' libraries are built."""
-    _fake_nvcc(tmp_path, monkeypatch, fail="-DGORDO_PART=3")
+    its library is not linked, the other sources' libraries are built
+    (part 4: lstm_recurrence.cu is the one source with five parts)."""
+    assert [stem for stem, parts in _build.PARTS.items() if parts > 4] == ["lstm_recurrence"]
+    _fake_nvcc(tmp_path, monkeypatch, fail="-DGORDO_PART=4")
     with pytest.raises(RuntimeError, match="nvcc failed on lstm_recurrence.cu"):
         _build.build_all()
     built = {p.name for p in _build._build_dir().glob("*.so")}

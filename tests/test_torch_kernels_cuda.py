@@ -358,6 +358,100 @@ def test_wgmma_kernels_at_ragged_lengths_across_heads(cuda_device, dh, t, causal
     _assert_bf16_close(runs[0][0], exact[0].to(torch.bfloat16), "dq vs float64", exact[0])
 
 
+# --- fp16: the bf16 sources' fp16 instantiations ---
+
+F16_ULP = 2.0 ** -10  # one fp16 ulp, relative to the value
+F16_SUBNORMAL = 2.0 ** -24  # fp16's least subnormal: its ulp below 2^-14
+TOL_F16_SHARE = 0.01
+
+
+def _assert_f16_close(got, ref, name, exact=None, atol=1e-6, ulp=True):
+    """chip_smoke.py's fp16 gate (``_f16_gate``): every element within one
+    fp16 ulp of the reference's (at least fp16's least subnormal, plus
+    ``atol``: 1e-6 times the scale of dO), at most 1% of them different at
+    all; elements exactly 0 in float64 held to |x| <= ``atol``. Against the
+    float32 twin (``ulp`` false) only the share: the twin's own error near
+    0 is of the order of ``atol``, so it is no judge of one ulp there."""
+    a, b = got.float(), ref.float()
+    bound = torch.clamp(F16_ULP * torch.maximum(a.abs(), b.abs()), min=F16_SUBNORMAL) + atol
+    ok = (a - b).abs() <= bound
+    differs = a != b
+    if exact is not None:
+        zero = exact == 0
+        ok = torch.where(zero, a.abs() <= atol, ok)
+        differs = differs & ~zero
+    assert bool(ok.all()) or not ulp, name
+    assert differs.float().mean().item() <= TOL_F16_SHARE, name
+
+
+def _f16_inputs(shape, seed, device, do_scale=1.0):
+    g = torch.Generator(device=device).manual_seed(seed)
+    q, k, v, do = (torch.randn(shape, device=device, generator=g) for _ in range(4))
+    return [x.half() for x in (q, k, v, do * do_scale)]
+
+
+def _f16_against_twins(q, k, v, do, causal, do_scale):
+    """Forward, dQ and dK/dV (the backward twice) against the float64 twin
+    rounded to fp16 and, by share, the float32 twin; returns the launches
+    made."""
+    before = (fa.F16_LAUNCHES, fa.F16_DQ_LAUNCHES, fa.F16_DKV_LAUNCHES)
+    out, lse = fa.flash_attention_forward(q, k, v, causal)
+    runs = [(fa.launch_dq(q, k, v, out, lse, do, causal),
+             *fa.launch_dkv(q, k, v, out, lse, do, causal)) for _ in range(2)]
+    torch.cuda.synchronize()
+    launched = tuple(b - a for a, b in zip(before, (fa.F16_LAUNCHES, fa.F16_DQ_LAUNCHES,
+                                                    fa.F16_DKV_LAUNCHES)))
+    assert out.dtype == torch.float16 and lse.dtype == torch.float32
+    ref_out, ref_lse = fa.flash_attention_forward_plain(q, k, v, causal)
+    _assert_f16_close(out, ref_out, "out", ulp=False)
+    exact_out = fa.flash_attention_forward_plain(q.double(), k.double(), v.double(), causal)[0]
+    _assert_f16_close(out, exact_out.half(), "out vs float64")
+    assert ((lse - ref_lse).abs() <= TOL_BF16_LSE_REL * ref_lse.abs().clamp_min(1.0)).all()
+    refs = fa.flash_attention_backward_plain(q, k, v, out, lse, do, causal)
+    exact = _exact_backward(q, k, v, out, lse, do, causal)
+    for name, got, again, ref, ref64 in zip(("dq", "dk", "dv"), *runs, refs, exact):
+        assert got.dtype == torch.float16
+        _assert_f16_close(got, ref, name, ref64, 1e-6 * do_scale, ulp=False)
+        _assert_f16_close(got, ref64.half(), f"{name} vs float64", ref64, 1e-6 * do_scale)
+        assert torch.equal(got, again), name  # no atomics: bit-identical reruns
+    return launched
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("do_scale", [1.0, 1e-4])
+@pytest.mark.parametrize("shape, causal", BACKWARD_SHAPES)
+def test_f16_kernels_match_plain_on_the_card(cuda_device, shape, causal, do_scale):
+    """At the training shapes and the small and wide ones, with dO at unit
+    scale and at 1e-4 (where an unscaled split of dS would be subnormal)."""
+    q, k, v, do = _f16_inputs(shape, 12, cuda_device, do_scale)
+    assert _f16_against_twins(q, k, v, do, causal, do_scale) == (1, 2, 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("do_scale", [1.0, 1e-4])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("t", WGMMA_T)
+@pytest.mark.parametrize("dh", [16, 32] + BF16_RAGGED_DIMS)
+def test_f16_kernels_at_ragged_lengths_across_heads(cuda_device, dh, t, causal, do_scale):
+    q, k, v, do = _f16_inputs((3, t, dh), 13, cuda_device, do_scale)
+    assert _f16_against_twins(q, k, v, do, causal, do_scale) == (1, 2, 2)
+
+
+@pytest.mark.cuda
+def test_f16_autograd_goes_through_the_f16_kernels(cuda_device):
+    from gordo_tpu_torch.ops.attention import dot_product_attention
+
+    q, k, v = (x.requires_grad_() for x in _f16_inputs((2, 4, 144, 16), 14, cuda_device)[:3])
+    counters = ("LAUNCHES", "DQ_LAUNCHES", "DKV_LAUNCHES", "BF16_LAUNCHES", "BF16_DQ_LAUNCHES",
+                "BF16_DKV_LAUNCHES", "F16_LAUNCHES", "F16_DQ_LAUNCHES", "F16_DKV_LAUNCHES")
+    before = [getattr(fa, name) for name in counters]
+    out = dot_product_attention(q, k, v, True, impl="auto")
+    grads = torch.autograd.grad(out.float().square().sum(), (q, k, v))
+    torch.cuda.synchronize()
+    assert [getattr(fa, name) - n for name, n in zip(counters, before)] == [0] * 6 + [1] * 3
+    assert all(g.dtype == torch.float16 and torch.isfinite(g).all() for g in grads)
+
+
 # ------------------------------------------------------------ the LSTM recurrence
 # (M, B, T, U): compressor-b's (the legacy route), lstm_ae_144's, a ragged
 # batch, U 128, 256 and 512 (clusters of 2 to 16 CTAs; float32 U 512

@@ -147,8 +147,14 @@ def test_init_matches_jax_shapes_and_bounds():
 
 
 def test_unported_layers_and_dtypes_raise():
-    # the MoE block is ported (tests/test_torch_moe.py); bfloat16 is ported
-    # (tests/test_torch_bf16.py); float16 is not
-    fp16 = dataclasses.replace(transformer_model(**SMALL), compute_dtype="float16")
-    with pytest.raises(NotImplementedError, match="float16 item of ROADMAP"):
-        nn.TransformerModel(fp16, nn.init_model_params(fp16), torch.device("cpu"))
+    # the MoE block is ported (tests/test_torch_moe.py); bfloat16 and
+    # float16 are ported (tests/test_torch_bf16.py, tests/test_torch_float16.py)
+    # but for an LSTM layer at float16; float64 is no compute dtype
+    from gordo_tpu_torch.models.factories.lstm_autoencoder import lstm_model
+
+    lstm16 = dataclasses.replace(lstm_model(4, lookback_window=8), compute_dtype="float16")
+    with pytest.raises(NotImplementedError, match="A12's LSTM part in ROADMAP"):
+        nn.TransformerModel(lstm16, nn.init_model_params(lstm16), torch.device("cpu"))
+    fp64 = dataclasses.replace(transformer_model(**SMALL), compute_dtype="float64")
+    with pytest.raises(NotImplementedError, match="'float64' is not ported"):
+        nn.TransformerModel(fp64, nn.init_model_params(fp64), torch.device("cpu"))

@@ -187,6 +187,9 @@ WHITESPACE = [
     "{%- set n = 2 -%}\n  {{ n }}\n",
     "{{ p -}}\n  {{- p }}\r\nend\r\n",
     "kind: {{ p | default('x') }}\n\n",
+    # tojson's Markup inside a printed list (ROADMAP C5), and after a filter
+    "{{ [0 | tojson] }}",
+    "{{ [p | tojson | trim, p | tojson | upper] }}\n",
 ]
 
 
